@@ -1,0 +1,338 @@
+"""CogVideoX-class diffusion transformer (DiT) as a PyTorch ``nn.Module``.
+
+Port of ``aether_tpu/models/dit.py`` on its default inference path: the fused
+QKV projection, the fused attention prologue (kernel K1) and the prepacked
+fixed-max flash attention (kernel K2) in every block. Structure per block
+(joint text+video stream, text first): adaLN-Zero -> joint self-attention with
+per-head QK LayerNorm and 3D RoPE on video tokens -> gated residual ->
+adaLN-Zero -> 4x GELU(tanh) MLP -> gated residual. The 42 blocks are a Python
+loop over a ``ModuleList``.
+
+Numerics follow the JAX module: LayerNorm is the shifted single-pass form in
+f32; adaLN modulation, gates and GELU run in f32 and round to the compute
+dtype; linear layers return the input dtype.
+
+Weights use PyTorch's ``[out, in]`` layout; ``io/from_jax.py`` converts the JAX
+parameter tree, and :func:`init_dit` draws seeded random weights on a device
+with the JAX init's distributions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from aether_tpu_torch.config import DiTConfig
+from aether_tpu_torch.ops.attn_prologue import _pick_pad_and_block, fused_joint_attention
+from aether_tpu_torch.utils.env import env_flag
+
+
+def timestep_embedding(
+    timesteps: torch.Tensor,
+    dim: int,
+    flip_sin_to_cos: bool = True,
+    downscale_freq_shift: float = 0.0,
+    max_period: float = 10000.0,
+) -> torch.Tensor:
+    """Sinusoidal embedding, [B] -> [B, dim] (f32)."""
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half - downscale_freq_shift)
+    emb = timesteps.float()[:, None] * torch.exp(exponent)[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    if flip_sin_to_cos:
+        emb = torch.cat([emb[:, half:], emb[:, :half]], dim=-1)
+    return emb
+
+
+def layer_norm(
+    x: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 with single-pass moments shifted by
+    the row's first element (the JAX formulation); returns x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    y0 = x - x[..., :1]
+    mean_y = y0.mean(dim=-1, keepdim=True)
+    var = torch.clamp((y0 * y0).mean(dim=-1, keepdim=True) - mean_y * mean_y,
+                      min=0.0)
+    y = (y0 - mean_y) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)
+
+
+class Linear(nn.Module):
+    """``y = x W^T + b`` in x's dtype (PyTorch weight layout [out, in])."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(d_out, d_in))
+        self.bias = nn.Parameter(torch.empty(d_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class AdaLayerNormZero(nn.Module):
+    """CogVideoXLayerNormZero: LN + per-stream shift/scale; returns gates too."""
+
+    def __init__(self, te: int, d: int):
+        super().__init__()
+        self.linear = Linear(te, 6 * d)
+        self.ln_scale = nn.Parameter(torch.empty(d))
+        self.ln_bias = nn.Parameter(torch.empty(d))
+
+    def forward(self, x, enc, temb, eps: float):
+        ada = self.linear(F.silu(temb.float()).to(temb.dtype)).float()
+        shift, scale, gate, e_shift, e_scale, e_gate = ada.chunk(6, dim=-1)
+        x_n = layer_norm(x, self.ln_scale, self.ln_bias, eps)
+        x_n = (x_n.float() * (1 + scale[:, None]) + shift[:, None]).to(x.dtype)
+        e_n = layer_norm(enc, self.ln_scale, self.ln_bias, eps)
+        e_n = (e_n.float() * (1 + e_scale[:, None]) + e_shift[:, None]).to(enc.dtype)
+        return x_n, e_n, gate[:, None], e_gate[:, None]
+
+
+def attention_qk_int8() -> bool:
+    """Resolve the AETHER_ATTN_* settings to the one path the port has.
+
+    The defaults (FUSED=1, FIXED_MAX=1, QK8=1, PV8=0) run K1 + K2. A setting
+    that needs a kernel not ported yet raises ``NotImplementedError``; QK8=0
+    returns False and runs the float variant, which exists only as the plain
+    version (CPU tensors; the wrappers raise on CUDA)."""
+    missing = []
+    if not env_flag("AETHER_ATTN_FUSED", True):
+        missing.append("AETHER_ATTN_FUSED=0 needs kernel K3 (_flash_kernel_fixed_max)")
+    if not env_flag("AETHER_ATTN_FIXED_MAX", True):
+        missing.append("AETHER_ATTN_FIXED_MAX=0 needs kernel K4 (_flash_kernel)")
+    if env_flag("AETHER_ATTN_PV8", False):
+        missing.append("AETHER_ATTN_PV8=1 needs kernel K6 (_flash_kernel_pv8)")
+    if missing:
+        raise NotImplementedError(
+            "; ".join(missing) + ": not ported yet (ROADMAP.md, queue 2)")
+    return env_flag("AETHER_ATTN_QK8", True)
+
+
+class Attention(nn.Module):
+    """Joint attention: fused [q|k|v] projection -> K1 -> K2 -> o-projection."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.qkv = Linear(d, 3 * d)
+        self.o = Linear(d, d)
+        self.norm_q_scale = nn.Parameter(torch.empty(cfg.head_dim))
+        self.norm_q_bias = nn.Parameter(torch.empty(cfg.head_dim))
+        self.norm_k_scale = nn.Parameter(torch.empty(cfg.head_dim))
+        self.norm_k_bias = nn.Parameter(torch.empty(cfg.head_dim))
+        self.cfg = cfg
+
+    def forward(self, hidden, enc, rope_cos, rope_sin, qk_int8: bool):
+        cfg = self.cfg
+        text_len = enc.shape[1]
+        s = text_len + hidden.shape[1]
+        d = cfg.hidden_size
+        # the token padding to the kernel's tile multiple rides the joint
+        # concat, and the qkv matmul runs over the padded rows
+        s_pad = _pick_pad_and_block(s, 1024)[0]
+        parts = [enc, hidden]
+        if s_pad != s:
+            parts.append(hidden.new_zeros(hidden.shape[0], s_pad - s, hidden.shape[-1]))
+        y = self.qkv(torch.cat(parts, dim=1))  # [B, S_pad, 3D]
+        attn = fused_joint_attention(
+            y[..., :d], y[..., d:2 * d], y[..., 2 * d:],
+            self.norm_q_scale, self.norm_q_bias,
+            self.norm_k_scale, self.norm_k_bias, rope_cos, rope_sin,
+            num_heads=cfg.num_heads, head_dim=cfg.head_dim, eps=cfg.qk_norm_eps,
+            quantize=qk_int8, s_valid=s,
+        )
+        out = self.o(attn[:, :s])
+        return out[:, text_len:], out[:, :text_len]
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.w1 = Linear(cfg.hidden_size, cfg.mlp_dim)
+        self.w2 = Linear(cfg.mlp_dim, cfg.hidden_size)
+
+    def forward(self, x):
+        h = self.w1(x)
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
+        return self.w2(h)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        self.norm1 = AdaLayerNormZero(cfg.time_embed_dim, cfg.hidden_size)
+        self.attn = Attention(cfg)
+        self.norm2 = AdaLayerNormZero(cfg.time_embed_dim, cfg.hidden_size)
+        self.mlp = MLP(cfg)
+        self.eps = cfg.norm_eps
+
+    def forward(self, hid, enc, temb, rope_cos, rope_sin, qk_int8: bool):
+        h_n, e_n, gate, e_gate = self.norm1(hid, enc, temb, self.eps)
+        attn_h, attn_e = self.attn(h_n, e_n, rope_cos, rope_sin, qk_int8)
+        hid = hid + (gate * attn_h.float()).to(hid.dtype)
+        enc = enc + (e_gate * attn_e.float()).to(enc.dtype)
+
+        h_n, e_n, gate, e_gate = self.norm2(hid, enc, temb, self.eps)
+        ff = self.mlp(torch.cat([e_n, h_n], dim=1))
+        text_len = enc.shape[1]
+        hid = hid + (gate * ff[:, text_len:].float()).to(hid.dtype)
+        enc = enc + (e_gate * ff[:, :text_len].float()).to(enc.dtype)
+        return hid, enc
+
+
+class TimeEmbedding(nn.Module):
+    def __init__(self, d_in: int, te: int):
+        super().__init__()
+        self.w1 = Linear(d_in, te)
+        self.w2 = Linear(te, te)
+
+    def forward(self, emb):
+        return self.w2(F.silu(self.w1(emb).float()).to(emb.dtype))
+
+
+class DiT(nn.Module):
+    """The denoiser. ``forward`` mirrors ``aether_tpu.models.dit.dit_forward``
+    with ``attn_impl="flash"`` and the fused prologue."""
+
+    def __init__(self, cfg: DiTConfig):
+        super().__init__()
+        if cfg.patch_size_t is not None or cfg.ofs_embed_dim is not None:
+            raise NotImplementedError(
+                "the CogVideoX-1.5 patch_size_t / ofs branch is not ported yet "
+                "(ROADMAP.md, queue 1)")
+        d, p = cfg.hidden_size, cfg.patch_size
+        self.cfg = cfg
+        self.proj = Linear(cfg.in_channels * p * p, d)
+        self.text_proj = Linear(cfg.text_embed_dim, d)
+        self.time_embed = TimeEmbedding(d, cfg.time_embed_dim)
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
+        self.norm_final_scale = nn.Parameter(torch.empty(d))
+        self.norm_final_bias = nn.Parameter(torch.empty(d))
+        self.norm_out = Linear(cfg.time_embed_dim, 2 * d)
+        self.norm_out_ln_scale = nn.Parameter(torch.empty(d))
+        self.norm_out_ln_bias = nn.Parameter(torch.empty(d))
+        self.proj_out = Linear(d, p * p * cfg.out_channels)
+
+    def _patchify(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, F, C, H, W] -> [B, F*(H/p)*(W/p), D]; token features ordered
+        (c, ph, pw) like a torch Conv2d(k=p, s=p)."""
+        b, f, c, h, w = x.shape
+        p = self.cfg.patch_size
+        x = x.reshape(b, f, c, h // p, p, w // p, p).permute(0, 1, 3, 5, 2, 4, 6)
+        return self.proj(x.reshape(b, f * (h // p) * (w // p), c * p * p))
+
+    def _unpatchify(self, tokens, f: int, hp: int, wp: int) -> torch.Tensor:
+        b = tokens.shape[0]
+        p, c = self.cfg.patch_size, self.cfg.out_channels
+        x = tokens.reshape(b, f, hp, wp, c, p, p).permute(0, 1, 4, 2, 5, 3, 6)
+        return x.reshape(b, f, c, hp * p, wp * p)
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        encoder_hidden_states: torch.Tensor,
+        timestep: torch.Tensor,
+        rope_cos: Optional[torch.Tensor] = None,
+        rope_sin: Optional[torch.Tensor] = None,
+        qk_int8: Optional[bool] = None,
+        collect_blocks: bool = False,
+    ):
+        """Denoiser forward.
+
+        Args:
+            hidden_states: [B, F, C_in, H_lat, W_lat] noisy + condition latents.
+            encoder_hidden_states: [B, S_text, text_embed_dim].
+            timestep: [B] diffusion timesteps.
+            rope_cos / rope_sin: (S_video, head_dim) tables or None.
+            qk_int8: int8 attention operands; None reads AETHER_ATTN_QK8.
+            collect_blocks: also return every block's (video, text) output.
+        Returns:
+            [B, F, C_out, H_lat, W_lat] v-prediction (and the block outputs).
+        """
+        cfg = self.cfg
+        if qk_int8 is None:
+            qk_int8 = attention_qk_int8()
+        b, f, _, h, w = hidden_states.shape
+        p = cfg.patch_size
+        dtype = hidden_states.dtype
+
+        t_emb = timestep_embedding(timestep, cfg.hidden_size, cfg.flip_sin_to_cos,
+                                   cfg.freq_shift).to(dtype)
+        temb = self.time_embed(t_emb)
+
+        video = self._patchify(hidden_states)
+        text = self.text_proj(encoder_hidden_states.to(dtype))
+
+        # the video tables extend over the text prefix with the identity
+        # rotation (cos 1, sin 0): text tokens get no RoPE
+        text_len = text.shape[1]
+        if rope_cos is not None:
+            dev = hidden_states.device
+            hd = rope_cos.shape[-1]
+            rc = torch.cat([torch.ones(text_len, hd, device=dev),
+                            rope_cos.to(device=dev, dtype=torch.float32)])
+            rs = torch.cat([torch.zeros(text_len, hd, device=dev),
+                            rope_sin.to(device=dev, dtype=torch.float32)])
+        else:
+            rc = rs = None
+
+        collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        for block in self.blocks:
+            video, text = block(video, text, temb, rc, rs, qk_int8)
+            if collect_blocks:
+                collected.append((video, text))
+
+        joint = torch.cat([text, video], dim=1)
+        joint = layer_norm(joint, self.norm_final_scale, self.norm_final_bias,
+                           cfg.norm_eps)
+        x = joint[:, text_len:]
+        ada = self.norm_out(F.silu(temb.float()).to(dtype)).float()
+        shift, scale = ada.chunk(2, dim=-1)
+        x = layer_norm(x, self.norm_out_ln_scale, self.norm_out_ln_bias, cfg.norm_eps)
+        x = (x.float() * (1 + scale[:, None]) + shift[:, None]).to(dtype)
+        x = self.proj_out(x)
+        out = self._unpatchify(x, f, h // p, w // p)
+        if collect_blocks:
+            return out, collected
+        return out
+
+
+@torch.no_grad()
+def init_dit(cfg: DiTConfig, *, device="cpu", dtype=torch.float32,
+             seed: int = 0) -> DiT:
+    """Seeded random DiT on ``device`` with the JAX init's distributions:
+    linear weights and biases uniform(+-1/sqrt(fan_in)), norm scales 1 and
+    biases 0. Parameters are created on the device directly (no host copy of
+    the ~11 GB bf16 AetherV1 weights)."""
+    with torch.device("meta"):
+        model = DiT(cfg).to(dtype)
+    model = model.to_empty(device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, Linear):
+            bound = 1.0 / math.sqrt(mod.weight.shape[1])
+            mod.weight.uniform_(-bound, bound, generator=gen)
+            mod.bias.uniform_(-bound, bound, generator=gen)
+    for name, param in model.named_parameters():
+        if name.endswith(("scale",)):
+            param.fill_(1.0)
+        elif name.endswith(("norm_q_bias", "norm_k_bias", "ln_bias",
+                            "norm_final_bias")):
+            param.zero_()
+    return model

@@ -1,0 +1,137 @@
+"""Build the port's CUDA kernels (``csrc/*.cu``) and bind them with ``ctypes``.
+
+Every kernel source is compiled by ``nvcc`` into ONE shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/libaether_<hash>.so csrc/*.cu
+
+The library lands in ``aether_tpu_torch/_build/`` (ignored by git), named by a
+hash of the sources and flags, so the first call after a checkout builds it and
+later calls in any process reuse it. ``--use_fast_math`` is deliberately absent:
+it changes division, ``sqrtf`` and ``exp2f``, and the int8 codes of the
+attention prologue depend on them.
+
+Nothing here runs at import time: ``lib()`` builds on first use. A failed build
+raises with ``nvcc``'s stderr; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Optional
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # report registers / spills per kernel; changes no code
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C entry points: name -> argtypes. Every function returns cudaGetLastError().
+SIGNATURES = {
+    "aether_qkv_prologue": [
+        _P, _P, _P,          # xq, xk, xv (bf16, [B, S_in, H*D] views)
+        _I, _I,              # stride_b, stride_s (elements)
+        _P, _P, _P, _P,      # gq, bq, gk, bk (f32, [D])
+        _P, _P, _I,          # rope cos, sin (f32, [rope_rows, D]) or null, rope_rows
+        _I, _I, _I,          # B, S_in, H
+        _I, _I, _I, _I,      # s_pad, s_valid, block, hper
+        _F, _F, _F, _F,      # eps, fold, fold/127, 1/127
+        _P, _P, _P,          # q8, k8 (int8), v (bf16): [B*H, s_pad, D]
+        _P, _P, _P, _P,      # qsc, qn, ksc, kn (f32, [G, T])
+        _P,                  # scratch (u32, [G, T, 4])
+        _P,                  # stream
+    ],
+    "aether_flash_prepacked": [
+        _P, _P, _P,          # q8, k8 (int8), v (bf16): [B*H, s_pad, D]
+        _P, _P, _P, _P,      # qsc, ksc, qn, kn (f32, [G, T])
+        _P,                  # out (bf16, [B*H, s_pad, D])
+        _I, _I, _I,          # BH, s_pad, s_valid
+        _I, _I, _I,          # hper, block, n_tiles
+        _P,                  # stream
+    ],
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+# what the last build printed (ptxas register/spill report), for smoke runs
+BUILD_LOG = {"path": None, "ptxas": ""}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _digest(cu, cuh) -> str:
+    h = hashlib.sha256()
+    for path in list(cu) + list(cuh):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile ``csrc/*.cu`` into ``_build/libaether_<hash>.so`` unless it exists."""
+    cu, cuh = _sources()
+    out = BUILD_DIR / f"libaether_{_digest(cu, cuh)}.so"
+    if out.exists():
+        BUILD_LOG.update(path=str(out))
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *(str(p) for p in cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stderr}{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    BUILD_LOG.update(path=str(out), ptxas=proc.stderr)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The kernel library, built on first use, with every argtype declared."""
+    global _LIB
+    if _LIB is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = handle
+    return _LIB
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

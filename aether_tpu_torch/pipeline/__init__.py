@@ -1,0 +1,5 @@
+from aether_tpu_torch.pipeline.aether import (  # noqa: F401
+    AetherPipeline,
+    AetherPipelineOutput,
+    TorchNoise,
+)

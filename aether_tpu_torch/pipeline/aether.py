@@ -1,0 +1,424 @@
+"""AetherV1 pipeline, reconstruction task, in PyTorch.
+
+Port of the reconstruction path of ``aether_tpu/pipeline/aether.py``
+(``AetherPipeline.__call__(task="reconstruction")``): uint8 upload -> tiled,
+8-frame-chunked VAE encode with latent-space feathered seams -> one posterior
+draw -> condition packing (16 content + 24 zero camera channels) -> SDE-DPM-
+Solver++(2M) denoise of the DiT (guidance 1, so no CFG pair) -> stacked RGB +
+disparity VAE decode in 2-latent-frame chunks, tiled with pixel-space seams ->
+RGB clip, disparity square, raymap unfold.
+
+The port runs eagerly: the denoise loop is a Python loop over steps, the DiT a
+loop over blocks. Every random draw goes through a noise source
+(:class:`TorchNoise` by default, a ``torch.Generator`` on the pipeline's
+device), which tests replace with the JAX pipeline's key streams.
+
+Not in this slice (ROADMAP.md): prediction, planning and CFG,
+``batch_reconstruct``, meshes, quantized weight formats, compact wires and
+``defer_host``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from aether_tpu_torch.config import PipelineConfig
+from aether_tpu_torch.models.dit import DiT
+from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
+from aether_tpu_torch.models.vae import VAE, decode_frames, encode_moments
+from aether_tpu_torch.schedule.dpm import SamplingPlan, dpm_step, make_sampling_plan
+from aether_tpu_torch.utils.preprocess import preprocess_video_u8
+
+
+@dataclasses.dataclass
+class AetherPipelineOutput:
+    rgb: np.ndarray  # (F, H, W, 3) in [0, 1]
+    disparity: np.ndarray  # (F, H, W)
+    raymap: np.ndarray  # (F, 6, H/8, W/8)
+    # host-clock seconds per stage (encode, denoise, decode), each ended by a
+    # device synchronize
+    stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+class TorchNoise:
+    """The pipeline's own draws: one ``torch.Generator`` on the device, seeded
+    per call, consumed in a fixed order (posterior, initial, then one SDE draw
+    per step), so equal seeds give equal outputs."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+
+    def _normal(self, shape):
+        return torch.randn(tuple(shape), generator=self.gen, device=self.device,
+                           dtype=torch.float32)
+
+    def posterior(self, shape):
+        """Channels-last (1, F_lat, h, w, C) posterior noise."""
+        return self._normal(shape)
+
+    def initial(self, shape):
+        """(1, F_lat, 56, h, w) initial latent noise."""
+        return self._normal(shape)
+
+    def sde(self, step: int, shape):
+        """(1, F_lat, 56, h, w) SDE noise of denoise step ``step``."""
+        return self._normal(shape)
+
+
+@contextlib.contextmanager
+def _stage(name: str, times: Dict[str, float], device: torch.device):
+    """Time one pipeline stage on the host clock, ended by a device
+    synchronize, inside a profiler range ``aether.<name>`` (free unless a
+    profiler is running)."""
+    with torch.profiler.record_function(f"aether.{name}"):
+        t0 = time.perf_counter()
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times[name] = time.perf_counter() - t0
+
+
+def _u8_to_unit(pixels_u8: np.ndarray, dtype, device) -> torch.Tensor:
+    """uint8 pixels -> [-1, 1] on the device (the upload moves uint8)."""
+    return torch.from_numpy(np.ascontiguousarray(pixels_u8)).to(device).to(dtype) / 127.5 - 1.0
+
+
+def pack_raymap(raymap: torch.Tensor, temporal_ratio: int = 4) -> torch.Tensor:
+    """(B, F, 6, h, w) -> (B, F/4, 24, h, w) via the strided "(n t) c -> t (n c)"
+    fold; front-pads by repeating the first frames when F % 4 != 0."""
+    b, f = raymap.shape[:2]
+    if f % temporal_ratio != 0:
+        pad = temporal_ratio - f % temporal_ratio
+        raymap = torch.cat([raymap[:, :pad], raymap], dim=1)
+        f = f + pad
+    t = f // temporal_ratio
+    x = raymap.reshape(b, temporal_ratio, t, *raymap.shape[2:])
+    x = x.movedim(1, 2)
+    return x.reshape(b, t, temporal_ratio * raymap.shape[2], *raymap.shape[3:])
+
+
+def unpack_raymap(camera_latents: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """(B, T, 24, h, w) -> (B, F, 6, h, w): inverse fold, keep the last F frames."""
+    b, t, nc, h, w = camera_latents.shape
+    n = 4
+    x = camera_latents.reshape(b, t, n, nc // n, h, w).movedim(2, 1)
+    return x.reshape(b, n * t, nc // n, h, w)[:, -num_frames:]
+
+
+def _chunk_bounds(t: int, frame_batch_size: int):
+    """Chunk spans of diffusers' framewise mode: the first chunk absorbs the
+    remainder."""
+    n_chunks = max(t // frame_batch_size, 1)
+    remaining = t % frame_batch_size if t > frame_batch_size else 0
+    start = 0
+    for i in range(n_chunks):
+        end = min(frame_batch_size + remaining if i == 0 else
+                  start + frame_batch_size, t)
+        yield start, end
+        start = end
+
+
+def _encode_moments_chunked(vae: VAE, video: torch.Tensor,
+                            frame_batch_size: int = 8):
+    """(B, F, H, W, 3) in [-1, 1] -> channels-last (mean, logvar), 8-frame
+    chunks with conv caches (per-chunk GroupNorm statistics are the
+    checkpoint's numerics)."""
+    means, logvars, cache = [], [], None
+    for start, end in _chunk_bounds(video.shape[1], frame_batch_size):
+        mean, logvar, cache = encode_moments(vae, video[:, start:end], cache)
+        means.append(mean)
+        logvars.append(logvar)
+    return torch.cat(means, dim=1), torch.cat(logvars, dim=1)
+
+
+def _finish_encode(config: PipelineConfig, dtype, mean, logvar,
+                   noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """Posterior sample + latent scaling -> (1, F_lat, C, h, w)."""
+    if noise is not None:
+        logvar = torch.clamp(logvar.float(), -30.0, 20.0)
+        lat = mean.float() + torch.exp(0.5 * logvar) * noise
+    else:
+        lat = mean.float()
+    lat = lat.movedim(-1, 2)
+    scale = config.vae.scaling_factor
+    if config.vae.invert_scale_latents:
+        return (lat / scale).to(dtype)
+    return (lat * scale).to(dtype)
+
+
+def _tile_spans(n: int, tile: int, min_overlap: int) -> list:
+    """Uniform-size tile spans covering [0, n) with >= min_overlap overlap."""
+    if n <= tile:
+        return [(0, n)]
+    count = math.ceil((n - tile) / (tile - min_overlap)) + 1
+    stride = (n - tile) / (count - 1)
+    return [
+        (min(int(round(i * stride)), n - tile),
+         min(int(round(i * stride)), n - tile) + tile)
+        for i in range(count)
+    ]
+
+
+def _feather(prev: torch.Tensor, curr: torch.Tensor, prev_end: int,
+             span: Tuple[int, int], axis: int) -> torch.Tensor:
+    """Stitch ``curr`` (covering span) onto ``prev`` (covering [0, prev_end))
+    along ``axis`` with a linear cross-fade over the overlap."""
+    start, end = span
+    overlap = prev_end - start
+    w_shape = [1] * prev.ndim
+    w_shape[axis] = overlap
+    weight = torch.linspace(1.0, 0.0, overlap, device=prev.device).reshape(
+        w_shape).to(prev.dtype)
+    blended = (prev.narrow(axis, start, overlap) * weight
+               + curr.narrow(axis, 0, overlap) * (1.0 - weight))
+    return torch.cat([prev.narrow(axis, 0, start), blended,
+                      curr.narrow(axis, overlap, end - start - overlap)], dim=axis)
+
+
+def _tiled_moments(config: PipelineConfig, vae: VAE, video: torch.Tensor,
+                   frame_batch_size: int, tile_latent: Tuple[int, int],
+                   min_overlap: Tuple[int, int]):
+    """Spatially tiled moment encode with latent-space feathered seams;
+    None when one tile covers the frame."""
+    s = config.vae_scale_factor_spatial
+    h, w = video.shape[2:4]
+    row_spans = _tile_spans(h // s, tile_latent[0], min_overlap[0])
+    col_spans = _tile_spans(w // s, tile_latent[1], min_overlap[1])
+    if len(row_spans) == 1 and len(col_spans) == 1:
+        return None
+    merged, rows_prev_end = None, 0
+    for r0, r1 in row_spans:
+        row, prev_end = None, 0
+        for c0, c1 in col_spans:
+            tile = video[:, :, r0 * s:r1 * s, c0 * s:c1 * s]
+            moments = _encode_moments_chunked(vae, tile, frame_batch_size)
+            row = moments if row is None else tuple(
+                _feather(a, b, prev_end, (c0, c1), axis=3)
+                for a, b in zip(row, moments))
+            prev_end = c1
+        merged = row if merged is None else tuple(
+            _feather(a, b, rows_prev_end, (r0, r1), axis=2)
+            for a, b in zip(merged, row))
+        rows_prev_end = r1
+    return merged
+
+
+def _encode_pixels_tiled(config: PipelineConfig, dtype, vae: VAE,
+                         frames: torch.Tensor, noise_source,
+                         frame_batch_size: int = 8,
+                         tile_latent: Tuple[int, int] = (32, 90),
+                         min_overlap: Tuple[int, int] = (4, 6)) -> torch.Tensor:
+    """Tiled encode of (F, H, W, 3) in [-1, 1]: per-tile moments, feathered
+    seams, ONE posterior draw over the blended moments (the untiled path's
+    noise shape). ``noise_source=None`` returns the posterior mean."""
+    moments = _tiled_moments(config, vae, frames[None], frame_batch_size,
+                             tile_latent, min_overlap)
+    if moments is None:
+        moments = _encode_moments_chunked(vae, frames[None], frame_batch_size)
+    mean, logvar = moments
+    noise = None if noise_source is None else noise_source.posterior(mean.shape)
+    return _finish_encode(config, dtype, mean, logvar, noise)
+
+
+def _decode_pixels(config: PipelineConfig, dtype, vae: VAE,
+                   latents_16: torch.Tensor, frame_batch_size: int = 2) -> torch.Tensor:
+    """(B, F_lat, C, h, w) scaled latents -> (B, F, H, W, 3) in ``dtype``;
+    2-latent-frame chunks with conv caches and per-chunk statistics."""
+    z = (latents_16.float() / config.vae.scaling_factor).movedim(2, -1)
+    outs, cache = [], None
+    for start, end in _chunk_bounds(z.shape[1], frame_batch_size):
+        video, cache = decode_frames(vae, z[:, start:end].to(dtype), cache)
+        outs.append(video)
+    return torch.cat(outs, dim=1)
+
+
+def _decode_pixels_tiled(config: PipelineConfig, dtype, vae: VAE,
+                         latents_16: torch.Tensor, frame_batch_size: int = 2,
+                         tile_latent: Tuple[int, int] = (32, 90),
+                         min_overlap: Tuple[int, int] = (4, 6)) -> torch.Tensor:
+    """Spatially tiled decode, seams feather-blended in pixel space."""
+    s = config.vae_scale_factor_spatial
+    h_lat, w_lat = latents_16.shape[-2:]
+    row_spans = _tile_spans(h_lat, tile_latent[0], min_overlap[0])
+    col_spans = _tile_spans(w_lat, tile_latent[1], min_overlap[1])
+    merged_rows, rows_prev_end = None, 0
+    for r0, r1 in row_spans:
+        merged, prev_end = None, 0
+        for c0, c1 in col_spans:
+            tile = _decode_pixels(config, dtype, vae,
+                                  latents_16[:, :, :, r0:r1, c0:c1],
+                                  frame_batch_size)
+            merged = tile if merged is None else _feather(
+                merged, tile, prev_end * s, (c0 * s, c1 * s), axis=3)
+            prev_end = c1
+        merged_rows = merged if merged_rows is None else _feather(
+            merged_rows, merged, rows_prev_end * s, (r0 * s, r1 * s), axis=2)
+        rows_prev_end = r1
+    return merged_rows
+
+
+def _decode_rgb_and_disparity(config: PipelineConfig, dtype, vae: VAE,
+                              latents: torch.Tensor, tiling: bool):
+    """RGB and disparity 16-channel streams decoded as ONE batch-2B pass.
+    Returns (rgb, disparity_raw), each (B, F, H, W, 3) in ``dtype``."""
+    lat_c = config.vae.latent_channels
+    b = latents.shape[0]
+    both = torch.cat([latents[:, :, :lat_c], latents[:, :, lat_c:2 * lat_c]], dim=0)
+    decode = _decode_pixels_tiled if tiling else _decode_pixels
+    out = decode(config, dtype, vae, both)
+    return out[:b], out[b:]
+
+
+def _finish_rgb(rgb_decoded: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(rgb_decoded.float() * 0.5 + 0.5, 0.0, 1.0)
+
+
+def _finish_disparity(disp_decoded: torch.Tensor) -> torch.Tensor:
+    ds = disp_decoded.float().mean(dim=-1) * 0.5 + 0.5
+    return ds * ds
+
+
+def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
+             condition_latents: torch.Tensor, plan: SamplingPlan,
+             rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+             noise_source) -> torch.Tensor:
+    """SDE-DPM-Solver++(2M) loop without CFG. Latents are carried in the
+    compute dtype, ``old_x0`` in f32. Returns (B, F_lat, 56, h, w)."""
+    b, f_lat, _, h_lat, w_lat = condition_latents.shape
+    shape = (b, f_lat, 56, h_lat, w_lat)
+    lat = (noise_source.initial(shape) * plan.init_noise_sigma).to(dtype)
+    old_x0 = torch.zeros(shape, dtype=torch.float32, device=lat.device)
+    for i in range(plan.num_steps):
+        model_in = torch.cat([lat, condition_latents], dim=2)
+        t_batch = plan.timesteps[i].expand(b)
+        noise_pred = dit(model_in, text, t_batch, rope_cos, rope_sin).float()
+        sde_noise = noise_source.sde(i, shape)
+        new_lat, old_x0 = dpm_step(plan, i, lat.float(), noise_pred, old_x0,
+                                   sde_noise)
+        lat = new_lat.to(dtype)
+    return lat
+
+
+class AetherPipeline:
+    """Reconstruction sampler over a :class:`DiT` and a :class:`VAE` on one
+    device. ``empty_prompt_embeds`` is the cached (1, 226, 4096) empty-prompt
+    T5 embedding."""
+
+    def __init__(self, config: PipelineConfig, dit: DiT, vae: VAE,
+                 empty_prompt_embeds, *, device=None, compute_dtype=torch.bfloat16):
+        self.config = config
+        self.device = torch.device(device) if device is not None else next(
+            dit.parameters()).device
+        self.dit = dit.to(self.device).eval()
+        self.vae = vae.to(self.device).eval()
+        self.compute_dtype = compute_dtype
+        text = torch.as_tensor(empty_prompt_embeds).to(device=self.device,
+                                                       dtype=compute_dtype)
+        self.empty_prompt_embeds = text[None] if text.ndim == 2 else text
+
+    def check_inputs(self, task, video, height, width, num_frames, fps,
+                     guidance_scale) -> None:
+        cfg = self.config
+        if task != "reconstruction":
+            raise NotImplementedError(
+                f"task {task!r} is not ported yet (ROADMAP.md, queue 1: "
+                "prediction and planning, with CFG)")
+        if video is None:
+            raise ValueError("`video` has to be provided.")
+        if guidance_scale > 1.0:
+            raise NotImplementedError(
+                "classifier-free guidance is not ported yet (ROADMAP.md, "
+                "queue 1: prediction and planning, with CFG)")
+        if height % 8 != 0 or width % 8 != 0:
+            raise ValueError(
+                f"`height` and `width` have to be divisible by 8 but are {height} and {width}.")
+        if num_frames not in cfg.allowed_num_frames:
+            raise ValueError(
+                f"`num_frames` has to be one of {list(cfg.allowed_num_frames)}.")
+        if fps not in cfg.allowed_fps:
+            raise ValueError(f"`fps` has to be one of {list(cfg.allowed_fps)}.")
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        task: str = "reconstruction",
+        video=None,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        num_frames: Optional[int] = None,
+        num_inference_steps: Optional[int] = None,
+        guidance_scale: Optional[float] = None,
+        fps: Optional[int] = None,
+        seed: Optional[int] = None,
+        noise=None,
+    ) -> AetherPipelineOutput:
+        """Reconstruct one window. ``noise`` replaces the default
+        :class:`TorchNoise` (it needs ``posterior``, ``initial`` and ``sde``)."""
+        cfg = self.config
+        height = height or cfg.dit.sample_height * cfg.vae_scale_factor_spatial
+        width = width or cfg.dit.sample_width * cfg.vae_scale_factor_spatial
+        num_frames = num_frames or max(cfg.allowed_num_frames)
+        fps = fps or cfg.base_fps
+        if num_inference_steps is None:
+            num_inference_steps = dict(cfg.default_num_inference_steps)[task]
+        if guidance_scale is None:
+            guidance_scale = dict(cfg.default_guidance_scale).get(task, 1.0)
+        self.check_inputs(task, video, height, width, num_frames, fps,
+                          guidance_scale)
+
+        dev, dtype = self.device, self.compute_dtype
+        if noise is None:
+            noise = TorchNoise(seed if seed is not None else 0, dev)
+        lat_c = cfg.vae.latent_channels
+        h_lat = height // cfg.vae_scale_factor_spatial
+        w_lat = width // cfg.vae_scale_factor_spatial
+        f_lat = (num_frames - 1) // cfg.vae_scale_factor_temporal + 1
+        # tile the VAE when the frame exceeds one 32x48-latent tile
+        tiling = h_lat > 32 or w_lat > 48
+        times: Dict[str, float] = {}
+
+        # host-side precomputation: pixels, sampling plan, rope tables
+        pixels = preprocess_video_u8(video, height, width)
+        plan = make_sampling_plan(cfg.scheduler, num_inference_steps, device=dev)
+        rope_cos, rope_sin = (torch.from_numpy(t).to(dev) for t in
+                              prepare_rotary_positional_embeddings(
+                                  cfg.dit, height, width, f_lat,
+                                  vae_scale_factor_spatial=cfg.vae_scale_factor_spatial,
+                                  base_fps=cfg.base_fps, fps=fps))
+
+        # ---- stage 1: tiled, chunked VAE encode of the video condition ----
+        with _stage("encode", times, dev):
+            frames = _u8_to_unit(pixels, dtype, dev)
+            if tiling:
+                condition = _encode_pixels_tiled(cfg, dtype, self.vae, frames, noise)
+            else:
+                mean, logvar = _encode_moments_chunked(self.vae, frames[None])
+                condition = _finish_encode(cfg, dtype, mean, logvar,
+                                           noise.posterior(mean.shape))
+            camera = torch.zeros((1, f_lat, 24, h_lat, w_lat), dtype=dtype, device=dev)
+            condition_latents = torch.cat([condition, camera], dim=2)
+
+        # ---- stage 2: denoise ----
+        with _stage("denoise", times, dev):
+            latents = _denoise(cfg, dtype, self.dit, self.empty_prompt_embeds,
+                               condition_latents, plan, rope_cos, rope_sin, noise)
+
+        # ---- stage 3: stacked decode + output transforms ----
+        with _stage("decode", times, dev):
+            rgb, disparity = _decode_rgb_and_disparity(cfg, dtype, self.vae, latents,
+                                                       tiling)
+            rgb = _finish_rgb(rgb)[0].cpu().numpy()
+            disparity = _finish_disparity(disparity)[0].cpu().numpy()
+            raymap = unpack_raymap(latents[:, :, 2 * lat_c:].float(),
+                                   num_frames)[0].cpu().numpy()
+        return AetherPipelineOutput(rgb=rgb, disparity=disparity, raymap=raymap,
+                                    stage_seconds=times)

@@ -1,0 +1,235 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``aether_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (each prints its result; any failure raises and exits non-zero):
+  1. the device and its name / power limit from nvidia-smi;
+  2. builds the Hopper kernels from ``aether_tpu_torch/csrc`` (nvcc);
+  3. K1 (``qkv_prologue``) against ``qkv_prologue_plain`` at the main-path
+     shape: B=1, 15076 tokens padded to 15360, 48 heads, head_dim 64, bf16;
+  4. K2 (``flash_attention_prepacked``) against its plain version on K1's
+     outputs;
+  5. builds ``AetherPipeline`` on the AetherV1 config with seeded random bf16
+     weights on the GPU and a seeded (1, 226, 4096) prompt embedding;
+  6. runs two 41-frame 480x720 reconstruction requests (4 steps, same input
+     and seed) and checks shapes, finiteness, the RGB range, 168 launches of
+     each kernel per request, and bit-identical outputs.
+The line before the last is a JSON object with each kernel's launches, error
+against its plain version and times; the last line is the JSON status line.
+There is no CPU path: without CUDA the script raises.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEQ, TEXT, HEADS, HEAD_DIM = 15076, 226, 48, 64
+FRAMES, HEIGHT, WIDTH, STEPS = 41, 480, 720, 4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_time_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` runs after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
+    from aether_tpu_torch.config import PipelineConfig
+    from aether_tpu_torch.models import init_dit, init_vae
+    from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
+    from aether_tpu_torch.ops import _build
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue, qkv_prologue_plain
+    from aether_tpu_torch.ops.flash_attention import (
+        flash_attention_prepacked,
+        flash_attention_prepacked_plain,
+    )
+    from aether_tpu_torch.pipeline import AetherPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # ---- 1. device ----
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
+        f"torch={torch.__version__} cuda={torch.version.cuda}")
+    log(smi)  # the card's name and power limit, exactly as nvidia-smi gives them
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    _build.lib()
+    log(f"build: {time.perf_counter() - t0:.3f} s -> {_build.BUILD_LOG['path']}")
+    for line in _build.BUILD_LOG["ptxas"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # ---- 3. K1 at the main-path shape ----
+    cfg = PipelineConfig.aetherv1()
+    d = HEADS * HEAD_DIM
+    s_pad = 15360
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    y = torch.randn((1, s_pad, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+    y[:, SEQ:] = 0  # the DiT pads the joint stream with zero rows
+    xq, xk, xv = y[..., :d], y[..., d:2 * d], y[..., 2 * d:]
+    norms = [1.0 + 0.1 * torch.randn(HEAD_DIM, generator=gen, device=dev),
+             0.1 * torch.randn(HEAD_DIM, generator=gen, device=dev),
+             1.0 + 0.1 * torch.randn(HEAD_DIM, generator=gen, device=dev),
+             0.1 * torch.randn(HEAD_DIM, generator=gen, device=dev)]
+    f_lat = (FRAMES - 1) // 4 + 1
+    cos, sin = prepare_rotary_positional_embeddings(
+        cfg.dit, HEIGHT, WIDTH, f_lat, vae_scale_factor_spatial=8, base_fps=12, fps=12)
+    rc = torch.cat([torch.ones(TEXT, HEAD_DIM), torch.from_numpy(cos)]).to(dev)
+    rs = torch.cat([torch.zeros(TEXT, HEAD_DIM), torch.from_numpy(sin)]).to(dev)
+    check(rc.shape[0] == SEQ, f"rope rows {rc.shape[0]} != {SEQ}")
+    kw = dict(num_heads=HEADS, head_dim=HEAD_DIM, eps=cfg.dit.qk_norm_eps, s_valid=SEQ)
+
+    def k1():
+        return qkv_prologue(xq, xk, xv, *norms, rc, rs, **kw)
+
+    def k1_plain():
+        return qkv_prologue_plain(xq, xk, xv, *norms, rc, rs, **kw)
+
+    got, ref = k1(), k1_plain()
+    torch.cuda.synchronize()
+    check(got[7] == ref[7] == s_pad, f"s_pad {got[7]} / {ref[7]}")
+    k1_err = 0
+    for name, a, b in (("q8", got[0], ref[0]), ("k8", got[1], ref[1])):
+        check(a.dtype == torch.int8 and a.shape == b.shape, f"{name} {a.dtype} {a.shape}")
+        diff = (a.int() - b.int()).abs()
+        frac = (diff > 0).float().mean().item()
+        k1_err = max(k1_err, int(diff.max().item()))
+        log(f"K1 {name}: max code diff {int(diff.max().item())}, "
+            f"differing fraction {frac:.3e}")
+        check(diff.max().item() <= 1 and frac <= 1e-4, f"K1 {name} codes disagree")
+    check(torch.equal(got[2], ref[2]), "K1 v is not bit-exact")
+    check(bool((got[2].view(1, HEADS, s_pad, HEAD_DIM)[:, :, SEQ:] == 0).all()),
+          "K1 v pad rows not zero")
+    for name, a, b in zip(("qsc", "qn", "ksc", "kn"), got[3:7], ref[3:7]):
+        rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+        log(f"K1 {name}: shape {tuple(a.shape)} max rel err {rel:.3e}")
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+    k1_ms = cuda_time_ms(k1, 20)
+    k1_plain_ms = cuda_time_ms(k1_plain, 3)
+    log(f"K1 time: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
+
+    # ---- 4. K2 on K1's outputs ----
+    q8, k8, v, qsc, qn, ksc, kn, _ = got
+    kw2 = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=SEQ)
+
+    def k2():
+        return flash_attention_prepacked(q8, k8, v, **kw2)
+
+    def k2_plain():
+        return flash_attention_prepacked_plain(q8, k8, v, **kw2)
+
+    out, out_ref = k2(), k2_plain()
+    torch.cuda.synchronize()
+    check(out.shape == out_ref.shape == (HEADS, s_pad, HEAD_DIM), f"K2 shape {out.shape}")
+    err = (out.float() - out_ref.float()).abs()
+    k2_max, k2_mean = err.max().item(), err.mean().item()
+    log(f"K2: max abs err {k2_max:.3e}, mean abs err {k2_mean:.3e}")
+    check(k2_max <= 1e-2 and k2_mean <= 1e-3, "K2 disagrees with its plain version")
+    k2_ms = cuda_time_ms(k2, 5)
+    k2_plain_ms = cuda_time_ms(k2_plain, 2)
+    flops = 4.0 * HEADS * s_pad * s_pad * HEAD_DIM
+    log(f"K2 time: kernel {k2_ms:.4f} ms ({flops / k2_ms / 1e9:.1f} TFLOP/s "
+        f"padded-shape work), plain {k2_plain_ms:.4f} ms")
+    del y, xq, xk, xv, got, ref, out, out_ref, err, q8, k8, v
+    torch.cuda.empty_cache()
+
+    # ---- 5. the pipeline on the AetherV1 config ----
+    t0 = time.perf_counter()
+    dit = init_dit(cfg.dit, device=dev, dtype=torch.bfloat16, seed=0)
+    vae = init_vae(cfg.vae, device=dev, dtype=torch.bfloat16, seed=1)
+    prompt = torch.randn((1, cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
+                         generator=gen, device=dev)
+    pipe = AetherPipeline(cfg, dit, vae, prompt, device=dev,
+                          compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in dit.parameters())
+    log(f"pipeline: AetherV1 DiT {n_params / 1e9:.3f}B params + VAE, bf16, "
+        f"built in {time.perf_counter() - t0:.3f} s")
+
+    # ---- 6. two reconstruction requests ----
+    video = np.random.default_rng(7).integers(0, 256, (FRAMES, HEIGHT, WIDTH, 3),
+                                              dtype=np.uint8)
+    qkv_prologue.launches = 0
+    flash_attention_prepacked.launches = 0
+    outs = []
+    for req in range(2):
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = (qkv_prologue.launches, flash_attention_prepacked.launches)
+        t0 = time.perf_counter()
+        res = pipe(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
+                   num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1_n = qkv_prologue.launches - before[0]
+        k2_n = flash_attention_prepacked.launches - before[1]
+        stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+        log(f"request {req}: {wall:.3f} s ({stages}); K1 launches {k1_n}, "
+            f"K2 launches {k2_n}; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        check(k1_n == k2_n == cfg.dit.num_layers * STEPS,
+              f"expected {cfg.dit.num_layers * STEPS} launches of each kernel")
+        check(res.rgb.shape == (FRAMES, HEIGHT, WIDTH, 3), f"rgb {res.rgb.shape}")
+        check(res.disparity.shape == (FRAMES, HEIGHT, WIDTH), f"disp {res.disparity.shape}")
+        check(res.raymap.shape == (FRAMES, 6, HEIGHT // 8, WIDTH // 8),
+              f"raymap {res.raymap.shape}")
+        for name in ("rgb", "disparity", "raymap"):
+            check(bool(np.isfinite(getattr(res, name)).all()), f"{name} not finite")
+        check(res.rgb.min() >= 0.0 and res.rgb.max() <= 1.0, "rgb outside [0, 1]")
+        log(f"  rgb mean {res.rgb.mean():.6f}, disparity mean "
+            f"{res.disparity.mean():.6f}, raymap std {res.raymap.std():.6f}")
+        outs.append(res)
+    for name in ("rgb", "disparity", "raymap"):
+        check(np.array_equal(getattr(outs[0], name), getattr(outs[1], name)),
+              f"request outputs differ: {name}")
+    log("requests 0 and 1: bit-identical outputs")
+
+    print(json.dumps({"kernels": [
+        {"name": "attn_prologue", "route": "cuda",
+         "source": "aether_tpu_torch/csrc/attn_prologue.cu",
+         "replaces": "aether_tpu/ops/attn_prologue.py:91",
+         "launches": qkv_prologue.launches, "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "flash_prepacked", "route": "cuda",
+         "source": "aether_tpu_torch/csrc/flash_prepacked.cu",
+         "replaces": "aether_tpu/ops/flash_attention.py:812",
+         "launches": flash_attention_prepacked.launches, "max_abs_err": k2_max,
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
+    ]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

@@ -1,0 +1,57 @@
+"""The PyTorch port imports without JAX and builds nothing at import time."""
+
+import pathlib
+import subprocess
+import sys
+
+_ROOT = pathlib.Path(__file__).resolve().parent.parent
+_PKG = _ROOT / "aether_tpu_torch"
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["jaxlib"] = None
+import aether_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(aether_tpu_torch.__path__,
+                                               "aether_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from aether_tpu_torch.ops import _build
+assert _build._LIB is None, "a kernel library was loaded at import time"
+assert not any(m.startswith("aether_tpu.") or m == "aether_tpu"
+               for m in sys.modules), "the JAX package was imported"
+print(len(names))
+"""
+
+
+def test_package_imports_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=_ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_no_source_file_imports_jax():
+    offenders = []
+    for path in _PKG.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:2] in (["import", "jax"], ["from", "jax"]) or (
+                    len(words) >= 2 and words[0] in ("import", "from")
+                    and (words[1].startswith("jax.")
+                         or words[1].startswith("aether_tpu.")
+                         or words[1] == "aether_tpu")):
+                offenders.append(f"{path.relative_to(_ROOT)}: {line.strip()}")
+    assert not offenders, offenders
+
+
+def test_kernel_sources_ship_with_the_package():
+    names = sorted(p.name for p in (_PKG / "csrc").glob("*.cu"))
+    assert names == ["attn_prologue.cu", "flash_prepacked.cu"]
+    from aether_tpu_torch.ops import _build
+
+    assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_flash_prepacked"}
+    for name in _build.SIGNATURES:
+        src = "".join(p.read_text() for p in (_PKG / "csrc").glob("*.cu"))
+        assert f'extern "C" int {name}(' in src
+    assert "--use_fast_math" not in _build.NVCC_FLAGS

@@ -1,0 +1,164 @@
+"""Kernel modules of the PyTorch port against the JAX package (CPU).
+
+``aether_tpu_torch.ops.attn_prologue`` (K1) and ``ops.flash_attention`` (K2)
+take their plain PyTorch versions on CPU tensors; the JAX side runs the Pallas
+kernels in interpret mode, as ``tests/test_attn_prologue.py`` does. Same
+inputs, made from a numpy seed, on both sides. The CUDA kernels themselves are
+held against the same plain versions on the card by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from aether_tpu.ops.attn_prologue import (
+    _pick_pad_and_block as jax_pick_pad_and_block,
+    fused_joint_attention as jax_fused_joint_attention,
+    qkv_prologue as jax_qkv_prologue,
+)
+from aether_tpu.ops.flash_attention import (
+    _pick_block as jax_pick_block,
+    flash_attention_prepacked as jax_flash_prepacked,
+)
+from aether_tpu_torch.ops.attn_prologue import (
+    _pick_pad_and_block,
+    fused_joint_attention,
+    qkv_prologue,
+    qkv_prologue_plain,
+)
+from aether_tpu_torch.ops.flash_attention import (
+    _pick_block,
+    flash_attention_prepacked,
+    flash_attention_prepacked_plain,
+)
+
+torch.set_num_threads(1)
+
+B, S, NH, HD = 2, 300, 4, 64
+EPS = 1e-6
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(7)
+    d = NH * HD
+    xq, xk, xv = (rng.standard_normal((B, S, d)).astype(np.float32)
+                  for _ in range(3))
+    gq, gk = ((1.0 + 0.1 * rng.standard_normal((HD,))).astype(np.float32)
+              for _ in range(2))
+    bq, bk = ((0.1 * rng.standard_normal((HD,))).astype(np.float32)
+              for _ in range(2))
+    ang = rng.standard_normal((S, HD // 2)) * 0.5
+    cos = np.repeat(np.cos(ang), 2, axis=1).astype(np.float32)
+    sin = np.repeat(np.sin(ang), 2, axis=1).astype(np.float32)
+    return xq, xk, xv, gq, bq, gk, bk, cos, sin
+
+
+def _both(data, rope: bool, s_valid):
+    xq, xk, xv, gq, bq, gk, bk, cos, sin = data
+    if not rope:
+        cos = sin = None
+    j = [jnp.asarray(a) if a is not None else None
+         for a in (xq, xk, xv, gq, bq, gk, bk, cos, sin)]
+    t = [torch.from_numpy(a) if a is not None else None
+         for a in (xq, xk, xv, gq, bq, gk, bk, cos, sin)]
+    kw = dict(num_heads=NH, head_dim=HD, eps=EPS, s_valid=s_valid)
+    return j, t, kw
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("s_valid", [None, 250])
+def test_prologue_plain_matches_pallas(data, quantize, rope, s_valid):
+    j, t, kw = _both(data, rope, s_valid)
+    jq, jk, jv, jqsc, jqn, jksc, jkn, jpad = jax_qkv_prologue(
+        *j, quantize=quantize, interpret=True, **kw)
+    tq, tk, tv, tqsc, tqn, tksc, tkn, tpad = qkv_prologue_plain(
+        *t, quantize=quantize, **kw)
+    assert tpad == jpad
+    for a, b in ((tqsc, jqsc), (tqn, jqn), (tksc, jksc), (tkn, jkn)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
+    for a, b in ((tq, jq), (tk, jk)):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        if quantize:
+            diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+            assert diff.max() <= 1
+            assert (diff > 0).mean() <= 1e-3
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-5)
+    # v is plain: exactly the value lanes of the TPU kernel's [v | 1 | 0]
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv)[..., :HD])
+    # the CPU wrapper dispatches to the plain version
+    wq = qkv_prologue(*t, quantize=quantize, **kw)[0]
+    torch.testing.assert_close(wq, tq, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_flash_prepacked_plain_matches_pallas(data, quantize):
+    j, t, kw = _both(data, True, 250)
+    jq, jk, jv, jqsc, jqn, jksc, jkn, _ = jax_qkv_prologue(
+        *j, quantize=quantize, interpret=True, **kw)
+    ref = jax_flash_prepacked(jq, jk, jv, qsc=jqsc, ksc=jksc, qn=jqn, kn=jkn,
+                              dim=HD, out_dtype=jnp.float32, interpret=True)
+    ops = [torch.from_numpy(np.array(a)) for a in (jq, jk, jqsc, jksc, jqn, jkn)]
+    v = torch.from_numpy(np.asarray(jv)[..., :HD].copy())
+    out = flash_attention_prepacked_plain(
+        ops[0], ops[1], v, qsc=ops[2], ksc=ops[3], qn=ops[4], kn=ops[5],
+        s_valid=250)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    wrapped = flash_attention_prepacked(
+        ops[0], ops[1], v, qsc=ops[2], ksc=ops[3], qn=ops[4], kn=ops[5],
+        s_valid=250)
+    torch.testing.assert_close(wrapped, out, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("quantize,atol", [(False, 2e-5), (True, 2e-2)])
+@pytest.mark.parametrize("rope", [False, True])
+def test_fused_joint_attention_matches_pallas(data, quantize, atol, rope):
+    j, t, kw = _both(data, rope, None)
+    ref = np.asarray(jax_fused_joint_attention(*j, quantize=quantize,
+                                               interpret=True, **kw))
+    out = fused_joint_attention(*t, quantize=quantize, **kw).numpy()
+    assert out.shape == ref.shape == (B, S, NH * HD)
+    np.testing.assert_allclose(out, ref, atol=atol)
+
+
+def test_fused_joint_attention_prepadded_s_valid(data):
+    """The DiT pre-pads the joint stream; s_valid must mask the pad rows."""
+    j, t, kw = _both(data, True, None)
+    out = fused_joint_attention(*t, quantize=False, **kw)
+    pad = (0, 0, 0, 84)
+    kw["s_valid"] = S
+    padded = [torch.nn.functional.pad(x, pad) for x in t[:3]]
+    out_p = fused_joint_attention(*padded, *t[3:], quantize=False, **kw)
+    torch.testing.assert_close(out_p[:, :S], out, rtol=0, atol=1e-6)
+
+
+def test_pickers_match_jax():
+    for s in list(range(1, 20001)) + [6976, 15076]:
+        assert _pick_pad_and_block(s, 1024) == jax_pick_pad_and_block(s, 1024), s
+        assert _pick_block(s, 1024) == jax_pick_block(s, 1024), s
+    assert _pick_pad_and_block(15076, 1024) == (15360, 1024)
+
+
+def test_unported_settings_raise_on_cuda_only_paths(data):
+    """QK8=0 runs the plain float variant on CPU; the CUDA kernels implement
+    int8 only, and the DiT refuses settings that need unported kernels."""
+    from aether_tpu_torch.models.dit import attention_qk_int8
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("AETHER_ATTN_QK8", "1")
+        mp.setenv("AETHER_ATTN_PV8", "0")
+        assert attention_qk_int8() is True
+        for name, value in (("AETHER_ATTN_FUSED", "0"),
+                            ("AETHER_ATTN_FIXED_MAX", "0"),
+                            ("AETHER_ATTN_PV8", "1")):
+            with pytest.MonkeyPatch.context() as inner:
+                inner.setenv(name, value)
+                with pytest.raises(NotImplementedError, match="ROADMAP"):
+                    attention_qk_int8()
+        mp.setenv("AETHER_ATTN_QK8", "0")
+        assert attention_qk_int8() is False
