@@ -1,12 +1,20 @@
 """CogVideoX-class diffusion transformer (DiT) as a PyTorch ``nn.Module``.
 
-Port of ``aether_tpu/models/dit.py`` on its default inference path: the fused
-QKV projection, the fused attention prologue (kernel K1) and the prepacked
-fixed-max flash attention (kernel K2) in every block. Structure per block
-(joint text+video stream, text first): adaLN-Zero -> joint self-attention with
-per-head QK LayerNorm and 3D RoPE on video tokens -> gated residual ->
-adaLN-Zero -> 4x GELU(tanh) MLP -> gated residual. The 42 blocks are a Python
-loop over a ``ModuleList``.
+Port of ``aether_tpu/models/dit.py``. Structure per block (joint text+video
+stream, text first): adaLN-Zero -> joint self-attention with per-head QK
+LayerNorm and 3D RoPE on video tokens -> gated residual -> adaLN-Zero -> 4x
+GELU(tanh) MLP -> gated residual. The 42 blocks are a Python loop over a
+``ModuleList``; ``remat=True`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``).
+
+Attention takes one of two paths, as in the JAX module:
+- the default inference path (``attn_impl="flash"`` with the fixed max on):
+  the fused QKV projection, the attention prologue (kernel K1) and the
+  prepacked fixed-max flash attention (kernel K2);
+- the unfused path (``_attention``'s general branch): q/k/v from the fused
+  projection, per-head QK LayerNorm, RoPE, then ``attn_impl`` picks the
+  attention: "flash" (kernel K4, when the fixed max is off), "flash_train"
+  (K4 forward, blockwise backward), "chunked" or "xla" (plain PyTorch).
 
 Numerics follow the JAX module: LayerNorm is the shifted single-pass form in
 f32; adaLN modulation, gates and GELU run in f32 and round to the compute
@@ -25,10 +33,18 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from aether_tpu_torch.config import DiTConfig
 from aether_tpu_torch.ops.attn_prologue import _pick_pad_and_block, fused_joint_attention
+from aether_tpu_torch.ops.chunked_attention import (
+    chunked_attention,
+    flash_attention_trainable,
+)
+from aether_tpu_torch.ops.flash_attention import attention_reference, flash_attention
 from aether_tpu_torch.utils.env import env_flag
+
+ATTN_IMPLS = ("flash", "flash_train", "chunked", "xla")
 
 
 def timestep_embedding(
@@ -103,28 +119,50 @@ class AdaLayerNormZero(nn.Module):
         return x_n, e_n, gate[:, None], e_gate[:, None]
 
 
-def attention_qk_int8() -> bool:
-    """Resolve the AETHER_ATTN_* settings to the one path the port has.
+def attention_fixed_max() -> bool:
+    """Resolve the AETHER_ATTN_* settings to the attention path.
 
-    The defaults (FUSED=1, FIXED_MAX=1, QK8=1, PV8=0) run K1 + K2. A setting
-    that needs a kernel not ported yet raises ``NotImplementedError``; QK8=0
-    returns False and runs the float variant, which exists only as the plain
-    version (CPU tensors; the wrappers raise on CUDA)."""
+    ``AETHER_ATTN_FIXED_MAX`` (default on) selects the fused K1 + K2 path;
+    off, the DiT takes the unfused path through K4, and FUSED, QK8 and PV8
+    no longer apply (as in the JAX package). With the fixed max on, a setting
+    that needs a kernel not ported yet raises ``NotImplementedError``."""
+    if not env_flag("AETHER_ATTN_FIXED_MAX", True):
+        return False
     missing = []
     if not env_flag("AETHER_ATTN_FUSED", True):
         missing.append("AETHER_ATTN_FUSED=0 needs kernel K3 (_flash_kernel_fixed_max)")
-    if not env_flag("AETHER_ATTN_FIXED_MAX", True):
-        missing.append("AETHER_ATTN_FIXED_MAX=0 needs kernel K4 (_flash_kernel)")
     if env_flag("AETHER_ATTN_PV8", False):
         missing.append("AETHER_ATTN_PV8=1 needs kernel K6 (_flash_kernel_pv8)")
     if missing:
         raise NotImplementedError(
             "; ".join(missing) + ": not ported yet (ROADMAP.md, queue 2)")
-    return env_flag("AETHER_ATTN_QK8", True)
+    return True
+
+
+def attention_qk_int8() -> bool:
+    """int8 q/k operands on the fused path (``AETHER_ATTN_QK8``, default on);
+    False when the fixed max is off, since only the fixed-max kernels take
+    int8. QK8=0 runs the float variant, which exists only as the plain
+    version (CPU tensors; the K1/K2 wrappers raise on CUDA)."""
+    return attention_fixed_max() and env_flag("AETHER_ATTN_QK8", True)
+
+
+def apply_rotary_emb(x: torch.Tensor, cos: torch.Tensor,
+                     sin: torch.Tensor) -> torch.Tensor:
+    """Interleaved-pair rotation in f32. x: [B, H, S, D]; cos/sin: [S, D]
+    with duplicated pairs (``cos[:, 2i] == cos[:, 2i+1]``); returns x's dtype."""
+    xf = x.float().unflatten(-1, (-1, 2))
+    e, o = xf[..., 0], xf[..., 1]
+    c, s = cos[:, ::2], sin[:, ::2]
+    out = torch.stack([e * c - o * s, o * c + e * s], dim=-1)
+    return out.flatten(-2).to(x.dtype)
 
 
 class Attention(nn.Module):
-    """Joint attention: fused [q|k|v] projection -> K1 -> K2 -> o-projection."""
+    """Joint attention: fused [q|k|v] projection -> attention -> o-projection.
+
+    ``attn_impl`` "fused" runs K1 + K2 (``qk_int8`` picks their operands);
+    the names in ``ATTN_IMPLS`` run the unfused path."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -137,10 +175,17 @@ class Attention(nn.Module):
         self.norm_k_bias = nn.Parameter(torch.empty(cfg.head_dim))
         self.cfg = cfg
 
-    def forward(self, hidden, enc, rope_cos, rope_sin, qk_int8: bool):
-        cfg = self.cfg
+    def forward(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, qk_int8: bool):
+        if attn_impl == "fused":
+            out = self._fused(hidden, enc, rope_cos, rope_sin, qk_int8)
+        else:
+            out = self._unfused(hidden, enc, rope_cos, rope_sin, attn_impl)
         text_len = enc.shape[1]
-        s = text_len + hidden.shape[1]
+        return out[:, text_len:], out[:, :text_len]
+
+    def _fused(self, hidden, enc, rope_cos, rope_sin, qk_int8: bool):
+        cfg = self.cfg
+        s = enc.shape[1] + hidden.shape[1]
         d = cfg.hidden_size
         # the token padding to the kernel's tile multiple rides the joint
         # concat, and the qkv matmul runs over the padded rows
@@ -156,8 +201,35 @@ class Attention(nn.Module):
             num_heads=cfg.num_heads, head_dim=cfg.head_dim, eps=cfg.qk_norm_eps,
             quantize=qk_int8, s_valid=s,
         )
-        out = self.o(attn[:, :s])
-        return out[:, text_len:], out[:, :text_len]
+        return self.o(attn[:, :s])
+
+    def _unfused(self, hidden, enc, rope_cos, rope_sin, attn_impl: str):
+        cfg = self.cfg
+        nh, hd = cfg.num_heads, cfg.head_dim
+        x = torch.cat([enc, hidden], dim=1)  # text first
+        b, s, _ = x.shape
+
+        def heads(t):
+            return t.reshape(b, s, nh, hd).transpose(1, 2)
+
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        q = layer_norm(heads(q), self.norm_q_scale, self.norm_q_bias, cfg.qk_norm_eps)
+        k = layer_norm(heads(k), self.norm_k_scale, self.norm_k_bias, cfg.qk_norm_eps)
+        v = heads(v)
+        if rope_cos is not None:
+            q = apply_rotary_emb(q, rope_cos, rope_sin)
+            k = apply_rotary_emb(k, rope_cos, rope_sin)
+        if attn_impl == "flash":
+            attn = flash_attention(q, k, v)
+        elif attn_impl == "flash_train":
+            attn = flash_attention_trainable(q, k, v)
+        elif attn_impl == "chunked":
+            attn = chunked_attention(q, k, v)
+        elif attn_impl == "xla":
+            attn = attention_reference(q, k, v)
+        else:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        return self.o(attn.transpose(1, 2).reshape(b, s, nh * hd))
 
 
 class MLP(nn.Module):
@@ -181,9 +253,10 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
         self.eps = cfg.norm_eps
 
-    def forward(self, hid, enc, temb, rope_cos, rope_sin, qk_int8: bool):
+    def forward(self, hid, enc, temb, rope_cos, rope_sin, attn_impl: str,
+                qk_int8: bool):
         h_n, e_n, gate, e_gate = self.norm1(hid, enc, temb, self.eps)
-        attn_h, attn_e = self.attn(h_n, e_n, rope_cos, rope_sin, qk_int8)
+        attn_h, attn_e = self.attn(h_n, e_n, rope_cos, rope_sin, attn_impl, qk_int8)
         hid = hid + (gate * attn_h.float()).to(hid.dtype)
         enc = enc + (e_gate * attn_e.float()).to(enc.dtype)
 
@@ -207,7 +280,8 @@ class TimeEmbedding(nn.Module):
 
 class DiT(nn.Module):
     """The denoiser. ``forward`` mirrors ``aether_tpu.models.dit.dit_forward``
-    with ``attn_impl="flash"`` and the fused prologue."""
+    without a mesh: the fused prologue path by default, the unfused one at
+    the other ``attn_impl`` values or with the fixed max off."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -251,6 +325,9 @@ class DiT(nn.Module):
         rope_sin: Optional[torch.Tensor] = None,
         qk_int8: Optional[bool] = None,
         collect_blocks: bool = False,
+        attn_impl: str = "flash",
+        remat: bool = False,
+        fixed_max: Optional[bool] = None,
     ):
         """Denoiser forward.
 
@@ -259,14 +336,29 @@ class DiT(nn.Module):
             encoder_hidden_states: [B, S_text, text_embed_dim].
             timestep: [B] diffusion timesteps.
             rope_cos / rope_sin: (S_video, head_dim) tables or None.
-            qk_int8: int8 attention operands; None reads AETHER_ATTN_QK8.
+            qk_int8: int8 operands on the fused path; None reads
+                AETHER_ATTN_QK8.
             collect_blocks: also return every block's (video, text) output.
+            attn_impl: one of ``ATTN_IMPLS``. "flash" with the fixed max on
+                is the fused K1 + K2 path; everything else is unfused.
+            remat: recompute each block in the backward
+                (``torch.utils.checkpoint``, non-reentrant).
+            fixed_max: the fixed-max attention; None reads
+                AETHER_ATTN_FIXED_MAX (:func:`attention_fixed_max`).
         Returns:
             [B, F, C_out, H_lat, W_lat] v-prediction (and the block outputs).
         """
         cfg = self.cfg
-        if qk_int8 is None:
-            qk_int8 = attention_qk_int8()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        if attn_impl == "flash":
+            if fixed_max is None:
+                fixed_max = attention_fixed_max()
+            if fixed_max:
+                attn_impl = "fused"
+                if qk_int8 is None:
+                    qk_int8 = attention_qk_int8()
+        qk_int8 = bool(qk_int8)
         b, f, _, h, w = hidden_states.shape
         p = cfg.patch_size
         dtype = hidden_states.dtype
@@ -293,7 +385,11 @@ class DiT(nn.Module):
 
         collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for block in self.blocks:
-            video, text = block(video, text, temb, rc, rs, qk_int8)
+            args = (video, text, temb, rc, rs, attn_impl, qk_int8)
+            if remat:
+                video, text = checkpoint(block, *args, use_reentrant=False)
+            else:
+                video, text = block(*args)
             if collect_blocks:
                 collected.append((video, text))
 

@@ -1,2 +1,3 @@
-"""Attention kernels: K1 (``attn_prologue``) and K2 (``flash_attention``).
-Their CUDA sources build on first use, never at import."""
+"""Attention kernels: K1 (``attn_prologue``), K2 and K4 (``flash_attention``),
+and the differentiable attention (``chunked_attention``). Their CUDA sources
+build on first use, never at import."""

@@ -61,6 +61,12 @@ SIGNATURES = {
         _I, _I, _I,          # hper, block, n_tiles
         _P,                  # stream
     ],
+    "aether_flash_online": [
+        _P, _P, _P, _P,      # q (folded), k, v, out: [B*H, sq | skv, 64]
+        _I, _I, _I, _I,      # BH, sq, skv (multiples of 64), kv_len
+        _I, _I,              # dtype (0 f32, 1 bf16), round_l (denom "mxu")
+        _P,                  # stream
+    ],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,18 +1,29 @@
-"""Fixed-max flash attention over prologue-packed operands (kernel K2).
+"""Flash attention: the online-softmax kernel K4 and the fixed-max kernel K2.
 
-Port of ``aether_tpu/ops/flash_attention.py::flash_attention_prepacked``; the
-Hopper kernel ``csrc/flash_prepacked.cu`` (CUDA C++, sm_90a, bound with ctypes
-through ``ops/_build.py``) replaces the Pallas kernel
-``aether_tpu/ops/flash_attention.py::_flash_kernel_prepacked``. On the H100 it
-is bound by matrix-unit work and exp2 (2.9e12 flops and 1.1e10 exp2 per call
-at 48 heads x 15360 tokens). Its design answers with the fixed softmax shift
-(no running max, no rescale, no cross-CTA reduction), int8 ``mma.sync`` for
-QK^T and bf16 ``mma.sync`` for PV with p kept in registers between the two;
-the source carries the full note. ``flash_attention_prepacked_plain`` is the
-same function in plain PyTorch: the CPU path, and the reference the kernel
-is held against on the card.
+Port of ``aether_tpu/ops/flash_attention.py``. Two Hopper kernels (CUDA C++,
+sm_90a, bound with ctypes through ``ops/_build.py``) replace two Pallas
+kernels; each has a plain PyTorch version here, which CPU tensors take and
+which ``chip_smoke.py`` holds the kernel against on the card.
 
-Math (log2 domain, non-causal, one fixed shift per head group):
+K4, :func:`flash_attention` (``fixed_max=False``): ``csrc/flash_online.cu``
+replaces ``_flash_kernel``, the forward of the training path and the
+attention at ``AETHER_ATTN_FIXED_MAX=0``. The wrapper keeps the JAX
+preparation (``sm_scale * log2e`` folded into q and rounded to q's dtype, the
+``kv_valid`` tail zeroed, tokens padded to the kernel's tile); the kernel
+runs a base-2 online softmax with kv columns ``>= kv_len`` masked to
+``-0.7 * f32max``. The denominator follows the TPU kernel: at head_dim < 128
+(``denom="mxu"``) it sums p rounded to v's dtype, because the TPU summed p
+through a ones column of the PV matmul; at head_dim >= 128 (``"vpu"``) it sums
+unrounded p. A zero denominator divides by 1.
+
+K2, :func:`flash_attention_prepacked`: ``csrc/flash_prepacked.cu`` replaces
+``_flash_kernel_prepacked``. On the H100 it is bound by matrix-unit work and
+exp2 (2.9e12 flops and 1.1e10 exp2 per call at 48 heads x 15360 tokens). Its
+design answers with the fixed softmax shift (no running max, no rescale, no
+cross-CTA reduction), int8 ``mma.sync`` for QK^T and bf16 ``mma.sync`` for PV
+with p kept in registers between the two; the source carries the full note.
+
+K2's math (log2 domain, non-causal, one fixed shift per head group):
 
     s   = f32(q8 . k8^T) * (qsc[g, row tile] * ksc[g, col tile])   (int8 q/k)
     s   = q . k^T                                                   (float q/k)
@@ -30,6 +41,10 @@ from typing import Optional
 import torch
 
 from aether_tpu_torch.ops import _build
+
+_NEG_INF = -0.7 * torch.finfo(torch.float32).max
+_LOG2E = 1.4426950408889634
+_K4_TILE = 64  # q rows and kv columns per tile of csrc/flash_online.cu
 
 
 def _pick_block(seq: int, requested: int) -> int:
@@ -181,3 +196,187 @@ def flash_attention_prepacked(
 
 # wrapper calls that launched the Hopper kernel (a plain integer)
 flash_attention_prepacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: online-softmax flash attention (``flash_attention(fixed_max=False)``)
+# ---------------------------------------------------------------------------
+
+
+def attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain attention with an f32 softmax, [B, H, S, D]; the JAX reference."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _online_operands(q, k, v, sm_scale, kv_valid):
+    """The JAX wrapper's preparation: q times ``sm_scale * log2e`` rounded to
+    q's dtype, and the k/v rows at or past ``kv_valid`` zeroed.
+
+    Returns (q, k, v, kv_len)."""
+    kv_len_in = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    kv_len = kv_len_in if kv_valid is None else min(kv_valid, kv_len_in)
+    if kv_len < 0:
+        raise ValueError(f"kv_valid {kv_valid} < 0")
+    q = (q.float() * (sm_scale * _LOG2E)).to(q.dtype)
+    if kv_len < kv_len_in:
+        tail = (torch.arange(kv_len_in, device=k.device) >= kv_len)[:, None]
+        k = k.masked_fill(tail, 0)
+        v = v.masked_fill(tail, 0)
+    return q, k, v, kv_len
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    kv_valid: Optional[int] = None,
+    block_k: int = 1024,
+    denom: str = "mxu",
+    block_q: int = 1024,
+    heads_per_cell: int = 4,
+) -> torch.Tensor:
+    """Plain PyTorch K4, [B, H, Sq, D] x [B, H, Skv, D] -> [B, H, Sq, D].
+
+    The online softmax runs over kv blocks of ``_pick_block(Skv, block_k)``
+    columns in the Pallas kernel's order, so the running max, and with it the
+    rounding of p to v's dtype, is the TPU kernel's. Head groups and q blocks
+    are looped over too: no score tensor is larger than
+    (heads_per_cell, block_q, block_k) in f32. ``denom`` is the TPU kernel's
+    knob: "mxu" sums p rounded to v's dtype, "vpu" sums unrounded p;
+    head_dim >= 128 always takes "vpu", as the JAX wrapper does."""
+    b, h, sq, dim = q.shape
+    skv = k.shape[2]
+    if dim >= 128:
+        denom = "vpu"
+    if denom not in ("mxu", "vpu"):
+        raise ValueError(f"denom must be 'mxu' or 'vpu', got {denom!r}")
+    q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
+    block_k = _pick_block(skv, block_k)
+    block_q = _pick_block(sq, block_q)
+    bh = b * h
+    hper = _heads_per_cell(bh, heads_per_cell)
+    qh, kh, vh = (t.reshape(bh, t.shape[2], dim) for t in (q, k, v))
+    out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
+    for g0 in range(0, bh, hper):
+        heads = slice(g0, g0 + hper)
+        for r0 in range(0, sq, block_q):
+            qb = qh[heads, r0:r0 + block_q].float()
+            rows = qb.shape[1]
+            m = torch.full((hper, rows, 1), float("-inf"), device=q.device)
+            l = torch.zeros((hper, rows, 1), device=q.device)
+            acc = torch.zeros((hper, rows, dim), device=q.device)
+            # blocks wholly past kv_len leave m, l and acc exactly unchanged
+            # (alpha = 1, p = 0), so the loop stops at kv_len
+            for c0 in range(0, kv_len, block_k):
+                kb = kh[heads, c0:c0 + block_k].float()
+                s = torch.matmul(qb, kb.transpose(1, 2))
+                if c0 + s.shape[-1] > kv_len:
+                    col = torch.arange(c0, c0 + s.shape[-1], device=q.device)
+                    s = s.masked_fill(col >= kv_len, _NEG_INF)
+                m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                alpha = torch.exp2(m - m_next)
+                m = m_next
+                p = torch.exp2(s - m_next)
+                p_v = p.to(v.dtype).float()
+                l_cur = p_v if denom == "mxu" else p
+                l = l * alpha + l_cur.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + torch.matmul(p_v, vh[heads, c0:c0 + block_k].float())
+            l_inv = torch.where(l <= 0.0, torch.ones_like(l), 1.0 / l)
+            out[heads, r0:r0 + rows] = (acc * l_inv).to(q.dtype)
+    return out.reshape(b, h, sq, dim)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    block_q: int = 1024,
+    block_k: int = 1024,
+    heads_per_cell: int = 4,
+    denom: str = "mxu",
+    fixed_max: bool = False,
+    kv_valid: Optional[int] = None,
+    qk_int8: bool = False,
+    pv_int8: bool = False,
+) -> torch.Tensor:
+    """Non-causal attention, q [B, H, Sq, D] x k/v [B, H, Skv, D] -> [B, H, Sq, D].
+
+    The ``fixed_max=False`` branch of the JAX ``flash_attention``: K4.
+    ``kv_valid`` treats only the first ``kv_valid`` k/v rows as real (the
+    tail is zeroed and masked); ``block_q``, ``block_k`` and
+    ``heads_per_cell`` shape the plain version's loops. At head_dim >= 128
+    the JAX wrapper turns ``fixed_max``, ``qk_int8`` and ``pv_int8`` off and
+    takes the "vpu" denominator; so does this one. ``fixed_max``,
+    ``qk_int8`` and ``pv_int8`` at head_dim < 128 need kernels K3 and K6 and
+    raise.
+
+    A CPU tensor runs :func:`flash_attention_plain`. A CUDA tensor launches
+    the Hopper kernel (f32 or bf16, head_dim 64) or raises; there is no
+    fallback.
+    """
+    dim = q.shape[-1]
+    if dim >= 128:
+        denom, fixed_max, qk_int8, pv_int8 = "vpu", False, False, False
+    if fixed_max or qk_int8 or pv_int8:
+        raise NotImplementedError(
+            "flash_attention(fixed_max=True / qk_int8 / pv_int8) needs kernels "
+            "K3 (_flash_kernel_fixed_max) and K6 (_flash_kernel_pv8): not "
+            "ported yet (ROADMAP.md, queue 2)")
+    if denom not in ("mxu", "vpu"):
+        raise ValueError(f"denom must be 'mxu' or 'vpu', got {denom!r}")
+    if not q.is_cuda:
+        return flash_attention_plain(
+            q, k, v, sm_scale=sm_scale, kv_valid=kv_valid, block_k=block_k,
+            denom=denom, block_q=block_q, heads_per_cell=heads_per_cell)
+    b, h, sq, _ = q.shape
+    skv = k.shape[2]
+    if dim != 64:
+        raise NotImplementedError(
+            f"K4 takes head_dim 64 on CUDA, got {dim}: other head dims, the "
+            "'vpu' head_dim >= 128 case among them, are later work "
+            "(ROADMAP.md, queue 2)")
+    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"K4 takes f32 or bf16 q/k/v of one dtype, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (b, h, skv, dim) or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} on {t.device} does not "
+                             f"match ({b}, {h}, {skv}, {dim}) on {q.device}")
+    q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
+    bh = b * h
+    sq_pad = -(-sq // _K4_TILE) * _K4_TILE
+    skv_pad = -(-skv // _K4_TILE) * _K4_TILE
+
+    def padded(t, rows, keep):
+        buf = t.new_zeros((bh, rows, dim))
+        buf[:, :keep] = t.reshape(bh, t.shape[2], dim)[:, :keep]
+        return buf
+
+    qp = padded(q, sq_pad, sq)
+    kp, vp = padded(k, skv_pad, kv_len), padded(v, skv_pad, kv_len)
+    out = torch.empty((bh, sq_pad, dim), dtype=q.dtype, device=q.device)
+    rc = _build.lib().aether_flash_online(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+        bh, sq_pad, skv_pad, kv_len, dtypes[q.dtype], int(denom == "mxu"),
+        _build.stream_ptr(q.device))
+    _build.check(rc, "aether_flash_online")
+    flash_attention.launches += 1
+    return out[:, :sq].reshape(b, h, sq, dim)
+
+
+# wrapper calls that launched the Hopper kernel (a plain integer)
+flash_attention.launches = 0

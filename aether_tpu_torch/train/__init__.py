@@ -1,0 +1,10 @@
+"""Fine-tuning: the v-prediction loss and train step (``step``), the
+single-device trainer with its CLI (``trainer``) and the latent loader
+(``data``)."""
+
+from aether_tpu_torch.train.step import (  # noqa: F401
+    TrainState,
+    create_train_state,
+    diffusion_loss,
+    make_train_step,
+)

@@ -14,12 +14,23 @@ Phases (each prints its result; any failure raises and exits non-zero):
      weights on the GPU and a seeded (1, 226, 4096) prompt embedding;
   6. runs two 41-frame 480x720 reconstruction requests (4 steps, same input
      and seed) and checks shapes, finiteness, the RGB range, 168 launches of
-     each kernel per request, and bit-identical outputs.
-The line before the last is a JSON object with each kernel's launches, error
-against its plain version and times; the last line is the JSON status line.
-There is no CPU path: without CUDA the script raises.
+     each kernel per request, and bit-identical outputs;
+  7. K4 (``flash_attention``, online softmax) against
+     ``flash_attention_plain`` at the training shape, B=1, 48 heads, 15076
+     tokens, head_dim 64, in f32 and in bf16, with times and TFLOP/s;
+  8. ``flash_attention_trainable`` (K4 forward, blockwise backward): value
+     and gradients against autograd through ``attention_reference``;
+  9. the fine-tuning path: a ``Trainer`` on the AetherV1 width at 16 blocks
+     (f32 state does not fit 42 on one card), remat, ``flash_train``
+     attention, one synthetic batch at the 41x480x720 window's latent shape,
+     three steps; checks finite loss and gradient norm, 2 x 16 K4 launches a
+     step, moved parameters, an EMA apart from them and the peak memory.
+The line before the last is a JSON object with each kernel's launches on its
+path, error against its plain version and times; the last line is the JSON
+status line. There is no CPU path: without CUDA the script raises.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,6 +41,7 @@ import torch
 
 SEQ, TEXT, HEADS, HEAD_DIM = 15076, 226, 48, 64
 FRAMES, HEIGHT, WIDTH, STEPS = 41, 480, 720, 4
+TRAIN_LAYERS, TRAIN_STEPS = 16, 3
 
 
 def log(msg: str) -> None:
@@ -52,6 +64,134 @@ def cuda_time_ms(fn, iters: int) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def k4_phase(dev, gen, dtype):
+    """K4 against its plain version at B=1, 48 heads, 15076 tokens, head_dim
+    64. Gates: f32 max abs 1e-4; bf16 max 1e-2 and mean 1e-3, as K2.
+    Returns (max abs error, kernel ms, plain ms)."""
+    from aether_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    shape = (1, HEADS, SEQ, HEAD_DIM)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+
+    def kernel():
+        return flash_attention(q, k, v)
+
+    def plain():
+        return flash_attention_plain(q, k, v)
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape == shape and out.dtype == dtype, f"K4 {name} {out.shape}")
+    check(bool(torch.isfinite(out).all()), f"K4 {name} output not finite")
+    err = (out.float() - ref.float()).abs()
+    err_max, err_mean = err.max().item(), err.mean().item()
+    log(f"K4 {name}: max abs err {err_max:.3e}, mean abs err {err_mean:.3e}")
+    if dtype == torch.float32:
+        check(err_max <= 1e-4, "K4 f32 disagrees with its plain version")
+    else:
+        check(err_max <= 1e-2 and err_mean <= 1e-3, "K4 bf16 disagrees with its plain version")
+    ms = cuda_time_ms(kernel, 5)
+    plain_ms = cuda_time_ms(plain, 2)
+    flops = 4.0 * HEADS * SEQ * SEQ * HEAD_DIM
+    log(f"K4 {name} time: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.4f} ms ({flops / plain_ms / 1e9:.1f} TFLOP/s)")
+    return err_max, ms, plain_ms
+
+
+def trainable_phase(dev, gen):
+    """K4 forward + blockwise backward against autograd through the plain
+    attention at 4 heads x 2048 tokens, f32: value within 1e-4, gradients
+    within 1e-4 of their largest magnitude."""
+    from aether_tpu_torch.ops.chunked_attention import flash_attention_trainable
+    from aether_tpu_torch.ops.flash_attention import attention_reference
+
+    shape = (1, 4, 2048, HEAD_DIM)
+    q, k, v, w = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+    results = []
+    for fn in (flash_attention_trainable, attention_reference):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        (out * w).sum().backward()
+        results.append((out.detach(), [t.grad for t in leaves]))
+    torch.cuda.synchronize()
+    (out, grads), (ref, ref_grads) = results
+    err = (out - ref).abs().max().item()
+    rel = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(grads, ref_grads)]
+    log(f"flash_attention_trainable: value max abs err {err:.3e}; dq/dk/dv max err "
+        f"/ max |grad| {rel[0]:.3e} / {rel[1]:.3e} / {rel[2]:.3e}")
+    check(err <= 1e-4 and max(rel) <= 1e-4,
+          "flash_attention_trainable disagrees with plain autograd")
+
+
+def train_phase(dev) -> int:
+    """Three steps of the AetherV1-width DiT at 16 blocks on one batch at the
+    41x480x720 window's latent shape. Returns K4's launches in the run."""
+    from aether_tpu_torch.config import DiTConfig
+    from aether_tpu_torch.ops.flash_attention import flash_attention
+    from aether_tpu_torch.train.trainer import TrainConfig, Trainer, synthetic_batches
+
+    dit_cfg = dataclasses.replace(DiTConfig.aetherv1(), num_layers=TRAIN_LAYERS)
+    # warmup 1: the first update has lr 0 (optax's schedule), the next ones 1e-5
+    tcfg = TrainConfig(learning_rate=1e-5, warmup_steps=1, total_steps=100,
+                       remat=True, attn_impl="flash_train", log_every=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = Trainer(dit_cfg, tcfg, device=dev, seed=0)
+    model = trainer.state.model
+    n_params = sum(p.numel() for p in model.parameters())
+    snap = {n: p.detach().flatten()[:4096].clone() for n, p in model.named_parameters()}
+    f_lat, h_lat, w_lat = (FRAMES - 1) // 4 + 1, HEIGHT // 8, WIDTH // 8
+    batch = next(synthetic_batches(dit_cfg, batch_size=1, f_lat=f_lat, h_lat=h_lat,
+                                   w_lat=w_lat, seed=0))
+    tokens = TEXT + f_lat * (h_lat // 2) * (w_lat // 2)
+    check(tokens == SEQ, f"training tokens {tokens} != {SEQ}")
+    torch.cuda.synchronize()
+    log(f"train: DiT {TRAIN_LAYERS} blocks x {dit_cfg.hidden_size}, {n_params / 1e9:.3f}B "
+        f"f32 params, clean {batch['clean_latents'].shape}, condition "
+        f"{batch['condition_latents'].shape}, text {batch['text_embeds'].shape}, "
+        f"rope {batch['rope_cos'].shape}; set-up {time.perf_counter() - t0:.3f} s")
+
+    def same_batch():
+        while True:
+            yield batch
+
+    flash_attention.launches = 0
+    for step in range(TRAIN_STEPS):
+        before = flash_attention.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.fit(same_batch(), steps=1)[0]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = flash_attention.launches - before
+        opt = trainer.state.optimizer
+        norm = float(opt.grad_norm)
+        log(f"train step {step + 1}: {dt:.3f} s ({tokens / dt:.1f} tokens/s), loss "
+            f"{loss:.6f}, grad norm {norm:.6f}, lr {opt.schedule(opt.count - 1):.3e}, "
+            f"K4 launches {n}, peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        check(np.isfinite(loss) and np.isfinite(norm), "non-finite loss or grad norm")
+        check(n == 2 * TRAIN_LAYERS, f"expected {2 * TRAIN_LAYERS} K4 launches a step")
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    moved = sum(int(not torch.equal(p.detach().flatten()[:4096], snap[n]))
+                for n, p in model.named_parameters())
+    ema = trainer.state.ema_params
+    apart = sum(int(not torch.equal(ema[n], p.detach())) for n, p in model.named_parameters())
+    n_tensors = len(snap)
+    log(f"train: parameters moved in {moved}/{n_tensors} tensors, EMA apart in "
+        f"{apart}/{n_tensors}; peak memory {peak / 2**30:.2f} GiB of "
+        f"{total / 2**30:.2f} GiB")
+    check(moved >= 0.9 * n_tensors, "parameters did not move")
+    check(apart >= 0.9 * n_tensors, "EMA equals the parameters")
+    check(peak < total, "peak memory above the card's memory")
+    del trainer, model, ema, snap
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -212,18 +352,37 @@ def main() -> None:
         check(np.array_equal(getattr(outs[0], name), getattr(outs[1], name)),
               f"request outputs differ: {name}")
     log("requests 0 and 1: bit-identical outputs")
+    k1_launches = qkv_prologue.launches
+    k2_launches = flash_attention_prepacked.launches
+    del pipe, dit, vae, prompt, res, outs
+    torch.cuda.empty_cache()
 
+    # ---- 7. K4 at the training shape ----
+    k4 = {dtype: k4_phase(dev, gen, dtype) for dtype in (torch.float32, torch.bfloat16)}
+
+    # ---- 8. flash_attention_trainable ----
+    trainable_phase(dev, gen)
+
+    # ---- 9. the fine-tuning path ----
+    k4_launches = train_phase(dev)
+
+    k4_err, k4_ms, k4_plain_ms = k4[torch.float32]
     print(json.dumps({"kernels": [
         {"name": "attn_prologue", "route": "cuda",
          "source": "aether_tpu_torch/csrc/attn_prologue.cu",
          "replaces": "aether_tpu/ops/attn_prologue.py:91",
-         "launches": qkv_prologue.launches, "max_abs_err": k1_err,
+         "launches": k1_launches, "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
         {"name": "flash_prepacked", "route": "cuda",
          "source": "aether_tpu_torch/csrc/flash_prepacked.cu",
          "replaces": "aether_tpu/ops/flash_attention.py:812",
-         "launches": flash_attention_prepacked.launches, "max_abs_err": k2_max,
+         "launches": k2_launches, "max_abs_err": k2_max,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "flash_online", "route": "cuda",
+         "source": "aether_tpu_torch/csrc/flash_online.cu",
+         "replaces": "aether_tpu/ops/flash_attention.py:69",
+         "launches": k4_launches, "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

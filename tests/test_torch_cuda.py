@@ -1,11 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``; each test skips where no CUDA device is present (a CPU-only
-machine). ``chip_smoke.py`` checks the kernels at the main-path shape; these
-cases cover the edges it does not reach: batch > 1, head groups that straddle
-two batch elements, several token tiles with a ragged ``s_valid``, no RoPE,
-RoPE tables shorter than the sequence, and the launch-or-raise contract. The
-card's machine has no JAX, so run them without the JAX conftest:
+machine). ``chip_smoke.py`` checks the kernels at the main-path shapes; these
+cases cover the edges it does not reach. K1/K2: batch > 1, head groups that
+straddle two batch elements, several token tiles with a ragged ``s_valid``,
+no RoPE, RoPE tables shorter than the sequence. K4: batch 2, sequences that
+are not a multiple of the 64-row tile, ``kv_valid``, q and kv of different
+lengths, extreme negative scores with padding, both denominators, f32 and
+bf16, and ``flash_attention_trainable``'s gradients. Also the launch-or-raise
+contract. The card's machine has no JAX, so run them without the JAX
+conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -18,7 +22,11 @@ from aether_tpu_torch.ops.attn_prologue import (
     qkv_prologue,
     qkv_prologue_plain,
 )
+from aether_tpu_torch.ops.chunked_attention import flash_attention_trainable
 from aether_tpu_torch.ops.flash_attention import (
+    attention_reference,
+    flash_attention,
+    flash_attention_plain,
     flash_attention_prepacked,
     flash_attention_prepacked_plain,
 )
@@ -104,3 +112,87 @@ def test_fused_attention_counts_and_refuses_float_mode(dev):
             flash_attention_prepacked.launches - before[1]) == (1, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fused_joint_attention(*xs, *norms, *rope, quantize=False, **kw)
+
+
+# K4 gates, as in chip_smoke.py: f32 max abs 1e-4; bf16 max 1e-2, mean 1e-3
+def _check_k4(out, ref):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        assert err.max().item() <= 1e-4
+    else:
+        assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
+def _qkv(dev, shape, kv_shape, dtype, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(kv_shape, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+# (batch, heads, q tokens, kv tokens, kv_valid, denom)
+K4_CASES = [
+    (2, 3, 300, 300, None, "mxu"),    # batch 2, 300 = 4 tiles + 44 rows
+    (1, 4, 1000, 1000, 900, "mxu"),   # kv_valid: zeroed tail, masked tile
+    (1, 2, 130, 333, 300, "vpu"),     # q and kv lengths differ
+    (2, 1, 64, 64, None, "vpu"),      # exactly one tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid,denom", K4_CASES)
+def test_online_kernel_matches_plain(dev, b, h, sq, skv, kv_valid, denom, dtype):
+    q, k, v = _qkv(dev, (b, h, sq, HD), (b, h, skv, HD), dtype, seed=sq + skv)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, kv_valid=kv_valid, denom=denom)
+    ref = flash_attention_plain(q, k, v, kv_valid=kv_valid, denom=denom)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _check_k4(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_online_kernel_extreme_negative_scores_with_padding(dev, dtype):
+    """All real scores deeply negative and 200 tokens (a ragged last tile):
+    the masked columns must not take the softmax over."""
+    shape = (1, 2, 200, HD)
+    q = torch.full(shape, 5.0, device=dev).to(dtype)
+    k = torch.full(shape, -5.0, device=dev).to(dtype)  # scores -200
+    v = _qkv(dev, shape, shape, dtype, seed=3)[2]
+    out = flash_attention(q, k, v)
+    _check_k4(out, flash_attention_plain(q, k, v))
+    _check_k4(out, attention_reference(q, k, v))  # the uniform average of v
+
+
+def test_online_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(dev, (1, 1, 64, HD), (1, 1, 64, HD), torch.float32, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q, k, v, fixed_max=True)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    wide = torch.zeros((1, 1, 64, 128), device=dev)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        flash_attention(wide, wide, wide)
+
+
+def test_flash_trainable_grads_match_plain_on_cuda(dev):
+    """K4 forward + blockwise backward on CUDA against autograd through the
+    plain attention: value to 1e-4, gradients to 1e-4 of their largest
+    magnitude (f32 on both sides, different summation orders)."""
+    q, k, v = _qkv(dev, (1, 4, 700, HD), (1, 4, 700, HD), torch.float32, seed=5)
+    w = torch.randn(q.shape, generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev)
+    results = []
+    for fn in (flash_attention_trainable, attention_reference):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        (out * w).sum().backward()
+        results.append((out.detach(), [t.grad for t in leaves]))
+    torch.cuda.synchronize()
+    (out, grads), (ref, ref_grads) = results
+    assert (out - ref).abs().max().item() <= 1e-4
+    for g, r in zip(grads, ref_grads):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()

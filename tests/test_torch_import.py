@@ -16,6 +16,12 @@ names = [m.name for m in pkgutil.walk_packages(aether_tpu_torch.__path__,
                                                "aether_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("aether_tpu_torch.train.step", "aether_tpu_torch.train.trainer",
+             "aether_tpu_torch.train.data", "aether_tpu_torch.eval.sharding",
+             "aether_tpu_torch.ops.chunked_attention"):
+    assert name in names, name
+from aether_tpu_torch.ops.flash_attention import flash_attention
+assert flash_attention.launches == 0
 from aether_tpu_torch.ops import _build
 assert _build._LIB is None, "a kernel library was loaded at import time"
 assert not any(m.startswith("aether_tpu.") or m == "aether_tpu"
@@ -28,7 +34,7 @@ def test_package_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 21
 
 
 def test_no_source_file_imports_jax():
@@ -47,10 +53,11 @@ def test_no_source_file_imports_jax():
 
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in (_PKG / "csrc").glob("*.cu"))
-    assert names == ["attn_prologue.cu", "flash_prepacked.cu"]
+    assert names == ["attn_prologue.cu", "flash_online.cu", "flash_prepacked.cu"]
     from aether_tpu_torch.ops import _build
 
-    assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_flash_prepacked"}
+    assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_flash_prepacked",
+                                      "aether_flash_online"}
     for name in _build.SIGNATURES:
         src = "".join(p.read_text() for p in (_PKG / "csrc").glob("*.cu"))
         assert f'extern "C" int {name}(' in src

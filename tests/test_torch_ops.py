@@ -146,19 +146,23 @@ def test_pickers_match_jax():
 
 def test_unported_settings_raise_on_cuda_only_paths(data):
     """QK8=0 runs the plain float variant on CPU; the CUDA kernels implement
-    int8 only, and the DiT refuses settings that need unported kernels."""
-    from aether_tpu_torch.models.dit import attention_qk_int8
+    int8 only, and the DiT refuses settings that need unported kernels.
+    FIXED_MAX=0 takes the unfused path through K4, where FUSED, QK8 and PV8
+    do not apply."""
+    from aether_tpu_torch.models.dit import attention_fixed_max, attention_qk_int8
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("AETHER_ATTN_QK8", "1")
         mp.setenv("AETHER_ATTN_PV8", "0")
         assert attention_qk_int8() is True
         for name, value in (("AETHER_ATTN_FUSED", "0"),
-                            ("AETHER_ATTN_FIXED_MAX", "0"),
                             ("AETHER_ATTN_PV8", "1")):
             with pytest.MonkeyPatch.context() as inner:
                 inner.setenv(name, value)
                 with pytest.raises(NotImplementedError, match="ROADMAP"):
                     attention_qk_int8()
+                inner.setenv("AETHER_ATTN_FIXED_MAX", "0")
+                assert attention_fixed_max() is False
+                assert attention_qk_int8() is False
         mp.setenv("AETHER_ATTN_QK8", "0")
         assert attention_qk_int8() is False
