@@ -119,32 +119,26 @@ class AdaLayerNormZero(nn.Module):
         return x_n, e_n, gate[:, None], e_gate[:, None]
 
 
-def attention_fixed_max() -> bool:
-    """Resolve the AETHER_ATTN_* settings to the attention path.
+def resolve_attention(fixed_max: Optional[bool] = None, qk_int8: Optional[bool] = None,
+                      pv_int8: Optional[bool] = None, fused_qkv: Optional[bool] = None):
+    """The attention settings as the JAX ``dit_forward`` resolves them
+    (``dit.py:982-993``); an argument left None reads its variable.
 
-    ``AETHER_ATTN_FIXED_MAX`` (default on) selects the fused K1 + K2 path;
-    off, the DiT takes the unfused path through K4, and FUSED, QK8 and PV8
-    no longer apply (as in the JAX package). With the fixed max on, a setting
-    that needs a kernel not ported yet raises ``NotImplementedError``."""
-    if not env_flag("AETHER_ATTN_FIXED_MAX", True):
-        return False
-    missing = []
-    if not env_flag("AETHER_ATTN_FUSED", True):
-        missing.append("AETHER_ATTN_FUSED=0 needs kernel K3 (_flash_kernel_fixed_max)")
-    if env_flag("AETHER_ATTN_PV8", False):
-        missing.append("AETHER_ATTN_PV8=1 needs kernel K6 (_flash_kernel_pv8)")
-    if missing:
-        raise NotImplementedError(
-            "; ".join(missing) + ": not ported yet (ROADMAP.md, queue 2)")
-    return True
-
-
-def attention_qk_int8() -> bool:
-    """int8 q/k operands on the fused path (``AETHER_ATTN_QK8``, default on);
-    False when the fixed max is off, since only the fixed-max kernels take
-    int8. QK8=0 runs the float variant, which exists only as the plain
-    version (CPU tensors; the K1/K2 wrappers raise on CUDA)."""
-    return attention_fixed_max() and env_flag("AETHER_ATTN_QK8", True)
+    ``AETHER_ATTN_FIXED_MAX`` (default on) selects the fixed-max family; off,
+    QK8, PV8 and FUSED no longer apply and the DiT runs K4. ``QK8`` (default
+    on) gives int8 q/k; ``PV8`` (default off) the full-int8 K6, which implies
+    the unfused path and needs QK8; ``FUSED`` (default on) the fused K1 + K2
+    path, off the unfused path through K3. Returns (fixed_max, qk_int8,
+    pv_int8, fused_qkv)."""
+    if fixed_max is None:
+        fixed_max = env_flag("AETHER_ATTN_FIXED_MAX", True)
+    if qk_int8 is None:
+        qk_int8 = env_flag("AETHER_ATTN_QK8", True) and fixed_max
+    if pv_int8 is None:
+        pv_int8 = env_flag("AETHER_ATTN_PV8", False) and fixed_max
+    if fused_qkv is None:
+        fused_qkv = env_flag("AETHER_ATTN_FUSED", True) and fixed_max and not pv_int8
+    return bool(fixed_max), bool(qk_int8), bool(pv_int8), bool(fused_qkv)
 
 
 def apply_rotary_emb(x: torch.Tensor, cos: torch.Tensor,
@@ -162,7 +156,9 @@ class Attention(nn.Module):
     """Joint attention: fused [q|k|v] projection -> attention -> o-projection.
 
     ``attn_impl`` "fused" runs K1 + K2 (``qk_int8`` picks their operands);
-    the names in ``ATTN_IMPLS`` run the unfused path."""
+    the names in ``ATTN_IMPLS`` run the unfused path, where "flash" takes
+    ``flash_attention`` with the ``fixed_max`` / ``qk_int8`` / ``pv_int8``
+    options: K4, K3 or K6."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -175,11 +171,11 @@ class Attention(nn.Module):
         self.norm_k_bias = nn.Parameter(torch.empty(cfg.head_dim))
         self.cfg = cfg
 
-    def forward(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, qk_int8: bool):
+    def forward(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, attn_opts: dict):
         if attn_impl == "fused":
-            out = self._fused(hidden, enc, rope_cos, rope_sin, qk_int8)
+            out = self._fused(hidden, enc, rope_cos, rope_sin, attn_opts["qk_int8"])
         else:
-            out = self._unfused(hidden, enc, rope_cos, rope_sin, attn_impl)
+            out = self._unfused(hidden, enc, rope_cos, rope_sin, attn_impl, attn_opts)
         text_len = enc.shape[1]
         return out[:, text_len:], out[:, :text_len]
 
@@ -203,7 +199,7 @@ class Attention(nn.Module):
         )
         return self.o(attn[:, :s])
 
-    def _unfused(self, hidden, enc, rope_cos, rope_sin, attn_impl: str):
+    def _unfused(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, attn_opts: dict):
         cfg = self.cfg
         nh, hd = cfg.num_heads, cfg.head_dim
         x = torch.cat([enc, hidden], dim=1)  # text first
@@ -220,7 +216,7 @@ class Attention(nn.Module):
             q = apply_rotary_emb(q, rope_cos, rope_sin)
             k = apply_rotary_emb(k, rope_cos, rope_sin)
         if attn_impl == "flash":
-            attn = flash_attention(q, k, v)
+            attn = flash_attention(q, k, v, **attn_opts)
         elif attn_impl == "flash_train":
             attn = flash_attention_trainable(q, k, v)
         elif attn_impl == "chunked":
@@ -254,9 +250,9 @@ class Block(nn.Module):
         self.eps = cfg.norm_eps
 
     def forward(self, hid, enc, temb, rope_cos, rope_sin, attn_impl: str,
-                qk_int8: bool):
+                attn_opts: dict):
         h_n, e_n, gate, e_gate = self.norm1(hid, enc, temb, self.eps)
-        attn_h, attn_e = self.attn(h_n, e_n, rope_cos, rope_sin, attn_impl, qk_int8)
+        attn_h, attn_e = self.attn(h_n, e_n, rope_cos, rope_sin, attn_impl, attn_opts)
         hid = hid + (gate * attn_h.float()).to(hid.dtype)
         enc = enc + (e_gate * attn_e.float()).to(enc.dtype)
 
@@ -281,7 +277,8 @@ class TimeEmbedding(nn.Module):
 class DiT(nn.Module):
     """The denoiser. ``forward`` mirrors ``aether_tpu.models.dit.dit_forward``
     without a mesh: the fused prologue path by default, the unfused one at
-    the other ``attn_impl`` values or with the fixed max off."""
+    the other ``attn_impl`` values, with the fixed max off, under
+    ``fused_qkv=False`` (AETHER_ATTN_FUSED=0) or with ``pv_int8``."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -328,6 +325,8 @@ class DiT(nn.Module):
         attn_impl: str = "flash",
         remat: bool = False,
         fixed_max: Optional[bool] = None,
+        pv_int8: Optional[bool] = None,
+        fused_qkv: Optional[bool] = None,
     ):
         """Denoiser forward.
 
@@ -336,29 +335,32 @@ class DiT(nn.Module):
             encoder_hidden_states: [B, S_text, text_embed_dim].
             timestep: [B] diffusion timesteps.
             rope_cos / rope_sin: (S_video, head_dim) tables or None.
-            qk_int8: int8 operands on the fused path; None reads
-                AETHER_ATTN_QK8.
+            qk_int8: int8 q/k in the fixed-max kernels; None reads
+                AETHER_ATTN_QK8 (:func:`resolve_attention` resolves the
+                four settings).
             collect_blocks: also return every block's (video, text) output.
             attn_impl: one of ``ATTN_IMPLS``. "flash" with the fixed max on
-                is the fused K1 + K2 path; everything else is unfused.
+                is the fused K1 + K2 path, or under ``fused_qkv=False`` or
+                ``pv_int8`` the unfused path through K3 / K6; the other
+                names are unfused.
             remat: recompute each block in the backward
                 (``torch.utils.checkpoint``, non-reentrant).
             fixed_max: the fixed-max attention; None reads
-                AETHER_ATTN_FIXED_MAX (:func:`attention_fixed_max`).
+                AETHER_ATTN_FIXED_MAX.
+            pv_int8: the full-int8 attention K6; None reads AETHER_ATTN_PV8.
+            fused_qkv: the fused K1 + K2 path; None reads AETHER_ATTN_FUSED
+                (off when ``pv_int8`` is on, as in the JAX package).
         Returns:
             [B, F, C_out, H_lat, W_lat] v-prediction (and the block outputs).
         """
         cfg = self.cfg
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-        if attn_impl == "flash":
-            if fixed_max is None:
-                fixed_max = attention_fixed_max()
-            if fixed_max:
-                attn_impl = "fused"
-                if qk_int8 is None:
-                    qk_int8 = attention_qk_int8()
-        qk_int8 = bool(qk_int8)
+        fixed_max, qk_int8, pv_int8, fused_qkv = resolve_attention(
+            fixed_max, qk_int8, pv_int8, fused_qkv)
+        if attn_impl == "flash" and fused_qkv and fixed_max and not pv_int8:
+            attn_impl = "fused"
+        attn_opts = dict(fixed_max=fixed_max, qk_int8=qk_int8, pv_int8=pv_int8)
         b, f, _, h, w = hidden_states.shape
         p = cfg.patch_size
         dtype = hidden_states.dtype
@@ -385,7 +387,7 @@ class DiT(nn.Module):
 
         collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for block in self.blocks:
-            args = (video, text, temb, rc, rs, attn_impl, qk_int8)
+            args = (video, text, temb, rc, rs, attn_impl, attn_opts)
             if remat:
                 video, text = checkpoint(block, *args, use_reentrant=False)
             else:

@@ -1,10 +1,13 @@
 """Build the port's CUDA kernels (``csrc/*.cu``) and bind them with ``ctypes``.
 
-Every kernel source is compiled by ``nvcc`` into ONE shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds, not minutes):
+Every kernel source is compiled by its own ``nvcc``, all of them started
+together, and the objects are linked into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libaether_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c csrc/<name>.cu -o _build/<hash>/<name>.o   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o _build/libaether_<hash>.so _build/<hash>/*.o
 
 The library lands in ``aether_tpu_torch/_build/`` (ignored by git), named by a
 hash of the sources and flags, so the first call after a checkout builds it and
@@ -30,9 +33,9 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # report registers / spills per kernel; changes no code
 ]
 
@@ -67,6 +70,22 @@ SIGNATURES = {
         _I, _I,              # dtype (0 f32, 1 bf16), round_l (denom "mxu")
         _P,                  # stream
     ],
+    "aether_flash_fixed_max": [
+        _P, _P, _P,          # q, k (int8 or folded bf16), v (bf16): [B*H, sq | skv, 64]
+        _P, _P,              # shift, scale (f32, [G])
+        _P, _P,              # out (bf16, [B*H, sq, 64]), l (f32, [B*H, sq]) or null
+        _I, _I, _I, _I, _I,  # BH, sq, skv (multiples of 64), kv_len, hper
+        _I,                  # qk_int8
+        _P,                  # stream
+    ],
+    "aether_flash_pv8": [
+        _P, _P, _P,          # q8, k8 [B*H, sq | skv, 64], v8 transposed [B*H, 64, skv]
+        _P, _P,              # scale, vscale (f32, [G])
+        _P,                  # out (f32 or bf16, [B*H, sq, 64])
+        _I, _I, _I, _I, _I,  # BH, sq, skv, kv_len, hper
+        _I, _I,              # span (kv columns per running-max update), dtype
+        _P,                  # stream
+    ],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -97,24 +116,39 @@ def _digest(cu, cuh) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands concurrently; raise with nvcc's output if one fails.
+    Returns their stderr (ptxas's report), in order."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (stdout, stderr) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{stderr}{stdout}")
+    return "".join(stderr for _, stderr in outs)
+
+
 def build() -> pathlib.Path:
     """Compile ``csrc/*.cu`` into ``_build/libaether_<hash>.so`` unless it exists."""
     cu, cuh = _sources()
-    out = BUILD_DIR / f"libaether_{_digest(cu, cuh)}.so"
+    digest = _digest(cu, cuh)
+    out = BUILD_DIR / f"libaether_{digest}.so"
     if out.exists():
         BUILD_LOG.update(path=str(out))
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    obj_dir = BUILD_DIR / f"{digest}.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    objs = [obj_dir / f"{p.stem}.o" for p in cu]
+    ptxas = _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+                      for src, obj in zip(cu, objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(p) for p in cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
+    _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    BUILD_LOG.update(path=str(out), ptxas=proc.stderr)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    BUILD_LOG.update(path=str(out), ptxas=ptxas)
     return out
 
 

@@ -1,9 +1,21 @@
-"""Flash attention: the online-softmax kernel K4 and the fixed-max kernel K2.
+"""Flash attention: kernels K2, K3, K4 and K6.
 
-Port of ``aether_tpu/ops/flash_attention.py``. Two Hopper kernels (CUDA C++,
-sm_90a, bound with ctypes through ``ops/_build.py``) replace two Pallas
+Port of ``aether_tpu/ops/flash_attention.py``. Four Hopper kernels (CUDA C++,
+sm_90a, bound with ctypes through ``ops/_build.py``) replace four Pallas
 kernels; each has a plain PyTorch version here, which CPU tensors take and
 which ``chip_smoke.py`` holds the kernel against on the card.
+
+K3, :func:`flash_attention_fixed_max` (``flash_attention(fixed_max=True)``):
+``csrc/flash_fixed_max.cu`` replaces ``_flash_kernel_fixed_max``, the
+attention of the unfused DiT path (``AETHER_ATTN_FUSED=0``) and of the ring
+merge (``unnormalized`` with a shared ``score_bound``). K6,
+:func:`flash_attention_pv8` (``pv_int8=True``): ``csrc/flash_pv8.cu``
+replaces ``_flash_kernel_pv8``. The wrapper's preparation is the JAX
+wrapper's (:func:`_fixed_max_operands`): the ``kv_valid`` tail zeroed, the
+``sm_scale * log2e`` fold, the per-head-group Cauchy-Schwarz bound, the
+whole-sequence per-group symmetric int8 quantization of q and k (and of v for
+K6) with one combined dequantization scalar per group, and the ``noshift``
+choice made on the device.
 
 K4, :func:`flash_attention` (``fixed_max=False``): ``csrc/flash_online.cu``
 replaces ``_flash_kernel``, the forward of the training path and the
@@ -36,7 +48,7 @@ Columns ``>= s_valid`` are masked out of the numerator and the denominator.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -297,6 +309,399 @@ def flash_attention_plain(
     return out.reshape(b, h, sq, dim)
 
 
+# ---------------------------------------------------------------------------
+# K3 and K6: the fixed-max family (``flash_attention(fixed_max=True)``)
+# ---------------------------------------------------------------------------
+
+_FIXED_TILE = 64        # q rows per CTA and kv columns per tile of K3 and K6
+_NOSHIFT_BELOW = 96.0   # noshift=None drops the shift when max(bound) < this
+_PV8_NEG = -1e9         # K6's padding bias and initial running max
+
+
+class _FixedMaxOperands(NamedTuple):
+    """The fixed-max kernels' operands, prepared as the JAX wrapper does."""
+
+    q: torch.Tensor        # [BH, Sq, D] int8, or float carrying the fold
+    k: torch.Tensor        # [BH, Skv, D] int8 or float, rows >= kv_len zero
+    v: torch.Tensor        # [BH, Skv, D] float (K3) or int8 (K6), rows >= kv_len zero
+    kv_len: int
+    hper: int
+    shift: torch.Tensor    # [G] f32 softmax shift, 0 where the shift is dropped
+    scale: torch.Tensor    # [G] f32 dequantization of int8 scores (1 for float)
+    vscale: Optional[torch.Tensor]  # [G] f32 max |v| of the group (K6)
+    out_dtype: torch.dtype
+
+
+def _group_absmax(x: torch.Tensor, hper: int) -> torch.Tensor:
+    """[BH, S, D] -> [BH / hper] f32: max |x| over each head group, floored
+    at 1e-30 (the symmetric quantization's max-abs scale)."""
+    return x.float().abs().reshape(x.shape[0] // hper, -1).amax(dim=-1).clamp_min(1e-30)
+
+
+def _quantize_groups(x: torch.Tensor, absmax: torch.Tensor, hper: int) -> torch.Tensor:
+    """Symmetric int8 codes ``rint(x * 127 / absmax[group])``."""
+    r = (127.0 / absmax).repeat_interleave(hper)[:, None, None]
+    return torch.round(x.float() * r).to(torch.int8)
+
+
+def _fixed_max_operands(q, k, v, *, sm_scale, kv_valid, heads_per_cell,
+                        noshift, qk_int8, pv_int8, score_bound,
+                        unnormalized) -> _FixedMaxOperands:
+    """The JAX wrapper's preparation (``flash_attention``, :499-680) in plain
+    torch ops, run outside the kernel as XLA ran it.
+
+    The per-group shift is the Cauchy-Schwarz bound ``max_h(max_t |q_t| *
+    max_t |k_t|)`` over the group's heads (log2 domain), or ``score_bound``.
+    ``noshift=None`` decides on the device, without a host sync: shift 0
+    when ``max(bound) < 96``, else the bound. K6 ignores the shift."""
+    b, h, _, dim = q.shape
+    skv = k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / (dim ** 0.5)
+    fold = sm_scale * _LOG2E
+    kv_len = skv if kv_valid is None else min(kv_valid, skv)
+    if kv_len < 0:
+        raise ValueError(f"kv_valid {kv_valid} < 0")
+    if kv_len < skv:
+        tail = (torch.arange(skv, device=k.device) >= kv_len)[:, None]
+        k = k.masked_fill(tail, 0)
+        v = v.masked_fill(tail, 0)
+    out_dtype = q.dtype
+    if not qk_int8:
+        q = (q.float() * fold).to(q.dtype)
+    bh = b * h
+    hper = _heads_per_cell(bh, heads_per_cell)
+    groups = bh // hper
+    qh, kh, vh = (t.reshape(bh, t.shape[2], dim) for t in (q, k, v))
+    if score_bound is not None:
+        bounds = torch.as_tensor(score_bound, dtype=torch.float32,
+                                 device=q.device).reshape(()).repeat(groups)
+    else:
+        qn = qh.float().square().sum(dim=-1).sqrt().amax(dim=-1)
+        kn = kh.float().square().sum(dim=-1).sqrt().amax(dim=-1)
+        bounds = (qn * kn).reshape(groups, hper).amax(dim=-1)
+    if qk_int8:
+        if score_bound is None:
+            bounds = bounds * fold
+        aq, ak = _group_absmax(qh, hper), _group_absmax(kh, hper)
+        scale = aq * ak * (fold / (127.0 * 127.0))
+        qh, kh = _quantize_groups(qh, aq, hper), _quantize_groups(kh, ak, hper)
+    else:
+        scale = torch.ones_like(bounds)
+    vscale = None
+    if pv_int8:
+        vscale = _group_absmax(vh, hper)
+        vh = _quantize_groups(vh, vscale, hper)
+    if noshift is None and not unnormalized:
+        shift = torch.where(bounds.amax() < _NOSHIFT_BELOW,
+                            torch.zeros_like(bounds), bounds)
+    elif noshift and not unnormalized:
+        shift = torch.zeros_like(bounds)
+    else:  # the ring merge always takes the shared bound as its shift
+        shift = bounds
+    return _FixedMaxOperands(qh, kh, vh, kv_len, hper, shift.contiguous(),
+                             scale.contiguous(), vscale, out_dtype)
+
+
+def _fixed_max_loop(ops: _FixedMaxOperands, block_q: int, unnormalized: bool):
+    """Plain K3 over prepared operands: head groups and q blocks looped, no
+    score tensor larger than (hper, block_q, Skv) in f32. Returns (out, l),
+    l None unless ``unnormalized``."""
+    qh, kh, vh = ops.q, ops.k, ops.v
+    bh, sq, dim = qh.shape
+    block = _pick_block(sq, block_q)
+    col_ok = torch.arange(kh.shape[1], device=qh.device) < ops.kv_len
+    zero = torch.zeros((), dtype=torch.float32, device=qh.device)
+    out = torch.empty((bh, sq, dim), dtype=ops.out_dtype, device=qh.device)
+    l_out = (torch.empty((bh, sq, 1), dtype=torch.float32, device=qh.device)
+             if unnormalized else None)
+    for g in range(bh // ops.hper):
+        heads = slice(g * ops.hper, (g + 1) * ops.hper)
+        kt = kh[heads].float().transpose(1, 2)
+        vf = vh[heads].float()
+        for r0 in range(0, sq, block):
+            rows = slice(r0, r0 + block)
+            s = torch.matmul(qh[heads, rows].float(), kt)
+            if qh.dtype == torch.int8:
+                s = s * ops.scale[g]
+            p = torch.exp2(s - ops.shift[g])
+            p = torch.where(col_ok, p, zero).to(vh.dtype).float()
+            num = torch.matmul(p, vf)
+            den = p.sum(dim=-1, keepdim=True)
+            if unnormalized:
+                out[heads, rows] = num.to(ops.out_dtype)
+                l_out[heads, rows] = den
+            else:
+                inv = torch.where(den <= 0.0, torch.ones_like(den), 1.0 / den)
+                out[heads, rows] = (num * inv).to(ops.out_dtype)
+    return out, l_out
+
+
+def _finish_heads(x: torch.Tensor, b: int, h: int, rows: int) -> torch.Tensor:
+    """[BH, >= rows, C] -> [B, H, rows, C]."""
+    return x[:, :rows].reshape(b, h, rows, x.shape[-1])
+
+
+def flash_attention_fixed_max_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    kv_valid: Optional[int] = None,
+    block_q: int = 1024,
+    heads_per_cell: int = 4,
+    noshift: Optional[bool] = False,
+    qk_int8: bool = False,
+    score_bound=None,
+    unnormalized: bool = False,
+):
+    """Plain PyTorch K3, q [B, H, Sq, D] x k/v [B, H, Skv, D]; the arguments
+    of :func:`flash_attention_fixed_max`.
+
+    In the log2 domain, per head group g:
+
+        s   = f32(int32(q8 . k8^T)) * scale_g     (int8 q/k)
+        s   = f32(q . k^T), q carrying the fold   (float q/k)
+        p   = exp2(s - shift_g), 0 at columns >= kv_len
+        out = sum_j v(p_j) v_j / sum_j v(p_j)     (v(p): p rounded to v's
+              dtype, as the TPU's ones column of the PV matmul summed it;
+              a zero denominator divides by 1)
+
+    ``unnormalized=True`` returns ``(numerator in q's dtype, denominator in
+    f32 [B, H, Sq, 1])`` for the ring merge instead."""
+    b, h, sq, _ = q.shape
+    ops = _fixed_max_operands(
+        q, k, v, sm_scale=sm_scale, kv_valid=kv_valid,
+        heads_per_cell=heads_per_cell, noshift=noshift, qk_int8=qk_int8,
+        pv_int8=False, score_bound=score_bound, unnormalized=unnormalized)
+    out, l_out = _fixed_max_loop(ops, block_q, unnormalized)
+    if unnormalized:
+        return _finish_heads(out, b, h, sq), _finish_heads(l_out, b, h, sq)
+    return _finish_heads(out, b, h, sq)
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """[BH, S, D] zero-padded to [BH, rows, D], contiguous."""
+    if t.shape[1] == rows:
+        return t.contiguous()
+    buf = t.new_zeros((t.shape[0], rows, t.shape[2]))
+    buf[:, :t.shape[1]] = t
+    return buf
+
+
+def _check_fixed_max_inputs(name: str, q, k, v, dtypes) -> None:
+    b, h, _, dim = q.shape
+    if dim != 64:
+        raise NotImplementedError(
+            f"{name} takes head_dim 64 on CUDA, got {dim}: other head dims are "
+            "later work (ROADMAP.md, queue 2)")
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes {' or '.join(map(str, dtypes))} q/k/v of "
+                        f"one dtype on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
+    skv = k.shape[2]
+    for label, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (b, h, skv, dim) or t.device != q.device:
+            raise ValueError(f"{label} {tuple(t.shape)} on {t.device} does not "
+                             f"match ({b}, {h}, {skv}, {dim}) on {q.device}")
+
+
+def flash_attention_fixed_max(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    kv_valid: Optional[int] = None,
+    block_q: int = 1024,
+    heads_per_cell: int = 4,
+    noshift: Optional[bool] = False,
+    qk_int8: bool = False,
+    score_bound=None,
+    unnormalized: bool = False,
+):
+    """K3: fixed-shift attention, q [B, H, Sq, D] x k/v [B, H, Skv, D].
+
+    Sq may differ from Skv (a sequence-parallel q stripe against the full
+    K/V). ``qk_int8`` quantizes q and k per head group over the whole
+    sequence; ``noshift`` True / False / None drops, keeps or decides the
+    shift; ``score_bound`` replaces the bound (ring merge) and
+    ``unnormalized`` returns ``(o, l)``: o in q's dtype, l f32
+    [B, H, Sq, 1].
+
+    A CPU tensor runs :func:`flash_attention_fixed_max_plain`. A CUDA tensor
+    launches ``csrc/flash_fixed_max.cu`` (bf16 q/k/v, head_dim 64) or raises:
+    f32 raises ``TypeError`` there (its PV would need f32 products).
+    """
+    opts = dict(sm_scale=sm_scale, kv_valid=kv_valid,
+                heads_per_cell=heads_per_cell, noshift=noshift,
+                qk_int8=qk_int8, score_bound=score_bound,
+                unnormalized=unnormalized)
+    if not q.is_cuda:
+        return flash_attention_fixed_max_plain(q, k, v, block_q=block_q, **opts)
+    _check_fixed_max_inputs("K3", q, k, v, (torch.bfloat16,))
+    b, h, sq, dim = q.shape
+    ops = _fixed_max_operands(q, k, v, pv_int8=False, **opts)
+    bh = b * h
+    sq_pad = -(-sq // _FIXED_TILE) * _FIXED_TILE
+    skv_pad = -(-k.shape[2] // _FIXED_TILE) * _FIXED_TILE
+    qp = _pad_rows(ops.q, sq_pad)
+    kp, vp = _pad_rows(ops.k, skv_pad), _pad_rows(ops.v, skv_pad)
+    out = torch.empty((bh, sq_pad, dim), dtype=torch.bfloat16, device=q.device)
+    l_out = (torch.empty((bh, sq_pad, 1), dtype=torch.float32, device=q.device)
+             if unnormalized else None)
+    rc = _build.lib().aether_flash_fixed_max(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), ops.shift.data_ptr(),
+        ops.scale.data_ptr(), out.data_ptr(),
+        None if l_out is None else l_out.data_ptr(),
+        bh, sq_pad, skv_pad, ops.kv_len, ops.hper, int(qp.dtype == torch.int8),
+        _build.stream_ptr(q.device))
+    _build.check(rc, "aether_flash_fixed_max")
+    flash_attention_fixed_max.launches += 1
+    if unnormalized:
+        return _finish_heads(out, b, h, sq), _finish_heads(l_out, b, h, sq)
+    return _finish_heads(out, b, h, sq)
+
+
+# wrapper calls that launched the Hopper kernel (a plain integer)
+flash_attention_fixed_max.launches = 0
+
+
+def _pv8_loop(ops: _FixedMaxOperands, block_q: int, block_k: int) -> torch.Tensor:
+    """Plain K6 over prepared operands. The running max moves once per kv
+    block of ``_pick_block(Skv, block_k)`` columns, as in the TPU kernel, so
+    p8 is rounded against the same max; every product and per-block sum is
+    an exact integer below 2**24."""
+    qh, kh, vh = ops.q, ops.k, ops.v
+    bh, sq, dim = qh.shape
+    skv = kh.shape[1]
+    bk = _pick_block(skv, block_k)
+    kv_pad = -(-skv // bk) * bk
+    kh, vh = _pad_rows(kh, kv_pad), _pad_rows(vh, kv_pad)
+    bias = None
+    if kv_pad > ops.kv_len:
+        bias = torch.where(torch.arange(kv_pad, device=qh.device) < ops.kv_len,
+                           0.0, _PV8_NEG).to(torch.float32)
+    block = _pick_block(sq, block_q)
+    out = torch.empty((bh, sq, dim), dtype=ops.out_dtype, device=qh.device)
+    for g in range(bh // ops.hper):
+        heads = slice(g * ops.hper, (g + 1) * ops.hper)
+        kt = kh[heads].float().transpose(1, 2)
+        vf = vh[heads].float()
+        for r0 in range(0, sq, block):
+            qb = qh[heads, r0:r0 + block].float()
+            shape = (ops.hper, qb.shape[1], 1)
+            m = torch.full(shape, _PV8_NEG, device=qh.device)
+            l = torch.zeros(shape, device=qh.device)
+            acc = torch.zeros((ops.hper, qb.shape[1], dim), device=qh.device)
+            for c0 in range(0, kv_pad, bk):
+                s = torch.matmul(qb, kt[:, :, c0:c0 + bk]) * ops.scale[g]
+                if bias is not None:
+                    s = s + bias[c0:c0 + bk]
+                m_next = torch.maximum(m, torch.ceil(s.amax(dim=-1, keepdim=True)))
+                alpha = torch.exp2(m - m_next)  # an exact power of two
+                m = m_next
+                p8 = torch.round(torch.exp2(s - m_next) * 127.0)
+                acc = acc * alpha + torch.matmul(p8, vf[:, c0:c0 + bk])
+                # the TPU's ones column is 127 at valid rows; p8 is 0 elsewhere
+                l = l * alpha + p8.sum(dim=-1, keepdim=True) * 127.0
+            inv = torch.where(l <= 0.0, torch.ones_like(l), 1.0 / l)
+            out[heads, r0:r0 + block] = (acc * inv * ops.vscale[g]).to(ops.out_dtype)
+    return out
+
+
+def flash_attention_pv8_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    kv_valid: Optional[int] = None,
+    block_q: int = 1024,
+    block_k: int = 1024,
+    heads_per_cell: int = 4,
+) -> torch.Tensor:
+    """Plain PyTorch K6, q [B, H, Sq, D] x k/v [B, H, Skv, D] -> [B, H, Sq, D].
+
+    Full-int8 attention: q, k and v quantized per head group; per kv block
+    of ``_pick_block(Skv, block_k)`` columns, in the log2 domain,
+
+        s    = f32(int32(q8 . k8^T)) * scale_g - 1e9 at columns >= kv_len
+        m'   = max(m, ceil(rowmax s)),  m starting at -1e9
+        p8   = rint(127 * exp2(s - m'))
+        acc  = acc * exp2(m - m') + f32(int32(p8 . v8))
+        l    = l * exp2(m - m') + 127 * sum p8
+        out  = acc / l * vmax_g   (a zero l divides by 1)"""
+    b, h, sq, _ = q.shape
+    ops = _fixed_max_operands(
+        q, k, v, sm_scale=sm_scale, kv_valid=kv_valid,
+        heads_per_cell=heads_per_cell, noshift=False, qk_int8=True,
+        pv_int8=True, score_bound=None, unnormalized=False)
+    return _finish_heads(_pv8_loop(ops, block_q, block_k), b, h, sq)
+
+
+def _pv8_v_layout(v8: torch.Tensor) -> torch.Tensor:
+    """[BH, Skv, 64] int8 (Skv a multiple of 32) -> [BH, 64, Skv]: v8
+    transposed so each output column's kv values are contiguous (the B
+    operand of the int8 PV mma), with the kv order permuted inside every
+    32-column chunk to the order in which K6's threads hold p8 (the s32
+    accumulator layout of QK^T): logical k = 16 a + 4 t + j takes column
+    16 a + 8 (j // 2) + 2 t + j % 2. The sum over k is unchanged."""
+    kk = torch.arange(32)
+    perm = (kk // 16) * 16 + ((kk % 4) // 2) * 8 + ((kk % 16) // 4) * 2 + kk % 2
+    idx = (torch.arange(0, v8.shape[1], 32)[:, None] + perm[None, :]).reshape(-1)
+    return v8.index_select(1, idx.to(v8.device)).transpose(1, 2).contiguous()
+
+
+def flash_attention_pv8(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    kv_valid: Optional[int] = None,
+    block_q: int = 1024,
+    block_k: int = 1024,
+    heads_per_cell: int = 4,
+) -> torch.Tensor:
+    """K6: full-int8 attention with an integer running max; the arguments of
+    :func:`flash_attention_pv8_plain`.
+
+    A CPU tensor runs :func:`flash_attention_pv8_plain`. A CUDA tensor
+    launches ``csrc/flash_pv8.cu`` (f32 or bf16 q/k/v, head_dim 64), which
+    moves the running max once per ``_pick_block(Skv, block_k)`` columns as
+    the plain version does, or raises."""
+    opts = dict(sm_scale=sm_scale, kv_valid=kv_valid, heads_per_cell=heads_per_cell)
+    if not q.is_cuda:
+        return flash_attention_pv8_plain(q, k, v, block_q=block_q,
+                                         block_k=block_k, **opts)
+    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+    _check_fixed_max_inputs("K6", q, k, v, tuple(dtypes))
+    b, h, sq, dim = q.shape
+    skv = k.shape[2]
+    ops = _fixed_max_operands(q, k, v, noshift=False, qk_int8=True, pv_int8=True,
+                              score_bound=None, unnormalized=False, **opts)
+    bh = b * h
+    span = _pick_block(skv, block_k)
+    sq_pad = -(-sq // _FIXED_TILE) * _FIXED_TILE
+    skv_pad = -(-skv // span) * span
+    qp = _pad_rows(ops.q, sq_pad)
+    kp = _pad_rows(ops.k, skv_pad)
+    vt = _pv8_v_layout(_pad_rows(ops.v, skv_pad))
+    out = torch.empty((bh, sq_pad, dim), dtype=q.dtype, device=q.device)
+    rc = _build.lib().aether_flash_pv8(
+        qp.data_ptr(), kp.data_ptr(), vt.data_ptr(), ops.scale.data_ptr(),
+        ops.vscale.data_ptr(), out.data_ptr(), bh, sq_pad, skv_pad, ops.kv_len,
+        ops.hper, span, dtypes[q.dtype], _build.stream_ptr(q.device))
+    _build.check(rc, "aether_flash_pv8")
+    flash_attention_pv8.launches += 1
+    return _finish_heads(out, b, h, sq)
+
+
+# wrapper calls that launched the Hopper kernel (a plain integer)
+flash_attention_pv8.launches = 0
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -308,33 +713,59 @@ def flash_attention(
     heads_per_cell: int = 4,
     denom: str = "mxu",
     fixed_max: bool = False,
+    noshift: Optional[bool] = False,
     kv_valid: Optional[int] = None,
     qk_int8: bool = False,
     pv_int8: bool = False,
-) -> torch.Tensor:
-    """Non-causal attention, q [B, H, Sq, D] x k/v [B, H, Skv, D] -> [B, H, Sq, D].
+    score_bound=None,
+    unnormalized: bool = False,
+):
+    """Non-causal attention, q [B, H, Sq, D] x k/v [B, H, Skv, D] -> [B, H, Sq, D];
+    the JAX ``flash_attention`` with its argument rules.
 
-    The ``fixed_max=False`` branch of the JAX ``flash_attention``: K4.
-    ``kv_valid`` treats only the first ``kv_valid`` k/v rows as real (the
-    tail is zeroed and masked); ``block_q``, ``block_k`` and
-    ``heads_per_cell`` shape the plain version's loops. At head_dim >= 128
-    the JAX wrapper turns ``fixed_max``, ``qk_int8`` and ``pv_int8`` off and
-    takes the "vpu" denominator; so does this one. ``fixed_max``,
-    ``qk_int8`` and ``pv_int8`` at head_dim < 128 need kernels K3 and K6 and
-    raise.
+    ``fixed_max=False`` runs K4 (online softmax); ``fixed_max=True`` runs K3
+    (:func:`flash_attention_fixed_max`), or K6 (:func:`flash_attention_pv8`)
+    with ``pv_int8``. ``kv_valid`` treats only the first ``kv_valid`` k/v
+    rows as real (the tail is zeroed and masked); ``block_q``, ``block_k``
+    and ``heads_per_cell`` shape the plain versions' loops and K6's running
+    max. At head_dim >= 128 the JAX wrapper turns ``fixed_max``, ``qk_int8``
+    and ``pv_int8`` off and takes the "vpu" denominator; so does this one.
+    ``unnormalized`` returns ``(o, l)`` (see :func:`flash_attention_fixed_max`).
 
-    A CPU tensor runs :func:`flash_attention_plain`. A CUDA tensor launches
-    the Hopper kernel (f32 or bf16, head_dim 64) or raises; there is no
-    fallback.
+    A CPU tensor runs the plain versions. A CUDA tensor launches a Hopper
+    kernel or raises; there is no fallback. ``flash_attention.launches``
+    counts K4's launches.
     """
+    if qk_int8 and not fixed_max:
+        raise ValueError("qk_int8 requires fixed_max=True (the int8 "
+                         "dequantization rides the fixed-max scalar prefetch)")
+    if pv_int8 and not fixed_max:
+        raise ValueError("pv_int8 requires fixed_max=True (it shares the "
+                         "fixed-max family's scalar-prefetch scaffold)")
+    if pv_int8 and not qk_int8:
+        raise ValueError("pv_int8 requires qk_int8=True (the mixed "
+                         "bf16-QK/int8-PV cell crashes the TPU compiler)")
+    if (score_bound is not None or unnormalized) and (not fixed_max or pv_int8):
+        raise ValueError("score_bound / unnormalized are fixed-max-family "
+                         "options (the ring/sequence-parallel merge relies "
+                         "on every stripe sharing one softmax shift; the "
+                         "pv_int8 cell re-derives its own integer max)")
     dim = q.shape[-1]
     if dim >= 128:
+        if unnormalized:
+            raise ValueError("unnormalized (ring merge) needs the mxu "
+                             "ones-column denominator, unavailable at "
+                             "head_dim >= 128")
         denom, fixed_max, qk_int8, pv_int8 = "vpu", False, False, False
-    if fixed_max or qk_int8 or pv_int8:
-        raise NotImplementedError(
-            "flash_attention(fixed_max=True / qk_int8 / pv_int8) needs kernels "
-            "K3 (_flash_kernel_fixed_max) and K6 (_flash_kernel_pv8): not "
-            "ported yet (ROADMAP.md, queue 2)")
+    if fixed_max and pv_int8:
+        return flash_attention_pv8(q, k, v, sm_scale=sm_scale, kv_valid=kv_valid,
+                                   block_q=block_q, block_k=block_k,
+                                   heads_per_cell=heads_per_cell)
+    if fixed_max:
+        return flash_attention_fixed_max(
+            q, k, v, sm_scale=sm_scale, kv_valid=kv_valid, block_q=block_q,
+            heads_per_cell=heads_per_cell, noshift=noshift, qk_int8=qk_int8,
+            score_bound=score_bound, unnormalized=unnormalized)
     if denom not in ("mxu", "vpu"):
         raise ValueError(f"denom must be 'mxu' or 'vpu', got {denom!r}")
     if not q.is_cuda:
@@ -360,14 +791,9 @@ def flash_attention(
     bh = b * h
     sq_pad = -(-sq // _K4_TILE) * _K4_TILE
     skv_pad = -(-skv // _K4_TILE) * _K4_TILE
-
-    def padded(t, rows, keep):
-        buf = t.new_zeros((bh, rows, dim))
-        buf[:, :keep] = t.reshape(bh, t.shape[2], dim)[:, :keep]
-        return buf
-
-    qp = padded(q, sq_pad, sq)
-    kp, vp = padded(k, skv_pad, kv_len), padded(v, skv_pad, kv_len)
+    # rows >= kv_len are already zero (_online_operands)
+    qp, kp, vp = (_pad_rows(t.reshape(bh, t.shape[2], dim), rows)
+                  for t, rows in ((q, sq_pad), (k, skv_pad), (v, skv_pad)))
     out = torch.empty((bh, sq_pad, dim), dtype=q.dtype, device=q.device)
     rc = _build.lib().aether_flash_online(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
@@ -375,7 +801,7 @@ def flash_attention(
         _build.stream_ptr(q.device))
     _build.check(rc, "aether_flash_online")
     flash_attention.launches += 1
-    return out[:, :sq].reshape(b, h, sq, dim)
+    return _finish_heads(out, b, h, sq)
 
 
 # wrapper calls that launched the Hopper kernel (a plain integer)

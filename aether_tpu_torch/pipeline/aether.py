@@ -1,21 +1,28 @@
-"""AetherV1 pipeline, reconstruction task, in PyTorch.
+"""AetherV1 pipeline, three tasks, in PyTorch.
 
-Port of the reconstruction path of ``aether_tpu/pipeline/aether.py``
-(``AetherPipeline.__call__(task="reconstruction")``): uint8 upload -> tiled,
-8-frame-chunked VAE encode with latent-space feathered seams -> one posterior
-draw -> condition packing (16 content + 24 zero camera channels) -> SDE-DPM-
-Solver++(2M) denoise of the DiT (guidance 1, so no CFG pair) -> stacked RGB +
-disparity VAE decode in 2-latent-frame chunks, tiled with pixel-space seams ->
-RGB clip, disparity square, raymap unfold.
+Port of ``aether_tpu/pipeline/aether.py`` (``AetherPipeline.__call__``):
+uint8 upload -> tiled, 8-frame-chunked VAE encode of the conditions with
+latent-space feathered seams and one posterior draw each -> condition packing
+(16 content + 24 camera channels: zeros, or the packed raymap) ->
+SDE-DPM-Solver++(2M) denoise of the DiT, with a batch-2 ``[uncond, cond]``
+CFG pair when the guidance exceeds 1 -> stacked RGB + disparity VAE decode in
+2-latent-frame chunks, tiled with pixel-space seams -> RGB clip, disparity
+square, raymap unfold.
+
+Per task (reference ``pipeline:256-272, 839-855``): reconstruction encodes a
+video (4 steps, guidance 1); prediction encodes one image into the first
+latent frame (50 steps, guidance 3, dynamic CFG; the uncond stream zeroes that
+frame's content); planning encodes an image and a goal into the first and
+last latent frames (50 steps, guidance 3, dynamic CFG; the uncond stream
+zeroes all content channels).
 
 The port runs eagerly: the denoise loop is a Python loop over steps, the DiT a
 loop over blocks. Every random draw goes through a noise source
 (:class:`TorchNoise` by default, a ``torch.Generator`` on the pipeline's
 device), which tests replace with the JAX pipeline's key streams.
 
-Not in this slice (ROADMAP.md): prediction, planning and CFG,
-``batch_reconstruct``, meshes, quantized weight formats, compact wires and
-``defer_host``.
+Not in this slice (ROADMAP.md): ``batch_reconstruct``, meshes, quantized
+weight formats, the CFG prefix skip, compact wires and ``defer_host``.
 """
 
 from __future__ import annotations
@@ -33,8 +40,13 @@ from aether_tpu_torch.config import PipelineConfig
 from aether_tpu_torch.models.dit import DiT
 from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
 from aether_tpu_torch.models.vae import VAE, decode_frames, encode_moments
-from aether_tpu_torch.schedule.dpm import SamplingPlan, dpm_step, make_sampling_plan
-from aether_tpu_torch.utils.preprocess import preprocess_video_u8
+from aether_tpu_torch.schedule.dpm import (
+    SamplingPlan,
+    dpm_step,
+    make_sampling_plan,
+    set_timesteps,
+)
+from aether_tpu_torch.utils.preprocess import preprocess_image_u8, preprocess_video_u8
 
 
 @dataclasses.dataclass
@@ -49,8 +61,9 @@ class AetherPipelineOutput:
 
 class TorchNoise:
     """The pipeline's own draws: one ``torch.Generator`` on the device, seeded
-    per call, consumed in a fixed order (posterior, initial, then one SDE draw
-    per step), so equal seeds give equal outputs."""
+    per call, consumed in a fixed order (posterior, then the goal's posterior
+    for planning, initial, then one SDE draw per step), so equal seeds give
+    equal outputs."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
@@ -62,7 +75,12 @@ class TorchNoise:
                            dtype=torch.float32)
 
     def posterior(self, shape):
-        """Channels-last (1, F_lat, h, w, C) posterior noise."""
+        """Channels-last (1, F_lat, h, w, C) posterior noise of the video or
+        image condition."""
+        return self._normal(shape)
+
+    def goal(self, shape):
+        """Channels-last (1, 1, h, w, C) posterior noise of planning's goal."""
         return self._normal(shape)
 
     def initial(self, shape):
@@ -90,6 +108,22 @@ def _stage(name: str, times: Dict[str, float], device: torch.device):
 def _u8_to_unit(pixels_u8: np.ndarray, dtype, device) -> torch.Tensor:
     """uint8 pixels -> [-1, 1] on the device (the upload moves uint8)."""
     return torch.from_numpy(np.ascontiguousarray(pixels_u8)).to(device).to(dtype) / 127.5 - 1.0
+
+
+def dynamic_cfg_schedule(timesteps: np.ndarray, num_inference_steps: int,
+                         guidance_scale: float) -> np.ndarray:
+    """Reference dynamic-CFG ramp, evaluated per *timestep value* in float64.
+
+    1 + g * (1 - cos(pi * ((steps - t)/steps)^5)) / 2 -- reference
+    ``pipeline:879-893`` uses ``t.item()`` (the 0..999 timestep, not the
+    index), which makes the exponent huge and the scale jump around [1, 1+g]
+    rather than ramp. That quirk is the checkpoint's sampler and is kept.
+    Copy of ``aether_tpu/pipeline/aether.py::dynamic_cfg_schedule``."""
+    out = np.zeros(len(timesteps), dtype=np.float64)
+    for i, t in enumerate(timesteps):
+        frac = (num_inference_steps - float(int(t))) / num_inference_steps
+        out[i] = 1.0 + guidance_scale * (1.0 - math.cos(math.pi * frac**5.0)) / 2.0
+    return out.astype(np.float32)
 
 
 def pack_raymap(raymap: torch.Tensor, temporal_ratio: int = 4) -> torch.Tensor:
@@ -212,20 +246,23 @@ def _tiled_moments(config: PipelineConfig, vae: VAE, video: torch.Tensor,
     return merged
 
 
-def _encode_pixels_tiled(config: PipelineConfig, dtype, vae: VAE,
-                         frames: torch.Tensor, noise_source,
-                         frame_batch_size: int = 8,
-                         tile_latent: Tuple[int, int] = (32, 90),
-                         min_overlap: Tuple[int, int] = (4, 6)) -> torch.Tensor:
-    """Tiled encode of (F, H, W, 3) in [-1, 1]: per-tile moments, feathered
-    seams, ONE posterior draw over the blended moments (the untiled path's
-    noise shape). ``noise_source=None`` returns the posterior mean."""
-    moments = _tiled_moments(config, vae, frames[None], frame_batch_size,
-                             tile_latent, min_overlap)
+def _encode_pixels(config: PipelineConfig, dtype, vae: VAE, frames: torch.Tensor,
+                   draw, tiling: bool, frame_batch_size: int = 8,
+                   tile_latent: Tuple[int, int] = (32, 90),
+                   min_overlap: Tuple[int, int] = (4, 6)) -> torch.Tensor:
+    """Encode of (F, H, W, 3) in [-1, 1] -> scaled (1, F_lat, C, h, w):
+    8-frame chunks, tiled with feathered latent seams when ``tiling`` (and
+    more than one tile covers the frame), then ONE posterior draw over the
+    blended moments (the untiled path's noise shape). ``draw(shape)`` gives
+    the posterior noise; ``draw=None`` returns the posterior mean."""
+    moments = None
+    if tiling:
+        moments = _tiled_moments(config, vae, frames[None], frame_batch_size,
+                                 tile_latent, min_overlap)
     if moments is None:
         moments = _encode_moments_chunked(vae, frames[None], frame_batch_size)
     mean, logvar = moments
-    noise = None if noise_source is None else noise_source.posterior(mean.shape)
+    noise = None if draw is None else draw(mean.shape)
     return _finish_encode(config, dtype, mean, logvar, noise)
 
 
@@ -289,18 +326,40 @@ def _finish_disparity(disp_decoded: torch.Tensor) -> torch.Tensor:
 
 def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
              condition_latents: torch.Tensor, plan: SamplingPlan,
-             rope_cos: torch.Tensor, rope_sin: torch.Tensor,
-             noise_source) -> torch.Tensor:
-    """SDE-DPM-Solver++(2M) loop without CFG. Latents are carried in the
-    compute dtype, ``old_x0`` in f32. Returns (B, F_lat, 56, h, w)."""
+             rope_cos: torch.Tensor, rope_sin: torch.Tensor, noise_source,
+             task: str, guidance: Optional[torch.Tensor]) -> torch.Tensor:
+    """SDE-DPM-Solver++(2M) loop (JAX ``_denoise_segment``, :1010-1050).
+    Latents are carried in the compute dtype, ``old_x0`` in f32.
+
+    ``guidance`` (per-step f32 scales on the device) runs classifier-free
+    guidance: the DiT takes the batch-2 pair ``[uncond, cond]``, where the
+    uncond condition zeroes the content channels of every frame (planning)
+    or of the first latent frame (prediction), and ``uncond + g_i * (cond -
+    uncond)`` is formed in f32. ``None`` runs the condition alone.
+    Returns (B, F_lat, 56, h, w)."""
     b, f_lat, _, h_lat, w_lat = condition_latents.shape
     shape = (b, f_lat, 56, h_lat, w_lat)
     lat = (noise_source.initial(shape) * plan.init_noise_sigma).to(dtype)
     old_x0 = torch.zeros(shape, dtype=torch.float32, device=lat.device)
+    latent_condition = condition_latents
+    if guidance is not None:
+        lat_c = config.vae.latent_channels
+        uncond = condition_latents.clone()
+        if task == "planning":
+            uncond[:, :, :lat_c] = 0.0
+        elif task == "prediction":
+            uncond[:, :1, :lat_c] = 0.0
+        latent_condition = torch.cat([uncond, condition_latents], dim=0)
+    n = latent_condition.shape[0]
+    text = text.expand(n, *text.shape[1:])
     for i in range(plan.num_steps):
-        model_in = torch.cat([lat, condition_latents], dim=2)
-        t_batch = plan.timesteps[i].expand(b)
+        model_in = lat if guidance is None else torch.cat([lat, lat], dim=0)
+        model_in = torch.cat([model_in, latent_condition], dim=2)
+        t_batch = plan.timesteps[i].expand(n)
         noise_pred = dit(model_in, text, t_batch, rope_cos, rope_sin).float()
+        if guidance is not None:
+            uncond_pred, cond_pred = noise_pred.chunk(2, dim=0)
+            noise_pred = uncond_pred + guidance[i] * (cond_pred - uncond_pred)
         sde_noise = noise_source.sde(i, shape)
         new_lat, old_x0 = dpm_step(plan, i, lat.float(), noise_pred, old_x0,
                                    sde_noise)
@@ -309,7 +368,7 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
 
 
 class AetherPipeline:
-    """Reconstruction sampler over a :class:`DiT` and a :class:`VAE` on one
+    """The three-task sampler over a :class:`DiT` and a :class:`VAE` on one
     device. ``empty_prompt_embeds`` is the cached (1, 226, 4096) empty-prompt
     T5 embedding."""
 
@@ -325,55 +384,81 @@ class AetherPipeline:
                                                        dtype=compute_dtype)
         self.empty_prompt_embeds = text[None] if text.ndim == 2 else text
 
-    def check_inputs(self, task, video, height, width, num_frames, fps,
-                     guidance_scale) -> None:
+    def check_inputs(self, task, image, video, goal, raymap, height, width,
+                     num_frames, fps) -> None:
+        """The JAX pipeline's validation (reference ``pipeline:350-449``)."""
         cfg = self.config
-        if task != "reconstruction":
-            raise NotImplementedError(
-                f"task {task!r} is not ported yet (ROADMAP.md, queue 1: "
-                "prediction and planning, with CFG)")
-        if video is None:
-            raise ValueError("`video` has to be provided.")
-        if guidance_scale > 1.0:
-            raise NotImplementedError(
-                "classifier-free guidance is not ported yet (ROADMAP.md, "
-                "queue 1: prediction and planning, with CFG)")
+        if task not in ("reconstruction", "prediction", "planning"):
+            raise ValueError(
+                f"`task` has to be one of reconstruction/prediction/planning, got {task}.")
+        if image is None and video is None:
+            raise ValueError("`image` or `video` has to be provided.")
+        if image is not None and video is not None:
+            raise ValueError("`image` and `video` cannot both be provided.")
+        if image is not None and task == "reconstruction":
+            raise ValueError("`image` is not supported for `reconstruction` task.")
+        if goal is not None and task != "planning":
+            raise ValueError("`goal` is only supported for `planning` task.")
+        if video is not None and task != "reconstruction":
+            raise ValueError("`video` is only supported for `reconstruction` task.")
         if height % 8 != 0 or width % 8 != 0:
             raise ValueError(
                 f"`height` and `width` have to be divisible by 8 but are {height} and {width}.")
+        if num_frames is None:
+            raise ValueError("`num_frames` is required.")
         if num_frames not in cfg.allowed_num_frames:
             raise ValueError(
                 f"`num_frames` has to be one of {list(cfg.allowed_num_frames)}.")
         if fps not in cfg.allowed_fps:
             raise ValueError(f"`fps` has to be one of {list(cfg.allowed_fps)}.")
+        if raymap is not None:
+            expected = (num_frames, 6, height // cfg.vae_scale_factor_spatial,
+                        width // cfg.vae_scale_factor_spatial)
+            if tuple(raymap.shape[-4:]) != expected:
+                raise ValueError(
+                    f"`raymap` shape is not correct. Expected {expected}, "
+                    f"got {tuple(raymap.shape)}.")
 
     @torch.no_grad()
     def __call__(
         self,
-        task: str = "reconstruction",
+        task: Optional[str] = None,
+        image=None,
         video=None,
+        goal=None,
+        raymap=None,
         height: Optional[int] = None,
         width: Optional[int] = None,
         num_frames: Optional[int] = None,
         num_inference_steps: Optional[int] = None,
         guidance_scale: Optional[float] = None,
+        use_dynamic_cfg: Optional[bool] = None,
         fps: Optional[int] = None,
         seed: Optional[int] = None,
         noise=None,
     ) -> AetherPipelineOutput:
-        """Reconstruct one window. ``noise`` replaces the default
-        :class:`TorchNoise` (it needs ``posterior``, ``initial`` and ``sde``)."""
+        """Run one window of ``task`` (inferred from the inputs when None:
+        reconstruction for a video, planning with a goal, else prediction).
+        ``noise`` replaces the default :class:`TorchNoise` (it needs
+        ``posterior``, ``goal``, ``initial`` and ``sde``)."""
         cfg = self.config
+        if task is None:
+            task = ("reconstruction" if video is not None
+                    else "planning" if goal is not None else "prediction")
         height = height or cfg.dit.sample_height * cfg.vae_scale_factor_spatial
         width = width or cfg.dit.sample_width * cfg.vae_scale_factor_spatial
-        num_frames = num_frames or max(cfg.allowed_num_frames)
+        if num_frames is None:
+            num_frames = max(cfg.allowed_num_frames)
         fps = fps or cfg.base_fps
+        self.check_inputs(task, image, video, goal, raymap, height, width,
+                          num_frames, fps)
+        # None means the task default; explicit falsy values are honoured
         if num_inference_steps is None:
             num_inference_steps = dict(cfg.default_num_inference_steps)[task]
         if guidance_scale is None:
-            guidance_scale = dict(cfg.default_guidance_scale).get(task, 1.0)
-        self.check_inputs(task, video, height, width, num_frames, fps,
-                          guidance_scale)
+            guidance_scale = dict(cfg.default_guidance_scale)[task]
+        if use_dynamic_cfg is None:
+            use_dynamic_cfg = dict(cfg.default_use_dynamic_cfg)[task]
 
         dev, dtype = self.device, self.compute_dtype
         if noise is None:
@@ -386,31 +471,54 @@ class AetherPipeline:
         tiling = h_lat > 32 or w_lat > 48
         times: Dict[str, float] = {}
 
-        # host-side precomputation: pixels, sampling plan, rope tables
-        pixels = preprocess_video_u8(video, height, width)
-        plan = make_sampling_plan(cfg.scheduler, num_inference_steps, device=dev)
+        # host-side precomputation: pixels, sampling plan, guidance, rope tables
+        if video is not None:
+            pixels = preprocess_video_u8(video, height, width)
+        else:
+            pixels = preprocess_image_u8(image, height, width)[None]
+        goal_pixels = (None if goal is None
+                       else preprocess_image_u8(goal, height, width)[None])
+        timesteps = set_timesteps(cfg.scheduler, num_inference_steps)
+        plan = make_sampling_plan(cfg.scheduler, num_inference_steps,
+                                  timesteps=timesteps, device=dev)
+        guidance = None
+        if guidance_scale > 1.0:
+            scales = (dynamic_cfg_schedule(timesteps, num_inference_steps, guidance_scale)
+                      if use_dynamic_cfg
+                      else np.full(num_inference_steps, guidance_scale, np.float32))
+            guidance = torch.from_numpy(scales).to(dev)
         rope_cos, rope_sin = (torch.from_numpy(t).to(dev) for t in
                               prepare_rotary_positional_embeddings(
                                   cfg.dit, height, width, f_lat,
                                   vae_scale_factor_spatial=cfg.vae_scale_factor_spatial,
                                   base_fps=cfg.base_fps, fps=fps))
 
-        # ---- stage 1: tiled, chunked VAE encode of the video condition ----
+        # ---- stage 1: tiled, chunked VAE encode of the pixel conditions ----
         with _stage("encode", times, dev):
-            frames = _u8_to_unit(pixels, dtype, dev)
-            if tiling:
-                condition = _encode_pixels_tiled(cfg, dtype, self.vae, frames, noise)
+            def encode(px, draw):
+                return _encode_pixels(cfg, dtype, self.vae,
+                                      _u8_to_unit(px, dtype, dev), draw, tiling)
+
+            condition = encode(pixels, noise.posterior)
+            if task == "prediction":  # [image | zeros]
+                condition = torch.cat([condition, condition.new_zeros(
+                    (1, f_lat - 1, lat_c, h_lat, w_lat))], dim=1)
+            elif task == "planning":  # [image | zeros | goal], a second draw
+                goal_lat = encode(goal_pixels, noise.goal)
+                condition = torch.cat([condition, condition.new_zeros(
+                    (1, f_lat - 2, lat_c, h_lat, w_lat)), goal_lat], dim=1)
+            if raymap is not None:
+                rm = torch.from_numpy(np.asarray(raymap)).to(dev)
+                camera = pack_raymap(rm[None].to(dtype))
             else:
-                mean, logvar = _encode_moments_chunked(self.vae, frames[None])
-                condition = _finish_encode(cfg, dtype, mean, logvar,
-                                           noise.posterior(mean.shape))
-            camera = torch.zeros((1, f_lat, 24, h_lat, w_lat), dtype=dtype, device=dev)
+                camera = torch.zeros((1, f_lat, 24, h_lat, w_lat), dtype=dtype, device=dev)
             condition_latents = torch.cat([condition, camera], dim=2)
 
         # ---- stage 2: denoise ----
         with _stage("denoise", times, dev):
             latents = _denoise(cfg, dtype, self.dit, self.empty_prompt_embeds,
-                               condition_latents, plan, rope_cos, rope_sin, noise)
+                               condition_latents, plan, rope_cos, rope_sin, noise,
+                               task, guidance)
 
         # ---- stage 3: stacked decode + output transforms ----
         with _stage("decode", times, dev):
@@ -418,7 +526,7 @@ class AetherPipeline:
                                                        tiling)
             rgb = _finish_rgb(rgb)[0].cpu().numpy()
             disparity = _finish_disparity(disparity)[0].cpu().numpy()
-            raymap = unpack_raymap(latents[:, :, 2 * lat_c:].float(),
-                                   num_frames)[0].cpu().numpy()
-        return AetherPipelineOutput(rgb=rgb, disparity=disparity, raymap=raymap,
+            raymap_out = unpack_raymap(latents[:, :, 2 * lat_c:].float(),
+                                       num_frames)[0].cpu().numpy()
+        return AetherPipelineOutput(rgb=rgb, disparity=disparity, raymap=raymap_out,
                                     stage_seconds=times)

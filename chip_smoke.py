@@ -24,14 +24,29 @@ Phases (each prints its result; any failure raises and exits non-zero):
      (f32 state does not fit 42 on one card), remat, ``flash_train``
      attention, one synthetic batch at the 41x480x720 window's latent shape,
      three steps; checks finite loss and gradient norm, 2 x 16 K4 launches a
-     step, moved parameters, an EMA apart from them and the peak memory.
+     step, moved parameters, an EMA apart from them and the peak memory;
+ 10. K3 (``flash_attention_fixed_max``) against its plain version at the CFG
+     pair's shape, B=2, 48 heads, 15076 tokens, head_dim 64, bf16, with int8
+     and with bf16 QK^T; K3 unnormalized with a score bound on a
+     sequence-parallel stripe (Sq < Skv, ``kv_valid``); K6
+     (``flash_attention_pv8``) against its plain version at the CFG shape;
+ 11. one prediction request on the phase-5 pipeline (built again from its
+     seeds) at ``AETHER_ATTN_FUSED=0``: the task defaults (50 steps,
+     guidance 3, dynamic CFG), a seeded image and (41, 6, 60, 90) raymap;
+     checks shapes, finiteness, the RGB range and 42 x 50 K3 launches with
+     no K1/K2/K6 launch;
+ 12. two planning requests (image, goal, raymap; same seed) at
+     ``AETHER_ATTN_PV8=1``, cut to 10 steps to fit the run's time; checks
+     42 x 10 K6 launches each and bit-identical outputs.
 The line before the last is a JSON object with each kernel's launches on its
 path, error against its plain version and times; the last line is the JSON
 status line. There is no CPU path: without CUDA the script raises.
 """
 
 import dataclasses
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -42,6 +57,7 @@ import torch
 SEQ, TEXT, HEADS, HEAD_DIM = 15076, 226, 48, 64
 FRAMES, HEIGHT, WIDTH, STEPS = 41, 480, 720, 4
 TRAIN_LAYERS, TRAIN_STEPS = 16, 3
+PREDICTION_STEPS, PLANNING_STEPS = 50, 10  # the task default; a cut to fit the time
 
 
 def log(msg: str) -> None:
@@ -66,6 +82,27 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def compare(name, out, ref, max_bar, mean_bar):
+    """Max and mean abs error of a kernel's output against its plain version."""
+    check(out.shape == ref.shape and out.dtype == ref.dtype,
+          f"{name}: {out.shape} {out.dtype} vs {ref.shape} {ref.dtype}")
+    check(bool(torch.isfinite(out).all()), f"{name} output not finite")
+    err = (out.float() - ref.float()).abs()
+    err_max, err_mean = err.max().item(), err.mean().item()
+    log(f"{name}: max abs err {err_max:.3e}, mean abs err {err_mean:.3e} "
+        f"(gates {max_bar:g} / {mean_bar:g})")
+    check(err_max <= max_bar and err_mean <= mean_bar,
+          f"{name} disagrees with its plain version")
+    return err_max
+
+
+def time_pair(name, kernel, plain, flops):
+    ms, plain_ms = cuda_time_ms(kernel, 5), cuda_time_ms(plain, 2)
+    log(f"{name} time: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.4f} ms ({flops / plain_ms / 1e9:.1f} TFLOP/s)")
+    return ms, plain_ms
+
+
 def k4_phase(dev, gen, dtype):
     """K4 against its plain version at B=1, 48 heads, 15076 tokens, head_dim
     64. Gates: f32 max abs 1e-4; bf16 max 1e-2 and mean 1e-3, as K2.
@@ -84,21 +121,11 @@ def k4_phase(dev, gen, dtype):
 
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
-    check(out.shape == ref.shape == shape and out.dtype == dtype, f"K4 {name} {out.shape}")
-    check(bool(torch.isfinite(out).all()), f"K4 {name} output not finite")
-    err = (out.float() - ref.float()).abs()
-    err_max, err_mean = err.max().item(), err.mean().item()
-    log(f"K4 {name}: max abs err {err_max:.3e}, mean abs err {err_mean:.3e}")
-    if dtype == torch.float32:
-        check(err_max <= 1e-4, "K4 f32 disagrees with its plain version")
-    else:
-        check(err_max <= 1e-2 and err_mean <= 1e-3, "K4 bf16 disagrees with its plain version")
-    ms = cuda_time_ms(kernel, 5)
-    plain_ms = cuda_time_ms(plain, 2)
+    check(out.shape == shape, f"K4 {name} {out.shape}")
+    bars = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-3)
+    err = compare(f"K4 {name}", out, ref, *bars)
     flops = 4.0 * HEADS * SEQ * SEQ * HEAD_DIM
-    log(f"K4 {name} time: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-        f"plain {plain_ms:.4f} ms ({flops / plain_ms / 1e9:.1f} TFLOP/s)")
-    return err_max, ms, plain_ms
+    return (err, *time_pair(f"K4 {name}", kernel, plain, flops))
 
 
 def trainable_phase(dev, gen):
@@ -189,16 +216,184 @@ def train_phase(dev) -> int:
     check(moved >= 0.9 * n_tensors, "parameters did not move")
     check(apart >= 0.9 * n_tensors, "EMA equals the parameters")
     check(peak < total, "peak memory above the card's memory")
-    del trainer, model, ema, snap
+    del trainer, model, ema, snap, opt
+    gc.collect()  # the trainer's state sits in reference cycles
     torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    log(f"train: {left / 2**30:.2f} GiB still allocated after clean-up")
+    check(left < 2**30, "the training phase left its state on the card")
     return launches
+
+
+def make_pipeline(cfg, dev):
+    """``AetherPipeline`` on the AetherV1 config: seeded random bf16 DiT
+    (seed 0) and VAE (seed 1) on the GPU and a seeded (1, 226, 4096) prompt
+    embedding; the same weights every time it is built."""
+    from aether_tpu_torch.models import init_dit, init_vae
+    from aether_tpu_torch.pipeline import AetherPipeline
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    dit = init_dit(cfg.dit, device=dev, dtype=torch.bfloat16, seed=0)
+    vae = init_vae(cfg.vae, device=dev, dtype=torch.bfloat16, seed=1)
+    prompt = torch.randn((1, cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
+                         generator=gen, device=dev)
+    return AetherPipeline(cfg, dit, vae, prompt, device=dev, compute_dtype=torch.bfloat16)
+
+
+def check_request(res, frames, name) -> None:
+    check(res.rgb.shape == (frames, HEIGHT, WIDTH, 3), f"{name} rgb {res.rgb.shape}")
+    check(res.disparity.shape == (frames, HEIGHT, WIDTH), f"{name} disp {res.disparity.shape}")
+    check(res.raymap.shape == (frames, 6, HEIGHT // 8, WIDTH // 8),
+          f"{name} raymap {res.raymap.shape}")
+    for field in ("rgb", "disparity", "raymap"):
+        check(bool(np.isfinite(getattr(res, field)).all()), f"{name} {field} not finite")
+    check(res.rgb.min() >= 0.0 and res.rgb.max() <= 1.0, f"{name} rgb outside [0, 1]")
+    log(f"  rgb mean {res.rgb.mean():.6f}, disparity mean {res.disparity.mean():.6f}, "
+        f"raymap std {res.raymap.std():.6f}")
+
+
+def fixed_max_phase(dev, gen):
+    """K3 (int8 and bf16 QK^T) and K6 against their plain versions at the CFG
+    pair's shape, B=2 x 48 heads x 15076 tokens x 64, bf16, and K3's
+    unnormalized ring-merge mode on a quarter-sequence q stripe against the
+    padded full K/V. Gates: max abs 1e-2 and mean 1e-3, as K2; K6 computes
+    its plain version's function up to exp2f's last bit, so its mean error
+    is held to 1e-4. Returns {name: (max abs error, kernel ms, plain ms)}."""
+    from aether_tpu_torch.ops.flash_attention import (
+        flash_attention_fixed_max,
+        flash_attention_fixed_max_plain,
+        flash_attention_pv8,
+        flash_attention_pv8_plain,
+    )
+
+    shape = (2, HEADS, SEQ, HEAD_DIM)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    flops = 4.0 * 2 * HEADS * SEQ * SEQ * HEAD_DIM
+    results = {}
+    for qk_int8 in (True, False):
+        name = f"K3 {'int8' if qk_int8 else 'bf16'} QK^T"
+
+        def kernel(qk_int8=qk_int8):
+            return flash_attention_fixed_max(q, k, v, qk_int8=qk_int8)
+
+        def plain(qk_int8=qk_int8):
+            return flash_attention_fixed_max_plain(q, k, v, qk_int8=qk_int8)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = compare(name, out, ref, 1e-2, 1e-3)
+        results[name] = (err, *time_pair(name, kernel, plain, flops))
+
+    out, ref = flash_attention_pv8(q, k, v), flash_attention_pv8_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = compare("K6", out, ref, 1e-2, 1e-4)
+    results["K6"] = (err, *time_pair("K6", lambda: flash_attention_pv8(q, k, v),
+                                     lambda: flash_attention_pv8_plain(q, k, v), flops))
+
+    # a sequence-parallel stripe: 4 shards of 64-row multiples, the 15076
+    # tokens padded to 15104 (stripes of 3776)
+    stripe = -(-SEQ // (4 * 64)) * 64
+    kv_pad = 4 * stripe
+    qs = q[:1, :, :stripe].contiguous()
+    kp, vp = (torch.nn.functional.pad(t[:1], (0, 0, 0, kv_pad - SEQ)) for t in (k, v))
+    bound = 1.0 + (qs.float().norm(dim=-1).max() * kp.float().norm(dim=-1).max()
+                   * HEAD_DIM ** -0.5 * 1.4426950408889634)
+    kw = dict(kv_valid=SEQ, score_bound=bound, unnormalized=True)
+    (o, l), (ro, rl) = (flash_attention_fixed_max(qs, kp, vp, **kw),
+                        flash_attention_fixed_max_plain(qs, kp, vp, **kw))
+    torch.cuda.synchronize()
+    check(l.shape == rl.shape == (1, HEADS, stripe, 1), f"K3 unnormalized l {l.shape}")
+    l_rel = ((l - rl).abs() / rl.abs()).max().item()
+    scale = ro.float().abs().max().item()
+    compare("K3 unnormalized o / max|o|", o.float() / scale, ro.float() / scale, 1e-2, 1e-3)
+    log(f"K3 unnormalized l: max rel err {l_rel:.3e} (gate 1e-4)")
+    check(l_rel <= 1e-4, "K3 unnormalized l disagrees with its plain version")
+    del q, k, v, out, ref, qs, kp, vp, o, l, ro, rl
+    torch.cuda.empty_cache()
+    return results
+
+
+def cfg_phases(cfg, dev):
+    """One 50-step prediction request through K3 and two 10-step planning
+    requests through K6, on the AetherV1 pipeline. Returns the launches of
+    K3 and K6 in their runs."""
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import (
+        flash_attention_fixed_max,
+        flash_attention_prepacked,
+        flash_attention_pv8,
+    )
+
+    kernels = (qkv_prologue, flash_attention_prepacked, flash_attention_fixed_max,
+               flash_attention_pv8)
+    check(dict(cfg.default_num_inference_steps)["prediction"] == PREDICTION_STEPS
+          and dict(cfg.default_guidance_scale)["prediction"] == 3.0
+          and dict(cfg.default_use_dynamic_cfg)["prediction"],
+          "prediction defaults are not 50 steps, guidance 3, dynamic CFG")
+    t0 = time.perf_counter()
+    pipe = make_pipeline(cfg, dev)
+    torch.cuda.synchronize()
+    log(f"pipeline built again from its seeds in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(11)
+    image, goal = (rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8) for _ in range(2))
+    raymap = rng.standard_normal((FRAMES, 6, HEIGHT // 8, WIDTH // 8)).astype(np.float32)
+    n_layers = cfg.dit.num_layers
+
+    def drive(name, **kw):
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = pipe(image=image, raymap=raymap, height=HEIGHT, width=WIDTH,
+                   num_frames=FRAMES, fps=12, seed=42, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [fn.launches for fn in kernels]
+        stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+        log(f"{name}: {wall:.3f} s ({stages}); K1/K2/K3/K6 launches "
+            f"{'/'.join(map(str, counts))}; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        check_request(res, FRAMES, name)
+        return res, counts
+
+    saved = {n: os.environ.get(n) for n in ("AETHER_ATTN_FUSED", "AETHER_ATTN_PV8")}
+    try:
+        os.environ["AETHER_ATTN_FUSED"] = "0"
+        _, counts = drive("prediction request", task="prediction")
+        check(counts == [0, 0, n_layers * PREDICTION_STEPS, 0],
+              f"expected {n_layers * PREDICTION_STEPS} K3 launches and no other")
+        k3_launches = counts[2]
+
+        os.environ["AETHER_ATTN_PV8"] = "1"
+        outs, k6_launches = [], 0
+        for req in range(2):
+            res, counts = drive(f"planning request {req}", task="planning", goal=goal,
+                                num_inference_steps=PLANNING_STEPS)
+            check(counts == [0, 0, 0, n_layers * PLANNING_STEPS],
+                  f"expected {n_layers * PLANNING_STEPS} K6 launches and no other")
+            k6_launches += counts[3]
+            outs.append(res)
+        for name in ("rgb", "disparity", "raymap"):
+            check(np.array_equal(getattr(outs[0], name), getattr(outs[1], name)),
+                  f"planning outputs differ: {name}")
+        log("planning requests 0 and 1: bit-identical outputs")
+    finally:
+        for n, value in saved.items():
+            if value is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = value
+    del pipe, outs
+    torch.cuda.empty_cache()
+    return k3_launches, k6_launches
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
     from aether_tpu_torch.config import PipelineConfig
-    from aether_tpu_torch.models import init_dit, init_vae
     from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
     from aether_tpu_torch.ops import _build
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue, qkv_prologue_plain
@@ -206,7 +401,6 @@ def main() -> None:
         flash_attention_prepacked,
         flash_attention_prepacked_plain,
     )
-    from aether_tpu_torch.pipeline import AetherPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -305,14 +499,9 @@ def main() -> None:
 
     # ---- 5. the pipeline on the AetherV1 config ----
     t0 = time.perf_counter()
-    dit = init_dit(cfg.dit, device=dev, dtype=torch.bfloat16, seed=0)
-    vae = init_vae(cfg.vae, device=dev, dtype=torch.bfloat16, seed=1)
-    prompt = torch.randn((1, cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
-                         generator=gen, device=dev)
-    pipe = AetherPipeline(cfg, dit, vae, prompt, device=dev,
-                          compute_dtype=torch.bfloat16)
+    pipe = make_pipeline(cfg, dev)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in dit.parameters())
+    n_params = sum(p.numel() for p in pipe.dit.parameters())
     log(f"pipeline: AetherV1 DiT {n_params / 1e9:.3f}B params + VAE, bf16, "
         f"built in {time.perf_counter() - t0:.3f} s")
 
@@ -338,15 +527,7 @@ def main() -> None:
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         check(k1_n == k2_n == cfg.dit.num_layers * STEPS,
               f"expected {cfg.dit.num_layers * STEPS} launches of each kernel")
-        check(res.rgb.shape == (FRAMES, HEIGHT, WIDTH, 3), f"rgb {res.rgb.shape}")
-        check(res.disparity.shape == (FRAMES, HEIGHT, WIDTH), f"disp {res.disparity.shape}")
-        check(res.raymap.shape == (FRAMES, 6, HEIGHT // 8, WIDTH // 8),
-              f"raymap {res.raymap.shape}")
-        for name in ("rgb", "disparity", "raymap"):
-            check(bool(np.isfinite(getattr(res, name)).all()), f"{name} not finite")
-        check(res.rgb.min() >= 0.0 and res.rgb.max() <= 1.0, "rgb outside [0, 1]")
-        log(f"  rgb mean {res.rgb.mean():.6f}, disparity mean "
-            f"{res.disparity.mean():.6f}, raymap std {res.raymap.std():.6f}")
+        check_request(res, FRAMES, f"request {req}")
         outs.append(res)
     for name in ("rgb", "disparity", "raymap"):
         check(np.array_equal(getattr(outs[0], name), getattr(outs[1], name)),
@@ -354,7 +535,7 @@ def main() -> None:
     log("requests 0 and 1: bit-identical outputs")
     k1_launches = qkv_prologue.launches
     k2_launches = flash_attention_prepacked.launches
-    del pipe, dit, vae, prompt, res, outs
+    del pipe, res, outs
     torch.cuda.empty_cache()
 
     # ---- 7. K4 at the training shape ----
@@ -366,7 +547,15 @@ def main() -> None:
     # ---- 9. the fine-tuning path ----
     k4_launches = train_phase(dev)
 
+    # ---- 10. K3 and K6 at the CFG pair's shape ----
+    fixed = fixed_max_phase(dev, gen)
+
+    # ---- 11, 12. prediction through K3, planning through K6 ----
+    k3_launches, k6_launches = cfg_phases(cfg, dev)
+
     k4_err, k4_ms, k4_plain_ms = k4[torch.float32]
+    k3_err, k3_ms, k3_plain_ms = fixed["K3 int8 QK^T"]
+    k6_err, k6_ms, k6_plain_ms = fixed["K6"]
     print(json.dumps({"kernels": [
         {"name": "attn_prologue", "route": "cuda",
          "source": "aether_tpu_torch/csrc/attn_prologue.cu",
@@ -383,6 +572,16 @@ def main() -> None:
          "replaces": "aether_tpu/ops/flash_attention.py:69",
          "launches": k4_launches, "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms},
+        {"name": "flash_fixed_max", "route": "cuda",
+         "source": "aether_tpu_torch/csrc/flash_fixed_max.cu",
+         "replaces": "aether_tpu/ops/flash_attention.py:151",
+         "launches": k3_launches, "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "flash_pv8", "route": "cuda",
+         "source": "aether_tpu_torch/csrc/flash_pv8.cu",
+         "replaces": "aether_tpu/ops/flash_attention.py:259",
+         "launches": k6_launches, "max_abs_err": k6_err,
+         "ms": k6_ms, "plain_ms": k6_plain_ms},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,12 @@ straddle two batch elements, several token tiles with a ragged ``s_valid``,
 no RoPE, RoPE tables shorter than the sequence. K4: batch 2, sequences that
 are not a multiple of the 64-row tile, ``kv_valid``, q and kv of different
 lengths, extreme negative scores with padding, both denominators, f32 and
-bf16, and ``flash_attention_trainable``'s gradients. Also the launch-or-raise
-contract. The card's machine has no JAX, so run them without the JAX
-conftest:
+bf16, and ``flash_attention_trainable``'s gradients. K3 and K6: lengths that
+are not a multiple of 64, ``kv_valid``, Sq != Skv, K3's unnormalized mode
+with a score bound, B*H odd (head groups of 3 or 1), int8 and bf16 QK^T, K6
+over several kv spans and with a negative row max behind padding. Also the
+launch-or-raise contract. The card's machine has no JAX, so run them without
+the JAX conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -26,9 +29,13 @@ from aether_tpu_torch.ops.chunked_attention import flash_attention_trainable
 from aether_tpu_torch.ops.flash_attention import (
     attention_reference,
     flash_attention,
+    flash_attention_fixed_max,
+    flash_attention_fixed_max_plain,
     flash_attention_plain,
     flash_attention_prepacked,
     flash_attention_prepacked_plain,
+    flash_attention_pv8,
+    flash_attention_pv8_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -169,7 +176,7 @@ def test_online_kernel_extreme_negative_scores_with_padding(dev, dtype):
 
 def test_online_kernel_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(dev, (1, 1, 64, HD), (1, 1, 64, HD), torch.float32, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="K3"):  # K3 takes bf16 on CUDA
         flash_attention(q, k, v, fixed_max=True)
     with pytest.raises(TypeError):
         flash_attention(q.half(), k.half(), v.half())
@@ -196,3 +203,99 @@ def test_flash_trainable_grads_match_plain_on_cuda(dev):
     assert (out - ref).abs().max().item() <= 1e-4
     for g, r in zip(grads, ref_grads):
         assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+# K3 and K6 gates, as in chip_smoke.py: max abs 1e-2 and mean 1e-3 of bf16
+# outputs (K2's); K6 computes the plain version's function up to exp2f's last
+# bit, so its mean error is held to 1e-4
+def _check_fixed(out, ref, mean_bar=1e-3):
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err = (out.float() - ref.float()).abs()
+    assert err.max().item() <= 1e-2 and err.mean().item() <= mean_bar, (
+        err.max().item(), err.mean().item())
+
+
+# (batch, heads, q tokens, kv tokens, kv_valid, qk_int8)
+K3_CASES = [
+    (2, 3, 300, 300, None, True),     # B*H 6: groups of 3; 300 = 4 tiles + 44
+    (1, 5, 1000, 1000, 900, True),    # B*H 5: groups of 1; kv_valid tail
+    (1, 4, 130, 333, 300, False),     # Sq != Skv, bf16 QK^T
+    (2, 2, 64, 64, None, False),      # exactly one tile
+    (1, 3, 777, 2100, 2050, True),    # several kv tiles, ragged everywhere
+]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid,qk_int8", K3_CASES)
+def test_fixed_max_kernel_matches_plain(dev, b, h, sq, skv, kv_valid, qk_int8):
+    q, k, v = _qkv(dev, (b, h, sq, HD), (b, h, skv, HD), torch.bfloat16, seed=sq + skv)
+    before = flash_attention_fixed_max.launches
+    kw = dict(kv_valid=kv_valid, qk_int8=qk_int8, noshift=None)
+    out = flash_attention(q, k, v, fixed_max=True, **kw)
+    ref = flash_attention_fixed_max_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_fixed_max.launches == before + 1
+    _check_fixed(out, ref)
+
+
+@pytest.mark.parametrize("qk_int8", [True, False])
+def test_fixed_max_kernel_unnormalized_score_bound(dev, qk_int8):
+    """The ring-merge mode: raw numerator in bf16 and f32 l against the
+    plain version; l to 1e-4 relative (the same bf16 p summed in another
+    order), o to 1e-2 of its largest magnitude."""
+    q, k, v = _qkv(dev, (1, 3, 200, HD), (1, 3, 700, HD), torch.bfloat16, seed=9)
+    kw = dict(kv_valid=650, qk_int8=qk_int8, score_bound=40.0, unnormalized=True)
+    o, l = flash_attention_fixed_max(q, k, v, **kw)
+    ro, rl = flash_attention_fixed_max_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and l.dtype == torch.float32
+    assert l.shape == rl.shape == (1, 3, 200, 1)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
+    assert (o.float() - ro.float()).abs().max().item() <= 1e-2 * ro.float().abs().max().item()
+
+
+# (batch, heads, q tokens, kv tokens, kv_valid, block_k, dtype)
+K6_CASES = [
+    (2, 3, 300, 300, None, 1024, torch.bfloat16),  # one span, padding bias
+    (1, 5, 1000, 1000, 900, 256, torch.bfloat16),  # four spans, kv_valid
+    (1, 4, 130, 2100, 2050, 1024, torch.float32),  # Sq != Skv, three spans, f32 out
+    (2, 2, 64, 256, None, 128, torch.bfloat16),    # no padding, two spans
+]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid,block_k,dtype", K6_CASES)
+def test_pv8_kernel_matches_plain(dev, b, h, sq, skv, kv_valid, block_k, dtype):
+    q, k, v = _qkv(dev, (b, h, sq, HD), (b, h, skv, HD), dtype, seed=sq + skv + 1)
+    before = flash_attention_pv8.launches
+    kw = dict(kv_valid=kv_valid, block_k=block_k)
+    out = flash_attention(q, k, v, fixed_max=True, qk_int8=True, pv_int8=True, **kw)
+    ref = flash_attention_pv8_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_pv8.launches == before + 1
+    _check_fixed(out, ref, mean_bar=1e-4)
+
+
+def test_pv8_kernel_negative_row_max_with_padding(dev):
+    """Every real score deeply negative behind padded columns: the -1e9 bias
+    keeps the padding out of the running max; the result is the mean of v."""
+    shape = (1, 2, 200, HD)
+    q = torch.full(shape, 3.0, device=dev, dtype=torch.bfloat16)
+    k = torch.full(shape, -3.0, device=dev, dtype=torch.bfloat16)
+    v = _qkv(dev, shape, shape, torch.bfloat16, seed=3)[2]
+    out = flash_attention_pv8(q, k, v, block_k=128)
+    _check_fixed(out, flash_attention_pv8_plain(q, k, v, block_k=128), mean_bar=1e-4)
+    mean_v = v.float().mean(dim=2, keepdim=True).expand(shape)
+    assert (out.float() - mean_v).abs().max().item() <= v.float().abs().max().item() / 127
+
+
+def test_fixed_max_kernels_refuse_what_they_do_not_take(dev):
+    q, k, v = _qkv(dev, (1, 1, 64, HD), (1, 1, 64, HD), torch.bfloat16, seed=0)
+    for fn in (flash_attention_fixed_max, flash_attention_pv8):
+        with pytest.raises(TypeError):
+            fn(q.half(), k.half(), v.half())
+        wide = torch.zeros((1, 1, 64, 96), device=dev, dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="head_dim"):
+            fn(wide, wide, wide)
+    with pytest.raises(TypeError, match="K3"):
+        flash_attention_fixed_max(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="pv_int8 requires qk_int8"):
+        flash_attention(q, k, v, fixed_max=True, pv_int8=True)

@@ -26,6 +26,7 @@ from aether_tpu.ops.flash_attention import (
 from aether_tpu_torch.ops.flash_attention import (
     attention_reference,
     flash_attention,
+    flash_attention_fixed_max_plain,
     flash_attention_plain,
 )
 
@@ -139,12 +140,16 @@ def test_attention_reference_matches_jax(dtype):
 
 
 def test_unported_options_raise():
-    """fixed_max / qk_int8 / pv_int8 need K3 and K6; at head_dim >= 128 the
-    JAX wrapper switches them off, and so does the port."""
+    """qk_int8 / pv_int8 without the fixed max raise the JAX ValueError
+    (fixed_max=True itself runs K3 now, tests/test_torch_flash_fixed_max.py);
+    at head_dim >= 128 the JAX wrapper switches the fixed-max options off,
+    and so does the port."""
     _, (tq, tk, tv) = _pair(_inputs((1, 1, 64, 64), seed=1), "f32")
-    for kw in ({"fixed_max": True}, {"qk_int8": True}, {"pv_int8": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in ({"qk_int8": True}, {"pv_int8": True}):
+        with pytest.raises(ValueError, match="requires fixed_max"):
             flash_attention(tq, tk, tv, **kw)
+    assert torch.equal(flash_attention(tq, tk, tv, fixed_max=True),
+                       flash_attention_fixed_max_plain(tq, tk, tv))
     _, (tq, tk, tv) = _pair(_inputs((1, 1, 64, 128), seed=1), "f32")
     out = flash_attention(tq, tk, tv, fixed_max=True, qk_int8=True)
     assert torch.equal(out, flash_attention_plain(tq, tk, tv, denom="vpu"))

@@ -20,8 +20,10 @@ for name in ("aether_tpu_torch.train.step", "aether_tpu_torch.train.trainer",
              "aether_tpu_torch.train.data", "aether_tpu_torch.eval.sharding",
              "aether_tpu_torch.ops.chunked_attention"):
     assert name in names, name
-from aether_tpu_torch.ops.flash_attention import flash_attention
+from aether_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_fixed_max, flash_attention_pv8)
 assert flash_attention.launches == 0
+assert flash_attention_fixed_max.launches == flash_attention_pv8.launches == 0
 from aether_tpu_torch.ops import _build
 assert _build._LIB is None, "a kernel library was loaded at import time"
 assert not any(m.startswith("aether_tpu.") or m == "aether_tpu"
@@ -53,11 +55,13 @@ def test_no_source_file_imports_jax():
 
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in (_PKG / "csrc").glob("*.cu"))
-    assert names == ["attn_prologue.cu", "flash_online.cu", "flash_prepacked.cu"]
+    assert names == ["attn_prologue.cu", "flash_fixed_max.cu", "flash_online.cu",
+                     "flash_prepacked.cu", "flash_pv8.cu"]
     from aether_tpu_torch.ops import _build
 
     assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_flash_prepacked",
-                                      "aether_flash_online"}
+                                      "aether_flash_online", "aether_flash_fixed_max",
+                                      "aether_flash_pv8"}
     for name in _build.SIGNATURES:
         src = "".join(p.read_text() for p in (_PKG / "csrc").glob("*.cu"))
         assert f'extern "C" int {name}(' in src

@@ -145,24 +145,25 @@ def test_pickers_match_jax():
 
 
 def test_unported_settings_raise_on_cuda_only_paths(data):
-    """QK8=0 runs the plain float variant on CPU; the CUDA kernels implement
-    int8 only, and the DiT refuses settings that need unported kernels.
-    FIXED_MAX=0 takes the unfused path through K4, where FUSED, QK8 and PV8
-    do not apply."""
-    from aether_tpu_torch.models.dit import attention_fixed_max, attention_qk_int8
+    """The AETHER_ATTN_* settings resolve as the JAX dit_forward resolves
+    them: FUSED=0 and PV8=1 route the DiT to the unfused path (K3, K6), PV8
+    implies unfused, and FIXED_MAX=0 switches QK8, PV8 and FUSED off. Only
+    the float (QK8=0) variant of the fused K1/K2 is still CPU-only; its CUDA
+    wrappers raise (tests/test_torch_cuda.py)."""
+    from aether_tpu_torch.models.dit import resolve_attention
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("AETHER_ATTN_QK8", "1")
         mp.setenv("AETHER_ATTN_PV8", "0")
-        assert attention_qk_int8() is True
-        for name, value in (("AETHER_ATTN_FUSED", "0"),
-                            ("AETHER_ATTN_PV8", "1")):
+        assert resolve_attention() == (True, True, False, True)
+        for name, value, expected in (("AETHER_ATTN_FUSED", "0", (True, True, False, False)),
+                                      ("AETHER_ATTN_PV8", "1", (True, True, True, False))):
             with pytest.MonkeyPatch.context() as inner:
                 inner.setenv(name, value)
-                with pytest.raises(NotImplementedError, match="ROADMAP"):
-                    attention_qk_int8()
+                assert resolve_attention() == expected
                 inner.setenv("AETHER_ATTN_FIXED_MAX", "0")
-                assert attention_fixed_max() is False
-                assert attention_qk_int8() is False
+                assert resolve_attention() == (False, False, False, False)
+                # explicit arguments win over the environment, as in dit_forward
+                assert resolve_attention(fixed_max=True) == expected
         mp.setenv("AETHER_ATTN_QK8", "0")
-        assert attention_qk_int8() is False
+        assert resolve_attention()[1] is False

@@ -37,11 +37,14 @@ F, H, W, STEPS = 17, 64, 96, 4
 
 
 class JaxKeyNoise:
-    """The JAX pipeline's reconstruction draws, fed to the port."""
+    """The JAX pipeline's draws, fed to the port: key -> (vae, goal,
+    denoise), denoise -> (init, sde); the posterior from the vae key, the
+    goal's posterior from the goal key, SDE noise ``fold_in(key_sde, i)``.
+    ``calls`` records the order in which the port asks for them."""
 
     def __init__(self, seed: int):
-        key_vae, _, key_denoise = jax.random.split(jax.random.PRNGKey(seed), 3)
-        self.key_vae = key_vae
+        key_vae, key_goal, key_denoise = jax.random.split(jax.random.PRNGKey(seed), 3)
+        self.key_vae, self.key_goal = key_vae, key_goal
         self.key_noise, self.key_sde = jax.random.split(key_denoise)
         self.calls = []
 
@@ -51,6 +54,10 @@ class JaxKeyNoise:
     def posterior(self, shape):
         self.calls.append("posterior")
         return self._draw(self.key_vae, shape)
+
+    def goal(self, shape):
+        self.calls.append("goal")
+        return self._draw(self.key_goal, shape)
 
     def initial(self, shape):
         self.calls.append("initial")
@@ -135,13 +142,21 @@ def test_reconstruction_matches_live_jax(setup, monkeypatch, qk8, attn_impl, ato
 
 
 def test_unported_tasks_and_cfg_raise(setup):
+    """Prediction, planning and CFG are ported (tests/test_torch_pipeline_cfg.py):
+    what still raises is what the JAX pipeline refuses, such as a video for
+    prediction. CFG on reconstruction runs the batch-2 pair, whose uncond
+    stream masks nothing, so it gives the guidance-1 result up to the
+    batch-2 DiT's rounding."""
     *_, port, golden = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="`video` is only supported"):
         port(task="prediction", video=golden["video"], height=H, width=W,
              num_frames=F)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(task="reconstruction", video=golden["video"], height=H, width=W,
-             num_frames=F, guidance_scale=3.0)
+    kw = dict(task="reconstruction", video=golden["video"], height=H, width=W,
+              num_frames=F, num_inference_steps=2, fps=12)
+    plain = port(noise=JaxKeyNoise(SEED), **kw)
+    cfg = port(noise=JaxKeyNoise(SEED), guidance_scale=3.0, use_dynamic_cfg=False, **kw)
+    for name in ("rgb", "disparity", "raymap"):
+        np.testing.assert_allclose(getattr(cfg, name), getattr(plain, name), atol=1e-5)
 
 
 @pytest.mark.parametrize("frames", [17, 41, 18])

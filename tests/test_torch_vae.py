@@ -86,8 +86,8 @@ def test_tiled_encode_matches(vaes):
     ref = jax_pipe._encode_pixels_tiled(cfg, jnp.float32, params, jnp.asarray(frames),
                                         None, **tiles)
     with torch.no_grad():
-        out = torch_pipe._encode_pixels_tiled(PipelineConfig.tiny(), torch.float32, model,
-                                              torch.from_numpy(frames), None, **tiles)
+        out = torch_pipe._encode_pixels(PipelineConfig.tiny(), torch.float32, model,
+                                        torch.from_numpy(frames), None, True, **tiles)
     assert out.shape == ref.shape == (1, 5, 16, 8, 12)
     _close(out, ref, "tiled encode")
 
