@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from aether_tpu_torch.config import VAEConfig
+from aether_tpu_torch.ops.groupnorm import groupnorm_moments
 
 
 class ConvCache:
@@ -80,15 +81,14 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                groups: int, eps: float) -> torch.Tensor:
     """GroupNorm over (T, H, W, C/g) per (batch, group) on NCTHW, with the JAX
     numerics: single-pass moments around c0 (the group's first channel at voxel
-    (0, 0, 0)) in f32, applied subtract-first; returns x's dtype."""
+    (0, 0, 0)) in f32, applied subtract-first; returns x's dtype. The
+    per-channel moments come from K5 (``ops/groupnorm.py``): the Hopper kernel
+    on CUDA, its plain version on the CPU."""
     b, c = x.shape[:2]
     cg = c // groups
     first = x[:, :, 0, 0, 0].float()  # [B, C]
     c0 = first.reshape(b, groups, cg)[:, :, :1].expand(b, groups, cg).reshape(b, c)
-    y = x.float() - c0[:, :, None, None, None]
-    m1c = y.mean(dim=(2, 3, 4))
-    m2c = (y * y).mean(dim=(2, 3, 4))
-    del y
+    m1c, m2c = groupnorm_moments(x, c0)
 
     def per_group(v):  # [B, C] -> group-uniform [B, C]
         return v.reshape(b, groups, cg).mean(dim=-1, keepdim=True).expand(

@@ -39,7 +39,7 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",  # report registers / spills per kernel; changes no code
 ]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # C entry points: name -> argtypes. Every function returns cudaGetLastError().
 SIGNATURES = {
@@ -84,6 +84,14 @@ SIGNATURES = {
         _P,                  # out (f32 or bf16, [B*H, sq, 64])
         _I, _I, _I, _I, _I,  # BH, sq, skv, kv_len, hper
         _I, _I,              # span (kv columns per running-max update), dtype
+        _P,                  # stream
+    ],
+    "aether_groupnorm_moments": [
+        _P, _P,              # x ([B, C, n] or [B, n, C]), c0 (f32, [B, C])
+        _P, _P, _P, _P,      # p1, p2 (f32, [B, splits, C]), m1, m2 (f32, [B, C])
+        _I, _I, _L,          # B, C, n = T*H*W
+        _I, _I, _L,          # channels_last, splits, chunk
+        _I, _I, _I,          # vec, g_tile, dtype (0 f32, 1 bf16, 2 f16)
         _P,                  # stream
     ],
 }

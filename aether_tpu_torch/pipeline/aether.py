@@ -21,8 +21,13 @@ loop over blocks. Every random draw goes through a noise source
 (:class:`TorchNoise` by default, a ``torch.Generator`` on the pipeline's
 device), which tests replace with the JAX pipeline's key streams.
 
-Not in this slice (ROADMAP.md): ``batch_reconstruct``, meshes, quantized
-weight formats, the CFG prefix skip, compact wires and ``defer_host``.
+``batch_reconstruct`` runs B reconstruction windows through one DiT denoise
+at batch B, every window with the noise stream of a serial call with the
+same seed (one draw broadcast over the batch); the VAE encodes and decodes
+them window by window.
+
+Not in this slice (ROADMAP.md): meshes, quantized weight formats, the CFG
+prefix skip, compact wires and ``defer_host``.
 """
 
 from __future__ import annotations
@@ -63,7 +68,9 @@ class TorchNoise:
     """The pipeline's own draws: one ``torch.Generator`` on the device, seeded
     per call, consumed in a fixed order (posterior, then the goal's posterior
     for planning, initial, then one SDE draw per step), so equal seeds give
-    equal outputs."""
+    equal outputs. ``batch_reconstruct`` asks for one window's shapes (a
+    leading 1) in the same order and broadcasts each draw over the windows,
+    so a batch of windows sees the noise of a serial call per window."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
@@ -176,7 +183,7 @@ def _encode_moments_chunked(vae: VAE, video: torch.Tensor,
 
 def _finish_encode(config: PipelineConfig, dtype, mean, logvar,
                    noise: Optional[torch.Tensor]) -> torch.Tensor:
-    """Posterior sample + latent scaling -> (1, F_lat, C, h, w)."""
+    """Posterior sample + latent scaling -> (B, F_lat, C, h, w)."""
     if noise is not None:
         logvar = torch.clamp(logvar.float(), -30.0, 20.0)
         lat = mean.float() + torch.exp(0.5 * logvar) * noise
@@ -247,22 +254,41 @@ def _tiled_moments(config: PipelineConfig, vae: VAE, video: torch.Tensor,
 
 
 def _encode_pixels(config: PipelineConfig, dtype, vae: VAE, frames: torch.Tensor,
-                   draw, tiling: bool, frame_batch_size: int = 8,
-                   tile_latent: Tuple[int, int] = (32, 90),
-                   min_overlap: Tuple[int, int] = (4, 6)) -> torch.Tensor:
-    """Encode of (F, H, W, 3) in [-1, 1] -> scaled (1, F_lat, C, h, w):
-    8-frame chunks, tiled with feathered latent seams when ``tiling`` (and
-    more than one tile covers the frame), then ONE posterior draw over the
-    blended moments (the untiled path's noise shape). ``draw(shape)`` gives
-    the posterior noise; ``draw=None`` returns the posterior mean."""
-    moments = None
-    if tiling:
-        moments = _tiled_moments(config, vae, frames[None], frame_batch_size,
-                                 tile_latent, min_overlap)
-    if moments is None:
-        moments = _encode_moments_chunked(vae, frames[None], frame_batch_size)
-    mean, logvar = moments
-    noise = None if draw is None else draw(mean.shape)
+                   draw, tiling: bool, **kw) -> torch.Tensor:
+    """One window's encode: (F, H, W, 3) -> (1, F_lat, C, h, w), as
+    :func:`_encode_windows`."""
+    return _encode_windows(config, dtype, vae, frames[None], draw, tiling, **kw)
+
+
+def _encode_windows(config: PipelineConfig, dtype, vae: VAE, video: torch.Tensor,
+                    draw, tiling: bool, frame_batch_size: int = 8,
+                    tile_latent: Tuple[int, int] = (32, 90),
+                    min_overlap: Tuple[int, int] = (4, 6)) -> torch.Tensor:
+    """Encode of (B, F, H, W, 3) in [-1, 1] -> scaled (B, F_lat, C, h, w):
+    per window, 8-frame chunks, tiled with feathered latent seams when
+    ``tiling`` (and more than one tile covers the frame); then ONE posterior
+    draw over the blended moments (the untiled path's noise shape), drawn for
+    one window and shared by the batch (JAX ``_finish_encode_keys`` with one
+    key for every window). ``draw(shape)`` gives the posterior noise;
+    ``draw=None`` returns the posterior mean.
+
+    The windows are encoded one at a time, where the JAX package stacks them
+    on the VAE's batch axis: on one H100 a batch-2 encode is no faster than
+    two batch-1 encodes, and cuDNN picks other algorithms (and output
+    layouts) at batch 2, so one window at a time gives each window the
+    moments of a serial call bit for bit."""
+    means, logvars = [], []
+    for window in video:
+        moments = None
+        if tiling:
+            moments = _tiled_moments(config, vae, window[None], frame_batch_size,
+                                     tile_latent, min_overlap)
+        if moments is None:
+            moments = _encode_moments_chunked(vae, window[None], frame_batch_size)
+        means.append(moments[0])
+        logvars.append(moments[1])
+    mean, logvar = torch.cat(means), torch.cat(logvars)
+    noise = None if draw is None else _draw(draw, mean.shape, True)
     return _finish_encode(config, dtype, mean, logvar, noise)
 
 
@@ -324,10 +350,19 @@ def _finish_disparity(disp_decoded: torch.Tensor) -> torch.Tensor:
     return ds * ds
 
 
+def _draw(draw, shape, broadcast: bool) -> torch.Tensor:
+    """One draw of ``shape``, or, with ``broadcast``, one batch element's draw
+    broadcast over the batch (JAX ``broadcast_noise``, :1104-1114)."""
+    if not broadcast:
+        return draw(shape)
+    return draw((1, *shape[1:])).expand(shape)
+
+
 def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
              condition_latents: torch.Tensor, plan: SamplingPlan,
              rope_cos: torch.Tensor, rope_sin: torch.Tensor, noise_source,
-             task: str, guidance: Optional[torch.Tensor]) -> torch.Tensor:
+             task: str, guidance: Optional[torch.Tensor],
+             broadcast_noise: bool = False) -> torch.Tensor:
     """SDE-DPM-Solver++(2M) loop (JAX ``_denoise_segment``, :1010-1050).
     Latents are carried in the compute dtype, ``old_x0`` in f32.
 
@@ -336,10 +371,13 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
     uncond condition zeroes the content channels of every frame (planning)
     or of the first latent frame (prediction), and ``uncond + g_i * (cond -
     uncond)`` is formed in f32. ``None`` runs the condition alone.
-    Returns (B, F_lat, 56, h, w)."""
+    ``broadcast_noise`` draws the initial and SDE noise for one batch element
+    and broadcasts it, so every window of a batch gets the noise stream of a
+    serial call with the same seed. Returns (B, F_lat, 56, h, w)."""
     b, f_lat, _, h_lat, w_lat = condition_latents.shape
     shape = (b, f_lat, 56, h_lat, w_lat)
-    lat = (noise_source.initial(shape) * plan.init_noise_sigma).to(dtype)
+    lat = (_draw(noise_source.initial, shape, broadcast_noise)
+           * plan.init_noise_sigma).to(dtype)
     old_x0 = torch.zeros(shape, dtype=torch.float32, device=lat.device)
     latent_condition = condition_latents
     if guidance is not None:
@@ -360,7 +398,7 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
         if guidance is not None:
             uncond_pred, cond_pred = noise_pred.chunk(2, dim=0)
             noise_pred = uncond_pred + guidance[i] * (cond_pred - uncond_pred)
-        sde_noise = noise_source.sde(i, shape)
+        sde_noise = _draw(lambda shp: noise_source.sde(i, shp), shape, broadcast_noise)
         new_lat, old_x0 = dpm_step(plan, i, lat.float(), noise_pred, old_x0,
                                    sde_noise)
         lat = new_lat.to(dtype)
@@ -478,20 +516,14 @@ class AetherPipeline:
             pixels = preprocess_image_u8(image, height, width)[None]
         goal_pixels = (None if goal is None
                        else preprocess_image_u8(goal, height, width)[None])
-        timesteps = set_timesteps(cfg.scheduler, num_inference_steps)
-        plan = make_sampling_plan(cfg.scheduler, num_inference_steps,
-                                  timesteps=timesteps, device=dev)
+        timesteps, plan, rope_cos, rope_sin = self._schedule(
+            num_inference_steps, height, width, f_lat, fps)
         guidance = None
         if guidance_scale > 1.0:
             scales = (dynamic_cfg_schedule(timesteps, num_inference_steps, guidance_scale)
                       if use_dynamic_cfg
                       else np.full(num_inference_steps, guidance_scale, np.float32))
             guidance = torch.from_numpy(scales).to(dev)
-        rope_cos, rope_sin = (torch.from_numpy(t).to(dev) for t in
-                              prepare_rotary_positional_embeddings(
-                                  cfg.dit, height, width, f_lat,
-                                  vae_scale_factor_spatial=cfg.vae_scale_factor_spatial,
-                                  base_fps=cfg.base_fps, fps=fps))
 
         # ---- stage 1: tiled, chunked VAE encode of the pixel conditions ----
         with _stage("encode", times, dev):
@@ -522,11 +554,104 @@ class AetherPipeline:
 
         # ---- stage 3: stacked decode + output transforms ----
         with _stage("decode", times, dev):
-            rgb, disparity = _decode_rgb_and_disparity(cfg, dtype, self.vae, latents,
-                                                       tiling)
-            rgb = _finish_rgb(rgb)[0].cpu().numpy()
-            disparity = _finish_disparity(disparity)[0].cpu().numpy()
-            raymap_out = unpack_raymap(latents[:, :, 2 * lat_c:].float(),
-                                       num_frames)[0].cpu().numpy()
-        return AetherPipelineOutput(rgb=rgb, disparity=disparity, raymap=raymap_out,
-                                    stage_seconds=times)
+            out = self._decode_window(latents, tiling, num_frames)
+        out.stage_seconds = times
+        return out
+
+    def _schedule(self, num_inference_steps: int, height: int, width: int, f_lat: int,
+                  fps: int):
+        """Host-side precomputation: (timesteps, sampling plan, rope cos, rope
+        sin), the plan and tables on the device."""
+        cfg, dev = self.config, self.device
+        timesteps = set_timesteps(cfg.scheduler, num_inference_steps)
+        plan = make_sampling_plan(cfg.scheduler, num_inference_steps,
+                                  timesteps=timesteps, device=dev)
+        rope_cos, rope_sin = (torch.from_numpy(t).to(dev) for t in
+                              prepare_rotary_positional_embeddings(
+                                  cfg.dit, height, width, f_lat,
+                                  vae_scale_factor_spatial=cfg.vae_scale_factor_spatial,
+                                  base_fps=cfg.base_fps, fps=fps))
+        return timesteps, plan, rope_cos, rope_sin
+
+    def _decode_window(self, latents: torch.Tensor, tiling: bool,
+                       num_frames: int) -> AetherPipelineOutput:
+        """One window's (1, F_lat, 56, h, w) latents -> host outputs: the RGB
+        and disparity streams in one batch-2 decode, the raymap unfolded."""
+        cfg, dtype = self.config, self.compute_dtype
+        lat_c = cfg.vae.latent_channels
+        rgb, disparity = _decode_rgb_and_disparity(cfg, dtype, self.vae, latents, tiling)
+        return AetherPipelineOutput(
+            rgb=_finish_rgb(rgb)[0].cpu().numpy(),
+            disparity=_finish_disparity(disparity)[0].cpu().numpy(),
+            raymap=unpack_raymap(latents[:, :, 2 * lat_c:].float(),
+                                 num_frames)[0].cpu().numpy())
+
+    @torch.no_grad()
+    def batch_reconstruct(
+        self,
+        videos,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        num_frames: Optional[int] = None,
+        num_inference_steps: int = 4,
+        fps: int = 12,
+        seed: int = 0,
+        noise=None,
+    ) -> list:
+        """Reconstruct B windows ``videos`` (B, F, H, W, 3) in ONE batched
+        denoise (JAX ``batch_reconstruct``, :1526-1690).
+
+        The windows ride the DiT's batch axis through one denoise; the VAE
+        encodes and decodes them one at a time. Every window gets the draws of a
+        serial ``__call__`` with the same seed: the posterior, initial and SDE
+        noise are drawn once for one window and broadcast over the batch, so
+        the result matches a serial loop up to the rounding of the batch-B
+        DiT. The encode runs window by window (see :func:`_encode_windows`),
+        and so does the decode: the JAX package stacks all 2B streams, which
+        at B=2 and 480x720 is four full-frame decodes and about twice the
+        activations of the two-stream decode (which already peaks at ~44 GiB
+        with the DiT resident), leaving no margin on an 80 GB card; every VAE
+        op is per sample, so the outputs are the same. ``noise`` replaces the
+        default :class:`TorchNoise` (it needs ``posterior``, ``initial`` and
+        ``sde``).
+        Returns one :class:`AetherPipelineOutput` per window; each carries the
+        batch's stage times."""
+        cfg = self.config
+        videos = np.asarray(videos)
+        bsz = videos.shape[0]
+        height = height or videos.shape[2]
+        width = width or videos.shape[3]
+        num_frames = num_frames or videos.shape[1]
+        self.check_inputs("reconstruction", None, videos[0], None, None, height, width,
+                          num_frames, fps)
+        dev, dtype = self.device, self.compute_dtype
+        if noise is None:
+            noise = TorchNoise(seed, dev)
+        h_lat = height // cfg.vae_scale_factor_spatial
+        w_lat = width // cfg.vae_scale_factor_spatial
+        f_lat = (num_frames - 1) // cfg.vae_scale_factor_temporal + 1
+        tiling = h_lat > 32 or w_lat > 48
+        times: Dict[str, float] = {}
+
+        pixels = np.stack([preprocess_video_u8(v, height, width) for v in videos])
+        _, plan, rope_cos, rope_sin = self._schedule(num_inference_steps, height, width,
+                                                     f_lat, fps)
+
+        with _stage("encode", times, dev):
+            condition = _encode_windows(cfg, dtype, self.vae,
+                                        _u8_to_unit(pixels, dtype, dev), noise.posterior,
+                                        tiling)
+            camera = torch.zeros((bsz, f_lat, 24, h_lat, w_lat), dtype=dtype, device=dev)
+            condition_latents = torch.cat([condition, camera], dim=2)
+
+        with _stage("denoise", times, dev):
+            latents = _denoise(cfg, dtype, self.dit, self.empty_prompt_embeds,
+                               condition_latents, plan, rope_cos, rope_sin, noise,
+                               "reconstruction", None, broadcast_noise=True)
+
+        with _stage("decode", times, dev):
+            outs = [self._decode_window(latents[i:i + 1], tiling, num_frames)
+                    for i in range(bsz)]
+        for out in outs:
+            out.stage_seconds = times
+        return outs

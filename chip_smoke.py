@@ -38,17 +38,38 @@ Phases (each prints its result; any failure raises and exits non-zero):
  12. two planning requests (image, goal, raymap; same seed) at
      ``AETHER_ATTN_PV8=1``, cut to 10 steps to fit the run's time; checks
      42 x 10 K6 launches each and bit-identical outputs.
+Phases of the long-video slice, between 4 and 5 and after 6:
+ 4b. K5 (``groupnorm_moments``) against ``groupnorm_moments_plain`` at the
+     480p decode stage (2, 128, 9, 256, 720) and the latent stage (2, 512, 5,
+     32, 90), NCTHW bf16 (and channels-last, the layout cuDNN hands some
+     decoder norms): m1 and m2 within 1e-5 of max |m2|, two launches
+     bit-identical, times;
+ 6.  also K5's exact launch count per request (every VAE GroupNorm);
+ 6b. geometry on the card: a seeded smooth 41-pose trajectory through
+     ``camera_pose_to_raymap`` and back through ``raymap_to_poses``, within
+     1e-4;
+ 6c. the long-video path: a seeded 65-frame 480x720 clip through
+     ``run_windowed_reconstruction`` (two windows, starts 0 and 24), serially
+     and with ``batch_windows=2`` (``batch_reconstruct``), the two held
+     together; ``blend_and_merge_window_results`` on the card; PLY and GLB
+     export (the demo's ``save_geometry``) parsed back; exact K1/K2/K5 launch
+     counts, seconds and peak memory.
 The line before the last is a JSON object with each kernel's launches on its
-path, error against its plain version and times; the last line is the JSON
-status line. There is no CPU path: without CUDA the script raises.
+path, error against its plain version, times, the bound (the least time the
+card could take: the larger of bytes over 3.35 TB/s and operations over the
+peak of their type) and the time of one PyTorch call computing the same
+function where there is one; the last line is the JSON status line. There is
+no CPU path: without CUDA the script raises.
 """
 
 import dataclasses
 import gc
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +79,11 @@ SEQ, TEXT, HEADS, HEAD_DIM = 15076, 226, 48, 64
 FRAMES, HEIGHT, WIDTH, STEPS = 41, 480, 720, 4
 TRAIN_LAYERS, TRAIN_STEPS = 16, 3
 PREDICTION_STEPS, PLANNING_STEPS = 50, 10  # the task default; a cut to fit the time
+LONG_FRAMES, STRIDE = 65, 24  # two 41-frame windows, starts 0 and 24
+# H100 SXM at 700 W (NVIDIA's data sheet): memory rate, dense peaks by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+K5_SHAPES = ((2, 128, 9, 256, 720), (2, 512, 5, 32, 90))  # 480p decode stage, latent stage
 
 
 def log(msg: str) -> None:
@@ -94,6 +120,40 @@ def compare(name, out, ref, max_bar, mean_bar):
     check(err_max <= max_bar and err_mean <= mean_bar,
           f"{name} disagrees with its plain version")
     return err_max
+
+
+def bound(nbytes, ops):
+    """(ms, what bounds it): the larger of ``nbytes`` over the memory rate and
+    the operations ``ops`` ({type: count}) over their peaks."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_ops(b, s, kinds):
+    """{type: ops} of attention over b x 48 heads x s valid tokens x 64:
+    QK^T and PV, 2 * s^2 * 64 multiply-adds each a head."""
+    per = 2.0 * b * HEADS * s * s * HEAD_DIM
+    ops = {}
+    for kind in kinds:
+        ops[kind] = ops.get(kind, 0.0) + per
+    return ops
+
+
+def sdpa_ms(dev, gen, b, dtype):
+    """Time of one ``F.scaled_dot_product_attention`` over (b, 48, 15076, 64)
+    in ``dtype`` (the library yardstick; the port never calls it). The math
+    backend, which would hold the 48 x 15076^2 score matrix, is excluded."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v = (torch.randn((b, HEADS, SEQ, HEAD_DIM), generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        ms = cuda_time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), 5)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return ms
 
 
 def time_pair(name, kernel, plain, flops):
@@ -253,6 +313,219 @@ def check_request(res, frames, name) -> None:
         f"raymap std {res.raymap.std():.6f}")
 
 
+def k5_phase(dev, gen):
+    """K5 against its plain version at the two main-path shapes, NCTHW bf16.
+    Gate: m1 and m2 within 1e-5 of the plain version's, relative to max |m2|
+    (f32 sums of up to 1.7 M elements in another order); two launches
+    bit-identical. Returns, for the 480p decode shape, (max abs error, kernel
+    ms, plain ms, bound ms, bound by)."""
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments, groupnorm_moments_plain
+
+    results = []
+    for shape in K5_SHAPES:
+        x = (3.0 + 2.0 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16)
+        c0 = x[:, :, 0, 0, 0].float()
+        got, again = groupnorm_moments(x, c0), groupnorm_moments(x, c0)
+        ref = groupnorm_moments_plain(x, c0)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        scale = ref[1].abs().max().item()
+        check(got[0].shape == ref[0].shape == shape[:2], f"K5 {shape}: {got[0].shape}")
+        check(err <= 1e-5 * scale, f"K5 {shape} disagrees with its plain version")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K5 {shape}: two launches differ")
+        ms = cuda_time_ms(lambda: groupnorm_moments(x, c0), 20)
+        plain_ms = cuda_time_ms(lambda: groupnorm_moments_plain(x, c0), 5)
+        b, c = shape[:2]
+        # one read of x, c0 and two [B, C] outputs; 4 f32 ops an element
+        bound_ms, bound_by = bound(x.numel() * x.element_size() + 3 * b * c * 4,
+                                   {"f32": 4.0 * x.numel()})
+        log(f"K5 {shape} bf16: max abs err {err:.3e} (max |m2| {scale:.3e}, gate 1e-5 "
+            f"relative), repeats bit-identical; kernel {ms:.4f} ms "
+            f"({x.numel() * 2 / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        results.append((err, ms, plain_ms, bound_ms, bound_by))
+        # the decoder also hands its norms channels-last tensors (cuDNN's
+        # output layout): the same check and time on that layout
+        xc = x.to(memory_format=torch.channels_last_3d)
+        got, again = groupnorm_moments(xc, c0), groupnorm_moments(xc, c0)
+        torch.cuda.synchronize()
+        err_cl = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        check(err_cl <= 1e-5 * scale and all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K5 {shape} channels-last disagrees with its plain version or itself")
+        log(f"K5 {shape} bf16 channels-last: max abs err {err_cl:.3e}, repeats "
+            f"bit-identical; kernel {cuda_time_ms(lambda: groupnorm_moments(xc, c0), 20):.4f} ms")
+        del x, xc, c0, got, again, ref
+        torch.cuda.empty_cache()
+    return results[0]
+
+
+def expected_k5(pipe, frames, images=None, windows=1):
+    """K5 launches of one request: every GroupNorm of the encoder once per
+    encode chunk and tile, of the decoder once per decode chunk and tile, and
+    both once per window (``batch_reconstruct`` encodes and decodes window by
+    window). ``images``: the one-frame encodes of prediction (1) or planning
+    (2)."""
+    from aether_tpu_torch.models.vae import GroupNorm
+    from aether_tpu_torch.pipeline.aether import _chunk_bounds, _tile_spans
+
+    enc = sum(isinstance(m, GroupNorm) for m in pipe.vae.encoder.modules())
+    dec = sum(isinstance(m, GroupNorm) for m in pipe.vae.decoder.modules())
+    tiles = len(_tile_spans(HEIGHT // 8, 32, 4)) * len(_tile_spans(WIDTH // 8, 90, 6))
+    enc_chunks = len(list(_chunk_bounds(frames, 8))) if images is None else images
+    dec_chunks = len(list(_chunk_bounds((frames - 1) // 4 + 1, 2)))
+    return tiles * windows * (enc * enc_chunks + dec * dec_chunks)
+
+
+def geometry_phase(dev):
+    """A seeded smooth 41-pose trajectory -> ``camera_pose_to_raymap`` ->
+    ``raymap_to_poses`` on the card; the poses come back within 1e-4. The
+    principal point sits at the mean of the codec's sample positions (half a
+    pixel before the frame centre), where the mean ray is the optical axis."""
+    from scipy.spatial.transform import Rotation
+
+    from aether_tpu_torch.geometry import camera_pose_to_raymap, raymap_to_poses
+
+    rng = np.random.default_rng(21)
+    t = np.linspace(0.0, 1.0, FRAMES)[:, None]
+    poses = np.tile(np.eye(4), (FRAMES, 1, 1))
+    rotvec = t * rng.normal(size=3) * 0.5 + 0.05 * np.sin(6.0 * t) * rng.normal(size=3)
+    poses[:, :3, :3] = Rotation.from_rotvec(rotvec).as_matrix()
+    poses[:, :3, 3] = t * rng.normal(size=3) * 2.0 + 0.1 * np.cos(4.0 * t)
+    k = np.zeros((FRAMES, 3, 3))
+    k[:, 0, 0] = k[:, 1, 1] = 500.0
+    k[:, 0, 2], k[:, 1, 2], k[:, 2, 2] = WIDTH / 2 - 0.5, HEIGHT / 2 - 0.5, 1.0
+    pose_t = torch.from_numpy(poses).float().to(dev)
+    raymap = camera_pose_to_raymap(pose_t, torch.from_numpy(k).float().to(dev),
+                                   height=HEIGHT, width=WIDTH)
+    rec, fov_x, fov_y = raymap_to_poses(raymap, ray_o_scale_inv=0.1)
+    torch.cuda.synchronize()
+    check(raymap.is_cuda and rec.is_cuda, "geometry did not run on the card")
+    check(tuple(raymap.shape) == (FRAMES, 6, HEIGHT // 8, WIDTH // 8),
+          f"raymap {tuple(raymap.shape)}")
+    err = (rec[:, :3, :4] - pose_t[:, :3, :4]).abs().max().item()
+    log(f"geometry on the card: {FRAMES} poses -> raymap {tuple(raymap.shape)} -> poses, "
+        f"max abs err {err:.3e} (gate 1e-4); fov_x {fov_x.mean().item():.6f}, "
+        f"fov_y {fov_y.mean().item():.6f}")
+    check(err <= 1e-4, "camera_pose_to_raymap -> raymap_to_poses does not round-trip")
+
+
+def parse_ply_count(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    header = data[:end].decode("ascii")
+    n = int(next(ln for ln in header.splitlines()
+                 if ln.startswith("element vertex")).split()[-1])
+    body = np.frombuffer(data[end:], dtype=np.dtype(
+        [("xyz", "<f4", 3), ("rgb", "u1", 3)]), count=n)
+    check(np.isfinite(body["xyz"]).all(), f"{path}: non-finite points")
+    return n
+
+
+def parse_glb_points(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, version, total = struct.unpack_from("<III", data, 0)
+    check(magic == 0x46546C67 and version == 2 and total == len(data), f"{path}: header")
+    json_len, json_type = struct.unpack_from("<II", data, 12)
+    check(json_type == 0x4E4F534A, f"{path}: JSON chunk")
+    gltf = json.loads(data[20:20 + json_len])
+    prim = next(pr for mesh in gltf["meshes"] for pr in mesh["primitives"]
+                if pr.get("mode") == 0)
+    return gltf["accessors"][prim["attributes"]["POSITION"]]["count"]
+
+
+def long_video_phase(pipe, dev):
+    """The long-video path on the AetherV1 pipeline: a seeded 65-frame clip in
+    two 41-frame windows, serially and batched, the blend, the export.
+    Returns K5's launches in the two runs."""
+    from aether_tpu_torch.apps.demo import save_geometry
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+    from aether_tpu_torch.pipeline.windowing import (
+        blend_and_merge_window_results,
+        run_windowed_reconstruction,
+    )
+
+    kernels = (qkv_prologue, flash_attention_prepacked, groupnorm_moments)
+    video = np.random.default_rng(13).integers(0, 256, (LONG_FRAMES, HEIGHT, WIDTH, 3),
+                                               dtype=np.uint8)
+    n_layers = pipe.config.dit.num_layers
+    runs, k5_launches = {}, 0
+    for batch_windows in (1, 2):
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        results, starts, n = run_windowed_reconstruction(
+            pipe, video, height=HEIGHT, width=WIDTH, num_frames=FRAMES, fps=12,
+            num_inference_steps=STEPS, stride=STRIDE, seed=42, batch_windows=batch_windows)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [fn.launches for fn in kernels]
+        name = "serial" if batch_windows == 1 else "batched (batch_reconstruct, B=2)"
+        stages = "; ".join(", ".join(f"{k} {v:.3f} s" for k, v in r.stage_seconds.items())
+                           for r in (results if batch_windows == 1 else results[:1]))
+        log(f"long video, {name}: {len(starts)} windows at {starts}, {wall:.3f} s "
+            f"({stages}); K1/K2/K5 launches {'/'.join(map(str, counts))}; peak memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        check(starts == [0, STRIDE] and n == FRAMES, f"windows {starts} of {n} frames")
+        # the batch runs the DiT once at batch 2, the serial path once a window;
+        # both run the VAE window by window
+        dit_calls = n_layers * STEPS * (2 if batch_windows == 1 else 1)
+        k5 = expected_k5(pipe, FRAMES, windows=2)
+        check(counts == [dit_calls, dit_calls, k5],
+              f"expected K1/K2/K5 launches {dit_calls}/{dit_calls}/{k5}")
+        for i, res in enumerate(results):
+            check_request(res, FRAMES, f"window {i} ({name})")
+        runs[batch_windows] = results
+        k5_launches += counts[2]
+
+    # batch vs serial: the same draws and the same VAE calls; only the batch-2
+    # DiT's rounding can differ (bf16)
+    for i in range(2):
+        diffs = {f: np.abs(getattr(runs[1][i], f) - getattr(runs[2][i], f))
+                 for f in ("rgb", "disparity", "raymap")}
+        log(f"window {i}, batched vs serial: " + ", ".join(
+            f"{f} max {d.max():.3e} mean {d.mean():.3e}" for f, d in diffs.items()))
+        for f, d in diffs.items():
+            top = max(1.0, float(np.abs(getattr(runs[1][i], f)).max()))
+            check(d.mean() <= 1e-2 * top and d.max() <= 0.25 * top,
+                  f"window {i} {f}: batched and serial disagree")
+
+    t0 = time.perf_counter()
+    rgb, disparity, poses, pointmaps = blend_and_merge_window_results(
+        runs[1], [0, STRIDE], HEIGHT, WIDTH, device=dev)
+    blend_s = time.perf_counter() - t0
+    check(rgb.shape == (LONG_FRAMES, HEIGHT, WIDTH, 3), f"blend rgb {rgb.shape}")
+    check(disparity.shape == (LONG_FRAMES, HEIGHT, WIDTH), f"blend disp {disparity.shape}")
+    check(poses.shape == (LONG_FRAMES, 4, 4), f"blend poses {poses.shape}")
+    check(pointmaps.shape == (LONG_FRAMES, HEIGHT, WIDTH, 3), f"pointmaps {pointmaps.shape}")
+    for name, arr in (("rgb", rgb), ("disparity", disparity), ("poses", poses),
+                      ("pointmaps", pointmaps)):
+        check(bool(np.isfinite(arr).all()), f"blend {name} not finite")
+    rot = poses[:, :3, :3]
+    ortho = np.abs(np.einsum("tij,tik->tjk", rot, rot) - np.eye(3)).max()
+    check(ortho <= 1e-4, f"blended rotations not orthonormal ({ortho:.3e})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        written = save_geometry(os.path.join(tmp, "long"), rgb, disparity, poses, pointmaps)
+        export_s = time.perf_counter() - t0
+        n_ply = parse_ply_count(written["ply"])
+        n_glb = [parse_glb_points(p) for p in written["glb"]]
+        saved = np.loadtxt(written["poses"])
+        check(saved.shape == (LONG_FRAMES, 16) and np.isfinite(saved).all(), "poses file")
+        check(n_ply > 0 and len(n_glb) == -(-LONG_FRAMES // 10) and min(n_glb) > 0,
+              f"export: PLY {n_ply} points, GLB {n_glb}")
+    log(f"long video blend: {blend_s:.3f} s, rotations orthonormal within {ortho:.1e}; "
+        f"export: {export_s:.3f} s, PLY {n_ply} points, {len(n_glb)} GLB scenes "
+        f"({min(n_glb)}-{max(n_glb)} points), poses file {saved.shape}")
+    return k5_launches
+
+
 def fixed_max_phase(dev, gen):
     """K3 (int8 and bf16 QK^T) and K6 against their plain versions at the CFG
     pair's shape, B=2 x 48 heads x 15076 tokens x 64, bf16, and K3's
@@ -325,9 +598,10 @@ def cfg_phases(cfg, dev):
         flash_attention_prepacked,
         flash_attention_pv8,
     )
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
 
     kernels = (qkv_prologue, flash_attention_prepacked, flash_attention_fixed_max,
-               flash_attention_pv8)
+               flash_attention_pv8, groupnorm_moments)
     check(dict(cfg.default_num_inference_steps)["prediction"] == PREDICTION_STEPS
           and dict(cfg.default_guidance_scale)["prediction"] == 3.0
           and dict(cfg.default_use_dynamic_cfg)["prediction"],
@@ -352,7 +626,7 @@ def cfg_phases(cfg, dev):
         wall = time.perf_counter() - t0
         counts = [fn.launches for fn in kernels]
         stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
-        log(f"{name}: {wall:.3f} s ({stages}); K1/K2/K3/K6 launches "
+        log(f"{name}: {wall:.3f} s ({stages}); K1/K2/K3/K6/K5 launches "
             f"{'/'.join(map(str, counts))}; peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         check_request(res, FRAMES, name)
@@ -362,8 +636,9 @@ def cfg_phases(cfg, dev):
     try:
         os.environ["AETHER_ATTN_FUSED"] = "0"
         _, counts = drive("prediction request", task="prediction")
-        check(counts == [0, 0, n_layers * PREDICTION_STEPS, 0],
-              f"expected {n_layers * PREDICTION_STEPS} K3 launches and no other")
+        k5 = expected_k5(pipe, FRAMES, images=1)
+        check(counts == [0, 0, n_layers * PREDICTION_STEPS, 0, k5],
+              f"expected {n_layers * PREDICTION_STEPS} K3 and {k5} K5 launches, no other")
         k3_launches = counts[2]
 
         os.environ["AETHER_ATTN_PV8"] = "1"
@@ -371,8 +646,9 @@ def cfg_phases(cfg, dev):
         for req in range(2):
             res, counts = drive(f"planning request {req}", task="planning", goal=goal,
                                 num_inference_steps=PLANNING_STEPS)
-            check(counts == [0, 0, 0, n_layers * PLANNING_STEPS],
-                  f"expected {n_layers * PLANNING_STEPS} K6 launches and no other")
+            k5 = expected_k5(pipe, FRAMES, images=2)
+            check(counts == [0, 0, 0, n_layers * PLANNING_STEPS, k5],
+                  f"expected {n_layers * PLANNING_STEPS} K6 and {k5} K5 launches, no other")
             k6_launches += counts[3]
             outs.append(res)
         for name in ("rgb", "disparity", "raymap"):
@@ -401,6 +677,7 @@ def main() -> None:
         flash_attention_prepacked,
         flash_attention_prepacked_plain,
     )
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -497,6 +774,9 @@ def main() -> None:
     del y, xq, xk, xv, got, ref, out, out_ref, err, q8, k8, v
     torch.cuda.empty_cache()
 
+    # ---- 4b. K5 at the decode and latent stages ----
+    k5_err, k5_ms, k5_plain_ms, k5_bound, k5_by = k5_phase(dev, gen)
+
     # ---- 5. the pipeline on the AetherV1 config ----
     t0 = time.perf_counter()
     pipe = make_pipeline(cfg, dev)
@@ -510,10 +790,13 @@ def main() -> None:
                                               dtype=np.uint8)
     qkv_prologue.launches = 0
     flash_attention_prepacked.launches = 0
+    groupnorm_moments.launches = 0
+    k5_per_request = expected_k5(pipe, FRAMES)
     outs = []
     for req in range(2):
         torch.cuda.reset_peak_memory_stats(dev)
-        before = (qkv_prologue.launches, flash_attention_prepacked.launches)
+        before = (qkv_prologue.launches, flash_attention_prepacked.launches,
+                  groupnorm_moments.launches)
         t0 = time.perf_counter()
         res = pipe(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
                    num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42)
@@ -521,12 +804,14 @@ def main() -> None:
         wall = time.perf_counter() - t0
         k1_n = qkv_prologue.launches - before[0]
         k2_n = flash_attention_prepacked.launches - before[1]
+        k5_n = groupnorm_moments.launches - before[2]
         stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
         log(f"request {req}: {wall:.3f} s ({stages}); K1 launches {k1_n}, "
-            f"K2 launches {k2_n}; peak memory "
+            f"K2 launches {k2_n}, K5 launches {k5_n}; peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
         check(k1_n == k2_n == cfg.dit.num_layers * STEPS,
               f"expected {cfg.dit.num_layers * STEPS} launches of each kernel")
+        check(k5_n == k5_per_request, f"expected {k5_per_request} K5 launches")
         check_request(res, FRAMES, f"request {req}")
         outs.append(res)
     for name in ("rgb", "disparity", "raymap"):
@@ -535,7 +820,15 @@ def main() -> None:
     log("requests 0 and 1: bit-identical outputs")
     k1_launches = qkv_prologue.launches
     k2_launches = flash_attention_prepacked.launches
-    del pipe, res, outs
+    del res, outs
+
+    # ---- 6b. geometry on the card ----
+    geometry_phase(dev)
+
+    # ---- 6c. the long-video path ----
+    k5_launches = long_video_phase(pipe, dev)
+    del pipe
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 7. K4 at the training shape ----
@@ -553,35 +846,55 @@ def main() -> None:
     # ---- 11, 12. prediction through K3, planning through K6 ----
     k3_launches, k6_launches = cfg_phases(cfg, dev)
 
+    # ---- bounds and library yardsticks ----
     k4_err, k4_ms, k4_plain_ms = k4[torch.float32]
     k3_err, k3_ms, k3_plain_ms = fixed["K3 int8 QK^T"]
     k6_err, k6_ms, k6_plain_ms = fixed["K6"]
+    d, half = HEADS * HEAD_DIM, HEADS * s_pad * HEAD_DIM
+    # K1: the fused bf16 projection read once; int8 q/k, bf16 v out (scales are
+    # small); ~30 f32 ops an element of q and k
+    k1_bound = bound(s_pad * 3 * d * 2 + 2 * half + 2 * half,
+                     {"f32": 30.0 * 2 * SEQ * d})
+    # attention: q/k/v in, out written once; QK^T and PV over the valid tokens
+    k2_bound = bound(2 * half + 2 * 2 * half, attention_ops(1, SEQ, ("int8", "bf16")))
+    k3_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(2, SEQ, ("int8", "bf16")))
+    k3_bf16_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM,
+                          attention_ops(2, SEQ, ("bf16", "bf16")))
+    k4_bound = bound(4 * 4 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("f32", "f32")))
+    k4_bf16_bound = bound(4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("bf16", "bf16")))
+    k6_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(2, SEQ, ("int8", "int8")))
+    lib = {"K2": sdpa_ms(dev, gen, 1, torch.bfloat16),
+           "K4": sdpa_ms(dev, gen, 1, torch.float32),
+           "K4 bf16": sdpa_ms(dev, gen, 1, torch.bfloat16),
+           "K3/K6": sdpa_ms(dev, gen, 2, torch.bfloat16)}
+    log(f"bounds (ms, by): K1 {k1_bound}, K2 {k2_bound}, K3 {k3_bound}, K3 bf16 QK^T "
+        f"{k3_bf16_bound}, K4 f32 {k4_bound}, "
+        f"K4 bf16 {k4_bf16_bound}, K5 {(k5_bound, k5_by)}, K6 {k6_bound}")
+    log("scaled_dot_product_attention (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in lib.items())
+        + "; K4 bf16 kernel {:.4f} ms".format(k4[torch.bfloat16][1]))
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
+        return {"name": name, "route": "cuda", "source": f"aether_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library_ms}
+
     print(json.dumps({"kernels": [
-        {"name": "attn_prologue", "route": "cuda",
-         "source": "aether_tpu_torch/csrc/attn_prologue.cu",
-         "replaces": "aether_tpu/ops/attn_prologue.py:91",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "flash_prepacked", "route": "cuda",
-         "source": "aether_tpu_torch/csrc/flash_prepacked.cu",
-         "replaces": "aether_tpu/ops/flash_attention.py:812",
-         "launches": k2_launches, "max_abs_err": k2_max,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "flash_online", "route": "cuda",
-         "source": "aether_tpu_torch/csrc/flash_online.cu",
-         "replaces": "aether_tpu/ops/flash_attention.py:69",
-         "launches": k4_launches, "max_abs_err": k4_err,
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
-        {"name": "flash_fixed_max", "route": "cuda",
-         "source": "aether_tpu_torch/csrc/flash_fixed_max.cu",
-         "replaces": "aether_tpu/ops/flash_attention.py:151",
-         "launches": k3_launches, "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "flash_pv8", "route": "cuda",
-         "source": "aether_tpu_torch/csrc/flash_pv8.cu",
-         "replaces": "aether_tpu/ops/flash_attention.py:259",
-         "launches": k6_launches, "max_abs_err": k6_err,
-         "ms": k6_ms, "plain_ms": k6_plain_ms},
+        entry("attn_prologue", "attn_prologue.cu", "aether_tpu/ops/attn_prologue.py:91",
+              k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound, None),
+        entry("flash_prepacked", "flash_prepacked.cu",
+              "aether_tpu/ops/flash_attention.py:812", k2_launches, k2_max, k2_ms,
+              k2_plain_ms, k2_bound, lib["K2"]),
+        entry("flash_online", "flash_online.cu", "aether_tpu/ops/flash_attention.py:69",
+              k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound, lib["K4"]),
+        entry("flash_fixed_max", "flash_fixed_max.cu",
+              "aether_tpu/ops/flash_attention.py:151", k3_launches, k3_err, k3_ms,
+              k3_plain_ms, k3_bound, lib["K3/K6"]),
+        entry("flash_pv8", "flash_pv8.cu", "aether_tpu/ops/flash_attention.py:259",
+              k6_launches, k6_err, k6_ms, k6_plain_ms, k6_bound, lib["K3/K6"]),
+        entry("groupnorm_moments", "groupnorm_moments.cu", "aether_tpu/ops/groupnorm.py:30",
+              k5_launches, k5_err, k5_ms, k5_plain_ms, (k5_bound, k5_by), None),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

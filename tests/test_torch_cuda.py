@@ -10,7 +10,10 @@ lengths, extreme negative scores with padding, both denominators, f32 and
 bf16, and ``flash_attention_trainable``'s gradients. K3 and K6: lengths that
 are not a multiple of 64, ``kv_valid``, Sq != Skv, K3's unnormalized mode
 with a score bound, B*H odd (head groups of 3 or 1), int8 and bf16 QK^T, K6
-over several kv spans and with a negative row max behind padding. Also the
+over several kv spans and with a negative row max behind padding. K5: T*H*W
+not a multiple of the vector, unaligned rows, B 1 and 2, C from 12 to 512,
+f32/bf16/f16, NCTHW and channels-last, a large-mean group, bit-identical
+repeats, and the VAE's ``group_norm`` through it. Also the
 launch-or-raise contract. The card's machine has no JAX, so run them without
 the JAX conftest:
 
@@ -299,3 +302,80 @@ def test_fixed_max_kernels_refuse_what_they_do_not_take(dev):
         flash_attention_fixed_max(q.float(), k.float(), v.float())
     with pytest.raises(ValueError, match="pv_int8 requires qk_int8"):
         flash_attention(q, k, v, fixed_max=True, pv_int8=True)
+
+
+# ---- K5: GroupNorm moments ----
+
+def _check_moments(got, ref):
+    """m1 and m2 within 1e-5 of the plain version's, relative to max |m2|
+    (f32 sums of the same elements in another order)."""
+    scale = ref[1].abs().max().item()
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert (a - b).abs().max().item() <= 1e-5 * scale
+
+
+K5_CASES = [
+    # (B, C, T, H, W, dtype, channels_last)
+    (1, 16, 2, 4, 6, torch.float32, False),      # the tiny config; 48 = no vector tail
+    (2, 16, 3, 5, 7, torch.bfloat16, False),     # T*H*W = 105, not a multiple of 8
+    (2, 512, 5, 32, 90, torch.bfloat16, False),  # the latent stage
+    (1, 128, 3, 33, 17, torch.bfloat16, False),  # odd rows: unaligned row starts
+    (2, 128, 2, 64, 90, torch.float32, False),   # f32 input
+    (1, 16, 2, 4, 6, torch.float32, True),       # channels-last, tiny
+    (2, 512, 5, 32, 90, torch.bfloat16, True),   # channels-last latent stage
+    (2, 12, 3, 5, 7, torch.bfloat16, True),      # C not a multiple of the vector
+    (1, 128, 2, 64, 90, torch.float16, True),    # f16
+]
+
+
+@pytest.mark.parametrize("b,c,t,h,w,dtype,channels_last", K5_CASES)
+def test_groupnorm_moments_kernel_matches_plain(dev, b, c, t, h, w, dtype,
+                                                channels_last):
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments, groupnorm_moments_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * c + t)
+    x = (3.0 + 2.0 * torch.randn((b, c, t, h, w), generator=gen, device=dev)).to(dtype)
+    if channels_last:
+        x = x.to(memory_format=torch.channels_last_3d)
+        assert not x.is_contiguous()
+    c0 = x[:, :, 0, 0, 0].float()
+    before = groupnorm_moments.launches
+    got = groupnorm_moments(x, c0)
+    again = groupnorm_moments(x, c0)
+    torch.cuda.synchronize()
+    assert groupnorm_moments.launches == before + 2
+    _check_moments(got, groupnorm_moments_plain(x, c0))
+    for a, b_ in zip(got, again):  # bit-identical repeats: no atomics
+        assert torch.equal(a, b_)
+
+
+def test_groupnorm_moments_large_mean_and_strided_refusal(dev):
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments, groupnorm_moments_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    x = (500.0 + 0.5 * torch.randn((2, 32, 4, 16, 24), generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    c0 = x[:, :, 0, 0, 0].float()
+    _check_moments(groupnorm_moments(x, c0), groupnorm_moments_plain(x, c0))
+    with pytest.raises(ValueError, match="contiguous or channels-last"):
+        groupnorm_moments(x[:, :, :, :, ::2], c0)
+    with pytest.raises(TypeError, match="K5"):
+        groupnorm_moments(x.to(torch.float64), c0)
+
+
+def test_group_norm_on_cuda_launches_k5(dev):
+    from aether_tpu_torch.models.vae import group_norm
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    x = torch.randn((1, 64, 3, 16, 24), generator=gen, device=dev)
+    scale, bias = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    before = groupnorm_moments.launches
+    out = group_norm(x, scale, bias, 32, 1e-6)
+    ref = group_norm(x.cpu(), scale.cpu(), bias.cpu(), 32, 1e-6)
+    assert groupnorm_moments.launches == before + 1
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
