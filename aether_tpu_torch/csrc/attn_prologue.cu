@@ -6,7 +6,9 @@
 //   shifted single-pass LayerNorm over head_dim (eps, affine)
 //   -> interleaved-pair RoPE (rows past the table use cos = sin = 0)
 //   -> rows >= s_valid zeroed
-//   -> symmetric int8 quantization with ONE absmax/127 scale per cell,
+//   -> symmetric int8 quantization with ONE absmax/127 scale per cell
+//      (quantize), or bf16 z * fold for q and bf16 z for k (!quantize, the
+//      AETHER_ATTN_QK8=0 branch of the TPU kernel, attn_prologue.py:150-151),
 // plus the per-cell max row L2 norm, and copies v (rows >= s_valid zeroed).
 // The cell is (hper heads) x (block tokens) exactly as _pick_pad_and_block
 // chose it: that is a numerics choice, independent of the CUDA tile.
@@ -25,6 +27,10 @@
 //     bits of the non-negative floats (exact and order-free). Pass 2 recomputes
 //     z with the same device function, bit for bit, and writes rintf(z*127/amax)
 //     (round half to even, like jnp.rint) plus the plain v copy.
+// The float branch keeps both passes (the stats give K2 its shift) and takes
+// the LayerNorm moments in double, as the plain PyTorch version does: with
+// bf16 outputs, whose spacing shrinks with |z|, an f32 mean's rounding would
+// move the last bit of values near 0.
 // Compiled without --use_fast_math: sqrtf, division and the RoPE products must
 // stay IEEE so both passes and the plain PyTorch version agree.
 
@@ -49,8 +55,8 @@ struct PrologueArgs {
   int rope_rows;
   int H, s_pad, s_valid, block, hper, n_tiles, chunks;
   float eps, fold, fold127, inv127;
-  int8_t* q8;
-  int8_t* k8;
+  void* qo;                     // int8 (quantize) or bf16, [B*H, s_pad, D]
+  void* ko;
   __nv_bfloat16* v;             // [B*H, s_pad, D]
   float* qsc;
   float* qn;
@@ -65,6 +71,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
@@ -73,6 +85,8 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // z for the lane's pair (2*lane, 2*lane + 1) of tensor `which` (0 = q, 1 = k)
 // at (b, row, h). Warp-collective; the caller guarantees row < s_valid.
+// kF64: the moments in double, rounded to f32 (the float branch).
+template <bool kF64>
 __device__ __forceinline__ float2 prologue_z(const PrologueArgs& a, int which,
                                              int b, int h, int row, int lane) {
   const __nv_bfloat16* p = a.x[which] + (int64_t)b * a.stride_b +
@@ -81,11 +95,20 @@ __device__ __forceinline__ float2 prologue_z(const PrologueArgs& a, int which,
   const float x0 = __low2float(xv), x1 = __high2float(xv);
   const float c = __shfl_sync(kFull, x0, 0);  // the row's first element
   const float y0 = __fsub_rn(x0, c), y1 = __fsub_rn(x1, c);
-  const float s1 = warp_sum(__fadd_rn(y0, y1));
-  const float s2 = warp_sum(__fadd_rn(__fmul_rn(y0, y0), __fmul_rn(y1, y1)));
-  const float mean = __fmul_rn(s1, 1.0f / kD);
-  const float var = fmaxf(__fsub_rn(__fmul_rn(s2, 1.0f / kD),
-                                    __fmul_rn(mean, mean)), 0.0f);
+  float mean, var;
+  if (kF64) {
+    const double d0 = y0, d1 = y1;
+    const double s1 = warp_sum_d(__dadd_rn(d0, d1));
+    const double s2 = warp_sum_d(__dadd_rn(__dmul_rn(d0, d0), __dmul_rn(d1, d1)));
+    const double m1 = __dmul_rn(s1, 1.0 / kD);
+    mean = __double2float_rn(m1);
+    var = __double2float_rn(fmax(__dsub_rn(__dmul_rn(s2, 1.0 / kD), __dmul_rn(m1, m1)), 0.0));
+  } else {
+    const float s1 = warp_sum(__fadd_rn(y0, y1));
+    const float s2 = warp_sum(__fadd_rn(__fmul_rn(y0, y0), __fmul_rn(y1, y1)));
+    mean = __fmul_rn(s1, 1.0f / kD);
+    var = fmaxf(__fsub_rn(__fmul_rn(s2, 1.0f / kD), __fmul_rn(mean, mean)), 0.0f);
+  }
   const float inv = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, a.eps)));
   const float* g = a.gamma[which];
   const float* bb = a.beta[which];
@@ -124,6 +147,7 @@ __device__ __forceinline__ Cell cell_of(const PrologueArgs& a) {
   return c;
 }
 
+template <bool kQuantize>
 __global__ void __launch_bounds__(kWarps * 32) prologue_stats(PrologueArgs a) {
   const Cell c = cell_of(a);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -136,7 +160,7 @@ __global__ void __launch_bounds__(kWarps * 32) prologue_stats(PrologueArgs a) {
     const int b = bh / a.H, h = bh % a.H;
 #pragma unroll
     for (int w = 0; w < 2; ++w) {
-      const float2 z = prologue_z(a, w, b, h, row, lane);
+      const float2 z = prologue_z<!kQuantize>(a, w, b, h, row, lane);
       const float am = warp_max(fmaxf(fabsf(z.x), fabsf(z.y)));
       const float n2 = warp_sum(__fadd_rn(__fmul_rn(z.x, z.x), __fmul_rn(z.y, z.y)));
       amax[w] = fmaxf(amax[w], am);
@@ -159,6 +183,7 @@ __global__ void __launch_bounds__(kWarps * 32) prologue_stats(PrologueArgs a) {
   }
 }
 
+template <bool kQuantize>
 __global__ void __launch_bounds__(kWarps * 32) prologue_write(PrologueArgs a) {
   const Cell c = cell_of(a);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -177,12 +202,19 @@ __global__ void __launch_bounds__(kWarps * 32) prologue_write(PrologueArgs a) {
 #pragma unroll
     for (int w = 0; w < 2; ++w) {
       float2 z = make_float2(0.0f, 0.0f);
-      if (valid) z = prologue_z(a, w, b, h, row, lane);
-      const float r = w == 0 ? r_q : r_k;
-      char2 q;
-      q.x = (signed char)__float2int_rn(rintf(__fmul_rn(z.x, r)));
-      q.y = (signed char)__float2int_rn(rintf(__fmul_rn(z.y, r)));
-      *reinterpret_cast<char2*>((w == 0 ? a.q8 : a.k8) + o) = q;
+      if (valid) z = prologue_z<!kQuantize>(a, w, b, h, row, lane);
+      void* dst = w == 0 ? a.qo : a.ko;
+      if (kQuantize) {
+        const float r = w == 0 ? r_q : r_k;
+        char2 q;
+        q.x = (signed char)__float2int_rn(rintf(__fmul_rn(z.x, r)));
+        q.y = (signed char)__float2int_rn(rintf(__fmul_rn(z.y, r)));
+        *reinterpret_cast<char2*>(static_cast<int8_t*>(dst) + o) = q;
+      } else {  // q carries the softmax fold, k is z itself
+        const float f = w == 0 ? a.fold : 1.0f;
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(dst) + o) =
+            __floats2bfloat162_rn(__fmul_rn(z.x, f), __fmul_rn(z.y, f));
+      }
     }
     __nv_bfloat162 vv = __floats2bfloat162_rn(0.0f, 0.0f);
     if (valid) {
@@ -206,9 +238,9 @@ extern "C" int aether_qkv_prologue(
     const void* xq, const void* xk, const void* xv, int stride_b, int stride_s,
     const void* gq, const void* bq, const void* gk, const void* bk,
     const void* rope_cos, const void* rope_sin, int rope_rows,
-    int B, int S_in, int H, int s_pad, int s_valid, int block, int hper,
+    int B, int S_in, int H, int s_pad, int s_valid, int block, int hper, int quantize,
     float eps, float fold, float fold127, float inv127,
-    void* q8, void* k8, void* v, void* qsc, void* qn, void* ksc, void* kn,
+    void* qo, void* ko, void* v, void* qsc, void* qn, void* ksc, void* kn,
     void* scratch, void* stream) {
   (void)S_in;  // the wrapper guarantees s_valid <= S_in
   PrologueArgs a;
@@ -235,8 +267,8 @@ extern "C" int aether_qkv_prologue(
   a.fold = fold;
   a.fold127 = fold127;
   a.inv127 = inv127;
-  a.q8 = static_cast<int8_t*>(q8);
-  a.k8 = static_cast<int8_t*>(k8);
+  a.qo = qo;
+  a.ko = ko;
   a.v = static_cast<__nv_bfloat16*>(v);
   a.qsc = static_cast<float*>(qsc);
   a.qn = static_cast<float*>(qn);
@@ -247,7 +279,12 @@ extern "C" int aether_qkv_prologue(
   const int groups = B * H / hper;
   const int grid = groups * a.n_tiles * a.chunks;
   cudaMemsetAsync(scratch, 0, sizeof(unsigned) * 4 * groups * a.n_tiles, s);
-  prologue_stats<<<grid, kWarps * 32, 0, s>>>(a);
-  prologue_write<<<grid, kWarps * 32, 0, s>>>(a);
+  if (quantize) {
+    prologue_stats<true><<<grid, kWarps * 32, 0, s>>>(a);
+    prologue_write<true><<<grid, kWarps * 32, 0, s>>>(a);
+  } else {
+    prologue_stats<false><<<grid, kWarps * 32, 0, s>>>(a);
+    prologue_write<false><<<grid, kWarps * 32, 0, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

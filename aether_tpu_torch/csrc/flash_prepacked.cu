@@ -1,10 +1,11 @@
-// K2: fixed-max flash attention over the prologue's int8 operands, written by
-// hand for Hopper (sm_90a).
+// K2: fixed-max flash attention over the prologue's operands, written by hand
+// for Hopper (sm_90a).
 //
 // Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_prepacked (the
-// Pallas TPU kernel launched by flash_attention_prepacked). Non-causal
-// attention, head_dim 64, in the log2 domain:
-//   s   = f32(int32(q8 . k8^T)) * (qsc[g, row/block] * ksc[g, col/block])
+// Pallas TPU kernel launched by flash_attention_prepacked), both its branches
+// (qk_int8, :845-855). Non-causal attention, head_dim 64, in the log2 domain:
+//   s   = f32(int32(q8 . k8^T)) * (qsc[g, row/block] * ksc[g, col/block])   (kInt8)
+//   s   = f32(q . k^T), bf16 q carrying the fold      (!kInt8: AETHER_ATTN_QK8=0)
 //   p   = exp2(s - m_g),  m_g = max_t qn[g, t] * max_t kn[g, t]
 //   out = sum_j bf16(p_j) v_j / sum_j bf16(p_j)     (denominator 0 -> 1)
 // Columns >= s_valid are masked out of numerator and denominator alike (the
@@ -13,14 +14,15 @@
 //
 // What bounds it on an H100: matrix-unit work and exp2. One call at the
 // 48-head 15360-token shape is 2.9e12 flops (half int8 QK^T, half bf16 PV)
-// and 1.1e10 exp2. Because the shift m_g is fixed per head group, a CTA never
-// rescales: no running max, no cross-CTA reduction, and every kv tile is an
-// independent sum. The design:
+// and 1.1e10 exp2 (the float branch: 2.9e12 bf16 flops). Because the shift
+// m_g is fixed per head group, a CTA never rescales: no running max, no
+// cross-CTA reduction, and every kv tile is an independent sum. The design:
 //   * grid (q tiles of 64 rows, B*H); 4 warps, 16 q rows each; each CTA loops
 //     over every kv tile of 64 columns;
-//   * QK^T on mma.sync.m16n8k32 s8 x s8 -> s32, q fragments held in registers
-//     for the whole loop, k fragments from shared memory with ldmatrix;
-//   * the s32 accumulator layout of m16n8 equals the bf16 A-operand layout of
+//   * QK^T on mma.sync.m16n8k32 s8 x s8 -> s32, or m16n8k16 bf16 x bf16 -> f32
+//     (the float branch, exact products), q fragments held in registers for
+//     the whole loop, k fragments from shared memory with ldmatrix;
+//   * the s32 / f32 accumulator layout of m16n8 equals the bf16 A-operand layout of
 //     m16n8k16, so p goes from registers straight into the PV mma.sync
 //     (bf16 x bf16 -> f32) without touching shared memory; v fragments come
 //     from shared memory with ldmatrix.trans;
@@ -39,7 +41,6 @@ constexpr int kD = 64;
 constexpr int kBM = 64;            // q rows per CTA
 constexpr int kBN = 64;            // kv columns per tile
 constexpr int kWarps = 4;
-constexpr int kKStride = 80;       // bytes per k row in shared memory (64 + 16 pad)
 constexpr int kVStride = 72;       // bf16 per v row in shared memory (64 + 8 pad)
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -81,14 +82,18 @@ __device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// kInt8: q/k are int8 [BH, s_pad, 64]; else bf16 [BH, s_pad, 64]
+template <bool kInt8>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_prepacked_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
+flash_prepacked_kernel(const void* __restrict__ q, const void* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        const float* __restrict__ qsc, const float* __restrict__ ksc,
                        const float* __restrict__ qn, const float* __restrict__ kn,
                        __nv_bfloat16* __restrict__ out, int s_pad, int s_valid,
                        int hper, int block, int n_tiles) {
-  __shared__ __align__(16) int8_t ks[kBN * kKStride];
+  constexpr int kQBytes = kInt8 ? 1 : 2;
+  constexpr int kKStride = kInt8 ? 80 : 144;  // bytes per k row in shared memory (+16 pad)
+  __shared__ __align__(16) uint8_t ks[kBN * kKStride];
   __shared__ __align__(16) __nv_bfloat16 vs[kBN * kVStride];
 
   const int bh = blockIdx.y;
@@ -104,17 +109,21 @@ flash_prepacked_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__
     mk = fmaxf(mk, kn[g * n_tiles + t]);
   }
   const float m = __fmul_rn(mq, mk);
-  const float q_scale = qsc[g * n_tiles + q0 / block];
+  const float q_scale = kInt8 ? qsc[g * n_tiles + q0 / block] : 1.0f;
 
-  // q fragments (m16n8k32 A, row-major) for this warp's 16 rows, both k steps
-  const int8_t* qrow = q8 + ((int64_t)bh * s_pad + q0 + warp * 16 + gid) * kD;
-  uint32_t qa[2][4];
+  // q fragments for this warp's 16 rows (A operand, row-major): int8
+  // m16n8k32 in 2 k steps, or bf16 m16n8k16 in 4 k steps; 4 registers each
+  constexpr int kSteps = kInt8 ? 2 : 4;
+  const uint8_t* qrow = static_cast<const uint8_t*>(q) +
+                        ((int64_t)bh * s_pad + q0 + warp * 16 + gid) * kD * kQBytes;
+  uint32_t qa[kSteps][4];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    qa[s][0] = *reinterpret_cast<const uint32_t*>(qrow + s * 32 + tig * 4);
-    qa[s][1] = *reinterpret_cast<const uint32_t*>(qrow + 8 * kD + s * 32 + tig * 4);
-    qa[s][2] = *reinterpret_cast<const uint32_t*>(qrow + s * 32 + 16 + tig * 4);
-    qa[s][3] = *reinterpret_cast<const uint32_t*>(qrow + 8 * kD + s * 32 + 16 + tig * 4);
+  for (int s = 0; s < kSteps; ++s) {
+    const uint8_t* p0 = qrow + s * 32 + tig * 4;  // 32 int8 or 16 bf16 a step
+    qa[s][0] = *reinterpret_cast<const uint32_t*>(p0);
+    qa[s][1] = *reinterpret_cast<const uint32_t*>(p0 + 8 * kD * kQBytes);
+    qa[s][2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
+    qa[s][3] = *reinterpret_cast<const uint32_t*>(p0 + 8 * kD * kQBytes + 16);
   }
 
   float o[8][4];
@@ -123,17 +132,18 @@ flash_prepacked_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__
   float l0 = 0.0f, l1 = 0.0f;  // this thread's share of rows gid and gid + 8
 
   const int kv_end = ((s_valid + kBN - 1) / kBN) * kBN;  // later tiles are all masked
-  const int8_t* kbase = k8 + (int64_t)bh * s_pad * kD;
+  const uint8_t* kbase = static_cast<const uint8_t*>(k) + (int64_t)bh * s_pad * kD * kQBytes;
   const __nv_bfloat16* vbase = v + (int64_t)bh * s_pad * kD;
   const int mi = lane / 8, mr = lane % 8;  // ldmatrix: matrix index, row within it
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBN) {
     __syncthreads();  // the previous tile is consumed
+    constexpr int kChunks = kD * kQBytes / 16;  // 16-byte chunks per k row
 #pragma unroll
-    for (int i = tid; i < kBN * 4; i += kWarps * 32) {  // k: 64 rows x 64 B
-      const int r = i / 4, c = i % 4;
-      *reinterpret_cast<int4*>(ks + r * kKStride + c * 16) =
-          *reinterpret_cast<const int4*>(kbase + (int64_t)(kv0 + r) * kD + c * 16);
+    for (int i = tid; i < kBN * kChunks; i += kWarps * 32) {  // k: 64 rows
+      const int r = i / kChunks, c = i % kChunks;
+      *reinterpret_cast<int4*>(ks + r * kKStride + c * 16) = *reinterpret_cast<const int4*>(
+          kbase + ((int64_t)(kv0 + r) * kD) * kQBytes + c * 16);
     }
 #pragma unroll
     for (int i = tid; i < kBN * 8; i += kWarps * 32) {  // v: 64 rows x 128 B
@@ -143,18 +153,34 @@ flash_prepacked_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__
     }
     __syncthreads();
 
-    const float sc = __fmul_rn(q_scale, ksc[g * n_tiles + kv0 / block]);
+    const float sc = kInt8 ? __fmul_rn(q_scale, ksc[g * n_tiles + kv0 / block]) : 1.0f;
 
-    // s = q8 . k8^T over 8 column tiles of 8; one ldmatrix.x4 gives both
-    // k steps' B fragments (16 int8 = 8 b16 per matrix row)
-    int sacc[8][4];
+    // s = q . k^T over 8 column tiles of 8
+    float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
-      sacc[nt][0] = sacc[nt][1] = sacc[nt][2] = sacc[nt][3] = 0;
-      uint32_t kb[4];
-      ldmatrix_x4(kb, ks + (nt * 8 + mr) * kKStride + mi * 16);
-      mma_s8(sacc[nt], qa[0], kb[0], kb[1]);
-      mma_s8(sacc[nt], qa[1], kb[2], kb[3]);
+      const uint8_t* krow = ks + (nt * 8 + mr) * kKStride;
+      if constexpr (kInt8) {
+        // one ldmatrix.x4 gives both k steps' B fragments (16 int8 = 8 b16
+        // per matrix row)
+        int sacc[4] = {0, 0, 0, 0};
+        uint32_t kb[4];
+        ldmatrix_x4(kb, krow + mi * 16);
+        mma_s8(sacc, qa[0], kb[0], kb[1]);
+        mma_s8(sacc, qa[1], kb[2], kb[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[nt][j] = __fmul_rn((float)sacc[j], sc);
+      } else {
+        // two ldmatrix.x4 give the 4 k steps' B fragments (8 bf16 a matrix row)
+        uint32_t kb[2][4];
+        ldmatrix_x4(kb[0], krow + mi * 16);
+        ldmatrix_x4(kb[1], krow + 64 + mi * 16);
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+        mma_bf16(s[nt], qa[0], kb[0][0], kb[0][1]);
+        mma_bf16(s[nt], qa[1], kb[0][2], kb[0][3]);
+        mma_bf16(s[nt], qa[2], kb[1][0], kb[1][1]);
+        mma_bf16(s[nt], qa[3], kb[1][2], kb[1][3]);
+      }
     }
 
     // p = exp2(s - m) rounded to bf16, packed as the PV mma's A operand
@@ -163,10 +189,10 @@ flash_prepacked_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int col = kv0 + nt * 8 + tig * 2;
-      float p0 = exp2f(__fsub_rn(__fmul_rn((float)sacc[nt][0], sc), m));
-      float p1 = exp2f(__fsub_rn(__fmul_rn((float)sacc[nt][1], sc), m));
-      float p2 = exp2f(__fsub_rn(__fmul_rn((float)sacc[nt][2], sc), m));
-      float p3 = exp2f(__fsub_rn(__fmul_rn((float)sacc[nt][3], sc), m));
+      float p0 = exp2f(__fsub_rn(s[nt][0], m));
+      float p1 = exp2f(__fsub_rn(s[nt][1], m));
+      float p2 = exp2f(__fsub_rn(s[nt][2], m));
+      float p3 = exp2f(__fsub_rn(s[nt][3], m));
       if (tail) {
         if (col >= s_valid) p0 = p2 = 0.0f;
         if (col + 1 >= s_valid) p1 = p3 = 0.0f;
@@ -213,17 +239,26 @@ flash_prepacked_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__
 
 }  // namespace
 
-extern "C" int aether_flash_prepacked(const void* q8, const void* k8, const void* v,
+// q, k: [BH, s_pad, 64] int8 (qk_int8) or bf16, q carrying the fold; v, out:
+// [BH, s_pad, 64] bf16; qsc, ksc, qn, kn: [BH / hper, n_tiles] f32.
+extern "C" int aether_flash_prepacked(const void* q, const void* k, const void* v,
                                       const void* qsc, const void* ksc,
                                       const void* qn, const void* kn, void* out,
                                       int BH, int s_pad, int s_valid, int hper,
-                                      int block, int n_tiles, void* stream) {
+                                      int block, int n_tiles, int qk_int8, void* stream) {
   dim3 grid(s_pad / kBM, BH);
-  flash_prepacked_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(qsc),
-      static_cast<const float*>(ksc), static_cast<const float*>(qn),
-      static_cast<const float*>(kn), static_cast<__nv_bfloat16*>(out), s_pad,
-      s_valid, hper, block, n_tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* vv = static_cast<const __nv_bfloat16*>(v);
+  auto* f_qsc = static_cast<const float*>(qsc);
+  auto* f_ksc = static_cast<const float*>(ksc);
+  auto* f_qn = static_cast<const float*>(qn);
+  auto* f_kn = static_cast<const float*>(kn);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (qk_int8)
+    flash_prepacked_kernel<true><<<grid, kWarps * 32, 0, st>>>(
+        q, k, vv, f_qsc, f_ksc, f_qn, f_kn, o, s_pad, s_valid, hper, block, n_tiles);
+  else
+    flash_prepacked_kernel<false><<<grid, kWarps * 32, 0, st>>>(
+        q, k, vv, f_qsc, f_ksc, f_qn, f_kn, o, s_pad, s_valid, hper, block, n_tiles);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,19 +49,19 @@ SIGNATURES = {
         _P, _P, _P, _P,      # gq, bq, gk, bk (f32, [D])
         _P, _P, _I,          # rope cos, sin (f32, [rope_rows, D]) or null, rope_rows
         _I, _I, _I,          # B, S_in, H
-        _I, _I, _I, _I,      # s_pad, s_valid, block, hper
+        _I, _I, _I, _I, _I,  # s_pad, s_valid, block, hper, quantize
         _F, _F, _F, _F,      # eps, fold, fold/127, 1/127
-        _P, _P, _P,          # q8, k8 (int8), v (bf16): [B*H, s_pad, D]
+        _P, _P, _P,          # q, k (int8, or bf16 if !quantize), v (bf16): [B*H, s_pad, D]
         _P, _P, _P, _P,      # qsc, qn, ksc, kn (f32, [G, T])
         _P,                  # scratch (u32, [G, T, 4])
         _P,                  # stream
     ],
     "aether_flash_prepacked": [
-        _P, _P, _P,          # q8, k8 (int8), v (bf16): [B*H, s_pad, D]
+        _P, _P, _P,          # q, k (int8, or folded bf16), v (bf16): [B*H, s_pad, D]
         _P, _P, _P, _P,      # qsc, ksc, qn, kn (f32, [G, T])
         _P,                  # out (bf16, [B*H, s_pad, D])
         _I, _I, _I,          # BH, s_pad, s_valid
-        _I, _I, _I,          # hper, block, n_tiles
+        _I, _I, _I, _I,      # hper, block, n_tiles, qk_int8
         _P,                  # stream
     ],
     "aether_flash_online": [
@@ -84,6 +84,12 @@ SIGNATURES = {
         _P,                  # out (f32 or bf16, [B*H, sq, 64])
         _I, _I, _I, _I, _I,  # BH, sq, skv, kv_len, hper
         _I, _I,              # span (kv columns per running-max update), dtype
+        _P,                  # stream
+    ],
+    "aether_flash_variants": [
+        _P, _P, _P, _P,      # q (scaled), k (rows or transposed), v, out (bf16)
+        _I, _I, _I, _I,      # BH, rows (a multiple of 64), kv_end, pad (padfix)
+        _I, _I, _I, _I, _I,  # hper, use_exp2, mask (0 all, 1 tail, 2 none), kt, guard_le
         _P,                  # stream
     ],
     "aether_groupnorm_moments": [

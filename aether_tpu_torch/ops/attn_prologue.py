@@ -14,7 +14,10 @@ by memory traffic (about 0.75 GB moved per call at 48 heads x 15360 tokens,
 in place through its row stride and by touching each element once per pass:
 pass 1 reduces each cell's absmax and row-norm maximum across CTAs with
 ``atomicMax``, pass 2 recomputes z bit for bit and quantizes it; the source
-carries the full note. ``qkv_prologue_plain`` is the same function in plain
+carries the full note. With ``quantize=False`` (``AETHER_ATTN_QK8=0``) the
+same kernel keeps pass 1's statistics and writes bf16 ``z * fold`` for q and
+bf16 ``z`` for k, with the LayerNorm moments taken in double as the plain
+version takes them. ``qkv_prologue_plain`` is the same function in plain
 PyTorch: the CPU path, and the reference the kernel is held against on the
 card.
 
@@ -124,7 +127,9 @@ def qkv_prologue_plain(
         m1 = y64.mean(dim=-1, keepdim=True)
         var = torch.clamp((y64 * y64).mean(dim=-1, keepdim=True) - m1 * m1, min=0.0)
         mean_y, var = m1.float(), var.float()
-        z = (y0 - mean_y) * torch.rsqrt(var + eps)
+        # a correctly rounded 1/sqrt on every device, as the kernel divides
+        # (torch.rsqrt approximates on the CPU and on CUDA)
+        z = (y0 - mean_y) * torch.reciprocal(torch.sqrt(var + eps))
         z = z * g.float() + bias.float()
         if has_rope:
             z = z * cos + _rotate_pairs(z) * sin
@@ -178,8 +183,8 @@ def qkv_prologue(
         rope_cos / rope_sin: (S_rope, D) joint-stream tables (identity rows on
             the text prefix) or None; rows past S_rope rotate to zero, as the
             JAX wrapper's zero padding does.
-        quantize: int8 q/k (the only variant the CUDA kernel implements);
-            False emits float q/k with the softmax fold on q (CPU only).
+        quantize: int8 q/k; False emits q/k in the input dtype, q carrying
+            the softmax fold (``AETHER_ATTN_QK8=0``).
         s_valid: true token count; rows >= s_valid are zeroed everywhere.
 
     Returns:
@@ -197,10 +202,6 @@ def qkv_prologue(
             rope_cos, rope_sin, num_heads=num_heads, head_dim=head_dim,
             eps=eps, sm_scale=sm_scale, quantize=quantize, block_q=block_q,
             heads_per_cell=heads_per_cell, s_valid=s_valid)
-    if not quantize:
-        raise NotImplementedError(
-            "the float (AETHER_ATTN_QK8=0) variant of K1 is not ported to CUDA "
-            "yet (ROADMAP.md, queue 2: the QK8=0 float variant of K1 and K2)")
     b, s, d_model = xq.shape
     nh, hd = num_heads, head_dim
     if hd != 64:
@@ -248,8 +249,9 @@ def qkv_prologue(
         cos_p = sin_p = None
         rope_rows = 0
 
-    q8 = torch.empty((bh, s_pad, hd), dtype=torch.int8, device=dev)
-    k8 = torch.empty_like(q8)
+    qo = torch.empty((bh, s_pad, hd), dtype=torch.int8 if quantize else torch.bfloat16,
+                     device=dev)
+    ko = torch.empty_like(qo)
     v = torch.empty((bh, s_pad, hd), dtype=torch.bfloat16, device=dev)
     qsc, qn, ksc, kn = (torch.empty((groups, n_tiles), dtype=torch.float32,
                                     device=dev) for _ in range(4))
@@ -258,13 +260,13 @@ def qkv_prologue(
         xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), stride_b, stride_s,
         gq.data_ptr(), bq.data_ptr(), gk.data_ptr(), bk.data_ptr(),
         cos_p, sin_p, rope_rows, b, s, nh, s_pad, s_valid, block, hper,
-        eps, fold, fold / 127.0, 1.0 / 127.0,
-        q8.data_ptr(), k8.data_ptr(), v.data_ptr(), qsc.data_ptr(),
+        int(quantize), eps, fold, fold / 127.0, 1.0 / 127.0,
+        qo.data_ptr(), ko.data_ptr(), v.data_ptr(), qsc.data_ptr(),
         qn.data_ptr(), ksc.data_ptr(), kn.data_ptr(), scratch.data_ptr(),
         _build.stream_ptr(dev))
     _build.check(rc, "aether_qkv_prologue")
     qkv_prologue.launches += 1
-    return q8, k8, v, qsc, qn, ksc, kn, s_pad
+    return qo, ko, v, qsc, qn, ksc, kn, s_pad
 
 
 # wrapper calls that launched the Hopper kernel (a plain integer)

@@ -29,11 +29,12 @@ through a ones column of the PV matmul; at head_dim >= 128 (``"vpu"``) it sums
 unrounded p. A zero denominator divides by 1.
 
 K2, :func:`flash_attention_prepacked`: ``csrc/flash_prepacked.cu`` replaces
-``_flash_kernel_prepacked``. On the H100 it is bound by matrix-unit work and
-exp2 (2.9e12 flops and 1.1e10 exp2 per call at 48 heads x 15360 tokens). Its
-design answers with the fixed softmax shift (no running max, no rescale, no
-cross-CTA reduction), int8 ``mma.sync`` for QK^T and bf16 ``mma.sync`` for PV
-with p kept in registers between the two; the source carries the full note.
+``_flash_kernel_prepacked``, both its int8 and its float (``AETHER_ATTN_QK8=0``)
+branch. On the H100 it is bound by matrix-unit work and exp2 (2.9e12 flops and
+1.1e10 exp2 per call at 48 heads x 15360 tokens). Its design answers with the
+fixed softmax shift (no running max, no rescale, no cross-CTA reduction), int8
+(or bf16) ``mma.sync`` for QK^T and bf16 ``mma.sync`` for PV with p kept in
+registers between the two; the source carries the full note.
 
 K2's math (log2 domain, non-causal, one fixed shift per head group):
 
@@ -158,7 +159,7 @@ def flash_attention_prepacked(
 
     Args:
         q / k: [B*H, S_pad, D] int8 (per-(group, tile) scales) or a float
-            dtype carrying the ``sm_scale*log2e`` fold on q (CPU only).
+            dtype carrying the ``sm_scale*log2e`` fold on q (bf16 on CUDA).
         v: [B*H, S_pad, D] plain values, rows >= s_valid zeroed.
         qsc / ksc / qn / kn: [G, T] f32 scales and L2-norm maxima.
         s_valid: number of real tokens; later kv columns are masked.
@@ -172,10 +173,9 @@ def flash_attention_prepacked(
             block_q=block_q, heads_per_cell=heads_per_cell)
     bh, s_pad, d = q.shape
     s_valid = s_pad if s_valid is None else s_valid
-    if q.dtype != torch.int8 or k.dtype != torch.int8:
-        raise NotImplementedError(
-            "the float (AETHER_ATTN_QK8=0) variant of K2 is not ported to CUDA "
-            "yet (ROADMAP.md, queue 2: the QK8=0 float variant of K1 and K2)")
+    if q.dtype not in (torch.int8, torch.bfloat16) or k.dtype != q.dtype:
+        raise TypeError(f"K2 takes int8 or bf16 q/k of one dtype on CUDA, got "
+                        f"{q.dtype}/{k.dtype}")
     if d != 64:
         raise NotImplementedError(f"K2 takes head_dim 64 only, got {d}")
     if v.dtype != torch.bfloat16:
@@ -199,7 +199,7 @@ def flash_attention_prepacked(
     rc = _build.lib().aether_flash_prepacked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qsc.data_ptr(),
         ksc.data_ptr(), qn.data_ptr(), kn.data_ptr(), out.data_ptr(),
-        bh, s_pad, s_valid, hper, block, s_pad // block,
+        bh, s_pad, s_valid, hper, block, s_pad // block, int(q.dtype == torch.int8),
         _build.stream_ptr(q.device))
     _build.check(rc, "aether_flash_prepacked")
     flash_attention_prepacked.launches += 1

@@ -54,6 +54,24 @@ Phases of the long-video slice, between 4 and 5 and after 6:
      together; ``blend_and_merge_window_results`` on the card; PLY and GLB
      export (the demo's ``save_geometry``) parsed back; exact K1/K2/K5 launch
      counts, seconds and peak memory.
+Phases of the tuning-variant slice:
+ 13. K7 (``flash_v2``: 1024x1024 with K rows and K^T, and with every block
+     masked), K8 (``flash_mh``, hper 4) and K9 (``flash_x`` in its four modes
+     at 1024x1024, and padfix at 1024x256, whose 284 pad columns span two kv
+     blocks) against their plain versions at (1, 48, 15076, 64) bf16: max abs
+     1e-2 and mean 1e-3 (K2's and K4's bf16 gates), exact launch counts,
+     times; then the three bench entry points
+     (``aether_tpu_torch.bench.flash_variants``, ``.flash_multihead``,
+     ``.flash_bisect``) once each at that shape: every printed line parses,
+     ``FAILED`` only at ``v2 2048x1024`` (a pad of 1308 >= block_k), every
+     maxdiff against the K4 baseline within 1e-2, and each kernel's launches
+     equal to its configurations times its calls per configuration;
+ 14. beside phases 3 and 4, the float (``AETHER_ATTN_QK8=0``) K1 and K2 at
+     the main-path shape: K1's bf16 q and k within one bf16 ulp on at most
+     1e-4 of the elements, v bit-exact, the stats within 1e-5; K2 max abs
+     1e-2 and mean 1e-3; after phase 6, one 41x480x720 reconstruction
+     request at ``AETHER_ATTN_QK8=0``: shapes, finite values, the RGB range,
+     168 launches of each of K1 and K2, stage times and peak memory.
 The line before the last is a JSON object with each kernel's launches on its
 path, error against its plain version, times, the bound (the least time the
 card could take: the larger of bytes over 3.35 TB/s and operations over the
@@ -666,6 +684,186 @@ def cfg_phases(cfg, dev):
     return k3_launches, k6_launches
 
 
+def bf16_ulps(a, b):
+    """|a - b| in bf16 ulps of the larger magnitude, 2**(floor(log2 x) - 7);
+    0 where the two are equal."""
+    a, b = a.float(), b.float()
+    top = torch.maximum(a.abs(), b.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return torch.where(a == b, torch.zeros_like(a), (a - b).abs() / ulp)
+
+
+def float_k1_k2_phase(k1_args, kw):
+    """The float (QK8=0) K1 and K2 against their plain versions at the
+    main-path shape. Gates: K1's bf16 q and k within one bf16 ulp on at most
+    1e-4 of the elements, v bit-exact, the stats within rtol 1e-5; K2 max
+    abs 1e-2, mean 1e-3. Returns {name: (max abs error, kernel ms, plain
+    ms)} for "K1 float" and "K2 float"."""
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue, qkv_prologue_plain
+    from aether_tpu_torch.ops.flash_attention import (
+        flash_attention_prepacked,
+        flash_attention_prepacked_plain,
+    )
+
+    def k1():
+        return qkv_prologue(*k1_args, quantize=False, **kw)
+
+    def k1_plain():
+        return qkv_prologue_plain(*k1_args, quantize=False, **kw)
+
+    got, ref = k1(), k1_plain()
+    torch.cuda.synchronize()
+    check(got[7] == ref[7], f"float K1 s_pad {got[7]} / {ref[7]}")
+    k1_err = 0.0
+    for name, a, b in (("q", got[0], ref[0]), ("k", got[1], ref[1])):
+        check(a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape,
+              f"float K1 {name} {a.dtype} {a.shape}")
+        ulps = bf16_ulps(a, b)
+        frac = (ulps > 0).float().mean().item()
+        k1_err = max(k1_err, (a.float() - b.float()).abs().max().item())
+        log(f"K1 float {name}: max {ulps.max().item():.3f} bf16 ulps, differing "
+            f"fraction {frac:.3e} (gates 1 ulp, 1e-4)")
+        check(ulps.max().item() <= 1 and frac <= 1e-4, f"float K1 {name} disagrees")
+    check(torch.equal(got[2], ref[2]), "float K1 v is not bit-exact")
+    for name, a, b in zip(("qsc", "qn", "ksc", "kn"), got[3:7], ref[3:7]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=f"float K1 {name}")
+    results = {"K1 float": (k1_err, cuda_time_ms(k1, 20), cuda_time_ms(k1_plain, 3))}
+    log(f"K1 float time: kernel {results['K1 float'][1]:.4f} ms, plain "
+        f"{results['K1 float'][2]:.4f} ms")
+
+    q, k, v, qsc, qn, ksc, kn, _ = got
+    kw2 = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=SEQ)
+    out = flash_attention_prepacked(q, k, v, **kw2)
+    out_ref = flash_attention_prepacked_plain(q, k, v, **kw2)
+    torch.cuda.synchronize()
+    err = compare("K2 float (bf16 QK^T)", out, out_ref, 1e-2, 1e-3)
+    flops = 4.0 * HEADS * q.shape[1] * q.shape[1] * HEAD_DIM
+    results["K2 float"] = (err, *time_pair(
+        "K2 float", lambda: flash_attention_prepacked(q, k, v, **kw2),
+        lambda: flash_attention_prepacked_plain(q, k, v, **kw2), flops))
+    del got, ref, out, out_ref, q, k, v
+    torch.cuda.empty_cache()
+    return results
+
+
+def float_request_phase(pipe, video, dev):
+    """One reconstruction request at ``AETHER_ATTN_QK8=0`` (the float K1 and
+    K2). Returns (K1 launches, K2 launches) of the request."""
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked
+
+    saved = os.environ.get("AETHER_ATTN_QK8")
+    os.environ["AETHER_ATTN_QK8"] = "0"
+    try:
+        qkv_prologue.launches = flash_attention_prepacked.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = pipe(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
+                   num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (qkv_prologue.launches, flash_attention_prepacked.launches)
+    finally:
+        if saved is None:
+            os.environ.pop("AETHER_ATTN_QK8", None)
+        else:
+            os.environ["AETHER_ATTN_QK8"] = saved
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+    log(f"request at AETHER_ATTN_QK8=0: {wall:.3f} s ({stages}); K1 launches {counts[0]}, "
+        f"K2 launches {counts[1]}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    n = pipe.config.dit.num_layers * STEPS
+    check(counts == (n, n), f"expected {n} launches of each of K1 and K2 at QK8=0")
+    check_request(res, FRAMES, "request at AETHER_ATTN_QK8=0")
+    return counts
+
+
+def variants_phase(dev, gen):
+    """K7, K8 and K9 against their plain versions at (1, 48, 15076, 64)
+    bf16, one launch a call. Gates: max abs 1e-2, mean 1e-3. Returns
+    {kernel: (max abs error over its cases, kernel ms, plain ms)}, the times
+    those of the wrapper's defaults at 1024x1024 (K8 at hper 4)."""
+    from aether_tpu_torch.ops.flash_variants import (
+        flash_mh,
+        flash_mh_plain,
+        flash_v2,
+        flash_v2_plain,
+        flash_x,
+        flash_x_plain,
+    )
+
+    shape = (1, HEADS, SEQ, HEAD_DIM)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    blocks = dict(block_q=1024, block_k=1024)
+    cases = [("K7", flash_v2, flash_v2_plain, blocks),
+             ("K7", flash_v2, flash_v2_plain, dict(blocks, kt=True)),
+             ("K7", flash_v2, flash_v2_plain, dict(blocks, mask_last_only=False)),
+             ("K8", flash_mh, flash_mh_plain, dict(blocks, hper=4))]
+    cases += [("K9", flash_x, flash_x_plain, dict(blocks, mode=m))
+              for m in ("fold", "fold2", "padfix", "padfix_exp")]
+    cases.append(("K9", flash_x, flash_x_plain, dict(block_q=1024, block_k=256,
+                                                     mode="padfix")))
+    flops = 4.0 * HEADS * SEQ * SEQ * HEAD_DIM
+    results = {}
+    for kname, fn, plain, kw in cases:
+        name = f"{kname} {fn.__name__}({', '.join(f'{a}={b}' for a, b in kw.items())})"
+        before = fn.launches
+        out, ref = fn(q, k, v, **kw), plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(fn.launches == before + 1, f"{name}: {fn.launches - before} launches, not 1")
+        err = compare(name, out, ref, 1e-2, 1e-3)
+        ms, plain_ms = time_pair(name, lambda: fn(q, k, v, **kw),
+                                 lambda: plain(q, k, v, **kw), flops)
+        if kname in results:
+            results[kname] = (max(results[kname][0], err), *results[kname][1:])
+        else:
+            results[kname] = (err, ms, plain_ms)
+        del out, ref
+    del q, k, v
+    torch.cuda.empty_cache()
+    return results
+
+
+def bench_phase():
+    """The three bench entry points once each at full shape. Returns the
+    launches of K7, K8 and K9 in their runs."""
+    from aether_tpu_torch.bench import flash_bisect, flash_multihead, flash_variants
+    from aether_tpu_torch.bench._harness import LINE
+    from aether_tpu_torch.ops.flash_variants import flash_mh, flash_v2, flash_x
+
+    iters = 5
+    launches = {}
+    # (kernel, module, wrapper, configuration-line prefix, calls a configuration,
+    #  lines that must fail)
+    runs = (("K7", flash_variants, flash_v2, "v2 ", 2 + iters, {"v2 2048x1024 kt=0"}),
+            ("K8", flash_multihead, flash_mh, "mh ", 1 + iters, set()),
+            ("K9", flash_bisect, flash_x, "", 1 + iters, set()))
+    for kname, module, fn, prefix, calls, must_fail in runs:
+        fn.launches = 0
+        t0 = time.perf_counter()
+        lines = module.main(["--iters", str(iters)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[kname] = fn.launches
+        parsed = [LINE.match(line) for line in lines]
+        check(all(parsed), f"{module.__name__}: unparsed lines "
+              f"{[ln for ln, m in zip(lines, parsed) if not m]}")
+        failed = {m["name"] for m in parsed if m["exc"]}
+        check(failed == must_fail, f"{module.__name__}: FAILED {failed}, expected {must_fail}")
+        configs = [m for m in parsed[1:] if m["name"].startswith(prefix) and not m["exc"]
+                   and "library" not in m["name"]]
+        check(launches[kname] == len(configs) * calls,
+              f"{module.__name__}: {launches[kname]} launches, expected "
+              f"{len(configs)} x {calls}")
+        worst = max(float(m["err"]) for m in parsed if m["err"] is not None)
+        check(worst <= 1e-2, f"{module.__name__}: maxdiff {worst} against the K4 baseline")
+        log(f"bench {module.__name__}: {len(lines)} lines parsed, {len(configs)} "
+            f"configurations, {kname} launches {launches[kname]}, worst maxdiff "
+            f"{worst:.4f}, {wall:.3f} s")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -771,7 +969,12 @@ def main() -> None:
     flops = 4.0 * HEADS * s_pad * s_pad * HEAD_DIM
     log(f"K2 time: kernel {k2_ms:.4f} ms ({flops / k2_ms / 1e9:.1f} TFLOP/s "
         f"padded-shape work), plain {k2_plain_ms:.4f} ms")
-    del y, xq, xk, xv, got, ref, out, out_ref, err, q8, k8, v
+    del got, ref, out, out_ref, err, q8, k8, v
+    torch.cuda.empty_cache()
+
+    # ---- 14. the float (AETHER_ATTN_QK8=0) K1 and K2 at the main-path shape ----
+    floats = float_k1_k2_phase((xq, xk, xv, *norms, rc, rs), kw)
+    del y, xq, xk, xv
     torch.cuda.empty_cache()
 
     # ---- 4b. K5 at the decode and latent stages ----
@@ -822,6 +1025,9 @@ def main() -> None:
     k2_launches = flash_attention_prepacked.launches
     del res, outs
 
+    # ---- 14. one request through the float K1 and K2 ----
+    k1f_launches, k2f_launches = float_request_phase(pipe, video, dev)
+
     # ---- 6b. geometry on the card ----
     geometry_phase(dev)
 
@@ -846,6 +1052,10 @@ def main() -> None:
     # ---- 11, 12. prediction through K3, planning through K6 ----
     k3_launches, k6_launches = cfg_phases(cfg, dev)
 
+    # ---- 13. K7-K9, then their bench entry points ----
+    variants = variants_phase(dev, gen)
+    bench_launches = bench_phase()
+
     # ---- bounds and library yardsticks ----
     k4_err, k4_ms, k4_plain_ms = k4[torch.float32]
     k3_err, k3_ms, k3_plain_ms = fixed["K3 int8 QK^T"]
@@ -863,13 +1073,19 @@ def main() -> None:
     k4_bound = bound(4 * 4 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("f32", "f32")))
     k4_bf16_bound = bound(4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("bf16", "bf16")))
     k6_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(2, SEQ, ("int8", "int8")))
+    # the float K1 writes bf16 q/k; the float K2 reads them
+    k1f_bound = bound(s_pad * 3 * d * 2 + 3 * 2 * half, {"f32": 30.0 * 2 * SEQ * d})
+    k2f_bound = bound(4 * 2 * half, attention_ops(1, SEQ, ("bf16", "bf16")))
+    # K7-K9: bf16 q, k, v read and out written once; bf16 QK^T and PV
+    var_bound = bound(4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("bf16", "bf16")))
     lib = {"K2": sdpa_ms(dev, gen, 1, torch.bfloat16),
            "K4": sdpa_ms(dev, gen, 1, torch.float32),
            "K4 bf16": sdpa_ms(dev, gen, 1, torch.bfloat16),
            "K3/K6": sdpa_ms(dev, gen, 2, torch.bfloat16)}
     log(f"bounds (ms, by): K1 {k1_bound}, K2 {k2_bound}, K3 {k3_bound}, K3 bf16 QK^T "
         f"{k3_bf16_bound}, K4 f32 {k4_bound}, "
-        f"K4 bf16 {k4_bf16_bound}, K5 {(k5_bound, k5_by)}, K6 {k6_bound}")
+        f"K4 bf16 {k4_bf16_bound}, K5 {(k5_bound, k5_by)}, K6 {k6_bound}, K1 float "
+        f"{k1f_bound}, K2 float {k2f_bound}, K7-K9 {var_bound}")
     log("scaled_dot_product_attention (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in lib.items())
         + "; K4 bf16 kernel {:.4f} ms".format(k4[torch.bfloat16][1]))
@@ -895,6 +1111,17 @@ def main() -> None:
               k6_launches, k6_err, k6_ms, k6_plain_ms, k6_bound, lib["K3/K6"]),
         entry("groupnorm_moments", "groupnorm_moments.cu", "aether_tpu/ops/groupnorm.py:30",
               k5_launches, k5_err, k5_ms, k5_plain_ms, (k5_bound, k5_by), None),
+        entry("attn_prologue_float", "attn_prologue.cu", "aether_tpu/ops/attn_prologue.py:150",
+              k1f_launches, *floats["K1 float"], k1f_bound, None),
+        entry("flash_prepacked_float", "flash_prepacked.cu",
+              "aether_tpu/ops/flash_attention.py:845", k2f_launches, *floats["K2 float"],
+              k2f_bound, lib["K2"]),
+        entry("flash_v2", "flash_variants.cu", "scripts/bench_flash_variants.py:48",
+              bench_launches["K7"], *variants["K7"], var_bound, lib["K4 bf16"]),
+        entry("flash_mh", "flash_variants.cu", "scripts/bench_flash_multihead.py:44",
+              bench_launches["K8"], *variants["K8"], var_bound, lib["K4 bf16"]),
+        entry("flash_x", "flash_variants.cu", "scripts/bench_flash_bisect.py:54",
+              bench_launches["K9"], *variants["K9"], var_bound, lib["K4 bf16"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 Marked ``cuda``; each test skips where no CUDA device is present (a CPU-only
 machine). ``chip_smoke.py`` checks the kernels at the main-path shapes; these
-cases cover the edges it does not reach. K1/K2: batch > 1, head groups that
-straddle two batch elements, several token tiles with a ragged ``s_valid``,
-no RoPE, RoPE tables shorter than the sequence. K4: batch 2, sequences that
+cases cover the edges it does not reach. K1/K2, int8 and float
+(``AETHER_ATTN_QK8=0``): batch > 1, head groups that straddle two batch
+elements, several token tiles with a ragged ``s_valid``, no RoPE, RoPE tables
+shorter than the sequence. K4: batch 2, sequences that
 are not a multiple of the 64-row tile, ``kv_valid``, q and kv of different
 lengths, extreme negative scores with padding, both denominators, f32 and
 bf16, and ``flash_attention_trainable``'s gradients. K3 and K6: lengths that
@@ -13,7 +14,10 @@ with a score bound, B*H odd (head groups of 3 or 1), int8 and bf16 QK^T, K6
 over several kv spans and with a negative row max behind padding. K5: T*H*W
 not a multiple of the vector, unaligned rows, B 1 and 2, C from 12 to 512,
 f32/bf16/f16, NCTHW and channels-last, a large-mean group, bit-identical
-repeats, and the VAE's ``group_norm`` through it. Also the
+repeats, and the VAE's ``group_norm`` through it. K7-K9: both K layouts, the
+last-block and every-block masks, hper 2 to 8 with lcm padding, the four
+``flash_x`` modes, padding across several kv blocks, lengths the 64-row tile
+does not divide, deeply negative scores with padfix. Also the
 launch-or-raise contract. The card's machine has no JAX, so run them without
 the JAX conftest:
 
@@ -28,6 +32,7 @@ from aether_tpu_torch.ops.attn_prologue import (
     qkv_prologue,
     qkv_prologue_plain,
 )
+from aether_tpu_torch.ops import flash_variants as fv
 from aether_tpu_torch.ops.chunked_attention import flash_attention_trainable
 from aether_tpu_torch.ops.flash_attention import (
     attention_reference,
@@ -112,16 +117,71 @@ def test_flash_kernel_matches_plain(dev, b, s, nh, s_valid, rope_rows):
     assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
 
 
+def _bf16_ulps(a, b):
+    """|a - b| in bf16 ulps of the larger magnitude, 2**(floor(log2 x) - 7);
+    0 where the two are equal."""
+    a, b = a.float(), b.float()
+    top = torch.maximum(a.abs(), b.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return torch.where(a == b, torch.zeros_like(a), (a - b).abs() / ulp)
+
+
+@pytest.mark.parametrize("b,s,nh,s_valid,rope_rows", CASES)
+def test_prologue_float_kernel_matches_plain(dev, b, s, nh, s_valid, rope_rows):
+    """quantize=False: bf16 q (z * fold) and k (z) within one bf16 ulp on at
+    most 1e-4 of the elements (the moments are taken in double on both
+    sides), v bit-exact, the stats to 1e-5."""
+    xs, norms, rope = _inputs(dev, b, s, nh, rope_rows, seed=2)
+    kw = dict(num_heads=nh, head_dim=HD, eps=1e-6, s_valid=s_valid, quantize=False)
+    before = qkv_prologue.launches
+    got = qkv_prologue(*xs, *norms, *rope, **kw)
+    ref = qkv_prologue_plain(*xs, *norms, *rope, **kw)
+    torch.cuda.synchronize()
+    assert qkv_prologue.launches == before + 1
+    assert got[7] == ref[7]
+    for a, r in zip(got[:2], ref[:2]):
+        assert a.dtype == r.dtype == torch.bfloat16 and a.shape == r.shape
+        ulps = _bf16_ulps(a, r)
+        assert ulps.max().item() <= 1
+        assert (ulps > 0).float().mean().item() <= 1e-4
+    assert torch.equal(got[2], ref[2])
+    for a, r in zip(got[3:7], ref[3:7]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("b,s,nh,s_valid,rope_rows", CASES)
+def test_flash_float_kernel_matches_plain(dev, b, s, nh, s_valid, rope_rows):
+    """K2 on K1's float (bf16) operands: bf16 QK^T, max 1e-2, mean 1e-3."""
+    xs, norms, rope = _inputs(dev, b, s, nh, rope_rows, seed=3)
+    q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue(
+        *xs, *norms, *rope, num_heads=nh, head_dim=HD, eps=1e-6, s_valid=s_valid,
+        quantize=False)
+    assert q.dtype == k.dtype == torch.bfloat16
+    kw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=s_valid or s)
+    before = flash_attention_prepacked.launches
+    out = flash_attention_prepacked(q, k, v, **kw)
+    ref = flash_attention_prepacked_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_prepacked.launches == before + 1
+    err = (out.float() - ref.float()).abs()
+    assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
 def test_fused_attention_counts_and_refuses_float_mode(dev):
+    """Both branches launch K1 and K2 once each; the float branch
+    (quantize=False) runs on the card now, and K2 refuses q/k of any dtype
+    but int8 or bf16."""
     xs, norms, rope = _inputs(dev, 1, 300, 4, 300)
     kw = dict(num_heads=4, head_dim=HD, eps=1e-6)
-    before = (qkv_prologue.launches, flash_attention_prepacked.launches)
-    out = fused_joint_attention(*xs, *norms, *rope, **kw)
-    assert out.shape == (1, 300, 4 * HD) and out.dtype == torch.bfloat16
-    assert (qkv_prologue.launches - before[0],
-            flash_attention_prepacked.launches - before[1]) == (1, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_joint_attention(*xs, *norms, *rope, quantize=False, **kw)
+    for quantize in (True, False):
+        before = (qkv_prologue.launches, flash_attention_prepacked.launches)
+        out = fused_joint_attention(*xs, *norms, *rope, quantize=quantize, **kw)
+        assert out.shape == (1, 300, 4 * HD) and out.dtype == torch.bfloat16
+        assert (qkv_prologue.launches - before[0],
+                flash_attention_prepacked.launches - before[1]) == (1, 1)
+    q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue(*xs, *norms, *rope, quantize=False, **kw)
+    with pytest.raises(TypeError, match="K2"):
+        flash_attention_prepacked(q.half(), k.half(), v, qsc=qsc, ksc=ksc, qn=qn, kn=kn)
 
 
 # K4 gates, as in chip_smoke.py: f32 max abs 1e-4; bf16 max 1e-2, mean 1e-3
@@ -379,3 +439,68 @@ def test_group_norm_on_cuda_launches_k5(dev):
     ref = group_norm(x.cpu(), scale.cpu(), bias.cpu(), 32, 1e-6)
     assert groupnorm_moments.launches == before + 1
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+# ---- K7-K9: the flash-attention tuning variants ----
+
+# (wrapper, (B, H, S), keyword arguments)
+VARIANT_CASES = [
+    ("flash_v2", (1, 3, 300), dict(block_q=128, block_k=128)),
+    ("flash_v2", (1, 3, 300), dict(block_q=128, block_k=128, kt=True)),
+    ("flash_v2", (1, 3, 300), dict(block_q=128, block_k=128, mask_last_only=False)),
+    ("flash_v2", (2, 2, 1000), dict(block_q=256, block_k=512, kt=True)),
+    ("flash_v2", (1, 2, 250), dict(block_q=100, block_k=100)),  # seq_pad 300: not a 64 multiple
+    ("flash_v2", (1, 2, 700), dict(block_q=256, block_k=128, mask_last_only=False)),
+    ("flash_mh", (1, 8, 300), dict(block_q=128, block_k=192, hper=4)),  # lcm 384
+    ("flash_mh", (1, 4, 300), dict(block_q=256, block_k=128, hper=2)),
+    ("flash_mh", (1, 8, 2000), dict(block_q=1024, block_k=1024, hper=8)),
+    ("flash_x", (1, 2, 300), dict(block_q=256, block_k=128, mode="fold")),
+    ("flash_x", (1, 2, 300), dict(block_q=256, block_k=128, mode="fold2")),
+    ("flash_x", (1, 2, 300), dict(block_q=256, block_k=128, mode="padfix")),
+    ("flash_x", (1, 2, 300), dict(block_q=256, block_k=128, mode="padfix_exp")),
+    ("flash_x", (1, 2, 2000), dict(block_q=1024, block_k=256, mode="padfix")),  # pad over 2 blocks
+    ("flash_x", (1, 2, 250), dict(block_q=100, block_k=100, mode="padfix")),  # and the tile's pad
+]
+
+
+@pytest.mark.parametrize("name,shape,kw", VARIANT_CASES)
+def test_flash_variants_kernel_matches_plain(dev, name, shape, kw):
+    fn, plain = getattr(fv, name), getattr(fv, f"{name}_plain")
+    b, h, s = shape
+    q, k, v = _qkv(dev, (b, h, s, HD), (b, h, s, HD), torch.bfloat16, seed=s + h)
+    before = fn.launches
+    out = fn(q, k, v, **kw)
+    ref = plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _check_fixed(out, ref)
+
+
+@pytest.mark.parametrize("mode", ["fold", "fold2", "padfix", "padfix_exp"])
+def test_flash_variants_kernel_deeply_negative_scores(dev, mode):
+    """Every real score far below 0: the masking modes give the mean of v;
+    padfix cancels l to 0 and gives 0, as its plain version does."""
+    shape = (1, 2, 300, HD)
+    q = torch.full(shape, 5.0, device=dev, dtype=torch.bfloat16)
+    k = torch.full(shape, -5.0, device=dev, dtype=torch.bfloat16)
+    v = _qkv(dev, shape, shape, torch.bfloat16, seed=3)[2]
+    kw = dict(block_q=256, block_k=128, mode=mode)
+    out = fv.flash_x(q, k, v, **kw)
+    _check_fixed(out, fv.flash_x_plain(q, k, v, **kw))
+    if mode.startswith("padfix"):
+        assert not out.any()
+
+
+def test_flash_variants_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(dev, (1, 3, 300, HD), (1, 3, 300, HD), torch.bfloat16, seed=0)
+    for fn in (fv.flash_v2, fv.flash_mh, fv.flash_x):
+        kw = dict(hper=1) if fn is fv.flash_mh else {}
+        with pytest.raises(TypeError, match="K7-K9"):
+            fn(q.float(), k.float(), v.float(), block_q=128, block_k=128, **kw)
+        wide = torch.zeros((1, 2, 300, 128), device=dev, dtype=torch.bfloat16)
+        with pytest.raises(NotImplementedError, match="head_dim"):
+            fn(wide, wide, wide, block_q=128, block_k=128, **kw)
+    with pytest.raises(ValueError, match="divisible by hper"):
+        fv.flash_mh(q, k, v, hper=2)
+    with pytest.raises(ValueError, match="mask_last_only"):
+        fv.flash_v2(q, k, v, block_q=256, block_k=128)

@@ -24,7 +24,11 @@ for name in ("aether_tpu_torch.train.step", "aether_tpu_torch.train.trainer",
              "aether_tpu_torch.geometry.alignment", "aether_tpu_torch.geometry.smoothing",
              "aether_tpu_torch.pipeline.windowing", "aether_tpu_torch.viz.glb",
              "aether_tpu_torch.viz.ply", "aether_tpu_torch.viz.video",
-             "aether_tpu_torch.viz.colorize", "aether_tpu_torch.apps.demo"):
+             "aether_tpu_torch.viz.colorize", "aether_tpu_torch.apps.demo",
+             "aether_tpu_torch.ops.flash_variants", "aether_tpu_torch.bench._harness",
+             "aether_tpu_torch.bench.flash_variants",
+             "aether_tpu_torch.bench.flash_multihead",
+             "aether_tpu_torch.bench.flash_bisect"):
     assert name in names, name
 from aether_tpu_torch.ops.groupnorm import groupnorm_moments
 assert groupnorm_moments.launches == 0
@@ -32,6 +36,8 @@ from aether_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_fixed_max, flash_attention_pv8)
 assert flash_attention.launches == 0
 assert flash_attention_fixed_max.launches == flash_attention_pv8.launches == 0
+from aether_tpu_torch.ops.flash_variants import flash_mh, flash_v2, flash_x
+assert flash_v2.launches == flash_mh.launches == flash_x.launches == 0
 from aether_tpu_torch.ops import _build
 assert _build._LIB is None, "a kernel library was loaded at import time"
 assert not any(m.startswith("aether_tpu.") or m == "aether_tpu"
@@ -44,7 +50,7 @@ def test_package_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 37
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 43
 
 
 def test_no_source_file_imports_jax():
@@ -64,12 +70,14 @@ def test_no_source_file_imports_jax():
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in (_PKG / "csrc").glob("*.cu"))
     assert names == ["attn_prologue.cu", "flash_fixed_max.cu", "flash_online.cu",
-                     "flash_prepacked.cu", "flash_pv8.cu", "groupnorm_moments.cu"]
+                     "flash_prepacked.cu", "flash_pv8.cu", "flash_variants.cu",
+                     "groupnorm_moments.cu"]
     from aether_tpu_torch.ops import _build
 
     assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_flash_prepacked",
                                       "aether_flash_online", "aether_flash_fixed_max",
-                                      "aether_flash_pv8", "aether_groupnorm_moments"}
+                                      "aether_flash_pv8", "aether_flash_variants",
+                                      "aether_groupnorm_moments"}
     for name in _build.SIGNATURES:
         src = "".join(p.read_text() for p in (_PKG / "csrc").glob("*.cu"))
         assert f'extern "C" int {name}(' in src

@@ -126,6 +126,83 @@ def test_fused_joint_attention_matches_pallas(data, quantize, atol, rope):
     np.testing.assert_allclose(out, ref, atol=atol)
 
 
+def _bf16_pair(data, rope: bool):
+    """``_both``'s inputs with the projections in bf16 on both sides (the
+    DiT's working type); the norm parameters and RoPE tables stay f32."""
+    j, t, _ = _both(data, rope, None)
+    return ([a.astype(jnp.bfloat16) for a in j[:3]] + j[3:],
+            [a.to(torch.bfloat16) for a in t[:3]] + t[3:])
+
+
+def _to_torch(x):
+    """A JAX array (bf16 included) as a torch tensor of the same dtype."""
+    a = np.asarray(x)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _assert_bf16_ulp(out, ref, ulps=1):
+    """Within ``ulps`` bf16 ulps of the output scale, 2**(floor(log2 max|ref|) - 7)."""
+    out = out.float().numpy()
+    ref = np.asarray(ref, np.float32)
+    assert out.shape == ref.shape
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)
+    np.testing.assert_allclose(out, ref, atol=ulps * ulp, rtol=0)
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("s_valid", [None, 250])
+def test_prologue_plain_float_bf16_matches_pallas(data, rope, s_valid):
+    """The float (QK8=0) branch on bf16 projections: bf16 q (z * fold) and k
+    within one bf16 ulp of the tensor's scale of the Pallas kernel's, the
+    stats to 1e-5, v bit-exact."""
+    jb, tb = _bf16_pair(data, rope)
+    kw = _both(data, rope, s_valid)[2]
+    ref = jax_qkv_prologue(*jb, quantize=False, interpret=True, **kw)
+    got = qkv_prologue_plain(*tb, quantize=False, **kw)
+    assert got[7] == ref[7]
+    for a, b in zip(got[:2], ref[:2]):
+        assert a.dtype == torch.bfloat16
+        _assert_bf16_ulp(a, np.asarray(b, np.float32))
+    assert torch.equal(got[2], _to_torch(ref[2])[..., :HD])
+    for a, b in zip(got[3:7], ref[3:7]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
+    wrapped = qkv_prologue(*tb, quantize=False, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(wrapped[:7], got[:7]))
+
+
+def test_flash_prepacked_plain_float_bf16_matches_pallas(data):
+    """The float K2 on the JAX prologue's bf16 operands, bf16 out: within
+    one bf16 ulp of the output scale."""
+    jb, _ = _bf16_pair(data, True)
+    kw = _both(data, True, 250)[2]
+    jq, jk, jv, jqsc, jqn, jksc, jkn, _ = jax_qkv_prologue(
+        *jb, quantize=False, interpret=True, **kw)
+    ref = jax_flash_prepacked(jq, jk, jv, qsc=jqsc, ksc=jksc, qn=jqn, kn=jkn,
+                              dim=HD, out_dtype=jnp.bfloat16, interpret=True)
+    q, k = _to_torch(jq), _to_torch(jk)
+    v = _to_torch(jv)[..., :HD].contiguous()
+    stats = dict(qsc=_to_torch(jqsc), ksc=_to_torch(jksc), qn=_to_torch(jqn),
+                 kn=_to_torch(jkn), s_valid=250)
+    out = flash_attention_prepacked_plain(q, k, v, **stats)
+    assert out.dtype == torch.bfloat16
+    _assert_bf16_ulp(out, np.asarray(ref, np.float32))
+    assert torch.equal(flash_attention_prepacked(q, k, v, **stats), out)
+
+
+def test_fused_joint_attention_float_bf16_matches_pallas(data):
+    """K1 + K2 float on bf16 projections end to end: within two bf16 ulps of
+    the output scale (q/k may round one ulp apart before the scores)."""
+    jb, tb = _bf16_pair(data, True)
+    kw = _both(data, True, None)[2]
+    ref = np.asarray(jax_fused_joint_attention(*jb, quantize=False, interpret=True,
+                                               **kw).astype(jnp.float32))
+    out = fused_joint_attention(*tb, quantize=False, **kw)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, S, NH * HD)
+    _assert_bf16_ulp(out, ref, ulps=2)
+
+
 def test_fused_joint_attention_prepadded_s_valid(data):
     """The DiT pre-pads the joint stream; s_valid must mask the pad rows."""
     j, t, kw = _both(data, True, None)
@@ -147,9 +224,9 @@ def test_pickers_match_jax():
 def test_unported_settings_raise_on_cuda_only_paths(data):
     """The AETHER_ATTN_* settings resolve as the JAX dit_forward resolves
     them: FUSED=0 and PV8=1 route the DiT to the unfused path (K3, K6), PV8
-    implies unfused, and FIXED_MAX=0 switches QK8, PV8 and FUSED off. Only
-    the float (QK8=0) variant of the fused K1/K2 is still CPU-only; its CUDA
-    wrappers raise (tests/test_torch_cuda.py)."""
+    implies unfused, and FIXED_MAX=0 switches QK8, PV8 and FUSED off. QK8=0
+    keeps the fused path and takes the float branches of K1/K2, which run on
+    CUDA too (tests/test_torch_cuda.py)."""
     from aether_tpu_torch.models.dit import resolve_attention
 
     with pytest.MonkeyPatch.context() as mp:
