@@ -16,9 +16,10 @@ FULL_HEADS, FULL_SEQ = 48, 15076
 # --device cpu: the plain PyTorch versions at a small shape
 CPU_HEADS, CPU_SEQ = 4, 300
 HEAD_DIM = 64
+SEED = 0
 
 # "<name>: <ms> ms[  maxdiff=<err>]" or "<name>: FAILED <Exception>: <message>"
-LINE = re.compile(r"^(?P<name>[^:]+): +(?:(?P<ms>[0-9.]+) ms(?:  maxdiff=(?P<err>[0-9.]+))?"
+LINE = re.compile(r"^(?P<name>[^:]+): +(?:(?P<ms>[0-9.]+) ms(?:  maxdiff=(?P<err>[0-9.e+-]+))?"
                   r"|FAILED (?P<exc>\w+): (?P<msg>.*))$")
 
 
@@ -26,31 +27,24 @@ def parse_args(argv: Optional[List[str]], description: str) -> argparse.Namespac
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without one) or cpu (plain versions)")
-    p.add_argument("--heads", type=int, default=None,
-                   help=f"heads (default {FULL_HEADS} on cuda, {CPU_HEADS} on cpu)")
-    p.add_argument("--seq", type=int, default=None,
-                   help=f"tokens (default {FULL_SEQ} on cuda, {CPU_SEQ} on cpu)")
     p.add_argument("--iters", type=int, default=5, help="timed calls per configuration")
-    p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     args.device = torch.device(args.device)
     if args.device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the benchmark times the Hopper kernels; "
                            "pass --device cpu to run the plain versions")
-    on_cpu = args.device.type == "cpu"
-    if args.heads is None:
-        args.heads = CPU_HEADS if on_cpu else FULL_HEADS
-    if args.seq is None:
-        args.seq = CPU_SEQ if on_cpu else FULL_SEQ
     return args
 
 
-def make_qkv(args) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Seeded (1, heads, seq, 64) bf16 q, k and v on the device."""
-    gen = torch.Generator(device=args.device)
-    gen.manual_seed(args.seed)
-    shape = (1, args.heads, args.seq, HEAD_DIM)
-    return tuple(torch.randn(shape, generator=gen, device=args.device).to(torch.bfloat16)
+def make_qkv(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Seeded bf16 q, k and v on ``device``: (1, 48, 15076, 64) on cuda,
+    (1, 4, 300, 64) on the cpu."""
+    device = torch.device(device)
+    on_cpu = device.type == "cpu"
+    shape = (1, CPU_HEADS if on_cpu else FULL_HEADS, CPU_SEQ if on_cpu else FULL_SEQ, HEAD_DIM)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    return tuple(torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
                  for _ in range(3))
 
 
@@ -92,7 +86,7 @@ class Lines:
         self.lines.append(line)
 
     def timed(self, name: str, ms: float, err: Optional[float] = None) -> None:
-        tail = "" if err is None else f"  maxdiff={err:.4f}"
+        tail = "" if err is None else f"  maxdiff={err:.3e}"
         self.emit(f"{name}: {ms:9.4f} ms{tail}")
 
     def failed(self, name: str, exc: Exception, limit: Optional[int] = None) -> None:

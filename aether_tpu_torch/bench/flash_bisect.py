@@ -16,6 +16,8 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
+import torch
+
 from aether_tpu_torch.bench._harness import Lines, make_qkv, max_diff, parse_args, timeit
 from aether_tpu_torch.ops.flash_attention import flash_attention
 from aether_tpu_torch.ops.flash_variants import FLASH_X_MODES, flash_x
@@ -25,20 +27,25 @@ BLOCKS = [(512, 1024), (1024, 512), (512, 512), (2048, 512), (512, 2048),
           (256, 1024), (1024, 256)]
 
 
+def compared(o: torch.Tensor) -> torch.Tensor:
+    """The part of an output that ``maxdiff`` reads."""
+    return o[0, :2, -256:]
+
+
 def main(argv: Optional[List[str]] = None) -> List[str]:
     """Runs the modes and the sweep; returns the printed lines."""
     args = parse_args(argv, __doc__.splitlines()[0])
-    q, k, v = make_qkv(args)
+    q, k, v = make_qkv(args.device)
     out = Lines()
     ms, ref = timeit(lambda: flash_attention(q, k, v, block_q=1024, block_k=1024),
                      args.device, args.iters)
-    refn = ref[0, :2, -256:].float()
+    refn = compared(ref).float()
     out.timed("base 1024x1024", ms)
 
     def run(name, limit, **kw):
         try:
             ms, o = timeit(lambda: flash_x(q, k, v, **kw), args.device, args.iters)
-            out.timed(name, ms, max_diff(o[0, :2, -256:], refn))
+            out.timed(name, ms, max_diff(compared(o), refn))
         except Exception as e:  # the line records the failure, as the script's does
             out.failed(name, e, limit)
 

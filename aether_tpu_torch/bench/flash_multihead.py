@@ -16,6 +16,8 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
+import torch
+
 from aether_tpu_torch.bench._harness import Lines, make_qkv, max_diff, parse_args, timeit
 from aether_tpu_torch.ops.flash_attention import flash_attention
 from aether_tpu_torch.ops.flash_variants import flash_mh
@@ -25,16 +27,21 @@ SWEEP = [(4, 1024, 1024), (8, 1024, 1024), (12, 1024, 1024), (4, 1280, 1280),
          (4, 768, 1024), (16, 1024, 1024), (4, 1024, 1024)]
 
 
+def compared(o: torch.Tensor) -> torch.Tensor:
+    """The part of an output that ``maxdiff`` reads."""
+    return o[0, :2, -256:]
+
+
 def main(argv: Optional[List[str]] = None) -> List[str]:
     """Runs the sweep; returns the printed lines."""
     args = parse_args(argv, __doc__.splitlines()[0])
-    q, k, v = make_qkv(args)
+    q, k, v = make_qkv(args.device)
     out = Lines()
     ms, ref = timeit(lambda: flash_attention(q, k, v), args.device, args.iters)
-    refn = ref[0, :2, -256:].float()
+    refn = compared(ref).float()
     out.timed("prod kernel (K4)", ms)
     for hper, bq, bk in SWEEP:
-        if args.heads % hper:
+        if q.shape[1] % hper:
             continue
         name = f"mh hper={hper} {bq}x{bk}"
 
@@ -43,7 +50,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
 
         try:
             ms, o = timeit(fn, args.device, args.iters)
-            out.timed(name, ms, max_diff(o[0, :2, -256:], refn))
+            out.timed(name, ms, max_diff(compared(o), refn))
         except Exception as e:  # the line records the failure, as the script's does
             out.failed(name, e, 120)
     return out.lines

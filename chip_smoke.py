@@ -58,18 +58,21 @@ Phases of the tuning-variant slice:
  13. K7 (``flash_v2``: 1024x1024 with K rows and K^T, and with every block
      masked), K8 (``flash_mh``, hper 4) and K9 (``flash_x`` in its four modes
      at 1024x1024, and padfix at 1024x256, whose 284 pad columns span two kv
-     blocks) against their plain versions at (1, 48, 15076, 64) bf16: max abs
-     1e-2 and mean 1e-3 (K2's and K4's bf16 gates), exact launch counts,
-     times; then the three bench entry points
-     (``aether_tpu_torch.bench.flash_variants``, ``.flash_multihead``,
-     ``.flash_bisect``) once each at that shape: every printed line parses,
-     ``FAILED`` only at ``v2 2048x1024`` (a pad of 1308 >= block_k), every
-     maxdiff against the K4 baseline within 1e-2, and each kernel's launches
-     equal to its configurations times its calls per configuration;
+     blocks) against their plain versions at (1, 48, 15076, 64) bf16, at the
+     bf16 gates of ``bf16_gates`` (max abs two ulps of the output's scale,
+     mean abs 2**-9 of its mean magnitude), exact launch counts, times; a
+     padfix without its correction must fall outside those gates; then the
+     three bench entry points (``aether_tpu_torch.bench.flash_variants``,
+     ``.flash_multihead``, ``.flash_bisect``) once each at that shape: every
+     printed line parses, ``FAILED`` only at ``v2 2048x1024`` (a pad of 1308
+     >= block_k), every maxdiff against the K4 baseline within four bf16
+     ulps of the compared output's scale (and padfix 2048x512 without its
+     correction outside it), and each kernel's launches equal to its
+     configurations times its calls per configuration;
  14. beside phases 3 and 4, the float (``AETHER_ATTN_QK8=0``) K1 and K2 at
      the main-path shape: K1's bf16 q and k within one bf16 ulp on at most
-     1e-4 of the elements, v bit-exact, the stats within 1e-5; K2 max abs
-     1e-2 and mean 1e-3; after phase 6, one 41x480x720 reconstruction
+     1e-4 of the elements, v bit-exact, the stats within 1e-5; K2 at the
+     gates of ``bf16_gates``; after phase 6, one 41x480x720 reconstruction
      request at ``AETHER_ATTN_QK8=0``: shapes, finite values, the RGB range,
      168 launches of each of K1 and K2, stage times and peak memory.
 The line before the last is a JSON object with each kernel's launches on its
@@ -138,6 +141,24 @@ def compare(name, out, ref, max_bar, mean_bar):
     check(err_max <= max_bar and err_mean <= mean_bar,
           f"{name} disagrees with its plain version")
     return err_max
+
+
+def bf16_gates(ref):
+    """(max, mean) abs-error gates for a bf16 result against ``ref``: two
+    bf16 ulps of its scale, 2 * 2**(floor(log2 max|ref|) - 7), and 2**-9 of
+    its mean magnitude (a quarter of bf16's relative step of 2**-7)."""
+    ref = ref.float().abs()
+    top = ref.max().clamp_min(torch.finfo(torch.float32).tiny).item()
+    return 2.0 * 2.0 ** (np.floor(np.log2(top)) - 7), ref.mean().item() * 2.0 ** -9
+
+
+def padfix_uncorrected(q, k, v, seq_pad):
+    """What ``flash_x(mode="padfix")`` gives without its correction: attention
+    over k and v zero-padded to ``seq_pad`` rows, unmasked, so that the pad
+    keys score 0 and add their mass to the denominator."""
+    pad = (0, 0, 0, seq_pad - q.shape[2])
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad))
 
 
 def bound(nbytes, ops):
@@ -696,8 +717,8 @@ def bf16_ulps(a, b):
 def float_k1_k2_phase(k1_args, kw):
     """The float (QK8=0) K1 and K2 against their plain versions at the
     main-path shape. Gates: K1's bf16 q and k within one bf16 ulp on at most
-    1e-4 of the elements, v bit-exact, the stats within rtol 1e-5; K2 max
-    abs 1e-2, mean 1e-3. Returns {name: (max abs error, kernel ms, plain
+    1e-4 of the elements, v bit-exact, the stats within rtol 1e-5; K2 at
+    ``bf16_gates``. Returns {name: (max abs error, kernel ms, plain
     ms)} for "K1 float" and "K2 float"."""
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue, qkv_prologue_plain
     from aether_tpu_torch.ops.flash_attention import (
@@ -736,7 +757,7 @@ def float_k1_k2_phase(k1_args, kw):
     out = flash_attention_prepacked(q, k, v, **kw2)
     out_ref = flash_attention_prepacked_plain(q, k, v, **kw2)
     torch.cuda.synchronize()
-    err = compare("K2 float (bf16 QK^T)", out, out_ref, 1e-2, 1e-3)
+    err = compare("K2 float (bf16 QK^T)", out, out_ref, *bf16_gates(out_ref))
     flops = 4.0 * HEADS * q.shape[1] * q.shape[1] * HEAD_DIM
     results["K2 float"] = (err, *time_pair(
         "K2 float", lambda: flash_attention_prepacked(q, k, v, **kw2),
@@ -780,10 +801,12 @@ def float_request_phase(pipe, video, dev):
 
 def variants_phase(dev, gen):
     """K7, K8 and K9 against their plain versions at (1, 48, 15076, 64)
-    bf16, one launch a call. Gates: max abs 1e-2, mean 1e-3. Returns
-    {kernel: (max abs error over its cases, kernel ms, plain ms)}, the times
-    those of the wrapper's defaults at 1024x1024 (K8 at hper 4)."""
+    bf16, one launch a call, at ``bf16_gates``; a padfix without its
+    correction must fail them. Returns {kernel: (max abs error over its
+    cases, kernel ms, plain ms)}, the times those of the wrapper's defaults
+    at 1024x1024 (K8 at hper 4)."""
     from aether_tpu_torch.ops.flash_variants import (
+        _v2_seq_pad,
         flash_mh,
         flash_mh_plain,
         flash_v2,
@@ -812,7 +835,17 @@ def variants_phase(dev, gen):
         out, ref = fn(q, k, v, **kw), plain(q, k, v, **kw)
         torch.cuda.synchronize()
         check(fn.launches == before + 1, f"{name}: {fn.launches - before} launches, not 1")
-        err = compare(name, out, ref, 1e-2, 1e-3)
+        bars = bf16_gates(ref)
+        err = compare(name, out, ref, *bars)
+        if kw.get("mode") == "padfix":
+            # the gates must see a padfix that leaves out its correction
+            bad = (padfix_uncorrected(q, k, v, _v2_seq_pad(SEQ, kw["block_q"], kw["block_k"]))
+                   .float() - ref.float()).abs()
+            log(f"{name} without its correction: max abs err {bad.max().item():.3e}, "
+                f"mean abs err {bad.mean().item():.3e}")
+            check(bad.max().item() > bars[0] or bad.mean().item() > bars[1],
+                  f"{name}: the gates cannot tell a padfix without its correction")
+            del bad
         ms, plain_ms = time_pair(name, lambda: fn(q, k, v, **kw),
                                  lambda: plain(q, k, v, **kw), flops)
         if kname in results:
@@ -826,11 +859,27 @@ def variants_phase(dev, gen):
 
 
 def bench_phase():
-    """The three bench entry points once each at full shape. Returns the
-    launches of K7, K8 and K9 in their runs."""
+    """The three bench entry points once each at full shape; every maxdiff
+    within four bf16 ulps of the scale of the part of the K4 baseline it
+    reads (twice ``bf16_gates``' max: two kernels, each with its own
+    rounding). Returns the launches of K7, K8 and K9 in their runs."""
     from aether_tpu_torch.bench import flash_bisect, flash_multihead, flash_variants
-    from aether_tpu_torch.bench._harness import LINE
-    from aether_tpu_torch.ops.flash_variants import flash_mh, flash_v2, flash_x
+    from aether_tpu_torch.bench._harness import LINE, make_qkv, max_diff
+    from aether_tpu_torch.ops.flash_attention import flash_attention
+    from aether_tpu_torch.ops.flash_variants import _v2_seq_pad, flash_mh, flash_v2, flash_x
+
+    # the benches' own inputs and baseline, for the scale of what maxdiff reads
+    q, k, v = make_qkv(torch.device("cuda", 0))
+    base = flash_attention(q, k, v, block_q=1024, block_k=1024)
+    bars = {m: 2 * bf16_gates(m.compared(base))[0]
+            for m in (flash_variants, flash_multihead, flash_bisect)}
+    # the gate must see padfix at the sweep's largest pad without its correction
+    bad = max_diff(flash_bisect.compared(padfix_uncorrected(q, k, v, _v2_seq_pad(SEQ, 2048, 512))),
+                   flash_bisect.compared(base).float())
+    log(f"padfix 2048x512 without its correction: maxdiff {bad:.3e} against the K4 "
+        f"baseline (gate {bars[flash_bisect]:.3e})")
+    check(bad > bars[flash_bisect], "the bench gate cannot tell a padfix without its correction")
+    del q, k, v, base
 
     iters = 5
     launches = {}
@@ -857,10 +906,11 @@ def bench_phase():
               f"{module.__name__}: {launches[kname]} launches, expected "
               f"{len(configs)} x {calls}")
         worst = max(float(m["err"]) for m in parsed if m["err"] is not None)
-        check(worst <= 1e-2, f"{module.__name__}: maxdiff {worst} against the K4 baseline")
+        check(worst <= bars[module], f"{module.__name__}: maxdiff {worst:.3e} against the "
+              f"K4 baseline, gate {bars[module]:.3e}")
         log(f"bench {module.__name__}: {len(lines)} lines parsed, {len(configs)} "
             f"configurations, {kname} launches {launches[kname]}, worst maxdiff "
-            f"{worst:.4f}, {wall:.3f} s")
+            f"{worst:.3e} (gate {bars[module]:.3e}), {wall:.3f} s")
     return launches
 
 

@@ -172,6 +172,26 @@ def test_prologue_plain_float_bf16_matches_pallas(data, rope, s_valid):
     assert all(torch.equal(a, b) for a, b in zip(wrapped[:7], got[:7]))
 
 
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("s_valid", [None, 250])
+def test_prologue_plain_int8_bf16_matches_pallas(data, rope, s_valid):
+    """The int8 branch on bf16 projections: the plain version's correctly
+    rounded 1 / sqrt against the Pallas kernel's ``rsqrt``; codes at most 1
+    apart on at most 1e-3 of the elements, the stats to 1e-5, v bit-exact."""
+    jb, tb = _bf16_pair(data, rope)
+    kw = _both(data, rope, s_valid)[2]
+    ref = jax_qkv_prologue(*jb, quantize=True, interpret=True, **kw)
+    got = qkv_prologue_plain(*tb, quantize=True, **kw)
+    assert got[7] == ref[7]
+    for a, b in zip(got[:2], ref[:2]):
+        assert a.dtype == torch.int8
+        diff = np.abs(a.numpy().astype(np.int32) - np.asarray(b).astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    assert torch.equal(got[2], _to_torch(ref[2])[..., :HD])
+    for a, b in zip(got[3:7], ref[3:7]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
+
+
 def test_flash_prepacked_plain_float_bf16_matches_pallas(data):
     """The float K2 on the JAX prologue's bf16 operands, bf16 out: within
     one bf16 ulp of the output scale."""
