@@ -1,22 +1,21 @@
-// K4: online-softmax flash attention, written by hand for Hopper (sm_90a).
+// K4 in f32: online-softmax flash attention, written by hand for Hopper
+// (sm_90a). This file holds the f32 form only; the bf16 form is
+// csrc/flash_online_bf16.cu (wgmma and TMA).
 //
 // Replaces aether_tpu/ops/flash_attention.py::_flash_kernel (the Pallas TPU
-// kernel launched by flash_attention(fixed_max=False)): the forward of the
-// training path and the attention at AETHER_ATTN_FIXED_MAX=0. Non-causal
-// attention, head_dim 64, in the log2 domain, q pre-scaled by
-// sm_scale * log2(e) in the wrapper; T is the input type (float or bf16):
+// kernel launched by flash_attention(fixed_max=False)) for f32 q/k/v: the
+// forward of the training path. Non-causal attention, head_dim 64, in the
+// log2 domain, q pre-scaled by sm_scale * log2(e) in the wrapper:
 //   s   = q . k^T                              (f32 products and sums)
 //   s   = -0.7 * f32max  where column >= kv_len
 //   m'  = max(m, rowmax s),  alpha = exp2(m - m'),  p = exp2(s - m')
-//   acc = alpha * acc + T(p) . v
-//   l   = alpha * l + sum T(p)   (round_l: the TPU's ones column of the PV
-//                                 matmul summed p rounded to v's dtype)
-//       = alpha * l + sum p      (!round_l: the TPU's separate l)
-//   out = T(acc / l), a zero l divides by 1
-// T(p) is p itself for float. bf16 products are exact in f32, so the bf16
-// kernel computes the TPU kernel's function exactly up to the order of sums
-// and the kv tiling (64 columns here, 1024 there), which moves the running
-// max and with it the rounding of p.
+//   acc = alpha * acc + p . v
+//   l   = alpha * l + sum p
+//   out = acc / l, a zero l divides by 1
+// (p rounded to v's dtype is p itself in f32, so both of the TPU kernel's
+// denominators are the same sum here.) The kernel computes the TPU kernel's
+// function up to the order of sums and the kv tiling (64 columns here, 1024
+// there).
 //
 // What bounds it on an H100: arithmetic. One call at the training shape
 // (48 heads x 15076 tokens) is 2.8e12 flops and 1.1e10 exp2. The training
@@ -26,19 +25,16 @@
 // design keeps the FMA units fed from shared memory:
 //   * grid (q tiles of 64 rows, B*H), 128 threads; each CTA loops over kv
 //     tiles of 64 columns, so nothing is reduced across CTAs;
-//   * q, k, v and p tiles live in shared memory as f32 (bf16 converted once
-//     on load), rows padded to 68 floats so the column-strided reads are
-//     conflict-free; 68 KB a CTA, three CTAs an SM;
+//   * q, k, v and p tiles live in shared memory as f32, rows padded to 68
+//     floats so the column-strided reads are conflict-free; 68 KB a CTA,
+//     three CTAs an SM;
 //   * each thread owns a 4-row x 8-column micro-tile of s and of the output:
 //     every 16-byte shared-memory load feeds 8 or 16 FMAs, and a row's
 //     max and sum combine across its 8 threads with three shuffles;
 //   * columns past kv_len are masked only in the last tile, and tiles wholly
 //     past kv_len are skipped (they change nothing: alpha = 1, p = 0).
-// bf16 on the tensor cores (mma.sync, as K2), cp.async or TMA pipelining and
-// wgmma are later work; this is the simple form.
 // Compiled without --use_fast_math so exp2f and the division stay accurate.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -54,58 +50,22 @@ constexpr int kSmemBytes = 4 * 64 * kStride * sizeof(float);
 constexpr float kNegInf = -0.7f * 3.40282347e38f;  // the TPU kernel's mask
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// x rounded to T and back (the identity for float)
-template <typename T> __device__ __forceinline__ float round_to(float x);
-template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename T> __device__ __forceinline__ void store4(T* p, float a, float b,
-                                                            float c, float d);
-template <> __device__ __forceinline__ void store4<float>(float* p, float a, float b,
-                                                         float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-template <> __device__ __forceinline__ void store4<__nv_bfloat16>(
-    __nv_bfloat16* p, float a, float b, float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-  uint2 bits;
-  bits.x = *reinterpret_cast<uint32_t*>(&lo);
-  bits.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = bits;
-}
-
-// 64 rows x 64 of T (row stride 64) from device memory into f32 shared
+// 64 rows x 64 floats (row stride 64) from device memory into shared
 // memory (row stride kStride), in 16-byte chunks
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int tid) {
-  constexpr int kPer = 16 / sizeof(T);  // elements per chunk
-  constexpr int kChunks = kD / kPer;    // chunks per row
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int tid) {
+  constexpr int kChunks = kD / 4;  // chunks per row
 #pragma unroll
   for (int i = tid; i < 64 * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * kPer;
-    const int4 raw = *reinterpret_cast<const int4*>(src + (int64_t)r * kD + c);
-    const T* e = reinterpret_cast<const T*>(&raw);
-    float* d = dst + r * kStride + c;
-#pragma unroll
-    for (int j = 0; j < kPer; j += 4)
-      *reinterpret_cast<float4*>(d + j) =
-          make_float4(to_f<T>(e[j]), to_f<T>(e[j + 1]), to_f<T>(e[j + 2]), to_f<T>(e[j + 3]));
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    *reinterpret_cast<float4*>(dst + r * kStride + c) =
+        *reinterpret_cast<const float4*>(src + (int64_t)r * kD + c);
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_online_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
-                    int kv_len, int round_l) {
+flash_online_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out, int sq, int skv,
+                    int kv_len) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
   float* ks = qs + kBM * kStride;
@@ -120,7 +80,7 @@ flash_online_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tr = warp * 4 + (lane >> 3);
   const int tc = lane & 7;
 
-  load_tile<T>(qs, q + ((int64_t)bh * sq + q0) * kD, tid);
+  load_tile(qs, q + ((int64_t)bh * sq + q0) * kD, tid);
 
   float o[4][8], m[4], l[4];
 #pragma unroll
@@ -131,14 +91,14 @@ flash_online_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < 8; ++j) o[a][j] = 0.0f;
   }
 
-  const T* kbase = k + (int64_t)bh * skv * kD;
-  const T* vbase = v + (int64_t)bh * skv * kD;
+  const float* kbase = k + (int64_t)bh * skv * kD;
+  const float* vbase = v + (int64_t)bh * skv * kD;
   const int kv_end = ((kv_len + kBN - 1) / kBN) * kBN;
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBN) {
     __syncthreads();  // the previous tile's k, v and p are consumed
-    load_tile<T>(ks, kbase + (int64_t)kv0 * kD, tid);
-    load_tile<T>(vs, vbase + (int64_t)kv0 * kD, tid);
+    load_tile(ks, kbase + (int64_t)kv0 * kD, tid);
+    load_tile(vs, vbase + (int64_t)kv0 * kD, tid);
     __syncthreads();
 
     float s[4][8];
@@ -185,9 +145,8 @@ flash_online_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float p = exp2f(__fsub_rn(s[a][i], m_next));
-        const float pr = round_to<T>(p);
-        sum = __fadd_rn(sum, round_l ? pr : p);
-        ps[(tr * 4 + a) * kStride + tc + 8 * i] = pr;
+        sum = __fadd_rn(sum, p);
+        ps[(tr * 4 + a) * kStride + tc + 8 * i] = p;
       }
       l[a] = __fadd_rn(__fmul_rn(alpha, l[a]), sum);
 #pragma unroll
@@ -229,39 +188,31 @@ flash_online_kernel(const T* __restrict__ q, const T* __restrict__ k,
     la = __fadd_rn(la, __shfl_xor_sync(kFull, la, 2));
     la = __fadd_rn(la, __shfl_xor_sync(kFull, la, 4));
     const float inv = la <= 0.0f ? 1.0f : __fdiv_rn(1.0f, la);
-    T* orow = out + ((int64_t)bh * sq + q0 + tr * 4 + a) * kD;
-    store4<T>(orow + tc * 4, __fmul_rn(o[a][0], inv), __fmul_rn(o[a][1], inv),
-              __fmul_rn(o[a][2], inv), __fmul_rn(o[a][3], inv));
-    store4<T>(orow + 32 + tc * 4, __fmul_rn(o[a][4], inv), __fmul_rn(o[a][5], inv),
-              __fmul_rn(o[a][6], inv), __fmul_rn(o[a][7], inv));
+    float* orow = out + ((int64_t)bh * sq + q0 + tr * 4 + a) * kD;
+    *reinterpret_cast<float4*>(orow + tc * 4) =
+        make_float4(__fmul_rn(o[a][0], inv), __fmul_rn(o[a][1], inv),
+                    __fmul_rn(o[a][2], inv), __fmul_rn(o[a][3], inv));
+    *reinterpret_cast<float4*>(orow + 32 + tc * 4) =
+        make_float4(__fmul_rn(o[a][4], inv), __fmul_rn(o[a][5], inv),
+                    __fmul_rn(o[a][6], inv), __fmul_rn(o[a][7], inv));
   }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int sq,
-           int skv, int kv_len, int round_l, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_online_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(sq / kBM, BH);
-  flash_online_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), sq, skv, kv_len, round_l);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, out: [BH, sq or skv, 64] of float (dtype 0) or bf16 (dtype 1),
-// sq and skv multiples of 64, kv_len <= skv; q carries sm_scale * log2(e).
+// q, k, v, out: [BH, sq or skv, 64] float, sq and skv multiples of 64,
+// kv_len <= skv; q carries sm_scale * log2(e).
 extern "C" int aether_flash_online(const void* q, const void* k, const void* v,
                                    void* out, int BH, int sq, int skv, int kv_len,
-                                   int dtype, int round_l, void* stream) {
+                                   void* stream) {
   if (sq % kBM || skv % kBN || kv_len < 0 || kv_len > skv)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, out, BH, sq, skv, kv_len, round_l, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, BH, sq, skv, kv_len, round_l, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_online_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(sq / kBM, BH);
+  flash_online_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), sq, skv, kv_len);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
-// K6: full-int8 flash attention with an integer running max, written by hand
-// for Hopper (sm_90a).
+// K6: full-int8 flash attention with an integer running max, on wgmma with
+// TMA, written by hand for Hopper (sm_90a).
 //
 // Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_pv8 (the Pallas
 // TPU kernel launched by flash_attention(fixed_max=True, qk_int8=True,
@@ -14,104 +14,97 @@
 //   l   = l * exp2(m - m') + f32(127 * int32(sum p8))
 //   out = acc / l * vscale_g                          (l = 0 -> divide by 1)
 // The TPU kernel rounded p8 against the running max of its whole 1024-column
-// block. A kernel that moves the max every 64 columns would round
-// differently, so each span is swept twice: the first sweep takes the row
-// max over the span, the second recomputes s and runs p8 . v8. Within a
-// span every product and sum is an integer below 2^24 (127 * 127 * 1024),
-// so the int32 accumulators and their f32 conversion are exact and the
-// kernel computes the TPU kernel's function up to exp2f's last bit.
+// block. A kernel that moves the max every tile would round differently, so
+// each span is swept twice: the first sweep takes the row max over the span,
+// the second recomputes s and runs p8 . v8. (One sweep would have to keep the
+// span's scores: 64 rows x 1024 x 4 bytes = 256 KB of s32 a warpgroup, more
+// than shared memory, and 21-bit values do not fit 16 bits.) Within a span
+// every product and sum is an integer below 2^24 (127 * 127 * 1024), so the
+// int32 accumulators and their f32 conversion are exact and the kernel
+// computes the TPU kernel's function up to exp2f's last bit.
 //
-// What bounds it on an H100: the two sweeps make QK^T twice (int8, half the
-// bf16 work each) and PV once (int8), 7.7e12 int8 ops per call at the CFG
-// pair's 2 x 48 heads x 15076 tokens, and 2.2e10 exp2. The design:
-//   * grid (q tiles of 64 rows, B*H); 4 warps, 16 q rows each; q fragments
-//     in registers, k fragments from shared memory with ldmatrix (K2's QK^T);
-//   * mma.sync m16n8k32 s8 x s8 -> s32 for both products. The s32
-//     accumulator of QK^T gives a thread columns 2t, 2t+1, 8+2t, 9+2t (and
-//     +16) of each 32-column chunk, while the s8 A operand of the PV mma
-//     wants k = 4t..4t+3 (and +16). Instead of moving p8 through shared
-//     memory, the wrapper writes v8 transposed ([BH, 64, Skv], the B operand
-//     needs k-contiguous rows) with the kv order inside each 32-column chunk
-//     permuted to the thread's order (ops/flash_attention.py::_pv8_v_layout);
-//     the sum over k is unchanged;
+// What bounds it on an H100: at the CFG pair's 2 x 48 heads x 15076 tokens,
+// the two sweeps make QK^T twice and PV once, 8.4e12 int8 ops (4.2 ms at
+// 1979 TOP/s), and 2.2e10 exp2 on the SFU (16 a clock an SM: 5.2 ms at 1.98
+// GHz), so the SFU binds; around each exp2 a score needs about eight more
+// instructions (the dequantization, the max subtraction, the rounding to
+// p8), which share its issue slots. The design:
+//   * a CTA takes 192 q rows: three consumer warpgroups of 64 rows and one
+//     producer warp; grid (q tiles, B*H); three rather than two cut the
+//     L2 traffic of the K and V^T tiles by a third;
+//   * the producer walks the same sequence of kv tiles of 128 columns as the
+//     consumers (per span: the K tiles of sweep 1, then K and V^T of sweep
+//     2) and keeps them in flight in a ring of kStages slots by TMA; q8 and
+//     k8 rows are 64 bytes (64-byte swizzle), v8^T rows 128 (128-byte);
+//   * S = Q8 K8^T is wgmma m64n128k32 s8 with both operands from shared
+//     memory; P8 V8 is wgmma m64n64k32 s8 with p8 from registers, in flight
+//     while the next tile's Q K^T is issued. For 8-bit types wgmma takes
+//     both operands K-major, so v8 comes transposed ([BH, 64, Skv]) with the
+//     kv order inside every 32-column chunk permuted to the order in which a
+//     thread holds p8 (the s32 accumulator of QK^T;
+//     ops/flash_attention.py::_pv8_v_layout): the wgmma fragments repeat
+//     mma.sync m16n8's per-warp pattern, so the permutation is the one the
+//     mma.sync form of this kernel used;
+//   * the SFU is left to exp2 alone: int <-> float moves use the 1.5 * 2^23
+//     trick on the FMA and integer units (the conversion unit, which
+//     I2F, rintf and F2I would take, is as slow as the SFU),
+//     exp2 is one SFU instruction (exp2_ftz: p8 of a p below 2^-126 is 0
+//     either way), sweep 1 takes its max over the integers (s rises with
+//     them) and converts once, and the row sums of p8 are dp4a byte sums of
+//     the packed A fragments;
 //   * the span's PV sums stay in s32 registers and fold into the f32
 //     accumulator once per span; tiles and spans wholly past kv_len are
-//     skipped (they change nothing: alpha = 1, p8 = 0).
-// wgmma, TMA and one-sweep spans kept in shared memory are later work.
-// Compiled without --use_fast_math so exp2f and the division stay accurate.
+//     skipped (they change nothing: alpha = 1, p8 = 0) and only the last
+//     tile takes the mask.
+// Compiled without --use_fast_math so exp2f (alpha) and the division stay
+// accurate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int kD = 64;
-constexpr int kBM = 64;            // q rows per CTA
-constexpr int kBN = 64;            // kv columns per tile
-constexpr int kWarps = 4;
-constexpr int kStride = 80;        // bytes per k / v^T row in shared memory (64 + 16 pad)
-constexpr float kNeg = -1e9f;      // padding bias and initial max (the TPU kernel's)
+constexpr int kWG = 3;                      // consumer warpgroups, 64 q rows each
+constexpr int kBM = 64 * kWG;               // q rows per CTA
+constexpr int kBN = 128;                    // kv columns per tile
+constexpr int kStages = 4;
+constexpr int kConsumers = 128 * kWG;
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr int kTileBytes = kBN * kD;        // 8 KB: a K tile or a V^T tile
+constexpr float kNeg = -1e9f;               // padding bias and initial max (the TPU kernel's)
 constexpr unsigned kFull = 0xffffffffu;
+// 1.5 * 2^23: integers n with |n| < 2^22 sit in its float's low mantissa
+// bits, so int <-> float moves run on the FMA and integer units rather than
+// the conversion unit (16 results a clock an SM, as slow as the SFU)
+constexpr float kMagicF = 12582912.0f;
+constexpr uint32_t kMagicI = 0x4B400000u;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// (float)x, exactly, for |x| < 2^22 (an s32 accumulator here: |x| <= 127 *
+// 127 * 64)
+__device__ __forceinline__ float exact_f32(int x) {
+  return __fsub_rn(__uint_as_float(kMagicI + static_cast<uint32_t>(x)), kMagicF);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
+struct Smem {
+  int8_t q[kBM * kD];
+  int8_t k[kStages][kBN * kD];   // 128 kv rows x 64 bytes
+  int8_t vt[kStages][kD * kBN];  // 64 output columns x 128 kv bytes
+  Ring<kStages> ring;
+  uint64_t q_full;
+};
+constexpr int kSmemBytes = sizeof(Smem) + 1024;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 64 rows x 64 bytes from device memory (row pitch `pitch` bytes) into
-// shared memory rows of kStride bytes
-__device__ __forceinline__ void load_tile(int8_t* dst, const int8_t* __restrict__ src,
-                                          int64_t pitch, int tid) {
-#pragma unroll
-  for (int i = tid; i < 64 * 4; i += kWarps * 32) {
-    const int r = i / 4, c = i % 4;
-    *reinterpret_cast<int4*>(dst + r * kStride + c * 16) =
-        *reinterpret_cast<const int4*>(src + r * pitch + c * 16);
-  }
-}
-
-// scores of this warp's 16 rows against the 64 k rows in shared memory:
-// s[nt][0..1] row gid, columns nt*8 + 2*tig + {0, 1}; s[nt][2..3] row gid+8
-__device__ __forceinline__ void scores(float (&s)[8][4], const uint32_t (&qa)[2][4],
-                                       const int8_t* ks, int kv0, int kv_len, float sc,
-                                       int lane) {
-  const int mi = lane / 8, mr = lane % 8, tig = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    uint32_t kb[4];
-    ldmatrix_x4(kb, ks + (nt * 8 + mr) * kStride + mi * 16);
-    int acc[4] = {0, 0, 0, 0};
-    mma_s8(acc, qa[0], kb[0], kb[1]);
-    mma_s8(acc, qa[1], kb[2], kb[3]);
-    const int col = kv0 + nt * 8 + tig * 2;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float x = __fmul_rn((float)acc[j], sc);
-      if (col + (j & 1) >= kv_len) x = __fadd_rn(x, kNeg);
-      s[nt][j] = x;
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
-  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
-         ((uint32_t)(c & 0xff) << 16) | ((uint32_t)(d & 0xff) << 24);
+// the low bytes of a, b, c, d packed into one word, a lowest
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
 template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
@@ -123,60 +116,133 @@ template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16*
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_pv8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
-                 const int8_t* __restrict__ v8t, const float* __restrict__ scale,
-                 const float* __restrict__ vscale, T* __restrict__ out, int sq, int skv,
-                 int kv_len, int hper, int span) {
-  __shared__ __align__(16) int8_t ks[kBN * kStride];
-  __shared__ __align__(16) int8_t vts[kD * kStride];
-
-  const int bh = blockIdx.y;
-  const int g = bh / hper;
-  const int q0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mi = lane / 8, mr = lane % 8;
-  const float sc = scale[g];
-
-  // q fragments (m16n8k32 A, row-major) for this warp's 16 rows, both k steps
-  const int8_t* qrow = q8 + ((int64_t)bh * sq + q0 + warp * 16 + gid) * kD;
-  uint32_t qa[2][4];
+// p8 of one tile packed as the A fragments of P8 V8 (logical k 4c..4c+3 of
+// 32-column chunk kk = columns 2c, 2c+1 of accumulator chunks 4kk and
+// 4kk+1; k 16+4c.. = the same of chunks 4kk+2 and 4kk+3: v8t's permuted
+// order). p8 = rint(127 p) is the low byte of kMagicF + 127 p (round to
+// nearest even at unit spacing, as rintf); the products and sums stay
+// unfused, as the plain version rounds them. Tail: columns >= kv_len get
+// the -1e9 bias.
+template <bool kTail>
+__device__ __forceinline__ void p8_tile(uint32_t (&pa)[4][4], const int (&acc)[64], float sc,
+                                        float m0, float m1, int kv0, int kv_len, int c) {
+  uint32_t b[64];
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    qa[s][0] = *reinterpret_cast<const uint32_t*>(qrow + s * 32 + tig * 4);
-    qa[s][1] = *reinterpret_cast<const uint32_t*>(qrow + 8 * kD + s * 32 + tig * 4);
-    qa[s][2] = *reinterpret_cast<const uint32_t*>(qrow + s * 32 + 16 + tig * 4);
-    qa[s][3] = *reinterpret_cast<const uint32_t*>(qrow + 8 * kD + s * 32 + 16 + tig * 4);
+  for (int i = 0; i < 64; ++i) {
+    float x = __fmul_rn(exact_f32(acc[i]), sc);
+    if (kTail && kv0 + 8 * (i / 4) + 2 * c + (i % 2) >= kv_len) x = __fadd_rn(x, kNeg);
+    const float p = exp2_ftz(__fsub_rn(x, (i % 4) < 2 ? m0 : m1));
+    b[i] = __float_as_uint(__fadd_rn(__fmul_rn(p, 127.0f), kMagicF));
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int j = 16 * kk;
+    pa[kk][0] = pack4(b[j], b[j + 1], b[j + 4], b[j + 5]);
+    pa[kk][1] = pack4(b[j + 2], b[j + 3], b[j + 6], b[j + 7]);
+    pa[kk][2] = pack4(b[j + 8], b[j + 9], b[j + 12], b[j + 13]);
+    pa[kk][3] = pack4(b[j + 10], b[j + 11], b[j + 14], b[j + 15]);
+  }
+}
+
+// int32 q8 . k8^T of one tile (this thread's accumulator fragment)
+__device__ __forceinline__ void qk(int (&acc)[64], int8_t* ks, uint64_t qdesc) {
+  const uint64_t kdesc = make_desc(ks, 16, 512, kSw64);
+  wgmma_fence();
+  wgmma_m64n128k32_ss_s8(acc, qdesc, kdesc, 0);
+  wgmma_m64n128k32_ss_s8(acc, desc_add(qdesc, 32), desc_add(kdesc, 32), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, const float* __restrict__ scale,
+                 const float* __restrict__ vscale, T* __restrict__ out, int sq, int kv_len,
+                 int hper, int span) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBM;
+  const int tile_end = ((kv_len + kBN - 1) / kBN) * kBN;  // later tiles are all masked
+
+  if (threadIdx.x == 0) {
+    sm.ring.init(kConsumers);
+    mbar_init(&sm.q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer: the consumers' sequence of tiles, sweep by sweep ----
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(&sm.q_full, kBM * kD);
+      tma_load_3d(sm.q, &qmap, &sm.q_full, 0, q0, bh);
+      int item = 0;
+      for (int span0 = 0; span0 < tile_end; span0 += span) {
+        const int end = min(span0 + span, tile_end);
+        for (int kv0 = span0; kv0 < end; kv0 += kBN, ++item) {
+          const int s = sm.ring.acquire(item, kTileBytes);
+          tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], 0, kv0, bh);
+        }
+        for (int kv0 = span0; kv0 < end; kv0 += kBN, ++item) {
+          const int s = sm.ring.acquire(item, 2 * kTileBytes);
+          tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], 0, kv0, bh);
+          tma_load_3d(sm.vt[s], &vmap, &sm.ring.full[s], kv0, 0, bh);
+        }
+      }
+    }
+    return;
   }
 
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-  float m0 = kNeg, m1 = kNeg;  // running max of rows gid and gid + 8
-  float l0 = 0.0f, l1 = 0.0f;
+  // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 ----
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int lane = tid % 32, warp = t / 32;
+  const int c = lane % 4;
+  const int g = bh / hper;
+  const float sc = scale[g];
+  mbar_wait(&sm.q_full, 0);
+  const uint64_t qdesc = make_desc(sm.q + wg * 64 * kD, 16, 512, kSw64);
 
-  const int8_t* kbase = k8 + (int64_t)bh * skv * kD;
-  const int8_t* vbase = v8t + (int64_t)bh * kD * skv;
-  const int tile_end = ((kv_len + kBN - 1) / kBN) * kBN;  // later tiles are all masked
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  float m0 = kNeg, m1 = kNeg;  // running max of rows r and r + 8
+  float l0 = 0.0f, l1 = 0.0f;
+  int item = 0;
 
   for (int span0 = 0; span0 < tile_end; span0 += span) {
     const int end = min(span0 + span, tile_end);
 
-    // sweep 1: the row max of s over the span
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-    for (int kv0 = span0; kv0 < end; kv0 += kBN) {
-      __syncthreads();  // the previous tile is consumed
-      load_tile(ks, kbase + (int64_t)kv0 * kD, kD, tid);
-      __syncthreads();
-      float s[8][4];
-      scores(s, qa, ks, kv0, kv_len, sc, lane);
+    // sweep 1: the row max of s over the span. s = f32(int) * sc with sc >
+    // 0 rises with the integer, so the max is taken over the integers of
+    // the valid columns and converted once; a masked column scores exactly
+    // -1e9 (its k row is zero)
+    int mi0 = INT_MIN, mi1 = INT_MIN;
+    for (int kv0 = span0; kv0 < end; kv0 += kBN, ++item) {
+      const int s = sm.ring.wait_full(item);
+      int acc[64];
+      qk(acc, sm.k[s], qdesc);
+      sm.ring.release(item);
+      if (kv0 + kBN > kv_len) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+        for (int i = 0; i < 64; ++i)
+          if (kv0 + 8 * (i / 4) + 2 * c + (i % 2) >= kv_len) acc[i] = INT_MIN;
       }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mi0 = max(mi0, max(acc[4 * j], acc[4 * j + 1]));
+        mi1 = max(mi1, max(acc[4 * j + 2], acc[4 * j + 3]));
+      }
+    }
+    float mx0 = mi0 == INT_MIN ? -INFINITY : __fmul_rn(exact_f32(mi0), sc);
+    float mx1 = mi1 == INT_MIN ? -INFINITY : __fmul_rn(exact_f32(mi1), sc);
+    if (end > kv_len) {
+      mx0 = fmaxf(mx0, kNeg);
+      mx1 = fmaxf(mx1, kNeg);
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
@@ -188,86 +254,85 @@ flash_pv8_kernel(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
     m1 = mn1;
 
     // sweep 2: p8 = rint(127 exp2(s - m)), p8 . v8 in s32 over the span
-    int pv[8][4];
+    int pv[32];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) pv[i][0] = pv[i][1] = pv[i][2] = pv[i][3] = 0;
-    int ls0 = 0, ls1 = 0;
-    for (int kv0 = span0; kv0 < end; kv0 += kBN) {
-      __syncthreads();
-      load_tile(ks, kbase + (int64_t)kv0 * kD, kD, tid);
-      load_tile(vts, vbase + kv0, skv, tid);  // 64 output columns x 64 kv
-      __syncthreads();
-      float s[8][4];
-      scores(s, qa, ks, kv0, kv_len, sc, lane);
-      int p8[8][4];
+    for (int i = 0; i < 32; ++i) pv[i] = 0;
+    uint32_t ls0 = 0, ls1 = 0;  // row sums of p8 (rows r, r + 8)
+    // a tile's P8 V8 stays in flight while the next tile's Q K^T is issued;
+    // one wait (in qk) covers both
+    uint32_t pa[4][4];
+    for (int kv0 = span0; kv0 < end; kv0 += kBN, ++item) {
+      const int s = sm.ring.wait_full(item);
+      int acc[64];
+      qk(acc, sm.k[s], qdesc);
+      fence_regs(pv);
+      fence_regs(pa);
+      if (kv0 > span0) sm.ring.release(item - 1);  // its P8 V8 has completed
+      if (kv0 + kBN > kv_len)
+        p8_tile<true>(pa, acc, sc, m0, m1, kv0, kv_len, c);
+      else
+        p8_tile<false>(pa, acc, sc, m0, m1, kv0, kv_len, c);
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = exp2f(__fsub_rn(s[nt][j], (j < 2) ? m0 : m1));
-          p8[nt][j] = (int)rintf(__fmul_rn(p, 127.0f));
-        }
-        ls0 += p8[nt][0] + p8[nt][1];
-        ls1 += p8[nt][2] + p8[nt][3];
+      for (int kk = 0; kk < 4; ++kk) {  // byte sums of the packed p8
+        ls0 = __dp4a(pa[kk][0], 0x01010101u, __dp4a(pa[kk][2], 0x01010101u, ls0));
+        ls1 = __dp4a(pa[kk][1], 0x01010101u, __dp4a(pa[kk][3], 0x01010101u, ls1));
       }
-      // A fragments of the two 32-column chunks, in v8t's permuted k order:
-      // logical k 4t..4t+3 = columns 2t, 2t+1 of tiles 4c and 4c+1, and
-      // k 16+4t.. = the same of tiles 4c+2 and 4c+3
-      uint32_t pa[2][4];
+      const uint64_t vdesc = make_desc(sm.vt[s], 16, 1024, kSw128);
+      fence_regs(pv);
+      wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int t = 4 * c;
-        pa[c][0] = pack4(p8[t][0], p8[t][1], p8[t + 1][0], p8[t + 1][1]);
-        pa[c][1] = pack4(p8[t][2], p8[t][3], p8[t + 1][2], p8[t + 1][3]);
-        pa[c][2] = pack4(p8[t + 2][0], p8[t + 2][1], p8[t + 3][0], p8[t + 3][1]);
-        pa[c][3] = pack4(p8[t + 2][2], p8[t + 2][3], p8[t + 3][2], p8[t + 3][3]);
-      }
-#pragma unroll
-      for (int dt = 0; dt < 8; ++dt) {
-        uint32_t vb[4];  // (k 0-15, k 16-31) of chunk 0, then of chunk 1
-        ldmatrix_x4(vb, vts + (dt * 8 + mr) * kStride + mi * 16);
-        mma_s8(pv[dt], pa[0], vb[0], vb[1]);
-        mma_s8(pv[dt], pa[1], vb[2], vb[3]);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k32_rs_s8(pv, pa[kk], desc_add(vdesc, 32 * kk), 1);
+      wgmma_commit();
     }
+    wgmma_wait<0>();
+    fence_regs(pv);
+    fence_regs(pa);
+    sm.ring.release(item - 1);
     ls0 += __shfl_xor_sync(kFull, ls0, 1);
     ls0 += __shfl_xor_sync(kFull, ls0, 2);
     ls1 += __shfl_xor_sync(kFull, ls1, 1);
     ls1 += __shfl_xor_sync(kFull, ls1, 2);
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      acc[dt][0] = __fadd_rn(__fmul_rn(acc[dt][0], alpha0), (float)pv[dt][0]);
-      acc[dt][1] = __fadd_rn(__fmul_rn(acc[dt][1], alpha0), (float)pv[dt][1]);
-      acc[dt][2] = __fadd_rn(__fmul_rn(acc[dt][2], alpha1), (float)pv[dt][2]);
-      acc[dt][3] = __fadd_rn(__fmul_rn(acc[dt][3], alpha1), (float)pv[dt][3]);
+    for (int j = 0; j < 8; ++j) {
+      acc[4 * j] = __fadd_rn(__fmul_rn(acc[4 * j], alpha0), (float)pv[4 * j]);
+      acc[4 * j + 1] = __fadd_rn(__fmul_rn(acc[4 * j + 1], alpha0), (float)pv[4 * j + 1]);
+      acc[4 * j + 2] = __fadd_rn(__fmul_rn(acc[4 * j + 2], alpha1), (float)pv[4 * j + 2]);
+      acc[4 * j + 3] = __fadd_rn(__fmul_rn(acc[4 * j + 3], alpha1), (float)pv[4 * j + 3]);
     }
-    l0 = __fadd_rn(__fmul_rn(l0, alpha0), (float)(127 * ls0));
-    l1 = __fadd_rn(__fmul_rn(l1, alpha1), (float)(127 * ls1));
+    l0 = __fadd_rn(__fmul_rn(l0, alpha0), (float)(127 * static_cast<int>(ls0)));
+    l1 = __fadd_rn(__fmul_rn(l1, alpha1), (float)(127 * static_cast<int>(ls1)));
   }
 
   const float vs = vscale[g];
   const float inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
   const float inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
-  T* orow = out + ((int64_t)bh * sq + q0 + warp * 16 + gid) * kD;
+  const int row = q0 + wg * 64 + warp * 16 + lane / 4;
+  T* obase = out + (int64_t)bh * sq * kD;
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int col = dt * 8 + tig * 2;
-    store2<T>(orow + col, __fmul_rn(__fmul_rn(acc[dt][0], inv0), vs),
-              __fmul_rn(__fmul_rn(acc[dt][1], inv0), vs));
-    store2<T>(orow + 8 * kD + col, __fmul_rn(__fmul_rn(acc[dt][2], inv1), vs),
-              __fmul_rn(__fmul_rn(acc[dt][3], inv1), vs));
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * c;
+    if (row < sq)
+      store2<T>(obase + (int64_t)row * kD + col, __fmul_rn(__fmul_rn(acc[4 * j], inv0), vs),
+                __fmul_rn(__fmul_rn(acc[4 * j + 1], inv0), vs));
+    if (row + 8 < sq)
+      store2<T>(obase + (int64_t)(row + 8) * kD + col,
+                __fmul_rn(__fmul_rn(acc[4 * j + 2], inv1), vs),
+                __fmul_rn(__fmul_rn(acc[4 * j + 3], inv1), vs));
   }
 }
 
 template <typename T>
-int launch(const void* q8, const void* k8, const void* v8t, const void* scale,
-           const void* vscale, void* out, int BH, int sq, int skv, int kv_len, int hper,
-           int span, cudaStream_t stream) {
-  dim3 grid(sq / kBM, BH);
-  flash_pv8_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const int8_t*>(q8), static_cast<const int8_t*>(k8),
-      static_cast<const int8_t*>(v8t), static_cast<const float*>(scale),
-      static_cast<const float*>(vscale), static_cast<T*>(out), sq, skv, kv_len, hper, span);
+int launch(const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+           const void* scale, const void* vscale, void* out, int BH, int sq, int kv_len,
+           int hper, int span, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_pv8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((sq + kBM - 1) / kBM, BH);
+  flash_pv8_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<const float*>(scale), static_cast<const float*>(vscale),
+      static_cast<T*>(out), sq, kv_len, hper, span);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -275,20 +340,27 @@ int launch(const void* q8, const void* k8, const void* v8t, const void* scale,
 
 // q8, k8: [BH, sq | skv, 64] int8; v8t: [BH, 64, skv] int8 in
 // _pv8_v_layout's order; scale, vscale: [BH / hper] f32; out: [BH, sq, 64] of
-// float (dtype 0) or bf16 (dtype 1). sq a multiple of 64, span a multiple of
-// 64 dividing skv, rows past the data zero, 0 < kv_len <= skv.
+// float (dtype 0) or bf16 (dtype 1). All 16-byte aligned; sq a multiple of
+// 64, span a multiple of 128 dividing skv, rows past the data zero,
+// 0 < kv_len <= skv.
 extern "C" int aether_flash_pv8(const void* q8, const void* k8, const void* v8t,
                                 const void* scale, const void* vscale, void* out, int BH,
                                 int sq, int skv, int kv_len, int hper, int span, int dtype,
                                 void* stream) {
-  if (sq % kBM || span <= 0 || span % kBN || skv % span || kv_len <= 0 || kv_len > skv ||
-      hper <= 0 || BH % hper)
+  if (sq <= 0 || sq % 64 || span <= 0 || span % kBN || skv % span || kv_len <= 0 ||
+      kv_len > skv || hper <= 0 || BH % hper || BH > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qmap, kmap, vmap;
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (!make_map_3d(&qmap, q8, u8, 1, kD, sq, BH, kD, kBM, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !make_map_3d(&kmap, k8, u8, 1, kD, skv, BH, kD, kBN, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !make_map_3d(&vmap, v8t, u8, 1, skv, kD, BH, kBN, kD, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q8, k8, v8t, scale, vscale, out, BH, sq, skv, kv_len, hper, span, st);
+    return launch<float>(qmap, kmap, vmap, scale, vscale, out, BH, sq, kv_len, hper, span, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q8, k8, v8t, scale, vscale, out, BH, sq, skv, kv_len, hper,
+    return launch<__nv_bfloat16>(qmap, kmap, vmap, scale, vscale, out, BH, sq, kv_len, hper,
                                  span, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

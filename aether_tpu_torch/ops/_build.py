@@ -65,9 +65,14 @@ SIGNATURES = {
         _P,                  # stream
     ],
     "aether_flash_online": [
-        _P, _P, _P, _P,      # q (folded), k, v, out: [B*H, sq | skv, 64]
+        _P, _P, _P, _P,      # q (folded), k, v, out: f32 [B*H, sq | skv, 64]
         _I, _I, _I, _I,      # BH, sq, skv (multiples of 64), kv_len
-        _I, _I,              # dtype (0 f32, 1 bf16), round_l (denom "mxu")
+        _P,                  # stream
+    ],
+    "aether_flash_online_bf16": [
+        _P, _P, _P, _P,      # q (unfolded), k, v, out: bf16 [B*H, sq | skv, 64]
+        _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
+        _I, _F,              # round_l (denom "mxu"), q fold sm_scale * log2e
         _P,                  # stream
     ],
     "aether_flash_fixed_max": [

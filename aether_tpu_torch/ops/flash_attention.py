@@ -1,6 +1,6 @@
 """Flash attention: kernels K2, K3, K4 and K6.
 
-Port of ``aether_tpu/ops/flash_attention.py``. Four Hopper kernels (CUDA C++,
+Port of ``aether_tpu/ops/flash_attention.py``. Hopper kernels (CUDA C++,
 sm_90a, bound with ctypes through ``ops/_build.py``) replace four Pallas
 kernels; each has a plain PyTorch version here, which CPU tensors take and
 which ``chip_smoke.py`` holds the kernel against on the card.
@@ -17,16 +17,19 @@ whole-sequence per-group symmetric int8 quantization of q and k (and of v for
 K6) with one combined dequantization scalar per group, and the ``noshift``
 choice made on the device.
 
-K4, :func:`flash_attention` (``fixed_max=False``): ``csrc/flash_online.cu``
-replaces ``_flash_kernel``, the forward of the training path and the
-attention at ``AETHER_ATTN_FIXED_MAX=0``. The wrapper keeps the JAX
-preparation (``sm_scale * log2e`` folded into q and rounded to q's dtype, the
-``kv_valid`` tail zeroed, tokens padded to the kernel's tile); the kernel
-runs a base-2 online softmax with kv columns ``>= kv_len`` masked to
-``-0.7 * f32max``. The denominator follows the TPU kernel: at head_dim < 128
-(``denom="mxu"``) it sums p rounded to v's dtype, because the TPU summed p
-through a ones column of the PV matmul; at head_dim >= 128 (``"vpu"``) it sums
-unrounded p. A zero denominator divides by 1.
+K4, :func:`flash_attention` (``fixed_max=False``) replaces ``_flash_kernel``
+with two sources: ``csrc/flash_online.cu`` for f32 (the forward of the
+training path) and ``csrc/flash_online_bf16.cu`` for bf16 (the attention at
+``AETHER_ATTN_FIXED_MAX=0`` and the bench baseline; ``wgmma`` with TMA).
+Both keep the JAX preparation: ``sm_scale * log2e`` folded into q and rounded
+to q's dtype (by the wrapper for f32, in the kernel for bf16) and the
+``kv_valid`` tail zeroed; the f32 wrapper pads tokens to its kernel's tile,
+while the bf16 kernel reads rows past the ends as zeros. Each runs a base-2
+online softmax with kv columns ``>= kv_len`` masked to ``-0.7 * f32max``.
+The denominator follows the TPU kernel: at head_dim < 128 (``denom="mxu"``)
+it sums p rounded to v's dtype, because the TPU summed p through a ones
+column of the PV matmul; at head_dim >= 128 (``"vpu"``) it sums unrounded p.
+A zero denominator divides by 1.
 
 K2, :func:`flash_attention_prepacked`: ``csrc/flash_prepacked.cu`` replaces
 ``_flash_kernel_prepacked``, both its int8 and its float (``AETHER_ATTN_QK8=0``)
@@ -57,7 +60,7 @@ from aether_tpu_torch.ops import _build
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _LOG2E = 1.4426950408889634
-_K4_TILE = 64  # q rows and kv columns per tile of csrc/flash_online.cu
+_K4_TILE = 64  # q rows and kv columns per tile of csrc/flash_online.cu (f32)
 
 
 def _pick_block(seq: int, requested: int) -> int:
@@ -227,23 +230,46 @@ def attention_reference(
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
+def _online_fold(sm_scale: Optional[float], dim: int) -> float:
+    """The factor folded into q: ``sm_scale * log2e``, sm_scale 1/sqrt(dim)
+    by default."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (dim ** 0.5)
+    return sm_scale * _LOG2E
+
+
+def _online_kv(k, v, kv_valid):
+    """The k/v rows at or past ``kv_valid`` zeroed. Returns (k, v, kv_len)."""
+    kv_len_in = k.shape[2]
+    kv_len = kv_len_in if kv_valid is None else min(kv_valid, kv_len_in)
+    if kv_len < 0:
+        raise ValueError(f"kv_valid {kv_valid} < 0")
+    if kv_len < kv_len_in:
+        tail = (torch.arange(kv_len_in, device=k.device) >= kv_len)[:, None]
+        k = k.masked_fill(tail, 0)
+        v = v.masked_fill(tail, 0)
+    return k, v, kv_len
+
+
 def _online_operands(q, k, v, sm_scale, kv_valid):
     """The JAX wrapper's preparation: q times ``sm_scale * log2e`` rounded to
     q's dtype, and the k/v rows at or past ``kv_valid`` zeroed.
 
     Returns (q, k, v, kv_len)."""
-    kv_len_in = k.shape[2]
-    if sm_scale is None:
-        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
-    kv_len = kv_len_in if kv_valid is None else min(kv_valid, kv_len_in)
-    if kv_len < 0:
-        raise ValueError(f"kv_valid {kv_valid} < 0")
-    q = (q.float() * (sm_scale * _LOG2E)).to(q.dtype)
-    if kv_len < kv_len_in:
-        tail = (torch.arange(kv_len_in, device=k.device) >= kv_len)[:, None]
-        k = k.masked_fill(tail, 0)
-        v = v.masked_fill(tail, 0)
+    k, v, kv_len = _online_kv(k, v, kv_valid)
+    q = (q.float() * _online_fold(sm_scale, q.shape[-1])).to(q.dtype)
     return q, k, v, kv_len
+
+
+def _online_bf16_launch(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float) -> None:
+    """The K4 bf16 kernel alone on prepared operands: q [BH, Sq, 64] (not
+    yet folded; the kernel rounds bf16(q * fold)), k/v [BH, Skv, 64] with
+    rows >= kv_len zeroed, out [BH, Sq, 64]; all bf16 and contiguous."""
+    bh, sq, _ = qh.shape
+    rc = _build.lib().aether_flash_online_bf16(
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
+        bh, sq, kh.shape[1], kv_len, int(round_l), fold, _build.stream_ptr(qh.device))
+    _build.check(rc, "aether_flash_online_bf16")
 
 
 def flash_attention_plain(
@@ -334,14 +360,16 @@ class _FixedMaxOperands(NamedTuple):
 
 def _group_absmax(x: torch.Tensor, hper: int) -> torch.Tensor:
     """[BH, S, D] -> [BH / hper] f32: max |x| over each head group, floored
-    at 1e-30 (the symmetric quantization's max-abs scale)."""
-    return x.float().abs().reshape(x.shape[0] // hper, -1).amax(dim=-1).clamp_min(1e-30)
+    at 1e-30 (the symmetric quantization's max-abs scale). One pass over x
+    in its own dtype: max |x| = max(max x, -min x), exactly."""
+    lo, hi = torch.aminmax(x.reshape(x.shape[0] // hper, -1), dim=-1)
+    return torch.maximum(hi.float(), -lo.float()).clamp_min(1e-30)
 
 
 def _quantize_groups(x: torch.Tensor, absmax: torch.Tensor, hper: int) -> torch.Tensor:
     """Symmetric int8 codes ``rint(x * 127 / absmax[group])``."""
     r = (127.0 / absmax).repeat_interleave(hper)[:, None, None]
-    return torch.round(x.float() * r).to(torch.int8)
+    return (x * r).round_().to(torch.int8)  # x * r in f32 (type promotion)
 
 
 def _fixed_max_operands(q, k, v, *, sm_scale, kv_valid, heads_per_cell,
@@ -376,6 +404,8 @@ def _fixed_max_operands(q, k, v, *, sm_scale, kv_valid, heads_per_cell,
     if score_bound is not None:
         bounds = torch.as_tensor(score_bound, dtype=torch.float32,
                                  device=q.device).reshape(()).repeat(groups)
+    elif pv_int8:  # K6 derives its own integer max and reads no shift
+        bounds = torch.zeros(groups, dtype=torch.float32, device=q.device)
     else:
         qn = qh.float().square().sum(dim=-1).sqrt().amax(dim=-1)
         kn = kh.float().square().sum(dim=-1).sqrt().amax(dim=-1)
@@ -653,6 +683,33 @@ def _pv8_v_layout(v8: torch.Tensor) -> torch.Tensor:
     return v8.index_select(1, idx.to(v8.device)).transpose(1, 2).contiguous()
 
 
+def _pv8_operands(q, k, v, *, sm_scale, kv_valid, block_k, heads_per_cell):
+    """K6's prepared operands, as the wrapper hands them to the kernel:
+    (q8 [BH, Sq_pad, 64], k8 [BH, Skv_pad, 64], v8 in ``_pv8_v_layout``,
+    the prepared operands with their scales, span)."""
+    ops = _fixed_max_operands(q, k, v, sm_scale=sm_scale, kv_valid=kv_valid,
+                              heads_per_cell=heads_per_cell, noshift=False,
+                              qk_int8=True, pv_int8=True, score_bound=None,
+                              unnormalized=False)
+    skv = k.shape[2]
+    span = _pick_block(skv, block_k)
+    sq_pad = -(-q.shape[2] // _FIXED_TILE) * _FIXED_TILE
+    skv_pad = -(-skv // span) * span
+    return (_pad_rows(ops.q, sq_pad), _pad_rows(ops.k, skv_pad),
+            _pv8_v_layout(_pad_rows(ops.v, skv_pad)), ops, span)
+
+
+def _pv8_launch(qp, kp, vt, ops: _FixedMaxOperands, span: int, out) -> None:
+    """The K6 kernel alone on :func:`_pv8_operands`' result; out [BH,
+    Sq_pad, 64] f32 or bf16."""
+    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+    rc = _build.lib().aether_flash_pv8(
+        qp.data_ptr(), kp.data_ptr(), vt.data_ptr(), ops.scale.data_ptr(),
+        ops.vscale.data_ptr(), out.data_ptr(), qp.shape[0], qp.shape[1], kp.shape[1],
+        ops.kv_len, ops.hper, span, dtypes[out.dtype], _build.stream_ptr(qp.device))
+    _build.check(rc, "aether_flash_pv8")
+
+
 def flash_attention_pv8(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -675,25 +732,11 @@ def flash_attention_pv8(
     if not q.is_cuda:
         return flash_attention_pv8_plain(q, k, v, block_q=block_q,
                                          block_k=block_k, **opts)
-    dtypes = {torch.float32: 0, torch.bfloat16: 1}
-    _check_fixed_max_inputs("K6", q, k, v, tuple(dtypes))
+    _check_fixed_max_inputs("K6", q, k, v, (torch.float32, torch.bfloat16))
     b, h, sq, dim = q.shape
-    skv = k.shape[2]
-    ops = _fixed_max_operands(q, k, v, noshift=False, qk_int8=True, pv_int8=True,
-                              score_bound=None, unnormalized=False, **opts)
-    bh = b * h
-    span = _pick_block(skv, block_k)
-    sq_pad = -(-sq // _FIXED_TILE) * _FIXED_TILE
-    skv_pad = -(-skv // span) * span
-    qp = _pad_rows(ops.q, sq_pad)
-    kp = _pad_rows(ops.k, skv_pad)
-    vt = _pv8_v_layout(_pad_rows(ops.v, skv_pad))
-    out = torch.empty((bh, sq_pad, dim), dtype=q.dtype, device=q.device)
-    rc = _build.lib().aether_flash_pv8(
-        qp.data_ptr(), kp.data_ptr(), vt.data_ptr(), ops.scale.data_ptr(),
-        ops.vscale.data_ptr(), out.data_ptr(), bh, sq_pad, skv_pad, ops.kv_len,
-        ops.hper, span, dtypes[q.dtype], _build.stream_ptr(q.device))
-    _build.check(rc, "aether_flash_pv8")
+    qp, kp, vt, ops, span = _pv8_operands(q, k, v, block_k=block_k, **opts)
+    out = torch.empty((b * h, qp.shape[1], dim), dtype=q.dtype, device=q.device)
+    _pv8_launch(qp, kp, vt, ops, span, out)
     flash_attention_pv8.launches += 1
     return _finish_heads(out, b, h, sq)
 
@@ -733,8 +776,9 @@ def flash_attention(
     ``unnormalized`` returns ``(o, l)`` (see :func:`flash_attention_fixed_max`).
 
     A CPU tensor runs the plain versions. A CUDA tensor launches a Hopper
-    kernel or raises; there is no fallback. ``flash_attention.launches``
-    counts K4's launches.
+    kernel or raises; there is no fallback: K4 in f32 launches
+    ``csrc/flash_online.cu``, in bf16 ``csrc/flash_online_bf16.cu``.
+    ``flash_attention.launches`` counts K4's launches of either.
     """
     if qk_int8 and not fixed_max:
         raise ValueError("qk_int8 requires fixed_max=True (the int8 "
@@ -779,16 +823,25 @@ def flash_attention(
             f"K4 takes head_dim 64 on CUDA, got {dim}: other head dims, the "
             "'vpu' head_dim >= 128 case among them, are later work "
             "(ROADMAP.md, queue 2)")
-    dtypes = {torch.float32: 0, torch.bfloat16: 1}
-    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+    if (q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype
+            or v.dtype != q.dtype):
         raise TypeError(f"K4 takes f32 or bf16 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
     for name, t in (("k", k), ("v", v)):
         if tuple(t.shape) != (b, h, skv, dim) or t.device != q.device:
             raise ValueError(f"{name} {tuple(t.shape)} on {t.device} does not "
                              f"match ({b}, {h}, {skv}, {dim}) on {q.device}")
-    q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
     bh = b * h
+    if q.dtype == torch.bfloat16:
+        # the fold happens in the kernel; TMA reads past the ends as zeros
+        k, v, kv_len = _online_kv(k, v, kv_valid)
+        qh, kh, vh = (t.reshape(bh, t.shape[2], dim).contiguous() for t in (q, k, v))
+        out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
+        _online_bf16_launch(qh, kh, vh, out, kv_len, denom == "mxu",
+                            _online_fold(sm_scale, dim))
+        flash_attention.launches += 1
+        return out.reshape(b, h, sq, dim)
+    q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
     sq_pad = -(-sq // _K4_TILE) * _K4_TILE
     skv_pad = -(-skv // _K4_TILE) * _K4_TILE
     # rows >= kv_len are already zero (_online_operands)
@@ -797,8 +850,7 @@ def flash_attention(
     out = torch.empty((bh, sq_pad, dim), dtype=q.dtype, device=q.device)
     rc = _build.lib().aether_flash_online(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-        bh, sq_pad, skv_pad, kv_len, dtypes[q.dtype], int(denom == "mxu"),
-        _build.stream_ptr(q.device))
+        bh, sq_pad, skv_pad, kv_len, _build.stream_ptr(q.device))
     _build.check(rc, "aether_flash_online")
     flash_attention.launches += 1
     return _finish_heads(out, b, h, sq)

@@ -17,7 +17,9 @@ Phases (each prints its result; any failure raises and exits non-zero):
      each kernel per request, and bit-identical outputs;
   7. K4 (``flash_attention``, online softmax) against
      ``flash_attention_plain`` at the training shape, B=1, 48 heads, 15076
-     tokens, head_dim 64, in f32 and in bf16, with times and TFLOP/s;
+     tokens, head_dim 64, in f32 (max abs 1e-4) and in bf16 (the wgmma
+     kernel, at ``bf16_gates``), with times and TFLOP/s, and the bf16 kernel
+     alone on prepared operands beside its wrapper call;
   8. ``flash_attention_trainable`` (K4 forward, blockwise backward): value
      and gradients against autograd through ``attention_reference``;
   9. the fine-tuning path: a ``Trainer`` on the AetherV1 width at 16 blocks
@@ -29,7 +31,8 @@ Phases (each prints its result; any failure raises and exits non-zero):
      pair's shape, B=2, 48 heads, 15076 tokens, head_dim 64, bf16, with int8
      and with bf16 QK^T; K3 unnormalized with a score bound on a
      sequence-parallel stripe (Sq < Skv, ``kv_valid``); K6
-     (``flash_attention_pv8``) against its plain version at the CFG shape;
+     (``flash_attention_pv8``, the wgmma kernel) against its plain version at
+     the CFG shape, and K6 alone on prepared operands;
  11. one prediction request on the phase-5 pipeline (built again from its
      seeds) at ``AETHER_ATTN_FUSED=0``: the task defaults (50 steps,
      guidance 3, dynamic CFG), a seeded image and (41, 6, 60, 90) raymap;
@@ -75,18 +78,24 @@ Phases of the tuning-variant slice:
      gates of ``bf16_gates``; after phase 6, one 41x480x720 reconstruction
      request at ``AETHER_ATTN_QK8=0``: shapes, finite values, the RGB range,
      168 launches of each of K1 and K2, stage times and peak memory.
+ 14b. after phase 14's request, one 41x480x720 reconstruction request at
+     ``AETHER_ATTN_FIXED_MAX=0`` (the DiT's attention through K4 bf16):
+     shapes, finite values, the RGB range, exactly 168 K4 launches, no K1 or
+     K2 launch, K5 at its count; stage times and peak memory.
 The line before the last is a JSON object with each kernel's launches on its
 path, error against its plain version, times, the bound (the least time the
-card could take: the larger of bytes over 3.35 TB/s and operations over the
-peak of their type) and the time of one PyTorch call computing the same
-function where there is one; the last line is the JSON status line. There is
-no CPU path: without CUDA the script raises.
+card could take: the largest of bytes over 3.35 TB/s, operations over the
+peak of their type, and for attention one exp2 a score over the SFU's 16 a
+clock an SM at the card's maximum SM clock) and the time of one PyTorch call
+computing the same function where there is one; the last line is the JSON
+status line. There is no CPU path: without CUDA the script raises.
 """
 
 import dataclasses
 import gc
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -104,6 +113,11 @@ LONG_FRAMES, STRIDE = 65, 24  # two 41-frame windows, starts 0 and 24
 # H100 SXM at 700 W (NVIDIA's data sheet): memory rate, dense peaks by type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# exp2 results a clock on one SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0); main() multiplies by the
+# SM count and the maximum SM clock
+SFU_PER_CLOCK_PER_SM = 16
+SFU_PER_S = None
 K5_SHAPES = ((2, 128, 9, 256, 720), (2, 512, 5, 32, 90))  # 480p decode stage, latent stage
 
 
@@ -161,12 +175,21 @@ def padfix_uncorrected(q, k, v, seq_pad):
         q, torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad))
 
 
-def bound(nbytes, ops):
-    """(ms, what bounds it): the larger of ``nbytes`` over the memory rate and
-    the operations ``ops`` ({type: count}) over their peaks."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
-    return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+def bound(nbytes, ops, exp2=0.0):
+    """(ms, what bounds it): the largest of ``nbytes`` over the memory rate,
+    the operations ``ops`` ({type: count}) over their peaks, and ``exp2``
+    evaluations over the SFU's rate (``SFU_PER_S``)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items()),
+             "sfu": exp2 / SFU_PER_S}
+    by = max(terms, key=terms.get)
+    return (1e3 * terms[by], by)
+
+
+def attention_exp2(b):
+    """exp2 evaluations of one attention call over b x 48 heads x 15076
+    tokens: one a score."""
+    return float(b) * HEADS * SEQ * SEQ
 
 
 def attention_ops(b, s, kinds):
@@ -204,9 +227,17 @@ def time_pair(name, kernel, plain, flops):
 
 def k4_phase(dev, gen, dtype):
     """K4 against its plain version at B=1, 48 heads, 15076 tokens, head_dim
-    64. Gates: f32 max abs 1e-4; bf16 max 1e-2 and mean 1e-3, as K2.
-    Returns (max abs error, kernel ms, plain ms)."""
-    from aether_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    64. Gates: f32 max abs 1e-4; bf16 ``bf16_gates``. Returns (max abs
+    error, kernel ms, plain ms, kernel-alone ms or None): for bf16 the
+    kernel is also timed alone on the operands its wrapper prepares, so the
+    wrapper's own passes show apart."""
+    from aether_tpu_torch.ops.flash_attention import (
+        _online_bf16_launch,
+        _online_fold,
+        _online_kv,
+        flash_attention,
+        flash_attention_plain,
+    )
 
     name = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
     shape = (1, HEADS, SEQ, HEAD_DIM)
@@ -221,10 +252,25 @@ def k4_phase(dev, gen, dtype):
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     check(out.shape == shape, f"K4 {name} {out.shape}")
-    bars = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 1e-3)
+    bars = (1e-4, 1e-4) if dtype == torch.float32 else bf16_gates(ref)
     err = compare(f"K4 {name}", out, ref, *bars)
+    again = kernel()
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"K4 {name}: two launches differ")
     flops = 4.0 * HEADS * SEQ * SEQ * HEAD_DIM
-    return (err, *time_pair(f"K4 {name}", kernel, plain, flops))
+    ms, plain_ms = time_pair(f"K4 {name}", kernel, plain, flops)
+    alone_ms = None
+    if dtype == torch.bfloat16:
+        kh, vh, kv_len = _online_kv(k, v, None)
+        qh, kh, vh = (t.reshape(HEADS, SEQ, HEAD_DIM).contiguous() for t in (q, kh, vh))
+        buf = torch.empty_like(qh)
+        alone_ms = cuda_time_ms(lambda: _online_bf16_launch(
+            qh, kh, vh, buf, kv_len, True, _online_fold(None, HEAD_DIM)), 5)
+        torch.cuda.synchronize()
+        check(torch.equal(buf.reshape(shape), out), "K4 bf16 alone differs from its wrapper")
+        log(f"K4 bf16 kernel alone: {alone_ms:.4f} ms ({flops / alone_ms / 1e9:.1f} TFLOP/s); "
+            f"the wrapper's passes {ms - alone_ms:.4f} ms")
+    return err, ms, plain_ms, alone_ms
 
 
 def trainable_phase(dev, gen):
@@ -573,6 +619,8 @@ def fixed_max_phase(dev, gen):
     its plain version's function up to exp2f's last bit, so its mean error
     is held to 1e-4. Returns {name: (max abs error, kernel ms, plain ms)}."""
     from aether_tpu_torch.ops.flash_attention import (
+        _pv8_launch,
+        _pv8_operands,
         flash_attention_fixed_max,
         flash_attention_fixed_max_plain,
         flash_attention_pv8,
@@ -601,8 +649,21 @@ def fixed_max_phase(dev, gen):
     out, ref = flash_attention_pv8(q, k, v), flash_attention_pv8_plain(q, k, v)
     torch.cuda.synchronize()
     err = compare("K6", out, ref, 1e-2, 1e-4)
+    check(torch.equal(out, flash_attention_pv8(q, k, v)), "K6: two launches differ")
     results["K6"] = (err, *time_pair("K6", lambda: flash_attention_pv8(q, k, v),
                                      lambda: flash_attention_pv8_plain(q, k, v), flops))
+    # K6 alone on the operands its wrapper prepares (quantized, padded, v8
+    # transposed and permuted): the wrapper's passes show apart
+    qp, kp, vt, ops, span = _pv8_operands(q, k, v, sm_scale=None, kv_valid=None,
+                                          block_k=1024, heads_per_cell=4)
+    buf = torch.empty((2 * HEADS, qp.shape[1], HEAD_DIM), dtype=q.dtype, device=dev)
+    alone_ms = cuda_time_ms(lambda: _pv8_launch(qp, kp, vt, ops, span, buf), 5)
+    torch.cuda.synchronize()
+    check(torch.equal(buf[:, :SEQ].reshape(shape), out), "K6 alone differs from its wrapper")
+    log(f"K6 kernel alone: {alone_ms:.4f} ms (span {span}); the wrapper's passes "
+        f"{results['K6'][1] - alone_ms:.4f} ms")
+    results["K6 alone"] = alone_ms
+    del qp, kp, vt, ops, buf
 
     # a sequence-parallel stripe: 4 shards of 64-row multiples, the 15076
     # tokens padded to 15104 (stripes of 3776)
@@ -799,6 +860,44 @@ def float_request_phase(pipe, video, dev):
     return counts
 
 
+def online_request_phase(pipe, video, dev):
+    """One reconstruction request at ``AETHER_ATTN_FIXED_MAX=0``: the DiT's
+    attention through K4 bf16, none through K1 or K2. Returns K4's launches
+    in the request."""
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import flash_attention, flash_attention_prepacked
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+
+    kernels = (qkv_prologue, flash_attention_prepacked, flash_attention, groupnorm_moments)
+    saved = os.environ.get("AETHER_ATTN_FIXED_MAX")
+    os.environ["AETHER_ATTN_FIXED_MAX"] = "0"
+    try:
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = pipe(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
+                   num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = [fn.launches for fn in kernels]
+    finally:
+        if saved is None:
+            os.environ.pop("AETHER_ATTN_FIXED_MAX", None)
+        else:
+            os.environ["AETHER_ATTN_FIXED_MAX"] = saved
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+    log(f"request at AETHER_ATTN_FIXED_MAX=0: {wall:.3f} s ({stages}); K1/K2/K4/K5 "
+        f"launches {'/'.join(map(str, counts))}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    n = pipe.config.dit.num_layers * STEPS
+    k5 = expected_k5(pipe, FRAMES)
+    check(counts == [0, 0, n, k5],
+          f"expected {n} K4 and {k5} K5 launches, no K1 or K2, at FIXED_MAX=0")
+    check_request(res, FRAMES, "request at AETHER_ATTN_FIXED_MAX=0")
+    return counts[2]
+
+
 def variants_phase(dev, gen):
     """K7, K8 and K9 against their plain versions at (1, 48, 15076, 64)
     bf16, one launch a call, at ``bf16_gates``; a padfix without its
@@ -938,14 +1037,28 @@ def main() -> None:
     log(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     log(smi)  # the card's name and power limit, exactly as nvidia-smi gives them
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    global SFU_PER_S
+    SFU_PER_S = SFU_PER_CLOCK_PER_SM * n_sm * max_sm_mhz * 1e6
+    log(f"SFU exp2 rate for the bounds: {SFU_PER_CLOCK_PER_SM} x {n_sm} SMs x "
+        f"{max_sm_mhz:.0f} MHz (clocks.max.sm) = {SFU_PER_S:.4e} per s")
 
     # ---- 2. build ----
     t0 = time.perf_counter()
     _build.lib()
     log(f"build: {time.perf_counter() - t0:.3f} s -> {_build.BUILD_LOG['path']}")
+    kernel = "?"
     for line in _build.BUILD_LOG["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            # the mangled name: <file>_cu_<hash><length><function><template arguments>
+            mangled = line.split("'")[1]
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+            kernel = (mangled[m.end():m.end() + int(m.group(1)) + 24] if m else mangled[:72])
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {kernel}: {line.strip()}")
 
     # ---- 3. K1 at the main-path shape ----
     cfg = PipelineConfig.aetherv1()
@@ -1078,6 +1191,9 @@ def main() -> None:
     # ---- 14. one request through the float K1 and K2 ----
     k1f_launches, k2f_launches = float_request_phase(pipe, video, dev)
 
+    # ---- 14b. one request through K4 bf16 (AETHER_ATTN_FIXED_MAX=0) ----
+    k4b_launches = online_request_phase(pipe, video, dev)
+
     # ---- 6b. geometry on the card ----
     geometry_phase(dev)
 
@@ -1107,7 +1223,8 @@ def main() -> None:
     bench_launches = bench_phase()
 
     # ---- bounds and library yardsticks ----
-    k4_err, k4_ms, k4_plain_ms = k4[torch.float32]
+    k4_err, k4_ms, k4_plain_ms, _ = k4[torch.float32]
+    k4b_err, k4b_ms, k4b_plain_ms, k4b_alone_ms = k4[torch.bfloat16]
     k3_err, k3_ms, k3_plain_ms = fixed["K3 int8 QK^T"]
     k6_err, k6_ms, k6_plain_ms = fixed["K6"]
     d, half = HEADS * HEAD_DIM, HEADS * s_pad * HEAD_DIM
@@ -1115,19 +1232,25 @@ def main() -> None:
     # small); ~30 f32 ops an element of q and k
     k1_bound = bound(s_pad * 3 * d * 2 + 2 * half + 2 * half,
                      {"f32": 30.0 * 2 * SEQ * d})
-    # attention: q/k/v in, out written once; QK^T and PV over the valid tokens
-    k2_bound = bound(2 * half + 2 * 2 * half, attention_ops(1, SEQ, ("int8", "bf16")))
-    k3_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(2, SEQ, ("int8", "bf16")))
+    # attention: q/k/v in, out written once; QK^T and PV over the valid
+    # tokens; one exp2 a score (K6 evaluates it in its second sweep only)
+    e1, e2 = attention_exp2(1), attention_exp2(2)
+    k2_bound = bound(2 * half + 2 * 2 * half, attention_ops(1, SEQ, ("int8", "bf16")), e1)
+    k3_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(2, SEQ, ("int8", "bf16")),
+                     e2)
     k3_bf16_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM,
-                          attention_ops(2, SEQ, ("bf16", "bf16")))
-    k4_bound = bound(4 * 4 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("f32", "f32")))
-    k4_bf16_bound = bound(4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("bf16", "bf16")))
-    k6_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(2, SEQ, ("int8", "int8")))
+                          attention_ops(2, SEQ, ("bf16", "bf16")), e2)
+    k4_bound = bound(4 * 4 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("f32", "f32")), e1)
+    k4_bf16_bound = bound(4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("bf16", "bf16")),
+                          e1)
+    k6_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(2, SEQ, ("int8", "int8")),
+                     e2)
     # the float K1 writes bf16 q/k; the float K2 reads them
     k1f_bound = bound(s_pad * 3 * d * 2 + 3 * 2 * half, {"f32": 30.0 * 2 * SEQ * d})
-    k2f_bound = bound(4 * 2 * half, attention_ops(1, SEQ, ("bf16", "bf16")))
+    k2f_bound = bound(4 * 2 * half, attention_ops(1, SEQ, ("bf16", "bf16")), e1)
     # K7-K9: bf16 q, k, v read and out written once; bf16 QK^T and PV
-    var_bound = bound(4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("bf16", "bf16")))
+    var_bound = bound(4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("bf16", "bf16")),
+                      e1)
     lib = {"K2": sdpa_ms(dev, gen, 1, torch.bfloat16),
            "K4": sdpa_ms(dev, gen, 1, torch.float32),
            "K4 bf16": sdpa_ms(dev, gen, 1, torch.bfloat16),
@@ -1138,7 +1261,11 @@ def main() -> None:
         f"{k1f_bound}, K2 float {k2f_bound}, K7-K9 {var_bound}")
     log("scaled_dot_product_attention (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in lib.items())
-        + "; K4 bf16 kernel {:.4f} ms".format(k4[torch.bfloat16][1]))
+        + f"; K4 bf16 kernel {k4b_ms:.4f} ms (alone {k4b_alone_ms:.4f}), K7 "
+        f"{variants['K7'][1]:.4f} ms; K6 {k6_ms:.4f} ms (alone {fixed['K6 alone']:.4f}), "
+        f"K3 int8 QK^T {k3_ms:.4f} ms")
+    check(k4b_ms < variants["K7"][1], "K4 bf16 is not faster than K7 at 1024x1024")
+    check(k6_ms < k3_ms, "K6 is not faster than K3 with int8 QK^T")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda", "source": f"aether_tpu_torch/csrc/{source}",
@@ -1154,6 +1281,9 @@ def main() -> None:
               k2_plain_ms, k2_bound, lib["K2"]),
         entry("flash_online", "flash_online.cu", "aether_tpu/ops/flash_attention.py:69",
               k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound, lib["K4"]),
+        entry("flash_online_bf16", "flash_online_bf16.cu",
+              "aether_tpu/ops/flash_attention.py:69", k4b_launches, k4b_err, k4b_ms,
+              k4b_plain_ms, k4_bf16_bound, lib["K4 bf16"]),
         entry("flash_fixed_max", "flash_fixed_max.cu",
               "aether_tpu/ops/flash_attention.py:151", k3_launches, k3_err, k3_ms,
               k3_plain_ms, k3_bound, lib["K3/K6"]),

@@ -243,3 +243,42 @@ def test_argument_rules_match_jax(kw, match):
         jax_flash_attention(jq, jk, jv, interpret=True, **kw)
     with pytest.raises(ValueError, match=match):
         flash_attention(tq, tk, tv, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_quantization_one_pass_forms_equal_the_reference(dtype):
+    """``_group_absmax`` (one aminmax pass in x's dtype) and
+    ``_quantize_groups`` (x * r promoted to f32, rounded in place) give the
+    bits of the direct forms ``x.float().abs().amax()`` and
+    ``round(x.float() * r)``, groups led by a negative or a positive value."""
+    from aether_tpu_torch.ops.flash_attention import _group_absmax, _quantize_groups
+
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((6, 50, 64)).astype(np.float32)).to(dtype)
+    x[0, 3, 5] = -9.0  # group 0 led by a negative value
+    x[4, 7, 1] = 7.5   # group 2 by a positive one
+    hper = 2
+    absmax = _group_absmax(x, hper)
+    ref = x.float().abs().reshape(3, -1).amax(dim=-1).clamp_min(1e-30)
+    assert absmax.dtype == torch.float32 and torch.equal(absmax, ref)
+    r = (127.0 / ref).repeat_interleave(hper)[:, None, None]
+    assert torch.equal(_quantize_groups(x, absmax, hper),
+                       torch.round(x.float() * r).to(torch.int8))
+
+
+def test_pv8_operands_skip_the_unused_shift():
+    """K6 derives its own integer max, so its preparation computes no
+    Cauchy-Schwarz shift; everything it hands the kernel is what the K6
+    preparation with the bound gave: codes, scales, padding, v layout."""
+    from aether_tpu_torch.ops.flash_attention import _fixed_max_operands, _pv8_operands
+
+    q, k, v = (torch.from_numpy(a) for a in _inputs((1, 3, 150, 64), 5, (1, 3, 300, 64)))
+    kw = dict(sm_scale=None, kv_valid=280, heads_per_cell=4)
+    qp, kp, vt, ops, span = _pv8_operands(q, k, v, block_k=128, **kw)
+    assert span == 128 and not ops.shift.any()
+    full = _fixed_max_operands(q, k, v, noshift=False, qk_int8=True, pv_int8=False,
+                               score_bound=None, unnormalized=False, **kw)
+    assert torch.equal(qp[:, :150], full.q) and not qp[:, 150:].any()
+    assert qp.shape[1] == 192 and kp.shape[1] == 384 and not kp[:, 280:].any()
+    assert torch.equal(kp[:, :300], full.k) and torch.equal(ops.scale, full.scale)
+    assert vt.shape == (3, 64, 384)

@@ -13,6 +13,8 @@ The CUDA kernel is held against the same plain version on the card
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -155,3 +157,26 @@ def test_unported_options_raise():
     assert torch.equal(out, flash_attention_plain(tq, tk, tv, denom="vpu"))
     with pytest.raises(ValueError, match="denom"):
         flash_attention_plain(tq[..., :64], tk[..., :64], tv[..., :64], denom="x")
+
+
+def test_online_preparation_splits_into_fold_and_kv_tail():
+    """The bf16 CUDA path folds q in the kernel and takes k/v from
+    ``_online_kv``; together with ``_online_fold`` they are the JAX
+    wrapper's preparation, ``_online_operands``."""
+    from aether_tpu_torch.ops import _build
+    from aether_tpu_torch.ops.flash_attention import _online_fold, _online_kv, _online_operands
+
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 70, 64)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    qo, ko, vo, kv_len = _online_operands(q, k, v, None, 50)
+    k2, v2, kv_len2 = _online_kv(k, v, 50)
+    assert kv_len == kv_len2 == 50 and not k2[:, :, 50:].any() and not v2[:, :, 50:].any()
+    assert torch.equal(ko, k2) and torch.equal(vo, v2)
+    assert _online_fold(None, 64) == 0.125 * 1.4426950408889634
+    assert torch.equal(qo, (q.float() * _online_fold(None, 64)).to(torch.bfloat16))
+    assert _online_fold(0.5, 64) == 0.5 * 1.4426950408889634
+    # the bf16 kernel's C entry point: q, k, v, out, BH, sq, skv, kv_len,
+    # round_l, the fold as a float, the stream
+    sig = _build.SIGNATURES["aether_flash_online_bf16"]
+    assert len(sig) == 11 and sig[9] is ctypes.c_float

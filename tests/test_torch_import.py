@@ -70,14 +70,15 @@ def test_no_source_file_imports_jax():
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in (_PKG / "csrc").glob("*.cu"))
     assert names == ["attn_prologue.cu", "flash_fixed_max.cu", "flash_online.cu",
-                     "flash_prepacked.cu", "flash_pv8.cu", "flash_variants.cu",
-                     "groupnorm_moments.cu"]
+                     "flash_online_bf16.cu", "flash_prepacked.cu", "flash_pv8.cu",
+                     "flash_variants.cu", "groupnorm_moments.cu"]
+    assert sorted(p.name for p in (_PKG / "csrc").glob("*.cuh")) == ["hopper.cuh"]
     from aether_tpu_torch.ops import _build
 
     assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_flash_prepacked",
-                                      "aether_flash_online", "aether_flash_fixed_max",
-                                      "aether_flash_pv8", "aether_flash_variants",
-                                      "aether_groupnorm_moments"}
+                                      "aether_flash_online", "aether_flash_online_bf16",
+                                      "aether_flash_fixed_max", "aether_flash_pv8",
+                                      "aether_flash_variants", "aether_groupnorm_moments"}
     for name in _build.SIGNATURES:
         src = "".join(p.read_text() for p in (_PKG / "csrc").glob("*.cu"))
         assert f'extern "C" int {name}(' in src
