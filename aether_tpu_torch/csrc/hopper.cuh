@@ -1,5 +1,6 @@
 // Shared pieces of the port's Hopper (sm_90a) attention kernels that use
-// wgmma and TMA (flash_online_bf16.cu, flash_pv8.cu): shared-memory matrix
+// wgmma and TMA (online_cell.cuh, the cell of flash_online_bf16.cu and
+// flash_variants.cu; flash_pv8.cu): shared-memory matrix
 // descriptors, the wgmma instructions they issue with their fences, the
 // mbarrier ring, TMA tile loads and the host-side tensor-map encoding.
 //
@@ -16,8 +17,10 @@
 //   MN-major operand (bf16 only; wgmma's transpose bit): rows are the
 //     reduction dimension, 64 bf16 of the other dimension per 128-byte row;
 //     8-row groups are SBO = 1024 bytes apart, and one k step of 16 rows
-//     advances the start address by 2048 bytes. LBO, the stride between
-//     64-wide blocks of the other dimension, is unused at width 64.
+//     advances the start address by 2048 bytes. LBO is the stride between
+//     64-wide blocks of the other dimension: unused at width 64 (V in P V);
+//     at width 128 (K^T as the B operand of Q K^T, two TMA boxes of 64
+//     columns one above the other) LBO = 64 rows * 128 bytes = 8192.
 // Accumulator fragments (f32 or s32) of an m64nN wgmma: thread t of the
 // warpgroup (warp w = t / 32, lane l) holds d[4j + e] at row 16w + l/4 +
 // 8 (e / 2), column 8j + 2 (l % 4) + e % 2. The A fragment from registers
@@ -101,9 +104,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
 }
 
 // ---- wgmma instructions (A and B from shared memory: _ss; A from registers: _rs) ----
-// bf16: scale-a 1, scale-b 1; _ss both K-major; _rs_bf16_vt B MN-major
-// (transpose bit). s8: both operands K-major (the only form for 8-bit types).
+// bf16: scale-a 1, scale-b 1; _ss A K-major, B K-major or, with kTransB = 1,
+// MN-major; _rs_bf16_vt B MN-major (the transpose bit). s8: both operands
+// K-major (the only form for 8-bit types).
 
+// kTransB: B MN-major (wgmma's transpose bit) instead of K-major
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss_bf16(float (&d)[64], uint64_t da,
                                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -117,7 +123,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_bf16(float (&d)[64], uint64_
       " %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -134,7 +140,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_bf16(float (&d)[64], uint64_
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
 __device__ __forceinline__ void wgmma_m64n64k16_rs_bf16_vt(float (&d)[32], const uint32_t (&a)[4],

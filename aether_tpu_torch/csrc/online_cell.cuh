@@ -1,0 +1,396 @@
+// The online-softmax attention cell on wgmma with TMA, written by hand for
+// Hopper (sm_90a): one kernel template over compile-time switches, shared by
+// K4 in bf16 (flash_online_bf16.cu) and the tuning variants K7-K9
+// (flash_variants.cu). Non-causal, head_dim 64, bf16 q/k/v and output:
+//   q   = bf16(q * qscale)                      (here, in shared memory)
+//   s   = q . k^T                               (f32 sums of bf16 products)
+//   s   = -0.7 * f32max  where column >= kv_end (every tile, or only the tile
+//                                                that crosses kv_end)
+//   m'  = max(m, rowmax s),  alpha = e(m - m'),  p = e(s - m')
+//   acc = alpha * acc + bf16(p) . v
+//   l   = alpha * l + sum bf16(p)   (round_l)  or  + sum p  (!round_l)
+//   l  -= pad * e(-m)                           (padfix)
+//   out = bf16(acc / l), l <= 0 divides by 1
+// The switches:
+//   kExp2   e is 2^x (q folded with log2(e)); otherwise e^x, computed as one
+//           ex2.approx of fma(s, log2 e, -m log2 e), the same form for alpha;
+//   kMask   kMaskTail: only the tile that crosses kv_end is masked;
+//           kMaskAll: every tile (the same function; what masking costs);
+//           kMaskPadfix: as kMaskTail with kv_end = the padded length, and
+//           the final l drops the `pad` zero keys' mass, pad * e(-m), with the
+//           accurate exp2f / expf once a row;
+//   kKt     K arrives transposed, [BH, 64, k_row] (k_row a multiple of 8, so
+//           TMA's 16-byte row stride holds): its tile is the B operand of
+//           Q K^T in MN-major form, two TMA boxes of 64 columns;
+//   kHeads  a persistent grid: each CTA walks (head group, q tile) items of
+//           `hper` heads in turn, the TMA ring running on across heads with
+//           no drain and q double-buffered. The items of the last, partial
+//           round are split by head over every CTA, so no SM idles for more
+//           than one head-tile while others finish (PERF.md reckons the
+//           tail of a plain grid for each hper of the sweep).
+// Without kHeads the grid is (q tiles, B*H), one head-tile a CTA.
+//
+// The design (FlashAttention-3's shape at head_dim 64): a CTA takes 192 q
+// rows, three consumer warpgroups of 64 rows and one producer warp. The
+// producer keeps K and V tiles of 128 kv rows in a ring of kStages
+// shared-memory slots by TMA (128-byte swizzle, mbarriers); rows past the
+// tensors' ends arrive as zeros, so no wrapper pads (padfix's pad keys are
+// that zero fill and score exactly 0, as zero-padded keys do). S = Q K^T is
+// wgmma m64n128k16 from shared memory; the softmax runs on the f32
+// accumulator fragment in registers; bf16(p) becomes the A operand of P V in
+// registers, V the B operand through wgmma's transpose bit. A tile's P V stays
+// in flight while the next tile's Q K^T is issued. p is one SFU instruction
+// (exp2_ftz: p below 2^-126 counts as 0, which a bf16 output cannot see);
+// tiles wholly past kv_end change nothing and are skipped. Built without
+// --use_fast_math so exp2f, expf (alpha, the padfix term) and the division
+// stay accurate.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
+
+// internal linkage: each source that includes the cell builds its own
+// instances, as a kernel in one source would be
+namespace {
+namespace online_cell {
+
+using namespace hopper;
+
+constexpr int kD = 64;
+constexpr int kWG = 3;                      // consumer warpgroups, 64 q rows each
+constexpr int kBM = 64 * kWG;               // q rows per CTA
+constexpr int kBN = 128;                    // kv rows per tile
+constexpr int kStages = 3;
+constexpr int kConsumers = 128 * kWG;
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr int kTileBytes = kBN * kD * 2;    // 16 KB, one K or V tile
+constexpr int kQBytes = kBM * kD * 2;       // 24 KB
+constexpr float kNegInf = -0.7f * 3.40282347e38f;  // the TPU kernels' mask
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
+
+enum Mask { kMaskAll = 0, kMaskTail = 1, kMaskPadfix = 2 };
+
+template <int kQBufs>
+struct Smem {
+  __nv_bfloat16 q[kQBufs][kBM * kD];
+  __nv_bfloat16 k[kStages][kBN * kD];  // K rows, or K^T as two 64-column boxes
+  __nv_bfloat16 v[kStages][kBN * kD];
+  Ring<kStages> ring;
+  uint64_t q_full[kQBufs];
+  uint64_t q_empty[kQBufs];  // kHeads: every consumer has read the q buffer
+};
+
+struct Params {
+  __nv_bfloat16* out;  // [BH, sq, 64]
+  int sq, kv_end, round_l, pad;
+  float qscale;
+  // kHeads: hper heads an item, q tiles a head, full rounds of gridDim.x
+  // items, and the items left for the last round
+  int hper, q_tiles, rounds, left;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// head-tiles this CTA walks: whole items in the full rounds, then single
+// heads of the last round's items, dealt out over every CTA
+template <bool kHeads>
+__device__ __forceinline__ int work_count(const Params& p) {
+  if (!kHeads) return 1;
+  const int left = p.left * p.hper, c = blockIdx.x;
+  return p.rounds * p.hper + (c < left ? (left - 1 - c) / gridDim.x + 1 : 0);
+}
+
+// the q tile and head of this CTA's w-th head-tile; an item is (head group,
+// q tile), q tiles fastest, so the CTAs of one round share K and V in L2.
+// The last round's head-tiles are dealt q tiles fastest too: the CTAs that
+// run together take one head of consecutive items
+template <bool kHeads>
+__device__ __forceinline__ void work_at(const Params& p, int w, int& q0, int& bh) {
+  if (!kHeads) {
+    q0 = blockIdx.x * kBM;
+    bh = blockIdx.y;
+    return;
+  }
+  const int full = p.rounds * p.hper;
+  int item, hh;
+  if (w < full) {
+    item = blockIdx.x + (w / p.hper) * gridDim.x;
+    hh = w % p.hper;
+  } else {
+    const int u = blockIdx.x + (w - full) * gridDim.x;
+    item = p.rounds * gridDim.x + u % p.left;
+    hh = u / p.left;
+  }
+  q0 = (item % p.q_tiles) * kBM;
+  bh = (item / p.q_tiles) * p.hper + hh;
+}
+
+template <bool kExp2, int kMask, bool kKt, bool kHeads>
+__global__ void __launch_bounds__(kThreads, 1)
+cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const Params prm) {
+  constexpr int kQBufs = kHeads ? 2 : 1;
+  extern __shared__ uint8_t smem_raw[];
+  Smem<kQBufs>& sm = *reinterpret_cast<Smem<kQBufs>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int n_tiles = (prm.kv_end + kBN - 1) / kBN;  // later tiles change nothing
+  const int n_work = work_count<kHeads>(prm);
+
+  if (threadIdx.x == 0) {
+    sm.ring.init(kConsumers);
+#pragma unroll
+    for (int b = 0; b < kQBufs; ++b) {
+      mbar_init(&sm.q_full[b], 1);
+      if (kHeads) mbar_init(&sm.q_empty[b], kConsumers);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer: one thread issues every TMA load ----
+    if (threadIdx.x == kConsumers) {
+      for (int w = 0, i = 0; w < n_work; ++w) {
+        int q0, bh;
+        work_at<kHeads>(prm, w, q0, bh);
+        const int b = w % kQBufs;
+        if (kHeads && w >= kQBufs) mbar_wait(&sm.q_empty[b], (w / kQBufs - 1) & 1);
+        mbar_expect_tx(&sm.q_full[b], kQBytes);
+        tma_load_3d(sm.q[b], &qmap, &sm.q_full[b], 0, q0, bh);
+        for (int t = 0; t < n_tiles; ++t, ++i) {
+          const int s = sm.ring.acquire(i, 2 * kTileBytes);
+          if (kKt) {
+            tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], t * kBN, 0, bh);
+            tma_load_3d(sm.k[s] + 64 * kD, &kmap, &sm.ring.full[s], t * kBN + 64, 0, bh);
+          } else {
+            tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], 0, t * kBN, bh);
+          }
+          tma_load_3d(sm.v[s], &vmap, &sm.ring.full[s], 0, t * kBN, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 ----
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int lane = tid % 32, warp = t / 32;
+  const int c = lane % 4;
+
+  for (int w = 0, base = 0; w < n_work; ++w, base += n_tiles) {
+    int q0, bh;
+    work_at<kHeads>(prm, w, q0, bh);
+    const int b = w % kQBufs;
+    __nv_bfloat16* qs = sm.q[b] + wg * 64 * kD;
+
+    // q * qscale rounded to bf16, in place (elementwise, so the swizzle is moot)
+    mbar_wait(&sm.q_full[b], (w / kQBufs) & 1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint4* p = reinterpret_cast<uint4*>(qs) + t + 128 * i;
+      uint4 raw = *p;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        h[j] = __floats2bfloat162_rn(__fmul_rn(f.x, prm.qscale), __fmul_rn(f.y, prm.qscale));
+      }
+      *p = raw;
+    }
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+
+    const uint64_t qdesc = make_desc(qs, 16, 1024, kSw128);
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows r, r + 8
+    // bf16(p) as the A fragments of P V (k step kk takes accumulator chunks
+    // 2kk and 2kk + 1). Tile it's P V stays in flight while tile it + 1's
+    // Q K^T is issued; one wait covers both.
+    uint32_t pa[kBN / 16][4];
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = sm.ring.wait_full(base + it);
+      // K rows: K-major; K^T: MN-major, its two 64-column boxes LBO apart
+      const uint64_t kdesc = kKt ? make_desc(sm.k[s], 8192, 1024, kSw128)
+                                 : make_desc(sm.k[s], 16, 1024, kSw128);
+      const uint64_t vdesc = make_desc(sm.v[s], 8192, 1024, kSw128);
+
+      float acc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_m64n128k16_ss_bf16<kKt ? 1 : 0>(acc, desc_add(qdesc, 32 * kk),
+                                              desc_add(kdesc, (kKt ? 2048 : 32) * kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(o);
+      fence_regs(pa);
+      if (it > 0) sm.ring.release(base + it - 1);  // its P V has completed
+
+      const int kv0 = it * kBN;
+      if (kMask == kMaskAll || kv0 + kBN > prm.kv_end) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (kv0 + 8 * (i / 4) + 2 * c + (i % 2) >= prm.kv_end) acc[i] = kNegInf;
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(acc[4 * j], acc[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      // e(x - mn) = 2^(x - mn) or 2^(x log2e - mn log2e); a masked score
+      // times log2e overflows to -inf and gives 0, as it should
+      const float nb0 = kExp2 ? 0.0f : __fmul_rn(mn0, -kLog2e);
+      const float nb1 = kExp2 ? 0.0f : __fmul_rn(mn1, -kLog2e);
+      const float alpha0 = kExp2 ? exp2f(__fsub_rn(m0, mn0))  // 0 on the first tile
+                                 : exp2f(__fmaf_rn(m0, kLog2e, nb0));
+      const float alpha1 = kExp2 ? exp2f(__fsub_rn(m1, mn1))
+                                 : exp2f(__fmaf_rn(m1, kLog2e, nb1));
+      m0 = mn0;
+      m1 = mn1;
+
+      // p, its bf16 rounding packed into pa, and the row sums
+      float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float p0, p1, p2, p3;
+        if (kExp2) {
+          p0 = exp2_ftz(__fsub_rn(acc[4 * j], mn0));
+          p1 = exp2_ftz(__fsub_rn(acc[4 * j + 1], mn0));
+          p2 = exp2_ftz(__fsub_rn(acc[4 * j + 2], mn1));
+          p3 = exp2_ftz(__fsub_rn(acc[4 * j + 3], mn1));
+        } else {
+          p0 = exp2_ftz(__fmaf_rn(acc[4 * j], kLog2e, nb0));
+          p1 = exp2_ftz(__fmaf_rn(acc[4 * j + 1], kLog2e, nb0));
+          p2 = exp2_ftz(__fmaf_rn(acc[4 * j + 2], kLog2e, nb1));
+          p3 = exp2_ftz(__fmaf_rn(acc[4 * j + 3], kLog2e, nb1));
+        }
+        const __nv_bfloat162 b01 = __floats2bfloat162_rn(p0, p1);
+        const __nv_bfloat162 b23 = __floats2bfloat162_rn(p2, p3);
+        pa[j / 2][(j % 2) * 2] = *reinterpret_cast<const uint32_t*>(&b01);
+        pa[j / 2][(j % 2) * 2 + 1] = *reinterpret_cast<const uint32_t*>(&b23);
+        if (prm.round_l) {
+          const float2 f01 = __bfloat1622float2(b01), f23 = __bfloat1622float2(b23);
+          sum0 = __fadd_rn(__fadd_rn(sum0, f01.x), f01.y);
+          sum1 = __fadd_rn(__fadd_rn(sum1, f23.x), f23.y);
+        } else {
+          sum0 = __fadd_rn(__fadd_rn(sum0, p0), p1);
+          sum1 = __fadd_rn(__fadd_rn(sum1, p2), p3);
+        }
+      }
+      l0 = __fadd_rn(__fmul_rn(alpha0, l0), sum0);
+      l1 = __fadd_rn(__fmul_rn(alpha1, l1), sum1);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[4 * j] = __fmul_rn(o[4 * j], alpha0);
+        o[4 * j + 1] = __fmul_rn(o[4 * j + 1], alpha0);
+        o[4 * j + 2] = __fmul_rn(o[4 * j + 2], alpha1);
+        o[4 * j + 3] = __fmul_rn(o[4 * j + 3], alpha1);
+      }
+
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_m64n64k16_rs_bf16_vt(o, pa[kk], desc_add(vdesc, 2048 * kk), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    if (kHeads) {  // the last tile's slot and the q buffer go back to the producer
+      sm.ring.release(base + n_tiles - 1);
+      mbar_arrive(&sm.q_empty[b]);
+    }
+
+    l0 = __fadd_rn(l0, __shfl_xor_sync(kFull, l0, 1));
+    l0 = __fadd_rn(l0, __shfl_xor_sync(kFull, l0, 2));
+    l1 = __fadd_rn(l1, __shfl_xor_sync(kFull, l1, 1));
+    l1 = __fadd_rn(l1, __shfl_xor_sync(kFull, l1, 2));
+    if (kMask == kMaskPadfix && prm.pad > 0) {
+      // the pad keys scored 0 and added e(0 - m) each; m >= 0 with them in
+      const float pad = static_cast<float>(prm.pad);
+      l0 = __fsub_rn(l0, __fmul_rn(pad, kExp2 ? exp2f(-m0) : expf(-m0)));
+      l1 = __fsub_rn(l1, __fmul_rn(pad, kExp2 ? exp2f(-m1) : expf(-m1)));
+    }
+    const float inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
+    const float inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
+    const int row = q0 + wg * 64 + warp * 16 + lane / 4;
+    __nv_bfloat16* obase = prm.out + (int64_t)bh * prm.sq * kD;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * c;
+      if (row < prm.sq)
+        *reinterpret_cast<uint32_t*>(obase + (int64_t)row * kD + col) =
+            pack_bf16(__fmul_rn(o[4 * j], inv0), __fmul_rn(o[4 * j + 1], inv0));
+      if (row + 8 < prm.sq)
+        *reinterpret_cast<uint32_t*>(obase + (int64_t)(row + 8) * kD + col) =
+            pack_bf16(__fmul_rn(o[4 * j + 2], inv1), __fmul_rn(o[4 * j + 3], inv1));
+    }
+  }
+}
+
+// The q map of a [BH, sq, 64] bf16 tensor in 192-row boxes; a K or V map of
+// [BH, rows, 64] in 128-row boxes; a K^T map of [BH, 64, k_row] in 64 x 64
+// boxes. Each returns false where cuTensorMapEncodeTiled refuses it.
+inline bool q_map(CUtensorMap* map, const void* q, int BH, int sq) {
+  return make_map_3d(map, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kD, sq, BH, kD, kBM,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+}
+inline bool kv_map(CUtensorMap* map, const void* x, int BH, int rows) {
+  return make_map_3d(map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kD, rows, BH, kD, kBN,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+}
+inline bool kt_map(CUtensorMap* map, const void* kt, int BH, int k_row) {
+  return make_map_3d(map, kt, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k_row, kD, BH, 64, kD,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// One launch of an instance. Without kHeads the grid is (q tiles, BH); with
+// it, min(SMs, head-tiles) CTAs and prm's walk filled in here.
+template <bool kExp2, int kMask, bool kKt, bool kHeads>
+int launch(const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
+           Params prm, int BH, cudaStream_t stream) {
+  // + 1024 so the tiles can start on a 1024-byte boundary
+  constexpr int kSmem = sizeof(Smem<kHeads ? 2 : 1>) + 1024;
+  auto kernel = cell_kernel<kExp2, kMask, kKt, kHeads>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prm.q_tiles = (prm.sq + kBM - 1) / kBM;
+  dim3 grid(prm.q_tiles, BH);
+  if (kHeads) {
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int items = BH / prm.hper * prm.q_tiles;
+    const int ctas = items * prm.hper < sms ? items * prm.hper : sms;
+    prm.rounds = items / ctas;
+    prm.left = items - prm.rounds * ctas;
+    grid = dim3(ctas);
+  }
+  kernel<<<grid, kThreads, kSmem, stream>>>(qmap, kmap, vmap, prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace online_cell
+}  // namespace

@@ -92,9 +92,11 @@ SIGNATURES = {
         _P,                  # stream
     ],
     "aether_flash_variants": [
-        _P, _P, _P, _P,      # q (scaled), k (rows or transposed), v, out (bf16)
-        _I, _I, _I, _I,      # BH, rows (a multiple of 64), kv_end, pad (padfix)
-        _I, _I, _I, _I, _I,  # hper, use_exp2, mask (0 all, 1 tail, 2 none), kt, guard_le
+        _P, _P, _P, _P,      # q (unscaled), k (rows, or K^T [B*H, 64, k_row]), v, out (bf16)
+        _I, _I, _I, _I, _I,  # BH, sq, skv (any lengths), kv_end, pad (padfix)
+        _I, _I, _I, _I,      # hper (0: one head a CTA), use_exp2, mask (0 all, 1 tail,
+                             # 2 padfix), k_row (0: K as rows)
+        _F,                  # qscale, folded into q in the kernel
         _P,                  # stream
     ],
     "aether_groupnorm_moments": [

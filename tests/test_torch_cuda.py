@@ -14,10 +14,14 @@ with a score bound, B*H odd (head groups of 3 or 1), int8 and bf16 QK^T, K6
 over several kv spans and with a negative row max behind padding. K5: T*H*W
 not a multiple of the vector, unaligned rows, B 1 and 2, C from 12 to 512,
 f32/bf16/f16, NCTHW and channels-last, a large-mean group, bit-identical
-repeats, and the VAE's ``group_norm`` through it. K7-K9: both K layouts, the
-last-block and every-block masks, hper 2 to 8 with lcm padding, the four
-``flash_x`` modes, padding across several kv blocks, lengths the 64-row tile
-does not divide, deeply negative scores with padfix. The wgmma kernels (K4
+repeats, and the VAE's ``group_norm`` through it. K7-K9 (on K4 bf16's wgmma
+cell): both K layouts, K^T rows not a multiple of 8 (padded for TMA), the
+last-block and every-block masks, hper 1 to 16 with lcm padding (the ring
+running across heads, full rounds and a last round split by head), the four
+``flash_x`` modes, padfix pads across several 128-column tiles and JAX kv
+blocks, lengths the 128- and 192-row tiles do not divide, a non-default
+sm_scale folded in the kernel, deeply negative scores with padfix, and the
+switch combinations no wrapper reaches refused. The wgmma kernels (K4
 bf16, K6) besides: lengths their 128-row tiles do not divide, kv_valid inside
 a tile and on its edge, kv shorter than one ring slot, spans of 128, 256 and
 1024 with one that kv_valid empties, strided inputs, and repeats
@@ -517,17 +521,33 @@ VARIANT_CASES = [
     ("flash_v2", (1, 3, 300), dict(block_q=128, block_k=128, kt=True)),
     ("flash_v2", (1, 3, 300), dict(block_q=128, block_k=128, mask_last_only=False)),
     ("flash_v2", (2, 2, 1000), dict(block_q=256, block_k=512, kt=True)),
-    ("flash_v2", (1, 2, 250), dict(block_q=100, block_k=100)),  # seq_pad 300: not a 64 multiple
+    ("flash_v2", (1, 2, 250), dict(block_q=100, block_k=100)),  # seq_pad 300 past 250 keys
     ("flash_v2", (1, 2, 700), dict(block_q=256, block_k=128, mask_last_only=False)),
+    # K^T of 250 (and 301) keys: rows padded to 256 (304) columns for TMA
+    ("flash_v2", (1, 2, 250), dict(block_q=100, block_k=100, kt=True)),
+    ("flash_v2", (1, 2, 301), dict(block_q=128, block_k=128, kt=True, mask_last_only=False)),
+    ("flash_v2", (2, 3, 1000), dict(block_q=512, block_k=512)),  # 1000 % 128, % 192 != 0
+    ("flash_v2", (1, 3, 300), dict(block_q=128, block_k=128, sm_scale=0.3)),  # q fold
+    ("flash_v2", (1, 3, 300), dict(block_q=128, block_k=128, kt=True, sm_scale=0.05)),
     ("flash_mh", (1, 8, 300), dict(block_q=128, block_k=192, hper=4)),  # lcm 384
     ("flash_mh", (1, 4, 300), dict(block_q=256, block_k=128, hper=2)),
     ("flash_mh", (1, 8, 2000), dict(block_q=1024, block_k=1024, hper=8)),
+    ("flash_mh", (2, 8, 700), dict(block_q=256, block_k=128, hper=8)),  # two groups of 8
+    # 16 q tiles x 12 groups: one full round of 132 items, 60 split by head
+    ("flash_mh", (1, 48, 3000), dict(block_q=1024, block_k=1024, hper=4)),
+    ("flash_mh", (1, 16, 500), dict(block_q=128, block_k=128, hper=16)),  # a head a CTA
+    ("flash_mh", (1, 6, 1000), dict(block_q=1024, block_k=1024, hper=1)),
     ("flash_x", (1, 2, 300), dict(block_q=256, block_k=128, mode="fold")),
     ("flash_x", (1, 2, 300), dict(block_q=256, block_k=128, mode="fold2")),
     ("flash_x", (1, 2, 300), dict(block_q=256, block_k=128, mode="padfix")),
     ("flash_x", (1, 2, 300), dict(block_q=256, block_k=128, mode="padfix_exp")),
     ("flash_x", (1, 2, 2000), dict(block_q=1024, block_k=256, mode="padfix")),  # pad over 2 blocks
     ("flash_x", (1, 2, 250), dict(block_q=100, block_k=100, mode="padfix")),  # and the tile's pad
+    # pad 948 over four JAX blocks and eight 128-column tiles, five wholly
+    # TMA's zero fill
+    ("flash_x", (1, 2, 1100), dict(block_q=1024, block_k=256, mode="padfix")),
+    ("flash_x", (1, 2, 1100), dict(block_q=1024, block_k=256, mode="padfix_exp")),
+    ("flash_x", (2, 2, 1000), dict(block_q=1024, block_k=1024, mode="fold")),
 ]
 
 
@@ -557,6 +577,36 @@ def test_flash_variants_kernel_deeply_negative_scores(dev, mode):
     _check_fixed(out, fv.flash_x_plain(q, k, v, **kw))
     if mode.startswith("padfix"):
         assert not out.any()
+
+
+def test_flash_variants_kernel_alone_matches_its_wrapper(dev):
+    """The kernel on the operands the wrapper prepares (K^T padded) writes
+    the wrapper's output; the launch alone does not count."""
+    q, k, v = _qkv(dev, (1, 2, 301, HD), (1, 2, 301, HD), torch.bfloat16, seed=8)
+    args = fv._v2_args(q, block_q=128, block_k=128, kt=True)
+    assert args.k_row == 304 and args.kv_end == args.sq == 301 and args.pad == 0
+    ops = fv._kernel_operands(q, k, v, args)
+    assert ops[1].shape == (2, HD, 304) and not ops[1][:, :, 301:].any()
+    out = torch.empty_like(ops[0])
+    before = fv.flash_v2.launches
+    fv._kernel_launch(*ops, out, args)
+    assert fv.flash_v2.launches == before
+    ref = fv.flash_v2(q, k, v, block_q=128, block_k=128, kt=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(ref.shape), ref)
+
+
+def test_flash_variants_kernel_refuses_unbuilt_switches(dev):
+    """Only the switch combinations the wrappers reach are built: exp with
+    K^T, or the heads walk with exp, returns an error instead of launching."""
+    q, k, v = _qkv(dev, (1, 2, 300, HD), (1, 2, 300, HD), torch.bfloat16, seed=9)
+    good = fv._v2_args(q, block_q=128, block_k=128, kt=True)
+    for args in (good._replace(exp2=False),
+                 fv._mh_args(q, block_q=128, block_k=128, hper=2)._replace(exp2=False),
+                 fv._mh_args(q, block_q=128, block_k=128, hper=2)._replace(k_row=304)):
+        ops = fv._kernel_operands(q, k, v, args)
+        with pytest.raises(RuntimeError, match="aether_flash_variants"):
+            fv._kernel_launch(*ops, torch.empty_like(ops[0]), args)
 
 
 def test_flash_variants_kernel_refuses_what_it_does_not_take(dev):

@@ -17,8 +17,17 @@ as in ``test_torch_flash_online.py``: p is rounded to bf16 at the same running
 max on both sides, so only order-of-sum noise and the final rounding separate
 them. The CUDA kernel is held against the same plain versions on the card
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+
+The kernel's side that the CPU reaches: the launch arguments of every
+configuration of the three sweeps at the full bench shape, against the
+padding, q scale, exponent and grid that the scripts' own wrappers trace to
+(``jax.make_jaxpr``, no kernel run); and the kernel's tiling (128-column kv
+tiles with a running max) through ``_online_loop`` at 128-column blocks,
+against the Pallas kernels at 1024-column blocks, within the card's
+``bf16_gates`` bounds.
 """
 
+import functools
 import importlib.util
 import math
 import pathlib
@@ -36,7 +45,19 @@ from aether_tpu_torch.bench import _harness
 from aether_tpu_torch.bench import flash_bisect, flash_multihead, flash_variants
 from aether_tpu_torch.ops.flash_attention import flash_attention
 from aether_tpu_torch.ops.flash_variants import (
+    _MASK_ALL,
+    _MASK_LAST,
+    _MASK_NONE,
+    _finish,
+    _mh_args,
+    _mh_config,
+    _online_loop,
+    _scaled_padded,
+    _v2_args,
+    _v2_config,
     _v2_seq_pad,
+    _x_args,
+    _x_config,
     flash_mh,
     flash_mh_plain,
     flash_v2,
@@ -264,3 +285,128 @@ def test_bench_entry_points_need_cuda_unless_asked_for_cpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="--device cpu"):
         flash_bisect.main([])
+
+
+# ---- the kernel's launch arguments against the scripts' own arithmetic ----
+
+FULL = (1, _harness.FULL_HEADS, _harness.FULL_SEQ, _harness.HEAD_DIM)
+SWEEP_CASES = (
+    [("v2", dict(block_q=bq, block_k=bk, kt=kt)) for bq, bk, kt in flash_variants.SWEEP]
+    + [("mh", dict(block_q=bq, block_k=bk, hper=hp)) for hp, bq, bk in flash_multihead.SWEEP]
+    + [("x", dict(block_q=1024, block_k=1024, mode=m)) for m in
+       ("fold", "fold2", "padfix", "padfix_exp")]
+    + [("x", dict(block_q=bq, block_k=bk, mode="padfix")) for bq, bk in flash_bisect.BLOCKS])
+
+
+def _traced(fn, **kw):
+    """What the JAX wrapper traces to at the full bench shape: (q scale,
+    seq_pad, K's operand shape, grid, the kernel's exponent primitive)."""
+    x = jax.ShapeDtypeStruct(FULL, jnp.bfloat16)
+    jaxpr = jax.make_jaxpr(functools.partial(fn, **kw))(x, x, x).jaxpr
+    found = {}
+
+    def walk(jp):
+        for e in jp.eqns:
+            if e.primitive.name == "mul" and "scale" not in found:
+                lit = [v for v in e.invars if hasattr(v, "val")]  # a Literal
+                if lit:
+                    found["scale"] = np.float32(lit[0].val)
+            if e.primitive.name == "pallas_call":
+                found["seq_pad"] = e.outvars[0].aval.shape[1]
+                found["k_shape"] = e.invars[1].aval.shape
+                found["grid"] = e.params["grid_mapping"].grid
+                prims = {q.primitive.name for q in e.params["jaxpr"].eqns}
+                found["exp2"] = "exp2" in prims and "exp" not in prims
+                continue
+            for param in e.params.values():
+                if hasattr(param, "jaxpr"):
+                    walk(param.jaxpr)
+
+    walk(jaxpr)
+    return found
+
+
+@pytest.mark.parametrize("kind,kw", SWEEP_CASES,
+                         ids=[f"{k}-{'-'.join(map(str, kw.values()))}" for k, kw in SWEEP_CASES])
+def test_launch_args_follow_the_scripts(scripts, kind, kw):
+    """sq, kv_end, pad, qscale, exponent, mask, K^T row pad and hper of each
+    sweep configuration at (1, 48, 15076, 64), against the JAX wrapper traced
+    at that shape. Where the JAX wrapper's assertion refuses (v2 2048x1024),
+    the port refuses too."""
+    seq, bh = FULL[2], FULL[0] * FULL[1]
+    q = torch.empty(FULL, dtype=torch.bfloat16, device="meta")
+    script, args_of = {"v2": (scripts["bench_flash_variants"].flash_v2, _v2_args),
+                       "mh": (scripts["bench_flash_multihead"].flash_mh, _mh_args),
+                       "x": (scripts["bench_flash_bisect"].flash_x, _x_args)}[kind]
+    if kind == "v2" and _v2_seq_pad(seq, kw["block_q"], kw["block_k"]) - seq >= kw["block_k"]:
+        with pytest.raises(AssertionError):
+            _traced(script, **kw)
+        with pytest.raises(ValueError, match="mask_last_only"):
+            args_of(q, **kw)
+        return
+    ref = _traced(script, **kw)
+    args = args_of(q, **kw)
+    seq_pad = ref["seq_pad"]
+    padfix = kw.get("mode", "").startswith("padfix")
+    assert args.sq == seq
+    assert (args.kv_end, args.pad) == ((seq_pad, seq_pad - seq) if padfix else (seq, 0))
+    assert np.float32(args.qscale) == ref["scale"]
+    assert args.exp2 == ref["exp2"]
+    assert args.mask == {"v2": _MASK_LAST, "mh": _MASK_ALL}.get(
+        kind, _MASK_NONE if padfix else _MASK_ALL)
+    if kw.get("kt"):
+        assert ref["k_shape"] == (bh, FULL[3], seq_pad)
+        assert args.k_row == -(-seq // 8) * 8 and args.k_row % 8 == 0
+    else:
+        assert ref["k_shape"] == (bh, seq_pad, FULL[3]) and args.k_row == 0
+    # the JAX grid walks bh // hper head groups; the kernel's heads walk
+    # takes hper heads an item (0: one head a CTA on K4's grid)
+    assert args.hper == (bh // ref["grid"][0] if kind == "mh" else 0)
+
+
+# ---- the kernel's tiling: 128-column kv tiles against the TPU's 1024 ----
+
+TILING_SHAPE = (1, 2, 1100, 64)  # 1024x1024 blocks pad to 2048: pad 948
+TILING_CASES = [
+    ("x", dict(mode="fold")), ("x", dict(mode="fold2")), ("x", dict(mode="padfix")),
+    ("x", dict(mode="padfix_exp")), ("v2", dict()), ("v2", dict(kt=True)),
+    ("mh", dict(hper=2)),
+]
+
+
+@pytest.mark.parametrize("kind,kw", TILING_CASES,
+                         ids=[f"{k}-{'-'.join(map(str, kw.values()))}" for k, kw in TILING_CASES])
+def test_kernel_tiling_within_the_card_gates(scripts, kind, kw):
+    """``_online_loop`` over 128-column kv blocks (the kernel's tile, with its
+    running max moving every 128 columns) against the Pallas kernel at its
+    1024-column blocks, on the same padded operands: within the gates
+    ``chip_smoke.py`` holds the kernel to (``bf16_gates``: max abs two bf16
+    ulps of the output's scale, mean abs 2**-9 of its mean magnitude). The
+    masking variants mask every 128-column tile, which is the function of
+    the kernel's tail mask with the tiles past kv_end skipped."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(seed=17 + len(kw), shape=TILING_SHAPE)
+    blocks = dict(block_q=1024, block_k=1024)
+    seq, dim = TILING_SHAPE[2], TILING_SHAPE[3]
+    if kind == "x":
+        ref = _interpret(scripts["bench_flash_bisect"].flash_x, jq, jk, jv, **blocks, **kw)
+        seq_pad, scale, var = _x_config(seq, dim, 1024, 1024, kw["mode"])
+    elif kind == "v2":
+        # the JAX assertion (pad < block_k) does not hold at 1100: mask every block
+        kw = dict(kw, mask_last_only=False)
+        ref = _interpret(scripts["bench_flash_variants"].flash_v2, jq, jk, jv, **blocks, **kw)
+        seq_pad, scale, var = _v2_config(seq, dim, None, 1024, 1024, False, kw.get("kt", False))
+    else:
+        ref = _interpret(scripts["bench_flash_multihead"].flash_mh, jq, jk, jv, **blocks, **kw)
+        seq_pad, scale, var = _mh_config(TILING_SHAPE, 1024, 1024, kw["hper"])
+    assert seq_pad == 2048
+    qp, kp, vp = _scaled_padded(tq, tk, tv, scale, seq_pad)
+    if var.kt:
+        kp = kp.transpose(1, 2).contiguous()
+    if var.mask != _MASK_NONE:
+        var = var._replace(mask=_MASK_ALL)
+    out = _finish(_online_loop(qp, kp, vp, seq=seq, block_q=1024, block_k=128, var=var),
+                  TILING_SHAPE).float().numpy()
+    top = np.abs(ref)
+    err = np.abs(out - ref)
+    assert err.max() <= 2.0 * 2.0 ** (np.floor(np.log2(top.max())) - 7)
+    assert err.mean() <= top.mean() * 2.0 ** -9
