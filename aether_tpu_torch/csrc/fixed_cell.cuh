@@ -1,0 +1,389 @@
+// The fixed-shift attention cell on wgmma with TMA, written by hand for
+// Hopper (sm_90a): one kernel template over two compile-time switches,
+// shared by K2 (flash_prepacked.cu) and K3 (flash_fixed_max.cu).
+//
+// Replaces the body of two Pallas TPU kernels of
+// aether_tpu/ops/flash_attention.py that compute one function:
+// _flash_kernel_prepacked (K2, flash_attention_prepacked) and
+// _flash_kernel_fixed_max (K3, flash_attention(fixed_max=True)).
+// Non-causal, head_dim 64, bf16 v and output, in the log2 domain, for head
+// group g = bh / hper:
+//   s   = f32(int32(q8 . k8^T)) * scale            (kQK8: int8 q and k)
+//   s   = f32(q . k^T), q carrying the fold         (!kQK8: bf16 q and k)
+//   p   = exp2(s - shift_g), 0 at columns >= kv_len
+//   out = sum bf16(p) v / sum bf16(p)               (denominator <= 0 -> 1)
+//   unnormalized (l != null): out = bf16(sum bf16(p) v), l = sum bf16(p) in f32
+//   (both sums accumulated in f32 on the tensor core)
+// The switches:
+//   kQK8        q and k are int8, in 64-byte rows with the 64-byte swizzle
+//               (K6's layout); otherwise bf16 in 128-byte rows. v is bf16;
+//   kTileScale  K2: the int8 scale is per (q tile, kv tile) of `block`
+//               tokens, qsc[g, row / block] * ksc[g, col / block], and the
+//               shift is max_t qn[g, t] * max_t kn[g, t], taken here (0 when
+//               noshift holds, or when it is auto and every group's bound is
+//               below 96). K3: one scale and one shift per group, from its
+//               wrapper (the JAX wrapper's preparation).
+//
+// What bounds it on an H100 (the attention at its main-path shapes, 15076
+// valid tokens, 48 heads; bound = the largest of bytes / 3.35 TB/s,
+// operations / the peak of their type and one exp2 a score / the SFU's 16
+// a clock an SM at 1980 MHz): K2 int8 2.61 ms (SFU) and float 2.82 ms
+// (operations) at batch 1; K3 int8 5.22 ms (SFU) and bf16 5.65 ms
+// (operations) at the CFG pair's batch 2. The tensor cores and the SFU have
+// to run side by side, and every score's other instructions share the SFU's
+// issue slots. The design is K4 bf16's (online_cell.cuh, FlashAttention-3's
+// shape at head_dim 64) without the online max:
+//   * a CTA takes 192 q rows: three consumer warpgroups of 64 rows and one
+//     producer warp that keeps K and V tiles of 128 kv rows in a ring of
+//     kStages shared-memory slots by TMA (mbarriers); rows past the tensors'
+//     ends arrive as zeros, so no wrapper pads, and stores past sq are
+//     dropped;
+//   * S = Q K^T is wgmma m64n128k32 s8 (kQK8) or m64n128k16 bf16 from shared
+//     memory; bf16(p) stays in registers as the A operand of P V (wgmma
+//     m64n64k16, V through the transpose bit); a tile's P V stays in flight
+//     while the next tile's Q K^T is issued;
+//   * the shift is fixed, so there is no row max, no shuffle and no rescale
+//     of the output: each tile's p is final when it is made;
+//   * the SFU is left to exp2 alone: int8 scores move to f32 on the FMA and
+//     integer units (exact_f32, the 1.5 * 2^23 trick of K6; I2F runs on the
+//     conversion unit at the SFU's rate), and p is one ex2.approx (exp2_ftz:
+//     a p below 2^-126 counts as 0, which bf16(p) . v cannot see);
+//   * l = sum bf16(p) runs on the tensor core beside P V, a wgmma m64n8k16
+//     of the same bf16(p) fragments against a tile of ones, so a score costs
+//     no unpack and add; K2's int8 scale is read once a kv tile, its
+//     quantization block counted on without a division: the issue slots
+//     bind before the SFU does (scripts/time_fixed_cell.py on an NVIDIA H100
+//     80GB HBM3 at 700 W: K2 int8 6.59-6.71 -> 6.07-6.16 ms, float
+//     6.72-6.81 -> 6.02-6.10; rounding p to bf16 with integer adds instead
+//     of the conversion instruction read 6.98-7.14, slower);
+//   * only the tile that crosses kv_len is masked (p = 0, not a large
+//     negative score: there is no max to protect), and tiles wholly past it
+//     add nothing and are skipped.
+// The scale and the shift are applied unfused, f32(s) * scale then - shift,
+// as the plain versions round them. Built without --use_fast_math so the
+// division stays accurate.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
+
+// internal linkage: each source that includes the cell builds its own
+// instances, as a kernel in one source would be
+namespace {
+namespace fixed_cell {
+
+using namespace hopper;
+
+constexpr int kD = 64;
+constexpr int kWG = 3;                      // consumer warpgroups, 64 q rows each
+constexpr int kBM = 64 * kWG;               // q rows per CTA
+constexpr int kBN = 128;                    // kv rows per tile
+constexpr int kStages = 4;
+constexpr int kConsumers = 128 * kWG;
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr float kNoShiftBelow = 96.0f;      // auto noshift: every bound below this
+constexpr unsigned kFull = 0xffffffffu;
+// 1.5 * 2^23: an integer n with |n| < 2^22 sits in its float's low mantissa
+// bits, so the s32 -> f32 move runs on the integer and FMA units
+constexpr float kMagicF = 12582912.0f;
+constexpr uint32_t kMagicI = 0x4B400000u;
+
+enum NoShift { kKeep = 0, kDrop = 1, kAuto = 2 };
+
+// (float)x, exactly, for |x| < 2^22 (an int8 score: |x| <= 127 * 127 * 64)
+__device__ __forceinline__ float exact_f32(int x) {
+  return __fsub_rn(__uint_as_float(kMagicI + static_cast<uint32_t>(x)), kMagicF);
+}
+
+template <bool kQK8>
+struct Smem {
+  static constexpr int kEl = kQK8 ? 1 : 2;  // bytes of a q or k element
+  uint8_t q[kBM * kD * kEl];
+  uint8_t k[kStages][kBN * kD * kEl];
+  __nv_bfloat16 v[kStages][kBN * kD];
+  uint32_t ones[256];  // bf16 1.0 pairs: the B operand of the row sums
+  Ring<kStages> ring;
+  uint64_t q_full;
+  float shift;  // kTileScale: the head group's shift, made by the producer warp
+};
+
+struct Params {
+  __nv_bfloat16* out;  // [BH, sq, 64]
+  float* l;            // [BH, sq]: unnormalized; null: normalized
+  int sq, kv_len, hper;
+  // !kTileScale (K3): [G] the shift and the int8 scores' scale
+  const float* shift;
+  const float* scale;
+  // kTileScale (K2): [G, n_blocks] scales (qsc carries the fold) and norm
+  // maxima of `block`-token tiles; noshift one of NoShift
+  const float* qsc;
+  const float* ksc;
+  const float* qn;
+  const float* kn;
+  int block, n_blocks, noshift;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// K2's bound of head group g, max_t qn[g, t] * max_t kn[g, t], by one thread
+__device__ __forceinline__ float group_bound(const Params& p, int g) {
+  const float* qn = p.qn + g * p.n_blocks;
+  const float* kn = p.kn + g * p.n_blocks;
+  float mq = qn[0], mk = kn[0];
+#pragma unroll 4
+  for (int t = 1; t < p.n_blocks; ++t) {
+    mq = fmaxf(mq, qn[t]);
+    mk = fmaxf(mk, kn[t]);
+  }
+  return __fmul_rn(mq, mk);
+}
+
+// K2's shift of head group g, by one warp: the bound, or 0 when noshift
+// drops it (kAuto: when every one of the `groups` bounds is below 96)
+__device__ float tile_shift(const Params& p, int g, int groups, int lane) {
+  if (p.noshift == kDrop) return 0.0f;
+  const float bound = group_bound(p, g);
+  if (p.noshift == kKeep) return bound;
+  float top = -INFINITY;
+  for (int h = lane; h < groups; h += 32) top = fmaxf(top, group_bound(p, h));
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) top = fmaxf(top, __shfl_xor_sync(kFull, top, o));
+  return top < kNoShiftBelow ? 0.0f : bound;
+}
+
+// S = Q K^T of one tile into this thread's accumulator fragment, completed
+// (the wait also covers the previous tile's P V). int8: two k steps of 32
+// bytes over 64-byte swizzled rows; bf16: four of 16 over 128-byte rows.
+__device__ __forceinline__ void qk(int (&acc)[64], const uint8_t* qs, const uint8_t* ks) {
+  const uint64_t qd = make_desc(qs, 16, 512, kSw64), kd = make_desc(ks, 16, 512, kSw64);
+  wgmma_fence();
+  wgmma_m64n128k32_ss_s8(acc, qd, kd, 0);
+  wgmma_m64n128k32_ss_s8(acc, desc_add(qd, 32), desc_add(kd, 32), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+__device__ __forceinline__ void qk(float (&acc)[64], const uint8_t* qs, const uint8_t* ks) {
+  const uint64_t qd = make_desc(qs, 16, 1024, kSw128), kd = make_desc(ks, 16, 1024, kSw128);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    wgmma_m64n128k16_ss_bf16(acc, desc_add(qd, 32 * kk), desc_add(kd, 32 * kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+__device__ __forceinline__ float score(int x, float sc) { return __fmul_rn(exact_f32(x), sc); }
+__device__ __forceinline__ float score(float x, float) { return x; }
+
+// bf16(p) of one tile packed as the A fragments of P V (k step kk takes
+// accumulator chunks 2kk and 2kk + 1: rows r and r + 8, columns 8j + 2c,
+// + 1). kTail: columns at or past kv_len get p = 0.
+template <bool kTail, typename Acc>
+__device__ __forceinline__ void p_tile(uint32_t (&pa)[kBN / 16][4], const Acc (&acc)[64],
+                                       float sc, float shift, int kv0, int kv_len, int c) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = exp2_ftz(__fsub_rn(score(acc[4 * j + e], sc), shift));
+      if (kTail && kv0 + 8 * j + 2 * c + (e % 2) >= kv_len) p[e] = 0.0f;
+    }
+    pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+}
+
+// D[64 x 8] += A[64 x 16] B[16 x 8], A (bf16(p)) from registers, B K-major
+// from shared memory. With B all ones every column of D is the running sum
+// of A's rows: l on the tensor core, in f32, and no unpack and add a score.
+__device__ __forceinline__ void wgmma_m64n8k16_rs_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+template <bool kQK8, bool kTileScale>
+__global__ void __launch_bounds__(kThreads, 1)
+cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, const Params prm) {
+  using Acc = std::conditional_t<kQK8, int, float>;  // S: s32 or f32 sums
+  constexpr int kQBytes = kBM * kD * Smem<kQK8>::kEl;
+  constexpr int kTileBytes = kBN * kD * Smem<kQK8>::kEl + kBN * kD * 2;  // K and V
+  extern __shared__ uint8_t smem_raw[];
+  Smem<kQK8>& sm = *reinterpret_cast<Smem<kQK8>*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int q0 = blockIdx.x * kBM, bh = blockIdx.y, g = bh / prm.hper;
+  const int n_tiles = (prm.kv_len + kBN - 1) / kBN;  // later tiles add nothing
+
+  if (threadIdx.x == 0) {
+    sm.ring.init(kConsumers);
+    mbar_init(&sm.q_full, 1);
+    mbar_init_fence();
+  }
+  if (threadIdx.x < 256) {
+    sm.ones[threadIdx.x] = 0x3F803F80u;
+    fence_proxy_async();
+  }
+  if (kTileScale && threadIdx.x >= kConsumers) {
+    const float s = tile_shift(prm, g, gridDim.y / prm.hper, threadIdx.x % 32);
+    if (threadIdx.x == kConsumers) sm.shift = s;
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer: one thread issues every TMA load ----
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(&sm.q_full, kQBytes);
+      tma_load_3d(sm.q, &qmap, &sm.q_full, 0, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = sm.ring.acquire(t, kTileBytes);
+        tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], 0, t * kBN, bh);
+        tma_load_3d(sm.v[s], &vmap, &sm.ring.full[s], 0, t * kBN, bh);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 ----
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int lane = tid % 32, warp = t / 32;
+  const int c = lane % 4;
+  float shift, qs = 1.0f;  // qs: the int8 scale's q factor (K3: the whole scale)
+  if (kTileScale) {
+    shift = sm.shift;
+    // a 64-row warpgroup lies in one quantization block (block % 128 == 0);
+    // one wholly past sq reads the last block's scale and stores nothing
+    if (kQK8)
+      qs = prm.qsc[g * prm.n_blocks + min((q0 + 64 * wg) / prm.block, prm.n_blocks - 1)];
+  } else {
+    shift = prm.shift[g];
+    if (kQK8) qs = prm.scale[g];
+  }
+  const uint8_t* qtile = sm.q + wg * 64 * kD * Smem<kQK8>::kEl;
+  mbar_wait(&sm.q_full, 0);
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  // the row sums of bf16(p): rows r (lsum[0]) and r + 8 (lsum[2]), each in
+  // two columns. A K-major B of 8 rows without swizzle: every address the
+  // descriptor reaches holds ones, so one descriptor serves every k step.
+  float lsum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const uint64_t ones_desc = make_desc(sm.ones, 128, 256, Swizzle(0));
+  // bf16(p) as the A fragments of P V. Tile it's P V stays in flight while
+  // tile it + 1's Q K^T is issued; the wait in qk covers both.
+  uint32_t pa[kBN / 16][4];
+  // K2: the quantization block of kv tile it, kb, counted on without a
+  // division (a 128-column kv tile lies in one block)
+  const int tiles_per_block = kTileScale ? prm.block / kBN : 1;
+  int kb = 0, kb_end = tiles_per_block;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = sm.ring.wait_full(it);
+    const int kv0 = it * kBN;
+    if (it == kb_end) {
+      ++kb;
+      kb_end += tiles_per_block;
+    }
+    const float sc = kQK8 && kTileScale ? __fmul_rn(qs, prm.ksc[g * prm.n_blocks + kb]) : qs;
+    Acc acc[64];
+    qk(acc, qtile, sm.k[s]);
+    fence_regs(o);
+    fence_regs(lsum);
+    fence_regs(pa);
+    if (it > 0) sm.ring.release(it - 1);  // its P V has completed
+
+    if (kv0 + kBN > prm.kv_len)
+      p_tile<true>(pa, acc, sc, shift, kv0, prm.kv_len, c);
+    else
+      p_tile<false>(pa, acc, sc, shift, kv0, prm.kv_len, c);
+
+    const uint64_t vdesc = make_desc(sm.v[s], 8192, 1024, kSw128);
+    fence_regs(o);
+    fence_regs(lsum);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      wgmma_m64n64k16_rs_bf16_vt(o, pa[kk], desc_add(vdesc, 2048 * kk), 1);
+      wgmma_m64n8k16_rs_bf16(lsum, pa[kk], ones_desc);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(lsum);
+  fence_regs(pa);
+
+  const float l0 = lsum[0], l1 = lsum[2];
+  const int row = q0 + wg * 64 + warp * 16 + lane / 4;
+  float inv0 = 1.0f, inv1 = 1.0f;
+  if (prm.l != nullptr) {  // unnormalized: the raw numerator and l
+    if (c == 0) {
+      if (row < prm.sq) prm.l[(int64_t)bh * prm.sq + row] = l0;
+      if (row + 8 < prm.sq) prm.l[(int64_t)bh * prm.sq + row + 8] = l1;
+    }
+  } else {
+    inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
+    inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
+  }
+  __nv_bfloat16* obase = prm.out + (int64_t)bh * prm.sq * kD;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = 8 * j + 2 * c;
+    if (row < prm.sq)
+      *reinterpret_cast<uint32_t*>(obase + (int64_t)row * kD + col) =
+          pack_bf16(__fmul_rn(o[4 * j], inv0), __fmul_rn(o[4 * j + 1], inv0));
+    if (row + 8 < prm.sq)
+      *reinterpret_cast<uint32_t*>(obase + (int64_t)(row + 8) * kD + col) =
+          pack_bf16(__fmul_rn(o[4 * j + 2], inv1), __fmul_rn(o[4 * j + 3], inv1));
+  }
+}
+
+// One launch of an instance on q [BH, sq, 64], k and v [BH, skv, 64] (q and
+// k int8 or bf16 by kQK8, v bf16; contiguous, 16-byte aligned), grid (q
+// tiles, BH). Returns a cudaError_t: cudaErrorInvalidValue where
+// cuTensorMapEncodeTiled refuses a map.
+template <bool kQK8, bool kTileScale>
+int launch(const void* q, const void* k, const void* v, int BH, int skv, Params prm,
+           cudaStream_t stream) {
+  const CUtensorMapDataType qk_type =
+      kQK8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle qk_swizzle =
+      kQK8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  constexpr int el = Smem<kQK8>::kEl;
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map_3d(&qmap, q, qk_type, el, kD, prm.sq, BH, kD, kBM, qk_swizzle) ||
+      !make_map_3d(&kmap, k, qk_type, el, kD, skv, BH, kD, kBN, qk_swizzle) ||
+      !make_map_3d(&vmap, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kD, skv, BH, kD, kBN,
+                   CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // + 1024 so the tiles can start on a 1024-byte boundary
+  constexpr int kSmem = sizeof(Smem<kQK8>) + 1024;
+  auto kernel = cell_kernel<kQK8, kTileScale>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((prm.sq + kBM - 1) / kBM, BH);
+  kernel<<<grid, kThreads, kSmem, stream>>>(qmap, kmap, vmap, prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace fixed_cell
+}  // namespace

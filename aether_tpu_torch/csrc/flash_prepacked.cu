@@ -1,264 +1,68 @@
-// K2: fixed-max flash attention over the prologue's operands, written by hand
-// for Hopper (sm_90a).
+// K2: fixed-max flash attention over the prologue's operands on wgmma with
+// TMA, written by hand for Hopper (sm_90a), as the instances <int8 or bf16
+// QK^T, per-tile scales> of the cell in fixed_cell.cuh (K3 is its other
+// instance).
 //
 // Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_prepacked (the
 // Pallas TPU kernel launched by flash_attention_prepacked), both its branches
-// (qk_int8, :845-855). Non-causal attention, head_dim 64, in the log2 domain:
-//   s   = f32(int32(q8 . k8^T)) * (qsc[g, row/block] * ksc[g, col/block])   (kInt8)
-//   s   = f32(q . k^T), bf16 q carrying the fold      (!kInt8: AETHER_ATTN_QK8=0)
+// (qk_int8, :845-855), with its noshift. Non-causal attention, head_dim 64,
+// in the log2 domain:
+//   s   = f32(int32(q8 . k8^T)) * (qsc[g, row/block] * ksc[g, col/block])   (int8)
+//   s   = f32(q . k^T), bf16 q carrying the fold      (float: AETHER_ATTN_QK8=0)
 //   p   = exp2(s - m_g),  m_g = max_t qn[g, t] * max_t kn[g, t]
-//   out = sum_j bf16(p_j) v_j / sum_j bf16(p_j)     (denominator 0 -> 1)
+//         (m_g = 0 under noshift, or under noshift=None when every group's
+//         m is below 96)
+//   out = sum_j bf16(p_j) v_j / sum_j bf16(p_j)     (denominator <= 0 -> 1)
 // Columns >= s_valid are masked out of numerator and denominator alike (the
 // TPU kernel did that through zeroed [v | 1] rows; a zero k row alone would
 // still give p = 2^-m != 0).
 //
-// What bounds it on an H100: matrix-unit work and exp2. One call at the
-// 48-head 15360-token shape is 2.9e12 flops (half int8 QK^T, half bf16 PV)
-// and 1.1e10 exp2 (the float branch: 2.9e12 bf16 flops). Because the shift
-// m_g is fixed per head group, a CTA never rescales: no running max, no
-// cross-CTA reduction, and every kv tile is an independent sum. The design:
-//   * grid (q tiles of 64 rows, B*H); 4 warps, 16 q rows each; each CTA loops
-//     over every kv tile of 64 columns;
-//   * QK^T on mma.sync.m16n8k32 s8 x s8 -> s32, or m16n8k16 bf16 x bf16 -> f32
-//     (the float branch, exact products), q fragments held in registers for
-//     the whole loop, k fragments from shared memory with ldmatrix;
-//   * the s32 / f32 accumulator layout of m16n8 equals the bf16 A-operand layout of
-//     m16n8k16, so p goes from registers straight into the PV mma.sync
-//     (bf16 x bf16 -> f32) without touching shared memory; v fragments come
-//     from shared memory with ldmatrix.trans;
-//   * any tile that divides the 1024-token quantization tile works, because
-//     the scale of a 64-row tile is one scalar per (q tile, kv tile).
-// wgmma, TMA and warp specialisation are later work; this is the simple form.
-// Compiled without --use_fast_math so exp2f and the division stay accurate.
+// What bounds it on an H100: at the 48-head 15360-token shape with 15076
+// valid tokens one call is 2.8e12 operations (half int8 QK^T, half bf16 PV:
+// 2.12 ms; the float branch, all bf16: 2.82 ms at 989 TFLOP/s) and 1.1e10
+// exp2 (2.61 ms on the SFU at 16 a clock an SM and 1980 MHz): int8 is bound
+// by the SFU at 2.61 ms, the float branch by operations at 2.82. What the
+// design does about it (the cell's note has the whole of it): wgmma for both
+// products with P kept in registers between them, a TMA ring so that no load
+// waits on the math, three consumer warpgroups so the tensor cores and the
+// SFU run side by side, one ex2.approx a score and the int8 scores'
+// conversion off the conversion unit, and no online max or rescale: the
+// shift is fixed. The scale of a 64-row warpgroup and a 128-column kv tile
+// is one scalar, because the 1024-token (in general: multiple of 128)
+// quantization tile contains both; the shift is taken by the producer warp
+// from the [G, T] norm maxima.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kD = 64;
-constexpr int kBM = 64;            // q rows per CTA
-constexpr int kBN = 64;            // kv columns per tile
-constexpr int kWarps = 4;
-constexpr int kVStride = 72;       // bf16 per v row in shared memory (64 + 8 pad)
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// kInt8: q/k are int8 [BH, s_pad, 64]; else bf16 [BH, s_pad, 64]
-template <bool kInt8>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_prepacked_kernel(const void* __restrict__ q, const void* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const float* __restrict__ qsc, const float* __restrict__ ksc,
-                       const float* __restrict__ qn, const float* __restrict__ kn,
-                       __nv_bfloat16* __restrict__ out, int s_pad, int s_valid,
-                       int hper, int block, int n_tiles) {
-  constexpr int kQBytes = kInt8 ? 1 : 2;
-  constexpr int kKStride = kInt8 ? 80 : 144;  // bytes per k row in shared memory (+16 pad)
-  __shared__ __align__(16) uint8_t ks[kBN * kKStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBN * kVStride];
-
-  const int bh = blockIdx.y;
-  const int g = bh / hper;
-  const int q0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-
-  // fixed per-group shift: the Cauchy-Schwarz bound max(qn) * max(kn)
-  float mq = qn[g * n_tiles], mk = kn[g * n_tiles];
-  for (int t = 1; t < n_tiles; ++t) {
-    mq = fmaxf(mq, qn[g * n_tiles + t]);
-    mk = fmaxf(mk, kn[g * n_tiles + t]);
-  }
-  const float m = __fmul_rn(mq, mk);
-  const float q_scale = kInt8 ? qsc[g * n_tiles + q0 / block] : 1.0f;
-
-  // q fragments for this warp's 16 rows (A operand, row-major): int8
-  // m16n8k32 in 2 k steps, or bf16 m16n8k16 in 4 k steps; 4 registers each
-  constexpr int kSteps = kInt8 ? 2 : 4;
-  const uint8_t* qrow = static_cast<const uint8_t*>(q) +
-                        ((int64_t)bh * s_pad + q0 + warp * 16 + gid) * kD * kQBytes;
-  uint32_t qa[kSteps][4];
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const uint8_t* p0 = qrow + s * 32 + tig * 4;  // 32 int8 or 16 bf16 a step
-    qa[s][0] = *reinterpret_cast<const uint32_t*>(p0);
-    qa[s][1] = *reinterpret_cast<const uint32_t*>(p0 + 8 * kD * kQBytes);
-    qa[s][2] = *reinterpret_cast<const uint32_t*>(p0 + 16);
-    qa[s][3] = *reinterpret_cast<const uint32_t*>(p0 + 8 * kD * kQBytes + 16);
-  }
-
-  float o[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
-  float l0 = 0.0f, l1 = 0.0f;  // this thread's share of rows gid and gid + 8
-
-  const int kv_end = ((s_valid + kBN - 1) / kBN) * kBN;  // later tiles are all masked
-  const uint8_t* kbase = static_cast<const uint8_t*>(k) + (int64_t)bh * s_pad * kD * kQBytes;
-  const __nv_bfloat16* vbase = v + (int64_t)bh * s_pad * kD;
-  const int mi = lane / 8, mr = lane % 8;  // ldmatrix: matrix index, row within it
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kBN) {
-    __syncthreads();  // the previous tile is consumed
-    constexpr int kChunks = kD * kQBytes / 16;  // 16-byte chunks per k row
-#pragma unroll
-    for (int i = tid; i < kBN * kChunks; i += kWarps * 32) {  // k: 64 rows
-      const int r = i / kChunks, c = i % kChunks;
-      *reinterpret_cast<int4*>(ks + r * kKStride + c * 16) = *reinterpret_cast<const int4*>(
-          kbase + ((int64_t)(kv0 + r) * kD) * kQBytes + c * 16);
-    }
-#pragma unroll
-    for (int i = tid; i < kBN * 8; i += kWarps * 32) {  // v: 64 rows x 128 B
-      const int r = i / 8, c = i % 8;
-      *reinterpret_cast<int4*>(vs + r * kVStride + c * 8) =
-          *reinterpret_cast<const int4*>(vbase + (int64_t)(kv0 + r) * kD + c * 8);
-    }
-    __syncthreads();
-
-    const float sc = kInt8 ? __fmul_rn(q_scale, ksc[g * n_tiles + kv0 / block]) : 1.0f;
-
-    // s = q . k^T over 8 column tiles of 8
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint8_t* krow = ks + (nt * 8 + mr) * kKStride;
-      if constexpr (kInt8) {
-        // one ldmatrix.x4 gives both k steps' B fragments (16 int8 = 8 b16
-        // per matrix row)
-        int sacc[4] = {0, 0, 0, 0};
-        uint32_t kb[4];
-        ldmatrix_x4(kb, krow + mi * 16);
-        mma_s8(sacc, qa[0], kb[0], kb[1]);
-        mma_s8(sacc, qa[1], kb[2], kb[3]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[nt][j] = __fmul_rn((float)sacc[j], sc);
-      } else {
-        // two ldmatrix.x4 give the 4 k steps' B fragments (8 bf16 a matrix row)
-        uint32_t kb[2][4];
-        ldmatrix_x4(kb[0], krow + mi * 16);
-        ldmatrix_x4(kb[1], krow + 64 + mi * 16);
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-        mma_bf16(s[nt], qa[0], kb[0][0], kb[0][1]);
-        mma_bf16(s[nt], qa[1], kb[0][2], kb[0][3]);
-        mma_bf16(s[nt], qa[2], kb[1][0], kb[1][1]);
-        mma_bf16(s[nt], qa[3], kb[1][2], kb[1][3]);
-      }
-    }
-
-    // p = exp2(s - m) rounded to bf16, packed as the PV mma's A operand
-    const bool tail = kv0 + kBN > s_valid;
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = kv0 + nt * 8 + tig * 2;
-      float p0 = exp2f(__fsub_rn(s[nt][0], m));
-      float p1 = exp2f(__fsub_rn(s[nt][1], m));
-      float p2 = exp2f(__fsub_rn(s[nt][2], m));
-      float p3 = exp2f(__fsub_rn(s[nt][3], m));
-      if (tail) {
-        if (col >= s_valid) p0 = p2 = 0.0f;
-        if (col + 1 >= s_valid) p1 = p3 = 0.0f;
-      }
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(p0, p1);  // row gid
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(p2, p3);  // row gid + 8
-      l0 += __low2float(lo) + __high2float(lo);
-      l1 += __low2float(hi) + __high2float(hi);
-      pa[nt / 2][(nt % 2) * 2 + 0] = bf162_bits(lo);
-      pa[nt / 2][(nt % 2) * 2 + 1] = bf162_bits(hi);
-    }
-
-    // out += p . v over 4 k chunks of 16 and 8 output tiles of 8
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int dt = 0; dt < 8; dt += 2) {
-        uint32_t vb[4];
-        // matrices: (k 0-7, dt), (k 8-15, dt), (k 0-7, dt+1), (k 8-15, dt+1)
-        ldmatrix_x4_trans(vb, vs + (kc * 16 + (mi & 1) * 8 + mr) * kVStride +
-                                  (dt + (mi >> 1)) * 8);
-        mma_bf16(o[dt], pa[kc], vb[0], vb[1]);
-        mma_bf16(o[dt + 1], pa[kc], vb[2], vb[3]);
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(kFull, l0, 1);
-  l0 += __shfl_xor_sync(kFull, l0, 2);
-  l1 += __shfl_xor_sync(kFull, l1, 1);
-  l1 += __shfl_xor_sync(kFull, l1, 2);
-  const float inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
-  const float inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
-  __nv_bfloat16* orow = out + ((int64_t)bh * s_pad + q0 + warp * 16 + gid) * kD;
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-    const int col = dt * 8 + tig * 2;
-    *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-        __floats2bfloat162_rn(__fmul_rn(o[dt][0], inv0), __fmul_rn(o[dt][1], inv0));
-    *reinterpret_cast<__nv_bfloat162*>(orow + 8 * kD + col) =
-        __floats2bfloat162_rn(__fmul_rn(o[dt][2], inv1), __fmul_rn(o[dt][3], inv1));
-  }
-}
-
-}  // namespace
+#include "fixed_cell.cuh"
 
 // q, k: [BH, s_pad, 64] int8 (qk_int8) or bf16, q carrying the fold; v, out:
-// [BH, s_pad, 64] bf16; qsc, ksc, qn, kn: [BH / hper, n_tiles] f32.
+// [BH, s_pad, 64] bf16; all contiguous and 16-byte aligned. qsc, ksc, qn,
+// kn: [BH / hper, n_blocks] f32 over tiles of `block` tokens, a multiple of
+// 128 with block * n_blocks = s_pad. 0 <= s_valid <= s_pad. noshift: 0 keep
+// the shift, 1 drop it, 2 drop it when every group's bound is below 96.
 extern "C" int aether_flash_prepacked(const void* q, const void* k, const void* v,
                                       const void* qsc, const void* ksc,
                                       const void* qn, const void* kn, void* out,
                                       int BH, int s_pad, int s_valid, int hper,
-                                      int block, int n_tiles, int qk_int8, void* stream) {
-  dim3 grid(s_pad / kBM, BH);
+                                      int block, int n_blocks, int qk_int8, int noshift,
+                                      void* stream) {
+  using namespace fixed_cell;
+  if (BH <= 0 || BH > 65535 || s_pad <= 0 || s_valid < 0 || s_valid > s_pad || hper <= 0 ||
+      BH % hper || block <= 0 || block % kBN || block * n_blocks != s_pad || noshift < kKeep ||
+      noshift > kAuto)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params prm{};
+  prm.out = static_cast<__nv_bfloat16*>(out);
+  prm.sq = s_pad;
+  prm.kv_len = s_valid;
+  prm.hper = hper;
+  prm.qsc = static_cast<const float*>(qsc);
+  prm.ksc = static_cast<const float*>(ksc);
+  prm.qn = static_cast<const float*>(qn);
+  prm.kn = static_cast<const float*>(kn);
+  prm.block = block;
+  prm.n_blocks = n_blocks;
+  prm.noshift = noshift;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* vv = static_cast<const __nv_bfloat16*>(v);
-  auto* f_qsc = static_cast<const float*>(qsc);
-  auto* f_ksc = static_cast<const float*>(ksc);
-  auto* f_qn = static_cast<const float*>(qn);
-  auto* f_kn = static_cast<const float*>(kn);
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  if (qk_int8)
-    flash_prepacked_kernel<true><<<grid, kWarps * 32, 0, st>>>(
-        q, k, vv, f_qsc, f_ksc, f_qn, f_kn, o, s_pad, s_valid, hper, block, n_tiles);
-  else
-    flash_prepacked_kernel<false><<<grid, kWarps * 32, 0, st>>>(
-        q, k, vv, f_qsc, f_ksc, f_qn, f_kn, o, s_pad, s_valid, hper, block, n_tiles);
-  return static_cast<int>(cudaGetLastError());
+  return qk_int8 ? launch<true, true>(q, k, v, BH, s_pad, prm, st)
+                 : launch<false, true>(q, k, v, BH, s_pad, prm, st);
 }

@@ -61,7 +61,8 @@ SIGNATURES = {
         _P, _P, _P, _P,      # qsc, ksc, qn, kn (f32, [G, T])
         _P,                  # out (bf16, [B*H, s_pad, D])
         _I, _I, _I,          # BH, s_pad, s_valid
-        _I, _I, _I, _I,      # hper, block, n_tiles, qk_int8
+        _I, _I, _I, _I,      # hper, block (a multiple of 128), n_blocks, qk_int8
+        _I,                  # noshift (0 keep, 1 drop, 2 drop when every bound < 96)
         _P,                  # stream
     ],
     "aether_flash_online": [
@@ -79,7 +80,7 @@ SIGNATURES = {
         _P, _P, _P,          # q, k (int8 or folded bf16), v (bf16): [B*H, sq | skv, 64]
         _P, _P,              # shift, scale (f32, [G])
         _P, _P,              # out (bf16, [B*H, sq, 64]), l (f32, [B*H, sq]) or null
-        _I, _I, _I, _I, _I,  # BH, sq, skv (multiples of 64), kv_len, hper
+        _I, _I, _I, _I, _I,  # BH, sq, skv (any lengths), kv_len, hper
         _I,                  # qk_int8
         _P,                  # stream
     ],

@@ -289,12 +289,14 @@ def fused_joint_attention(
     eps: float,
     sm_scale: Optional[float] = None,
     quantize: bool = True,
+    noshift: Optional[bool] = False,
     block_q: int = 1024,
     heads_per_cell: int = 4,
     s_valid: Optional[int] = None,
 ) -> torch.Tensor:
     """Projection outputs [B, S, H*D] -> attention output [B, S, H*D]:
-    ``qkv_prologue`` (K1) + ``flash_attention_prepacked`` (K2) + head merge."""
+    ``qkv_prologue`` (K1) + ``flash_attention_prepacked`` (K2, with its
+    ``noshift``) + head merge."""
     b, s, _ = xq.shape
     q, k, v, qsc, qn, ksc, kn, s_pad = qkv_prologue(
         xq, xk, xv, norm_q_scale, norm_q_bias, norm_k_scale, norm_k_bias,
@@ -305,7 +307,7 @@ def fused_joint_attention(
     out = flash_attention_prepacked(
         q, k, v, qsc=qsc, ksc=ksc, qn=qn, kn=kn,
         s_valid=s if s_valid is None else s_valid, block_q=block_q,
-        heads_per_cell=heads_per_cell,
+        heads_per_cell=heads_per_cell, noshift=noshift,
     )  # [B*H, S_pad, D]
     out = out.reshape(b, num_heads, s_pad, head_dim)[:, :, :s]
     return out.transpose(1, 2).reshape(b, s, num_heads * head_dim)

@@ -8,7 +8,8 @@ which ``chip_smoke.py`` holds the kernel against on the card.
 K3, :func:`flash_attention_fixed_max` (``flash_attention(fixed_max=True)``):
 ``csrc/flash_fixed_max.cu`` replaces ``_flash_kernel_fixed_max``, the
 attention of the unfused DiT path (``AETHER_ATTN_FUSED=0``) and of the ring
-merge (``unnormalized`` with a shared ``score_bound``). K6,
+merge (``unnormalized`` with a shared ``score_bound``); q, k and v go to the
+kernel unpadded (TMA reads rows past the ends as zeros). K6,
 :func:`flash_attention_pv8` (``pv_int8=True``): ``csrc/flash_pv8.cu``
 replaces ``_flash_kernel_pv8``. The wrapper's preparation is the JAX
 wrapper's (:func:`_fixed_max_operands`): the ``kv_valid`` tail zeroed, the
@@ -33,17 +34,18 @@ A zero denominator divides by 1.
 
 K2, :func:`flash_attention_prepacked`: ``csrc/flash_prepacked.cu`` replaces
 ``_flash_kernel_prepacked``, both its int8 and its float (``AETHER_ATTN_QK8=0``)
-branch. On the H100 it is bound by matrix-unit work and exp2 (2.9e12 flops and
-1.1e10 exp2 per call at 48 heads x 15360 tokens). Its design answers with the
-fixed softmax shift (no running max, no rescale, no cross-CTA reduction), int8
-(or bf16) ``mma.sync`` for QK^T and bf16 ``mma.sync`` for PV with p kept in
-registers between the two; the source carries the full note.
+branch. K2 and K3 are one Hopper kernel, the fixed-shift cell of
+``csrc/fixed_cell.cuh`` (``wgmma`` for both products, a TMA ring, p kept in
+registers between them, no running max); on the H100 it is bound by the SFU's
+exp2 (int8) or by bf16 operations (1.1e10 exp2 and 2.8e12 operations per K2
+call at 48 heads x 15076 valid tokens); the sources carry the full note.
 
 K2's math (log2 domain, non-causal, one fixed shift per head group):
 
     s   = f32(q8 . k8^T) * (qsc[g, row tile] * ksc[g, col tile])   (int8 q/k)
     s   = q . k^T                                                   (float q/k)
-    p   = exp2(s - max_t qn[g, t] * max_t kn[g, t])
+    p   = exp2(s - max_t qn[g, t] * max_t kn[g, t])   (the shift 0 under
+          ``noshift``; under ``noshift=None`` when every group's is < 96)
     out = sum_j p_j v_j / sum_j p_j,   p rounded to v's dtype in both sums,
           a zero denominator divides by 1
 
@@ -60,6 +62,7 @@ from aether_tpu_torch.ops import _build
 
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _LOG2E = 1.4426950408889634
+_NOSHIFT_BELOW = 96.0   # noshift=None drops the shift when max(bound) < this
 _K4_TILE = 64  # q rows and kv columns per tile of csrc/flash_online.cu (f32)
 
 
@@ -88,6 +91,18 @@ def _heads_per_cell(bh: int, heads_per_cell: int) -> int:
     return max(h for h in range(1, min(heads_per_cell, bh) + 1) if bh % h == 0)
 
 
+_NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
+
+
+def _shift_or_zero(bounds: torch.Tensor, noshift: Optional[bool]) -> torch.Tensor:
+    """The per-group softmax shift: ``bounds``, or 0 where ``noshift`` drops
+    it; ``noshift=None`` decides on the device, without a host sync: 0 when
+    ``max(bounds) < 96``."""
+    if noshift is None:
+        return torch.where(bounds.amax() < _NOSHIFT_BELOW, torch.zeros_like(bounds), bounds)
+    return torch.zeros_like(bounds) if noshift else bounds
+
+
 def _check_grid(q, qsc, block_q: int, heads_per_cell: int):
     bh, s_pad, _ = q.shape
     block = _pick_block(s_pad, block_q)
@@ -114,6 +129,7 @@ def flash_attention_prepacked_plain(
     s_valid: Optional[int] = None,
     block_q: int = 1024,
     heads_per_cell: int = 4,
+    noshift: Optional[bool] = False,
 ) -> torch.Tensor:
     """Plain PyTorch K2: loops over head groups and q tiles so no score tensor
     is larger than (heads_per_cell, block, S_pad) in f32."""
@@ -121,7 +137,7 @@ def flash_attention_prepacked_plain(
     s_valid = s_pad if s_valid is None else s_valid
     block, hper = _check_grid(q, qsc, block_q, heads_per_cell)
     qk_int8 = q.dtype == torch.int8
-    bounds = qn.amax(dim=-1) * kn.amax(dim=-1)  # [G]
+    bounds = _shift_or_zero(qn.amax(dim=-1) * kn.amax(dim=-1), noshift)  # [G]
     col_ok = torch.arange(s_pad, device=q.device) < s_valid
     out = torch.empty((bh, s_pad, d), dtype=v.dtype, device=v.device)
     for g in range(bh // hper):
@@ -157,6 +173,7 @@ def flash_attention_prepacked(
     s_valid: Optional[int] = None,
     block_q: int = 1024,
     heads_per_cell: int = 4,
+    noshift: Optional[bool] = False,
 ) -> torch.Tensor:
     """Fixed-max attention over ``qkv_prologue``'s outputs -> [B*H, S_pad, D].
 
@@ -166,14 +183,18 @@ def flash_attention_prepacked(
         v: [B*H, S_pad, D] plain values, rows >= s_valid zeroed.
         qsc / ksc / qn / kn: [G, T] f32 scales and L2-norm maxima.
         s_valid: number of real tokens; later kv columns are masked.
+        noshift: True drops the shift (p = exp2(s)); None drops it, decided
+            on the device, when every group's bound is below 96.
 
     A CPU tensor runs :func:`flash_attention_prepacked_plain`. A CUDA tensor
     launches the Hopper kernel or raises; there is no fallback.
     """
+    if noshift not in _NOSHIFT_CODES:
+        raise ValueError(f"noshift must be False, True or None, got {noshift!r}")
     if not q.is_cuda:
         return flash_attention_prepacked_plain(
             q, k, v, qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=s_valid,
-            block_q=block_q, heads_per_cell=heads_per_cell)
+            block_q=block_q, heads_per_cell=heads_per_cell, noshift=noshift)
     bh, s_pad, d = q.shape
     s_valid = s_pad if s_valid is None else s_valid
     if q.dtype not in (torch.int8, torch.bfloat16) or k.dtype != q.dtype:
@@ -187,8 +208,8 @@ def flash_attention_prepacked(
         if tuple(t.shape) != (bh, s_pad, d):
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(bh, s_pad, d)}")
     block, hper = _check_grid(q, qsc, block_q, heads_per_cell)
-    if block % 64:
-        raise ValueError(f"K2 needs a block that is a multiple of 64, got {block}")
+    if block % 128:  # a 128-column kv tile must lie in one quantization block
+        raise ValueError(f"K2 needs a block that is a multiple of 128, got {block}")
     if not 0 < s_valid <= s_pad:
         raise ValueError(f"s_valid {s_valid} outside (0, {s_pad}]")
     tensors = (q, k, v, qsc, ksc, qn, kn)
@@ -203,7 +224,7 @@ def flash_attention_prepacked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qsc.data_ptr(),
         ksc.data_ptr(), qn.data_ptr(), kn.data_ptr(), out.data_ptr(),
         bh, s_pad, s_valid, hper, block, s_pad // block, int(q.dtype == torch.int8),
-        _build.stream_ptr(q.device))
+        _NOSHIFT_CODES[noshift], _build.stream_ptr(q.device))
     _build.check(rc, "aether_flash_prepacked")
     flash_attention_prepacked.launches += 1
     return out
@@ -339,8 +360,7 @@ def flash_attention_plain(
 # K3 and K6: the fixed-max family (``flash_attention(fixed_max=True)``)
 # ---------------------------------------------------------------------------
 
-_FIXED_TILE = 64        # q rows per CTA and kv columns per tile of K3 and K6
-_NOSHIFT_BELOW = 96.0   # noshift=None drops the shift when max(bound) < this
+_FIXED_TILE = 64        # K6's wrapper pads q rows to a multiple of this
 _PV8_NEG = -1e9         # K6's padding bias and initial running max
 
 
@@ -422,13 +442,8 @@ def _fixed_max_operands(q, k, v, *, sm_scale, kv_valid, heads_per_cell,
     if pv_int8:
         vscale = _group_absmax(vh, hper)
         vh = _quantize_groups(vh, vscale, hper)
-    if noshift is None and not unnormalized:
-        shift = torch.where(bounds.amax() < _NOSHIFT_BELOW,
-                            torch.zeros_like(bounds), bounds)
-    elif noshift and not unnormalized:
-        shift = torch.zeros_like(bounds)
-    else:  # the ring merge always takes the shared bound as its shift
-        shift = bounds
+    # the ring merge always takes the shared bound as its shift
+    shift = bounds if unnormalized else _shift_or_zero(bounds, noshift)
     return _FixedMaxOperands(qh, kh, vh, kv_len, hper, shift.contiguous(),
                              scale.contiguous(), vscale, out_dtype)
 
@@ -512,12 +527,28 @@ def flash_attention_fixed_max_plain(
 
 
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
-    """[BH, S, D] zero-padded to [BH, rows, D], contiguous."""
+    """[BH, S, D] zero-padded to [BH, rows, D], contiguous (K6's operands)."""
     if t.shape[1] == rows:
         return t.contiguous()
     buf = t.new_zeros((t.shape[0], rows, t.shape[2]))
     buf[:, :t.shape[1]] = t
     return buf
+
+
+def _fixed_max_launch(ops: _FixedMaxOperands, out: torch.Tensor,
+                      l_out: Optional[torch.Tensor]) -> None:
+    """The K3 kernel alone on :func:`_fixed_max_operands`' result (int8 or
+    bf16 q/k, bf16 v; unpadded): out [BH, Sq, 64] bf16, l_out [BH, Sq, 1]
+    f32 or None (normalized)."""
+    qh, kh, vh = (t.contiguous() for t in (ops.q, ops.k, ops.v))
+    bh, sq, _ = qh.shape
+    rc = _build.lib().aether_flash_fixed_max(
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), ops.shift.data_ptr(),
+        ops.scale.data_ptr(), out.data_ptr(),
+        None if l_out is None else l_out.data_ptr(),
+        bh, sq, kh.shape[1], ops.kv_len, ops.hper, int(qh.dtype == torch.int8),
+        _build.stream_ptr(qh.device))
+    _build.check(rc, "aether_flash_fixed_max")
 
 
 def _check_fixed_max_inputs(name: str, q, k, v, dtypes) -> None:
@@ -560,8 +591,9 @@ def flash_attention_fixed_max(
     [B, H, Sq, 1].
 
     A CPU tensor runs :func:`flash_attention_fixed_max_plain`. A CUDA tensor
-    launches ``csrc/flash_fixed_max.cu`` (bf16 q/k/v, head_dim 64) or raises:
-    f32 raises ``TypeError`` there (its PV would need f32 products).
+    launches ``csrc/flash_fixed_max.cu`` (bf16 q/k/v, head_dim 64, any
+    lengths) or raises: f32 raises ``TypeError`` there (its PV would need
+    f32 products).
     """
     opts = dict(sm_scale=sm_scale, kv_valid=kv_valid,
                 heads_per_cell=heads_per_cell, noshift=noshift,
@@ -572,21 +604,10 @@ def flash_attention_fixed_max(
     _check_fixed_max_inputs("K3", q, k, v, (torch.bfloat16,))
     b, h, sq, dim = q.shape
     ops = _fixed_max_operands(q, k, v, pv_int8=False, **opts)
-    bh = b * h
-    sq_pad = -(-sq // _FIXED_TILE) * _FIXED_TILE
-    skv_pad = -(-k.shape[2] // _FIXED_TILE) * _FIXED_TILE
-    qp = _pad_rows(ops.q, sq_pad)
-    kp, vp = _pad_rows(ops.k, skv_pad), _pad_rows(ops.v, skv_pad)
-    out = torch.empty((bh, sq_pad, dim), dtype=torch.bfloat16, device=q.device)
-    l_out = (torch.empty((bh, sq_pad, 1), dtype=torch.float32, device=q.device)
+    out = torch.empty((b * h, sq, dim), dtype=torch.bfloat16, device=q.device)
+    l_out = (torch.empty((b * h, sq, 1), dtype=torch.float32, device=q.device)
              if unnormalized else None)
-    rc = _build.lib().aether_flash_fixed_max(
-        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), ops.shift.data_ptr(),
-        ops.scale.data_ptr(), out.data_ptr(),
-        None if l_out is None else l_out.data_ptr(),
-        bh, sq_pad, skv_pad, ops.kv_len, ops.hper, int(qp.dtype == torch.int8),
-        _build.stream_ptr(q.device))
-    _build.check(rc, "aether_flash_fixed_max")
+    _fixed_max_launch(ops, out, l_out)
     flash_attention_fixed_max.launches += 1
     if unnormalized:
         return _finish_heads(out, b, h, sq), _finish_heads(l_out, b, h, sq)

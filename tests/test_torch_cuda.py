@@ -11,7 +11,13 @@ lengths, extreme negative scores with padding, both denominators, f32 and
 bf16, and ``flash_attention_trainable``'s gradients. K3 and K6: lengths that
 are not a multiple of 64, ``kv_valid``, Sq != Skv, K3's unnormalized mode
 with a score bound, B*H odd (head groups of 3 or 1), int8 and bf16 QK^T, K6
-over several kv spans and with a negative row max behind padding. K5: T*H*W
+over several kv spans and with a negative row max behind padding. K2 and K3
+on their fixed-shift cell (192-row CTAs of 64-row warpgroups, 128-column kv
+tiles): Sq not a multiple of 192 and Sq != Skv, kv_valid inside a tile and
+tiles wholly past it, hper 1, 2 and 4, K3 unnormalized on ragged tiles, K2
+over several quantization blocks (the warpgroups of one CTA reading
+different q scales) and with each ``noshift``, strided or mismatched
+operands refused with ``ValueError``, and repeats bit-identical. K5: T*H*W
 not a multiple of the vector, unaligned rows, B 1 and 2, C from 12 to 512,
 f32/bf16/f16, NCTHW and channels-last, a large-mean group, bit-identical
 repeats, and the VAE's ``group_norm`` through it. K7-K9 (on K4 bf16's wgmma
@@ -325,6 +331,62 @@ def test_flash_trainable_grads_match_plain_on_cuda(dev):
         assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
 
 
+# K2 on the fixed-shift cell (csrc/fixed_cell.cuh): 192-row CTAs of three
+# 64-row warpgroups, each reading its own q scale, against 128-column kv
+# tiles; (batch, tokens, heads, s_valid, block_q, quantize, noshift)
+K2_CELL_CASES = [
+    (1, 3000, 4, 2900, 1024, True, False),   # three 1024-token blocks; warpgroups of
+                                             # the CTA at rows 960-1151 read two qsc
+    (1, 2500, 2, 2500, 1024, True, None),    # blocks of 640 (s_pad 2560), hper 2
+    (2, 700, 2, 650, 128, True, False),      # blocks of 128: every warpgroup its own
+    (1, 1000, 1, 1000, 256, False, True),    # float, hper 1, shift dropped
+    (2, 700, 3, 129, 128, False, None),      # one column into the second tile
+]
+
+
+@pytest.mark.parametrize("b,s,nh,s_valid,block_q,quantize,noshift", K2_CELL_CASES)
+def test_flash_prepacked_cell_tiles(dev, b, s, nh, s_valid, block_q, quantize, noshift):
+    """K2 at the cell's edges against its plain version, at K2's gates (int8:
+    max 1e-2, mean 1e-3; float: the same, as above); two launches give the
+    same bits."""
+    xs, norms, rope = _inputs(dev, b, s, nh, s, seed=s + nh)
+    q, k, v, qsc, qn, ksc, kn, s_pad = qkv_prologue(
+        *xs, *norms, *rope, num_heads=nh, head_dim=HD, eps=1e-6, s_valid=s_valid,
+        quantize=quantize, block_q=block_q)
+    kw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=s_valid, block_q=block_q,
+              noshift=noshift)
+    before = flash_attention_prepacked.launches
+    out = flash_attention_prepacked(q, k, v, **kw)
+    again = flash_attention_prepacked(q, k, v, **kw)
+    ref = flash_attention_prepacked_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_prepacked.launches == before + 2
+    assert torch.equal(out, again)
+    _check_fixed(out, ref)
+
+
+def test_flash_prepacked_refuses_what_it_does_not_take(dev):
+    """Strided operands, stats of another grid and an unknown noshift raise
+    ``ValueError``; nothing launches."""
+    xs, norms, rope = _inputs(dev, 1, 300, 4, 300)
+    q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue(*xs, *norms, *rope, num_heads=4,
+                                                head_dim=HD, eps=1e-6)
+    kw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn)
+    before = flash_attention_prepacked.launches
+    strided = torch.empty((q.shape[0], q.shape[1], 2 * HD), dtype=q.dtype, device=dev)[..., :HD]
+    strided.copy_(q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_prepacked(strided, k, v, **kw)
+    with pytest.raises(ValueError, match="tile exactly|grid"):
+        flash_attention_prepacked(q[:, :200].contiguous(), k[:, :200].contiguous(),
+                                  v[:, :200].contiguous(), **kw)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention_prepacked(q, k[:, :256].contiguous(), v, **kw)
+    with pytest.raises(ValueError, match="noshift"):
+        flash_attention_prepacked(q, k, v, noshift=2, **kw)
+    assert flash_attention_prepacked.launches == before
+
+
 # K3 and K6 gates, as in chip_smoke.py: max abs 1e-2 and mean 1e-3 of bf16
 # outputs (K2's); K6 computes the plain version's function up to exp2f's last
 # bit, so its mean error is held to 1e-4
@@ -355,6 +417,74 @@ def test_fixed_max_kernel_matches_plain(dev, b, h, sq, skv, kv_valid, qk_int8):
     torch.cuda.synchronize()
     assert flash_attention_fixed_max.launches == before + 1
     _check_fixed(out, ref)
+
+
+# K3 on the fixed-shift cell: 192-row q tiles, 128-column kv tiles, no
+# padding copy (rows past the ends are TMA's zero fill); hper =
+# _heads_per_cell(B*H, 4). (batch, heads, q tokens, kv tokens, kv_valid, qk_int8)
+K3_CELL_CASES = [
+    (1, 4, 500, 500, None, True),     # hper 4; 500 = two CTAs + 116 rows
+    (1, 2, 193, 1000, 900, False),    # hper 2; one row into the second CTA; kv_valid
+                                      # inside tile 8
+    (1, 1, 64, 2000, 300, True),      # hper 1; tiles 4-16 wholly past kv_valid
+    (2, 2, 700, 333, 256, True),      # Sq > Skv; kv_valid on a tile edge, tile 3 skipped
+    (1, 4, 1000, 1100, 1, False),     # one valid column
+    (1, 3, 3776, 15104, 15076, True), # the ring-merge stripe's lengths
+]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid,qk_int8", K3_CELL_CASES)
+def test_fixed_max_kernel_cell_tiles(dev, b, h, sq, skv, kv_valid, qk_int8):
+    """K3 at the cell's edges against its plain version at K3's gates; two
+    launches give the same bits."""
+    q, k, v = _qkv(dev, (b, h, sq, HD), (b, h, skv, HD), torch.bfloat16, seed=sq + skv + 3)
+    kw = dict(kv_valid=kv_valid, qk_int8=qk_int8)
+    before = flash_attention_fixed_max.launches
+    out = flash_attention_fixed_max(q, k, v, **kw)
+    again = flash_attention_fixed_max(q, k, v, **kw)
+    ref = flash_attention_fixed_max_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_fixed_max.launches == before + 2
+    assert torch.equal(out, again)
+    _check_fixed(out, ref)
+
+
+@pytest.mark.parametrize("qk_int8", [True, False])
+def test_fixed_max_kernel_unnormalized_cell_tiles(dev, qk_int8):
+    """The ring-merge mode where the tiles are ragged: 777 q rows (four
+    192-row CTAs and 9 rows), kv_valid 2050 inside the 17th kv tile of 2100;
+    l to 1e-4 relative, o to 1e-2 of its largest magnitude, as below; two
+    launches give the same bits."""
+    q, k, v = _qkv(dev, (1, 3, 777, HD), (1, 3, 2100, HD), torch.bfloat16, seed=10)
+    kw = dict(kv_valid=2050, qk_int8=qk_int8, score_bound=60.0, unnormalized=True)
+    o, l = flash_attention_fixed_max(q, k, v, **kw)
+    o2, l2 = flash_attention_fixed_max(q, k, v, **kw)
+    ro, rl = flash_attention_fixed_max_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(l, l2)
+    assert l.shape == rl.shape == (1, 3, 777, 1)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
+    assert (o.float() - ro.float()).abs().max().item() <= 1e-2 * ro.float().abs().max().item()
+
+
+def test_fixed_max_kernel_alone_matches_its_wrapper(dev):
+    """The kernel on the operands the wrapper prepares (unpadded) writes the
+    wrapper's output; the launch alone does not count."""
+    from aether_tpu_torch.ops.flash_attention import _fixed_max_launch, _fixed_max_operands
+
+    q, k, v = _qkv(dev, (1, 3, 500, HD), (1, 3, 700, HD), torch.bfloat16, seed=13)
+    for qk_int8 in (True, False):
+        ops = _fixed_max_operands(q, k, v, sm_scale=None, kv_valid=650, heads_per_cell=4,
+                                  noshift=False, qk_int8=qk_int8, pv_int8=False,
+                                  score_bound=None, unnormalized=False)
+        assert ops.q.shape == (3, 500, HD) and ops.k.shape == (3, 700, HD)
+        out = torch.empty((3, 500, HD), dtype=torch.bfloat16, device=dev)
+        before = flash_attention_fixed_max.launches
+        _fixed_max_launch(ops, out, None)
+        assert flash_attention_fixed_max.launches == before
+        ref = flash_attention_fixed_max(q, k, v, kv_valid=650, qk_int8=qk_int8)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(ref.shape), ref)
 
 
 @pytest.mark.parametrize("qk_int8", [True, False])
@@ -434,6 +564,11 @@ def test_fixed_max_kernels_refuse_what_they_do_not_take(dev):
         flash_attention_fixed_max(q.float(), k.float(), v.float())
     with pytest.raises(ValueError, match="pv_int8 requires qk_int8"):
         flash_attention(q, k, v, fixed_max=True, pv_int8=True)
+    # k and v of other lengths or heads
+    with pytest.raises(ValueError, match="does not match"):
+        flash_attention_fixed_max(q, k[:, :, :32], v)
+    with pytest.raises(ValueError, match="does not match"):
+        flash_attention_fixed_max(q, k, torch.cat([v, v], dim=1))
 
 
 # ---- K5: GroupNorm moments ----

@@ -160,6 +160,150 @@ def test_fixed_max_noshift_auto_picks_on_the_bound():
         _assert_close(out, attention_reference(tq, tk, tv), 1e-4)
 
 
+# ---- the Hopper cell's tiling (csrc/fixed_cell.cuh, K2 and K3) ----
+
+
+def _cell_loop(q, k, v, *, kv_len, hper, shift, scale_of=None, unnormalized=False):
+    """The tiling of the fixed-shift cell in plain torch: each 64-row
+    warpgroup tile of q [BH, Sq, D] against k/v [BH, Skv, D] in 128-column
+    tiles up to kv_len, in the kernel's order; the int8 scale one scalar per
+    (warpgroup, kv tile), ``scale_of(g, row0, col0)`` (None: float q/k);
+    p = exp2(s - shift[g]) rounded to v's dtype, 0 at the columns >= kv_len
+    of the tile that crosses it; tiles wholly past kv_len skipped. Returns
+    (out [BH, Sq, D] in v's dtype, normalized unless asked, l [BH, Sq, 1])."""
+    bh, sq, d = q.shape
+    out = torch.empty((bh, sq, d), dtype=v.dtype)
+    l_out = torch.empty((bh, sq, 1))
+    for head in range(bh):
+        g = head // hper
+        for r0 in range(0, sq, 64):
+            qb = q[head, r0:r0 + 64].float()
+            acc = torch.zeros((qb.shape[0], d))
+            l = torch.zeros((qb.shape[0], 1))
+            for c0 in range(0, kv_len, 128):
+                s = qb @ k[head, c0:c0 + 128].float().T
+                if scale_of is not None:
+                    s = s * scale_of(g, r0, c0)
+                p = torch.exp2(s - shift[g])
+                if c0 + 128 > kv_len:
+                    col = torch.arange(c0, c0 + s.shape[1])
+                    p = torch.where(col < kv_len, p, torch.zeros(()))
+                p = p.to(v.dtype).float()
+                acc += p @ v[head, c0:c0 + 128].float()
+                l += p.sum(dim=-1, keepdim=True)
+            if not unnormalized:
+                acc = acc * torch.where(l <= 0.0, torch.ones_like(l), 1.0 / l)
+            out[head, r0:r0 + 64] = acc.to(v.dtype)
+            l_out[head, r0:r0 + 64] = l
+    return out, l_out
+
+
+# the tiling's cases: (shape, kv_shape or None, dtype, qk_int8, kv_valid), each
+# with a tail tile that kv_valid or the length cuts and q tiles of 64 rows
+# that Sq does not fill
+TILING_K3_CASES = [
+    ((1, 2, 300, 64), None, "f32", False, 250),
+    ((1, 3, 130, 64), (1, 3, 300, 64), "bf16", False, 290),   # Sq < Skv, tile 3 empty
+    ((2, 3, 200, 64), None, "bf16", True, None),              # B*H 6: groups of 3
+    ((1, 5, 130, 64), (1, 5, 300, 64), "bf16", True, 250),    # B*H 5: groups of 1
+]
+
+
+@pytest.mark.parametrize("shape,kv_shape,dtype,qk_int8,kv_valid", TILING_K3_CASES)
+def test_k3_cell_tiling_matches_pallas_interpret(shape, kv_shape, dtype, qk_int8, kv_valid):
+    """K3's normalized attention through the cell's tiling on the wrapper's
+    prepared operands, against the Pallas kernel at 128-row, 128-column
+    blocks: the tolerances of the plain version's test above (2e-5 in f32
+    with float q/k, one bf16 ulp of the output scale otherwise)."""
+    from aether_tpu_torch.ops.flash_attention import _fixed_max_operands
+
+    (jq, jk, jv), (tq, tk, tv) = _pair(_inputs(shape, 40 + sum(shape), kv_shape), dtype)
+    ref = jax_flash_attention(jq, jk, jv, block_q=128, block_k=128, fixed_max=True,
+                              qk_int8=qk_int8, kv_valid=kv_valid, interpret=True)
+    ops = _fixed_max_operands(tq, tk, tv, sm_scale=None, kv_valid=kv_valid, heads_per_cell=4,
+                              noshift=False, qk_int8=qk_int8, pv_int8=False,
+                              score_bound=None, unnormalized=False)
+    scale_of = (lambda g, r0, c0: ops.scale[g]) if qk_int8 else None
+    out, _ = _cell_loop(ops.q, ops.k, ops.v, kv_len=ops.kv_len, hper=ops.hper,
+                        shift=ops.shift, scale_of=scale_of)
+    out = out.reshape(shape)
+    exact = dtype == "f32" and not qk_int8
+    _assert_close(out, ref, 2e-5 if exact else _bf16_ulp(ref))
+
+
+@pytest.mark.parametrize("dtype,qk_int8", [("f32", False), ("bf16", False), ("bf16", True)])
+def test_k3_cell_tiling_unnormalized_matches_pallas_interpret(dtype, qk_int8):
+    """K3's ring-merge mode through the cell's tiling: o and l against the
+    Pallas kernel at the tolerances of the unnormalized test above (l 1e-5
+    relative in f32 and 2**-12 in bf16; o 2e-5 of its scale in f32, one
+    bf16 ulp otherwise). 130 q rows fill three 64-row tiles partly; kv_valid
+    280 of 300 cuts the third 128-column tile."""
+    from aether_tpu_torch.ops.flash_attention import _fixed_max_operands
+
+    shape, kv_shape = (1, 2, 130, 64), (1, 2, 300, 64)
+    (jq, jk, jv), (tq, tk, tv) = _pair(_inputs(shape, 9, kv_shape), dtype)
+    jo, jl = jax_flash_attention(jq, jk, jv, block_q=128, block_k=128, fixed_max=True,
+                                 qk_int8=qk_int8, kv_valid=280, score_bound=30.0,
+                                 unnormalized=True, interpret=True)
+    ops = _fixed_max_operands(tq, tk, tv, sm_scale=None, kv_valid=280, heads_per_cell=4,
+                              noshift=False, qk_int8=qk_int8, pv_int8=False,
+                              score_bound=30.0, unnormalized=True)
+    scale_of = (lambda g, r0, c0: ops.scale[g]) if qk_int8 else None
+    o, l = _cell_loop(ops.q, ops.k, ops.v, kv_len=ops.kv_len, hper=ops.hper,
+                      shift=ops.shift, scale_of=scale_of, unnormalized=True)
+    np.testing.assert_allclose(l.reshape(1, 2, 130, 1).numpy(), np.asarray(jl),
+                               rtol=1e-5 if dtype == "f32" else 2.0 ** -12)
+    exact = dtype == "f32" and not qk_int8
+    _assert_close(o.reshape(shape), jo, 2e-5 * float(np.abs(np.asarray(jo)).max()) if exact
+                  else _bf16_ulp(np.asarray(jo, np.float32)))
+
+
+@pytest.mark.parametrize("quantize,dtype", [(True, "f32"), (False, "f32"), (False, "bf16"),
+                                            (True, "bf16")])
+@pytest.mark.parametrize("block_q", [1024, 128])
+def test_k2_cell_tiling_matches_pallas_interpret(quantize, dtype, block_q):
+    """K2 through the cell's tiling on K1's operands (the Pallas prologue in
+    interpret mode), against the Pallas K2 at the same blocks: the scale of
+    a 64-row warpgroup and a 128-column kv tile is qsc[g, row0 // block] *
+    ksc[g, col0 // block] (block 128: the warpgroups of one 192-row CTA read
+    different qsc entries), the shift max qn * max kn, s_valid 250 of the
+    384 padded tokens. Tolerances: f32 out atol 1e-5, as K2's plain version
+    (tests/test_torch_ops.py); bf16 out one bf16 ulp of the output scale."""
+    from aether_tpu.ops.attn_prologue import qkv_prologue as jax_qkv_prologue
+    from aether_tpu.ops.flash_attention import flash_attention_prepacked as jax_prepacked
+
+    rng = np.random.default_rng(70 + block_q)
+    b, s, nh, hd = 2, 300, 4, 64
+    jdt = DTYPES[dtype][0]
+    xs = [jnp.asarray(rng.standard_normal((b, s, nh * hd)).astype(np.float32)).astype(jdt)
+          for _ in range(3)]
+    norms = [jnp.asarray((1.0 + 0.1 * rng.standard_normal(hd)).astype(np.float32)),
+             jnp.asarray((0.1 * rng.standard_normal(hd)).astype(np.float32)),
+             jnp.asarray((1.0 + 0.1 * rng.standard_normal(hd)).astype(np.float32)),
+             jnp.asarray((0.1 * rng.standard_normal(hd)).astype(np.float32))]
+    jq, jk, jv, jqsc, jqn, jksc, jkn, s_pad = jax_qkv_prologue(
+        *xs, *norms, None, None, num_heads=nh, head_dim=hd, eps=1e-6, s_valid=250,
+        quantize=quantize, block_q=block_q, interpret=True)
+    ref = jax_prepacked(jq, jk, jv, qsc=jqsc, ksc=jksc, qn=jqn, kn=jkn, dim=hd,
+                        out_dtype=jdt, block_q=block_q, block_k=block_q, interpret=True)
+    block = s_pad // jqsc.shape[-1]
+    assert s_pad == 384 and block == min(block_q, 384)
+
+    def t(x):
+        a = np.asarray(x)
+        if a.dtype == jnp.bfloat16:
+            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(a))
+
+    q, k, v = t(jq), t(jk), t(jv)[..., :hd].contiguous()
+    qsc, ksc, qn, kn = t(jqsc), t(jksc), t(jqn), t(jkn)
+    scale_of = ((lambda g, r0, c0: qsc[g, r0 // block] * ksc[g, c0 // block])
+                if quantize else None)
+    out, _ = _cell_loop(q, k, v, kv_len=250, hper=4, shift=qn.amax(-1) * kn.amax(-1),
+                        scale_of=scale_of)
+    _assert_close(out, ref, 1e-5 if dtype == "f32" else _bf16_ulp(np.asarray(ref, np.float32)))
+
+
 # (shape, kv_shape or None, dtype, kv_valid, (block_q, block_k))
 K6_CASES = [
     ((1, 2, 256, 64), None, "f32", None, (128, 128)),     # no padding, two kv blocks

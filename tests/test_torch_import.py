@@ -72,8 +72,8 @@ def test_kernel_sources_ship_with_the_package():
     assert names == ["attn_prologue.cu", "flash_fixed_max.cu", "flash_online.cu",
                      "flash_online_bf16.cu", "flash_prepacked.cu", "flash_pv8.cu",
                      "flash_variants.cu", "groupnorm_moments.cu"]
-    assert sorted(p.name for p in (_PKG / "csrc").glob("*.cuh")) == ["hopper.cuh",
-                                                                     "online_cell.cuh"]
+    assert sorted(p.name for p in (_PKG / "csrc").glob("*.cuh")) == [
+        "fixed_cell.cuh", "hopper.cuh", "online_cell.cuh"]
     from aether_tpu_torch.ops import _build
 
     assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_flash_prepacked",

@@ -115,6 +115,57 @@ def test_flash_prepacked_plain_matches_pallas(data, quantize):
     torch.testing.assert_close(wrapped, out, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("noshift,gain", [(False, 1.0), (True, 1.0), (None, 1.0),
+                                          (None, 8.0)])
+def test_flash_prepacked_noshift_matches_pallas(data, noshift, gain, quantize):
+    """K2's ``noshift`` as the JAX function has it: True drops the shift,
+    None drops it, decided on the device, when every group's bound is below
+    96. The K norm's scale and bias times ``gain`` move the bounds from
+    about 14 (None drops the shift) to about 114 (None keeps it). The plain
+    version against the Pallas kernel in interpret mode on the same
+    operands, f32 out: atol 1e-5, as the shifted case above, and 2e-5 at
+    gain 8, whose eight times larger scores make the softmax sharper and
+    the last bits of the two libraries' exp2 weigh more; the CPU wrapper bit
+    for bit."""
+    xq, xk, xv, gq, bq, gk, bk, cos, sin = data
+    j, t, kw = _both((xq, xk, xv, gq, bq, gk * gain, bk * gain, cos, sin), True, 250)
+    jq, jk, jv, jqsc, jqn, jksc, jkn, _ = jax_qkv_prologue(
+        *j, quantize=quantize, interpret=True, **kw)
+    bounds = np.asarray(jqn).max(-1) * np.asarray(jkn).max(-1)
+    assert (bounds.max() < 96.0) == (gain == 1.0)
+    ref = jax_flash_prepacked(jq, jk, jv, qsc=jqsc, ksc=jksc, qn=jqn, kn=jkn, dim=HD,
+                              out_dtype=jnp.float32, noshift=noshift, interpret=True)
+    ops = [torch.from_numpy(np.array(a)) for a in (jq, jk)]
+    v = torch.from_numpy(np.asarray(jv)[..., :HD].copy())
+    stats = dict(qsc=_to_torch(jqsc), ksc=_to_torch(jksc), qn=_to_torch(jqn),
+                 kn=_to_torch(jkn), s_valid=250)
+    out = flash_attention_prepacked_plain(*ops, v, noshift=noshift, **stats)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5 if gain == 1.0 else 2e-5)
+    assert torch.equal(flash_attention_prepacked(*ops, v, noshift=noshift, **stats), out)
+    if noshift is None:  # the branch the bounds pick
+        picked = flash_attention_prepacked_plain(*ops, v, noshift=gain == 1.0, **stats)
+        assert torch.equal(out, picked)
+
+
+def test_flash_prepacked_refuses_a_bad_noshift(data):
+    j, t, kw = _both(data, True, 250)
+    q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue_plain(*t, quantize=False, **kw)
+    with pytest.raises(ValueError, match="noshift"):
+        flash_attention_prepacked(q, k, v, qsc=qsc, ksc=ksc, qn=qn, kn=kn, noshift="auto")
+
+
+@pytest.mark.parametrize("noshift", [False, True, None])
+def test_fused_joint_attention_noshift_matches_pallas(data, noshift):
+    """``noshift`` through K1 + K2 end to end, float branch: atol 2e-5, as
+    the shifted case below."""
+    j, t, kw = _both(data, True, None)
+    ref = np.asarray(jax_fused_joint_attention(*j, quantize=False, noshift=noshift,
+                                               interpret=True, **kw))
+    out = fused_joint_attention(*t, quantize=False, noshift=noshift, **kw).numpy()
+    np.testing.assert_allclose(out, ref, atol=2e-5)
+
+
 @pytest.mark.parametrize("quantize,atol", [(False, 2e-5), (True, 2e-2)])
 @pytest.mark.parametrize("rope", [False, True])
 def test_fused_joint_attention_matches_pallas(data, quantize, atol, rope):
