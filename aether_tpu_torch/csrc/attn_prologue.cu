@@ -3,7 +3,8 @@
 // Replaces aether_tpu/ops/attn_prologue.py::_prologue_kernel (the Pallas TPU
 // kernel launched by qkv_prologue). For every (head group g x token tile t)
 // quantization cell it computes, per row and head:
-//   shifted single-pass LayerNorm over head_dim (eps, affine)
+//   shifted single-pass LayerNorm over head_dim (eps, affine), the moments
+//   in double as the plain PyTorch version takes them
 //   -> interleaved-pair RoPE (rows past the table use cos = sin = 0)
 //   -> rows >= s_valid zeroed
 //   -> symmetric int8 quantization with ONE absmax/127 scale per cell
@@ -13,227 +14,416 @@
 // The cell is (hper heads) x (block tokens) exactly as _pick_pad_and_block
 // chose it: that is a numerics choice, independent of the CUDA tile.
 //
-// What bounds it on an H100: bytes. It reads q, k (twice) and v in bf16 and
-// writes int8 q/k and bf16 v, about 0.75 GB at the 48-head 15360-token shape,
-// with ~30 flops per element. The design keeps it one read per pass:
-//   * it reads the fused [B, S, 3*H*D] projection output in place through its
-//     row stride (the head-major transpose of the TPU wrapper is gone);
-//   * one warp owns one (row, head): lane l holds the interleaved pair
-//     (2l, 2l+1), so the RoPE partner is in the same register pair and the
-//     LayerNorm moments are two warp shuffles trees;
-//   * a cell's absmax must be known before any of its elements is quantized,
-//     and a cell spans many CTAs. Pass 1 computes z and reduces absmax and the
-//     squared row norm per CTA, then combines CTAs with atomicMax on the int
-//     bits of the non-negative floats (exact and order-free). Pass 2 recomputes
-//     z with the same device function, bit for bit, and writes rintf(z*127/amax)
-//     (round half to even, like jnp.rint) plus the plain v copy.
-// The float branch keeps both passes (the stats give K2 its shift) and takes
-// the LayerNorm moments in double, as the plain PyTorch version does: with
-// bf16 outputs, whose spacing shrinks with |z|, an f32 mean's rounding would
-// move the last bit of values near 0.
+// What bounds it on an H100: bytes. It must read q, k and v in bf16 and write
+// int8 (or bf16) q/k and bf16 v: 472 MB at the 48-head 15360-token shape with
+// int8 codes, 0.14 ms at 3.35 TB/s, against ~30 flops an element of q and k.
+// The design reads every element of the projection from device memory once,
+// in one launch:
+//   * A cell of one tensor (hper heads x block rows, 512 KB at 4 x 1024) is
+//     more than an SM's shared memory, so it is spread over a thread-block
+//     cluster of block / 128 CTAs (8 at block 1024, the portable maximum).
+//     Each CTA brings its 128 rows x hper heads into shared memory with one
+//     TMA box a head (64 elements x 128 rows, the 128-byte swizzle), read in
+//     place from the fused [B, S_in, 3*H*64] projection through its row and
+//     batch strides; a head group that straddles two batch elements is just
+//     boxes at other coordinates, and rows past S_in arrive as TMA's zeros.
+//   * Each CTA computes z for its rows, its absmax and its largest row norm,
+//     and publishes the two in its shared memory. After a cluster barrier
+//     one warp reads every rank's pair through distributed shared memory
+//     (mapa) and takes the maxima: the same in every CTA, with no atomics
+//     and no scratch buffer. Each CTA then quantizes its own rows from the
+//     copy it holds, recomputing z with the same instructions from the same
+//     inputs and the same stored (mean, 1/sqrt(var + eps)), so the z that is
+//     quantized is bit for bit the z whose absmax was reduced and no code
+//     leaves [-127, 127]. A second cluster barrier (arrived at once the
+//     remote reads are done, waited on before exit) keeps every CTA's shared
+//     memory alive while another may still read it.
+//   * Eight lanes own a (row, head), one 16-byte chunk (8 columns) each: the
+//     moments are three shuffle levels, the RoPE partner sits in the same
+//     lane, and a quarter-warp reads one row's eight chunks, which the
+//     swizzle spreads over all banks. A thread keeps its 8 columns of gamma
+//     and beta in registers, and the RoPE row of its token once for all hper
+//     heads: 80 registers and 69 KB of shared memory, so that three CTAs
+//     (24 warps) share an SM. The arithmetic, not the bytes, sets the pace
+//     at that occupancy: two CTAs an SM ran 1.3x slower, and a persistent
+//     grid of one 512-thread CTA an SM with double-buffered boxes 1.3x
+//     slower too (PERF.md, section 6).
+//   * int8 codes are rint(z * r) rounded in the FMA pipe (+ 1.5 * 2^23, round
+//     to nearest even as rintf) and packed from the low byte of the float's
+//     bits, off the conversion unit.
+//   * Jobs are (tensor, cell, rank): q and k cells reduce independently; v
+//     jobs copy their box to the head-major output, zeroing rows >= s_valid,
+//     and reduce nothing. CTAs whose rows all lie at or past s_valid load
+//     nothing.
 // Compiled without --use_fast_math: sqrtf, division and the RoPE products must
-// stay IEEE so both passes and the plain PyTorch version agree.
+// stay IEEE so that both passes and the plain PyTorch version agree.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kD = 64;          // head_dim handled by this kernel
-constexpr int kWarps = 8;       // warps per CTA
-constexpr int kRows = 32;       // token rows per CTA (divides every block)
+using namespace hopper;
+
+constexpr int kD = 64;                     // head_dim handled by this kernel
+constexpr int kRows = 128;                 // token rows of one CTA: one TMA box a head
+constexpr int kThreads = 256;              // 32 rows x 8 lanes at a time
+constexpr int kLanes = 8;                  // lanes a (row, head), 8 columns each
+constexpr int kRowsAtOnce = kThreads / kLanes;
+constexpr int kMaxHeads = 4;               // hper
+constexpr int kMaxCluster = 8;             // the portable cluster size
+constexpr int kBoxBytes = kRows * kD * 2;  // one head's bf16 box, 16 KB
 constexpr unsigned kFull = 0xffffffffu;
 
-struct PrologueArgs {
-  const __nv_bfloat16* x[3];    // q, k, v projections, [B, S_in, H*D] views
-  int stride_b, stride_s;       // element strides of those views
-  const float* gamma[2];        // q / k LayerNorm scale, [D]
-  const float* beta[2];         // q / k LayerNorm bias, [D]
-  const float* cos;             // [rope_rows, D] or null
+struct Args {
+  const float* gamma[2];  // q / k LayerNorm scale, [D]
+  const float* beta[2];   // q / k LayerNorm bias, [D]
+  const float* cos;       // [rope_rows, D] or null
   const float* sin;
   int rope_rows;
-  int H, s_pad, s_valid, block, hper, n_tiles, chunks;
-  float eps, fold, fold127, inv127;
-  void* qo;                     // int8 (quantize) or bf16, [B*H, s_pad, D]
-  void* ko;
-  __nv_bfloat16* v;             // [B*H, s_pad, D]
-  float* qsc;
-  float* qn;
-  float* ksc;
-  float* kn;                    // [G, T]
-  unsigned* scratch;            // [G, T, 4]: amax_q, nrm2_q, amax_k, nrm2_k
+  int H, s_pad, s_valid, hper, cluster;
+  float eps;
+  float fold[2];          // what q / k are multiplied by in the float branch
+  float scale[2];         // absmax -> qsc / ksc: fold / 127, 1 / 127
+  void* out[2];           // q, k: int8 (quantize) or bf16, [B*H, s_pad, D]
+  __nv_bfloat16* v;       // [B*H, s_pad, D]
+  float* sc[2];           // qsc, ksc [G, T]
+  float* nrm[2];          // qn, kn [G, T]
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+// Shared memory after the hper boxes (1024-byte aligned, first) and the
+// per-(head, row) (mean, inv) pairs of the row statistics.
+struct Tail {
+  uint64_t bar;                // the boxes' TMA completion
+  float pub[2];                // this CTA's absmax and largest row |z|^2, for the cluster
+  float cell[2];               // the cell's
+  float red[2][kThreads / 32];
+};
+
+constexpr int smem_bytes_for(int hper) {
+  return 1024 + hper * (kBoxBytes + kRows * (int)sizeof(float2)) + (int)sizeof(Tail);
 }
 
-__device__ __forceinline__ double warp_sum_d(double v) {
+// the 8 bf16 inputs of chunk `part` (columns 8 part .. 8 part + 7) of row r
+// of a swizzled box
+__device__ __forceinline__ void load_x(const uint8_t* box, int r, int part, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(box + r * 128 + ((part ^ (r & 7)) << 4));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = __dadd_rn(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+  for (int e = 0; e < 4; ++e) {
+    x[2 * e] = __uint_as_float(w[e] << 16);
+    x[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+  }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+// column 0 of row r of a swizzled box
+__device__ __forceinline__ float first_x(const uint8_t* box, int r) {
+  const uint16_t u = *reinterpret_cast<const uint16_t*>(box + r * 128 + ((r & 7) << 4));
+  return __uint_as_float(static_cast<uint32_t>(u) << 16);
 }
 
-// z for the lane's pair (2*lane, 2*lane + 1) of tensor `which` (0 = q, 1 = k)
-// at (b, row, h). Warp-collective; the caller guarantees row < s_valid.
-// kF64: the moments in double, rounded to f32 (the float branch).
-template <bool kF64>
-__device__ __forceinline__ float2 prologue_z(const PrologueArgs& a, int which,
-                                             int b, int h, int row, int lane) {
-  const __nv_bfloat16* p = a.x[which] + (int64_t)b * a.stride_b +
-                           (int64_t)row * a.stride_s + h * kD + 2 * lane;
-  const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(p);
-  const float x0 = __low2float(xv), x1 = __high2float(xv);
-  const float c = __shfl_sync(kFull, x0, 0);  // the row's first element
-  const float y0 = __fsub_rn(x0, c), y1 = __fsub_rn(x1, c);
-  float mean, var;
-  if (kF64) {
-    const double d0 = y0, d1 = y1;
-    const double s1 = warp_sum_d(__dadd_rn(d0, d1));
-    const double s2 = warp_sum_d(__dadd_rn(__dmul_rn(d0, d0), __dmul_rn(d1, d1)));
-    const double m1 = __dmul_rn(s1, 1.0 / kD);
-    mean = __double2float_rn(m1);
-    var = __double2float_rn(fmax(__dsub_rn(__dmul_rn(s2, 1.0 / kD), __dmul_rn(m1, m1)), 0.0));
+// y = x - x[0] for the lane's 8 columns
+__device__ __forceinline__ void shifted(const uint8_t* box, int r, int part, float (&y)[8]) {
+  load_x(box, r, part, y);
+  const float c = first_x(box, r);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) y[i] = __fsub_rn(y[i], c);
+}
+
+// (mean, 1 / sqrt(var + eps)) of the row over its eight lanes, the moments
+// in double and rounded to f32 as the plain version rounds them. The
+// butterfly gives all eight lanes the same bits (each level adds a pair).
+// Warp-collective: the whole warp calls it.
+__device__ __forceinline__ float2 moments(const float (&y)[8], float eps) {
+  // pairwise, so that the dependent chain is three adds deep, not eight; d * d
+  // is exact in double, so the fma rounds as add(mul) would
+  double p1[4], p2[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const double d0 = y[2 * i], d1 = y[2 * i + 1];
+    p1[i] = __dadd_rn(d0, d1);
+    p2[i] = __fma_rn(d1, d1, __dmul_rn(d0, d0));
+  }
+  double s1 = __dadd_rn(__dadd_rn(p1[0], p1[1]), __dadd_rn(p1[2], p1[3]));
+  double s2 = __dadd_rn(__dadd_rn(p2[0], p2[1]), __dadd_rn(p2[2], p2[3]));
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) {
+    s1 = __dadd_rn(s1, __shfl_xor_sync(kFull, s1, o));
+    s2 = __dadd_rn(s2, __shfl_xor_sync(kFull, s2, o));
+  }
+  const double m1 = __dmul_rn(s1, 1.0 / kD);
+  const float mean = __double2float_rn(m1);
+  const float var =
+      __double2float_rn(fmax(__dsub_rn(__dmul_rn(s2, 1.0 / kD), __dmul_rn(m1, m1)), 0.0));
+  // the correctly rounded reciprocal is the correctly rounded 1 / x
+  return make_float2(mean, __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps))));
+}
+
+enum Rope { kNoRope = 0, kRopeRow = 1, kPastTable = 2 };
+
+// z in place of y: ((y - mean) * inv) * gamma + beta, then the pair rotation
+// (z @ R)[2i] = -z[2i+1], (z @ R)[2i+1] = z[2i] against the row's tables
+__device__ __forceinline__ void normalize(float (&y)[8], float2 mi, const float (&g)[8],
+                                          const float (&b)[8], int rope, const float (&cs)[8],
+                                          const float (&sn)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    y[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(y[i], mi.x), mi.y), g[i]), b[i]);
+  if (rope == kRopeRow) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float z0 = y[2 * p], z1 = y[2 * p + 1];
+      y[2 * p] = __fadd_rn(__fmul_rn(z0, cs[2 * p]), __fmul_rn(-z1, sn[2 * p]));
+      y[2 * p + 1] = __fadd_rn(__fmul_rn(z1, cs[2 * p + 1]), __fmul_rn(z0, sn[2 * p + 1]));
+    }
+  } else if (rope == kPastTable) {  // the TPU wrapper zero-pads the tables
+#pragma unroll
+    for (int i = 0; i < 8; ++i) y[i] = 0.0f;
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&dst)[8]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p) + i);
+    dst[4 * i] = f.x;
+    dst[4 * i + 1] = f.y;
+    dst[4 * i + 2] = f.z;
+    dst[4 * i + 3] = f.w;
+  }
+}
+
+// which RoPE case `row` is in, with its 8 columns of the tables loaded
+__device__ __forceinline__ int rope_row(const Args& a, int row, int part, float (&cs)[8],
+                                        float (&sn)[8]) {
+  if (a.cos == nullptr) return kNoRope;
+  if (row >= a.rope_rows) return kPastTable;
+  load8(a.cos + (int64_t)row * kD + 8 * part, cs);
+  load8(a.sin + (int64_t)row * kD + 8 * part, sn);
+  return kRopeRow;
+}
+
+// v: the box copied to [B*H, s_pad, D], rows >= s_valid zeroed
+__device__ __forceinline__ void copy_v(const Args& a, const uint8_t* xs, int g, int row0) {
+  const int chunks = a.hper * kRows * 8;  // 16-byte chunks
+  for (int c = threadIdx.x; c < chunks; c += kThreads) {
+    const int j = c / (kRows * 8), r = (c / 8) % kRows, ch = c % 8;
+    const int row = row0 + r, bh = g * a.hper + j;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (row < a.s_valid)
+      u = *reinterpret_cast<const uint4*>(xs + j * kBoxBytes + r * 128 + ((ch ^ (r & 7)) << 4));
+    *reinterpret_cast<uint4*>(a.v + ((int64_t)bh * a.s_pad + row) * kD + 8 * ch) = u;
+  }
+}
+
+// the low byte of the bits of rint(v) + 1.5 * 2^23 is rint(v) as an int8 for
+// |v| <= 127: v * r rounded as jnp.rint / rintf (to nearest, ties to even)
+__device__ __forceinline__ uint32_t code_bits(float z, float r) {
+  return __float_as_uint(__fadd_rn(__fmul_rn(z, r), 12582912.0f));
+}
+
+// the lane's 8 outputs of one (row, head): int8 codes rint(z * r), or bf16 z * f
+template <bool kQuantize>
+__device__ __forceinline__ void store_row(void* out, int64_t elem, const float (&z)[8],
+                                          float rf) {
+  if (kQuantize) {
+    uint32_t w[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint32_t lo = __byte_perm(code_bits(z[4 * e], rf), code_bits(z[4 * e + 1], rf), 0x0040);
+      const uint32_t hi =
+          __byte_perm(code_bits(z[4 * e + 2], rf), code_bits(z[4 * e + 3], rf), 0x0040);
+      w[e] = __byte_perm(lo, hi, 0x5410);
+    }
+    *reinterpret_cast<uint2*>(static_cast<int8_t*>(out) + elem) = make_uint2(w[0], w[1]);
   } else {
-    const float s1 = warp_sum(__fadd_rn(y0, y1));
-    const float s2 = warp_sum(__fadd_rn(__fmul_rn(y0, y0), __fmul_rn(y1, y1)));
-    mean = __fmul_rn(s1, 1.0f / kD);
-    var = fmaxf(__fsub_rn(__fmul_rn(s2, 1.0f / kD), __fmul_rn(mean, mean)), 0.0f);
-  }
-  const float inv = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, a.eps)));
-  const float* g = a.gamma[which];
-  const float* bb = a.beta[which];
-  float z0 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(y0, mean), inv), g[2 * lane]),
-                       bb[2 * lane]);
-  float z1 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(y1, mean), inv), g[2 * lane + 1]),
-                       bb[2 * lane + 1]);
-  if (a.cos != nullptr) {
-    if (row < a.rope_rows) {
-      const float* cr = a.cos + (int64_t)row * kD + 2 * lane;
-      const float* sr = a.sin + (int64_t)row * kD + 2 * lane;
-      // (z @ R)[2i] = -z[2i+1], (z @ R)[2i+1] = z[2i]
-      const float r0 = __fadd_rn(__fmul_rn(z0, cr[0]), __fmul_rn(-z1, sr[0]));
-      const float r1 = __fadd_rn(__fmul_rn(z1, cr[1]), __fmul_rn(z0, sr[1]));
-      z0 = r0;
-      z1 = r1;
-    } else {  // the TPU wrapper zero-pads the tables past their length
-      z0 = 0.0f;
-      z1 = 0.0f;
-    }
-  }
-  return make_float2(z0, z1);
-}
-
-struct Cell {
-  int cell, chunk, g, t, row0;
-};
-
-__device__ __forceinline__ Cell cell_of(const PrologueArgs& a) {
-  Cell c;
-  c.cell = blockIdx.x / a.chunks;
-  c.chunk = blockIdx.x % a.chunks;
-  c.g = c.cell / a.n_tiles;
-  c.t = c.cell % a.n_tiles;
-  c.row0 = c.t * a.block + c.chunk * kRows;
-  return c;
-}
-
-template <bool kQuantize>
-__global__ void __launch_bounds__(kWarps * 32) prologue_stats(PrologueArgs a) {
-  const Cell c = cell_of(a);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float amax[2] = {0.0f, 0.0f}, nrm2[2] = {0.0f, 0.0f};
-  const int items = kRows * a.hper;
-  for (int it = warp; it < items; it += kWarps) {
-    const int row = c.row0 + it / a.hper;
-    if (row >= a.s_valid) break;  // rows only grow with it: the rest are zero
-    const int bh = c.g * a.hper + it % a.hper;
-    const int b = bh / a.H, h = bh % a.H;
+    uint32_t w[4];
 #pragma unroll
-    for (int w = 0; w < 2; ++w) {
-      const float2 z = prologue_z<!kQuantize>(a, w, b, h, row, lane);
-      const float am = warp_max(fmaxf(fabsf(z.x), fabsf(z.y)));
-      const float n2 = warp_sum(__fadd_rn(__fmul_rn(z.x, z.x), __fmul_rn(z.y, z.y)));
-      amax[w] = fmaxf(amax[w], am);
-      nrm2[w] = fmaxf(nrm2[w], n2);
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 h =
+          __floats2bfloat162_rn(__fmul_rn(z[2 * e], rf), __fmul_rn(z[2 * e + 1], rf));
+      w[e] = *reinterpret_cast<const uint32_t*>(&h);
     }
-  }
-  __shared__ float red[4][kWarps];
-  if (lane == 0) {
-    red[0][warp] = amax[0];
-    red[1][warp] = nrm2[0];
-    red[2][warp] = amax[1];
-    red[3][warp] = nrm2[1];
-  }
-  __syncthreads();
-  if (threadIdx.x < 4) {
-    float m = 0.0f;
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, red[threadIdx.x][w]);
-    // non-negative floats order like their unsigned bit patterns
-    atomicMax(a.scratch + c.cell * 4 + threadIdx.x, __float_as_uint(m));
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) + elem) =
+        make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
+// Grid (s_pad / 128, 3 * G): blockIdx.x is the CTA's 128-row slice (a
+// cluster of `cluster` consecutive slices is one token tile), blockIdx.y / 3
+// the head group and blockIdx.y % 3 the tensor (q, k, v).
 template <bool kQuantize>
-__global__ void __launch_bounds__(kWarps * 32) prologue_write(PrologueArgs a) {
-  const Cell c = cell_of(a);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const unsigned* st = a.scratch + c.cell * 4;
-  const float amax_q = __uint_as_float(st[0]);
-  const float amax_k = __uint_as_float(st[2]);
-  const float r_q = amax_q > 0.0f ? __fdiv_rn(127.0f, fmaxf(amax_q, 1e-30f)) : 0.0f;
-  const float r_k = amax_k > 0.0f ? __fdiv_rn(127.0f, fmaxf(amax_k, 1e-30f)) : 0.0f;
-  const int items = kRows * a.hper;
-  for (int it = warp; it < items; it += kWarps) {
-    const int row = c.row0 + it / a.hper;
-    const int bh = c.g * a.hper + it % a.hper;
-    const int b = bh / a.H, h = bh % a.H;
-    const int64_t o = ((int64_t)bh * a.s_pad + row) * kD + 2 * lane;
-    const bool valid = row < a.s_valid;  // warp-uniform
-#pragma unroll
-    for (int w = 0; w < 2; ++w) {
-      float2 z = make_float2(0.0f, 0.0f);
-      if (valid) z = prologue_z<!kQuantize>(a, w, b, h, row, lane);
-      void* dst = w == 0 ? a.qo : a.ko;
-      if (kQuantize) {
-        const float r = w == 0 ? r_q : r_k;
-        char2 q;
-        q.x = (signed char)__float2int_rn(rintf(__fmul_rn(z.x, r)));
-        q.y = (signed char)__float2int_rn(rintf(__fmul_rn(z.y, r)));
-        *reinterpret_cast<char2*>(static_cast<int8_t*>(dst) + o) = q;
-      } else {  // q carries the softmax fold, k is z itself
-        const float f = w == 0 ? a.fold : 1.0f;
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(dst) + o) =
-            __floats2bfloat162_rn(__fmul_rn(z.x, f), __fmul_rn(z.y, f));
+__global__ void __launch_bounds__(kThreads, 3)
+prologue_kernel(const __grid_constant__ CUtensorMap xq, const __grid_constant__ CUtensorMap xk,
+                const __grid_constant__ CUtensorMap xv, const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  // the boxes on a 1024-byte boundary (the swizzle's period); an offset from
+  // smem_raw, so that the compiler keeps shared-memory loads
+  uint8_t* xs = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  float2* stats = reinterpret_cast<float2*>(xs + a.hper * kBoxBytes);  // [hper][kRows]
+  Tail& tl = *reinterpret_cast<Tail*>(xs + a.hper * (kBoxBytes + kRows * (int)sizeof(float2)));
+  const int tensor = blockIdx.y % 3, g = blockIdx.y / 3;
+  const int row0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  const bool loads = row0 < a.s_valid;
+  const CUtensorMap* map = tensor == 0 ? &xq : tensor == 1 ? &xk : &xv;
+
+  if (tid == 0) {
+    mbar_init(&tl.bar, 1);
+    mbar_init_fence();
+    if (loads) {
+      mbar_expect_tx(&tl.bar, a.hper * kBoxBytes);
+      for (int j = 0; j < a.hper; ++j) {
+        const int bh = g * a.hper + j;
+        tma_load_3d(xs + j * kBoxBytes, map, &tl.bar, (bh % a.H) * kD, row0, bh / a.H);
       }
     }
-    __nv_bfloat162 vv = __floats2bfloat162_rn(0.0f, 0.0f);
-    if (valid) {
-      vv = *reinterpret_cast<const __nv_bfloat162*>(
-          a.x[2] + (int64_t)b * a.stride_b + (int64_t)row * a.stride_s + h * kD +
-          2 * lane);
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  if (tensor == 2) {
+    if (loads) mbar_wait(&tl.bar, 0);
+    copy_v(a, xs, g, row0);
+    return;
+  }
+
+  // ---- q or k: eight lanes a row, 32 rows at a time ----
+  const int part = tid % kLanes, rsub = tid / kLanes, lane = tid & 31;
+  float gm[8], bt[8], cs[8], sn[8];
+  load8(a.gamma[tensor] + 8 * part, gm);
+  load8(a.beta[tensor] + 8 * part, bt);
+  float amax = 0.0f, n2max = 0.0f;
+  if (loads) mbar_wait(&tl.bar, 0);
+#pragma unroll 1
+  for (int i = 0; i < kRows / kRowsAtOnce; ++i) {
+    const int r = rsub + kRowsAtOnce * i, row = row0 + r;
+    // rows only grow with i; the warp's four rows go on together while its
+    // first is valid (the shuffles take the whole warp), the rest add nothing
+    if (row0 + kRowsAtOnce * i + (tid / 32) * (32 / kLanes) >= a.s_valid) break;
+    const bool valid = row < a.s_valid;
+    const int rope = rope_row(a, row, part, cs, sn);
+#pragma unroll 1
+    for (int j = 0; j < a.hper; ++j) {
+      float z[8];
+      shifted(xs + j * kBoxBytes, r, part, z);
+      const float2 mi = moments(z, a.eps);
+      if (part == 0) stats[j * kRows + r] = mi;
+      normalize(z, mi, gm, bt, rope, cs, sn);
+      float n2p[2] = {0.0f, 0.0f};
+      float am = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        am = fmaxf(am, fabsf(z[e]));
+        n2p[e % 2] = __fmaf_rn(z[e], z[e], n2p[e % 2]);
+      }
+      if (valid) amax = fmaxf(amax, am);
+      float n2 = __fadd_rn(n2p[0], n2p[1]);
+#pragma unroll
+      for (int o = 1; o < kLanes; o <<= 1) n2 = __fadd_rn(n2, __shfl_xor_sync(kFull, n2, o));
+      if (valid) n2max = fmaxf(n2max, n2);
     }
-    *reinterpret_cast<__nv_bfloat162*>(a.v + o) = vv;
   }
-  if (c.chunk == 0 && threadIdx.x == 0) {
-    a.qsc[c.cell] = __fmul_rn(amax_q, a.fold127);
-    a.qn[c.cell] = __fmul_rn(__fsqrt_rn(__uint_as_float(st[1])), a.fold);
-    a.ksc[c.cell] = __fmul_rn(amax_k, a.inv127);
-    a.kn[c.cell] = __fsqrt_rn(__uint_as_float(st[3]));
+  // non-negative floats order like their bit patterns
+  const unsigned am = __reduce_max_sync(kFull, __float_as_uint(amax));
+  const unsigned nm = __reduce_max_sync(kFull, __float_as_uint(n2max));
+  if (lane == 0) {
+    tl.red[0][tid / 32] = __uint_as_float(am);
+    tl.red[1][tid / 32] = __uint_as_float(nm);
   }
+  __syncthreads();
+  if (tid < 2) {
+    float m = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) m = fmaxf(m, tl.red[tid][w]);
+    tl.pub[tid] = m;
+  }
+  cluster_arrive();  // publishes pub to the cluster
+  cluster_wait();
+  if (tid < 32) {  // one warp takes the maxima over the cluster's ranks
+    float m0 = 0.0f, m1 = 0.0f;
+    if (lane < a.cluster) {
+      m0 = cluster_load(cluster_map(&tl.pub[0], lane));
+      m1 = cluster_load(cluster_map(&tl.pub[1], lane));
+    }
+    m0 = __uint_as_float(__reduce_max_sync(kFull, __float_as_uint(m0)));
+    m1 = __uint_as_float(__reduce_max_sync(kFull, __float_as_uint(m1)));
+    if (lane == 0) {
+      tl.cell[0] = m0;
+      tl.cell[1] = m1;
+      if (cluster_ctarank() == 0) {  // one CTA of the cell writes its stats
+        const int cell = g * (gridDim.x / a.cluster) + blockIdx.x / a.cluster;
+        a.sc[tensor][cell] = __fmul_rn(m0, a.scale[tensor]);
+        a.nrm[tensor][cell] = __fmul_rn(__fsqrt_rn(m1), a.fold[tensor]);
+      }
+    }
+  }
+  __syncthreads();
+  cluster_arrive_relaxed();  // this CTA is done reading the others' shared memory
+
+  const float amax_c = tl.cell[0];
+  float rf = a.fold[tensor];
+  if (kQuantize) rf = amax_c > 0.0f ? __fdiv_rn(127.0f, fmaxf(amax_c, 1e-30f)) : 0.0f;
+#pragma unroll 1
+  for (int i = 0; i < kRows / kRowsAtOnce; ++i) {
+    const int r = rsub + kRowsAtOnce * i, row = row0 + r;
+    const bool valid = row < a.s_valid;
+    const int rope = valid ? rope_row(a, row, part, cs, sn) : kNoRope;
+#pragma unroll 1
+    for (int j = 0; j < a.hper; ++j) {
+      float z[8];
+      if (valid) {
+        shifted(xs + j * kBoxBytes, r, part, z);
+        normalize(z, stats[j * kRows + r], gm, bt, rope, cs, sn);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) z[e] = 0.0f;
+      }
+      const int bh = g * a.hper + j;
+      store_row<kQuantize>(a.out[tensor], ((int64_t)bh * a.s_pad + row) * kD + 8 * part, z, rf);
+    }
+  }
+  cluster_wait();  // no CTA leaves while another may read its shared memory
+}
+
+template <bool kQuantize>
+int configure(int smem_bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      prologue_kernel<kQuantize>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
+}
+
+cudaLaunchConfig_t launch_config(dim3 grid, int cluster, int smem_bytes, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the wrapper's _launch_plan mirrors kRows and smem_bytes_for; a plan that
+// drifted from them is refused here
+bool plan_ok(int hper, int block, int cluster, int smem_bytes) {
+  return hper >= 1 && hper <= kMaxHeads && block > 0 && block % kRows == 0 &&
+         cluster == block / kRows && cluster <= kMaxCluster &&
+         smem_bytes == smem_bytes_for(hper);
 }
 
 }  // namespace
 
+// xq, xk, xv: bf16 [B, S_in, H*64] views sharing the element strides
+// (stride_b, stride_s), last axis contiguous, bases and byte strides 16-byte
+// aligned (TMA). The launch plan (cluster = block / 128 CTAs of 128 rows,
+// smem_bytes of dynamic shared memory) comes from the wrapper's _launch_plan
+// and is checked here. Returns a cudaError_t.
 extern "C" int aether_qkv_prologue(
     const void* xq, const void* xk, const void* xv, int stride_b, int stride_s,
     const void* gq, const void* bq, const void* gk, const void* bk,
@@ -241,14 +431,20 @@ extern "C" int aether_qkv_prologue(
     int B, int S_in, int H, int s_pad, int s_valid, int block, int hper, int quantize,
     float eps, float fold, float fold127, float inv127,
     void* qo, void* ko, void* v, void* qsc, void* qn, void* ksc, void* kn,
-    void* scratch, void* stream) {
-  (void)S_in;  // the wrapper guarantees s_valid <= S_in
-  PrologueArgs a;
-  a.x[0] = static_cast<const __nv_bfloat16*>(xq);
-  a.x[1] = static_cast<const __nv_bfloat16*>(xk);
-  a.x[2] = static_cast<const __nv_bfloat16*>(xv);
-  a.stride_b = stride_b;
-  a.stride_s = stride_s;
+    int cluster, int smem_bytes, void* stream) {
+  if (B <= 0 || H <= 0 || (B * H) % (hper > 0 ? hper : 1) || s_valid <= 0 || s_valid > S_in ||
+      s_pad % (block > 0 ? block : 1) || !plan_ok(hper, block, cluster, smem_bytes) ||
+      3 * (B * H / hper) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  const void* bases[3] = {xq, xk, xv};
+  for (int t = 0; t < 3; ++t) {
+    if (!make_map_3d_strided(&maps[t], bases[t], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                             (uint64_t)H * kD, S_in, B, (uint64_t)stride_s * 2,
+                             (uint64_t)stride_b * 2, kD, kRows, CU_TENSOR_MAP_SWIZZLE_128B))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a;
   a.gamma[0] = static_cast<const float*>(gq);
   a.beta[0] = static_cast<const float*>(bq);
   a.gamma[1] = static_cast<const float*>(gk);
@@ -259,32 +455,46 @@ extern "C" int aether_qkv_prologue(
   a.H = H;
   a.s_pad = s_pad;
   a.s_valid = s_valid;
-  a.block = block;
   a.hper = hper;
-  a.n_tiles = s_pad / block;
-  a.chunks = block / kRows;
+  a.cluster = cluster;
   a.eps = eps;
-  a.fold = fold;
-  a.fold127 = fold127;
-  a.inv127 = inv127;
-  a.qo = qo;
-  a.ko = ko;
+  a.fold[0] = fold;
+  a.fold[1] = 1.0f;
+  a.scale[0] = fold127;
+  a.scale[1] = inv127;
+  a.out[0] = qo;
+  a.out[1] = ko;
   a.v = static_cast<__nv_bfloat16*>(v);
-  a.qsc = static_cast<float*>(qsc);
-  a.qn = static_cast<float*>(qn);
-  a.ksc = static_cast<float*>(ksc);
-  a.kn = static_cast<float*>(kn);
-  a.scratch = static_cast<unsigned*>(scratch);
+  a.sc[0] = static_cast<float*>(qsc);
+  a.sc[1] = static_cast<float*>(ksc);
+  a.nrm[0] = static_cast<float*>(qn);
+  a.nrm[1] = static_cast<float*>(kn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int groups = B * H / hper;
-  const int grid = groups * a.n_tiles * a.chunks;
-  cudaMemsetAsync(scratch, 0, sizeof(unsigned) * 4 * groups * a.n_tiles, s);
-  if (quantize) {
-    prologue_stats<true><<<grid, kWarps * 32, 0, s>>>(a);
-    prologue_write<true><<<grid, kWarps * 32, 0, s>>>(a);
-  } else {
-    prologue_stats<false><<<grid, kWarps * 32, 0, s>>>(a);
-    prologue_write<false><<<grid, kWarps * 32, 0, s>>>(a);
-  }
+  const int rc = quantize ? configure<true>(smem_bytes) : configure<false>(smem_bytes);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(dim3(s_pad / kRows, 3 * (B * H / hper), 1), cluster, smem_bytes, s, attr);
+  cudaError_t err = quantize
+      ? cudaLaunchKernelEx(&cfg, prologue_kernel<true>, maps[0], maps[1], maps[2], a)
+      : cudaLaunchKernelEx(&cfg, prologue_kernel<false>, maps[0], maps[1], maps[2], a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cudaOccupancyMaxActiveClusters for the plan: how many clusters of
+// `cluster` CTAs with `smem_bytes` each the card holds at once, into
+// *clusters (an int). Returns a cudaError_t.
+extern "C" int aether_qkv_prologue_occupancy(int cluster, int smem_bytes, int quantize,
+                                             void* clusters) {
+  if (cluster < 1 || cluster > kMaxCluster || smem_bytes < smem_bytes_for(1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = quantize ? configure<true>(smem_bytes) : configure<false>(smem_bytes);
+  if (rc != 0) return rc;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(dim3(cluster, 3, 1), cluster, smem_bytes, 0, attr);
+  int* n = static_cast<int*>(clusters);
+  return static_cast<int>(quantize
+      ? cudaOccupancyMaxActiveClusters(n, prologue_kernel<true>, &cfg)
+      : cudaOccupancyMaxActiveClusters(n, prologue_kernel<false>, &cfg));
 }

@@ -1,8 +1,10 @@
 // Shared pieces of the port's Hopper (sm_90a) attention kernels that use
 // wgmma and TMA (online_cell.cuh, the cell of flash_online_bf16.cu and
-// flash_variants.cu; flash_pv8.cu): shared-memory matrix
-// descriptors, the wgmma instructions they issue with their fences, the
-// mbarrier ring, TMA tile loads and the host-side tensor-map encoding.
+// flash_variants.cu; flash_pv8.cu; fixed_cell.cuh) and of the attention
+// prologue (attn_prologue.cu): shared-memory matrix descriptors, the wgmma
+// instructions they issue with their fences, the mbarrier ring, TMA tile
+// loads, thread-block cluster barriers and distributed shared memory, and the
+// host-side tensor-map encoding.
 //
 // Layouts. A tile is brought into shared memory by one TMA load of a 3-D
 // box {row bytes, rows, 1} out of a [heads, rows, row bytes] tensor, with the
@@ -304,6 +306,40 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---- thread-block clusters ----
+// Every thread of every CTA of the cluster arrives, then waits; the arrive
+// releases the thread's earlier writes (shared memory included) and the wait
+// acquires every other thread's. A split pair lets a CTA work between the
+// two. Not .aligned: a warp need not be converged where it calls them.
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+// an arrival that orders nothing: for a CTA whose remote reads have returned
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the address of `p` (this CTA's shared memory) in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+// a float from distributed shared memory (an address from cluster_map)
+__device__ __forceinline__ float cluster_load(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // ---- host: tensor maps ----
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -327,21 +363,32 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A map of a contiguous [heads, rows, row_elems] tensor of `type`, read in
-// boxes of {box_elems, box_rows, 1} with `swizzle`; elements past the ends
-// read as zeros. Returns false where the driver refuses it.
-inline bool make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
-                        int elem_bytes, uint64_t row_elems, uint64_t rows, uint64_t heads,
-                        uint32_t box_elems, uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+// A map of a 3-D tensor of `type` with dims {d0, d1, d2} (d0 contiguous) and
+// byte strides {s1, s2} of dims 1 and 2 (multiples of 16), read in boxes of
+// {box0, box1, 1} with `swizzle`; elements past the ends read as zeros.
+// Returns false where cuTensorMapEncodeTiled refuses it.
+inline bool make_map_3d_strided(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                                uint64_t d0, uint64_t d1, uint64_t d2, uint64_t s1,
+                                uint64_t s2, uint32_t box0, uint32_t box1,
+                                CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16) return false;
-  const cuuint64_t dims[3] = {row_elems, rows, heads};
-  const cuuint64_t strides[2] = {row_elems * elem_bytes, rows * row_elems * elem_bytes};
-  const cuuint32_t box[3] = {box_elems, box_rows, 1};
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {s1, s2};
+  const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map of a contiguous [heads, rows, row_elems] tensor of `type`, read in
+// boxes of {box_elems, box_rows, 1} with `swizzle`.
+inline bool make_map_3d(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                        int elem_bytes, uint64_t row_elems, uint64_t rows, uint64_t heads,
+                        uint32_t box_elems, uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  return make_map_3d_strided(map, base, type, row_elems, rows, heads, row_elems * elem_bytes,
+                             rows * row_elems * elem_bytes, box_elems, box_rows, swizzle);
 }
 
 }  // namespace hopper

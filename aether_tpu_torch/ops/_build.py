@@ -53,8 +53,12 @@ SIGNATURES = {
         _F, _F, _F, _F,      # eps, fold, fold/127, 1/127
         _P, _P, _P,          # q, k (int8, or bf16 if !quantize), v (bf16): [B*H, s_pad, D]
         _P, _P, _P, _P,      # qsc, qn, ksc, kn (f32, [G, T])
-        _P,                  # scratch (u32, [G, T, 4])
+        _I, _I,              # the launch plan: cluster, shared memory bytes a CTA
         _P,                  # stream
+    ],
+    "aether_qkv_prologue_occupancy": [
+        _I, _I, _I,          # cluster, shared memory bytes, quantize
+        _P,                  # out: clusters the card holds at once (int)
     ],
     "aether_flash_prepacked": [
         _P, _P, _P,          # q, k (int8, or folded bf16), v (bf16): [B*H, s_pad, D]

@@ -9,17 +9,19 @@ plus the per-cell L2 row-norm maxima that give K2 its fixed softmax shift.
 The Hopper kernel ``csrc/attn_prologue.cu`` (CUDA C++, sm_90a, bound with
 ctypes through ``ops/_build.py``) replaces the Pallas kernel
 ``aether_tpu/ops/attn_prologue.py::_prologue_kernel``. On the H100 it is bound
-by memory traffic (about 0.75 GB moved per call at 48 heads x 15360 tokens,
-~30 flops per element). Its design answers by reading the fused projection
-in place through its row stride and by touching each element once per pass:
-pass 1 reduces each cell's absmax and row-norm maximum across CTAs with
-``atomicMax``, pass 2 recomputes z bit for bit and quantizes it; the source
-carries the full note. With ``quantize=False`` (``AETHER_ATTN_QK8=0``) the
-same kernel keeps pass 1's statistics and writes bf16 ``z * fold`` for q and
-bf16 ``z`` for k, with the LayerNorm moments taken in double as the plain
-version takes them. ``qkv_prologue_plain`` is the same function in plain
-PyTorch: the CPU path, and the reference the kernel is held against on the
-card.
+by memory traffic (472 MB moved per call at 48 heads x 15360 tokens with int8
+codes, ~30 flops per element). It reads every element of the fused
+projection from device memory once, in one launch: TMA brings 128 rows x
+hper heads of one tensor into a CTA's shared memory, a thread-block cluster
+of ``block / 128`` CTAs holds one quantization cell, and the cell's absmax
+and row-norm maximum are reduced across the cluster through distributed
+shared memory before each CTA quantizes the rows it holds
+(:func:`_launch_plan` is the launch; the source carries the full note). With
+``quantize=False`` (``AETHER_ATTN_QK8=0``) the same kernel writes bf16
+``z * fold`` for q and bf16 ``z`` for k. The LayerNorm moments are taken in
+double on both branches, as the plain version takes them.
+``qkv_prologue_plain`` is the same function in plain PyTorch: the CPU path,
+and the reference the kernel is held against on the card.
 
 Layouts differ from the TPU kernel in two places, both deliberate:
 - the inputs may be strided views of the fused ``[B, S, 3*H*D]`` projection
@@ -30,7 +32,9 @@ Layouts differ from the TPU kernel in two places, both deliberate:
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -63,6 +67,63 @@ def _rotate_pairs(z: torch.Tensor) -> torch.Tensor:
     """z @ R with R the pair swap-and-negate: (z0, z1) -> (-z1, z0)."""
     zp = z.unflatten(-1, (-1, 2))
     return torch.stack([-zp[..., 1], zp[..., 0]], dim=-1).flatten(-2)
+
+
+# K1's launch (csrc/attn_prologue.cu): a CTA holds 128 token rows of one
+# tensor, one TMA box of 128 rows x 64 bf16 a head; a cluster of block / 128
+# CTAs holds one quantization cell
+_ROWS = 128
+_HEAD_DIM = 64
+_MAX_HEADS = 4      # hper: four 16 KB boxes a CTA
+_MAX_CLUSTER = 8    # the portable cluster size, so block <= 1024
+_BOX_BYTES = _ROWS * _HEAD_DIM * 2
+_STATS_BYTES = _ROWS * 8  # (mean, 1 / sqrt(var + eps)) a row of a head
+_TAIL_BYTES = 88          # the kernel's Tail: mbarrier, published and cell maxima,
+                          # the CTA's warp maxima
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """K1's launch: grid (``s_pad / rows``, 3 * groups), x the CTA's 128-row
+    slice and y ``3 * group + tensor`` (q, k, v), clusters of ``cluster``
+    consecutive slices (one token tile), ``smem_bytes`` of dynamic shared
+    memory a CTA."""
+
+    cluster: int
+    rows: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+    hper: int
+    block: int
+
+
+def _launch_plan(bh: int, s_pad: int, block: int, hper: int,
+                 strides: Sequence[int] = (), ptrs: Sequence[int] = ()) -> LaunchPlan:
+    """The launch plan of K1 for ``bh`` heads over ``s_pad`` tokens in
+    quantization cells of ``hper`` heads x ``block`` tokens. Raises
+    ``ValueError`` on what the kernel does not take: hper above 4, a block
+    that is not a multiple of 128 or is above 1024 (a cluster above 8), and
+    element ``strides`` or data ``ptrs`` (bf16) that are not 16-byte aligned
+    for TMA."""
+    if not 1 <= hper <= _MAX_HEADS or bh % hper:
+        raise ValueError(f"K1 takes head groups of 1 to {_MAX_HEADS} heads dividing "
+                         f"{bh}, got {hper}")
+    if block <= 0 or block % _ROWS or block // _ROWS > _MAX_CLUSTER:
+        raise ValueError(f"K1 takes token tiles of 128 to {_ROWS * _MAX_CLUSTER} rows "
+                         f"in steps of 128, got {block}")
+    if s_pad % block:
+        raise ValueError(f"s_pad {s_pad} is not a multiple of the tile {block}")
+    if any(st * 2 % 16 for st in strides) or any(p % 16 for p in ptrs):
+        raise ValueError("K1 reads through TMA: strides and bases must be 16-byte "
+                         f"aligned, got strides {tuple(strides)}")
+    groups = bh // hper
+    if 3 * groups > 65535:
+        raise ValueError(f"{groups} head groups exceed the grid's y extent")
+    # the kernel's smem_bytes_for(hper): the boxes' 1024-byte alignment slack,
+    # the boxes and row statistics, sizeof(Tail); the C entry refuses any other
+    return LaunchPlan(cluster=block // _ROWS, rows=_ROWS, grid=(s_pad // _ROWS, 3 * groups),
+                      smem_bytes=1024 + hper * (_BOX_BYTES + _STATS_BYTES) + _TAIL_BYTES,
+                      hper=hper, block=block)
 
 
 def qkv_prologue_plain(
@@ -216,7 +277,9 @@ def qkv_prologue(
         if t.stride() != xq.stride() or t.stride(-1) != 1:
             raise ValueError("K1 needs q/k/v views with one shared row stride "
                              "and a contiguous last axis")
-    stride_b, stride_s = xq.stride(0), xq.stride(1)
+    stride_s = xq.stride(1)
+    # one batch element: its stride is never followed, so any aligned one
+    stride_b = xq.stride(0) if b > 1 else s * stride_s
     if max(stride_b, stride_s) >= 2**31:
         raise ValueError("K1 takes 32-bit strides")
     if sm_scale is None:
@@ -229,6 +292,8 @@ def qkv_prologue(
     hper = _heads_per_cell(bh, heads_per_cell)
     s_pad, block = _pick_pad_and_block(s, block_q)
     groups, n_tiles = bh // hper, s_pad // block
+    plan = _launch_plan(bh, s_pad, block, hper, strides=(stride_b, stride_s),
+                        ptrs=tuple(t.data_ptr() for t in (xq, xk, xv)))
     dev = xq.device
 
     def param(t):
@@ -255,15 +320,14 @@ def qkv_prologue(
     v = torch.empty((bh, s_pad, hd), dtype=torch.bfloat16, device=dev)
     qsc, qn, ksc, kn = (torch.empty((groups, n_tiles), dtype=torch.float32,
                                     device=dev) for _ in range(4))
-    scratch = torch.empty((groups, n_tiles, 4), dtype=torch.int32, device=dev)
     rc = _build.lib().aether_qkv_prologue(
         xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), stride_b, stride_s,
         gq.data_ptr(), bq.data_ptr(), gk.data_ptr(), bk.data_ptr(),
         cos_p, sin_p, rope_rows, b, s, nh, s_pad, s_valid, block, hper,
         int(quantize), eps, fold, fold / 127.0, 1.0 / 127.0,
         qo.data_ptr(), ko.data_ptr(), v.data_ptr(), qsc.data_ptr(),
-        qn.data_ptr(), ksc.data_ptr(), kn.data_ptr(), scratch.data_ptr(),
-        _build.stream_ptr(dev))
+        qn.data_ptr(), ksc.data_ptr(), kn.data_ptr(),
+        plan.cluster, plan.smem_bytes, _build.stream_ptr(dev))
     _build.check(rc, "aether_qkv_prologue")
     qkv_prologue.launches += 1
     return qo, ko, v, qsc, qn, ksc, kn, s_pad
@@ -271,6 +335,16 @@ def qkv_prologue(
 
 # wrapper calls that launched the Hopper kernel (a plain integer)
 qkv_prologue.launches = 0
+
+
+def prologue_occupancy(plan: LaunchPlan, quantize: bool = True) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K1 under ``plan``: how many of
+    its clusters the current card holds at once."""
+    n = ctypes.c_int(0)
+    _build.check(_build.lib().aether_qkv_prologue_occupancy(
+        plan.cluster, plan.smem_bytes, int(quantize), ctypes.addressof(n)),
+        "aether_qkv_prologue_occupancy")
+    return n.value
 
 
 def fused_joint_attention(

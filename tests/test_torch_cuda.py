@@ -5,7 +5,11 @@ machine). ``chip_smoke.py`` checks the kernels at the main-path shapes; these
 cases cover the edges it does not reach. K1/K2, int8 and float
 (``AETHER_ATTN_QK8=0``): batch > 1, head groups that straddle two batch
 elements, several token tiles with a ragged ``s_valid``, no RoPE, RoPE tables
-shorter than the sequence. K4: batch 2, sequences that
+shorter than the sequence. K1's cluster form besides: a cluster of 8 with
+S_in < s_pad, clusters of 3 and 6, hper 3 and 4 straddling batch elements,
+tables shorter than s_valid, no RoPE, codes inside [-127, 127], two launches
+bit-identical, one launch a call, and head groups above 4, tiles above 1024
+and unaligned row strides refused. K4: batch 2, sequences that
 are not a multiple of the 64-row tile, ``kv_valid``, q and kv of different
 lengths, extreme negative scores with padding, both denominators, f32 and
 bf16, and ``flash_attention_trainable``'s gradients. K3 and K6: lengths that
@@ -180,6 +184,66 @@ def test_flash_float_kernel_matches_plain(dev, b, s, nh, s_valid, rope_rows):
     assert flash_attention_prepacked.launches == before + 1
     err = (out.float() - ref.float()).abs()
     assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3
+
+
+# K1 as one HBM pass over thread-block clusters (block / 128 CTAs a
+# quantization cell): (batch, tokens S_in, heads, s_valid, rope rows)
+K1_CLUSTER_CASES = [
+    (1, 3000, 4, 2900, 3000),   # block 1024, a cluster of 8; S_in < s_pad (3072)
+    (3, 300, 5, 290, 300),      # hper 3: head groups straddle batch elements
+    (2, 700, 6, 650, 700),      # hper 4: groups straddle; block 768, clusters of 6
+    (2, 1500, 4, 1400, 1000),   # RoPE tables shorter than s_valid
+    (1, 5000, 4, 4800, 0),      # no RoPE; five 1024-token tiles
+]
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("b,s,nh,s_valid,rope_rows", K1_CLUSTER_CASES)
+def test_prologue_cluster_kernel(dev, b, s, nh, s_valid, rope_rows, quantize):
+    """Against the plain version (int8 codes within 1 on at most 1e-3 of them
+    and inside [-127, 127]; bf16 within one ulp on at most 1e-4; v
+    bit-exact; the stats to 1e-5), two launches bit-identical, one launch a
+    call."""
+    xs, norms, rope = _inputs(dev, b, s, nh, rope_rows, seed=4)
+    kw = dict(num_heads=nh, head_dim=HD, eps=1e-6, s_valid=s_valid, quantize=quantize)
+    before = qkv_prologue.launches
+    got = qkv_prologue(*xs, *norms, *rope, **kw)
+    again = qkv_prologue(*xs, *norms, *rope, **kw)
+    ref = qkv_prologue_plain(*xs, *norms, *rope, **kw)
+    torch.cuda.synchronize()
+    assert qkv_prologue.launches == before + 2
+    assert got[7] == ref[7]
+    assert all(torch.equal(a, c) for a, c in zip(got[:7], again[:7]))
+    for a, r in zip(got[:2], ref[:2]):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        if quantize:
+            assert a.min().item() >= -127 and a.max().item() <= 127
+            diff = (a.int() - r.int()).abs()
+            assert diff.max().item() <= 1
+            assert (diff > 0).float().mean().item() <= 1e-3
+        else:
+            ulps = _bf16_ulps(a, r)
+            assert ulps.max().item() <= 1
+            assert (ulps > 0).float().mean().item() <= 1e-4
+    assert torch.equal(got[2], ref[2])
+    for a, r in zip(got[3:7], ref[3:7]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=0)
+
+
+def test_prologue_refuses_what_it_does_not_take(dev):
+    """Head groups above 4, token tiles above 1024 (clusters above 8) and
+    rows whose byte stride TMA cannot take raise ``ValueError``."""
+    xs, norms, rope = _inputs(dev, 1, 300, 8, 300)
+    kw = dict(num_heads=8, head_dim=HD, eps=1e-6)
+    with pytest.raises(ValueError, match="head groups"):
+        qkv_prologue(*xs, *norms, *rope, heads_per_cell=8, **kw)
+    xl, nl, rl = _inputs(dev, 1, 5000, 2, 5000)
+    with pytest.raises(ValueError, match="token tiles"):
+        qkv_prologue(*xl, *nl, *rl, num_heads=2, head_dim=HD, eps=1e-6, block_q=2048)
+    d = 8 * HD
+    y = torch.randn((1, 300, 3 * d + 1), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        qkv_prologue(y[..., :d], y[..., d:2 * d], y[..., 2 * d:3 * d], *norms, *rope, **kw)
 
 
 def test_fused_attention_counts_and_refuses_float_mode(dev):

@@ -76,7 +76,8 @@ def test_kernel_sources_ship_with_the_package():
         "fixed_cell.cuh", "hopper.cuh", "online_cell.cuh"]
     from aether_tpu_torch.ops import _build
 
-    assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_flash_prepacked",
+    assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_qkv_prologue_occupancy",
+                                      "aether_flash_prepacked",
                                       "aether_flash_online", "aether_flash_online_bf16",
                                       "aether_flash_fixed_max", "aether_flash_pv8",
                                       "aether_flash_variants", "aether_groupnorm_moments"}

@@ -1,0 +1,316 @@
+"""K1's launch plan and its cluster decomposition, on the CPU.
+
+The Hopper kernel of ``qkv_prologue`` (``csrc/attn_prologue.cu``) spreads one
+quantization cell (hper heads x block tokens of q or k) over a thread-block
+cluster of ``block / 128`` CTAs of 128 rows each, and reduces the cell's
+absmax and row-norm maximum across the cluster. The card runs the kernel
+itself (``tests/test_torch_cuda.py``, ``chip_smoke.py``); here the plan that
+the wrapper hands it (``_launch_plan``, decoded CTA by CTA as the kernel
+decodes it, ``_cta_job``) is checked to cover every (head, row) exactly once
+with every cluster inside one cell. ``_emulate`` is a model of the kernel in
+torch: the CTAs of the plan reading their boxes from the fused projection,
+the kernel's own arithmetic (moments in double in its summation tree, the
+row norms in its lanes' order, codes rounded as its FMA-pipe trick rounds
+them), per-CTA maxima combined by the cluster maximum, each CTA quantizing
+its own rows. It is held to ``qkv_prologue_plain`` (bit for bit but the
+row-norm maxima) and to the Pallas kernel in interpret mode at the
+tolerances of ``tests/test_torch_ops.py::test_prologue_plain_matches_pallas``.
+These cases check the kernel's design as written down in Python, not the
+CUDA code: the card cases of ``tests/test_torch_cuda.py`` check that.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from aether_tpu.ops.attn_prologue import qkv_prologue as jax_qkv_prologue
+from aether_tpu_torch.config import DiTConfig
+from aether_tpu_torch.ops.attn_prologue import (
+    _LOG2E,
+    _launch_plan,
+    _pick_pad_and_block,
+    qkv_prologue_plain,
+)
+from aether_tpu_torch.ops.flash_attention import _heads_per_cell
+
+torch.set_num_threads(1)
+
+HD = 64
+EPS = 1e-6
+SMEM_LIMIT = 227 * 1024
+
+
+def _cta_job(plan, x, y):
+    """What CTA (x, y) of ``plan`` does, as ``csrc/attn_prologue.cu``
+    decodes its block index: (tensor 0 q / 1 k / 2 v, head group, token
+    tile, rank in its cluster, first row, the head indices of its boxes)."""
+    tensor, g = y % 3, y // 3
+    heads = tuple(g * plan.hper + j for j in range(plan.hper))
+    return tensor, g, x // plan.cluster, x % plan.cluster, x * plan.rows, heads
+
+
+def _plan(b, nh, s, block_q, heads_per_cell):
+    bh = b * nh
+    hper = _heads_per_cell(bh, heads_per_cell)
+    s_pad, block = _pick_pad_and_block(s, block_q)
+    return bh, s_pad, block, _launch_plan(bh, s_pad, block, hper)
+
+
+# (batch, heads, tokens S_in, s_valid, block_q, heads_per_cell)
+PLAN_CASES = [
+    (1, 4, 300, None, 1024, 4),     # one 384-row tile: a cluster of 3
+    (2, 6, 300, 250, 1024, 4),      # hper 4, groups straddle the batches; s_valid mid-CTA
+    (2, 3, 300, 200, 1024, 4),      # hper 3
+    (1, 2, 1700, 1650, 1024, 4),    # hper 2, block 1024: clusters of 8, S_in < s_pad
+    (1, 5, 1700, None, 1024, 4),    # hper 1 (5 heads)
+    (2, 6, 1000, 999, 128, 4),      # block 128: clusters of 1
+    (1, 48, 15076, 15076, 1024, 4),  # the AetherV1 window, unpadded
+]
+
+
+@pytest.mark.parametrize("b,nh,s,s_valid,block_q,hpc", PLAN_CASES)
+def test_launch_plan_covers_every_row_once(b, nh, s, s_valid, block_q, hpc):
+    """The grid's CTAs cover every (tensor, head, row) of [3, B*H, s_pad]
+    exactly once, and each cluster (consecutive x at one y) is one cell."""
+    bh, s_pad, block, plan = _plan(b, nh, s, block_q, hpc)
+    assert plan.block == block and plan.rows == 128
+    assert 1 <= plan.cluster <= 8 and plan.cluster * plan.rows == block
+    assert plan.hper * 128 * HD * 2 < plan.smem_bytes <= SMEM_LIMIT
+    assert plan.grid == (s_pad // 128, 3 * (bh // plan.hper))
+    assert plan.grid[0] % plan.cluster == 0
+    covered = np.zeros((3, bh, s_pad), np.int64)
+    clusters = {}
+    for y in range(plan.grid[1]):
+        for x in range(plan.grid[0]):
+            tensor, g, t, rank, row0, heads = _cta_job(plan, x, y)
+            assert heads == tuple(range(g * plan.hper, (g + 1) * plan.hper))
+            assert row0 == t * block + rank * plan.rows
+            for h in heads:
+                covered[tensor, h, row0:row0 + plan.rows] += 1
+            cell = clusters.setdefault((y, x // plan.cluster), (tensor, g, t, set()))
+            assert cell[:3] == (tensor, g, t)
+            cell[3].add(rank)
+    assert (covered == 1).all()
+    assert all(ranks == set(range(plan.cluster)) for *_, ranks in clusters.values())
+    # one cluster a (tensor, group, tile)
+    assert len({v[:3] for v in clusters.values()}) == len(clusters) == (
+        3 * (bh // plan.hper) * (s_pad // block))
+    if nh * b % 4 == 0 and nh % 4:
+        # some group holds heads of two batch elements
+        assert any(len({h // nh for h in _cta_job(plan, 0, y)[5]}) == 2
+                   for y in range(plan.grid[1]))
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(bh=10, s_pad=1024, block=1024, hper=5), "head groups"),
+    (dict(bh=8, s_pad=1024, block=1024, hper=3), "head groups"),
+    (dict(bh=8, s_pad=768, block=384 - 64, hper=4), "token tiles"),
+    (dict(bh=8, s_pad=4096, block=2048, hper=4), "token tiles"),
+    (dict(bh=8, s_pad=1024, block=1024, hper=4, strides=(3 * 512 * 1024, 3 * 4 * 64 + 1)),
+     "16-byte"),
+    (dict(bh=8, s_pad=1024, block=1024, hper=4, ptrs=(0, 8, 16)), "16-byte"),
+    (dict(bh=8, s_pad=1536, block=1024, hper=4), "multiple"),
+])
+def test_launch_plan_refuses_what_the_kernel_does_not_take(kw, match):
+    with pytest.raises(ValueError, match=match):
+        _launch_plan(**kw)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_shipped_config_passes_the_plan(b):
+    """The AetherV1 DiT's fused projection: q/k/v column views of one [B,
+    S_pad, 3 * 3072] bf16 tensor, at batch 1 (reconstruction) and 2 (the
+    CFG pair)."""
+    cfg = DiTConfig.aetherv1()
+    nh, d = cfg.num_heads, cfg.num_heads * cfg.head_dim
+    assert cfg.head_dim == HD
+    s = 15076
+    s_pad, block = _pick_pad_and_block(s, 1024)
+    stride_s = 3 * d
+    stride_b = s_pad * stride_s
+    plan = _launch_plan(b * nh, s_pad, block, _heads_per_cell(b * nh, 4),
+                        strides=(stride_b, stride_s), ptrs=(0, 2 * d, 4 * d))
+    assert (plan.cluster, plan.hper, plan.grid) == (8, 4, (120, 3 * 12 * b))
+
+
+def _tree_sum(v):
+    """Sum over the last axis of 64 as the kernel's adds nest: adjacent
+    pairs within a lane's 8 columns, then the lanes' butterfly, which pairs
+    neighbours again (a full binary tree)."""
+    while v.shape[-1] > 1:
+        v = v[..., 0::2] + v[..., 1::2]
+    return v[..., 0]
+
+
+def _kernel_z(box, g, bias, cos, sin):
+    """z of one CTA's boxes [hper, 128, 64] (f32) in the kernel's
+    arithmetic: y = x - x[0] in f32; the moments in double, summed in the
+    kernel's tree order, rounded to f32; inv = rcp_rn(sqrt_rn(var + eps));
+    ((y - mean) * inv) * gamma + beta, one rounding an operation; the pair
+    rotation (z0 * c - z1 * s, z1 * c + z0 * s) against ``cos`` / ``sin``
+    [128, 64] (zero past the tables), or None. Also returns each row's
+    |z|^2 as the kernel sums it: two f32 fma chains a lane (even and odd
+    columns), their sum, then the eight lanes' butterfly."""
+    y = box - box[..., :1]
+    yd = y.double()
+    m1 = _tree_sum(yd) * (1.0 / HD)
+    var = torch.clamp(_tree_sum(yd * yd) * (1.0 / HD) - m1 * m1, min=0.0)
+    mean, var = m1.float()[..., None], var.float()[..., None]
+    inv = torch.reciprocal(torch.sqrt(var + EPS))
+    z = ((y - mean) * inv) * g + bias
+    if cos is not None:
+        z0, z1 = z[..., 0::2], z[..., 1::2]
+        rz = torch.empty_like(z)
+        rz[..., 0::2] = z0 * cos[:, 0::2] + (-z1) * sin[:, 0::2]
+        rz[..., 1::2] = z1 * cos[:, 1::2] + z0 * sin[:, 1::2]
+        z = rz
+    lanes = z.unflatten(-1, (8, 8))  # [hper, 128, lane, 8 columns]
+    chains = []
+    for parity in (0, 1):
+        acc = torch.zeros(lanes.shape[:-1])
+        for e in range(parity, 8, 2):  # fma(z, z, acc): z * z is exact in double
+            acc = (lanes[..., e].double() ** 2 + acc.double()).float()
+        chains.append(acc)
+    lane_n2 = chains[0] + chains[1]
+    while lane_n2.shape[-1] > 1:
+        lane_n2 = lane_n2[..., 0::2] + lane_n2[..., 1::2]
+    return z, lane_n2[..., 0]
+
+
+def _codes(z, r):
+    """rint(z * r) as the kernel rounds it: f32 z * r plus 1.5 * 2^23 in the
+    FMA pipe, the code the low byte of that float's bits."""
+    t = (z * r) + torch.tensor(12582912.0)
+    return (t.view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8)
+
+
+def _emulate(xq, xk, xv, gq, bq, gk, bk, cos, sin, *, num_heads, s_valid, quantize):
+    """qkv_prologue as the Hopper kernel computes it, CTA by CTA of the
+    launch plan: the CTA's boxes read from the fused [B, S_in, 3 * H * 64]
+    projection at (column (bh % H) * 64 of its tensor, first row, batch bh //
+    H), zero past S_in, and nothing for a CTA whose rows all lie past
+    s_valid; z, its absmax and largest row |z|^2 over the CTA's valid rows
+    (``_kernel_z``); the cluster's maxima over its ranks; each CTA's codes
+    from its own z (``_codes``), or bf16 z * fold; v copied with rows >=
+    s_valid zeroed."""
+    b, s, d = xq.shape
+    bh = b * num_heads
+    s_pad, block = _pick_pad_and_block(s, 1024)
+    plan = _launch_plan(bh, s_pad, block, _heads_per_cell(bh, 4))
+    s_valid = s if s_valid is None else s_valid
+    fused = torch.nn.functional.pad(torch.cat([xq, xk, xv], -1).float(),
+                                    (0, 0, 0, s_pad - s))  # TMA's zero fill
+    if cos is not None:
+        cos, sin = (torch.nn.functional.pad(t.float(), (0, 0, 0, max(0, s_pad - t.shape[0])))
+                    for t in (cos, sin))
+    fold = HD ** -0.5 * _LOG2E
+    groups, n_tiles = bh // plan.hper, s_pad // block
+    rows = torch.arange(plan.rows)
+    outs = [torch.zeros(bh, s_pad, HD, dtype=torch.int8 if quantize else xq.dtype)
+            for _ in range(2)] + [torch.zeros(bh, s_pad, HD, dtype=xv.dtype)]
+    stats = [torch.zeros(groups, n_tiles) for _ in range(4)]  # qsc, qn, ksc, kn
+    for y in range(plan.grid[1]):
+        tensor, g = y % 3, y // 3
+        cells = {}
+        for x in range(plan.grid[0]):
+            _, _, t, _, row0, heads = _cta_job(plan, x, y)
+            if row0 >= s_valid:
+                continue  # loads nothing, publishes zeros, writes zeros
+            box = torch.stack([fused[h // num_heads, row0:row0 + plan.rows,
+                                     tensor * d + (h % num_heads) * HD:][:, :HD]
+                               for h in heads])
+            valid = (row0 + rows < s_valid)[:, None]
+            if tensor == 2:
+                outs[2][list(heads), row0:row0 + plan.rows] = torch.where(
+                    valid, box, torch.zeros(())).to(xv.dtype)
+                continue
+            gam, bet = (gq, bq) if tensor == 0 else (gk, bk)
+            z, n2 = _kernel_z(box, gam.float(), bet.float(),
+                              None if cos is None else cos[row0:row0 + plan.rows],
+                              None if sin is None else sin[row0:row0 + plan.rows])
+            pub = (torch.where(valid, z.abs(), torch.zeros(())).amax(),
+                   torch.where(valid[:, 0], n2, torch.zeros(())).amax())
+            cells.setdefault(t, []).append((x, heads, row0, valid, z, pub))
+        for t, ctas in cells.items():
+            cell_amax = max(c[5][0] for c in ctas)  # the cluster's maxima
+            cell_n2 = max(c[5][1] for c in ctas)
+            f = fold if tensor == 0 else 1.0
+            stats[2 * tensor][g, t] = cell_amax * (f / 127.0)
+            stats[2 * tensor + 1][g, t] = torch.sqrt(cell_n2) * f
+            r = 127.0 / torch.clamp(cell_amax, min=1e-30) if cell_amax > 0 else torch.zeros(())
+            for _, heads, row0, valid, z, _ in ctas:
+                z = torch.where(valid, z, torch.zeros(()))
+                outs[tensor][list(heads), row0:row0 + plan.rows] = (
+                    _codes(z, r) if quantize else (z * f).to(xq.dtype))
+    return (*outs, *stats, s_pad)
+
+
+B, S, NH = 2, 300, 6  # hper 4: groups straddle the two batch elements; clusters of 3
+
+
+@pytest.fixture(scope="module")
+def data():
+    rng = np.random.default_rng(11)
+    d = NH * HD
+    xq, xk, xv = (rng.standard_normal((B, S, d)).astype(np.float32) for _ in range(3))
+    gq, gk = ((1.0 + 0.1 * rng.standard_normal((HD,))).astype(np.float32) for _ in range(2))
+    bq, bk = ((0.1 * rng.standard_normal((HD,))).astype(np.float32) for _ in range(2))
+    ang = rng.standard_normal((S - 20, HD // 2)) * 0.5  # tables shorter than the tokens
+    cos = np.repeat(np.cos(ang), 2, axis=1).astype(np.float32)
+    sin = np.repeat(np.sin(ang), 2, axis=1).astype(np.float32)
+    return xq, xk, xv, gq, bq, gk, bk, cos, sin
+
+
+def _args(data, rope):
+    arrays = list(data)
+    if not rope:
+        arrays[7] = arrays[8] = None
+    return arrays
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("s_valid", [None, 250])
+def test_cluster_emulation_equals_plain(data, quantize, rope, s_valid):
+    """The kernel's arithmetic and decomposition give the plain version's q,
+    k, v and scales bit for bit (codes in [-127, 127]); the row-norm maxima,
+    summed in the kernel's own order, within the card's rtol of 1e-5."""
+    t = [torch.from_numpy(a) if a is not None else None for a in _args(data, rope)]
+    kw = dict(num_heads=NH, s_valid=s_valid, quantize=quantize)
+    got = _emulate(*t, **kw)
+    ref = qkv_prologue_plain(*t, head_dim=HD, eps=EPS, **kw)
+    assert got[7] == ref[7] == 384
+    for i, (a, r) in enumerate(zip(got[:7], ref[:7])):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        if i in (4, 6):  # qn, kn
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(a, r)
+    if quantize:
+        assert all(int(c.min()) >= -127 for c in got[:2])
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("s_valid", [None, 250])
+def test_cluster_emulation_matches_pallas(data, quantize, rope, s_valid):
+    arrays = _args(data, rope)
+    j = [jnp.asarray(a) if a is not None else None for a in arrays]
+    t = [torch.from_numpy(a) if a is not None else None for a in arrays]
+    ref = jax_qkv_prologue(*j, num_heads=NH, head_dim=HD, eps=EPS, s_valid=s_valid,
+                           quantize=quantize, interpret=True)
+    got = _emulate(*t, num_heads=NH, s_valid=s_valid, quantize=quantize)
+    assert got[7] == ref[7]
+    for a, r in zip(got[3:7], ref[3:7]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-5)
+    for a, r in zip(got[:2], ref[:2]):
+        a, r = a.numpy(), np.asarray(r)
+        assert a.dtype == r.dtype and a.shape == r.shape
+        if quantize:
+            diff = np.abs(a.astype(np.int32) - r.astype(np.int32))
+            assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+        else:
+            np.testing.assert_allclose(a, r, atol=1e-5)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2])[..., :HD])
