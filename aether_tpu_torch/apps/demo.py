@@ -8,17 +8,23 @@ disparity videos, per-frame GLB scenes, a PLY cloud, camera poses), driven by
 the port's :class:`~aether_tpu_torch.pipeline.AetherPipeline`.
 
 It runs on the GPU: ``--device`` defaults to ``cuda`` and raises where there
-is none, unless ``--device cpu`` is given. ``--random-init tiny|aetherv1``
-builds seeded random models (no checkpoint is in the repository). Flags whose
-feature the port does not have yet raise ``NotImplementedError`` naming the
-ROADMAP item: ``--random-init aetherv1-fp8/-int8`` (item 9, weight formats),
-``--checkpoint`` (item 15, IO), ``--dp/--tp`` (item 17, parallel), and the
-compact ``--wire_*`` formats (the port moves exact outputs).
+is none, unless ``--device cpu`` is given. The weights come from a converted
+checkpoint (``--checkpoint DIR`` from ``python -m aether_tpu_torch.io.convert``,
+``--config`` naming its topology) or are seeded random (``--random-init``):
+``tiny`` / ``aetherv1`` in the compute dtype, ``-fp8`` / ``-int8`` built
+directly in the quantized layout (``init_quantized_dit``). int8 weights run
+with int8 activations (w8a8, the JAX bench's deployment configuration),
+from a checkpoint too. Flags whose feature the port does not have raise
+``NotImplementedError`` naming the ROADMAP.md Queue 1 item: ``--dp/--tp``
+(Parallel) and the compact ``--wire_*`` formats (the port moves exact
+outputs).
 
 Usage:
     python -m aether_tpu_torch.apps.demo --task reconstruction --video clip.mp4 \\
-        --random-init aetherv1
-    python -m aether_tpu_torch.apps.demo --device cpu --random-init tiny \\
+        --random-init aetherv1-int8
+    python -m aether_tpu_torch.apps.demo --task reconstruction --video clip.mp4 \\
+        --checkpoint converted
+    python -m aether_tpu_torch.apps.demo --device cpu --random-init tiny-int8 \\
         --task reconstruction --video clip.gif --height 64 --width 96
 """
 
@@ -38,6 +44,10 @@ from aether_tpu_torch.pipeline.windowing import (
     blend_and_merge_window_results,
     run_windowed_reconstruction,
 )
+
+
+RANDOM_INITS = ["tiny", "aetherv1", "aetherv1-fp8", "aetherv1-int8", "tiny-fp8", "tiny-int8"]
+WEIGHT_FORMATS = {"fp8": torch.float8_e4m3fn, "int8": torch.int8}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -69,10 +79,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--rtol", type=float, default=0.2,
                    help="Relative tolerance for depth-edge masking in GLB export.")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="Converted checkpoint directory (not ported yet).")
+                   help="Converted checkpoint directory (dit.pt / vae.pt / "
+                        "text_embeds.npy, from aether_tpu_torch.io.convert).")
     p.add_argument("--random-init", dest="random_init", type=str, default=None,
-                   choices=["tiny", "aetherv1", "aetherv1-fp8", "aetherv1-int8"],
-                   help="Seeded random weights instead of a checkpoint.")
+                   choices=RANDOM_INITS,
+                   help="Seeded random weights instead of a checkpoint; -fp8/-int8 "
+                        "build the quantized layout directly, -int8 with int8 "
+                        "activations (the bench deployment configuration).")
     p.add_argument("--config", type=str, default="aetherv1",
                    choices=["aetherv1", "tiny"],
                    help="Model topology of --checkpoint.")
@@ -107,19 +120,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` for a flag whose feature is not ported."""
-    if args.random_init in ("aetherv1-fp8", "aetherv1-int8"):
-        raise NotImplementedError(
-            f"--random-init {args.random_init} needs the quantized weight formats, "
-            "which are not ported yet (ROADMAP.md, queue 1, item 9)")
-    if args.checkpoint is not None:
-        raise NotImplementedError(
-            "--checkpoint reads a converted checkpoint, which is not ported yet "
-            "(ROADMAP.md, queue 1, item 15)")
     for flag in ("dp", "tp"):
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} needs the parallel layer, which is not ported yet "
-                "(ROADMAP.md, queue 1, item 17)")
+                "(ROADMAP.md, Queue 1: Parallel)")
     for flag, exact in (("wire_rgb", None), ("wire_input", "u8"),
                         ("wire_disparity", None)):
         value = getattr(args, flag)
@@ -131,10 +136,14 @@ def check_ported(args: argparse.Namespace) -> None:
 
 
 def build_pipeline(args: argparse.Namespace):
-    """An ``AetherPipeline`` with seeded random weights (DiT seed 0, VAE seed
-    1) and a zero prompt embedding, bf16 on CUDA and f32 on the CPU."""
+    """An ``AetherPipeline`` in the compute dtype (bf16 on CUDA, f32 on the
+    CPU) from ``--checkpoint`` (its tensors in their saved dtypes) or from
+    seeded random weights (DiT seed 0, VAE seed 1, a zero prompt embedding).
+    A DiT with int8 codes runs with int8 activations."""
     from aether_tpu_torch.config import PipelineConfig
-    from aether_tpu_torch.models import init_dit, init_vae
+    from aether_tpu_torch.io.weights import load_checkpoint
+    from aether_tpu_torch.models import init_dit, init_quantized_dit, init_vae
+    from aether_tpu_torch.models.dit import QuantLinear
     from aether_tpu_torch.pipeline import AetherPipeline
 
     check_ported(args)
@@ -142,15 +151,26 @@ def build_pipeline(args: argparse.Namespace):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device; pass --device cpu "
                            "to run on the CPU")
-    if args.random_init is None:
-        raise SystemExit("pass --random-init tiny|aetherv1 (checkpoints are not "
-                         "ported yet)")
-    cfg = PipelineConfig.tiny() if args.random_init == "tiny" else PipelineConfig.aetherv1()
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    dit = init_dit(cfg.dit, device=device, dtype=dtype, seed=0)
-    vae = init_vae(cfg.vae, device=device, dtype=dtype, seed=1)
-    text = np.zeros((1, cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim), np.float32)
-    return AetherPipeline(cfg, dit, vae, text, device=device, compute_dtype=dtype), cfg
+    if args.random_init is not None:
+        topology, _, fmt = args.random_init.partition("-")
+        cfg = getattr(PipelineConfig, topology)()
+        if fmt:
+            dit = init_quantized_dit(cfg.dit, WEIGHT_FORMATS[fmt], device=device, seed=0)
+        else:
+            dit = init_dit(cfg.dit, device=device, dtype=dtype, seed=0)
+        vae = init_vae(cfg.vae, device=device, dtype=dtype, seed=1)
+        text = np.zeros((1, cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim), np.float32)
+    elif args.checkpoint is not None:
+        cfg = getattr(PipelineConfig, args.config)()
+        dit, vae, text = load_checkpoint(args.checkpoint, cfg, device)
+    else:
+        raise SystemExit("one of --checkpoint or --random-init is required (no "
+                         "checkpoint is in the repository)")
+    act_quant = any(isinstance(m, QuantLinear) and m.q.dtype == torch.int8
+                    for m in dit.modules())
+    return AetherPipeline(cfg, dit, vae, text, device=device, compute_dtype=dtype,
+                          act_quant=act_quant), cfg
 
 
 def _load_video(path: str) -> np.ndarray:

@@ -10,6 +10,12 @@ checkpoint); nothing here imports JAX. Layout changes:
   weight in [q | k | v] order;
 - conv kernels DHWIO ``[kt, kh, kw, in, out]`` -> ``[out, in, kt, kh, kw]``;
   1x1x1 kernels -> ``[out, in]``.
+
+Float leaves become f32. A quantized leaf ``{"q": codes [in, out], "s": (out,)}``
+(``quantize_dit_params``) becomes ``<name>.q`` [out, in] in its own dtype (int8
+or float8_e4m3fn, never dequantized) and ``<name>.s``; the fused qkv stacks the
+codes and the scales of q, k and v. :func:`~aether_tpu_torch.models.dit.dit_from_state_dict`
+builds the matching model.
 """
 
 from __future__ import annotations
@@ -28,13 +34,44 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32))
 
 
+def _codes(q) -> torch.Tensor:
+    """Quantized codes in their own dtype. ``torch.from_numpy`` rejects the
+    ml_dtypes float8 type, so fp8 codes cross as their bytes."""
+    q = np.ascontiguousarray(q)
+    if q.dtype == np.int8:
+        return torch.from_numpy(q.copy())
+    if q.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(q.view(np.uint8).copy()).view(torch.float8_e4m3fn)
+    raise TypeError(f"quantized codes must be int8 or float8_e4m3fn, got {q.dtype}")
+
+
 def _lin(sd: StateDict, name: str, w, b) -> None:
-    sd[f"{name}.weight"] = _t(np.asarray(w).T)
+    if isinstance(w, Mapping):
+        sd[f"{name}.q"] = _codes(np.asarray(w["q"]).T)
+        sd[f"{name}.s"] = _t(w["s"])
+    else:
+        sd[f"{name}.weight"] = _t(np.asarray(w).T)
     sd[f"{name}.bias"] = _t(b)
 
 
+def _layer(w, i: int):
+    """Layer ``i`` of a stacked leaf, plain or ``{"q", "s"}``."""
+    if isinstance(w, Mapping):
+        return {"q": np.asarray(w["q"])[i], "s": np.asarray(w["s"])[i]}
+    return np.asarray(w)[i]
+
+
+def _cat_out(ws):
+    """Leaves [in, out] joined along out; codes and scales alike."""
+    if isinstance(ws[0], Mapping):
+        return {"q": np.concatenate([w["q"] for w in ws], axis=1),
+                "s": np.concatenate([w["s"] for w in ws])}
+    return np.concatenate(ws, axis=1)
+
+
 def dit_state_dict_from_jax(params: Mapping[str, Any], cfg: DiTConfig) -> StateDict:
-    """``init_dit_params`` tree -> ``models.dit.DiT`` state dict (f32)."""
+    """``init_dit_params`` (or ``quantize_dit_params``) tree -> ``models.dit.DiT``
+    state dict: floats in f32, quantized codes in their dtype."""
     sd: StateDict = {}
     pe = params["patch_embed"]
     _lin(sd, "proj", pe["proj_w"], pe["proj_b"])
@@ -47,19 +84,19 @@ def dit_state_dict_from_jax(params: Mapping[str, Any], cfg: DiTConfig) -> StateD
         pre = f"blocks.{i}"
         for n in ("norm1", "norm2"):
             p = blocks[n]
-            _lin(sd, f"{pre}.{n}.linear", p["w"][i], p["b"][i])
+            _lin(sd, f"{pre}.{n}.linear", _layer(p["w"], i), p["b"][i])
             sd[f"{pre}.{n}.ln_scale"] = _t(p["ln_scale"][i])
             sd[f"{pre}.{n}.ln_bias"] = _t(p["ln_bias"][i])
         a = blocks["attn"]
-        w_qkv = np.concatenate([a["q_w"][i], a["k_w"][i], a["v_w"][i]], axis=1)
+        w_qkv = _cat_out([_layer(a[n], i) for n in ("q_w", "k_w", "v_w")])
         b_qkv = np.concatenate([a["q_b"][i], a["k_b"][i], a["v_b"][i]])
         _lin(sd, f"{pre}.attn.qkv", w_qkv, b_qkv)
-        _lin(sd, f"{pre}.attn.o", a["o_w"][i], a["o_b"][i])
+        _lin(sd, f"{pre}.attn.o", _layer(a["o_w"], i), a["o_b"][i])
         for n in ("norm_q_scale", "norm_q_bias", "norm_k_scale", "norm_k_bias"):
             sd[f"{pre}.attn.{n}"] = _t(a[n][i])
         m = blocks["mlp"]
-        _lin(sd, f"{pre}.mlp.w1", m["w1"][i], m["b1"][i])
-        _lin(sd, f"{pre}.mlp.w2", m["w2"][i], m["b2"][i])
+        _lin(sd, f"{pre}.mlp.w1", _layer(m["w1"], i), m["b1"][i])
+        _lin(sd, f"{pre}.mlp.w2", _layer(m["w2"], i), m["b2"][i])
     sd["norm_final_scale"] = _t(params["norm_final"]["scale"])
     sd["norm_final_bias"] = _t(params["norm_final"]["bias"])
     no = params["norm_out"]

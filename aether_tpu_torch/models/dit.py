@@ -23,6 +23,14 @@ dtype; linear layers return the input dtype.
 Weights use PyTorch's ``[out, in]`` layout; ``io/from_jax.py`` converts the JAX
 parameter tree, and :func:`init_dit` draws seeded random weights on a device
 with the JAX init's distributions.
+
+Weight formats (``_linear`` / ``_linear_w8a8`` / ``quantize_dit_params`` /
+``init_quantized_dit_params`` of the JAX module): :func:`quantize_dit` turns
+every :class:`Linear` into a :class:`QuantLinear` (fp8 e4m3 or int8 codes with
+per-output scales), and :func:`init_quantized_dit` draws that layout directly.
+``DiT.forward(act_quant=True)`` quantizes the activations of the qkv, o, w1 and
+w2 products to int8 per token where the codes are int8 (w8a8, through
+:func:`int8_mm`); every other linear, and fp8 codes, stay weight-only.
 """
 
 from __future__ import annotations
@@ -89,15 +97,108 @@ def layer_norm(
 
 
 class Linear(nn.Module):
-    """``y = x W^T + b`` in x's dtype (PyTorch weight layout [out, in])."""
+    """``y = x W^T + b`` in x's dtype (PyTorch weight layout [out, in]).
+    ``a8`` asks for int8 activations, which only int8 codes take
+    (:class:`QuantLinear`); a float weight ignores it, as JAX's ``_linear``
+    does."""
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_out, d_in))
         self.bias = nn.Parameter(torch.empty(d_out))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, a8: bool = False) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+QUANT_DTYPES = (torch.float8_e4m3fn, torch.int8)
+
+
+def int8_mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`int8_mm`: the exact int32 sums, taken through
+    a float64 product (every partial sum is an integer of magnitude at most
+    127**2 * k < 2**53, so float64 holds it exactly on any device)."""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int32 ``a @ b`` of int8 ``a`` [m, k] (row-major) and int8 ``b`` [k, n].
+
+    The w8a8 product of the JAX ``_linear_w8a8`` (``lax.dot_general`` with an
+    int32 result). A CPU tensor takes :func:`int8_mm_plain`. A CUDA tensor runs
+    ``torch._int_mm`` (cuBLASLt's int8 tensor-core GEMM), which needs m > 16
+    and k, n multiples of 8, and is fast with ``b`` column-major (the ``.t()``
+    of a row-major [n, k] code matrix); any other shape raises, never a float
+    product."""
+    if not a.is_cuda:
+        return int8_mm_plain(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_mm takes int8 operands, got {a.dtype} and {b.dtype}")
+    if m <= 16 or k % 8 or n % 8:
+        raise ValueError(f"torch._int_mm needs m > 16 and k, n multiples of 8; got "
+                         f"m={m}, k={k}, n={n}")
+    out = torch._int_mm(a, b)
+    int8_mm.launches += 1
+    return out
+
+
+# int8_mm calls that launched torch._int_mm (a plain integer)
+int8_mm.launches = 0
+
+
+def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token int8 codes of x and their f32 scales (JAX ``_linear_w8a8``):
+    ``sx = max(max|x| over the last axis, 1e-6) / 127``, ``xq = clamp(round(x
+    / sx), -127, 127)``, all in f32 (round half to even, as ``jnp.round``)."""
+    xf = x.float()
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python scalar,
+    # which is not the correctly rounded quotient the JAX function takes
+    sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / xf.new_tensor(127.0)
+    return torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8), sx
+
+
+def _product_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` of x and the codes ``w`` cast to x's dtype, accumulated and
+    returned in f32 (JAX ``jnp.dot(..., preferred_element_type=f32)``). On
+    CUDA a bf16/f16 x runs ``torch.mm(..., out_dtype=float32)``; elsewhere the
+    operands go up to f32, whose products of bf16 values are exact."""
+    w = w.to(x.dtype)
+    if x.is_cuda and x.dtype != torch.float32:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return torch.matmul(x.float(), w.float().t())
+
+
+class QuantLinear(nn.Module):
+    """A weight-quantized :class:`Linear`: codes ``q`` [out, in] (fp8 e4m3 or
+    int8) and per-output scales ``s`` (f32, (out,)) held as buffers, W =
+    q * s[:, None]. The counterpart of a ``{"q", "s"}`` leaf of the JAX tree.
+
+    Weight-only (JAX ``_linear``'s dict branch): ``(x @ q.T)`` in f32, then
+    ``* s``, ``+ b``, cast to x's dtype. With ``a8`` and int8 codes (JAX
+    ``_linear_w8a8``): x is quantized per token, ``sx = max(absmax, 1e-6) /
+    127``, ``xq = clamp(round(x / sx), -127, 127)``; the int32 product
+    :func:`int8_mm`, then ``(y * sx) * s + b``. fp8 codes under ``a8`` take the
+    weight-only branch, as in the JAX module."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        if q.dtype not in QUANT_DTYPES:
+            raise TypeError(f"codes must be one of {QUANT_DTYPES}, got {q.dtype}")
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+        self.bias = bias if isinstance(bias, nn.Parameter) else nn.Parameter(bias)
+
+    def forward(self, x: torch.Tensor, a8: bool = False) -> torch.Tensor:
+        if a8 and self.q.dtype == torch.int8:
+            xq, sx = quantize_activations(x)
+            y = int8_mm(xq.reshape(-1, xq.shape[-1]), self.q.t())
+            y = y.reshape(*x.shape[:-1], -1).float() * sx * self.s
+        else:
+            y = _product_f32(x, self.q) * self.s
+        return (y + self.bias.float()).to(x.dtype)
 
 
 class AdaLayerNormZero(nn.Module):
@@ -171,15 +272,16 @@ class Attention(nn.Module):
         self.norm_k_bias = nn.Parameter(torch.empty(cfg.head_dim))
         self.cfg = cfg
 
-    def forward(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, attn_opts: dict):
+    def forward(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, attn_opts: dict,
+                a8: bool = False):
         if attn_impl == "fused":
-            out = self._fused(hidden, enc, rope_cos, rope_sin, attn_opts["qk_int8"])
+            out = self._fused(hidden, enc, rope_cos, rope_sin, attn_opts["qk_int8"], a8)
         else:
-            out = self._unfused(hidden, enc, rope_cos, rope_sin, attn_impl, attn_opts)
+            out = self._unfused(hidden, enc, rope_cos, rope_sin, attn_impl, attn_opts, a8)
         text_len = enc.shape[1]
         return out[:, text_len:], out[:, :text_len]
 
-    def _fused(self, hidden, enc, rope_cos, rope_sin, qk_int8: bool):
+    def _fused(self, hidden, enc, rope_cos, rope_sin, qk_int8: bool, a8: bool):
         cfg = self.cfg
         s = enc.shape[1] + hidden.shape[1]
         d = cfg.hidden_size
@@ -189,7 +291,7 @@ class Attention(nn.Module):
         parts = [enc, hidden]
         if s_pad != s:
             parts.append(hidden.new_zeros(hidden.shape[0], s_pad - s, hidden.shape[-1]))
-        y = self.qkv(torch.cat(parts, dim=1))  # [B, S_pad, 3D]
+        y = self.qkv(torch.cat(parts, dim=1), a8)  # [B, S_pad, 3D]
         attn = fused_joint_attention(
             y[..., :d], y[..., d:2 * d], y[..., 2 * d:],
             self.norm_q_scale, self.norm_q_bias,
@@ -197,9 +299,10 @@ class Attention(nn.Module):
             num_heads=cfg.num_heads, head_dim=cfg.head_dim, eps=cfg.qk_norm_eps,
             quantize=qk_int8, s_valid=s,
         )
-        return self.o(attn[:, :s])
+        return self.o(attn[:, :s], a8)
 
-    def _unfused(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, attn_opts: dict):
+    def _unfused(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, attn_opts: dict,
+                 a8: bool):
         cfg = self.cfg
         nh, hd = cfg.num_heads, cfg.head_dim
         x = torch.cat([enc, hidden], dim=1)  # text first
@@ -208,7 +311,7 @@ class Attention(nn.Module):
         def heads(t):
             return t.reshape(b, s, nh, hd).transpose(1, 2)
 
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        q, k, v = self.qkv(x, a8).chunk(3, dim=-1)
         q = layer_norm(heads(q), self.norm_q_scale, self.norm_q_bias, cfg.qk_norm_eps)
         k = layer_norm(heads(k), self.norm_k_scale, self.norm_k_bias, cfg.qk_norm_eps)
         v = heads(v)
@@ -225,7 +328,7 @@ class Attention(nn.Module):
             attn = attention_reference(q, k, v)
         else:
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
-        return self.o(attn.transpose(1, 2).reshape(b, s, nh * hd))
+        return self.o(attn.transpose(1, 2).reshape(b, s, nh * hd), a8)
 
 
 class MLP(nn.Module):
@@ -234,10 +337,10 @@ class MLP(nn.Module):
         self.w1 = Linear(cfg.hidden_size, cfg.mlp_dim)
         self.w2 = Linear(cfg.mlp_dim, cfg.hidden_size)
 
-    def forward(self, x):
-        h = self.w1(x)
+    def forward(self, x, a8: bool = False):
+        h = self.w1(x, a8)
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-        return self.w2(h)
+        return self.w2(h, a8)
 
 
 class Block(nn.Module):
@@ -250,14 +353,15 @@ class Block(nn.Module):
         self.eps = cfg.norm_eps
 
     def forward(self, hid, enc, temb, rope_cos, rope_sin, attn_impl: str,
-                attn_opts: dict):
+                attn_opts: dict, act_quant: bool = False):
         h_n, e_n, gate, e_gate = self.norm1(hid, enc, temb, self.eps)
-        attn_h, attn_e = self.attn(h_n, e_n, rope_cos, rope_sin, attn_impl, attn_opts)
+        attn_h, attn_e = self.attn(h_n, e_n, rope_cos, rope_sin, attn_impl, attn_opts,
+                                   act_quant)
         hid = hid + (gate * attn_h.float()).to(hid.dtype)
         enc = enc + (e_gate * attn_e.float()).to(enc.dtype)
 
         h_n, e_n, gate, e_gate = self.norm2(hid, enc, temb, self.eps)
-        ff = self.mlp(torch.cat([e_n, h_n], dim=1))
+        ff = self.mlp(torch.cat([e_n, h_n], dim=1), act_quant)
         text_len = enc.shape[1]
         hid = hid + (gate * ff[:, text_len:].float()).to(hid.dtype)
         enc = enc + (e_gate * ff[:, :text_len].float()).to(enc.dtype)
@@ -327,6 +431,7 @@ class DiT(nn.Module):
         fixed_max: Optional[bool] = None,
         pv_int8: Optional[bool] = None,
         fused_qkv: Optional[bool] = None,
+        act_quant: bool = False,
     ):
         """Denoiser forward.
 
@@ -350,6 +455,8 @@ class DiT(nn.Module):
             pv_int8: the full-int8 attention K6; None reads AETHER_ATTN_PV8.
             fused_qkv: the fused K1 + K2 path; None reads AETHER_ATTN_FUSED
                 (off when ``pv_int8`` is on, as in the JAX package).
+            act_quant: int8 activations (w8a8) in the qkv, o, w1 and w2
+                products where their codes are int8 (JAX ``act_quant``).
         Returns:
             [B, F, C_out, H_lat, W_lat] v-prediction (and the block outputs).
         """
@@ -387,7 +494,7 @@ class DiT(nn.Module):
 
         collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for block in self.blocks:
-            args = (video, text, temb, rc, rs, attn_impl, attn_opts)
+            args = (video, text, temb, rc, rs, attn_impl, attn_opts, act_quant)
             if remat:
                 video, text = checkpoint(block, *args, use_reentrant=False)
             else:
@@ -427,10 +534,108 @@ def init_dit(cfg: DiTConfig, *, device="cpu", dtype=torch.float32,
             bound = 1.0 / math.sqrt(mod.weight.shape[1])
             mod.weight.uniform_(-bound, bound, generator=gen)
             mod.bias.uniform_(-bound, bound, generator=gen)
-    for name, param in model.named_parameters():
-        if name.endswith(("scale",)):
-            param.fill_(1.0)
-        elif name.endswith(("norm_q_bias", "norm_k_bias", "ln_bias",
-                            "norm_final_bias")):
-            param.zero_()
+    _init_norms(model)
     return model
+
+
+def _init_norms(model: DiT) -> None:
+    """Norm scales 1 and biases 0, as the JAX init draws them."""
+    for name, param in model.named_parameters():
+        if name.endswith("scale"):
+            param.fill_(1.0)
+        elif name.endswith(("norm_q_bias", "norm_k_bias", "ln_bias", "norm_final_bias")):
+            param.zero_()
+
+
+def _replace_linears(model: DiT, make) -> None:
+    """Swap every :class:`Linear` of ``model`` for ``make(linear)``, one at a
+    time: only names are listed up front, so each old weight is freed as soon
+    as its replacement is in place."""
+    names = [n for n, m in model.named_modules() if isinstance(m, Linear)]
+    for name in names:
+        parent_name, _, attr = name.rpartition(".")
+        parent = model.get_submodule(parent_name)
+        setattr(parent, attr, make(getattr(parent, attr)))
+
+
+def _dtype_max(dtype: torch.dtype) -> float:
+    return float(torch.finfo(dtype).max if dtype.is_floating_point
+                 else torch.iinfo(dtype).max)
+
+
+@torch.no_grad()
+def quantize_dit(model: DiT, dtype: torch.dtype = torch.float8_e4m3fn) -> DiT:
+    """Weight-only quantization of every linear of ``model``, in place
+    (JAX ``quantize_dit_params``, ``aether_tpu/models/dit.py:154-211``).
+
+    Each weight W [out, in] becomes codes ``W / s`` in ``dtype`` (int8 rounded
+    to nearest first) with a per-output scale ``s = max(max|W| over in /
+    dtype_max, 1e-12)``, all in f32. Module by module, so each full-precision
+    weight is freed once its codes exist. Biases and norms stay as they are.
+    The fused ``attn.qkv`` rows are q, k, v stacked: per-row scales make its
+    codes those of the three projections quantized apart."""
+    fmax = _dtype_max(dtype)
+
+    def make(lin: Linear) -> QuantLinear:
+        w = lin.weight.detach().float()
+        # divided by a tensor, so that CUDA too rounds the quotient correctly
+        s = torch.clamp_min(w.abs().amax(dim=1) / w.new_tensor(fmax), 1e-12)
+        scaled = w / s[:, None]
+        if not dtype.is_floating_point:
+            scaled = torch.round(scaled)  # round to nearest, not truncation
+        return QuantLinear(scaled.to(dtype), s, lin.bias)
+
+    _replace_linears(model, make)
+    return model
+
+
+def dit_skeleton(cfg: DiTConfig, qdtype: Optional[torch.dtype],
+              float_dtype: Optional[torch.dtype] = None) -> DiT:
+    """A :class:`DiT` on the meta device, its float parameters in
+    ``float_dtype`` (None keeps f32) and, given ``qdtype``, its linears as
+    empty :class:`QuantLinear` codes of that dtype."""
+    with torch.device("meta"):
+        model = DiT(cfg)
+        if float_dtype is not None:
+            model = model.to(float_dtype)
+        if qdtype is not None:
+            _replace_linears(model, lambda lin: QuantLinear(
+                torch.empty(lin.weight.shape, dtype=qdtype),
+                torch.empty(lin.weight.shape[0]), lin.bias))
+    return model
+
+
+@torch.no_grad()
+def init_quantized_dit(cfg: DiTConfig, dtype: torch.dtype = torch.float8_e4m3fn, *,
+                       device="cpu", seed: int = 0) -> DiT:
+    """Seeded random DiT built directly in the quantized layout (JAX
+    ``init_quantized_dit_params``, ``aether_tpu/models/dit.py:214-290``); the
+    bf16 model is never built. Codes are uniform(-2, 2) cast to ``dtype``
+    (int8 truncates to -1, 0, 1), scales 1 / sqrt(fan_in) / 2, biases
+    uniform(+-1/sqrt(fan_in)) in bf16, norm scales 1 and biases 0 in bf16:
+    the structure, shapes and dtypes of ``quantize_dit(init_dit(cfg,
+    dtype=torch.bfloat16), dtype)``."""
+    model = dit_skeleton(cfg, dtype, torch.bfloat16).to_empty(device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, QuantLinear):
+            fan_in = mod.q.shape[1]
+            mod.q.copy_(torch.empty(mod.q.shape, device=device).uniform_(
+                -2.0, 2.0, generator=gen).to(dtype))
+            mod.s.fill_(1.0 / fan_in ** 0.5 / 2.0)
+            bound = 1.0 / math.sqrt(fan_in)
+            mod.bias.uniform_(-bound, bound, generator=gen)
+    _init_norms(model)
+    return model
+
+
+def dit_from_state_dict(sd, cfg: DiTConfig, device=None) -> DiT:
+    """A :class:`DiT` that takes the tensors of ``sd`` as they are (its
+    dtypes kept): quantized (``<name>.q`` / ``.s`` codes and scales) when the
+    state dict holds codes, plain otherwise. ``device`` moves it (dtypes
+    unchanged)."""
+    qdtype = next((t.dtype for k, t in sd.items() if k.endswith(".q")), None)
+    model = dit_skeleton(cfg, qdtype)
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model if device is None else model.to(device)

@@ -26,8 +26,12 @@ at batch B, every window with the noise stream of a serial call with the
 same seed (one draw broadcast over the batch); the VAE encodes and decodes
 them window by window.
 
-Not in this slice (ROADMAP.md): meshes, quantized weight formats, the CFG
-prefix skip, compact wires and ``defer_host``.
+A quantized DiT (``models.dit.quantize_dit`` / ``init_quantized_dit``) runs
+as it is; ``act_quant=True`` gives its int8 codes int8 activations (w8a8), as
+the JAX pipeline's ``act_quant`` does.
+
+Not in this slice (ROADMAP.md): meshes, the CFG prefix skip, compact wires and
+``defer_host``.
 """
 
 from __future__ import annotations
@@ -362,7 +366,7 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
              condition_latents: torch.Tensor, plan: SamplingPlan,
              rope_cos: torch.Tensor, rope_sin: torch.Tensor, noise_source,
              task: str, guidance: Optional[torch.Tensor],
-             broadcast_noise: bool = False) -> torch.Tensor:
+             broadcast_noise: bool = False, act_quant: bool = False) -> torch.Tensor:
     """SDE-DPM-Solver++(2M) loop (JAX ``_denoise_segment``, :1010-1050).
     Latents are carried in the compute dtype, ``old_x0`` in f32.
 
@@ -373,7 +377,8 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
     uncond)`` is formed in f32. ``None`` runs the condition alone.
     ``broadcast_noise`` draws the initial and SDE noise for one batch element
     and broadcasts it, so every window of a batch gets the noise stream of a
-    serial call with the same seed. Returns (B, F_lat, 56, h, w)."""
+    serial call with the same seed. ``act_quant`` reaches the DiT (w8a8
+    where its codes are int8). Returns (B, F_lat, 56, h, w)."""
     b, f_lat, _, h_lat, w_lat = condition_latents.shape
     shape = (b, f_lat, 56, h_lat, w_lat)
     lat = (_draw(noise_source.initial, shape, broadcast_noise)
@@ -394,7 +399,8 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
         model_in = lat if guidance is None else torch.cat([lat, lat], dim=0)
         model_in = torch.cat([model_in, latent_condition], dim=2)
         t_batch = plan.timesteps[i].expand(n)
-        noise_pred = dit(model_in, text, t_batch, rope_cos, rope_sin).float()
+        noise_pred = dit(model_in, text, t_batch, rope_cos, rope_sin,
+                         act_quant=act_quant).float()
         if guidance is not None:
             uncond_pred, cond_pred = noise_pred.chunk(2, dim=0)
             noise_pred = uncond_pred + guidance[i] * (cond_pred - uncond_pred)
@@ -408,16 +414,20 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
 class AetherPipeline:
     """The three-task sampler over a :class:`DiT` and a :class:`VAE` on one
     device. ``empty_prompt_embeds`` is the cached (1, 226, 4096) empty-prompt
-    T5 embedding."""
+    T5 embedding. ``act_quant`` runs the DiT's int8 codes with int8
+    activations (w8a8); the models move to ``device`` with their dtypes kept
+    (a quantized DiT keeps its codes and f32 scales)."""
 
     def __init__(self, config: PipelineConfig, dit: DiT, vae: VAE,
-                 empty_prompt_embeds, *, device=None, compute_dtype=torch.bfloat16):
+                 empty_prompt_embeds, *, device=None, compute_dtype=torch.bfloat16,
+                 act_quant: bool = False):
         self.config = config
         self.device = torch.device(device) if device is not None else next(
             dit.parameters()).device
         self.dit = dit.to(self.device).eval()
         self.vae = vae.to(self.device).eval()
         self.compute_dtype = compute_dtype
+        self.act_quant = act_quant
         text = torch.as_tensor(empty_prompt_embeds).to(device=self.device,
                                                        dtype=compute_dtype)
         self.empty_prompt_embeds = text[None] if text.ndim == 2 else text
@@ -550,7 +560,7 @@ class AetherPipeline:
         with _stage("denoise", times, dev):
             latents = _denoise(cfg, dtype, self.dit, self.empty_prompt_embeds,
                                condition_latents, plan, rope_cos, rope_sin, noise,
-                               task, guidance)
+                               task, guidance, act_quant=self.act_quant)
 
         # ---- stage 3: stacked decode + output transforms ----
         with _stage("decode", times, dev):
@@ -647,7 +657,8 @@ class AetherPipeline:
         with _stage("denoise", times, dev):
             latents = _denoise(cfg, dtype, self.dit, self.empty_prompt_embeds,
                                condition_latents, plan, rope_cos, rope_sin, noise,
-                               "reconstruction", None, broadcast_noise=True)
+                               "reconstruction", None, broadcast_noise=True,
+                               act_quant=self.act_quant)
 
         with _stage("decode", times, dev):
             outs = [self._decode_window(latents[i:i + 1], tiling, num_frames)

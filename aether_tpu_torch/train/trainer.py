@@ -370,10 +370,14 @@ def main(argv=None) -> None:
             raise NotImplementedError(
                 f"--{flag} needs the parallel layer, which is not ported yet "
                 "(ROADMAP.md, queue 1: Parallel)")
+    init_params = None
     if args.init_checkpoint:
-        raise NotImplementedError(
-            "--init_checkpoint reads a converted orbax checkpoint, which is "
-            "not ported yet (ROADMAP.md, queue 1: IO)")
+        from aether_tpu_torch.io.weights import load_state_dicts
+
+        init_params = load_state_dicts(args.init_checkpoint)[0]
+        if any(name.endswith(".q") for name in init_params):
+            raise ValueError("--init_checkpoint needs an unquantized checkpoint "
+                             "(io.convert --quantize none): the trainer updates f32 weights")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA device; pass --device cpu "
@@ -390,7 +394,7 @@ def main(argv=None) -> None:
         # gradient on the backward (ops/chunked_attention.py)
         attn_impl="flash_train" if device.type == "cuda" else "xla",
     )
-    trainer = Trainer(dit_cfg, train_cfg, device=device)
+    trainer = Trainer(dit_cfg, train_cfg, device=device, init_params=init_params)
     if args.latent_dir:
         from aether_tpu_torch.train.data import latent_batches
 

@@ -103,6 +103,28 @@ Phases of the tuning-variant slice:
      ``AETHER_ATTN_FIXED_MAX=0`` (the DiT's attention through K4 bf16):
      shapes, finite values, the RGB range, exactly 168 K4 launches, no K1 or
      K2 launch, K5 at its count; stage times and peak memory.
+Phases of the weight-format slice, after 6c:
+ 15. the w8a8 products of a block at the main path's shapes (qkv (15360 x
+     3072) @ (3072 x 9216), o, w1, w2 at 15076 rows): ``int8_mm``
+     (``torch._int_mm``) exact against its plain version, timed alone, as the
+     whole w8a8 ``QuantLinear`` (quantize, product, epilogue), as an fp8
+     weight-only ``QuantLinear`` and as a bf16 ``F.linear``, with the
+     product's bound;
+ 16. quality at full width: one DiT forward at timestep 500 in bf16 and from
+     the same weights quantized (``quantize_dit``): fp8 weight-only
+     mean-abs relative error < 0.10, int8 weight-only < 0.05, int8 w8a8
+     norm relative error < 0.2 (the JAX tests' bars), cosines printed;
+ 17. two 41x480x720 reconstruction requests with the DiT built directly
+     as int8 codes (``init_quantized_dit``) and int8 activations
+     (``act_quant``, ``bench.py``'s default), and two with fp8 codes
+     weight-only: each pair bit-identical, 168 K1 and K2 launches, K5 at its
+     count, 672 int8 products with int8 activations (none for fp8), stage
+     times, peak memory and the DiT's resident bytes; the demo's
+     ``--random-init aetherv1-int8`` / ``-fp8`` build the same DiT bit for
+     bit;
+ 18. the int8 pipeline through ``save_checkpoint`` into a temporary
+     directory and back through the demo's ``build_pipeline`` (``--checkpoint``): one
+     request, bit-identical to the first int8 request.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -436,20 +458,31 @@ def train_phase(dev) -> int:
     return launches
 
 
-def make_pipeline(cfg, dev):
-    """``AetherPipeline`` on the AetherV1 config: seeded random bf16 DiT
-    (seed 0) and VAE (seed 1) on the GPU and a seeded (1, 226, 4096) prompt
-    embedding; the same weights every time it is built."""
-    from aether_tpu_torch.models import init_dit, init_vae
-    from aether_tpu_torch.pipeline import AetherPipeline
-
+def make_prompt(cfg, dev):
+    """The seeded (1, 226, 4096) f32 prompt embedding of every pipeline here."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-    dit = init_dit(cfg.dit, device=dev, dtype=torch.bfloat16, seed=0)
+    return torch.randn((1, cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
+                       generator=gen, device=dev)
+
+
+def make_pipeline(cfg, dev, codes=None):
+    """``AetherPipeline`` on the AetherV1 config: seeded random bf16 DiT
+    (seed 0) and VAE (seed 1) on the GPU and a seeded (1, 226, 4096) prompt
+    embedding; the same weights every time it is built. With ``codes``
+    (torch.int8 or torch.float8_e4m3fn) the DiT is built directly in that
+    quantized layout (``init_quantized_dit``, seed 0), int8 with int8
+    activations (``bench.py``'s default)."""
+    from aether_tpu_torch.models import init_dit, init_quantized_dit, init_vae
+    from aether_tpu_torch.pipeline import AetherPipeline
+
+    if codes is None:
+        dit = init_dit(cfg.dit, device=dev, dtype=torch.bfloat16, seed=0)
+    else:
+        dit = init_quantized_dit(cfg.dit, codes, device=dev, seed=0)
     vae = init_vae(cfg.vae, device=dev, dtype=torch.bfloat16, seed=1)
-    prompt = torch.randn((1, cfg.dit.max_text_seq_length, cfg.dit.text_embed_dim),
-                         generator=gen, device=dev)
-    return AetherPipeline(cfg, dit, vae, prompt, device=dev, compute_dtype=torch.bfloat16)
+    return AetherPipeline(cfg, dit, vae, make_prompt(cfg, dev), device=dev,
+                          compute_dtype=torch.bfloat16, act_quant=codes == torch.int8)
 
 
 def check_request(res, frames, name) -> None:
@@ -1000,6 +1033,232 @@ def online_request_phase(pipe, video, dev):
     check_request(res, FRAMES, "request at AETHER_ATTN_FIXED_MAX=0")
     return counts[2]
 
+# the a8 products of one block at the main path's shapes: (name, rows, in, out);
+# the fused qkv runs over the 15360 padded joint rows, o over the 15076 valid
+# ones, the MLP over the 15076 joint tokens
+W8A8_SHAPES = (("qkv", 15360, 3072, 9216), ("o", SEQ, 3072, 3072),
+               ("w1", SEQ, 3072, 12288), ("w2", SEQ, 12288, 3072))
+
+
+@torch.no_grad()
+def w8a8_phase(dev, gen):
+    """The w8a8 products at the main path's shapes: ``int8_mm``
+    (``torch._int_mm``) against its plain version (exact int32 sums) on the
+    activation codes of a seeded bf16 x; then, with CUDA events, the product
+    alone, the whole w8a8 ``QuantLinear`` (quantize, product, epilogue), the
+    fp8 weight-only ``QuantLinear`` and a bf16 ``F.linear`` at the same shape,
+    and the product's bound (int8 operations over the int8 peak against its
+    bytes). Returns {name: (product ms, w8a8 linear ms, fp8 linear ms, bf16
+    ms, bound)}."""
+    from aether_tpu_torch.models.dit import QuantLinear, int8_mm, int8_mm_plain
+    from aether_tpu_torch.models.dit import quantize_activations
+
+    results = {}
+    for name, m, k, n in W8A8_SHAPES:
+        x = torch.randn((1, m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((n, k), generator=gen, device=dev) * k ** -0.5)
+        b = torch.randn((n,), generator=gen, device=dev).to(torch.bfloat16) * 0.02
+        s = w.abs().amax(dim=1) / 127.0
+        q8 = torch.round(w / s[:, None]).to(torch.int8)
+        s8 = w.abs().amax(dim=1) / 448.0
+        f8 = (w / s8[:, None]).to(torch.float8_e4m3fn)
+        wb = w.to(torch.bfloat16)
+        del w
+        xq, _ = quantize_activations(x)
+        xq = xq.reshape(m, k)
+        before = int8_mm.launches
+        got = int8_mm(xq, q8.t())
+        ref = int8_mm_plain(xq, q8.t())
+        torch.cuda.synchronize()
+        check(int8_mm.launches == before + 1, f"w8a8 {name}: int8_mm did not launch")
+        check(got.dtype == torch.int32 and torch.equal(got, ref),
+              f"w8a8 {name}: torch._int_mm differs from the exact int32 sums")
+        lin8, linf8 = QuantLinear(q8, s, b), QuantLinear(f8, s8, b)
+        prod_ms = cuda_time_ms(lambda: int8_mm(xq, q8.t()), 10)
+        a8_ms = cuda_time_ms(lambda: lin8(x, a8=True), 10)
+        fp8_ms = cuda_time_ms(lambda: linf8(x), 10)
+        bf16_ms = cuda_time_ms(lambda: torch.nn.functional.linear(x, wb, b), 10)
+        ops = 2.0 * m * k * n
+        bnd = bound(m * k + n * k + 4 * m * n, {"int8": ops})
+        log(f"w8a8 {name} ({m} x {k}) @ ({k} x {n}): _int_mm exact; product {prod_ms:.4f} ms "
+            f"({ops / prod_ms / 1e9:.1f} TOP/s, {bnd[0] / prod_ms:.1%} of its {bnd[0]:.4f} ms "
+            f"{bnd[1]} bound), w8a8 linear {a8_ms:.4f} ms (quantize + epilogue "
+            f"{a8_ms - prod_ms:.4f}), fp8 weight-only linear {fp8_ms:.4f} ms, bf16 F.linear "
+            f"{bf16_ms:.4f} ms ({ops / bf16_ms / 1e9:.1f} TFLOP/s)")
+        results[name] = (prod_ms, a8_ms, fp8_ms, bf16_ms, bnd)
+        del x, b, s, q8, s8, f8, wb, xq, got, ref, lin8, linf8
+        torch.cuda.empty_cache()
+    return results
+
+
+@torch.no_grad()
+def quality_phase(cfg, dev):
+    """One DiT forward at timestep 500 on seeded 41x480x720 latents in bf16,
+    then in each weight format from the same bf16 weights (``quantize_dit`` of
+    ``init_dit`` seed 0, the phase-5 DiT): fp8 weight-only, int8 weight-only
+    and int8 w8a8. Gates, the JAX tests' bars: fp8 mean-abs relative error
+    < 0.10 (tests/test_models.py:213), int8 weight-only < 0.05 (:238), int8
+    w8a8 norm relative error < 0.2 (:446). Returns {format: (mean-abs rel,
+    norm rel, cosine)}."""
+    from aether_tpu_torch.models import init_dit, quantize_dit
+    from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
+
+    f_lat, h_lat, w_lat = (FRAMES - 1) // 4 + 1, HEIGHT // 8, WIDTH // 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    hidden = torch.randn((1, f_lat, cfg.dit.in_channels, h_lat, w_lat), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    text = make_prompt(cfg, dev).to(torch.bfloat16)
+    t = torch.tensor([500], device=dev)
+    cos, sin = prepare_rotary_positional_embeddings(
+        cfg.dit, HEIGHT, WIDTH, f_lat, vae_scale_factor_spatial=8, base_fps=12, fps=12)
+    rope = (torch.from_numpy(cos).to(dev), torch.from_numpy(sin).to(dev))
+
+    def forward(dit, act_quant=False):
+        out = dit(hidden, text, t, *rope, act_quant=act_quant).float()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), "quality: non-finite DiT output")
+        return out
+
+    results = {}
+
+    def against_bf16(name, out):
+        mean_rel = ((out - ref).abs().mean() / ref.abs().mean()).item()
+        norm_rel = ((out - ref).norm() / ref.norm()).item()
+        cosine = (torch.sum(out * ref) / (out.norm() * ref.norm())).item()
+        log(f"quality at full width, {name} against bf16: mean-abs relative error "
+            f"{mean_rel:.6f}, norm relative error {norm_rel:.6f}, cosine {cosine:.6f}")
+        results[name] = (mean_rel, norm_rel, cosine)
+
+    dit = init_dit(cfg.dit, device=dev, dtype=torch.bfloat16, seed=0)
+    ref = forward(dit)
+    quantize_dit(dit, torch.int8)  # in place: the bf16 weights go as their codes come
+    against_bf16("int8 weight-only", forward(dit))
+    against_bf16("int8 w8a8", forward(dit, act_quant=True))
+    del dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    dit = quantize_dit(init_dit(cfg.dit, device=dev, dtype=torch.bfloat16, seed=0),
+                       torch.float8_e4m3fn)
+    against_bf16("fp8 weight-only", forward(dit))
+    check(results["fp8 weight-only"][0] < 0.10, "fp8 weight-only over the 0.10 mean-abs bar")
+    check(results["int8 weight-only"][0] < 0.05, "int8 weight-only over the 0.05 mean-abs bar")
+    check(results["int8 w8a8"][1] < 0.2, "int8 w8a8 over the 0.2 norm bar")
+    del dit, ref, hidden, text
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def quantized_request(pipe, video, dev, name):
+    """One 41x480x720 reconstruction request on a quantized pipeline: shapes,
+    finite values, the RGB range, 168 K1 and K2 launches, K5 at its count,
+    and 4 x 42 x 4 = 672 int8 products with int8 activations (qkv, o, w1, w2
+    of every block and step), none without them. Returns (result, seconds,
+    peak GiB)."""
+    from aether_tpu_torch.models.dit import int8_mm
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+
+    counted = (qkv_prologue, flash_attention_prepacked, groupnorm_moments, int8_mm)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = pipe(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
+               num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    counts = [fn.launches for fn in counted]
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+    log(f"{name}: {wall:.3f} s ({stages}); K1/K2/K5/int8 product launches "
+        f"{'/'.join(map(str, counts))}; peak memory {peak:.2f} GiB")
+    n = pipe.config.dit.num_layers * STEPS
+    a8 = 4 * n if pipe.act_quant else 0
+    check(counts == [n, n, expected_k5(pipe, FRAMES), a8],
+          f"{name}: expected {n} K1 and K2, {expected_k5(pipe, FRAMES)} K5 and {a8} int8 "
+          "product launches")
+    check_request(res, FRAMES, name)
+    return res, wall, peak
+
+
+def same_outputs(a, b, what):
+    for field in ("rgb", "disparity", "raymap"):
+        check(np.array_equal(getattr(a, field), getattr(b, field)), f"{what}: {field} differs")
+    log(f"{what}: bit-identical outputs")
+
+
+def quantized_requests_phase(cfg, video, dev):
+    """The deployment weight formats end to end: two int8 w8a8 requests
+    (bit-identical), the int8 pipeline saved with ``save_checkpoint`` and
+    built again through the demo's ``build_pipeline`` (``--checkpoint``; one request,
+    bit-identical to the first), then two fp8 weight-only requests
+    (bit-identical). Returns {name: (seconds, peak GiB, DiT GiB)}."""
+    from aether_tpu_torch.apps import demo
+    from aether_tpu_torch.io.weights import save_checkpoint
+
+    times = {}
+    for label, codes in (("int8 w8a8", torch.int8), ("fp8 weight-only", torch.float8_e4m3fn)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        pipe = make_pipeline(cfg, dev, codes)
+        torch.cuda.synchronize()
+        dit_bytes = sum(t.numel() * t.element_size()
+                        for t in list(pipe.dit.parameters()) + list(pipe.dit.buffers()))
+        log(f"{label} pipeline: built in {time.perf_counter() - t0:.3f} s, DiT "
+            f"{dit_bytes / 2**30:.3f} GiB resident (codes, scales, biases, norms), "
+            f"{(torch.cuda.memory_allocated(dev) - base) / 2**30:.3f} GiB with the VAE and "
+            f"prompt, act_quant {pipe.act_quant}")
+        outs = []
+        for req in range(2):
+            res, wall, peak = quantized_request(pipe, video, dev, f"{label} request {req}")
+            outs.append(res)
+        same_outputs(outs[0], outs[1], f"{label} requests 0 and 1")
+        times[label] = (wall, peak, dit_bytes / 2**30)
+        # the demo's --random-init builds the same DiT on the card
+        init = "aetherv1-" + ("int8" if codes == torch.int8 else "fp8")
+        demo_pipe, _ = demo.build_pipeline(demo.parse_args(
+            ["--task", "reconstruction", "--random-init", init, "--device", str(dev)]))
+        want = pipe.dit.state_dict()
+        got = demo_pipe.dit.state_dict()
+        check(demo_pipe.act_quant == pipe.act_quant and set(got) == set(want) and all(
+            got[k].dtype == want[k].dtype and torch.equal(got[k].view(torch.uint8),
+                                                          want[k].view(torch.uint8))
+            for k in want), f"--random-init {init} does not build this DiT")
+        log(f"--random-init {init}: the demo builds the same DiT on the card, "
+            f"act_quant {demo_pipe.act_quant}")
+        del demo_pipe, want, got
+        if codes == torch.int8:
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                save_checkpoint(tmp, pipe.dit.state_dict(), pipe.vae.state_dict(),
+                                pipe.empty_prompt_embeds[0].float().cpu().numpy())
+                save_s = time.perf_counter() - t0
+                del pipe
+                gc.collect()
+                torch.cuda.empty_cache()
+                t0 = time.perf_counter()
+                args = demo.parse_args(["--task", "reconstruction", "--checkpoint", tmp,
+                                        "--config", "aetherv1", "--device", str(dev)])
+                pipe, _ = demo.build_pipeline(args)
+                torch.cuda.synchronize()
+                log(f"checkpoint round trip: saved in {save_s:.3f} s "
+                    f"({sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)) / 2**30:.3f}"
+                    f" GiB), built through the demo's build_pipeline (--checkpoint) in "
+                    f"{time.perf_counter() - t0:.3f} s, act_quant {pipe.act_quant}")
+                res, wall, peak = quantized_request(pipe, video, dev,
+                                                    "int8 request from the checkpoint")
+            same_outputs(outs[0], res, "the checkpoint's request and int8 request 0")
+            times["int8 from the checkpoint"] = (wall, peak, dit_bytes / 2**30)
+        del pipe, outs, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return times
+
 
 def variants_phase(dev, gen):
     """K7, K8 and K9 against their plain versions at (1, 48, 15076, 64)
@@ -1362,6 +1621,15 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 15. the w8a8 products at the main path's shapes ----
+    w8a8 = w8a8_phase(dev, gen)
+
+    # ---- 16. quality of the weight formats at full width ----
+    quality = quality_phase(cfg, dev)
+
+    # ---- 17-18. int8 w8a8 and fp8 requests, the checkpoint round trip ----
+    quantized = quantized_requests_phase(cfg, video, dev)
+
     # ---- 7. K4 at the training shape ----
     k4 = {dtype: k4_phase(dev, gen, dtype) for dtype in (torch.float32, torch.bfloat16)}
 
@@ -1429,6 +1697,13 @@ def main() -> None:
         f"{k3_bf16_bound}, K4 f32 {k4_bound}, "
         f"K4 bf16 {k4_bf16_bound}, K5 {(k5_bound, k5_by)}, K6 {k6_bound}, K1 float "
         f"{k1f_bound}, K2 float {k2f_bound}, K7-K9 {var_bound}")
+    log("weight formats: products (ms: int8 product, w8a8 linear, fp8 linear, bf16 "
+        "F.linear) " + "; ".join(f"{n} {p:.4f} / {a:.4f} / {f:.4f} / {b:.4f}"
+                                 for n, (p, a, f, b, _) in w8a8.items())
+        + "; quality (mean-abs rel, norm rel, cosine) " + "; ".join(
+            f"{n} {m:.6f} / {r:.6f} / {c:.6f}" for n, (m, r, c) in quality.items())
+        + "; requests (s, peak GiB, DiT GiB) " + "; ".join(
+            f"{n} {w:.3f} / {p:.2f} / {g:.3f}" for n, (w, p, g) in quantized.items()))
     log("scaled_dot_product_attention (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in lib.items())
         + f"; K4 bf16 kernel {k4b_ms:.4f} ms (alone {k4b_alone_ms:.4f}), K7 "

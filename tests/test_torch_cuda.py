@@ -821,3 +821,113 @@ def test_flash_variants_kernel_refuses_what_it_does_not_take(dev):
         fv.flash_mh(q, k, v, hper=2)
     with pytest.raises(ValueError, match="mask_last_only"):
         fv.flash_v2(q, k, v, block_q=256, block_k=128)
+
+
+# ---- the weight formats: int8_mm (torch._int_mm) and QuantLinear ----
+
+@pytest.mark.parametrize("m,k,n", [(17, 64, 8), (300, 3072, 192), (33, 256, 64)])
+def test_int8_mm_matches_plain(dev, m, k, n):
+    from aether_tpu_torch.models.dit import int8_mm, int8_mm_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    before = int8_mm.launches
+    got = int8_mm(a, w.t())
+    assert int8_mm.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, int8_mm_plain(a, w.t()))
+    assert torch.equal(got.cpu(), int8_mm_plain(a.cpu(), w.t().cpu()))
+
+
+def test_int8_mm_refuses_what_int_mm_does_not_take(dev):
+    from aether_tpu_torch.models.dit import int8_mm
+
+    ok = torch.zeros((32, 64), dtype=torch.int8, device=dev)
+    w = torch.zeros((64, 16), dtype=torch.int8, device=dev)
+    before = int8_mm.launches
+    with pytest.raises(ValueError, match="m > 16"):
+        int8_mm(ok[:16], w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_mm(ok[:, :60], w[:60])
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_mm(ok, w[:, :12])
+    with pytest.raises(TypeError, match="int8"):
+        int8_mm(ok.float(), w)
+    assert int8_mm.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_linear_on_cuda_matches_cpu(dev, dtype):
+    """w8a8: the same codes, int32 sums and f32 epilogue on both devices, so
+    the same bits; weight-only fp8 and int8: the product in another order
+    (f32 accumulation), within 1e-5 of the output's scale (f32) or one bf16
+    rounding (bf16)."""
+    from aether_tpu_torch.models.dit import QuantLinear
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 40, 256), generator=gen).to(dtype)
+    w = torch.randn((96, 256), generator=gen) / 16.0
+    b = torch.randn(96, generator=gen) * 0.1
+    for codes, fmax in ((torch.int8, 127.0), (torch.float8_e4m3fn, 448.0)):
+        s = w.abs().amax(dim=1) / fmax
+        scaled = w / s[:, None]
+        q = (torch.round(scaled) if codes == torch.int8 else scaled).to(codes)
+        cpu = QuantLinear(q, s, b)
+        gpu = QuantLinear(q.to(dev), s.to(dev), b.to(dev))
+        for a8 in (False, True):
+            with torch.no_grad():
+                want, got = cpu(x, a8), gpu(x.to(dev), a8).cpu()
+            assert got.dtype == dtype and got.shape == want.shape
+            if a8 and codes == torch.int8:
+                assert torch.equal(got, want)
+            else:
+                tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+                torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                           atol=tol * want.float().abs().max().item())
+
+
+def test_quantized_dit_on_cuda_runs_w8a8(dev):
+    """An int8 DiT at head_dim 64 (two heads, two blocks) on the card with
+    act_quant: four int8 products a block (qkv, o, w1, w2), K1 and K2 once a
+    block, finite output near the weight-only one."""
+    import dataclasses
+
+    from aether_tpu_torch.config import DiTConfig
+    from aether_tpu_torch.models.dit import init_quantized_dit, int8_mm
+
+    cfg = dataclasses.replace(DiTConfig.tiny(), num_heads=2, head_dim=64)
+    model = init_quantized_dit(cfg, torch.int8, device=dev, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    hidden = torch.randn((1, 3, cfg.in_channels, 8, 12), generator=gen, device=dev).to(
+        torch.bfloat16)
+    text = torch.randn((1, cfg.max_text_seq_length, cfg.text_embed_dim), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    t = torch.tensor([500], device=dev)
+    before, k1 = int8_mm.launches, qkv_prologue.launches
+    with torch.no_grad():
+        a8 = model(hidden, text, t, act_quant=True).float()
+        ref = model(hidden, text, t).float()
+    assert int8_mm.launches == before + 4 * cfg.num_layers
+    assert qkv_prologue.launches == k1 + 2 * cfg.num_layers
+    assert torch.isfinite(a8).all()
+    assert ((a8 - ref).norm() / ref.norm()).item() < 0.05
+
+
+@pytest.mark.parametrize("codes", [torch.int8, torch.float8_e4m3fn])
+def test_quantize_dit_on_cuda_matches_cpu(dev, codes):
+    """Codes and scales bit-identical on both devices (every division a
+    correctly rounded one), so a DiT quantized on the card equals one
+    converted on the CPU."""
+    from aether_tpu_torch.config import DiTConfig
+    from aether_tpu_torch.models.dit import init_dit, quantize_dit
+
+    cfg = DiTConfig.tiny()
+    cpu = quantize_dit(init_dit(cfg, dtype=torch.bfloat16, seed=3), codes)
+    gpu = quantize_dit(init_dit(cfg, dtype=torch.bfloat16, seed=3).to(dev), codes)
+    want, got = cpu.state_dict(), gpu.state_dict()
+    for name, w in want.items():
+        g = got[name].cpu()
+        assert g.dtype == w.dtype, name
+        assert torch.equal(g.view(torch.uint8), w.view(torch.uint8)), name

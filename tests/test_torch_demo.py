@@ -5,6 +5,7 @@ sliding windows (serially and batched) and writes poses, a PLY cloud and GLB
 scenes, which parse back; prediction runs with its post-reconstruction
 refinement. Without ``--device cpu`` the CLI raises where there is no CUDA,
 and every flag whose feature is not ported raises ``NotImplementedError``.
+The quantized random inits and ``--checkpoint`` are in test_torch_io.py.
 """
 
 import numpy as np
@@ -88,11 +89,8 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--random-init", "aetherv1-fp8"], "item 9"),
-    (["--random-init", "aetherv1-int8"], "item 9"),
-    (["--checkpoint", "ckpt"], "item 15"),
-    (["--dp", "2"], "item 17"),
-    (["--tp", "2"], "item 17"),
+    (["--dp", "2"], "Queue 1: Parallel"),
+    (["--tp", "2"], "Queue 1: Parallel"),
     (["--wire_rgb", "u8"], "wire"),
     (["--wire_rgb", "yuv420"], "wire"),
     (["--wire_input", "yuv420"], "wire"),

@@ -28,7 +28,8 @@ for name in ("aether_tpu_torch.train.step", "aether_tpu_torch.train.trainer",
              "aether_tpu_torch.ops.flash_variants", "aether_tpu_torch.bench._harness",
              "aether_tpu_torch.bench.flash_variants",
              "aether_tpu_torch.bench.flash_multihead",
-             "aether_tpu_torch.bench.flash_bisect"):
+             "aether_tpu_torch.bench.flash_bisect", "aether_tpu_torch.io.safetensors",
+             "aether_tpu_torch.io.weights", "aether_tpu_torch.io.convert"):
     assert name in names, name
 from aether_tpu_torch.ops.groupnorm import groupnorm_moments
 assert groupnorm_moments.launches == 0
@@ -38,6 +39,8 @@ assert flash_attention.launches == 0
 assert flash_attention_fixed_max.launches == flash_attention_pv8.launches == 0
 from aether_tpu_torch.ops.flash_variants import flash_mh, flash_v2, flash_x
 assert flash_v2.launches == flash_mh.launches == flash_x.launches == 0
+from aether_tpu_torch.models.dit import int8_mm
+assert int8_mm.launches == 0
 from aether_tpu_torch.ops import _build
 assert _build._LIB is None, "a kernel library was loaded at import time"
 assert not any(m.startswith("aether_tpu.") or m == "aether_tpu"

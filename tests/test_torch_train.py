@@ -230,8 +230,7 @@ def test_latent_batches_equal_jax(tmp_path):
 def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
     main(["--synthetic", "--tiny", "--device", "cpu", "--steps", "2"])
     assert "step 2: loss=" in capsys.readouterr().out
-    for extra in (["--dp", "2"], ["--tp", "2"], ["--pp", "2"], ["--fsdp"],
-                  ["--init_checkpoint", "x"]):
+    for extra in (["--dp", "2"], ["--tp", "2"], ["--pp", "2"], ["--fsdp"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(["--synthetic", "--tiny", "--device", "cpu", *extra])
     if not torch.cuda.is_available():
