@@ -119,20 +119,35 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a flag whose feature is not ported."""
+    """Raise ``NotImplementedError`` for a flag whose feature is not ported
+    (a flag the command line lacks counts as not given)."""
     for flag in ("dp", "tp"):
-        if getattr(args, flag):
+        if getattr(args, flag, None):
             raise NotImplementedError(
                 f"--{flag} needs the parallel layer, which is not ported yet "
                 "(ROADMAP.md, Queue 1: Parallel)")
     for flag, exact in (("wire_rgb", None), ("wire_input", "u8"),
                         ("wire_disparity", None)):
-        value = getattr(args, flag)
+        value = getattr(args, flag, exact)
         if value != exact:
             raise NotImplementedError(
                 f"--{flag} {value} is a compact wire format; the port moves exact "
                 "outputs and has none (ROADMAP.md, queue 1: ported only when a "
                 "measured host-transfer cost calls for them)")
+
+
+def resolve_device(name: str) -> torch.device:
+    """``torch.device(name)``; raises for CUDA where there is none (the entry
+    points never carry on on the CPU unless asked). A CUDA device without an
+    index gets the current one's, so that a thread other than this one (the
+    server's worker) can make it current."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs a CUDA device; pass --device cpu "
+                           "to run on the CPU")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def build_pipeline(args: argparse.Namespace):
@@ -147,10 +162,7 @@ def build_pipeline(args: argparse.Namespace):
     from aether_tpu_torch.pipeline import AetherPipeline
 
     check_ported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda needs a CUDA device; pass --device cpu "
-                           "to run on the CPU")
+    device = resolve_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     if args.random_init is not None:
         topology, _, fmt = args.random_init.partition("-")

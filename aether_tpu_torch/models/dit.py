@@ -44,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from aether_tpu_torch.config import DiTConfig
+from aether_tpu_torch.ops import _build
 from aether_tpu_torch.ops.attn_prologue import _pick_pad_and_block, fused_joint_attention
 from aether_tpu_torch.ops.chunked_attention import (
     chunked_attention,
@@ -140,7 +141,7 @@ def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"torch._int_mm needs m > 16 and k, n multiples of 8; got "
                          f"m={m}, k={k}, n={n}")
     out = torch._int_mm(a, b)
-    int8_mm.launches += 1
+    _build.count_launch(int8_mm)
     return out
 
 

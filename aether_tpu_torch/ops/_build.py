@@ -27,6 +27,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 from typing import Optional
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -195,6 +196,18 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of its kernel's launches.
+    The counts are process-wide (one launching thread, such as a server's
+    worker, and another reading them see the same numbers); the lock keeps
+    launches from several threads from losing an increment."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def stream_ptr(device) -> int:

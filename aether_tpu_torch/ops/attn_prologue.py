@@ -329,7 +329,7 @@ def qkv_prologue(
         qn.data_ptr(), ksc.data_ptr(), kn.data_ptr(),
         plan.cluster, plan.smem_bytes, _build.stream_ptr(dev))
     _build.check(rc, "aether_qkv_prologue")
-    qkv_prologue.launches += 1
+    _build.count_launch(qkv_prologue)
     return qo, ko, v, qsc, qn, ksc, kn, s_pad
 
 

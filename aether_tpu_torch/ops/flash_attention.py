@@ -226,7 +226,7 @@ def flash_attention_prepacked(
         bh, s_pad, s_valid, hper, block, s_pad // block, int(q.dtype == torch.int8),
         _NOSHIFT_CODES[noshift], _build.stream_ptr(q.device))
     _build.check(rc, "aether_flash_prepacked")
-    flash_attention_prepacked.launches += 1
+    _build.count_launch(flash_attention_prepacked)
     return out
 
 
@@ -608,7 +608,7 @@ def flash_attention_fixed_max(
     l_out = (torch.empty((b * h, sq, 1), dtype=torch.float32, device=q.device)
              if unnormalized else None)
     _fixed_max_launch(ops, out, l_out)
-    flash_attention_fixed_max.launches += 1
+    _build.count_launch(flash_attention_fixed_max)
     if unnormalized:
         return _finish_heads(out, b, h, sq), _finish_heads(l_out, b, h, sq)
     return _finish_heads(out, b, h, sq)
@@ -758,7 +758,7 @@ def flash_attention_pv8(
     qp, kp, vt, ops, span = _pv8_operands(q, k, v, block_k=block_k, **opts)
     out = torch.empty((b * h, qp.shape[1], dim), dtype=q.dtype, device=q.device)
     _pv8_launch(qp, kp, vt, ops, span, out)
-    flash_attention_pv8.launches += 1
+    _build.count_launch(flash_attention_pv8)
     return _finish_heads(out, b, h, sq)
 
 
@@ -860,7 +860,7 @@ def flash_attention(
         out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
         _online_bf16_launch(qh, kh, vh, out, kv_len, denom == "mxu",
                             _online_fold(sm_scale, dim))
-        flash_attention.launches += 1
+        _build.count_launch(flash_attention)
         return out.reshape(b, h, sq, dim)
     q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
     sq_pad = -(-sq // _K4_TILE) * _K4_TILE
@@ -873,7 +873,7 @@ def flash_attention(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
         bh, sq_pad, skv_pad, kv_len, _build.stream_ptr(q.device))
     _build.check(rc, "aether_flash_online")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return _finish_heads(out, b, h, sq)
 
 

@@ -262,7 +262,7 @@ def flash_v2(q, k, v, sm_scale: Optional[float] = None, block_q: int = 1024,
     if not q.is_cuda:
         return flash_v2_plain(q, k, v, sm_scale, block_q, block_k, mask_last_only, kt)
     out = _launch(q, k, v, _v2_args(q, sm_scale, block_q, block_k, mask_last_only, kt))
-    flash_v2.launches += 1
+    _build.count_launch(flash_v2)
     return out
 
 
@@ -319,7 +319,7 @@ def flash_mh(q, k, v, block_q: int = 1024, block_k: int = 1024,
     if not q.is_cuda:
         return flash_mh_plain(q, k, v, block_q, block_k, hper)
     out = _launch(q, k, v, _mh_args(q, block_q, block_k, hper))
-    flash_mh.launches += 1
+    _build.count_launch(flash_mh)
     return out
 
 
@@ -381,7 +381,7 @@ def flash_x(q, k, v, block_q: int = 1024, block_k: int = 1024,
     if not q.is_cuda:
         return flash_x_plain(q, k, v, block_q, block_k, mode)
     out = _launch(q, k, v, _x_args(q, block_q, block_k, mode))
-    flash_x.launches += 1
+    _build.count_launch(flash_x)
     return out
 
 

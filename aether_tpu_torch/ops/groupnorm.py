@@ -122,7 +122,7 @@ def groupnorm_moments(x: torch.Tensor,
         m2.data_ptr(), b, c, n, int(channels_last), splits, chunk, vec, g_tile,
         _DTYPES[x.dtype], _build.stream_ptr(dev))
     _build.check(rc, "aether_groupnorm_moments")
-    groupnorm_moments.launches += 1
+    _build.count_launch(groupnorm_moments)
     return m1, m2
 
 

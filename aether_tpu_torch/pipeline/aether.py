@@ -30,6 +30,10 @@ A quantized DiT (``models.dit.quantize_dit`` / ``init_quantized_dit``) runs
 as it is; ``act_quant=True`` gives its int8 codes int8 activations (w8a8), as
 the JAX pipeline's ``act_quant`` does.
 
+Each stage runs inside a ``utils.profiling.stage_timer`` under the JAX
+pipeline's stage name (``vae_encode``, ``denoise``, ``vae_decode``), so a
+front-end's stage listeners see it; ``stage_seconds`` keeps the short keys.
+
 Not in this slice (ROADMAP.md): meshes, the CFG prefix skip, compact wires and
 ``defer_host``.
 """
@@ -56,6 +60,11 @@ from aether_tpu_torch.schedule.dpm import (
     set_timesteps,
 )
 from aether_tpu_torch.utils.preprocess import preprocess_image_u8, preprocess_video_u8
+from aether_tpu_torch.utils.profiling import (
+    has_stage_listeners,
+    notify_stage_progress,
+    stage_timer,
+)
 
 
 @dataclasses.dataclass
@@ -103,12 +112,19 @@ class TorchNoise:
         return self._normal(shape)
 
 
+# the stage names the stage listeners see: the JAX pipeline's (its
+# ``stage_timer`` calls), where ``stage_seconds`` keeps the port's short keys
+_LISTENER_NAMES = {"encode": "vae_encode", "denoise": "denoise", "decode": "vae_decode"}
+
+
 @contextlib.contextmanager
 def _stage(name: str, times: Dict[str, float], device: torch.device):
     """Time one pipeline stage on the host clock, ended by a device
     synchronize, inside a profiler range ``aether.<name>`` (free unless a
-    profiler is running)."""
-    with torch.profiler.record_function(f"aether.{name}"):
+    profiler is running) and a ``stage_timer`` under the JAX stage name,
+    which tells the stage listeners where it begins and ends."""
+    with torch.profiler.record_function(f"aether.{name}"), \
+            stage_timer(_LISTENER_NAMES[name], log=False):
         t0 = time.perf_counter()
         yield
         if device.type == "cuda":
@@ -378,7 +394,9 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
     ``broadcast_noise`` draws the initial and SDE noise for one batch element
     and broadcasts it, so every window of a batch gets the noise stream of a
     serial call with the same seed. ``act_quant`` reaches the DiT (w8a8
-    where its codes are int8). Returns (B, F_lat, 56, h, w)."""
+    where its codes are int8). With a stage listener registered, each step
+    ends with ``notify_stage_progress("denoise", (i + 1) / n)`` after a
+    device synchronize; without one, nothing. Returns (B, F_lat, 56, h, w)."""
     b, f_lat, _, h_lat, w_lat = condition_latents.shape
     shape = (b, f_lat, 56, h_lat, w_lat)
     lat = (_draw(noise_source.initial, shape, broadcast_noise)
@@ -408,7 +426,19 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
         new_lat, old_x0 = dpm_step(plan, i, lat.float(), noise_pred, old_x0,
                                    sde_noise)
         lat = new_lat.to(dtype)
+        _step_progress(lat, i + 1, plan.num_steps)
     return lat
+
+
+def _step_progress(lat: torch.Tensor, done: int, total: int) -> None:
+    """Live step progress for a front-end (JAX ``_denoise``, :1153-1166, one
+    event a segment): only when a stage listener is registered, since the
+    event waits for the step on the device; otherwise nothing."""
+    if not has_stage_listeners():
+        return
+    if lat.is_cuda:
+        torch.cuda.synchronize(lat.device)
+    notify_stage_progress("denoise", done / total)
 
 
 class AetherPipeline:

@@ -12,7 +12,8 @@ in the JAX package.
 The port has no ``defer_host``: a window's outputs are on the host when its
 call returns, so the windows run one after another (or in chunks through
 ``batch_reconstruct``), each inside a ``torch.profiler`` range
-``aether.window@<start>`` (``aether.windows@<start>x<n>`` for a chunk).
+``aether.window@<start>`` (``aether.windows@<start>x<n>`` for a chunk) and
+the JAX driver's ``dispatch@`` / ``resolve@`` stage timers.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from aether_tpu_torch.geometry.raymap import postprocess_pointmap, raymap_to_pos
 from aether_tpu_torch.geometry.rays import get_intrinsics, project
 from aether_tpu_torch.geometry.smoothing import interpolate_poses_batch
 from aether_tpu_torch.geometry.transforms import compute_scale
+from aether_tpu_torch.utils.profiling import stage_timer
 
 
 def stitch_overlap(prev: np.ndarray, curr: np.ndarray, overlap: int) -> np.ndarray:
@@ -94,33 +96,54 @@ def run_windowed_reconstruction(
     Every window uses the same seed, as the reference does.
     ``progress(done, total)`` is called before each window or chunk. Returns
     ``(window_results, window_indices, num_frames)`` with ``num_frames``
-    shrunk to the largest allowed window that fits the clip."""
+    shrunk to the largest allowed window that fits the clip.
+
+    The stages are timed as the JAX driver times them: ``dispatch@<start>``
+    (``dispatch@<start>x<n>`` for a chunk) around a call, and
+    ``resolve@<start>`` around taking its outputs, after the next dispatch.
+    Without ``defer_host`` a call returns its outputs on the host, so here
+    the dispatch holds the whole window and the resolve only collects it."""
     num_frames = fit_num_frames(len(video), num_frames, pipeline.config.allowed_num_frames)
     window_indices = get_window_starts(len(video), num_frames, stride)
     n = len(window_indices)
     results: list = []
+    pending = None  # (start, outputs) of the previous call, collected after the next
+
+    def resolve():
+        with stage_timer(f"resolve@{pending[0]}", log=False):
+            results.extend(pending[1])
+
     if batch_windows > 1 and raymap is None:
         for i in range(0, n, batch_windows):
             chunk = window_indices[i:i + batch_windows]
             if progress is not None:
                 progress(i, n)
             stacked = np.stack([video[s:s + num_frames] for s in chunk])
-            with torch.profiler.record_function(f"aether.windows@{chunk[0]}x{len(chunk)}"):
-                results.extend(pipeline.batch_reconstruct(
+            with torch.profiler.record_function(f"aether.windows@{chunk[0]}x{len(chunk)}"), \
+                    stage_timer(f"dispatch@{chunk[0]}x{len(chunk)}", log=False):
+                outs = pipeline.batch_reconstruct(
                     stacked, height=height, width=width, num_frames=num_frames,
-                    num_inference_steps=num_inference_steps or 4, fps=fps, seed=seed))
+                    num_inference_steps=num_inference_steps or 4, fps=fps, seed=seed)
+            if pending is not None:
+                resolve()
+            pending = (chunk[0], outs)
     else:
         for j, start in enumerate(window_indices):
             if progress is not None:
                 progress(j, n)
-            with torch.profiler.record_function(f"aether.window@{start}"):
-                results.append(pipeline(
+            with torch.profiler.record_function(f"aether.window@{start}"), \
+                    stage_timer(f"dispatch@{start}", log=False):
+                out = pipeline(
                     task="reconstruction", video=video[start:start + num_frames],
                     raymap=(raymap[start:start + num_frames]
                             if raymap is not None else None),
                     height=height, width=width, num_frames=num_frames, fps=fps,
                     num_inference_steps=num_inference_steps, guidance_scale=1.0,
-                    use_dynamic_cfg=False, seed=seed))
+                    use_dynamic_cfg=False, seed=seed)
+            if pending is not None:
+                resolve()
+            pending = (start, [out])
+    resolve()
     return results, window_indices, num_frames
 
 

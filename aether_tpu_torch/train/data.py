@@ -4,9 +4,10 @@ Port of ``aether_tpu/train/data.py`` on its synchronous ``np.load`` route.
 :func:`latent_batches` keeps the JAX loader's two numpy streams (the
 conditioning-mask draws and a separate stream for epoch permutations), so its
 batches equal the JAX loader's with ``native_prefetch=False``. Not ported yet
-(ROADMAP.md, queue 1: Train): the C++ prefetch thread pool
-(``native_prefetch=True`` raises) and ``precompute_latents``, which waits for
-the geometry port.
+(ROADMAP.md, Queue 1: ``precompute_latents`` and the native prefetcher): the
+C++ prefetch thread pool (``native_prefetch=True`` raises, so the trainer's
+command line needs ``--no_native_prefetch``) and ``precompute_latents``, whose
+geometry and raymap packing the port has had since the long-video slice.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ def latent_batches(
     if native_prefetch:
         raise NotImplementedError(
             "native_prefetch needs the C++ prefetch thread pool (aether_tpu/"
-            "runtime), not ported yet (ROADMAP.md, queue 1: Train); pass "
+            "runtime), not ported yet (ROADMAP.md, Queue 1: the native "
+            "prefetcher); pass "
             "native_prefetch=False (CLI: --no_native_prefetch)")
     files = sorted(glob.glob(os.path.join(latent_dir, "*.npz")))
     if not files:

@@ -125,6 +125,42 @@ Phases of the weight-format slice, after 6c:
  18. the int8 pipeline through ``save_checkpoint`` into a temporary
      directory and back through the demo's ``build_pipeline`` (``--checkpoint``): one
      request, bit-identical to the first int8 request.
+Phases of the server and benchmark slice, after 6c, on the phase-5 pipeline:
+ 19. the web server (``aether_tpu_torch.apps.serve``): ``JobRunner`` and a
+     ``ThreadingHTTPServer`` on 127.0.0.1 through ``make_handler``; a seeded
+     65x480x720 reconstruction job (41-frame windows at stride 24: two) and a
+     10-step prediction job (seeded image, ``action_raymap("forward_right")``,
+     guidance at its default, the 4-step post-reconstruction), submitted
+     with the params ``_fields_to_params`` returns and polled over HTTP until
+     ``done``. The card's machine has no PIL or imageio, so the upload
+     decoders hand ``_fields_to_params`` the seeded arrays, and
+     ``viz.save_video`` writes the frames it receives as .npy (both said on a
+     log line); all else runs as served. The runner gets the pipeline on a
+     bare ``cuda``, the device ``--device cuda`` names. Gates: the server's
+     default ``--device`` resolves to cuda:0, as does the runner's device;
+     the stages in the JAX order
+     (``vae_encode``, ``denoise``, ``vae_decode``; ``dispatch@`` /
+     ``resolve@`` for the windows) and a ``denoise N%`` stage seen while the
+     prediction runs; every stage begun on the worker thread with the
+     pipeline's device current; ``GET /``, ``/api/raymaps`` (the
+     ``NAMED_ACTIONS``) and ``/api/stats`` (two jobs done, the stages
+     counted); every artifact downloaded over HTTP, the PLY and GLB parsed
+     back with points; exact K1/K2/K5 launches a job; the served prediction's
+     rgb bit-identical to a direct ``pipe(task="prediction")`` call's,
+     clipped as ``save_output`` clips it; each job's wall and stage seconds;
+ 20. the benchmark drivers: ``video_depth.process_with_sliding_window`` at
+     its defaults (41-frame windows at stride 8, 480x720 tiles, overlap
+     60/90) over a seeded 49x480x960 clip (two windows x two tiles: four
+     calls), serially and with ``batch_calls=2`` (two ``batch_reconstruct``
+     calls): exact calls and K1/K2/K5 launches, (49, 480, 960) finite, rgb in
+     [0, 1], batched against serial at the long-video phase's gates;
+     ``depth_evaluation(align="scale")`` against 2.5x the prediction: Abs
+     Rel <= 1e-6; LAD2's Adam loop on the card against the CPU within 1e-3
+     relative; ``rel_pose.process_video_with_sliding_window`` over a seeded
+     73x480x720 clip (stride 32: two windows): exact calls and launches,
+     (73, 4, 4) poses with rotations orthonormal within 1e-4, finite positive
+     focals, ATE <= 1e-6 against a Sim(3) copy of the trajectory; the seconds
+     of each sequence and of each pipeline call.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -708,6 +744,360 @@ def long_video_phase(pipe, dev):
         f"export: {export_s:.3f} s, PLY {n_ply} points, {len(n_glb)} GLB scenes "
         f"({min(n_glb)}-{max(n_glb)} points), poses file {saved.shape}")
     return k5_launches
+
+
+def http_get(url, timeout=120):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def wait_job(base, job_id, limit_s=600):
+    """Poll ``GET /api/status/ID`` until the job is done or failed; returns
+    (status, wall seconds from the first poll, every stage label seen)."""
+    t0, seen = time.perf_counter(), set()
+    while time.perf_counter() - t0 < limit_s:
+        status = json.loads(http_get(f"{base}/api/status/{job_id}"))
+        stage = (status.get("progress") or {}).get("stage")
+        if stage:
+            seen.add(stage)
+        if status["status"] in ("done", "error"):
+            return status, time.perf_counter() - t0, seen
+        time.sleep(0.1)
+    raise AssertionError(f"job {job_id} did not finish in {limit_s} s")
+
+
+def serve_phase(pipe, dev):
+    """The web server (``apps/serve.py``) over the phase-5 pipeline: a
+    ``JobRunner`` and a ``ThreadingHTTPServer`` on 127.0.0.1 through
+    ``make_handler``, as ``main`` builds them; a 65-frame reconstruction job
+    (two windows) and a 10-step prediction job with the post-reconstruction,
+    polled over HTTP. The card's machine has no PIL or imageio: the uploads'
+    decoding (``_decode_video`` / ``_decode_image``) hands
+    ``_fields_to_params`` seeded arrays, and ``viz.save_video`` writes the
+    frames it receives as .npy; everything else runs as served. Returns the
+    K1/K2/K5 launches of the two jobs."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import aether_tpu_torch.viz as viz
+    from aether_tpu_torch.apps import serve
+    from aether_tpu_torch.apps.actions import NAMED_ACTIONS, action_raymap
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+    from aether_tpu_torch.utils.profiling import add_stage_listener, remove_stage_listener
+
+    kernels = (qkv_prologue, flash_attention_prepacked, groupnorm_moments)
+    n_layers = pipe.config.dit.num_layers
+    rng = np.random.default_rng(17)
+    uploads = {"clip.mp4": rng.integers(0, 256, (LONG_FRAMES, HEIGHT, WIDTH, 3),
+                                        dtype=np.uint8).astype(np.float32) / 255.0,
+               "image.png": rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)}
+    received = {}
+
+    def frames_to_npy(path, frames, fps=12):
+        path = os.path.splitext(str(path))[0] + ".npy"
+        frames = np.asarray(frames)
+        np.save(path, frames)
+        received[os.path.basename(path)] = frames
+        return path
+
+    # where the worker thread launches: (thread, current CUDA device) at
+    # every stage's beginning
+    where = []
+
+    def on_stage(name, event, value):
+        if event == "begin":
+            where.append((threading.get_ident(), torch.cuda.current_device()))
+
+    originals = (serve._decode_video, serve._decode_image, viz.save_video)
+    log("serve: the card's machine has no PIL or imageio: uploads are not decoded "
+        "(_fields_to_params gets seeded arrays in their place) and viz.save_video "
+        "writes the frames it receives as .npy for this phase")
+    serve._decode_video = lambda field: uploads[field["filename"]]
+    serve._decode_image = lambda field: uploads[field["filename"]]
+    viz.save_video = frames_to_npy
+    # the device as serve.main resolves it from its default --device cuda;
+    # the runner gets the pipeline with the bare torch.device("cuda") (no
+    # index), the case in which the worker must find the device itself
+    from aether_tpu_torch.apps.demo import resolve_device
+
+    default = serve.parse_args(["--random-init", "aetherv1"]).device
+    check(default == "cuda" and resolve_device(default) == dev,
+          f"serve's default --device {default!r} resolves to "
+          f"{resolve_device(default)}, not {dev}")
+    pipe.device = torch.device(default)
+    add_stage_listener(on_stage)
+    tmp = tempfile.TemporaryDirectory()
+    runner = serve.JobRunner(pipe, os.path.join(tmp.name, "served"))
+    check(runner.device == dev, f"the runner's device {runner.device}, not {dev}")
+    log(f"serve: --device {default!r} resolves to {resolve_device(default)}; the "
+        f"runner is given the pipeline on {pipe.device!r} and launches on {runner.device}")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(runner, None))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    form = {"num_frames": str(FRAMES), "fps": "12", "height": str(HEIGHT),
+            "width": str(WIDTH), "seed": "42"}
+    jobs = {
+        "reconstruction": dict(form, task="reconstruction", stride=str(STRIDE),
+                               video={"filename": "clip.mp4", "data": b""}),
+        "prediction": dict(form, task="prediction", raymap="forward_right",
+                           steps=str(PLANNING_STEPS),
+                           image={"filename": "image.png", "data": b""}),
+    }
+    k5_window = expected_k5(pipe, FRAMES)
+    expected = {
+        # two windows of 4 steps; each window encodes and decodes once
+        "reconstruction": [2 * n_layers * STEPS] * 2 + [2 * k5_window],
+        # the CFG pair at batch 2 (one launch a block and step), then the
+        # 4-step post-reconstruction of the generated clip
+        "prediction": [n_layers * (PLANNING_STEPS + STEPS)] * 2
+        + [expected_k5(pipe, FRAMES, images=1) + k5_window],
+    }
+    window = ["vae_encode", "denoise", "vae_decode"]
+    stage_order = {
+        "reconstruction": window + [f"dispatch@0"] + window
+        + [f"dispatch@{STRIDE}", "resolve@0", f"resolve@{STRIDE}"],
+        "prediction": window * 2,
+    }
+    launches = [0, 0, 0]
+    try:
+        html = http_get(base + "/").decode()
+        check("showGLB" in html and "api/submit" in html, "GET / does not serve the UI")
+        check(json.loads(http_get(base + "/api/raymaps")) == sorted(NAMED_ACTIONS),
+              "GET /api/raymaps does not list NAMED_ACTIONS")
+        for name, fields in jobs.items():
+            params = serve._fields_to_params(fields, None)
+            for fn in kernels:
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            status, wall, seen = wait_job(base, runner.submit(params))
+            counts = [fn.launches for fn in kernels]
+            check(status["status"] == "done", f"{name} job: {status.get('error')}")
+            done = status["progress"]["stages_done"]
+            log(f"served {name} job: {wall:.3f} s from submit to done over HTTP; stages "
+                + ", ".join(f"{d['stage']} {d['seconds']:.3f} s" for d in done)
+                + f"; K1/K2/K5 launches {'/'.join(map(str, counts))}; peak memory "
+                f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; stage labels "
+                f"seen while polling: {sorted(seen)}")
+            check([d["stage"] for d in done] == stage_order[name],
+                  f"{name} job stages {[d['stage'] for d in done]}")
+            check(counts == expected[name],
+                  f"{name} job: expected K1/K2/K5 launches {expected[name]}")
+            launches = [a + b for a, b in zip(launches, counts)]
+            if name == "prediction":
+                check(any(s.startswith("denoise ") and s.endswith("%") for s in seen),
+                      "no 'denoise N%' progress stage was seen while the prediction ran")
+            with tempfile.TemporaryDirectory() as got:
+                sizes, ply, glb = {}, [], []
+                for url in status["artifacts"]:
+                    data = http_get(base + url)
+                    path = os.path.join(got, os.path.basename(url))
+                    with open(path, "wb") as f:
+                        f.write(data)
+                    sizes[os.path.basename(url)] = len(data)
+                    if url.endswith(".ply"):
+                        ply.append(parse_ply_count(path))
+                    elif url.endswith(".glb"):
+                        glb.append(parse_glb_points(path))
+                    elif url.endswith("_poses.txt"):
+                        poses = np.loadtxt(path)
+                        frames = LONG_FRAMES if name == "reconstruction" else FRAMES
+                        check(poses.shape == (frames, 16) and np.isfinite(poses).all(),
+                              f"{name} poses file {poses.shape}")
+                check(len(ply) == 1 and ply[0] > 0, f"{name} PLY points {ply}")
+                check(glb and min(glb) > 0, f"{name} GLB points {glb}")
+                check(all(n > 0 for n in sizes.values()), f"{name} empty artifact")
+                log(f"served {name} job: {len(sizes)} artifacts downloaded over HTTP "
+                    f"({sum(sizes.values()) / 2**20:.1f} MiB), PLY {ply[0]} points, "
+                    f"{len(glb)} GLB scenes ({min(glb)}-{max(glb)} points)")
+        stats = json.loads(http_get(base + "/api/stats"))
+        check(stats["jobs"] == {"done": 2} and stats["queue_depth"] == 0,
+              f"GET /api/stats jobs {stats['jobs']}")
+        check(all(stats["stages"][s]["count"] >= 4 for s in window),
+              f"GET /api/stats stages {sorted(stats['stages'])}")
+        log("GET /api/stats: " + ", ".join(
+            f"{s} x{stats['stages'][s]['count']} mean {stats['stages'][s]['mean_s']:.3f} s"
+            for s in window))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        runner.close(timeout=60)  # the worker lets go of the pipeline
+        pipe.device = dev
+        remove_stage_listener(on_stage)
+        serve._decode_video, serve._decode_image, viz.save_video = originals
+    check(not runner._thread.is_alive(), "the server's worker did not stop")
+    check(where and {w[0] for w in where} == {runner._thread.ident}
+          and {w[1] for w in where} == {dev.index or 0},
+          f"the pipeline did not run on the worker thread on cuda:{dev.index or 0}: "
+          f"{set(where)}")
+    log(f"serve: {len(where)} stages ran on the worker thread, current device "
+        f"cuda:{where[0][1]}")
+
+    # the server adds nothing: the served prediction's rgb, as the writer
+    # received it, is a direct call's with the same arguments, clipped as
+    # save_output clips it
+    direct = pipe(task="prediction", image=uploads["image.png"],
+                  raymap=action_raymap("forward_right", num_frames=FRAMES, height=HEIGHT,
+                                       width=WIDTH),
+                  height=HEIGHT, width=WIDTH, num_frames=FRAMES, fps=12,
+                  num_inference_steps=PLANNING_STEPS, guidance_scale=None,
+                  use_dynamic_cfg=True, seed=42)
+    served = received["prediction_upload_rgb.npy"]
+    check(np.array_equal(served, np.clip(direct.rgb, 0, 1)),
+          "the served prediction's rgb differs from a direct call's")
+    log("serve: the served prediction's rgb is bit-identical to a direct pipe(task="
+        "'prediction') call's")
+    tmp.cleanup()
+    return launches
+
+
+class TimedPipeline:
+    """Counts and times (host clock, ended by a synchronize) the pipeline
+    calls of an evaluation driver."""
+
+    def __init__(self, pipe):
+        self.pipe, self.config, self.device, self.seconds = pipe, pipe.config, pipe.device, []
+
+    def _timed(self, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+    def __call__(self, **kw):
+        return self._timed(self.pipe, **kw)
+
+    def batch_reconstruct(self, *args, **kw):
+        return self._timed(self.pipe.batch_reconstruct, *args, **kw)
+
+
+def eval_phase(pipe, dev):
+    """The two benchmark drivers over the phase-5 pipeline on seeded clips:
+    ``video_depth.process_with_sliding_window`` at its defaults over
+    49x480x960 (two temporal windows x two spatial tiles), serially and with
+    ``batch_calls=2``, scored by ``depth_evaluation``;
+    ``rel_pose.process_video_with_sliding_window`` over 73x480x720 (two
+    windows), scored by ``eval_metrics``; LAD2 on the card against the CPU.
+    Returns the K1/K2/K5 launches of the serial video-depth run."""
+    from aether_tpu_torch.eval import depth_metrics, pose_metrics
+    from aether_tpu_torch.eval.rel_pose import process_video_with_sliding_window
+    from aether_tpu_torch.eval.video_depth import process_with_sliding_window
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+
+    kernels = (qkv_prologue, flash_attention_prepacked, groupnorm_moments)
+    n_layers = pipe.config.dit.num_layers
+    k5_window = expected_k5(pipe, FRAMES)
+    rng = np.random.default_rng(19)
+    clip = rng.integers(0, 256, (49, HEIGHT, 960, 3), dtype=np.uint8) / 255.0
+
+    runs = {}
+    for batch_calls in (1, 2):
+        timed = TimedPipeline(pipe)
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rgb, disp = process_with_sliding_window(timed, clip, batch_calls=batch_calls)
+        wall = time.perf_counter() - t0
+        counts = [fn.launches for fn in kernels]
+        name = "serial" if batch_calls == 1 else "batch_calls=2"
+        log(f"video depth, {name}: 49x480x960 in {wall:.3f} s, {len(timed.seconds)} "
+            f"pipeline calls (" + ", ".join(f"{s:.3f}" for s in timed.seconds)
+            + f" s); K1/K2/K5 launches {'/'.join(map(str, counts))}")
+        # 2 temporal windows x 2 tiles; batched, the DiT runs the pairs at batch 2
+        calls = 4 if batch_calls == 1 else 2
+        dit = n_layers * STEPS * calls
+        check(len(timed.seconds) == calls and counts == [dit, dit, 4 * k5_window],
+              f"video depth {name}: {len(timed.seconds)} calls, expected K1/K2/K5 "
+              f"{dit}/{dit}/{4 * k5_window}")
+        check(rgb.shape == (49, HEIGHT, 960, 3) and disp.shape == (49, HEIGHT, 960),
+              f"video depth {name}: {rgb.shape} {disp.shape}")
+        check(bool(np.isfinite(rgb).all() and np.isfinite(disp).all()),
+              f"video depth {name} not finite")
+        check(rgb.min() >= 0.0 and rgb.max() <= 1.0, f"video depth {name}: rgb outside [0, 1]")
+        runs[batch_calls] = (rgb, disp, counts)
+    # batched against serial: the same draws and VAE calls, only the batch-2
+    # DiT's rounding differs; the long-video phase's gates
+    for field, a, b in (("rgb", runs[1][0], runs[2][0]), ("disparity", runs[1][1], runs[2][1])):
+        d = np.abs(a - b)
+        top = max(1.0, float(np.abs(a).max()))
+        log(f"video depth, batched vs serial {field}: max {d.max():.3e} mean {d.mean():.3e}")
+        check(d.mean() <= 1e-2 * top and d.max() <= 0.25 * top,
+              f"video depth {field}: batched and serial disagree")
+
+    # the benchmark's scoring: a GT that is a known scale of the prediction
+    # aligns back to it (Weiszfeld scale, run_sequences' depth clamp)
+    depth = np.clip(1.0 / np.clip(runs[1][1], 1e-8, None), 0, 1e2)
+    t0 = time.perf_counter()
+    metrics, *_ = depth_metrics.depth_evaluation(depth, 2.5 * depth, max_depth=None,
+                                                 align="scale")
+    log(f"video depth scored against 2.5x itself (align scale): Abs Rel "
+        f"{metrics['Abs Rel']:.3e} (bar 1e-6), delta<1.25 {metrics['δ < 1.25']:.6f}, "
+        f"{metrics['valid_pixels']} pixels, {time.perf_counter() - t0:.3f} s")
+    check(metrics["Abs Rel"] <= 1e-6 and metrics["valid_pixels"] == depth.size,
+          "video depth: the scale alignment does not recover a known scale")
+
+    # LAD2 (Adam) on the card against the CPU on one frame's pixels
+    pred = depth[0].reshape(-1)
+    gt = 1.7 * pred + 0.3 + np.random.default_rng(23).normal(0.0, 0.05, pred.size)
+    s_init = float(np.median(gt) / np.median(pred))
+    lad2 = []
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        lad2.append(depth_metrics._lad2_device(
+            torch.tensor(pred, dtype=torch.float32, device=where),
+            torch.tensor(gt, dtype=torch.float32, device=where), s_init))
+        log(f"LAD2 on {where}: s {lad2[-1][0]:.6f}, t {lad2[-1][1]:.6f} from s_init "
+            f"{s_init:.6f}, {time.perf_counter() - t0:.3f} s")
+    (s_gpu, t_gpu), (s_cpu, t_cpu) = lad2
+    check(abs(s_gpu - s_cpu) <= 1e-3 * abs(s_cpu) and abs(t_gpu - t_cpu) <= 1e-3 * max(
+        1.0, abs(t_cpu)), "LAD2 on the card disagrees with the CPU (bar 1e-3 relative)")
+
+    # relative pose: 73 frames in two windows (starts 0 and 32)
+    video = rng.integers(0, 256, (73, HEIGHT, WIDTH, 3), dtype=np.uint8) / 255.0
+    timed = TimedPipeline(pipe)
+    for fn in kernels:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = process_video_with_sliding_window(timed, video)
+    wall = time.perf_counter() - t0
+    counts = [fn.launches for fn in kernels]
+    log(f"relative pose: 73x480x720 in {wall:.3f} s, {len(timed.seconds)} pipeline calls ("
+        + ", ".join(f"{s:.3f}" for s in timed.seconds)
+        + f" s); K1/K2/K5 launches {'/'.join(map(str, counts))}")
+    dit = n_layers * STEPS * 2
+    check(len(timed.seconds) == 2 and counts == [dit, dit, 2 * k5_window],
+          f"relative pose: expected 2 calls and K1/K2/K5 {dit}/{dit}/{2 * k5_window}")
+    poses, focals = res["poses"], res["focals"]
+    check(poses.shape == (73, 4, 4) and focals.shape == (73,), f"poses {poses.shape}")
+    rot = poses[:, :3, :3]
+    ortho = np.abs(np.einsum("tij,tik->tjk", rot, rot) - np.eye(3)).max()
+    check(ortho <= 1e-4, f"relative pose: rotations not orthonormal ({ortho:.3e})")
+    check(bool(np.isfinite(poses).all() and np.isfinite(focals).all() and (focals > 0).all()),
+          "relative pose: poses or focals not finite, or a focal not positive")
+    # a Sim(3) transform of the trajectory scores ATE 0 against it
+    from scipy.spatial.transform import Rotation
+
+    r = Rotation.from_euler("xyz", [20.0, -35.0, 50.0], degrees=True).as_matrix()
+    moved = poses.copy()
+    moved[:, :3, 3] = 2.5 * poses[:, :3, 3] @ r.T + np.array([1.0, -2.0, 0.5])
+    moved[:, :3, :3] = r @ poses[:, :3, :3]
+    with tempfile.TemporaryDirectory() as tmp:
+        ate, rpe_t, rpe_r = pose_metrics.eval_metrics(
+            pose_metrics.poses_to_traj(moved), pose_metrics.poses_to_traj(poses), seq="smoke",
+            filename=os.path.join(tmp, "eval_metric.txt"))
+    spread = np.ptp(poses[:, :3, 3], axis=0)
+    log(f"relative pose: rotations orthonormal within {ortho:.1e}, focals "
+        f"{focals.min():.3f}-{focals.max():.3f}, trajectory extent {np.round(spread, 6)}; "
+        f"against a Sim(3) copy ATE {ate:.3e} (bar 1e-6), RPE trans {rpe_t:.3e}, RPE rot "
+        f"{rpe_r:.3e} deg")
+    check(ate <= 1e-6, "relative pose: ATE against a Sim(3) copy of the trajectory")
+    return runs[1][2]
 
 
 def fixed_max_phase(dev, gen):
@@ -1617,9 +2007,18 @@ def main() -> None:
 
     # ---- 6c. the long-video path ----
     k5_launches = long_video_phase(pipe, dev)
+
+    # ---- 19. the web server: a reconstruction and a prediction job ----
+    serve_phase(pipe, dev)
+
+    # ---- 20. the two benchmark drivers ----
+    eval_phase(pipe, dev)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    log(f"after phases 5-20: {left / 2**30:.2f} GiB still allocated")
+    check(left < 2**30, "the phase-5 pipeline was not released (a server worker holds it?)")
 
     # ---- 15. the w8a8 products at the main path's shapes ----
     w8a8 = w8a8_phase(dev, gen)
