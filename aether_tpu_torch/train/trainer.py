@@ -20,6 +20,11 @@ a new Trainer resumes from the newest one as an exact continuation.
 
 CLI (``--device`` defaults to cuda; the CPU runs only when asked for):
     python -m aether_tpu_torch.train.trainer --synthetic --tiny --device cpu --steps 2
+    python -m aether_tpu_torch.train.trainer --tiny --device cpu --latent_dir DIR --steps 3
+
+``--latent_dir`` reads the files of ``train.data.precompute_latents``
+through the native prefetch loader (``aether_tpu_torch/runtime``, built with
+g++ at first use); ``--no_native_prefetch`` reads them with ``np.load``.
 """
 
 from __future__ import annotations
@@ -356,12 +361,16 @@ def main(argv=None) -> None:
     p.add_argument("--init_checkpoint", type=str, default=None,
                    help="Converted DiT checkpoint to fine-tune from.")
     p.add_argument("--latent_dir", type=str, default=None,
-                   help="Directory of precomputed latent .npz files.")
+                   help="Directory of precomputed latent .npz files "
+                        "(train.data.precompute_latents); trains on real "
+                        "data with the shuffled native-prefetch loader.")
     p.add_argument("--text_embeds", type=str, default=None,
                    help="Optional .npy with a baked (S, D) text embedding "
-                        "broadcast to every real-data batch (default: zeros).")
+                        "broadcast to every real-data batch (default: "
+                        "zeros, matching the empty-prompt conditioning).")
     p.add_argument("--no_native_prefetch", action="store_true",
-                   help="Read latent files synchronously with np.load.")
+                   help="Read latent files synchronously with np.load "
+                        "instead of the C++ prefetch thread pool.")
     p.add_argument("--data_seed", type=int, default=0)
     args = p.parse_args(argv)
 

@@ -34,9 +34,11 @@ Phases (each prints its result; any failure raises and exits non-zero):
      and gradients against autograd through ``attention_reference``;
   9. the fine-tuning path: a ``Trainer`` on the AetherV1 width at 16 blocks
      (f32 state does not fit 42 on one card), remat, ``flash_train``
-     attention, one synthetic batch at the 41x480x720 window's latent shape,
-     three steps; checks finite loss and gradient norm, 2 x 16 K4 launches a
-     step, moved parameters, an EMA apart from them and the peak memory;
+     attention, three steps on the batches ``latent_batches`` yields at its
+     defaults (native prefetch) over phase 21's precomputed 41x480x720
+     files; checks finite loss and gradient norm, 2 x 16 K4 launches a
+     step, the batch shapes, moved parameters, an EMA apart from them and
+     the peak memory, and logs the seconds each step waited for its batch;
  10. K3 (``flash_attention_fixed_max``, K2's cell) against its plain version
      at the CFG pair's shape, B=2, 48 heads, 15076 tokens, head_dim 64, bf16,
      with int8 and with bf16 QK^T, two launches bit-identical, and the
@@ -58,8 +60,9 @@ Phases (each prints its result; any failure raises and exits non-zero):
      launches of each of K1 and K2, none of K3 or K6, and K5 at its count.
 Phases of the long-video slice, between 4 and 5 and after 6:
  4b. K5 (``groupnorm_moments``) against ``groupnorm_moments_plain`` at the
-     480p decode stage (2, 128, 9, 256, 720) and the latent stage (2, 512, 5,
-     32, 90), NCTHW bf16 (and channels-last, the layout cuDNN hands some
+     480p decode stage (2, 128, 9, 256, 720), the latent stage (2, 512, 5,
+     32, 90) and the untiled 480x720 encode's first stage (1, 128, 9, 480,
+     720; phase 21), NCTHW bf16 (and channels-last, the layout cuDNN hands some
      decoder norms): m1 and m2 within 1e-5 of max |m2|, two launches
      bit-identical, times;
  6.  also K5's exact launch count per request (every VAE GroupNorm);
@@ -161,6 +164,22 @@ Phases of the server and benchmark slice, after 6c, on the phase-5 pipeline:
      (73, 4, 4) poses with rotations orthonormal within 1e-4, finite positive
      focals, ATE <= 1e-6 against a Sim(3) copy of the trajectory; the seconds
      of each sequence and of each pipeline call.
+Phase of the training-data slice, after 20, on the phase-5 pipeline:
+ 21. ``train.data.precompute_latents`` (the untiled full-width bf16 encode)
+     of three seeded 41x480x720 clips into a temporary directory: (a) RGB,
+     disparity and phase 6b's trajectory with its intrinsics, (b) RGB only,
+     (c) RGB, poses and a seeded (226, 4096) ``text_embeds``. Gates: each
+     file has the JAX keys, ``clean_latents`` (11, 56, 60, 90) f16 and
+     finite, zero channels where a modality is absent; K5 launches exactly
+     the encoder's GroupNorms x 5 chunks x 4 encodes; the same seed twice
+     gives identical arrays; clip (a)'s channels 0-15 equal a direct
+     ``_encode_pixels(tiling=False)`` call with the same draw and its
+     channels 32-55 ``pack_raymap(camera_pose_to_raymap(...))``, both cast to
+     f16, bit for bit. Logs each clip's encode and write seconds and the
+     peak memory. Then ``runtime.load_npz`` equals ``np.load`` on each file,
+     and ``latent_batches`` at its defaults gives the six batches (two
+     epochs) of ``native_prefetch=False`` bit for bit. Phase 9 trains on
+     these files.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -200,7 +219,8 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # SM count and the maximum SM clock
 SFU_PER_CLOCK_PER_SM = 16
 SFU_PER_S = None
-K5_SHAPES = ((2, 128, 9, 256, 720), (2, 512, 5, 32, 90))  # 480p decode stage, latent stage
+# 480p decode stage, latent stage, the untiled 480x720 encode's first stage
+K5_SHAPES = ((2, 128, 9, 256, 720), (2, 512, 5, 32, 90), (1, 128, 9, 480, 720))
 K1_MS_GATE = 0.5  # K1 at batch 1, int8 and float; the two-pass form read 0.77 ms
 
 
@@ -422,12 +442,15 @@ def trainable_phase(dev, gen):
           "flash_attention_trainable disagrees with plain autograd")
 
 
-def train_phase(dev) -> int:
-    """Three steps of the AetherV1-width DiT at 16 blocks on one batch at the
-    41x480x720 window's latent shape. Returns K4's launches in the run."""
+def train_phase(dev, latent_dir) -> int:
+    """Three steps of the AetherV1-width DiT at 16 blocks on the batches that
+    ``latent_batches`` yields at its defaults (native prefetch, batch 1) over
+    the precompute phase's 41x480x720 files. Returns K4's launches in the
+    run."""
     from aether_tpu_torch.config import DiTConfig
     from aether_tpu_torch.ops.flash_attention import flash_attention
-    from aether_tpu_torch.train.trainer import TrainConfig, Trainer, synthetic_batches
+    from aether_tpu_torch.train.data import latent_batches
+    from aether_tpu_torch.train.trainer import TrainConfig, Trainer
 
     dit_cfg = dataclasses.replace(DiTConfig.aetherv1(), num_layers=TRAIN_LAYERS)
     # warmup 1: the first update has lr 0 (optax's schedule), the next ones 1e-5
@@ -440,26 +463,32 @@ def train_phase(dev) -> int:
     n_params = sum(p.numel() for p in model.parameters())
     snap = {n: p.detach().flatten()[:4096].clone() for n, p in model.named_parameters()}
     f_lat, h_lat, w_lat = (FRAMES - 1) // 4 + 1, HEIGHT // 8, WIDTH // 8
-    batch = next(synthetic_batches(dit_cfg, batch_size=1, f_lat=f_lat, h_lat=h_lat,
-                                   w_lat=w_lat, seed=0))
     tokens = TEXT + f_lat * (h_lat // 2) * (w_lat // 2)
     check(tokens == SEQ, f"training tokens {tokens} != {SEQ}")
+    loader = latent_batches(latent_dir, dit_cfg)
+    waits, shapes = [], []
+
+    def timed_batches():
+        """``loader``, with the seconds each ``next`` waited."""
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(loader)
+            waits.append(time.perf_counter() - t_wait)
+            shapes.append({key: val.shape for key, val in batch.items()})
+            yield batch
+
+    batches = timed_batches()
     torch.cuda.synchronize()
     log(f"train: DiT {TRAIN_LAYERS} blocks x {dit_cfg.hidden_size}, {n_params / 1e9:.3f}B "
-        f"f32 params, clean {batch['clean_latents'].shape}, condition "
-        f"{batch['condition_latents'].shape}, text {batch['text_embeds'].shape}, "
-        f"rope {batch['rope_cos'].shape}; set-up {time.perf_counter() - t0:.3f} s")
-
-    def same_batch():
-        while True:
-            yield batch
+        f"f32 params, batches from latent_batches over {latent_dir} (native prefetch); "
+        f"set-up {time.perf_counter() - t0:.3f} s")
 
     flash_attention.launches = 0
     for step in range(TRAIN_STEPS):
         before = flash_attention.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = trainer.fit(same_batch(), steps=1)[0]
+        loss = trainer.fit(batches, steps=1)[0]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         n = flash_attention.launches - before
@@ -469,6 +498,13 @@ def train_phase(dev) -> int:
             f"{loss:.6f}, grad norm {norm:.6f}, lr {opt.schedule(opt.count - 1):.3e}, "
             f"K4 launches {n}, peak memory "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        log(f"train step {step + 1}: waited {waits[-1]:.4f} s in next(batches) of its "
+            f"{dt:.3f} s; batch {shapes[-1]}")
+        check(len(waits) == step + 1, "a step did not take one batch")
+        check(shapes[-1]["clean_latents"] == (1, f_lat, 56, h_lat, w_lat)
+              and shapes[-1]["condition_latents"] == (1, f_lat, 40, h_lat, w_lat)
+              and shapes[-1]["text_embeds"] == (1, TEXT, dit_cfg.text_embed_dim),
+              f"batch shapes {shapes[-1]}")
         check(np.isfinite(loss) and np.isfinite(norm), "non-finite loss or grad norm")
         check(n == 2 * TRAIN_LAYERS, f"expected {2 * TRAIN_LAYERS} K4 launches a step")
     launches = flash_attention.launches
@@ -485,7 +521,8 @@ def train_phase(dev) -> int:
     check(moved >= 0.9 * n_tensors, "parameters did not move")
     check(apart >= 0.9 * n_tensors, "EMA equals the parameters")
     check(peak < total, "peak memory above the card's memory")
-    del trainer, model, ema, snap, opt
+    loader.close()  # joins the prefetch threads
+    del trainer, model, ema, snap, opt, batches
     gc.collect()  # the trainer's state sits in reference cycles
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated(dev)
@@ -597,14 +634,12 @@ def expected_k5(pipe, frames, images=None, windows=1):
     return tiles * windows * (enc * enc_chunks + dec * dec_chunks)
 
 
-def geometry_phase(dev):
-    """A seeded smooth 41-pose trajectory -> ``camera_pose_to_raymap`` ->
-    ``raymap_to_poses`` on the card; the poses come back within 1e-4. The
-    principal point sits at the mean of the codec's sample positions (half a
-    pixel before the frame centre), where the mean ray is the optical axis."""
+def smooth_trajectory():
+    """A seeded smooth 41-pose c2w trajectory and its intrinsics, float64
+    numpy (FRAMES, 4, 4) and (FRAMES, 3, 3). The principal point sits at the
+    mean of the raymap codec's sample positions (half a pixel before the frame
+    centre), where the mean ray is the optical axis."""
     from scipy.spatial.transform import Rotation
-
-    from aether_tpu_torch.geometry import camera_pose_to_raymap, raymap_to_poses
 
     rng = np.random.default_rng(21)
     t = np.linspace(0.0, 1.0, FRAMES)[:, None]
@@ -615,6 +650,15 @@ def geometry_phase(dev):
     k = np.zeros((FRAMES, 3, 3))
     k[:, 0, 0] = k[:, 1, 1] = 500.0
     k[:, 0, 2], k[:, 1, 2], k[:, 2, 2] = WIDTH / 2 - 0.5, HEIGHT / 2 - 0.5, 1.0
+    return poses, k
+
+
+def geometry_phase(dev):
+    """``smooth_trajectory`` -> ``camera_pose_to_raymap`` -> ``raymap_to_poses``
+    on the card; the poses come back within 1e-4."""
+    from aether_tpu_torch.geometry import camera_pose_to_raymap, raymap_to_poses
+
+    poses, k = smooth_trajectory()
     pose_t = torch.from_numpy(poses).float().to(dev)
     raymap = camera_pose_to_raymap(pose_t, torch.from_numpy(k).float().to(dev),
                                    height=HEIGHT, width=WIDTH)
@@ -744,6 +788,148 @@ def long_video_phase(pipe, dev):
         f"export: {export_s:.3f} s, PLY {n_ply} points, {len(n_glb)} GLB scenes "
         f"({min(n_glb)}-{max(n_glb)} points), poses file {saved.shape}")
     return k5_launches
+
+
+PRECOMPUTE_SEED = 5
+
+
+def precompute_phase(pipe, dev, latent_dir):
+    """The training data path on the phase-5 pipeline's full-width bf16 VAE:
+    three seeded 41x480x720 clips through ``precompute_latents`` (untiled
+    encode) into ``latent_dir``; then the native loader on those files.
+    Returns K5's launches in the precompute."""
+    from aether_tpu_torch import runtime
+    from aether_tpu_torch.geometry import camera_pose_to_raymap
+    from aether_tpu_torch.models.vae import GroupNorm
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+    from aether_tpu_torch.pipeline.aether import _chunk_bounds, _encode_pixels, pack_raymap
+    from aether_tpu_torch.train.data import RGB, LatentNoise, latent_batches, precompute_latents
+    from aether_tpu_torch.utils.preprocess import preprocess_video
+    from aether_tpu_torch.utils.profiling import add_stage_listener, remove_stage_listener
+
+    rng = np.random.default_rng(17)
+    poses, k = smooth_trajectory()
+    rgb = [rng.uniform(0, 1, (FRAMES, HEIGHT, WIDTH, 3)).astype(np.float32) for _ in range(3)]
+    clips = [
+        {"name": "a_rgb_disparity_poses", "rgb": rgb[0], "poses": poses, "intrinsics": k,
+         "disparity": rng.uniform(0, 1, (FRAMES, HEIGHT, WIDTH)).astype(np.float32)},
+        {"name": "b_rgb", "rgb": rgb[1]},
+        {"name": "c_rgb_poses_text", "rgb": rgb[2], "poses": poses, "intrinsics": k,
+         "text_embeds": rng.standard_normal(
+             (TEXT, pipe.config.dit.text_embed_dim)).astype(np.float32)},
+    ]
+    encodes = (2, 1, 1)  # clip (a) encodes RGB and disparity
+    enc_norms = sum(isinstance(m, GroupNorm) for m in pipe.vae.encoder.modules())
+    chunks = len(list(_chunk_bounds(FRAMES, 8)))
+    f_lat, h_lat, w_lat = (FRAMES - 1) // 4 + 1, HEIGHT // 8, WIDTH // 8
+    stages = []
+
+    def listen(name, event, seconds):
+        if event == "end" and name.startswith("precompute_"):
+            stages.append((name, seconds))
+
+    add_stage_listener(listen)
+    try:
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        groupnorm_moments.launches = 0
+        t0 = time.perf_counter()
+        paths = precompute_latents(pipe, clips, latent_dir, seed=PRECOMPUTE_SEED)
+        wall = time.perf_counter() - t0
+        launches = groupnorm_moments.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        remove_stage_listener(listen)
+    enc_s = [sec for name, sec in stages if name == "precompute_encode"]
+    write_s = [sec for name, sec in stages if name == "precompute_write"]
+    check(len(enc_s) == len(write_s) == 3, f"precompute stages {stages}")
+    for clip, n_enc, e, w_s, path in zip(clips, encodes, enc_s, write_s, paths):
+        log(f"precompute {clip['name']}: {n_enc} untiled encode(s) {e:.3f} s, "
+            f"savez_compressed {w_s:.3f} s, file {os.path.getsize(path) / 2**20:.2f} MiB")
+    log(f"precompute: 3 clips in {wall:.3f} s; peak memory {peak / 2**30:.2f} GiB with "
+        f"{base / 2**30:.2f} GiB resident before it (the untiled encode's own "
+        f"{(peak - base) / 2**30:.2f} GiB); K5 launches {launches}")
+    want = enc_norms * chunks * sum(encodes)
+    check(launches == want, f"expected {want} K5 launches ({enc_norms} GroupNorms x {chunks} "
+          f"chunks x {sum(encodes)} encodes)")
+
+    keys = {"clean_latents", "num_frames", "height", "width", "fps", "text_embeds"}
+    files = {}
+    for clip, path in zip(clips, paths):
+        with np.load(path) as z:
+            files[clip["name"]] = {key: z[key] for key in z.files}
+        got = files[clip["name"]]
+        clean = got["clean_latents"]
+        check(set(got) == keys, f"{path}: keys {sorted(got)}")
+        check(clean.dtype == np.float16 and clean.shape == (f_lat, 56, h_lat, w_lat),
+              f"{path}: clean_latents {clean.dtype} {clean.shape}")
+        check(bool(np.isfinite(clean).all()), f"{path}: clean_latents not finite")
+        check((int(got["num_frames"]), int(got["height"]), int(got["width"]), int(got["fps"]))
+              == (FRAMES, HEIGHT, WIDTH, 12), f"{path}: sizes")
+        text = clip.get("text_embeds")
+        check(got["text_embeds"].dtype == np.float16 and got["text_embeds"].shape
+              == ((0,) if text is None else text.shape), f"{path}: text_embeds")
+        check(bool((clean[:, 16:32] == 0).all()) == (clip.get("disparity") is None)
+              and bool((clean[:, 32:] == 0).all()) == (clip.get("poses") is None),
+              f"{path}: absent modalities are not the zero channels")
+        log(f"  {clip['name']}: clean_latents {clean.shape} f16, |rgb| max "
+            f"{np.abs(clean[:, :16].astype(np.float32)).max():.4f}, |disparity| max "
+            f"{np.abs(clean[:, 16:32].astype(np.float32)).max():.4f}, |camera| max "
+            f"{np.abs(clean[:, 32:].astype(np.float32)).max():.4f}")
+
+    # the same seed twice: identical files
+    with tempfile.TemporaryDirectory() as again_dir:
+        again = precompute_latents(pipe, clips[:1], again_dir, seed=PRECOMPUTE_SEED)[0]
+        with np.load(again) as z:
+            same = all(np.array_equal(z[key], files[clips[0]["name"]][key]) for key in keys)
+    check(same, "the same seed gave another file")
+    # clip (a) by hand: the untiled encode with the same draw, and the raymap
+    a_clean = files[clips[0]["name"]]["clean_latents"]
+    with torch.no_grad():
+        frames = torch.from_numpy(preprocess_video(rgb[0], HEIGHT, WIDTH)).to(dev).to(
+            pipe.compute_dtype)
+        noise = LatentNoise(PRECOMPUTE_SEED, dev)
+        direct = _encode_pixels(pipe.config, pipe.compute_dtype, pipe.vae, frames,
+                                lambda shape: noise.posterior(0, RGB, shape), tiling=False)
+        raymap = camera_pose_to_raymap(torch.from_numpy(poses).float().to(dev),
+                                       torch.from_numpy(k).float().to(dev),
+                                       height=HEIGHT, width=WIDTH, vae_downsample=8)
+        camera = pack_raymap(raymap[None].to(pipe.compute_dtype))
+    direct16 = direct.float().cpu().numpy()[0].astype(np.float16)
+    camera16 = camera.float().cpu().numpy()[0].astype(np.float16)
+    del frames, direct, raymap, camera
+    check(np.array_equal(a_clean[:, :16], direct16),
+          "clip (a) RGB channels differ from a direct untiled _encode_pixels call")
+    check(np.array_equal(a_clean[:, 32:], camera16),
+          "clip (a) camera channels differ from pack_raymap(camera_pose_to_raymap(...))")
+    log("precompute: the same seed twice gives identical files; clip (a)'s RGB channels "
+        "equal a direct untiled _encode_pixels call, its camera channels the packed "
+        "raymap, bit for bit")
+
+    # the loader on those files
+    t0 = time.perf_counter()
+    for clip, path in zip(clips, paths):
+        native = runtime.load_npz(path)
+        ref = files[clip["name"]]
+        check(set(native) == set(ref) and all(
+            native[key].dtype == ref[key].dtype and np.array_equal(native[key], ref[key])
+            for key in ref), f"runtime.load_npz differs from np.load on {path}")
+    load_s = time.perf_counter() - t0
+    cfg = pipe.config.dit
+    native_it = latent_batches(latent_dir, cfg)
+    plain_it = latent_batches(latent_dir, cfg, native_prefetch=False)
+    t0 = time.perf_counter()
+    for i in range(6):  # batch 1 over three files: two epochs
+        a, b = next(native_it), next(plain_it)
+        check(set(a) == set(b) and all(np.array_equal(a[key], b[key]) for key in a),
+              f"native and np.load batch {i} differ")
+        check(a["clean_latents"].shape == (1, f_lat, 56, h_lat, w_lat),
+              f"batch {i}: clean_latents {a['clean_latents'].shape}")
+    native_it.close()
+    log(f"loader: runtime.load_npz equals np.load on the 3 files ({load_s:.3f} s); "
+        f"latent_batches at its defaults (native prefetch) gives the 6 batches of "
+        f"native_prefetch=False bit for bit ({time.perf_counter() - t0:.3f} s for both)")
+    return launches
 
 
 def http_get(url, timeout=120):
@@ -2013,11 +2199,16 @@ def main() -> None:
 
     # ---- 20. the two benchmark drivers ----
     eval_phase(pipe, dev)
+
+    # ---- 21. the training data path: precomputed latents, the native loader ----
+    # the files stay until phase 9 has trained on them
+    latents = tempfile.TemporaryDirectory(prefix="aether_latents_")
+    k5_precompute = precompute_phase(pipe, dev, latents.name)
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated(dev)
-    log(f"after phases 5-20: {left / 2**30:.2f} GiB still allocated")
+    log(f"after phases 5-21: {left / 2**30:.2f} GiB still allocated")
     check(left < 2**30, "the phase-5 pipeline was not released (a server worker holds it?)")
 
     # ---- 15. the w8a8 products at the main path's shapes ----
@@ -2035,8 +2226,9 @@ def main() -> None:
     # ---- 8. flash_attention_trainable ----
     trainable_phase(dev, gen)
 
-    # ---- 9. the fine-tuning path ----
-    k4_launches = train_phase(dev)
+    # ---- 9. the fine-tuning path, on phase 21's files ----
+    k4_launches = train_phase(dev, latents.name)
+    latents.cleanup()
 
     # ---- 10. K3 and K6 at the CFG pair's shape ----
     fixed = fixed_max_phase(dev, gen)
@@ -2149,7 +2341,7 @@ def main() -> None:
         entry("flash_pv8", "flash_pv8.cu", "aether_tpu/ops/flash_attention.py:259",
               k6_launches, k6_err, k6_ms, k6_plain_ms, k6_bound, lib["K3/K6"]),
         entry("groupnorm_moments", "groupnorm_moments.cu", "aether_tpu/ops/groupnorm.py:30",
-              k5_launches, k5_err, k5_ms, k5_plain_ms, (k5_bound, k5_by), None),
+              k5_launches + k5_precompute, k5_err, k5_ms, k5_plain_ms, (k5_bound, k5_by), None),
         entry("attn_prologue_float", "attn_prologue.cu", "aether_tpu/ops/attn_prologue.py:150",
               k1f_launches, *floats["K1 float"], k1f_bound, None),
         entry("flash_prepacked_float", "flash_prepacked.cu",

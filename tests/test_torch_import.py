@@ -33,8 +33,12 @@ for name in ("aether_tpu_torch.train.step", "aether_tpu_torch.train.trainer",
              "aether_tpu_torch.utils.profiling", "aether_tpu_torch.apps.actions",
              "aether_tpu_torch.apps.serve", "aether_tpu_torch.eval.pose_metrics",
              "aether_tpu_torch.eval.datasets", "aether_tpu_torch.eval.depth_metrics",
-             "aether_tpu_torch.eval.video_depth", "aether_tpu_torch.eval.rel_pose"):
+             "aether_tpu_torch.eval.video_depth", "aether_tpu_torch.eval.rel_pose",
+             "aether_tpu_torch.runtime"):
     assert name in names, name
+from aether_tpu_torch import runtime
+assert runtime._lib is None and runtime._build_error is None, "the npz loader was built at import"
+from aether_tpu_torch.train.data import LatentNoise, latent_batches, precompute_latents
 from aether_tpu_torch.ops.groupnorm import groupnorm_moments
 assert groupnorm_moments.launches == 0
 from aether_tpu_torch.ops.flash_attention import (
@@ -76,6 +80,17 @@ def test_no_source_file_imports_jax():
                          or words[1] == "aether_tpu")):
                 offenders.append(f"{path.relative_to(_ROOT)}: {line.strip()}")
     assert not offenders, offenders
+
+
+def test_native_loader_is_the_ports_own_copy():
+    """The npz loader builds from the port's own C++ source, which names
+    nothing of the JAX package."""
+    from aether_tpu_torch import runtime
+
+    assert runtime._SRC == _PKG / "runtime" / "npz_prefetch.cpp"
+    assert runtime.BUILD_DIR == _PKG / "_build"
+    src = runtime._SRC.read_text()
+    assert "aether_tpu/" not in src and "aether_tpu_torch/runtime/__init__.py" in src
 
 
 def test_kernel_sources_ship_with_the_package():

@@ -223,8 +223,6 @@ def test_latent_batches_equal_jax(tmp_path):
             assert set(a) == set(b)
             for key in a:
                 np.testing.assert_array_equal(a[key], np.asarray(b[key]), err_msg=key)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(latent_batches(str(tmp_path), cfg_t))
 
 
 def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
