@@ -14,10 +14,14 @@ checkpoint (``--checkpoint DIR`` from ``python -m aether_tpu_torch.io.convert``,
 ``tiny`` / ``aetherv1`` in the compute dtype, ``-fp8`` / ``-int8`` built
 directly in the quantized layout (``init_quantized_dit``). int8 weights run
 with int8 activations (w8a8, the JAX bench's deployment configuration),
-from a checkpoint too. Flags whose feature the port does not have raise
-``NotImplementedError`` naming the ROADMAP.md Queue 1 item: ``--dp/--tp``
-(Parallel) and the compact ``--wire_*`` formats (the port moves exact
-outputs).
+from a checkpoint too. The compact ``--wire_*`` formats raise
+``NotImplementedError`` (the port moves exact outputs).
+
+``--dp/--tp`` run it on several cards, one process per card, under
+``torchrun``: the ranks join one process group (NCCL on CUDA, gloo with
+``--device cpu``) and, when the world has more than one rank, one
+``parallel.make_mesh(dp, tp)`` mesh (an axis not given takes the rest of the
+world). Every rank runs the same requests; rank 0 alone prints and writes.
 
 Usage:
     python -m aether_tpu_torch.apps.demo --task reconstruction --video clip.mp4 \\
@@ -26,6 +30,8 @@ Usage:
         --checkpoint converted
     python -m aether_tpu_torch.apps.demo --device cpu --random-init tiny-int8 \\
         --task reconstruction --video clip.gif --height 64 --width 96
+    torchrun --nproc_per_node 4 -m aether_tpu_torch.apps.demo --dp 2 --tp 2 \\
+        --task prediction --image obs.png --random-init aetherv1
 """
 
 from __future__ import annotations
@@ -112,20 +118,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--wire_disparity", type=str, default=None, choices=["fp16", "u8"],
                    help="compact disparity wire (not ported: outputs are exact)")
     p.add_argument("--dp", type=int, default=None,
-                   help="Data-parallel mesh axis (not ported yet).")
+                   help="Data-parallel mesh axis (the CFG pair, windows, the decode's "
+                        "streams); one process per card under torchrun.")
     p.add_argument("--tp", type=int, default=None,
-                   help="Tensor-parallel mesh axis (not ported yet).")
+                   help="Tensor-parallel mesh axis (Megatron DiT split); one process "
+                        "per card under torchrun.")
     return p.parse_args(argv)
 
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise ``NotImplementedError`` for a flag whose feature is not ported
     (a flag the command line lacks counts as not given)."""
-    for flag in ("dp", "tp"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag} needs the parallel layer, which is not ported yet "
-                "(ROADMAP.md, Queue 1: Parallel)")
     for flag, exact in (("wire_rgb", None), ("wire_input", "u8"),
                         ("wire_disparity", None)):
         value = getattr(args, flag, exact)
@@ -150,11 +153,42 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_pipeline(args: argparse.Namespace):
+def build_mesh(args: argparse.Namespace, replicas: bool = False):
+    """The mesh ``--dp/--tp`` ask for, or None when neither is given.
+
+    Joins the process group ``torchrun``'s variables describe
+    (:func:`~aether_tpu_torch.parallel.initialize`; NCCL for a CUDA
+    ``--device``, gloo for the CPU). Without ``replicas`` the whole world
+    holds one mesh, with the JAX factorization (an axis not given takes the
+    rest), and a world of one rank holds none, as the JAX demo builds a mesh
+    only over more than one device. With ``replicas`` (the eval drivers) an
+    axis not given is 1 and each group of ``dp * tp`` consecutive ranks holds
+    one mesh."""
+    import torch.distributed as dist
+
+    from aether_tpu_torch.parallel import initialize, make_mesh
+
+    dp, tp = getattr(args, "dp", None), getattr(args, "tp", None)
+    if not (dp or tp):
+        return None
+    initialize(device=args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not replicas:
+        return make_mesh(dp=dp, tp=tp) if world > 1 else None
+    dp, tp = dp or 1, tp or 1
+    if dp * tp == 1:
+        return None
+    if world % (dp * tp):
+        raise ValueError(f"dp({dp}) * tp({tp}) does not divide the world ({world})")
+    return make_mesh(dp=dp, tp=tp, replicas=world // (dp * tp))
+
+
+def build_pipeline(args: argparse.Namespace, mesh=None):
     """An ``AetherPipeline`` in the compute dtype (bf16 on CUDA, f32 on the
     CPU) from ``--checkpoint`` (its tensors in their saved dtypes) or from
     seeded random weights (DiT seed 0, VAE seed 1, a zero prompt embedding).
-    A DiT with int8 codes runs with int8 activations."""
+    A DiT with int8 codes runs with int8 activations. ``mesh`` (from
+    :func:`build_mesh`) splits it over the process group."""
     from aether_tpu_torch.config import PipelineConfig
     from aether_tpu_torch.io.weights import load_checkpoint
     from aether_tpu_torch.models import init_dit, init_quantized_dit, init_vae
@@ -182,7 +216,7 @@ def build_pipeline(args: argparse.Namespace):
     act_quant = any(isinstance(m, QuantLinear) and m.q.dtype == torch.int8
                     for m in dit.modules())
     return AetherPipeline(cfg, dit, vae, text, device=device, compute_dtype=dtype,
-                          act_quant=act_quant), cfg
+                          act_quant=act_quant, mesh=mesh), cfg
 
 
 def _load_video(path: str) -> np.ndarray:
@@ -220,11 +254,15 @@ def _flip_xy_poses(poses: np.ndarray) -> np.ndarray:
 
 @contextlib.contextmanager
 def _timed(name: str):
-    """Print a stage's host seconds, inside a profiler range ``demo.<name>``."""
+    """Print a stage's host seconds (rank 0 only), inside a profiler range
+    ``demo.<name>``."""
+    from aether_tpu_torch.parallel import is_main
+
     t0 = time.perf_counter()
     with torch.profiler.record_function(f"demo.{name}"):
         yield
-    print(f"stage {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+    if is_main():
+        print(f"stage {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
 def save_geometry(stem: str, rgb: np.ndarray, disparity: np.ndarray, poses: np.ndarray,
@@ -308,8 +346,16 @@ def save_output(rgb: np.ndarray, disparity: np.ndarray, args: argparse.Namespace
 
 
 def run(args: argparse.Namespace) -> dict:
-    """Run the demo's task on a parsed command line; returns the written paths."""
-    pipeline, _cfg = build_pipeline(args)
+    """Run the demo's task on a parsed command line; returns the written paths
+    (none on a rank other than 0, which computes alongside and writes
+    nothing)."""
+    from aether_tpu_torch.parallel import is_main
+
+    mesh = build_mesh(args)
+    if mesh is not None and is_main():
+        axes = ", ".join(f"{n}={s}" for n, s in zip(mesh.mesh_dim_names, mesh.shape))
+        print(f"mesh: {axes} over {mesh.size()} ranks", flush=True)
+    pipeline, _cfg = build_pipeline(args, mesh)
     if args.batch_windows is None:
         args.batch_windows = 1
     raymap = np.load(args.raymap_action) if args.raymap_action else None
@@ -326,6 +372,8 @@ def run(args: argparse.Namespace) -> dict:
                 num_inference_steps=args.num_inference_steps,
                 stride=args.sliding_window_stride, seed=args.seed,
                 batch_windows=args.batch_windows)
+        if not is_main():
+            return {}
         with _timed("blend"):
             rgb, disparity, poses, pointmaps = blend_and_merge_window_results(
                 window_results, window_indices, args.height, args.width,
@@ -358,6 +406,8 @@ def run(args: argparse.Namespace) -> dict:
         disparity, raymap_out = recon.disparity, recon.raymap
     else:
         disparity, raymap_out = out.disparity, out.raymap
+    if not is_main():
+        return {}
     with _timed("export"):
         return save_output(out.rgb, disparity, args, raymap=raymap_out, device=dev)
 

@@ -23,9 +23,12 @@ with the HTTP threads under a lock. Uploads are decoded with PIL and
 
 It runs on the GPU: ``--device`` defaults to ``cuda`` and raises where there
 is none. The weights come from ``--checkpoint`` or ``--random-init``, as in
-``apps/demo.py``, whose ``build_pipeline`` builds the pipeline; ``--dp``,
-``--tp`` and the compact ``--wire_*`` formats raise ``NotImplementedError``
-there.
+``apps/demo.py``, whose ``build_pipeline`` builds the pipeline; the compact
+``--wire_*`` formats raise ``NotImplementedError`` there. ``--dp`` and
+``--tp`` raise ``NotImplementedError`` here (:func:`check_serve_flags`):
+the demo and the eval drivers run over a mesh, but a server of several
+processes needs a leader that hands each job to the other ranks, which this
+single-process server does not have yet.
 
 Usage:
     python -m aether_tpu_torch.apps.serve --random-init aetherv1 \\
@@ -672,9 +675,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_queue", type=int, default=20,
                    help="Job queue bound (reference demo.queue(max_size=20)).")
     p.add_argument("--dp", type=int, default=None,
-                   help="Data-parallel mesh axis (not ported yet).")
+                   help="Data-parallel mesh axis (not in the server yet).")
     p.add_argument("--tp", type=int, default=None,
-                   help="Tensor-parallel mesh axis (not ported yet).")
+                   help="Tensor-parallel mesh axis (not in the server yet).")
     p.add_argument("--warmup", nargs="*", default=None,
                    choices=["reconstruction", "prediction", "planning"], metavar="TASK",
                    help="Run these tasks once on zeros before listening.")
@@ -691,10 +694,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def check_serve_flags(args: argparse.Namespace) -> None:
+    """Refuse ``--dp/--tp``: serving over a mesh needs one process per card
+    and a leader that broadcasts each job to the other ranks (ROADMAP.md,
+    Queue 1: the multi-process server)."""
+    for flag in ("dp", "tp"):
+        if getattr(args, flag, None):
+            raise NotImplementedError(
+                f"--{flag}: the server runs in one process on one card; serving over "
+                "a mesh needs the multi-process server (ROADMAP.md, Queue 1: the "
+                "multi-process server)")
+
+
 def main(argv=None) -> None:
     from aether_tpu_torch.apps.demo import build_pipeline
 
     args = parse_args(argv)
+    check_serve_flags(args)
     pipeline, _ = build_pipeline(args)
     if args.warmup:
         f, h, w = args.warmup_shape

@@ -10,9 +10,13 @@ Kalman trajectory smoothing, ``:172-250``), TUM trajectory + focal export
 cross-process aggregation (``:348-355``).
 
 Port of ``aether_tpu/eval/rel_pose.py`` over the port's pipeline. The port
-has no ``defer_host`` and no mesh: the windows run as a plain loop. ``main`` runs on the card by default (``--device``);
-``--dp``, ``--tp`` and ``--distributed`` raise ``NotImplementedError`` until
-the parallel layer is ported (ROADMAP.md, Queue 1: Parallel).
+has no ``defer_host``: the windows run as a plain loop, or, under a pipeline
+mesh with dp > 1, in dp-sized chunks through ``batch_reconstruct``, as the
+JAX driver runs them. ``main`` runs on the card by default (``--device``).
+Under ``torchrun``, ``--distributed`` joins the process group and
+``--dp/--tp`` give each replica of ``dp * tp`` ranks one mesh; sequences
+shard by replica, the first rank of a replica writes its files, and rank 0
+aggregates after a barrier (``eval.sharding.join_replicas``).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from aether_tpu_torch.eval.pose_metrics import (
     save_focals,
     save_tum_poses,
 )
-from aether_tpu_torch.eval.sharding import shard_sequences
+from aether_tpu_torch.eval.sharding import join_replicas, shard_sequences
 from aether_tpu_torch.geometry.alignment import (
     align_camera_extrinsics,
     apply_transformation,
@@ -112,14 +116,27 @@ def process_video_with_sliding_window(
             "range": (t_start, t_start + window_frames),
         }
 
-    outs = [
-        pipeline(task="reconstruction", video=video[t_start : t_start + window_frames],
-                 height=video.shape[1], width=video.shape[2],
-                 num_frames=window_frames, fps=fps,
-                 num_inference_steps=num_inference_steps,
-                 guidance_scale=1.0, use_dynamic_cfg=False, seed=seed)
-        for t_start in t_starts
-    ]
+    from aether_tpu_torch.parallel.mesh import axis_size
+
+    dp = axis_size(getattr(pipeline, "mesh", None), "dp")
+    if dp > 1:
+        # chunks of dp windows share one denoise over the mesh; every window
+        # gets a serial call's noise, and a short tail chunk pads internally
+        outs = []
+        for i in range(0, len(t_starts), dp):
+            outs.extend(pipeline.batch_reconstruct(
+                np.stack([video[s:s + window_frames] for s in t_starts[i:i + dp]]),
+                height=video.shape[1], width=video.shape[2], num_frames=window_frames,
+                fps=fps, num_inference_steps=num_inference_steps, seed=seed))
+    else:
+        outs = [
+            pipeline(task="reconstruction", video=video[t_start : t_start + window_frames],
+                     height=video.shape[1], width=video.shape[2],
+                     num_frames=window_frames, fps=fps,
+                     num_inference_steps=num_inference_steps,
+                     guidance_scale=1.0, use_dynamic_cfg=False, seed=seed)
+            for t_start in t_starts
+        ]
     windows = [
         _window(out, t_start) for t_start, out in zip(t_starts, outs)
     ]
@@ -170,11 +187,14 @@ def run_sequences(
     process_index: Optional[int] = None,
     process_count: Optional[int] = None,
     resume: bool = False,
+    write: bool = True,
     **window_kwargs,
 ) -> List[str]:
     """Run this host's shard; writes per-seq pred_traj.txt / pred_focal.txt /
     eval_metric.txt (+ trajectory plot when GT is available). With ``resume``,
-    sequences with an existing pred_traj.txt are skipped."""
+    sequences with an existing pred_traj.txt are skipped. ``write=False``
+    runs the inference and writes nothing (a rank of a mesh other than its
+    first)."""
     from aether_tpu_torch.eval.datasets import sequence_frames
 
     meta = REL_POSE_DATASETS[dataset]
@@ -203,6 +223,9 @@ def run_sequences(
                     num_inference_steps=num_inference_steps, seed=seed,
                     **{k: v for k, v in window_kwargs.items() if k != "target"},
                 )
+            if not write:
+                done.append(seq)
+                continue
             seq_dir = os.path.join(output_dir, seq)
             os.makedirs(seq_dir, exist_ok=True)
             pred_traj = save_tum_poses(
@@ -223,6 +246,8 @@ def run_sequences(
                                 filename=os.path.join(seq_dir, "traj_plot.png"))
             done.append(seq)
         except Exception as exc:  # log-and-skip per reference error policy
+            if not write:
+                continue
             with open(error_log, "a") as f:
                 f.write(f"Exception in sequence {seq}: {exc}\n")
                 f.write(traceback.format_exc() + "\n")
@@ -241,7 +266,8 @@ def aggregate(output_dir: str) -> dict:
 
 
 def main(argv=None) -> None:
-    from aether_tpu_torch.apps.demo import RANDOM_INITS, build_pipeline, check_ported, resolve_device
+    from aether_tpu_torch.apps.demo import RANDOM_INITS, build_pipeline
+    from aether_tpu_torch.parallel import barrier, is_main
 
     p = argparse.ArgumentParser(description="relative-pose benchmark (PyTorch)")
     p.add_argument("--eval_dataset", required=True,
@@ -265,37 +291,36 @@ def main(argv=None) -> None:
     p.add_argument("--target", type=int, nargs=2, default=(480, 720),
                    metavar=("H", "W"))
     p.add_argument("--dp", type=int, default=None,
-                   help="Data-parallel mesh axis (not ported yet).")
+                   help="Data-parallel mesh axis of each replica: windows batch "
+                        "dp-at-a-time through one denoise.")
     p.add_argument("--tp", type=int, default=None,
-                   help="Tensor-parallel mesh axis (not ported yet).")
+                   help="Tensor-parallel mesh axis of each replica.")
     p.add_argument("--resume", action="store_true",
                    help="Skip sequences whose pred_traj.txt already exists.")
     p.add_argument("--distributed", action="store_true",
-                   help="Join a multi-process group (not ported yet).")
+                   help="Join the process group torchrun describes: sequences "
+                        "shard by replica, aggregation runs on rank 0 after a barrier.")
     args = p.parse_args(argv)
-    check_ported(args)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed needs the parallel layer, which is not ported yet "
-            "(ROADMAP.md, Queue 1: Parallel)")
-    resolve_device(args.device)
+    _, mesh, shard = join_replicas(args)
 
     meta = REL_POSE_DATASETS[args.eval_dataset]
     img_path = os.path.join(args.data_root, meta["img_path"])
 
     if not args.no_inference:
         sequences = list_sequences(meta, img_path, args.seq_list)
-        pipeline, _ = build_pipeline(args)
+        pipeline, _ = build_pipeline(args, mesh)
         run_sequences(pipeline, args.eval_dataset, args.data_root,
                       args.output_dir, sequences,
                       pose_eval_stride=args.pose_eval_stride,
                       num_inference_steps=args.num_inference_step,
                       seed=args.seed, window_frames=args.window_frames,
                       temporal_stride=args.temporal_stride,
-                      target=tuple(args.target), resume=args.resume)
+                      target=tuple(args.target), resume=args.resume, **shard)
 
-    out = aggregate(args.output_dir)
-    print(json.dumps(out["average"], ensure_ascii=False))
+    barrier()  # every replica's files on disk (nothing in one process)
+    if is_main():
+        out = aggregate(args.output_dir)
+        print(json.dumps(out["average"], ensure_ascii=False))
 
 
 if __name__ == "__main__":

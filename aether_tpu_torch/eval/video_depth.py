@@ -15,11 +15,14 @@ at ``launch_aether.py:252``).
 
 Port of ``aether_tpu/eval/video_depth.py`` over the port's pipeline. The port
 has no ``defer_host``, so the (window x tile) grid runs as a plain loop in
-the JAX order, or, with ``batch_calls > 1``, in chunks through
-``batch_reconstruct``. ``main`` runs on the card by default (``--device``);
-``--dp``, ``--tp`` and ``--distributed`` raise ``NotImplementedError`` until
-the parallel layer is ported (ROADMAP.md, Queue 1: Parallel). Frames are read
-with ``imageio`` and resized with ``cv2``, both imported where they are used.
+the JAX order, or, with ``batch_calls > 1`` (by default the pipeline mesh's
+dp), in chunks through ``batch_reconstruct``. ``main`` runs on the card by
+default (``--device``). Under ``torchrun``, ``--distributed`` joins the
+process group and ``--dp/--tp`` give each replica of ``dp * tp`` ranks one
+mesh (``apps.demo.build_mesh``); sequences shard by replica (``rank // (dp *
+tp)``), the first rank of a replica writes its files, and rank 0 scores after
+a barrier (JAX ``main``). Frames are read with ``imageio`` and resized with
+``cv2``, both imported where they are used.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from aether_tpu_torch.eval.depth_metrics import (
     group_by_directory,
     weighted_average_metrics,
 )
-from aether_tpu_torch.eval.sharding import shard_sequences
+from aether_tpu_torch.eval.sharding import join_replicas, shard_sequences
 from aether_tpu_torch.geometry.transforms import compute_scale
 from aether_tpu_torch.utils.profiling import stage_timer
 
@@ -130,7 +133,7 @@ def _run_window_tile_grid(
     num_inference_steps: int,
     seed: int,
     fps: int,
-    batch_calls: int,
+    batch_calls: Optional[int],
 ) -> dict:
     """Run the (temporal window x spatial tile) grid of pipeline calls, in
     the JAX order (window-major).
@@ -151,6 +154,10 @@ def _run_window_tile_grid(
             jobs.append((ti, si))
             clips.append(clip)
 
+    if batch_calls is None:
+        from aether_tpu_torch.parallel.mesh import axis_size
+
+        batch_calls = axis_size(getattr(pipeline, "mesh", None), "dp")
     batch_calls = max(1, min(batch_calls, len(clips)))
 
     results: dict = {}
@@ -184,9 +191,11 @@ def process_with_sliding_window(
     tile: Tuple[int, int] = (480, 720),
     spatial_overlap: Tuple[int, int] = (60, 90),
     fps: int = 12,
-    batch_calls: int = 1,
+    batch_calls: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """2-D sliding-window inference; returns blended (rgb, disparity)."""
+    """2-D sliding-window inference; returns blended (rgb, disparity).
+    ``batch_calls`` clips share one ``batch_reconstruct``; None takes the
+    pipeline mesh's dp (1 without a mesh)."""
     t, h, w = video.shape[:3]
     while window_frames > t:
         window_frames -= 8
@@ -262,6 +271,7 @@ def run_sequences(
     process_index: Optional[int] = None,
     process_count: Optional[int] = None,
     resume: bool = False,
+    write: bool = True,
     **window_kwargs,
 ) -> List[str]:
     """Run sliding-window depth inference for this host's shard of sequences.
@@ -270,6 +280,8 @@ def run_sequences(
     failures are appended to a per-rank error log and skipped. With ``resume``,
     sequences whose outputs already exist are skipped (the reference's
     ``skip_condition`` resumable-eval hook, ``video_depth/metadata.py:18``).
+    ``write=False`` runs the inference and writes nothing (a rank of a mesh
+    other than its first).
     """
     from aether_tpu_torch.viz import depth_video_frames, save_video
 
@@ -298,6 +310,9 @@ def run_sequences(
                     pipeline, video, num_inference_steps=num_inference_steps,
                     seed=seed, **window_kwargs,
                 )
+            if not write:
+                done.append(seq)
+                continue
             depth = np.clip(
                 1.0 / np.clip(disparity, 1e-8, None), 0, 1e2
             )
@@ -311,9 +326,10 @@ def run_sequences(
                 np.save(os.path.join(seq_dir, f"frame_{i:04d}.npy"), frame)
             done.append(seq)
         except Exception as exc:  # log-and-skip per reference error policy
-            with open(error_log, "a") as f:
-                f.write(f"Exception in sequence {seq}: {exc}\n")
-                f.write(traceback.format_exc() + "\n")
+            if write:
+                with open(error_log, "a") as f:
+                    f.write(f"Exception in sequence {seq}: {exc}\n")
+                    f.write(traceback.format_exc() + "\n")
     return done
 
 
@@ -385,8 +401,9 @@ def evaluate_depth_predictions(
 
 
 def main(argv=None) -> None:
-    from aether_tpu_torch.apps.demo import RANDOM_INITS, build_pipeline, check_ported, resolve_device
+    from aether_tpu_torch.apps.demo import RANDOM_INITS, build_pipeline
     from aether_tpu_torch.eval.datasets import sequence_frames
+    from aether_tpu_torch.parallel import barrier, is_main
 
     p = argparse.ArgumentParser(description="video-depth benchmark (PyTorch)")
     p.add_argument("--eval_dataset", required=True,
@@ -415,20 +432,17 @@ def main(argv=None) -> None:
     p.add_argument("--spatial_overlap", type=int, nargs=2, default=(60, 90),
                    metavar=("H", "W"))
     p.add_argument("--dp", type=int, default=None,
-                   help="Data-parallel mesh axis (not ported yet).")
+                   help="Data-parallel mesh axis of each replica: clips batch "
+                        "dp-at-a-time through one denoise (batch_calls follows it).")
     p.add_argument("--tp", type=int, default=None,
-                   help="Tensor-parallel mesh axis (not ported yet).")
+                   help="Tensor-parallel mesh axis of each replica.")
     p.add_argument("--resume", action="store_true",
                    help="Skip sequences whose outputs already exist.")
     p.add_argument("--distributed", action="store_true",
-                   help="Join a multi-process group (not ported yet).")
+                   help="Join the process group torchrun describes: sequences "
+                        "shard by replica, scoring runs on rank 0 after a barrier.")
     args = p.parse_args(argv)
-    check_ported(args)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed needs the parallel layer, which is not ported yet "
-            "(ROADMAP.md, Queue 1: Parallel)")
-    device = resolve_device(args.device)
+    device, mesh, shard = join_replicas(args)
 
     meta = VIDEO_DEPTH_DATASETS[args.eval_dataset]
     img_path = os.path.join(args.data_root, meta["img_path"])
@@ -439,19 +453,21 @@ def main(argv=None) -> None:
             seq: sequence_frames(meta, img_path, seq, args.pose_eval_stride)
             for seq in sequences
         }
-        pipeline, _ = build_pipeline(args)
+        pipeline, _ = build_pipeline(args, mesh)
         run_sequences(pipeline, sequences, frame_lists, args.output_dir,
                       num_inference_steps=args.num_inference_step,
                       seed=args.seed, window_frames=args.window_frames,
                       temporal_stride=args.temporal_stride,
                       tile=tuple(args.tile),
                       spatial_overlap=tuple(args.spatial_overlap),
-                      resume=args.resume)
+                      resume=args.resume, **shard)
 
-    result = evaluate_depth_predictions(
-        args.output_dir, args.eval_dataset, args.data_root, align=args.align,
-        device=device)
-    print(json.dumps(result["summary"], ensure_ascii=False))
+    barrier()  # every replica's frames on disk (nothing in one process)
+    if is_main():
+        result = evaluate_depth_predictions(
+            args.output_dir, args.eval_dataset, args.data_root, align=args.align,
+            device=device)
+        print(json.dumps(result["summary"], ensure_ascii=False))
 
 
 if __name__ == "__main__":

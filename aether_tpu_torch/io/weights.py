@@ -7,7 +7,7 @@ trees, as the JAX ones do (``convert_dit_state_dict`` :51,
 
 - CogVideoXTransformer3DModel -> ``models.dit.DiT``. HF linears are already
   [out, in]; the patch conv [D, C, p, p] flattens to [D, C*p*p] (the
-  (c, ph, pw) token layout of ``DiT._patchify``); to_q/to_k/to_v stack into
+  (c, ph, pw) token layout of ``DiT._patch_tokens``); to_q/to_k/to_v stack into
   the fused ``attn.qkv`` [3D, D] in [q | k | v] order.
 - AutoencoderKLCogVideoX -> ``models.vae.VAE``. Causal convs drop their
   ``.conv`` level; the stride-2 / upsampling conv2d kernels gain a unit time

@@ -16,6 +16,13 @@ Attention takes one of two paths, as in the JAX module:
   attention: "flash" (kernel K4, when the fixed max is off), "flash_train"
   (K4 forward, blockwise backward), "chunked" or "xla" (plain PyTorch).
 
+Over a device mesh (``parallel.shard_params``) the same forward runs the
+JAX module's mesh branches (``dit.py:552-825``) in PyTorch's SPMD idiom: a
+block at tp > 1 does two all-reduces, after ``attn.o`` and after
+``mlp.w2`` (under w8a8 each is preceded by an all-reduce of the per-token
+activation maximum, [B, S, 1]); under sp each attention gathers K/V over sp
+(two all-gathers) or runs the ring.
+
 Numerics follow the JAX module: LayerNorm is the shifted single-pass form in
 f32; adaLN modulation, gates and GELU run in f32 and round to the compute
 dtype; linear layers return the input dtype.
@@ -35,10 +42,12 @@ w2 products to int8 per token where the codes are int8 (w8a8, through
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -50,7 +59,11 @@ from aether_tpu_torch.ops.chunked_attention import (
     chunked_attention,
     flash_attention_trainable,
 )
-from aether_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+from aether_tpu_torch.ops.flash_attention import (
+    attention_reference,
+    flash_attention,
+    ring_attention,
+)
 from aether_tpu_torch.utils.env import env_flag
 
 ATTN_IMPLS = ("flash", "flash_train", "chunked", "xla")
@@ -274,62 +287,143 @@ class Attention(nn.Module):
         self.cfg = cfg
 
     def forward(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, attn_opts: dict,
-                a8: bool = False):
+                a8: bool = False, sp: Optional["SeqStripe"] = None):
         if attn_impl == "fused":
             out = self._fused(hidden, enc, rope_cos, rope_sin, attn_opts["qk_int8"], a8)
         else:
-            out = self._unfused(hidden, enc, rope_cos, rope_sin, attn_impl, attn_opts, a8)
+            out = self._unfused(hidden, enc, rope_cos, rope_sin, attn_impl, attn_opts, a8, sp)
         text_len = enc.shape[1]
         return out[:, text_len:], out[:, :text_len]
 
     def _fused(self, hidden, enc, rope_cos, rope_sin, qk_int8: bool, a8: bool):
         cfg = self.cfg
         s = enc.shape[1] + hidden.shape[1]
-        d = cfg.hidden_size
         # the token padding to the kernel's tile multiple rides the joint
         # concat, and the qkv matmul runs over the padded rows
         s_pad = _pick_pad_and_block(s, 1024)[0]
         parts = [enc, hidden]
         if s_pad != s:
             parts.append(hidden.new_zeros(hidden.shape[0], s_pad - s, hidden.shape[-1]))
-        y = self.qkv(torch.cat(parts, dim=1), a8)  # [B, S_pad, 3D]
+        # [B, S_pad, 3D]; under tp this rank's [q_r | k_r | v_r], its heads
+        y = self.qkv(torch.cat(parts, dim=1), a8)
+        d = y.shape[-1] // 3
         attn = fused_joint_attention(
             y[..., :d], y[..., d:2 * d], y[..., 2 * d:],
             self.norm_q_scale, self.norm_q_bias,
             self.norm_k_scale, self.norm_k_bias, rope_cos, rope_sin,
-            num_heads=cfg.num_heads, head_dim=cfg.head_dim, eps=cfg.qk_norm_eps,
+            num_heads=d // cfg.head_dim, head_dim=cfg.head_dim, eps=cfg.qk_norm_eps,
             quantize=qk_int8, s_valid=s,
         )
         return self.o(attn[:, :s], a8)
 
     def _unfused(self, hidden, enc, rope_cos, rope_sin, attn_impl: str, attn_opts: dict,
-                 a8: bool):
+                 a8: bool, sp: Optional["SeqStripe"] = None):
         cfg = self.cfg
-        nh, hd = cfg.num_heads, cfg.head_dim
+        hd = cfg.head_dim
         x = torch.cat([enc, hidden], dim=1)  # text first
         b, s, _ = x.shape
+        # under tp the fused projection holds this rank's heads only
+        q, k, v = self.qkv(x, a8).chunk(3, dim=-1)
+        nh = q.shape[-1] // hd
 
         def heads(t):
             return t.reshape(b, s, nh, hd).transpose(1, 2)
 
-        q, k, v = self.qkv(x, a8).chunk(3, dim=-1)
         q = layer_norm(heads(q), self.norm_q_scale, self.norm_q_bias, cfg.qk_norm_eps)
         k = layer_norm(heads(k), self.norm_k_scale, self.norm_k_bias, cfg.qk_norm_eps)
         v = heads(v)
         if rope_cos is not None:
             q = apply_rotary_emb(q, rope_cos, rope_sin)
             k = apply_rotary_emb(k, rope_cos, rope_sin)
-        if attn_impl == "flash":
-            attn = flash_attention(q, k, v, **attn_opts)
-        elif attn_impl == "flash_train":
-            attn = flash_attention_trainable(q, k, v)
-        elif attn_impl == "chunked":
-            attn = chunked_attention(q, k, v)
-        elif attn_impl == "xla":
-            attn = attention_reference(q, k, v)
+        if sp is None:
+            attn = _attend(q, k, v, attn_impl, attn_opts)
         else:
-            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+            attn = sp.attend(q, k, v, attn_impl, attn_opts)
         return self.o(attn.transpose(1, 2).reshape(b, s, nh * hd), a8)
+
+
+def _attend(q, k, v, attn_impl: str, attn_opts: dict, kv_valid: Optional[int] = None):
+    """The unfused path's attention by ``attn_impl``; ``kv_valid`` (the flash
+    kernels only) treats the first ``kv_valid`` k/v rows as real."""
+    if attn_impl == "flash":
+        if kv_valid is not None:
+            attn_opts = dict(attn_opts, kv_valid=kv_valid)
+        return flash_attention(q, k, v, **attn_opts)
+    if attn_impl == "flash_train":
+        return flash_attention_trainable(q, k, v)
+    if attn_impl == "chunked":
+        return chunked_attention(q, k, v)
+    if attn_impl == "xla":
+        return attention_reference(q, k, v)
+    raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+
+
+def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``t`` of every rank of ``group`` concatenated along ``dim`` in rank
+    order."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqStripe:
+    """This rank's stripe of the joint token stream under an sp mesh
+    (JAX ``_sp_token_constraint`` / ``_sharded_flash_attention``): the
+    ``seq`` tokens, text first, padded to ``seq_pad`` (an sp multiple) and
+    cut into ``size`` equal stripes; this rank holds stripe ``rank``.
+
+    Every token-wise op runs on the stripe alone. The attention zeroes the
+    stripe's pad rows (as JAX pads q/k/v with zeros) and then either
+    gathers K/V over sp, the kernel masking the pad rows through
+    ``kv_valid`` (the default), or, with ``ring`` (``AETHER_SP_RING=1``),
+    where the fixed max is on and ``pv_int8`` off as at JAX ``:713``, runs
+    :func:`ring_attention`."""
+
+    group: object
+    size: int
+    rank: int
+    seq: int
+    seq_pad: int
+    ring: bool
+
+    @property
+    def rows(self) -> int:
+        return self.seq_pad // self.size
+
+    @property
+    def start(self) -> int:
+        return self.rank * self.rows
+
+    def attend(self, q, k, v, attn_impl: str, attn_opts: dict):
+        """q/k/v [B, H, rows, D] of this stripe -> its attention output."""
+        if self.seq_pad != self.seq:
+            pos = torch.arange(self.start, self.start + self.rows, device=q.device)
+            pad = (pos >= self.seq)[:, None]
+            q, k, v = (t.masked_fill(pad, 0) for t in (q, k, v))
+        if (self.ring and attn_impl == "flash" and attn_opts["fixed_max"]
+                and not attn_opts["pv_int8"]):
+            return ring_attention(q, k, v, self.group, n_pad=self.seq_pad - self.seq,
+                                  qk_int8=attn_opts["qk_int8"])
+        k = all_gather_cat(k, 2, self.group)
+        v = all_gather_cat(v, 2, self.group)
+        if attn_impl == "flash":
+            kv_valid = self.seq if self.seq_pad != self.seq else None
+            return _attend(q, k, v, attn_impl, attn_opts, kv_valid)
+        return _attend(q, k[:, :, :self.seq], v[:, :, :self.seq], attn_impl, attn_opts)
+
+
+def fused_mesh_ok(mesh, num_heads: int, batch: int) -> bool:
+    """JAX ``_fused_mesh_ok``: a mesh where neither tp (heads divisible) nor
+    dp (batch divisible) shards the attention takes the unfused path rather
+    than the fused chain unsharded."""
+    from aether_tpu_torch.parallel.mesh import axis_size
+
+    tp, dp = axis_size(mesh, "tp"), axis_size(mesh, "dp")
+    if tp <= 1 and dp <= 1:
+        return True
+    return (tp > 1 and num_heads % tp == 0) or (dp > 1 and batch % dp == 0)
 
 
 class MLP(nn.Module):
@@ -354,10 +448,10 @@ class Block(nn.Module):
         self.eps = cfg.norm_eps
 
     def forward(self, hid, enc, temb, rope_cos, rope_sin, attn_impl: str,
-                attn_opts: dict, act_quant: bool = False):
+                attn_opts: dict, act_quant: bool = False, sp: Optional[SeqStripe] = None):
         h_n, e_n, gate, e_gate = self.norm1(hid, enc, temb, self.eps)
         attn_h, attn_e = self.attn(h_n, e_n, rope_cos, rope_sin, attn_impl, attn_opts,
-                                   act_quant)
+                                   act_quant, sp)
         hid = hid + (gate * attn_h.float()).to(hid.dtype)
         enc = enc + (e_gate * attn_e.float()).to(enc.dtype)
 
@@ -380,10 +474,18 @@ class TimeEmbedding(nn.Module):
 
 
 class DiT(nn.Module):
-    """The denoiser. ``forward`` mirrors ``aether_tpu.models.dit.dit_forward``
-    without a mesh: the fused prologue path by default, the unfused one at
-    the other ``attn_impl`` values, with the fixed max off, under
-    ``fused_qkv=False`` (AETHER_ATTN_FUSED=0) or with ``pv_int8``."""
+    """The denoiser. ``forward`` mirrors ``aether_tpu.models.dit.dit_forward``:
+    the fused prologue path by default, the unfused one at the other
+    ``attn_impl`` values, with the fixed max off, under ``fused_qkv=False``
+    (AETHER_ATTN_FUSED=0) or with ``pv_int8``.
+
+    Over a mesh (``self.mesh``, set by ``parallel.shard_params``, one process
+    per card): tp runs this rank's heads and MLP columns, the split layers
+    summing over tp; dp runs this rank's rows of a batch that dp divides (the
+    CFG pair) and gathers the outputs; sp stripes the joint token stream
+    (:class:`SeqStripe`, which takes the unfused path) and gathers the video
+    rows of the output head. A mesh where neither tp nor dp shards the
+    attention takes the unfused path (:func:`fused_mesh_ok`)."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
@@ -403,14 +505,25 @@ class DiT(nn.Module):
         self.norm_out_ln_scale = nn.Parameter(torch.empty(d))
         self.norm_out_ln_bias = nn.Parameter(torch.empty(d))
         self.proj_out = Linear(d, p * p * cfg.out_channels)
+        # the device mesh of ``parallel.shard_params``; None runs on one card
+        self.mesh = None
 
-    def _patchify(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, F, C, H, W] -> [B, F*(H/p)*(W/p), D]; token features ordered
-        (c, ph, pw) like a torch Conv2d(k=p, s=p)."""
+    def _patch_tokens(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, F, C, H, W] -> [B, F*(H/p)*(W/p), C*p*p], the input of
+        ``self.proj``; token features ordered (c, ph, pw) like a torch
+        Conv2d(k=p, s=p)."""
         b, f, c, h, w = x.shape
         p = self.cfg.patch_size
         x = x.reshape(b, f, c, h // p, p, w // p, p).permute(0, 1, 3, 5, 2, 4, 6)
-        return self.proj(x.reshape(b, f * (h // p) * (w // p), c * p * p))
+        return x.reshape(b, f * (h // p) * (w // p), c * p * p)
+
+    def _axes(self):
+        """(dp, tp, sp) sizes of ``self.mesh``; all 1 without one."""
+        if self.mesh is None:
+            return 1, 1, 1
+        from aether_tpu_torch.parallel.mesh import axis_size
+
+        return tuple(axis_size(self.mesh, name) for name in ("dp", "tp", "sp"))
 
     def _unpatchify(self, tokens, f: int, hp: int, wp: int) -> torch.Tensor:
         b = tokens.shape[0]
@@ -466,23 +579,43 @@ class DiT(nn.Module):
             raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
         fixed_max, qk_int8, pv_int8, fused_qkv = resolve_attention(
             fixed_max, qk_int8, pv_int8, fused_qkv)
-        if attn_impl == "flash" and fused_qkv and fixed_max and not pv_int8:
+        b, f, _, h, w = hidden_states.shape
+        dp, _, sp = self._axes()
+        # the fused path needs whole sequences (sp 1) and a mesh that shards
+        # it (JAX dit.py:819-825)
+        if (attn_impl == "flash" and fused_qkv and fixed_max and not pv_int8 and sp <= 1
+                and fused_mesh_ok(self.mesh, cfg.num_heads, b)):
             attn_impl = "fused"
         attn_opts = dict(fixed_max=fixed_max, qk_int8=qk_int8, pv_int8=pv_int8)
-        b, f, _, h, w = hidden_states.shape
         p = cfg.patch_size
         dtype = hidden_states.dtype
+        if collect_blocks and (dp > 1 or sp > 1):
+            raise ValueError("collect_blocks needs the whole batch and sequence on "
+                             "every rank (no dp or sp axis)")
+        # dp: this rank runs its rows of the batch (the CFG pair, a batch of
+        # windows) and the ranks gather the outputs at the end
+        split_batch = dp > 1 and b % dp == 0
+        if split_batch:
+            from aether_tpu_torch.parallel.mesh import axis_rank
+
+            n, r = b // dp, axis_rank(self.mesh, "dp")
+            rows = slice(r * n, (r + 1) * n)
+            hidden_states = hidden_states[rows]
+            if encoder_hidden_states.shape[0] == b:
+                encoder_hidden_states = encoder_hidden_states[rows]
+            if timestep.shape[0] == b:
+                timestep = timestep[rows]
 
         t_emb = timestep_embedding(timestep, cfg.hidden_size, cfg.flip_sin_to_cos,
                                    cfg.freq_shift).to(dtype)
         temb = self.time_embed(t_emb)
 
-        video = self._patchify(hidden_states)
-        text = self.text_proj(encoder_hidden_states.to(dtype))
+        tokens = self._patch_tokens(hidden_states)
+        text_in = encoder_hidden_states.to(dtype)
 
         # the video tables extend over the text prefix with the identity
         # rotation (cos 1, sin 0): text tokens get no RoPE
-        text_len = text.shape[1]
+        text_len = text_in.shape[1]
         if rope_cos is not None:
             dev = hidden_states.device
             hd = rope_cos.shape[-1]
@@ -493,9 +626,15 @@ class DiT(nn.Module):
         else:
             rc = rs = None
 
+        stripe = None
+        if sp > 1:
+            stripe, text_in, tokens, rc, rs = self._stripe(text_in, tokens, rc, rs, sp)
+        video = self.proj(tokens)
+        text = self.text_proj(text_in)
+
         collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for block in self.blocks:
-            args = (video, text, temb, rc, rs, attn_impl, attn_opts, act_quant)
+            args = (video, text, temb, rc, rs, attn_impl, attn_opts, act_quant, stripe)
             if remat:
                 video, text = checkpoint(block, *args, use_reentrant=False)
             else:
@@ -506,16 +645,42 @@ class DiT(nn.Module):
         joint = torch.cat([text, video], dim=1)
         joint = layer_norm(joint, self.norm_final_scale, self.norm_final_bias,
                            cfg.norm_eps)
-        x = joint[:, text_len:]
+        # under sp every row of the stripe goes through the (token-wise)
+        # head, and the video rows are cut after the gather
+        x = joint if stripe is not None else joint[:, text_len:]
         ada = self.norm_out(F.silu(temb.float()).to(dtype)).float()
         shift, scale = ada.chunk(2, dim=-1)
         x = layer_norm(x, self.norm_out_ln_scale, self.norm_out_ln_bias, cfg.norm_eps)
         x = (x.float() * (1 + scale[:, None]) + shift[:, None]).to(dtype)
         x = self.proj_out(x)
+        if stripe is not None:
+            x = all_gather_cat(x, 1, stripe.group)[:, text_len:stripe.seq]
         out = self._unpatchify(x, f, h // p, w // p)
+        if split_batch:
+            out = all_gather_cat(out, 0, self.mesh.get_group("dp"))
         if collect_blocks:
             return out, collected
         return out
+
+    def _stripe(self, text_in, tokens, rc, rs, sp: int):
+        """This rank's stripe of the joint stream (text first, padded with
+        zero rows to an sp multiple; JAX ``_sp_concat_tokens``): the
+        :class:`SeqStripe`, and its rows of the text embeddings, the patch
+        tokens and the RoPE tables (pad rows rotate by the identity)."""
+        from aether_tpu_torch.parallel.mesh import axis_rank
+
+        tl, seq = text_in.shape[1], text_in.shape[1] + tokens.shape[1]
+        seq_pad = -(-seq // sp) * sp
+        stripe = SeqStripe(self.mesh.get_group("sp"), sp, axis_rank(self.mesh, "sp"),
+                           seq, seq_pad, env_flag("AETHER_SP_RING", False))
+        lo, hi = stripe.start, stripe.start + stripe.rows
+        tokens = F.pad(tokens, (0, 0, 0, seq_pad - seq))
+        text_in = text_in[:, min(lo, tl):min(hi, tl)]
+        tokens = tokens[:, max(lo - tl, 0):max(hi - tl, 0)]
+        if rc is not None:
+            rc = F.pad(rc, (0, 0, 0, seq_pad - seq), value=1.0)[lo:hi]
+            rs = F.pad(rs, (0, 0, 0, seq_pad - seq))[lo:hi]
+        return stripe, text_in, tokens, rc, rs
 
 
 @torch.no_grad()

@@ -879,3 +879,113 @@ def flash_attention(
 
 # wrapper calls that launched the Hopper kernel (a plain integer)
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# ring attention: the sequence-parallel merge of K3 calls
+# ---------------------------------------------------------------------------
+
+
+def _row_norm_max(x: torch.Tensor) -> torch.Tensor:
+    """sqrt of the largest squared row norm of x, over every row (f32)."""
+    return x.float().square().sum(dim=-1).amax().sqrt()
+
+
+def ring_step(q, k, v, bound, *, sm_scale=None, qk_int8: bool = False,
+              heads_per_cell: int = 4):
+    """One stripe of the ring: K3 over q against one K/V stripe, unnormalized,
+    shifted by the shared ``bound``. Returns (o, l): the numerator in q's
+    dtype and the f32 denominator [B, H, Sq, 1]."""
+    return flash_attention(q, k, v, sm_scale=sm_scale, fixed_max=True, noshift=False,
+                           qk_int8=qk_int8, score_bound=bound, unnormalized=True,
+                           heads_per_cell=heads_per_cell)
+
+
+def ring_finish(num: torch.Tensor, den: torch.Tensor, bound, n_pad: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Normalize the merged stripes: the exact pad correction ``den -= n_pad *
+    2^-bound`` (each zero k row scored 0 and added 2^-bound to every
+    denominator; its zero v row added nothing), a denominator <= 0 divides by
+    1, the quotient in ``dtype``."""
+    if n_pad:
+        den = den - n_pad * torch.exp2(-torch.as_tensor(bound, dtype=torch.float32,
+                                                       device=den.device))
+    den = torch.where(den <= 0.0, torch.ones_like(den), den)
+    return (num / den).to(dtype)
+
+
+def ring_rotate(k: torch.Tensor, v: torch.Tensor, group):
+    """One hop of the ring: send k and v to the previous rank of ``group``,
+    receive the next rank's (JAX's ``ppermute`` with perm j -> j - 1), through
+    one ``batch_isend_irecv``."""
+    import torch.distributed as dist
+
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me - 1) % n)
+    src = dist.get_global_rank(group, (me + 1) % n)
+    k, v = k.contiguous(), v.contiguous()
+    k_next, v_next = torch.empty_like(k), torch.empty_like(v)
+    ops = [dist.P2POp(dist.isend, k, dst, group),
+           dist.P2POp(dist.isend, v, dst, group),
+           dist.P2POp(dist.irecv, k_next, src, group),
+           dist.P2POp(dist.irecv, v_next, src, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return k_next, v_next
+
+
+def ring_attention(q, k, v, group, *, n_pad: int = 0, sm_scale=None,
+                   qk_int8: bool = False, heads_per_cell: int = 4) -> torch.Tensor:
+    """Ring (sequence-parallel) attention over the ranks of ``group``.
+
+    Port of ``aether_tpu/ops/flash_attention.py::ring_attention``. q/k/v
+    [B, H, S/n, D] are this rank's token stripe of a sequence striped over
+    the n ranks (the padded sequence's ``n_pad`` zero rows lie in the last
+    stripe). One shared Cauchy-Schwarz bound (the local q row-norm max times
+    the k row-norm max over the group, one ``all_reduce(MAX)``; log2 domain)
+    shifts every stripe's K3 call alike, so the stripes' numerators and
+    denominators add in f32 with no rescaling. K/V rotate one hop a step
+    (:func:`ring_rotate`). Then :func:`ring_finish`. ``qk_int8`` quantizes
+    each stripe by itself."""
+    import torch.distributed as dist
+
+    if sm_scale is None:
+        sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+    nk = _row_norm_max(k)
+    dist.all_reduce(nk, op=dist.ReduceOp.MAX, group=group)
+    bound = _row_norm_max(q) * nk * (sm_scale * _LOG2E)
+    n = dist.get_world_size(group)
+    num = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    den = torch.zeros((*q.shape[:3], 1), dtype=torch.float32, device=q.device)
+    for step in range(n):
+        o, l = ring_step(q, k, v, bound, sm_scale=sm_scale, qk_int8=qk_int8,
+                         heads_per_cell=heads_per_cell)
+        num, den = num + o.float(), den + l
+        if step != n - 1:
+            k, v = ring_rotate(k, v, group)
+    return ring_finish(num, den, bound, n_pad, q.dtype)
+
+
+def ring_attention_stripes(qs, ks, vs, *, n_pad: int = 0, sm_scale=None,
+                           qk_int8: bool = False, heads_per_cell: int = 4):
+    """The ring's arithmetic in one process, with no process group: the
+    stripes ``qs`` / ``ks`` / ``vs`` of one sequence (lists, in order) go
+    through :func:`ring_step` and the merge exactly as the ranks of
+    :func:`ring_attention` would run them (stripe i meets the K/V stripes i,
+    i + 1, ... in that order). Returns the output stripes."""
+    if sm_scale is None:
+        sm_scale = 1.0 / (qs[0].shape[-1] ** 0.5)
+    n = len(qs)
+    nk = torch.stack([_row_norm_max(k) for k in ks]).amax()
+    outs = []
+    for i, q in enumerate(qs):
+        bound = _row_norm_max(q) * nk * (sm_scale * _LOG2E)
+        num = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        den = torch.zeros((*q.shape[:3], 1), dtype=torch.float32, device=q.device)
+        for step in range(n):
+            j = (i + step) % n
+            o, l = ring_step(q, ks[j], vs[j], bound, sm_scale=sm_scale, qk_int8=qk_int8,
+                             heads_per_cell=heads_per_cell)
+            num, den = num + o.float(), den + l
+        outs.append(ring_finish(num, den, bound, n_pad, q.dtype))
+    return outs

@@ -34,7 +34,17 @@ Each stage runs inside a ``utils.profiling.stage_timer`` under the JAX
 pipeline's stage name (``vae_encode``, ``denoise``, ``vae_decode``), so a
 front-end's stage listeners see it; ``stage_seconds`` keeps the short keys.
 
-Not in this slice (ROADMAP.md): meshes, the CFG prefix skip, compact wires and
+With a mesh (``AetherPipeline(..., mesh=parallel.make_mesh(...))``, one
+process per card, every rank running the same calls with the same seed): the
+DiT is split by ``parallel.shard_params`` (tp) and runs its batch rows and
+token stripes by itself (dp, sp); the VAE is whole on every rank; the CFG
+pair's batch rides dp inside the DiT; the windows of ``batch_reconstruct``
+ride dp through the encode and the DiT (a short batch padded to a dp
+multiple by repeating its last window); the stacked RGB + disparity decode
+rides dp where dp divides its 2B streams. Every rank ends with the whole
+outputs.
+
+Not in this slice (ROADMAP.md): the CFG prefix skip, compact wires and
 ``defer_host``.
 """
 
@@ -50,7 +60,7 @@ import numpy as np
 import torch
 
 from aether_tpu_torch.config import PipelineConfig
-from aether_tpu_torch.models.dit import DiT
+from aether_tpu_torch.models.dit import DiT, all_gather_cat
 from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
 from aether_tpu_torch.models.vae import VAE, decode_frames, encode_moments
 from aether_tpu_torch.schedule.dpm import (
@@ -273,6 +283,21 @@ def _tiled_moments(config: PipelineConfig, vae: VAE, video: torch.Tensor,
     return merged
 
 
+def _dp_rows(mesh, n: int):
+    """(this dp rank's rows of a batch of ``n``, the dp group) when the
+    mesh's dp axis (> 1) divides ``n``; None otherwise (every rank runs the
+    whole batch)."""
+    if mesh is None:
+        return None
+    from aether_tpu_torch.parallel.mesh import axis_rank, axis_size
+
+    dp = axis_size(mesh, "dp")
+    if dp <= 1 or n % dp:
+        return None
+    m, r = n // dp, axis_rank(mesh, "dp")
+    return slice(r * m, (r + 1) * m), mesh.get_group("dp")
+
+
 def _encode_pixels(config: PipelineConfig, dtype, vae: VAE, frames: torch.Tensor,
                    draw, tiling: bool, **kw) -> torch.Tensor:
     """One window's encode: (F, H, W, 3) -> (1, F_lat, C, h, w), as
@@ -283,7 +308,7 @@ def _encode_pixels(config: PipelineConfig, dtype, vae: VAE, frames: torch.Tensor
 def _encode_windows(config: PipelineConfig, dtype, vae: VAE, video: torch.Tensor,
                     draw, tiling: bool, frame_batch_size: int = 8,
                     tile_latent: Tuple[int, int] = (32, 90),
-                    min_overlap: Tuple[int, int] = (4, 6)) -> torch.Tensor:
+                    min_overlap: Tuple[int, int] = (4, 6), mesh=None) -> torch.Tensor:
     """Encode of (B, F, H, W, 3) in [-1, 1] -> scaled (B, F_lat, C, h, w):
     per window, 8-frame chunks, tiled with feathered latent seams when
     ``tiling`` (and more than one tile covers the frame); then ONE posterior
@@ -296,9 +321,12 @@ def _encode_windows(config: PipelineConfig, dtype, vae: VAE, video: torch.Tensor
     on the VAE's batch axis: on one H100 a batch-2 encode is no faster than
     two batch-1 encodes, and cuDNN picks other algorithms (and output
     layouts) at batch 2, so one window at a time gives each window the
-    moments of a serial call bit for bit."""
+    moments of a serial call bit for bit. Under a mesh whose dp axis divides
+    B, each dp rank encodes its windows and the moments are gathered before
+    the draw (JAX: the window batch sharded over dp, :477, :549)."""
+    split = _dp_rows(mesh, video.shape[0])
     means, logvars = [], []
-    for window in video:
+    for window in (video if split is None else video[split[0]]):
         moments = None
         if tiling:
             moments = _tiled_moments(config, vae, window[None], frame_batch_size,
@@ -308,6 +336,8 @@ def _encode_windows(config: PipelineConfig, dtype, vae: VAE, video: torch.Tensor
         means.append(moments[0])
         logvars.append(moments[1])
     mean, logvar = torch.cat(means), torch.cat(logvars)
+    if split is not None:
+        mean, logvar = (all_gather_cat(t, 0, split[1]) for t in (mean, logvar))
     noise = None if draw is None else _draw(draw, mean.shape, True)
     return _finish_encode(config, dtype, mean, logvar, noise)
 
@@ -350,14 +380,21 @@ def _decode_pixels_tiled(config: PipelineConfig, dtype, vae: VAE,
 
 
 def _decode_rgb_and_disparity(config: PipelineConfig, dtype, vae: VAE,
-                              latents: torch.Tensor, tiling: bool):
+                              latents: torch.Tensor, tiling: bool, mesh=None):
     """RGB and disparity 16-channel streams decoded as ONE batch-2B pass.
-    Returns (rgb, disparity_raw), each (B, F, H, W, 3) in ``dtype``."""
+    Under a mesh whose dp axis divides 2B, each dp rank decodes its streams
+    (at dp = 2 and B = 1, RGB on one rank and disparity on the other) and the
+    ranks gather them (JAX :914-921). Returns (rgb, disparity_raw), each
+    (B, F, H, W, 3) in ``dtype``."""
     lat_c = config.vae.latent_channels
     b = latents.shape[0]
     both = torch.cat([latents[:, :, :lat_c], latents[:, :, lat_c:2 * lat_c]], dim=0)
     decode = _decode_pixels_tiled if tiling else _decode_pixels
-    out = decode(config, dtype, vae, both)
+    split = _dp_rows(mesh, 2 * b)
+    if split is None:
+        out = decode(config, dtype, vae, both)
+    else:
+        out = all_gather_cat(decode(config, dtype, vae, both[split[0]]), 0, split[1])
     return out[:b], out[b:]
 
 
@@ -446,15 +483,23 @@ class AetherPipeline:
     device. ``empty_prompt_embeds`` is the cached (1, 226, 4096) empty-prompt
     T5 embedding. ``act_quant`` runs the DiT's int8 codes with int8
     activations (w8a8); the models move to ``device`` with their dtypes kept
-    (a quantized DiT keeps its codes and f32 scales)."""
+    (a quantized DiT keeps its codes and f32 scales). ``mesh`` (a
+    ``parallel.make_mesh`` mesh holding this rank) splits the DiT by
+    ``parallel.shard_params`` and runs the pipeline over the mesh (see the
+    module docstring); every rank of it must make the same calls."""
 
     def __init__(self, config: PipelineConfig, dit: DiT, vae: VAE,
                  empty_prompt_embeds, *, device=None, compute_dtype=torch.bfloat16,
-                 act_quant: bool = False):
+                 act_quant: bool = False, mesh=None):
         self.config = config
         self.device = torch.device(device) if device is not None else next(
             dit.parameters()).device
         self.dit = dit.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            from aether_tpu_torch.parallel.mesh import shard_params
+
+            shard_params(self.dit, mesh)
         self.vae = vae.to(self.device).eval()
         self.compute_dtype = compute_dtype
         self.act_quant = act_quant
@@ -594,7 +639,7 @@ class AetherPipeline:
 
         # ---- stage 3: stacked decode + output transforms ----
         with _stage("decode", times, dev):
-            out = self._decode_window(latents, tiling, num_frames)
+            out = self._decode_windows(latents, tiling, num_frames)[0]
         out.stage_seconds = times
         return out
 
@@ -613,18 +658,19 @@ class AetherPipeline:
                                   base_fps=cfg.base_fps, fps=fps))
         return timesteps, plan, rope_cos, rope_sin
 
-    def _decode_window(self, latents: torch.Tensor, tiling: bool,
-                       num_frames: int) -> AetherPipelineOutput:
-        """One window's (1, F_lat, 56, h, w) latents -> host outputs: the RGB
-        and disparity streams in one batch-2 decode, the raymap unfolded."""
+    def _decode_windows(self, latents: torch.Tensor, tiling: bool,
+                        num_frames: int) -> list:
+        """(B, F_lat, 56, h, w) latents -> B host outputs: the RGB and
+        disparity streams in one batch-2B decode, the raymaps unfolded."""
         cfg, dtype = self.config, self.compute_dtype
         lat_c = cfg.vae.latent_channels
-        rgb, disparity = _decode_rgb_and_disparity(cfg, dtype, self.vae, latents, tiling)
-        return AetherPipelineOutput(
-            rgb=_finish_rgb(rgb)[0].cpu().numpy(),
-            disparity=_finish_disparity(disparity)[0].cpu().numpy(),
-            raymap=unpack_raymap(latents[:, :, 2 * lat_c:].float(),
-                                 num_frames)[0].cpu().numpy())
+        rgb, disparity = _decode_rgb_and_disparity(cfg, dtype, self.vae, latents, tiling,
+                                                   self.mesh)
+        rgb = _finish_rgb(rgb).cpu().numpy()
+        disparity = _finish_disparity(disparity).cpu().numpy()
+        raymap = unpack_raymap(latents[:, :, 2 * lat_c:].float(), num_frames).cpu().numpy()
+        return [AetherPipelineOutput(rgb=rgb[i], disparity=disparity[i], raymap=raymap[i])
+                for i in range(latents.shape[0])]
 
     @torch.no_grad()
     def batch_reconstruct(
@@ -653,11 +699,25 @@ class AetherPipeline:
         with the DiT resident), leaving no margin on an 80 GB card; every VAE
         op is per sample, so the outputs are the same. ``noise`` replaces the
         default :class:`TorchNoise` (it needs ``posterior``, ``initial`` and
-        ``sde``).
+        ``sde``). Under a mesh the windows ride dp (JAX :1553-1565): a batch
+        that dp does not divide is padded by repeating its last window, the
+        encode splits the windows over the dp ranks, and so does the stacked
+        decode of all 2B streams; the padding's outputs are dropped.
         Returns one :class:`AetherPipelineOutput` per window; each carries the
         batch's stage times."""
         cfg = self.config
         videos = np.asarray(videos)
+        n_windows = videos.shape[0]
+        if self.mesh is not None:
+            from aether_tpu_torch.parallel.mesh import axis_size
+
+            # the batch rides dp: a short (tail) batch is padded to a dp
+            # multiple by repeating its last window, whose outputs are dropped
+            # (every window draws the same noise, so the copies are exact)
+            dp = axis_size(self.mesh, "dp")
+            if dp > 1 and n_windows % dp:
+                videos = np.concatenate(
+                    [videos, np.repeat(videos[-1:], dp - n_windows % dp, axis=0)])
         bsz = videos.shape[0]
         height = height or videos.shape[2]
         width = width or videos.shape[3]
@@ -680,7 +740,7 @@ class AetherPipeline:
         with _stage("encode", times, dev):
             condition = _encode_windows(cfg, dtype, self.vae,
                                         _u8_to_unit(pixels, dtype, dev), noise.posterior,
-                                        tiling)
+                                        tiling, mesh=self.mesh)
             camera = torch.zeros((bsz, f_lat, 24, h_lat, w_lat), dtype=dtype, device=dev)
             condition_latents = torch.cat([condition, camera], dim=2)
 
@@ -691,8 +751,13 @@ class AetherPipeline:
                                act_quant=self.act_quant)
 
         with _stage("decode", times, dev):
-            outs = [self._decode_window(latents[i:i + 1], tiling, num_frames)
-                    for i in range(bsz)]
+            if _dp_rows(self.mesh, 2 * bsz) is not None:
+                # the stacked 2B streams over the dp ranks
+                outs = self._decode_windows(latents, tiling, num_frames)
+            else:
+                outs = [self._decode_windows(latents[i:i + 1], tiling, num_frames)[0]
+                        for i in range(bsz)]
+        outs = outs[:n_windows]
         for out in outs:
             out.stage_seconds = times
         return outs

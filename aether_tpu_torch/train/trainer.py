@@ -377,8 +377,9 @@ def main(argv=None) -> None:
     for flag in ("dp", "tp", "pp", "fsdp"):
         if getattr(args, flag):
             raise NotImplementedError(
-                f"--{flag} needs the parallel layer, which is not ported yet "
-                "(ROADMAP.md, queue 1: Parallel)")
+                f"--{flag}: parallel training (FSDP on dp, the pp schedule) is not "
+                "ported yet; the parallel layer covers inference (ROADMAP.md, queue 1: "
+                "Parallel, training)")
     init_params = None
     if args.init_checkpoint:
         from aether_tpu_torch.io.weights import load_state_dicts

@@ -180,6 +180,28 @@ Phase of the training-data slice, after 20, on the phase-5 pipeline:
      and ``latent_batches`` at its defaults gives the six batches (two
      epochs) of ``native_prefetch=False`` bit for bit. Phase 9 trains on
      these files.
+Phase of the parallel slice, after 21, on the phase-5 pipeline
+(``parallel_phase``):
+ 22. (a) a process group of one rank through NCCL in this process,
+     ``parallel.make_mesh()``, and phase 6's request through an
+     ``AetherPipeline`` built over the mesh (the phase-5 DiT and VAE), full
+     width and depth: bit-identical to phase 6's request 0, 168 K1 and K2
+     launches and K5 at its count; (b) two ranks spawned
+     (``parallel.launch.spawn``) on cuda:0 over gloo (NCCL refuses two ranks
+     on one card; gloo has all-reduce for CUDA tensors but no send/recv, so
+     the ring's transport is tested on the CPU only), each holding half of
+     the seeded AetherV1-width DiT cut to 2 blocks (``tp = 2``: 24 heads a
+     rank), one forward of the blocks on the 15076-token window through K1 +
+     K2, held against the one-process forward of the same blocks at the
+     gates of ``bf16_gates``, exactly 2 K1 and 2 K2 launches a rank; rank 0
+     alone then checks K1 and K2 at 24 heads against their plain versions
+     (phase 3's and phase 4's gates) and times them; (c) ``ring_attention_stripes``
+     (the ring's K3 steps and f32 merge, no process group) over the sp = 4
+     stripes of a seeded (1, 48, 15076, 64) bf16 window padded to 4 x 3840
+     rows (284 pad rows corrected exactly), int8 and bf16 QK^T, against one
+     normalized K3 call over the sequence at K3's gates (max abs 1e-2, mean
+     1e-3), 16 K3 launches each, both timed. Two ranks sharing one card show
+     no tp speed-up, and none is claimed.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -222,6 +244,7 @@ SFU_PER_S = None
 # 480p decode stage, latent stage, the untiled 480x720 encode's first stage
 K5_SHAPES = ((2, 128, 9, 256, 720), (2, 512, 5, 32, 90), (1, 128, 9, 480, 720))
 K1_MS_GATE = 0.5  # K1 at batch 1, int8 and float; the two-pass form read 0.77 ms
+TP_BLOCKS, TP_RANKS, SP_STRIPES = 2, 2, 4  # phase 22 (b) and (c)
 
 
 def log(msg: str) -> None:
@@ -1974,6 +1997,239 @@ def bench_phase():
     return launches
 
 
+def tp_inputs(dev):
+    """Phase 22 (b)'s seeded AetherV1-width DiT cut to 2 blocks (48 heads x
+    64, depth cut, not width) and its inputs on ``dev``: the 15076-token
+    window's video (14850) and text (226) tokens, a time embedding, and the
+    joint RoPE tables (identity over the text)."""
+    from aether_tpu_torch.config import PipelineConfig
+    from aether_tpu_torch.models import init_dit
+    from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
+
+    cfg = dataclasses.replace(PipelineConfig.aetherv1().dit, num_layers=TP_BLOCKS)
+    model = init_dit(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    d = cfg.hidden_size
+    video, text = (torch.randn((1, n, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for n in (SEQ - TEXT, TEXT))
+    temb = torch.randn((1, cfg.time_embed_dim), generator=gen, device=dev).to(torch.bfloat16)
+    cos, sin = prepare_rotary_positional_embeddings(
+        cfg, HEIGHT, WIDTH, (FRAMES - 1) // 4 + 1, vae_scale_factor_spatial=8, base_fps=12,
+        fps=12)
+    rc = torch.cat([torch.ones(TEXT, HEAD_DIM), torch.from_numpy(cos)]).to(dev)
+    rs = torch.cat([torch.zeros(TEXT, HEAD_DIM), torch.from_numpy(sin)]).to(dev)
+    return model, (video, text, temb, rc, rs)
+
+
+def blocks_forward(model, video, text, temb, rc, rs):
+    """The model's blocks on the fused path (K1 + K2, int8 QK^T)."""
+    opts = dict(fixed_max=True, qk_int8=True, pv_int8=False)
+    with torch.no_grad():
+        for block in model.blocks:
+            video, text = block(video, text, temb, rc, rs, "fused", opts)
+    return video, text
+
+
+def tp_rank():
+    """Phase 22 (b) on one of two ranks that share cuda:0 over gloo: the
+    2-block DiT split at tp = 2 (24 heads a rank), one forward of its blocks
+    (timed with both ranks running, after a warm-up), the K1 / K2 launches of
+    that forward, one gloo all-reduce of an f32 block output timed alone,
+    and on rank 0 alone (rank 1 waiting) K1 and K2 at 24 heads against their
+    plain versions, timed."""
+    import torch.distributed as dist
+
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue, qkv_prologue_plain
+    from aether_tpu_torch.ops.flash_attention import (
+        flash_attention_prepacked,
+        flash_attention_prepacked_plain,
+    )
+    from aether_tpu_torch.parallel import make_mesh, shard_params
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("gloo", init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+                            f"{os.environ['MASTER_PORT']}", rank=rank, world_size=TP_RANKS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, inputs = tp_inputs(dev)
+    mesh = make_mesh(dp=1, tp=TP_RANKS)
+    shard_params(model, mesh)
+    blocks_forward(model, *inputs)  # warm-up
+    dist.barrier()
+    qkv_prologue.launches = flash_attention_prepacked.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    video, text = blocks_forward(model, *inputs)
+    torch.cuda.synchronize()
+    out = dict(forward_s=time.perf_counter() - t0, k1=qkv_prologue.launches,
+               k2=flash_attention_prepacked.launches, video=video.cpu(), text=text.cpu(),
+               heads=model.blocks[0].attn.qkv.weight.shape[0] // 3 // HEAD_DIM)
+    partial = torch.randn((1, SEQ, model.cfg.hidden_size), device=dev)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.all_reduce(partial)
+    torch.cuda.synchronize()
+    out["all_reduce_s"] = time.perf_counter() - t0
+    dist.barrier()
+    if rank == 0:
+        heads = out["heads"]
+        d = heads * HEAD_DIM
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1234)
+        y = torch.randn((1, 15360, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+        y[:, SEQ:] = 0
+        norms = [1.0 + 0.1 * torch.randn(HEAD_DIM, generator=gen, device=dev),
+                 0.1 * torch.randn(HEAD_DIM, generator=gen, device=dev),
+                 1.0 + 0.1 * torch.randn(HEAD_DIM, generator=gen, device=dev),
+                 0.1 * torch.randn(HEAD_DIM, generator=gen, device=dev)]
+        args = (y[..., :d], y[..., d:2 * d], y[..., 2 * d:], *norms, *inputs[3:])
+        kw = dict(num_heads=heads, head_dim=HEAD_DIM, eps=model.cfg.qk_norm_eps, s_valid=SEQ)
+        got = qkv_prologue(*args, **kw)
+        out["k1_err"] = k1_int8_gates(f"K1 at {heads} heads", got, qkv_prologue_plain(*args, **kw))
+        out["k1_ms"] = cuda_time_ms(lambda: qkv_prologue(*args, **kw), 20)
+        q8, k8, v, qsc, qn, ksc, kn, _ = got
+        kw2 = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=SEQ)
+        o = flash_attention_prepacked(q8, k8, v, **kw2)
+        out["k2_err"] = compare(f"K2 at {heads} heads", o,
+                                flash_attention_prepacked_plain(q8, k8, v, **kw2), 1e-2, 1e-3)
+        out["k2_ms"] = cuda_time_ms(lambda: flash_attention_prepacked(q8, k8, v, **kw2), 5)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def parallel_phase(pipe, cfg, dev, video, first, k5_per_request):
+    """Phase 22, the parallel layer on the one card. (a) a process group of
+    one rank through NCCL, ``make_mesh()`` and the phase-6 request through
+    the pipeline built over it at full width and depth: bit-identical to
+    phase 6's, launches as phase 6 counts them. (b) two spawned ranks sharing
+    the card over gloo, the 2-block AetherV1-width DiT at tp = 2
+    (:func:`tp_rank`), against the one-process forward of the same blocks at
+    the gates of ``bf16_gates``, with exactly 2 K1 and 2 K2 launches a rank.
+    (c) the ring's step and merge (``ring_attention_stripes``) over the sp = 4
+    stripes of a seeded (1, 48, 15076, 64) bf16 window, padded to 4 x 3840
+    rows so that the exact pad correction is taken, against one normalized
+    K3 call over the whole sequence at K3's gates, int8 and bf16 QK^T, both
+    timed. Returns (launches of each kernel, (a)'s request seconds, (b)'s
+    launches and times, (c)'s {name: (K3 launches, error, ring ms, K3 ms)})."""
+    import torch.distributed as dist
+
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import (
+        flash_attention_fixed_max,
+        flash_attention_prepacked,
+        ring_attention_stripes,
+    )
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+    from aether_tpu_torch.parallel import make_mesh
+    from aether_tpu_torch.parallel.launch import free_port, spawn
+    from aether_tpu_torch.pipeline import AetherPipeline
+
+    # (a) world size 1 through NCCL
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh()
+        sharded = AetherPipeline(cfg, pipe.dit, pipe.vae, pipe.empty_prompt_embeds, device=dev,
+                                 compute_dtype=torch.bfloat16, mesh=mesh)
+        log(f"phase 22a: backend {dist.get_backend()}, mesh {mesh.mesh_dim_names} "
+            f"{tuple(mesh.shape)}, set up in {time.perf_counter() - t0:.3f} s")
+        qkv_prologue.launches = flash_attention_prepacked.launches = 0
+        groupnorm_moments.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sharded(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
+                      num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"K1": qkv_prologue.launches, "K2": flash_attention_prepacked.launches,
+                    "K5": groupnorm_moments.launches}
+    finally:
+        pipe.dit.mesh = None  # the phase-5 pipeline runs without a mesh again
+        dist.destroy_process_group()
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+    log(f"phase 22a request through the mesh at world size 1: {wall:.3f} s ({stages}); "
+        f"launches {launches}")
+    check(launches == {"K1": cfg.dit.num_layers * STEPS, "K2": cfg.dit.num_layers * STEPS,
+                       "K5": k5_per_request}, "phase 22a launches differ from phase 6's")
+    for name in ("rgb", "disparity", "raymap"):
+        check(np.array_equal(getattr(res, name), getattr(first, name)),
+              f"phase 22a {name} is not bit-identical to phase 6's request")
+    log("phase 22a: bit-identical to phase 6's request 0")
+    del res, sharded
+
+    # (b) tp = 2 at full width: two ranks sharing the card over gloo
+    model, inputs = tp_inputs(dev)
+    torch.cuda.synchronize()
+    ref_video, ref_text = blocks_forward(model, *inputs)
+    t0 = time.perf_counter()
+    ref_video, ref_text = blocks_forward(model, *inputs)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    del model, inputs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:tp_rank", TP_RANKS, {}, timeout=300,
+                  extra_path=[os.path.dirname(os.path.abspath(__file__))])
+    log(f"phase 22b: {TP_RANKS} ranks over gloo on cuda:0, {time.perf_counter() - t0:.3f} s "
+        f"with their start-up")
+    for rank, got in enumerate(ranks):
+        check(got["heads"] == HEADS // TP_RANKS, f"rank {rank} holds {got['heads']} heads")
+        check(got["k1"] == got["k2"] == TP_BLOCKS,
+              f"rank {rank}: {got['k1']} K1 and {got['k2']} K2 launches, not {TP_BLOCKS}")
+        for name, out, ref in (("video", got["video"], ref_video), ("text", got["text"], ref_text)):
+            compare(f"phase 22b rank {rank} {name} at tp = {TP_RANKS}", out.to(dev), ref,
+                    *bf16_gates(ref))
+        log(f"phase 22b rank {rank}: {TP_BLOCKS}-block forward {got['forward_s'] * 1e3:.3f} ms "
+            f"(both ranks on the card at once), one gloo all-reduce of a (1, {SEQ}, 3072) f32 "
+            f"block output {got['all_reduce_s'] * 1e3:.3f} ms; the one-process forward "
+            f"{one_s * 1e3:.3f} ms")
+    log(f"phase 22b K1 at {HEADS // TP_RANKS} heads {ranks[0]['k1_ms']:.4f} ms (max code "
+        f"diff {ranks[0]['k1_err']}), K2 {ranks[0]['k2_ms']:.4f} ms (max abs err "
+        f"{ranks[0]['k2_err']:.3e}); rank 0 alone on the card, rank 1 waiting")
+    tp = {"K1": sum(got["k1"] for got in ranks), "K2": sum(got["k2"] for got in ranks),
+          "forward_s": [got["forward_s"] for got in ranks], "one_s": one_s,
+          "k1_ms": ranks[0]["k1_ms"], "k2_ms": ranks[0]["k2_ms"]}
+    del ref_video, ref_text, ranks
+
+    # (c) the ring's arithmetic over the sp = 4 stripes of the real window
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    q, k, v = (torch.randn((1, HEADS, SEQ, HEAD_DIM), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    seq_pad = -(-SEQ // (SP_STRIPES * 128)) * SP_STRIPES * 128
+    rows = seq_pad // SP_STRIPES
+    stripes = [[torch.nn.functional.pad(t, (0, 0, 0, seq_pad - SEQ))[:, :, i * rows:(i + 1) * rows]
+                .contiguous() for i in range(SP_STRIPES)] for t in (q, k, v)]
+    ring = {}
+    for qk_int8 in (True, False):
+        name = f"ring sp={SP_STRIPES} {'int8' if qk_int8 else 'bf16'} QK^T"
+
+        def run(qk_int8=qk_int8):
+            return ring_attention_stripes(*stripes, n_pad=seq_pad - SEQ, qk_int8=qk_int8)
+
+        ref = flash_attention_fixed_max(q, k, v, qk_int8=qk_int8)
+        flash_attention_fixed_max.launches = 0
+        out = torch.cat(run(), dim=2)[:, :, :SEQ]
+        n = flash_attention_fixed_max.launches
+        check(n == SP_STRIPES ** 2, f"{name}: {n} K3 launches, not {SP_STRIPES ** 2}")
+        err = compare(f"{name} against one K3 call", out, ref, 1e-2, 1e-3)
+        ms = cuda_time_ms(run, 3)
+        k3 = cuda_time_ms(lambda: flash_attention_fixed_max(q, k, v, qk_int8=qk_int8), 3)
+        log(f"{name}: {ms:.4f} ms for {n} K3 steps and the merge (stripes of {rows} rows, "
+            f"{seq_pad - SEQ} pad rows corrected), one K3 call {k3:.4f} ms: {ms / k3:.3f}x")
+        ring[name] = (n, err, ms, k3)
+        del ref, out
+    del q, k, v, stripes
+    torch.cuda.empty_cache()
+    return {"K1": launches["K1"] + tp["K1"], "K2": launches["K2"] + tp["K2"],
+            "K5": launches["K5"], "K3": sum(r[0] for r in ring.values())}, wall, tp, ring
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2152,7 +2408,7 @@ def main() -> None:
     flash_attention_prepacked.launches = 0
     groupnorm_moments.launches = 0
     k5_per_request = expected_k5(pipe, FRAMES)
-    outs = []
+    outs, walls = [], []
     for req in range(2):
         torch.cuda.reset_peak_memory_stats(dev)
         before = (qkv_prologue.launches, flash_attention_prepacked.launches,
@@ -2162,6 +2418,7 @@ def main() -> None:
                    num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        walls.append(wall)
         k1_n = qkv_prologue.launches - before[0]
         k2_n = flash_attention_prepacked.launches - before[1]
         k5_n = groupnorm_moments.launches - before[2]
@@ -2180,6 +2437,7 @@ def main() -> None:
     log("requests 0 and 1: bit-identical outputs")
     k1_launches = qkv_prologue.launches
     k2_launches = flash_attention_prepacked.launches
+    first = outs[0]  # phase 22a holds its request to this one
     del res, outs
 
     # ---- 14. one request through the float K1 and K2 ----
@@ -2204,7 +2462,18 @@ def main() -> None:
     # the files stay until phase 9 has trained on them
     latents = tempfile.TemporaryDirectory(prefix="aether_latents_")
     k5_precompute = precompute_phase(pipe, dev, latents.name)
-    del pipe
+
+    # ---- 22. the parallel layer: NCCL at world size 1, tp = 2 over gloo, the ring ----
+    par_launches, par_wall, par_tp, par_ring = parallel_phase(pipe, cfg, dev, video, first,
+                                                              k5_per_request)
+    log(f"phase 22 against phase 6 in this run: (a) the request through the world-size-1 "
+        f"mesh {par_wall:.3f} s, phase 6's requests {walls[0]:.3f} / {walls[1]:.3f} s; (b) "
+        f"the {TP_BLOCKS}-block forward at tp = {TP_RANKS} "
+        + " / ".join(f"{t * 1e3:.3f}" for t in par_tp["forward_s"])
+        + f" ms a rank (two ranks sharing the card), one process {par_tp['one_s'] * 1e3:.3f}"
+        f" ms; (c) " + "; ".join(f"{n} {ms:.4f} ms against K3 {k3:.4f} ms"
+                                  for n, (_, _, ms, k3) in par_ring.items()))
+    del pipe, first
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated(dev)
@@ -2326,22 +2595,23 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         entry("attn_prologue", "attn_prologue.cu", "aether_tpu/ops/attn_prologue.py:91",
-              k1_launches, k1_err, k1_ms, k1_plain_ms, k1_bound, None),
+              k1_launches + par_launches["K1"], k1_err, k1_ms, k1_plain_ms, k1_bound, None),
         entry("flash_prepacked", "flash_prepacked.cu",
-              "aether_tpu/ops/flash_attention.py:812", k2_launches, k2_max, k2_ms,
-              k2_plain_ms, k2_bound, lib["K2"]),
+              "aether_tpu/ops/flash_attention.py:812", k2_launches + par_launches["K2"], k2_max,
+              k2_ms, k2_plain_ms, k2_bound, lib["K2"]),
         entry("flash_online", "flash_online.cu", "aether_tpu/ops/flash_attention.py:69",
               k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound, lib["K4"]),
         entry("flash_online_bf16", "flash_online_bf16.cu",
               "aether_tpu/ops/flash_attention.py:69", k4b_launches, k4b_err, k4b_ms,
               k4b_plain_ms, k4_bf16_bound, lib["K4 bf16"]),
         entry("flash_fixed_max", "flash_fixed_max.cu",
-              "aether_tpu/ops/flash_attention.py:151", k3_launches, k3_err, k3_ms,
-              k3_plain_ms, k3_bound, lib["K3/K6"]),
+              "aether_tpu/ops/flash_attention.py:151", k3_launches + par_launches["K3"], k3_err,
+              k3_ms, k3_plain_ms, k3_bound, lib["K3/K6"]),
         entry("flash_pv8", "flash_pv8.cu", "aether_tpu/ops/flash_attention.py:259",
               k6_launches, k6_err, k6_ms, k6_plain_ms, k6_bound, lib["K3/K6"]),
         entry("groupnorm_moments", "groupnorm_moments.cu", "aether_tpu/ops/groupnorm.py:30",
-              k5_launches + k5_precompute, k5_err, k5_ms, k5_plain_ms, (k5_bound, k5_by), None),
+              k5_launches + k5_precompute + par_launches["K5"], k5_err, k5_ms, k5_plain_ms,
+              (k5_bound, k5_by), None),
         entry("attn_prologue_float", "attn_prologue.cu", "aether_tpu/ops/attn_prologue.py:150",
               k1f_launches, *floats["K1 float"], k1f_bound, None),
         entry("flash_prepacked_float", "flash_prepacked.cu",

@@ -4,7 +4,8 @@ The tiny random-init pipeline reconstructs a short 64x96 GIF clip in two
 sliding windows (serially and batched) and writes poses, a PLY cloud and GLB
 scenes, which parse back; prediction runs with its post-reconstruction
 refinement. Without ``--device cpu`` the CLI raises where there is no CUDA,
-and every flag whose feature is not ported raises ``NotImplementedError``.
+and every flag whose feature is not ported raises ``NotImplementedError``;
+``--dp/--tp`` run over a mesh of two gloo ranks.
 The quantized random inits and ``--checkpoint`` are in test_torch_io.py.
 """
 
@@ -88,15 +89,44 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path):
             demo.main(base + extra)
 
 
+@pytest.mark.parametrize("flags,axes", [(["--dp", "2"], "dp=2, tp=1"),
+                                        (["--tp", "2"], "dp=1, tp=2")])
+def test_parallel_flags_build_a_mesh_and_run(tmp_path, flags, axes):
+    """``--dp 2`` / ``--tp 2`` under a two-rank gloo world (the variables
+    torchrun sets): the ranks build one mesh and reconstruct; rank 0 alone
+    prints and writes, and its poses are the single-process run's."""
+    from aether_tpu_torch.parallel.launch import spawn
+
+    video = _gif(tmp_path / "clip.gif", 17)
+
+    def argv(out):
+        return ["--task", "reconstruction", "--video", video, "--num_frames", "17",
+                "--output_dir", str(out), *TINY]
+
+    printed = spawn("aether_tpu_torch.parallel.launch:run_main", 2,
+                    dict(module="aether_tpu_torch.apps.demo",
+                         argv=argv(tmp_path / "mesh") + flags),
+                    env={"OMP_NUM_THREADS": "1"})
+    assert f"mesh: {axes} over 2 ranks" in printed[0]
+    assert "poses:" in printed[0] and printed[1] == ""
+    stem = tmp_path / "mesh" / "reconstruction_clip"
+    _check_outputs({"poses": f"{stem}_poses.txt", "ply": f"{stem}_pointcloud.ply",
+                    "glb": [f"{stem}_pointcloud_frame_{i}.glb" for i in (0, 8, 16)]}, 17)
+    demo.main(argv(tmp_path / "one"))
+    np.testing.assert_allclose(np.loadtxt(f"{stem}_poses.txt"),
+                               np.loadtxt(tmp_path / "one" / "reconstruction_clip_poses.txt"),
+                               atol=1e-4)
+
+
+# the ids the cases had while --dp/--tp were flags0 and flags1 here (those
+# two cases are now test_parallel_flags_build_a_mesh_and_run)
 @pytest.mark.parametrize("flags,item", [
-    (["--dp", "2"], "Queue 1: Parallel"),
-    (["--tp", "2"], "Queue 1: Parallel"),
     (["--wire_rgb", "u8"], "wire"),
     (["--wire_rgb", "yuv420"], "wire"),
     (["--wire_input", "yuv420"], "wire"),
     (["--wire_disparity", "fp16"], "wire"),
     (["--wire_disparity", "u8"], "wire"),
-])
+], ids=[f"flags{i}-wire" for i in range(2, 7)])
 def test_unported_flags_raise(flags, item):
     argv = ["--task", "reconstruction", "--video", "clip.gif", "--device", "cpu"]
     if "--random-init" not in flags:

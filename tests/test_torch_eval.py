@@ -368,15 +368,42 @@ def test_rel_pose_main(sintel_root, tmp_path, monkeypatch, capsys):
     assert calls == []  # alley_2 skipped; cave_2 fails before the driver
 
 
+DRIVER_ARGS = {
+    "video_depth": ["--window_frames", "17", "--tile", "64", "96",
+                    "--spatial_overlap", "8", "12"],
+    "rel_pose": ["--window_frames", "17", "--target", "64", "96"],
+}
+
+
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--distributed"]])
 @pytest.mark.parametrize("driver", ["video_depth", "rel_pose"])
-def test_main_refuses_unported_flags(driver, flag, tmp_path):
-    import importlib
+def test_main_runs_on_two_ranks(driver, flag, sintel_root, tmp_path):
+    """Each driver's ``main`` under a two-rank gloo world (the variables
+    torchrun sets). ``--dp 2`` / ``--tp 2`` give the two ranks one mesh: one
+    replica runs both sequences and its first rank writes; ``--distributed``
+    alone makes each rank a replica of its own, the sequences sharded between
+    them. Rank 0 alone scores, after the barrier."""
+    from aether_tpu_torch.parallel.launch import spawn
 
-    module = importlib.import_module(f"aether_tpu_torch.eval.{driver}")
-    with pytest.raises(NotImplementedError):
-        module.main(["--eval_dataset", "sintel", "--output_dir", str(tmp_path),
-                     "--random-init", "tiny", "--device", "cpu"] + flag)
+    out = tmp_path / "out"
+    argv = ["--eval_dataset", "sintel", "--data_root", sintel_root, "--output_dir", str(out),
+            "--random-init", "tiny", "--device", "cpu", "--num_inference_step", "1",
+            "--seq_list", "alley_2", "cave_2", *DRIVER_ARGS[driver], *flag]
+    printed = spawn("aether_tpu_torch.parallel.launch:run_main", 2,
+                    dict(module=f"aether_tpu_torch.eval.{driver}", argv=argv),
+                    env={"OMP_NUM_THREADS": "1"})
+    summary = json.loads(printed[0].strip().splitlines()[-1])
+    assert printed[1] == ""
+    # cave_2 fails where it runs: the one replica's, or the second replica's
+    log = f"_error_log_{1 if flag == ['--distributed'] else 0}.txt"
+    assert sorted(p.name for p in out.glob("_error_log_*")) == [log]
+    assert "cave_2" in (out / log).read_text()
+    if driver == "video_depth":
+        assert summary["valid_pixels"] == 17 * 64 * 96 and np.isfinite(summary["Abs Rel"])
+        assert len(list((out / "alley_2").glob("frame_*.npy"))) == 17
+    else:
+        assert set(summary) >= {"ATE", "RPE trans", "RPE rot"}
+        assert np.loadtxt(out / "alley_2" / "pred_traj.txt").shape == (17, 8)
 
 
 @pytest.mark.parametrize("driver", ["video_depth", "rel_pose"])

@@ -34,8 +34,13 @@ for name in ("aether_tpu_torch.train.step", "aether_tpu_torch.train.trainer",
              "aether_tpu_torch.apps.serve", "aether_tpu_torch.eval.pose_metrics",
              "aether_tpu_torch.eval.datasets", "aether_tpu_torch.eval.depth_metrics",
              "aether_tpu_torch.eval.video_depth", "aether_tpu_torch.eval.rel_pose",
-             "aether_tpu_torch.runtime"):
+             "aether_tpu_torch.runtime", "aether_tpu_torch.parallel",
+             "aether_tpu_torch.parallel.distributed", "aether_tpu_torch.parallel.mesh",
+             "aether_tpu_torch.parallel.launch"):
     assert name in names, name
+import torch.distributed as dist
+assert not dist.is_initialized(), "a process group was joined at import time"
+from aether_tpu_torch.parallel import initialize, make_mesh, shard_params
 from aether_tpu_torch import runtime
 assert runtime._lib is None and runtime._build_error is None, "the npz loader was built at import"
 from aether_tpu_torch.train.data import LatentNoise, latent_batches, precompute_latents
