@@ -21,7 +21,10 @@ JAX module's mesh branches (``dit.py:552-825``) in PyTorch's SPMD idiom: a
 block at tp > 1 does two all-reduces, after ``attn.o`` and after
 ``mlp.w2`` (under w8a8 each is preceded by an all-reduce of the per-token
 activation maximum, [B, S, 1]); under sp each attention gathers K/V over sp
-(two all-gathers) or runs the ring.
+(two all-gathers) or runs the ring. Training over a mesh needs those
+collectives to carry gradients (``parallel/mesh.py``), and pipeline
+parallelism replaces the block loop with an executor
+(``DiT.forward(block_scan=...)``, ``parallel/pipeline.py``).
 
 Numerics follow the JAX module: LayerNorm is the shifted single-pass form in
 f32; adaLN modulation, gates and GELU run in f32 and round to the compute
@@ -360,7 +363,15 @@ def _attend(q, k, v, attn_impl: str, attn_opts: dict, kv_valid: Optional[int] = 
 
 def all_gather_cat(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """``t`` of every rank of ``group`` concatenated along ``dim`` in rank
-    order."""
+    order. It carries no gradient: where the ranks hold different gradients
+    of the result (the sp K/V gather, dp's output gather) the transpose is a
+    reduce-scatter, which no training path needs, so a ``t`` that needs a
+    gradient raises. The tp patch embedding's differentiable gather is
+    ``parallel.mesh.gather_from_tp``."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError("all_gather_cat carries no gradient: run an sp or dp mesh's "
+                           "forward under torch.no_grad() (training splits tp, FSDP's "
+                           "dp and pp)")
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
@@ -546,6 +557,7 @@ class DiT(nn.Module):
         pv_int8: Optional[bool] = None,
         fused_qkv: Optional[bool] = None,
         act_quant: bool = False,
+        block_scan=None,
     ):
         """Denoiser forward.
 
@@ -571,6 +583,11 @@ class DiT(nn.Module):
                 (off when ``pv_int8`` is on, as in the JAX package).
             act_quant: int8 activations (w8a8) in the qkv, o, w1 and w2
                 products where their codes are int8 (JAX ``act_quant``).
+            block_scan: an executor of the block stack in place of the loop,
+                ``block_scan(body, (video, text), self.blocks, temb) ->
+                (video, text)`` with ``body(carry, block, temb) -> carry``
+                (JAX ``dit_forward(block_scan=...)``; the GPipe schedule of
+                ``parallel.pipeline.make_pipeline_block_scan``).
         Returns:
             [B, F, C_out, H_lat, W_lat] v-prediction (and the block outputs).
         """
@@ -589,6 +606,8 @@ class DiT(nn.Module):
         attn_opts = dict(fixed_max=fixed_max, qk_int8=qk_int8, pv_int8=pv_int8)
         p = cfg.patch_size
         dtype = hidden_states.dtype
+        if collect_blocks and block_scan is not None:
+            raise ValueError("collect_blocks is unsupported under block_scan")
         if collect_blocks and (dp > 1 or sp > 1):
             raise ValueError("collect_blocks needs the whole batch and sequence on "
                              "every rank (no dp or sp axis)")
@@ -633,14 +652,25 @@ class DiT(nn.Module):
         text = self.text_proj(text_in)
 
         collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
-        for block in self.blocks:
-            args = (video, text, temb, rc, rs, attn_impl, attn_opts, act_quant, stripe)
-            if remat:
-                video, text = checkpoint(block, *args, use_reentrant=False)
-            else:
-                video, text = block(*args)
-            if collect_blocks:
-                collected.append((video, text))
+        if block_scan is not None:
+            # another schedule over the same block body (the pp executor,
+            # parallel/pipeline.py): it runs ``body`` on the blocks it holds
+            def body(carry, block, temb_mb):
+                args = (*carry, temb_mb, rc, rs, attn_impl, attn_opts, act_quant, stripe)
+                if remat:
+                    return checkpoint(block, *args, use_reentrant=False)
+                return block(*args)
+
+            video, text = block_scan(body, (video, text), self.blocks, temb)
+        else:
+            for block in self.blocks:
+                args = (video, text, temb, rc, rs, attn_impl, attn_opts, act_quant, stripe)
+                if remat:
+                    video, text = checkpoint(block, *args, use_reentrant=False)
+                else:
+                    video, text = block(*args)
+                if collect_blocks:
+                    collected.append((video, text))
 
         joint = torch.cat([text, video], dim=1)
         joint = layer_norm(joint, self.norm_final_scale, self.norm_final_bias,

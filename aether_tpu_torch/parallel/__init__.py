@@ -1,10 +1,10 @@
-"""The parallel layer: process groups, meshes and the DiT's tp plan.
+"""The parallel layer: process groups, meshes, the DiT's tp plan, FSDP and
+the GPipe pipeline schedule.
 
-Port of ``aether_tpu/parallel`` for inference (the JAX package's pipeline
-parallelism, ``parallel/pipeline.py``, and FSDP belong to training and are
-not ported yet). One process drives one card; see
-:mod:`~aether_tpu_torch.parallel.distributed` and
-:mod:`~aether_tpu_torch.parallel.mesh`.
+Port of ``aether_tpu/parallel``. One process drives one card; see
+:mod:`~aether_tpu_torch.parallel.distributed`,
+:mod:`~aether_tpu_torch.parallel.mesh` (tp, FSDP on dp, where each
+parameter lives) and :mod:`~aether_tpu_torch.parallel.pipeline` (pp).
 """
 
 from aether_tpu_torch.parallel.distributed import (  # noqa: F401

@@ -1,6 +1,6 @@
 """Fine-tuning: the v-prediction loss and train step (``step``), the
-single-device trainer with its CLI (``trainer``) and the latent loader
-(``data``)."""
+trainer with its CLI, on one device or over a mesh (``trainer``), and the
+latent loader (``data``)."""
 
 from aether_tpu_torch.train.step import (  # noqa: F401
     TrainState,

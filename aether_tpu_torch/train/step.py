@@ -66,11 +66,15 @@ def diffusion_loss(
     t: Optional[torch.Tensor] = None,
     eps: Optional[torch.Tensor] = None,
     remat: bool = False,
+    block_scan=None,
 ) -> torch.Tensor:
     """v-prediction MSE at uniformly sampled timesteps.
 
     ``t`` / ``eps`` default to draws from ``generator`` (t first); passing
-    them makes the loss deterministic."""
+    them makes the loss deterministic. ``block_scan`` runs the DiT's blocks
+    on another schedule (``parallel.pipeline.make_pipeline_block_scan``);
+    the pipeline's ``seed_loss`` then weights the loss's gradient so that
+    the head counts once over the stages."""
     b = clean_latents.shape[0]
     dev = clean_latents.device
     if t is None:
@@ -84,19 +88,28 @@ def diffusion_loss(
     v_target = a * eps - s * x0
     model_in = torch.cat([x_t.to(clean_latents.dtype), condition_latents], dim=2)
     v_pred = model(model_in, text_embeds, t, rope_cos, rope_sin,
-                   attn_impl=attn_impl, remat=remat).float()
-    return torch.mean(torch.square(v_pred - v_target))
+                   attn_impl=attn_impl, remat=remat, block_scan=block_scan).float()
+    loss = torch.mean(torch.square(v_pred - v_target))
+    if block_scan is not None and hasattr(block_scan, "seed_loss"):
+        loss = block_scan.seed_loss(loss)
+    return loss
 
 
 def make_train_step(
     scheduler_cfg: SchedulerConfig,
     attn_impl: str = "xla",
+    block_scan=None,
 ) -> Callable:
     """Build ``train_step(state, batch, generator=None, *, t=None, eps=None)
     -> loss``, which updates ``state`` in place.
 
     ``batch`` is a dict of tensors on the model's device: clean_latents /
-    condition_latents / text_embeds / rope_cos / rope_sin."""
+    condition_latents / text_embeds / rope_cos / rope_sin. ``block_scan``
+    swaps the DiT's block loop for the GPipe schedule
+    (``parallel.pipeline.make_pipeline_block_scan``; the model holds its
+    stage's blocks, ``parallel.pipeline.shard_blocks_pp``): the gradients
+    are reduced over the pipeline (``block_scan.reduce_grads``) before the
+    optimizer steps."""
     tables: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -111,8 +124,10 @@ def make_train_step(
             state.model, *tables[dev], batch["clean_latents"],
             batch["condition_latents"], batch["text_embeds"],
             batch.get("rope_cos"), batch.get("rope_sin"), generator, attn_impl,
-            t=t, eps=eps)
+            t=t, eps=eps, block_scan=block_scan)
         loss.backward()
+        if block_scan is not None and hasattr(block_scan, "reduce_grads"):
+            block_scan.reduce_grads(state.model)
         state.optimizer.step()
         state.step += 1
         return loss.detach()

@@ -202,6 +202,27 @@ Phase of the parallel slice, after 21, on the phase-5 pipeline
      normalized K3 call over the sequence at K3's gates (max abs 1e-2, mean
      1e-3), 16 K3 launches each, both timed. Two ranks sharing one card show
      no tp speed-up, and none is claimed.
+Phase of the parallel-training slice, after 9 (``parallel_train_phase``), at
+the AetherV1 width cut to 2 blocks (a depth cut), seeded synthetic
+41x480x720 batches (15076 tokens), remat, ``flash_train`` (K4 f32 forward):
+ 23. (a) a process group of one rank through NCCL, ``make_pp_mesh(1, 1)`` and
+     the Trainer at ``pp_microbatches=2``, batch 2, two steps, against the
+     same Trainer without a mesh in this run: losses within rtol 2e-4 / atol
+     2e-5, every parameter within rtol 5e-4 / atol 5e-5 (``tests/test_fsdp.py``'s
+     bars), the parameters moved, K4 f32 launches exact (a step: 2 blocks x
+     the forward and remat's recompute, x 2 microbatches under pp); (b) two
+     ranks spawned on cuda:0 over gloo, the Trainer at tp = 2 (24 heads a
+     rank), one step at batch 1 against one process: the loss, each rank's
+     piece of the fused qkv's, ``attn.o``'s and the time embedding's
+     gradients within 1e-5 of their largest magnitude, 4 K4 launches a rank;
+     rank 0 alone then checks K4 f32 at 24 heads against its plain version
+     and times it; (c) the same two ranks, the Trainer at dp = 2 with FSDP,
+     one step at batch 2 (a row a rank) against (a)'s first step without a
+     mesh: the loss, the step's global gradient norm (rtol 1e-4: a dp sum in
+     place of the mean reads twice it), ``blocks.0.mlp.w1.weight`` gathered
+     after the step, each rank's resident parameter bytes 0.45-0.55 of the
+     model's. Each run's
+     seconds a step and peak memory are logged; one card shows no speed-up.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -245,6 +266,7 @@ SFU_PER_S = None
 K5_SHAPES = ((2, 128, 9, 256, 720), (2, 512, 5, 32, 90), (1, 128, 9, 480, 720))
 K1_MS_GATE = 0.5  # K1 at batch 1, int8 and float; the two-pass form read 0.77 ms
 TP_BLOCKS, TP_RANKS, SP_STRIPES = 2, 2, 4  # phase 22 (b) and (c)
+PAR_TRAIN_BLOCKS, PAR_TRAIN_STEPS = 2, 2  # phase 23: a depth cut; (a)'s steps
 
 
 def log(msg: str) -> None:
@@ -2230,6 +2252,318 @@ def parallel_phase(pipe, cfg, dev, video, first, k5_per_request):
             "K5": launches["K5"], "K3": sum(r[0] for r in ring.values())}, wall, tp, ring
 
 
+def par_train_inputs(batch):
+    """Phase 23's DiT config (the AetherV1 width, 48 heads x 64, cut to
+    ``PAR_TRAIN_BLOCKS`` blocks), its TrainConfig (remat, ``flash_train``;
+    lr 1e-3 from the first update, so that one step moves the weights past
+    the tolerance) and one seeded synthetic 41x480x720 batch (15076 tokens)
+    of ``batch`` rows."""
+    from aether_tpu_torch.config import DiTConfig
+    from aether_tpu_torch.train.trainer import TrainConfig, synthetic_batches
+
+    cfg = dataclasses.replace(DiTConfig.aetherv1(), num_layers=PAR_TRAIN_BLOCKS)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=100, remat=True,
+                       attn_impl="flash_train", log_every=1)
+    f_lat, h_lat, w_lat = (FRAMES - 1) // 4 + 1, HEIGHT // 8, WIDTH // 8
+    host = next(synthetic_batches(cfg, batch_size=batch, f_lat=f_lat, h_lat=h_lat,
+                                  w_lat=w_lat, seed=23))
+    return cfg, tcfg, host
+
+
+def train_steps(trainer, host, steps):
+    """``steps`` Trainer steps, each on ``host``: (losses, seconds a step)."""
+    losses, secs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += trainer.fit(iter([host]), steps=1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def gloo_rank(world):
+    """Join a gloo group of ``world`` ranks sharing cuda:0 (NCCL refuses two
+    ranks on one card); returns (device, rank)."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.cuda.init()  # before the peak-memory counters are reset
+    rank = int(os.environ["RANK"])
+    dist.init_process_group("gloo", init_method=f"tcp://{os.environ['MASTER_ADDR']}:"
+                            f"{os.environ['MASTER_PORT']}", rank=rank, world_size=world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dev, rank
+
+
+# phase 23 (b): unsharded name -> this rank's parameter: a column split (its
+# heads' rows of the fused qkv), a row split (its columns of attn.o) and a
+# leaf whole on every rank (the time embedding)
+TP_GRADS = {"blocks.0.attn.qkv.weight": "blocks.0.attn.qkv.weight",
+            "blocks.0.attn.o.weight": "blocks.0.attn.o.inner.weight",
+            "time_embed.w1.weight": "time_embed.w1.weight"}
+FSDP_WEIGHT = "blocks.0.mlp.w1.weight"  # phase 23 (c)'s updated weight
+
+
+def gloo_train_rank():
+    """Phase 23 (b) and (c) on one of two ranks sharing cuda:0 over gloo:
+    {"tp": :func:`tp_train_part`, "fsdp": :func:`fsdp_train_part`}."""
+    import torch.distributed as dist
+
+    dev, rank = gloo_rank(2)
+    out = {"tp": tp_train_part(dev, rank)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fsdp"] = fsdp_train_part(dev)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def tp_train_part(dev, rank):
+    """Phase 23 (b): the 2-block AetherV1-width Trainer at tp = 2 (24 heads
+    a rank), one step on the batch-1 input; the loss, the step's seconds and
+    K4 f32 launches, the gradients of ``TP_GRADS`` (after the clip), the peak
+    memory; then rank 0 alone (rank 1 waiting) K4 f32 at 24 heads against
+    its plain version, timed."""
+    import torch.distributed as dist
+
+    from aether_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from aether_tpu_torch.parallel import make_mesh
+    from aether_tpu_torch.train.trainer import Trainer
+
+    cfg, tcfg, host = par_train_inputs(1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = Trainer(cfg, tcfg, device=dev, seed=0,
+                      mesh=make_mesh(dp=1, tp=TP_RANKS, device_type="cuda"))
+    named = dict(trainer.state.model.named_parameters())
+    dist.barrier()
+    flash_attention.launches = 0
+    losses, secs = train_steps(trainer, host, 1)
+    out = dict(loss=losses[0], step_s=secs[0], k4=flash_attention.launches,
+               peak=torch.cuda.max_memory_allocated(dev),
+               heads=named["blocks.0.attn.qkv.weight"].shape[0] // 3 // HEAD_DIM,
+               grads={n: named[local].grad.detach().cpu() for n, local in TP_GRADS.items()})
+    del trainer, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1234)
+        shape = (1, HEADS // TP_RANKS, SEQ, HEAD_DIM)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
+        out["k4_err"] = compare(f"K4 f32 at {shape[1]} heads", flash_attention(q, k, v),
+                                flash_attention_plain(q, k, v), 1e-4, 1e-4)
+        out["k4_ms"] = cuda_time_ms(lambda: flash_attention(q, k, v), 3)
+        out["k4_plain_ms"] = cuda_time_ms(lambda: flash_attention_plain(q, k, v), 1)
+        del q, k, v
+    dist.barrier()
+    return out
+
+
+def fsdp_train_part(dev):
+    """Phase 23 (c): the 2-block AetherV1-width Trainer at dp = 2 with FSDP,
+    one step on the batch-2 input (a row a rank); the loss, the clip's
+    global gradient norm, the step's seconds and K4 f32 launches, the peak
+    memory, this rank's resident parameter bytes, and on rank 0
+    ``FSDP_WEIGHT`` gathered after the step."""
+    import torch.distributed as dist
+
+    from aether_tpu_torch.ops.flash_attention import flash_attention
+    from aether_tpu_torch.parallel import make_mesh
+    from aether_tpu_torch.parallel.mesh import local_view
+    from aether_tpu_torch.train.trainer import Trainer
+
+    cfg, tcfg, host = par_train_inputs(2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    trainer = Trainer(cfg, tcfg, device=dev, seed=0, fsdp=True,
+                      mesh=make_mesh(dp=2, tp=1, device_type="cuda"))
+    model = trainer.state.model
+    resident = sum(local_view(p).numel() * p.element_size() for p in model.parameters())
+    dist.barrier()
+    flash_attention.launches = 0
+    losses, secs = train_steps(trainer, host, 1)
+    named = dict(model.named_parameters())
+    weight = trainer.layout.gather(lambda n: named[n] if n == FSDP_WEIGHT else None)
+    return dict(loss=losses[0], step_s=secs[0], k4=flash_attention.launches,
+                grad_norm=float(trainer.state.optimizer.grad_norm),
+                peak=torch.cuda.max_memory_allocated(dev), resident=resident,
+                weight=weight.get(FSDP_WEIGHT))
+
+
+def close(name, got, want, rtol, atol):
+    """|got - want| <= atol + rtol |want| everywhere (numpy's allclose);
+    returns the largest absolute difference."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    check(bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want))),
+          f"{name}: max abs diff {err:.3e} beyond rtol {rtol} / atol {atol}")
+    return err
+
+
+def parallel_train_phase(dev):
+    """Phase 23, the parallel trainer on the one card, at the AetherV1 width
+    cut to 2 blocks (remat, ``flash_train``: K4 f32 forward). (a) a process
+    group of one rank through NCCL and ``make_pp_mesh(1, 1)``: the Trainer at
+    ``pp_microbatches=2``, batch 2, two steps, against the same Trainer
+    without a mesh in this run (losses rtol 2e-4 / atol 2e-5, every
+    parameter rtol 5e-4 / atol 5e-5: ``tests/test_fsdp.py:102-109``), K4
+    launches exact (a step: 2 blocks x the forward and remat's recompute, x 2
+    microbatches under pp). (b) :func:`tp_train_part` on two ranks against
+    one process at batch 1: the loss (rtol 2e-4 / atol 2e-5) and each rank's
+    piece of three gradients within 1e-5 of the reference's largest
+    magnitude (f32 sums in another order), 4 K4 launches a rank. (c)
+    :func:`fsdp_train_part` on the same two ranks (one spawn,
+    :func:`gloo_train_rank`) against (a)'s one-process first
+    step at batch 2: the loss, the clip's global gradient norm (rtol 1e-4),
+    ``FSDP_WEIGHT`` after the step (rtol 5e-4 / atol 5e-5), each rank's
+    resident parameter bytes 0.45-0.55 of the whole model's. Returns the K4
+    f32 launches of its Trainer runs."""
+    import torch.distributed as dist
+
+    from aether_tpu_torch.ops.flash_attention import flash_attention
+    from aether_tpu_torch.parallel.launch import free_port, spawn
+    from aether_tpu_torch.parallel.mesh import _qkv_rows
+    from aether_tpu_torch.parallel.pipeline import make_pp_mesh
+    from aether_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    launches = 0
+
+    def counted_run(trainer, host, steps, name):
+        nonlocal launches
+        flash_attention.launches = 0
+        losses, secs = train_steps(trainer, host, steps)
+        n = flash_attention.launches
+        launches += n
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"phase 23{name}: " + ", ".join(f"{t:.3f}" for t in secs) + f" s a step "
+            f"(batch {host['clean_latents'].shape[0]}), losses "
+            + ", ".join(f"{x:.6f}" for x in losses) + f", K4 f32 launches {n}; peak memory "
+            f"{peak:.2f} GiB")
+        return losses, n
+
+    # (a) pp at world size 1 through NCCL, against no mesh
+    cfg, tcfg, host = par_train_inputs(2)
+    per_step = 2 * PAR_TRAIN_BLOCKS  # a block's forward and its recompute
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref = Trainer(cfg, tcfg, device=dev, seed=0)
+    init = {n: p.detach().cpu().clone() for n, p in ref.state.model.named_parameters()}
+    ref_losses, n = counted_run(ref, host, 1, "a no mesh step 1")
+    check(n == per_step, f"phase 23a: {n} K4 launches, not {per_step}")
+    first = (ref_losses[0], ref.state.model.get_parameter(FSDP_WEIGHT).detach().cpu().clone(),
+             float(ref.state.optimizer.grad_norm))
+    more, n = counted_run(ref, host, PAR_TRAIN_STEPS - 1, "a no mesh")
+    ref_losses += more
+    check(n == per_step * (PAR_TRAIN_STEPS - 1), "phase 23a: K4 launches of the second step")
+    ref_params = {n: p.detach().cpu().clone() for n, p in ref.state.model.named_parameters()}
+    full_bytes = sum(p.numel() * p.element_size() for p in ref.state.model.parameters())
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_pp_mesh(1, 1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        pp = Trainer(cfg, tcfg, device=dev, seed=0, mesh=mesh, pp_microbatches=2)
+        pp_losses, n = counted_run(pp, host, PAR_TRAIN_STEPS, "a pp mesh")
+        check(n == 2 * per_step * PAR_TRAIN_STEPS,
+              f"phase 23a: {n} K4 launches under pp, not {2 * per_step * PAR_TRAIN_STEPS}")
+        state = pp.gathered_state()
+        del pp
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_err = close("phase 23a losses, pp against no mesh", pp_losses, ref_losses, 2e-4, 2e-5)
+    param_err = max(close(f"phase 23a {name}", state["params"][name], want, 5e-4, 5e-5)
+                    for name, want in ref_params.items())
+    moved = sum(int(not torch.equal(ref_params[n], init[n])) for n in init)
+    check(moved >= 0.9 * len(init), f"phase 23a: only {moved}/{len(init)} tensors moved")
+    log(f"phase 23a: backend nccl, mesh ('dp', 'pp') (1, 1), {PAR_TRAIN_STEPS} steps at "
+        f"pp_microbatches 2 against no mesh: losses max abs diff {loss_err:.3e}, every "
+        f"parameter max abs diff {param_err:.3e}; {moved}/{len(init)} tensors moved")
+    w0 = init[FSDP_WEIGHT]
+    del state, init
+
+    # (b) tp = 2 over gloo, against one process at batch 1
+    cfg, tcfg, host1 = par_train_inputs(1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    one = Trainer(cfg, tcfg, device=dev, seed=0)
+    (one_loss,), n = counted_run(one, host1, 1, "b one process")
+    check(n == per_step, f"phase 23b: {n} K4 launches in one process, not {per_step}")
+    named = dict(one.state.model.named_parameters())
+    want = {name: named[name].grad.detach().cpu().clone() for name in TP_GRADS}
+    del one, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    both = spawn("chip_smoke:gloo_train_rank", TP_RANKS, {}, timeout=600,
+                 extra_path=[os.path.dirname(os.path.abspath(__file__))])
+    log(f"phase 23b-c: {TP_RANKS} ranks over gloo on cuda:0, {time.perf_counter() - t0:.3f} s "
+        f"with their start-up (gloo all-gathers and reduce-scatters CUDA tensors in this "
+        f"torch {torch.__version__})")
+    ranks = [got["tp"] for got in both]
+    d = cfg.hidden_size
+    for rank, got in enumerate(ranks):
+        check(got["heads"] == HEADS // TP_RANKS, f"phase 23b rank {rank}: {got['heads']} heads")
+        check(got["k4"] == per_step, f"phase 23b rank {rank}: {got['k4']} K4 launches")
+        launches += got["k4"]
+        close(f"phase 23b rank {rank} loss", [got["loss"]], [one_loss], 2e-4, 2e-5)
+        pieces = {"blocks.0.attn.qkv.weight": (_qkv_rows(3 * d, rank, TP_RANKS),),
+                  "blocks.0.attn.o.weight": (slice(None), slice(rank * d // TP_RANKS,
+                                                               (rank + 1) * d // TP_RANKS)),
+                  "time_embed.w1.weight": ()}
+        errs = []
+        for name, index in pieces.items():
+            ref_g = want[name][index]
+            err = (got["grads"][name] - ref_g).abs().max().item() / ref_g.abs().max().item()
+            check(err <= 1e-5, f"phase 23b rank {rank} {name}: gradient error {err:.3e} of "
+                  f"its largest magnitude")
+            errs.append(f"{name} {err:.3e}")
+        log(f"phase 23b rank {rank}: one step {got['step_s']:.3f} s (both ranks on the card "
+            f"at once), loss {got['loss']:.6f} against {one_loss:.6f}, gradient error / max "
+            f"|grad|: " + ", ".join(errs) + f"; K4 f32 launches {got['k4']}; peak memory "
+            f"{got['peak'] / 2**30:.2f} GiB")
+    log(f"phase 23b K4 f32 at {HEADS // TP_RANKS} heads (1, {HEADS // TP_RANKS}, {SEQ}, "
+        f"{HEAD_DIM}): {ranks[0]['k4_ms']:.4f} ms, plain {ranks[0]['k4_plain_ms']:.4f} ms, max "
+        f"abs err {ranks[0]['k4_err']:.3e}; rank 0 alone on the card, rank 1 waiting")
+    del ranks, want
+
+    # (c) dp = 2 with FSDP over gloo, against (a)'s first step in one process
+    ranks = [got["fsdp"] for got in both]
+    del both
+    per_row = 2 * PAR_TRAIN_BLOCKS
+    for rank, got in enumerate(ranks):
+        check(got["k4"] == per_row, f"phase 23c rank {rank}: {got['k4']} K4 launches")
+        launches += got["k4"]
+        close(f"phase 23c rank {rank} loss", [got["loss"]], [first[0]], 2e-4, 2e-5)
+        norm_err = close(f"phase 23c rank {rank} global gradient norm", [got["grad_norm"]],
+                         [first[2]], 1e-4, 0.0)
+        share = got["resident"] / full_bytes
+        check(0.45 <= share <= 0.55, f"phase 23c rank {rank}: resident share {share:.4f}")
+        log(f"phase 23c rank {rank}: one step {got['step_s']:.3f} s (both ranks on the card at "
+            f"once), loss {got['loss']:.6f} against {first[0]:.6f} in one process, global "
+            f"gradient norm {got['grad_norm']:.6f} against {first[2]:.6f} (abs diff "
+            f"{norm_err:.3e}); resident "
+            f"parameters {got['resident'] / 2**30:.3f} GiB of {full_bytes / 2**30:.3f} GiB "
+            f"({share:.4f}); K4 f32 launches {got['k4']}; peak memory "
+            f"{got['peak'] / 2**30:.2f} GiB")
+    err = close(f"phase 23c {FSDP_WEIGHT} after the step", ranks[0]["weight"], first[1], 5e-4,
+                5e-5)
+    step = float((first[1] - w0).abs().max())
+    check(step > 10 * 5e-5, f"phase 23c: {FSDP_WEIGHT} moved {step:.3e}, within the tolerance")
+    log(f"phase 23c: {FSDP_WEIGHT} gathered after the step, max abs diff {err:.3e} from one "
+        f"process (the step moved it {step:.3e})")
+    del ranks
+    log(f"phase 23: {time.perf_counter() - t_phase:.3f} s, K4 f32 launches of its Trainer "
+        f"runs {launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2498,6 +2832,9 @@ def main() -> None:
     # ---- 9. the fine-tuning path, on phase 21's files ----
     k4_launches = train_phase(dev, latents.name)
     latents.cleanup()
+
+    # ---- 23. parallel training: pp through NCCL, tp = 2 and FSDP over gloo ----
+    k4_launches += parallel_train_phase(dev)
 
     # ---- 10. K3 and K6 at the CFG pair's shape ----
     fixed = fixed_max_phase(dev, gen)

@@ -36,11 +36,15 @@ for name in ("aether_tpu_torch.train.step", "aether_tpu_torch.train.trainer",
              "aether_tpu_torch.eval.video_depth", "aether_tpu_torch.eval.rel_pose",
              "aether_tpu_torch.runtime", "aether_tpu_torch.parallel",
              "aether_tpu_torch.parallel.distributed", "aether_tpu_torch.parallel.mesh",
-             "aether_tpu_torch.parallel.launch"):
+             "aether_tpu_torch.parallel.launch", "aether_tpu_torch.parallel.pipeline"):
     assert name in names, name
 import torch.distributed as dist
 assert not dist.is_initialized(), "a process group was joined at import time"
 from aether_tpu_torch.parallel import initialize, make_mesh, shard_params
+from aether_tpu_torch.parallel.pipeline import (
+    make_pipeline_block_scan, make_pp_mesh, shard_blocks_pp)
+from aether_tpu_torch.parallel.mesh import ParamLayout, fsdp_shard
+assert not dist.is_initialized(), "a process group was joined at import time"
 from aether_tpu_torch import runtime
 assert runtime._lib is None and runtime._build_error is None, "the npz loader was built at import"
 from aether_tpu_torch.train.data import LatentNoise, latent_batches, precompute_latents
@@ -70,7 +74,7 @@ def test_package_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 51
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 52
 
 
 def test_no_source_file_imports_jax():

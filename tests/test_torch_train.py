@@ -226,11 +226,22 @@ def test_latent_batches_equal_jax(tmp_path):
 
 
 def test_cli_runs_on_cpu_and_refuses_unported_flags(capsys):
+    """The mesh flags are ported (``test_torch_parallel_train_ckpt.py`` runs
+    them over ranks); in one process they take the JAX CLI's paths: no mesh
+    for --dp/--tp, the pp mesh's world check, the --fsdp and --pp/--tp
+    guards."""
     main(["--synthetic", "--tiny", "--device", "cpu", "--steps", "2"])
     assert "step 2: loss=" in capsys.readouterr().out
-    for extra in (["--dp", "2"], ["--tp", "2"], ["--pp", "2"], ["--fsdp"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--synthetic", "--tiny", "--device", "cpu", *extra])
+    main(["--synthetic", "--tiny", "--device", "cpu", "--steps", "2", "--dp", "2", "--tp", "2"])
+    out = capsys.readouterr().out
+    assert "step 2: loss=" in out and "mesh" not in out
+    args = ["--synthetic", "--tiny", "--device", "cpu"]
+    with pytest.raises(ValueError, match=r"dp\(1\) \* pp\(2\) != num devices \(1\)"):
+        main(args + ["--pp", "2"])
+    with pytest.raises(SystemExit, match="--fsdp needs"):
+        main(args + ["--fsdp"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        main(args + ["--pp", "2", "--tp", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["--synthetic", "--tiny", "--steps", "1"])
