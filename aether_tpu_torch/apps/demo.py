@@ -14,8 +14,9 @@ checkpoint (``--checkpoint DIR`` from ``python -m aether_tpu_torch.io.convert``,
 ``tiny`` / ``aetherv1`` in the compute dtype, ``-fp8`` / ``-int8`` built
 directly in the quantized layout (``init_quantized_dit``). int8 weights run
 with int8 activations (w8a8, the JAX bench's deployment configuration),
-from a checkpoint too. The compact ``--wire_*`` formats raise
-``NotImplementedError`` (the port moves exact outputs).
+from a checkpoint too. ``--wire_rgb/--wire_input/--wire_disparity`` pick the
+pipeline's wires (compact, on a card by default: u8 RGB and fp16 disparity;
+see ``pipeline/aether.py``).
 
 ``--dp/--tp`` run it on several cards, one process per card, under
 ``torchrun``: the ranks join one process group (NCCL on CUDA, gloo with
@@ -112,11 +113,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--profile_dir", type=str, default=None,
                    help="If set, write a torch.profiler trace here.")
     p.add_argument("--wire_rgb", type=str, default=None, choices=["u8", "yuv420"],
-                   help="compact rgb wire format (not ported: outputs are exact)")
+                   help="compact D2H rgb wire format (default: u8 on a card)")
     p.add_argument("--wire_input", type=str, default="u8", choices=["u8", "yuv420"],
-                   help="pixel upload format (u8; yuv420 is not ported)")
-    p.add_argument("--wire_disparity", type=str, default=None, choices=["fp16", "u8"],
-                   help="compact disparity wire (not ported: outputs are exact)")
+                   help="H2D pixel wire; yuv420 is 2x smaller and lossless up to a "
+                        "resample roundtrip for mp4-decoded input")
+    p.add_argument("--wire_disparity", type=str, default="fp16", choices=["fp16", "u8"],
+                   help="compact D2H disparity wire (u8 = sqrt-domain 8-bit)")
     p.add_argument("--dp", type=int, default=None,
                    help="Data-parallel mesh axis (the CFG pair, windows, the decode's "
                         "streams); one process per card under torchrun.")
@@ -124,19 +126,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="Tensor-parallel mesh axis (Megatron DiT split); one process "
                         "per card under torchrun.")
     return p.parse_args(argv)
-
-
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise ``NotImplementedError`` for a flag whose feature is not ported
-    (a flag the command line lacks counts as not given)."""
-    for flag, exact in (("wire_rgb", None), ("wire_input", "u8"),
-                        ("wire_disparity", None)):
-        value = getattr(args, flag, exact)
-        if value != exact:
-            raise NotImplementedError(
-                f"--{flag} {value} is a compact wire format; the port moves exact "
-                "outputs and has none (ROADMAP.md, queue 1: ported only when a "
-                "measured host-transfer cost calls for them)")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -188,14 +177,15 @@ def build_pipeline(args: argparse.Namespace, mesh=None):
     CPU) from ``--checkpoint`` (its tensors in their saved dtypes) or from
     seeded random weights (DiT seed 0, VAE seed 1, a zero prompt embedding).
     A DiT with int8 codes runs with int8 activations. ``mesh`` (from
-    :func:`build_mesh`) splits it over the process group."""
+    :func:`build_mesh`) splits it over the process group. The wire flags
+    (a command line without them gets the JAX defaults) reach the pipeline,
+    whose ``compact_transfer`` stays automatic: on for a card."""
     from aether_tpu_torch.config import PipelineConfig
     from aether_tpu_torch.io.weights import load_checkpoint
     from aether_tpu_torch.models import init_dit, init_quantized_dit, init_vae
     from aether_tpu_torch.models.dit import QuantLinear
     from aether_tpu_torch.pipeline import AetherPipeline
 
-    check_ported(args)
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     if args.random_init is not None:
@@ -216,7 +206,10 @@ def build_pipeline(args: argparse.Namespace, mesh=None):
     act_quant = any(isinstance(m, QuantLinear) and m.q.dtype == torch.int8
                     for m in dit.modules())
     return AetherPipeline(cfg, dit, vae, text, device=device, compute_dtype=dtype,
-                          act_quant=act_quant, mesh=mesh), cfg
+                          act_quant=act_quant, mesh=mesh,
+                          wire_rgb=getattr(args, "wire_rgb", None),
+                          wire_input=getattr(args, "wire_input", "u8"),
+                          wire_disparity=getattr(args, "wire_disparity", "fp16")), cfg
 
 
 def _load_video(path: str) -> np.ndarray:

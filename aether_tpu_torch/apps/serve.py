@@ -22,17 +22,30 @@ with the HTTP threads under a lock. Uploads are decoded with PIL and
 ``imageio``, imported inside the decode functions.
 
 It runs on the GPU: ``--device`` defaults to ``cuda`` and raises where there
-is none. The weights come from ``--checkpoint`` or ``--random-init``, as in
-``apps/demo.py``, whose ``build_pipeline`` builds the pipeline; the compact
-``--wire_*`` formats raise ``NotImplementedError`` there. ``--dp`` and
-``--tp`` raise ``NotImplementedError`` here (:func:`check_serve_flags`):
-the demo and the eval drivers run over a mesh, but a server of several
-processes needs a leader that hands each job to the other ranks, which this
-single-process server does not have yet.
+is none. The weights come from ``--checkpoint`` or ``--random-init``, and the
+``--wire_*`` flags pick the pipeline's wires, as in ``apps/demo.py``, whose
+``build_pipeline`` builds the pipeline.
+
+``--dp/--tp`` serve over a mesh, one process per card under ``torchrun``
+(``apps.demo.build_mesh``). Where JAX has one controller driving every
+chip, the port has a leader and followers: rank 0 binds HTTP, validates each
+job (the pipeline's ``check_inputs``) and broadcasts it over a gloo job
+channel of its own (``parallel/jobs.py``); every rank then makes the job's
+device calls (:func:`job_calls`: the window driver with ``batch_windows``
+the mesh's dp, or the sampling call and the post-reconstruction) in the
+same order, and rank 0 alone blends and exports. Followers drop their
+outputs and register no stage listeners; warmup runs on every rank. When
+rank 0 stops (``JobRunner.close``, Ctrl-C, SIGTERM) it sends the stop
+message and every rank leaves the process group. A rank whose device calls
+fail leaves at once: the job ends in ``error`` on rank 0 and every rank
+exits non-zero, the others when a collective finds it gone (at the latest
+at the mesh's timeout).
 
 Usage:
     python -m aether_tpu_torch.apps.serve --random-init aetherv1 \\
         --warmup reconstruction
+    torchrun --nproc_per_node 2 -m aether_tpu_torch.apps.serve \\
+        --random-init aetherv1 --dp 2
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ import io
 import json
 import os
 import queue
+import signal
 import sys
 import threading
 import traceback
@@ -244,17 +258,99 @@ document.getElementById('f').addEventListener('submit', async ev=>{
 </script></body></html>"""
 
 
+def _job_shape(params: dict):
+    """(height, width, num_frames, fps, steps, seed, raymap) of a job, with
+    the server's defaults."""
+    return (params.get("height", 480), params.get("width", 720),
+            int(params.get("num_frames", 41)), int(params.get("fps", 12)),
+            params.get("steps"), int(params.get("seed", 42)), params.get("raymap_array"))
+
+
+def validate_job(pipeline, params: dict) -> None:
+    """The pipeline's checks of a job before any rank runs it: the window
+    the driver fits to the video (or the sampling call's inputs) through
+    ``check_inputs``; raises ``ValueError`` with the pipeline's message."""
+    from aether_tpu_torch.pipeline.windowing import fit_num_frames
+
+    task = params["task"]
+    height, width, num_frames, fps, _, _, raymap = _job_shape(params)
+    if task == "reconstruction":
+        video = params["video_array"]
+        num_frames = fit_num_frames(len(video), num_frames, pipeline.config.allowed_num_frames)
+        pipeline.check_inputs(task, None, video[:num_frames], None,
+                              None if raymap is None else raymap[:num_frames],
+                              height, width, num_frames, fps)
+    else:
+        pipeline.check_inputs(task, params["image_array"], None, params.get("goal_array"),
+                              raymap, height, width, num_frames, fps)
+
+
+def job_calls(pipeline, params: dict, progress=None):
+    """A job's device calls, the same on every rank of a mesh and in the same
+    order: for a reconstruction the window driver (the pipeline mesh's dp
+    windows a ``batch_reconstruct`` chunk, JAX :352-361; one at a time
+    without a mesh), else the sampling call and, unless
+    ``post_reconstruction`` is off, the 4-step reconstruction of its RGB
+    (reference demo.py:588-606). Returns the driver's ``(window_results,
+    window_indices, num_frames)`` or ``(out, recon or None)``.
+    ``progress(detail, frac)`` hears where it is."""
+    from aether_tpu_torch.parallel.mesh import axis_size
+    from aether_tpu_torch.pipeline.windowing import run_windowed_reconstruction
+
+    def note(detail, frac):
+        if progress is not None:
+            progress(detail, frac)
+
+    task = params["task"]
+    height, width, num_frames, fps, steps, seed, raymap = _job_shape(params)
+    if task == "reconstruction":
+        return run_windowed_reconstruction(
+            pipeline, params["video_array"], raymap=raymap, height=height, width=width,
+            num_frames=num_frames, fps=fps, num_inference_steps=steps,
+            stride=int(params.get("stride", 24)), seed=seed,
+            batch_windows=axis_size(getattr(pipeline, "mesh", None), "dp"),
+            progress=lambda done, total: note(f"window {done + 1}/{total}", 0.9 * done / total))
+    note("sampling", 0.1)
+    out = pipeline(
+        task=task, image=params["image_array"], goal=params.get("goal_array"),
+        raymap=raymap, height=height, width=width, num_frames=num_frames,
+        fps=fps, num_inference_steps=steps, guidance_scale=params.get("cfg"),
+        use_dynamic_cfg=params.get("dynamic_cfg", True), seed=seed)
+    recon = None
+    if params.get("post_reconstruction", True):
+        note("post-reconstruction", 0.7)
+        recon = pipeline(
+            task="reconstruction", video=out.rgb, height=height, width=width,
+            num_frames=num_frames, fps=fps, num_inference_steps=4,
+            guidance_scale=1.0, use_dynamic_cfg=False, seed=seed)
+    return out, recon
+
+
+class MeshFailure(RuntimeError):
+    """A job's device calls failed on some rank of a mesh: the server stops."""
+
+
 class JobRunner:
-    """One worker thread executing queued pipeline jobs."""
+    """One worker thread executing queued pipeline jobs. With a ``channel``
+    (a :class:`~aether_tpu_torch.parallel.jobs.JobChannel`, on rank 0 of a
+    mesh) it is the leader: each job is validated, broadcast, run by every
+    rank, and exported here; ``close`` ends with the stop message. A failure of a job's device calls, here or on a
+    follower, ends that job in ``error``, records :attr:`failed`, calls
+    ``on_fatal`` and stops the worker: the mesh is broken."""
 
     def __init__(self, pipeline, output_dir: str, max_queue: int = 20,
-                 max_jobs_kept: int = 100):
+                 max_jobs_kept: int = 100, *, channel=None, on_fatal=None):
         self.pipeline = pipeline
         self.output_dir = output_dir
         self.max_jobs_kept = max_jobs_kept
         self.jobs: Dict[str, dict] = {}
         self._lock = threading.Lock()  # guards self.jobs and every job's fields
         self.queue: "queue.Queue[str]" = queue.Queue(maxsize=max_queue)
+        self.channel = channel
+        self.on_fatal = on_fatal
+        self.failed: Optional[str] = None
+        if channel is not None:
+            channel.on_error = lambda exc: self._fatal(f"the job channel failed: {exc}")
         # a thread's current CUDA device is its own: the worker makes the
         # pipeline's current, and where the pipeline names no index, the
         # one current on the thread that builds the runner
@@ -304,13 +400,27 @@ class JobRunner:
     def close(self, timeout: Optional[float] = None) -> None:
         """Stop the worker after the jobs queued before this call and join
         it, so that it lets go of the pipeline (and its device memory);
-        ``timeout`` bounds the wait."""
+        a leader's worker sends the stop message last. ``timeout`` bounds
+        the wait."""
         self._closing.set()
         self._thread.join(timeout)
 
     def _update(self, job_id: str, **progress) -> None:
         with self._lock:
             self.jobs[job_id]["progress"].update(progress)
+
+    def _fatal(self, reason: str) -> None:
+        """The mesh is broken: the jobs still queued end in ``error`` and
+        ``on_fatal`` is told."""
+        self.failed = reason
+        print(f"the server stops: {reason}", file=sys.stderr, flush=True)
+        with self._lock:
+            for job in self.jobs.values():
+                if job["status"] == "queued":
+                    job.update(status="error", error=f"the server stopped: {reason}",
+                               params=None)
+        if self.on_fatal is not None:
+            self.on_fatal()
 
     def _worker(self) -> None:
         from aether_tpu_torch.utils.profiling import add_stage_listener, remove_stage_listener
@@ -327,6 +437,13 @@ class JobRunner:
                 job_id = self.queue.get(timeout=0.1)
             except queue.Empty:
                 if self._closing.is_set():  # close(), the queue drained
+                    if self.channel is not None and self.failed is None:
+                        try:
+                            self.channel.stop()
+                        except Exception as exc:  # noqa: BLE001 -- a follower is gone
+                            self._fatal(f"the stop message failed: {exc}")
+                    return
+                if self.failed is not None:  # the channel failed between jobs
                     return
                 continue
             with self._lock:
@@ -357,6 +474,7 @@ class JobRunner:
                                                   "seconds": round(seconds, 3)})
 
             add_stage_listener(on_stage)
+            fatal = None
             try:
                 artifacts = self._run(job_id, params)
                 with self._lock:
@@ -368,32 +486,47 @@ class JobRunner:
                     job["status"] = "error"
                     job["error"] = f"{exc}"
                     job["trace"] = traceback.format_exc()
+                if isinstance(exc, MeshFailure):
+                    fatal = f"job {job_id}: {exc}"
             finally:
                 remove_stage_listener(on_stage)
                 with self._lock:
                     job["params"] = None  # drop the pixel arrays once finished
+            if fatal is not None:
+                self._fatal(fatal)
+                return
 
     def _run(self, job_id: str, params: dict) -> list:
+        def progress(detail, frac):
+            self._update(job_id, detail=detail, frac=frac)
+
+        if self.channel is None:
+            results = job_calls(self.pipeline, params, progress)
+        else:
+            # a job the pipeline refuses never reaches a follower
+            validate_job(self.pipeline, params)
+            try:
+                self.channel.send_job(params)
+                results = job_calls(self.pipeline, params, progress)
+            except Exception as exc:
+                raise MeshFailure(f"the device calls failed: {exc}") from exc
+            try:
+                self.channel.job_done()
+            except Exception as exc:
+                raise MeshFailure(f"a follower failed in the device calls: {exc}") from exc
+        return self._export(job_id, params, results)
+
+    def _export(self, job_id: str, params: dict, results) -> list:
+        """Rank 0's host part of a job: blend the windows, write the
+        artifacts; returns their URLs."""
         from aether_tpu_torch.apps.demo import save_output
-        from aether_tpu_torch.pipeline.windowing import (
-            blend_and_merge_window_results,
-            run_windowed_reconstruction,
-        )
+        from aether_tpu_torch.pipeline.windowing import blend_and_merge_window_results
 
         task = params["task"]
         job_dir = os.path.join(self.output_dir, job_id)
         os.makedirs(job_dir, exist_ok=True)
         dev = self.device
-
-        height = params.get("height", 480)
-        width = params.get("width", 720)
-        num_frames = int(params.get("num_frames", 41))
-        fps = int(params.get("fps", 12))
-        steps = params.get("steps")
-        cfg = params.get("cfg")
-        seed = int(params.get("seed", 42))
-        raymap = params.get("raymap_array")
-
+        height, width = params.get("height", 480), params.get("width", 720)
         ns = argparse.Namespace(
             task=task, output_dir=job_dir, height=height, width=width,
             max_depth=float(params.get("max_depth", 100.0)),
@@ -406,18 +539,7 @@ class JobRunner:
         )
 
         if task == "reconstruction":
-            video = params["video_array"]
-            stride = int(params.get("stride", 24))
-
-            def on_window(done, total):
-                self._update(job_id, detail=f"window {done + 1}/{total}",
-                             frac=0.9 * done / total)
-
-            # the demo's driver; one window at a time (no dp mesh in the port)
-            window_results, window_indices, num_frames = run_windowed_reconstruction(
-                self.pipeline, video, raymap=raymap, height=height, width=width,
-                num_frames=num_frames, fps=fps, num_inference_steps=steps,
-                stride=stride, seed=seed, batch_windows=1, progress=on_window)
+            window_results, window_indices, _ = results
             self._update(job_id, detail="blending windows", frac=0.9)
             rgb, disparity, poses, pointmaps = blend_and_merge_window_results(
                 window_results, window_indices, height, width,
@@ -427,21 +549,8 @@ class JobRunner:
             written = save_output(rgb, disparity, ns, poses=poses, pointmap=pointmaps,
                                   device=dev)
         else:
-            self._update(job_id, detail="sampling", frac=0.1)
-            out = self.pipeline(
-                task=task, image=params["image_array"], goal=params.get("goal_array"),
-                raymap=raymap, height=height, width=width, num_frames=num_frames,
-                fps=fps, num_inference_steps=steps, guidance_scale=cfg,
-                use_dynamic_cfg=params.get("dynamic_cfg", True), seed=seed)
-            if params.get("post_reconstruction", True):
-                self._update(job_id, detail="post-reconstruction", frac=0.7)
-                recon = self.pipeline(  # the 4-step refinement (demo.py:588-606)
-                    task="reconstruction", video=out.rgb, height=height, width=width,
-                    num_frames=num_frames, fps=fps, num_inference_steps=4,
-                    guidance_scale=1.0, use_dynamic_cfg=False, seed=seed)
-                disparity, out_raymap = recon.disparity, recon.raymap
-            else:
-                disparity, out_raymap = out.disparity, out.raymap
+            out, recon = results
+            disparity, out_raymap = (recon or out).disparity, (recon or out).raymap
             self._update(job_id, detail="exporting artifacts", frac=0.95)
             written = save_output(out.rgb, disparity, ns, raymap=out_raymap, device=dev)
 
@@ -451,6 +560,75 @@ class JobRunner:
                 rel = os.path.relpath(path, self.output_dir)
                 artifacts.append(f"/outputs/{rel}")
         return artifacts
+
+
+def follow(pipeline, channel) -> int:
+    """A follower's loop: each job the leader broadcasts goes through
+    :func:`job_calls` (outputs dropped, no stage listeners), then
+    ``channel.job_done()``; returns the number of jobs at the stop message.
+    A failure propagates at once, without ``job_done``: the rank leaves, and
+    the others find it gone."""
+    device = torch.device(pipeline.device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    while True:
+        params = channel.receive()
+        if params is None:
+            return channel.jobs
+        job_calls(pipeline, params)
+        channel.job_done()
+
+
+def serve(pipeline, output_dir: str, *, host: str = "127.0.0.1", port: int = 7860,
+          raymap_dir: Optional[str] = None, max_queue: int = 20, channel=None,
+          on_listen=None) -> None:
+    """Serve ``pipeline`` until the HTTP server shuts down. Without a
+    ``channel``, one process. With one: a follower runs :func:`follow`; the
+    leader serves with a leader :class:`JobRunner`, turns SIGTERM into a
+    clean stop (from the main thread), closes the runner (the stop message)
+    and leaves the process group with every rank; it raises
+    :class:`MeshFailure` when a job broke the mesh. ``on_listen(server,
+    runner)`` is called once the leader listens."""
+    import torch.distributed as dist
+
+    from aether_tpu_torch.parallel import is_main
+
+    if channel is not None and not channel.is_leader:
+        if threading.current_thread() is threading.main_thread():
+            # a launcher's SIGTERM reaches every rank: a follower leaves at
+            # the leader's stop message, which keeps the collectives matched
+            signal.signal(signal.SIGTERM, lambda *_: None)
+        follow(pipeline, channel)
+        dist.destroy_process_group()
+        return
+    os.makedirs(output_dir, exist_ok=True)
+    server = None
+
+    def shutdown():
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    runner = JobRunner(pipeline, output_dir, max_queue=max_queue, channel=channel,
+                       on_fatal=shutdown)
+    server = ThreadingHTTPServer((host, port), make_handler(runner, raymap_dir))
+    if channel is not None and threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, lambda *_: shutdown())
+    if is_main():
+        print(f"serving on http://{host}:{server.server_address[1]}", flush=True)
+    if on_listen is not None:
+        on_listen(server, runner)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        if channel is None:
+            raise
+    finally:
+        server.server_close()
+    if channel is None:
+        return
+    runner.close()
+    if runner.failed is not None:
+        raise MeshFailure(runner.failed)
+    dist.destroy_process_group()
 
 
 MAX_UPLOAD_BYTES = 512 * 1024 * 1024  # bound what one POST may allocate
@@ -675,9 +853,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max_queue", type=int, default=20,
                    help="Job queue bound (reference demo.queue(max_size=20)).")
     p.add_argument("--dp", type=int, default=None,
-                   help="Data-parallel mesh axis (not in the server yet).")
+                   help="Data-parallel mesh axis for serving (the CFG pair and "
+                        "batched windows ride it); one process per card under torchrun.")
     p.add_argument("--tp", type=int, default=None,
-                   help="Tensor-parallel mesh axis (not in the server yet).")
+                   help="Tensor-parallel mesh axis (Megatron DiT split); one process "
+                        "per card under torchrun.")
     p.add_argument("--warmup", nargs="*", default=None,
                    choices=["reconstruction", "prediction", "planning"], metavar="TASK",
                    help="Run these tasks once on zeros before listening.")
@@ -686,42 +866,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--warmup_steps", type=int, default=None,
                    help="Denoise steps for the warmup (default: the task defaults).")
     p.add_argument("--wire_rgb", type=str, default=None, choices=["u8", "yuv420"],
-                   help="compact rgb wire format (not ported: outputs are exact)")
+                   help="compact D2H rgb wire format (default: u8 on a card)")
     p.add_argument("--wire_input", type=str, default="u8", choices=["u8", "yuv420"],
-                   help="pixel upload format (u8; yuv420 is not ported)")
-    p.add_argument("--wire_disparity", type=str, default=None, choices=["fp16", "u8"],
-                   help="compact disparity wire (not ported: outputs are exact)")
+                   help="H2D pixel wire (yuv420: 1.5 bytes a pixel)")
+    p.add_argument("--wire_disparity", type=str, default="fp16", choices=["fp16", "u8"],
+                   help="compact D2H disparity wire (u8 = sqrt-domain 8-bit)")
     return p.parse_args(argv)
 
 
-def check_serve_flags(args: argparse.Namespace) -> None:
-    """Refuse ``--dp/--tp``: serving over a mesh needs one process per card
-    and a leader that broadcasts each job to the other ranks (ROADMAP.md,
-    Queue 1: the multi-process server)."""
-    for flag in ("dp", "tp"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag}: the server runs in one process on one card; serving over "
-                "a mesh needs the multi-process server (ROADMAP.md, Queue 1: the "
-                "multi-process server)")
-
-
 def main(argv=None) -> None:
-    from aether_tpu_torch.apps.demo import build_pipeline
+    from aether_tpu_torch.apps.demo import build_mesh, build_pipeline
+    from aether_tpu_torch.parallel import is_main
+    from aether_tpu_torch.parallel.jobs import JobChannel
 
     args = parse_args(argv)
-    check_serve_flags(args)
-    pipeline, _ = build_pipeline(args)
-    if args.warmup:
+    mesh = build_mesh(args)
+    pipeline, _ = build_pipeline(args, mesh)
+    channel = None if mesh is None else JobChannel()
+    if args.warmup:  # every rank: the warmup calls run over the mesh too
         f, h, w = args.warmup_shape
-        print(f"warming up {args.warmup} at {f}f x {h}x{w} ...", flush=True)
+        if is_main():
+            print(f"warming up {args.warmup} at {f}f x {h}x{w} ...", flush=True)
         warmup(pipeline, args.warmup, num_frames=f, height=h, width=w,
                steps=args.warmup_steps)
-    os.makedirs(args.output_dir, exist_ok=True)
-    runner = JobRunner(pipeline, args.output_dir, max_queue=args.max_queue)
-    server = ThreadingHTTPServer((args.host, args.port), make_handler(runner, args.raymap_dir))
-    print(f"serving on http://{args.host}:{server.server_address[1]}", flush=True)
-    server.serve_forever()
+    serve(pipeline, args.output_dir, host=args.host, port=args.port,
+          raymap_dir=args.raymap_dir, max_queue=args.max_queue, channel=channel)
 
 
 if __name__ == "__main__":

@@ -9,10 +9,11 @@ Kalman trajectory smoothing, ``:172-250``), TUM trajectory + focal export
 :mod:`aether_tpu_torch.eval.pose_metrics` instead of the ``evo`` package), and
 cross-process aggregation (``:348-355``).
 
-Port of ``aether_tpu/eval/rel_pose.py`` over the port's pipeline. The port
-has no ``defer_host``: the windows run as a plain loop, or, under a pipeline
-mesh with dp > 1, in dp-sized chunks through ``batch_reconstruct``, as the
-JAX driver runs them. ``main`` runs on the card by default (``--device``).
+Port of ``aether_tpu/eval/rel_pose.py`` over the port's pipeline. The
+windows run through ``iter_resolved`` with ``defer_host`` (window i's host
+transfer and pointmap post-processing overlap window i+1's device work),
+serially, or, under a pipeline mesh with dp > 1, in dp-sized chunks through
+``batch_reconstruct``, as the JAX driver runs them. ``main`` runs on the card by default (``--device``).
 Under ``torchrun``, ``--distributed`` joins the process group and
 ``--dp/--tp`` give each replica of ``dp * tp`` ranks one mesh; sequences
 shard by replica, the first rank of a replica writes its files, and rank 0
@@ -116,27 +117,39 @@ def process_video_with_sliding_window(
             "range": (t_start, t_start + window_frames),
         }
 
+    # defer_host chaining: window i's host transfer and host post-processing
+    # overlap window i+1's device work
     from aether_tpu_torch.parallel.mesh import axis_size
+    from aether_tpu_torch.pipeline.aether import iter_resolved
 
     dp = axis_size(getattr(pipeline, "mesh", None), "dp")
     if dp > 1:
         # chunks of dp windows share one denoise over the mesh; every window
         # gets a serial call's noise, and a short tail chunk pads internally
-        outs = []
-        for i in range(0, len(t_starts), dp):
-            outs.extend(pipeline.batch_reconstruct(
-                np.stack([video[s:s + window_frames] for s in t_starts[i:i + dp]]),
+        chunks = [t_starts[i:i + dp] for i in range(0, len(t_starts), dp)]
+        dispatches = (
+            (lambda ch=chunk: pipeline.batch_reconstruct(
+                np.stack([video[s:s + window_frames] for s in ch]),
                 height=video.shape[1], width=video.shape[2], num_frames=window_frames,
-                fps=fps, num_inference_steps=num_inference_steps, seed=seed))
+                fps=fps, num_inference_steps=num_inference_steps, seed=seed,
+                defer_host=True))
+            for chunk in chunks
+        )
+        outs: List = []
+        for res in iter_resolved(dispatches):
+            outs.extend(res)
     else:
-        outs = [
-            pipeline(task="reconstruction", video=video[t_start : t_start + window_frames],
-                     height=video.shape[1], width=video.shape[2],
-                     num_frames=window_frames, fps=fps,
-                     num_inference_steps=num_inference_steps,
-                     guidance_scale=1.0, use_dynamic_cfg=False, seed=seed)
+        dispatches = (
+            (lambda s=t_start: pipeline(
+                task="reconstruction", video=video[s:s + window_frames],
+                height=video.shape[1], width=video.shape[2],
+                num_frames=window_frames, fps=fps,
+                num_inference_steps=num_inference_steps,
+                guidance_scale=1.0, use_dynamic_cfg=False, seed=seed,
+                defer_host=True))
             for t_start in t_starts
-        ]
+        )
+        outs = list(iter_resolved(dispatches))
     windows = [
         _window(out, t_start) for t_start, out in zip(t_starts, outs)
     ]

@@ -53,16 +53,14 @@ def join_replicas(args) -> Tuple[object, object, dict]:
     by replica: ``shard`` holds ``process_index = rank // (dp * tp)``,
     ``process_count = world // (dp * tp)`` and ``write``, true on the first
     rank of each replica (the others compute alongside it), for the drivers'
-    ``run_sequences``; it is empty in a single process. The compact wire
-    flags raise as in the demo (``check_ported``); ``device`` is the resolved
-    ``--device``."""
+    ``run_sequences``; it is empty in a single process. ``device`` is the
+    resolved ``--device``."""
     import torch.distributed as dist
 
-    from aether_tpu_torch.apps.demo import build_mesh, check_ported, resolve_device
+    from aether_tpu_torch.apps.demo import build_mesh, resolve_device
     from aether_tpu_torch.parallel import initialize
     from aether_tpu_torch.parallel.mesh import axis_size
 
-    check_ported(args)
     if args.distributed:
         initialize(device=args.device)
     mesh = build_mesh(args, replicas=True)

@@ -13,10 +13,11 @@ Improvement over the reference: spatial RGB tiles are feather-blended too (the
 reference leaves ``final_spatial_rgb`` as the first tile — a latent bug noted
 at ``launch_aether.py:252``).
 
-Port of ``aether_tpu/eval/video_depth.py`` over the port's pipeline. The port
-has no ``defer_host``, so the (window x tile) grid runs as a plain loop in
-the JAX order, or, with ``batch_calls > 1`` (by default the pipeline mesh's
-dp), in chunks through ``batch_reconstruct``. ``main`` runs on the card by
+Port of ``aether_tpu/eval/video_depth.py`` over the port's pipeline. The
+(window x tile) grid runs in the JAX order through ``iter_resolved`` with
+``defer_host`` (call i+1's device work overlaps call i's host transfer),
+serially or, with ``batch_calls > 1`` (by default the pipeline mesh's dp),
+in chunks through ``batch_reconstruct``. ``main`` runs on the card by
 default (``--device``). Under ``torchrun``, ``--distributed`` joins the
 process group and ``--dp/--tp`` give each replica of ``dp * tp`` ranks one
 mesh (``apps.demo.build_mesh``); sequences shard by replica (``rank // (dp *
@@ -141,7 +142,9 @@ def _run_window_tile_grid(
     Every clip has the identical (window_frames, tile_h, tile_w) shape, so the
     grid flattens into uniform batches: with ``batch_calls > 1`` N
     clips share one batched denoise via ``batch_reconstruct``, whose windows
-    get the noise of serial calls. Returns {(ti, si): (rgb, disparity)}.
+    get the noise of serial calls. The host transfers are deferred, so call
+    (or batch) j+1's work is queued before call j's outputs are resolved.
+    Returns {(ti, si): (rgb, disparity)}.
     """
     jobs, clips = [], []
     for ti, t_start in enumerate(t_starts):
@@ -160,23 +163,34 @@ def _run_window_tile_grid(
         batch_calls = axis_size(getattr(pipeline, "mesh", None), "dp")
     batch_calls = max(1, min(batch_calls, len(clips)))
 
+    from aether_tpu_torch.pipeline.aether import iter_resolved
+
     results: dict = {}
     height, width = clips[0].shape[1:3]
     if batch_calls > 1 and hasattr(pipeline, "batch_reconstruct"):
-        for i in range(0, len(clips), batch_calls):
-            outs = pipeline.batch_reconstruct(
-                np.stack(clips[i : i + batch_calls]), height=height, width=width,
-                num_frames=window_frames, num_inference_steps=num_inference_steps,
-                fps=fps, seed=seed)
-            for job, o in zip(jobs[i : i + batch_calls], outs):
+        chunks = [(jobs[i : i + batch_calls], clips[i : i + batch_calls])
+                  for i in range(0, len(clips), batch_calls)]
+        dispatches = (
+            (lambda cl=chunk_clips: pipeline.batch_reconstruct(
+                np.stack(cl), height=height, width=width, num_frames=window_frames,
+                num_inference_steps=num_inference_steps, fps=fps, seed=seed,
+                defer_host=True))
+            for _, chunk_clips in chunks
+        )
+        for (chunk_jobs, _), outs in zip(chunks, iter_resolved(dispatches)):
+            for job, o in zip(chunk_jobs, outs):
                 results[job] = (np.asarray(o.rgb), np.asarray(o.disparity))
     else:
-        for job, clip in zip(jobs, clips):
-            o = pipeline(
-                task="reconstruction", video=clip, height=height, width=width,
+        dispatches = (
+            (lambda c=clip: pipeline(
+                task="reconstruction", video=c, height=height, width=width,
                 num_frames=window_frames, fps=fps,
                 num_inference_steps=num_inference_steps,
-                guidance_scale=1.0, use_dynamic_cfg=False, seed=seed)
+                guidance_scale=1.0, use_dynamic_cfg=False, seed=seed,
+                defer_host=True))
+            for clip in clips
+        )
+        for job, o in zip(jobs, iter_resolved(dispatches)):
             results[job] = (np.asarray(o.rgb), np.asarray(o.disparity))
     return results
 

@@ -1,5 +1,7 @@
 from aether_tpu_torch.pipeline.aether import (  # noqa: F401
     AetherPipeline,
     AetherPipelineOutput,
+    DeferredOutput,
     TorchNoise,
+    iter_resolved,
 )

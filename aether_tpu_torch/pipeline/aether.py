@@ -44,8 +44,19 @@ multiple by repeating its last window); the stacked RGB + disparity decode
 rides dp where dp divides its 2B streams. Every rank ends with the whole
 outputs.
 
-Not in this slice (ROADMAP.md): the CFG prefix skip, compact wires and
-``defer_host``.
+The outputs reach the host through a wire (JAX ``compact_transfer``): on a
+card the decoded RGB moves as uint8 codes (``wire_rgb="yuv420"``: BT.601
+4:2:0, 1.5 bytes a pixel), the disparity as fp16 (``wire_disparity="u8"``:
+its square root in 8 bits), the raymap as f32; on the CPU, or with
+``compact_transfer=False``, everything moves as f32. ``wire_input="yuv420"``
+packs the uint8 pixels on the host and unpacks them on the device.
+``defer_host=True`` returns a :class:`DeferredOutput` as soon as the call's
+work is queued: the copies to the host ride a stream of their own into pinned
+buffers, ordered after the decode by an event, and ``resolve()`` waits for
+them and builds the outputs. No stage then ends in a synchronize, so
+``stage_seconds`` holds host enqueue seconds (as the JAX timers do).
+:func:`iter_resolved` keeps one such dispatch in flight ahead of its
+consumer. The CFG prefix skip is not ported (ROADMAP.md, "Do not port").
 """
 
 from __future__ import annotations
@@ -83,8 +94,43 @@ class AetherPipelineOutput:
     disparity: np.ndarray  # (F, H, W)
     raymap: np.ndarray  # (F, 6, H/8, W/8)
     # host-clock seconds per stage (encode, denoise, decode), each ended by a
-    # device synchronize
+    # device synchronize; under ``defer_host`` the seconds to queue the stage
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+class DeferredOutput:
+    """A pipeline output whose device->host copies have been started but not
+    waited for. ``resolve()`` waits for them and returns the
+    :class:`AetherPipelineOutput` (a list of them for ``batch_reconstruct``);
+    it is idempotent. A window loop can queue window i+1's work before it
+    pays for window i's transfer (JAX ``DeferredOutput``)."""
+
+    def __init__(self, resolve_fn):
+        self._resolve_fn = resolve_fn
+        self._result = None
+
+    def resolve(self):
+        if self._result is None:
+            self._result = self._resolve_fn()
+            self._resolve_fn = None
+        return self._result
+
+
+def iter_resolved(dispatches):
+    """Pipelined resolve over zero-argument callables, each dispatching one
+    pipeline call (``defer_host=True``) and returning a
+    :class:`DeferredOutput` or a plain output. Yields the resolved outputs in
+    order while one dispatch is always in flight ahead of the consumer: call
+    i+1's device work overlaps call i's host transfer and whatever the
+    consumer does between ``next()`` calls (JAX ``iter_resolved``)."""
+    pending = None
+    for make in dispatches:
+        out = make()
+        if pending is not None:
+            yield pending.resolve() if hasattr(pending, "resolve") else pending
+        pending = out
+    if pending is not None:
+        yield pending.resolve() if hasattr(pending, "resolve") else pending
 
 
 class TorchNoise:
@@ -128,23 +174,106 @@ _LISTENER_NAMES = {"encode": "vae_encode", "denoise": "denoise", "decode": "vae_
 
 
 @contextlib.contextmanager
-def _stage(name: str, times: Dict[str, float], device: torch.device):
+def _stage(name: str, times: Dict[str, float], device: torch.device, sync: bool = True):
     """Time one pipeline stage on the host clock, ended by a device
-    synchronize, inside a profiler range ``aether.<name>`` (free unless a
+    synchronize unless ``sync`` is False (``defer_host``: the seconds to
+    queue it), inside a profiler range ``aether.<name>`` (free unless a
     profiler is running) and a ``stage_timer`` under the JAX stage name,
     which tells the stage listeners where it begins and ends."""
     with torch.profiler.record_function(f"aether.{name}"), \
             stage_timer(_LISTENER_NAMES[name], log=False):
         t0 = time.perf_counter()
         yield
-        if device.type == "cuda":
+        if sync and device.type == "cuda":
             torch.cuda.synchronize(device)
         times[name] = time.perf_counter() - t0
 
 
+def _upload(array, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``. A card gets it through pinned memory and
+    an asynchronous copy: a copy from pageable memory synchronizes the
+    stream, which would wait for all the work queued before it."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _u8_to_unit(pixels_u8: np.ndarray, dtype, device) -> torch.Tensor:
     """uint8 pixels -> [-1, 1] on the device (the upload moves uint8)."""
-    return torch.from_numpy(np.ascontiguousarray(pixels_u8)).to(device).to(dtype) / 127.5 - 1.0
+    return _upload(pixels_u8, torch.device(device)).to(dtype) / 127.5 - 1.0
+
+
+# Full-range BT.601 coefficients of the four yuv420 wire codecs (the JAX
+# package's; device/host x pack/unpack stay exact inverses of each other)
+_YR, _YG, _YB = 0.299, 0.587, 0.114
+_CB_SCALE, _CR_SCALE = 0.564, 0.713
+
+
+def _to_u8(v: torch.Tensor) -> torch.Tensor:
+    """[0, 1] f32 -> uint8 codes, rounded half to even (``jnp.round``)."""
+    return torch.round(torch.clamp(v, 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def _subsample(c: torch.Tensor) -> torch.Tensor:
+    """2x2 mean over the last two axes."""
+    *lead, h, w = c.shape
+    return c.reshape(*lead, h // 2, 2, w // 2, 2).mean(dim=(-3, -1))
+
+
+def _rgb_to_yuv420_wire(rgb01: torch.Tensor):
+    """[..., H, W, 3] in [0, 1] -> (Y u8 [..., H, W], Cb, Cr u8 [..., H/2,
+    W/2]) on the device: full-range BT.601 with 2x2-averaged chroma, 1.5
+    bytes a pixel on the D2H wire (JAX ``_rgb_to_yuv420_wire``). H and W
+    must be even."""
+    rf, gf, bf = (rgb01[..., i].float() for i in range(3))
+    y = _YR * rf + _YG * gf + _YB * bf
+    cb = (bf - y) * _CB_SCALE + 0.5
+    cr = (rf - y) * _CR_SCALE + 0.5
+    return _to_u8(y), _to_u8(_subsample(cb)), _to_u8(_subsample(cr))
+
+
+def _yuv420_wire_to_rgb(y_u8, cb_u8, cr_u8) -> np.ndarray:
+    """Host inverse of :func:`_rgb_to_yuv420_wire` -> f32 RGB in [0, 1]
+    (JAX ``_yuv420_wire_to_rgb``)."""
+    y = np.asarray(y_u8).astype(np.float32) / 255.0
+    cb = np.asarray(cb_u8).astype(np.float32) / 255.0 - 0.5
+    cr = np.asarray(cr_u8).astype(np.float32) / 255.0 - 0.5
+    cb = cb.repeat(2, axis=-2).repeat(2, axis=-1)
+    cr = cr.repeat(2, axis=-2).repeat(2, axis=-1)
+    r = y + cr / _CR_SCALE
+    b = y + cb / _CB_SCALE
+    g = (y - _YR * r - _YB * b) / _YG
+    return np.clip(np.stack([r, g, b], axis=-1), 0.0, 1.0)
+
+
+def _rgb_u8_to_yuv420_host(pixels_u8: np.ndarray):
+    """Host pack for the H2D wire: (..., H, W, 3) u8 -> (Y, Cb, Cr) u8 numpy,
+    :func:`_rgb_to_yuv420_wire` on the CPU (bit for bit JAX's numpy
+    ``_rgb_u8_to_yuv420_host``)."""
+    rgb01 = torch.from_numpy(np.ascontiguousarray(pixels_u8)).float() / 255.0
+    return tuple(t.numpy() for t in _rgb_to_yuv420_wire(rgb01))
+
+
+def _yuv420_to_unit(y_u8: torch.Tensor, cb_u8: torch.Tensor, cr_u8: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """Device unpack of the H2D yuv420 wire -> [-1, 1] RGB (..., H, W, 3),
+    the chroma upsampled nearest (JAX ``_yuv420_to_unit``)."""
+    y = y_u8.float() / 255.0
+    cb = cb_u8.float() / 255.0 - 0.5
+    cr = cr_u8.float() / 255.0 - 0.5
+
+    def up(c):
+        *lead, h2, w2 = c.shape
+        return c[..., :, None, :, None].expand(*lead, h2, 2, w2, 2).reshape(
+            *lead, h2 * 2, w2 * 2)
+
+    cb, cr = up(cb), up(cr)
+    r = y + cr / _CR_SCALE
+    b = y + cb / _CB_SCALE
+    g = (y - _YR * r - _YB * b) / _YG
+    rgb01 = torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 1.0)
+    return (rgb01 * 2.0 - 1.0).to(dtype)
 
 
 def dynamic_cfg_schedule(timesteps: np.ndarray, num_inference_steps: int,
@@ -398,13 +527,112 @@ def _decode_rgb_and_disparity(config: PipelineConfig, dtype, vae: VAE,
     return out[:b], out[b:]
 
 
-def _finish_rgb(rgb_decoded: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(rgb_decoded.float() * 0.5 + 0.5, 0.0, 1.0)
+def _finish_rgb(rgb_decoded: torch.Tensor, mode: str) -> tuple:
+    """Decoded RGB -> its wire: clip to [0, 1], then (y, cb, cr) u8 for
+    ``"yuv420"``, (u8,) for ``"u8"``, (f32,) otherwise (JAX ``_finish_rgb``)."""
+    rgb01 = torch.clamp(rgb_decoded.float() * 0.5 + 0.5, 0.0, 1.0)
+    if mode == "yuv420":
+        return _rgb_to_yuv420_wire(rgb01)
+    if mode == "u8":
+        return (torch.round(rgb01 * 255.0).to(torch.uint8),)
+    return (rgb01,)
 
 
-def _finish_disparity(disp_decoded: torch.Tensor) -> torch.Tensor:
+def _finish_disparity(disp_decoded: torch.Tensor, mode: str) -> torch.Tensor:
+    """Decoded disparity -> its wire: channel mean, affine, square (f32, or
+    fp16 for ``"fp16"``), or for ``"u8"`` the pre-square value in 8 bits
+    (JAX ``_finish_disparity``)."""
     ds = disp_decoded.float().mean(dim=-1) * 0.5 + 0.5
-    return ds * ds
+    if mode == "u8":
+        return _to_u8(ds)
+    d = torch.square(ds)
+    return d.half() if mode == "fp16" else d
+
+
+class _HostCopies:
+    """The device->host copies of a call's wire tensors. On a card they run
+    on the pipeline's copy stream into pinned buffers of its pool, after an
+    event recorded behind the decode on the current stream; each source is
+    marked used by the copy stream (``record_stream``) and kept until
+    :meth:`arrays` returns, so that the allocator cannot hand its memory to
+    the next call while the copy reads it. On the CPU the tensors are the
+    host arrays."""
+
+    def __init__(self, tensors: list, pool: "_PinnedPool"):
+        self._pool, self._src, self._bufs, self.event = pool, tensors, None, None
+        if not tensors or tensors[0].device.type != "cuda":
+            return
+        dev = tensors[0].device
+        decoded = torch.cuda.Event()
+        decoded.record(torch.cuda.current_stream(dev))
+        stream = pool.stream(dev)
+        stream.wait_event(decoded)
+        self._bufs = []
+        with torch.cuda.stream(stream):
+            for t in tensors:
+                buf = pool.acquire(t.shape, t.dtype)
+                buf.copy_(t, non_blocking=True)
+                t.record_stream(stream)
+                self._bufs.append(buf)
+        self.event = torch.cuda.Event()
+        self.event.record(stream)
+
+    def arrays(self) -> list:
+        """The host arrays (views of the pinned buffers on a card: copy what
+        you keep before :meth:`release`)."""
+        if self.event is None:
+            return [t.numpy() for t in self._src]
+        self.event.synchronize()
+        return [b.numpy() for b in self._bufs]
+
+    def release(self) -> None:
+        """Hand the pinned buffers back to the pool and drop the sources."""
+        for buf in self._bufs or ():
+            self._pool.release(buf)
+        self._src = self._bufs = None
+
+
+class _PinnedPool:
+    """Pinned host buffers by (shape, dtype), allocated once and reused call
+    after call (two are out at once while one deferred call is resolved and
+    the next is in flight), and the copy stream of each card."""
+
+    def __init__(self):
+        self._free: Dict[tuple, list] = {}
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+    def stream(self, device: torch.device):
+        if device not in self._streams:
+            self._streams[device] = torch.cuda.Stream(device)
+        return self._streams[device]
+
+    def acquire(self, shape, dtype) -> torch.Tensor:
+        free = self._free.get((tuple(shape), dtype))
+        if free:
+            return free.pop()
+        return torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+
+    def release(self, buf: torch.Tensor) -> None:
+        self._free.setdefault((tuple(buf.shape), buf.dtype), []).append(buf)
+
+
+def _host_output(rgb, disparity, raymap, rgb_mode: str, disp_mode: str,
+                 times: Dict[str, float]) -> AetherPipelineOutput:
+    """One window's host output from its wire arrays, as JAX ``_resolve``
+    builds it: u8 codes / 255 in f32, yuv420 unpacked on the host, u8
+    disparity squared after / 255; every array a copy of its wire."""
+    if rgb_mode == "yuv420":
+        rgb_np = _yuv420_wire_to_rgb(*rgb)
+    elif rgb_mode == "u8":
+        rgb_np = rgb[0].astype(np.float32) / 255.0
+    else:
+        rgb_np = np.array(rgb[0], dtype=np.float32)
+    disp_np = disparity.astype(np.float32)
+    if disp_mode == "u8":
+        disp_np = np.square(disp_np / 255.0)
+    return AetherPipelineOutput(rgb=rgb_np.astype(np.float32, copy=False), disparity=disp_np,
+                                raymap=np.array(raymap, dtype=np.float32),
+                                stage_seconds=times)
 
 
 def _draw(draw, shape, broadcast: bool) -> torch.Tensor:
@@ -419,7 +647,8 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
              condition_latents: torch.Tensor, plan: SamplingPlan,
              rope_cos: torch.Tensor, rope_sin: torch.Tensor, noise_source,
              task: str, guidance: Optional[torch.Tensor],
-             broadcast_noise: bool = False, act_quant: bool = False) -> torch.Tensor:
+             broadcast_noise: bool = False, act_quant: bool = False,
+             sync: bool = True) -> torch.Tensor:
     """SDE-DPM-Solver++(2M) loop (JAX ``_denoise_segment``, :1010-1050).
     Latents are carried in the compute dtype, ``old_x0`` in f32.
 
@@ -432,8 +661,10 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
     and broadcasts it, so every window of a batch gets the noise stream of a
     serial call with the same seed. ``act_quant`` reaches the DiT (w8a8
     where its codes are int8). With a stage listener registered, each step
-    ends with ``notify_stage_progress("denoise", (i + 1) / n)`` after a
-    device synchronize; without one, nothing. Returns (B, F_lat, 56, h, w)."""
+    ends with ``notify_stage_progress("denoise", (i + 1) / n)``, after a
+    device synchronize unless ``sync`` is False (``defer_host``: the event
+    then marks the step's enqueue); without one, nothing. Returns (B, F_lat,
+    56, h, w)."""
     b, f_lat, _, h_lat, w_lat = condition_latents.shape
     shape = (b, f_lat, 56, h_lat, w_lat)
     lat = (_draw(noise_source.initial, shape, broadcast_noise)
@@ -463,17 +694,18 @@ def _denoise(config: PipelineConfig, dtype, dit: DiT, text: torch.Tensor,
         new_lat, old_x0 = dpm_step(plan, i, lat.float(), noise_pred, old_x0,
                                    sde_noise)
         lat = new_lat.to(dtype)
-        _step_progress(lat, i + 1, plan.num_steps)
+        _step_progress(lat, i + 1, plan.num_steps, sync)
     return lat
 
 
-def _step_progress(lat: torch.Tensor, done: int, total: int) -> None:
+def _step_progress(lat: torch.Tensor, done: int, total: int, sync: bool = True) -> None:
     """Live step progress for a front-end (JAX ``_denoise``, :1153-1166, one
     event a segment): only when a stage listener is registered, since the
-    event waits for the step on the device; otherwise nothing."""
+    event waits for the step on the device (unless ``sync`` is False);
+    otherwise nothing."""
     if not has_stage_listeners():
         return
-    if lat.is_cuda:
+    if sync and lat.is_cuda:
         torch.cuda.synchronize(lat.device)
     notify_stage_progress("denoise", done / total)
 
@@ -486,11 +718,31 @@ class AetherPipeline:
     (a quantized DiT keeps its codes and f32 scales). ``mesh`` (a
     ``parallel.make_mesh`` mesh holding this rank) splits the DiT by
     ``parallel.shard_params`` and runs the pipeline over the mesh (see the
-    module docstring); every rank of it must make the same calls."""
+    module docstring); every rank of it must make the same calls.
+
+    The wires (JAX :1188-1242): ``compact_transfer`` None means on for a
+    CUDA device and off on the CPU; compact, the RGB moves as ``wire_rgb``
+    ("u8", the default, or "yuv420") and the disparity as ``wire_disparity``
+    ("fp16", the default, or "u8"); ``wire_input`` ("u8" or "yuv420") is
+    the pixels' upload, compact or not."""
 
     def __init__(self, config: PipelineConfig, dit: DiT, vae: VAE,
                  empty_prompt_embeds, *, device=None, compute_dtype=torch.bfloat16,
-                 act_quant: bool = False, mesh=None):
+                 act_quant: bool = False, mesh=None, compact_transfer: Optional[bool] = None,
+                 wire_rgb: Optional[str] = None, wire_input: str = "u8",
+                 wire_disparity: str = "fp16"):
+        if wire_rgb not in (None, "u8", "yuv420"):
+            raise ValueError(f"wire_rgb must be 'u8' or 'yuv420', got {wire_rgb}")
+        if wire_input not in ("u8", "yuv420"):
+            raise ValueError(f"wire_input must be 'u8' or 'yuv420', got {wire_input}")
+        if wire_disparity not in ("fp16", "u8"):
+            raise ValueError(
+                f"wire_disparity must be 'fp16' or 'u8', got {wire_disparity}")
+        self.compact_transfer = compact_transfer
+        self.wire_rgb = wire_rgb
+        self.wire_input = wire_input
+        self.wire_disparity = wire_disparity
+        self._pinned = _PinnedPool()
         self.config = config
         self.device = torch.device(device) if device is not None else next(
             dit.parameters()).device
@@ -506,6 +758,51 @@ class AetherPipeline:
         text = torch.as_tensor(empty_prompt_embeds).to(device=self.device,
                                                        dtype=compute_dtype)
         self.empty_prompt_embeds = text[None] if text.ndim == 2 else text
+
+    def _wire_modes(self, compact: bool, height: int, width: int):
+        """(rgb_mode, disp_mode) of the D2H wire (JAX :1265-1274): f32 unless
+        compact; compact, u8 RGB (yuv420 when asked and H and W are even) and
+        fp16 disparity (u8 when asked)."""
+        if not compact:
+            return "f32", "f32"
+        rgb_mode = "u8"
+        if self.wire_rgb == "yuv420" and height % 2 == 0 and width % 2 == 0:
+            rgb_mode = "yuv420"
+        return rgb_mode, ("u8" if self.wire_disparity == "u8" else "fp16")
+
+    def _modes(self, height: int, width: int):
+        compact = self.compact_transfer
+        if compact is None:
+            compact = self.device.type == "cuda"
+        return self._wire_modes(compact, height, width)
+
+    def _upload_pixels(self, pixels_u8: np.ndarray, height: int, width: int) -> torch.Tensor:
+        """uint8 pixels -> [-1, 1] on the device through the input wire: u8,
+        or yuv420 packed on the host and unpacked on the device (u8 for an
+        odd H or W; JAX :1405-1409)."""
+        dev, dtype = self.device, self.compute_dtype
+        if self.wire_input == "yuv420" and height % 2 == 0 and width % 2 == 0:
+            return _yuv420_to_unit(*(_upload(p, dev) for p in _rgb_u8_to_yuv420_host(pixels_u8)),
+                                   dtype)
+        return _u8_to_unit(pixels_u8, dtype, dev)
+
+    def _pull(self, wires: list, modes, times: Dict[str, float]):
+        """Start the host copies of ``wires`` (one (rgb tuple, disparity,
+        raymap) a window); returns the function that waits for them and
+        builds the windows' :class:`AetherPipelineOutput`."""
+        flat = [t for rgb, disp, ray in wires for t in (*rgb, disp, ray)]
+        copies = _HostCopies(flat, self._pinned)
+        n_rgb = len(wires[0][0]) if wires else 0
+
+        def resolve() -> list:
+            arrays, k, outs = copies.arrays(), n_rgb + 2, []
+            for i in range(len(wires)):
+                a = arrays[i * k:(i + 1) * k]
+                outs.append(_host_output(a[:n_rgb], a[n_rgb], a[n_rgb + 1], *modes, times))
+            copies.release()
+            return outs
+
+        return resolve
 
     def check_inputs(self, task, image, video, goal, raymap, height, width,
                      num_frames, fps) -> None:
@@ -559,11 +856,16 @@ class AetherPipeline:
         fps: Optional[int] = None,
         seed: Optional[int] = None,
         noise=None,
-    ) -> AetherPipelineOutput:
+        defer_host: bool = False,
+    ):
         """Run one window of ``task`` (inferred from the inputs when None:
         reconstruction for a video, planning with a goal, else prediction).
         ``noise`` replaces the default :class:`TorchNoise` (it needs
-        ``posterior``, ``goal``, ``initial`` and ``sde``)."""
+        ``posterior``, ``goal``, ``initial`` and ``sde``). Returns an
+        :class:`AetherPipelineOutput`, or with ``defer_host`` a
+        :class:`DeferredOutput` as soon as the work and the host copies are
+        queued (no stage synchronizes; ``stage_seconds`` holds enqueue
+        seconds)."""
         cfg = self.config
         if task is None:
             task = ("reconstruction" if video is not None
@@ -608,13 +910,14 @@ class AetherPipeline:
             scales = (dynamic_cfg_schedule(timesteps, num_inference_steps, guidance_scale)
                       if use_dynamic_cfg
                       else np.full(num_inference_steps, guidance_scale, np.float32))
-            guidance = torch.from_numpy(scales).to(dev)
+            guidance = _upload(scales, dev)
+        sync = not defer_host
 
         # ---- stage 1: tiled, chunked VAE encode of the pixel conditions ----
-        with _stage("encode", times, dev):
+        with _stage("encode", times, dev, sync):
             def encode(px, draw):
                 return _encode_pixels(cfg, dtype, self.vae,
-                                      _u8_to_unit(px, dtype, dev), draw, tiling)
+                                      self._upload_pixels(px, height, width), draw, tiling)
 
             condition = encode(pixels, noise.posterior)
             if task == "prediction":  # [image | zeros]
@@ -625,23 +928,24 @@ class AetherPipeline:
                 condition = torch.cat([condition, condition.new_zeros(
                     (1, f_lat - 2, lat_c, h_lat, w_lat)), goal_lat], dim=1)
             if raymap is not None:
-                rm = torch.from_numpy(np.asarray(raymap)).to(dev)
-                camera = pack_raymap(rm[None].to(dtype))
+                camera = pack_raymap(_upload(np.asarray(raymap), dev)[None].to(dtype))
             else:
                 camera = torch.zeros((1, f_lat, 24, h_lat, w_lat), dtype=dtype, device=dev)
             condition_latents = torch.cat([condition, camera], dim=2)
 
         # ---- stage 2: denoise ----
-        with _stage("denoise", times, dev):
+        with _stage("denoise", times, dev, sync):
             latents = _denoise(cfg, dtype, self.dit, self.empty_prompt_embeds,
                                condition_latents, plan, rope_cos, rope_sin, noise,
-                               task, guidance, act_quant=self.act_quant)
+                               task, guidance, act_quant=self.act_quant, sync=sync)
 
-        # ---- stage 3: stacked decode + output transforms ----
-        with _stage("decode", times, dev):
-            out = self._decode_windows(latents, tiling, num_frames)[0]
-        out.stage_seconds = times
-        return out
+        # ---- stage 3: stacked decode, the wire transforms, the host copies ----
+        modes = self._modes(height, width)
+        with _stage("decode", times, dev, sync):
+            resolve = self._pull(self._decode_windows(latents, tiling, num_frames, modes),
+                                 modes, times)
+        out = DeferredOutput(lambda: resolve()[0])
+        return out if defer_host else out.resolve()
 
     def _schedule(self, num_inference_steps: int, height: int, width: int, f_lat: int,
                   fps: int):
@@ -651,26 +955,28 @@ class AetherPipeline:
         timesteps = set_timesteps(cfg.scheduler, num_inference_steps)
         plan = make_sampling_plan(cfg.scheduler, num_inference_steps,
                                   timesteps=timesteps, device=dev)
-        rope_cos, rope_sin = (torch.from_numpy(t).to(dev) for t in
+        rope_cos, rope_sin = (_upload(t, dev) for t in
                               prepare_rotary_positional_embeddings(
                                   cfg.dit, height, width, f_lat,
                                   vae_scale_factor_spatial=cfg.vae_scale_factor_spatial,
                                   base_fps=cfg.base_fps, fps=fps))
         return timesteps, plan, rope_cos, rope_sin
 
-    def _decode_windows(self, latents: torch.Tensor, tiling: bool,
-                        num_frames: int) -> list:
-        """(B, F_lat, 56, h, w) latents -> B host outputs: the RGB and
-        disparity streams in one batch-2B decode, the raymaps unfolded."""
+    def _decode_windows(self, latents: torch.Tensor, tiling: bool, num_frames: int,
+                        modes) -> list:
+        """(B, F_lat, 56, h, w) latents -> B device wires (rgb tuple,
+        disparity, raymap): the RGB and disparity streams in one batch-2B
+        decode, each finished into its wire (``modes``), the raymaps
+        unfolded."""
         cfg, dtype = self.config, self.compute_dtype
         lat_c = cfg.vae.latent_channels
         rgb, disparity = _decode_rgb_and_disparity(cfg, dtype, self.vae, latents, tiling,
                                                    self.mesh)
-        rgb = _finish_rgb(rgb).cpu().numpy()
-        disparity = _finish_disparity(disparity).cpu().numpy()
-        raymap = unpack_raymap(latents[:, :, 2 * lat_c:].float(), num_frames).cpu().numpy()
-        return [AetherPipelineOutput(rgb=rgb[i], disparity=disparity[i], raymap=raymap[i])
-                for i in range(latents.shape[0])]
+        rgb = _finish_rgb(rgb, modes[0])
+        disparity = _finish_disparity(disparity, modes[1])
+        raymap = unpack_raymap(latents[:, :, 2 * lat_c:].float(), num_frames)
+        return [(tuple(p[i].contiguous() for p in rgb), disparity[i].contiguous(),
+                 raymap[i].contiguous()) for i in range(latents.shape[0])]
 
     @torch.no_grad()
     def batch_reconstruct(
@@ -683,7 +989,8 @@ class AetherPipeline:
         fps: int = 12,
         seed: int = 0,
         noise=None,
-    ) -> list:
+        defer_host: bool = False,
+    ):
         """Reconstruct B windows ``videos`` (B, F, H, W, 3) in ONE batched
         denoise (JAX ``batch_reconstruct``, :1526-1690).
 
@@ -704,7 +1011,8 @@ class AetherPipeline:
         encode splits the windows over the dp ranks, and so does the stacked
         decode of all 2B streams; the padding's outputs are dropped.
         Returns one :class:`AetherPipelineOutput` per window; each carries the
-        batch's stage times."""
+        batch's stage times. With ``defer_host``, a :class:`DeferredOutput`
+        that resolves to that list, as in :meth:`__call__`."""
         cfg = self.config
         videos = np.asarray(videos)
         n_windows = videos.shape[0]
@@ -737,27 +1045,29 @@ class AetherPipeline:
         _, plan, rope_cos, rope_sin = self._schedule(num_inference_steps, height, width,
                                                      f_lat, fps)
 
-        with _stage("encode", times, dev):
+        sync = not defer_host
+        with _stage("encode", times, dev, sync):
             condition = _encode_windows(cfg, dtype, self.vae,
-                                        _u8_to_unit(pixels, dtype, dev), noise.posterior,
-                                        tiling, mesh=self.mesh)
+                                        self._upload_pixels(pixels, height, width),
+                                        noise.posterior, tiling, mesh=self.mesh)
             camera = torch.zeros((bsz, f_lat, 24, h_lat, w_lat), dtype=dtype, device=dev)
             condition_latents = torch.cat([condition, camera], dim=2)
 
-        with _stage("denoise", times, dev):
+        with _stage("denoise", times, dev, sync):
             latents = _denoise(cfg, dtype, self.dit, self.empty_prompt_embeds,
                                condition_latents, plan, rope_cos, rope_sin, noise,
                                "reconstruction", None, broadcast_noise=True,
-                               act_quant=self.act_quant)
+                               act_quant=self.act_quant, sync=sync)
 
-        with _stage("decode", times, dev):
+        modes = self._modes(height, width)
+        with _stage("decode", times, dev, sync):
             if _dp_rows(self.mesh, 2 * bsz) is not None:
                 # the stacked 2B streams over the dp ranks
-                outs = self._decode_windows(latents, tiling, num_frames)
+                wires = self._decode_windows(latents, tiling, num_frames, modes)
             else:
-                outs = [self._decode_windows(latents[i:i + 1], tiling, num_frames)[0]
-                        for i in range(bsz)]
-        outs = outs[:n_windows]
-        for out in outs:
-            out.stage_seconds = times
-        return outs
+                wires = [self._decode_windows(latents[i:i + 1], tiling, num_frames, modes)[0]
+                         for i in range(bsz)]
+            # the padding's outputs are dropped before they are copied
+            resolve = self._pull(wires[:n_windows], modes, times)
+        out = DeferredOutput(resolve)
+        return out if defer_host else out.resolve()

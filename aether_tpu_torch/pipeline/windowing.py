@@ -9,11 +9,12 @@ lerped; finally the whole clip is unprojected to pointmaps in one batched
 ``project`` on the pipeline's device. The host blending is float64 numpy, as
 in the JAX package.
 
-The port has no ``defer_host``: a window's outputs are on the host when its
-call returns, so the windows run one after another (or in chunks through
-``batch_reconstruct``), each inside a ``torch.profiler`` range
-``aether.window@<start>`` (``aether.windows@<start>x<n>`` for a chunk) and
-the JAX driver's ``dispatch@`` / ``resolve@`` stage timers.
+The windows run with ``defer_host`` pipelining, as in the JAX driver: window
+i+1's work is queued before window i's outputs are resolved, so window i's
+copies to the host and its host work ride beside window i+1's device work.
+Each dispatch runs inside a ``torch.profiler`` range ``aether.window@<start>``
+(``aether.windows@<start>x<n>`` for a chunk) and the JAX driver's
+``dispatch@`` / ``resolve@`` stage timers.
 """
 
 from __future__ import annotations
@@ -90,28 +91,27 @@ def run_windowed_reconstruction(
 ) -> Tuple[list, List[int], int]:
     """Sliding-window reconstruction driver (the demo's and the server's).
 
-    Windows run serially through ``pipeline.__call__``, or, with
-    ``batch_windows > 1`` and no raymap, ``batch_windows`` at a time through
-    :meth:`AetherPipeline.batch_reconstruct` (one batched denoise a chunk).
-    Every window uses the same seed, as the reference does.
-    ``progress(done, total)`` is called before each window or chunk. Returns
-    ``(window_results, window_indices, num_frames)`` with ``num_frames``
-    shrunk to the largest allowed window that fits the clip.
-
-    The stages are timed as the JAX driver times them: ``dispatch@<start>``
-    (``dispatch@<start>x<n>`` for a chunk) around a call, and
-    ``resolve@<start>`` around taking its outputs, after the next dispatch.
-    Without ``defer_host`` a call returns its outputs on the host, so here
-    the dispatch holds the whole window and the resolve only collects it."""
+    Runs every window with ``defer_host`` pipelining: window i+1's work is
+    queued before window i's device->host transfer is resolved. With
+    ``batch_windows > 1`` and no raymap, ``batch_windows`` windows at a time
+    go through :meth:`AetherPipeline.batch_reconstruct` (one batched denoise
+    a chunk). Every window uses the same seed, as the reference does. The
+    stages are named ``dispatch@<start>`` (``dispatch@<start>x<n>`` for a
+    chunk) and ``resolve@<start>``, because under deferral neither alone is
+    a window's latency. ``progress(done, total)`` is called as windows are
+    dispatched. Returns ``(window_results, window_indices, num_frames)`` with
+    ``num_frames`` shrunk to the largest allowed window that fits the clip
+    (JAX ``run_windowed_reconstruction``)."""
     num_frames = fit_num_frames(len(video), num_frames, pipeline.config.allowed_num_frames)
     window_indices = get_window_starts(len(video), num_frames, stride)
     n = len(window_indices)
     results: list = []
-    pending = None  # (start, outputs) of the previous call, collected after the next
+    deferred = prev = None
 
-    def resolve():
-        with stage_timer(f"resolve@{pending[0]}", log=False):
-            results.extend(pending[1])
+    def resolve(batched: bool):
+        with stage_timer(f"resolve@{prev}", log=False):
+            out = deferred.resolve()
+        results.extend(out if batched else [out])
 
     if batch_windows > 1 and raymap is None:
         for i in range(0, n, batch_windows):
@@ -121,12 +121,15 @@ def run_windowed_reconstruction(
             stacked = np.stack([video[s:s + num_frames] for s in chunk])
             with torch.profiler.record_function(f"aether.windows@{chunk[0]}x{len(chunk)}"), \
                     stage_timer(f"dispatch@{chunk[0]}x{len(chunk)}", log=False):
-                outs = pipeline.batch_reconstruct(
+                out = pipeline.batch_reconstruct(
                     stacked, height=height, width=width, num_frames=num_frames,
-                    num_inference_steps=num_inference_steps or 4, fps=fps, seed=seed)
-            if pending is not None:
-                resolve()
-            pending = (chunk[0], outs)
+                    num_inference_steps=num_inference_steps or 4, fps=fps, seed=seed,
+                    defer_host=True)
+            if deferred is not None:
+                resolve(True)
+            deferred, prev = out, chunk[0]
+        if deferred is not None:
+            resolve(True)
     else:
         for j, start in enumerate(window_indices):
             if progress is not None:
@@ -139,11 +142,12 @@ def run_windowed_reconstruction(
                             if raymap is not None else None),
                     height=height, width=width, num_frames=num_frames, fps=fps,
                     num_inference_steps=num_inference_steps, guidance_scale=1.0,
-                    use_dynamic_cfg=False, seed=seed)
-            if pending is not None:
-                resolve()
-            pending = (start, [out])
-    resolve()
+                    use_dynamic_cfg=False, seed=seed, defer_host=True)
+            if deferred is not None:
+                resolve(False)
+            deferred, prev = out, start
+        if deferred is not None:
+            resolve(False)
     return results, window_indices, num_frames
 
 

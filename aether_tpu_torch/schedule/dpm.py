@@ -144,11 +144,21 @@ def make_sampling_plan(
             m4[i] = 1.0 / (2.0 * r)
             second[i] = True
 
+    device = torch.device(device)
+
+    def put(a):
+        # a card gets the tables through pinned memory and an asynchronous
+        # copy, which does not wait for the work queued before it
+        t = torch.from_numpy(a)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
     def f32(a):
-        return torch.from_numpy(a.astype(np.float32)).to(device)
+        return put(a.astype(np.float32))
 
     return SamplingPlan(
-        timesteps=torch.from_numpy(timesteps.astype(np.int32)).to(device),
+        timesteps=put(timesteps.astype(np.int32)),
         sqrt_alpha=f32(sqrt_a),
         sqrt_one_minus_alpha=f32(sqrt_1ma),
         mult1=f32(m1),
@@ -156,7 +166,7 @@ def make_sampling_plan(
         mult3=f32(m3),
         mult4=f32(m4),
         mult_noise=f32(m_noise),
-        second_order=torch.from_numpy(second).to(device),
+        second_order=put(second),
         init_noise_sigma=cfg.init_noise_sigma,
     )
 

@@ -48,10 +48,11 @@ Phases (each prints its result; any failure raises and exits non-zero):
      (``flash_attention_pv8``, the wgmma kernel) against its plain version at
      the CFG shape, and K6 alone on prepared operands;
  11. one prediction request on the phase-5 pipeline (built again from its
-     seeds) at ``AETHER_ATTN_FUSED=0``: the task defaults (50 steps,
-     guidance 3, dynamic CFG), a seeded image and (41, 6, 60, 90) raymap;
-     checks shapes, finiteness, the RGB range and 42 x 50 K3 launches with
-     no K1/K2/K6 launch;
+     seeds) at ``AETHER_ATTN_FUSED=0``: the task defaults (guidance 3,
+     dynamic CFG) but 20 of the default 50 steps (``FUSED0_STEPS``, a cut
+     to fit phases 24-25 in the time), a seeded image and (41, 6, 60, 90)
+     raymap; checks shapes, finiteness, the RGB range and 42 x 20 K3
+     launches with no K1/K2/K6 launch;
  12. two planning requests (image, goal, raymap; same seed) at
      ``AETHER_ATTN_PV8=1``, cut to 10 steps to fit the run's time; checks
      42 x 10 K6 launches each and bit-identical outputs;
@@ -223,6 +224,47 @@ the AetherV1 width cut to 2 blocks (a depth cut), seeded synthetic
      after the step, each rank's resident parameter bytes 0.45-0.55 of the
      model's. Each run's
      seconds a step and peak memory are logged; one card shows no speed-up.
+Phases of the serving slice (the wires, ``defer_host``, the server over a
+mesh). Every pipeline here runs the default wires (``compact_transfer``
+automatic: on for CUDA, u8 RGB and fp16 disparity) unless a phase names
+others; no earlier phase holds a pipeline's output to a float reference finer
+than the wire's rounding (the script says so on phase 24's first line).
+ 24. after 22, on the phase-5 pipeline, 41x480x720 (168/168/660 K1/K2/K5
+     launches a request, counted after ``resolve``): (a) phase 6's request 0
+     (compact) against ``compact_transfer=False``: RGB within 0.5/255 + 1e-6,
+     disparity within 2e-3 or half an fp16 ulp of the value, raymap
+     bit-identical; (b) ``wire_rgb="yuv420"`` + ``wire_disparity="u8"``
+     against the f32 wires: the RGB equal bit for bit to the codec's round
+     trip of the f32 RGB (packed on the card, unpacked on the host), luma
+     q99 < 0.01, 2x2-block means q99 < 0.03, mean abs < 0.05 (JAX's maxima,
+     0.08 and 0.1 on 17x64x96, are logged: at 480x720 with random weights
+     they fall where the codec clips out-of-gamut colours); the u8
+     disparity's codes within one of round(sqrt(d) * 255), or 0 where the
+     pre-square value was negative (clipped, as JAX's codec does), within
+     2.5/255 where d <= 1 and not clipped, and <= 1; raymap within 1e-5;
+     and ``wire_input="yuv420"``: the
+     codec on a smooth seeded clip (mean < 0.01, max < 0.08, gray frames
+     within 2.5/255) and the request's RGB within 0.12 mean abs of the u8
+     upload's; (c) a deferred call: an event recorded when it returns is
+     still pending, its return and resolve seconds, the synchronizing calls
+     ``set_sync_debug_mode("warn")`` names over its dispatch, its outputs
+     bit-identical to phase 6's request 0; (d) the window driver over an
+     undeferred pipeline on phase 6c's clip, serially and at
+     ``batch_windows=2``: bit-identical to 6c's deferred runs. Prints each
+     wire's bytes to the host and each call's seconds;
+ 25. after 24 (the phase-5 pipeline freed): the server over a mesh of two
+     ranks spawned on cuda:0 over gloo (``serve_mesh_rank``), the AetherV1
+     width cut to 2 blocks (depth only) with the full VAE; rank 0 serves HTTP
+     through ``apps.serve.serve`` and a ``parallel.jobs.JobChannel``, the
+     parent posts a job, polls ``/api/status`` and sends rank 0 SIGTERM:
+     (a) dp = 2, the seeded 65-frame two-window reconstruction job (one
+     ``batch_reconstruct`` chunk); (b) tp = 2, a 4-step prediction job with
+     the 4-step post-reconstruction (K1 + K2 at 24 heads); (c) both jobs
+     again from one process (``JobRunner``) on the same weights: exported
+     rgb, disparity and poses within the long-video gates (mean abs <= 1e-2,
+     max <= 0.25 of max(1, |ref|)); (d) each rank's K1/K2/K5 launches (dp:
+     8/8/660, tp: 16/16/1088), both ranks exiting 0 after the stop message,
+     and the two ranks' peaks under 80 GB.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -253,6 +295,9 @@ SEQ, TEXT, HEADS, HEAD_DIM = 15076, 226, 48, 64
 FRAMES, HEIGHT, WIDTH, STEPS = 41, 480, 720, 4
 TRAIN_LAYERS, TRAIN_STEPS = 16, 3
 PREDICTION_STEPS, PLANNING_STEPS = 50, 10  # the task default; a cut to fit the time
+# the prediction at AETHER_ATTN_FUSED=0 (phase 11): the task default cut to
+# fit phases 24-25 in the time (PERF.md §7 named it the first to cut)
+FUSED0_STEPS = 20
 LONG_FRAMES, STRIDE = 65, 24  # two 41-frame windows, starts 0 and 24
 # H100 SXM at 700 W (NVIDIA's data sheet): memory rate, dense peaks by type
 HBM_BYTES_PER_S = 3.35e12
@@ -748,7 +793,9 @@ def parse_glb_points(path):
 def long_video_phase(pipe, dev):
     """The long-video path on the AetherV1 pipeline: a seeded 65-frame clip in
     two 41-frame windows, serially and batched, the blend, the export.
-    Returns K5's launches in the two runs."""
+    Returns K5's launches in the two runs, the clip and the two runs'
+    window outputs ({1: serial, 2: batched}; phase 24 holds them to the
+    driver's undeferred runs)."""
     from aether_tpu_torch.apps.demo import save_geometry
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue
     from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked
@@ -832,7 +879,7 @@ def long_video_phase(pipe, dev):
     log(f"long video blend: {blend_s:.3f} s, rotations orthonormal within {ortho:.1e}; "
         f"export: {export_s:.3f} s, PLY {n_ply} points, {len(n_glb)} GLB scenes "
         f"({min(n_glb)}-{max(n_glb)} points), poses file {saved.shape}")
-    return k5_launches
+    return k5_launches, video, runs
 
 
 PRECOMPUTE_SEED = 5
@@ -1431,7 +1478,8 @@ def fixed_max_phase(dev, gen):
 
 
 def cfg_phases(cfg, dev):
-    """One 50-step prediction request through K3, two 10-step planning
+    """One prediction request through K3 (the task defaults, cut to
+    ``FUSED0_STEPS`` steps), two 10-step planning
     requests through K6, and one prediction request at the default attention
     settings (K1 + K2 at the CFG pair's batch 2) cut to 10 steps, on the
     AetherV1 pipeline. Returns the launches of K3 and K6 in their runs."""
@@ -1478,10 +1526,12 @@ def cfg_phases(cfg, dev):
     saved = {n: os.environ.get(n) for n in ("AETHER_ATTN_FUSED", "AETHER_ATTN_PV8")}
     try:
         os.environ["AETHER_ATTN_FUSED"] = "0"
-        _, counts = drive("prediction request", task="prediction")
+        _, counts = drive(f"prediction request ({FUSED0_STEPS} of the default "
+                          f"{PREDICTION_STEPS} steps)", task="prediction",
+                          num_inference_steps=FUSED0_STEPS)
         k5 = expected_k5(pipe, FRAMES, images=1)
-        check(counts == [0, 0, n_layers * PREDICTION_STEPS, 0, k5],
-              f"expected {n_layers * PREDICTION_STEPS} K3 and {k5} K5 launches, no other")
+        check(counts == [0, 0, n_layers * FUSED0_STEPS, 0, k5],
+              f"expected {n_layers * FUSED0_STEPS} K3 and {k5} K5 launches, no other")
         k3_launches = counts[2]
 
         os.environ["AETHER_ATTN_PV8"] = "1"
@@ -2564,6 +2614,545 @@ def parallel_train_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the device->host wires and defer_host at full size
+# ---------------------------------------------------------------------------
+
+def wire_bytes(frames=FRAMES):
+    """Bytes one request moves to the host in each wire, from its shapes."""
+    px = frames * HEIGHT * WIDTH
+    return {"rgb": {"f32": 12 * px, "u8": 3 * px, "yuv420": 3 * px // 2},
+            "disparity": {"f32": 4 * px, "fp16": 2 * px, "u8": px},
+            "raymap": {"f32": frames * 6 * (HEIGHT // 8) * (WIDTH // 8) * 4}}
+
+
+def rewired(pipe, **wires):
+    """The phase-5 pipeline's DiT and VAE behind other wires."""
+    from aether_tpu_torch.pipeline import AetherPipeline
+
+    return AetherPipeline(pipe.config, pipe.dit, pipe.vae, pipe.empty_prompt_embeds,
+                          device=pipe.device, compute_dtype=pipe.compute_dtype,
+                          act_quant=pipe.act_quant, **wires)
+
+
+def counted_request(pipe, video, k5_per_request, name):
+    """One 41x480x720 reconstruction request (4 steps, seed 42): its output,
+    its host seconds (ended by a synchronize) and its K1/K2/K5 launches,
+    checked to be 168/168/``k5_per_request``."""
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+
+    kernels = (qkv_prologue, flash_attention_prepacked, groupnorm_moments)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pipe(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
+               num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = [fn.launches for fn in kernels]
+    want = [pipe.config.dit.num_layers * STEPS] * 2 + [k5_per_request]
+    check(counts == want, f"{name}: K1/K2/K5 launches {counts}, not {want}")
+    check_request(res, FRAMES, name)
+    return res, wall, counts
+
+
+class Undeferred:
+    """A pipeline whose calls resolve before they return: the window
+    driver's undeferred run (``defer_host`` asked, an already-resolved
+    output handed back)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.config, self.device = pipe, pipe.config, pipe.device
+
+    def _run(self, fn, kw):
+        from aether_tpu_torch.pipeline import DeferredOutput
+
+        asked = kw.pop("defer_host", False)
+        out = fn(**kw)
+        return DeferredOutput(lambda: out) if asked else out
+
+    def __call__(self, **kw):
+        return self._run(self.pipe, kw)
+
+    def batch_reconstruct(self, videos, **kw):
+        return self._run(lambda **k: self.pipe.batch_reconstruct(videos, **k), kw)
+
+
+def wire_phase(pipe, dev, video, first, k5_per_request, long_clip, long_runs):
+    """Phase 24 on the phase-5 pipeline at 41x480x720 (K1 + K2 + K5). (a) the
+    default compact request (phase 6's request 0) against
+    ``compact_transfer=False``: RGB within 0.5/255 + 1e-6, disparity within
+    2e-3 or half an fp16 ulp of the value (where it exceeds 4.096, fp16's
+    own rounding), raymap bit-identical (JAX tests/test_pipeline.py:393-421);
+    (b) ``wire_rgb="yuv420"`` + ``wire_disparity="u8"`` against the f32
+    wires: the yuv420 RGB equal to its codec's round trip of the f32 RGB,
+    JAX's quantile and mean bars (:346-375), the u8 disparity's codes within
+    one of round(sqrt(d) * 255) or 0 (a negative pre-square value clipped)
+    and JAX's 2.5/255 (:322-345) where not clipped; ``wire_input="yuv420"``
+    on a smooth clip at the bars of :280-321 (the codec at full size, then
+    the request);
+    (c) a deferred call: an event recorded when it returns is still pending,
+    its dispatch under ``set_sync_debug_mode("warn")``, its resolved outputs
+    bit-identical to phase 6's request 0; (d) the 65-frame clip through the
+    window driver on an undeferred pipeline, serially and at
+    ``batch_windows=2``: bit-identical to phase 6c's deferred runs. Returns
+    ({name: seconds}, the phase's K1/K2/K5 launches)."""
+    import warnings
+
+    from aether_tpu_torch.pipeline.aether import (
+        _rgb_to_yuv420_wire,
+        _rgb_u8_to_yuv420_host,
+        _u8_to_unit,
+        _upload,
+        _yuv420_to_unit,
+        _yuv420_wire_to_rgb,
+    )
+    from aether_tpu_torch.pipeline.windowing import run_windowed_reconstruction
+
+    wb = wire_bytes()
+    log("phase 24 bytes to the host a request (41x480x720): " + "; ".join(
+        f"{out} " + ", ".join(f"{w} {n / 1e6:.1f} MB" for w, n in wires.items())
+        for out, wires in wb.items()))
+    log(f"phase 24: every pipeline of this script runs the default wires unless named "
+        f"(compact_transfer=None: on for CUDA, u8 RGB and fp16 disparity, "
+        f"{(wb['rgb']['u8'] + wb['disparity']['fp16'] + wb['raymap']['f32']) / 1e6:.1f} MB a "
+        f"request against {sum(w['f32'] for w in wb.values()) / 1e6:.1f} MB in f32); no "
+        f"earlier phase holds a pipeline's output to a float reference finer than the "
+        f"wire's rounding (they compare compact outputs with compact outputs, or at gates "
+        f">= 1e-2), so none is built with compact_transfer=False")
+    secs, launches = {}, [0, 0, 0]
+
+    def request(name, p, clip, what):
+        res, secs[name], counts = counted_request(p, clip, k5_per_request, what)
+        launches[:] = [a + b for a, b in zip(launches, counts)]
+        return res
+
+    # (a) the compact default against the f32 wires
+    exact = request("f32 wires", rewired(pipe, compact_transfer=False), video,
+                    "phase 24a f32 wires")
+    rgb_err = np.abs(first.rgb - exact.rgb).max()
+    disp_err = np.abs(first.disparity - exact.disparity)
+    disp_bar = np.maximum(2e-3, 2.0 ** -11 * np.abs(exact.disparity))
+    log(f"phase 24a compact (u8 rgb, fp16 disparity) against f32 wires: rgb max "
+        f"{rgb_err:.3e} (bar {0.5 / 255 + 1e-6:.3e}), disparity max {disp_err.max():.3e} "
+        f"(values up to {np.abs(exact.disparity).max():.3f}; bar 2e-3 or half an fp16 ulp), "
+        f"raymap {'bit-identical' if np.array_equal(first.raymap, exact.raymap) else 'DIFFERS'}")
+    check(rgb_err <= 0.5 / 255 + 1e-6, "phase 24a: compact rgb outside 0.5/255")
+    check(bool((disp_err <= disp_bar).all()), "phase 24a: fp16 disparity outside its bar")
+    check(np.array_equal(first.raymap, exact.raymap), "phase 24a: raymap differs")
+    check(first.rgb.dtype == first.disparity.dtype == np.float32, "phase 24a: host dtypes")
+
+    # (b) the lossy wires against the f32 wires
+    lossy = request("yuv420 rgb + u8 disparity", rewired(
+        pipe, compact_transfer=True, wire_rgb="yuv420", wire_disparity="u8"), video,
+        "phase 24b lossy wires")
+
+    def luma(x):
+        return x @ np.array([0.299, 0.587, 0.114], np.float32)
+
+    def blocks(x):
+        return x.reshape(FRAMES, HEIGHT // 2, 2, WIDTH // 2, 2, 3).mean((2, 4))
+
+    lerr = np.abs(luma(lossy.rgb) - luma(exact.rgb))
+    berr = np.abs(blocks(lossy.rgb) - blocks(exact.rgb))
+    mean_rgb = np.abs(lossy.rgb - exact.rgb).mean()
+    # the wire is its codec: the f32 request's rgb packed on the card and
+    # unpacked on the host gives the yuv420 request's rgb bit for bit (both
+    # requests decode the same frames)
+    codec_rgb = _yuv420_wire_to_rgb(*(t.cpu().numpy() for t in _rgb_to_yuv420_wire(
+        torch.from_numpy(exact.rgb).to(dev)))).astype(np.float32)
+    # the u8 disparity wire carries the pre-square value s in [0, 1] (JAX
+    # :352-365): its codes are round(s * 255) of |s| = sqrt(d), or 0 where
+    # s < 0 (clipped); JAX's bar (2.5/255 where d <= 1) holds where it is not
+    codes = np.round(np.sqrt(lossy.disparity) * 255.0)
+    want = np.round(np.clip(np.sqrt(exact.disparity), 0.0, 1.0) * 255.0)
+    gamut = exact.disparity <= 1.0
+    clipped = (codes == 0) & (want > 1)
+    derr = np.abs(lossy.disparity - exact.disparity)[gamut & ~clipped]
+    log(f"phase 24b yuv420 rgb: luma err q99 {np.quantile(lerr, 0.99):.3e} max {lerr.max():.3e}, "
+        f"2x2-block err q99 {np.quantile(berr, 0.99):.3e} max {berr.max():.3e}, mean abs "
+        f"{mean_rgb:.3e} (JAX's bars on 17x64x96: q99 0.01 / 0.03, max 0.08 / 0.1, mean "
+        f"0.05; the maxima fall where the codec clips out-of-gamut colours: the wire equals "
+        f"its codec's round trip of the f32 rgb "
+        f"{'bit for bit' if np.array_equal(lossy.rgb, codec_rgb) else 'NOT'}); u8 disparity: "
+        f"{gamut.mean():.4f} of it <= 1, {clipped.mean():.4e} of it clipped from a negative "
+        f"pre-square value, the rest within {derr.max() if derr.size else 0.0:.3e} (bar "
+        f"2.5/255), codes within one of round(sqrt(d) * 255) elsewhere; largest value "
+        f"{lossy.disparity.max():.4f}; raymap "
+        f"{'bit-identical' if np.array_equal(lossy.raymap, exact.raymap) else 'DIFFERS'}")
+    check(np.array_equal(lossy.rgb, codec_rgb), "phase 24b: the yuv420 wire is not its codec")
+    check(np.quantile(lerr, 0.99) < 0.01, "phase 24b: luma q99")
+    check(np.quantile(berr, 0.99) < 0.03, "phase 24b: chroma blocks q99")
+    check(mean_rgb < 0.05, "phase 24b: yuv420 rgb mean error")
+    check(bool((clipped | (np.abs(codes - want) <= 1)).all()), "phase 24b: u8 disparity codes")
+    check(not derr.size or derr.max() < 2.5 / 255, "phase 24b: u8 disparity")
+    check(bool((lossy.disparity <= 1.0 + 1e-6).all()), "phase 24b: u8 disparity above 1")
+    check(np.allclose(lossy.raymap, exact.raymap, atol=1e-5), "phase 24b: raymap")
+    del lossy, exact, codec_rgb
+
+    # the input wire: the codec at full size, then a request on a smooth clip
+    rng = np.random.default_rng(24)
+    base = rng.uniform(0, 1, (FRAMES, HEIGHT // 8, WIDTH // 8, 3))
+    smooth = np.round(np.repeat(np.repeat(base, 8, 1), 8, 2) * 255).astype(np.uint8)
+    unit = _yuv420_to_unit(*(_upload(p, dev) for p in _rgb_u8_to_yuv420_host(smooth)),
+                           torch.float32)
+    plain = _u8_to_unit(smooth, torch.float32, dev)
+    diff = (unit - plain).abs()
+    gray = np.repeat(rng.integers(0, 256, (FRAMES, HEIGHT, WIDTH, 1), dtype=np.uint8), 3, -1)
+    gray_err = (_yuv420_to_unit(*(_upload(p, dev) for p in _rgb_u8_to_yuv420_host(gray)),
+                                torch.float32) - _u8_to_unit(gray, torch.float32, dev)).abs()
+    codec = (diff.mean().item(), diff.max().item(), gray_err.max().item())
+    del unit, plain, diff, gray_err
+    log(f"phase 24b input wire at 41x480x720 on the card: smooth clip mean {codec[0]:.3e} "
+        f"max {codec[1]:.3e} (bars 0.01 / 0.08), gray max {codec[2]:.3e} (bar 2.5/255)")
+    check(codec[0] < 0.01 and codec[1] < 0.08 and codec[2] < 2.5 / 255, "phase 24b: codec")
+    ref = request("smooth clip, u8 input", pipe, smooth, "phase 24b u8 input")
+    got = request("smooth clip, yuv420 input", rewired(pipe, wire_input="yuv420"), smooth,
+                  "phase 24b yuv420 input")
+    input_err = np.abs(got.rgb - ref.rgb).mean()
+    log(f"phase 24b yuv420 input: rgb mean abs {input_err:.3e} from the u8 upload (bar 0.12)")
+    check(input_err < 0.12, "phase 24b: yuv420 input moved the output too far")
+    del ref, got
+
+    # (c) a deferred call returns while its work runs
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+
+    kernels = (qkv_prologue, flash_attention_prepacked, groupnorm_moments)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            deferred = pipe(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
+                            num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42,
+                            defer_host=True)
+            returned = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    marker = torch.cuda.Event()
+    marker.record()
+    pending = not marker.query()
+    out = deferred.resolve()
+    resolved = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = [fn.launches for fn in kernels]
+    # the mode's own notice that it is a prototype is not a synchronizing call
+    syncs = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                    if "prototype feature" not in str(w.message)})
+    secs["deferred call returned"], secs["deferred call resolved"] = returned, resolved
+    log(f"phase 24c deferred call: returned after {returned:.3f} s with its work still "
+        f"running (an event recorded then: {'pending' if pending else 'COMPLETE'}), resolved "
+        f"after {resolved:.3f} s (the undeferred request: {secs['f32 wires']:.3f} s in f32 "
+        f"wires); enqueue stage seconds " + ", ".join(
+            f"{k} {v:.3f}" for k, v in out.stage_seconds.items())
+        + f"; K1/K2/K5 launches after resolve {'/'.join(map(str, counts))}; "
+        f"set_sync_debug_mode('warn') over the dispatch named {len(syncs)} synchronizing "
+        f"call(s)" + (": " + " | ".join(syncs) if syncs else ""))
+    check(pending, "phase 24c: the deferred call returned after its work had ended")
+    check(counts == [pipe.config.dit.num_layers * STEPS] * 2 + [k5_per_request],
+          f"phase 24c: launches {counts}")
+    launches[:] = [a + b for a, b in zip(launches, counts)]
+    check(deferred.resolve() is out, "phase 24c: resolve() is not idempotent")
+    for name in ("rgb", "disparity", "raymap"):
+        check(np.array_equal(getattr(out, name), getattr(first, name)),
+              f"phase 24c: the deferred {name} differs from phase 6's request 0")
+    log("phase 24c: the deferred call's outputs are bit-identical to phase 6's request 0")
+
+    # (d) the window driver, deferred (phase 6c) against undeferred
+    for batch_windows in (1, 2):
+        for fn in kernels:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        results, starts, _ = run_windowed_reconstruction(
+            Undeferred(pipe), long_clip, height=HEIGHT, width=WIDTH, num_frames=FRAMES,
+            fps=12, num_inference_steps=STEPS, stride=STRIDE, seed=42,
+            batch_windows=batch_windows)
+        torch.cuda.synchronize()
+        name = "serial" if batch_windows == 1 else "batch_windows=2"
+        secs[f"65-frame clip undeferred, {name}"] = time.perf_counter() - t0
+        check(starts == [0, STRIDE] and len(results) == 2, f"phase 24d windows {starts}")
+        launches[:] = [a + fn.launches for a, fn in zip(launches, kernels)]
+        for i, (a, b) in enumerate(zip(results, long_runs[batch_windows])):
+            for field in ("rgb", "disparity", "raymap"):
+                check(np.array_equal(getattr(a, field), getattr(b, field)),
+                      f"phase 24d {name} window {i} {field}: deferred and undeferred differ")
+        log(f"phase 24d 65-frame clip, {name}: the deferred driver's two windows (phase 6c) "
+            f"bit-identical to its undeferred run "
+            f"({secs[f'65-frame clip undeferred, {name}']:.3f} s)")
+    log("phase 24 seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    return secs, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the server over a mesh of two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SERVE_BLOCKS, SERVE_STEPS = 2, 4  # phase 25: a depth cut; the prediction's steps
+
+
+def serve_uploads():
+    """Phase 25's seeded uploads by file name (the card's machine cannot
+    decode files: no PIL or imageio)."""
+    rng = np.random.default_rng(25)
+    return {"clip.mp4": rng.integers(0, 256, (LONG_FRAMES, HEIGHT, WIDTH, 3),
+                                     dtype=np.uint8).astype(np.float32) / 255.0,
+            "image.png": rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)}
+
+
+SERVE_JOBS = {
+    "dp": dict(task="reconstruction", num_frames=str(FRAMES), fps="12", height=str(HEIGHT),
+               width=str(WIDTH), seed="42", stride=str(STRIDE)),
+    "tp": dict(task="prediction", num_frames=str(FRAMES), fps="12", height=str(HEIGHT),
+               width=str(WIDTH), seed="42", raymap="forward_right", steps=str(SERVE_STEPS)),
+}
+SERVE_FILES = {"dp": ("video", "clip.mp4"), "tp": ("image", "image.png")}
+
+
+def serve_pipeline(dev, mesh=None):
+    """The AetherV1 width cut to ``SERVE_BLOCKS`` DiT blocks (depth only;
+    seed 0) with the full VAE (seed 1), bf16, the default wires."""
+    from aether_tpu_torch.config import PipelineConfig
+    from aether_tpu_torch.models import init_dit, init_vae
+    from aether_tpu_torch.pipeline import AetherPipeline
+
+    cfg = PipelineConfig.aetherv1()
+    cfg = dataclasses.replace(cfg, dit=dataclasses.replace(cfg.dit, num_layers=SERVE_BLOCKS))
+    dit = init_dit(cfg.dit, device=dev, dtype=torch.bfloat16, seed=0)
+    vae = init_vae(cfg.vae, device=dev, dtype=torch.bfloat16, seed=1)
+    return AetherPipeline(cfg, dit, vae, make_prompt(cfg, dev), device=dev,
+                          compute_dtype=torch.bfloat16, mesh=mesh)
+
+
+def serve_patches():
+    """What the card's machine lacks, replaced in this process: the upload
+    decoders hand ``_fields_to_params`` the seeded arrays, ``viz.save_video``
+    writes .npy, and ``demo.save_output`` also saves the rgb and disparity it
+    exports (``<job dir>/export_rgb.npy``, ``export_disparity.npy``).
+    Returns a function that puts the originals back."""
+    import aether_tpu_torch.viz as viz
+    from aether_tpu_torch.apps import demo, serve
+
+    originals = (serve._decode_video, serve._decode_image, viz.save_video, demo.save_output)
+    uploads = serve_uploads()
+    serve._decode_video = lambda field: uploads[field["filename"]]
+    serve._decode_image = lambda field: uploads[field["filename"]]
+
+    def frames_to_npy(path, frames, fps=12):
+        path = os.path.splitext(str(path))[0] + ".npy"
+        np.save(path, np.asarray(frames))
+        return path
+
+    def save_output(rgb, disparity, args, **kw):
+        np.save(os.path.join(args.output_dir, "export_rgb.npy"), np.asarray(rgb))
+        np.save(os.path.join(args.output_dir, "export_disparity.npy"), np.asarray(disparity))
+        return originals[3](rgb, disparity, args, **kw)
+
+    viz.save_video, demo.save_output = frames_to_npy, save_output
+
+    def restore():
+        serve._decode_video, serve._decode_image, viz.save_video, demo.save_output = originals
+
+    return restore
+
+
+def serve_mesh_rank(mode, out_dir):
+    """Phase 25 on one of two ranks sharing cuda:0 over gloo: the
+    ``SERVE_BLOCKS``-block pipeline over a ('dp', 'tp') mesh of dp = 2 or
+    tp = 2, served through ``apps.serve.serve`` with a job channel; rank 0
+    writes its HTTP port to ``<out_dir>/port`` and serves until SIGTERM.
+    Returns the rank's K1/K2/K5 launches, jobs and peak memory."""
+    from aether_tpu_torch.apps import serve
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+    from aether_tpu_torch.parallel import make_mesh
+    from aether_tpu_torch.parallel.jobs import JobChannel
+
+    dev, rank = gloo_rank(2)
+    axes = dict(dp=2, tp=1) if mode == "dp" else dict(dp=1, tp=2)
+    pipe = serve_pipeline(dev, make_mesh(**axes, device_type="cuda"))
+    serve_patches()
+    channel = JobChannel()
+    kernels = (qkv_prologue, flash_attention_prepacked, groupnorm_moments)
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def on_listen(server, runner):
+        with open(os.path.join(out_dir, "port.tmp"), "w") as f:
+            f.write(str(server.server_address[1]))
+        os.replace(os.path.join(out_dir, "port.tmp"), os.path.join(out_dir, "port"))
+
+    serve.serve(pipe, out_dir, port=0, channel=channel, on_listen=on_listen)
+    return dict(rank=rank, launches=[fn.launches for fn in kernels], jobs=channel.jobs,
+                peak=torch.cuda.max_memory_allocated(dev),
+                reserved=torch.cuda.max_memory_reserved(dev),
+                heads=pipe.dit.blocks[0].attn.qkv.weight.shape[0] // 3 // HEAD_DIM)
+
+
+def post_job(base, fields, file_field):
+    """POST one job over HTTP; the upload's bytes are a placeholder (its
+    name picks the seeded array)."""
+    import urllib.request
+
+    boundary, body = "chipsmoke25", []
+    for name, value in fields.items():
+        body.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"'
+                    f"\r\n\r\n{value}\r\n".encode())
+    name, filename = file_field
+    body.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"; '
+                f'filename="{filename}"\r\nContent-Type: application/octet-stream'
+                f"\r\n\r\n0\r\n--{boundary}--\r\n".encode())
+    req = urllib.request.Request(
+        base + "/api/submit", data=b"".join(body),
+        headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())["job_id"]
+
+
+def exported(job_dir, status, frames):
+    """(rgb, disparity, poses) a served job exported."""
+    poses = next(a for a in status["artifacts"] if a.endswith("_poses.txt"))
+    poses = np.loadtxt(os.path.join(os.path.dirname(job_dir), poses[len("/outputs/"):]))
+    out = (np.load(os.path.join(job_dir, "export_rgb.npy")),
+           np.load(os.path.join(job_dir, "export_disparity.npy")), poses)
+    check(out[0].shape == (frames, HEIGHT, WIDTH, 3) and out[2].shape == (frames, 16),
+          f"exported shapes {out[0].shape} / {out[2].shape}")
+    return out
+
+
+def serve_mesh_phase(dev):
+    """Phase 25: (a) a dp = 2 server (two ranks over gloo sharing cuda:0)
+    answers the seeded 65-frame two-window reconstruction job, one
+    ``batch_reconstruct`` chunk; (b) a tp = 2 server (24 heads a rank)
+    answers a ``SERVE_STEPS``-step prediction job with the 4-step
+    post-reconstruction; the parent submits each job over HTTP, polls
+    ``/api/status``, then sends rank 0 SIGTERM and both ranks must exit 0.
+    (c) both jobs served again by one process (``JobRunner``, no mesh) on
+    the same weights: the exported rgb, disparity and poses within the
+    long-video phase's gates (mean abs <= 1e-2 and max <= 0.25 of
+    max(1, max |one process|)); (d) each rank's K1/K2/K5 launches, the
+    follower's equal to the leader's, and the two ranks' peaks under 80 GB.
+    Returns rank 0's K1/K2/K5 launches of the served jobs and the phase's
+    numbers."""
+    import signal
+
+    from aether_tpu_torch.apps import serve
+    from aether_tpu_torch.parallel.launch import start
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix="aether_serve_mesh_")
+    one_pipe = serve_pipeline(dev)  # the one-process reference, and the K5 counts
+    k5_window = expected_k5(one_pipe, FRAMES)
+    want = {  # per rank and job
+        # one batch_reconstruct chunk: each rank's DiT row (batch 1), its
+        # window's encode and two of the four decode streams
+        "dp": [SERVE_BLOCKS * STEPS] * 2 + [k5_window],
+        # the CFG pair at H/2 heads, then the 4-step post-reconstruction
+        "tp": [SERVE_BLOCKS * (SERVE_STEPS + STEPS)] * 2
+        + [expected_k5(one_pipe, FRAMES, images=1) + k5_window],
+    }
+    served, numbers, launches = {}, {}, [0, 0, 0]
+    for mode in ("dp", "tp"):
+        out_dir = os.path.join(tmp.name, mode)
+        os.makedirs(out_dir)
+        t0 = time.perf_counter()
+        # two processes share the card's 80 GB: expandable segments keep each
+        # caching allocator's reserve close to what it allocates
+        ranks = start("chip_smoke:serve_mesh_rank", 2, dict(mode=mode, out_dir=out_dir),
+                      extra_path=[here],
+                      env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        port_file = os.path.join(out_dir, "port")
+        while not os.path.exists(port_file):
+            if any(p.poll() is not None for p in ranks.procs) or time.perf_counter() - t0 > 300:
+                ranks.procs[0].send_signal(signal.SIGTERM)
+                ranks.join(timeout=60)  # raises with the ranks' output
+                raise AssertionError(f"phase 25 {mode}: rank 0 did not listen")
+            time.sleep(0.5)
+        with open(port_file) as f:
+            base = f"http://127.0.0.1:{f.read().strip()}"
+        up = time.perf_counter() - t0
+        try:
+            status, wall, _ = wait_job(base, post_job(base, SERVE_JOBS[mode],
+                                                      SERVE_FILES[mode]))
+        except Exception as exc:
+            ranks.procs[0].send_signal(signal.SIGTERM)
+            try:
+                ranks.join(timeout=180)
+            except RuntimeError as ranks_failed:  # the ranks' own account
+                raise AssertionError(f"phase 25 {mode}: {exc!r}\n{ranks_failed}") from exc
+            raise
+        ranks.procs[0].send_signal(signal.SIGTERM)
+        results = ranks.join(timeout=180)  # raises unless both ranks exit 0
+        check(status["status"] == "done", f"phase 25 {mode} job: {status.get('error')}")
+        frames = LONG_FRAMES if mode == "dp" else FRAMES
+        served[mode] = exported(os.path.join(out_dir, status["artifacts"][0].split("/")[2]),
+                                status, frames)
+        peaks = [r["peak"] for r in results]
+        numbers[mode] = dict(up_s=up, job_s=wall, peaks_gib=[p / 2**30 for p in peaks])
+        log(f"phase 25{'a' if mode == 'dp' else 'b'} {mode} = 2 server: ranks listening after "
+            f"{up:.3f} s, the job {wall:.3f} s from submit to done over HTTP; stages "
+            + ", ".join(f"{d['stage']} {d['seconds']:.3f} s"
+                        for d in status["progress"]["stages_done"])
+            + "; per rank (K1/K2/K5 launches, jobs, heads, peak / reserved GiB): " + "; ".join(
+                f"rank {r['rank']} {'/'.join(map(str, r['launches']))}, {r['jobs']}, "
+                f"{r['heads']}, {r['peak'] / 2**30:.2f} / {r['reserved'] / 2**30:.2f}"
+                for r in results)
+            + f"; peaks sum {sum(peaks) / 1e9:.2f} GB; both ranks exited 0 after SIGTERM "
+            f"to rank 0 (the stop message)")
+        heads = HEADS if mode == "dp" else HEADS // 2
+        for r in results:
+            check(r["launches"] == want[mode] and r["heads"] == heads and r["jobs"] == 1,
+                  f"phase 25 {mode} rank {r['rank']}: launches {r['launches']}, heads "
+                  f"{r['heads']}, jobs {r['jobs']}; want {want[mode]}, {heads}, 1")
+        check(sum(peaks) < 80e9, f"phase 25 {mode}: the ranks' peaks sum to "
+              f"{sum(peaks) / 1e9:.2f} GB")
+        launches = [a + b for a, b in zip(launches, results[0]["launches"])]
+
+    # (c) the same jobs from one process on the same weights
+    restore = serve_patches()
+    runner = serve.JobRunner(one_pipe, os.path.join(tmp.name, "one"))
+    try:
+        for mode in ("dp", "tp"):
+            name, filename = SERVE_FILES[mode]
+            params = serve._fields_to_params(
+                dict(SERVE_JOBS[mode], **{name: {"filename": filename, "data": b"0"}}), None)
+            t0 = time.perf_counter()
+            job_id = runner.submit(params)
+            while runner.status(job_id)["status"] not in ("done", "error"):
+                time.sleep(0.1)
+            status = runner.status(job_id)
+            check(status["status"] == "done", f"phase 25c {mode} job: {status.get('error')}")
+            one = exported(os.path.join(runner.output_dir, job_id), status,
+                           LONG_FRAMES if mode == "dp" else FRAMES)
+            numbers[mode]["one_process_s"] = time.perf_counter() - t0
+            diffs = []
+            for field, got, ref in zip(("rgb", "disparity", "poses"), served[mode], one):
+                d = np.abs(got - ref)
+                top = max(1.0, float(np.abs(ref).max()))
+                diffs.append(f"{field} max {d.max():.3e} mean {d.mean():.3e}"
+                             + (" (bit-identical)" if not d.any() else ""))
+                check(d.mean() <= 1e-2 * top and d.max() <= 0.25 * top,
+                      f"phase 25c {mode} {field}: the mesh server and one process disagree")
+            log(f"phase 25c {mode} = 2 server against one process "
+                f"({numbers[mode]['one_process_s']:.3f} s there): " + ", ".join(diffs))
+    finally:
+        runner.close(timeout=120)
+        restore()
+        del one_pipe
+        tmp.cleanup()
+    return launches, numbers
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2784,7 +3373,7 @@ def main() -> None:
     geometry_phase(dev)
 
     # ---- 6c. the long-video path ----
-    k5_launches = long_video_phase(pipe, dev)
+    k5_launches, long_clip, long_runs = long_video_phase(pipe, dev)
 
     # ---- 19. the web server: a reconstruction and a prediction job ----
     serve_phase(pipe, dev)
@@ -2807,12 +3396,27 @@ def main() -> None:
         + f" ms a rank (two ranks sharing the card), one process {par_tp['one_s'] * 1e3:.3f}"
         f" ms; (c) " + "; ".join(f"{n} {ms:.4f} ms against K3 {k3:.4f} ms"
                                   for n, (_, _, ms, k3) in par_ring.items()))
-    del pipe, first
+
+    # ---- 24. the wires and defer_host at full size ----
+    wire_secs, wire_launches = wire_phase(pipe, dev, video, first, k5_per_request, long_clip,
+                                          long_runs)
+    del pipe, first, long_runs
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated(dev)
-    log(f"after phases 5-21: {left / 2**30:.2f} GiB still allocated")
+    log(f"after phases 5-24: {left / 2**30:.2f} GiB still allocated")
     check(left < 2**30, "the phase-5 pipeline was not released (a server worker holds it?)")
+
+    # ---- 25. the server over a dp = 2 and a tp = 2 mesh sharing the card ----
+    t0 = time.perf_counter()
+    serve_launches, serve_numbers = serve_mesh_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 25: {time.perf_counter() - t0:.3f} s (" + "; ".join(
+        f"{mode} = 2: ranks up {n['up_s']:.3f} s, job {n['job_s']:.3f} s, one process "
+        f"{n['one_process_s']:.3f} s, peaks " + " / ".join(f"{p:.2f}" for p in n["peaks_gib"])
+        + " GiB" for mode, n in serve_numbers.items()) + "); phase 24's calls: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in wire_secs.items()))
 
     # ---- 15. the w8a8 products at the main path's shapes ----
     w8a8 = w8a8_phase(dev, gen)
@@ -2932,9 +3536,11 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         entry("attn_prologue", "attn_prologue.cu", "aether_tpu/ops/attn_prologue.py:91",
-              k1_launches + par_launches["K1"], k1_err, k1_ms, k1_plain_ms, k1_bound, None),
+              k1_launches + par_launches["K1"] + wire_launches[0] + serve_launches[0],
+              k1_err, k1_ms, k1_plain_ms, k1_bound, None),
         entry("flash_prepacked", "flash_prepacked.cu",
-              "aether_tpu/ops/flash_attention.py:812", k2_launches + par_launches["K2"], k2_max,
+              "aether_tpu/ops/flash_attention.py:812",
+              k2_launches + par_launches["K2"] + wire_launches[1] + serve_launches[1], k2_max,
               k2_ms, k2_plain_ms, k2_bound, lib["K2"]),
         entry("flash_online", "flash_online.cu", "aether_tpu/ops/flash_attention.py:69",
               k4_launches, k4_err, k4_ms, k4_plain_ms, k4_bound, lib["K4"]),
@@ -2947,7 +3553,8 @@ def main() -> None:
         entry("flash_pv8", "flash_pv8.cu", "aether_tpu/ops/flash_attention.py:259",
               k6_launches, k6_err, k6_ms, k6_plain_ms, k6_bound, lib["K3/K6"]),
         entry("groupnorm_moments", "groupnorm_moments.cu", "aether_tpu/ops/groupnorm.py:30",
-              k5_launches + k5_precompute + par_launches["K5"], k5_err, k5_ms, k5_plain_ms,
+              k5_launches + k5_precompute + par_launches["K5"] + wire_launches[2]
+              + serve_launches[2], k5_err, k5_ms, k5_plain_ms,
               (k5_bound, k5_by), None),
         entry("attn_prologue_float", "attn_prologue.cu", "aether_tpu/ops/attn_prologue.py:150",
               k1f_launches, *floats["K1 float"], k1f_bound, None),

@@ -3,8 +3,8 @@
 The tiny random-init pipeline reconstructs a short 64x96 GIF clip in two
 sliding windows (serially and batched) and writes poses, a PLY cloud and GLB
 scenes, which parse back; prediction runs with its post-reconstruction
-refinement. Without ``--device cpu`` the CLI raises where there is no CUDA,
-and every flag whose feature is not ported raises ``NotImplementedError``;
+refinement. Without ``--device cpu`` the CLI raises where there is no CUDA;
+the ``--wire_*`` flags reach the pipeline (the JAX defaults when absent);
 ``--dp/--tp`` run over a mesh of two gloo ranks.
 The quantized random inits and ``--checkpoint`` are in test_torch_io.py.
 """
@@ -128,8 +128,17 @@ def test_parallel_flags_build_a_mesh_and_run(tmp_path, flags, axes):
     (["--wire_disparity", "u8"], "wire"),
 ], ids=[f"flags{i}-wire" for i in range(2, 7)])
 def test_unported_flags_raise(flags, item):
-    argv = ["--task", "reconstruction", "--video", "clip.gif", "--device", "cpu"]
-    if "--random-init" not in flags:
-        argv += ["--random-init", "tiny"]
-    with pytest.raises(NotImplementedError, match=item):
-        demo.main(argv + flags)
+    """The wire flags, which raised while the wires were not ported (the
+    name is the one the test had then), reach the pipeline as the JAX demo's
+    do; the others keep the JAX defaults (u8 input, fp16 disparity, rgb
+    automatic) and ``compact_transfer`` stays automatic (off on the CPU)."""
+    argv = ["--task", "reconstruction", "--video", "clip.gif", "--device", "cpu",
+            "--random-init", "tiny"]
+    pipe, _ = demo.build_pipeline(demo.parse_args(argv + flags))
+    want = {"wire_rgb": None, "wire_input": "u8", "wire_disparity": "fp16"}
+    want[flags[0][2:]] = flags[1]
+    assert {k: getattr(pipe, k) for k in want} == want
+    assert pipe.compact_transfer is None and pipe._modes(64, 96) == ("f32", "f32")
+    compact = pipe._wire_modes(True, 64, 96)
+    assert compact == ("yuv420" if want["wire_rgb"] == "yuv420" else "u8",
+                       want["wire_disparity"])

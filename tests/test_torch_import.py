@@ -36,7 +36,8 @@ for name in ("aether_tpu_torch.train.step", "aether_tpu_torch.train.trainer",
              "aether_tpu_torch.eval.video_depth", "aether_tpu_torch.eval.rel_pose",
              "aether_tpu_torch.runtime", "aether_tpu_torch.parallel",
              "aether_tpu_torch.parallel.distributed", "aether_tpu_torch.parallel.mesh",
-             "aether_tpu_torch.parallel.launch", "aether_tpu_torch.parallel.pipeline"):
+             "aether_tpu_torch.parallel.launch", "aether_tpu_torch.parallel.pipeline",
+             "aether_tpu_torch.parallel.jobs"):
     assert name in names, name
 import torch.distributed as dist
 assert not dist.is_initialized(), "a process group was joined at import time"
@@ -44,6 +45,10 @@ from aether_tpu_torch.parallel import initialize, make_mesh, shard_params
 from aether_tpu_torch.parallel.pipeline import (
     make_pipeline_block_scan, make_pp_mesh, shard_blocks_pp)
 from aether_tpu_torch.parallel.mesh import ParamLayout, fsdp_shard
+from aether_tpu_torch.parallel.jobs import JobChannel
+from aether_tpu_torch.parallel.launch import Ranks, start
+from aether_tpu_torch.pipeline import DeferredOutput, iter_resolved
+from aether_tpu_torch.apps.serve import follow, job_calls, serve, validate_job
 assert not dist.is_initialized(), "a process group was joined at import time"
 from aether_tpu_torch import runtime
 assert runtime._lib is None and runtime._build_error is None, "the npz loader was built at import"
@@ -74,7 +79,7 @@ def test_package_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 52
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 53
 
 
 def test_no_source_file_imports_jax():

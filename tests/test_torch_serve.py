@@ -379,9 +379,27 @@ def test_fields_to_params_generates_whole_video_raymap():
 
 @pytest.mark.parametrize("flag", [["--dp", "2"], ["--tp", "2"], ["--wire_rgb", "u8"],
                                   ["--wire_disparity", "fp16"], ["--wire_input", "yuv420"]])
-def test_main_refuses_unported_flags(flag):
-    with pytest.raises(NotImplementedError):
-        serve.main(["--random-init", "tiny", "--device", "cpu"] + flag)
+def test_main_refuses_unported_flags(flag, monkeypatch):
+    """Every flag of the JAX server runs (the name is the one the test had
+    while these flags raised): the wire flags reach the pipeline, and
+    ``--dp/--tp`` in a lone process (world size 1) serve from one process,
+    with no mesh and no job channel, as the JAX server builds no mesh on one
+    device. The mesh itself is ``tests/test_torch_serve_mesh.py``'s."""
+    served = {}
+    monkeypatch.setattr(serve, "serve", lambda pipeline, output_dir, **kw: served.update(
+        kw, pipeline=pipeline))
+    serve.main(["--random-init", "tiny", "--device", "cpu", "--output_dir", "/nonexistent"]
+               + flag)
+    pipe = served["pipeline"]
+    assert served["channel"] is None and pipe.mesh is None
+    name, value = flag[0][2:], flag[1]
+    if name.startswith("wire_"):
+        assert getattr(pipe, name) == value
+    assert (pipe.wire_rgb, pipe.wire_input, pipe.wire_disparity) == (
+        "u8" if name == "wire_rgb" else None,
+        "yuv420" if name == "wire_input" else "u8", "fp16")
+    # the JAX defaults; compact stays automatic: off on the CPU, on for a card
+    assert pipe.compact_transfer is None and pipe._modes(64, 96) == ("f32", "f32")
 
 
 def test_main_defaults_to_cuda():
