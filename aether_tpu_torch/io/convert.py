@@ -23,6 +23,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 from typing import Optional
@@ -34,6 +35,7 @@ from aether_tpu_torch.config import PipelineConfig
 from aether_tpu_torch.io.weights import (
     convert_dit_state_dict,
     convert_vae_state_dict,
+    dit_config_from_state_dict,
     load_hf_safetensors,
     load_state_dicts,
     save_checkpoint,
@@ -140,13 +142,16 @@ def verify_conversion(out_dir: str, cfg: PipelineConfig, quantize: str,
 def convert(transformer: str, vae: str, out: str, quantize: str = "none",
             config: str = "aetherv1", verify: bool = False) -> Optional[dict]:
     """Convert, write ``out`` and, with ``verify``, return the manifest that
-    is also written to ``<out>/manifest.json``."""
+    is also written to ``<out>/manifest.json``. ``config`` names the
+    topology; a CogVideoX-1.5 source's ``patch_size_t`` and ``ofs_embed_dim``
+    are read from its tensors (``dit_config_from_state_dict``)."""
     cfg = getattr(PipelineConfig, config)()
     print("converting DiT ...", flush=True)
     hf = load_hf_safetensors(transformer)
     source_qkv = [hf[f"transformer_blocks.0.attn1.to_{n}.weight"] for n in "qkv"]
     dit_sd = convert_dit_state_dict(hf, cfg.dit)
     del hf
+    cfg = dataclasses.replace(cfg, dit=dit_config_from_state_dict(dit_sd, cfg.dit))
     if QUANTIZE[quantize] is not None:
         model: DiT = dit_from_state_dict(dit_sd, cfg.dit)
         del dit_sd  # the model holds the only reference: each weight frees once quantized
@@ -163,6 +168,8 @@ def convert(transformer: str, vae: str, out: str, quantize: str = "none",
     manifest = verify_conversion(out, cfg, quantize, in_memory_dit=dit_sd,
                                  in_memory_vae=vae_sd, source_qkv=source_qkv)
     manifest["config"] = config
+    manifest["patch_size_t"] = cfg.dit.patch_size_t
+    manifest["ofs_embed_dim"] = cfg.dit.ofs_embed_dim
     with open(os.path.join(out, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=2)
     print(f"manifest: {json.dumps(manifest['checks'])}", flush=True)

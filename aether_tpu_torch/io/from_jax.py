@@ -79,6 +79,10 @@ def dit_state_dict_from_jax(params: Mapping[str, Any], cfg: DiTConfig) -> StateD
     te = params["time_embed"]
     _lin(sd, "time_embed.w1", te["w1"], te["b1"])
     _lin(sd, "time_embed.w2", te["w2"], te["b2"])
+    if "ofs_embed" in params:  # CogVideoX-1.5 (``ofs_embed_dim`` set)
+        oe = params["ofs_embed"]
+        _lin(sd, "ofs_embed.w1", oe["w1"], oe["b1"])
+        _lin(sd, "ofs_embed.w2", oe["w2"], oe["b2"])
     blocks = params["blocks"]
     for i in range(cfg.num_layers):
         pre = f"blocks.{i}"

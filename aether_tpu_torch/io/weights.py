@@ -7,8 +7,10 @@ trees, as the JAX ones do (``convert_dit_state_dict`` :51,
 
 - CogVideoXTransformer3DModel -> ``models.dit.DiT``. HF linears are already
   [out, in]; the patch conv [D, C, p, p] flattens to [D, C*p*p] (the
-  (c, ph, pw) token layout of ``DiT._patch_tokens``); to_q/to_k/to_v stack into
-  the fused ``attn.qkv`` [3D, D] in [q | k | v] order.
+  (c, ph, pw) token layout of ``DiT._patch_tokens``), and CogVideoX-1.5's
+  patch Linear [D, C*pt*p*p] is taken as it is (its (c, pt, ph, pw) layout);
+  to_q/to_k/to_v stack into the fused ``attn.qkv`` [3D, D] in [q | k | v]
+  order; a 1.5 checkpoint's ``ofs_embedding`` becomes ``ofs_embed``.
 - AutoencoderKLCogVideoX -> ``models.vae.VAE``. Causal convs drop their
   ``.conv`` level; the stride-2 / upsampling conv2d kernels gain a unit time
   axis; 1x1x1 kernels (shortcut, spatial-norm modulators) become [out, in].
@@ -24,6 +26,7 @@ scales (``<name>.q`` / ``<name>.s``) and loads back quantized.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -40,10 +43,6 @@ StateDict = Dict[str, torch.Tensor]
 
 def convert_dit_state_dict(sd: Mapping[str, torch.Tensor], cfg: DiTConfig) -> StateDict:
     """Upstream CogVideoXTransformer3DModel state dict -> ``DiT`` state dict."""
-    if "ofs_embedding.linear_1.weight" in sd:
-        raise NotImplementedError(
-            "the checkpoint has the CogVideoX-1.5 ofs embedding, whose DiT branch is not "
-            "ported (ROADMAP.md, Queue 1: DiT and VAE residue)")
     out: StateDict = {}
 
     def linear(dst: str, src: str) -> None:
@@ -56,6 +55,10 @@ def convert_dit_state_dict(sd: Mapping[str, torch.Tensor], cfg: DiTConfig) -> St
     linear("text_proj", "patch_embed.text_proj")
     linear("time_embed.w1", "time_embedding.linear_1")
     linear("time_embed.w2", "time_embedding.linear_2")
+    # CogVideoX-1.5 ofs conditioning (present only when the checkpoint has it)
+    if "ofs_embedding.linear_1.weight" in sd:
+        linear("ofs_embed.w1", "ofs_embedding.linear_1")
+        linear("ofs_embed.w2", "ofs_embedding.linear_2")
     for i in range(cfg.num_layers):
         src, dst = f"transformer_blocks.{i}", f"blocks.{i}"
         for n in ("norm1", "norm2"):
@@ -79,6 +82,25 @@ def convert_dit_state_dict(sd: Mapping[str, torch.Tensor], cfg: DiTConfig) -> St
     out["norm_out_ln_bias"] = sd["norm_out.norm.bias"]
     linear("proj_out", "proj_out")
     return out
+
+
+def dit_config_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: DiTConfig) -> DiTConfig:
+    """``cfg`` with the CogVideoX-1.5 fields a converted DiT state dict
+    carries: ``ofs_embed_dim`` from ``ofs_embed`` where it holds one, and
+    ``patch_size_t`` from the patch embedding's width,
+    ``in_channels * pt * p * p`` (None where pt is 1). The other fields,
+    which the tensors do not fix, stay ``cfg``'s."""
+    def width(name: str, dim: int) -> int:
+        t = sd[f"{name}.weight"] if f"{name}.weight" in sd else sd[f"{name}.q"]
+        return t.shape[dim]
+
+    ofs = width("ofs_embed.w1", 0) if any(k.startswith("ofs_embed.") for k in sd) else None
+    per_frame = cfg.in_channels * cfg.patch_size ** 2
+    pt, rem = divmod(width("proj", 1), per_frame)
+    if rem or pt < 1:
+        raise ValueError(f"patch embedding width {width('proj', 1)} is not a multiple of "
+                         f"in_channels * patch_size**2 = {per_frame}")
+    return dataclasses.replace(cfg, ofs_embed_dim=ofs, patch_size_t=pt if pt > 1 else None)
 
 
 def convert_vae_state_dict(sd: Mapping[str, torch.Tensor], cfg: VAEConfig) -> StateDict:
@@ -160,9 +182,10 @@ def load_checkpoint(ckpt_dir: str, cfg: PipelineConfig,
                     device: Optional[torch.device] = None) -> Tuple[DiT, VAE, np.ndarray]:
     """(DiT, VAE, text_embeds) of a converted checkpoint on ``device``, each
     tensor in its saved dtype; a quantized DiT comes back quantized. ``cfg``
-    gives the topology."""
+    gives the topology, its CogVideoX-1.5 fields read from the checkpoint's
+    own tensors (:func:`dit_config_from_state_dict`)."""
     dit_sd, vae_sd, text = load_state_dicts(ckpt_dir)
-    dit = dit_from_state_dict(dit_sd, cfg.dit, device)
+    dit = dit_from_state_dict(dit_sd, dit_config_from_state_dict(dit_sd, cfg.dit), device)
     with torch.device("meta"):
         vae = VAE(cfg.vae)
     vae.load_state_dict(vae_sd, strict=True, assign=True)

@@ -496,37 +496,58 @@ class DiT(nn.Module):
     CFG pair) and gathers the outputs; sp stripes the joint token stream
     (:class:`SeqStripe`, which takes the unfused path) and gathers the video
     rows of the output head. A mesh where neither tp nor dp shards the
-    attention takes the unfused path (:func:`fused_mesh_ok`)."""
+    attention takes the unfused path (:func:`fused_mesh_ok`).
+
+    CogVideoX 1.5 (``cfg.patch_size_t`` and ``cfg.ofs_embed_dim``, JAX
+    ``dit.py:888-930`` and ``:1003-1016``): ``patch_size_t`` latent frames
+    fold into each patch, so ``proj`` takes and ``proj_out`` gives
+    ``patch_size_t * p * p`` times the channels and the frame count must be
+    a multiple of it; the ``ofs`` embedding (``ofs_embed``, a second
+    sinusoid + MLP) is added to the time embedding."""
 
     def __init__(self, cfg: DiTConfig):
         super().__init__()
-        if cfg.patch_size_t is not None or cfg.ofs_embed_dim is not None:
-            raise NotImplementedError(
-                "the CogVideoX-1.5 patch_size_t / ofs branch is not ported yet "
-                "(ROADMAP.md, queue 1)")
         d, p = cfg.hidden_size, cfg.patch_size
+        # CogVideoX-1.5 (patch_size_t set) folds pt frames into each patch
+        patch = (cfg.patch_size_t or 1) * p * p
         self.cfg = cfg
-        self.proj = Linear(cfg.in_channels * p * p, d)
+        self.proj = Linear(cfg.in_channels * patch, d)
         self.text_proj = Linear(cfg.text_embed_dim, d)
         self.time_embed = TimeEmbedding(d, cfg.time_embed_dim)
+        if cfg.ofs_embed_dim is not None:
+            od = cfg.ofs_embed_dim
+            if od != cfg.time_embed_dim:
+                raise ValueError("ofs embedding is added to temb: dims must match "
+                                 f"(ofs_embed_dim {od}, time_embed_dim {cfg.time_embed_dim})")
+            self.ofs_embed = TimeEmbedding(od, od)
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
         self.norm_final_scale = nn.Parameter(torch.empty(d))
         self.norm_final_bias = nn.Parameter(torch.empty(d))
         self.norm_out = Linear(cfg.time_embed_dim, 2 * d)
         self.norm_out_ln_scale = nn.Parameter(torch.empty(d))
         self.norm_out_ln_bias = nn.Parameter(torch.empty(d))
-        self.proj_out = Linear(d, p * p * cfg.out_channels)
+        self.proj_out = Linear(d, patch * cfg.out_channels)
         # the device mesh of ``parallel.shard_params``; None runs on one card
         self.mesh = None
 
+    def _frames_per_patch(self, f: int) -> int:
+        """``patch_size_t`` (1 when unset); raises where it does not divide
+        the ``f`` latent frames (JAX's reshape fails there)."""
+        pt = self.cfg.patch_size_t or 1
+        if f % pt:
+            raise ValueError(f"{f} latent frames are not a multiple of patch_size_t {pt}: "
+                             "pad the latent clip")
+        return pt
+
     def _patch_tokens(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, F, C, H, W] -> [B, F*(H/p)*(W/p), C*p*p], the input of
-        ``self.proj``; token features ordered (c, ph, pw) like a torch
-        Conv2d(k=p, s=p)."""
+        """[B, F, C, H, W] -> [B, (F/pt)*(H/p)*(W/p), C*pt*p*p], the input of
+        ``self.proj`` (JAX ``_patchify``): token features ordered (c, ph, pw)
+        like a torch Conv2d(k=p, s=p), or under ``patch_size_t`` (c, pt, ph,
+        pw), diffusers' CogVideoX-1.5 patch embedding."""
         b, f, c, h, w = x.shape
-        p = self.cfg.patch_size
-        x = x.reshape(b, f, c, h // p, p, w // p, p).permute(0, 1, 3, 5, 2, 4, 6)
-        return x.reshape(b, f * (h // p) * (w // p), c * p * p)
+        p, pt = self.cfg.patch_size, self._frames_per_patch(f)
+        x = x.reshape(b, f // pt, pt, c, h // p, p, w // p, p).permute(0, 1, 4, 6, 3, 2, 5, 7)
+        return x.reshape(b, (f // pt) * (h // p) * (w // p), c * pt * p * p)
 
     def _axes(self):
         """(dp, tp, sp) sizes of ``self.mesh``; all 1 without one."""
@@ -537,9 +558,11 @@ class DiT(nn.Module):
         return tuple(axis_size(self.mesh, name) for name in ("dp", "tp", "sp"))
 
     def _unpatchify(self, tokens, f: int, hp: int, wp: int) -> torch.Tensor:
+        """The output head's [B, T, (pt*)p*p*C_out] tokens -> [B, F, C_out,
+        hp*p, wp*p], the inverse of :meth:`_patch_tokens`' layout."""
         b = tokens.shape[0]
-        p, c = self.cfg.patch_size, self.cfg.out_channels
-        x = tokens.reshape(b, f, hp, wp, c, p, p).permute(0, 1, 4, 2, 5, 3, 6)
+        p, c, pt = self.cfg.patch_size, self.cfg.out_channels, self._frames_per_patch(f)
+        x = tokens.reshape(b, f // pt, hp, wp, c, pt, p, p).permute(0, 1, 5, 4, 2, 6, 3, 7)
         return x.reshape(b, f, c, hp * p, wp * p)
 
     def forward(
@@ -558,6 +581,7 @@ class DiT(nn.Module):
         fused_qkv: Optional[bool] = None,
         act_quant: bool = False,
         block_scan=None,
+        ofs: Optional[torch.Tensor] = None,
     ):
         """Denoiser forward.
 
@@ -588,6 +612,9 @@ class DiT(nn.Module):
                 (video, text)`` with ``body(carry, block, temb) -> carry``
                 (JAX ``dit_forward(block_scan=...)``; the GPipe schedule of
                 ``parallel.pipeline.make_pipeline_block_scan``).
+            ofs: [B] (or [1]) CogVideoX-1.5 ofs values where the config has
+                ``ofs_embed_dim``: their embedding is added to the time
+                embedding; None gives zeros (JAX ``dit_forward(ofs=...)``).
         Returns:
             [B, F, C_out, H_lat, W_lat] v-prediction (and the block outputs).
         """
@@ -614,6 +641,8 @@ class DiT(nn.Module):
         # dp: this rank runs its rows of the batch (the CFG pair, a batch of
         # windows) and the ranks gather the outputs at the end
         split_batch = dp > 1 and b % dp == 0
+        if ofs is not None:
+            ofs = torch.as_tensor(ofs, device=hidden_states.device)
         if split_batch:
             from aether_tpu_torch.parallel.mesh import axis_rank
 
@@ -624,10 +653,20 @@ class DiT(nn.Module):
                 encoder_hidden_states = encoder_hidden_states[rows]
             if timestep.shape[0] == b:
                 timestep = timestep[rows]
+            if ofs is not None and ofs.shape[0] == b:
+                ofs = ofs[rows]
 
         t_emb = timestep_embedding(timestep, cfg.hidden_size, cfg.flip_sin_to_cos,
                                    cfg.freq_shift).to(dtype)
         temb = self.time_embed(t_emb)
+        if cfg.ofs_embed_dim is not None:
+            # CogVideoX-1.5: a second sinusoid + MLP, added to temb before any
+            # block (the pp executor's block_scan takes the sum)
+            if ofs is None:
+                ofs = torch.zeros(hidden_states.shape[0], device=hidden_states.device)
+            o_emb = timestep_embedding(ofs, cfg.ofs_embed_dim, cfg.flip_sin_to_cos,
+                                       cfg.freq_shift).to(dtype)
+            temb = temb + self.ofs_embed(o_emb)
 
         tokens = self._patch_tokens(hidden_states)
         text_in = encoder_hidden_states.to(dtype)

@@ -21,7 +21,10 @@ shared memory before each CTA quantizes the rows it holds
 ``z * fold`` for q and bf16 ``z`` for k. The LayerNorm moments are taken in
 double on both branches, as the plain version takes them.
 ``qkv_prologue_plain`` is the same function in plain PyTorch: the CPU path,
-and the reference the kernel is held against on the card.
+and the reference the kernel is held against on the card. That kernel is
+written for head_dim 64, the shipped models' width; the other head dims the
+JAX kernel takes (multiples of 16 below 128) run ``csrc/attn_prologue_hd.cu``
+(:func:`qkv_prologue_hd`), a simple two-pass form of the same arithmetic.
 
 Layouts differ from the TPU kernel in two places, both deliberate:
 - the inputs may be strided views of the fused ``[B, S, 3*H*D]`` projection
@@ -40,6 +43,7 @@ import torch
 
 from aether_tpu_torch.ops import _build
 from aether_tpu_torch.ops.flash_attention import (
+    _check_prepacked_head_dim,
     _heads_per_cell,
     _pick_block,
     flash_attention_prepacked,
@@ -255,7 +259,8 @@ def qkv_prologue(
         ``sm_scale * log2(e)``.
 
     A CPU tensor runs :func:`qkv_prologue_plain`. A CUDA tensor launches the
-    Hopper kernel or raises; there is no fallback.
+    Hopper kernel (head_dim 64; 16 to 112 in steps of 16 through
+    :func:`qkv_prologue_hd`) or raises; there is no fallback.
     """
     if not xq.is_cuda:
         return qkv_prologue_plain(
@@ -265,8 +270,7 @@ def qkv_prologue(
             heads_per_cell=heads_per_cell, s_valid=s_valid)
     b, s, d_model = xq.shape
     nh, hd = num_heads, head_dim
-    if hd != 64:
-        raise NotImplementedError(f"K1 takes head_dim 64 only, got {hd}")
+    _check_prepacked_head_dim("K1", hd)
     if d_model != nh * hd:
         raise ValueError(f"model width {d_model} != {nh} heads x {hd}")
     for t in (xq, xk, xv):
@@ -292,8 +296,14 @@ def qkv_prologue(
     hper = _heads_per_cell(bh, heads_per_cell)
     s_pad, block = _pick_pad_and_block(s, block_q)
     groups, n_tiles = bh // hper, s_pad // block
-    plan = _launch_plan(bh, s_pad, block, hper, strides=(stride_b, stride_s),
-                        ptrs=tuple(t.data_ptr() for t in (xq, xk, xv)))
+    ptrs = tuple(t.data_ptr() for t in (xq, xk, xv))
+    if hd == 64:
+        plan = _launch_plan(bh, s_pad, block, hper, strides=(stride_b, stride_s), ptrs=ptrs)
+    elif stride_b % 8 or stride_s % 8 or any(p % 16 for p in ptrs) or block % _ROWS:
+        raise ValueError("K1 at head_dim != 64 reads 8-byte chunks and 128-row slices: "
+                         "strides must be multiples of 8 elements, bases 16-byte aligned "
+                         f"and the tile a multiple of 128 (strides {(stride_b, stride_s)}, "
+                         f"tile {block})")
     dev = xq.device
 
     def param(t):
@@ -320,21 +330,42 @@ def qkv_prologue(
     v = torch.empty((bh, s_pad, hd), dtype=torch.bfloat16, device=dev)
     qsc, qn, ksc, kn = (torch.empty((groups, n_tiles), dtype=torch.float32,
                                     device=dev) for _ in range(4))
+    inputs = (*ptrs, stride_b, stride_s, gq.data_ptr(), bq.data_ptr(), gk.data_ptr(),
+              bk.data_ptr(), cos_p, sin_p, rope_rows)
+    outputs = (qo.data_ptr(), ko.data_ptr(), v.data_ptr(), qsc.data_ptr(),
+               qn.data_ptr(), ksc.data_ptr(), kn.data_ptr())
+    numbers = (s_pad, s_valid, block, hper, int(quantize), eps, fold, fold / 127.0,
+               1.0 / 127.0)
+    if hd != 64:
+        qkv_prologue_hd(inputs, (b, s, nh, hd), numbers, outputs, groups * n_tiles, dev)
+        return qo, ko, v, qsc, qn, ksc, kn, s_pad
     rc = _build.lib().aether_qkv_prologue(
-        xq.data_ptr(), xk.data_ptr(), xv.data_ptr(), stride_b, stride_s,
-        gq.data_ptr(), bq.data_ptr(), gk.data_ptr(), bk.data_ptr(),
-        cos_p, sin_p, rope_rows, b, s, nh, s_pad, s_valid, block, hper,
-        int(quantize), eps, fold, fold / 127.0, 1.0 / 127.0,
-        qo.data_ptr(), ko.data_ptr(), v.data_ptr(), qsc.data_ptr(),
-        qn.data_ptr(), ksc.data_ptr(), kn.data_ptr(),
-        plan.cluster, plan.smem_bytes, _build.stream_ptr(dev))
+        *inputs, b, s, nh, *numbers, *outputs, plan.cluster, plan.smem_bytes,
+        _build.stream_ptr(dev))
     _build.check(rc, "aether_qkv_prologue")
     _build.count_launch(qkv_prologue)
     return qo, ko, v, qsc, qn, ksc, kn, s_pad
 
 
-# wrapper calls that launched the Hopper kernel (a plain integer)
+# wrapper calls that launched the Hopper kernel at head_dim 64 (a plain integer)
 qkv_prologue.launches = 0
+
+
+def qkv_prologue_hd(inputs: tuple, shape: tuple, numbers: tuple, outputs: tuple,
+                    cells: int, device) -> None:
+    """K1 at a head dim other than 64 (``csrc/attn_prologue_hd.cu``, two
+    passes): the launch :func:`qkv_prologue` makes with its checked
+    operands' C arguments, ``shape`` (B, S_in, H, D) and a zeroed scratch of
+    the ``cells`` quantization cells' maxima. ``.launches`` counts its
+    launches."""
+    scratch = torch.zeros(4 * cells, dtype=torch.int32, device=device)
+    rc = _build.lib().aether_qkv_prologue_hd(*inputs, *shape, *numbers, *outputs,
+                                            scratch.data_ptr(), _build.stream_ptr(device))
+    _build.check(rc, "aether_qkv_prologue_hd")
+    _build.count_launch(qkv_prologue_hd)
+
+
+qkv_prologue_hd.launches = 0
 
 
 def prologue_occupancy(plan: LaunchPlan, quantize: bool = True) -> int:

@@ -38,7 +38,10 @@ branch. K2 and K3 are one Hopper kernel, the fixed-shift cell of
 ``csrc/fixed_cell.cuh`` (``wgmma`` for both products, a TMA ring, p kept in
 registers between them, no running max); on the H100 it is bound by the SFU's
 exp2 (int8) or by bf16 operations (1.1e10 exp2 and 2.8e12 operations per K2
-call at 48 heads x 15076 valid tokens); the sources carry the full note.
+call at 48 heads x 15076 valid tokens); the sources carry the full note. The
+cell is written for head_dim 64; the other head dims the JAX kernel takes
+(multiples of 16 below 128) run ``csrc/flash_prepacked_hd.cu``
+(:func:`flash_attention_prepacked_hd`), a simple ``mma.sync`` form.
 
 K2's math (log2 domain, non-causal, one fixed shift per head group):
 
@@ -92,6 +95,16 @@ def _heads_per_cell(bh: int, heads_per_cell: int) -> int:
 
 
 _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
+# the head dims K1 and K2 take on CUDA (the JAX pair's: multiples of 16 below
+# 128); 64 runs the wgmma cell, the others csrc/*_hd.cu
+PREPACKED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112)
+
+
+def _check_prepacked_head_dim(kernel: str, head_dim: int) -> None:
+    if head_dim not in PREPACKED_HEAD_DIMS:
+        raise NotImplementedError(
+            f"{kernel} takes head_dim {', '.join(map(str, PREPACKED_HEAD_DIMS))} on CUDA, "
+            f"got {head_dim} (other head dims: ROADMAP.md, Queue 2)")
 
 
 def _shift_or_zero(bounds: torch.Tensor, noshift: Optional[bool]) -> torch.Tensor:
@@ -187,7 +200,8 @@ def flash_attention_prepacked(
             on the device, when every group's bound is below 96.
 
     A CPU tensor runs :func:`flash_attention_prepacked_plain`. A CUDA tensor
-    launches the Hopper kernel or raises; there is no fallback.
+    launches the Hopper kernel (head_dim 64; 16 to 112 in steps of 16 through
+    :func:`flash_attention_prepacked_hd`) or raises; there is no fallback.
     """
     if noshift not in _NOSHIFT_CODES:
         raise ValueError(f"noshift must be False, True or None, got {noshift!r}")
@@ -200,8 +214,7 @@ def flash_attention_prepacked(
     if q.dtype not in (torch.int8, torch.bfloat16) or k.dtype != q.dtype:
         raise TypeError(f"K2 takes int8 or bf16 q/k of one dtype on CUDA, got "
                         f"{q.dtype}/{k.dtype}")
-    if d != 64:
-        raise NotImplementedError(f"K2 takes head_dim 64 only, got {d}")
+    _check_prepacked_head_dim("K2", d)
     if v.dtype != torch.bfloat16:
         raise TypeError(f"K2 takes bf16 v, got {v.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -220,18 +233,32 @@ def flash_attention_prepacked(
         if t.dtype != torch.float32 or tuple(t.shape) != tuple(qsc.shape):
             raise ValueError("K2 stats must be [G, T] float32")
     out = torch.empty((bh, s_pad, d), dtype=torch.bfloat16, device=q.device)
-    rc = _build.lib().aether_flash_prepacked(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qsc.data_ptr(),
-        ksc.data_ptr(), qn.data_ptr(), kn.data_ptr(), out.data_ptr(),
-        bh, s_pad, s_valid, hper, block, s_pad // block, int(q.dtype == torch.int8),
-        _NOSHIFT_CODES[noshift], _build.stream_ptr(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qsc.data_ptr(), ksc.data_ptr(),
+            qn.data_ptr(), kn.data_ptr(), out.data_ptr(), bh, s_pad, s_valid, hper, block,
+            s_pad // block, int(q.dtype == torch.int8), _NOSHIFT_CODES[noshift])
+    if d != 64:
+        flash_attention_prepacked_hd(args, d, q.device)
+        return out
+    rc = _build.lib().aether_flash_prepacked(*args, _build.stream_ptr(q.device))
     _build.check(rc, "aether_flash_prepacked")
     _build.count_launch(flash_attention_prepacked)
     return out
 
 
-# wrapper calls that launched the Hopper kernel (a plain integer)
+# wrapper calls that launched the Hopper kernel at head_dim 64 (a plain integer)
 flash_attention_prepacked.launches = 0
+
+
+def flash_attention_prepacked_hd(args: tuple, head_dim: int, device) -> None:
+    """K2 at a head dim other than 64 (``csrc/flash_prepacked_hd.cu``,
+    ``mma.sync``): the launch :func:`flash_attention_prepacked` makes with
+    its checked operands' C arguments. ``.launches`` counts its launches."""
+    rc = _build.lib().aether_flash_prepacked_hd(*args, head_dim, _build.stream_ptr(device))
+    _build.check(rc, "aether_flash_prepacked_hd")
+    _build.count_launch(flash_attention_prepacked_hd)
+
+
+flash_attention_prepacked_hd.launches = 0
 
 
 # ---------------------------------------------------------------------------

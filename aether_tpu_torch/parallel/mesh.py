@@ -408,8 +408,9 @@ def shard_params(model: DiT, mesh) -> DiT:
 def _replicated_on_fsdp(name: str, param: torch.Tensor) -> bool:
     """The leaves JAX ``dit_param_sharding(fsdp=True)`` keeps replicated:
     biases and norm scales (every 1-D leaf), the time embedding and the
-    output adaLN (``norm_out``)."""
-    return param.ndim < 2 or name.startswith(("time_embed.", "norm_out."))
+    output adaLN (``norm_out``); CogVideoX-1.5's ofs embedding, the time
+    embedding's twin, as it is."""
+    return param.ndim < 2 or name.startswith(("time_embed.", "ofs_embed.", "norm_out."))
 
 
 def fsdp_shard(model: DiT, mesh) -> DiT:

@@ -265,6 +265,32 @@ than the wire's rounding (the script says so on phase 24's first line).
      max <= 0.25 of max(1, |ref|)); (d) each rank's K1/K2/K5 launches (dp:
      8/8/660, tp: 16/16/1088), both ranks exiting 0 after the stop message,
      and the two ranks' peaks under 80 GB.
+Phase of the CogVideoX-1.5 slice, after 25 (``cogvideox15_phase`` and
+``head_dim_phase``):
+ 26. (a) the CogVideoX-1.5 DiT at full width: ``DiTConfig.aetherv1()`` with
+     ``patch_size_t=2`` and ``ofs_embed_dim=512``, seeded random bf16 weights,
+     one forward on a seeded (1, 12, 96, 60, 90) latent with the slice RoPE
+     tables of 480x720 at 12 latent frames (8100 video + 226 text tokens):
+     42 K1 and 42 K2 launches at the default attention settings; ``ofs``
+     None bit-identical to zeros, ``ofs=2`` moving the output by more than
+     1e-3 of its mean magnitude; against the same forward through the plain
+     attention route (``attn_impl="xla"``): mean-abs and norm relative error
+     < 0.05 (phase 16's tightest bar); the same weights as int8 codes with
+     int8 activations against bf16 at phase 16's w8a8 bar (norm relative <
+     0.2), 4 x 42 int8 products; seconds and peak memory of each forward.
+     (b) K1 + K2 below head_dim 64 (``csrc/attn_prologue_hd.cu``,
+     ``csrc/flash_prepacked_hd.cu``): one 17x64x96 reconstruction request of
+     ``PipelineConfig.tiny()`` (head_dim 16) on the card at the default
+     attention settings against the same request on the CPU (the same
+     weights and ``TorchNoise`` draws, bf16, f32 wires), and one forward of
+     the tiny DiT at head_dim 32 and at 112 against the CPU, at the
+     long-video gates (mean abs <= 1e-2, max <= 0.25 of max(1, |ref|)), with
+     exact launches of the head-dim kernels (8, 2, 2) and none of the
+     head_dim-64 ones; then K1 and K2 at 48 heads x 15076 tokens (padded to
+     15360) at head_dim 16, 32 and 112, int8 and float, against their plain
+     versions at phase 3's, 4's and 14's accuracy gates, two launches
+     bit-identical, timed beside one bf16 SDPA call at the same shape and
+     against the bound.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -382,7 +408,7 @@ def k1_int8_gates(name, got, ref):
         check(diff.max().item() <= 1 and frac <= 1e-4, f"{name} {part} codes disagree")
         check(a.min().item() >= -127, f"{name} {part} has a code -128")
     check(torch.equal(got[2], ref[2]), f"{name} v is not bit-exact")
-    check(bool((got[2].view(-1, got[7], HEAD_DIM)[:, SEQ:] == 0).all()),
+    check(bool((got[2].view(-1, got[7], got[2].shape[-1])[:, SEQ:] == 0).all()),
           f"{name} v pad rows not zero")
     for part, a, b in zip(("qsc", "qn", "ksc", "kn"), got[3:7], ref[3:7]):
         rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
@@ -398,6 +424,14 @@ def bf16_gates(ref):
     ref = ref.float().abs()
     top = ref.max().clamp_min(torch.finfo(torch.float32).tiny).item()
     return 2.0 * 2.0 ** (np.floor(np.log2(top)) - 7), ref.mean().item() * 2.0 ** -9
+
+
+def relative_errors(out, ref):
+    """(mean-abs relative, norm relative, cosine) of ``out`` against ``ref``."""
+    out, ref = out.float(), ref.float()
+    return (((out - ref).abs().mean() / ref.abs().mean()).item(),
+            ((out - ref).norm() / ref.norm()).item(),
+            (torch.sum(out * ref) / (out.norm() * ref.norm())).item())
 
 
 def padfix_uncorrected(q, k, v, seq_pad):
@@ -426,23 +460,23 @@ def attention_exp2(b):
     return float(b) * HEADS * SEQ * SEQ
 
 
-def attention_ops(b, s, kinds):
-    """{type: ops} of attention over b x 48 heads x s valid tokens x 64:
-    QK^T and PV, 2 * s^2 * 64 multiply-adds each a head."""
-    per = 2.0 * b * HEADS * s * s * HEAD_DIM
+def attention_ops(b, s, kinds, hd=HEAD_DIM):
+    """{type: ops} of attention over b x 48 heads x s valid tokens x hd:
+    QK^T and PV, 2 * s^2 * hd multiply-adds each a head."""
+    per = 2.0 * b * HEADS * s * s * hd
     ops = {}
     for kind in kinds:
         ops[kind] = ops.get(kind, 0.0) + per
     return ops
 
 
-def sdpa_ms(dev, gen, b, dtype):
-    """Time of one ``F.scaled_dot_product_attention`` over (b, 48, 15076, 64)
+def sdpa_ms(dev, gen, b, dtype, hd=HEAD_DIM):
+    """Time of one ``F.scaled_dot_product_attention`` over (b, 48, 15076, hd)
     in ``dtype`` (the library yardstick; the port never calls it). The math
     backend, which would hold the 48 x 15076^2 score matrix, is excluded."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    q, k, v = (torch.randn((b, HEADS, SEQ, HEAD_DIM), generator=gen, device=dev).to(dtype)
+    q, k, v = (torch.randn((b, HEADS, SEQ, hd), generator=gen, device=dev).to(dtype)
                for _ in range(3))
     with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                       SDPBackend.CUDNN_ATTENTION]):
@@ -1578,6 +1612,28 @@ def bf16_ulps(a, b):
     return torch.where(a == b, torch.zeros_like(a), (a - b).abs() / ulp)
 
 
+def k1_float_gates(name, got, ref):
+    """Phase 14's gates on K1's float (QK8=0) outputs against its plain
+    version: bf16 q and k within one bf16 ulp on at most 1e-4 of the
+    elements, v bit-exact, the stats within rtol 1e-5. Returns the largest
+    abs difference of q and k."""
+    check(got[7] == ref[7], f"{name} s_pad {got[7]} / {ref[7]}")
+    err = 0.0
+    for part, a, b in (("q", got[0], ref[0]), ("k", got[1], ref[1])):
+        check(a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape,
+              f"{name} {part} {a.dtype} {a.shape}")
+        ulps = bf16_ulps(a, b)
+        frac = (ulps > 0).float().mean().item()
+        err = max(err, (a.float() - b.float()).abs().max().item())
+        log(f"{name} {part}: max {ulps.max().item():.3f} bf16 ulps, differing "
+            f"fraction {frac:.3e} (gates 1 ulp, 1e-4)")
+        check(ulps.max().item() <= 1 and frac <= 1e-4, f"{name} {part} disagrees")
+    check(torch.equal(got[2], ref[2]), f"{name} v is not bit-exact")
+    for part, a, b in zip(("qsc", "qn", "ksc", "kn"), got[3:7], ref[3:7]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=f"{name} {part}")
+    return err
+
+
 def float_k1_k2_phase(k1_args, kw):
     """The float (QK8=0) K1 and K2 against their plain versions at the
     main-path shape. Gates: K1's bf16 q and k within one bf16 ulp on at most
@@ -1598,20 +1654,7 @@ def float_k1_k2_phase(k1_args, kw):
 
     got, ref = k1(), k1_plain()
     torch.cuda.synchronize()
-    check(got[7] == ref[7], f"float K1 s_pad {got[7]} / {ref[7]}")
-    k1_err = 0.0
-    for name, a, b in (("q", got[0], ref[0]), ("k", got[1], ref[1])):
-        check(a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape,
-              f"float K1 {name} {a.dtype} {a.shape}")
-        ulps = bf16_ulps(a, b)
-        frac = (ulps > 0).float().mean().item()
-        k1_err = max(k1_err, (a.float() - b.float()).abs().max().item())
-        log(f"K1 float {name}: max {ulps.max().item():.3f} bf16 ulps, differing "
-            f"fraction {frac:.3e} (gates 1 ulp, 1e-4)")
-        check(ulps.max().item() <= 1 and frac <= 1e-4, f"float K1 {name} disagrees")
-    check(torch.equal(got[2], ref[2]), "float K1 v is not bit-exact")
-    for name, a, b in zip(("qsc", "qn", "ksc", "kn"), got[3:7], ref[3:7]):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=f"float K1 {name}")
+    k1_err = k1_float_gates("K1 float", got, ref)
     results = {"K1 float": (k1_err, cuda_time_ms(k1, 20), cuda_time_ms(k1_plain, 3))}
     log(f"K1 float time: kernel {results['K1 float'][1]:.4f} ms, plain "
         f"{results['K1 float'][2]:.4f} ms")
@@ -1794,9 +1837,7 @@ def quality_phase(cfg, dev):
     results = {}
 
     def against_bf16(name, out):
-        mean_rel = ((out - ref).abs().mean() / ref.abs().mean()).item()
-        norm_rel = ((out - ref).norm() / ref.norm()).item()
-        cosine = (torch.sum(out * ref) / (out.norm() * ref.norm())).item()
+        mean_rel, norm_rel, cosine = relative_errors(out, ref)
         log(f"quality at full width, {name} against bf16: mean-abs relative error "
             f"{mean_rel:.6f}, norm relative error {norm_rel:.6f}, cosine {cosine:.6f}")
         results[name] = (mean_rel, norm_rel, cosine)
@@ -3153,6 +3194,357 @@ def serve_mesh_phase(dev):
     return launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the CogVideoX-1.5 DiT at full width; K1 + K2 below head_dim 64
+# ---------------------------------------------------------------------------
+
+# (a) latent frames of the 1.5 clip (6 token frames at patch_size_t 2: 8100
+# video tokens + 226 text at 480x720) and its ofs embedding width
+COG15_FRAMES, COG15_OFS = 12, 512
+# (a) the 1.5 forward through K1 + K2 against the same forward through the
+# plain attention route (``attn_impl="xla"``): mean-abs and norm relative
+# error, the tightest bar of the script's full-width DiT comparisons (phase
+# 16's int8 weight-only); w8a8 against bf16 at phase 16's w8a8 bar
+COG15_PLAIN_BAR, COG15_W8A8_NORM_BAR = 0.05, 0.2
+# (a) ofs = 2 must move the output's mean magnitude by more than this share
+COG15_OFS_MOVES = 1e-3
+# (b) K1 + K2 below head_dim 64 at the main path's 48 heads x 15076 tokens;
+# the tiny request and the DiT forwards on the card against the CPU at the
+# long-video gates (mean abs <= 1e-2, max <= 0.25 of max(1, |ref|))
+HD_DIMS = (16, 32, 112)
+TINY_FRAMES, TINY_HEIGHT, TINY_WIDTH = 17, 64, 96
+
+
+def cogvideox15_phase(cfg, dev):
+    """Phase 26 (a): the CogVideoX-1.5 DiT, ``DiTConfig.aetherv1()`` with
+    ``patch_size_t=2`` and ``ofs_embed_dim=512`` (42 blocks, 48 heads x 64),
+    seeded random bf16 weights (``init_dit`` seed 0), one forward at timestep
+    500 on a seeded (1, 12, 96, 60, 90) bf16 latent, the phase's seeded
+    prompt and the slice RoPE tables of 480x720 at 12 latent frames: 8100
+    video + 226 text tokens. At the default attention settings (K1 + K2, 42
+    launches each, none of the head-dim kernels); ``ofs`` None bit-identical
+    to explicit zeros, ``ofs=2`` moving the output; against the same forward
+    through the plain attention route at ``COG15_PLAIN_BAR``; then the same
+    weights as int8 codes with int8 activations (``quantize_dit``, w8a8: 42
+    K1/K2 launches, 4 x 42 int8 products) against bf16 at phase 16's w8a8
+    bar. Logs each forward's seconds and peak memory; returns {name: value}."""
+    from aether_tpu_torch.models import init_dit, quantize_dit
+    from aether_tpu_torch.models.dit import int8_mm
+    from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue, qkv_prologue_hd
+    from aether_tpu_torch.ops.flash_attention import (
+        flash_attention_prepacked,
+        flash_attention_prepacked_hd,
+    )
+
+    cfg15 = dataclasses.replace(cfg.dit, patch_size_t=2, ofs_embed_dim=COG15_OFS)
+    h_lat, w_lat = HEIGHT // 8, WIDTH // 8
+    video_tokens = COG15_FRAMES // 2 * (h_lat // 2) * (w_lat // 2)
+    t0 = time.perf_counter()
+    dit = init_dit(cfg15, device=dev, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in dit.parameters())
+    log(f"phase 26a: CogVideoX-1.5 DiT (patch_size_t 2, ofs_embed_dim {COG15_OFS}) "
+        f"{n_params / 1e9:.4f}B bf16 params, built in {time.perf_counter() - t0:.3f} s; "
+        f"proj {tuple(dit.proj.weight.shape)}, proj_out {tuple(dit.proj_out.weight.shape)}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    hidden = torch.randn((1, COG15_FRAMES, cfg15.in_channels, h_lat, w_lat), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    text = make_prompt(cfg, dev).to(torch.bfloat16)
+    t = torch.tensor([500], device=dev)
+    cos, sin = prepare_rotary_positional_embeddings(
+        cfg15, HEIGHT, WIDTH, COG15_FRAMES, vae_scale_factor_spatial=8, base_fps=12, fps=12)
+    check(cos.shape == (video_tokens, cfg15.head_dim), f"slice RoPE tables {cos.shape}")
+    rope = (torch.from_numpy(cos).to(dev), torch.from_numpy(sin).to(dev))
+    counted = (qkv_prologue, flash_attention_prepacked, qkv_prologue_hd,
+               flash_attention_prepacked_hd, int8_mm)
+    n = cfg15.num_layers
+    numbers = {}
+
+    def forward(name, launches, **kw):
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = dit(hidden, text, t, *rope, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = [fn.launches for fn in counted]
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"phase 26a {name}: {secs:.3f} s, {video_tokens + TEXT} tokens; K1/K2/K1 hd/K2 "
+            f"hd/int8 product launches {'/'.join(map(str, counts))}; peak memory {peak:.2f} GiB")
+        check(out.shape == (1, COG15_FRAMES, cfg15.out_channels, h_lat, w_lat),
+              f"phase 26a {name}: output {tuple(out.shape)}")
+        check(bool(torch.isfinite(out).all()), f"phase 26a {name}: non-finite output")
+        check(counts == launches, f"phase 26a {name}: launches {counts}, not {launches}")
+        numbers[f"{name} s"], numbers[f"{name} peak GiB"] = secs, peak
+        return out
+
+    fused = [n, n, 0, 0, 0]
+    ref = forward("forward (K1 + K2, ofs None)", fused)
+    zeros = forward("forward, ofs zeros", fused, ofs=torch.zeros(1, device=dev))
+    check(torch.equal(ref, zeros), "phase 26a: ofs None is not bit-identical to zeros")
+    moved = forward("forward, ofs 2", fused, ofs=torch.full((1,), 2.0, device=dev))
+    share = ((moved.float() - ref.float()).abs().mean() / ref.float().abs().mean()).item()
+    log(f"phase 26a: ofs None bit-identical to zeros; ofs 2 moves the output by {share:.4e} "
+        f"of its mean magnitude (gate > {COG15_OFS_MOVES:g})")
+    check(share > COG15_OFS_MOVES, "phase 26a: ofs 2 does not move the output")
+    del zeros, moved
+    plain = forward("forward, plain attention route", [0, 0, 0, 0, 0], attn_impl="xla")
+    mean_rel, norm_rel, cosine = relative_errors(ref, plain)
+    log(f"phase 26a K1 + K2 against the plain attention route: mean-abs relative error "
+        f"{mean_rel:.6f}, norm relative error {norm_rel:.6f}, cosine {cosine:.6f} (gates "
+        f"{COG15_PLAIN_BAR:g} / {COG15_PLAIN_BAR:g})")
+    check(mean_rel < COG15_PLAIN_BAR and norm_rel < COG15_PLAIN_BAR,
+          "phase 26a: the K1 + K2 forward is outside its bars of the plain route")
+    numbers.update({"plain mean rel": mean_rel, "plain norm rel": norm_rel,
+                    "plain cosine": cosine})
+    del plain
+    torch.cuda.empty_cache()
+    quantize_dit(dit, torch.int8)  # in place: the bf16 weights go as their codes come
+    w8a8 = forward("forward, int8 w8a8", [n, n, 0, 0, 4 * n], act_quant=True)
+    mean_rel, norm_rel, cosine = relative_errors(w8a8, ref)
+    log(f"phase 26a int8 w8a8 against bf16: mean-abs relative error {mean_rel:.6f}, norm "
+        f"relative error {norm_rel:.6f}, cosine {cosine:.6f} (gate norm "
+        f"{COG15_W8A8_NORM_BAR:g})")
+    check(norm_rel < COG15_W8A8_NORM_BAR, "phase 26a: int8 w8a8 over the 0.2 norm bar")
+    numbers.update({"w8a8 mean rel": mean_rel, "w8a8 norm rel": norm_rel,
+                    "w8a8 cosine": cosine})
+    del dit, ref, w8a8, hidden, text, rope
+    gc.collect()
+    torch.cuda.empty_cache()
+    return numbers
+
+
+class HostDrawnNoise:
+    """The pipeline's ``TorchNoise`` draws made on the CPU (seeded there) and
+    moved to ``device``: a CPU and a CUDA pipeline see the same noise."""
+
+    def __init__(self, seed, device):
+        from aether_tpu_torch.pipeline.aether import TorchNoise
+
+        self.source, self.device = TorchNoise(seed, "cpu"), torch.device(device)
+
+    def posterior(self, shape):
+        return self.source.posterior(shape).to(self.device)
+
+    def goal(self, shape):
+        return self.source.goal(shape).to(self.device)
+
+    def initial(self, shape):
+        return self.source.initial(shape).to(self.device)
+
+    def sde(self, step, shape):
+        return self.source.sde(step, shape).to(self.device)
+
+
+def cross_device_gates(name, got, ref):
+    """The long-video gates of a card result against the CPU's: mean abs
+    <= 1e-2, max <= 0.25 of max(1, max |ref|). Returns the max abs error."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    check(got.shape == ref.shape, f"{name}: {got.shape} against {ref.shape}")
+    check(bool(np.isfinite(got).all()), f"{name}: non-finite values on the card")
+    err = np.abs(got - ref)
+    top = 0.25 * max(1.0, float(np.abs(ref).max()))
+    log(f"{name}, the card against the CPU: mean abs {err.mean():.3e}, max abs "
+        f"{err.max():.3e} (gates 1e-2 / {top:.3g})")
+    check(err.mean() <= 1e-2 and err.max() <= top, f"{name}: the card departs from the CPU")
+    return float(err.max())
+
+
+def head_dim_phase(dev, gen):
+    """Phase 26 (b): K1 + K2 below head_dim 64. (i) One reconstruction
+    request of ``PipelineConfig.tiny()`` (head_dim 16, 4 heads, 2 blocks) on
+    the card at the default attention settings, 17x64x96 and 4 steps, against
+    the same request on the CPU (the same CPU-drawn weights and
+    ``TorchNoise`` draws, bf16, f32 wires) at the long-video gates: 8
+    launches of each head-dim kernel, none of the head_dim-64 ones, K5 at its
+    count. (ii) The tiny DiT at head_dim 32 and 112 (4 heads, 2 blocks): one
+    forward on the card against the CPU at the same gates, 2 launches each.
+    (iii) K1 and K2 at 48 heads x 15076 tokens (padded to 15360) at each of
+    ``HD_DIMS``, int8 and float: phase 3's and phase 4's (and phase 14's)
+    accuracy gates against the plain versions, two launches bit-identical,
+    the times beside one bf16 SDPA call at (1, 48, 15076, head_dim) and the
+    bound. Returns ({head_dim: (K1 launches, K2 launches)} of (i)-(ii),
+    {(kernel, head_dim, branch): (max abs error, ms, plain ms, bound,
+    SDPA ms)})."""
+    from aether_tpu_torch.config import DiTConfig, PipelineConfig
+    from aether_tpu_torch.models import init_dit, init_vae
+    from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
+    from aether_tpu_torch.models.vae import GroupNorm
+    from aether_tpu_torch.ops.attn_prologue import (
+        qkv_prologue,
+        qkv_prologue_hd,
+        qkv_prologue_plain,
+    )
+    from aether_tpu_torch.ops.flash_attention import (
+        flash_attention_prepacked,
+        flash_attention_prepacked_hd,
+        flash_attention_prepacked_plain,
+    )
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+    from aether_tpu_torch.pipeline import AetherPipeline
+    from aether_tpu_torch.pipeline.aether import TorchNoise, _chunk_bounds
+
+    counted = (qkv_prologue_hd, flash_attention_prepacked_hd, qkv_prologue,
+               flash_attention_prepacked, groupnorm_moments)
+    path_launches = {}
+    # (i) the tiny request
+    tcfg = PipelineConfig.tiny()
+    dit = init_dit(tcfg.dit, dtype=torch.bfloat16, seed=0)
+    vae = init_vae(tcfg.vae, dtype=torch.bfloat16, seed=1)
+    host_gen = torch.Generator()
+    host_gen.manual_seed(2)
+    text = torch.randn((1, tcfg.dit.max_text_seq_length, tcfg.dit.text_embed_dim),
+                       generator=host_gen)
+    video = np.random.default_rng(26).integers(
+        0, 256, (TINY_FRAMES, TINY_HEIGHT, TINY_WIDTH, 3), dtype=np.uint8)
+    kw = dict(task="reconstruction", video=video, height=TINY_HEIGHT, width=TINY_WIDTH,
+              num_frames=TINY_FRAMES, num_inference_steps=4, fps=12)
+    host = AetherPipeline(tcfg, dit, vae, text, device="cpu", compute_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    want = host(noise=TorchNoise(42, "cpu"), **kw)
+    host_s = time.perf_counter() - t0
+    card = AetherPipeline(tcfg, dit.to(dev), vae.to(dev), text.to(dev), device=dev,
+                          compute_dtype=torch.bfloat16, compact_transfer=False)
+    card(noise=HostDrawnNoise(42, dev), **kw)  # the first call builds cuDNN's plans
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = card(noise=HostDrawnNoise(42, dev), **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = [fn.launches for fn in counted]
+    enc = sum(isinstance(m, GroupNorm) for m in card.vae.encoder.modules())
+    dec = sum(isinstance(m, GroupNorm) for m in card.vae.decoder.modules())
+    k5 = (enc * len(list(_chunk_bounds(TINY_FRAMES, 8)))
+          + dec * len(list(_chunk_bounds((TINY_FRAMES - 1) // 4 + 1, 2))))
+    steps = tcfg.dit.num_layers * 4
+    log(f"phase 26b tiny request (head_dim {tcfg.dit.head_dim}, {tcfg.dit.num_heads} heads) "
+        f"{TINY_FRAMES}x{TINY_HEIGHT}x{TINY_WIDTH}: card {card_s:.3f} s, CPU {host_s:.3f} s; "
+        f"K1 hd/K2 hd/K1/K2/K5 launches {'/'.join(map(str, counts))}")
+    check(counts == [steps, steps, 0, 0, k5],
+          f"phase 26b tiny request: launches {counts}, not {[steps, steps, 0, 0, k5]}")
+    for field in ("rgb", "disparity", "raymap"):
+        cross_device_gates(f"phase 26b tiny request {field}", getattr(got, field),
+                           getattr(want, field))
+    path_launches[tcfg.dit.head_dim] = tuple(counts[:2])
+    del host, card, dit, vae, got, want
+
+    # (ii) the tiny DiT at the other head dims, one forward on each side
+    for hd in HD_DIMS:
+        if hd == tcfg.dit.head_dim:
+            continue
+        dcfg = dataclasses.replace(DiTConfig.tiny(), head_dim=hd)
+        model = init_dit(dcfg, dtype=torch.bfloat16, seed=0)
+        h, w = dcfg.sample_height, dcfg.sample_width
+        hidden = torch.randn((1, 3, dcfg.in_channels, h, w), generator=host_gen).bfloat16()
+        prompt = torch.randn((1, dcfg.max_text_seq_length, dcfg.text_embed_dim),
+                             generator=host_gen)
+        cos, sin = prepare_rotary_positional_embeddings(dcfg, h * 8, w * 8, 3,
+                                                        vae_scale_factor_spatial=8)
+        args = (hidden, prompt, torch.tensor([500]), torch.from_numpy(cos),
+                torch.from_numpy(sin))
+        with torch.no_grad():
+            want = model(*args)
+            model.to(dev)
+            for fn in counted:
+                fn.launches = 0
+            got = model(*(a.to(dev) for a in args))
+            torch.cuda.synchronize()
+        counts = [fn.launches for fn in counted]
+        log(f"phase 26b tiny DiT at head_dim {hd}: K1 hd/K2 hd/K1/K2/K5 launches "
+            f"{'/'.join(map(str, counts))}")
+        check(counts == [dcfg.num_layers, dcfg.num_layers, 0, 0, 0],
+              f"phase 26b tiny DiT at head_dim {hd}: launches {counts}")
+        cross_device_gates(f"phase 26b tiny DiT at head_dim {hd}", got.float().cpu(),
+                           want.float())
+        path_launches[hd] = tuple(counts[:2])
+        del model, got, want
+
+    # (iii) K1 and K2 at the main path's shape
+    results = {}
+    s_pad = 15360
+    for hd in HD_DIMS:
+        d = HEADS * hd
+        y = torch.randn((1, s_pad, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+        y[:, SEQ:] = 0
+        xs = (y[..., :d], y[..., d:2 * d], y[..., 2 * d:])
+        norms = [1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+                 0.1 * torch.randn(hd, generator=gen, device=dev),
+                 1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+                 0.1 * torch.randn(hd, generator=gen, device=dev)]
+        ang = torch.randn((SEQ, hd // 2), generator=gen, device=dev)
+        rope = (ang.cos().repeat_interleave(2, -1), ang.sin().repeat_interleave(2, -1))
+        sdpa = sdpa_ms(dev, gen, 1, torch.bfloat16, hd)
+        half = HEADS * s_pad * hd
+        k1_in = SEQ * 3 * d * 2 + 2 * SEQ * hd * 4
+        for quantize in (True, False):
+            branch = "int8" if quantize else "float"
+            pkw = dict(num_heads=HEADS, head_dim=hd, eps=1e-6, s_valid=SEQ,
+                       quantize=quantize)
+
+            def k1():
+                return qkv_prologue(*xs, *norms, *rope, **pkw)
+
+            def k1_plain():
+                return qkv_prologue_plain(*xs, *norms, *rope, **pkw)
+
+            before = qkv_prologue_hd.launches
+            got, ref = k1(), k1_plain()
+            torch.cuda.synchronize()
+            check(qkv_prologue_hd.launches == before + 1, "K1 hd: not one launch a call")
+            name = f"K1 {branch} at head_dim {hd}"
+            if quantize:
+                err = k1_int8_gates(name, got, ref)
+            else:
+                err = k1_float_gates(name, got, ref)
+            check(all(torch.equal(a, b) for a, b in zip(got[:7], k1()[:7])),
+                  f"{name}: two launches differ")
+            ms, plain_ms = cuda_time_ms(k1, 20), cuda_time_ms(k1_plain, 3)
+            out_bytes = (2 if quantize else 4) * half + 2 * half
+            bnd = bound(k1_in + out_bytes, {"f32": 30.0 * 2 * SEQ * d})
+            log(f"{name} time: kernel {ms:.4f} ms ({bnd[0] / ms:.1%} of its {bnd[0]:.4f} ms "
+                f"{bnd[1]} bound), plain {plain_ms:.4f} ms")
+            results["K1", hd, branch] = (err, ms, plain_ms, bnd, None)
+
+            q, k, v, qsc, qn, ksc, kn, _ = got
+            fkw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=SEQ)
+            name = f"K2 {branch} at head_dim {hd}"
+
+            def k2():
+                return flash_attention_prepacked(q, k, v, **fkw)
+
+            def k2_plain():
+                return flash_attention_prepacked_plain(q, k, v, **fkw)
+
+            before = flash_attention_prepacked_hd.launches
+            out, out_ref = k2(), k2_plain()
+            torch.cuda.synchronize()
+            check(flash_attention_prepacked_hd.launches == before + 1,
+                  "K2 hd: not one launch a call")
+            bars = (1e-2, 1e-3) if quantize else bf16_gates(out_ref)
+            err = compare(name, out, out_ref, *bars)
+            check(torch.equal(out, k2()), f"{name}: two launches differ")
+            ms, plain_ms = cuda_time_ms(k2, 5), cuda_time_ms(k2_plain, 2)
+            kinds = ("int8", "bf16") if quantize else ("bf16", "bf16")
+            bnd = bound((2 if quantize else 4) * half + 2 * 2 * half,
+                        attention_ops(1, SEQ, kinds, hd), attention_exp2(1))
+            flops = 4.0 * HEADS * SEQ * SEQ * hd
+            log(f"{name} time: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{bnd[0] / ms:.1%} of its {bnd[0]:.4f} ms {bnd[1]} bound), plain "
+                f"{plain_ms:.4f} ms, SDPA bf16 (1, 48, 15076, {hd}) {sdpa:.4f} ms: "
+                f"{ms / sdpa:.3f}x")
+            results["K2", hd, branch] = (err, ms, plain_ms, bnd, sdpa)
+            del got, ref, out, out_ref, q, k, v
+        del y, xs
+        torch.cuda.empty_cache()
+    return path_launches, results
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -3418,6 +3810,16 @@ def main() -> None:
         + " GiB" for mode, n in serve_numbers.items()) + "); phase 24's calls: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in wire_secs.items()))
 
+    # ---- 26. the CogVideoX-1.5 DiT at full width; K1 + K2 below head_dim 64 ----
+    t0 = time.perf_counter()
+    cog15 = cogvideox15_phase(cfg, dev)
+    hd_launches, hd_kernels = head_dim_phase(dev, gen)
+    log(f"phase 26: {time.perf_counter() - t0:.3f} s; (a) " + ", ".join(
+        f"{k} {v:.6g}" for k, v in cog15.items()) + "; (b) " + "; ".join(
+        f"{kern} {branch} at head_dim {hd}: {ms:.4f} ms (bound {bnd[0]:.4f}, plain "
+        f"{plain:.4f}" + (f", SDPA {lib:.4f})" if lib is not None else ")")
+        for (kern, hd, branch), (_, ms, plain, bnd, lib) in hd_kernels.items()))
+
     # ---- 15. the w8a8 products at the main path's shapes ----
     w8a8 = w8a8_phase(dev, gen)
 
@@ -3567,6 +3969,14 @@ def main() -> None:
               bench_launches["K8"], *variants["K8"], var_bound, variants_sdpa),
         entry("flash_x", "flash_variants.cu", "scripts/bench_flash_bisect.py:54",
               bench_launches["K9"], *variants["K9"], var_bound, variants_sdpa),
+        *(entry(f"{name}_hd{hd}", source, replaces, hd_launches[hd][i],
+                *hd_kernels[kern, hd, "int8"])
+          for hd in HD_DIMS
+          for i, (name, kern, source, replaces) in enumerate((
+              ("attn_prologue", "K1", "attn_prologue_hd.cu",
+               "aether_tpu/ops/attn_prologue.py:91"),
+              ("flash_prepacked", "K2", "flash_prepacked_hd.cu",
+               "aether_tpu/ops/flash_attention.py:812")))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

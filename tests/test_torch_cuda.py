@@ -5,7 +5,9 @@ machine). ``chip_smoke.py`` checks the kernels at the main-path shapes; these
 cases cover the edges it does not reach. K1/K2, int8 and float
 (``AETHER_ATTN_QK8=0``): batch > 1, head groups that straddle two batch
 elements, several token tiles with a ragged ``s_valid``, no RoPE, RoPE tables
-shorter than the sequence. K1's cluster form besides: a cluster of 8 with
+shorter than the sequence; K1 and K2 at every other head dim they take (16
+to 112 in steps of 16), each noshift, and head dims outside that range
+refused. K1's cluster form besides: a cluster of 8 with
 S_in < s_pad, clusters of 3 and 6, hper 3 and 4 straddling batch elements,
 tables shorter than s_valid, no RoPE, codes inside [-127, 127], two launches
 bit-identical, one launch a call, and head groups above 4, tiles above 1024
@@ -79,18 +81,18 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, b, s, nh, rope_rows, seed=0):
+def _inputs(dev, b, s, nh, rope_rows, seed=0, hd=HD):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    d = nh * HD
+    d = nh * hd
     y = torch.randn((b, s, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
     xs = (y[..., :d], y[..., d:2 * d], y[..., 2 * d:])
-    norms = [1.0 + 0.1 * torch.randn(HD, generator=gen, device=dev),
-             0.1 * torch.randn(HD, generator=gen, device=dev),
-             1.0 + 0.1 * torch.randn(HD, generator=gen, device=dev),
-             0.1 * torch.randn(HD, generator=gen, device=dev)]
+    norms = [1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+             0.1 * torch.randn(hd, generator=gen, device=dev),
+             1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+             0.1 * torch.randn(hd, generator=gen, device=dev)]
     if rope_rows:
-        ang = torch.randn((rope_rows, HD // 2), generator=gen, device=dev)
+        ang = torch.randn((rope_rows, hd // 2), generator=gen, device=dev)
         rope = (ang.cos().repeat_interleave(2, -1), ang.sin().repeat_interleave(2, -1))
     else:
         rope = (None, None)
@@ -449,6 +451,86 @@ def test_flash_prepacked_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="noshift"):
         flash_attention_prepacked(q, k, v, noshift=2, **kw)
     assert flash_attention_prepacked.launches == before
+
+
+# K1 and K2 at the head dims other than 64 (csrc/attn_prologue_hd.cu,
+# csrc/flash_prepacked_hd.cu): (batch, tokens, heads, s_valid, rope rows)
+HD_CASES = [
+    (2, 300, 3, 250, 300),      # hper 3: groups straddle the two batches
+    (1, 1700, 4, 1650, 1600),   # two 1024-token tiles, tables short of s
+    (1, 700, 2, None, 0),       # no RoPE; hper 2
+]
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("b,s,nh,s_valid,rope_rows", HD_CASES)
+@pytest.mark.parametrize("hd", [16, 32, 48, 80, 96, 112])
+def test_prologue_and_flash_hd_kernels_match_plain(dev, hd, b, s, nh, s_valid, rope_rows,
+                                                   quantize):
+    """K1 at phase 3's gates (int8 codes within 1 on at most 1e-3 of them, or
+    bf16 within one ulp on at most 1e-4; v bit-exact; the stats rtol 1e-5),
+    K2 on its outputs at max 1e-2 / mean 1e-3, each with every noshift; one
+    launch of each head-dim kernel a call and none of the head_dim-64 ones;
+    two launches bit-identical."""
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue_hd
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked_hd
+
+    xs, norms, rope = _inputs(dev, b, s, nh, rope_rows, seed=hd, hd=hd)
+    kw = dict(num_heads=nh, head_dim=hd, eps=1e-6, s_valid=s_valid, quantize=quantize)
+    counts = (qkv_prologue.launches, flash_attention_prepacked.launches)
+    before = qkv_prologue_hd.launches
+    got = qkv_prologue(*xs, *norms, *rope, **kw)
+    ref = qkv_prologue_plain(*xs, *norms, *rope, **kw)
+    torch.cuda.synchronize()
+    assert qkv_prologue_hd.launches == before + 1
+    assert got[7] == ref[7]
+    for a, r in zip(got[:2], ref[:2]):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        if quantize:
+            diff = (a.int() - r.int()).abs()
+            assert diff.max().item() <= 1 and (diff > 0).float().mean().item() <= 1e-3
+        else:
+            ulps = _bf16_ulps(a, r)
+            assert ulps.max().item() <= 1 and (ulps > 0).float().mean().item() <= 1e-4
+    assert torch.equal(got[2], ref[2])
+    for a, r in zip(got[3:7], ref[3:7]):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=0)
+    q, k, v, qsc, qn, ksc, kn, _ = got
+    for noshift in (False, True, None):
+        fkw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=s_valid or s, noshift=noshift)
+        before = flash_attention_prepacked_hd.launches
+        out = flash_attention_prepacked(q, k, v, **fkw)
+        again = flash_attention_prepacked(q, k, v, **fkw)
+        plain = flash_attention_prepacked_plain(q, k, v, **fkw)
+        torch.cuda.synchronize()
+        assert flash_attention_prepacked_hd.launches == before + 2
+        assert torch.equal(out, again)
+        err = (out.float() - plain.float()).abs()
+        assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3, (noshift, err.max())
+    assert (qkv_prologue.launches, flash_attention_prepacked.launches) == counts
+
+
+@pytest.mark.parametrize("hd", [8, 24, 128])
+def test_head_dims_outside_the_range_raise_on_cuda(dev, hd):
+    """K1 and K2 take head_dim 16 to 112 in steps of 16 on a CUDA tensor;
+    any other raises ``NotImplementedError`` naming ROADMAP Queue 2, and
+    nothing launches (the plain versions take every head dim on the CPU)."""
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue_hd
+    from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked_hd
+
+    xs, norms, rope = _inputs(dev, 1, 300, 2, 300, hd=hd)
+    counts = lambda: (qkv_prologue.launches, qkv_prologue_hd.launches,  # noqa: E731
+                      flash_attention_prepacked.launches, flash_attention_prepacked_hd.launches)
+    before = counts()
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        qkv_prologue(*xs, *norms, *rope, num_heads=2, head_dim=hd, eps=1e-6)
+    q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue_plain(
+        *(x.cpu() for x in xs), *(n.cpu() for n in norms), *(r.cpu() for r in rope),
+        num_heads=2, head_dim=hd, eps=1e-6)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        flash_attention_prepacked(*(t.to(dev) for t in (q, k, v)), qsc=qsc.to(dev),
+                                  ksc=ksc.to(dev), qn=qn.to(dev), kn=kn.to(dev))
+    assert counts() == before
 
 
 # K3 and K6 gates, as in chip_smoke.py: max abs 1e-2 and mean 1e-3 of bf16

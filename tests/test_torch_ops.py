@@ -7,6 +7,8 @@ inputs, made from a numpy seed, on both sides. The CUDA kernels themselves are
 held against the same plain versions on the card by ``chip_smoke.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -40,23 +42,34 @@ B, S, NH, HD = 2, 300, 4, 64
 EPS = 1e-6
 
 
-@pytest.fixture(scope="module")
-def data():
+# the head dims K1 and K2 take besides 64 (the JAX pair takes every multiple
+# of 16 below 128): the parity tests run the smallest, a power of two and
+# the largest
+HEAD_DIMS = [16, 32, 64, 112]
+
+
+@functools.lru_cache(maxsize=None)
+def _make_data(hd):
     rng = np.random.default_rng(7)
-    d = NH * HD
+    d = NH * hd
     xq, xk, xv = (rng.standard_normal((B, S, d)).astype(np.float32)
                   for _ in range(3))
-    gq, gk = ((1.0 + 0.1 * rng.standard_normal((HD,))).astype(np.float32)
+    gq, gk = ((1.0 + 0.1 * rng.standard_normal((hd,))).astype(np.float32)
               for _ in range(2))
-    bq, bk = ((0.1 * rng.standard_normal((HD,))).astype(np.float32)
+    bq, bk = ((0.1 * rng.standard_normal((hd,))).astype(np.float32)
               for _ in range(2))
-    ang = rng.standard_normal((S, HD // 2)) * 0.5
+    ang = rng.standard_normal((S, hd // 2)) * 0.5
     cos = np.repeat(np.cos(ang), 2, axis=1).astype(np.float32)
     sin = np.repeat(np.sin(ang), 2, axis=1).astype(np.float32)
     return xq, xk, xv, gq, bq, gk, bk, cos, sin
 
 
-def _both(data, rope: bool, s_valid):
+@pytest.fixture(scope="module")
+def data():
+    return _make_data(HD)
+
+
+def _both(data, rope: bool, s_valid, hd=HD):
     xq, xk, xv, gq, bq, gk, bk, cos, sin = data
     if not rope:
         cos = sin = None
@@ -64,15 +77,16 @@ def _both(data, rope: bool, s_valid):
          for a in (xq, xk, xv, gq, bq, gk, bk, cos, sin)]
     t = [torch.from_numpy(a) if a is not None else None
          for a in (xq, xk, xv, gq, bq, gk, bk, cos, sin)]
-    kw = dict(num_heads=NH, head_dim=HD, eps=EPS, s_valid=s_valid)
+    kw = dict(num_heads=NH, head_dim=hd, eps=EPS, s_valid=s_valid)
     return j, t, kw
 
 
 @pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("rope", [False, True])
 @pytest.mark.parametrize("s_valid", [None, 250])
-def test_prologue_plain_matches_pallas(data, quantize, rope, s_valid):
-    j, t, kw = _both(data, rope, s_valid)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_prologue_plain_matches_pallas(hd, quantize, rope, s_valid):
+    j, t, kw = _both(_make_data(hd), rope, s_valid, hd)
     jq, jk, jv, jqsc, jqn, jksc, jkn, jpad = jax_qkv_prologue(
         *j, quantize=quantize, interpret=True, **kw)
     tq, tk, tv, tqsc, tqn, tksc, tkn, tpad = qkv_prologue_plain(
@@ -90,21 +104,22 @@ def test_prologue_plain_matches_pallas(data, quantize, rope, s_valid):
         else:
             np.testing.assert_allclose(a, b, atol=1e-5)
     # v is plain: exactly the value lanes of the TPU kernel's [v | 1 | 0]
-    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv)[..., :HD])
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv)[..., :hd])
     # the CPU wrapper dispatches to the plain version
     wq = qkv_prologue(*t, quantize=quantize, **kw)[0]
     torch.testing.assert_close(wq, tq, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("quantize", [False, True])
-def test_flash_prepacked_plain_matches_pallas(data, quantize):
-    j, t, kw = _both(data, True, 250)
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_flash_prepacked_plain_matches_pallas(hd, quantize):
+    j, t, kw = _both(_make_data(hd), True, 250, hd)
     jq, jk, jv, jqsc, jqn, jksc, jkn, _ = jax_qkv_prologue(
         *j, quantize=quantize, interpret=True, **kw)
     ref = jax_flash_prepacked(jq, jk, jv, qsc=jqsc, ksc=jksc, qn=jqn, kn=jkn,
-                              dim=HD, out_dtype=jnp.float32, interpret=True)
+                              dim=hd, out_dtype=jnp.float32, interpret=True)
     ops = [torch.from_numpy(np.array(a)) for a in (jq, jk, jqsc, jksc, jqn, jkn)]
-    v = torch.from_numpy(np.asarray(jv)[..., :HD].copy())
+    v = torch.from_numpy(np.asarray(jv)[..., :hd].copy())
     out = flash_attention_prepacked_plain(
         ops[0], ops[1], v, qsc=ops[2], ksc=ops[3], qn=ops[4], kn=ops[5],
         s_valid=250)
