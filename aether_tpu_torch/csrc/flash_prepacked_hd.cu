@@ -1,9 +1,11 @@
 // K2 at the head dims other than 64: fixed-max flash attention over the
 // prologue's operands for head_dim 16, 32, 48, 80, 96 and 112, written by
-// hand for Hopper (sm_90a) on mma.sync.
+// hand for Hopper (sm_90a) on mma.sync, as the instances <D, int8 or bf16
+// QK^T, kPrepacked> of the cell in mma_cell.cuh (K3 and K4 bf16 at these
+// head dims are its other instances).
 //
-// Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_prepacked at
-// those head dims, both its branches (qk_int8, :845-855), with its noshift.
+// Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_prepacked (:812)
+// at those head dims, both its branches (qk_int8, :845-855), with its noshift.
 // The function is flash_prepacked.cu's (non-causal, in the log2 domain):
 //   s   = f32(int32(q8 . k8^T)) * (qsc[g, row/block] * ksc[g, col/block])   (int8)
 //   s   = f32(q . k^T), bf16 q carrying the fold      (float: AETHER_ATTN_QK8=0)
@@ -13,268 +15,13 @@
 //   out = sum_j bf16(p_j) v_j / sum_j bf16(p_j)     (denominator <= 0 -> 1)
 // with columns >= s_valid masked out of numerator and denominator alike.
 //
-// This is the simple form; head_dim 64, the shipped models' width, keeps the
-// wgmma + TMA cell of fixed_cell.cuh. A CTA of 4 warps holds 64 q rows (16 a
-// warp) and walks every kv tile of 64 columns:
-//   * QK^T on mma.sync m16n8k32 s8 x s8 -> s32, or m16n8k16 bf16 -> f32, the
-//     q fragments in registers for the whole walk, k's from shared memory
-//     with ldmatrix. The int8 product's K is head_dim rounded up to 32: the
-//     padding columns of k are zero in shared memory and q's zero in
-//     registers, so they add nothing (16, 48, 80 and 112 need it).
-//   * The m16n8 accumulator layout is the bf16 A-operand layout of m16n8k16,
-//     so p goes from registers into the P V mma.sync (bf16 x bf16 -> f32)
-//     without touching shared memory; v comes through ldmatrix.trans, its N
-//     head_dim in tiles of 8.
-//   * The shift is fixed, so there is no running max: each warp takes it
-//     from the [G, T] norm maxima at the start.
-// Shared-memory rows are padded by 16 bytes (an odd number of 16-byte units
-// a row), so the 8 rows an ldmatrix reads fall in distinct banks. Compiled
-// without --use_fast_math so exp2f and the division stay accurate.
+// What bounds it on an H100 and what the design does about it: the cell's
+// note (mma_cell.cuh). This is the simple form; head_dim 64, the shipped
+// models' width, keeps the wgmma + TMA cell of fixed_cell.cuh. The shift
+// is fixed, so there is no running max: each warp takes it from the [G, T]
+// norm maxima at the start.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kBM = 64;  // q rows a CTA
-constexpr int kBN = 64;  // kv columns a tile
-constexpr int kWarps = 4;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNoShiftBelow = 96.0f;
-enum NoShift { kKeep = 0, kDrop = 1, kAuto = 2 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-struct Params {
-  const void* q;
-  const void* k;
-  const __nv_bfloat16* v;
-  const float* qsc;
-  const float* ksc;
-  const float* qn;
-  const float* kn;
-  __nv_bfloat16* out;
-  int s_pad, s_valid, hper, block, n_tiles, groups, noshift;
-};
-
-__device__ __forceinline__ float group_bound(const Params& p, int g) {
-  float mq = p.qn[g * p.n_tiles], mk = p.kn[g * p.n_tiles];
-  for (int t = 1; t < p.n_tiles; ++t) {
-    mq = fmaxf(mq, p.qn[g * p.n_tiles + t]);
-    mk = fmaxf(mk, p.kn[g * p.n_tiles + t]);
-  }
-  return __fmul_rn(mq, mk);
-}
-
-// the shift of head group g, by one warp (every warp takes the same)
-__device__ float group_shift(const Params& p, int g, int lane) {
-  if (p.noshift == kDrop) return 0.0f;
-  const float bound = group_bound(p, g);
-  if (p.noshift == kKeep) return bound;
-  float top = -INFINITY;
-  for (int h = lane; h < p.groups; h += 32) top = fmaxf(top, group_bound(p, h));
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) top = fmaxf(top, __shfl_xor_sync(kFull, top, o));
-  return top < kNoShiftBelow ? 0.0f : bound;
-}
-
-// D: head_dim, a multiple of 16 below 128; kInt8: int8 q/k, else bf16
-template <int D, bool kInt8>
-__global__ void __launch_bounds__(kWarps * 32) prepacked_hd_kernel(const Params p) {
-  constexpr int kQBytes = kInt8 ? 1 : 2;
-  constexpr int kKWidth = kInt8 ? (D + 31) / 32 * 32 : D;  // the product's K
-  constexpr int kSteps = kInt8 ? kKWidth / 32 : D / 16;    // mma k steps
-  constexpr int kKStride = kKWidth * kQBytes + 16;         // bytes a k row in shared memory
-  constexpr int kVStride = D + 8;                          // bf16 a v row in shared memory
-  constexpr int kDT = D / 8;                               // output tiles of 8 columns
-  __shared__ __align__(16) uint8_t ks[kBN * kKStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBN * kVStride];
-
-  const int bh = blockIdx.y;
-  const int g = bh / p.hper;
-  const int q0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int mi = lane / 8, mr = lane % 8;  // ldmatrix: matrix index, row within it
-
-  if (kInt8 && kKWidth != D) {  // the product's padding columns of k: zeros
-    for (int r = tid; r < kBN; r += kWarps * 32)
-      *reinterpret_cast<uint4*>(ks + r * kKStride + D) = make_uint4(0, 0, 0, 0);
-  }
-  const float m = group_shift(p, g, lane);
-  const float q_scale = kInt8 ? p.qsc[g * p.n_tiles + q0 / p.block] : 1.0f;
-
-  // q fragments of this warp's 16 rows (A operand, row-major); the int8
-  // product's padding columns are zeros
-  const uint8_t* qrow = static_cast<const uint8_t*>(p.q) +
-                        ((int64_t)bh * p.s_pad + q0 + warp * 16 + gid) * D * kQBytes;
-  uint32_t qa[kSteps][4];
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int off = s * 32 + tig * 4;  // 32 int8 or 16 bf16 a step
-    const bool lo = off < D * kQBytes, hi = off + 16 < D * kQBytes;
-    qa[s][0] = lo ? *reinterpret_cast<const uint32_t*>(qrow + off) : 0u;
-    qa[s][1] = lo ? *reinterpret_cast<const uint32_t*>(qrow + 8 * D * kQBytes + off) : 0u;
-    qa[s][2] = hi ? *reinterpret_cast<const uint32_t*>(qrow + off + 16) : 0u;
-    qa[s][3] = hi ? *reinterpret_cast<const uint32_t*>(qrow + 8 * D * kQBytes + off + 16) : 0u;
-  }
-
-  float o[kDT][4];
-#pragma unroll
-  for (int i = 0; i < kDT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0f;
-  float l0 = 0.0f, l1 = 0.0f;  // this thread's share of rows gid and gid + 8
-
-  const int kv_end = (p.s_valid + kBN - 1) / kBN * kBN;  // later tiles are all masked
-  const uint8_t* kbase = static_cast<const uint8_t*>(p.k) + (int64_t)bh * p.s_pad * D * kQBytes;
-  const __nv_bfloat16* vbase = p.v + (int64_t)bh * p.s_pad * D;
-
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kBN) {
-    __syncthreads();  // the previous tile is consumed
-    constexpr int kChunks = D * kQBytes / 16;  // 16-byte chunks a k row
-    for (int i = tid; i < kBN * kChunks; i += kWarps * 32) {
-      const int r = i / kChunks, c = i % kChunks;
-      *reinterpret_cast<int4*>(ks + r * kKStride + c * 16) =
-          *reinterpret_cast<const int4*>(kbase + (int64_t)(kv0 + r) * D * kQBytes + c * 16);
-    }
-    for (int i = tid; i < kBN * (D / 8); i += kWarps * 32) {
-      const int r = i / (D / 8), c = i % (D / 8);
-      *reinterpret_cast<int4*>(vs + r * kVStride + c * 8) =
-          *reinterpret_cast<const int4*>(vbase + (int64_t)(kv0 + r) * D + c * 8);
-    }
-    __syncthreads();
-
-    const float sc = kInt8 ? __fmul_rn(q_scale, p.ksc[g * p.n_tiles + kv0 / p.block]) : 1.0f;
-
-    // s = q . k^T over 8 column tiles of 8; each k step's B fragments are
-    // two 8x8 matrices of 16 bytes a row
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint8_t* krow = ks + (nt * 8 + mr) * kKStride + (mi & 1) * 16;
-      if constexpr (kInt8) {
-        int acc[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int st = 0; st < kSteps; ++st) {
-          uint32_t kb[2];
-          ldmatrix_x2(kb, krow + st * 32);
-          mma_s8(acc, qa[st], kb[0], kb[1]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[nt][j] = __fmul_rn((float)acc[j], sc);
-      } else {
-        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-#pragma unroll
-        for (int st = 0; st < kSteps; ++st) {
-          uint32_t kb[2];
-          ldmatrix_x2(kb, krow + st * 32);
-          mma_bf16(s[nt], qa[st], kb[0], kb[1]);
-        }
-      }
-    }
-
-    // p = exp2(s - m) rounded to bf16, packed as the P V mma's A operand
-    const bool tail = kv0 + kBN > p.s_valid;
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int col = kv0 + nt * 8 + tig * 2;
-      float p0 = exp2f(__fsub_rn(s[nt][0], m));
-      float p1 = exp2f(__fsub_rn(s[nt][1], m));
-      float p2 = exp2f(__fsub_rn(s[nt][2], m));
-      float p3 = exp2f(__fsub_rn(s[nt][3], m));
-      if (tail) {
-        if (col >= p.s_valid) p0 = p2 = 0.0f;
-        if (col + 1 >= p.s_valid) p1 = p3 = 0.0f;
-      }
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(p0, p1);  // row gid
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(p2, p3);  // row gid + 8
-      l0 += __low2float(lo) + __high2float(lo);
-      l1 += __low2float(hi) + __high2float(hi);
-      pa[nt / 2][(nt % 2) * 2 + 0] = bf162_bits(lo);
-      pa[nt / 2][(nt % 2) * 2 + 1] = bf162_bits(hi);
-    }
-
-    // out += p . v over 4 k chunks of 16 and the head_dim / 8 output tiles
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int dt = 0; dt < kDT; dt += 2) {
-        uint32_t vb[4];
-        // matrices: (k 0-7, dt), (k 8-15, dt), (k 0-7, dt+1), (k 8-15, dt+1)
-        ldmatrix_x4_trans(vb, vs + (kc * 16 + (mi & 1) * 8 + mr) * kVStride +
-                                  (dt + (mi >> 1)) * 8);
-        mma_bf16(o[dt], pa[kc], vb[0], vb[1]);
-        mma_bf16(o[dt + 1], pa[kc], vb[2], vb[3]);
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(kFull, l0, 1);
-  l0 += __shfl_xor_sync(kFull, l0, 2);
-  l1 += __shfl_xor_sync(kFull, l1, 1);
-  l1 += __shfl_xor_sync(kFull, l1, 2);
-  const float inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
-  const float inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
-  __nv_bfloat16* orow = p.out + ((int64_t)bh * p.s_pad + q0 + warp * 16 + gid) * D;
-#pragma unroll
-  for (int dt = 0; dt < kDT; ++dt) {
-    const int col = dt * 8 + tig * 2;
-    *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-        __floats2bfloat162_rn(__fmul_rn(o[dt][0], inv0), __fmul_rn(o[dt][1], inv0));
-    *reinterpret_cast<__nv_bfloat162*>(orow + 8 * D + col) =
-        __floats2bfloat162_rn(__fmul_rn(o[dt][2], inv1), __fmul_rn(o[dt][3], inv1));
-  }
-}
-
-template <int D>
-int launch(const Params& p, int BH, int qk_int8, cudaStream_t st) {
-  const dim3 grid(p.s_pad / kBM, BH);
-  if (qk_int8)
-    prepacked_hd_kernel<D, true><<<grid, kWarps * 32, 0, st>>>(p);
-  else
-    prepacked_hd_kernel<D, false><<<grid, kWarps * 32, 0, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "mma_cell.cuh"
 
 // q, k: [BH, s_pad, D] int8 (qk_int8) or bf16, q carrying the fold; v, out:
 // [BH, s_pad, D] bf16; all contiguous and 16-byte aligned; D one of 16, 32,
@@ -287,11 +34,12 @@ extern "C" int aether_flash_prepacked_hd(const void* q, const void* k, const voi
                                          const void* kn, void* out, int BH, int s_pad,
                                          int s_valid, int hper, int block, int n_blocks,
                                          int qk_int8, int noshift, int D, void* stream) {
+  using namespace mma_cell;
   if (BH <= 0 || BH > 65535 || s_pad <= 0 || s_valid <= 0 || s_valid > s_pad || hper <= 0 ||
       BH % hper || block <= 0 || block % 128 || block * n_blocks != s_pad || noshift < kKeep ||
       noshift > kAuto)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
+  Params p{};
   p.q = q;
   p.k = k;
   p.v = static_cast<const __nv_bfloat16*>(v);
@@ -300,21 +48,14 @@ extern "C" int aether_flash_prepacked_hd(const void* q, const void* k, const voi
   p.qn = static_cast<const float*>(qn);
   p.kn = static_cast<const float*>(kn);
   p.out = static_cast<__nv_bfloat16*>(out);
-  p.s_pad = s_pad;
-  p.s_valid = s_valid;
+  p.sq = p.skv = s_pad;
+  p.kv_len = s_valid;
   p.hper = hper;
   p.block = block;
   p.n_tiles = n_blocks;
   p.groups = BH / hper;
   p.noshift = noshift;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(p, BH, qk_int8, st);
-    case 32: return launch<32>(p, BH, qk_int8, st);
-    case 48: return launch<48>(p, BH, qk_int8, st);
-    case 80: return launch<80>(p, BH, qk_int8, st);
-    case 96: return launch<96>(p, BH, qk_int8, st);
-    case 112: return launch<112>(p, BH, qk_int8, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return qk_int8 ? launch_dim<true, kPrepacked>(p, BH, D, st)
+                 : launch_dim<false, kPrepacked>(p, BH, D, st);
 }

@@ -625,9 +625,11 @@ class DiT(nn.Module):
             fixed_max, qk_int8, pv_int8, fused_qkv)
         b, f, _, h, w = hidden_states.shape
         dp, _, sp = self._axes()
-        # the fused path needs whole sequences (sp 1) and a mesh that shards
-        # it (JAX dit.py:819-825)
-        if (attn_impl == "flash" and fused_qkv and fixed_max and not pv_int8 and sp <= 1
+        # the fused path needs an even head_dim below 128 (at 128 and above
+        # the unfused wrapper takes K4 "vpu"), whole sequences (sp 1) and a
+        # mesh that shards it (JAX dit.py:819-825)
+        if (attn_impl == "flash" and fused_qkv and fixed_max and not pv_int8
+                and cfg.head_dim < 128 and cfg.head_dim % 2 == 0 and sp <= 1
                 and fused_mesh_ok(self.mesh, cfg.num_heads, b)):
             attn_impl = "fused"
         attn_opts = dict(fixed_max=fixed_max, qk_int8=qk_int8, pv_int8=pv_int8)

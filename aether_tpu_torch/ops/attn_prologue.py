@@ -43,7 +43,7 @@ import torch
 
 from aether_tpu_torch.ops import _build
 from aether_tpu_torch.ops.flash_attention import (
-    _check_prepacked_head_dim,
+    _check_head_dim,
     _heads_per_cell,
     _pick_block,
     flash_attention_prepacked,
@@ -270,7 +270,7 @@ def qkv_prologue(
             heads_per_cell=heads_per_cell, s_valid=s_valid)
     b, s, d_model = xq.shape
     nh, hd = num_heads, head_dim
-    _check_prepacked_head_dim("K1", hd)
+    _check_head_dim("K1", hd)
     if d_model != nh * hd:
         raise ValueError(f"model width {d_model} != {nh} heads x {hd}")
     for t in (xq, xk, xv):

@@ -19,9 +19,12 @@ K6) with one combined dequantization scalar per group, and the ``noshift``
 choice made on the device.
 
 K4, :func:`flash_attention` (``fixed_max=False``) replaces ``_flash_kernel``
-with two sources: ``csrc/flash_online.cu`` for f32 (the forward of the
-training path) and ``csrc/flash_online_bf16.cu`` for bf16 (the attention at
-``AETHER_ATTN_FIXED_MAX=0`` and the bench baseline; ``wgmma`` with TMA).
+with two sources at head_dim 64: ``csrc/flash_online.cu`` for f32 (the
+forward of the training path) and ``csrc/flash_online_bf16.cu`` for bf16
+(the attention at ``AETHER_ATTN_FIXED_MAX=0`` and the bench baseline;
+``wgmma`` with TMA); at the other head dims (16 to 128 in steps of 16)
+``csrc/flash_online_hd.cu`` (:func:`flash_attention_hd`, bf16 on
+``mma.sync``; :func:`flash_attention_f32_hd`, f32 on FMA).
 Both keep the JAX preparation: ``sm_scale * log2e`` folded into q and rounded
 to q's dtype (by the wrapper for f32, in the kernel for bf16) and the
 ``kv_valid`` tail zeroed; the f32 wrapper pads tokens to its kernel's tile,
@@ -31,6 +34,13 @@ The denominator follows the TPU kernel: at head_dim < 128 (``denom="mxu"``)
 it sums p rounded to v's dtype, because the TPU summed p through a ones
 column of the PV matmul; at head_dim >= 128 (``"vpu"``) it sums unrounded p.
 A zero denominator divides by 1.
+
+K3 at the head dims other than 64 (:func:`flash_attention_fixed_max_hd`) and
+K3 in f32 at every head dim (:func:`flash_attention_fixed_max_f32`) run
+``csrc/flash_fixed_max_hd.cu``; K6 at the other head dims
+``csrc/flash_pv8_hd.cu`` (:func:`flash_attention_pv8_hd`). Those are the
+simple forms: ``mma.sync`` cells (``csrc/mma_cell.cuh``, shared with K2 hd)
+and an FMA cell (``csrc/fma_cell.cuh``, shared with K4 f32 hd).
 
 K2, :func:`flash_attention_prepacked`: ``csrc/flash_prepacked.cu`` replaces
 ``_flash_kernel_prepacked``, both its int8 and its float (``AETHER_ATTN_QK8=0``)
@@ -95,16 +105,28 @@ def _heads_per_cell(bh: int, heads_per_cell: int) -> int:
 
 
 _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
-# the head dims K1 and K2 take on CUDA (the JAX pair's: multiples of 16 below
-# 128); 64 runs the wgmma cell, the others csrc/*_hd.cu
+# the head dims K1, K2, K3 and K6 take on CUDA (the JAX kernels': multiples
+# of 16 below 128; at 128 and above the JAX wrapper turns the fixed max off);
+# 64 runs the wgmma kernels, the others csrc/*_hd.cu
 PREPACKED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112)
+FIXED_MAX_HEAD_DIMS = PREPACKED_HEAD_DIMS
+# the head dims K4 takes on CUDA: those and 128, where the JAX wrapper forces
+# the "vpu" denominator
+ONLINE_HEAD_DIMS = PREPACKED_HEAD_DIMS + (128,)
 
 
-def _check_prepacked_head_dim(kernel: str, head_dim: int) -> None:
-    if head_dim not in PREPACKED_HEAD_DIMS:
+def _check_head_dim(kernel: str, head_dim: int, dims=PREPACKED_HEAD_DIMS) -> None:
+    if head_dim not in dims:
         raise NotImplementedError(
-            f"{kernel} takes head_dim {', '.join(map(str, PREPACKED_HEAD_DIMS))} on CUDA, "
+            f"{kernel} takes head_dim {', '.join(map(str, dims))} on CUDA, "
             f"got {head_dim} (other head dims: ROADMAP.md, Queue 2)")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous with a 16-byte aligned start (the kernels' 16-byte
+    loads); a view that starts elsewhere is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _shift_or_zero(bounds: torch.Tensor, noshift: Optional[bool]) -> torch.Tensor:
@@ -214,7 +236,7 @@ def flash_attention_prepacked(
     if q.dtype not in (torch.int8, torch.bfloat16) or k.dtype != q.dtype:
         raise TypeError(f"K2 takes int8 or bf16 q/k of one dtype on CUDA, got "
                         f"{q.dtype}/{k.dtype}")
-    _check_prepacked_head_dim("K2", d)
+    _check_head_dim("K2", d)
     if v.dtype != torch.bfloat16:
         raise TypeError(f"K2 takes bf16 v, got {v.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -320,6 +342,38 @@ def _online_bf16_launch(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float
     _build.check(rc, "aether_flash_online_bf16")
 
 
+def flash_attention_hd(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float) -> None:
+    """K4 in bf16 at a head dim other than 64 (``csrc/flash_online_hd.cu``,
+    the ``mma.sync`` cell) on the operands of :func:`_online_bf16_launch`
+    (q not yet folded, k/v rows >= kv_len zeroed; [BH, S, D] bf16,
+    contiguous, 16-byte aligned). ``.launches`` counts its launches."""
+    bh, sq, dim = qh.shape
+    rc = _build.lib().aether_flash_online_bf16_hd(
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), bh, sq, kh.shape[1],
+        kv_len, int(round_l), fold, dim, _build.stream_ptr(qh.device))
+    _build.check(rc, "aether_flash_online_bf16_hd")
+    _build.count_launch(flash_attention_hd)
+
+
+flash_attention_hd.launches = 0
+
+
+def flash_attention_f32_hd(qh, kh, vh, out, kv_len: int) -> None:
+    """K4 in f32 at a head dim other than 64 (``csrc/flash_online_hd.cu``,
+    the FMA cell) on :func:`_online_operands`' result (q folded, k/v rows >=
+    kv_len zeroed; [BH, S, D] f32, contiguous, 16-byte aligned, unpadded).
+    ``.launches`` counts its launches."""
+    bh, sq, dim = qh.shape
+    rc = _build.lib().aether_flash_online_f32_hd(
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), bh, sq, kh.shape[1],
+        kv_len, dim, _build.stream_ptr(qh.device))
+    _build.check(rc, "aether_flash_online_f32_hd")
+    _build.count_launch(flash_attention_f32_hd)
+
+
+flash_attention_f32_hd.launches = 0
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -414,8 +468,11 @@ def _group_absmax(x: torch.Tensor, hper: int) -> torch.Tensor:
 
 
 def _quantize_groups(x: torch.Tensor, absmax: torch.Tensor, hper: int) -> torch.Tensor:
-    """Symmetric int8 codes ``rint(x * 127 / absmax[group])``."""
-    r = (127.0 / absmax).repeat_interleave(hper)[:, None, None]
+    """Symmetric int8 codes ``rint(x * r)``, ``r = 127 / absmax[group]``
+    correctly rounded in f32, as XLA divides (torch's ``127.0 / t`` is
+    ``127 * reciprocal(t)``, two roundings, which can move a code that lies
+    on a half-way point)."""
+    r = (torch.full_like(absmax, 127.0) / absmax).repeat_interleave(hper)[:, None, None]
     return (x * r).round_().to(torch.int8)  # x * r in f32 (type promotion)
 
 
@@ -564,9 +621,9 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
 
 def _fixed_max_launch(ops: _FixedMaxOperands, out: torch.Tensor,
                       l_out: Optional[torch.Tensor]) -> None:
-    """The K3 kernel alone on :func:`_fixed_max_operands`' result (int8 or
-    bf16 q/k, bf16 v; unpadded): out [BH, Sq, 64] bf16, l_out [BH, Sq, 1]
-    f32 or None (normalized)."""
+    """The K3 kernel at head_dim 64 alone on :func:`_fixed_max_operands`'
+    result (int8 or bf16 q/k, bf16 v; unpadded): out [BH, Sq, 64] bf16,
+    l_out [BH, Sq, 1] f32 or None (normalized)."""
     qh, kh, vh = (t.contiguous() for t in (ops.q, ops.k, ops.v))
     bh, sq, _ = qh.shape
     rc = _build.lib().aether_flash_fixed_max(
@@ -578,12 +635,51 @@ def _fixed_max_launch(ops: _FixedMaxOperands, out: torch.Tensor,
     _build.check(rc, "aether_flash_fixed_max")
 
 
+def _fixed_max_hd_launch(entry: str, counter, ops: _FixedMaxOperands, out: torch.Tensor,
+                         l_out: Optional[torch.Tensor]) -> None:
+    """One launch of ``csrc/flash_fixed_max_hd.cu``'s C ``entry`` on
+    :func:`_fixed_max_operands`' result (unpadded), counted on ``counter``."""
+    qh, kh, vh = (_aligned(t) for t in (ops.q, ops.k, ops.v))
+    bh, sq, dim = qh.shape
+    rc = getattr(_build.lib(), entry)(
+        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), ops.shift.data_ptr(),
+        ops.scale.data_ptr(), out.data_ptr(),
+        None if l_out is None else l_out.data_ptr(),
+        bh, sq, kh.shape[1], ops.kv_len, ops.hper, int(qh.dtype == torch.int8), dim,
+        _build.stream_ptr(qh.device))
+    _build.check(rc, entry)
+    _build.count_launch(counter)
+
+
+def flash_attention_fixed_max_hd(ops: _FixedMaxOperands, out: torch.Tensor,
+                                 l_out: Optional[torch.Tensor]) -> None:
+    """K3 at a head dim other than 64 (the ``mma.sync`` cell) on
+    :func:`_fixed_max_operands`' result (int8 or bf16 q/k, bf16 v): out [BH,
+    Sq, D] bf16, l_out [BH, Sq, 1] f32 or None (normalized). ``.launches``
+    counts its launches."""
+    _fixed_max_hd_launch("aether_flash_fixed_max_hd", flash_attention_fixed_max_hd, ops,
+                         out, l_out)
+
+
+flash_attention_fixed_max_hd.launches = 0
+
+
+def flash_attention_fixed_max_f32(ops: _FixedMaxOperands, out: torch.Tensor,
+                                  l_out: Optional[torch.Tensor]) -> None:
+    """K3 in f32 at any head dim it takes (the FMA cell) on
+    :func:`_fixed_max_operands`' result (int8 or f32 q/k, f32 v): out [BH,
+    Sq, D] f32, l_out [BH, Sq, 1] f32 or None. ``.launches`` counts its
+    launches."""
+    _fixed_max_hd_launch("aether_flash_fixed_max_f32", flash_attention_fixed_max_f32, ops,
+                         out, l_out)
+
+
+flash_attention_fixed_max_f32.launches = 0
+
+
 def _check_fixed_max_inputs(name: str, q, k, v, dtypes) -> None:
     b, h, _, dim = q.shape
-    if dim != 64:
-        raise NotImplementedError(
-            f"{name} takes head_dim 64 on CUDA, got {dim}: other head dims are "
-            "later work (ROADMAP.md, queue 2)")
+    _check_head_dim(name, dim, FIXED_MAX_HEAD_DIMS)
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes {' or '.join(map(str, dtypes))} q/k/v of "
                         f"one dtype on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -618,9 +714,11 @@ def flash_attention_fixed_max(
     [B, H, Sq, 1].
 
     A CPU tensor runs :func:`flash_attention_fixed_max_plain`. A CUDA tensor
-    launches ``csrc/flash_fixed_max.cu`` (bf16 q/k/v, head_dim 64, any
-    lengths) or raises: f32 raises ``TypeError`` there (its PV would need
-    f32 products).
+    (bf16 or f32 q/k/v, any lengths, a head dim in ``FIXED_MAX_HEAD_DIMS``)
+    launches a Hopper kernel or raises: bf16 at head_dim 64
+    ``csrc/flash_fixed_max.cu`` (counted here), at the other head dims
+    :func:`flash_attention_fixed_max_hd`; f32 at every head dim
+    :func:`flash_attention_fixed_max_f32`.
     """
     opts = dict(sm_scale=sm_scale, kv_valid=kv_valid,
                 heads_per_cell=heads_per_cell, noshift=noshift,
@@ -628,20 +726,26 @@ def flash_attention_fixed_max(
                 unnormalized=unnormalized)
     if not q.is_cuda:
         return flash_attention_fixed_max_plain(q, k, v, block_q=block_q, **opts)
-    _check_fixed_max_inputs("K3", q, k, v, (torch.bfloat16,))
+    _check_fixed_max_inputs("K3", q, k, v, (torch.bfloat16, torch.float32))
     b, h, sq, dim = q.shape
     ops = _fixed_max_operands(q, k, v, pv_int8=False, **opts)
-    out = torch.empty((b * h, sq, dim), dtype=torch.bfloat16, device=q.device)
+    out = torch.empty((b * h, sq, dim), dtype=q.dtype, device=q.device)
     l_out = (torch.empty((b * h, sq, 1), dtype=torch.float32, device=q.device)
              if unnormalized else None)
-    _fixed_max_launch(ops, out, l_out)
-    _build.count_launch(flash_attention_fixed_max)
+    if q.dtype == torch.float32:
+        flash_attention_fixed_max_f32(ops, out, l_out)
+    elif dim != 64:
+        flash_attention_fixed_max_hd(ops, out, l_out)
+    else:
+        _fixed_max_launch(ops, out, l_out)
+        _build.count_launch(flash_attention_fixed_max)
     if unnormalized:
         return _finish_heads(out, b, h, sq), _finish_heads(l_out, b, h, sq)
     return _finish_heads(out, b, h, sq)
 
 
-# wrapper calls that launched the Hopper kernel (a plain integer)
+# wrapper calls that launched the Hopper kernel at head_dim 64 in bf16 (a
+# plain integer)
 flash_attention_fixed_max.launches = 0
 
 
@@ -719,7 +823,7 @@ def flash_attention_pv8_plain(
 
 
 def _pv8_v_layout(v8: torch.Tensor) -> torch.Tensor:
-    """[BH, Skv, 64] int8 (Skv a multiple of 32) -> [BH, 64, Skv]: v8
+    """[BH, Skv, D] int8 (Skv a multiple of 32) -> [BH, D, Skv]: v8
     transposed so each output column's kv values are contiguous (the B
     operand of the int8 PV mma), with the kv order permuted inside every
     32-column chunk to the order in which K6's threads hold p8 (the s32
@@ -733,7 +837,7 @@ def _pv8_v_layout(v8: torch.Tensor) -> torch.Tensor:
 
 def _pv8_operands(q, k, v, *, sm_scale, kv_valid, block_k, heads_per_cell):
     """K6's prepared operands, as the wrapper hands them to the kernel:
-    (q8 [BH, Sq_pad, 64], k8 [BH, Skv_pad, 64], v8 in ``_pv8_v_layout``,
+    (q8 [BH, Sq_pad, D], k8 [BH, Skv_pad, D], v8 in ``_pv8_v_layout``,
     the prepared operands with their scales, span)."""
     ops = _fixed_max_operands(q, k, v, sm_scale=sm_scale, kv_valid=kv_valid,
                               heads_per_cell=heads_per_cell, noshift=False,
@@ -748,14 +852,32 @@ def _pv8_operands(q, k, v, *, sm_scale, kv_valid, block_k, heads_per_cell):
 
 
 def _pv8_launch(qp, kp, vt, ops: _FixedMaxOperands, span: int, out) -> None:
-    """The K6 kernel alone on :func:`_pv8_operands`' result; out [BH,
-    Sq_pad, 64] f32 or bf16."""
-    dtypes = {torch.float32: 0, torch.bfloat16: 1}
+    """The K6 kernel at head_dim 64 alone on :func:`_pv8_operands`' result;
+    out [BH, Sq_pad, 64] f32 or bf16."""
     rc = _build.lib().aether_flash_pv8(
         qp.data_ptr(), kp.data_ptr(), vt.data_ptr(), ops.scale.data_ptr(),
         ops.vscale.data_ptr(), out.data_ptr(), qp.shape[0], qp.shape[1], kp.shape[1],
-        ops.kv_len, ops.hper, span, dtypes[out.dtype], _build.stream_ptr(qp.device))
+        ops.kv_len, ops.hper, span, _PV8_DTYPES[out.dtype], _build.stream_ptr(qp.device))
     _build.check(rc, "aether_flash_pv8")
+
+
+_PV8_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # K6's C argument
+
+
+def flash_attention_pv8_hd(qp, kp, vt, ops: _FixedMaxOperands, span: int, out) -> None:
+    """K6 at a head dim other than 64 (``csrc/flash_pv8_hd.cu``,
+    ``mma.sync``) on :func:`_pv8_operands`' result; out [BH, Sq_pad, D] f32
+    or bf16. ``.launches`` counts its launches."""
+    rc = _build.lib().aether_flash_pv8_hd(
+        qp.data_ptr(), kp.data_ptr(), vt.data_ptr(), ops.scale.data_ptr(),
+        ops.vscale.data_ptr(), out.data_ptr(), qp.shape[0], qp.shape[1], kp.shape[1],
+        ops.kv_len, ops.hper, span, _PV8_DTYPES[out.dtype], qp.shape[2],
+        _build.stream_ptr(qp.device))
+    _build.check(rc, "aether_flash_pv8_hd")
+    _build.count_launch(flash_attention_pv8_hd)
+
+
+flash_attention_pv8_hd.launches = 0
 
 
 def flash_attention_pv8(
@@ -772,10 +894,12 @@ def flash_attention_pv8(
     """K6: full-int8 attention with an integer running max; the arguments of
     :func:`flash_attention_pv8_plain`.
 
-    A CPU tensor runs :func:`flash_attention_pv8_plain`. A CUDA tensor
-    launches ``csrc/flash_pv8.cu`` (f32 or bf16 q/k/v, head_dim 64), which
-    moves the running max once per ``_pick_block(Skv, block_k)`` columns as
-    the plain version does, or raises."""
+    A CPU tensor runs :func:`flash_attention_pv8_plain`. A CUDA tensor (f32
+    or bf16 q/k/v, a head dim in ``FIXED_MAX_HEAD_DIMS``) launches
+    ``csrc/flash_pv8.cu`` at head_dim 64 (counted here) or
+    :func:`flash_attention_pv8_hd` at the others, each moving the running
+    max once per ``_pick_block(Skv, block_k)`` columns as the plain version
+    does, or raises."""
     opts = dict(sm_scale=sm_scale, kv_valid=kv_valid, heads_per_cell=heads_per_cell)
     if not q.is_cuda:
         return flash_attention_pv8_plain(q, k, v, block_q=block_q,
@@ -784,12 +908,15 @@ def flash_attention_pv8(
     b, h, sq, dim = q.shape
     qp, kp, vt, ops, span = _pv8_operands(q, k, v, block_k=block_k, **opts)
     out = torch.empty((b * h, qp.shape[1], dim), dtype=q.dtype, device=q.device)
-    _pv8_launch(qp, kp, vt, ops, span, out)
-    _build.count_launch(flash_attention_pv8)
+    if dim != 64:
+        flash_attention_pv8_hd(qp, kp, vt, ops, span, out)
+    else:
+        _pv8_launch(qp, kp, vt, ops, span, out)
+        _build.count_launch(flash_attention_pv8)
     return _finish_heads(out, b, h, sq)
 
 
-# wrapper calls that launched the Hopper kernel (a plain integer)
+# wrapper calls that launched the Hopper kernel at head_dim 64 (a plain integer)
 flash_attention_pv8.launches = 0
 
 
@@ -824,9 +951,11 @@ def flash_attention(
     ``unnormalized`` returns ``(o, l)`` (see :func:`flash_attention_fixed_max`).
 
     A CPU tensor runs the plain versions. A CUDA tensor launches a Hopper
-    kernel or raises; there is no fallback: K4 in f32 launches
-    ``csrc/flash_online.cu``, in bf16 ``csrc/flash_online_bf16.cu``.
-    ``flash_attention.launches`` counts K4's launches of either.
+    kernel or raises; there is no fallback: K4 at head_dim 64 in f32
+    launches ``csrc/flash_online.cu``, in bf16 ``csrc/flash_online_bf16.cu``
+    (``flash_attention.launches`` counts either); at the other head dims of
+    ``ONLINE_HEAD_DIMS`` :func:`flash_attention_f32_hd` or
+    :func:`flash_attention_hd`.
     """
     if qk_int8 and not fixed_max:
         raise ValueError("qk_int8 requires fixed_max=True (the int8 "
@@ -866,11 +995,7 @@ def flash_attention(
             denom=denom, block_q=block_q, heads_per_cell=heads_per_cell)
     b, h, sq, _ = q.shape
     skv = k.shape[2]
-    if dim != 64:
-        raise NotImplementedError(
-            f"K4 takes head_dim 64 on CUDA, got {dim}: other head dims, the "
-            "'vpu' head_dim >= 128 case among them, are later work "
-            "(ROADMAP.md, queue 2)")
+    _check_head_dim("K4", dim, ONLINE_HEAD_DIMS)
     if (q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype
             or v.dtype != q.dtype):
         raise TypeError(f"K4 takes f32 or bf16 q/k/v of one dtype, got "
@@ -883,13 +1008,23 @@ def flash_attention(
     if q.dtype == torch.bfloat16:
         # the fold happens in the kernel; TMA reads past the ends as zeros
         k, v, kv_len = _online_kv(k, v, kv_valid)
-        qh, kh, vh = (t.reshape(bh, t.shape[2], dim).contiguous() for t in (q, k, v))
         out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
+        if dim != 64:
+            qh, kh, vh = (_aligned(t.reshape(bh, t.shape[2], dim)) for t in (q, k, v))
+            flash_attention_hd(qh, kh, vh, out, kv_len, denom == "mxu",
+                               _online_fold(sm_scale, dim))
+            return out.reshape(b, h, sq, dim)
+        qh, kh, vh = (t.reshape(bh, t.shape[2], dim).contiguous() for t in (q, k, v))
         _online_bf16_launch(qh, kh, vh, out, kv_len, denom == "mxu",
                             _online_fold(sm_scale, dim))
         _build.count_launch(flash_attention)
         return out.reshape(b, h, sq, dim)
     q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
+    if dim != 64:
+        qh, kh, vh = (_aligned(t.reshape(bh, t.shape[2], dim)) for t in (q, k, v))
+        out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
+        flash_attention_f32_hd(qh, kh, vh, out, kv_len)
+        return out.reshape(b, h, sq, dim)
     sq_pad = -(-sq // _K4_TILE) * _K4_TILE
     skv_pad = -(-skv // _K4_TILE) * _K4_TILE
     # rows >= kv_len are already zero (_online_operands)
@@ -904,7 +1039,7 @@ def flash_attention(
     return _finish_heads(out, b, h, sq)
 
 
-# wrapper calls that launched the Hopper kernel (a plain integer)
+# wrapper calls that launched the Hopper kernel at head_dim 64 (a plain integer)
 flash_attention.launches = 0
 
 

@@ -291,6 +291,27 @@ Phase of the CogVideoX-1.5 slice, after 25 (``cogvideox15_phase`` and
      versions at phase 3's, 4's and 14's accuracy gates, two launches
      bit-identical, timed beside one bf16 SDPA call at the same shape and
      against the bound.
+Phase of the head-dim slice, after 13 (``head_dims_all_phase``):
+ 27. K3, K4 and K6 at the head dims other than 64 and K3 in f32
+     (``csrc/flash_fixed_max_hd.cu``, ``flash_online_hd.cu``,
+     ``flash_pv8_hd.cu``): (c) one tiny 17x64x96 reconstruction request
+     (head_dim 16, 4 steps) on the card against the CPU at the long-video
+     gates at FUSED=0 with QK8=1 and QK8=0 (K3 hd), PV8=1 (K6 hd),
+     FIXED_MAX=0 (K4 bf16 hd) and at FUSED=0 in an f32 pipeline (K3 f32), 8
+     launches of the setting's kernel and none of any other attention
+     kernel, and the tiny DiT at head_dim 32 and 112 (K3 f32 also 64) at the
+     same settings, 2 launches a forward; (d) the tiny DiT at head_dim 128 at
+     the default settings (K4 bf16 "vpu", no K1/K2); (b) the trainer CLI's
+     ``--synthetic --tiny --steps 2`` as a subprocess (exit 0), then the same
+     two steps in this process on the card and on the CPU from one init and
+     one noise stream, losses within phase 23's rtol 2e-4 / atol 2e-5, 8 K4
+     f32 hd launches, and (d) one such step at head_dim 32, 112 and 128; (e)
+     the sp = 4 ring over a (1, 48, 15076, 16) window against one K3 hd call
+     (int8 and bf16 QK^T, 16 launches each); (a) each kernel at 48 heads x
+     15076 tokens, batch 1, at head_dim 16, 32 and 112 (K4 also 128, K3 f32
+     also 64) against its plain version at the bars of its head_dim-64
+     counterpart here, two launches bit-identical, timed beside the bound and
+     one SDPA call of the same shape and dtype.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -303,6 +324,7 @@ computing the same function where there is one; the last line is the JSON
 status line. There is no CPU path: without CUDA the script raises.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -3545,6 +3567,374 @@ def head_dim_phase(dev, gen):
     return path_launches, results
 
 
+# ---------------------------------------------------------------------------
+# phase 27: K3, K4 and K6 at every head dim and dtype the JAX wrapper takes
+# ---------------------------------------------------------------------------
+
+# (a) K4 also at 128, where the JAX wrapper forces "vpu"; K3 in f32 also at 64
+ONLINE_HD_DIMS = HD_DIMS + (128,)
+F32_HD_DIMS = (16, 32, 64, 112)
+# (b) the trainer CLI's documented tiny run; (b, d) phase 23's tolerance of
+# one process against another on the losses
+TRAIN_CLI = ("-m", "aether_tpu_torch.train.trainer", "--synthetic", "--tiny", "--steps", "2")
+LOSS_RTOL, LOSS_ATOL = 2e-4, 2e-5
+# (c) the unfused attention settings of a tiny request: name -> (environment,
+# compute dtype, the head-dim counter they launch, the head dims of (c)'s
+# DiT forwards besides the request's 16)
+UNFUSED_SETTINGS = {
+    "FUSED=0 QK8=1": ({"AETHER_ATTN_FUSED": "0", "AETHER_ATTN_QK8": "1"}, torch.bfloat16,
+                      "flash_attention_fixed_max_hd", (32, 112)),
+    "FUSED=0 QK8=0": ({"AETHER_ATTN_FUSED": "0", "AETHER_ATTN_QK8": "0"}, torch.bfloat16,
+                      "flash_attention_fixed_max_hd", (32, 112)),
+    "PV8=1": ({"AETHER_ATTN_PV8": "1"}, torch.bfloat16, "flash_attention_pv8_hd", (32, 112)),
+    "FIXED_MAX=0": ({"AETHER_ATTN_FIXED_MAX": "0"}, torch.bfloat16, "flash_attention_hd",
+                    (32, 112)),
+    "FUSED=0 in f32": ({"AETHER_ATTN_FUSED": "0"}, torch.float32,
+                       "flash_attention_fixed_max_f32", (32, 64, 112)),
+}
+# (d) training steps at these head dims besides the CLI's 16 (K4 f32 hd)
+TRAIN_HD_DIMS = (32, 112, 128)
+
+
+@contextlib.contextmanager
+def attention_env(values):
+    """The ``AETHER_ATTN_*`` variables set to ``values`` inside the block and
+    restored after; every other one unset (the defaults)."""
+    names = ("AETHER_ATTN_FUSED", "AETHER_ATTN_QK8", "AETHER_ATTN_PV8", "AETHER_ATTN_FIXED_MAX")
+    saved = {n: os.environ.pop(n, None) for n in names}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            os.environ.pop(n, None)
+            if v is not None:
+                os.environ[n] = v
+
+
+def attention_counters():
+    """{name: wrapper} of every attention kernel's launch counter."""
+    from aether_tpu_torch.ops import attn_prologue as ap
+    from aether_tpu_torch.ops import flash_attention as fa
+
+    names = ("flash_attention_fixed_max_hd", "flash_attention_fixed_max_f32",
+             "flash_attention_hd", "flash_attention_f32_hd", "flash_attention_pv8_hd",
+             "flash_attention", "flash_attention_fixed_max", "flash_attention_pv8",
+             "flash_attention_prepacked", "flash_attention_prepacked_hd")
+    counters = {n: getattr(fa, n) for n in names}
+    counters.update(qkv_prologue=ap.qkv_prologue, qkv_prologue_hd=ap.qkv_prologue_hd)
+    return counters
+
+
+def counted(fn, expect, what):
+    """Run ``fn`` with every attention counter at 0; check that the counts
+    are ``expect`` ({name: n}, every other 0) and return ``fn``'s result."""
+    counters = attention_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = {n: c.launches for n, c in counters.items() if c.launches}
+    check(got == expect, f"{what}: launches {got}, not {expect}")
+    return out
+
+
+def hd_kernels_phase(dev, gen):
+    """Phase 27 (a): K3, K4 and K6 at the main path's 48 heads x 15076
+    tokens, batch 1, at each of ``HD_DIMS`` (K4 also 128, K3 f32 at
+    ``F32_HD_DIMS``), against their plain versions at the bars of their
+    head_dim-64 counterparts in this script: K3 (int8 and bf16 QK^T) max
+    1e-2 / mean 1e-3, K6 1e-2 / 1e-4 (phase 10), K4 and K3 in f32 1e-4 /
+    1e-4, K4 bf16 ``bf16_gates`` (phase 7). One launch of the head-dim
+    kernel a call, two launches bit-identical. The kernel's CUDA-event ms of
+    5 warm calls, the plain version's of the one call compared (it runs for
+    hundreds of ms; a second would add a minute to the phase), the bound
+    and one SDPA call of the same shape and dtype. Returns {(name,
+    head_dim): (max abs error, ms, plain ms, bound, SDPA ms)}."""
+    from aether_tpu_torch.ops import flash_attention as fa
+
+    def cases(hd):
+        bf16 = (torch.bfloat16, 2)
+        if hd in HD_DIMS:
+            yield ("K3 int8", bf16, "flash_attention_fixed_max_hd", ("int8", "bf16"),
+                   lambda q, k, v: fa.flash_attention_fixed_max(q, k, v, qk_int8=True),
+                   lambda q, k, v: fa.flash_attention_fixed_max_plain(q, k, v, qk_int8=True),
+                   (1e-2, 1e-3))
+            yield ("K3 bf16", bf16, "flash_attention_fixed_max_hd", ("bf16", "bf16"),
+                   fa.flash_attention_fixed_max, fa.flash_attention_fixed_max_plain,
+                   (1e-2, 1e-3))
+            yield ("K6", bf16, "flash_attention_pv8_hd", ("int8", "int8"),
+                   fa.flash_attention_pv8, fa.flash_attention_pv8_plain, (1e-2, 1e-4))
+        if hd in F32_HD_DIMS:
+            yield ("K3 f32", (torch.float32, 4), "flash_attention_fixed_max_f32",
+                   ("f32", "f32"), fa.flash_attention_fixed_max,
+                   fa.flash_attention_fixed_max_plain, (1e-4, 1e-4))
+        if hd in ONLINE_HD_DIMS:
+            yield ("K4 f32", (torch.float32, 4), "flash_attention_f32_hd", ("f32", "f32"),
+                   fa.flash_attention, fa.flash_attention_plain, (1e-4, 1e-4))
+            yield ("K4 bf16", bf16, "flash_attention_hd", ("bf16", "bf16"),
+                   fa.flash_attention, fa.flash_attention_plain, None)
+
+    results = {}
+    for hd in sorted(set(ONLINE_HD_DIMS + F32_HD_DIMS)):
+        sdpa = {}
+        for name, (dtype, size), counter, kinds, kernel, plain, bars in cases(hd):
+            shape = (1, HEADS, SEQ, hd)
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            what = f"phase 27a {name} at head_dim {hd}"
+            out = counted(lambda: kernel(q, k, v), {counter: 1}, what)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            ref = plain(q, k, v)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = compare(what, out, ref, *(bars or bf16_gates(ref)))
+            check(torch.equal(out, kernel(q, k, v)), f"{what}: two launches differ")
+            del out, ref
+            ms = cuda_time_ms(lambda: kernel(q, k, v), 5)
+            del q, k, v
+            if dtype not in sdpa:
+                sdpa[dtype] = sdpa_ms(dev, gen, 1, dtype, hd)
+            bnd = bound(4 * size * HEADS * SEQ * hd, attention_ops(1, SEQ, kinds, hd),
+                        attention_exp2(1))
+            flops = 4.0 * HEADS * SEQ * SEQ * hd
+            log(f"{what} time: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{bnd[0] / ms:.1%} of its {bnd[0]:.4f} ms {bnd[1]} bound), plain "
+                f"{plain_ms:.4f} ms, SDPA {str(dtype)[6:]} (1, 48, 15076, {hd}) "
+                f"{sdpa[dtype]:.4f} ms: {ms / sdpa[dtype]:.3f}x")
+            results[name, hd] = (err, ms, plain_ms, bnd, sdpa[dtype])
+            torch.cuda.empty_cache()
+    return results
+
+
+def tiny_train_phase(dev):
+    """Phase 27 (b) and the training half of (d). (b) the trainer CLI's
+    documented tiny run (``TRAIN_CLI``: ``DiTConfig.tiny()``, head_dim 16,
+    ``flash_train``: K4 f32 hd on the forward) as a subprocess on the card,
+    which must exit 0; then the same two steps (the CLI's TrainConfig and
+    synthetic batches) in this process on the card and on the CPU from one
+    CPU-built init and one CPU-drawn (t, eps) stream, losses within phase
+    23's rtol 2e-4 / atol 2e-5, the card's K4 f32 hd launches exact (2 a
+    block a step: the forward and remat's recompute). (d) one step of the
+    tiny DiT at each of ``TRAIN_HD_DIMS`` (128: "vpu") the same way. Returns
+    ({head_dim: K4 f32 hd launches}, the CLI's seconds)."""
+    from aether_tpu_torch.config import DiTConfig
+    from aether_tpu_torch.models import init_dit
+    from aether_tpu_torch.train.trainer import TrainConfig, Trainer, synthetic_batches
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *TRAIN_CLI], capture_output=True, text=True,
+                          timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-4:]
+    log(f"phase 27b `python {' '.join(TRAIN_CLI)}`: exit {proc.returncode} in "
+        f"{cli_s:.3f} s; its last lines: " + " | ".join(tail))
+    check(proc.returncode == 0, f"phase 27b: the trainer CLI exited {proc.returncode}")
+
+    def steps_on(device, cfg, tcfg, n, init):
+        gen = torch.Generator()
+        gen.manual_seed(27)
+
+        def noise(shape):
+            t = torch.randint(0, 1000, (shape[0],), generator=gen)
+            return t, torch.randn(shape, generator=gen)
+
+        trainer = Trainer(cfg, tcfg, device=device, init_params=init, noise=noise)
+        return trainer.fit(synthetic_batches(cfg, batch_size=1), steps=n)
+
+    launches = {}
+    runs = [(16, 2, TrainConfig(learning_rate=1e-5, total_steps=2, warmup_steps=1,
+                                log_every=1, attn_impl="flash_train"))]
+    runs += [(hd, 1, TrainConfig(learning_rate=1e-5, total_steps=1, warmup_steps=1,
+                                 log_every=1, attn_impl="flash_train"))
+             for hd in TRAIN_HD_DIMS]
+    for hd, n, tcfg in runs:
+        cfg = dataclasses.replace(DiTConfig.tiny(), head_dim=hd)
+        init = init_dit(cfg, dtype=torch.float32, seed=0).state_dict()
+        t0 = time.perf_counter()
+        want = steps_on("cpu", cfg, tcfg, n, init)
+        cpu_s = time.perf_counter() - t0
+        per = 2 * cfg.num_layers * n
+        t0 = time.perf_counter()
+        got = counted(lambda: steps_on(dev, cfg, tcfg, n, init),
+                      {"flash_attention_f32_hd": per}, f"phase 27 training at head_dim {hd}")
+        card_s = time.perf_counter() - t0
+        err = close(f"phase 27 training losses at head_dim {hd}", got, want, LOSS_RTOL,
+                    LOSS_ATOL)
+        log(f"phase 27{'b' if hd == 16 else 'd'} {n} tiny training step(s) at head_dim {hd} "
+            f"(K4 f32 hd{', vpu' if hd >= 128 else ''}): card losses "
+            + ", ".join(f"{x:.6f}" for x in got) + ", CPU " + ", ".join(f"{x:.6f}" for x in want)
+            + f" (max abs diff {err:.3e}, rtol {LOSS_RTOL} / atol {LOSS_ATOL}); {per} K4 f32 hd "
+            f"launches; card {card_s:.3f} s, CPU {cpu_s:.3f} s")
+        launches[hd] = per
+    return launches, cli_s
+
+
+def unfused_tiny_phase(dev):
+    """Phase 27 (c) and the forward of (d). (c) one reconstruction request of
+    ``PipelineConfig.tiny()`` (head_dim 16, 17x64x96, 4 steps) on the card
+    against the same request on the CPU (the same CPU-built weights and
+    CPU-drawn noise, f32 wires) at phase 26b's long-video gates, at each of
+    ``UNFUSED_SETTINGS`` (the f32 one in an f32 pipeline), 8 launches of the
+    setting's head-dim kernel (2 blocks x 4 steps) and none of any other
+    attention kernel; then the tiny DiT (4 heads, 2 blocks) at the setting's
+    other head dims, one forward on each side at the same gates, 2 launches.
+    (d) the tiny DiT at head_dim 128 at the default settings: K4 bf16 "vpu"
+    (2 launches), no K1/K2. Returns {(counter, head_dim): launches}."""
+    import copy
+
+    from aether_tpu_torch.config import DiTConfig, PipelineConfig
+    from aether_tpu_torch.models import init_dit, init_vae
+    from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
+    from aether_tpu_torch.pipeline import AetherPipeline
+    from aether_tpu_torch.pipeline.aether import TorchNoise
+
+    launches = {}
+    tcfg = PipelineConfig.tiny()
+    host_gen = torch.Generator()
+    host_gen.manual_seed(27)
+    text = torch.randn((1, tcfg.dit.max_text_seq_length, tcfg.dit.text_embed_dim),
+                       generator=host_gen)
+    video = np.random.default_rng(27).integers(
+        0, 256, (TINY_FRAMES, TINY_HEIGHT, TINY_WIDTH, 3), dtype=np.uint8)
+    kw = dict(task="reconstruction", video=video, height=TINY_HEIGHT, width=TINY_WIDTH,
+              num_frames=TINY_FRAMES, num_inference_steps=4, fps=12)
+    pipes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dit = init_dit(tcfg.dit, dtype=dtype, seed=0)
+        vae = init_vae(tcfg.vae, dtype=dtype, seed=1)
+        pipes[dtype] = (
+            AetherPipeline(tcfg, dit, vae, text, device="cpu", compute_dtype=dtype),
+            AetherPipeline(tcfg, copy.deepcopy(dit), copy.deepcopy(vae), text.to(dev),
+                           device=dev, compute_dtype=dtype, compact_transfer=False))
+    steps = tcfg.dit.num_layers * 4
+
+    def forward_pair(hd, dtype, what, expect):
+        dcfg = dataclasses.replace(DiTConfig.tiny(), head_dim=hd)
+        model = init_dit(dcfg, dtype=dtype, seed=0)
+        h, w = dcfg.sample_height, dcfg.sample_width
+        hidden = torch.randn((1, 3, dcfg.in_channels, h, w), generator=host_gen).to(dtype)
+        prompt = torch.randn((1, dcfg.max_text_seq_length, dcfg.text_embed_dim),
+                             generator=host_gen)
+        cos, sin = prepare_rotary_positional_embeddings(dcfg, h * 8, w * 8, 3,
+                                                        vae_scale_factor_spatial=8)
+        args = (hidden, prompt, torch.tensor([500]), torch.from_numpy(cos),
+                torch.from_numpy(sin))
+        with torch.no_grad():
+            want = model(*args)
+            model.to(dev)
+            got = counted(lambda: model(*(a.to(dev) for a in args)), expect, what)
+        cross_device_gates(what, got.float().cpu(), want.float())
+
+    t_first = None
+    for name, (env, dtype, counter, dims) in UNFUSED_SETTINGS.items():
+        host, card = pipes[dtype]
+        with attention_env(env):
+            t0 = time.perf_counter()
+            want = host(noise=TorchNoise(42, "cpu"), **kw)
+            host_s = time.perf_counter() - t0
+            if t_first is None:  # the first card call builds cuDNN's plans
+                t_first = card(noise=HostDrawnNoise(42, dev), **kw)
+            hd = tcfg.dit.head_dim
+            t0 = time.perf_counter()
+            got = counted(lambda: card(noise=HostDrawnNoise(42, dev), **kw), {counter: steps},
+                          f"phase 27c tiny request at {name}")
+            card_s = time.perf_counter() - t0
+            log(f"phase 27c tiny request (head_dim {hd}) at {name} ({str(dtype)[6:]}): "
+                f"{steps} {counter} launches, no other attention kernel; card {card_s:.3f} s, "
+                f"CPU {host_s:.3f} s")
+            for field in ("rgb", "disparity", "raymap"):
+                cross_device_gates(f"phase 27c tiny request at {name} {field}",
+                                   getattr(got, field), getattr(want, field))
+            launches[counter, hd] = launches.get((counter, hd), 0) + steps
+            for other in dims:
+                n = DiTConfig.tiny().num_layers
+                forward_pair(other, dtype, f"phase 27c tiny DiT at head_dim {other}, {name}",
+                             {counter: n})
+                launches[counter, other] = launches.get((counter, other), 0) + n
+    del pipes, t_first
+    n = DiTConfig.tiny().num_layers
+    with attention_env({}):
+        forward_pair(128, torch.bfloat16,
+                     "phase 27d tiny DiT at head_dim 128 (default settings)",
+                     {"flash_attention_hd": n})
+    launches["flash_attention_hd", 128] = n
+    return launches
+
+
+def ring_hd_phase(dev):
+    """Phase 27 (e): ``ring_attention_stripes`` over the sp = 4 stripes of a
+    (1, 48, 15076, 16) window (padded to 15360) against one K3 hd call, as
+    phase 22c at 64: int8 and bf16 QK^T, 16 K3 hd launches each, max abs 1e-2
+    / mean 1e-3. Returns ({name: (launches, error, ring ms, K3 ms)}, the K3
+    hd launches of the rings)."""
+    from aether_tpu_torch.ops.flash_attention import (
+        flash_attention_fixed_max,
+        ring_attention_stripes,
+    )
+
+    hd = 16
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(27)
+    q, k, v = (torch.randn((1, HEADS, SEQ, hd), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    seq_pad = -(-SEQ // (SP_STRIPES * 128)) * SP_STRIPES * 128
+    rows = seq_pad // SP_STRIPES
+    stripes = [[torch.nn.functional.pad(t, (0, 0, 0, seq_pad - SEQ))[:, :, i * rows:(i + 1) * rows]
+                .contiguous() for i in range(SP_STRIPES)] for t in (q, k, v)]
+    ring, total = {}, 0
+    for qk_int8 in (True, False):
+        name = f"ring sp={SP_STRIPES} at head_dim {hd}, {'int8' if qk_int8 else 'bf16'} QK^T"
+
+        def run(qk_int8=qk_int8):
+            return ring_attention_stripes(*stripes, n_pad=seq_pad - SEQ, qk_int8=qk_int8)
+
+        ref = flash_attention_fixed_max(q, k, v, qk_int8=qk_int8)
+        out = counted(lambda: torch.cat(run(), dim=2)[:, :, :SEQ],
+                      {"flash_attention_fixed_max_hd": SP_STRIPES ** 2}, f"phase 27e {name}")
+        total += SP_STRIPES ** 2
+        err = compare(f"phase 27e {name} against one K3 hd call", out, ref, 1e-2, 1e-3)
+        ms = cuda_time_ms(run, 3)
+        k3 = cuda_time_ms(lambda: flash_attention_fixed_max(q, k, v, qk_int8=qk_int8), 3)
+        log(f"phase 27e {name}: {ms:.4f} ms for {SP_STRIPES ** 2} K3 hd steps and the merge, "
+            f"one K3 hd call {k3:.4f} ms: {ms / k3:.3f}x")
+        ring[name] = (SP_STRIPES ** 2, err, ms, k3)
+        del ref, out
+    del q, k, v, stripes
+    torch.cuda.empty_cache()
+    return ring, total
+
+
+def head_dims_all_phase(dev, gen):
+    """Phase 27: (a) ``hd_kernels_phase``, (b, d) ``tiny_train_phase``, (c,
+    d) ``unfused_tiny_phase``, (e) ``ring_hd_phase``. Returns ({(counter,
+    head_dim): launches on the paths of (b)-(e)}, (a)'s results, seconds by
+    part)."""
+    secs = {}
+    t0 = time.perf_counter()
+    launches = unfused_tiny_phase(dev)
+    secs["c, d forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train, secs["b CLI"] = tiny_train_phase(dev)
+    secs["b, d training"] = time.perf_counter() - t0
+    for hd, n in train.items():
+        launches["flash_attention_f32_hd", hd] = launches.get(("flash_attention_f32_hd", hd),
+                                                              0) + n
+    t0 = time.perf_counter()
+    ring, n = ring_hd_phase(dev)
+    launches["flash_attention_fixed_max_hd", 16] += n
+    secs["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels = hd_kernels_phase(dev, gen)
+    secs["a"] = time.perf_counter() - t0
+    log("phase 27 seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in secs.items())
+        + "; (e) " + "; ".join(f"{n} {ms:.4f} ms against K3 hd {k3:.4f} ms"
+                                for n, (_, _, ms, k3) in ring.items()))
+    return launches, kernels, secs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -3852,6 +4242,15 @@ def main() -> None:
     variants, variant_times, variants_sdpa = variants_phase(dev, gen)
     bench_launches = bench_phase()
 
+    # ---- 27. K3, K4 and K6 at every head dim and dtype the JAX wrapper takes ----
+    t0 = time.perf_counter()
+    with attention_env({}):
+        hd27_launches, hd27_kernels, _ = head_dims_all_phase(dev, gen)
+    log(f"phase 27: {time.perf_counter() - t0:.3f} s; (a) " + "; ".join(
+        f"{name} at head_dim {hd}: {ms:.4f} ms (bound {bnd[0]:.4f} {bnd[1]}, plain "
+        f"{plain:.4f}, SDPA {lib:.4f})"
+        for (name, hd), (_, ms, plain, bnd, lib) in hd27_kernels.items()))
+
     # ---- bounds and library yardsticks ----
     k4_err, k4_ms, k4_plain_ms, _ = k4[torch.float32]
     k4b_err, k4b_ms, k4b_plain_ms, k4b_alone_ms = k4[torch.bfloat16]
@@ -3977,6 +4376,20 @@ def main() -> None:
                "aether_tpu/ops/attn_prologue.py:91"),
               ("flash_prepacked", "K2", "flash_prepacked_hd.cu",
                "aether_tpu/ops/flash_attention.py:812")))),
+        *(entry(f"{name}{hd}", source, replaces, hd27_launches[counter, hd],
+                *hd27_kernels[kern, hd])
+          for name, kern, counter, source, replaces, dims in (
+              ("flash_fixed_max_hd", "K3 int8", "flash_attention_fixed_max_hd",
+               "flash_fixed_max_hd.cu", "aether_tpu/ops/flash_attention.py:151", HD_DIMS),
+              ("flash_fixed_max_f32_hd", "K3 f32", "flash_attention_fixed_max_f32",
+               "flash_fixed_max_hd.cu", "aether_tpu/ops/flash_attention.py:151", F32_HD_DIMS),
+              ("flash_online_hd", "K4 f32", "flash_attention_f32_hd", "flash_online_hd.cu",
+               "aether_tpu/ops/flash_attention.py:69", ONLINE_HD_DIMS),
+              ("flash_online_bf16_hd", "K4 bf16", "flash_attention_hd", "flash_online_hd.cu",
+               "aether_tpu/ops/flash_attention.py:69", ONLINE_HD_DIMS),
+              ("flash_pv8_hd", "K6", "flash_attention_pv8_hd", "flash_pv8_hd.cu",
+               "aether_tpu/ops/flash_attention.py:259", HD_DIMS))
+          for hd in dims),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

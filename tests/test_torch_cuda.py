@@ -58,12 +58,17 @@ from aether_tpu_torch.ops.chunked_attention import flash_attention_trainable
 from aether_tpu_torch.ops.flash_attention import (
     attention_reference,
     flash_attention,
+    flash_attention_f32_hd,
     flash_attention_fixed_max,
+    flash_attention_fixed_max_f32,
+    flash_attention_fixed_max_hd,
     flash_attention_fixed_max_plain,
+    flash_attention_hd,
     flash_attention_plain,
     flash_attention_prepacked,
     flash_attention_prepacked_plain,
     flash_attention_pv8,
+    flash_attention_pv8_hd,
     flash_attention_pv8_plain,
 )
 
@@ -368,13 +373,15 @@ def test_online_kernel_extreme_negative_scores_with_padding(dev, dtype):
 
 def test_online_kernel_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(dev, (1, 1, 64, HD), (1, 1, 64, HD), torch.float32, seed=0)
-    with pytest.raises(TypeError, match="K3"):  # K3 takes bf16 on CUDA
-        flash_attention(q, k, v, fixed_max=True)
+    with pytest.raises(TypeError, match="K3"):  # K3 takes bf16 and f32 on CUDA
+        flash_attention(q.half(), k.half(), v.half(), fixed_max=True)
     with pytest.raises(TypeError):
         flash_attention(q.half(), k.half(), v.half())
-    wide = torch.zeros((1, 1, 64, 128), device=dev)
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        flash_attention(wide, wide, wide)
+    # K4 takes head_dim 16 to 128 in steps of 16 on CUDA
+    for hd in (24, 144):
+        wide = torch.zeros((1, 1, 64, hd), device=dev)
+        with pytest.raises(NotImplementedError, match="head_dim"):
+            flash_attention(wide, wide, wide)
 
 
 def test_flash_trainable_grads_match_plain_on_cuda(dev):
@@ -510,18 +517,28 @@ def test_prologue_and_flash_hd_kernels_match_plain(dev, hd, b, s, nh, s_valid, r
     assert (qkv_prologue.launches, flash_attention_prepacked.launches) == counts
 
 
-@pytest.mark.parametrize("hd", [8, 24, 128])
+@pytest.mark.parametrize("hd", [8, 24, 128, 144])
 def test_head_dims_outside_the_range_raise_on_cuda(dev, hd):
-    """K1 and K2 take head_dim 16 to 112 in steps of 16 on a CUDA tensor;
-    any other raises ``NotImplementedError`` naming ROADMAP Queue 2, and
-    nothing launches (the plain versions take every head dim on the CPU)."""
+    """K1, K2, K3 and K6 take head_dim 16 to 112 in steps of 16 on a CUDA
+    tensor, K4 also 128; any other raises ``NotImplementedError`` naming
+    ROADMAP Queue 2, and nothing launches (the plain versions take every
+    head dim on the CPU)."""
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue_hd
     from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked_hd
 
     xs, norms, rope = _inputs(dev, 1, 300, 2, 300, hd=hd)
     counts = lambda: (qkv_prologue.launches, qkv_prologue_hd.launches,  # noqa: E731
-                      flash_attention_prepacked.launches, flash_attention_prepacked_hd.launches)
+                      flash_attention_prepacked.launches, flash_attention_prepacked_hd.launches,
+                      *(fn.launches for fn in _HD_COUNTED))
     before = counts()
+    q, k, v = _qkv(dev, (1, 2, 100, hd), (1, 2, 100, hd), torch.bfloat16, seed=hd)
+    for fn in (flash_attention_fixed_max, flash_attention_pv8):
+        with pytest.raises(NotImplementedError, match="Queue 2"):
+            fn(q, k, v)
+    if hd != 128:
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(NotImplementedError, match="Queue 2"):
+                flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
     with pytest.raises(NotImplementedError, match="Queue 2"):
         qkv_prologue(*xs, *norms, *rope, num_heads=2, head_dim=hd, eps=1e-6)
     q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue_plain(
@@ -703,11 +720,12 @@ def test_fixed_max_kernels_refuse_what_they_do_not_take(dev):
     for fn in (flash_attention_fixed_max, flash_attention_pv8):
         with pytest.raises(TypeError):
             fn(q.half(), k.half(), v.half())
-        wide = torch.zeros((1, 1, 64, 96), device=dev, dtype=torch.bfloat16)
+        # head_dim 16 to 112 in steps of 16 on CUDA
+        wide = torch.zeros((1, 1, 64, 24), device=dev, dtype=torch.bfloat16)
         with pytest.raises(NotImplementedError, match="head_dim"):
             fn(wide, wide, wide)
     with pytest.raises(TypeError, match="K3"):
-        flash_attention_fixed_max(q.float(), k.float(), v.float())
+        flash_attention_fixed_max(q.float(), k, v)
     with pytest.raises(ValueError, match="pv_int8 requires qk_int8"):
         flash_attention(q, k, v, fixed_max=True, pv_int8=True)
     # k and v of other lengths or heads
@@ -715,6 +733,186 @@ def test_fixed_max_kernels_refuse_what_they_do_not_take(dev):
         flash_attention_fixed_max(q, k[:, :, :32], v)
     with pytest.raises(ValueError, match="does not match"):
         flash_attention_fixed_max(q, k, torch.cat([v, v], dim=1))
+
+
+# ---- K3, K4 and K6 at the other head dims; K3 in f32 ----
+# (csrc/flash_fixed_max_hd.cu, flash_online_hd.cu, flash_pv8_hd.cu)
+
+_HD_COUNTED = (flash_attention_fixed_max_hd, flash_attention_fixed_max_f32, flash_attention_hd,
+               flash_attention_f32_hd, flash_attention_pv8_hd)
+_64_COUNTED = (flash_attention, flash_attention_fixed_max, flash_attention_pv8)
+OTHER_DIMS = [16, 32, 48, 80, 96, 112]
+
+
+def _counts(fns):
+    return tuple(fn.launches for fn in fns)
+
+
+# (batch, heads, q tokens, kv tokens, kv_valid): ragged tiles, Sq != Skv,
+# head groups of 3 (B*H 6) and 1 (B*H 5), one valid column
+HD_ATTN_CASES = [
+    (2, 3, 300, 300, None),
+    (1, 5, 130, 333, 300),
+    (1, 2, 777, 2100, 2050),
+    (1, 4, 70, 200, 1),
+]
+
+
+@pytest.mark.parametrize("qk_int8", [True, False])
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid", HD_ATTN_CASES)
+@pytest.mark.parametrize("hd", OTHER_DIMS)
+def test_fixed_max_hd_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, qk_int8):
+    """K3 (bf16 q/k/v) at the other head dims against its plain version at
+    K3's gates, noshift auto; one launch of the head-dim kernel a call and
+    none of the head_dim-64 ones; two launches bit-identical."""
+    q, k, v = _qkv(dev, (b, h, sq, hd), (b, h, skv, hd), torch.bfloat16, seed=hd + sq + skv)
+    kw = dict(kv_valid=kv_valid, qk_int8=qk_int8, noshift=None)
+    before, before64 = flash_attention_fixed_max_hd.launches, _counts(_64_COUNTED)
+    out = flash_attention(q, k, v, fixed_max=True, **kw)
+    again = flash_attention_fixed_max(q, k, v, **kw)
+    ref = flash_attention_fixed_max_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_fixed_max_hd.launches == before + 2
+    assert _counts(_64_COUNTED) == before64
+    assert torch.equal(out, again)
+    _check_fixed(out, ref)
+
+
+@pytest.mark.parametrize("qk_int8", [True, False])
+@pytest.mark.parametrize("hd", OTHER_DIMS)
+def test_fixed_max_hd_kernel_unnormalized_score_bound(dev, hd, qk_int8):
+    """The ring-merge mode at the other head dims: 777 q rows against 2100
+    kv rows, kv_valid 2050; l to 1e-4 relative, o to 1e-2 of its largest
+    magnitude (the head_dim-64 bars)."""
+    q, k, v = _qkv(dev, (1, 3, 777, hd), (1, 3, 2100, hd), torch.bfloat16, seed=hd)
+    kw = dict(kv_valid=2050, qk_int8=qk_int8, score_bound=60.0, unnormalized=True)
+    o, l = flash_attention_fixed_max(q, k, v, **kw)
+    ro, rl = flash_attention_fixed_max_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and l.shape == rl.shape == (1, 3, 777, 1)
+    torch.testing.assert_close(l, rl, rtol=1e-4, atol=0)
+    assert (o.float() - ro.float()).abs().max().item() <= 1e-2 * ro.float().abs().max().item()
+
+
+@pytest.mark.parametrize("qk_int8", [True, False])
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid", HD_ATTN_CASES[:3])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 112])
+def test_fixed_max_f32_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, qk_int8):
+    """K3 in f32 (the FMA cell) at every head dim, 64 included: max abs
+    1e-4 against the plain version (K4 f32's gate: f32 products, another
+    order of the sums); normalized and unnormalized (l to 1e-5 relative, o
+    to 1e-4 of its largest magnitude); repeats bit-identical."""
+    q, k, v = _qkv(dev, (b, h, sq, hd), (b, h, skv, hd), torch.float32, seed=hd + sq)
+    kw = dict(kv_valid=kv_valid, qk_int8=qk_int8, noshift=None)
+    before, before64 = flash_attention_fixed_max_f32.launches, _counts(_64_COUNTED)
+    out = flash_attention(q, k, v, fixed_max=True, **kw)
+    again = flash_attention_fixed_max(q, k, v, **kw)
+    ref = flash_attention_fixed_max_plain(q, k, v, **kw)
+    kw.update(noshift=False, score_bound=40.0, unnormalized=True)
+    o, l = flash_attention_fixed_max(q, k, v, **kw)
+    ro, rl = flash_attention_fixed_max_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_fixed_max_f32.launches == before + 3
+    assert _counts(_64_COUNTED) == before64
+    assert torch.equal(out, again) and out.dtype == torch.float32
+    _check_k4(out, ref)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    assert (o - ro).abs().max().item() <= 1e-4 * ro.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("denom", ["mxu", "vpu"])
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid", HD_ATTN_CASES)
+@pytest.mark.parametrize("hd", [16, 32, 48, 80, 96, 112, 128])
+def test_online_hd_kernels_match_plain(dev, hd, b, h, sq, skv, kv_valid, denom, dtype):
+    """K4 at the other head dims (128: "vpu" whatever is asked, as the JAX
+    wrapper) against its plain version at K4's gates; one launch of the
+    head-dim kernel of the dtype a call, none of the head_dim-64 ones; two
+    launches bit-identical."""
+    q, k, v = _qkv(dev, (b, h, sq, hd), (b, h, skv, hd), dtype, seed=hd + sq + 1)
+    counter = flash_attention_hd if dtype == torch.bfloat16 else flash_attention_f32_hd
+    before, before64 = counter.launches, _counts(_64_COUNTED)
+    out = flash_attention(q, k, v, kv_valid=kv_valid, denom=denom)
+    again = flash_attention(q, k, v, kv_valid=kv_valid, denom=denom)
+    ref = flash_attention_plain(q, k, v, kv_valid=kv_valid, denom=denom)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert _counts(_64_COUNTED) == before64
+    assert torch.equal(out, again)
+    _check_k4(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 112, 128])
+def test_online_hd_kernels_extreme_negative_scores_on_strided_inputs(dev, hd, dtype):
+    """Deeply negative scores behind a ragged last tile, on the DiT's
+    transposed (non-contiguous) head layout: the masked columns do not take
+    the softmax over; the uniform average of v."""
+    shape = (1, 200, 2, hd)
+    q = torch.full(shape, 5.0, device=dev).to(dtype).transpose(1, 2)
+    k = torch.full(shape, -5.0, device=dev).to(dtype).transpose(1, 2)
+    v = _qkv(dev, shape, shape, dtype, seed=3)[2].transpose(1, 2)
+    out = flash_attention(q, k, v)
+    _check_k4(out, flash_attention_plain(q, k, v))
+    _check_k4(out, attention_reference(q, k, v))
+
+
+# (batch, heads, q tokens, kv tokens, kv_valid, block_k, dtype)
+PV8_HD_CASES = [
+    (2, 3, 300, 300, None, 1024, torch.bfloat16),  # one span, padding bias
+    (1, 5, 1000, 1000, 900, 256, torch.bfloat16),  # four spans, kv_valid
+    (1, 4, 130, 2100, 2050, 1024, torch.float32),  # Sq != Skv, three spans, f32 out
+    (1, 2, 130, 1000, 600, 256, torch.bfloat16),   # kv_valid empties the 4th span
+    (1, 2, 64, 300, 129, 128, torch.bfloat16),     # one column into the 2nd span
+]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid,block_k,dtype", PV8_HD_CASES)
+@pytest.mark.parametrize("hd", OTHER_DIMS)
+def test_pv8_hd_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, block_k, dtype):
+    """K6 at the other head dims against its plain version at K6's gates
+    (max 1e-2, mean 1e-4); one launch of the head-dim kernel a call, none of
+    the head_dim-64 one; two launches bit-identical."""
+    q, k, v = _qkv(dev, (b, h, sq, hd), (b, h, skv, hd), dtype, seed=hd + sq + skv + 1)
+    kw = dict(kv_valid=kv_valid, block_k=block_k)
+    before, before64 = flash_attention_pv8_hd.launches, _counts(_64_COUNTED)
+    out = flash_attention(q, k, v, fixed_max=True, qk_int8=True, pv_int8=True, **kw)
+    again = flash_attention_pv8(q, k, v, **kw)
+    ref = flash_attention_pv8_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_pv8_hd.launches == before + 2
+    assert _counts(_64_COUNTED) == before64
+    assert torch.equal(out, again)
+    _check_fixed(out, ref, mean_bar=1e-4)
+
+
+@pytest.mark.parametrize("hd", [16, 112])
+def test_pv8_hd_kernel_negative_row_max_with_padding(dev, hd):
+    """Every real score deeply negative behind padded columns: the -1e9 bias
+    keeps the padding out of the running max; the result is the mean of v."""
+    shape = (1, 2, 200, hd)
+    q = torch.full(shape, 3.0, device=dev, dtype=torch.bfloat16)
+    k = torch.full(shape, -3.0, device=dev, dtype=torch.bfloat16)
+    v = _qkv(dev, shape, shape, torch.bfloat16, seed=3)[2]
+    out = flash_attention_pv8(q, k, v, block_k=128)
+    _check_fixed(out, flash_attention_pv8_plain(q, k, v, block_k=128), mean_bar=1e-4)
+    mean_v = v.float().mean(dim=2, keepdim=True).expand(shape)
+    assert (out.float() - mean_v).abs().max().item() <= v.float().abs().max().item() / 127
+
+
+def test_ring_stripes_at_head_dim_16_match_one_call(dev):
+    """ring_attention_stripes over 4 stripes at head_dim 16 (K3 hd,
+    unnormalized, a shared bound) against one K3 call, at the gates of
+    chip_smoke.py phase 22c: max abs 1e-2, mean 1e-3."""
+    from aether_tpu_torch.ops.flash_attention import ring_attention_stripes
+
+    q, k, v = _qkv(dev, (1, 3, 1000, 16), (1, 3, 1000, 16), torch.bfloat16, seed=16)
+    before = flash_attention_fixed_max_hd.launches
+    outs = ring_attention_stripes(q.chunk(4, dim=2), k.chunk(4, dim=2), v.chunk(4, dim=2))
+    one = flash_attention_fixed_max(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_fixed_max_hd.launches == before + 4 * 4 + 1
+    _check_fixed(torch.cat(outs, dim=2), one)
 
 
 # ---- K5: GroupNorm moments ----
