@@ -1,0 +1,224 @@
+"""Time K3 and K6 at every head dim, one checkout against another, on an NVIDIA GPU.
+
+    python aether_tpu_torch/bench/time_hd_cells.py unpack REV DIR
+    python aether_tpu_torch/bench/time_hd_cells.py ab DIR [--json OUT]
+    python aether_tpu_torch/bench/time_hd_cells.py run [CHECKOUT] [--json OUT]
+
+``unpack`` (in a git checkout) writes revision REV's ``aether_tpu_torch`` and
+``chip_smoke.py`` into DIR with ``git archive``; make DIR a git-ignored
+directory of this repository (``_checkout/parent``) so that a copy of the
+working tree carries it to the card. ``ab`` runs DIR, this checkout, this
+checkout, DIR, each in its own process (each package builds its kernels into
+its own ``_build/``), prints every case's four times side by side and fails
+unless the head_dim-64 outputs are bit-identical across the four runs. ``run`` times one checkout
+(default: this one) and prints, for that package:
+
+- on a fresh build, the registers and spill of every K2, K3 and K6 kernel
+  (ptxas);
+- at head_dim 64: K2 (``flash_attention_prepacked``) at (48, 15360, 64) over
+  K1's operands with 15076 valid tokens, int8 and float; K3 int8 and bf16
+  QK^T and K6 at the CFG pair's (2, 48, 15076, 64) bf16, through the wrapper
+  and alone on the operands it prepares; a digest of each output;
+- at head_dim 16, 32, 48, 80, 96 and 112: K3 int8 and bf16 QK^T and K6 at
+  (1, 48, 15076, D) bf16, through the wrapper and alone, and K3 unnormalized
+  (int8 and bf16 QK^T) on one ring step of ``chip_smoke.py`` phase 27e, a
+  (1, 48, 3840, D) q stripe against a kv stripe of the same size with a
+  shared score bound.
+
+Every time is three CUDA-event means of 5 calls (10 for K2). Timing and the
+ptxas names are ``chip_smoke.py``'s, as in ``time_prologue.py`` (K1). Needs
+CUDA for ``run`` and ``ab``; imports no JAX.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+HEAD_DIMS = (16, 32, 48, 80, 96, 112)
+H, S, S_PAD, STRIPE = 48, 15076, 15360, 3840
+
+
+def unpack(rev: str, out: str) -> None:
+    os.makedirs(out, exist_ok=True)
+    archive = subprocess.run(["git", "archive", rev, "aether_tpu_torch", "chip_smoke.py"],
+                             cwd=ROOT, check=True, capture_output=True).stdout
+    subprocess.run(["tar", "-x", "-C", out], input=archive, check=True)
+    print(f"unpacked {rev} into {out}")
+
+
+def digest(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of the tensor's bytes."""
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def run(checkout: str, out_json) -> None:
+    # the package of that checkout, not one imported already, and the helpers
+    # of its chip_smoke.py
+    sys.path.insert(0, checkout)
+    import chip_smoke as cs
+    from aether_tpu_torch.ops import _build, flash_attention as fa
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue
+
+    if not _build.__file__.startswith(checkout):
+        raise SystemExit(f"imported {_build.__file__}, not the package under {checkout}")
+    if not torch.cuda.is_available():
+        raise SystemExit("time_hd_cells.py needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(f"checkout {checkout}; {smi}", flush=True)
+    _build.lib()
+    kernel, regs = "?", {}
+    for line in _build.BUILD_LOG["ptxas"].splitlines():
+        if "Compiling entry function" in line:
+            kernel = cs.ptxas_kernel_name(line.split("'")[1])
+        elif kernel.startswith(("flash_pv8", "flash_fixed_max", "flash_prepacked.cu")) and (
+                "registers" in line or "spill" in line):
+            print(f"  ptxas {kernel}: {line.strip()}", flush=True)
+            regs.setdefault(kernel, []).append(line.strip())
+    result = {"device": smi, "ms": {}, "digests": {}, "ptxas": regs}
+
+    def times(name, fn, iters=5):
+        ms = [cs.cuda_time_ms(fn, iters) for _ in range(3)]
+        result["ms"][name] = ms
+        return " ".join(f"{m:.4f}" for m in ms)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+
+    # ---- head_dim 64: K2 over K1's operands, K3 and K6 at batch 2 ----
+    d = H * 64
+    for quantize in (True, False):
+        y = torch.randn((1, S_PAD, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+        y[:, S:] = 0
+        norms = [1.0 + 0.1 * torch.randn(64, generator=gen, device=dev),
+                 0.1 * torch.randn(64, generator=gen, device=dev),
+                 1.0 + 0.1 * torch.randn(64, generator=gen, device=dev),
+                 0.1 * torch.randn(64, generator=gen, device=dev)]
+        q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue(
+            y[..., :d], y[..., d:2 * d], y[..., 2 * d:], *norms, None, None,
+            num_heads=H, head_dim=64, eps=1e-6, s_valid=S, quantize=quantize)
+        kw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=S)
+        name = f"K2 {'int8' if quantize else 'float'} hd64"
+        result["digests"][name] = digest(fa.flash_attention_prepacked(q, k, v, **kw))
+        print(f"{name}: {times(name, lambda: fa.flash_attention_prepacked(q, k, v, **kw), 10)}"
+              f" ms", flush=True)
+        del y, q, k, v
+        torch.cuda.empty_cache()
+
+    def fixed_cases(q, k, v, hd, tag):
+        b = q.shape[0]
+        for qk8 in (True, False):
+            name = f"K3 {'int8' if qk8 else 'bf16'} hd{hd}{tag}"
+            out = fa.flash_attention_fixed_max(q, k, v, qk_int8=qk8)
+            result["digests"][name] = digest(out)
+            ops = fa._fixed_max_operands(
+                q, k, v, sm_scale=None, kv_valid=None, heads_per_cell=4, noshift=False,
+                qk_int8=qk8, pv_int8=False, score_bound=None, unnormalized=False)
+            buf = torch.empty((b * H, S, hd), dtype=torch.bfloat16, device=dev)
+            launch = fa._fixed_max_launch if hd == 64 else fa.flash_attention_fixed_max_hd
+            print(f"{name}: wrapper "
+                  f"{times(name, lambda: fa.flash_attention_fixed_max(q, k, v, qk_int8=qk8))}"
+                  f" ms, alone {times(name + ' alone', lambda: launch(ops, buf, None))} ms",
+                  flush=True)
+            del out, ops, buf
+        name = f"K6 hd{hd}{tag}"
+        result["digests"][name] = digest(fa.flash_attention_pv8(q, k, v))
+        qp, kp, vt, ops, span = fa._pv8_operands(q, k, v, sm_scale=None, kv_valid=None,
+                                                 block_k=1024, heads_per_cell=4)
+        buf = torch.empty((b * H, qp.shape[1], hd), dtype=torch.bfloat16, device=dev)
+        launch = fa._pv8_launch if hd == 64 else fa.flash_attention_pv8_hd
+        print(f"{name}: wrapper {times(name, lambda: fa.flash_attention_pv8(q, k, v))} ms, "
+              f"alone {times(name + ' alone', lambda: launch(qp, kp, vt, ops, span, buf))} ms",
+              flush=True)
+        del qp, kp, vt, ops, buf
+
+    q, k, v = (torch.randn((2, H, S, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    fixed_cases(q, k, v, 64, " b2")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- the other head dims at batch 1, and one ring step ----
+    for hd in HEAD_DIMS:
+        q, k, v = (torch.randn((1, H, S, hd), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        fixed_cases(q, k, v, hd, "")
+        qs, ks, vs = (t[:, :, :STRIPE].contiguous() for t in (q, k, v))
+        bound = (fa._row_norm_max(qs) * fa._row_norm_max(ks) * (hd ** -0.5 * fa._LOG2E))
+        for qk8 in (True, False):
+            name = f"K3 unnormalized {'int8' if qk8 else 'bf16'} hd{hd} ring step"
+            kw = dict(qk_int8=qk8, score_bound=bound, unnormalized=True)
+            print(f"{name}: {times(name, lambda: fa.flash_attention_fixed_max(qs, ks, vs, **kw))}"
+                  f" ms", flush=True)
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    if out_json:
+        with open(out_json, "w") as f:
+            json.dump(result, f)
+
+
+def ab(other: str, out_json) -> None:
+    """DIR, this checkout, this checkout, DIR, each in its own process."""
+    order = [("parent", os.path.abspath(other)), ("change", ROOT), ("change", ROOT),
+             ("parent", os.path.abspath(other))]
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, checkout) in enumerate(order):
+            path = os.path.join(tmp, f"{i}.json")
+            print(f"---- run {i}: {label} ({checkout})", flush=True)
+            subprocess.run([sys.executable, os.path.abspath(__file__), "run", checkout,
+                            "--json", path], check=True)
+            with open(path) as f:
+                runs.append((label, json.load(f)))
+    print("---- parent, change, change, parent (ms, the least of three means each)")
+    for name in runs[1][1]["ms"]:
+        cells = [min(r["ms"][name]) if name in r["ms"] else float("nan") for _, r in runs]
+        parent, change = min(cells[0], cells[3]), min(cells[1], cells[2])
+        print(f"{name}: " + " / ".join(f"{c:.4f}" for c in cells)
+              + f"; parent / change {parent / change:.3f}x", flush=True)
+    same = {}
+    for name, want in runs[1][1]["digests"].items():
+        if "hd64" in name:
+            same[name] = all(r["digests"].get(name) == want for _, r in runs)
+    print("head_dim-64 outputs bit-identical across the four runs: "
+          + ", ".join(f"{n} {'yes' if ok else 'NO'}" for n, ok in same.items()), flush=True)
+    if out_json:
+        with open(out_json, "w") as f:
+            json.dump({"order": [label for label, _ in order], "runs": [r for _, r in runs],
+                       "hd64_identical": same}, f, indent=1)
+    if not all(same.values()):
+        raise SystemExit("a head_dim-64 output differs between the checkouts")
+
+
+def main(argv) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    sub = p.add_subparsers(dest="cmd", required=True)
+    u = sub.add_parser("unpack")
+    u.add_argument("rev")
+    u.add_argument("dir")
+    a = sub.add_parser("ab")
+    a.add_argument("dir")
+    a.add_argument("--json")
+    r = sub.add_parser("run")
+    r.add_argument("checkout", nargs="?", default=ROOT)
+    r.add_argument("--json")
+    args = p.parse_args(argv)
+    if args.cmd == "unpack":
+        unpack(args.rev, args.dir)
+    elif args.cmd == "ab":
+        ab(args.dir, args.json)
+    else:
+        run(os.path.abspath(args.checkout), args.json)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

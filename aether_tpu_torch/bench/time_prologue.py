@@ -14,7 +14,7 @@ batch 1 and 2 (the CFG pair), int8 codes and the float branch: three
 CUDA-event means of 20 calls each, and the largest int8 code difference (or
 bf16 ulp) against ``qkv_prologue_plain``; on a fresh build, K1's registers
 and spill (ptxas). Timing and the ptxas names are ``chip_smoke.py``'s, as in
-``scripts/time_fixed_cell.py`` (K2/K3). Needs CUDA; imports no JAX.
+``time_hd_cells.py`` (K2, K3, K6). Needs CUDA; imports no JAX.
 """
 
 import os

@@ -1,13 +1,14 @@
 // The fixed-shift attention cell on wgmma with TMA, written by hand for
-// Hopper (sm_90a): one kernel template over two compile-time switches,
-// shared by K2 (flash_prepacked.cu) and K3 (flash_fixed_max.cu).
+// Hopper (sm_90a): one kernel template over the head dim D and two
+// compile-time switches, shared by K2 (flash_prepacked.cu, D 64) and K3
+// (flash_fixed_max.cu, D 16 to 112 in steps of 16).
 //
 // Replaces the body of two Pallas TPU kernels of
 // aether_tpu/ops/flash_attention.py that compute one function:
 // _flash_kernel_prepacked (K2, flash_attention_prepacked) and
 // _flash_kernel_fixed_max (K3, flash_attention(fixed_max=True)).
-// Non-causal, head_dim 64, bf16 v and output, in the log2 domain, for head
-// group g = bh / hper:
+// Non-causal, bf16 v and output, in the log2 domain, for head group g =
+// bh / hper:
 //   s   = f32(int32(q8 . k8^T)) * scale            (kQK8: int8 q and k)
 //   s   = f32(q . k^T), q carrying the fold         (!kQK8: bf16 q and k)
 //   p   = exp2(s - shift_g), 0 at columns >= kv_len
@@ -15,8 +16,8 @@
 //   unnormalized (l != null): out = bf16(sum bf16(p) v), l = sum bf16(p) in f32
 //   (both sums accumulated in f32 on the tensor core)
 // The switches:
-//   kQK8        q and k are int8, in 64-byte rows with the 64-byte swizzle
-//               (K6's layout); otherwise bf16 in 128-byte rows. v is bf16;
+//   kQK8        q and k are int8 (D bytes a row, K6's layout); otherwise
+//               bf16 (2 D bytes). v is bf16;
 //   kTileScale  K2: the int8 scale is per (q tile, kv tile) of `block`
 //               tokens, qsc[g, row / block] * ksc[g, col / block], and the
 //               shift is max_t qn[g, t] * max_t kn[g, t], taken here (0 when
@@ -29,19 +30,38 @@
 // operations / the peak of their type and one exp2 a score / the SFU's 16
 // a clock an SM at 1980 MHz): K2 int8 2.61 ms (SFU) and float 2.82 ms
 // (operations) at batch 1; K3 int8 5.22 ms (SFU) and bf16 5.65 ms
-// (operations) at the CFG pair's batch 2. The tensor cores and the SFU have
-// to run side by side, and every score's other instructions share the SFU's
-// issue slots. The design is K4 bf16's (online_cell.cuh, FlashAttention-3's
-// shape at head_dim 64) without the online max:
-//   * a CTA takes 192 q rows: three consumer warpgroups of 64 rows and one
-//     producer warp that keeps K and V tiles of 128 kv rows in a ring of
+// (operations) at the CFG pair's batch 2; at batch 1 and D 112 the
+// operations bind, 3.71 ms (int8 QK^T) and 4.94 (bf16), the SFU's 2.61 below
+// D 80. The tensor cores and the SFU have to run side by side, and every
+// score's other instructions share the SFU's issue slots. The design is K4
+// bf16's (online_cell.cuh, FlashAttention-3's shape at head_dim 64) without
+// the online max:
+//   * a CTA takes 64 x kWG q rows: kWG consumer warpgroups of 64 rows and
+//     one producer warp that keeps K and V tiles of 128 kv rows in a ring of
 //     kStages shared-memory slots by TMA (mbarriers); rows past the tensors'
 //     ends arrive as zeros, so no wrapper pads, and stores past sq are
 //     dropped;
-//   * S = Q K^T is wgmma m64n128k32 s8 (kQK8) or m64n128k16 bf16 from shared
-//     memory; bf16(p) stays in registers as the A operand of P V (wgmma
-//     m64n64k16, V through the transpose bit); a tile's P V stays in flight
-//     while the next tile's Q K^T is issued;
+//   * the plan of each D (Plan below): kWG 3 up to D 64; above it a
+//     consumer thread holds 64 of S, D / 2 f32 of the output, 32 packed
+//     bf16(p) and 4 row sums, 156 registers at D 112 before addresses.
+//     Registers are shared out by SM sub-partition, a quarter of the warps
+//     on each, so 13 warps leave a thread 128 and 9 leave it 168: kWG is 2
+//     above D 64 (ptxas -v, as time_hd_cells.py prints it: 105-127
+//     registers at D 16-64, 147-166 at 80-112, no spill). q and k
+//     rows are D bytes (int8) or 2 D (bf16) rounded up to a swizzle row (32,
+//     64 or 128 bytes; TMA fills the columns past D with zeros), in 128-byte
+//     panels above 128 (bf16 at D 80-112: two panels). V is MN-major in
+//     panels of the widest swizzle row whose columns divide D (64 columns at
+//     D 64, 32 at 32 and 96, 16 at 16, 48, 80 and 112), so no wgmma reads a
+//     panel in part. kStages is 4 where 4 fit in shared memory, else 3 (bf16
+//     QK^T at D 80-112: q 32 KB + 3 x (32 KB K + 20-28 KB V) of 227 KB).
+//     Every K and V tile is read by each q tile of its head from L2: at D
+//     112 and 128-row CTAs that is 38 GB a call at 48 heads x 15076 tokens,
+//     about the products' time at L2's rate;
+//   * S = Q K^T is ceil(D * bytes / 32) k steps of wgmma m64n128k32 s8 (kQK8)
+//     or m64n128k16 bf16 from shared memory; bf16(p) stays in registers as
+//     the A operand of P V (wgmma m64nDk16, V through the transpose bit); a
+//     tile's P V stays in flight while the next tile's Q K^T is issued;
 //   * the shift is fixed, so there is no row max, no shuffle and no rescale
 //     of the output: each tile's p is final when it is made;
 //   * the SFU is left to exp2 alone: int8 scores move to f32 on the FMA and
@@ -81,13 +101,7 @@ namespace fixed_cell {
 
 using namespace hopper;
 
-constexpr int kD = 64;
-constexpr int kWG = 3;                      // consumer warpgroups, 64 q rows each
-constexpr int kBM = 64 * kWG;               // q rows per CTA
 constexpr int kBN = 128;                    // kv rows per tile
-constexpr int kStages = 4;
-constexpr int kConsumers = 128 * kWG;
-constexpr int kThreads = kConsumers + 32;   // and one producer warp
 constexpr float kNoShiftBelow = 96.0f;      // auto noshift: every bound below this
 constexpr unsigned kFull = 0xffffffffu;
 // 1.5 * 2^23: an integer n with |n| < 2^22 sits in its float's low mantissa
@@ -97,25 +111,64 @@ constexpr uint32_t kMagicI = 0x4B400000u;
 
 enum NoShift { kKeep = 0, kDrop = 1, kAuto = 2 };
 
-// (float)x, exactly, for |x| < 2^22 (an int8 score: |x| <= 127 * 127 * 64)
+// (float)x, exactly, for |x| < 2^22 (an int8 score: |x| <= 127 * 127 * 112)
 __device__ __forceinline__ float exact_f32(int x) {
   return __fsub_rn(__uint_as_float(kMagicI + static_cast<uint32_t>(x)), kMagicF);
 }
 
-template <bool kQK8>
+// bytes of the swizzle row that holds `bytes` of a row (a panel: 128 at most)
+__host__ __device__ constexpr int swizzle_row(int bytes) {
+  return bytes <= 32 ? 32 : bytes <= 64 ? 64 : 128;
+}
+__host__ __device__ constexpr Swizzle desc_swizzle(int row) {
+  return row == 32 ? kSw32 : row == 64 ? kSw64 : kSw128;
+}
+constexpr CUtensorMapSwizzle map_swizzle(int row) {
+  return row == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                   : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+}
+
+// The tile plan of head dim D (the note above). At D 64 it is the plan the
+// cell had before it took other head dims.
+template <int D, bool kQK8>
+struct Plan {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 112, "head_dim: 16 to 112 in steps of 16");
+  static constexpr int kEl = kQK8 ? 1 : 2;          // bytes of a q or k element
+  static constexpr int kWG = D <= 64 ? 3 : 2;       // consumer warpgroups, 64 q rows each
+  static constexpr int kBM = 64 * kWG;              // q rows per CTA
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 32;  // and one producer warp
+  // q and k (K-major): panels of kRow-byte rows, k steps of 32 bytes
+  static constexpr int kRow = swizzle_row(D * kEl);
+  static constexpr int kPanels = (D * kEl + 127) / 128;
+  static constexpr int kSteps = (D * kEl + 31) / 32;
+  // v (MN-major): panels of kVCols columns, kVRow bytes a row
+  static constexpr int kVCols = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kVRow = 2 * kVCols;
+  static constexpr int kVPanels = D / kVCols;
+  static constexpr int kQTile = kBM * kRow * kPanels;  // bytes
+  static constexpr int kKTile = kBN * kRow * kPanels;
+  static constexpr int kVTile = kBN * 2 * D;
+  // 4 stages where they fit beside q, the ones, the barriers and the
+  // 1024-byte alignment, in the 227 KB a block may take; else 3
+  static constexpr int kStages =
+      kQTile + 4 * (kKTile + kVTile) + 3 * 1024 <= 232448 ? 4 : 3;
+};
+
+template <int D, bool kQK8>
 struct Smem {
-  static constexpr int kEl = kQK8 ? 1 : 2;  // bytes of a q or k element
-  uint8_t q[kBM * kD * kEl];
-  uint8_t k[kStages][kBN * kD * kEl];
-  __nv_bfloat16 v[kStages][kBN * kD];
+  using P = Plan<D, kQK8>;
+  uint8_t q[P::kQTile];
+  uint8_t k[P::kStages][P::kKTile];
+  uint8_t v[P::kStages][P::kVTile];  // bf16
   uint32_t ones[256];  // bf16 1.0 pairs: the B operand of the row sums
-  Ring<kStages> ring;
+  Ring<P::kStages> ring;
   uint64_t q_full;
   float shift;  // kTileScale: the head group's shift, made by the producer warp
 };
 
 struct Params {
-  __nv_bfloat16* out;  // [BH, sq, 64]
+  __nv_bfloat16* out;  // [BH, sq, D]
   float* l;            // [BH, sq]: unnormalized; null: normalized
   int sq, kv_len, hper;
   // !kTileScale (K3): [G] the shift and the int8 scores' scale
@@ -162,23 +215,25 @@ __device__ float tile_shift(const Params& p, int g, int groups, int lane) {
 }
 
 // S = Q K^T of one tile into this thread's accumulator fragment, completed
-// (the wait also covers the previous tile's P V). int8: two k steps of 32
-// bytes over 64-byte swizzled rows; bf16: four of 16 over 128-byte rows.
-__device__ __forceinline__ void qk(int (&acc)[64], const uint8_t* qs, const uint8_t* ks) {
-  const uint64_t qd = make_desc(qs, 16, 512, kSw64), kd = make_desc(ks, 16, 512, kSw64);
-  wgmma_fence();
-  wgmma_m64n128k32_ss_s8(acc, qd, kd, 0);
-  wgmma_m64n128k32_ss_s8(acc, desc_add(qd, 32), desc_add(kd, 32), 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(acc);
-}
-__device__ __forceinline__ void qk(float (&acc)[64], const uint8_t* qs, const uint8_t* ks) {
-  const uint64_t qd = make_desc(qs, 16, 1024, kSw128), kd = make_desc(ks, 16, 1024, kSw128);
+// (the wait also covers the previous tile's P V): kSteps k steps of 32 bytes
+// (32 int8 or 16 bf16), step st at byte 32 st of the row, in panel 32 st /
+// kRow.
+template <int D, bool kQK8, typename Acc>
+__device__ __forceinline__ void qk(Acc (&acc)[64], const uint8_t* qs, const uint8_t* ks) {
+  using P = Plan<D, kQK8>;
+  constexpr Swizzle swz = desc_swizzle(P::kRow);
+  const uint64_t qd = make_desc(qs, 16, 8 * P::kRow, swz), kd = make_desc(ks, 16, 8 * P::kRow, swz);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
-    wgmma_m64n128k16_ss_bf16(acc, desc_add(qd, 32 * kk), desc_add(kd, 32 * kk), kk > 0);
+  for (int st = 0; st < P::kSteps; ++st) {
+    const int panel = 32 * st / P::kRow, col = 32 * st % P::kRow;
+    const uint64_t a = desc_add(qd, panel * P::kBM * P::kRow + col);
+    const uint64_t b = desc_add(kd, panel * kBN * P::kRow + col);
+    if constexpr (kQK8)
+      wgmma_m64n128k32_ss_s8(acc, a, b, st > 0);
+    else
+      wgmma_m64n128k16_ss_bf16(acc, a, b, st > 0);
+  }
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
@@ -219,15 +274,15 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs_bf16(float (&d)[4], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
-template <bool kQK8, bool kTileScale>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D, bool kQK8, bool kTileScale>
+__global__ void __launch_bounds__(Plan<D, kQK8>::kThreads, 1)
 cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap, const Params prm) {
   using Acc = std::conditional_t<kQK8, int, float>;  // S: s32 or f32 sums
-  constexpr int kQBytes = kBM * kD * Smem<kQK8>::kEl;
-  constexpr int kTileBytes = kBN * kD * Smem<kQK8>::kEl + kBN * kD * 2;  // K and V
+  using P = Plan<D, kQK8>;
+  constexpr int kBM = P::kBM, kConsumers = P::kConsumers;
   extern __shared__ uint8_t smem_raw[];
-  Smem<kQK8>& sm = *reinterpret_cast<Smem<kQK8>*>(
+  Smem<D, kQK8>& sm = *reinterpret_cast<Smem<D, kQK8>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int q0 = blockIdx.x * kBM, bh = blockIdx.y, g = bh / prm.hper;
   const int n_tiles = (prm.kv_len + kBN - 1) / kBN;  // later tiles add nothing
@@ -250,12 +305,18 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   if (threadIdx.x >= kConsumers) {
     // ---- producer: one thread issues every TMA load ----
     if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(&sm.q_full, kQBytes);
-      tma_load_3d(sm.q, &qmap, &sm.q_full, 0, q0, bh);
+      constexpr int kRowEls = P::kRow / P::kEl;  // q / k elements a panel row
+      mbar_expect_tx(&sm.q_full, P::kQTile);
+      for (int p = 0; p < P::kPanels; ++p)
+        tma_load_3d(sm.q + p * kBM * P::kRow, &qmap, &sm.q_full, p * kRowEls, q0, bh);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = sm.ring.acquire(t, kTileBytes);
-        tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], 0, t * kBN, bh);
-        tma_load_3d(sm.v[s], &vmap, &sm.ring.full[s], 0, t * kBN, bh);
+        const int s = sm.ring.acquire(t, P::kKTile + P::kVTile);
+        for (int p = 0; p < P::kPanels; ++p)
+          tma_load_3d(sm.k[s] + p * kBN * P::kRow, &kmap, &sm.ring.full[s], p * kRowEls,
+                      t * kBN, bh);
+        for (int p = 0; p < P::kVPanels; ++p)
+          tma_load_3d(sm.v[s] + p * kBN * P::kVRow, &vmap, &sm.ring.full[s], p * P::kVCols,
+                      t * kBN, bh);
       }
     }
     return;
@@ -276,12 +337,12 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     shift = prm.shift[g];
     if (kQK8) qs = prm.scale[g];
   }
-  const uint8_t* qtile = sm.q + wg * 64 * kD * Smem<kQK8>::kEl;
+  const uint8_t* qtile = sm.q + wg * 64 * P::kRow;  // in panel 0
   mbar_wait(&sm.q_full, 0);
 
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
   // the row sums of bf16(p): rows r (lsum[0]) and r + 8 (lsum[2]), each in
   // two columns. A K-major B of 8 rows without swizzle: every address the
   // descriptor reaches holds ones, so one descriptor serves every k step.
@@ -304,7 +365,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     }
     const float sc = kQK8 && kTileScale ? __fmul_rn(qs, prm.ksc[g * prm.n_blocks + kb]) : qs;
     Acc acc[64];
-    qk(acc, qtile, sm.k[s]);
+    qk<D, kQK8>(acc, qtile, sm.k[s]);
     fence_regs(o);
     fence_regs(lsum);
     fence_regs(pa);
@@ -315,13 +376,15 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     else
       p_tile<false>(pa, acc, sc, shift, kv0, prm.kv_len, c);
 
-    const uint64_t vdesc = make_desc(sm.v[s], 8192, 1024, kSw128);
+    // MN-major: LBO the panel stride, SBO 8 rows, a k step 16 rows
+    const uint64_t vdesc =
+        make_desc(sm.v[s], kBN * P::kVRow, 8 * P::kVRow, desc_swizzle(P::kVRow));
     fence_regs(o);
     fence_regs(lsum);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
-      wgmma_m64n64k16_rs_bf16_vt(o, pa[kk], desc_add(vdesc, 2048 * kk), 1);
+      wgmma_rs_bf16_vt<D>(o, pa[kk], desc_add(vdesc, 16 * P::kVRow * kk), 1);
       wgmma_m64n8k16_rs_bf16(lsum, pa[kk], ones_desc);
     }
     wgmma_commit();
@@ -343,45 +406,44 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
     inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
   }
-  __nv_bfloat16* obase = prm.out + (int64_t)bh * prm.sq * kD;
+  __nv_bfloat16* obase = prm.out + (int64_t)bh * prm.sq * D;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * c;
     if (row < prm.sq)
-      *reinterpret_cast<uint32_t*>(obase + (int64_t)row * kD + col) =
+      *reinterpret_cast<uint32_t*>(obase + (int64_t)row * D + col) =
           pack_bf16(__fmul_rn(o[4 * j], inv0), __fmul_rn(o[4 * j + 1], inv0));
     if (row + 8 < prm.sq)
-      *reinterpret_cast<uint32_t*>(obase + (int64_t)(row + 8) * kD + col) =
+      *reinterpret_cast<uint32_t*>(obase + (int64_t)(row + 8) * D + col) =
           pack_bf16(__fmul_rn(o[4 * j + 2], inv1), __fmul_rn(o[4 * j + 3], inv1));
   }
 }
 
-// One launch of an instance on q [BH, sq, 64], k and v [BH, skv, 64] (q and
-// k int8 or bf16 by kQK8, v bf16; contiguous, 16-byte aligned), grid (q
-// tiles, BH). Returns a cudaError_t: cudaErrorInvalidValue where
+// One launch of an instance on q [BH, sq, D], k and v [BH, skv, D] (q and k
+// int8 or bf16 by kQK8, v bf16; contiguous, 16-byte aligned), grid (q tiles,
+// BH). Returns a cudaError_t: cudaErrorInvalidValue where
 // cuTensorMapEncodeTiled refuses a map.
-template <bool kQK8, bool kTileScale>
+template <int D, bool kQK8, bool kTileScale>
 int launch(const void* q, const void* k, const void* v, int BH, int skv, Params prm,
            cudaStream_t stream) {
+  using P = Plan<D, kQK8>;
   const CUtensorMapDataType qk_type =
       kQK8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const CUtensorMapSwizzle qk_swizzle =
-      kQK8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
-  constexpr int el = Smem<kQK8>::kEl;
+  constexpr int el = P::kEl, box = P::kRow / P::kEl;
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map_3d(&qmap, q, qk_type, el, kD, prm.sq, BH, kD, kBM, qk_swizzle) ||
-      !make_map_3d(&kmap, k, qk_type, el, kD, skv, BH, kD, kBN, qk_swizzle) ||
-      !make_map_3d(&vmap, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kD, skv, BH, kD, kBN,
-                   CU_TENSOR_MAP_SWIZZLE_128B))
+  if (!make_map_3d(&qmap, q, qk_type, el, D, prm.sq, BH, box, P::kBM, map_swizzle(P::kRow)) ||
+      !make_map_3d(&kmap, k, qk_type, el, D, skv, BH, box, kBN, map_swizzle(P::kRow)) ||
+      !make_map_3d(&vmap, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, skv, BH, P::kVCols, kBN,
+                   map_swizzle(P::kVRow)))
     return static_cast<int>(cudaErrorInvalidValue);
   // + 1024 so the tiles can start on a 1024-byte boundary
-  constexpr int kSmem = sizeof(Smem<kQK8>) + 1024;
-  auto kernel = cell_kernel<kQK8, kTileScale>;
+  constexpr int kSmem = sizeof(Smem<D, kQK8>) + 1024;
+  auto kernel = cell_kernel<D, kQK8, kTileScale>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((prm.sq + kBM - 1) / kBM, BH);
-  kernel<<<grid, kThreads, kSmem, stream>>>(qmap, kmap, vmap, prm);
+  dim3 grid((prm.sq + P::kBM - 1) / P::kBM, BH);
+  kernel<<<grid, P::kThreads, kSmem, stream>>>(qmap, kmap, vmap, prm);
   return static_cast<int>(cudaGetLastError());
 }
 

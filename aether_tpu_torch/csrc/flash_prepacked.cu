@@ -63,6 +63,6 @@ extern "C" int aether_flash_prepacked(const void* q, const void* k, const void* 
   prm.n_blocks = n_blocks;
   prm.noshift = noshift;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return qk_int8 ? launch<true, true>(q, k, v, BH, s_pad, prm, st)
-                 : launch<false, true>(q, k, v, BH, s_pad, prm, st);
+  return qk_int8 ? launch<64, true, true>(q, k, v, BH, s_pad, prm, st)
+                 : launch<64, false, true>(q, k, v, BH, s_pad, prm, st);
 }

@@ -1,8 +1,8 @@
 // K2 at the head dims other than 64: fixed-max flash attention over the
 // prologue's operands for head_dim 16, 32, 48, 80, 96 and 112, written by
 // hand for Hopper (sm_90a) on mma.sync, as the instances <D, int8 or bf16
-// QK^T, kPrepacked> of the cell in mma_cell.cuh (K3 and K4 bf16 at these
-// head dims are its other instances).
+// QK^T, kPrepacked> of the cell in mma_cell.cuh (K4 bf16 at these head
+// dims is its other instance).
 //
 // Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_prepacked (:812)
 // at those head dims, both its branches (qk_int8, :845-855), with its noshift.

@@ -1,10 +1,11 @@
 // K6: full-int8 flash attention with an integer running max, on wgmma with
-// TMA, written by hand for Hopper (sm_90a).
+// TMA, written by hand for Hopper (sm_90a), at head_dim D = 16 to 112 in
+// steps of 16 (one instance a head dim).
 //
-// Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_pv8 (the Pallas
-// TPU kernel launched by flash_attention(fixed_max=True, qk_int8=True,
-// pv_int8=True); the DiT's attention at AETHER_ATTN_PV8=1). Non-causal,
-// head_dim 64, in the log2 domain; q, k and v are int8 with one scale per
+// Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_pv8 (:259, the
+// Pallas TPU kernel launched by flash_attention(fixed_max=True,
+// qk_int8=True, pv_int8=True); the DiT's attention at AETHER_ATTN_PV8=1).
+// Non-causal, in the log2 domain; q, k and v are int8 with one scale per
 // head group g. Per span of `span` kv columns (the TPU kernel's kv block,
 // _pick_block(Skv, 1024)):
 //   s   = f32(int32(q8 . k8^T)) * scale_g, + (-1e9) at columns >= kv_len
@@ -23,28 +24,43 @@
 // int32 accumulators and their f32 conversion are exact and the kernel
 // computes the TPU kernel's function up to exp2f's last bit.
 //
-// What bounds it on an H100: at the CFG pair's 2 x 48 heads x 15076 tokens,
-// the two sweeps make QK^T twice and PV once, 8.4e12 int8 ops (4.2 ms at
-// 1979 TOP/s), and 2.2e10 exp2 on the SFU (16 a clock an SM: 5.2 ms at 1.98
-// GHz), so the SFU binds; around each exp2 a score needs about eight more
-// instructions (the dequantization, the max subtraction, the rounding to
-// p8), which share its issue slots. The design:
-//   * a CTA takes 192 q rows: three consumer warpgroups of 64 rows and one
-//     producer warp; grid (q tiles, B*H); three rather than two cut the
-//     L2 traffic of the K and V^T tiles by a third;
+// What bounds it on an H100: at the CFG pair's 2 x 48 heads x 15076 tokens
+// and D 64, the two sweeps make QK^T twice and PV once, 8.4e12 int8 ops (4.2
+// ms at 1979 TOP/s), and 2.2e10 exp2 on the SFU (16 a clock an SM: 5.2 ms at
+// 1.98 GHz), so the SFU binds; around each exp2 a score needs about eight
+// more instructions (the dequantization, the max subtraction, the rounding
+// to p8), which share its issue slots. At batch 1 the operations are 6.5e10
+// x D (3.7 ms at D 112) against the SFU's 2.61 ms: the SFU binds below D 80,
+// the products above. The design:
+//   * a CTA takes 64 x kWG q rows: kWG consumer warpgroups of 64 rows and
+//     a producer; grid (q tiles, B*H). kWG is 3 up to D 64 (three rather
+//     than two cut the L2 traffic of the K and V^T tiles by a third) and 2
+//     above it. A consumer thread holds 64 s32 of S, D / 2 s32 of the span's
+//     P V, D / 2 f32 of the output and 16 packed p8, 192 registers at D 112
+//     before addresses. Registers are shared out by SM sub-partition, a
+//     quarter of the warps on each: with one producer warp, 3 warpgroups
+//     leave a thread 128 registers and 2 leave it 168 (ptxas -v, as
+//     time_hd_cells.py prints it: no spill at D 16; 32-432 bytes at 32-112,
+//     164 at 64). So at D 32, 48 and 80-112 the producer is a whole
+//     warpgroup that gives its registers to the consumers (setmaxnreg: 24
+//     for it, 160 a consumer thread at kWG 3, 240 at kWG 2; the CTA starts
+//     with 128 or 168 a thread, 512 or 384 threads, and inc waits until dec
+//     has freed enough, so the two must not ask for more than that; no
+//     spill); D 16 and 64 keep the producer warp (D 64: the kernel as it
+//     was before it took other head dims);
 //   * the producer walks the same sequence of kv tiles of 128 columns as the
 //     consumers (per span: the K tiles of sweep 1, then K and V^T of sweep
 //     2) and keeps them in flight in a ring of kStages slots by TMA; q8 and
-//     k8 rows are 64 bytes (64-byte swizzle), v8^T rows 128 (128-byte);
-//   * S = Q8 K8^T is wgmma m64n128k32 s8 with both operands from shared
-//     memory; P8 V8 is wgmma m64n64k32 s8 with p8 from registers, in flight
-//     while the next tile's Q K^T is issued. For 8-bit types wgmma takes
-//     both operands K-major, so v8 comes transposed ([BH, 64, Skv]) with the
-//     kv order inside every 32-column chunk permuted to the order in which a
-//     thread holds p8 (the s32 accumulator of QK^T;
-//     ops/flash_attention.py::_pv8_v_layout): the wgmma fragments repeat
-//     mma.sync m16n8's per-warp pattern, so the permutation is the one the
-//     mma.sync form of this kernel used;
+//     k8 rows are the head dim rounded up to a swizzle row (32 bytes at D 16
+//     and 32, 64 at 48 and 64, 128 above; TMA fills the columns past D with
+//     zeros, nothing is padded in device memory), v8^T rows 128 bytes;
+//   * S = Q8 K8^T is ceil(D / 32) k steps of wgmma m64n128k32 s8 with both
+//     operands from shared memory; P8 V8 is wgmma m64nDk32 s8 with p8 from
+//     registers, in flight while the next tile's Q K^T is issued. For 8-bit
+//     types wgmma takes both operands K-major, so v8 comes transposed ([BH,
+//     D, Skv]) with the kv order inside every 32-column chunk permuted to the
+//     order in which a thread holds p8 (the s32 accumulator of QK^T;
+//     ops/flash_attention.py::_pv8_v_layout; it does not depend on D);
 //   * the SFU is left to exp2 alone: int <-> float moves use the 1.5 * 2^23
 //     trick on the FMA and integer units (the conversion unit, which
 //     I2F, rintf and F2I would take, is as slow as the SFU),
@@ -71,14 +87,8 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kD = 64;
-constexpr int kWG = 3;                      // consumer warpgroups, 64 q rows each
-constexpr int kBM = 64 * kWG;               // q rows per CTA
 constexpr int kBN = 128;                    // kv columns per tile
 constexpr int kStages = 4;
-constexpr int kConsumers = 128 * kWG;
-constexpr int kThreads = kConsumers + 32;   // and one producer warp
-constexpr int kTileBytes = kBN * kD;        // 8 KB: a K tile or a V^T tile
 constexpr float kNeg = -1e9f;               // padding bias and initial max (the TPU kernel's)
 constexpr unsigned kFull = 0xffffffffu;
 // 1.5 * 2^23: integers n with |n| < 2^22 sit in its float's low mantissa
@@ -87,20 +97,45 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kMagicF = 12582912.0f;
 constexpr uint32_t kMagicI = 0x4B400000u;
 
+// The tile plan of head dim D (the note above)
+template <int D>
+struct Plan {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 112, "head_dim: 16 to 112 in steps of 16");
+  static constexpr int kWG = D <= 64 ? 3 : 2;       // consumer warpgroups, 64 q rows each
+  static constexpr int kBM = 64 * kWG;              // q rows per CTA
+  static constexpr int kConsumers = 128 * kWG;
+  // the producer: a warp, or a warpgroup that hands its registers on
+  static constexpr bool kProducerWG = D != 16 && D != 64;
+  static constexpr int kThreads = kConsumers + (kProducerWG ? 128 : 32);
+  static constexpr int kProducerRegs = 24, kConsumerRegs = kWG == 3 ? 160 : 240;
+  static_assert(!kProducerWG || 128 * kProducerRegs + kConsumers * kConsumerRegs <=
+                                    kThreads * ((65536 / kThreads) & ~7),
+                "setmaxnreg asks for more registers than the CTA starts with");
+  static constexpr int kRow = D <= 32 ? 32 : D <= 64 ? 64 : 128;  // bytes of a q8 / k8 row
+  static constexpr int kSteps = (D + 31) / 32;      // k steps of Q K^T
+  static constexpr Swizzle kSwz = kRow == 32 ? kSw32 : kRow == 64 ? kSw64 : kSw128;
+  static constexpr CUtensorMapSwizzle kMapSwz =
+      kRow == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                 : kRow == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  static constexpr int kKTile = kBN * kRow;         // bytes of a K tile
+  static constexpr int kVTile = D * kBN;            // bytes of a V^T tile
+};
+
 // (float)x, exactly, for |x| < 2^22 (an s32 accumulator here: |x| <= 127 *
-// 127 * 64)
+// 127 * 112)
 __device__ __forceinline__ float exact_f32(int x) {
   return __fsub_rn(__uint_as_float(kMagicI + static_cast<uint32_t>(x)), kMagicF);
 }
 
+template <int D>
 struct Smem {
-  int8_t q[kBM * kD];
-  int8_t k[kStages][kBN * kD];   // 128 kv rows x 64 bytes
-  int8_t vt[kStages][kD * kBN];  // 64 output columns x 128 kv bytes
+  using P = Plan<D>;
+  int8_t q[P::kBM * P::kRow];
+  int8_t k[kStages][P::kKTile];   // 128 kv rows x kRow bytes
+  int8_t vt[kStages][P::kVTile];  // D output columns x 128 kv bytes
   Ring<kStages> ring;
   uint64_t q_full;
 };
-constexpr int kSmemBytes = sizeof(Smem) + 1024;
 
 // the low bytes of a, b, c, d packed into one word, a lowest
 __device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
@@ -145,25 +180,30 @@ __device__ __forceinline__ void p8_tile(uint32_t (&pa)[4][4], const int (&acc)[6
 }
 
 // int32 q8 . k8^T of one tile (this thread's accumulator fragment)
+template <int D>
 __device__ __forceinline__ void qk(int (&acc)[64], int8_t* ks, uint64_t qdesc) {
-  const uint64_t kdesc = make_desc(ks, 16, 512, kSw64);
+  using P = Plan<D>;
+  const uint64_t kdesc = make_desc(ks, 16, 8 * P::kRow, P::kSwz);
   wgmma_fence();
-  wgmma_m64n128k32_ss_s8(acc, qdesc, kdesc, 0);
-  wgmma_m64n128k32_ss_s8(acc, desc_add(qdesc, 32), desc_add(kdesc, 32), 1);
+#pragma unroll
+  for (int st = 0; st < P::kSteps; ++st)
+    wgmma_m64n128k32_ss_s8(acc, desc_add(qdesc, 32 * st), desc_add(kdesc, 32 * st), st > 0);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(acc);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D, typename T>
+__global__ void __launch_bounds__(Plan<D>::kThreads, 1)
 flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, const float* __restrict__ scale,
                  const float* __restrict__ vscale, T* __restrict__ out, int sq, int kv_len,
                  int hper, int span) {
+  using P = Plan<D>;
+  constexpr int kBM = P::kBM, kConsumers = P::kConsumers;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBM;
@@ -178,18 +218,19 @@ flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
 
   if (threadIdx.x >= kConsumers) {
     // ---- producer: the consumers' sequence of tiles, sweep by sweep ----
+    if constexpr (P::kProducerWG) setmaxnreg_dec<P::kProducerRegs>();
     if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(&sm.q_full, kBM * kD);
+      mbar_expect_tx(&sm.q_full, kBM * P::kRow);
       tma_load_3d(sm.q, &qmap, &sm.q_full, 0, q0, bh);
       int item = 0;
       for (int span0 = 0; span0 < tile_end; span0 += span) {
         const int end = min(span0 + span, tile_end);
         for (int kv0 = span0; kv0 < end; kv0 += kBN, ++item) {
-          const int s = sm.ring.acquire(item, kTileBytes);
+          const int s = sm.ring.acquire(item, P::kKTile);
           tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], 0, kv0, bh);
         }
         for (int kv0 = span0; kv0 < end; kv0 += kBN, ++item) {
-          const int s = sm.ring.acquire(item, 2 * kTileBytes);
+          const int s = sm.ring.acquire(item, P::kKTile + P::kVTile);
           tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], 0, kv0, bh);
           tma_load_3d(sm.vt[s], &vmap, &sm.ring.full[s], kv0, 0, bh);
         }
@@ -199,17 +240,18 @@ flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 ----
+  if constexpr (P::kProducerWG) setmaxnreg_inc<P::kConsumerRegs>();
   const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
   const int lane = tid % 32, warp = t / 32;
   const int c = lane % 4;
   const int g = bh / hper;
   const float sc = scale[g];
   mbar_wait(&sm.q_full, 0);
-  const uint64_t qdesc = make_desc(sm.q + wg * 64 * kD, 16, 512, kSw64);
+  const uint64_t qdesc = make_desc(sm.q + wg * 64 * P::kRow, 16, 8 * P::kRow, P::kSwz);
 
-  float acc[32];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
   float m0 = kNeg, m1 = kNeg;  // running max of rows r and r + 8
   float l0 = 0.0f, l1 = 0.0f;
   int item = 0;
@@ -225,7 +267,7 @@ flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int kv0 = span0; kv0 < end; kv0 += kBN, ++item) {
       const int s = sm.ring.wait_full(item);
       int acc[64];
-      qk(acc, sm.k[s], qdesc);
+      qk<D>(acc, sm.k[s], qdesc);
       sm.ring.release(item);
       if (kv0 + kBN > kv_len) {
 #pragma unroll
@@ -254,9 +296,9 @@ flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
     m1 = mn1;
 
     // sweep 2: p8 = rint(127 exp2(s - m)), p8 . v8 in s32 over the span
-    int pv[32];
+    int pv[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) pv[i] = 0;
+    for (int i = 0; i < D / 2; ++i) pv[i] = 0;
     uint32_t ls0 = 0, ls1 = 0;  // row sums of p8 (rows r, r + 8)
     // a tile's P8 V8 stays in flight while the next tile's Q K^T is issued;
     // one wait (in qk) covers both
@@ -264,7 +306,7 @@ flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int kv0 = span0; kv0 < end; kv0 += kBN, ++item) {
       const int s = sm.ring.wait_full(item);
       int acc[64];
-      qk(acc, sm.k[s], qdesc);
+      qk<D>(acc, sm.k[s], qdesc);
       fence_regs(pv);
       fence_regs(pa);
       if (kv0 > span0) sm.ring.release(item - 1);  // its P8 V8 has completed
@@ -282,7 +324,7 @@ flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n64k32_rs_s8(pv, pa[kk], desc_add(vdesc, 32 * kk), 1);
+        wgmma_rs_s8<D>(pv, pa[kk], desc_add(vdesc, 32 * kk), 1);
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -294,7 +336,7 @@ flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
     ls1 += __shfl_xor_sync(kFull, ls1, 1);
     ls1 += __shfl_xor_sync(kFull, ls1, 2);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       acc[4 * j] = __fadd_rn(__fmul_rn(acc[4 * j], alpha0), (float)pv[4 * j]);
       acc[4 * j + 1] = __fadd_rn(__fmul_rn(acc[4 * j + 1], alpha0), (float)pv[4 * j + 1]);
       acc[4 * j + 2] = __fadd_rn(__fmul_rn(acc[4 * j + 2], alpha1), (float)pv[4 * j + 2]);
@@ -308,59 +350,81 @@ flash_pv8_kernel(const __grid_constant__ CUtensorMap qmap,
   const float inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
   const float inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
   const int row = q0 + wg * 64 + warp * 16 + lane / 4;
-  T* obase = out + (int64_t)bh * sq * kD;
+  T* obase = out + (int64_t)bh * sq * D;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * c;
     if (row < sq)
-      store2<T>(obase + (int64_t)row * kD + col, __fmul_rn(__fmul_rn(acc[4 * j], inv0), vs),
+      store2<T>(obase + (int64_t)row * D + col, __fmul_rn(__fmul_rn(acc[4 * j], inv0), vs),
                 __fmul_rn(__fmul_rn(acc[4 * j + 1], inv0), vs));
     if (row + 8 < sq)
-      store2<T>(obase + (int64_t)(row + 8) * kD + col,
+      store2<T>(obase + (int64_t)(row + 8) * D + col,
                 __fmul_rn(__fmul_rn(acc[4 * j + 2], inv1), vs),
                 __fmul_rn(__fmul_rn(acc[4 * j + 3], inv1), vs));
   }
 }
 
-template <typename T>
-int launch(const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
-           const void* scale, const void* vscale, void* out, int BH, int sq, int kv_len,
-           int hper, int span, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_pv8_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+// One launch of the instance <D, T> (q8, k8 and v8t checked by the caller),
+// grid (q tiles, BH). Returns a cudaError_t: cudaErrorInvalidValue where
+// cuTensorMapEncodeTiled refuses a map.
+template <int D, typename T>
+int launch(const void* q8, const void* k8, const void* v8t, const void* scale,
+           const void* vscale, void* out, int BH, int sq, int skv, int kv_len, int hper,
+           int span, cudaStream_t stream) {
+  using P = Plan<D>;
+  CUtensorMap qmap, kmap, vmap;
+  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  if (!make_map_3d(&qmap, q8, u8, 1, D, sq, BH, P::kRow, P::kBM, P::kMapSwz) ||
+      !make_map_3d(&kmap, k8, u8, 1, D, skv, BH, P::kRow, kBN, P::kMapSwz) ||
+      !make_map_3d(&vmap, v8t, u8, 1, skv, D, BH, kBN, D, CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kSmem = sizeof(Smem<D>) + 1024;  // + 1024: tiles on 1024-byte boundaries
+  auto kernel = flash_pv8_kernel<D, T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((sq + kBM - 1) / kBM, BH);
-  flash_pv8_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+  dim3 grid((sq + P::kBM - 1) / P::kBM, BH);
+  kernel<<<grid, P::kThreads, kSmem, stream>>>(
       qmap, kmap, vmap, static_cast<const float*>(scale), static_cast<const float*>(vscale),
       static_cast<T*>(out), sq, kv_len, hper, span);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_dim(int D, const void* q8, const void* k8, const void* v8t, const void* scale,
+               const void* vscale, void* out, int BH, int sq, int skv, int kv_len, int hper,
+               int span, cudaStream_t st) {
+  switch (D) {
+#define AETHER_PV8_CASE(d) \
+    case d: return launch<d, T>(q8, k8, v8t, scale, vscale, out, BH, sq, skv, kv_len, hper, span, st);
+    AETHER_PV8_CASE(16) AETHER_PV8_CASE(32) AETHER_PV8_CASE(48) AETHER_PV8_CASE(64)
+    AETHER_PV8_CASE(80) AETHER_PV8_CASE(96) AETHER_PV8_CASE(112)
+#undef AETHER_PV8_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// q8, k8: [BH, sq | skv, 64] int8; v8t: [BH, 64, skv] int8 in
-// _pv8_v_layout's order; scale, vscale: [BH / hper] f32; out: [BH, sq, 64] of
-// float (dtype 0) or bf16 (dtype 1). All 16-byte aligned; sq a multiple of
+// q8, k8: [BH, sq | skv, D] int8; v8t: [BH, D, skv] int8 in _pv8_v_layout's
+// order; scale, vscale: [BH / hper] f32; out: [BH, sq, D] of float (dtype 0)
+// or bf16 (dtype 1). All contiguous and 16-byte aligned; sq a multiple of
 // 64, span a multiple of 128 dividing skv, rows past the data zero,
-// 0 < kv_len <= skv.
+// 0 < kv_len <= skv; D one of 16, 32, 48, 64, 80, 96, 112. Returns a
+// cudaError_t.
 extern "C" int aether_flash_pv8(const void* q8, const void* k8, const void* v8t,
                                 const void* scale, const void* vscale, void* out, int BH,
                                 int sq, int skv, int kv_len, int hper, int span, int dtype,
-                                void* stream) {
+                                int D, void* stream) {
   if (sq <= 0 || sq % 64 || span <= 0 || span % kBN || skv % span || kv_len <= 0 ||
-      kv_len > skv || hper <= 0 || BH % hper || BH > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap qmap, kmap, vmap;
-  const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
-  if (!make_map_3d(&qmap, q8, u8, 1, kD, sq, BH, kD, kBM, CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !make_map_3d(&kmap, k8, u8, 1, kD, skv, BH, kD, kBN, CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !make_map_3d(&vmap, v8t, u8, 1, skv, kD, BH, kBN, kD, CU_TENSOR_MAP_SWIZZLE_128B))
+      kv_len > skv || hper <= 0 || BH <= 0 || BH % hper || BH > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(qmap, kmap, vmap, scale, vscale, out, BH, sq, kv_len, hper, span, st);
+    return launch_dim<float>(D, q8, k8, v8t, scale, vscale, out, BH, sq, skv, kv_len, hper,
+                             span, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(qmap, kmap, vmap, scale, vscale, out, BH, sq, kv_len, hper,
-                                 span, st);
+    return launch_dim<__nv_bfloat16>(D, q8, k8, v8t, scale, vscale, out, BH, sq, skv, kv_len,
+                                     hper, span, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,21 +8,25 @@
 //
 // Layouts. A tile is brought into shared memory by one TMA load of a 3-D
 // box {row bytes, rows, 1} out of a [heads, rows, row bytes] tensor, with the
-// hardware's 128-byte (rows of 128 bytes) or 64-byte (rows of 64 bytes)
-// swizzle; the wgmma descriptor names the same swizzle. Every tile starts on
-// a 1024-byte boundary, so the swizzle pattern is the one the descriptor
-// assumes. Rows past the tensor's end arrive as zeros (TMA's out-of-bounds
-// fill), so the wrappers need not pad.
+// hardware's 128-, 64- or 32-byte swizzle (rows of that many bytes); the
+// wgmma descriptor names the same swizzle. Every tile starts on a 1024-byte
+// boundary, so the swizzle pattern is the one the descriptor assumes. Rows
+// past the tensor's end arrive as zeros (TMA's out-of-bounds fill), so the
+// wrappers need not pad; so do the columns of a box wider than the tensor's
+// rows (a head dim rounded up to a swizzle row).
 //   K-major operand (the reduction dimension contiguous in a row):
 //     8-row groups are SBO = 8 * row bytes apart; one k step of 32 bytes
-//     (16 bf16 or 32 int8) advances the start address by 32 bytes.
+//     (16 bf16 or 32 int8) advances the start address by 32 bytes. A row
+//     wider than 128 bytes is cut into panels of 128-byte rows, one TMA box
+//     each, and a k step past the first panel starts in the next.
 //   MN-major operand (bf16 only; wgmma's transpose bit): rows are the
-//     reduction dimension, 64 bf16 of the other dimension per 128-byte row;
-//     8-row groups are SBO = 1024 bytes apart, and one k step of 16 rows
-//     advances the start address by 2048 bytes. LBO is the stride between
-//     64-wide blocks of the other dimension: unused at width 64 (V in P V);
-//     at width 128 (K^T as the B operand of Q K^T, two TMA boxes of 64
-//     columns one above the other) LBO = 64 rows * 128 bytes = 8192.
+//     reduction dimension, and the other dimension is cut into panels of
+//     W / 2 bf16 per W-byte row (W the swizzle: 128, 64 or 32); 8-row
+//     groups are SBO = 8 * W bytes apart, one k step of 16 rows advances
+//     the start address by 16 * W bytes, and LBO is the stride between
+//     panels (unused with one panel). At width 128 with W = 128 (K^T as the
+//     B operand of Q K^T, two TMA boxes of 64 columns one above the other)
+//     LBO = 64 rows * 128 bytes = 8192.
 // Accumulator fragments (f32 or s32) of an m64nN wgmma: thread t of the
 // warpgroup (warp w = t / 32, lane l) holds d[4j + e] at row 16w + l/4 +
 // 8 (e / 2), column 8j + 2 (l % 4) + e % 2. The A fragment from registers
@@ -45,7 +49,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // ---- wgmma shared-memory descriptors ----
 
-enum Swizzle : uint64_t { kSw128 = 1, kSw64 = 2 };
+enum Swizzle : uint64_t { kSw128 = 1, kSw64 = 2, kSw32 = 3 };
 
 // start address, leading / stride byte offsets (16-byte units), swizzle mode
 __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo_bytes,
@@ -145,27 +149,6 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_bf16(float (&d)[64], uint64_
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
-__device__ __forceinline__ void wgmma_m64n64k16_rs_bf16_vt(float (&d)[32], const uint32_t (&a)[4],
-                                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
 __device__ __forceinline__ void wgmma_m64n128k32_ss_s8(int (&d)[64], uint64_t da, uint64_t db,
                                                        int scale_d) {
   asm volatile(
@@ -199,26 +182,63 @@ __device__ __forceinline__ void wgmma_m64n128k32_ss_s8(int (&d)[64], uint64_t da
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_m64n64k32_rs_s8(int (&d)[32], const uint32_t (&a)[4],
-                                                      uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
+// Register-A wgmma of width N (the head dim of P V: 16 to 112 in steps of
+// 16), one specialization a width: wgmma_rs_s8<N> (s8, B K-major) and
+// wgmma_rs_bf16_vt<N> (bf16, B MN-major). d holds this thread's N / 2
+// accumulators, a the 4 A registers. Inline asm numbers its operands, so the
+// macros below spell out each width's list: the accumulators %0 .. %(N/2 -
+// 1), then a, the B descriptor and scale-d.
+template <int N>
+__device__ void wgmma_rs_s8(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d);
+template <int N>
+__device__ void wgmma_rs_bf16_vt(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                 int scale_d);
+
+#define HOPPER_R(x) "+r"(x)
+#define HOPPER_F(x) "+f"(x)
+#define HOPPER_D8(C, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), \
+    C(d[i + 4]), C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
+#define HOPPER_D8x1(C) HOPPER_D8(C, 0)
+#define HOPPER_D8x2(C) HOPPER_D8x1(C), HOPPER_D8(C, 8)
+#define HOPPER_D8x3(C) HOPPER_D8x2(C), HOPPER_D8(C, 16)
+#define HOPPER_D8x4(C) HOPPER_D8x3(C), HOPPER_D8(C, 24)
+#define HOPPER_D8x5(C) HOPPER_D8x4(C), HOPPER_D8(C, 32)
+#define HOPPER_D8x6(C) HOPPER_D8x5(C), HOPPER_D8(C, 40)
+#define HOPPER_D8x7(C) HOPPER_D8x6(C), HOPPER_D8(C, 48)
+#define HOPPER_S8x1 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define HOPPER_S8x2 HOPPER_S8x1 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_S8x3 HOPPER_S8x2 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define HOPPER_S8x4 HOPPER_S8x3 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define HOPPER_S8x5 HOPPER_S8x4 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define HOPPER_S8x6 HOPPER_S8x5 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define HOPPER_S8x7 HOPPER_S8x6 ", %48, %49, %50, %51, %52, %53, %54, %55"
+// X(N, accumulator list, its operand string, "{a}, desc", "scale-d")
+#define HOPPER_RS_WIDTHS(X)                                                 \
+  X(16, HOPPER_D8x1, HOPPER_S8x1, "{%8, %9, %10, %11}, %12", "%13")        \
+  X(32, HOPPER_D8x2, HOPPER_S8x2, "{%16, %17, %18, %19}, %20", "%21")      \
+  X(48, HOPPER_D8x3, HOPPER_S8x3, "{%24, %25, %26, %27}, %28", "%29")      \
+  X(64, HOPPER_D8x4, HOPPER_S8x4, "{%32, %33, %34, %35}, %36", "%37")      \
+  X(80, HOPPER_D8x5, HOPPER_S8x5, "{%40, %41, %42, %43}, %44", "%45")      \
+  X(96, HOPPER_D8x6, HOPPER_S8x6, "{%48, %49, %50, %51}, %52", "%53")      \
+  X(112, HOPPER_D8x7, HOPPER_S8x7, "{%56, %57, %58, %59}, %60", "%61")
+#define HOPPER_RS(NAME, T, C, N, INSTR, TAIL, D, S, AB, P)                   \
+  template <>                                                               \
+  __device__ __forceinline__ void NAME<N>(T(&d)[N / 2], const uint32_t(&a)[4], \
+                                          uint64_t db, int scale_d) {       \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n" INSTR " {" S "}, " AB \
+                 ", p" TAIL ";\n}\n"                                        \
+                 : D(C)                                                     \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)); \
+  }
+#define HOPPER_RS_S8(N, D, S, AB, P)                                        \
+  HOPPER_RS(wgmma_rs_s8, int, HOPPER_R, N,                                  \
+            "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8", "", D, S, AB, P)
+#define HOPPER_RS_BF16_VT(N, D, S, AB, P)                                   \
+  HOPPER_RS(wgmma_rs_bf16_vt, float, HOPPER_F, N,                           \
+            "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16", ", 1, 1, 1", D, S, \
+            AB, P)
+HOPPER_RS_WIDTHS(HOPPER_RS_S8)
+HOPPER_RS_WIDTHS(HOPPER_RS_BF16_VT)
 
 // ---- mbarriers ----
 
@@ -294,6 +314,20 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// Register reallocation between warpgroups (sm_90a): every thread of a
+// warpgroup executes it, N is 24 to 256 in steps of 8. dec gives the
+// warpgroup's registers above N back to the CTA's pool; inc waits until the
+// pool holds enough and takes them. A producer warpgroup that only issues
+// TMA loads gives its registers to the consumers this way.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // generic-proxy writes to shared memory made visible to wgmma (async proxy)

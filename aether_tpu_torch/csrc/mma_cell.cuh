@@ -1,10 +1,10 @@
 // The simple attention cell on mma.sync, written by hand for Hopper
 // (sm_90a): one kernel template over the head dim, the QK^T type and a mode,
-// shared by K2 (flash_prepacked_hd.cu), K3 (flash_fixed_max_hd.cu) and K4 in
-// bf16 (flash_online_hd.cu) at the head dims other than 64.
+// shared by K2 (flash_prepacked_hd.cu) and K4 in bf16 (flash_online_hd.cu)
+// at the head dims other than 64.
 //
 // Replaces, at head_dim 16-112 in steps of 16 other than 64 (K4 also 128),
-// three Pallas TPU kernels of aether_tpu/ops/flash_attention.py, in the log2
+// two Pallas TPU kernels of aether_tpu/ops/flash_attention.py, in the log2
 // domain, non-causal, bf16 v and output, for head group g = bh / hper:
 //   kPrepacked  _flash_kernel_prepacked (:812), K2 over the prologue's
 //               operands: s = f32(int32(q8 . k8^T)) * qsc[g, row / block] *
@@ -12,26 +12,23 @@
 //               fold); p = exp2(s - m_g), m_g = max_t qn[g, t] * max_t kn[g,
 //               t] taken here (0 under noshift, or under noshift = auto when
 //               every group's m is below 96);
-//   kFixed      _flash_kernel_fixed_max (:151), K3: one scale and one shift a
-//               group from the wrapper (the JAX wrapper's preparation), Sq
-//               may differ from Skv, and unnormalized (the ring merge's
-//               stripe) writes bf16(sum bf16(p) v) and l = sum bf16(p);
 //   kOnline     _flash_kernel (:69), K4 in bf16: q = bf16(q * fold) here,
 //               columns >= kv_len scored -0.7 * f32max, a running max a row,
 //               alpha = exp2(m - m'), p = exp2(s - m'); l sums bf16(p)
 //               (round_l: the "mxu" denominator, the TPU's ones column) or
 //               p ("vpu", which the JAX wrapper forces at head_dim >= 128).
-// The fixed modes:  out = sum_j bf16(p_j) v_j / sum_j bf16(p_j), p = 0 at
-// columns >= kv_len, a denominator <= 0 divides by 1.
+// kPrepacked: out = sum_j bf16(p_j) v_j / sum_j bf16(p_j), p = 0 at columns
+// >= kv_len, a denominator <= 0 divides by 1.
 //
 // What bounds it on an H100: at the main path's 48 heads x 15076 tokens
 // every mode makes 1.1e10 exp2 (2.61 ms on the SFU at 16 a clock an SM and
 // 1980 MHz), and 4 * 48 * 15076^2 * D operations (bf16: 4.94 ms at D 112,
 // 5.65 at 128 on the 989-TFLOP/s tensor cores); below D 64 the SFU binds,
 // above it the products. mma.sync reaches about a quarter of the tensor
-// cores' rate, so this form sits well above its bound; the wgmma + TMA
-// cells (fixed_cell.cuh, online_cell.cuh) are built around 64-element rows
-// and keep head_dim 64. The design, the simple form:
+// cores' rate, so this form sits well above its bound; the wgmma + TMA cell
+// online_cell.cuh is built around 64-element rows and keeps head_dim 64, and
+// fixed_cell.cuh takes K3's head dims, not yet K2's. The design, the simple
+// form:
 //   * a CTA of 4 warps holds 64 q rows (16 a warp) and walks every kv tile
 //     of 64 columns up to kv_len; tiles wholly past it add nothing and are
 //     skipped; grid (q tiles, B*H);
@@ -39,7 +36,7 @@
 //     registers for the whole walk, k's from shared memory; p stays in
 //     registers as the A operand of P V (m16n8k16 bf16, v by
 //     ldmatrix.trans) -- mma_sync.cuh's pieces;
-//   * the fixed modes keep no running max: a tile's p is final when it is
+//   * kPrepacked keeps no running max: a tile's p is final when it is
 //     made; kOnline reduces a tile's row max over the 4 lanes that share a
 //     row and rescales its accumulators and l by exp2(m - m');
 //   * rows past the q and kv lengths load as zeros and stores past sq are
@@ -65,20 +62,17 @@ constexpr int kWarps = 4;
 constexpr float kNoShiftBelow = 96.0f;
 constexpr float kNegInf = -0.7f * 3.40282347e38f;  // the TPU kernel's mask
 enum NoShift { kKeep = 0, kDrop = 1, kAuto = 2 };
-enum Mode { kPrepacked = 0, kFixed = 1, kOnline = 2 };
+enum Mode { kPrepacked = 0, kOnline = 1 };
 
 struct Params {
   const void* q;  // [BH, sq, D] int8 or bf16
   const void* k;  // [BH, skv, D] int8 or bf16
   const __nv_bfloat16* v;  // [BH, skv, D]
   __nv_bfloat16* out;      // [BH, sq, D]
-  float* l;                // kFixed: [BH, sq] (unnormalized) or null
   const float* qsc;        // kPrepacked: [G, n_tiles] scales and norm maxima
   const float* ksc;
   const float* qn;
   const float* kn;
-  const float* shift;      // kFixed: [G]
-  const float* scale;
   float fold;              // kOnline: q = bf16(q * fold)
   int sq, skv, kv_len, hper;
   int block, n_tiles, groups, noshift;  // kPrepacked
@@ -144,9 +138,6 @@ __global__ void __launch_bounds__(kWarps * 32) cell_kernel(const Params p) {
   if (kMode == kPrepacked) {
     shift = group_shift(p, g, lane);
     if (kInt8) q_scale = p.qsc[g * p.n_tiles + q0 / p.block];
-  } else if (kMode == kFixed) {
-    shift = p.shift[g];
-    if (kInt8) q_scale = p.scale[g];
   }
 
   // q fragments of this warp's 16 rows (A operand, row-major)
@@ -180,10 +171,7 @@ __global__ void __launch_bounds__(kWarps * 32) cell_kernel(const Params p) {
                       vbase + (int64_t)kv0 * D * 2, D * 2, kBN, p.skv - kv0, tid, kWarps * 32);
     __syncthreads();
 
-    const float sc =
-        kInt8 ? (kMode == kPrepacked ? __fmul_rn(q_scale, p.ksc[g * p.n_tiles + kv0 / p.block])
-                                     : q_scale)
-              : 1.0f;
+    const float sc = kInt8 ? __fmul_rn(q_scale, p.ksc[g * p.n_tiles + kv0 / p.block]) : 1.0f;
 
     // s = q . k^T over 8 column tiles of 8; each k step's B fragments are
     // two 8x8 matrices of 16 bytes a row
@@ -286,16 +274,8 @@ __global__ void __launch_bounds__(kWarps * 32) cell_kernel(const Params p) {
   l0 = row_sum4(l0);
   l1 = row_sum4(l1);
   const int row = q0 + warp * 16 + gid;
-  float inv0 = 1.0f, inv1 = 1.0f;
-  if (kMode == kFixed && p.l != nullptr) {  // unnormalized: the raw numerator and l
-    if (tig == 0) {
-      if (row < p.sq) p.l[(int64_t)bh * p.sq + row] = l0;
-      if (row + 8 < p.sq) p.l[(int64_t)bh * p.sq + row + 8] = l1;
-    }
-  } else {
-    inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
-    inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
-  }
+  const float inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
+  const float inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
   __nv_bfloat16* orow = p.out + ((int64_t)bh * p.sq + row) * D;
 #pragma unroll
   for (int dt = 0; dt < kDT; ++dt) {

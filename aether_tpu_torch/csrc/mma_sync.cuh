@@ -1,9 +1,9 @@
-// The mma.sync pieces of the simple attention kernels below head_dim 64 and
-// around it (mma_cell.cuh: K2, K3 and K4 bf16 at those head dims;
-// flash_pv8_hd.cu: K6), written by hand for Hopper (sm_90a).
+// The mma.sync pieces of the simple attention kernels at the head dims
+// other than 64 (mma_cell.cuh: K2 and K4 bf16 at those head dims), written
+// by hand for Hopper (sm_90a).
 //
 // Warp-level tensor-core products of 16 q rows against 8 columns:
-//   * m16n8k32 s8 x s8 -> s32 (int8 QK^T and K6's P8 V8) and m16n8k16
+//   * m16n8k32 s8 x s8 -> s32 (int8 QK^T) and m16n8k16
 //     bf16 x bf16 -> f32 (bf16 QK^T and P V);
 //   * the m16n8 accumulator layout (c0, c1 at row gid, columns 2 tig, + 1;
 //     c2, c3 at row gid + 8; gid = lane / 4, tig = lane % 4) is the A

@@ -310,7 +310,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_m64n64k16_rs_bf16_vt(o, pa[kk], desc_add(vdesc, 2048 * kk), 1);
+        wgmma_rs_bf16_vt<64>(o, pa[kk], desc_add(vdesc, 2048 * kk), 1);
       wgmma_commit();
     }
     wgmma_wait<0>();

@@ -117,19 +117,11 @@ SIGNATURES = {
         _P,                  # stream
     ],
     "aether_flash_fixed_max": [
-        _P, _P, _P,          # q, k (int8 or folded bf16), v (bf16): [B*H, sq | skv, 64]
-        _P, _P,              # shift, scale (f32, [G])
-        _P, _P,              # out (bf16, [B*H, sq, 64]), l (f32, [B*H, sq]) or null
-        _I, _I, _I, _I, _I,  # BH, sq, skv (any lengths), kv_len, hper
-        _I,                  # qk_int8
-        _P,                  # stream
-    ],
-    "aether_flash_fixed_max_hd": [
         _P, _P, _P,          # q, k (int8 or folded bf16), v (bf16): [B*H, sq | skv, D]
         _P, _P,              # shift, scale (f32, [G])
         _P, _P,              # out (bf16, [B*H, sq, D]), l (f32, [B*H, sq]) or null
         _I, _I, _I, _I, _I,  # BH, sq, skv (any lengths), kv_len, hper
-        _I, _I,              # qk_int8, D (16, 32, 48, 80, 96 or 112)
+        _I, _I,              # qk_int8, D (16 to 112 in steps of 16)
         _P,                  # stream
     ],
     "aether_flash_fixed_max_f32": [
@@ -141,20 +133,12 @@ SIGNATURES = {
         _P,                  # stream
     ],
     "aether_flash_pv8": [
-        _P, _P, _P,          # q8, k8 [B*H, sq | skv, 64], v8 transposed [B*H, 64, skv]
-        _P, _P,              # scale, vscale (f32, [G])
-        _P,                  # out (f32 or bf16, [B*H, sq, 64])
-        _I, _I, _I, _I, _I,  # BH, sq, skv, kv_len, hper
-        _I, _I,              # span (kv columns per running-max update), dtype
-        _P,                  # stream
-    ],
-    "aether_flash_pv8_hd": [
         _P, _P, _P,          # q8, k8 [B*H, sq | skv, D], v8 transposed [B*H, D, skv]
         _P, _P,              # scale, vscale (f32, [G])
         _P,                  # out (f32 or bf16, [B*H, sq, D])
         _I, _I, _I, _I, _I,  # BH, sq, skv, kv_len, hper
         _I, _I,              # span (kv columns per running-max update), dtype
-        _I,                  # D (16, 32, 48, 80, 96 or 112)
+        _I,                  # D (16 to 112 in steps of 16)
         _P,                  # stream
     ],
     "aether_flash_variants": [

@@ -6,12 +6,16 @@ kernels; each has a plain PyTorch version here, which CPU tensors take and
 which ``chip_smoke.py`` holds the kernel against on the card.
 
 K3, :func:`flash_attention_fixed_max` (``flash_attention(fixed_max=True)``):
-``csrc/flash_fixed_max.cu`` replaces ``_flash_kernel_fixed_max``, the
-attention of the unfused DiT path (``AETHER_ATTN_FUSED=0``) and of the ring
-merge (``unnormalized`` with a shared ``score_bound``); q, k and v go to the
-kernel unpadded (TMA reads rows past the ends as zeros). K6,
+``csrc/flash_fixed_max.cu`` replaces ``_flash_kernel_fixed_max`` with bf16 v
+at every head dim of ``FIXED_MAX_HEAD_DIMS``, the attention of the unfused
+DiT path (``AETHER_ATTN_FUSED=0``) and of the ring merge (``unnormalized``
+with a shared ``score_bound``); q, k and v go to the kernel unpadded (TMA
+reads rows past the ends, and columns past the head dim, as zeros). K6,
 :func:`flash_attention_pv8` (``pv_int8=True``): ``csrc/flash_pv8.cu``
-replaces ``_flash_kernel_pv8``. The wrapper's preparation is the JAX
+replaces ``_flash_kernel_pv8`` at the same head dims. Both are ``wgmma`` +
+TMA kernels templated over the head dim; at head dims other than 64 their
+launches count on :func:`flash_attention_fixed_max_hd` and
+:func:`flash_attention_pv8_hd`. The wrapper's preparation is the JAX
 wrapper's (:func:`_fixed_max_operands`): the ``kv_valid`` tail zeroed, the
 ``sm_scale * log2e`` fold, the per-head-group Cauchy-Schwarz bound, the
 whole-sequence per-group symmetric int8 quantization of q and k (and of v for
@@ -35,12 +39,9 @@ it sums p rounded to v's dtype, because the TPU summed p through a ones
 column of the PV matmul; at head_dim >= 128 (``"vpu"``) it sums unrounded p.
 A zero denominator divides by 1.
 
-K3 at the head dims other than 64 (:func:`flash_attention_fixed_max_hd`) and
-K3 in f32 at every head dim (:func:`flash_attention_fixed_max_f32`) run
-``csrc/flash_fixed_max_hd.cu``; K6 at the other head dims
-``csrc/flash_pv8_hd.cu`` (:func:`flash_attention_pv8_hd`). Those are the
-simple forms: ``mma.sync`` cells (``csrc/mma_cell.cuh``, shared with K2 hd)
-and an FMA cell (``csrc/fma_cell.cuh``, shared with K4 f32 hd).
+K3 in f32 at every head dim (:func:`flash_attention_fixed_max_f32`) runs
+``csrc/flash_fixed_max_hd.cu``, an FMA cell (``csrc/fma_cell.cuh``, shared
+with K4 f32 hd).
 
 K2, :func:`flash_attention_prepacked`: ``csrc/flash_prepacked.cu`` replaces
 ``_flash_kernel_prepacked``, both its int8 and its float (``AETHER_ATTN_QK8=0``)
@@ -48,10 +49,10 @@ branch. K2 and K3 are one Hopper kernel, the fixed-shift cell of
 ``csrc/fixed_cell.cuh`` (``wgmma`` for both products, a TMA ring, p kept in
 registers between them, no running max); on the H100 it is bound by the SFU's
 exp2 (int8) or by bf16 operations (1.1e10 exp2 and 2.8e12 operations per K2
-call at 48 heads x 15076 valid tokens); the sources carry the full note. The
-cell is written for head_dim 64; the other head dims the JAX kernel takes
-(multiples of 16 below 128) run ``csrc/flash_prepacked_hd.cu``
-(:func:`flash_attention_prepacked_hd`), a simple ``mma.sync`` form.
+call at 48 heads x 15076 valid tokens); the sources carry the full note. K2
+takes the cell at head_dim 64; its other head dims (multiples of 16 below
+128) run ``csrc/flash_prepacked_hd.cu`` (:func:`flash_attention_prepacked_hd`),
+a simple ``mma.sync`` form (``csrc/mma_cell.cuh``, shared with K4 bf16 hd).
 
 K2's math (log2 domain, non-causal, one fixed shift per head group):
 
@@ -107,7 +108,8 @@ def _heads_per_cell(bh: int, heads_per_cell: int) -> int:
 _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
 # the head dims K1, K2, K3 and K6 take on CUDA (the JAX kernels': multiples
 # of 16 below 128; at 128 and above the JAX wrapper turns the fixed max off);
-# 64 runs the wgmma kernels, the others csrc/*_hd.cu
+# K1 and K2 run their wgmma kernels at 64 and csrc/*_hd.cu at the others; K3
+# and K6 run one wgmma kernel at each
 PREPACKED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112)
 FIXED_MAX_HEAD_DIMS = PREPACKED_HEAD_DIMS
 # the head dims K4 takes on CUDA: those and 128, where the JAX wrapper forces
@@ -619,26 +621,12 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     return buf
 
 
-def _fixed_max_launch(ops: _FixedMaxOperands, out: torch.Tensor,
-                      l_out: Optional[torch.Tensor]) -> None:
-    """The K3 kernel at head_dim 64 alone on :func:`_fixed_max_operands`'
-    result (int8 or bf16 q/k, bf16 v; unpadded): out [BH, Sq, 64] bf16,
-    l_out [BH, Sq, 1] f32 or None (normalized)."""
-    qh, kh, vh = (t.contiguous() for t in (ops.q, ops.k, ops.v))
-    bh, sq, _ = qh.shape
-    rc = _build.lib().aether_flash_fixed_max(
-        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), ops.shift.data_ptr(),
-        ops.scale.data_ptr(), out.data_ptr(),
-        None if l_out is None else l_out.data_ptr(),
-        bh, sq, kh.shape[1], ops.kv_len, ops.hper, int(qh.dtype == torch.int8),
-        _build.stream_ptr(qh.device))
-    _build.check(rc, "aether_flash_fixed_max")
-
-
-def _fixed_max_hd_launch(entry: str, counter, ops: _FixedMaxOperands, out: torch.Tensor,
-                         l_out: Optional[torch.Tensor]) -> None:
-    """One launch of ``csrc/flash_fixed_max_hd.cu``'s C ``entry`` on
-    :func:`_fixed_max_operands`' result (unpadded), counted on ``counter``."""
+def _fixed_max_call(entry: str, ops: _FixedMaxOperands, out: torch.Tensor,
+                    l_out: Optional[torch.Tensor]) -> None:
+    """One launch of the C ``entry`` (``aether_flash_fixed_max``, bf16 v, or
+    ``aether_flash_fixed_max_f32``) on :func:`_fixed_max_operands`' result
+    (unpadded): out [BH, Sq, D] in v's dtype, l_out [BH, Sq, 1] f32 or None
+    (normalized)."""
     qh, kh, vh = (_aligned(t) for t in (ops.q, ops.k, ops.v))
     bh, sq, dim = qh.shape
     rc = getattr(_build.lib(), entry)(
@@ -648,17 +636,23 @@ def _fixed_max_hd_launch(entry: str, counter, ops: _FixedMaxOperands, out: torch
         bh, sq, kh.shape[1], ops.kv_len, ops.hper, int(qh.dtype == torch.int8), dim,
         _build.stream_ptr(qh.device))
     _build.check(rc, entry)
-    _build.count_launch(counter)
+
+
+def _fixed_max_launch(ops: _FixedMaxOperands, out: torch.Tensor,
+                      l_out: Optional[torch.Tensor]) -> None:
+    """The K3 kernel (``csrc/flash_fixed_max.cu``, bf16 v, any head dim of
+    ``FIXED_MAX_HEAD_DIMS``) alone, uncounted, on :func:`_fixed_max_operands`'
+    result (int8 or bf16 q/k): out [BH, Sq, D] bf16, l_out [BH, Sq, 1] f32 or
+    None (normalized)."""
+    _fixed_max_call("aether_flash_fixed_max", ops, out, l_out)
 
 
 def flash_attention_fixed_max_hd(ops: _FixedMaxOperands, out: torch.Tensor,
                                  l_out: Optional[torch.Tensor]) -> None:
-    """K3 at a head dim other than 64 (the ``mma.sync`` cell) on
-    :func:`_fixed_max_operands`' result (int8 or bf16 q/k, bf16 v): out [BH,
-    Sq, D] bf16, l_out [BH, Sq, 1] f32 or None (normalized). ``.launches``
-    counts its launches."""
-    _fixed_max_hd_launch("aether_flash_fixed_max_hd", flash_attention_fixed_max_hd, ops,
-                         out, l_out)
+    """K3 with bf16 v at a head dim other than 64: :func:`_fixed_max_launch`,
+    counted here. ``.launches`` counts its launches."""
+    _fixed_max_launch(ops, out, l_out)
+    _build.count_launch(flash_attention_fixed_max_hd)
 
 
 flash_attention_fixed_max_hd.launches = 0
@@ -670,8 +664,8 @@ def flash_attention_fixed_max_f32(ops: _FixedMaxOperands, out: torch.Tensor,
     :func:`_fixed_max_operands`' result (int8 or f32 q/k, f32 v): out [BH,
     Sq, D] f32, l_out [BH, Sq, 1] f32 or None. ``.launches`` counts its
     launches."""
-    _fixed_max_hd_launch("aether_flash_fixed_max_f32", flash_attention_fixed_max_f32, ops,
-                         out, l_out)
+    _fixed_max_call("aether_flash_fixed_max_f32", ops, out, l_out)
+    _build.count_launch(flash_attention_fixed_max_f32)
 
 
 flash_attention_fixed_max_f32.launches = 0
@@ -715,9 +709,9 @@ def flash_attention_fixed_max(
 
     A CPU tensor runs :func:`flash_attention_fixed_max_plain`. A CUDA tensor
     (bf16 or f32 q/k/v, any lengths, a head dim in ``FIXED_MAX_HEAD_DIMS``)
-    launches a Hopper kernel or raises: bf16 at head_dim 64
-    ``csrc/flash_fixed_max.cu`` (counted here), at the other head dims
-    :func:`flash_attention_fixed_max_hd`; f32 at every head dim
+    launches a Hopper kernel or raises: bf16 ``csrc/flash_fixed_max.cu``,
+    counted here at head_dim 64 and on :func:`flash_attention_fixed_max_hd`
+    at the others; f32 at every head dim
     :func:`flash_attention_fixed_max_f32`.
     """
     opts = dict(sm_scale=sm_scale, kv_valid=kv_valid,
@@ -852,12 +846,14 @@ def _pv8_operands(q, k, v, *, sm_scale, kv_valid, block_k, heads_per_cell):
 
 
 def _pv8_launch(qp, kp, vt, ops: _FixedMaxOperands, span: int, out) -> None:
-    """The K6 kernel at head_dim 64 alone on :func:`_pv8_operands`' result;
-    out [BH, Sq_pad, 64] f32 or bf16."""
+    """The K6 kernel (``csrc/flash_pv8.cu``, any head dim of
+    ``FIXED_MAX_HEAD_DIMS``) alone, uncounted, on :func:`_pv8_operands`'
+    result; out [BH, Sq_pad, D] f32 or bf16."""
     rc = _build.lib().aether_flash_pv8(
         qp.data_ptr(), kp.data_ptr(), vt.data_ptr(), ops.scale.data_ptr(),
         ops.vscale.data_ptr(), out.data_ptr(), qp.shape[0], qp.shape[1], kp.shape[1],
-        ops.kv_len, ops.hper, span, _PV8_DTYPES[out.dtype], _build.stream_ptr(qp.device))
+        ops.kv_len, ops.hper, span, _PV8_DTYPES[out.dtype], qp.shape[2],
+        _build.stream_ptr(qp.device))
     _build.check(rc, "aether_flash_pv8")
 
 
@@ -865,15 +861,9 @@ _PV8_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # K6's C argument
 
 
 def flash_attention_pv8_hd(qp, kp, vt, ops: _FixedMaxOperands, span: int, out) -> None:
-    """K6 at a head dim other than 64 (``csrc/flash_pv8_hd.cu``,
-    ``mma.sync``) on :func:`_pv8_operands`' result; out [BH, Sq_pad, D] f32
-    or bf16. ``.launches`` counts its launches."""
-    rc = _build.lib().aether_flash_pv8_hd(
-        qp.data_ptr(), kp.data_ptr(), vt.data_ptr(), ops.scale.data_ptr(),
-        ops.vscale.data_ptr(), out.data_ptr(), qp.shape[0], qp.shape[1], kp.shape[1],
-        ops.kv_len, ops.hper, span, _PV8_DTYPES[out.dtype], qp.shape[2],
-        _build.stream_ptr(qp.device))
-    _build.check(rc, "aether_flash_pv8_hd")
+    """K6 at a head dim other than 64: :func:`_pv8_launch`, counted here.
+    ``.launches`` counts its launches."""
+    _pv8_launch(qp, kp, vt, ops, span, out)
     _build.count_launch(flash_attention_pv8_hd)
 
 
@@ -896,10 +886,10 @@ def flash_attention_pv8(
 
     A CPU tensor runs :func:`flash_attention_pv8_plain`. A CUDA tensor (f32
     or bf16 q/k/v, a head dim in ``FIXED_MAX_HEAD_DIMS``) launches
-    ``csrc/flash_pv8.cu`` at head_dim 64 (counted here) or
-    :func:`flash_attention_pv8_hd` at the others, each moving the running
-    max once per ``_pick_block(Skv, block_k)`` columns as the plain version
-    does, or raises."""
+    ``csrc/flash_pv8.cu``, counted here at head_dim 64 and on
+    :func:`flash_attention_pv8_hd` at the others, moving the running max once
+    per ``_pick_block(Skv, block_k)`` columns as the plain version does, or
+    raises."""
     opts = dict(sm_scale=sm_scale, kv_valid=kv_valid, heads_per_cell=heads_per_cell)
     if not q.is_cuda:
         return flash_attention_pv8_plain(q, k, v, block_q=block_q,

@@ -293,8 +293,9 @@ Phase of the CogVideoX-1.5 slice, after 25 (``cogvideox15_phase`` and
      against the bound.
 Phase of the head-dim slice, after 13 (``head_dims_all_phase``):
  27. K3, K4 and K6 at the head dims other than 64 and K3 in f32
-     (``csrc/flash_fixed_max_hd.cu``, ``flash_online_hd.cu``,
-     ``flash_pv8_hd.cu``): (c) one tiny 17x64x96 reconstruction request
+     (``csrc/flash_fixed_max.cu`` and ``flash_pv8.cu``, each templated over
+     the head dim; ``flash_fixed_max_hd.cu``, ``flash_online_hd.cu``): (c)
+     one tiny 17x64x96 reconstruction request
      (head_dim 16, 4 steps) on the card against the CPU at the long-video
      gates at FUSED=0 with QK8=1 and QK8=0 (K3 hd), PV8=1 (K6 hd),
      FIXED_MAX=0 (K4 bf16 hd) and at FUSED=0 in an f32 pipeline (K3 f32), 8
@@ -308,10 +309,11 @@ Phase of the head-dim slice, after 13 (``head_dims_all_phase``):
      f32 hd launches, and (d) one such step at head_dim 32, 112 and 128; (e)
      the sp = 4 ring over a (1, 48, 15076, 16) window against one K3 hd call
      (int8 and bf16 QK^T, 16 launches each); (a) each kernel at 48 heads x
-     15076 tokens, batch 1, at head_dim 16, 32 and 112 (K4 also 128, K3 f32
-     also 64) against its plain version at the bars of its head_dim-64
-     counterpart here, two launches bit-identical, timed beside the bound and
-     one SDPA call of the same shape and dtype.
+     15076 tokens, batch 1, at head_dim 16, 32 and 112 (K3 and K6 also
+     48, 80 and 96, K4 also 128, K3 f32 also 64) against its plain version at
+     the bars of its head_dim-64 counterpart here, two launches
+     bit-identical, timed beside the bound and one SDPA call of the same shape
+     and dtype, K3 and K6 also alone on the operands their wrappers prepare.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -3571,7 +3573,9 @@ def head_dim_phase(dev, gen):
 # phase 27: K3, K4 and K6 at every head dim and dtype the JAX wrapper takes
 # ---------------------------------------------------------------------------
 
-# (a) K4 also at 128, where the JAX wrapper forces "vpu"; K3 in f32 also at 64
+# (a) K3 (bf16 v) and K6 at every head dim of their wgmma kernels but 64; K4
+# also at 128, where the JAX wrapper forces "vpu"; K3 in f32 also at 64
+FIXED_HD_DIMS = (16, 32, 48, 80, 96, 112)
 ONLINE_HD_DIMS = HD_DIMS + (128,)
 F32_HD_DIMS = (16, 32, 64, 112)
 # (b) the trainer CLI's documented tiny run; (b, d) phase 23's tolerance of
@@ -3639,23 +3643,50 @@ def counted(fn, expect, what):
     return out
 
 
+def hd_alone_ms(name, q, k, v, out):
+    """K3 (``name`` "K3 int8" or "K3 bf16") or K6 alone on the operands its
+    wrapper prepares (uncounted): the CUDA-event ms of 5 calls, its output
+    held bit for bit to the wrapper's ``out``."""
+    from aether_tpu_torch.ops import flash_attention as fa
+
+    b, h, s, hd = q.shape
+    if name == "K6":
+        qp, kp, vt, ops, span = fa._pv8_operands(q, k, v, sm_scale=None, kv_valid=None,
+                                                 block_k=1024, heads_per_cell=4)
+        buf = torch.empty((b * h, qp.shape[1], hd), dtype=q.dtype, device=q.device)
+        ms = cuda_time_ms(lambda: fa._pv8_launch(qp, kp, vt, ops, span, buf), 5)
+        got = buf[:, :s].reshape(q.shape)
+    else:
+        ops = fa._fixed_max_operands(q, k, v, sm_scale=None, kv_valid=None,
+                                     heads_per_cell=4, noshift=False,
+                                     qk_int8=name == "K3 int8", pv_int8=False,
+                                     score_bound=None, unnormalized=False)
+        buf = torch.empty((b * h, s, hd), dtype=q.dtype, device=q.device)
+        ms = cuda_time_ms(lambda: fa._fixed_max_launch(ops, buf, None), 5)
+        got = buf.view(q.shape)
+    torch.cuda.synchronize()
+    check(torch.equal(got, out), f"{name} alone at head_dim {hd} differs from its wrapper")
+    return ms
+
+
 def hd_kernels_phase(dev, gen):
     """Phase 27 (a): K3, K4 and K6 at the main path's 48 heads x 15076
-    tokens, batch 1, at each of ``HD_DIMS`` (K4 also 128, K3 f32 at
-    ``F32_HD_DIMS``), against their plain versions at the bars of their
-    head_dim-64 counterparts in this script: K3 (int8 and bf16 QK^T) max
-    1e-2 / mean 1e-3, K6 1e-2 / 1e-4 (phase 10), K4 and K3 in f32 1e-4 /
-    1e-4, K4 bf16 ``bf16_gates`` (phase 7). One launch of the head-dim
-    kernel a call, two launches bit-identical. The kernel's CUDA-event ms of
-    5 warm calls, the plain version's of the one call compared (it runs for
-    hundreds of ms; a second would add a minute to the phase), the bound
-    and one SDPA call of the same shape and dtype. Returns {(name,
+    tokens, batch 1, at each of ``HD_DIMS`` (K3 with bf16 v and K6 at
+    ``FIXED_HD_DIMS``, K4 also 128, K3 f32 at ``F32_HD_DIMS``), against their
+    plain versions at the bars of their head_dim-64 counterparts in this
+    script: K3 (int8 and bf16 QK^T) max 1e-2 / mean 1e-3, K6 1e-2 / 1e-4
+    (phase 10), K4 and K3 in f32 1e-4 / 1e-4, K4 bf16 ``bf16_gates`` (phase
+    7). One launch of the head-dim kernel a call, two launches
+    bit-identical. The kernel's CUDA-event ms of 5 warm calls (K3 and K6 also
+    alone, ``hd_alone_ms``), the plain version's of the one call compared
+    (it runs for hundreds of ms; a second would add a minute to the phase),
+    the bound and one SDPA call of the same shape and dtype. Returns {(name,
     head_dim): (max abs error, ms, plain ms, bound, SDPA ms)}."""
     from aether_tpu_torch.ops import flash_attention as fa
 
     def cases(hd):
         bf16 = (torch.bfloat16, 2)
-        if hd in HD_DIMS:
+        if hd in FIXED_HD_DIMS:
             yield ("K3 int8", bf16, "flash_attention_fixed_max_hd", ("int8", "bf16"),
                    lambda q, k, v: fa.flash_attention_fixed_max(q, k, v, qk_int8=True),
                    lambda q, k, v: fa.flash_attention_fixed_max_plain(q, k, v, qk_int8=True),
@@ -3676,7 +3707,7 @@ def hd_kernels_phase(dev, gen):
                    fa.flash_attention, fa.flash_attention_plain, None)
 
     results = {}
-    for hd in sorted(set(ONLINE_HD_DIMS + F32_HD_DIMS)):
+    for hd in sorted(set(FIXED_HD_DIMS + ONLINE_HD_DIMS + F32_HD_DIMS)):
         sdpa = {}
         for name, (dtype, size), counter, kinds, kernel, plain, bars in cases(hd):
             shape = (1, HEADS, SEQ, hd)
@@ -3692,9 +3723,13 @@ def hd_kernels_phase(dev, gen):
             plain_ms = start.elapsed_time(end)
             err = compare(what, out, ref, *(bars or bf16_gates(ref)))
             check(torch.equal(out, kernel(q, k, v)), f"{what}: two launches differ")
-            del out, ref
+            del ref
             ms = cuda_time_ms(lambda: kernel(q, k, v), 5)
-            del q, k, v
+            alone = ""
+            if name in ("K3 int8", "K3 bf16", "K6"):
+                alone_ms = hd_alone_ms(name, q, k, v, out)
+                alone = f"; alone {alone_ms:.4f} ms, the wrapper's passes {ms - alone_ms:.4f} ms"
+            del q, k, v, out
             if dtype not in sdpa:
                 sdpa[dtype] = sdpa_ms(dev, gen, 1, dtype, hd)
             bnd = bound(4 * size * HEADS * SEQ * hd, attention_ops(1, SEQ, kinds, hd),
@@ -3703,7 +3738,7 @@ def hd_kernels_phase(dev, gen):
             log(f"{what} time: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
                 f"{bnd[0] / ms:.1%} of its {bnd[0]:.4f} ms {bnd[1]} bound), plain "
                 f"{plain_ms:.4f} ms, SDPA {str(dtype)[6:]} (1, 48, 15076, {hd}) "
-                f"{sdpa[dtype]:.4f} ms: {ms / sdpa[dtype]:.3f}x")
+                f"{sdpa[dtype]:.4f} ms: {ms / sdpa[dtype]:.3f}x{alone}")
             results[name, hd] = (err, ms, plain_ms, bnd, sdpa[dtype])
             torch.cuda.empty_cache()
     return results
@@ -4380,14 +4415,14 @@ def main() -> None:
                 *hd27_kernels[kern, hd])
           for name, kern, counter, source, replaces, dims in (
               ("flash_fixed_max_hd", "K3 int8", "flash_attention_fixed_max_hd",
-               "flash_fixed_max_hd.cu", "aether_tpu/ops/flash_attention.py:151", HD_DIMS),
+               "flash_fixed_max.cu", "aether_tpu/ops/flash_attention.py:151", HD_DIMS),
               ("flash_fixed_max_f32_hd", "K3 f32", "flash_attention_fixed_max_f32",
                "flash_fixed_max_hd.cu", "aether_tpu/ops/flash_attention.py:151", F32_HD_DIMS),
               ("flash_online_hd", "K4 f32", "flash_attention_f32_hd", "flash_online_hd.cu",
                "aether_tpu/ops/flash_attention.py:69", ONLINE_HD_DIMS),
               ("flash_online_bf16_hd", "K4 bf16", "flash_attention_hd", "flash_online_hd.cu",
                "aether_tpu/ops/flash_attention.py:69", ONLINE_HD_DIMS),
-              ("flash_pv8_hd", "K6", "flash_attention_pv8_hd", "flash_pv8_hd.cu",
+              ("flash_pv8_hd", "K6", "flash_attention_pv8_hd", "flash_pv8.cu",
                "aether_tpu/ops/flash_attention.py:259", HD_DIMS))
           for hd in dims),
     ]}), flush=True)

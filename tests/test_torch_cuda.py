@@ -736,7 +736,7 @@ def test_fixed_max_kernels_refuse_what_they_do_not_take(dev):
 
 
 # ---- K3, K4 and K6 at the other head dims; K3 in f32 ----
-# (csrc/flash_fixed_max_hd.cu, flash_online_hd.cu, flash_pv8_hd.cu)
+# (csrc/flash_fixed_max.cu, flash_fixed_max_hd.cu, flash_online_hd.cu, flash_pv8.cu)
 
 _HD_COUNTED = (flash_attention_fixed_max_hd, flash_attention_fixed_max_f32, flash_attention_hd,
                flash_attention_f32_hd, flash_attention_pv8_hd)

@@ -6,7 +6,8 @@ and ``flash_attention_pv8_plain`` (K6) are held against
 ``aether_tpu.ops.flash_attention.flash_attention(..., interpret=True)`` on
 the same numpy-seeded inputs at head_dim 16, 32 and 112 (K4 also 128), over
 the option grids of ``tests/test_torch_flash_fixed_max.py`` and
-``tests/test_torch_flash_online.py``: f32 and bf16, int8 QK^T, each
+``tests/test_torch_flash_online.py``, and K3, K3 unnormalized and K6 at 48,
+80 and 96 on one case of each grid: f32 and bf16, int8 QK^T, each
 ``noshift``, ``kv_valid``, Sq < Skv, B*H not a multiple of the head group,
 unnormalized with a ``score_bound``, the "mxu" and "vpu" denominators. At
 head_dim 128 K3's and K6's options go through ``flash_attention``, which
@@ -97,11 +98,19 @@ K6_GRID = [
 AT_128_GRID = [("f32", False, False, False), ("bf16", True, False, None),
                ("bf16", True, True, False), ("f32", True, False, True)]
 
+# K3 and K6's other head dims (one wgmma kernel each on the card, templated
+# over the head dim): one case of each grid, bf16 operands where the grid has them
+MORE_DIMS = {48: (K3_GRID[7], K3U_GRID[2], K6_GRID[2]),
+             80: (K3_GRID[9], K3U_GRID[1], K6_GRID[3]),
+             96: (K3_GRID[5], K3U_GRID[2], K6_GRID[1])}
+
 CASES = ([("K3", hd, c) for hd in HEAD_DIMS for c in K3_GRID]
          + [("K3 unnormalized", hd, c) for hd in HEAD_DIMS for c in K3U_GRID]
          + [("K4", hd, c) for hd in HEAD_DIMS + (128,) for c in K4_GRID]
          + [("K6", hd, c) for hd in HEAD_DIMS for c in K6_GRID]
-         + [("fixed max at 128", 128, c) for c in AT_128_GRID])
+         + [("fixed max at 128", 128, c) for c in AT_128_GRID]
+         + [(kernel, hd, c) for hd, cases in MORE_DIMS.items()
+            for kernel, c in zip(("K3", "K3 unnormalized", "K6"), cases)])
 
 
 def _pallas(*args, **kw):

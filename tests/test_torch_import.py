@@ -112,7 +112,7 @@ def test_kernel_sources_ship_with_the_package():
     assert names == ["attn_prologue.cu", "attn_prologue_hd.cu", "flash_fixed_max.cu",
                      "flash_fixed_max_hd.cu", "flash_online.cu", "flash_online_bf16.cu",
                      "flash_online_hd.cu", "flash_prepacked.cu", "flash_prepacked_hd.cu",
-                     "flash_pv8.cu", "flash_pv8_hd.cu", "flash_variants.cu",
+                     "flash_pv8.cu", "flash_variants.cu",
                      "groupnorm_moments.cu"]
     assert sorted(p.name for p in (_PKG / "csrc").glob("*.cuh")) == [
         "fixed_cell.cuh", "fma_cell.cuh", "hopper.cuh", "mma_cell.cuh", "mma_sync.cuh",
@@ -125,9 +125,8 @@ def test_kernel_sources_ship_with_the_package():
                                       "aether_flash_online", "aether_flash_online_bf16",
                                       "aether_flash_online_bf16_hd",
                                       "aether_flash_online_f32_hd",
-                                      "aether_flash_fixed_max", "aether_flash_fixed_max_hd",
-                                      "aether_flash_fixed_max_f32", "aether_flash_pv8",
-                                      "aether_flash_pv8_hd",
+                                      "aether_flash_fixed_max", "aether_flash_fixed_max_f32",
+                                      "aether_flash_pv8",
                                       "aether_flash_variants", "aether_groupnorm_moments"}
     for name in _build.SIGNATURES:
         src = "".join(p.read_text() for p in (_PKG / "csrc").glob("*.cu"))
