@@ -1,4 +1,5 @@
-"""Time K3 and K6 at every head dim, one checkout against another, on an NVIDIA GPU.
+"""Time K2, K3, K4 bf16 and K6 at every head dim, one checkout against another, on an
+NVIDIA GPU.
 
     python aether_tpu_torch/bench/time_hd_cells.py unpack REV DIR
     python aether_tpu_torch/bench/time_hd_cells.py ab DIR [--json OUT]
@@ -10,20 +11,25 @@ directory of this repository (``_checkout/parent``) so that a copy of the
 working tree carries it to the card. ``ab`` runs DIR, this checkout, this
 checkout, DIR, each in its own process (each package builds its kernels into
 its own ``_build/``), prints every case's four times side by side and fails
-unless the head_dim-64 outputs are bit-identical across the four runs. ``run`` times one checkout
-(default: this one) and prints, for that package:
+unless the head_dim-64 outputs are bit-identical across the four runs.
+``run`` times one checkout (default: this one) and prints, for that package:
 
-- on a fresh build, the registers and spill of every K2, K3 and K6 kernel
-  (ptxas);
+- on a fresh build, the registers and spill of every kernel of the sources
+  ``flash_prepacked*``, ``flash_fixed_max*``, ``flash_online*``,
+  ``flash_variants`` and ``flash_pv8`` (ptxas);
 - at head_dim 64: K2 (``flash_attention_prepacked``) at (48, 15360, 64) over
-  K1's operands with 15076 valid tokens, int8 and float; K3 int8 and bf16
+  K1's operands with 15076 valid tokens, int8 and float; K4 bf16 at (1, 48,
+  15076, 64) through the wrapper and alone, and K7 (``flash_v2``, K rows and
+  K^T) and K8 (``flash_mh``, hper 2) at the same shape; K3 int8 and bf16
   QK^T and K6 at the CFG pair's (2, 48, 15076, 64) bf16, through the wrapper
   and alone on the operands it prepares; a digest of each output;
-- at head_dim 16, 32, 48, 80, 96 and 112: K3 int8 and bf16 QK^T and K6 at
-  (1, 48, 15076, D) bf16, through the wrapper and alone, and K3 unnormalized
-  (int8 and bf16 QK^T) on one ring step of ``chip_smoke.py`` phase 27e, a
-  (1, 48, 3840, D) q stripe against a kv stripe of the same size with a
-  shared score bound.
+- at head_dim 16, 32, 48, 80, 96 and 112: K2 int8 and float over K1's
+  operands at (48, 15360, D) with 15076 valid tokens; K3 int8 and bf16 QK^T
+  and K6 at (1, 48, 15076, D) bf16, through the wrapper and alone, and K3
+  unnormalized (int8 and bf16 QK^T) on one ring step of ``chip_smoke.py``
+  phase 27e, a (1, 48, 3840, D) q stripe against a kv stripe of the same
+  size with a shared score bound; K4 bf16 at (1, 48, 15076, D) through the
+  wrapper and alone, also at 128 ("vpu").
 
 Every time is three CUDA-event means of 5 calls (10 for K2). Timing and the
 ptxas names are ``chip_smoke.py``'s, as in ``time_prologue.py`` (K1). Needs
@@ -64,7 +70,7 @@ def run(checkout: str, out_json) -> None:
     # of its chip_smoke.py
     sys.path.insert(0, checkout)
     import chip_smoke as cs
-    from aether_tpu_torch.ops import _build, flash_attention as fa
+    from aether_tpu_torch.ops import _build, flash_attention as fa, flash_variants as fv
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue
 
     if not _build.__file__.startswith(checkout):
@@ -80,7 +86,8 @@ def run(checkout: str, out_json) -> None:
     for line in _build.BUILD_LOG["ptxas"].splitlines():
         if "Compiling entry function" in line:
             kernel = cs.ptxas_kernel_name(line.split("'")[1])
-        elif kernel.startswith(("flash_pv8", "flash_fixed_max", "flash_prepacked.cu")) and (
+        elif kernel.startswith(("flash_pv8", "flash_fixed_max", "flash_prepacked",
+                                "flash_online", "flash_variants")) and (
                 "registers" in line or "spill" in line):
             print(f"  ptxas {kernel}: {line.strip()}", flush=True)
             regs.setdefault(kernel, []).append(line.strip())
@@ -94,25 +101,55 @@ def run(checkout: str, out_json) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
 
-    # ---- head_dim 64: K2 over K1's operands, K3 and K6 at batch 2 ----
-    d = H * 64
-    for quantize in (True, False):
-        y = torch.randn((1, S_PAD, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
-        y[:, S:] = 0
-        norms = [1.0 + 0.1 * torch.randn(64, generator=gen, device=dev),
-                 0.1 * torch.randn(64, generator=gen, device=dev),
-                 1.0 + 0.1 * torch.randn(64, generator=gen, device=dev),
-                 0.1 * torch.randn(64, generator=gen, device=dev)]
-        q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue(
-            y[..., :d], y[..., d:2 * d], y[..., 2 * d:], *norms, None, None,
-            num_heads=H, head_dim=64, eps=1e-6, s_valid=S, quantize=quantize)
-        kw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=S)
-        name = f"K2 {'int8' if quantize else 'float'} hd64"
-        result["digests"][name] = digest(fa.flash_attention_prepacked(q, k, v, **kw))
-        print(f"{name}: {times(name, lambda: fa.flash_attention_prepacked(q, k, v, **kw), 10)}"
-              f" ms", flush=True)
-        del y, q, k, v
-        torch.cuda.empty_cache()
+    def k2_cases(hd):
+        """K2 int8 and float over K1's operands at (48, 15360, hd), 15076 valid."""
+        d = H * hd
+        for quantize in (True, False):
+            y = torch.randn((1, S_PAD, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+            y[:, S:] = 0
+            norms = [1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+                     0.1 * torch.randn(hd, generator=gen, device=dev),
+                     1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+                     0.1 * torch.randn(hd, generator=gen, device=dev)]
+            q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue(
+                y[..., :d], y[..., d:2 * d], y[..., 2 * d:], *norms, None, None,
+                num_heads=H, head_dim=hd, eps=1e-6, s_valid=S, quantize=quantize)
+            kw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=S)
+            name = f"K2 {'int8' if quantize else 'float'} hd{hd}"
+            result["digests"][name] = digest(fa.flash_attention_prepacked(q, k, v, **kw))
+            print(f"{name}: "
+                  f"{times(name, lambda: fa.flash_attention_prepacked(q, k, v, **kw), 10)}"
+                  f" ms", flush=True)
+            del y, q, k, v
+            torch.cuda.empty_cache()
+
+    def k4_case(q, k, v, hd):
+        """K4 bf16 through the wrapper and alone (uncounted at 64, counted
+        on flash_attention_hd at the others: the launches both checkouts
+        have)."""
+        name = f"K4 bf16 hd{hd}"
+        result["digests"][name] = digest(fa.flash_attention(q, k, v))
+        qh, kh, vh = (t.reshape(H, S, hd).contiguous() for t in (q, k, v))
+        buf = torch.empty_like(qh)
+        launch = fa._online_bf16_launch if hd == 64 else fa.flash_attention_hd
+        args = (qh, kh, vh, buf, S, hd < 128, fa._online_fold(None, hd))
+        print(f"{name}: wrapper {times(name, lambda: fa.flash_attention(q, k, v))} ms, "
+              f"alone {times(name + ' alone', lambda: launch(*args))} ms", flush=True)
+        del qh, kh, vh, buf
+
+    # ---- head_dim 64: K2 over K1's operands; K4 bf16, K7 and K8; K3 and K6
+    # at batch 2 ----
+    k2_cases(64)
+    q, k, v = (torch.randn((1, H, S, 64), generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    k4_case(q, k, v, 64)
+    for name, fn in (("K7 hd64", lambda: fv.flash_v2(q, k, v)),
+                     ("K7 kt hd64", lambda: fv.flash_v2(q, k, v, kt=True)),
+                     ("K8 hper2 hd64", lambda: fv.flash_mh(q, k, v))):
+        result["digests"][name] = digest(fn())
+        print(f"{name}: {times(name, fn)} ms", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
 
     def fixed_cases(q, k, v, hd, tag):
         b = q.shape[0]
@@ -148,9 +185,12 @@ def run(checkout: str, out_json) -> None:
     torch.cuda.empty_cache()
 
     # ---- the other head dims at batch 1, and one ring step ----
-    for hd in HEAD_DIMS:
+    for hd in HEAD_DIMS + (128,):
         q, k, v = (torch.randn((1, H, S, hd), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
+        k4_case(q, k, v, hd)
+        if hd == 128:  # K2, K3 and K6 stop at 112
+            break
         fixed_cases(q, k, v, hd, "")
         qs, ks, vs = (t[:, :, :STRIPE].contiguous() for t in (q, k, v))
         bound = (fa._row_norm_max(qs) * fa._row_norm_max(ks) * (hd ** -0.5 * fa._LOG2E))
@@ -161,6 +201,7 @@ def run(checkout: str, out_json) -> None:
                   f" ms", flush=True)
         del q, k, v, qs, ks, vs
         torch.cuda.empty_cache()
+        k2_cases(hd)
     if out_json:
         with open(out_json, "w") as f:
             json.dump(result, f)

@@ -1,7 +1,7 @@
 // The fixed-shift attention cell on wgmma with TMA, written by hand for
 // Hopper (sm_90a): one kernel template over the head dim D and two
-// compile-time switches, shared by K2 (flash_prepacked.cu, D 64) and K3
-// (flash_fixed_max.cu, D 16 to 112 in steps of 16).
+// compile-time switches, shared by K2 (flash_prepacked.cu) and K3
+// (flash_fixed_max.cu), both at D 16 to 112 in steps of 16.
 //
 // Replaces the body of two Pallas TPU kernels of
 // aether_tpu/ops/flash_attention.py that compute one function:
@@ -20,22 +20,25 @@
 //               bf16 (2 D bytes). v is bf16;
 //   kTileScale  K2: the int8 scale is per (q tile, kv tile) of `block`
 //               tokens, qsc[g, row / block] * ksc[g, col / block], and the
-//               shift is max_t qn[g, t] * max_t kn[g, t], taken here (0 when
-//               noshift holds, or when it is auto and every group's bound is
-//               below 96). K3: one scale and one shift per group, from its
-//               wrapper (the JAX wrapper's preparation).
+//               shift is max_t qn[g, t] * max_t kn[g, t], taken here by the
+//               producer warp (0 when noshift holds, or when it is auto and
+//               every group's bound is below 96). `block` is a multiple of
+//               128, so a 64-row warpgroup (at kBM 128 and 192 alike) and a
+//               128-column kv tile each lie in one block. K3: one scale and
+//               one shift per group, from its wrapper (the JAX wrapper's
+//               preparation).
 //
 // What bounds it on an H100 (the attention at its main-path shapes, 15076
 // valid tokens, 48 heads; bound = the largest of bytes / 3.35 TB/s,
 // operations / the peak of their type and one exp2 a score / the SFU's 16
-// a clock an SM at 1980 MHz): K2 int8 2.61 ms (SFU) and float 2.82 ms
-// (operations) at batch 1; K3 int8 5.22 ms (SFU) and bf16 5.65 ms
+// a clock an SM at 1980 MHz), at D 64: K2 int8 2.61 ms (SFU) and float
+// 2.82 ms (operations) at batch 1; K3 int8 5.22 ms (SFU) and bf16 5.65 ms
 // (operations) at the CFG pair's batch 2; at batch 1 and D 112 the
 // operations bind, 3.71 ms (int8 QK^T) and 4.94 (bf16), the SFU's 2.61 below
 // D 80. The tensor cores and the SFU have to run side by side, and every
 // score's other instructions share the SFU's issue slots. The design is K4
-// bf16's (online_cell.cuh, FlashAttention-3's shape at head_dim 64) without
-// the online max:
+// bf16's (online_cell.cuh, FlashAttention-3's shape) without the online
+// max:
 //   * a CTA takes 64 x kWG q rows: kWG consumer warpgroups of 64 rows and
 //     one producer warp that keeps K and V tiles of 128 kv rows in a ring of
 //     kStages shared-memory slots by TMA (mbarriers); rows past the tensors'
@@ -114,18 +117,6 @@ enum NoShift { kKeep = 0, kDrop = 1, kAuto = 2 };
 // (float)x, exactly, for |x| < 2^22 (an int8 score: |x| <= 127 * 127 * 112)
 __device__ __forceinline__ float exact_f32(int x) {
   return __fsub_rn(__uint_as_float(kMagicI + static_cast<uint32_t>(x)), kMagicF);
-}
-
-// bytes of the swizzle row that holds `bytes` of a row (a panel: 128 at most)
-__host__ __device__ constexpr int swizzle_row(int bytes) {
-  return bytes <= 32 ? 32 : bytes <= 64 ? 64 : 128;
-}
-__host__ __device__ constexpr Swizzle desc_swizzle(int row) {
-  return row == 32 ? kSw32 : row == 64 ? kSw64 : kSw128;
-}
-constexpr CUtensorMapSwizzle map_swizzle(int row) {
-  return row == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
-                   : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
 }
 
 // The tile plan of head dim D (the note above). At D 64 it is the plan the

@@ -1,6 +1,6 @@
 // K7, K8, K9: the online-softmax flash-attention tuning variants, written by
-// hand for Hopper (sm_90a), as instances of the wgmma + TMA cell of
-// online_cell.cuh (K4 in bf16 is another).
+// hand for Hopper (sm_90a), as head_dim-64 instances of the wgmma + TMA cell
+// of online_cell.cuh (K4 in bf16 is another, at every head dim).
 //
 // Replaces three Pallas TPU kernels that run only from the benchmark scripts:
 //   K7 scripts/bench_flash_variants.py::_kernel_v2   (flash_v2)
@@ -60,8 +60,9 @@ extern "C" int aether_flash_variants(const void* q, const void* k, const void* v
     return static_cast<int>(cudaErrorInvalidValue);
   const bool kt = k_row > 0;
   CUtensorMap qm, km, vm;
-  if (!q_map(&qm, q, BH, sq) || !(kt ? kt_map(&km, k, BH, k_row) : kv_map(&km, k, BH, skv)) ||
-      !kv_map(&vm, v, BH, skv))
+  if (!q_map<64>(&qm, q, BH, sq) ||
+      !(kt ? kt_map(&km, k, BH, k_row) : k_map<64>(&km, k, BH, skv)) ||
+      !v_map<64>(&vm, v, BH, skv))
     return static_cast<int>(cudaErrorInvalidValue);
   Params prm{};
   prm.out = static_cast<__nv_bfloat16*>(out);
@@ -73,22 +74,22 @@ extern "C" int aether_flash_variants(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hper > 0)  // K8
     return use_exp2 && mask == kMaskAll && !kt
-               ? launch<true, kMaskAll, false, true>(qm, km, vm, prm, BH, st)
+               ? launch<64, true, kMaskAll, false, true>(qm, km, vm, prm, BH, st)
                : static_cast<int>(cudaErrorInvalidValue);
   if (use_exp2) {
     if (mask == kMaskTail)  // K7 (also K4's instance), K7 kt
-      return kt ? launch<true, kMaskTail, true, false>(qm, km, vm, prm, BH, st)
-                : launch<true, kMaskTail, false, false>(qm, km, vm, prm, BH, st);
+      return kt ? launch<64, true, kMaskTail, true, false>(qm, km, vm, prm, BH, st)
+                : launch<64, true, kMaskTail, false, false>(qm, km, vm, prm, BH, st);
     if (mask == kMaskAll)  // K7 mask_last_only=False, K9 fold2
-      return kt ? launch<true, kMaskAll, true, false>(qm, km, vm, prm, BH, st)
-                : launch<true, kMaskAll, false, false>(qm, km, vm, prm, BH, st);
+      return kt ? launch<64, true, kMaskAll, true, false>(qm, km, vm, prm, BH, st)
+                : launch<64, true, kMaskAll, false, false>(qm, km, vm, prm, BH, st);
     if (!kt)  // K9 padfix
-      return launch<true, kMaskPadfix, false, false>(qm, km, vm, prm, BH, st);
+      return launch<64, true, kMaskPadfix, false, false>(qm, km, vm, prm, BH, st);
   } else if (!kt) {
     if (mask == kMaskAll)  // K9 fold
-      return launch<false, kMaskAll, false, false>(qm, km, vm, prm, BH, st);
+      return launch<64, false, kMaskAll, false, false>(qm, km, vm, prm, BH, st);
     if (mask == kMaskPadfix)  // K9 padfix_exp
-      return launch<false, kMaskPadfix, false, false>(qm, km, vm, prm, BH, st);
+      return launch<64, false, kMaskPadfix, false, false>(qm, km, vm, prm, BH, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

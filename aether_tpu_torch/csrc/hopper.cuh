@@ -1,6 +1,7 @@
 // Shared pieces of the port's Hopper (sm_90a) attention kernels that use
 // wgmma and TMA (online_cell.cuh, the cell of flash_online_bf16.cu and
-// flash_variants.cu; flash_pv8.cu; fixed_cell.cuh) and of the attention
+// flash_variants.cu; fixed_cell.cuh, of flash_prepacked.cu and
+// flash_fixed_max.cu; flash_pv8.cu) and of the attention
 // prologue (attn_prologue.cu): shared-memory matrix descriptors, the wgmma
 // instructions they issue with their fences, the mbarrier ring, TMA tile
 // loads, thread-block cluster barriers and distributed shared memory, and the
@@ -50,6 +51,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // ---- wgmma shared-memory descriptors ----
 
 enum Swizzle : uint64_t { kSw128 = 1, kSw64 = 2, kSw32 = 3 };
+
+// bytes of the swizzle row that holds `bytes` of a row (a panel: 128 at
+// most), and that row's swizzle as a descriptor and as a tensor map name it
+__host__ __device__ constexpr int swizzle_row(int bytes) {
+  return bytes <= 32 ? 32 : bytes <= 64 ? 64 : 128;
+}
+__host__ __device__ constexpr Swizzle desc_swizzle(int row) {
+  return row == 32 ? kSw32 : row == 64 ? kSw64 : kSw128;
+}
+constexpr CUtensorMapSwizzle map_swizzle(int row) {
+  return row == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                   : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+}
 
 // start address, leading / stride byte offsets (16-byte units), swizzle mode
 __device__ __forceinline__ uint64_t make_desc(const void* smem, uint32_t lbo_bytes,
@@ -182,7 +196,7 @@ __device__ __forceinline__ void wgmma_m64n128k32_ss_s8(int (&d)[64], uint64_t da
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// Register-A wgmma of width N (the head dim of P V: 16 to 112 in steps of
+// Register-A wgmma of width N (the head dim of P V: 16 to 128 in steps of
 // 16), one specialization a width: wgmma_rs_s8<N> (s8, B K-major) and
 // wgmma_rs_bf16_vt<N> (bf16, B MN-major). d holds this thread's N / 2
 // accumulators, a the 4 A registers. Inline asm numbers its operands, so the
@@ -205,6 +219,7 @@ __device__ void wgmma_rs_bf16_vt(float (&d)[N / 2], const uint32_t (&a)[4], uint
 #define HOPPER_D8x5(C) HOPPER_D8x4(C), HOPPER_D8(C, 32)
 #define HOPPER_D8x6(C) HOPPER_D8x5(C), HOPPER_D8(C, 40)
 #define HOPPER_D8x7(C) HOPPER_D8x6(C), HOPPER_D8(C, 48)
+#define HOPPER_D8x8(C) HOPPER_D8x7(C), HOPPER_D8(C, 56)
 #define HOPPER_S8x1 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define HOPPER_S8x2 HOPPER_S8x1 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define HOPPER_S8x3 HOPPER_S8x2 ", %16, %17, %18, %19, %20, %21, %22, %23"
@@ -212,6 +227,7 @@ __device__ void wgmma_rs_bf16_vt(float (&d)[N / 2], const uint32_t (&a)[4], uint
 #define HOPPER_S8x5 HOPPER_S8x4 ", %32, %33, %34, %35, %36, %37, %38, %39"
 #define HOPPER_S8x6 HOPPER_S8x5 ", %40, %41, %42, %43, %44, %45, %46, %47"
 #define HOPPER_S8x7 HOPPER_S8x6 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define HOPPER_S8x8 HOPPER_S8x7 ", %56, %57, %58, %59, %60, %61, %62, %63"
 // X(N, accumulator list, its operand string, "{a}, desc", "scale-d")
 #define HOPPER_RS_WIDTHS(X)                                                 \
   X(16, HOPPER_D8x1, HOPPER_S8x1, "{%8, %9, %10, %11}, %12", "%13")        \
@@ -220,7 +236,8 @@ __device__ void wgmma_rs_bf16_vt(float (&d)[N / 2], const uint32_t (&a)[4], uint
   X(64, HOPPER_D8x4, HOPPER_S8x4, "{%32, %33, %34, %35}, %36", "%37")      \
   X(80, HOPPER_D8x5, HOPPER_S8x5, "{%40, %41, %42, %43}, %44", "%45")      \
   X(96, HOPPER_D8x6, HOPPER_S8x6, "{%48, %49, %50, %51}, %52", "%53")      \
-  X(112, HOPPER_D8x7, HOPPER_S8x7, "{%56, %57, %58, %59}, %60", "%61")
+  X(112, HOPPER_D8x7, HOPPER_S8x7, "{%56, %57, %58, %59}, %60", "%61")      \
+  X(128, HOPPER_D8x8, HOPPER_S8x8, "{%64, %65, %66, %67}, %68", "%69")
 #define HOPPER_RS(NAME, T, C, N, INSTR, TAIL, D, S, AB, P)                   \
   template <>                                                               \
   __device__ __forceinline__ void NAME<N>(T(&d)[N / 2], const uint32_t(&a)[4], \

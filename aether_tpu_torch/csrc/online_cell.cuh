@@ -1,7 +1,8 @@
 // The online-softmax attention cell on wgmma with TMA, written by hand for
-// Hopper (sm_90a): one kernel template over compile-time switches, shared by
-// K4 in bf16 (flash_online_bf16.cu) and the tuning variants K7-K9
-// (flash_variants.cu). Non-causal, head_dim 64, bf16 q/k/v and output:
+// Hopper (sm_90a): one kernel template over the head dim D and compile-time
+// switches, shared by K4 in bf16 (flash_online_bf16.cu, D 16 to 128 in
+// steps of 16) and the tuning variants K7-K9 (flash_variants.cu, D 64).
+// Non-causal, bf16 q/k/v and output:
 //   q   = bf16(q * qscale)                      (here, in shared memory)
 //   s   = q . k^T                               (f32 sums of bf16 products)
 //   s   = -0.7 * f32max  where column >= kv_end (every tile, or only the tile
@@ -28,22 +29,41 @@
 //           round are split by head over every CTA, so no SM idles for more
 //           than one head-tile while others finish (PERF.md reckons the
 //           tail of a plain grid for each hper of the sweep).
-// Without kHeads the grid is (q tiles, B*H), one head-tile a CTA.
+// Without kHeads the grid is (q tiles, B*H), one head-tile a CTA. kKt and
+// kHeads are built at D 64 only: K7 and K8 reach no other head dim.
 //
-// The design (FlashAttention-3's shape at head_dim 64): a CTA takes 192 q
-// rows, three consumer warpgroups of 64 rows and one producer warp. The
-// producer keeps K and V tiles of 128 kv rows in a ring of kStages
-// shared-memory slots by TMA (128-byte swizzle, mbarriers); rows past the
-// tensors' ends arrive as zeros, so no wrapper pads (padfix's pad keys are
-// that zero fill and score exactly 0, as zero-padded keys do). S = Q K^T is
-// wgmma m64n128k16 from shared memory; the softmax runs on the f32
-// accumulator fragment in registers; bf16(p) becomes the A operand of P V in
-// registers, V the B operand through wgmma's transpose bit. A tile's P V stays
-// in flight while the next tile's Q K^T is issued. p is one SFU instruction
-// (exp2_ftz: p below 2^-126 counts as 0, which a bf16 output cannot see);
-// tiles wholly past kv_end change nothing and are skipped. Built without
-// --use_fast_math so exp2f, expf (alpha, the padfix term) and the division
-// stay accurate.
+// The design (FlashAttention-3's shape): a CTA takes 64 x kWG q rows, kWG
+// consumer warpgroups of 64 rows and a producer. The producer keeps K and V
+// tiles of 128 kv rows in a ring of kStages shared-memory slots by TMA
+// (mbarriers); rows past the tensors' ends arrive as zeros, so no wrapper
+// pads (padfix's pad keys are that zero fill and score exactly 0, as
+// zero-padded keys do), and stores past sq are dropped. S = Q K^T is D / 16
+// k steps of wgmma m64n128k16 from shared memory; the softmax runs on the
+// f32 accumulator fragment in registers; bf16(p) becomes the A operand of P
+// V (wgmma m64nDk16) in registers, V the B operand through wgmma's transpose
+// bit. A tile's P V stays in flight while the next tile's Q K^T is issued.
+// p is one SFU instruction (exp2_ftz: p below 2^-126 counts as 0, which a
+// bf16 output cannot see); tiles wholly past kv_end change nothing and are
+// skipped. The plan of each D (Plan below; fixed_cell.cuh's, with the
+// online max):
+//   * kWG 3 up to D 64 with a producer warp (D 64 keeps the plan K4 and
+//     K7-K9 were timed with). Above D 64 a consumer thread holds 64
+//     f32 of S, D / 2 of the output, 32 packed bf16(p) and the rows' m and
+//     l: 156 registers at D 112 and 164 at 128 before addresses, at the
+//     168 that 9 warps leave a thread. So kWG is 2 there and the producer is
+//     a whole warpgroup that gives its registers to the consumers
+//     (setmaxnreg: 24 for it, 240 a consumer thread; flash_pv8.cu's plan);
+//   * q and k rows are 2 D bytes rounded up to a swizzle row (32, 64 or
+//     128 bytes; TMA fills the columns past D with zeros), in 128-byte
+//     panels above 128 (D 80-128: two panels). V is MN-major in panels of
+//     the widest swizzle row whose columns divide D (64 columns at 64 and
+//     128, 32 at 32 and 96, 16 at 16, 48, 80 and 112), so no wgmma reads a
+//     panel in part;
+//   * kStages is 4 where 4 fit in the 227 KB a block may take, else 3 (D
+//     80-128: q 32 KB + 3 x (32 KB K + 20-32 KB V); 3 at D 64, its timed
+//     plan).
+// Built without --use_fast_math so exp2f, expf (alpha, the padfix term) and
+// the division stay accurate.
 
 #pragma once
 
@@ -61,33 +81,57 @@ namespace online_cell {
 
 using namespace hopper;
 
-constexpr int kD = 64;
-constexpr int kWG = 3;                      // consumer warpgroups, 64 q rows each
-constexpr int kBM = 64 * kWG;               // q rows per CTA
 constexpr int kBN = 128;                    // kv rows per tile
-constexpr int kStages = 3;
-constexpr int kConsumers = 128 * kWG;
-constexpr int kThreads = kConsumers + 32;   // and one producer warp
-constexpr int kTileBytes = kBN * kD * 2;    // 16 KB, one K or V tile
-constexpr int kQBytes = kBM * kD * 2;       // 24 KB
 constexpr float kNegInf = -0.7f * 3.40282347e38f;  // the TPU kernels' mask
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum Mask { kMaskAll = 0, kMaskTail = 1, kMaskPadfix = 2 };
 
-template <int kQBufs>
+// The tile plan of head dim D (the note above); kQBufs q buffers (kHeads: 2)
+template <int D, int kQBufs = 1>
+struct Plan {
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head_dim: 16 to 128 in steps of 16");
+  static constexpr int kWG = D <= 64 ? 3 : 2;       // consumer warpgroups, 64 q rows each
+  static constexpr int kBM = 64 * kWG;              // q rows per CTA
+  static constexpr int kConsumers = 128 * kWG;
+  // the producer: a warp, or a warpgroup that hands its registers on
+  static constexpr bool kProducerWG = D > 64;
+  static constexpr int kThreads = kConsumers + (kProducerWG ? 128 : 32);
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static_assert(!kProducerWG || 128 * kProducerRegs + kConsumers * kConsumerRegs <=
+                                    kThreads * ((65536 / kThreads) & ~7),
+                "setmaxnreg asks for more registers than the CTA starts with");
+  // q and k (K-major): panels of kRow-byte rows, k steps of 16 bf16
+  static constexpr int kRow = swizzle_row(2 * D);
+  static constexpr int kPanels = (2 * D + 127) / 128;
+  static constexpr int kSteps = D / 16;
+  // v (MN-major): panels of kVCols columns, kVRow bytes a row
+  static constexpr int kVCols = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kVRow = 2 * kVCols;
+  static constexpr int kVPanels = D / kVCols;
+  static constexpr int kQTile = kBM * kRow * kPanels;  // bytes
+  static constexpr int kKTile = kBN * kRow * kPanels;
+  static constexpr int kVTile = kBN * 2 * D;
+  // 4 stages where they fit beside q, the barriers and the 1024-byte
+  // alignment, in the 227 KB a block may take; else 3; 3 at D 64 (above)
+  static constexpr int kStages =
+      D != 64 && kQBufs * kQTile + 4 * (kKTile + kVTile) + 2 * 1024 <= 232448 ? 4 : 3;
+};
+
+template <int D, int kQBufs>
 struct Smem {
-  __nv_bfloat16 q[kQBufs][kBM * kD];
-  __nv_bfloat16 k[kStages][kBN * kD];  // K rows, or K^T as two 64-column boxes
-  __nv_bfloat16 v[kStages][kBN * kD];
-  Ring<kStages> ring;
+  using P = Plan<D, kQBufs>;
+  uint8_t q[kQBufs][P::kQTile];
+  uint8_t k[P::kStages][P::kKTile];  // K rows, or K^T as two 64-column boxes
+  uint8_t v[P::kStages][P::kVTile];
+  Ring<P::kStages> ring;
   uint64_t q_full[kQBufs];
   uint64_t q_empty[kQBufs];  // kHeads: every consumer has read the q buffer
 };
 
 struct Params {
-  __nv_bfloat16* out;  // [BH, sq, 64]
+  __nv_bfloat16* out;  // [BH, sq, D]
   int sq, kv_end, round_l, pad;
   float qscale;
   // kHeads: hper heads an item, q tiles a head, full rounds of gridDim.x
@@ -113,7 +157,7 @@ __device__ __forceinline__ int work_count(const Params& p) {
 // q tile), q tiles fastest, so the CTAs of one round share K and V in L2.
 // The last round's head-tiles are dealt q tiles fastest too: the CTAs that
 // run together take one head of consecutive items
-template <bool kHeads>
+template <int kBM, bool kHeads>
 __device__ __forceinline__ void work_at(const Params& p, int w, int& q0, int& bh) {
   if (!kHeads) {
     q0 = blockIdx.x * kBM;
@@ -134,13 +178,16 @@ __device__ __forceinline__ void work_at(const Params& p, int w, int& q0, int& bh
   bh = (item / p.q_tiles) * p.hper + hh;
 }
 
-template <bool kExp2, int kMask, bool kKt, bool kHeads>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D, bool kExp2, int kMask, bool kKt, bool kHeads>
+__global__ void __launch_bounds__(Plan<D, kHeads ? 2 : 1>::kThreads, 1)
 cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap, const Params prm) {
+  static_assert(D == 64 || (!kKt && !kHeads), "K^T and the heads walk: head_dim 64 only");
   constexpr int kQBufs = kHeads ? 2 : 1;
+  using P = Plan<D, kQBufs>;
+  constexpr int kBM = P::kBM, kConsumers = P::kConsumers, kRow = P::kRow;
   extern __shared__ uint8_t smem_raw[];
-  Smem<kQBufs>& sm = *reinterpret_cast<Smem<kQBufs>*>(
+  Smem<D, kQBufs>& sm = *reinterpret_cast<Smem<D, kQBufs>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int n_tiles = (prm.kv_end + kBN - 1) / kBN;  // later tiles change nothing
   const int n_work = work_count<kHeads>(prm);
@@ -158,23 +205,29 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 
   if (threadIdx.x >= kConsumers) {
     // ---- producer: one thread issues every TMA load ----
+    if constexpr (P::kProducerWG) setmaxnreg_dec<P::kProducerRegs>();
     if (threadIdx.x == kConsumers) {
       for (int w = 0, i = 0; w < n_work; ++w) {
         int q0, bh;
-        work_at<kHeads>(prm, w, q0, bh);
+        work_at<kBM, kHeads>(prm, w, q0, bh);
         const int b = w % kQBufs;
         if (kHeads && w >= kQBufs) mbar_wait(&sm.q_empty[b], (w / kQBufs - 1) & 1);
-        mbar_expect_tx(&sm.q_full[b], kQBytes);
-        tma_load_3d(sm.q[b], &qmap, &sm.q_full[b], 0, q0, bh);
+        mbar_expect_tx(&sm.q_full[b], P::kQTile);
+        for (int p = 0; p < P::kPanels; ++p)
+          tma_load_3d(sm.q[b] + p * kBM * kRow, &qmap, &sm.q_full[b], p * kRow / 2, q0, bh);
         for (int t = 0; t < n_tiles; ++t, ++i) {
-          const int s = sm.ring.acquire(i, 2 * kTileBytes);
+          const int s = sm.ring.acquire(i, P::kKTile + P::kVTile);
           if (kKt) {
             tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], t * kBN, 0, bh);
-            tma_load_3d(sm.k[s] + 64 * kD, &kmap, &sm.ring.full[s], t * kBN + 64, 0, bh);
+            tma_load_3d(sm.k[s] + 64 * 2 * D, &kmap, &sm.ring.full[s], t * kBN + 64, 0, bh);
           } else {
-            tma_load_3d(sm.k[s], &kmap, &sm.ring.full[s], 0, t * kBN, bh);
+            for (int p = 0; p < P::kPanels; ++p)
+              tma_load_3d(sm.k[s] + p * kBN * kRow, &kmap, &sm.ring.full[s], p * kRow / 2,
+                          t * kBN, bh);
           }
-          tma_load_3d(sm.v[s], &vmap, &sm.ring.full[s], 0, t * kBN, bh);
+          for (int p = 0; p < P::kVPanels; ++p)
+            tma_load_3d(sm.v[s] + p * kBN * P::kVRow, &vmap, &sm.ring.full[s], p * P::kVCols,
+                        t * kBN, bh);
         }
       }
     }
@@ -182,37 +235,43 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   }
 
   // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 ----
+  if constexpr (P::kProducerWG) setmaxnreg_inc<P::kConsumerRegs>();
   const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
   const int lane = tid % 32, warp = t / 32;
   const int c = lane % 4;
+  constexpr Swizzle swz = desc_swizzle(kRow);
 
   for (int w = 0, base = 0; w < n_work; ++w, base += n_tiles) {
     int q0, bh;
-    work_at<kHeads>(prm, w, q0, bh);
+    work_at<kBM, kHeads>(prm, w, q0, bh);
     const int b = w % kQBufs;
-    __nv_bfloat16* qs = sm.q[b] + wg * 64 * kD;
+    uint8_t* qs = sm.q[b] + wg * 64 * kRow;  // in panel 0
 
-    // q * qscale rounded to bf16, in place (elementwise, so the swizzle is moot)
+    // q * qscale rounded to bf16, in place (elementwise, so the swizzle is
+    // moot; the zero fill past D stays zero)
     mbar_wait(&sm.q_full[b], (w / kQBufs) & 1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint4* p = reinterpret_cast<uint4*>(qs) + t + 128 * i;
-      uint4 raw = *p;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+    for (int p = 0; p < P::kPanels; ++p) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(h[j]);
-        h[j] = __floats2bfloat162_rn(__fmul_rn(f.x, prm.qscale), __fmul_rn(f.y, prm.qscale));
+      for (int i = 0; i < 64 * kRow / 16 / 128; ++i) {
+        uint4* ptr = reinterpret_cast<uint4*>(qs + p * kBM * kRow) + t + 128 * i;
+        uint4 raw = *ptr;
+        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(h[j]);
+          h[j] = __floats2bfloat162_rn(__fmul_rn(f.x, prm.qscale), __fmul_rn(f.y, prm.qscale));
+        }
+        *ptr = raw;
       }
-      *p = raw;
     }
     fence_proxy_async();
     named_sync(1 + wg, 128);
 
-    const uint64_t qdesc = make_desc(qs, 16, 1024, kSw128);
-    float o[32];
+    const uint64_t qdesc = make_desc(qs, 16, 8 * kRow, swz);
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows r, r + 8
     // bf16(p) as the A fragments of P V (k step kk takes accumulator chunks
     // 2kk and 2kk + 1). Tile it's P V stays in flight while tile it + 1's
@@ -221,17 +280,22 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 
     for (int it = 0; it < n_tiles; ++it) {
       const int s = sm.ring.wait_full(base + it);
-      // K rows: K-major; K^T: MN-major, its two 64-column boxes LBO apart
+      // K rows: K-major, panels of kRow bytes; K^T: MN-major, its two
+      // 64-column boxes LBO apart. V: MN-major, its panels LBO apart.
       const uint64_t kdesc = kKt ? make_desc(sm.k[s], 8192, 1024, kSw128)
-                                 : make_desc(sm.k[s], 16, 1024, kSw128);
-      const uint64_t vdesc = make_desc(sm.v[s], 8192, 1024, kSw128);
+                                 : make_desc(sm.k[s], 16, 8 * kRow, swz);
+      const uint64_t vdesc =
+          make_desc(sm.v[s], kBN * P::kVRow, 8 * P::kVRow, desc_swizzle(P::kVRow));
 
       float acc[64];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_m64n128k16_ss_bf16<kKt ? 1 : 0>(acc, desc_add(qdesc, 32 * kk),
-                                              desc_add(kdesc, (kKt ? 2048 : 32) * kk), kk > 0);
+      for (int st = 0; st < P::kSteps; ++st) {
+        const int panel = 32 * st / kRow, col = 32 * st % kRow;
+        wgmma_m64n128k16_ss_bf16<kKt ? 1 : 0>(
+            acc, desc_add(qdesc, panel * kBM * kRow + col),
+            desc_add(kdesc, kKt ? 2048 * st : panel * kBN * kRow + col), st > 0);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -299,7 +363,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       l0 = __fadd_rn(__fmul_rn(alpha0, l0), sum0);
       l1 = __fadd_rn(__fmul_rn(alpha1, l1), sum1);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
         o[4 * j] = __fmul_rn(o[4 * j], alpha0);
         o[4 * j + 1] = __fmul_rn(o[4 * j + 1], alpha0);
         o[4 * j + 2] = __fmul_rn(o[4 * j + 2], alpha1);
@@ -310,7 +374,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_rs_bf16_vt<64>(o, pa[kk], desc_add(vdesc, 2048 * kk), 1);
+        wgmma_rs_bf16_vt<D>(o, pa[kk], desc_add(vdesc, 16 * P::kVRow * kk), 1);
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -334,48 +398,61 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     const float inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
     const float inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
     const int row = q0 + wg * 64 + warp * 16 + lane / 4;
-    __nv_bfloat16* obase = prm.out + (int64_t)bh * prm.sq * kD;
+    __nv_bfloat16* obase = prm.out + (int64_t)bh * prm.sq * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * c;
       if (row < prm.sq)
-        *reinterpret_cast<uint32_t*>(obase + (int64_t)row * kD + col) =
+        *reinterpret_cast<uint32_t*>(obase + (int64_t)row * D + col) =
             pack_bf16(__fmul_rn(o[4 * j], inv0), __fmul_rn(o[4 * j + 1], inv0));
       if (row + 8 < prm.sq)
-        *reinterpret_cast<uint32_t*>(obase + (int64_t)(row + 8) * kD + col) =
+        *reinterpret_cast<uint32_t*>(obase + (int64_t)(row + 8) * D + col) =
             pack_bf16(__fmul_rn(o[4 * j + 2], inv1), __fmul_rn(o[4 * j + 3], inv1));
     }
   }
 }
 
-// The q map of a [BH, sq, 64] bf16 tensor in 192-row boxes; a K or V map of
-// [BH, rows, 64] in 128-row boxes; a K^T map of [BH, 64, k_row] in 64 x 64
-// boxes. Each returns false where cuTensorMapEncodeTiled refuses it.
-inline bool q_map(CUtensorMap* map, const void* q, int BH, int sq) {
-  return make_map_3d(map, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kD, sq, BH, kD, kBM,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
+// The q map of a [BH, sq, D] bf16 tensor in kBM-row boxes of one panel row;
+// a K map of [BH, rows, D] in 128-row boxes of one panel row; a V map of
+// [BH, rows, D] in 128-row boxes of kVCols columns; a K^T map of [BH, 64,
+// k_row] in 64 x 64 boxes (D 64). Each returns false where
+// cuTensorMapEncodeTiled refuses it.
+template <int D>
+bool q_map(CUtensorMap* map, const void* q, int BH, int sq) {
+  using P = Plan<D>;
+  return make_map_3d(map, q, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, sq, BH, P::kRow / 2,
+                     P::kBM, map_swizzle(P::kRow));
 }
-inline bool kv_map(CUtensorMap* map, const void* x, int BH, int rows) {
-  return make_map_3d(map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, kD, rows, BH, kD, kBN,
-                     CU_TENSOR_MAP_SWIZZLE_128B);
+template <int D>
+bool k_map(CUtensorMap* map, const void* k, int BH, int rows) {
+  using P = Plan<D>;
+  return make_map_3d(map, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, rows, BH, P::kRow / 2,
+                     kBN, map_swizzle(P::kRow));
+}
+template <int D>
+bool v_map(CUtensorMap* map, const void* v, int BH, int rows) {
+  using P = Plan<D>;
+  return make_map_3d(map, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, rows, BH, P::kVCols, kBN,
+                     map_swizzle(P::kVRow));
 }
 inline bool kt_map(CUtensorMap* map, const void* kt, int BH, int k_row) {
-  return make_map_3d(map, kt, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k_row, kD, BH, 64, kD,
+  return make_map_3d(map, kt, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k_row, 64, BH, 64, 64,
                      CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // One launch of an instance. Without kHeads the grid is (q tiles, BH); with
 // it, min(SMs, head-tiles) CTAs and prm's walk filled in here.
-template <bool kExp2, int kMask, bool kKt, bool kHeads>
+template <int D, bool kExp2, int kMask, bool kKt, bool kHeads>
 int launch(const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& vmap,
            Params prm, int BH, cudaStream_t stream) {
+  using P = Plan<D, kHeads ? 2 : 1>;
   // + 1024 so the tiles can start on a 1024-byte boundary
-  constexpr int kSmem = sizeof(Smem<kHeads ? 2 : 1>) + 1024;
-  auto kernel = cell_kernel<kExp2, kMask, kKt, kHeads>;
+  constexpr int kSmem = sizeof(Smem<D, kHeads ? 2 : 1>) + 1024;
+  auto kernel = cell_kernel<D, kExp2, kMask, kKt, kHeads>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  prm.q_tiles = (prm.sq + kBM - 1) / kBM;
+  prm.q_tiles = (prm.sq + P::kBM - 1) / P::kBM;
   dim3 grid(prm.q_tiles, BH);
   if (kHeads) {
     int dev = 0, sms = 0;
@@ -388,7 +465,7 @@ int launch(const CUtensorMap& qmap, const CUtensorMap& kmap, const CUtensorMap& 
     prm.left = items - prm.rounds * ctas;
     grid = dim3(ctas);
   }
-  kernel<<<grid, kThreads, kSmem, stream>>>(qmap, kmap, vmap, prm);
+  kernel<<<grid, P::kThreads, kSmem, stream>>>(qmap, kmap, vmap, prm);
   return static_cast<int>(cudaGetLastError());
 }
 

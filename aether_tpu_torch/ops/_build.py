@@ -81,15 +81,7 @@ SIGNATURES = {
         _I, _I, _I,          # BH, s_pad, s_valid
         _I, _I, _I, _I,      # hper, block (a multiple of 128), n_blocks, qk_int8
         _I,                  # noshift (0 keep, 1 drop, 2 drop when every bound < 96)
-        _P,                  # stream
-    ],
-    "aether_flash_prepacked_hd": [
-        _P, _P, _P,          # q, k (int8, or folded bf16), v (bf16): [B*H, s_pad, D]
-        _P, _P, _P, _P,      # qsc, ksc, qn, kn (f32, [G, T])
-        _P,                  # out (bf16, [B*H, s_pad, D])
-        _I, _I, _I,          # BH, s_pad, s_valid
-        _I, _I, _I, _I,      # hper, block (a multiple of 128), n_blocks, qk_int8
-        _I, _I,              # noshift (as above), D (16, 32, 48, 80, 96 or 112)
+        _I,                  # D (16 to 112 in steps of 16)
         _P,                  # stream
     ],
     "aether_flash_online": [
@@ -98,16 +90,10 @@ SIGNATURES = {
         _P,                  # stream
     ],
     "aether_flash_online_bf16": [
-        _P, _P, _P, _P,      # q (unfolded), k, v, out: bf16 [B*H, sq | skv, 64]
-        _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
-        _I, _F,              # round_l (denom "mxu"), q fold sm_scale * log2e
-        _P,                  # stream
-    ],
-    "aether_flash_online_bf16_hd": [
         _P, _P, _P, _P,      # q (unfolded), k, v, out: bf16 [B*H, sq | skv, D]
         _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
         _I, _F,              # round_l (denom "mxu"), q fold sm_scale * log2e
-        _I,                  # D (16, 32, 48, 80, 96, 112 or 128)
+        _I,                  # D (16 to 128 in steps of 16)
         _P,                  # stream
     ],
     "aether_flash_online_f32_hd": [

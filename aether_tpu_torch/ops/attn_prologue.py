@@ -203,7 +203,11 @@ def qkv_prologue_plain(
         absmax = cells.abs().amax(dim=(1, 3, 4))  # [G, T]
         normmax = torch.sqrt((cells * cells).sum(dim=-1).amax(dim=(1, 3)))
         if quantize:
-            r = torch.where(absmax > 0.0, 127.0 / torch.clamp(absmax, min=1e-30),
+            # 127 / absmax correctly rounded, as the Pallas kernel and both
+            # CUDA kernels divide (torch's scalar 127.0 / t is 127 *
+            # reciprocal(t), two roundings, which moves half-way codes)
+            r = torch.where(absmax > 0.0,
+                            torch.full_like(absmax, 127.0) / torch.clamp(absmax, min=1e-30),
                             zero)
             r = r[:, None, :, None, None]
             out = torch.round(cells * r).to(torch.int8).reshape(bh, s_pad, hd)

@@ -22,13 +22,15 @@ whole-sequence per-group symmetric int8 quantization of q and k (and of v for
 K6) with one combined dequantization scalar per group, and the ``noshift``
 choice made on the device.
 
-K4, :func:`flash_attention` (``fixed_max=False``) replaces ``_flash_kernel``
-with two sources at head_dim 64: ``csrc/flash_online.cu`` for f32 (the
-forward of the training path) and ``csrc/flash_online_bf16.cu`` for bf16
-(the attention at ``AETHER_ATTN_FIXED_MAX=0`` and the bench baseline;
-``wgmma`` with TMA); at the other head dims (16 to 128 in steps of 16)
-``csrc/flash_online_hd.cu`` (:func:`flash_attention_hd`, bf16 on
-``mma.sync``; :func:`flash_attention_f32_hd`, f32 on FMA).
+K4, :func:`flash_attention` (``fixed_max=False``) replaces ``_flash_kernel``.
+In bf16 (the attention at ``AETHER_ATTN_FIXED_MAX=0``, at head_dim 128 at the
+defaults, and the bench baseline) ``csrc/flash_online_bf16.cu`` runs at every
+head dim of ``ONLINE_HEAD_DIMS``: the ``wgmma`` + TMA online-softmax cell of
+``csrc/online_cell.cuh`` templated over the head dim, its launches counted
+here at 64 and on :func:`flash_attention_hd` at the others. In f32 (the
+forward of the training path) ``csrc/flash_online.cu`` runs at head_dim 64
+and ``csrc/flash_online_hd.cu`` (:func:`flash_attention_f32_hd`, the FMA
+cell) at the others.
 Both keep the JAX preparation: ``sm_scale * log2e`` folded into q and rounded
 to q's dtype (by the wrapper for f32, in the kernel for bf16) and the
 ``kv_valid`` tail zeroed; the f32 wrapper pads tokens to its kernel's tile,
@@ -47,12 +49,12 @@ K2, :func:`flash_attention_prepacked`: ``csrc/flash_prepacked.cu`` replaces
 ``_flash_kernel_prepacked``, both its int8 and its float (``AETHER_ATTN_QK8=0``)
 branch. K2 and K3 are one Hopper kernel, the fixed-shift cell of
 ``csrc/fixed_cell.cuh`` (``wgmma`` for both products, a TMA ring, p kept in
-registers between them, no running max); on the H100 it is bound by the SFU's
-exp2 (int8) or by bf16 operations (1.1e10 exp2 and 2.8e12 operations per K2
-call at 48 heads x 15076 valid tokens); the sources carry the full note. K2
-takes the cell at head_dim 64; its other head dims (multiples of 16 below
-128) run ``csrc/flash_prepacked_hd.cu`` (:func:`flash_attention_prepacked_hd`),
-a simple ``mma.sync`` form (``csrc/mma_cell.cuh``, shared with K4 bf16 hd).
+registers between them, no running max) templated over the head dim; on the
+H100 it is bound by the SFU's exp2 (int8) or by bf16 operations (1.1e10 exp2
+and 2.8e12 operations per K2 call at 48 heads x 15076 valid tokens and head_dim
+64); the sources carry the full note. K2 takes the cell at every head dim of
+``PREPACKED_HEAD_DIMS``, its launches counted here at 64 and on
+:func:`flash_attention_prepacked_hd` at the others.
 
 K2's math (log2 domain, non-causal, one fixed shift per head group):
 
@@ -108,8 +110,8 @@ def _heads_per_cell(bh: int, heads_per_cell: int) -> int:
 _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
 # the head dims K1, K2, K3 and K6 take on CUDA (the JAX kernels': multiples
 # of 16 below 128; at 128 and above the JAX wrapper turns the fixed max off);
-# K1 and K2 run their wgmma kernels at 64 and csrc/*_hd.cu at the others; K3
-# and K6 run one wgmma kernel at each
+# K1 runs its cluster kernel at 64 and csrc/attn_prologue_hd.cu at the
+# others; K2, K3 and K6 run one wgmma kernel at each
 PREPACKED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112)
 FIXED_MAX_HEAD_DIMS = PREPACKED_HEAD_DIMS
 # the head dims K4 takes on CUDA: those and 128, where the JAX wrapper forces
@@ -224,8 +226,9 @@ def flash_attention_prepacked(
             on the device, when every group's bound is below 96.
 
     A CPU tensor runs :func:`flash_attention_prepacked_plain`. A CUDA tensor
-    launches the Hopper kernel (head_dim 64; 16 to 112 in steps of 16 through
-    :func:`flash_attention_prepacked_hd`) or raises; there is no fallback.
+    launches the Hopper kernel at any head dim of ``PREPACKED_HEAD_DIMS``
+    (counted here at 64, on :func:`flash_attention_prepacked_hd` at the
+    others) or raises; there is no fallback.
     """
     if noshift not in _NOSHIFT_CODES:
         raise ValueError(f"noshift must be False, True or None, got {noshift!r}")
@@ -263,8 +266,7 @@ def flash_attention_prepacked(
     if d != 64:
         flash_attention_prepacked_hd(args, d, q.device)
         return out
-    rc = _build.lib().aether_flash_prepacked(*args, _build.stream_ptr(q.device))
-    _build.check(rc, "aether_flash_prepacked")
+    _prepacked_launch(args, d, q.device)
     _build.count_launch(flash_attention_prepacked)
     return out
 
@@ -273,12 +275,19 @@ def flash_attention_prepacked(
 flash_attention_prepacked.launches = 0
 
 
+def _prepacked_launch(args: tuple, head_dim: int, device) -> None:
+    """K2's kernel (``csrc/flash_prepacked.cu``) alone, uncounted, on the C
+    arguments :func:`flash_attention_prepacked` makes of its checked
+    operands."""
+    rc = _build.lib().aether_flash_prepacked(*args, head_dim, _build.stream_ptr(device))
+    _build.check(rc, "aether_flash_prepacked")
+
+
 def flash_attention_prepacked_hd(args: tuple, head_dim: int, device) -> None:
-    """K2 at a head dim other than 64 (``csrc/flash_prepacked_hd.cu``,
-    ``mma.sync``): the launch :func:`flash_attention_prepacked` makes with
-    its checked operands' C arguments. ``.launches`` counts its launches."""
-    rc = _build.lib().aether_flash_prepacked_hd(*args, head_dim, _build.stream_ptr(device))
-    _build.check(rc, "aether_flash_prepacked_hd")
+    """K2 at a head dim other than 64: :func:`_prepacked_launch` (the same
+    ``wgmma`` + TMA kernel as at 64), its launches counted here.
+    ``.launches`` counts them."""
+    _prepacked_launch(args, head_dim, device)
     _build.count_launch(flash_attention_prepacked_hd)
 
 
@@ -334,26 +343,23 @@ def _online_operands(q, k, v, sm_scale, kv_valid):
 
 
 def _online_bf16_launch(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float) -> None:
-    """The K4 bf16 kernel alone on prepared operands: q [BH, Sq, 64] (not
-    yet folded; the kernel rounds bf16(q * fold)), k/v [BH, Skv, 64] with
-    rows >= kv_len zeroed, out [BH, Sq, 64]; all bf16 and contiguous."""
-    bh, sq, _ = qh.shape
+    """The K4 bf16 kernel (``csrc/flash_online_bf16.cu``) alone, uncounted,
+    on prepared operands: q [BH, Sq, D] (not yet folded; the kernel rounds
+    bf16(q * fold)), k/v [BH, Skv, D] with rows >= kv_len zeroed, out [BH,
+    Sq, D]; all bf16, contiguous and 16-byte aligned, D in
+    ``ONLINE_HEAD_DIMS``."""
+    bh, sq, dim = qh.shape
     rc = _build.lib().aether_flash_online_bf16(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-        bh, sq, kh.shape[1], kv_len, int(round_l), fold, _build.stream_ptr(qh.device))
+        bh, sq, kh.shape[1], kv_len, int(round_l), fold, dim, _build.stream_ptr(qh.device))
     _build.check(rc, "aether_flash_online_bf16")
 
 
 def flash_attention_hd(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float) -> None:
-    """K4 in bf16 at a head dim other than 64 (``csrc/flash_online_hd.cu``,
-    the ``mma.sync`` cell) on the operands of :func:`_online_bf16_launch`
-    (q not yet folded, k/v rows >= kv_len zeroed; [BH, S, D] bf16,
-    contiguous, 16-byte aligned). ``.launches`` counts its launches."""
-    bh, sq, dim = qh.shape
-    rc = _build.lib().aether_flash_online_bf16_hd(
-        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), bh, sq, kh.shape[1],
-        kv_len, int(round_l), fold, dim, _build.stream_ptr(qh.device))
-    _build.check(rc, "aether_flash_online_bf16_hd")
+    """K4 in bf16 at a head dim other than 64: :func:`_online_bf16_launch`
+    (the same ``wgmma`` + TMA kernel as at 64), its launches counted here.
+    ``.launches`` counts them."""
+    _online_bf16_launch(qh, kh, vh, out, kv_len, round_l, fold)
     _build.count_launch(flash_attention_hd)
 
 
@@ -941,11 +947,12 @@ def flash_attention(
     ``unnormalized`` returns ``(o, l)`` (see :func:`flash_attention_fixed_max`).
 
     A CPU tensor runs the plain versions. A CUDA tensor launches a Hopper
-    kernel or raises; there is no fallback: K4 at head_dim 64 in f32
-    launches ``csrc/flash_online.cu``, in bf16 ``csrc/flash_online_bf16.cu``
-    (``flash_attention.launches`` counts either); at the other head dims of
-    ``ONLINE_HEAD_DIMS`` :func:`flash_attention_f32_hd` or
-    :func:`flash_attention_hd`.
+    kernel or raises; there is no fallback: K4 in bf16 launches
+    ``csrc/flash_online_bf16.cu`` at every head dim of ``ONLINE_HEAD_DIMS``,
+    in f32 ``csrc/flash_online.cu`` at head_dim 64 (``flash_attention.
+    launches`` counts either at 64); at the other head dims the launches
+    count on :func:`flash_attention_hd` (bf16) or :func:`flash_attention_f32_hd`
+    (f32, ``csrc/flash_online_hd.cu``).
     """
     if qk_int8 and not fixed_max:
         raise ValueError("qk_int8 requires fixed_max=True (the int8 "
@@ -999,15 +1006,13 @@ def flash_attention(
         # the fold happens in the kernel; TMA reads past the ends as zeros
         k, v, kv_len = _online_kv(k, v, kv_valid)
         out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
+        qh, kh, vh = (_aligned(t.reshape(bh, t.shape[2], dim)) for t in (q, k, v))
+        fold = _online_fold(sm_scale, dim)
         if dim != 64:
-            qh, kh, vh = (_aligned(t.reshape(bh, t.shape[2], dim)) for t in (q, k, v))
-            flash_attention_hd(qh, kh, vh, out, kv_len, denom == "mxu",
-                               _online_fold(sm_scale, dim))
-            return out.reshape(b, h, sq, dim)
-        qh, kh, vh = (t.reshape(bh, t.shape[2], dim).contiguous() for t in (q, k, v))
-        _online_bf16_launch(qh, kh, vh, out, kv_len, denom == "mxu",
-                            _online_fold(sm_scale, dim))
-        _build.count_launch(flash_attention)
+            flash_attention_hd(qh, kh, vh, out, kv_len, denom == "mxu", fold)
+        else:
+            _online_bf16_launch(qh, kh, vh, out, kv_len, denom == "mxu", fold)
+            _build.count_launch(flash_attention)
         return out.reshape(b, h, sq, dim)
     q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
     if dim != 64:

@@ -278,8 +278,9 @@ Phase of the CogVideoX-1.5 slice, after 25 (``cogvideox15_phase`` and
      < 0.05 (phase 16's tightest bar); the same weights as int8 codes with
      int8 activations against bf16 at phase 16's w8a8 bar (norm relative <
      0.2), 4 x 42 int8 products; seconds and peak memory of each forward.
-     (b) K1 + K2 below head_dim 64 (``csrc/attn_prologue_hd.cu``,
-     ``csrc/flash_prepacked_hd.cu``): one 17x64x96 reconstruction request of
+     (b) K1 + K2 below head_dim 64 (``csrc/attn_prologue_hd.cu``, the
+     ``fixed_cell<D>`` instances of ``csrc/flash_prepacked.cu``): one
+     17x64x96 reconstruction request of
      ``PipelineConfig.tiny()`` (head_dim 16) on the card at the default
      attention settings against the same request on the CPU (the same
      weights and ``TorchNoise`` draws, bf16, f32 wires), and one forward of
@@ -287,14 +288,15 @@ Phase of the CogVideoX-1.5 slice, after 25 (``cogvideox15_phase`` and
      long-video gates (mean abs <= 1e-2, max <= 0.25 of max(1, |ref|)), with
      exact launches of the head-dim kernels (8, 2, 2) and none of the
      head_dim-64 ones; then K1 and K2 at 48 heads x 15076 tokens (padded to
-     15360) at head_dim 16, 32 and 112, int8 and float, against their plain
+     15360) at head_dim 16, 32, 48, 80, 96 and 112, int8 and float, against their plain
      versions at phase 3's, 4's and 14's accuracy gates, two launches
      bit-identical, timed beside one bf16 SDPA call at the same shape and
      against the bound.
 Phase of the head-dim slice, after 13 (``head_dims_all_phase``):
  27. K3, K4 and K6 at the head dims other than 64 and K3 in f32
-     (``csrc/flash_fixed_max.cu`` and ``flash_pv8.cu``, each templated over
-     the head dim; ``flash_fixed_max_hd.cu``, ``flash_online_hd.cu``): (c)
+     (``csrc/flash_fixed_max.cu``, ``flash_pv8.cu`` and, for K4 bf16,
+     ``flash_online_bf16.cu``, each templated over the head dim;
+     ``flash_fixed_max_hd.cu``, ``flash_online_hd.cu``): (c)
      one tiny 17x64x96 reconstruction request
      (head_dim 16, 4 steps) on the card against the CPU at the long-video
      gates at FUSED=0 with QK8=1 and QK8=0 (K3 hd), PV8=1 (K6 hd),
@@ -309,11 +311,12 @@ Phase of the head-dim slice, after 13 (``head_dims_all_phase``):
      f32 hd launches, and (d) one such step at head_dim 32, 112 and 128; (e)
      the sp = 4 ring over a (1, 48, 15076, 16) window against one K3 hd call
      (int8 and bf16 QK^T, 16 launches each); (a) each kernel at 48 heads x
-     15076 tokens, batch 1, at head_dim 16, 32 and 112 (K3 and K6 also
-     48, 80 and 96, K4 also 128, K3 f32 also 64) against its plain version at
-     the bars of its head_dim-64 counterpart here, two launches
+     15076 tokens, batch 1, at head_dim 16, 32 and 112 (K3, K6 and K4 bf16
+     also 48, 80 and 96, K4 also 128, K3 f32 also 64) against its plain
+     version at the bars of its head_dim-64 counterpart here, two launches
      bit-identical, timed beside the bound and one SDPA call of the same shape
-     and dtype, K3 and K6 also alone on the operands their wrappers prepare.
+     and dtype, K3, K6 and K4 bf16 also alone on the operands their wrappers
+     prepare.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -3232,10 +3235,12 @@ COG15_FRAMES, COG15_OFS = 12, 512
 COG15_PLAIN_BAR, COG15_W8A8_NORM_BAR = 0.05, 0.2
 # (a) ofs = 2 must move the output's mean magnitude by more than this share
 COG15_OFS_MOVES = 1e-3
-# (b) K1 + K2 below head_dim 64 at the main path's 48 heads x 15076 tokens;
-# the tiny request and the DiT forwards on the card against the CPU at the
-# long-video gates (mean abs <= 1e-2, max <= 0.25 of max(1, |ref|))
+# (b) the tiny request and the DiT forwards on the card against the CPU at
+# the long-video gates (mean abs <= 1e-2, max <= 0.25 of max(1, |ref|)) at
+# HD_DIMS; K1 + K2 at the main path's 48 heads x 15076 tokens at
+# PREPACKED_HD_DIMS
 HD_DIMS = (16, 32, 112)
+PREPACKED_HD_DIMS = (16, 32, 48, 80, 96, 112)
 TINY_FRAMES, TINY_HEIGHT, TINY_WIDTH = 17, 64, 96
 
 
@@ -3389,7 +3394,7 @@ def head_dim_phase(dev, gen):
     count. (ii) The tiny DiT at head_dim 32 and 112 (4 heads, 2 blocks): one
     forward on the card against the CPU at the same gates, 2 launches each.
     (iii) K1 and K2 at 48 heads x 15076 tokens (padded to 15360) at each of
-    ``HD_DIMS``, int8 and float: phase 3's and phase 4's (and phase 14's)
+    ``PREPACKED_HD_DIMS``, int8 and float: phase 3's and phase 4's (and phase 14's)
     accuracy gates against the plain versions, two launches bit-identical,
     the times beside one bf16 SDPA call at (1, 48, 15076, head_dim) and the
     bound. Returns ({head_dim: (K1 launches, K2 launches)} of (i)-(ii),
@@ -3492,7 +3497,7 @@ def head_dim_phase(dev, gen):
     # (iii) K1 and K2 at the main path's shape
     results = {}
     s_pad = 15360
-    for hd in HD_DIMS:
+    for hd in PREPACKED_HD_DIMS:
         d = HEADS * hd
         y = torch.randn((1, s_pad, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
         y[:, SEQ:] = 0
@@ -3573,10 +3578,13 @@ def head_dim_phase(dev, gen):
 # phase 27: K3, K4 and K6 at every head dim and dtype the JAX wrapper takes
 # ---------------------------------------------------------------------------
 
-# (a) K3 (bf16 v) and K6 at every head dim of their wgmma kernels but 64; K4
-# also at 128, where the JAX wrapper forces "vpu"; K3 in f32 also at 64
+# (a) K3 (bf16 v) and K6 at every head dim of their wgmma kernels but 64;
+# K4 bf16 also at 128, where the JAX wrapper forces "vpu"; K4 f32 at the
+# head dims phase 27's paths run it at (PATH_ONLINE_HD_DIMS, also K4 bf16's
+# on those paths); K3 in f32 also at 64
 FIXED_HD_DIMS = (16, 32, 48, 80, 96, 112)
-ONLINE_HD_DIMS = HD_DIMS + (128,)
+ONLINE_HD_DIMS = FIXED_HD_DIMS + (128,)
+PATH_ONLINE_HD_DIMS = HD_DIMS + (128,)
 F32_HD_DIMS = (16, 32, 64, 112)
 # (b) the trainer CLI's documented tiny run; (b, d) phase 23's tolerance of
 # one process against another on the losses
@@ -3644,13 +3652,19 @@ def counted(fn, expect, what):
 
 
 def hd_alone_ms(name, q, k, v, out):
-    """K3 (``name`` "K3 int8" or "K3 bf16") or K6 alone on the operands its
-    wrapper prepares (uncounted): the CUDA-event ms of 5 calls, its output
-    held bit for bit to the wrapper's ``out``."""
+    """K3 (``name`` "K3 int8" or "K3 bf16"), K6 or K4 bf16 alone on the
+    operands its wrapper prepares (uncounted): the CUDA-event ms of 5 calls,
+    its output held bit for bit to the wrapper's ``out``."""
     from aether_tpu_torch.ops import flash_attention as fa
 
     b, h, s, hd = q.shape
-    if name == "K6":
+    if name == "K4 bf16":
+        qh, kh, vh = (t.reshape(b * h, s, hd).contiguous() for t in (q, k, v))
+        buf = torch.empty_like(qh)
+        fold = fa._online_fold(None, hd)
+        ms = cuda_time_ms(lambda: fa._online_bf16_launch(qh, kh, vh, buf, s, hd < 128, fold), 5)
+        got = buf.view(q.shape)
+    elif name == "K6":
         qp, kp, vt, ops, span = fa._pv8_operands(q, k, v, sm_scale=None, kv_valid=None,
                                                  block_k=1024, heads_per_cell=4)
         buf = torch.empty((b * h, qp.shape[1], hd), dtype=q.dtype, device=q.device)
@@ -3671,14 +3685,15 @@ def hd_alone_ms(name, q, k, v, out):
 
 def hd_kernels_phase(dev, gen):
     """Phase 27 (a): K3, K4 and K6 at the main path's 48 heads x 15076
-    tokens, batch 1, at each of ``HD_DIMS`` (K3 with bf16 v and K6 at
-    ``FIXED_HD_DIMS``, K4 also 128, K3 f32 at ``F32_HD_DIMS``), against their
+    tokens, batch 1 (K3 with bf16 v and K6 at ``FIXED_HD_DIMS``, K4 bf16 at
+    ``ONLINE_HD_DIMS``, K4 f32 at ``PATH_ONLINE_HD_DIMS``, K3 f32 at
+    ``F32_HD_DIMS``), against their
     plain versions at the bars of their head_dim-64 counterparts in this
     script: K3 (int8 and bf16 QK^T) max 1e-2 / mean 1e-3, K6 1e-2 / 1e-4
     (phase 10), K4 and K3 in f32 1e-4 / 1e-4, K4 bf16 ``bf16_gates`` (phase
     7). One launch of the head-dim kernel a call, two launches
-    bit-identical. The kernel's CUDA-event ms of 5 warm calls (K3 and K6 also
-    alone, ``hd_alone_ms``), the plain version's of the one call compared
+    bit-identical. The kernel's CUDA-event ms of 5 warm calls (K3, K6 and K4
+    bf16 also alone, ``hd_alone_ms``), the plain version's of the one call compared
     (it runs for hundreds of ms; a second would add a minute to the phase),
     the bound and one SDPA call of the same shape and dtype. Returns {(name,
     head_dim): (max abs error, ms, plain ms, bound, SDPA ms)}."""
@@ -3700,9 +3715,10 @@ def hd_kernels_phase(dev, gen):
             yield ("K3 f32", (torch.float32, 4), "flash_attention_fixed_max_f32",
                    ("f32", "f32"), fa.flash_attention_fixed_max,
                    fa.flash_attention_fixed_max_plain, (1e-4, 1e-4))
-        if hd in ONLINE_HD_DIMS:
+        if hd in PATH_ONLINE_HD_DIMS:
             yield ("K4 f32", (torch.float32, 4), "flash_attention_f32_hd", ("f32", "f32"),
                    fa.flash_attention, fa.flash_attention_plain, (1e-4, 1e-4))
+        if hd in ONLINE_HD_DIMS:
             yield ("K4 bf16", bf16, "flash_attention_hd", ("bf16", "bf16"),
                    fa.flash_attention, fa.flash_attention_plain, None)
 
@@ -3726,7 +3742,7 @@ def hd_kernels_phase(dev, gen):
             del ref
             ms = cuda_time_ms(lambda: kernel(q, k, v), 5)
             alone = ""
-            if name in ("K3 int8", "K3 bf16", "K6"):
+            if name in ("K3 int8", "K3 bf16", "K6", "K4 bf16"):
                 alone_ms = hd_alone_ms(name, q, k, v, out)
                 alone = f"; alone {alone_ms:.4f} ms, the wrapper's passes {ms - alone_ms:.4f} ms"
             del q, k, v, out
@@ -4409,7 +4425,7 @@ def main() -> None:
           for i, (name, kern, source, replaces) in enumerate((
               ("attn_prologue", "K1", "attn_prologue_hd.cu",
                "aether_tpu/ops/attn_prologue.py:91"),
-              ("flash_prepacked", "K2", "flash_prepacked_hd.cu",
+              ("flash_prepacked", "K2", "flash_prepacked.cu",
                "aether_tpu/ops/flash_attention.py:812")))),
         *(entry(f"{name}{hd}", source, replaces, hd27_launches[counter, hd],
                 *hd27_kernels[kern, hd])
@@ -4419,9 +4435,9 @@ def main() -> None:
               ("flash_fixed_max_f32_hd", "K3 f32", "flash_attention_fixed_max_f32",
                "flash_fixed_max_hd.cu", "aether_tpu/ops/flash_attention.py:151", F32_HD_DIMS),
               ("flash_online_hd", "K4 f32", "flash_attention_f32_hd", "flash_online_hd.cu",
-               "aether_tpu/ops/flash_attention.py:69", ONLINE_HD_DIMS),
-              ("flash_online_bf16_hd", "K4 bf16", "flash_attention_hd", "flash_online_hd.cu",
-               "aether_tpu/ops/flash_attention.py:69", ONLINE_HD_DIMS),
+               "aether_tpu/ops/flash_attention.py:69", PATH_ONLINE_HD_DIMS),
+              ("flash_online_bf16_hd", "K4 bf16", "flash_attention_hd", "flash_online_bf16.cu",
+               "aether_tpu/ops/flash_attention.py:69", PATH_ONLINE_HD_DIMS),
               ("flash_pv8_hd", "K6", "flash_attention_pv8_hd", "flash_pv8.cu",
                "aether_tpu/ops/flash_attention.py:259", HD_DIMS))
           for hd in dims),

@@ -460,8 +460,9 @@ def test_flash_prepacked_refuses_what_it_does_not_take(dev):
     assert flash_attention_prepacked.launches == before
 
 
-# K1 and K2 at the head dims other than 64 (csrc/attn_prologue_hd.cu,
-# csrc/flash_prepacked_hd.cu): (batch, tokens, heads, s_valid, rope rows)
+# K1 and K2 at the head dims other than 64 (csrc/attn_prologue_hd.cu; the
+# fixed_cell<D, int8 or bf16, per-tile scale> instances of
+# csrc/flash_prepacked.cu): (batch, tokens, heads, s_valid, rope rows)
 HD_CASES = [
     (2, 300, 3, 250, 300),      # hper 3: groups straddle the two batches
     (1, 1700, 4, 1650, 1600),   # two 1024-token tiles, tables short of s
@@ -736,7 +737,8 @@ def test_fixed_max_kernels_refuse_what_they_do_not_take(dev):
 
 
 # ---- K3, K4 and K6 at the other head dims; K3 in f32 ----
-# (csrc/flash_fixed_max.cu, flash_fixed_max_hd.cu, flash_online_hd.cu, flash_pv8.cu)
+# (csrc/flash_fixed_max.cu, flash_fixed_max_hd.cu, flash_online_bf16.cu (K4
+# bf16, online_cell<D>), flash_online_hd.cu (K4 f32), flash_pv8.cu)
 
 _HD_COUNTED = (flash_attention_fixed_max_hd, flash_attention_fixed_max_f32, flash_attention_hd,
                flash_attention_f32_hd, flash_attention_pv8_hd)

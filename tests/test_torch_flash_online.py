@@ -177,6 +177,6 @@ def test_online_preparation_splits_into_fold_and_kv_tail():
     assert torch.equal(qo, (q.float() * _online_fold(None, 64)).to(torch.bfloat16))
     assert _online_fold(0.5, 64) == 0.5 * 1.4426950408889634
     # the bf16 kernel's C entry point: q, k, v, out, BH, sq, skv, kv_len,
-    # round_l, the fold as a float, the stream
+    # round_l, the fold as a float, the head dim, the stream
     sig = _build.SIGNATURES["aether_flash_online_bf16"]
-    assert len(sig) == 11 and sig[9] is ctypes.c_float
+    assert len(sig) == 12 and sig[9] is ctypes.c_float and sig[10] is ctypes.c_int
