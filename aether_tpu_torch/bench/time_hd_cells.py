@@ -1,9 +1,9 @@
-"""Time K2, K3, K4 bf16 and K6 at every head dim, one checkout against another, on an
+"""Time K2, K3, K4 and K6 at every head dim, one checkout against another, on an
 NVIDIA GPU.
 
     python aether_tpu_torch/bench/time_hd_cells.py unpack REV DIR
-    python aether_tpu_torch/bench/time_hd_cells.py ab DIR [--json OUT]
-    python aether_tpu_torch/bench/time_hd_cells.py run [CHECKOUT] [--json OUT]
+    python aether_tpu_torch/bench/time_hd_cells.py ab DIR [--json OUT] [--only f32]
+    python aether_tpu_torch/bench/time_hd_cells.py run [CHECKOUT] [--json OUT] [--only f32]
 
 ``unpack`` (in a git checkout) writes revision REV's ``aether_tpu_torch`` and
 ``chip_smoke.py`` into DIR with ``git archive``; make DIR a git-ignored
@@ -11,7 +11,10 @@ directory of this repository (``_checkout/parent``) so that a copy of the
 working tree carries it to the card. ``ab`` runs DIR, this checkout, this
 checkout, DIR, each in its own process (each package builds its kernels into
 its own ``_build/``), prints every case's four times side by side and fails
-unless the head_dim-64 outputs are bit-identical across the four runs.
+unless the head_dim-64 outputs of the bf16 and int8 kernels are bit-identical
+across the four runs and each f32 output is bit-identical between the two
+runs of one checkout (the f32 kernels' outputs are held to their plain
+version instead: a redesign of them moves their last bits).
 ``run`` times one checkout (default: this one) and prints, for that package:
 
 - on a fresh build, the registers and spill of every kernel of the sources
@@ -29,7 +32,14 @@ unless the head_dim-64 outputs are bit-identical across the four runs.
   unnormalized (int8 and bf16 QK^T) on one ring step of ``chip_smoke.py``
   phase 27e, a (1, 48, 3840, D) q stripe against a kv stripe of the same
   size with a shared score bound; K4 bf16 at (1, 48, 15076, D) through the
-  wrapper and alone, also at 128 ("vpu").
+  wrapper and alone, also at 128 ("vpu");
+- the f32 kernels (the training forward and the f32 request): K4 f32 at
+  (1, 48, 15076, D), D 16 to 128 (64 included, 128 "vpu"), and K3 f32 with
+  f32 and int8 QK^T at D 16 to 112, through the wrapper and alone on the
+  operands the wrapper prepares (either checkout's form), each output held
+  to its plain version at max abs 1e-4 (the run fails otherwise), beside one
+  f32 ``scaled_dot_product_attention`` call at each D. ``--only f32`` runs
+  these alone.
 
 Every time is three CUDA-event means of 5 calls (10 for K2). Timing and the
 ptxas names are ``chip_smoke.py``'s, as in ``time_prologue.py`` (K1). Needs
@@ -65,7 +75,7 @@ def digest(t: torch.Tensor) -> str:
                           .tobytes()).hexdigest()[:16]
 
 
-def run(checkout: str, out_json) -> None:
+def run(checkout: str, out_json, only=None) -> None:
     # the package of that checkout, not one imported already, and the helpers
     # of its chip_smoke.py
     sys.path.insert(0, checkout)
@@ -100,6 +110,12 @@ def run(checkout: str, out_json) -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
+    if only == "f32":
+        f32_cases(cs, fa, _build, dev, gen, result, times)
+        if out_json:
+            with open(out_json, "w") as f:
+                json.dump(result, f)
+        return
 
     def k2_cases(hd):
         """K2 int8 and float over K1's operands at (48, 15360, hd), 15076 valid."""
@@ -202,12 +218,96 @@ def run(checkout: str, out_json) -> None:
         del q, k, v, qs, ks, vs
         torch.cuda.empty_cache()
         k2_cases(hd)
+    f32_cases(cs, fa, _build, dev, gen, result, times)
     if out_json:
         with open(out_json, "w") as f:
             json.dump(result, f)
 
 
-def ab(other: str, out_json) -> None:
+F32_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+
+
+def f32_cases(cs, fa, _build, dev, gen, result, times) -> None:
+    """K4 f32 at ``F32_DIMS`` and K3 f32 (f32 and int8 QK^T) at those below
+    128, through the wrapper and alone, against their plain versions at max
+    abs 1e-4, beside one f32 SDPA call a head dim. Takes either form of the
+    kernels: the 3xTF32 cell's split operands (``_tf32_operands``) or the
+    FMA kernels they replaced."""
+    split_form = hasattr(fa, "_tf32_operands")
+    print(f"f32 kernels: {'the 3xTF32 cell' if split_form else 'the FMA kernels'}", flush=True)
+
+    def k4_alone(q, k, v, hd):
+        """(launch, output view) of K4 f32 alone on its wrapper's operands."""
+        qf, kf, vf, kv_len = fa._online_operands(q, k, v, None, None)
+        heads = [t.reshape(H, S, hd) for t in (qf, kf, vf)]
+        if split_form:
+            split = fa._tf32_operands(*heads)
+            buf = torch.empty((H, S, hd), device=dev)
+            return lambda: fa._online_f32_launch(split, buf, kv_len), buf
+        if hd != 64:
+            qh, kh, vh = (t.contiguous() for t in heads)
+            buf = torch.empty((H, S, hd), device=dev)
+            return lambda: fa.flash_attention_f32_hd(qh, kh, vh, buf, kv_len), buf
+        pad = -(-S // 64) * 64  # the FMA kernel's 64-row tiles
+        qp, kp, vp = (fa._pad_rows(t, pad) for t in heads)
+        buf = torch.empty((H, pad, hd), device=dev)
+        lib = _build.lib()
+
+        def launch():
+            _build.check(lib.aether_flash_online(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                                                 buf.data_ptr(), H, pad, pad, kv_len,
+                                                 _build.stream_ptr(dev)), "aether_flash_online")
+        return launch, buf[:, :S]
+
+    def k3_alone(q, k, v, qk8):
+        ops = fa._fixed_max_operands(q, k, v, sm_scale=None, kv_valid=None, heads_per_cell=4,
+                                     noshift=False, qk_int8=qk8, pv_int8=False,
+                                     score_bound=None, unnormalized=False)
+        buf = torch.empty(q.shape[1:], device=dev)
+        if split_form:
+            split = fa._tf32_operands(ops.q, ops.k, ops.v)
+            return lambda: fa._fixed_max_f32_launch(split, ops, buf, None), buf
+        return lambda: fa.flash_attention_fixed_max_f32(ops, buf, None), buf
+
+    def case(name, wrapper, plain, alone):
+        out, again = wrapper(), wrapper()
+        ref = plain()
+        err = (out - ref).abs()
+        e_max, e_mean = err.max().item(), err.mean().item()
+        del ref, err
+        result["digests"][name] = digest(out)
+        result.setdefault("f32_err", {})[name] = (e_max, e_mean)
+        launch, view = alone()
+        t_wrap = times(name, wrapper)
+        t_alone = times(name + " alone", launch)
+        torch.cuda.synchronize()
+        same = torch.equal(again, out) and torch.equal(view.reshape(out.shape), out)
+        print(f"{name}: wrapper {t_wrap} ms, alone {t_alone} ms; max abs err {e_max:.3e}, "
+              f"mean {e_mean:.3e} against the plain version; repeats and alone "
+              f"bit-identical: {'yes' if same else 'NO'}", flush=True)
+        if e_max > 1e-4 or e_mean > 1e-4 or not same:
+            raise SystemExit(f"{name}: max abs err {e_max:.3e} / mean {e_mean:.3e} against "
+                             f"the plain version (bar 1e-4), bit-identical repeats {same}")
+
+    for hd in F32_DIMS:
+        q, k, v = (torch.randn((1, H, S, hd), generator=gen, device=dev) for _ in range(3))
+        sdpa = cs.sdpa_ms(dev, gen, 1, torch.float32, hd)
+        result["ms"][f"SDPA f32 hd{hd}"] = [sdpa]
+        print(f"SDPA f32 hd{hd}: {sdpa:.4f} ms", flush=True)
+        case(f"K4 f32 hd{hd}", lambda: fa.flash_attention(q, k, v),
+             lambda: fa.flash_attention_plain(q, k, v), lambda: k4_alone(q, k, v, hd))
+        if hd < 128:
+            for qk8 in (False, True):
+                kw = dict(fixed_max=True, qk_int8=qk8)
+                case(f"K3 f32 {'int8' if qk8 else 'f32'} QK hd{hd}",
+                     lambda: fa.flash_attention(q, k, v, **kw),
+                     lambda: fa.flash_attention_fixed_max_plain(q, k, v, qk_int8=qk8),
+                     lambda: k3_alone(q, k, v, qk8))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def ab(other: str, out_json, only=None) -> None:
     """DIR, this checkout, this checkout, DIR, each in its own process."""
     order = [("parent", os.path.abspath(other)), ("change", ROOT), ("change", ROOT),
              ("parent", os.path.abspath(other))]
@@ -217,7 +317,7 @@ def ab(other: str, out_json) -> None:
             path = os.path.join(tmp, f"{i}.json")
             print(f"---- run {i}: {label} ({checkout})", flush=True)
             subprocess.run([sys.executable, os.path.abspath(__file__), "run", checkout,
-                            "--json", path], check=True)
+                            "--json", path] + (["--only", only] if only else []), check=True)
             with open(path) as f:
                 runs.append((label, json.load(f)))
     print("---- parent, change, change, parent (ms, the least of three means each)")
@@ -226,18 +326,28 @@ def ab(other: str, out_json) -> None:
         parent, change = min(cells[0], cells[3]), min(cells[1], cells[2])
         print(f"{name}: " + " / ".join(f"{c:.4f}" for c in cells)
               + f"; parent / change {parent / change:.3f}x", flush=True)
-    same = {}
+    same, repeat = {}, {}
     for name, want in runs[1][1]["digests"].items():
-        if "hd64" in name:
+        if " f32" in name:  # the f32 kernels: each checkout against itself
+            repeat[name] = (runs[1][1]["digests"][name] == runs[2][1]["digests"].get(name)
+                            and runs[0][1]["digests"].get(name) == runs[3][1]["digests"].get(name))
+        elif "hd64" in name:
             same[name] = all(r["digests"].get(name) == want for _, r in runs)
     print("head_dim-64 outputs bit-identical across the four runs: "
           + ", ".join(f"{n} {'yes' if ok else 'NO'}" for n, ok in same.items()), flush=True)
+    print("f32 outputs bit-identical between the runs of one checkout: "
+          + ", ".join(f"{n} {'yes' if ok else 'NO'}" for n, ok in repeat.items()), flush=True)
+    for name, (e_max, e_mean) in runs[1][1].get("f32_err", {}).items():
+        print(f"{name}: change max abs err {e_max:.3e}, mean {e_mean:.3e} against the plain "
+              f"version; parent {runs[0][1].get('f32_err', {}).get(name)}", flush=True)
     if out_json:
         with open(out_json, "w") as f:
             json.dump({"order": [label for label, _ in order], "runs": [r for _, r in runs],
-                       "hd64_identical": same}, f, indent=1)
+                       "hd64_identical": same, "f32_repeat_identical": repeat}, f, indent=1)
     if not all(same.values()):
         raise SystemExit("a head_dim-64 output differs between the checkouts")
+    if not all(repeat.values()):
+        raise SystemExit("an f32 output differs between two runs of one checkout")
 
 
 def main(argv) -> None:
@@ -249,16 +359,18 @@ def main(argv) -> None:
     a = sub.add_parser("ab")
     a.add_argument("dir")
     a.add_argument("--json")
+    a.add_argument("--only", choices=["f32"])
     r = sub.add_parser("run")
     r.add_argument("checkout", nargs="?", default=ROOT)
     r.add_argument("--json")
+    r.add_argument("--only", choices=["f32"])
     args = p.parse_args(argv)
     if args.cmd == "unpack":
         unpack(args.rev, args.dir)
     elif args.cmd == "ab":
-        ab(args.dir, args.json)
+        ab(args.dir, args.json, args.only)
     else:
-        run(os.path.abspath(args.checkout), args.json)
+        run(os.path.abspath(args.checkout), args.json, args.only)
 
 
 if __name__ == "__main__":

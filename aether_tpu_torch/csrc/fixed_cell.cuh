@@ -107,17 +107,8 @@ using namespace hopper;
 constexpr int kBN = 128;                    // kv rows per tile
 constexpr float kNoShiftBelow = 96.0f;      // auto noshift: every bound below this
 constexpr unsigned kFull = 0xffffffffu;
-// 1.5 * 2^23: an integer n with |n| < 2^22 sits in its float's low mantissa
-// bits, so the s32 -> f32 move runs on the integer and FMA units
-constexpr float kMagicF = 12582912.0f;
-constexpr uint32_t kMagicI = 0x4B400000u;
 
 enum NoShift { kKeep = 0, kDrop = 1, kAuto = 2 };
-
-// (float)x, exactly, for |x| < 2^22 (an int8 score: |x| <= 127 * 127 * 112)
-__device__ __forceinline__ float exact_f32(int x) {
-  return __fsub_rn(__uint_as_float(kMagicI + static_cast<uint32_t>(x)), kMagicF);
-}
 
 // The tile plan of head dim D (the note above). At D 64 it is the plan the
 // cell had before it took other head dims.

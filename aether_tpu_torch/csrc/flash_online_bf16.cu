@@ -7,8 +7,8 @@
 // the DiT's attention at AETHER_ATTN_FIXED_MAX=0, at head_dim 128 at the
 // default settings (the JAX wrapper turns the fixed max off there and forces
 // the "vpu" denominator), and the bench entry points' baseline.
-// csrc/flash_online.cu (D 64) and flash_online_hd.cu (the others) keep the
-// f32 form (training). Non-causal, in the log2 domain:
+// csrc/flash_online.cu (tf32x3_cell.cuh's 3xTF32 instances) is the f32 form
+// (training). Non-causal, in the log2 domain:
 //   q   = bf16(q * c),  c = sm_scale * log2(e)     (here, in shared memory)
 //   s   = q . k^T                                  (f32 sums of bf16 products)
 //   s   = -0.7 * f32max  where column >= kv_len

@@ -91,11 +91,6 @@ constexpr int kBN = 128;                    // kv columns per tile
 constexpr int kStages = 4;
 constexpr float kNeg = -1e9f;               // padding bias and initial max (the TPU kernel's)
 constexpr unsigned kFull = 0xffffffffu;
-// 1.5 * 2^23: integers n with |n| < 2^22 sit in its float's low mantissa
-// bits, so int <-> float moves run on the FMA and integer units rather than
-// the conversion unit (16 results a clock an SM, as slow as the SFU)
-constexpr float kMagicF = 12582912.0f;
-constexpr uint32_t kMagicI = 0x4B400000u;
 
 // The tile plan of head dim D (the note above)
 template <int D>
@@ -120,12 +115,6 @@ struct Plan {
   static constexpr int kKTile = kBN * kRow;         // bytes of a K tile
   static constexpr int kVTile = D * kBN;            // bytes of a V^T tile
 };
-
-// (float)x, exactly, for |x| < 2^22 (an s32 accumulator here: |x| <= 127 *
-// 127 * 112)
-__device__ __forceinline__ float exact_f32(int x) {
-  return __fsub_rn(__uint_as_float(kMagicI + static_cast<uint32_t>(x)), kMagicF);
-}
 
 template <int D>
 struct Smem {

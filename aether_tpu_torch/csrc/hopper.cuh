@@ -1,10 +1,12 @@
 // Shared pieces of the port's Hopper (sm_90a) attention kernels that use
 // wgmma and TMA (online_cell.cuh, the cell of flash_online_bf16.cu and
 // flash_variants.cu; fixed_cell.cuh, of flash_prepacked.cu and
-// flash_fixed_max.cu; flash_pv8.cu) and of the attention
+// flash_fixed_max.cu; tf32x3_cell.cuh, of flash_online.cu and
+// flash_fixed_max_hd.cu; flash_pv8.cu) and of the attention
 // prologue (attn_prologue.cu): shared-memory matrix descriptors, the wgmma
-// instructions they issue with their fences, the mbarrier ring, TMA tile
-// loads, thread-block cluster barriers and distributed shared memory, and the
+// instructions they issue with their fences, the exact s32 -> f32 move and
+// the tf32 rounding their operands take, the mbarrier ring, TMA tile loads,
+// thread-block cluster barriers and distributed shared memory, and the
 // host-side tensor-map encoding.
 //
 // Layouts. A tile is brought into shared memory by one TMA load of a 3-D
@@ -34,7 +36,12 @@
 // of an m64nNk16 bf16 wgmma holds rows 16w + l/4 (+8) and k 2 (l % 4) + {0,
 // 1} (+8): for 16-bit types the accumulator of one product is, chunk pair by
 // chunk pair, the A operand of the next. For int8 (k32) it holds k 4 (l %
-// 4) + {0..3} (+16).
+// 4) + {0..3} (+16). For tf32 (k8, one value a register) a0..a3 hold (row,
+// k) = (l/4, l%4), (l/4 + 8, l%4), (l/4, l%4 + 4), (l/4 + 8, l%4 + 4): the
+// accumulator chunk j of one product is the A operand of a k step of the next
+// as (d[4j], d[4j + 2], d[4j + 1], d[4j + 3]) when B's k order inside every
+// group of 8 is [0, 2, 4, 6, 1, 3, 5, 7] (tf32x3_cell.cuh). tf32 takes both
+// operands K-major (no transpose bit), 8 values (32 bytes) a k step.
 
 #pragma once
 
@@ -89,6 +96,28 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// 1.5 * 2^23: an integer n with |n| < 2^22 sits in its float's low mantissa
+// bits, so int <-> float moves run on the FMA and integer units rather than
+// the conversion unit (16 results a clock an SM, as slow as the SFU)
+constexpr float kMagicF = 12582912.0f;
+constexpr uint32_t kMagicI = 0x4B400000u;
+
+// (float)x, exactly, for |x| < 2^22 (an s32 sum of int8 products: |x| <= 127
+// * 127 * 128)
+__device__ __forceinline__ float exact_f32(int x) {
+  return __fsub_rn(__uint_as_float(kMagicI + static_cast<uint32_t>(x)), kMagicF);
+}
+
+// x rounded to tf32 (a 10-bit mantissa), to nearest with ties away from
+// zero: the rounding of cvt.rna.tf32.f32, with the low 13 bits zero, so the
+// tensor cores read the value whatever they do with those bits. Done on the
+// integer units (an add and an and on the bits: a carry out of the mantissa
+// rounds the exponent up, as it should) rather than by the conversion
+// instruction, which would share the SFU's issue rate with exp2.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
 // ---- wgmma fences ----
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -125,8 +154,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
 
 // ---- wgmma instructions (A and B from shared memory: _ss; A from registers: _rs) ----
 // bf16: scale-a 1, scale-b 1; _ss A K-major, B K-major or, with kTransB = 1,
-// MN-major; _rs_bf16_vt B MN-major (the transpose bit). s8: both operands
-// K-major (the only form for 8-bit types).
+// MN-major; _rs_bf16_vt B MN-major (the transpose bit). s8 and tf32: both
+// operands K-major (the only form for 8-bit and 32-bit types); tf32 with
+// scale-a 1, scale-b 1.
 
 // kTransB: B MN-major (wgmma's transpose bit) instead of K-major
 template <int kTransB = 0>
@@ -207,6 +237,9 @@ __device__ void wgmma_rs_s8(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t db
 template <int N>
 __device__ void wgmma_rs_bf16_vt(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
                                  int scale_d);
+template <int N>
+__device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                              int scale_d);
 
 #define HOPPER_R(x) "+r"(x)
 #define HOPPER_F(x) "+f"(x)
@@ -254,8 +287,47 @@ __device__ void wgmma_rs_bf16_vt(float (&d)[N / 2], const uint32_t (&a)[4], uint
   HOPPER_RS(wgmma_rs_bf16_vt, float, HOPPER_F, N,                           \
             "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16", ", 1, 1, 1", D, S, \
             AB, P)
+#define HOPPER_RS_TF32(N, D, S, AB, P)                                      \
+  HOPPER_RS(wgmma_rs_tf32, float, HOPPER_F, N,                              \
+            "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32", ", 1, 1", D, S, AB, P)
 HOPPER_RS_WIDTHS(HOPPER_RS_S8)
 HOPPER_RS_WIDTHS(HOPPER_RS_BF16_VT)
+HOPPER_RS_WIDTHS(HOPPER_RS_TF32)
+
+// Shared-memory A and B of width N (16 to 128 in steps of 16), both
+// K-major: wgmma_ss_tf32<N> (one k step of 8 tf32) and wgmma_ss_s8<N> (32
+// int8). The same operand lists as above, the A and B descriptors in place
+// of a.
+template <int N>
+__device__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+template <int N>
+__device__ void wgmma_ss_s8(int (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+#define HOPPER_SS_WIDTHS(X)                                                 \
+  X(16, HOPPER_D8x1, HOPPER_S8x1, "%8, %9", "%10")                          \
+  X(32, HOPPER_D8x2, HOPPER_S8x2, "%16, %17", "%18")                        \
+  X(48, HOPPER_D8x3, HOPPER_S8x3, "%24, %25", "%26")                        \
+  X(64, HOPPER_D8x4, HOPPER_S8x4, "%32, %33", "%34")                        \
+  X(80, HOPPER_D8x5, HOPPER_S8x5, "%40, %41", "%42")                        \
+  X(96, HOPPER_D8x6, HOPPER_S8x6, "%48, %49", "%50")                        \
+  X(112, HOPPER_D8x7, HOPPER_S8x7, "%56, %57", "%58")                       \
+  X(128, HOPPER_D8x8, HOPPER_S8x8, "%64, %65", "%66")
+#define HOPPER_SS(NAME, T, C, N, INSTR, TAIL, D, S, AB, P)                   \
+  template <>                                                               \
+  __device__ __forceinline__ void NAME<N>(T(&d)[N / 2], uint64_t da, uint64_t db, \
+                                          int scale_d) {                    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n" INSTR " {" S "}, " AB \
+                 ", p" TAIL ";\n}\n"                                        \
+                 : D(C)                                                     \
+                 : "l"(da), "l"(db), "r"(scale_d));                         \
+  }
+#define HOPPER_SS_TF32(N, D, S, AB, P)                                      \
+  HOPPER_SS(wgmma_ss_tf32, float, HOPPER_F, N,                              \
+            "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32", ", 1, 1", D, S, AB, P)
+#define HOPPER_SS_S8(N, D, S, AB, P)                                        \
+  HOPPER_SS(wgmma_ss_s8, int, HOPPER_R, N,                                  \
+            "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8", "", D, S, AB, P)
+HOPPER_SS_WIDTHS(HOPPER_SS_TF32)
+HOPPER_SS_WIDTHS(HOPPER_SS_S8)
 
 // ---- mbarriers ----
 

@@ -85,8 +85,11 @@ SIGNATURES = {
         _P,                  # stream
     ],
     "aether_flash_online": [
-        _P, _P, _P, _P,      # q (folded), k, v, out: f32 [B*H, sq | skv, 64]
-        _I, _I, _I, _I,      # BH, sq, skv (multiples of 64), kv_len
+        _P, _P, _P, _P,      # q_hi, q_lo (folded), k_hi, k_lo: f32 [B*H, sq | skv, D]
+        _P, _P,              # vt_hi, vt_lo: f32 [B*H, D, skv rounded up to 8], kv-permuted
+        _P,                  # out: f32 [B*H, sq, D]
+        _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
+        _I,                  # D (16 to 128 in steps of 16)
         _P,                  # stream
     ],
     "aether_flash_online_bf16": [
@@ -94,12 +97,6 @@ SIGNATURES = {
         _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
         _I, _F,              # round_l (denom "mxu"), q fold sm_scale * log2e
         _I,                  # D (16 to 128 in steps of 16)
-        _P,                  # stream
-    ],
-    "aether_flash_online_f32_hd": [
-        _P, _P, _P, _P,      # q (folded), k, v, out: f32 [B*H, sq | skv, D]
-        _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
-        _I,                  # D (16, 32, 48, 80, 96, 112 or 128)
         _P,                  # stream
     ],
     "aether_flash_fixed_max": [
@@ -111,7 +108,9 @@ SIGNATURES = {
         _P,                  # stream
     ],
     "aether_flash_fixed_max_f32": [
-        _P, _P, _P,          # q, k (int8 or folded f32), v (f32): [B*H, sq | skv, D]
+        _P, _P, _P, _P,      # q_hi, q_lo, k_hi, k_lo: f32 [B*H, sq | skv, D], folded, split
+                             # (qk_int8: the int8 codes in q_hi and k_hi)
+        _P, _P,              # vt_hi, vt_lo: f32 [B*H, D, skv rounded up to 8], kv-permuted
         _P, _P,              # shift, scale (f32, [G])
         _P, _P,              # out (f32, [B*H, sq, D]), l (f32, [B*H, sq]) or null
         _I, _I, _I, _I, _I,  # BH, sq, skv (any lengths), kv_len, hper

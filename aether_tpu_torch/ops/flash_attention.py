@@ -28,22 +28,27 @@ defaults, and the bench baseline) ``csrc/flash_online_bf16.cu`` runs at every
 head dim of ``ONLINE_HEAD_DIMS``: the ``wgmma`` + TMA online-softmax cell of
 ``csrc/online_cell.cuh`` templated over the head dim, its launches counted
 here at 64 and on :func:`flash_attention_hd` at the others. In f32 (the
-forward of the training path) ``csrc/flash_online.cu`` runs at head_dim 64
-and ``csrc/flash_online_hd.cu`` (:func:`flash_attention_f32_hd`, the FMA
-cell) at the others.
+forward of the training path) ``csrc/flash_online.cu`` runs at every head dim
+of ``ONLINE_HEAD_DIMS``: the split-TF32 (3xTF32) ``wgmma`` + TMA cell of
+``csrc/tf32x3_cell.cuh``, its launches counted here at 64 and on
+:func:`flash_attention_f32_hd` at the others.
 Both keep the JAX preparation: ``sm_scale * log2e`` folded into q and rounded
 to q's dtype (by the wrapper for f32, in the kernel for bf16) and the
-``kv_valid`` tail zeroed; the f32 wrapper pads tokens to its kernel's tile,
-while the bf16 kernel reads rows past the ends as zeros. Each runs a base-2
-online softmax with kv columns ``>= kv_len`` masked to ``-0.7 * f32max``.
+``kv_valid`` tail zeroed; neither pads tokens (TMA reads rows past the ends
+as zeros). Each runs a base-2 online softmax with kv columns ``>= kv_len``
+masked to ``-0.7 * f32max``.
 The denominator follows the TPU kernel: at head_dim < 128 (``denom="mxu"``)
 it sums p rounded to v's dtype, because the TPU summed p through a ones
 column of the PV matmul; at head_dim >= 128 (``"vpu"``) it sums unrounded p.
 A zero denominator divides by 1.
 
 K3 in f32 at every head dim (:func:`flash_attention_fixed_max_f32`) runs
-``csrc/flash_fixed_max_hd.cu``, an FMA cell (``csrc/fma_cell.cuh``, shared
-with K4 f32 hd).
+``csrc/flash_fixed_max_hd.cu``, the same 3xTF32 cell. The f32 kernels take
+their operands split by :func:`_tf32_operands`: every f32 x as ``x_hi =
+tf32(x)`` and ``x_lo = tf32(x - x_hi)``, v transposed with its kv order
+permuted in groups of 8; the cell keeps three of the four products (hi.hi,
+hi.lo, lo.hi), f32-accurate to about 2**-22 of a product, and no product is a
+single TF32 pass.
 
 K2, :func:`flash_attention_prepacked`: ``csrc/flash_prepacked.cu`` replaces
 ``_flash_kernel_prepacked``, both its int8 and its float (``AETHER_ATTN_QK8=0``)
@@ -79,7 +84,6 @@ from aether_tpu_torch.ops import _build
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _LOG2E = 1.4426950408889634
 _NOSHIFT_BELOW = 96.0   # noshift=None drops the shift when max(bound) < this
-_K4_TILE = 64  # q rows and kv columns per tile of csrc/flash_online.cu (f32)
 
 
 def _pick_block(seq: int, requested: int) -> int:
@@ -366,16 +370,90 @@ def flash_attention_hd(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float)
 flash_attention_hd.launches = 0
 
 
-def flash_attention_f32_hd(qh, kh, vh, out, kv_len: int) -> None:
-    """K4 in f32 at a head dim other than 64 (``csrc/flash_online_hd.cu``,
-    the FMA cell) on :func:`_online_operands`' result (q folded, k/v rows >=
-    kv_len zeroed; [BH, S, D] f32, contiguous, 16-byte aligned, unpadded).
-    ``.launches`` counts its launches."""
-    bh, sq, dim = qh.shape
-    rc = _build.lib().aether_flash_online_f32_hd(
-        qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(), bh, sq, kh.shape[1],
-        kv_len, dim, _build.stream_ptr(qh.device))
-    _build.check(rc, "aether_flash_online_f32_hd")
+# ---- the f32 kernels' operands: split TF32 (csrc/tf32x3_cell.cuh) ----
+
+_TF32_HALF, _TF32_MASK = 0x1000, -0x2000  # half of tf32's last place; the low 13 bits off
+# the kv order inside every group of 8 columns of V^T: column 8 g + i holds kv
+# row 8 g + _TF32_KV_ORDER[i], the order in which a thread of the cell holds
+# p as the A operand of P V (its S accumulator columns 2c, 2c + 1 of a group
+# are the A fragment's columns c, c + 4)
+_TF32_KV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (a 10-bit mantissa), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds and the cell's
+    ``tf32_rna`` computes: an integer add and and on the f32 bits (a carry out
+    of the mantissa rounds the exponent up), the low 13 bits zero. Returns a
+    new contiguous tensor."""
+    bits = x.contiguous().view(torch.int32) + _TF32_HALF
+    return bits.bitwise_and_(_TF32_MASK).view(torch.float32)
+
+
+def _tf32_split(x: torch.Tensor):
+    """(hi, lo) = (tf32(x), tf32(x - hi)), both contiguous f32: hi + lo is x
+    to 2**-22 of |x| (x - hi is exact in f32; lo is rounded in place)."""
+    x = x.contiguous()
+    hi = _tf32_round(x)
+    lo = x - hi
+    lo.view(torch.int32).add_(_TF32_HALF).bitwise_and_(_TF32_MASK)
+    return hi, lo
+
+
+def _tf32_vt(v: torch.Tensor) -> torch.Tensor:
+    """[BH, Skv, D] -> [BH, D, Skv8], Skv8 = Skv rounded up to 8 (TMA's
+    16-byte row stride): v transposed, kv contiguous (tf32 ``wgmma`` reads B
+    only K-major), the kv order permuted by ``_TF32_KV_ORDER`` inside every
+    group of 8, the columns past Skv zero. The sum over kv is unchanged."""
+    bh, skv, dim = v.shape
+    skv8 = -(-skv // 8) * 8
+    vt = v.new_zeros((bh, dim, skv8))
+    vt[:, :, :skv] = v.transpose(1, 2)
+    order = torch.tensor(_TF32_KV_ORDER, device=v.device)
+    return vt.view(bh, dim, skv8 // 8, 8).index_select(3, order).view(bh, dim, skv8)
+
+
+class _Tf32Operands(NamedTuple):
+    """The f32 kernels' operands (csrc/tf32x3_cell.cuh), split by
+    :func:`_tf32_operands`; all contiguous, 16-byte aligned."""
+
+    q_hi: torch.Tensor   # [BH, Sq, D] f32, or the int8 codes
+    q_lo: torch.Tensor   # [BH, Sq, D] f32 (the codes again: unread)
+    k_hi: torch.Tensor   # [BH, Skv, D] f32, or the int8 codes
+    k_lo: torch.Tensor   # [BH, Skv, D] f32 (the codes again: unread)
+    vt_hi: torch.Tensor  # [BH, D, Skv8] f32 (``_tf32_vt``)
+    vt_lo: torch.Tensor
+
+
+def _tf32_operands(qh, kh, vh) -> _Tf32Operands:
+    """Split f32 q, k ([BH, S, D]; int8 codes pass as they are) and v ([BH,
+    Skv, D] f32, rows >= kv_len already zero) into the 3xTF32 cell's hi/lo
+    operands, v as :func:`_tf32_vt`."""
+    if qh.dtype == torch.int8:
+        (q_hi, q_lo), (k_hi, k_lo) = ((_aligned(t),) * 2 for t in (qh, kh))
+    else:
+        (q_hi, q_lo), (k_hi, k_lo) = _tf32_split(qh), _tf32_split(kh)
+    vt_hi, vt_lo = _tf32_split(_tf32_vt(vh))
+    return _Tf32Operands(*(_aligned(t) for t in (q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo)))
+
+
+def _online_f32_launch(t: _Tf32Operands, out: torch.Tensor, kv_len: int) -> None:
+    """The K4 f32 kernel (``csrc/flash_online.cu``, any head dim of
+    ``ONLINE_HEAD_DIMS``) alone, uncounted, on :func:`_tf32_operands` of
+    :func:`_online_operands`' result (q folded, k/v rows >= kv_len zeroed);
+    out [BH, Sq, D] f32."""
+    bh, sq, dim = t.q_hi.shape
+    rc = _build.lib().aether_flash_online(
+        *(x.data_ptr() for x in t), out.data_ptr(), bh, sq, t.k_hi.shape[1], kv_len, dim,
+        _build.stream_ptr(out.device))
+    _build.check(rc, "aether_flash_online")
+
+
+def flash_attention_f32_hd(t: _Tf32Operands, out: torch.Tensor, kv_len: int) -> None:
+    """K4 in f32 at a head dim other than 64: :func:`_online_f32_launch` (the
+    same 3xTF32 kernel as at 64), counted here. ``.launches`` counts its
+    launches."""
+    _online_f32_launch(t, out, kv_len)
     _build.count_launch(flash_attention_f32_hd)
 
 
@@ -627,30 +705,21 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
     return buf
 
 
-def _fixed_max_call(entry: str, ops: _FixedMaxOperands, out: torch.Tensor,
-                    l_out: Optional[torch.Tensor]) -> None:
-    """One launch of the C ``entry`` (``aether_flash_fixed_max``, bf16 v, or
-    ``aether_flash_fixed_max_f32``) on :func:`_fixed_max_operands`' result
-    (unpadded): out [BH, Sq, D] in v's dtype, l_out [BH, Sq, 1] f32 or None
-    (normalized)."""
+def _fixed_max_launch(ops: _FixedMaxOperands, out: torch.Tensor,
+                      l_out: Optional[torch.Tensor]) -> None:
+    """The K3 kernel (``csrc/flash_fixed_max.cu``, bf16 v, any head dim of
+    ``FIXED_MAX_HEAD_DIMS``) alone, uncounted, on :func:`_fixed_max_operands`'
+    result (int8 or bf16 q/k; unpadded): out [BH, Sq, D] bf16, l_out [BH, Sq,
+    1] f32 or None (normalized)."""
     qh, kh, vh = (_aligned(t) for t in (ops.q, ops.k, ops.v))
     bh, sq, dim = qh.shape
-    rc = getattr(_build.lib(), entry)(
+    rc = _build.lib().aether_flash_fixed_max(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), ops.shift.data_ptr(),
         ops.scale.data_ptr(), out.data_ptr(),
         None if l_out is None else l_out.data_ptr(),
         bh, sq, kh.shape[1], ops.kv_len, ops.hper, int(qh.dtype == torch.int8), dim,
         _build.stream_ptr(qh.device))
-    _build.check(rc, entry)
-
-
-def _fixed_max_launch(ops: _FixedMaxOperands, out: torch.Tensor,
-                      l_out: Optional[torch.Tensor]) -> None:
-    """The K3 kernel (``csrc/flash_fixed_max.cu``, bf16 v, any head dim of
-    ``FIXED_MAX_HEAD_DIMS``) alone, uncounted, on :func:`_fixed_max_operands`'
-    result (int8 or bf16 q/k): out [BH, Sq, D] bf16, l_out [BH, Sq, 1] f32 or
-    None (normalized)."""
-    _fixed_max_call("aether_flash_fixed_max", ops, out, l_out)
+    _build.check(rc, "aether_flash_fixed_max")
 
 
 def flash_attention_fixed_max_hd(ops: _FixedMaxOperands, out: torch.Tensor,
@@ -664,13 +733,29 @@ def flash_attention_fixed_max_hd(ops: _FixedMaxOperands, out: torch.Tensor,
 flash_attention_fixed_max_hd.launches = 0
 
 
+def _fixed_max_f32_launch(t: _Tf32Operands, ops: _FixedMaxOperands, out: torch.Tensor,
+                          l_out: Optional[torch.Tensor]) -> None:
+    """The K3 f32 kernel (``csrc/flash_fixed_max_hd.cu``, the 3xTF32 cell)
+    alone, uncounted, on :func:`_tf32_operands` of :func:`_fixed_max_operands`'
+    result (int8 or f32 q/k, f32 v): out [BH, Sq, D] f32, l_out [BH, Sq, 1]
+    f32 or None (normalized)."""
+    bh, sq, dim = t.q_hi.shape
+    rc = _build.lib().aether_flash_fixed_max_f32(
+        *(x.data_ptr() for x in t), ops.shift.data_ptr(), ops.scale.data_ptr(),
+        out.data_ptr(), None if l_out is None else l_out.data_ptr(),
+        bh, sq, t.k_hi.shape[1], ops.kv_len, ops.hper, int(t.q_hi.dtype == torch.int8), dim,
+        _build.stream_ptr(out.device))
+    _build.check(rc, "aether_flash_fixed_max_f32")
+
+
 def flash_attention_fixed_max_f32(ops: _FixedMaxOperands, out: torch.Tensor,
                                   l_out: Optional[torch.Tensor]) -> None:
-    """K3 in f32 at any head dim it takes (the FMA cell) on
-    :func:`_fixed_max_operands`' result (int8 or f32 q/k, f32 v): out [BH,
+    """K3 in f32 at any head dim it takes on :func:`_fixed_max_operands`'
+    result (int8 or f32 q/k, f32 v): the operands split
+    (:func:`_tf32_operands`), then :func:`_fixed_max_f32_launch`; out [BH,
     Sq, D] f32, l_out [BH, Sq, 1] f32 or None. ``.launches`` counts its
     launches."""
-    _fixed_max_call("aether_flash_fixed_max_f32", ops, out, l_out)
+    _fixed_max_f32_launch(_tf32_operands(ops.q, ops.k, ops.v), ops, out, l_out)
     _build.count_launch(flash_attention_fixed_max_f32)
 
 
@@ -949,10 +1034,10 @@ def flash_attention(
     A CPU tensor runs the plain versions. A CUDA tensor launches a Hopper
     kernel or raises; there is no fallback: K4 in bf16 launches
     ``csrc/flash_online_bf16.cu`` at every head dim of ``ONLINE_HEAD_DIMS``,
-    in f32 ``csrc/flash_online.cu`` at head_dim 64 (``flash_attention.
-    launches`` counts either at 64); at the other head dims the launches
-    count on :func:`flash_attention_hd` (bf16) or :func:`flash_attention_f32_hd`
-    (f32, ``csrc/flash_online_hd.cu``).
+    in f32 ``csrc/flash_online.cu`` (the 3xTF32 cell) at every one of them
+    too, on :func:`_tf32_operands` (``flash_attention.launches`` counts
+    either at 64); at the other head dims the launches count on
+    :func:`flash_attention_hd` (bf16) or :func:`flash_attention_f32_hd` (f32).
     """
     if qk_int8 and not fixed_max:
         raise ValueError("qk_int8 requires fixed_max=True (the int8 "
@@ -1014,24 +1099,17 @@ def flash_attention(
             _online_bf16_launch(qh, kh, vh, out, kv_len, denom == "mxu", fold)
             _build.count_launch(flash_attention)
         return out.reshape(b, h, sq, dim)
+    # f32: folded q and the zeroed kv tail split for the 3xTF32 cell; TMA
+    # reads rows past the ends as zeros, so nothing is padded
     q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
+    split = _tf32_operands(*(x.reshape(bh, x.shape[2], dim) for x in (q, k, v)))
+    out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
     if dim != 64:
-        qh, kh, vh = (_aligned(t.reshape(bh, t.shape[2], dim)) for t in (q, k, v))
-        out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
-        flash_attention_f32_hd(qh, kh, vh, out, kv_len)
-        return out.reshape(b, h, sq, dim)
-    sq_pad = -(-sq // _K4_TILE) * _K4_TILE
-    skv_pad = -(-skv // _K4_TILE) * _K4_TILE
-    # rows >= kv_len are already zero (_online_operands)
-    qp, kp, vp = (_pad_rows(t.reshape(bh, t.shape[2], dim), rows)
-                  for t, rows in ((q, sq_pad), (k, skv_pad), (v, skv_pad)))
-    out = torch.empty((bh, sq_pad, dim), dtype=q.dtype, device=q.device)
-    rc = _build.lib().aether_flash_online(
-        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-        bh, sq_pad, skv_pad, kv_len, _build.stream_ptr(q.device))
-    _build.check(rc, "aether_flash_online")
-    _build.count_launch(flash_attention)
-    return _finish_heads(out, b, h, sq)
+        flash_attention_f32_hd(split, out, kv_len)
+    else:
+        _online_f32_launch(split, out, kv_len)
+        _build.count_launch(flash_attention)
+    return out.reshape(b, h, sq, dim)
 
 
 # wrapper calls that launched the Hopper kernel at head_dim 64 (a plain integer)

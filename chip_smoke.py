@@ -27,9 +27,9 @@ Phases (each prints its result; any failure raises and exits non-zero):
      each kernel per request, and bit-identical outputs;
   7. K4 (``flash_attention``, online softmax) against
      ``flash_attention_plain`` at the training shape, B=1, 48 heads, 15076
-     tokens, head_dim 64, in f32 (max abs 1e-4) and in bf16 (the wgmma
-     kernel, at ``bf16_gates``), with times and TFLOP/s, and the bf16 kernel
-     alone on prepared operands beside its wrapper call;
+     tokens, head_dim 64, in f32 (the 3xTF32 cell, max abs 1e-4) and in
+     bf16 (the wgmma kernel, at ``bf16_gates``), with times and TFLOP/s, and
+     each kernel alone on prepared operands beside its wrapper call;
   8. ``flash_attention_trainable`` (K4 forward, blockwise backward): value
      and gradients against autograd through ``attention_reference``;
   9. the fine-tuning path: a ``Trainer`` on the AetherV1 width at 16 blocks
@@ -295,8 +295,8 @@ Phase of the CogVideoX-1.5 slice, after 25 (``cogvideox15_phase`` and
 Phase of the head-dim slice, after 13 (``head_dims_all_phase``):
  27. K3, K4 and K6 at the head dims other than 64 and K3 in f32
      (``csrc/flash_fixed_max.cu``, ``flash_pv8.cu`` and, for K4 bf16,
-     ``flash_online_bf16.cu``, each templated over the head dim;
-     ``flash_fixed_max_hd.cu``, ``flash_online_hd.cu``): (c)
+     ``flash_online_bf16.cu``, each templated over the head dim; the
+     3xTF32 cell's ``flash_fixed_max_hd.cu`` and ``flash_online.cu``): (c)
      one tiny 17x64x96 reconstruction request
      (head_dim 16, 4 steps) on the card against the CPU at the long-video
      gates at FUSED=0 with QK8=1 and QK8=0 (K3 hd), PV8=1 (K6 hd),
@@ -315,8 +315,9 @@ Phase of the head-dim slice, after 13 (``head_dims_all_phase``):
      also 48, 80 and 96, K4 also 128, K3 f32 also 64) against its plain
      version at the bars of its head_dim-64 counterpart here, two launches
      bit-identical, timed beside the bound and one SDPA call of the same shape
-     and dtype, K3, K6 and K4 bf16 also alone on the operands their wrappers
-     prepare.
+     and dtype, each kernel also alone on the operands its wrapper prepares
+     (the f32 kernels' split for the 3xTF32 cell); an f32 kernel's bound
+     counts its products as three TF32 products each.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -354,7 +355,7 @@ FUSED0_STEPS = 20
 LONG_FRAMES, STRIDE = 65, 24  # two 41-frame windows, starts 0 and 24
 # H100 SXM at 700 W (NVIDIA's data sheet): memory rate, dense peaks by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12}
 # exp2 results a clock on one SM (CUDA C++ Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0); main() multiplies by the
 # SM count and the maximum SM clock
@@ -489,11 +490,14 @@ def attention_exp2(b):
 
 def attention_ops(b, s, kinds, hd=HEAD_DIM):
     """{type: ops} of attention over b x 48 heads x s valid tokens x hd:
-    QK^T and PV, 2 * s^2 * hd multiply-adds each a head."""
+    QK^T and PV (``kinds``, one each), 2 * s^2 * hd multiply-adds each a
+    head. The kind "tf32x3" is an f32 product as the f32 kernels make it
+    (csrc/tf32x3_cell.cuh): three TF32 products."""
     per = 2.0 * b * HEADS * s * s * hd
     ops = {}
     for kind in kinds:
-        ops[kind] = ops.get(kind, 0.0) + per
+        n, kind = (3, "tf32") if kind == "tf32x3" else (1, kind)
+        ops[kind] = ops.get(kind, 0.0) + n * per
     return ops
 
 
@@ -513,6 +517,19 @@ def sdpa_ms(dev, gen, b, dtype, hd=HEAD_DIM):
     return ms
 
 
+def sdpa_errors(q, k, v, ref):
+    """(max, mean) abs error of one f32 ``scaled_dot_product_attention`` call
+    (the library yardstick, sdpa_ms's backends: in f32 the memory-efficient
+    kernel, itself 3xTF32) against the plain f32 attention ``ref``: the
+    accuracy an f32 kernel of the port is read beside."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                      SDPBackend.CUDNN_ATTENTION]):
+        err = (torch.nn.functional.scaled_dot_product_attention(q, k, v) - ref).abs()
+    return err.max().item(), err.mean().item()
+
+
 def time_pair(name, kernel, plain, flops):
     ms, plain_ms = cuda_time_ms(kernel, 5), cuda_time_ms(plain, 2)
     log(f"{name} time: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
@@ -523,13 +540,16 @@ def time_pair(name, kernel, plain, flops):
 def k4_phase(dev, gen, dtype):
     """K4 against its plain version at B=1, 48 heads, 15076 tokens, head_dim
     64. Gates: f32 max abs 1e-4; bf16 ``bf16_gates``. Returns (max abs
-    error, kernel ms, plain ms, kernel-alone ms or None): for bf16 the
-    kernel is also timed alone on the operands its wrapper prepares, so the
-    wrapper's own passes show apart."""
+    error, kernel ms, plain ms, kernel-alone ms): the kernel is also timed
+    alone on the operands its wrapper prepares (f32: split for the 3xTF32
+    cell), so the wrapper's own passes show apart."""
     from aether_tpu_torch.ops.flash_attention import (
         _online_bf16_launch,
+        _online_f32_launch,
         _online_fold,
         _online_kv,
+        _online_operands,
+        _tf32_operands,
         flash_attention,
         flash_attention_plain,
     )
@@ -549,22 +569,30 @@ def k4_phase(dev, gen, dtype):
     check(out.shape == shape, f"K4 {name} {out.shape}")
     bars = (1e-4, 1e-4) if dtype == torch.float32 else bf16_gates(ref)
     err = compare(f"K4 {name}", out, ref, *bars)
+    if dtype == torch.float32:
+        log("K4 f32: SDPA f32 against the same plain version: max abs err %.3e, mean %.3e"
+            % sdpa_errors(q, k, v, ref))
     again = kernel()
     torch.cuda.synchronize()
     check(torch.equal(out, again), f"K4 {name}: two launches differ")
     flops = 4.0 * HEADS * SEQ * SEQ * HEAD_DIM
     ms, plain_ms = time_pair(f"K4 {name}", kernel, plain, flops)
-    alone_ms = None
     if dtype == torch.bfloat16:
         kh, vh, kv_len = _online_kv(k, v, None)
         qh, kh, vh = (t.reshape(HEADS, SEQ, HEAD_DIM).contiguous() for t in (q, kh, vh))
         buf = torch.empty_like(qh)
         alone_ms = cuda_time_ms(lambda: _online_bf16_launch(
             qh, kh, vh, buf, kv_len, True, _online_fold(None, HEAD_DIM)), 5)
-        torch.cuda.synchronize()
-        check(torch.equal(buf.reshape(shape), out), "K4 bf16 alone differs from its wrapper")
-        log(f"K4 bf16 kernel alone: {alone_ms:.4f} ms ({flops / alone_ms / 1e9:.1f} TFLOP/s); "
-            f"the wrapper's passes {ms - alone_ms:.4f} ms")
+    else:
+        qf, kf, vf, kv_len = _online_operands(q, k, v, None, None)
+        split = _tf32_operands(*(t.reshape(HEADS, SEQ, HEAD_DIM) for t in (qf, kf, vf)))
+        buf = torch.empty((HEADS, SEQ, HEAD_DIM), device=dev)
+        alone_ms = cuda_time_ms(lambda: _online_f32_launch(split, buf, kv_len), 5)
+        del split, qf, kf, vf
+    torch.cuda.synchronize()
+    check(torch.equal(buf.reshape(shape), out), f"K4 {name} alone differs from its wrapper")
+    log(f"K4 {name} kernel alone: {alone_ms:.4f} ms ({flops / alone_ms / 1e9:.1f} TFLOP/s); "
+        f"the wrapper's passes {ms - alone_ms:.4f} ms")
     return err, ms, plain_ms, alone_ms
 
 
@@ -3652,13 +3680,28 @@ def counted(fn, expect, what):
 
 
 def hd_alone_ms(name, q, k, v, out):
-    """K3 (``name`` "K3 int8" or "K3 bf16"), K6 or K4 bf16 alone on the
-    operands its wrapper prepares (uncounted): the CUDA-event ms of 5 calls,
+    """K3 (``name`` "K3 int8", "K3 bf16" or "K3 f32" with f32 QK^T), K6, K4
+    bf16 or K4 f32 alone on the operands its wrapper prepares (uncounted; the
+    f32 kernels' split by ``_tf32_operands``): the CUDA-event ms of 5 calls,
     its output held bit for bit to the wrapper's ``out``."""
     from aether_tpu_torch.ops import flash_attention as fa
 
     b, h, s, hd = q.shape
-    if name == "K4 bf16":
+    if name == "K4 f32":
+        qf, kf, vf, kv_len = fa._online_operands(q, k, v, None, None)
+        split = fa._tf32_operands(*(t.reshape(b * h, s, hd) for t in (qf, kf, vf)))
+        buf = torch.empty((b * h, s, hd), device=q.device)
+        ms = cuda_time_ms(lambda: fa._online_f32_launch(split, buf, kv_len), 5)
+        got = buf.view(q.shape)
+    elif name == "K3 f32":
+        ops = fa._fixed_max_operands(q, k, v, sm_scale=None, kv_valid=None,
+                                     heads_per_cell=4, noshift=False, qk_int8=False,
+                                     pv_int8=False, score_bound=None, unnormalized=False)
+        split = fa._tf32_operands(ops.q, ops.k, ops.v)
+        buf = torch.empty((b * h, s, hd), device=q.device)
+        ms = cuda_time_ms(lambda: fa._fixed_max_f32_launch(split, ops, buf, None), 5)
+        got = buf.view(q.shape)
+    elif name == "K4 bf16":
         qh, kh, vh = (t.reshape(b * h, s, hd).contiguous() for t in (q, k, v))
         buf = torch.empty_like(qh)
         fold = fa._online_fold(None, hd)
@@ -3713,10 +3756,10 @@ def hd_kernels_phase(dev, gen):
                    fa.flash_attention_pv8, fa.flash_attention_pv8_plain, (1e-2, 1e-4))
         if hd in F32_HD_DIMS:
             yield ("K3 f32", (torch.float32, 4), "flash_attention_fixed_max_f32",
-                   ("f32", "f32"), fa.flash_attention_fixed_max,
+                   ("tf32x3", "tf32x3"), fa.flash_attention_fixed_max,
                    fa.flash_attention_fixed_max_plain, (1e-4, 1e-4))
         if hd in PATH_ONLINE_HD_DIMS:
-            yield ("K4 f32", (torch.float32, 4), "flash_attention_f32_hd", ("f32", "f32"),
+            yield ("K4 f32", (torch.float32, 4), "flash_attention_f32_hd", ("tf32x3", "tf32x3"),
                    fa.flash_attention, fa.flash_attention_plain, (1e-4, 1e-4))
         if hd in ONLINE_HD_DIMS:
             yield ("K4 bf16", bf16, "flash_attention_hd", ("bf16", "bf16"),
@@ -3738,11 +3781,14 @@ def hd_kernels_phase(dev, gen):
             torch.cuda.synchronize()
             plain_ms = start.elapsed_time(end)
             err = compare(what, out, ref, *(bars or bf16_gates(ref)))
+            if name == "K4 f32":
+                log(f"{what}: SDPA f32 against the same plain version: max abs err "
+                    "%.3e, mean %.3e" % sdpa_errors(q, k, v, ref))
             check(torch.equal(out, kernel(q, k, v)), f"{what}: two launches differ")
             del ref
             ms = cuda_time_ms(lambda: kernel(q, k, v), 5)
             alone = ""
-            if name in ("K3 int8", "K3 bf16", "K6", "K4 bf16"):
+            if name in ("K3 int8", "K3 bf16", "K6", "K4 bf16", "K4 f32", "K3 f32"):
                 alone_ms = hd_alone_ms(name, q, k, v, out)
                 alone = f"; alone {alone_ms:.4f} ms, the wrapper's passes {ms - alone_ms:.4f} ms"
             del q, k, v, out
@@ -4323,7 +4369,10 @@ def main() -> None:
                      e2)
     k3_bf16_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM,
                           attention_ops(2, SEQ, ("bf16", "bf16")), e2)
-    k4_bound = bound(4 * 4 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("f32", "f32")), e1)
+    # K4 f32: both products f32-accurate as three TF32 products each (the
+    # 3xTF32 cell), the least the tensor cores take for them
+    k4_bound = bound(4 * 4 * HEADS * SEQ * HEAD_DIM,
+                     attention_ops(1, SEQ, ("tf32x3", "tf32x3")), e1)
     k4_bf16_bound = bound(4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(1, SEQ, ("bf16", "bf16")),
                           e1)
     k6_bound = bound(2 * 4 * 2 * HEADS * SEQ * HEAD_DIM, attention_ops(2, SEQ, ("int8", "int8")),
@@ -4434,7 +4483,7 @@ def main() -> None:
                "flash_fixed_max.cu", "aether_tpu/ops/flash_attention.py:151", HD_DIMS),
               ("flash_fixed_max_f32_hd", "K3 f32", "flash_attention_fixed_max_f32",
                "flash_fixed_max_hd.cu", "aether_tpu/ops/flash_attention.py:151", F32_HD_DIMS),
-              ("flash_online_hd", "K4 f32", "flash_attention_f32_hd", "flash_online_hd.cu",
+              ("flash_online_hd", "K4 f32", "flash_attention_f32_hd", "flash_online.cu",
                "aether_tpu/ops/flash_attention.py:69", PATH_ONLINE_HD_DIMS),
               ("flash_online_bf16_hd", "K4 bf16", "flash_attention_hd", "flash_online_bf16.cu",
                "aether_tpu/ops/flash_attention.py:69", PATH_ONLINE_HD_DIMS),

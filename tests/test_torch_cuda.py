@@ -737,8 +737,9 @@ def test_fixed_max_kernels_refuse_what_they_do_not_take(dev):
 
 
 # ---- K3, K4 and K6 at the other head dims; K3 in f32 ----
-# (csrc/flash_fixed_max.cu, flash_fixed_max_hd.cu, flash_online_bf16.cu (K4
-# bf16, online_cell<D>), flash_online_hd.cu (K4 f32), flash_pv8.cu)
+# (csrc/flash_fixed_max.cu, flash_online_bf16.cu (K4 bf16, online_cell<D>),
+# flash_pv8.cu; the 3xTF32 cell tf32x3_cell.cuh: flash_online.cu (K4 f32)
+# and flash_fixed_max_hd.cu (K3 f32))
 
 _HD_COUNTED = (flash_attention_fixed_max_hd, flash_attention_fixed_max_f32, flash_attention_hd,
                flash_attention_f32_hd, flash_attention_pv8_hd)
@@ -800,8 +801,8 @@ def test_fixed_max_hd_kernel_unnormalized_score_bound(dev, hd, qk_int8):
 @pytest.mark.parametrize("b,h,sq,skv,kv_valid", HD_ATTN_CASES[:3])
 @pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 112])
 def test_fixed_max_f32_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, qk_int8):
-    """K3 in f32 (the FMA cell) at every head dim, 64 included: max abs
-    1e-4 against the plain version (K4 f32's gate: f32 products, another
+    """K3 in f32 (the 3xTF32 cell) at every head dim, 64 included: max abs
+    1e-4 against the plain version (K4 f32's gate: 3xTF32 products, another
     order of the sums); normalized and unnormalized (l to 1e-5 relative, o
     to 1e-4 of its largest magnitude); repeats bit-identical."""
     q, k, v = _qkv(dev, (b, h, sq, hd), (b, h, skv, hd), torch.float32, seed=hd + sq)
