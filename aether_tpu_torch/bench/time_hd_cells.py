@@ -14,7 +14,8 @@ its own ``_build/``), prints every case's four times side by side and fails
 unless the head_dim-64 outputs of the bf16 and int8 kernels are bit-identical
 across the four runs and each f32 output is bit-identical between the two
 runs of one checkout (the f32 kernels' outputs are held to their plain
-version instead: a redesign of them moves their last bits).
+version instead: a redesign of them moves their last bits); it also says
+which f32 outputs the two checkouts share bit for bit.
 ``run`` times one checkout (default: this one) and prints, for that package:
 
 - on a fresh build, the registers and spill of every kernel of the sources
@@ -337,6 +338,10 @@ def ab(other: str, out_json, only=None) -> None:
           + ", ".join(f"{n} {'yes' if ok else 'NO'}" for n, ok in same.items()), flush=True)
     print("f32 outputs bit-identical between the runs of one checkout: "
           + ", ".join(f"{n} {'yes' if ok else 'NO'}" for n, ok in repeat.items()), flush=True)
+    across = {name: all(r["digests"].get(name) == want for _, r in runs)
+              for name, want in runs[1][1]["digests"].items() if " f32" in name}
+    print("f32 outputs bit-identical across the four runs (the parent's too): "
+          + ", ".join(f"{n} {'yes' if ok else 'no'}" for n, ok in across.items()), flush=True)
     for name, (e_max, e_mean) in runs[1][1].get("f32_err", {}).items():
         print(f"{name}: change max abs err {e_max:.3e}, mean {e_mean:.3e} against the plain "
               f"version; parent {runs[0][1].get('f32_err', {}).get(name)}", flush=True)

@@ -65,9 +65,10 @@
 //     flight while the next tile's Q K^T is issued; while one warpgroup runs
 //     its softmax the other's products run;
 //   * the tile plan of each D (Plan below): kBN 64 up to D 64 and 32 above,
-//     where a consumer thread holds D / 2 f32 of the output (D with the
-//     promotion below), D / 2 of Q_lo and 3 kBN / 2 of S, P_hi and P_lo (176
-//     registers at D 128, 192 at 64 and 96, 216 at 112, before addresses);
+//     where a consumer thread holds D / 2 f32 of the output, D / 2 (D / 4 at
+//     128) of a tile's P V (the promotion below), D / 2 of Q_lo and 3 kBN / 2
+//     of S, P_hi and P_lo (192 registers at 64 and 96, 216 at 112, 208 at
+//     128, before addresses);
 //     q and k rows are 4 D bytes (1 for codes) rounded up to a
 //     swizzle row, in 128-byte panels; V^T rows are kBN floats in 128-byte
 //     panels of 32; kStages as many as fit in the 227 KB a block may take,
@@ -76,12 +77,15 @@
 //     rounding, and the loss grows with the number of additions: P V kept
 //     on the tensor core over 15076 keys read a mean error of 1e-4 of the
 //     output, in proportion to the kv length, against 1e-6 for PyTorch's f32
-//     attention (PERF.md, PR 20). So where D / 2 more registers fit (D <=
-//     112, Plan::kPromote) each tile's P V starts in fresh registers and the
-//     output takes it in on the FMA units, o = alpha o + P V, one FMA an
-//     element where the rescale took one multiply (1e-6 then, as PyTorch's);
-//     at 128 that spills (120 bytes) and the output stays on the tensor
-//     core;
+//     attention (PERF.md, section 6). So each tile's P V starts in fresh
+//     registers and the output takes it in on the FMA units, o = alpha o +
+//     P V, one FMA an element where the rescale took one multiply (1e-6
+//     then, as PyTorch's). Up to D 112 the whole P V of a tile stays in
+//     flight while the next tile's Q K^T is issued (D / 2 registers). At 128
+//     that spilled, so there it is two wgmma chains over the two 64-row
+//     halves of V^T (Plan::kHalves) into one accumulator of D / 4: the first
+//     half is waited for and folded at once, the second stays in flight
+//     across the next Q K^T;
 //   * tiles wholly past kv_len are skipped (they change nothing) and only
 //     the tile that crosses it is masked.
 // Compiled without --use_fast_math so exp2f and the division stay accurate.
@@ -116,10 +120,11 @@ struct Plan {
   static constexpr int kConsumers = 256;
   static constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
   static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-  // promote each tile's P V: accumulate it on the tensor core in fresh
-  // registers and add it to the output on the FMA units (the note above),
-  // where D / 2 more registers a thread fit without a spill
-  static constexpr bool kPromote = D <= 112;
+  // each tile's P V accumulates on the tensor core in fresh registers and
+  // the output takes it in on the FMA units (the note above): in one chain
+  // of width D, or at 128 in two of width 64 so that D / 4 registers hold it
+  static constexpr int kHalves = D == 128 ? 2 : 1;
+  static constexpr int kPV = D / kHalves;
   static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <=
                     kThreads * ((65536 / kThreads) & ~7),
                 "setmaxnreg asks for more registers than the CTA starts with");
@@ -162,35 +167,38 @@ struct Params {
   int sq, kv_len, hper;
 };
 
-// d (+)= P_hi V_hi + P_hi V_lo + P_lo V_hi over the kBN / 8 k steps of one
-// tile, issued and committed, not waited for; scale 0 starts d afresh
-template <int D, int kBN>
-__device__ __forceinline__ void pv(float (&d)[D / 2], const uint32_t (&phi)[kBN / 8][4],
+// d = P_hi V_hi + P_hi V_lo + P_lo V_hi over the kBN / 8 k steps of one
+// tile, output columns kH N .. kH N + N - 1 (V^T rows, 128 bytes each in a
+// panel of D rows), issued into fresh registers and committed, not waited for
+template <int D, int N, int kH, int kBN>
+__device__ __forceinline__ void pv(float (&d)[N / 2], const uint32_t (&phi)[kBN / 8][4],
                                    const uint32_t (&plo)[kBN / 8][4], uint64_t vhi,
-                                   uint64_t vlo, int scale) {
+                                   uint64_t vlo) {
   fence_regs(d);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBN / 8; ++kk) {
-    const uint32_t off = (kk / 4) * D * 128 + 32 * (kk % 4);
-    wgmma_rs_tf32<D>(d, phi[kk], desc_add(vhi, off), kk > 0 || scale);
-    wgmma_rs_tf32<D>(d, phi[kk], desc_add(vlo, off), 1);
-    wgmma_rs_tf32<D>(d, plo[kk], desc_add(vhi, off), 1);
+    const uint32_t off = (kk / 4) * D * 128 + kH * N * 128 + 32 * (kk % 4);
+    wgmma_rs_tf32<N>(d, phi[kk], desc_add(vhi, off), kk > 0);
+    wgmma_rs_tf32<N>(d, phi[kk], desc_add(vlo, off), 1);
+    wgmma_rs_tf32<N>(d, plo[kk], desc_add(vhi, off), 1);
   }
   wgmma_commit();
 }
 
-// o = alpha o + ot, alpha0 for rows row (elements 0, 1 of each group of 4),
-// alpha1 for rows row + 8: one tile's P V taken in on the FMA units
-template <int D>
-__device__ __forceinline__ void fold(float (&o)[D / 2], const float (&ot)[D / 2], float alpha0,
+// o = alpha o + ot on output columns kH N .. kH N + N - 1, alpha0 for rows
+// row (elements 0, 1 of each group of 4), alpha1 for rows row + 8: one
+// tile's P V taken in on the FMA units
+template <int D, int N, int kH>
+__device__ __forceinline__ void fold(float (&o)[D / 2], const float (&ot)[N / 2], float alpha0,
                                      float alpha1) {
+  constexpr int o0 = kH * N / 2;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    o[4 * j] = __fmaf_rn(o[4 * j], alpha0, ot[4 * j]);
-    o[4 * j + 1] = __fmaf_rn(o[4 * j + 1], alpha0, ot[4 * j + 1]);
-    o[4 * j + 2] = __fmaf_rn(o[4 * j + 2], alpha1, ot[4 * j + 2]);
-    o[4 * j + 3] = __fmaf_rn(o[4 * j + 3], alpha1, ot[4 * j + 3]);
+  for (int j = 0; j < N / 8; ++j) {
+    o[o0 + 4 * j] = __fmaf_rn(o[o0 + 4 * j], alpha0, ot[4 * j]);
+    o[o0 + 4 * j + 1] = __fmaf_rn(o[o0 + 4 * j + 1], alpha0, ot[4 * j + 1]);
+    o[o0 + 4 * j + 2] = __fmaf_rn(o[o0 + 4 * j + 2], alpha1, ot[4 * j + 2]);
+    o[o0 + 4 * j + 3] = __fmaf_rn(o[o0 + 4 * j + 3], alpha1, ot[4 * j + 3]);
   }
 }
 
@@ -203,7 +211,8 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   static_assert(!(kQK8 && kMode == kOnline), "K4 takes f32 q/k");
   using P = Plan<D, kQK8>;
   using Acc = std::conditional_t<kQK8, int, float>;  // S: s32 or f32 sums
-  constexpr int kBM = P::kBM, kBN = P::kBN, kRow = P::kRow;
+  constexpr int kBM = P::kBM, kBN = P::kBN, kRow = P::kRow, kPV = P::kPV;
+  constexpr int kLast = P::kHalves - 1;  // the half that stays in flight
   extern __shared__ uint8_t smem_raw[];
   Smem<D, kQK8>& sm = *reinterpret_cast<Smem<D, kQK8>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -267,12 +276,12 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   const uint64_t qdesc = make_desc(sm.q + wg * 64 * kRow, 16, 8 * kRow, swz);  // panel 0
   mbar_wait(&sm.q_full, 0);
 
-  float o[D / 2];  // the output (kPromote: summed on the FMA units)
+  float o[D / 2];  // the output, summed on the FMA units
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
-  // kPromote: the P V of the tile in flight, on the tensor core, and the
-  // alpha of that tile, with which o takes it in: o = alpha o + ot
-  float ot[P::kPromote ? D / 2 : 1];
+  // the P V of the tile in flight (its last half), on the tensor core, and
+  // the alpha of that tile, with which o takes it in: o = alpha o + ot
+  float ot[kPV / 2];
   float fold0 = 1.0f, fold1 = 1.0f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows row, row + 8
   // P_hi and P_lo as the A fragments of P V. Tile it's P V stays in flight
@@ -313,10 +322,8 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     fence_regs(plo);
     if constexpr (!kQK8) fence_regs(qlo);
     if (it > 0) sm.ring.release(it - 1);  // its P V has completed
-    if constexpr (P::kPromote) {
-      fence_regs(ot);
-      if (it > 0) fold<D>(o, ot, fold0, fold1);
-    }
+    fence_regs(ot);
+    if (it > 0) fold<D, kPV, kLast>(o, ot, fold0, fold1);
 
     // ---- the scores, their shift (the running max, or the group's) ----
     float sv[kBN / 2];
@@ -379,35 +386,28 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     l1 = __fadd_rn(__fmul_rn(alpha1, l1), sum1);
 
     // ---- P V: k step kk is kv 8 kk .. + 7, 32 bytes into panel kk / 4;
-    // into fresh registers (kPromote: o takes it in at the next fold, with
-    // this tile's alpha), or onto o rescaled by alpha
+    // into fresh registers, which o takes in with this tile's alpha: the
+    // first half (kHalves 2) at once, the last at the next fold
     const uint64_t vhi = make_desc(sm.v[s][0], 16, 8 * 128, kSw128);
     const uint64_t vlo = make_desc(sm.v[s][1], 16, 8 * 128, kSw128);
-    if constexpr (P::kPromote) {
-      fold0 = alpha0;
-      fold1 = alpha1;
-      pv<D, kBN>(ot, phi, plo, vhi, vlo, 0);
-    } else {
-      if constexpr (kMode == kOnline) {
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          o[4 * j] = __fmul_rn(o[4 * j], alpha0);
-          o[4 * j + 1] = __fmul_rn(o[4 * j + 1], alpha0);
-          o[4 * j + 2] = __fmul_rn(o[4 * j + 2], alpha1);
-          o[4 * j + 3] = __fmul_rn(o[4 * j + 3], alpha1);
-        }
-      }
-      pv<D, kBN>(o, phi, plo, vhi, vlo, 1);
+    fold0 = alpha0;
+    fold1 = alpha1;
+    if constexpr (kLast == 1) {
+      pv<D, kPV, 0, kBN>(ot, phi, plo, vhi, vlo);
+      wgmma_wait<0>();
+      fence_regs(ot);
+      fence_regs(phi);
+      fence_regs(plo);
+      fold<D, kPV, 0>(o, ot, alpha0, alpha1);
     }
+    pv<D, kPV, kLast, kBN>(ot, phi, plo, vhi, vlo);
   }
   wgmma_wait<0>();
   fence_regs(o);
   fence_regs(phi);
   fence_regs(plo);
-  if constexpr (P::kPromote) {
-    fence_regs(ot);
-    if (n_tiles > 0) fold<D>(o, ot, fold0, fold1);
-  }
+  fence_regs(ot);
+  if (n_tiles > 0) fold<D, kPV, kLast>(o, ot, fold0, fold1);
 
   l0 = __fadd_rn(l0, __shfl_xor_sync(kFull, l0, 1));
   l0 = __fadd_rn(l0, __shfl_xor_sync(kFull, l0, 2));

@@ -49,29 +49,16 @@ SIGNATURES = {
         _I, _I,              # stride_b, stride_s (elements)
         _P, _P, _P, _P,      # gq, bq, gk, bk (f32, [D])
         _P, _P, _I,          # rope cos, sin (f32, [rope_rows, D]) or null, rope_rows
-        _I, _I, _I,          # B, S_in, H
+        _I, _I, _I, _I,      # B, S_in, H, D (16 to 112 in steps of 16)
         _I, _I, _I, _I, _I,  # s_pad, s_valid, block, hper, quantize
         _F, _F, _F, _F,      # eps, fold, fold/127, 1/127
         _P, _P, _P,          # q, k (int8, or bf16 if !quantize), v (bf16): [B*H, s_pad, D]
         _P, _P, _P, _P,      # qsc, qn, ksc, kn (f32, [G, T])
-        _I, _I,              # the launch plan: cluster, shared memory bytes a CTA
-        _P,                  # stream
-    ],
-    "aether_qkv_prologue_hd": [
-        _P, _P, _P,          # xq, xk, xv (bf16, [B, S_in, H*D] views)
-        _I, _I,              # stride_b, stride_s (elements, multiples of 8)
-        _P, _P, _P, _P,      # gq, bq, gk, bk (f32, [D])
-        _P, _P, _I,          # rope cos, sin (f32, [rope_rows, D]) or null, rope_rows
-        _I, _I, _I, _I,      # B, S_in, H, D (16, 32, 48, 80, 96 or 112)
-        _I, _I, _I, _I, _I,  # s_pad, s_valid, block, hper, quantize
-        _F, _F, _F, _F,      # eps, fold, fold/127, 1/127
-        _P, _P, _P,          # q, k (int8, or bf16 if !quantize), v (bf16): [B*H, s_pad, D]
-        _P, _P, _P, _P,      # qsc, qn, ksc, kn (f32, [G, T])
-        _P,                  # the cells' maxima: 4 * G * T zeroed 32-bit words
+        _I, _I, _I,          # the launch plan: rows and cluster, shared memory bytes a CTA
         _P,                  # stream
     ],
     "aether_qkv_prologue_occupancy": [
-        _I, _I, _I,          # cluster, shared memory bytes, quantize
+        _I, _I, _I, _I, _I,  # D, rows, cluster, shared memory bytes, quantize
         _P,                  # out: clusters the card holds at once (int)
     ],
     "aether_flash_prepacked": [

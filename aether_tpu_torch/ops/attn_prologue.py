@@ -8,23 +8,21 @@ plus the per-cell L2 row-norm maxima that give K2 its fixed softmax shift.
 
 The Hopper kernel ``csrc/attn_prologue.cu`` (CUDA C++, sm_90a, bound with
 ctypes through ``ops/_build.py``) replaces the Pallas kernel
-``aether_tpu/ops/attn_prologue.py::_prologue_kernel``. On the H100 it is bound
-by memory traffic (472 MB moved per call at 48 heads x 15360 tokens with int8
-codes, ~30 flops per element). It reads every element of the fused
-projection from device memory once, in one launch: TMA brings 128 rows x
-hper heads of one tensor into a CTA's shared memory, a thread-block cluster
-of ``block / 128`` CTAs holds one quantization cell, and the cell's absmax
-and row-norm maximum are reduced across the cluster through distributed
-shared memory before each CTA quantizes the rows it holds
-(:func:`_launch_plan` is the launch; the source carries the full note). With
-``quantize=False`` (``AETHER_ATTN_QK8=0``) the same kernel writes bf16
-``z * fold`` for q and bf16 ``z`` for k. The LayerNorm moments are taken in
-double on both branches, as the plain version takes them.
-``qkv_prologue_plain`` is the same function in plain PyTorch: the CPU path,
-and the reference the kernel is held against on the card. That kernel is
-written for head_dim 64, the shipped models' width; the other head dims the
-JAX kernel takes (multiples of 16 below 128) run ``csrc/attn_prologue_hd.cu``
-(:func:`qkv_prologue_hd`), a simple two-pass form of the same arithmetic.
+``aether_tpu/ops/attn_prologue.py::_prologue_kernel`` at every head dim the
+JAX kernel takes (16 to 112 in steps of 16): one kernel template over the
+head dim. On the H100 it is bound by memory traffic (472 MB moved per call at
+48 heads x 15360 tokens x 64 with int8 codes, ~30 flops per element). It
+reads every element of the fused projection from device memory once, in one
+launch: TMA brings 64, 128 or 256 rows x hper heads of one tensor into a CTA's
+shared memory, a thread-block cluster of ``block / rows`` CTAs holds one
+quantization cell, and the cell's absmax and row-norm maximum are reduced
+across the cluster through distributed shared memory before each CTA
+quantizes the rows it holds (:func:`_launch_plan` is the launch; the source
+carries the full note). With ``quantize=False`` (``AETHER_ATTN_QK8=0``) the
+same kernel writes bf16 ``z * fold`` for q and bf16 ``z`` for k. The
+LayerNorm moments are taken in double on both branches, as the plain version
+takes them. ``qkv_prologue_plain`` is the same function in plain PyTorch: the
+CPU path, and the reference the kernel is held against on the card.
 
 Layouts differ from the TPU kernel in two places, both deliberate:
 - the inputs may be strided views of the fused ``[B, S, 3*H*D]`` projection
@@ -37,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import types
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -73,25 +72,26 @@ def _rotate_pairs(z: torch.Tensor) -> torch.Tensor:
     return torch.stack([-zp[..., 1], zp[..., 0]], dim=-1).flatten(-2)
 
 
-# K1's launch (csrc/attn_prologue.cu): a CTA holds 128 token rows of one
-# tensor, one TMA box of 128 rows x 64 bf16 a head; a cluster of block / 128
-# CTAs holds one quantization cell
-_ROWS = 128
-_HEAD_DIM = 64
-_MAX_HEADS = 4      # hper: four 16 KB boxes a CTA
-_MAX_CLUSTER = 8    # the portable cluster size, so block <= 1024
-_BOX_BYTES = _ROWS * _HEAD_DIM * 2
-_STATS_BYTES = _ROWS * 8  # (mean, 1 / sqrt(var + eps)) a row of a head
-_TAIL_BYTES = 88          # the kernel's Tail: mbarrier, published and cell maxima,
-                          # the CTA's warp maxima
+# K1's launch (csrc/attn_prologue.cu): a CTA holds `rows` token rows of one
+# tensor, one TMA box of rows x head_dim bf16 a head; a cluster of
+# block / rows CTAs holds one quantization cell. The rows a CTA by head dim,
+# where the token tile is a multiple of them (else 128), as the kernel's
+# rows_built takes them: 256 at 16 and 32 (small boxes: the CTA's fixed
+# costs over more rows), 64 at 112 (two CTAs an SM, in clusters of up to
+# 16, a non-portable size), 128 elsewhere
+_CTA_ROWS = {16: 256, 32: 256, 48: 128, 64: 128, 80: 128, 96: 128, 112: 64}
+_MAX_HEADS = 4      # hper: four boxes a CTA
+_MAX_CLUSTER = {256: 4, 128: 8, 64: 16}  # so that block <= 1024
+_TAIL_BYTES = 112   # the kernel's Tail: an mbarrier a box, published and cell
+                    # maxima, the CTA's warp maxima
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """K1's launch: grid (``s_pad / rows``, 3 * groups), x the CTA's 128-row
-    slice and y ``3 * group + tensor`` (q, k, v), clusters of ``cluster``
-    consecutive slices (one token tile), ``smem_bytes`` of dynamic shared
-    memory a CTA."""
+    """K1's launch at ``head_dim``: grid (``s_pad / rows``, 3 * groups), x
+    the CTA's ``rows``-row slice and y ``3 * group + tensor`` (q, k, v),
+    clusters of ``cluster`` consecutive slices (one token tile),
+    ``smem_bytes`` of dynamic shared memory a CTA."""
 
     cluster: int
     rows: int
@@ -99,21 +99,26 @@ class LaunchPlan:
     smem_bytes: int
     hper: int
     block: int
+    head_dim: int = 64
 
 
-def _launch_plan(bh: int, s_pad: int, block: int, hper: int,
+def _launch_plan(bh: int, s_pad: int, block: int, hper: int, head_dim: int = 64,
                  strides: Sequence[int] = (), ptrs: Sequence[int] = ()) -> LaunchPlan:
-    """The launch plan of K1 for ``bh`` heads over ``s_pad`` tokens in
-    quantization cells of ``hper`` heads x ``block`` tokens. Raises
-    ``ValueError`` on what the kernel does not take: hper above 4, a block
-    that is not a multiple of 128 or is above 1024 (a cluster above 8), and
-    element ``strides`` or data ``ptrs`` (bf16) that are not 16-byte aligned
-    for TMA."""
+    """The launch plan of K1 for ``bh`` heads of ``head_dim`` over ``s_pad``
+    tokens in quantization cells of ``hper`` heads x ``block`` tokens.
+    Raises ``ValueError`` on what the kernel does not take: a head dim
+    outside 16-112 in steps of 16, hper above 4, a block that is not a
+    multiple of 128 or is above 1024 (a cluster above 4 CTAs of 256 rows, 8
+    of 128 or 16 of 64), and element ``strides`` or data ``ptrs`` (bf16) that are not
+    16-byte aligned for TMA."""
+    if head_dim not in _CTA_ROWS:
+        raise ValueError(f"K1 takes head_dim {sorted(_CTA_ROWS)}, got {head_dim}")
+    rows = _CTA_ROWS[head_dim] if block > 0 and block % _CTA_ROWS[head_dim] == 0 else 128
     if not 1 <= hper <= _MAX_HEADS or bh % hper:
         raise ValueError(f"K1 takes head groups of 1 to {_MAX_HEADS} heads dividing "
                          f"{bh}, got {hper}")
-    if block <= 0 or block % _ROWS or block // _ROWS > _MAX_CLUSTER:
-        raise ValueError(f"K1 takes token tiles of 128 to {_ROWS * _MAX_CLUSTER} rows "
+    if block <= 0 or block % 128 or block // rows > _MAX_CLUSTER[rows]:
+        raise ValueError(f"K1 takes token tiles of 128 to {rows * _MAX_CLUSTER[rows]} rows "
                          f"in steps of 128, got {block}")
     if s_pad % block:
         raise ValueError(f"s_pad {s_pad} is not a multiple of the tile {block}")
@@ -123,11 +128,12 @@ def _launch_plan(bh: int, s_pad: int, block: int, hper: int,
     groups = bh // hper
     if 3 * groups > 65535:
         raise ValueError(f"{groups} head groups exceed the grid's y extent")
-    # the kernel's smem_bytes_for(hper): the boxes' 1024-byte alignment slack,
-    # the boxes and row statistics, sizeof(Tail); the C entry refuses any other
-    return LaunchPlan(cluster=block // _ROWS, rows=_ROWS, grid=(s_pad // _ROWS, 3 * groups),
-                      smem_bytes=1024 + hper * (_BOX_BYTES + _STATS_BYTES) + _TAIL_BYTES,
-                      hper=hper, block=block)
+    # the kernel's smem_bytes_for(d, rows, hper): the boxes' 1024-byte
+    # alignment slack, the boxes (rows x head_dim bf16) and the row
+    # statistics (a float2 a row), sizeof(Tail); the C entry refuses any other
+    smem = 1024 + hper * (rows * head_dim * 2 + rows * 8) + _TAIL_BYTES
+    return LaunchPlan(cluster=block // rows, rows=rows, grid=(s_pad // rows, 3 * groups),
+                      smem_bytes=smem, hper=hper, block=block, head_dim=head_dim)
 
 
 def qkv_prologue_plain(
@@ -263,8 +269,9 @@ def qkv_prologue(
         ``sm_scale * log2(e)``.
 
     A CPU tensor runs :func:`qkv_prologue_plain`. A CUDA tensor launches the
-    Hopper kernel (head_dim 64; 16 to 112 in steps of 16 through
-    :func:`qkv_prologue_hd`) or raises; there is no fallback.
+    Hopper kernel (head_dim 16 to 112 in steps of 16) or raises; there is no
+    fallback. Its launches count on ``qkv_prologue.launches`` at head_dim 64
+    and on ``qkv_prologue_hd.launches`` at the others.
     """
     if not xq.is_cuda:
         return qkv_prologue_plain(
@@ -301,13 +308,7 @@ def qkv_prologue(
     s_pad, block = _pick_pad_and_block(s, block_q)
     groups, n_tiles = bh // hper, s_pad // block
     ptrs = tuple(t.data_ptr() for t in (xq, xk, xv))
-    if hd == 64:
-        plan = _launch_plan(bh, s_pad, block, hper, strides=(stride_b, stride_s), ptrs=ptrs)
-    elif stride_b % 8 or stride_s % 8 or any(p % 16 for p in ptrs) or block % _ROWS:
-        raise ValueError("K1 at head_dim != 64 reads 8-byte chunks and 128-row slices: "
-                         "strides must be multiples of 8 elements, bases 16-byte aligned "
-                         f"and the tile a multiple of 128 (strides {(stride_b, stride_s)}, "
-                         f"tile {block})")
+    plan = _launch_plan(bh, s_pad, block, hper, hd, strides=(stride_b, stride_s), ptrs=ptrs)
     dev = xq.device
 
     def param(t):
@@ -328,48 +329,32 @@ def qkv_prologue(
         cos_p = sin_p = None
         rope_rows = 0
 
-    qo = torch.empty((bh, s_pad, hd), dtype=torch.int8 if quantize else torch.bfloat16,
-                     device=dev)
-    ko = torch.empty_like(qo)
+    # q and k in one allocation, the four stats in another (each allocation
+    # is host time a launch at the small head dims cannot hide)
+    qo, ko = torch.empty((2, bh, s_pad, hd), dtype=torch.int8 if quantize else torch.bfloat16,
+                         device=dev).unbind(0)
     v = torch.empty((bh, s_pad, hd), dtype=torch.bfloat16, device=dev)
-    qsc, qn, ksc, kn = (torch.empty((groups, n_tiles), dtype=torch.float32,
-                                    device=dev) for _ in range(4))
+    qsc, qn, ksc, kn = torch.empty((4, groups, n_tiles), dtype=torch.float32,
+                                   device=dev).unbind(0)
     inputs = (*ptrs, stride_b, stride_s, gq.data_ptr(), bq.data_ptr(), gk.data_ptr(),
               bk.data_ptr(), cos_p, sin_p, rope_rows)
     outputs = (qo.data_ptr(), ko.data_ptr(), v.data_ptr(), qsc.data_ptr(),
                qn.data_ptr(), ksc.data_ptr(), kn.data_ptr())
     numbers = (s_pad, s_valid, block, hper, int(quantize), eps, fold, fold / 127.0,
                1.0 / 127.0)
-    if hd != 64:
-        qkv_prologue_hd(inputs, (b, s, nh, hd), numbers, outputs, groups * n_tiles, dev)
-        return qo, ko, v, qsc, qn, ksc, kn, s_pad
     rc = _build.lib().aether_qkv_prologue(
-        *inputs, b, s, nh, *numbers, *outputs, plan.cluster, plan.smem_bytes,
+        *inputs, b, s, nh, hd, *numbers, *outputs, plan.rows, plan.cluster, plan.smem_bytes,
         _build.stream_ptr(dev))
     _build.check(rc, "aether_qkv_prologue")
-    _build.count_launch(qkv_prologue)
+    _build.count_launch(qkv_prologue if hd == 64 else qkv_prologue_hd)
     return qo, ko, v, qsc, qn, ksc, kn, s_pad
 
 
 # wrapper calls that launched the Hopper kernel at head_dim 64 (a plain integer)
 qkv_prologue.launches = 0
-
-
-def qkv_prologue_hd(inputs: tuple, shape: tuple, numbers: tuple, outputs: tuple,
-                    cells: int, device) -> None:
-    """K1 at a head dim other than 64 (``csrc/attn_prologue_hd.cu``, two
-    passes): the launch :func:`qkv_prologue` makes with its checked
-    operands' C arguments, ``shape`` (B, S_in, H, D) and a zeroed scratch of
-    the ``cells`` quantization cells' maxima. ``.launches`` counts its
-    launches."""
-    scratch = torch.zeros(4 * cells, dtype=torch.int32, device=device)
-    rc = _build.lib().aether_qkv_prologue_hd(*inputs, *shape, *numbers, *outputs,
-                                            scratch.data_ptr(), _build.stream_ptr(device))
-    _build.check(rc, "aether_qkv_prologue_hd")
-    _build.count_launch(qkv_prologue_hd)
-
-
-qkv_prologue_hd.launches = 0
+# and at the other head dims: the same kernel, counted apart so that a run
+# shows which head dims its path took
+qkv_prologue_hd = types.SimpleNamespace(launches=0)
 
 
 def prologue_occupancy(plan: LaunchPlan, quantize: bool = True) -> int:
@@ -377,8 +362,8 @@ def prologue_occupancy(plan: LaunchPlan, quantize: bool = True) -> int:
     its clusters the current card holds at once."""
     n = ctypes.c_int(0)
     _build.check(_build.lib().aether_qkv_prologue_occupancy(
-        plan.cluster, plan.smem_bytes, int(quantize), ctypes.addressof(n)),
-        "aether_qkv_prologue_occupancy")
+        plan.head_dim, plan.rows, plan.cluster, plan.smem_bytes, int(quantize),
+        ctypes.addressof(n)), "aether_qkv_prologue_occupancy")
     return n.value
 
 

@@ -114,8 +114,7 @@ def _heads_per_cell(bh: int, heads_per_cell: int) -> int:
 _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
 # the head dims K1, K2, K3 and K6 take on CUDA (the JAX kernels': multiples
 # of 16 below 128; at 128 and above the JAX wrapper turns the fixed max off);
-# K1 runs its cluster kernel at 64 and csrc/attn_prologue_hd.cu at the
-# others; K2, K3 and K6 run one wgmma kernel at each
+# K1 runs its cluster kernel, K2, K3 and K6 one wgmma kernel at each
 PREPACKED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112)
 FIXED_MAX_HEAD_DIMS = PREPACKED_HEAD_DIMS
 # the head dims K4 takes on CUDA: those and 128, where the JAX wrapper forces

@@ -7,11 +7,14 @@ cases cover the edges it does not reach. K1/K2, int8 and float
 elements, several token tiles with a ragged ``s_valid``, no RoPE, RoPE tables
 shorter than the sequence; K1 and K2 at every other head dim they take (16
 to 112 in steps of 16), each noshift, and head dims outside that range
-refused. K1's cluster form besides: a cluster of 8 with
-S_in < s_pad, clusters of 3 and 6, hper 3 and 4 straddling batch elements,
-tables shorter than s_valid, no RoPE, codes inside [-127, 127], two launches
-bit-identical, one launch a call, and head groups above 4, tiles above 1024
-and unaligned row strides refused. K4: batch 2, sequences that
+refused. K1's cluster form besides, at 64 and at 16, 48, 80 and 112: a
+cluster of 8 with S_in < s_pad, clusters of 3 and 6, hper 3 and 4
+straddling batch elements, tables shorter than s_valid, no RoPE, codes
+inside [-127, 127], two launches bit-identical, one launch a call on its
+head dim's counter, and head groups above 4, tiles above 1024 and unaligned
+row strides refused; at 64 on bf16 inputs every output but the row-norm
+maxima bit for bit the plain version's. K4 f32 at 128 over 15076 keys at
+mean 1e-7 / max 3e-6. K4: batch 2, sequences that
 are not a multiple of the 64-row tile, ``kv_valid``, q and kv of different
 lengths, extreme negative scores with padding, both denominators, f32 and
 bf16, and ``flash_attention_trainable``'s gradients. K3 and K6: lengths that
@@ -211,14 +214,32 @@ def test_prologue_cluster_kernel(dev, b, s, nh, s_valid, rope_rows, quantize):
     and inside [-127, 127]; bf16 within one ulp on at most 1e-4; v
     bit-exact; the stats to 1e-5), two launches bit-identical, one launch a
     call."""
-    xs, norms, rope = _inputs(dev, b, s, nh, rope_rows, seed=4)
-    kw = dict(num_heads=nh, head_dim=HD, eps=1e-6, s_valid=s_valid, quantize=quantize)
-    before = qkv_prologue.launches
+    _check_cluster(dev, b, s, nh, s_valid, rope_rows, quantize, HD)
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("b,s,nh,s_valid,rope_rows", K1_CLUSTER_CASES)
+@pytest.mark.parametrize("hd", [16, 48, 80, 112])
+def test_prologue_cluster_kernel_hd(dev, hd, b, s, nh, s_valid, rope_rows, quantize):
+    """The same cluster cases at other head dims (two lanes of 8 columns a
+    row at 16, eight of 6, 10 and 14 at 48, 80 and 112), counted on
+    ``qkv_prologue_hd``."""
+    _check_cluster(dev, b, s, nh, s_valid, rope_rows, quantize, hd)
+
+
+def _check_cluster(dev, b, s, nh, s_valid, rope_rows, quantize, hd):
+    from aether_tpu_torch.ops.attn_prologue import qkv_prologue_hd
+
+    xs, norms, rope = _inputs(dev, b, s, nh, rope_rows, seed=4, hd=hd)
+    kw = dict(num_heads=nh, head_dim=hd, eps=1e-6, s_valid=s_valid, quantize=quantize)
+    counter, other = ((qkv_prologue, qkv_prologue_hd) if hd == HD
+                      else (qkv_prologue_hd, qkv_prologue))
+    before, before_other = counter.launches, other.launches
     got = qkv_prologue(*xs, *norms, *rope, **kw)
     again = qkv_prologue(*xs, *norms, *rope, **kw)
     ref = qkv_prologue_plain(*xs, *norms, *rope, **kw)
     torch.cuda.synchronize()
-    assert qkv_prologue.launches == before + 2
+    assert counter.launches == before + 2 and other.launches == before_other
     assert got[7] == ref[7]
     assert all(torch.equal(a, c) for a, c in zip(got[:7], again[:7]))
     for a, r in zip(got[:2], ref[:2]):
@@ -460,7 +481,8 @@ def test_flash_prepacked_refuses_what_it_does_not_take(dev):
     assert flash_attention_prepacked.launches == before
 
 
-# K1 and K2 at the head dims other than 64 (csrc/attn_prologue_hd.cu; the
+# K1 and K2 at the head dims other than 64 (csrc/attn_prologue.cu's cluster
+# kernel at those head dims, counted on qkv_prologue_hd; the
 # fixed_cell<D, int8 or bf16, per-tile scale> instances of
 # csrc/flash_prepacked.cu): (batch, tokens, heads, s_valid, rope rows)
 HD_CASES = [
@@ -516,6 +538,26 @@ def test_prologue_and_flash_hd_kernels_match_plain(dev, hd, b, s, nh, s_valid, r
         err = (out.float() - plain.float()).abs()
         assert err.max().item() <= 1e-2 and err.mean().item() <= 1e-3, (noshift, err.max())
     assert (qkv_prologue.launches, flash_attention_prepacked.launches) == counts
+
+
+@pytest.mark.parametrize("quantize", [True, False])
+@pytest.mark.parametrize("b", [1, 2])
+def test_prologue_at_64_is_the_plain_version_bit_for_bit(dev, b, quantize):
+    """K1 at head_dim 64 on bf16 inputs (the shifted moments are exact in
+    double): q, k, v and the scales bit for bit the plain version's (the
+    row-norm maxima, summed in another order, at rtol 1e-5), over a cluster
+    of 8 with S_in < s_pad, hper 4 straddling the batch elements at batch 2
+    and tables shorter than the tokens."""
+    xs, norms, rope = _inputs(dev, b, 3996, 6, 3800, seed=64 + b)
+    kw = dict(num_heads=6, head_dim=HD, eps=1e-6, s_valid=3900, quantize=quantize)
+    got = qkv_prologue(*xs, *norms, *rope, **kw)
+    ref = qkv_prologue_plain(*xs, *norms, *rope, **kw)
+    torch.cuda.synchronize()
+    assert got[7] == ref[7] == 4096
+    for i in (0, 1, 2, 3, 5):
+        assert got[i].dtype == ref[i].dtype and torch.equal(got[i], ref[i]), i
+    for i in (4, 6):
+        torch.testing.assert_close(got[i], ref[i], rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("hd", [8, 24, 128, 144])
@@ -843,6 +885,22 @@ def test_online_hd_kernels_match_plain(dev, hd, b, h, sq, skv, kv_valid, denom, 
     assert _counts(_64_COUNTED) == before64
     assert torch.equal(out, again)
     _check_k4(out, ref)
+
+
+def test_online_f32_at_128_keeps_pv_off_the_tensor_core_accumulator(dev):
+    """K4 f32 at head_dim 128 over the main path's 15076 keys (48 heads):
+    each kv tile's P V, in two 64-column halves, is added to the output on
+    the FMA units, so the error stays at the other head dims' (mean abs
+    <= 1e-7, max <= 3e-6 against the plain version; kept on the tensor-core
+    accumulator it read 1.14e-6 / 1.27e-5)."""
+    q, k, v = _qkv(dev, (1, 48, 15076, 128), (1, 48, 15076, 128), torch.float32, seed=128)
+    before = flash_attention_f32_hd.launches
+    out = flash_attention(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_f32_hd.launches == before + 1
+    err = (out - ref).abs()
+    assert err.mean().item() <= 1e-7 and err.max().item() <= 3e-6, (err.mean(), err.max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

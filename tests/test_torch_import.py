@@ -109,7 +109,7 @@ def test_native_loader_is_the_ports_own_copy():
 
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in (_PKG / "csrc").glob("*.cu"))
-    assert names == ["attn_prologue.cu", "attn_prologue_hd.cu", "flash_fixed_max.cu",
+    assert names == ["attn_prologue.cu", "flash_fixed_max.cu",
                      "flash_fixed_max_hd.cu", "flash_online.cu", "flash_online_bf16.cu",
                      "flash_prepacked.cu", "flash_pv8.cu", "flash_variants.cu",
                      "groupnorm_moments.cu"]
@@ -118,7 +118,7 @@ def test_kernel_sources_ship_with_the_package():
     from aether_tpu_torch.ops import _build
 
     assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_qkv_prologue_occupancy",
-                                      "aether_qkv_prologue_hd", "aether_flash_prepacked",
+                                      "aether_flash_prepacked",
                                       "aether_flash_online", "aether_flash_online_bf16",
                                       "aether_flash_fixed_max", "aether_flash_fixed_max_f32",
                                       "aether_flash_pv8",

@@ -1,23 +1,30 @@
-"""K1's launch plan and its cluster decomposition, on the CPU.
+"""K1's launch plan and its cluster decomposition, on the CPU, at every head
+dim the kernel takes (16 to 112 in steps of 16).
 
-The Hopper kernel of ``qkv_prologue`` (``csrc/attn_prologue.cu``) spreads one
-quantization cell (hper heads x block tokens of q or k) over a thread-block
-cluster of ``block / 128`` CTAs of 128 rows each, and reduces the cell's
-absmax and row-norm maximum across the cluster. The card runs the kernel
-itself (``tests/test_torch_cuda.py``, ``chip_smoke.py``); here the plan that
-the wrapper hands it (``_launch_plan``, decoded CTA by CTA as the kernel
-decodes it, ``_cta_job``) is checked to cover every (head, row) exactly once
-with every cluster inside one cell. ``_emulate`` is a model of the kernel in
-torch: the CTAs of the plan reading their boxes from the fused projection,
-the kernel's own arithmetic (moments in double in its summation tree, the
-row norms in its lanes' order, codes rounded as its FMA-pipe trick rounds
-them), per-CTA maxima combined by the cluster maximum, each CTA quantizing
-its own rows. It is held to ``qkv_prologue_plain`` (bit for bit but the
-row-norm maxima) and to the Pallas kernel in interpret mode at the
-tolerances of ``tests/test_torch_ops.py::test_prologue_plain_matches_pallas``.
-These cases check the kernel's design as written down in Python, not the
-CUDA code: the card cases of ``tests/test_torch_cuda.py`` check that.
+The Hopper kernel of ``qkv_prologue`` (``csrc/attn_prologue.cu``, one
+template over the head dim) spreads one quantization cell (hper heads x
+block tokens of q or k) over a thread-block cluster of ``block / rows`` CTAs
+of ``rows`` rows each (256, 128 or 64 by head dim), and reduces the
+cell's absmax and row-norm maximum across the cluster. The card runs the
+kernel itself (``tests/test_torch_cuda.py``, ``chip_smoke.py``); here the
+plan that the wrapper hands it (``_launch_plan``, decoded CTA by CTA as the
+kernel decodes it, ``_cta_job``) is checked to cover every (head, row)
+exactly once with every cluster inside one cell and its shared memory under
+227 KB. ``_emulate`` is a model of the kernel in torch: the CTAs of the plan
+reading their boxes from the fused projection, the kernel's own arithmetic
+(its lanes' split of a row, the moments in double in its summation tree and
+divided by the head dim, the row norms in its lanes' order, codes rounded
+as its FMA-pipe trick rounds them), per-CTA maxima combined by the cluster
+maximum, each CTA quantizing its own rows. It is held to
+``qkv_prologue_plain`` (bit for bit but the row-norm maxima) and to the
+Pallas kernel in interpret mode at the tolerances of
+``tests/test_torch_ops.py::test_prologue_plain_matches_pallas``. These cases
+check the kernel's design as written down in Python, not the CUDA code: the
+card cases of ``tests/test_torch_cuda.py`` check that. The head_dim-64 cases
+keep their names; ``*_hd`` cases take the other head dims.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -27,6 +34,7 @@ import jax.numpy as jnp
 
 from aether_tpu.ops.attn_prologue import qkv_prologue as jax_qkv_prologue
 from aether_tpu_torch.config import DiTConfig
+from aether_tpu_torch.ops import attn_prologue
 from aether_tpu_torch.ops.attn_prologue import (
     _LOG2E,
     _launch_plan,
@@ -38,6 +46,7 @@ from aether_tpu_torch.ops.flash_attention import _heads_per_cell
 torch.set_num_threads(1)
 
 HD = 64
+OTHER_HDS = (16, 32, 48, 80, 96, 112)
 EPS = 1e-6
 SMEM_LIMIT = 227 * 1024
 
@@ -51,11 +60,11 @@ def _cta_job(plan, x, y):
     return tensor, g, x // plan.cluster, x % plan.cluster, x * plan.rows, heads
 
 
-def _plan(b, nh, s, block_q, heads_per_cell):
+def _plan(b, nh, s, block_q, heads_per_cell, hd=HD):
     bh = b * nh
     hper = _heads_per_cell(bh, heads_per_cell)
     s_pad, block = _pick_pad_and_block(s, block_q)
-    return bh, s_pad, block, _launch_plan(bh, s_pad, block, hper)
+    return bh, s_pad, block, _launch_plan(bh, s_pad, block, hper, hd)
 
 
 # (batch, heads, tokens S_in, s_valid, block_q, heads_per_cell)
@@ -70,15 +79,13 @@ PLAN_CASES = [
 ]
 
 
-@pytest.mark.parametrize("b,nh,s,s_valid,block_q,hpc", PLAN_CASES)
-def test_launch_plan_covers_every_row_once(b, nh, s, s_valid, block_q, hpc):
-    """The grid's CTAs cover every (tensor, head, row) of [3, B*H, s_pad]
-    exactly once, and each cluster (consecutive x at one y) is one cell."""
-    bh, s_pad, block, plan = _plan(b, nh, s, block_q, hpc)
-    assert plan.block == block and plan.rows == 128
-    assert 1 <= plan.cluster <= 8 and plan.cluster * plan.rows == block
-    assert plan.hper * 128 * HD * 2 < plan.smem_bytes <= SMEM_LIMIT
-    assert plan.grid == (s_pad // 128, 3 * (bh // plan.hper))
+def _check_covers_every_row_once(b, nh, s, block_q, hpc, hd):
+    bh, s_pad, block, plan = _plan(b, nh, s, block_q, hpc, hd)
+    assert plan.block == block and plan.head_dim == hd and plan.rows in (64, 128, 256)
+    assert 1 <= plan.cluster <= {64: 16, 128: 8, 256: 4}[plan.rows]
+    assert plan.cluster * plan.rows == block
+    assert plan.hper * plan.rows * hd * 2 < plan.smem_bytes <= SMEM_LIMIT
+    assert plan.grid == (s_pad // plan.rows, 3 * (bh // plan.hper))
     assert plan.grid[0] % plan.cluster == 0
     covered = np.zeros((3, bh, s_pad), np.int64)
     clusters = {}
@@ -103,6 +110,45 @@ def test_launch_plan_covers_every_row_once(b, nh, s, s_valid, block_q, hpc):
                    for y in range(plan.grid[1]))
 
 
+@pytest.mark.parametrize("b,nh,s,s_valid,block_q,hpc", PLAN_CASES)
+def test_launch_plan_covers_every_row_once(b, nh, s, s_valid, block_q, hpc):
+    """The grid's CTAs cover every (tensor, head, row) of [3, B*H, s_pad]
+    exactly once, and each cluster (consecutive x at one y) is one cell."""
+    _check_covers_every_row_once(b, nh, s, block_q, hpc, HD)
+    assert _plan(b, nh, s, block_q, hpc)[3].rows == 128
+
+
+@pytest.mark.parametrize("hd", OTHER_HDS)
+@pytest.mark.parametrize("b,nh,s,s_valid,block_q,hpc", PLAN_CASES)
+def test_launch_plan_covers_every_row_once_hd(b, nh, s, s_valid, block_q, hpc, hd):
+    """The same at the other head dims, with the CTA rows the plan takes
+    there."""
+    _check_covers_every_row_once(b, nh, s, block_q, hpc, hd)
+
+
+@pytest.mark.parametrize("hd", (16, 32))
+@pytest.mark.parametrize("b,nh,s,s_valid,block_q,hpc", PLAN_CASES)
+def test_launch_plan_covers_every_row_once_128_rows(monkeypatch, b, nh, s, s_valid, block_q,
+                                                    hpc, hd):
+    """128-row CTAs at 16 and 32, which the kernel also builds for tiles that
+    are no multiple of 256, at every tile."""
+    monkeypatch.setitem(attn_prologue._CTA_ROWS, hd, 128)
+    _check_covers_every_row_once(b, nh, s, block_q, hpc, hd)
+    assert _plan(b, nh, s, block_q, hpc, hd)[3].rows == 128
+
+
+@pytest.mark.parametrize("hd,block,rows,cluster", [
+    (16, 1024, 256, 4), (16, 512, 256, 2), (16, 384, 128, 3), (32, 768, 256, 3),
+    (32, 128, 128, 1), (48, 1024, 128, 8), (80, 1024, 128, 8), (96, 384, 128, 3),
+    (112, 1024, 64, 16), (112, 384, 64, 6), (112, 128, 64, 2)])
+def test_launch_plan_rows_by_head_dim(hd, block, rows, cluster):
+    """The CTA rows the plan takes, as the kernel builds them: 256 at 16 and
+    32 where the tile is a multiple of 256 (else 128), 128 at 48-96, 64 at
+    112 in clusters of up to 16."""
+    plan = _launch_plan(8, 2048 if 2048 % block == 0 else 3 * block, block, 4, hd)
+    assert (plan.rows, plan.cluster) == (rows, cluster)
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(bh=10, s_pad=1024, block=1024, hper=5), "head groups"),
     (dict(bh=8, s_pad=1024, block=1024, hper=3), "head groups"),
@@ -112,6 +158,9 @@ def test_launch_plan_covers_every_row_once(b, nh, s, s_valid, block_q, hpc):
      "16-byte"),
     (dict(bh=8, s_pad=1024, block=1024, hper=4, ptrs=(0, 8, 16)), "16-byte"),
     (dict(bh=8, s_pad=1536, block=1024, hper=4), "multiple"),
+    (dict(bh=8, s_pad=1024, block=1024, hper=4, head_dim=128), "head_dim"),
+    (dict(bh=8, s_pad=1024, block=1024, hper=4, head_dim=24), "head_dim"),
+    (dict(bh=8, s_pad=4096, block=2048, hper=4, head_dim=112), "token tiles"),
 ])
 def test_launch_plan_refuses_what_the_kernel_does_not_take(kw, match):
     with pytest.raises(ValueError, match=match):
@@ -135,28 +184,48 @@ def test_shipped_config_passes_the_plan(b):
     assert (plan.cluster, plan.hper, plan.grid) == (8, 4, (120, 3 * 12 * b))
 
 
+def _lanes(hd):
+    """(lanes a (row, head), columns a lane), as the kernel's Split<D>:
+    16-byte chunks of 8 columns where the head dim is a power of two, else
+    eight lanes of hd / 8 columns."""
+    lanes = hd // 8 if hd & (hd - 1) == 0 else 8
+    return lanes, hd // lanes
+
+
 def _tree_sum(v):
-    """Sum over the last axis of 64 as the kernel's adds nest: adjacent
-    pairs within a lane's 8 columns, then the lanes' butterfly, which pairs
-    neighbours again (a full binary tree)."""
-    while v.shape[-1] > 1:
-        v = v[..., 0::2] + v[..., 1::2]
-    return v[..., 0]
+    """Sum over the last axis as the kernel's tree_sum nests its adds: the
+    first (largest power of two below n) terms and the rest, each the same
+    way. Over 2^k terms a full binary tree of neighbours, as the lanes'
+    butterfly pairs them."""
+    n = v.shape[-1]
+    if n == 1:
+        return v[..., 0]
+    h = 1
+    while 2 * h < n:
+        h *= 2
+    return _tree_sum(v[..., :h]) + _tree_sum(v[..., h:])
 
 
 def _kernel_z(box, g, bias, cos, sin):
-    """z of one CTA's boxes [hper, 128, 64] (f32) in the kernel's
-    arithmetic: y = x - x[0] in f32; the moments in double, summed in the
-    kernel's tree order, rounded to f32; inv = rcp_rn(sqrt_rn(var + eps));
-    ((y - mean) * inv) * gamma + beta, one rounding an operation; the pair
-    rotation (z0 * c - z1 * s, z1 * c + z0 * s) against ``cos`` / ``sin``
-    [128, 64] (zero past the tables), or None. Also returns each row's
-    |z|^2 as the kernel sums it: two f32 fma chains a lane (even and odd
-    columns), their sum, then the eight lanes' butterfly."""
+    """z of one CTA's boxes [hper, rows, hd] (f32) in the kernel's
+    arithmetic: y = x - x[0] in f32; the moments in double, each lane's
+    columns in adjacent pairs (d0 + d1, d0^2 + d1^2 rounded once), the pairs
+    as a tree, the lanes as a tree (the butterfly), divided by hd and rounded
+    to f32; inv = rcp_rn(sqrt_rn(var + eps)); ((y - mean) * inv) * gamma +
+    beta, one rounding an operation; the pair rotation (z0 * c - z1 * s, z1 *
+    c + z0 * s) against ``cos`` / ``sin`` [rows, hd] (zero past the
+    tables), or None. Also returns each row's |z|^2 as the kernel sums it:
+    two f32 fma chains a lane (even and odd columns), their sum, then the
+    lanes' butterfly."""
+    hd = box.shape[-1]
+    n_lanes, cols = _lanes(hd)
     y = box - box[..., :1]
-    yd = y.double()
-    m1 = _tree_sum(yd) * (1.0 / HD)
-    var = torch.clamp(_tree_sum(yd * yd) * (1.0 / HD) - m1 * m1, min=0.0)
+    yd = y.double().unflatten(-1, (n_lanes, cols))
+    d0, d1 = yd[..., 0::2], yd[..., 1::2]
+    s1 = _tree_sum(_tree_sum(d0 + d1))
+    s2 = _tree_sum(_tree_sum(d0 * d0 + d1 * d1))
+    m1 = s1 / hd
+    var = torch.clamp(s2 / hd - m1 * m1, min=0.0)
     mean, var = m1.float()[..., None], var.float()[..., None]
     inv = torch.reciprocal(torch.sqrt(var + EPS))
     z = ((y - mean) * inv) * g + bias
@@ -166,11 +235,11 @@ def _kernel_z(box, g, bias, cos, sin):
         rz[..., 0::2] = z0 * cos[:, 0::2] + (-z1) * sin[:, 0::2]
         rz[..., 1::2] = z1 * cos[:, 1::2] + z0 * sin[:, 1::2]
         z = rz
-    lanes = z.unflatten(-1, (8, 8))  # [hper, 128, lane, 8 columns]
+    lanes = z.unflatten(-1, (n_lanes, cols))  # [hper, rows, lane, columns]
     chains = []
     for parity in (0, 1):
         acc = torch.zeros(lanes.shape[:-1])
-        for e in range(parity, 8, 2):  # fma(z, z, acc): z * z is exact in double
+        for e in range(parity, cols, 2):  # fma(z, z, acc): z * z is exact in double
             acc = (lanes[..., e].double() ** 2 + acc.double()).float()
         chains.append(acc)
     lane_n2 = chains[0] + chains[1]
@@ -186,10 +255,10 @@ def _codes(z, r):
     return (t.view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8)
 
 
-def _emulate(xq, xk, xv, gq, bq, gk, bk, cos, sin, *, num_heads, s_valid, quantize):
+def _emulate(xq, xk, xv, gq, bq, gk, bk, cos, sin, *, num_heads, s_valid, quantize, hd=HD):
     """qkv_prologue as the Hopper kernel computes it, CTA by CTA of the
-    launch plan: the CTA's boxes read from the fused [B, S_in, 3 * H * 64]
-    projection at (column (bh % H) * 64 of its tensor, first row, batch bh //
+    launch plan: the CTA's boxes read from the fused [B, S_in, 3 * H * hd]
+    projection at (column (bh % H) * hd of its tensor, first row, batch bh //
     H), zero past S_in, and nothing for a CTA whose rows all lie past
     s_valid; z, its absmax and largest row |z|^2 over the CTA's valid rows
     (``_kernel_z``); the cluster's maxima over its ranks; each CTA's codes
@@ -198,18 +267,18 @@ def _emulate(xq, xk, xv, gq, bq, gk, bk, cos, sin, *, num_heads, s_valid, quanti
     b, s, d = xq.shape
     bh = b * num_heads
     s_pad, block = _pick_pad_and_block(s, 1024)
-    plan = _launch_plan(bh, s_pad, block, _heads_per_cell(bh, 4))
+    plan = _launch_plan(bh, s_pad, block, _heads_per_cell(bh, 4), hd)
     s_valid = s if s_valid is None else s_valid
     fused = torch.nn.functional.pad(torch.cat([xq, xk, xv], -1).float(),
                                     (0, 0, 0, s_pad - s))  # TMA's zero fill
     if cos is not None:
         cos, sin = (torch.nn.functional.pad(t.float(), (0, 0, 0, max(0, s_pad - t.shape[0])))
                     for t in (cos, sin))
-    fold = HD ** -0.5 * _LOG2E
+    fold = hd ** -0.5 * _LOG2E
     groups, n_tiles = bh // plan.hper, s_pad // block
     rows = torch.arange(plan.rows)
-    outs = [torch.zeros(bh, s_pad, HD, dtype=torch.int8 if quantize else xq.dtype)
-            for _ in range(2)] + [torch.zeros(bh, s_pad, HD, dtype=xv.dtype)]
+    outs = [torch.zeros(bh, s_pad, hd, dtype=torch.int8 if quantize else xq.dtype)
+            for _ in range(2)] + [torch.zeros(bh, s_pad, hd, dtype=xv.dtype)]
     stats = [torch.zeros(groups, n_tiles) for _ in range(4)]  # qsc, qn, ksc, kn
     for y in range(plan.grid[1]):
         tensor, g = y % 3, y // 3
@@ -219,7 +288,7 @@ def _emulate(xq, xk, xv, gq, bq, gk, bk, cos, sin, *, num_heads, s_valid, quanti
             if row0 >= s_valid:
                 continue  # loads nothing, publishes zeros, writes zeros
             box = torch.stack([fused[h // num_heads, row0:row0 + plan.rows,
-                                     tensor * d + (h % num_heads) * HD:][:, :HD]
+                                     tensor * d + (h % num_heads) * hd:][:, :hd]
                                for h in heads])
             valid = (row0 + rows < s_valid)[:, None]
             if tensor == 2:
@@ -239,7 +308,10 @@ def _emulate(xq, xk, xv, gq, bq, gk, bk, cos, sin, *, num_heads, s_valid, quanti
             f = fold if tensor == 0 else 1.0
             stats[2 * tensor][g, t] = cell_amax * (f / 127.0)
             stats[2 * tensor + 1][g, t] = torch.sqrt(cell_n2) * f
-            r = 127.0 / torch.clamp(cell_amax, min=1e-30) if cell_amax > 0 else torch.zeros(())
+            # 127 / amax correctly rounded, as the kernel's __fdiv_rn (a
+            # Python 127.0 / t is 127 * reciprocal(t), two roundings)
+            r = (torch.full((), 127.0) / torch.clamp(cell_amax, min=1e-30) if cell_amax > 0
+                 else torch.zeros(()))
             for _, heads, row0, valid, z, _ in ctas:
                 z = torch.where(valid, z, torch.zeros(()))
                 outs[tensor][list(heads), row0:row0 + plan.rows] = (
@@ -250,17 +322,22 @@ def _emulate(xq, xk, xv, gq, bq, gk, bk, cos, sin, *, num_heads, s_valid, quanti
 B, S, NH = 2, 300, 6  # hper 4: groups straddle the two batch elements; clusters of 3
 
 
-@pytest.fixture(scope="module")
-def data():
-    rng = np.random.default_rng(11)
-    d = NH * HD
+@functools.lru_cache(maxsize=None)
+def _data(hd):
+    rng = np.random.default_rng(11 if hd == HD else 11 + hd)
+    d = NH * hd
     xq, xk, xv = (rng.standard_normal((B, S, d)).astype(np.float32) for _ in range(3))
-    gq, gk = ((1.0 + 0.1 * rng.standard_normal((HD,))).astype(np.float32) for _ in range(2))
-    bq, bk = ((0.1 * rng.standard_normal((HD,))).astype(np.float32) for _ in range(2))
-    ang = rng.standard_normal((S - 20, HD // 2)) * 0.5  # tables shorter than the tokens
+    gq, gk = ((1.0 + 0.1 * rng.standard_normal((hd,))).astype(np.float32) for _ in range(2))
+    bq, bk = ((0.1 * rng.standard_normal((hd,))).astype(np.float32) for _ in range(2))
+    ang = rng.standard_normal((S - 20, hd // 2)) * 0.5  # tables shorter than the tokens
     cos = np.repeat(np.cos(ang), 2, axis=1).astype(np.float32)
     sin = np.repeat(np.sin(ang), 2, axis=1).astype(np.float32)
     return xq, xk, xv, gq, bq, gk, bk, cos, sin
+
+
+@pytest.fixture(scope="module")
+def data():
+    return _data(HD)
 
 
 def _args(data, rope):
@@ -270,17 +347,11 @@ def _args(data, rope):
     return arrays
 
 
-@pytest.mark.parametrize("quantize", [False, True])
-@pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("s_valid", [None, 250])
-def test_cluster_emulation_equals_plain(data, quantize, rope, s_valid):
-    """The kernel's arithmetic and decomposition give the plain version's q,
-    k, v and scales bit for bit (codes in [-127, 127]); the row-norm maxima,
-    summed in the kernel's own order, within the card's rtol of 1e-5."""
+def _check_equals_plain(data, quantize, rope, s_valid, hd):
     t = [torch.from_numpy(a) if a is not None else None for a in _args(data, rope)]
     kw = dict(num_heads=NH, s_valid=s_valid, quantize=quantize)
-    got = _emulate(*t, **kw)
-    ref = qkv_prologue_plain(*t, head_dim=HD, eps=EPS, **kw)
+    got = _emulate(*t, hd=hd, **kw)
+    ref = qkv_prologue_plain(*t, head_dim=hd, eps=EPS, **kw)
     assert got[7] == ref[7] == 384
     for i, (a, r) in enumerate(zip(got[:7], ref[:7])):
         assert a.dtype == r.dtype and a.shape == r.shape
@@ -292,16 +363,13 @@ def test_cluster_emulation_equals_plain(data, quantize, rope, s_valid):
         assert all(int(c.min()) >= -127 for c in got[:2])
 
 
-@pytest.mark.parametrize("quantize", [False, True])
-@pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("s_valid", [None, 250])
-def test_cluster_emulation_matches_pallas(data, quantize, rope, s_valid):
+def _check_matches_pallas(data, quantize, rope, s_valid, hd):
     arrays = _args(data, rope)
     j = [jnp.asarray(a) if a is not None else None for a in arrays]
     t = [torch.from_numpy(a) if a is not None else None for a in arrays]
-    ref = jax_qkv_prologue(*j, num_heads=NH, head_dim=HD, eps=EPS, s_valid=s_valid,
+    ref = jax_qkv_prologue(*j, num_heads=NH, head_dim=hd, eps=EPS, s_valid=s_valid,
                            quantize=quantize, interpret=True)
-    got = _emulate(*t, num_heads=NH, s_valid=s_valid, quantize=quantize)
+    got = _emulate(*t, num_heads=NH, s_valid=s_valid, quantize=quantize, hd=hd)
     assert got[7] == ref[7]
     for a, r in zip(got[3:7], ref[3:7]):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-5)
@@ -313,4 +381,67 @@ def test_cluster_emulation_matches_pallas(data, quantize, rope, s_valid):
             assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
         else:
             np.testing.assert_allclose(a, r, atol=1e-5)
-    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2])[..., :HD])
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2])[..., :hd])
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("s_valid", [None, 250])
+def test_cluster_emulation_equals_plain(data, quantize, rope, s_valid):
+    """The kernel's arithmetic and decomposition give the plain version's q,
+    k, v and scales bit for bit (codes in [-127, 127]); the row-norm maxima,
+    summed in the kernel's own order, within the card's rtol of 1e-5."""
+    _check_equals_plain(data, quantize, rope, s_valid, HD)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("s_valid", [None, 250])
+def test_cluster_emulation_matches_pallas(data, quantize, rope, s_valid):
+    _check_matches_pallas(data, quantize, rope, s_valid, HD)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("s_valid", [None, 250])
+@pytest.mark.parametrize("hd", OTHER_HDS)
+def test_cluster_emulation_equals_plain_hd(hd, quantize, rope, s_valid):
+    """The same at the other head dims: the lanes' split of the row, the
+    moments divided by hd (not multiplied by a rounded 1 / hd) and the CTA
+    rows the plan takes there."""
+    _check_equals_plain(_data(hd), quantize, rope, s_valid, hd)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("hd", OTHER_HDS)
+def test_cluster_emulation_matches_pallas_hd(hd, quantize, rope):
+    """The Pallas kernel in interpret mode at a ragged s_valid (the plain
+    version is held to it at every s_valid in tests/test_torch_ops.py)."""
+    _check_matches_pallas(_data(hd), quantize, rope, 250, hd)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("hd", (16, 32))
+def test_cluster_emulation_256_rows_equals_plain(hd, quantize):
+    """CTAs of 256 rows: 2000 tokens (s_valid 1950) in two 1024-token tiles,
+    each a cluster of 4; the last CTA holds the ragged rows and rows past
+    S_in."""
+    rng = np.random.default_rng(hd)
+    arrays = [rng.standard_normal((1, 2000, 4 * hd)).astype(np.float32) for _ in range(3)]
+    for _ in range(2):  # gamma, beta of q, then of k
+        arrays += [(1.0 + 0.1 * rng.standard_normal((hd,))).astype(np.float32),
+                   (0.1 * rng.standard_normal((hd,))).astype(np.float32)]
+    ang = rng.standard_normal((1900, hd // 2))
+    arrays += [np.repeat(np.cos(ang), 2, 1).astype(np.float32),
+               np.repeat(np.sin(ang), 2, 1).astype(np.float32)]
+    t = [torch.from_numpy(a) for a in arrays]
+    kw = dict(num_heads=4, s_valid=1950, quantize=quantize)
+    assert _plan(1, 4, 2000, 1024, 4, hd)[3].rows == 256
+    got = _emulate(*t, hd=hd, **kw)
+    ref = qkv_prologue_plain(*t, head_dim=hd, eps=EPS, **kw)
+    for i, (a, r) in enumerate(zip(got[:7], ref[:7])):
+        if i in (4, 6):
+            torch.testing.assert_close(a, r, rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(a, r)
