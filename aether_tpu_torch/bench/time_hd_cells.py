@@ -2,18 +2,20 @@
 NVIDIA GPU.
 
     python aether_tpu_torch/bench/time_hd_cells.py unpack REV DIR
-    python aether_tpu_torch/bench/time_hd_cells.py ab DIR [--json OUT] [--only f32]
-    python aether_tpu_torch/bench/time_hd_cells.py run [CHECKOUT] [--json OUT] [--only f32]
+    python aether_tpu_torch/bench/time_hd_cells.py ab DIR [--json OUT] [--only f32|spread]
+        [--rounds N]
+    python aether_tpu_torch/bench/time_hd_cells.py run [CHECKOUT] [--json OUT]
+        [--only f32|spread]
 
 ``unpack`` (in a git checkout) writes revision REV's ``aether_tpu_torch`` and
 ``chip_smoke.py`` into DIR with ``git archive``; make DIR a git-ignored
 directory of this repository (``_checkout/parent``) so that a copy of the
 working tree carries it to the card. ``ab`` runs DIR, this checkout, this
-checkout, DIR, each in its own process (each package builds its kernels into
-its own ``_build/``), prints every case's four times side by side and fails
-unless the head_dim-64 outputs of the bf16 and int8 kernels are bit-identical
-across the four runs and each f32 output is bit-identical between the two
-runs of one checkout (the f32 kernels' outputs are held to their plain
+checkout, DIR (``--rounds`` times over, default once), each in its own
+process (each package builds its kernels into its own ``_build/``), prints
+every case's times side by side and fails unless the head_dim-64 outputs of
+the bf16 and int8 kernels are bit-identical across the runs and each f32
+output is bit-identical between the runs of one checkout (the f32 kernels' outputs are held to their plain
 version instead: a redesign of them moves their last bits); it also says
 which f32 outputs the two checkouts share bit for bit.
 ``run`` times one checkout (default: this one) and prints, for that package:
@@ -42,7 +44,13 @@ which f32 outputs the two checkouts share bit for bit.
   f32 ``scaled_dot_product_attention`` call at each D. ``--only f32`` runs
   these alone.
 
-Every time is three CUDA-event means of 5 calls (10 for K2). Timing and the
+``--only spread`` runs the head_dim-64 cases of K2, K4, K7 and K8 above and
+then only the cells whose parent / change ratio spreads most from call to
+call, each through the wrapper and alone: K4 bf16 at every head dim 16 to
+128, K6 and the K3 ring step at every head dim other than 64 and 128, and
+K3 f32 at 32 and 48; K4 and K6 over 15 calls a mean, the ring step over 50.
+
+Every time is three CUDA-event means of 5 calls (10 for K2) unless said. Timing and the
 ptxas names are ``chip_smoke.py``'s, as in ``time_prologue.py`` (K1). Needs
 CUDA for ``run`` and ``ab``; imports no JAX.
 """
@@ -140,7 +148,7 @@ def run(checkout: str, out_json, only=None) -> None:
             del y, q, k, v
             torch.cuda.empty_cache()
 
-    def k4_case(q, k, v, hd):
+    def k4_case(q, k, v, hd, iters=5):
         """K4 bf16 through the wrapper and alone (uncounted at 64, counted
         on flash_attention_hd at the others: the launches both checkouts
         have)."""
@@ -150,8 +158,8 @@ def run(checkout: str, out_json, only=None) -> None:
         buf = torch.empty_like(qh)
         launch = fa._online_bf16_launch if hd == 64 else fa.flash_attention_hd
         args = (qh, kh, vh, buf, S, hd < 128, fa._online_fold(None, hd))
-        print(f"{name}: wrapper {times(name, lambda: fa.flash_attention(q, k, v))} ms, "
-              f"alone {times(name + ' alone', lambda: launch(*args))} ms", flush=True)
+        print(f"{name}: wrapper {times(name, lambda: fa.flash_attention(q, k, v), iters)} ms, "
+              f"alone {times(name + ' alone', lambda: launch(*args), iters)} ms", flush=True)
         del qh, kh, vh, buf
 
     # ---- head_dim 64: K2 over K1's operands; K4 bf16, K7 and K8; K3 and K6
@@ -184,16 +192,64 @@ def run(checkout: str, out_json, only=None) -> None:
                   f" ms, alone {times(name + ' alone', lambda: launch(ops, buf, None))} ms",
                   flush=True)
             del out, ops, buf
+        pv8_case(q, k, v, hd, tag)
+
+    def pv8_case(q, k, v, hd, tag, iters=5):
+        b = q.shape[0]
         name = f"K6 hd{hd}{tag}"
         result["digests"][name] = digest(fa.flash_attention_pv8(q, k, v))
         qp, kp, vt, ops, span = fa._pv8_operands(q, k, v, sm_scale=None, kv_valid=None,
                                                  block_k=1024, heads_per_cell=4)
         buf = torch.empty((b * H, qp.shape[1], hd), dtype=torch.bfloat16, device=dev)
         launch = fa._pv8_launch if hd == 64 else fa.flash_attention_pv8_hd
-        print(f"{name}: wrapper {times(name, lambda: fa.flash_attention_pv8(q, k, v))} ms, "
-              f"alone {times(name + ' alone', lambda: launch(qp, kp, vt, ops, span, buf))} ms",
+        print(f"{name}: wrapper "
+              f"{times(name, lambda: fa.flash_attention_pv8(q, k, v), iters)} ms, alone "
+              f"{times(name + ' alone', lambda: launch(qp, kp, vt, ops, span, buf), iters)} ms",
               flush=True)
         del qp, kp, vt, ops, buf
+
+    def ring_cases(q, k, v, hd, iters=5, alone=False):
+        """K3 unnormalized on one ring step (a q stripe against a kv stripe
+        with a shared score bound), through the wrapper and, with ``alone``,
+        the kernel alone on the operands it prepares."""
+        qs, ks, vs = (t[:, :, :STRIPE].contiguous() for t in (q, k, v))
+        bound = (fa._row_norm_max(qs) * fa._row_norm_max(ks) * (hd ** -0.5 * fa._LOG2E))
+        for qk8 in (True, False):
+            name = f"K3 unnormalized {'int8' if qk8 else 'bf16'} hd{hd} ring step"
+            kw = dict(qk_int8=qk8, score_bound=bound, unnormalized=True)
+            line = (f"{name}: "
+                    f"{times(name, lambda: fa.flash_attention_fixed_max(qs, ks, vs, **kw), iters)}"
+                    f" ms")
+            if alone:
+                ops = fa._fixed_max_operands(
+                    qs, ks, vs, sm_scale=None, kv_valid=None, heads_per_cell=4,
+                    noshift=False, qk_int8=qk8, pv_int8=False, score_bound=bound,
+                    unnormalized=True)
+                buf = torch.empty((H, STRIPE, hd), dtype=torch.bfloat16, device=dev)
+                l_buf = torch.empty((H, STRIPE, 1), dtype=torch.float32, device=dev)
+                line += (", alone " + times(name + " alone", lambda: fa.flash_attention_fixed_max_hd(
+                    ops, buf, l_buf), iters) + " ms")
+                del ops, buf, l_buf
+            print(line, flush=True)
+        del qs, ks, vs
+
+    if only == "spread":
+        # the cells whose parent / change ratio spreads most between calls,
+        # each through the wrapper and alone, over more calls a mean
+        for hd in (64,) + HEAD_DIMS + (128,):
+            q, k, v = (torch.randn((1, H, S, hd), generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            k4_case(q, k, v, hd, iters=15)
+            if hd not in (64, 128):
+                pv8_case(q, k, v, hd, "", iters=15)
+                ring_cases(q, k, v, hd, iters=50, alone=True)
+            del q, k, v
+            torch.cuda.empty_cache()
+        f32_cases(cs, fa, _build, dev, gen, result, times, dims=(32, 48), k4=False)
+        if out_json:
+            with open(out_json, "w") as f:
+                json.dump(result, f)
+        return
 
     q, k, v = (torch.randn((2, H, S, 64), generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3))
@@ -209,14 +265,8 @@ def run(checkout: str, out_json, only=None) -> None:
         if hd == 128:  # K2, K3 and K6 stop at 112
             break
         fixed_cases(q, k, v, hd, "")
-        qs, ks, vs = (t[:, :, :STRIPE].contiguous() for t in (q, k, v))
-        bound = (fa._row_norm_max(qs) * fa._row_norm_max(ks) * (hd ** -0.5 * fa._LOG2E))
-        for qk8 in (True, False):
-            name = f"K3 unnormalized {'int8' if qk8 else 'bf16'} hd{hd} ring step"
-            kw = dict(qk_int8=qk8, score_bound=bound, unnormalized=True)
-            print(f"{name}: {times(name, lambda: fa.flash_attention_fixed_max(qs, ks, vs, **kw))}"
-                  f" ms", flush=True)
-        del q, k, v, qs, ks, vs
+        ring_cases(q, k, v, hd)
+        del q, k, v
         torch.cuda.empty_cache()
         k2_cases(hd)
     f32_cases(cs, fa, _build, dev, gen, result, times)
@@ -228,12 +278,12 @@ def run(checkout: str, out_json, only=None) -> None:
 F32_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 
 
-def f32_cases(cs, fa, _build, dev, gen, result, times) -> None:
-    """K4 f32 at ``F32_DIMS`` and K3 f32 (f32 and int8 QK^T) at those below
-    128, through the wrapper and alone, against their plain versions at max
-    abs 1e-4, beside one f32 SDPA call a head dim. Takes either form of the
-    kernels: the 3xTF32 cell's split operands (``_tf32_operands``) or the
-    FMA kernels they replaced."""
+def f32_cases(cs, fa, _build, dev, gen, result, times, dims=F32_DIMS, k4=True) -> None:
+    """K4 f32 (unless not ``k4``) at ``dims`` and K3 f32 (f32 and int8 QK^T)
+    at those below 128, through the wrapper and alone, against their plain
+    versions at max abs 1e-4, beside one f32 SDPA call a head dim. Takes
+    either form of the kernels: the 3xTF32 cell's split operands
+    (``_tf32_operands``) or the FMA kernels they replaced."""
     split_form = hasattr(fa, "_tf32_operands")
     print(f"f32 kernels: {'the 3xTF32 cell' if split_form else 'the FMA kernels'}", flush=True)
 
@@ -290,13 +340,14 @@ def f32_cases(cs, fa, _build, dev, gen, result, times) -> None:
             raise SystemExit(f"{name}: max abs err {e_max:.3e} / mean {e_mean:.3e} against "
                              f"the plain version (bar 1e-4), bit-identical repeats {same}")
 
-    for hd in F32_DIMS:
+    for hd in dims:
         q, k, v = (torch.randn((1, H, S, hd), generator=gen, device=dev) for _ in range(3))
         sdpa = cs.sdpa_ms(dev, gen, 1, torch.float32, hd)
         result["ms"][f"SDPA f32 hd{hd}"] = [sdpa]
         print(f"SDPA f32 hd{hd}: {sdpa:.4f} ms", flush=True)
-        case(f"K4 f32 hd{hd}", lambda: fa.flash_attention(q, k, v),
-             lambda: fa.flash_attention_plain(q, k, v), lambda: k4_alone(q, k, v, hd))
+        if k4:
+            case(f"K4 f32 hd{hd}", lambda: fa.flash_attention(q, k, v),
+                 lambda: fa.flash_attention_plain(q, k, v), lambda: k4_alone(q, k, v, hd))
         if hd < 128:
             for qk8 in (False, True):
                 kw = dict(fixed_max=True, qk_int8=qk8)
@@ -308,10 +359,11 @@ def f32_cases(cs, fa, _build, dev, gen, result, times) -> None:
         torch.cuda.empty_cache()
 
 
-def ab(other: str, out_json, only=None) -> None:
-    """DIR, this checkout, this checkout, DIR, each in its own process."""
+def ab(other: str, out_json, only=None, rounds: int = 1) -> None:
+    """DIR, this checkout, this checkout, DIR (``rounds`` times over), each
+    in its own process."""
     order = [("parent", os.path.abspath(other)), ("change", ROOT), ("change", ROOT),
-             ("parent", os.path.abspath(other))]
+             ("parent", os.path.abspath(other))] * rounds
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
         for i, (label, checkout) in enumerate(order):
@@ -321,26 +373,38 @@ def ab(other: str, out_json, only=None) -> None:
                             "--json", path] + (["--only", only] if only else []), check=True)
             with open(path) as f:
                 runs.append((label, json.load(f)))
-    print("---- parent, change, change, parent (ms, the least of three means each)")
+    print(f"---- {', '.join(label for label, _ in order)} (ms, the least of three means "
+          "each); parent / change of the least of each side's runs, and of their medians")
     for name in runs[1][1]["ms"]:
         cells = [min(r["ms"][name]) if name in r["ms"] else float("nan") for _, r in runs]
-        parent, change = min(cells[0], cells[3]), min(cells[1], cells[2])
+        sides = {side: sorted(c for c, (label, _) in zip(cells, runs) if label == side)
+                 for side in ("parent", "change")}
+        parent, change = sides["parent"][0], sides["change"][0]
+        mid = {side: (v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2 for side, v in sides.items()}
         print(f"{name}: " + " / ".join(f"{c:.4f}" for c in cells)
-              + f"; parent / change {parent / change:.3f}x", flush=True)
+              + f"; parent / change {parent / change:.3f}x, medians "
+              f"{mid['parent'] / mid['change']:.3f}x", flush=True)
     same, repeat = {}, {}
     for name, want in runs[1][1]["digests"].items():
         if " f32" in name:  # the f32 kernels: each checkout against itself
-            repeat[name] = (runs[1][1]["digests"][name] == runs[2][1]["digests"].get(name)
-                            and runs[0][1]["digests"].get(name) == runs[3][1]["digests"].get(name))
+            repeat[name] = all(
+                len({r["digests"].get(name) for label, r in runs if label == side}) == 1
+                for side in ("parent", "change"))
         elif "hd64" in name:
             same[name] = all(r["digests"].get(name) == want for _, r in runs)
-    print("head_dim-64 outputs bit-identical across the four runs: "
+    print("head_dim-64 outputs bit-identical across the runs: "
           + ", ".join(f"{n} {'yes' if ok else 'NO'}" for n, ok in same.items()), flush=True)
+    others = {name: all(r["digests"].get(name) == want for _, r in runs)
+              for name, want in runs[1][1]["digests"].items()
+              if "hd64" not in name and " f32" not in name}
+    print("the other head dims' outputs bit-identical across the runs (the parent's "
+          "too): " + ", ".join(f"{n} {'yes' if ok else 'no'}" for n, ok in others.items()),
+          flush=True)
     print("f32 outputs bit-identical between the runs of one checkout: "
           + ", ".join(f"{n} {'yes' if ok else 'NO'}" for n, ok in repeat.items()), flush=True)
     across = {name: all(r["digests"].get(name) == want for _, r in runs)
               for name, want in runs[1][1]["digests"].items() if " f32" in name}
-    print("f32 outputs bit-identical across the four runs (the parent's too): "
+    print("f32 outputs bit-identical across the runs (the parent's too): "
           + ", ".join(f"{n} {'yes' if ok else 'no'}" for n, ok in across.items()), flush=True)
     for name, (e_max, e_mean) in runs[1][1].get("f32_err", {}).items():
         print(f"{name}: change max abs err {e_max:.3e}, mean {e_mean:.3e} against the plain "
@@ -364,16 +428,17 @@ def main(argv) -> None:
     a = sub.add_parser("ab")
     a.add_argument("dir")
     a.add_argument("--json")
-    a.add_argument("--only", choices=["f32"])
+    a.add_argument("--only", choices=["f32", "spread"])
+    a.add_argument("--rounds", type=int, default=1)
     r = sub.add_parser("run")
     r.add_argument("checkout", nargs="?", default=ROOT)
     r.add_argument("--json")
-    r.add_argument("--only", choices=["f32"])
+    r.add_argument("--only", choices=["f32", "spread"])
     args = p.parse_args(argv)
     if args.cmd == "unpack":
         unpack(args.rev, args.dir)
     elif args.cmd == "ab":
-        ab(args.dir, args.json, args.only)
+        ab(args.dir, args.json, args.only, args.rounds)
     else:
         run(os.path.abspath(args.checkout), args.json, args.only)
 

@@ -221,6 +221,12 @@ def ab(other: str, out_json) -> None:
             for name, want in runs[1][1]["digests"].items() if "hd64" in name}
     print("head_dim-64 outputs bit-identical across the four runs: "
           + ", ".join(f"{n} {'yes' if ok else 'NO'}" for n, ok in same.items()), flush=True)
+    others = {name: all(r["digests"].get(name) == want for _, r in runs)
+              for name, want in runs[1][1]["digests"].items()
+              if "hd64" not in name}
+    print("the other head dims' outputs bit-identical across the four runs (the parent's "
+          "too): " + ", ".join(f"{n} {'yes' if ok else 'no'}" for n, ok in others.items()),
+          flush=True)
     if out_json:
         with open(out_json, "w") as f:
             json.dump({"order": [label for label, _ in order], "runs": [r for _, r in runs],

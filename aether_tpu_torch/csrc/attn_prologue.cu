@@ -1,5 +1,8 @@
 // K1: the fused QKV attention prologue, hand-written for Hopper (sm_90a), at
-// head_dim D = 16 to 112 in steps of 16: one kernel template over D.
+// every even head_dim below 128: one kernel template over the width W of its
+// boxes and outputs (16 to 128 in steps of 16). W = D runs D = 16 to 112 in
+// steps of 16; a head dim between them (and 114 to 126) runs the instance of
+// the next width up with the true D a runtime argument (kRagged, below).
 //
 // Replaces aether_tpu/ops/attn_prologue.py::_prologue_kernel (the Pallas TPU
 // kernel launched by qkv_prologue; it takes every head_dim below 128). For
@@ -84,6 +87,26 @@
 //     jobs copy their box to the head-major output, zeroing rows >= s_valid,
 //     and reduce nothing. CTAs whose rows all lie at or past s_valid load
 //     nothing.
+//   * Head dims that are no multiple of 16 (kRagged: the instance of width
+//     W, the next multiple of 16, with the true D, even, a runtime
+//     argument). A box is still W columns wide, read from column h * hs of
+//     the projection (hs = D in the fused projection; a box must start on a
+//     16-byte boundary, so at a D that is no multiple of 8 the wrapper hands
+//     the kernel a copy with each head's columns hs = D rounded up to 8
+//     apart): its columns past D are the next head's (or TMA's zeros past
+//     the last head). So y is 0 there, and gamma, beta and the
+//     RoPE tables (D columns) read as 0 past D: z is exactly 0 there, adds
+//     nothing to the moments, the absmax or the row norms, and codes or
+//     writes as 0, so q and k come out W wide with zero columns past D,
+//     which K2 reads as they are; v's columns past D are zeroed in the copy.
+//     The moments divide by the runtime D correctly rounded, as div_by does
+//     for a compile-time D: the product with the host's RN(1 / D) and one
+//     fma correction (div_rt). The parameters and tables load in pairs (D is
+//     even, so no pair straddles it). W 128 (D 114 to 126) is built only in
+//     this form, with 64-row CTAs in clusters of up to 16 as at 112 and
+//     sixteen lanes a row of 8 columns each. At D = W the ragged form gives
+//     the exact instances' bits but reads 3-9.5% slower on the card
+//     (PERF.md, section 6), so the widths keep their exact instances.
 // Compiled without --use_fast_math: sqrtf, division and the RoPE products must
 // stay IEEE so that both passes and the plain PyTorch version agree.
 
@@ -109,7 +132,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // shared memory
 template <int D>
 struct Split {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 112, "head_dim: 16 to 112 in steps of 16");
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "width: 16 to 128 in steps of 16");
   static constexpr bool kPow2 = (D & (D - 1)) == 0;
   static constexpr int kLanes = kPow2 ? D / 8 : 8;  // lanes a (row, head)
   static constexpr int kCols = D / kLanes;          // columns a lane: 8, or 6 10 12 14
@@ -147,6 +170,9 @@ struct Args {
   const float* sin;
   int rope_rows;
   int H, s_pad, s_valid, hper, cluster;
+  int dt;                 // the head dim: the width D, or less (kRagged)
+  double inv_dt;          // kRagged: 1 / dt correctly rounded
+  int hs;                 // kRagged: elements from one head's first column to the next's
   float eps;
   float fold[2];          // what q / k are multiplied by in the float branch
   float scale[2];         // absmax -> qsc / ksc: fold / 127, 1 / 127
@@ -229,14 +255,20 @@ __device__ __forceinline__ float first_x(const uint8_t* box, int r) {
   return __uint_as_float(static_cast<uint32_t>(u) << 16);
 }
 
-// y = x - x[0] for the lane's columns
-template <int D>
-__device__ __forceinline__ void shifted(const uint8_t* box, int r, int part,
+// y = x - x[0] for the lane's columns; kRagged: 0 at the columns past dt
+template <int D, bool kRagged>
+__device__ __forceinline__ void shifted(const uint8_t* box, int r, int part, int dt,
                                         float (&y)[Split<D>::kCols]) {
+  constexpr int C = Split<D>::kCols;
   load_x<D>(box, r, part, y);
   const float c = first_x<D>(box, r);
 #pragma unroll
-  for (int i = 0; i < Split<D>::kCols; ++i) y[i] = __fsub_rn(y[i], c);
+  for (int i = 0; i < C; ++i) {
+    if constexpr (kRagged)
+      y[i] = C * part + i < dt ? __fsub_rn(y[i], c) : 0.0f;
+    else
+      y[i] = __fsub_rn(y[i], c);
+  }
 }
 
 // n without its factors of two
@@ -259,6 +291,14 @@ __device__ __forceinline__ double div_by(double s) {
     const double q = __dmul_rn(t, y);
     return __fma_rn(__fma_rn(-q, (double)b, t), y, q);
   }
+}
+
+// s / d correctly rounded for a runtime d, from y = RN(1 / d): div_by's
+// correction (Markstein's theorem; a power of two in d scales q, r and y
+// exactly, so the odd part needs no separate step here)
+__device__ __forceinline__ double div_rt(double s, double d, double y) {
+  const double q = __dmul_rn(s, y);
+  return __fma_rn(__fma_rn(-q, d, s), y, q);
 }
 
 // the largest power of two below n (n >= 2)
@@ -284,8 +324,9 @@ __device__ __forceinline__ double tree_sum(const double (&v)[M]) {
 // in double and rounded to f32 as the plain version rounds them. The
 // butterfly gives all the row's lanes the same bits (each level adds a
 // pair). Warp-collective: the whole warp calls it.
-template <int D>
-__device__ __forceinline__ float2 moments(const float (&y)[Split<D>::kCols], float eps) {
+template <int D, bool kRagged>
+__device__ __forceinline__ float2 moments(const float (&y)[Split<D>::kCols], float eps, int dt,
+                                          double inv_dt) {
   using S = Split<D>;
   constexpr int kPairs = S::kCols / 2;
   // adjacent pairs, then a tree over them, so that the dependent chain is
@@ -304,7 +345,14 @@ __device__ __forceinline__ float2 moments(const float (&y)[Split<D>::kCols], flo
     s1 = __dadd_rn(s1, __shfl_xor_sync(kFull, s1, o));
     s2 = __dadd_rn(s2, __shfl_xor_sync(kFull, s2, o));
   }
-  const double m1 = div_by<D>(s1), m2 = div_by<D>(s2);
+  double m1, m2;
+  if constexpr (kRagged) {
+    m1 = div_rt(s1, (double)dt, inv_dt);
+    m2 = div_rt(s2, (double)dt, inv_dt);
+  } else {
+    m1 = div_by<D>(s1);
+    m2 = div_by<D>(s2);
+  }
   const float mean = __double2float_rn(m1);
   const float var = __double2float_rn(fmax(__dsub_rn(m2, __dmul_rn(m1, m1)), 0.0));
   // the correctly rounded reciprocal is the correctly rounded 1 / x
@@ -357,21 +405,41 @@ __device__ __forceinline__ void load_f32(const float* p, float (&dst)[C]) {
   }
 }
 
+// C floats of a row of n from column col0 on, 0 past n (kRagged's loads): in
+// pairs, as col0 and n are even and p 8-byte aligned
+template <int C>
+__device__ __forceinline__ void load_cols(const float* p, int col0, int n, float (&dst)[C]) {
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) {
+    const float2 f = col0 + 2 * i < n ? __ldg(reinterpret_cast<const float2*>(p + col0) + i)
+                                      : make_float2(0.0f, 0.0f);
+    dst[2 * i] = f.x;
+    dst[2 * i + 1] = f.y;
+  }
+}
+
 // which RoPE case `row` is in, with the lane's columns of the tables loaded
-template <int D>
+// (tables of dt columns)
+template <int D, bool kRagged>
 __device__ __forceinline__ int rope_row(const Args& a, int row, int part,
                                         float (&cs)[Split<D>::kCols],
                                         float (&sn)[Split<D>::kCols]) {
   constexpr int C = Split<D>::kCols;
   if (a.cos == nullptr) return kNoRope;
   if (row >= a.rope_rows) return kPastTable;
-  load_f32<C>(a.cos + (int64_t)row * D + C * part, cs);
-  load_f32<C>(a.sin + (int64_t)row * D + C * part, sn);
+  if constexpr (kRagged) {
+    load_cols<C>(a.cos + (int64_t)row * a.dt, C * part, a.dt, cs);
+    load_cols<C>(a.sin + (int64_t)row * a.dt, C * part, a.dt, sn);
+  } else {
+    load_f32<C>(a.cos + (int64_t)row * D + C * part, cs);
+    load_f32<C>(a.sin + (int64_t)row * D + C * part, sn);
+  }
   return kRopeRow;
 }
 
-// v: the boxes copied to [B*H, s_pad, D], rows >= s_valid zeroed
-template <int D, int kRows>
+// v: the boxes copied to [B*H, s_pad, D], rows >= s_valid zeroed (kRagged:
+// and the columns past dt)
+template <int D, int kRows, bool kRagged>
 __device__ __forceinline__ void copy_v(const Args& a, const uint8_t* xs, int g, int row0) {
   constexpr int kChunks = D / 8;  // 16-byte chunks a row
   const int chunks = a.hper * kRows * kChunks;
@@ -379,8 +447,16 @@ __device__ __forceinline__ void copy_v(const Args& a, const uint8_t* xs, int g, 
     const int j = c / (kRows * kChunks), r = (c / kChunks) % kRows, ch = c % kChunks;
     const int row = row0 + r, bh = g * a.hper + j;
     uint4 u = make_uint4(0, 0, 0, 0);
-    if (row < a.s_valid)
+    if (row < a.s_valid) {
       u = *reinterpret_cast<const uint4*>(xs + j * box_bytes(D, kRows) + box_at<D>(r, 16 * ch));
+      if constexpr (kRagged) {  // dt is even: a word's two columns lie on one side of it
+        const int col = 8 * ch;
+        if (col + 2 > a.dt) u.x = 0;
+        if (col + 4 > a.dt) u.y = 0;
+        if (col + 6 > a.dt) u.z = 0;
+        if (col + 8 > a.dt) u.w = 0;
+      }
+    }
     *reinterpret_cast<uint4*>(a.v + ((int64_t)bh * a.s_pad + row) * D + 8 * ch) = u;
   }
 }
@@ -449,10 +525,10 @@ __device__ __forceinline__ void store_row(void* out, int64_t elem, const float (
 // row statistics (stored by the row's first lane), and the lane's largest
 // |z| and row |z|^2 of valid rows. kN 2 gives the scheduler
 // two independent chains of loads, double moments and shuffles.
-template <int D, int kRows, int kN>
+template <int D, int kRows, int kN, bool kRagged>
 __device__ __forceinline__ void stats_heads(const uint8_t* xs, float2* stats, uint64_t* bars,
                                             int j, int r, int part, bool valid, float eps,
-                                            int rope,
+                                            int dt, double inv_dt, int rope,
                                             const float (&gm)[Split<D>::kCols],
                                             const float (&bt)[Split<D>::kCols],
                                             const float (&cs)[Split<D>::kCols],
@@ -466,9 +542,10 @@ __device__ __forceinline__ void stats_heads(const uint8_t* xs, float2* stats, ui
     for (int h = 0; h < kN; ++h) mbar_wait(&bars[j + h], 0);
   }
 #pragma unroll
-  for (int h = 0; h < kN; ++h) shifted<D>(xs + (j + h) * box_bytes(D, kRows), r, part, z[h]);
+  for (int h = 0; h < kN; ++h)
+    shifted<D, kRagged>(xs + (j + h) * box_bytes(D, kRows), r, part, dt, z[h]);
 #pragma unroll
-  for (int h = 0; h < kN; ++h) mi[h] = moments<D>(z[h], eps);
+  for (int h = 0; h < kN; ++h) mi[h] = moments<D, kRagged>(z[h], eps, dt, inv_dt);
 #pragma unroll
   for (int h = 0; h < kN; ++h) {
     if (part == 0) stats[(j + h) * kRows + r] = mi[h];
@@ -494,7 +571,7 @@ __device__ __forceinline__ void stats_heads(const uint8_t* xs, float2* stats, ui
 // Pass 2 over the kN heads j .. of box row r: z recomputed from the box and
 // the stored statistics (zeros past s_valid), written out (or staged over
 // the box row)
-template <int D, int kRows, int kN, bool kQuantize>
+template <int D, int kRows, int kN, bool kQuantize, bool kRagged>
 __device__ __forceinline__ void write_heads(const Args& a, uint8_t* xs,
                                             const float2* stats, int tensor, int g, int j,
                                             int r, int row, int part, bool valid, int rope,
@@ -507,7 +584,7 @@ __device__ __forceinline__ void write_heads(const Args& a, uint8_t* xs,
 #pragma unroll
   for (int h = 0; h < kN; ++h) {
     if (valid) {
-      shifted<D>(xs + (j + h) * box_bytes(D, kRows), r, part, z[h]);
+      shifted<D, kRagged>(xs + (j + h) * box_bytes(D, kRows), r, part, a.dt, z[h]);
       normalize<C>(z[h], stats[(j + h) * kRows + r], gm, bt, rope, cs, sn);
     } else {
 #pragma unroll
@@ -549,8 +626,9 @@ __device__ __forceinline__ void copy_out(const Args& a, const uint8_t* xs, int t
 
 // Grid (s_pad / kRows, 3 * G): blockIdx.x is the CTA's kRows-row slice (a
 // cluster of `cluster` consecutive slices is one token tile), blockIdx.y / 3
-// the head group and blockIdx.y % 3 the tensor (q, k, v).
-template <int D, int kRows, bool kQuantize>
+// the head group and blockIdx.y % 3 the tensor (q, k, v). D is the width of
+// the boxes and outputs; kRagged: the head dim a.dt is less (the note above).
+template <int D, int kRows, bool kQuantize, bool kRagged>
 __global__ void __launch_bounds__(kThreads, blocks_per_sm(D, kRows))
 prologue_kernel(const __grid_constant__ CUtensorMap xq, const __grid_constant__ CUtensorMap xk,
                 const __grid_constant__ CUtensorMap xv, const Args a) {
@@ -581,8 +659,8 @@ prologue_kernel(const __grid_constant__ CUtensorMap xq, const __grid_constant__ 
       for (int j = 0; j < a.hper; ++j) {
         const int bh = g * a.hper + j;
         if (kBarEach) mbar_expect_tx(&tl.bar[j], kBoxBytes);
-        tma_load_3d(xs + j * kBoxBytes, map, &tl.bar[kBarEach ? j : 0], (bh % a.H) * D, row0,
-                    bh / a.H);
+        tma_load_3d(xs + j * kBoxBytes, map, &tl.bar[kBarEach ? j : 0],
+                    (bh % a.H) * (kRagged ? a.hs : D), row0, bh / a.H);
       }
     }
   }
@@ -590,15 +668,20 @@ prologue_kernel(const __grid_constant__ CUtensorMap xq, const __grid_constant__ 
   if (tensor == 2) {
     if (loads)
       for (int j = 0; j < n_bars; ++j) mbar_wait(&tl.bar[j], 0);
-    copy_v<D, kRows>(a, xs, g, row0);
+    copy_v<D, kRows, kRagged>(a, xs, g, row0);
     return;
   }
 
   // ---- q or k: kLanes lanes a row, kRowsAtOnce rows at a time ----
   const int part = tid % kLanes, rsub = tid / kLanes, lane = tid & 31;
   float gm[C], bt[C], cs[C], sn[C];
-  load_f32<C>(a.gamma[tensor] + C * part, gm);
-  load_f32<C>(a.beta[tensor] + C * part, bt);
+  if constexpr (kRagged) {
+    load_cols<C>(a.gamma[tensor], C * part, a.dt, gm);
+    load_cols<C>(a.beta[tensor], C * part, a.dt, bt);
+  } else {
+    load_f32<C>(a.gamma[tensor] + C * part, gm);
+    load_f32<C>(a.beta[tensor] + C * part, bt);
+  }
   float amax = 0.0f, n2max = 0.0f;
   if (!kBarEach && loads) mbar_wait(&tl.bar[0], 0);
 #pragma unroll 1
@@ -609,18 +692,18 @@ prologue_kernel(const __grid_constant__ CUtensorMap xq, const __grid_constant__ 
     // warp that stops here reads no box, in this pass or the next.
     if (row0 + kRowsAtOnce * i + (tid / 32) * (32 / kLanes) >= a.s_valid) break;
     const bool valid = row < a.s_valid;
-    const int rope = rope_row<D>(a, row, part, cs, sn);
+    const int rope = rope_row<D, kRagged>(a, row, part, cs, sn);
     // the first rows wait for each box as they reach it
     uint64_t* bars = kBarEach && i == 0 ? tl.bar : nullptr;
     int j = 0;
 #pragma unroll 1
     for (; j + kPair <= a.hper; j += kPair)
-      stats_heads<D, kRows, kPair>(xs, stats, bars, j, r, part, valid, a.eps, rope, gm, bt, cs,
-                                   sn, amax, n2max);
+      stats_heads<D, kRows, kPair, kRagged>(xs, stats, bars, j, r, part, valid, a.eps, a.dt,
+                                            a.inv_dt, rope, gm, bt, cs, sn, amax, n2max);
     if constexpr (kPair > 1) {
       if (j < a.hper)
-        stats_heads<D, kRows, 1>(xs, stats, bars, j, r, part, valid, a.eps, rope, gm, bt, cs,
-                                 sn, amax, n2max);
+        stats_heads<D, kRows, 1, kRagged>(xs, stats, bars, j, r, part, valid, a.eps, a.dt,
+                                          a.inv_dt, rope, gm, bt, cs, sn, amax, n2max);
     }
   }
   // non-negative floats order like their bit patterns
@@ -667,16 +750,16 @@ prologue_kernel(const __grid_constant__ CUtensorMap xq, const __grid_constant__ 
   for (int i = 0; i < kRows / kRowsAtOnce; ++i) {
     const int r = rsub + kRowsAtOnce * i, row = row0 + r;
     const bool valid = row < a.s_valid;
-    const int rope = valid ? rope_row<D>(a, row, part, cs, sn) : kNoRope;
+    const int rope = valid ? rope_row<D, kRagged>(a, row, part, cs, sn) : kNoRope;
     int j = 0;
 #pragma unroll 1
     for (; j + kPair <= a.hper; j += kPair)
-      write_heads<D, kRows, kPair, kQuantize>(a, xs, stats, tensor, g, j, r, row, part, valid,
-                                              rope, gm, bt, cs, sn, rf);
+      write_heads<D, kRows, kPair, kQuantize, kRagged>(a, xs, stats, tensor, g, j, r, row, part,
+                                                       valid, rope, gm, bt, cs, sn, rf);
     if constexpr (kPair > 1) {
       if (j < a.hper)
-        write_heads<D, kRows, 1, kQuantize>(a, xs, stats, tensor, g, j, r, row, part, valid,
-                                            rope, gm, bt, cs, sn, rf);
+        write_heads<D, kRows, 1, kQuantize, kRagged>(a, xs, stats, tensor, g, j, r, row, part,
+                                                     valid, rope, gm, bt, cs, sn, rf);
     }
   }
   if constexpr (Tune<D>::kStaged) {
@@ -686,12 +769,19 @@ prologue_kernel(const __grid_constant__ CUtensorMap xq, const __grid_constant__ 
   cluster_wait();  // no CTA leaves while another may read its shared memory
 }
 
-// The rows a CTA holds at head dim D that this library builds, as the
+// The rows a CTA holds at width D that this library builds, as the
 // wrapper's _launch_plan takes them: 256 at 16 and 32 (clusters up to 4;
 // 128 where the token tile is no multiple of 256), 128 at 48 to 96, 64 at
-// 112 (clusters up to 16)
+// 112 and 128 (clusters up to 16)
 __host__ __device__ constexpr bool rows_built(int d, int rows) {
-  return (rows == 128 && d != 112) || (rows == 256 && d <= 32) || (rows == 64 && d == 112);
+  return (rows == 128 && d <= 96) || (rows == 256 && d <= 32) || (rows == 64 && d >= 112);
+}
+
+// the width of head dim d's instance: d at 16 to 112 in steps of 16, the
+// next multiple of 16 at any other even d below 128, else 0 (none)
+__host__ __device__ constexpr int width_of(int d) {
+  if (d >= 16 && d <= 112 && d % 16 == 0) return d;
+  return d >= 2 && d <= 126 && d % 2 == 0 ? (d + 15) / 16 * 16 : 0;
 }
 
 __host__ __device__ constexpr int max_cluster(int rows) {
@@ -700,46 +790,55 @@ __host__ __device__ constexpr int max_cluster(int rows) {
 
 typedef void (*KernelFn)(CUtensorMap, CUtensorMap, CUtensorMap, Args);
 
-template <int D, int kRows>
-KernelFn kernel_for(int quantize) {
-  return quantize ? prologue_kernel<D, kRows, true> : prologue_kernel<D, kRows, false>;
+template <int D, int kRows, bool kRagged>
+KernelFn instance(int quantize) {
+  return quantize ? prologue_kernel<D, kRows, true, kRagged>
+                  : prologue_kernel<D, kRows, false, kRagged>;
 }
 
-// the instance of (D, rows, quantize), or null
-KernelFn pick(int d, int rows, int quantize) {
+template <int D, int kRows>
+KernelFn kernel_for(int quantize, bool ragged) {
+  return ragged ? instance<D, kRows, true>(quantize) : instance<D, kRows, false>(quantize);
+}
+
+// the instance of (width D, rows, quantize, ragged), or null; width 128 is
+// built ragged only (the JAX kernel takes head dims below 128)
+KernelFn pick(int d, int rows, int quantize, bool ragged) {
   if (rows == 256) {
     switch (d) {
-      case 16: return kernel_for<16, 256>(quantize);
-      case 32: return kernel_for<32, 256>(quantize);
+      case 16: return kernel_for<16, 256>(quantize, ragged);
+      case 32: return kernel_for<32, 256>(quantize, ragged);
       default: return nullptr;
     }
   }
   if (rows == 128) {
     switch (d) {
-      case 16: return kernel_for<16, 128>(quantize);
-      case 32: return kernel_for<32, 128>(quantize);
-      case 48: return kernel_for<48, 128>(quantize);
-      case 64: return kernel_for<64, 128>(quantize);
-      case 80: return kernel_for<80, 128>(quantize);
-      case 96: return kernel_for<96, 128>(quantize);
+      case 16: return kernel_for<16, 128>(quantize, ragged);
+      case 32: return kernel_for<32, 128>(quantize, ragged);
+      case 48: return kernel_for<48, 128>(quantize, ragged);
+      case 64: return kernel_for<64, 128>(quantize, ragged);
+      case 80: return kernel_for<80, 128>(quantize, ragged);
+      case 96: return kernel_for<96, 128>(quantize, ragged);
       default: return nullptr;
     }
   }
-  return rows == 64 && d == 112 ? kernel_for<112, 64>(quantize) : nullptr;
+  if (rows != 64) return nullptr;
+  if (d == 112) return kernel_for<112, 64>(quantize, ragged);
+  return d == 128 && ragged ? instance<128, 64, true>(quantize) : nullptr;
 }
 
 // The instance's attributes, once a device: the most shared memory a plan of
 // it takes (hper 4) and, at 64 rows, the non-portable cluster size. They
 // persist, and setting them at every launch cost host time that the small
 // head dims' launches (0.07 ms at 16) could not hide.
-int configure(KernelFn fn, int d, int rows, int quantize) {
-  // a bit a device (the first 32), by head dim, rows and quantize
-  static std::atomic<uint32_t> done[7][3][2];
+int configure(KernelFn fn, int d, int rows, int quantize, bool ragged) {
+  // a bit a device (the first 32), by width, rows, quantize and ragged
+  static std::atomic<uint32_t> done[8][3][2][2];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   std::atomic<uint32_t>& flags =
-      done[d / 16 - 1][rows == 64 ? 0 : rows == 128 ? 1 : 2][quantize != 0];
+      done[d / 16 - 1][rows == 64 ? 0 : rows == 128 ? 1 : 2][quantize != 0][ragged];
   const uint32_t bit = dev < 32 ? 1u << dev : 0u;
   if (bit != 0 && (flags.load(std::memory_order_acquire) & bit)) return 0;
   err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -776,33 +875,40 @@ bool plan_ok(int d, int rows, int hper, int block, int cluster, int smem_bytes) 
 
 }  // namespace
 
-// xq, xk, xv: bf16 [B, S_in, H*D] views sharing the element strides
+// xq, xk, xv: bf16 [B, S_in, H*hs] views sharing the element strides
 // (stride_b, stride_s), last axis contiguous, bases and byte strides 16-byte
-// aligned (TMA); D one of 16, 32, 48, 64, 80, 96, 112. The launch plan
-// (cluster = block / rows CTAs of `rows` rows, smem_bytes of dynamic shared
-// memory) comes from the wrapper's _launch_plan and is checked here. Returns
-// a cudaError_t.
+// aligned (TMA), head h in columns h * hs .. h * hs + D - 1 (hs = D, or
+// below the width D rounded up to a multiple of 8: every box starts
+// 16-byte aligned); D even, 2 to 126 (gamma, beta: [D]; the RoPE
+// tables [rope_rows, D]). q, k and v are written W = width_of(D) wide ([B*H,
+// s_pad, W], zero past D). The launch plan (cluster = block / rows CTAs of
+// `rows` rows, smem_bytes of dynamic shared memory, by W) comes from the
+// wrapper's _launch_plan and is checked here. Returns a cudaError_t.
 extern "C" int aether_qkv_prologue(
     const void* xq, const void* xk, const void* xv, int stride_b, int stride_s,
     const void* gq, const void* bq, const void* gk, const void* bk,
     const void* rope_cos, const void* rope_sin, int rope_rows,
-    int B, int S_in, int H, int D, int s_pad, int s_valid, int block, int hper, int quantize,
+    int B, int S_in, int H, int D, int hs, int s_pad, int s_valid, int block, int hper,
+    int quantize,
     float eps, float fold, float fold127, float inv127,
     void* qo, void* ko, void* v, void* qsc, void* qn, void* ksc, void* kn,
     int rows, int cluster, int smem_bytes, void* stream) {
-  if (B <= 0 || H <= 0 || (B * H) % (hper > 0 ? hper : 1) || s_valid <= 0 || s_valid > S_in ||
-      s_pad % (block > 0 ? block : 1) || !plan_ok(D, rows, hper, block, cluster, smem_bytes) ||
-      3 * (B * H / hper) > 65535)
+  const int W = width_of(D);
+  const bool ragged = W != D;
+  if (W == 0 || (ragged ? hs < D || hs % 8 : hs != D) || B <= 0 || H <= 0 ||
+      (B * H) % (hper > 0 ? hper : 1) || s_valid <= 0 ||
+      s_valid > S_in || s_pad % (block > 0 ? block : 1) ||
+      !plan_ok(W, rows, hper, block, cluster, smem_bytes) || 3 * (B * H / hper) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const KernelFn fn = pick(D, rows, quantize);
+  const KernelFn fn = pick(W, rows, quantize, ragged);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[3];
   const void* bases[3] = {xq, xk, xv};
   for (int t = 0; t < 3; ++t) {
     if (!make_map_3d_strided(&maps[t], bases[t], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                             (uint64_t)H * D, S_in, B, (uint64_t)stride_s * 2,
-                             (uint64_t)stride_b * 2, D, rows,
-                             D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE))
+                             (uint64_t)H * hs, S_in, B, (uint64_t)stride_s * 2,
+                             (uint64_t)stride_b * 2, W, rows,
+                             W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -818,6 +924,9 @@ extern "C" int aether_qkv_prologue(
   a.s_valid = s_valid;
   a.hper = hper;
   a.cluster = cluster;
+  a.dt = D;
+  a.inv_dt = 1.0 / D;
+  a.hs = hs;
   a.eps = eps;
   a.fold[0] = fold;
   a.fold[1] = 1.0f;
@@ -831,7 +940,7 @@ extern "C" int aether_qkv_prologue(
   a.nrm[0] = static_cast<float*>(qn);
   a.nrm[1] = static_cast<float*>(kn);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = configure(fn, D, rows, quantize);
+  const int rc = configure(fn, W, rows, quantize, ragged);
   if (rc != 0) return rc;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
@@ -842,15 +951,16 @@ extern "C" int aether_qkv_prologue(
 }
 
 // cudaOccupancyMaxActiveClusters for the plan: how many clusters of
-// `cluster` CTAs of (D, rows) with `smem_bytes` each the card holds at once,
-// into *clusters (an int). Returns a cudaError_t.
+// `cluster` CTAs of (head dim D, rows) with `smem_bytes` each the card holds
+// at once, into *clusters (an int). Returns a cudaError_t.
 extern "C" int aether_qkv_prologue_occupancy(int D, int rows, int cluster, int smem_bytes,
                                              int quantize, void* clusters) {
-  const KernelFn fn = pick(D, rows, quantize);
+  const int W = width_of(D);
+  const KernelFn fn = W == 0 ? nullptr : pick(W, rows, quantize, W != D);
   if (fn == nullptr || cluster < 1 || cluster > max_cluster(rows) ||
-      smem_bytes < smem_bytes_for(D, rows, 1))
+      smem_bytes < smem_bytes_for(W, rows, 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = configure(fn, D, rows, quantize);
+  const int rc = configure(fn, W, rows, quantize, W != D);
   if (rc != 0) return rc;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(dim3(cluster, 3, 1), cluster, smem_bytes, 0, attr);

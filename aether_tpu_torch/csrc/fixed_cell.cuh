@@ -1,7 +1,11 @@
 // The fixed-shift attention cell on wgmma with TMA, written by hand for
 // Hopper (sm_90a): one kernel template over the head dim D and two
 // compile-time switches, shared by K2 (flash_prepacked.cu) and K3
-// (flash_fixed_max.cu), both at D 16 to 112 in steps of 16.
+// (flash_fixed_max.cu), both at D 16 to 128 in steps of 16. A head dim
+// between two of them runs the next one up: its wrappers hand the cell q, k
+// and v with `cols` real columns (TMA fills the columns past them with
+// zeros, which change no score and no sum) and take the first `cols`
+// columns of the output.
 //
 // Replaces the body of two Pallas TPU kernels of
 // aether_tpu/ops/flash_attention.py that compute one function:
@@ -50,7 +54,12 @@
 //     Registers are shared out by SM sub-partition, a quarter of the warps
 //     on each, so 13 warps leave a thread 128 and 9 leave it 168: kWG is 2
 //     above D 64 (ptxas -v, as time_hd_cells.py prints it: 105-127
-//     registers at D 16-64, 147-166 at 80-112, no spill). q and k
+//     registers at D 16-64, 147-166 at 80-112, no spill). At D 128 (the
+//     head dims 113-127 of the JAX kernels, run here padded) a thread holds
+//     164 before addresses, more than 168 leave room for: there the
+//     producer is a whole warpgroup that gives its registers to the
+//     consumers (setmaxnreg: 24 for it, 240 a consumer thread), as
+//     online_cell.cuh does above D 64. q and k
 //     rows are D bytes (int8) or 2 D (bf16) rounded up to a swizzle row (32,
 //     64 or 128 bytes; TMA fills the columns past D with zeros), in 128-byte
 //     panels above 128 (bf16 at D 80-112: two panels). V is MN-major in
@@ -114,12 +123,18 @@ enum NoShift { kKeep = 0, kDrop = 1, kAuto = 2 };
 // cell had before it took other head dims.
 template <int D, bool kQK8>
 struct Plan {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 112, "head_dim: 16 to 112 in steps of 16");
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head_dim: 16 to 128 in steps of 16");
   static constexpr int kEl = kQK8 ? 1 : 2;          // bytes of a q or k element
   static constexpr int kWG = D <= 64 ? 3 : 2;       // consumer warpgroups, 64 q rows each
   static constexpr int kBM = 64 * kWG;              // q rows per CTA
   static constexpr int kConsumers = 128 * kWG;
-  static constexpr int kThreads = kConsumers + 32;  // and one producer warp
+  // the producer: a warp, or at D 128 a warpgroup that hands its registers on
+  static constexpr bool kProducerWG = D == 128;
+  static constexpr int kThreads = kConsumers + (kProducerWG ? 128 : 32);
+  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+  static_assert(!kProducerWG || 128 * kProducerRegs + kConsumers * kConsumerRegs <=
+                                    kThreads * ((65536 / kThreads) & ~7),
+                "setmaxnreg asks for more registers than the CTA starts with");
   // q and k (K-major): panels of kRow-byte rows, k steps of 32 bytes
   static constexpr int kRow = swizzle_row(D * kEl);
   static constexpr int kPanels = (D * kEl + 127) / 128;
@@ -278,7 +293,8 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     sm.ones[threadIdx.x] = 0x3F803F80u;
     fence_proxy_async();
   }
-  if (kTileScale && threadIdx.x >= kConsumers) {
+  // the shift by the producer's first warp
+  if (kTileScale && threadIdx.x >= kConsumers && (!P::kProducerWG || threadIdx.x < kConsumers + 32)) {
     const float s = tile_shift(prm, g, gridDim.y / prm.hper, threadIdx.x % 32);
     if (threadIdx.x == kConsumers) sm.shift = s;
   }
@@ -286,6 +302,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 
   if (threadIdx.x >= kConsumers) {
     // ---- producer: one thread issues every TMA load ----
+    if constexpr (P::kProducerWG) setmaxnreg_dec<P::kProducerRegs>();
     if (threadIdx.x == kConsumers) {
       constexpr int kRowEls = P::kRow / P::kEl;  // q / k elements a panel row
       mbar_expect_tx(&sm.q_full, P::kQTile);
@@ -305,6 +322,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   }
 
   // ---- consumers: warpgroup wg owns q rows q0 + 64 wg .. + 63 ----
+  if constexpr (P::kProducerWG) setmaxnreg_inc<P::kConsumerRegs>();
   const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
   const int lane = tid % 32, warp = t / 32;
   const int c = lane % 4;
@@ -401,22 +419,29 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   }
 }
 
-// One launch of an instance on q [BH, sq, D], k and v [BH, skv, D] (q and k
-// int8 or bf16 by kQK8, v bf16; contiguous, 16-byte aligned), grid (q tiles,
-// BH). Returns a cudaError_t: cudaErrorInvalidValue where
-// cuTensorMapEncodeTiled refuses a map.
+// One launch of an instance on q [BH, sq, cols], k and v [BH, skv, cols] (q
+// and k int8 or bf16 by kQK8, v bf16; rows `ld` elements apart, 0 < cols <=
+// D <= ld, starts and row strides 16-byte aligned: at cols = ld = D
+// contiguous), the output [BH, sq, D]; grid (q tiles, BH). The maps read
+// `cols` columns and TMA fills the rest of each row's D with zeros. Returns a
+// cudaError_t: cudaErrorInvalidValue where cuTensorMapEncodeTiled refuses a
+// map.
 template <int D, bool kQK8, bool kTileScale>
-int launch(const void* q, const void* k, const void* v, int BH, int skv, Params prm,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, int BH, int skv, int cols, int ld,
+           Params prm, cudaStream_t stream) {
   using P = Plan<D, kQK8>;
+  if (cols <= 0 || cols > D || ld < cols) return static_cast<int>(cudaErrorInvalidValue);
   const CUtensorMapDataType qk_type =
       kQK8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   constexpr int el = P::kEl, box = P::kRow / P::kEl;
+  const uint64_t row = ld, q_head = (uint64_t)prm.sq * ld, kv_head = (uint64_t)skv * ld;
   CUtensorMap qmap, kmap, vmap;
-  if (!make_map_3d(&qmap, q, qk_type, el, D, prm.sq, BH, box, P::kBM, map_swizzle(P::kRow)) ||
-      !make_map_3d(&kmap, k, qk_type, el, D, skv, BH, box, kBN, map_swizzle(P::kRow)) ||
-      !make_map_3d(&vmap, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, skv, BH, P::kVCols, kBN,
-                   map_swizzle(P::kVRow)))
+  if (!make_map_3d_strided(&qmap, q, qk_type, cols, prm.sq, BH, row * el, q_head * el, box,
+                           P::kBM, map_swizzle(P::kRow)) ||
+      !make_map_3d_strided(&kmap, k, qk_type, cols, skv, BH, row * el, kv_head * el, box, kBN,
+                           map_swizzle(P::kRow)) ||
+      !make_map_3d_strided(&vmap, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cols, skv, BH, row * 2,
+                           kv_head * 2, P::kVCols, kBN, map_swizzle(P::kVRow)))
     return static_cast<int>(cudaErrorInvalidValue);
   // + 1024 so the tiles can start on a 1024-byte boundary
   constexpr int kSmem = sizeof(Smem<D, kQK8>) + 1024;

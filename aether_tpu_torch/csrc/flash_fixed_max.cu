@@ -1,7 +1,8 @@
 // K3: fixed-shift flash attention on wgmma with TMA, written by hand for
 // Hopper (sm_90a), as the instances <D, int8 or bf16 QK^T, one scale a
 // group> of the cell in fixed_cell.cuh (K2 is its other instance), at head
-// dims 16 to 112 in steps of 16 with bf16 v.
+// dims 16 to 128 in steps of 16 with bf16 v; a head dim between them runs
+// the next instance up on operands its wrapper pads with zero columns.
 //
 // Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_fixed_max (:151,
 // the Pallas TPU kernel launched by flash_attention(fixed_max=True)): the
@@ -41,7 +42,7 @@
 // q, k: [BH, sq | skv, D] int8 (qk_int8) or bf16 carrying the fold; v:
 // [BH, skv, D] bf16, rows at or past kv_len zero (any finite values do);
 // all contiguous and 16-byte aligned, any lengths; D one of 16, 32, 48, 64,
-// 80, 96, 112. shift, scale: [G = BH / hper] f32; out: [BH, sq, D] bf16;
+// 80, 96, 112, 128. shift, scale: [G = BH / hper] f32; out: [BH, sq, D] bf16;
 // l_out: [BH, sq] f32 or null (normalized). 0 <= kv_len <= skv. Returns a
 // cudaError_t.
 extern "C" int aether_flash_fixed_max(const void* q, const void* k, const void* v,
@@ -64,10 +65,10 @@ extern "C" int aether_flash_fixed_max(const void* q, const void* k, const void* 
   switch (D) {
 #define AETHER_K3_CASE(d)                                                   \
     case d:                                                                 \
-      return qk_int8 ? launch<d, true, false>(q, k, v, BH, skv, prm, st)    \
-                     : launch<d, false, false>(q, k, v, BH, skv, prm, st);
+      return qk_int8 ? launch<d, true, false>(q, k, v, BH, skv, d, d, prm, st)  \
+                     : launch<d, false, false>(q, k, v, BH, skv, d, d, prm, st);
     AETHER_K3_CASE(16) AETHER_K3_CASE(32) AETHER_K3_CASE(48) AETHER_K3_CASE(64)
-    AETHER_K3_CASE(80) AETHER_K3_CASE(96) AETHER_K3_CASE(112)
+    AETHER_K3_CASE(80) AETHER_K3_CASE(96) AETHER_K3_CASE(112) AETHER_K3_CASE(128)
 #undef AETHER_K3_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

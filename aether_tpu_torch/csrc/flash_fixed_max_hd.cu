@@ -6,7 +6,9 @@
 // the Pallas TPU kernel launched by flash_attention(fixed_max=True)) where v
 // is f32, at every head dim the JAX kernel takes below 128, 64 included (an
 // f32 pipeline's request, DiT.forward(fixed_max=True, fused_qkv=False) in
-// f32, and its ring merge): P V in 3xTF32, as the TPU kernel keeps p in v's
+// f32, and its ring merge; instances at 16 to 128 in steps of 16, a head dim
+// between them running the next one up on operands its wrapper pads with
+// zero columns): P V in 3xTF32, as the TPU kernel keeps p in v's
 // dtype, and QK^T in 3xTF32 (f32 q/k) or as one exact s8 product of the
 // codes (qk_int8). K3 with bf16 v is flash_fixed_max.cu's. Non-causal, in
 // the log2 domain, one shift and one scale per head group g (the wrapper
@@ -33,7 +35,7 @@
 // vt_lo: [BH, D, skv rounded up to 8] f32, v transposed, split and
 // kv-permuted (ops/flash_attention.py::_tf32_operands); rows of k and v at
 // or past kv_len zero; all contiguous and 16-byte aligned, any lengths; D one
-// of 16, 32, 48, 64, 80, 96, 112. shift, scale: [G = BH / hper] f32; out
+// of 16, 32, 48, 64, 80, 96, 112, 128. shift, scale: [G = BH / hper] f32; out
 // [BH, sq, D] f32; l_out: [BH, sq] f32 or null (normalized). 0 <= kv_len <=
 // skv. Returns a cudaError_t.
 extern "C" int aether_flash_fixed_max_f32(const void* q_hi, const void* q_lo, const void* k_hi,
@@ -63,7 +65,7 @@ extern "C" int aether_flash_fixed_max_f32(const void* q_hi, const void* q_lo, co
                  ? launch<d, true, kFixed>(q_hi, k_hi, k_lo, vt_hi, vt_lo, BH, skv, prm, st) \
                  : launch<d, false, kFixed>(q_hi, k_hi, k_lo, vt_hi, vt_lo, BH, skv, prm, st);
     AETHER_K3_CASE(16) AETHER_K3_CASE(32) AETHER_K3_CASE(48) AETHER_K3_CASE(64)
-    AETHER_K3_CASE(80) AETHER_K3_CASE(96) AETHER_K3_CASE(112)
+    AETHER_K3_CASE(80) AETHER_K3_CASE(96) AETHER_K3_CASE(112) AETHER_K3_CASE(128)
 #undef AETHER_K3_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,9 @@
 // K2: fixed-max flash attention over the prologue's operands on wgmma with
 // TMA, written by hand for Hopper (sm_90a), as the instances <D, int8 or
 // bf16 QK^T, per-tile scales> of the cell in fixed_cell.cuh (K3 is its other
-// instance), at head_dim D = 16 to 112 in steps of 16.
+// instance), at head_dim D = 16 to 128 in steps of 16; a head dim between
+// them runs the next instance up on q, k and v read `cols` columns wide
+// (the prologue writes them D wide with zero columns past its head dim).
 //
 // Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_prepacked (:812,
 // the Pallas TPU kernel launched by flash_attention_prepacked), both its
@@ -38,9 +40,10 @@
 
 #include "fixed_cell.cuh"
 
-// q, k: [BH, s_pad, D] int8 (qk_int8) or bf16, q carrying the fold; v, out:
-// [BH, s_pad, D] bf16; all contiguous and 16-byte aligned; D one of 16, 32,
-// 48, 64, 80, 96, 112. qsc, ksc, qn,
+// q, k: [BH, s_pad, cols] int8 (qk_int8) or bf16, q carrying the fold; v:
+// [BH, s_pad, cols] bf16; their rows ld elements apart (cols <= D <= ld),
+// starts and row strides 16-byte aligned; out: [BH, s_pad, D] bf16,
+// contiguous; D one of 16, 32, 48, 64, 80, 96, 112, 128. qsc, ksc, qn,
 // kn: [BH / hper, n_blocks] f32 over tiles of `block` tokens, a multiple of
 // 128 with block * n_blocks = s_pad. 0 <= s_valid <= s_pad. noshift: 0 keep
 // the shift, 1 drop it, 2 drop it when every group's bound is below 96.
@@ -49,7 +52,7 @@ extern "C" int aether_flash_prepacked(const void* q, const void* k, const void* 
                                       const void* qn, const void* kn, void* out,
                                       int BH, int s_pad, int s_valid, int hper,
                                       int block, int n_blocks, int qk_int8, int noshift,
-                                      int D, void* stream) {
+                                      int D, int cols, int ld, void* stream) {
   using namespace fixed_cell;
   if (BH <= 0 || BH > 65535 || s_pad <= 0 || s_valid < 0 || s_valid > s_pad || hper <= 0 ||
       BH % hper || block <= 0 || block % kBN || block * n_blocks != s_pad || noshift < kKeep ||
@@ -71,10 +74,10 @@ extern "C" int aether_flash_prepacked(const void* q, const void* k, const void* 
   switch (D) {
 #define AETHER_K2_CASE(d)                                                   \
     case d:                                                                 \
-      return qk_int8 ? launch<d, true, true>(q, k, v, BH, s_pad, prm, st)   \
-                     : launch<d, false, true>(q, k, v, BH, s_pad, prm, st);
+      return qk_int8 ? launch<d, true, true>(q, k, v, BH, s_pad, cols, ld, prm, st)   \
+                     : launch<d, false, true>(q, k, v, BH, s_pad, cols, ld, prm, st);
     AETHER_K2_CASE(16) AETHER_K2_CASE(32) AETHER_K2_CASE(48) AETHER_K2_CASE(64)
-    AETHER_K2_CASE(80) AETHER_K2_CASE(96) AETHER_K2_CASE(112)
+    AETHER_K2_CASE(80) AETHER_K2_CASE(96) AETHER_K2_CASE(112) AETHER_K2_CASE(128)
 #undef AETHER_K2_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

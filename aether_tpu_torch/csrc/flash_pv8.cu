@@ -1,6 +1,8 @@
 // K6: full-int8 flash attention with an integer running max, on wgmma with
-// TMA, written by hand for Hopper (sm_90a), at head_dim D = 16 to 112 in
-// steps of 16 (one instance a head dim).
+// TMA, written by hand for Hopper (sm_90a), at head_dim D = 16 to 128 in
+// steps of 16 (one instance a head dim; a head dim between them runs the
+// next one up on operands its wrapper pads with zero columns, which change
+// no score and no sum; 128 takes the JAX kernel's 113-127).
 //
 // Replaces aether_tpu/ops/flash_attention.py::_flash_kernel_pv8 (:259, the
 // Pallas TPU kernel launched by flash_attention(fixed_max=True,
@@ -95,7 +97,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // The tile plan of head dim D (the note above)
 template <int D>
 struct Plan {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 112, "head_dim: 16 to 112 in steps of 16");
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head_dim: 16 to 128 in steps of 16");
   static constexpr int kWG = D <= 64 ? 3 : 2;       // consumer warpgroups, 64 q rows each
   static constexpr int kBM = 64 * kWG;              // q rows per CTA
   static constexpr int kConsumers = 128 * kWG;
@@ -387,7 +389,7 @@ int launch_dim(int D, const void* q8, const void* k8, const void* v8t, const voi
 #define AETHER_PV8_CASE(d) \
     case d: return launch<d, T>(q8, k8, v8t, scale, vscale, out, BH, sq, skv, kv_len, hper, span, st);
     AETHER_PV8_CASE(16) AETHER_PV8_CASE(32) AETHER_PV8_CASE(48) AETHER_PV8_CASE(64)
-    AETHER_PV8_CASE(80) AETHER_PV8_CASE(96) AETHER_PV8_CASE(112)
+    AETHER_PV8_CASE(80) AETHER_PV8_CASE(96) AETHER_PV8_CASE(112) AETHER_PV8_CASE(128)
 #undef AETHER_PV8_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -399,7 +401,7 @@ int launch_dim(int D, const void* q8, const void* k8, const void* v8t, const voi
 // order; scale, vscale: [BH / hper] f32; out: [BH, sq, D] of float (dtype 0)
 // or bf16 (dtype 1). All contiguous and 16-byte aligned; sq a multiple of
 // 64, span a multiple of 128 dividing skv, rows past the data zero,
-// 0 < kv_len <= skv; D one of 16, 32, 48, 64, 80, 96, 112. Returns a
+// 0 < kv_len <= skv; D one of 16, 32, 48, 64, 80, 96, 112, 128. Returns a
 // cudaError_t.
 extern "C" int aether_flash_pv8(const void* q8, const void* k8, const void* v8t,
                                 const void* scale, const void* vscale, void* out, int BH,

@@ -49,26 +49,29 @@ SIGNATURES = {
         _I, _I,              # stride_b, stride_s (elements)
         _P, _P, _P, _P,      # gq, bq, gk, bk (f32, [D])
         _P, _P, _I,          # rope cos, sin (f32, [rope_rows, D]) or null, rope_rows
-        _I, _I, _I, _I,      # B, S_in, H, D (16 to 112 in steps of 16)
+        _I, _I, _I, _I, _I,  # B, S_in, H, D (even, 2 to 126), hs (columns from a head to
+                             # the next: D, or below the width D rounded up to 8)
         _I, _I, _I, _I, _I,  # s_pad, s_valid, block, hper, quantize
         _F, _F, _F, _F,      # eps, fold, fold/127, 1/127
-        _P, _P, _P,          # q, k (int8, or bf16 if !quantize), v (bf16): [B*H, s_pad, D]
+        _P, _P, _P,          # q, k (int8, or bf16 if !quantize), v (bf16): [B*H, s_pad, W],
+                             # W the width of D's instance, zero columns past D
         _P, _P, _P, _P,      # qsc, qn, ksc, kn (f32, [G, T])
         _I, _I, _I,          # the launch plan: rows and cluster, shared memory bytes a CTA
         _P,                  # stream
     ],
     "aether_qkv_prologue_occupancy": [
-        _I, _I, _I, _I, _I,  # D, rows, cluster, shared memory bytes, quantize
+        _I, _I, _I, _I, _I,  # D (the head dim), rows, cluster, shared memory bytes, quantize
         _P,                  # out: clusters the card holds at once (int)
     ],
     "aether_flash_prepacked": [
-        _P, _P, _P,          # q, k (int8, or folded bf16), v (bf16): [B*H, s_pad, D]
+        _P, _P, _P,          # q, k (int8, or folded bf16), v (bf16): [B*H, s_pad, cols]
+                             # with rows ld elements apart
         _P, _P, _P, _P,      # qsc, ksc, qn, kn (f32, [G, T])
         _P,                  # out (bf16, [B*H, s_pad, D])
         _I, _I, _I,          # BH, s_pad, s_valid
         _I, _I, _I, _I,      # hper, block (a multiple of 128), n_blocks, qk_int8
         _I,                  # noshift (0 keep, 1 drop, 2 drop when every bound < 96)
-        _I,                  # D (16 to 112 in steps of 16)
+        _I, _I, _I,          # D (16 to 128 in steps of 16), cols (<= D), ld (>= D)
         _P,                  # stream
     ],
     "aether_flash_online": [
@@ -91,7 +94,7 @@ SIGNATURES = {
         _P, _P,              # shift, scale (f32, [G])
         _P, _P,              # out (bf16, [B*H, sq, D]), l (f32, [B*H, sq]) or null
         _I, _I, _I, _I, _I,  # BH, sq, skv (any lengths), kv_len, hper
-        _I, _I,              # qk_int8, D (16 to 112 in steps of 16)
+        _I, _I,              # qk_int8, D (16 to 128 in steps of 16)
         _P,                  # stream
     ],
     "aether_flash_fixed_max_f32": [
@@ -101,7 +104,7 @@ SIGNATURES = {
         _P, _P,              # shift, scale (f32, [G])
         _P, _P,              # out (f32, [B*H, sq, D]), l (f32, [B*H, sq]) or null
         _I, _I, _I, _I, _I,  # BH, sq, skv (any lengths), kv_len, hper
-        _I, _I,              # qk_int8, D (16 to 112 in steps of 16)
+        _I, _I,              # qk_int8, D (16 to 128 in steps of 16)
         _P,                  # stream
     ],
     "aether_flash_pv8": [
@@ -110,7 +113,7 @@ SIGNATURES = {
         _P,                  # out (f32 or bf16, [B*H, sq, D])
         _I, _I, _I, _I, _I,  # BH, sq, skv, kv_len, hper
         _I, _I,              # span (kv columns per running-max update), dtype
-        _I,                  # D (16 to 112 in steps of 16)
+        _I,                  # D (16 to 128 in steps of 16)
         _P,                  # stream
     ],
     "aether_flash_variants": [

@@ -8,9 +8,13 @@ plus the per-cell L2 row-norm maxima that give K2 its fixed softmax shift.
 
 The Hopper kernel ``csrc/attn_prologue.cu`` (CUDA C++, sm_90a, bound with
 ctypes through ``ops/_build.py``) replaces the Pallas kernel
-``aether_tpu/ops/attn_prologue.py::_prologue_kernel`` at every head dim the
-JAX kernel takes (16 to 112 in steps of 16): one kernel template over the
-head dim. On the H100 it is bound by memory traffic (472 MB moved per call at
+``aether_tpu/ops/attn_prologue.py::_prologue_kernel`` at every even head dim
+below 128: one kernel template over the width of its boxes and outputs (16
+to 128 in steps of 16, ``head_dim_width``); a head dim between two widths
+runs the next one up with the true head dim a runtime argument and writes q,
+k and v that wide with zero columns past the head dim, which
+:func:`flash_attention_prepacked` reads in place (:func:`qkv_prologue`
+returns their first head-dim columns). On the H100 it is bound by memory traffic (472 MB moved per call at
 48 heads x 15360 tokens x 64 with int8 codes, ~30 flops per element). It
 reads every element of the fused projection from device memory once, in one
 launch: TMA brings 64, 128 or 256 rows x hper heads of one tensor into a CTA's
@@ -42,10 +46,10 @@ import torch
 
 from aether_tpu_torch.ops import _build
 from aether_tpu_torch.ops.flash_attention import (
-    _check_head_dim,
     _heads_per_cell,
     _pick_block,
     flash_attention_prepacked,
+    head_dim_width,
 )
 
 _LOG2E = 1.4426950408889634
@@ -73,13 +77,14 @@ def _rotate_pairs(z: torch.Tensor) -> torch.Tensor:
 
 
 # K1's launch (csrc/attn_prologue.cu): a CTA holds `rows` token rows of one
-# tensor, one TMA box of rows x head_dim bf16 a head; a cluster of
-# block / rows CTAs holds one quantization cell. The rows a CTA by head dim,
-# where the token tile is a multiple of them (else 128), as the kernel's
-# rows_built takes them: 256 at 16 and 32 (small boxes: the CTA's fixed
-# costs over more rows), 64 at 112 (two CTAs an SM, in clusters of up to
-# 16, a non-portable size), 128 elsewhere
-_CTA_ROWS = {16: 256, 32: 256, 48: 128, 64: 128, 80: 128, 96: 128, 112: 64}
+# tensor, one TMA box of rows x width bf16 a head (the width of the head
+# dim's instance, head_dim_width); a cluster of block / rows CTAs holds one
+# quantization cell. The rows a CTA by width, where the token tile is a
+# multiple of them (else 128), as the kernel's rows_built takes them: 256 at
+# 16 and 32 (small boxes: the CTA's fixed costs over more rows), 64 at 112
+# and 128 (two CTAs an SM, in clusters of up to 16, a non-portable size), 128
+# elsewhere
+_CTA_ROWS = {16: 256, 32: 256, 48: 128, 64: 128, 80: 128, 96: 128, 112: 64, 128: 64}
 _MAX_HEADS = 4      # hper: four boxes a CTA
 _MAX_CLUSTER = {256: 4, 128: 8, 64: 16}  # so that block <= 1024
 _TAIL_BYTES = 112   # the kernel's Tail: an mbarrier a box, published and cell
@@ -91,7 +96,8 @@ class LaunchPlan:
     """K1's launch at ``head_dim``: grid (``s_pad / rows``, 3 * groups), x
     the CTA's ``rows``-row slice and y ``3 * group + tensor`` (q, k, v),
     clusters of ``cluster`` consecutive slices (one token tile),
-    ``smem_bytes`` of dynamic shared memory a CTA."""
+    ``smem_bytes`` of dynamic shared memory a CTA; boxes and outputs
+    ``width`` columns wide."""
 
     cluster: int
     rows: int
@@ -100,20 +106,23 @@ class LaunchPlan:
     hper: int
     block: int
     head_dim: int = 64
+    width: int = 64
 
 
 def _launch_plan(bh: int, s_pad: int, block: int, hper: int, head_dim: int = 64,
                  strides: Sequence[int] = (), ptrs: Sequence[int] = ()) -> LaunchPlan:
     """The launch plan of K1 for ``bh`` heads of ``head_dim`` over ``s_pad``
     tokens in quantization cells of ``hper`` heads x ``block`` tokens.
-    Raises ``ValueError`` on what the kernel does not take: a head dim
-    outside 16-112 in steps of 16, hper above 4, a block that is not a
-    multiple of 128 or is above 1024 (a cluster above 4 CTAs of 256 rows, 8
-    of 128 or 16 of 64), and element ``strides`` or data ``ptrs`` (bf16) that are not
-    16-byte aligned for TMA."""
-    if head_dim not in _CTA_ROWS:
-        raise ValueError(f"K1 takes head_dim {sorted(_CTA_ROWS)}, got {head_dim}")
-    rows = _CTA_ROWS[head_dim] if block > 0 and block % _CTA_ROWS[head_dim] == 0 else 128
+    Raises ``ValueError`` on what the kernel does not take: an odd head dim
+    or one outside 2-126 (the RoPE pairs; the JAX DiT's fused route), hper
+    above 4, a block that is not a multiple of 128 or is above 1024 (a
+    cluster above 4 CTAs of 256 rows, 8 of 128 or 16 of 64), and element
+    ``strides`` or data ``ptrs`` (bf16) that are not 16-byte aligned for
+    TMA."""
+    if head_dim % 2 or not 2 <= head_dim <= 126:
+        raise ValueError(f"K1 takes an even head_dim from 2 to 126, got {head_dim}")
+    width = head_dim_width(head_dim)
+    rows = _CTA_ROWS[width] if block > 0 and block % _CTA_ROWS[width] == 0 else 128
     if not 1 <= hper <= _MAX_HEADS or bh % hper:
         raise ValueError(f"K1 takes head groups of 1 to {_MAX_HEADS} heads dividing "
                          f"{bh}, got {hper}")
@@ -128,12 +137,12 @@ def _launch_plan(bh: int, s_pad: int, block: int, hper: int, head_dim: int = 64,
     groups = bh // hper
     if 3 * groups > 65535:
         raise ValueError(f"{groups} head groups exceed the grid's y extent")
-    # the kernel's smem_bytes_for(d, rows, hper): the boxes' 1024-byte
-    # alignment slack, the boxes (rows x head_dim bf16) and the row
-    # statistics (a float2 a row), sizeof(Tail); the C entry refuses any other
-    smem = 1024 + hper * (rows * head_dim * 2 + rows * 8) + _TAIL_BYTES
+    # the kernel's smem_bytes_for(width, rows, hper): the boxes' 1024-byte
+    # alignment slack, the boxes (rows x width bf16) and the row statistics
+    # (a float2 a row), sizeof(Tail); the C entry refuses any other
+    smem = 1024 + hper * (rows * width * 2 + rows * 8) + _TAIL_BYTES
     return LaunchPlan(cluster=block // rows, rows=rows, grid=(s_pad // rows, 3 * groups),
-                      smem_bytes=smem, hper=hper, block=block, head_dim=head_dim)
+                      smem_bytes=smem, hper=hper, block=block, head_dim=head_dim, width=width)
 
 
 def qkv_prologue_plain(
@@ -178,7 +187,10 @@ def qkv_prologue_plain(
         return x.reshape(b, s_pad, nh, hd).transpose(1, 2).reshape(bh, s_pad, hd)
 
     def pad_table(t):
-        t = t.to(device=dev, dtype=torch.float32)
+        # the first hd columns, as the Pallas kernel's (block, hd) blocks read
+        # a wider table (the RoPE builder's at a head dim that is no multiple
+        # of 16)
+        t = t[:, :hd].to(device=dev, dtype=torch.float32)
         if t.shape[0] != s_pad:
             t = torch.nn.functional.pad(t, (0, 0, 0, s_pad - t.shape[0]))
         return t
@@ -255,9 +267,10 @@ def qkv_prologue(
             they may be column slices of one fused [B, S, 3*H*D] tensor:
             the kernel reads them through their row stride.
         norm_*: (D,) per-head QK LayerNorm params, shared across heads.
-        rope_cos / rope_sin: (S_rope, D) joint-stream tables (identity rows on
-            the text prefix) or None; rows past S_rope rotate to zero, as the
-            JAX wrapper's zero padding does.
+        rope_cos / rope_sin: (S_rope, >= D) joint-stream tables (identity
+            rows on the text prefix) or None; rows past S_rope rotate to zero,
+            as the JAX wrapper's zero padding does, and only the first D
+            columns are read, as the Pallas kernel's blocks read them.
         quantize: int8 q/k; False emits q/k in the input dtype, q carrying
             the softmax fold (``AETHER_ATTN_QK8=0``).
         s_valid: true token count; rows >= s_valid are zeroed everywhere.
@@ -269,9 +282,15 @@ def qkv_prologue(
         ``sm_scale * log2(e)``.
 
     A CPU tensor runs :func:`qkv_prologue_plain`. A CUDA tensor launches the
-    Hopper kernel (head_dim 16 to 112 in steps of 16) or raises; there is no
+    Hopper kernel (any even head_dim below 128) or raises; there is no
     fallback. Its launches count on ``qkv_prologue.launches`` at head_dim 64
-    and on ``qkv_prologue_hd.launches`` at the others.
+    and on ``qkv_prologue_hd.launches`` at the others. At a head dim that is
+    no multiple of 16 the kernel writes q, k and v ``head_dim_width`` wide,
+    zero past the head dim, and q, k and v are their first ``head_dim``
+    columns (views that :func:`flash_attention_prepacked` reads in place);
+    at a head dim that is no multiple of 8 (a TMA box starts 16-byte aligned)
+    or on rows TMA cannot take, the kernel reads a copy of the projections
+    with each head's columns a multiple of 8 apart.
     """
     if not xq.is_cuda:
         return qkv_prologue_plain(
@@ -281,7 +300,9 @@ def qkv_prologue(
             heads_per_cell=heads_per_cell, s_valid=s_valid)
     b, s, d_model = xq.shape
     nh, hd = num_heads, head_dim
-    _check_head_dim("K1", hd)
+    if hd > 126:
+        raise NotImplementedError(f"K1 takes head_dim 2 to 126 on CUDA, got {hd} "
+                                  "(other head dims: ROADMAP.md, Queue 2)")
     if d_model != nh * hd:
         raise ValueError(f"model width {d_model} != {nh} heads x {hd}")
     for t in (xq, xk, xv):
@@ -292,6 +313,16 @@ def qkv_prologue(
         if t.stride() != xq.stride() or t.stride(-1) != 1:
             raise ValueError("K1 needs q/k/v views with one shared row stride "
                              "and a contiguous last axis")
+    hs = hd  # elements from one head's first column to the next's
+    if hd % 16 and (hd % 8 or any(t.data_ptr() % 16 or t.stride(1) % 8
+                                  or (b > 1 and t.stride(0) % 8) for t in (xq, xk, xv))):
+        # a TMA box starts 16-byte aligned: one copy of the three projections
+        # with each head's columns hs = hd rounded up to 8 apart
+        hs = -(-hd // 8) * 8
+        buf = xq.new_zeros((3, b, s, nh, hs))
+        for dst, t in zip(buf, (xq, xk, xv)):
+            dst[..., :hd] = t.unflatten(-1, (nh, hd))
+        xq, xk, xv = buf.flatten(-2).unbind(0)
     stride_s = xq.stride(1)
     # one batch element: its stride is never followed, so any aligned one
     stride_b = xq.stride(0) if b > 1 else s * stride_s
@@ -320,10 +351,10 @@ def qkv_prologue(
     gq, bq, gk, bk = (param(t) for t in (norm_q_scale, norm_q_bias,
                                          norm_k_scale, norm_k_bias))
     if rope_cos is not None:
-        cos = rope_cos.to(device=dev, dtype=torch.float32).contiguous()
-        sin = rope_sin.to(device=dev, dtype=torch.float32).contiguous()
-        if cos.shape != sin.shape or cos.shape[-1] != hd:
-            raise ValueError(f"RoPE tables {tuple(cos.shape)} / {tuple(sin.shape)}")
+        if rope_cos.shape != rope_sin.shape or rope_cos.shape[-1] < hd:
+            raise ValueError(f"RoPE tables {tuple(rope_cos.shape)} / {tuple(rope_sin.shape)}")
+        cos = rope_cos[:, :hd].to(device=dev, dtype=torch.float32).contiguous()
+        sin = rope_sin[:, :hd].to(device=dev, dtype=torch.float32).contiguous()
         cos_p, sin_p, rope_rows = cos.data_ptr(), sin.data_ptr(), cos.shape[0]
     else:
         cos_p = sin_p = None
@@ -331,9 +362,11 @@ def qkv_prologue(
 
     # q and k in one allocation, the four stats in another (each allocation
     # is host time a launch at the small head dims cannot hide)
-    qo, ko = torch.empty((2, bh, s_pad, hd), dtype=torch.int8 if quantize else torch.bfloat16,
+    width = plan.width
+    qo, ko = torch.empty((2, bh, s_pad, width),
+                         dtype=torch.int8 if quantize else torch.bfloat16,
                          device=dev).unbind(0)
-    v = torch.empty((bh, s_pad, hd), dtype=torch.bfloat16, device=dev)
+    v = torch.empty((bh, s_pad, width), dtype=torch.bfloat16, device=dev)
     qsc, qn, ksc, kn = torch.empty((4, groups, n_tiles), dtype=torch.float32,
                                    device=dev).unbind(0)
     inputs = (*ptrs, stride_b, stride_s, gq.data_ptr(), bq.data_ptr(), gk.data_ptr(),
@@ -343,10 +376,12 @@ def qkv_prologue(
     numbers = (s_pad, s_valid, block, hper, int(quantize), eps, fold, fold / 127.0,
                1.0 / 127.0)
     rc = _build.lib().aether_qkv_prologue(
-        *inputs, b, s, nh, hd, *numbers, *outputs, plan.rows, plan.cluster, plan.smem_bytes,
-        _build.stream_ptr(dev))
+        *inputs, b, s, nh, hd, hs, *numbers, *outputs, plan.rows, plan.cluster,
+        plan.smem_bytes, _build.stream_ptr(dev))
     _build.check(rc, "aether_qkv_prologue")
     _build.count_launch(qkv_prologue if hd == 64 else qkv_prologue_hd)
+    if width != hd:
+        qo, ko, v = qo[..., :hd], ko[..., :hd], v[..., :hd]
     return qo, ko, v, qsc, qn, ksc, kn, s_pad
 
 
@@ -402,6 +437,6 @@ def fused_joint_attention(
         q, k, v, qsc=qsc, ksc=ksc, qn=qn, kn=kn,
         s_valid=s if s_valid is None else s_valid, block_q=block_q,
         heads_per_cell=heads_per_cell, noshift=noshift,
-    )  # [B*H, S_pad, D]
+    )  # [B*H, S_pad, D] (the first D columns of a wider buffer below its width)
     out = out.reshape(b, num_heads, s_pad, head_dim)[:, :, :s]
     return out.transpose(1, 2).reshape(b, s, num_heads * head_dim)

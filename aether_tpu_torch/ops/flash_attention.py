@@ -7,10 +7,10 @@ which ``chip_smoke.py`` holds the kernel against on the card.
 
 K3, :func:`flash_attention_fixed_max` (``flash_attention(fixed_max=True)``):
 ``csrc/flash_fixed_max.cu`` replaces ``_flash_kernel_fixed_max`` with bf16 v
-at every head dim of ``FIXED_MAX_HEAD_DIMS``, the attention of the unfused
+at every head dim below 128, the attention of the unfused
 DiT path (``AETHER_ATTN_FUSED=0``) and of the ring merge (``unnormalized``
-with a shared ``score_bound``); q, k and v go to the kernel unpadded (TMA
-reads rows past the ends, and columns past the head dim, as zeros). K6,
+with a shared ``score_bound``); q, k and v go to the kernel with their rows
+unpadded (TMA reads rows past the ends as zeros). K6,
 :func:`flash_attention_pv8` (``pv_int8=True``): ``csrc/flash_pv8.cu``
 replaces ``_flash_kernel_pv8`` at the same head dims. Both are ``wgmma`` +
 TMA kernels templated over the head dim; at head dims other than 64 their
@@ -25,11 +25,11 @@ choice made on the device.
 K4, :func:`flash_attention` (``fixed_max=False``) replaces ``_flash_kernel``.
 In bf16 (the attention at ``AETHER_ATTN_FIXED_MAX=0``, at head_dim 128 at the
 defaults, and the bench baseline) ``csrc/flash_online_bf16.cu`` runs at every
-head dim of ``ONLINE_HEAD_DIMS``: the ``wgmma`` + TMA online-softmax cell of
+head dim up to 128: the ``wgmma`` + TMA online-softmax cell of
 ``csrc/online_cell.cuh`` templated over the head dim, its launches counted
 here at 64 and on :func:`flash_attention_hd` at the others. In f32 (the
 forward of the training path) ``csrc/flash_online.cu`` runs at every head dim
-of ``ONLINE_HEAD_DIMS``: the split-TF32 (3xTF32) ``wgmma`` + TMA cell of
+up to 128: the split-TF32 (3xTF32) ``wgmma`` + TMA cell of
 ``csrc/tf32x3_cell.cuh``, its launches counted here at 64 and on
 :func:`flash_attention_f32_hd` at the others.
 Both keep the JAX preparation: ``sm_scale * log2e`` folded into q and rounded
@@ -57,9 +57,20 @@ branch. K2 and K3 are one Hopper kernel, the fixed-shift cell of
 registers between them, no running max) templated over the head dim; on the
 H100 it is bound by the SFU's exp2 (int8) or by bf16 operations (1.1e10 exp2
 and 2.8e12 operations per K2 call at 48 heads x 15076 valid tokens and head_dim
-64); the sources carry the full note. K2 takes the cell at every head dim of
-``PREPACKED_HEAD_DIMS``, its launches counted here at 64 and on
+64); the sources carry the full note. K2 takes the cell at every head dim up
+to 128, its launches counted here at 64 and on
 :func:`flash_attention_prepacked_hd` at the others.
+
+Head dims. Every kernel is built at the widths 16 to 128 in steps of 16. A head dim between two widths runs the instance of the next
+width up (:func:`head_dim_width`) on operands with zero columns up to it:
+the wrappers pad q, k and v (one copy; K3 and K6 quantize straight into the
+wider codes; K2 reads ``qkv_prologue``'s outputs, which the prologue writes
+that wide, in place), the kernel's output keeps its first D columns, and
+``sm_scale`` and every fold come from the true D. Zero columns change no
+score, no norm, no group maximum and no sum, so the result is the function
+at D. K3 and K6 take every head dim below 128 (the JAX wrapper turns the
+fixed max off at 128 and above), K2 and K4 every one up to 128; K4 above 128
+raises ``NotImplementedError`` naming ROADMAP Queue 2.
 
 K2's math (log2 domain, non-causal, one fixed shift per head group):
 
@@ -112,21 +123,49 @@ def _heads_per_cell(bh: int, heads_per_cell: int) -> int:
 
 
 _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
-# the head dims K1, K2, K3 and K6 take on CUDA (the JAX kernels': multiples
-# of 16 below 128; at 128 and above the JAX wrapper turns the fixed max off);
-# K1 runs its cluster kernel, K2, K3 and K6 one wgmma kernel at each
-PREPACKED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112)
-FIXED_MAX_HEAD_DIMS = PREPACKED_HEAD_DIMS
-# the head dims K4 takes on CUDA: those and 128, where the JAX wrapper forces
-# the "vpu" denominator
-ONLINE_HEAD_DIMS = PREPACKED_HEAD_DIMS + (128,)
+# the largest head dim K3 and K6 take on CUDA (the JAX wrapper turns the
+# fixed max off at 128 and above), and K2 and K4
+FIXED_MAX_TOP, ONLINE_TOP = 127, 128
 
 
-def _check_head_dim(kernel: str, head_dim: int, dims=PREPACKED_HEAD_DIMS) -> None:
-    if head_dim not in dims:
+def head_dim_width(head_dim: int) -> int:
+    """The width of the kernel instance that runs ``head_dim``: the head dim
+    itself at a multiple of 16, else the next one up."""
+    return -(-head_dim // 16) * 16
+
+
+def _check_head_dim(kernel: str, head_dim: int, top: int) -> int:
+    """The width of ``head_dim``'s instance (:func:`head_dim_width`);
+    ``NotImplementedError`` naming ROADMAP Queue 2 outside 1 to ``top``."""
+    if not 1 <= head_dim <= top:
         raise NotImplementedError(
-            f"{kernel} takes head_dim {', '.join(map(str, dims))} on CUDA, "
-            f"got {head_dim} (other head dims: ROADMAP.md, Queue 2)")
+            f"{kernel} takes head_dim 1 to {top} on CUDA, got {head_dim} "
+            "(other head dims: ROADMAP.md, Queue 2)")
+    return head_dim_width(head_dim)
+
+
+def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` [..., D] with zero columns up to ``width`` (one copy), or ``t``
+    itself where D is the width."""
+    d = t.shape[-1]
+    if d == width:
+        return t
+    out = t.new_zeros((*t.shape[:-1], width))
+    out[..., :d] = t
+    return out
+
+
+def _prepacked_rows(ts, d: int, width: int) -> int:
+    """The row stride (elements) at which K2's kernel reads q, k and v: ``d``
+    where they are contiguous, ``width`` where each is the first ``d``
+    columns of a contiguous [BH, S, width] buffer (``qkv_prologue``'s outputs
+    at a head dim below their width). ``ValueError`` otherwise."""
+    if all(t.is_contiguous() for t in ts):
+        return d
+    if d != width and all(t.stride() == (t.shape[1] * width, width, 1) for t in ts):
+        return width
+    raise ValueError("K2 operands must be contiguous on one device (or qkv_prologue's "
+                     "column views of a wider buffer)")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -229,9 +268,13 @@ def flash_attention_prepacked(
             on the device, when every group's bound is below 96.
 
     A CPU tensor runs :func:`flash_attention_prepacked_plain`. A CUDA tensor
-    launches the Hopper kernel at any head dim of ``PREPACKED_HEAD_DIMS``
-    (counted here at 64, on :func:`flash_attention_prepacked_hd` at the
-    others) or raises; there is no fallback.
+    launches the Hopper kernel at any head dim up to 128 (counted here at
+    64, on :func:`flash_attention_prepacked_hd` at the others) or raises;
+    there is no fallback. Below its instance's width the kernel reads q, k
+    and v D columns wide, zero-filled to the width: ``qkv_prologue``'s
+    column views in place, contiguous operands where their rows are 16-byte
+    aligned, else zero-padded copies; the output is the first D columns of a
+    [B*H, S_pad, width] buffer.
     """
     if noshift not in _NOSHIFT_CODES:
         raise ValueError(f"noshift must be False, True or None, got {noshift!r}")
@@ -244,7 +287,7 @@ def flash_attention_prepacked(
     if q.dtype not in (torch.int8, torch.bfloat16) or k.dtype != q.dtype:
         raise TypeError(f"K2 takes int8 or bf16 q/k of one dtype on CUDA, got "
                         f"{q.dtype}/{k.dtype}")
-    _check_head_dim("K2", d)
+    width = _check_head_dim("K2", d, ONLINE_TOP)
     if v.dtype != torch.bfloat16:
         raise TypeError(f"K2 takes bf16 v, got {v.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -255,42 +298,50 @@ def flash_attention_prepacked(
         raise ValueError(f"K2 needs a block that is a multiple of 128, got {block}")
     if not 0 < s_valid <= s_pad:
         raise ValueError(f"s_valid {s_valid} outside (0, {s_pad}]")
-    tensors = (q, k, v, qsc, ksc, qn, kn)
-    for t in tensors:
-        if t.device != q.device or not t.is_contiguous():
+    for t in (q, k, v, qsc, ksc, qn, kn):
+        if t.device != q.device:
             raise ValueError("K2 operands must be contiguous on one device")
     for t in (qsc, ksc, qn, kn):
+        if not t.is_contiguous():
+            raise ValueError("K2 operands must be contiguous on one device")
         if t.dtype != torch.float32 or tuple(t.shape) != tuple(qsc.shape):
             raise ValueError("K2 stats must be [G, T] float32")
-    out = torch.empty((bh, s_pad, d), dtype=torch.bfloat16, device=q.device)
+    ld = _prepacked_rows((q, k, v), d, width)
+    if any(ld * t.element_size() % 16 for t in (q, v)):  # rows TMA cannot take
+        q, k, v = (_pad_cols(t, width) for t in (q, k, v))
+        ld = width
+    out = torch.empty((bh, s_pad, width), dtype=torch.bfloat16, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qsc.data_ptr(), ksc.data_ptr(),
             qn.data_ptr(), kn.data_ptr(), out.data_ptr(), bh, s_pad, s_valid, hper, block,
             s_pad // block, int(q.dtype == torch.int8), _NOSHIFT_CODES[noshift])
     if d != 64:
-        flash_attention_prepacked_hd(args, d, q.device)
-        return out
-    _prepacked_launch(args, d, q.device)
-    _build.count_launch(flash_attention_prepacked)
-    return out
+        flash_attention_prepacked_hd(args, width, d, ld, q.device)
+    else:
+        _prepacked_launch(args, width, d, ld, q.device)
+        _build.count_launch(flash_attention_prepacked)
+    return out if width == d else out[..., :d]
 
 
 # wrapper calls that launched the Hopper kernel at head_dim 64 (a plain integer)
 flash_attention_prepacked.launches = 0
 
 
-def _prepacked_launch(args: tuple, head_dim: int, device) -> None:
-    """K2's kernel (``csrc/flash_prepacked.cu``) alone, uncounted, on the C
-    arguments :func:`flash_attention_prepacked` makes of its checked
-    operands."""
-    rc = _build.lib().aether_flash_prepacked(*args, head_dim, _build.stream_ptr(device))
+def _prepacked_launch(args: tuple, width: int, cols: int, ld: int, device) -> None:
+    """K2's kernel (``csrc/flash_prepacked.cu``, the instance of ``width``)
+    alone, uncounted, on the C arguments :func:`flash_attention_prepacked`
+    makes of its checked operands: q, k and v ``cols`` columns of rows ``ld``
+    elements apart."""
+    rc = _build.lib().aether_flash_prepacked(*args, width, cols, ld,
+                                             _build.stream_ptr(device))
     _build.check(rc, "aether_flash_prepacked")
 
 
-def flash_attention_prepacked_hd(args: tuple, head_dim: int, device) -> None:
+def flash_attention_prepacked_hd(args: tuple, width: int, cols: int, ld: int,
+                                 device) -> None:
     """K2 at a head dim other than 64: :func:`_prepacked_launch` (the same
     ``wgmma`` + TMA kernel as at 64), its launches counted here.
     ``.launches`` counts them."""
-    _prepacked_launch(args, head_dim, device)
+    _prepacked_launch(args, width, cols, ld, device)
     _build.count_launch(flash_attention_prepacked_hd)
 
 
@@ -345,12 +396,26 @@ def _online_operands(q, k, v, sm_scale, kv_valid):
     return q, k, v, kv_len
 
 
+def _online_kernel_operands(q, k, v, sm_scale, kv_valid):
+    """K4's operands as its CUDA path hands them to the kernels: q, k and v
+    [BH, S, width] (``head_dim_width`` of the head dim D, zero columns past
+    D; contiguous, 16-byte aligned), the k/v rows at or past ``kv_valid``
+    zeroed, q not yet folded. Returns (q, k, v, kv_len, fold), the fold
+    ``sm_scale * log2e`` of the true D."""
+    b, h, _, dim = q.shape
+    width = head_dim_width(dim)
+    k, v, kv_len = _online_kv(k, v, kv_valid)
+    qh, kh, vh = (_aligned(_pad_cols(t.reshape(b * h, t.shape[2], dim), width))
+                  for t in (q, k, v))
+    return qh, kh, vh, kv_len, _online_fold(sm_scale, dim)
+
+
 def _online_bf16_launch(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float) -> None:
     """The K4 bf16 kernel (``csrc/flash_online_bf16.cu``) alone, uncounted,
     on prepared operands: q [BH, Sq, D] (not yet folded; the kernel rounds
     bf16(q * fold)), k/v [BH, Skv, D] with rows >= kv_len zeroed, out [BH,
-    Sq, D]; all bf16, contiguous and 16-byte aligned, D in
-    ``ONLINE_HEAD_DIMS``."""
+    Sq, D]; all bf16, contiguous and 16-byte aligned, D a width (16 to
+    128 in steps of 16)."""
     bh, sq, dim = qh.shape
     rc = _build.lib().aether_flash_online_bf16(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
@@ -437,8 +502,8 @@ def _tf32_operands(qh, kh, vh) -> _Tf32Operands:
 
 
 def _online_f32_launch(t: _Tf32Operands, out: torch.Tensor, kv_len: int) -> None:
-    """The K4 f32 kernel (``csrc/flash_online.cu``, any head dim of
-    ``ONLINE_HEAD_DIMS``) alone, uncounted, on :func:`_tf32_operands` of
+    """The K4 f32 kernel (``csrc/flash_online.cu``, any width, 16
+    to 128 in steps of 16) alone, uncounted, on :func:`_tf32_operands` of
     :func:`_online_operands`' result (q folded, k/v rows >= kv_len zeroed);
     out [BH, Sq, D] f32."""
     bh, sq, dim = t.q_hi.shape
@@ -481,45 +546,58 @@ def flash_attention_plain(
     knob: "mxu" sums p rounded to v's dtype, "vpu" sums unrounded p;
     head_dim >= 128 always takes "vpu", as the JAX wrapper does."""
     b, h, sq, dim = q.shape
-    skv = k.shape[2]
     if dim >= 128:
         denom = "vpu"
     if denom not in ("mxu", "vpu"):
         raise ValueError(f"denom must be 'mxu' or 'vpu', got {denom!r}")
-    q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
-    block_k = _pick_block(skv, block_k)
+    k, v, kv_len = _online_kv(k, v, kv_valid)
+    qh, kh, vh = (t.reshape(b * h, t.shape[2], dim) for t in (q, k, v))
+    out = _online_loop(qh, kh, vh, kv_len, _online_fold(sm_scale, dim), denom, block_q,
+                       block_k, heads_per_cell)
+    return out.reshape(b, h, sq, dim)
+
+
+def _online_loop(qh, kh, vh, kv_len: int, fold: float, denom: str, block_q: int,
+                 block_k: int, heads_per_cell: int) -> torch.Tensor:
+    """Plain K4 over q [BH, Sq, D] (not yet folded: q times ``fold`` rounded
+    to q's dtype first, as the JAX wrapper does) and k/v [BH, Skv, D] with
+    rows >= ``kv_len`` zeroed (:func:`flash_attention_plain`'s loop, or the
+    kernels' operands of :func:`_online_kernel_operands`). Returns [BH, Sq,
+    D]."""
+    bh, sq, dim = qh.shape
+    qh = (qh.float() * fold).to(qh.dtype)
+    block_k = _pick_block(kh.shape[1], block_k)
     block_q = _pick_block(sq, block_q)
-    bh = b * h
     hper = _heads_per_cell(bh, heads_per_cell)
-    qh, kh, vh = (t.reshape(bh, t.shape[2], dim) for t in (q, k, v))
-    out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
+    dev = qh.device
+    out = torch.empty((bh, sq, dim), dtype=qh.dtype, device=dev)
     for g0 in range(0, bh, hper):
         heads = slice(g0, g0 + hper)
         for r0 in range(0, sq, block_q):
             qb = qh[heads, r0:r0 + block_q].float()
             rows = qb.shape[1]
-            m = torch.full((hper, rows, 1), float("-inf"), device=q.device)
-            l = torch.zeros((hper, rows, 1), device=q.device)
-            acc = torch.zeros((hper, rows, dim), device=q.device)
+            m = torch.full((hper, rows, 1), float("-inf"), device=dev)
+            l = torch.zeros((hper, rows, 1), device=dev)
+            acc = torch.zeros((hper, rows, dim), device=dev)
             # blocks wholly past kv_len leave m, l and acc exactly unchanged
             # (alpha = 1, p = 0), so the loop stops at kv_len
             for c0 in range(0, kv_len, block_k):
                 kb = kh[heads, c0:c0 + block_k].float()
                 s = torch.matmul(qb, kb.transpose(1, 2))
                 if c0 + s.shape[-1] > kv_len:
-                    col = torch.arange(c0, c0 + s.shape[-1], device=q.device)
+                    col = torch.arange(c0, c0 + s.shape[-1], device=dev)
                     s = s.masked_fill(col >= kv_len, _NEG_INF)
                 m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
                 alpha = torch.exp2(m - m_next)
                 m = m_next
                 p = torch.exp2(s - m_next)
-                p_v = p.to(v.dtype).float()
+                p_v = p.to(vh.dtype).float()
                 l_cur = p_v if denom == "mxu" else p
                 l = l * alpha + l_cur.sum(dim=-1, keepdim=True)
                 acc = acc * alpha + torch.matmul(p_v, vh[heads, c0:c0 + block_k].float())
             l_inv = torch.where(l <= 0.0, torch.ones_like(l), 1.0 / l)
-            out[heads, r0:r0 + rows] = (acc * l_inv).to(q.dtype)
-    return out.reshape(b, h, sq, dim)
+            out[heads, r0:r0 + rows] = (acc * l_inv).to(qh.dtype)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -552,20 +630,31 @@ def _group_absmax(x: torch.Tensor, hper: int) -> torch.Tensor:
     return torch.maximum(hi.float(), -lo.float()).clamp_min(1e-30)
 
 
-def _quantize_groups(x: torch.Tensor, absmax: torch.Tensor, hper: int) -> torch.Tensor:
+def _quantize_groups(x: torch.Tensor, absmax: torch.Tensor, hper: int,
+                     width: Optional[int] = None) -> torch.Tensor:
     """Symmetric int8 codes ``rint(x * r)``, ``r = 127 / absmax[group]``
     correctly rounded in f32, as XLA divides (torch's ``127.0 / t`` is
     ``127 * reciprocal(t)``, two roundings, which can move a code that lies
-    on a half-way point)."""
+    on a half-way point). ``width``: the codes written straight into a
+    [BH, S, width] buffer of zeros (the kernels' padded operand)."""
     r = (torch.full_like(absmax, 127.0) / absmax).repeat_interleave(hper)[:, None, None]
-    return (x * r).round_().to(torch.int8)  # x * r in f32 (type promotion)
+    codes = (x * r).round_()  # x * r in f32 (type promotion)
+    if width is None or width == x.shape[-1]:
+        return codes.to(torch.int8)
+    out = torch.zeros((*x.shape[:-1], width), dtype=torch.int8, device=x.device)
+    out[..., :x.shape[-1]] = codes
+    return out
 
 
 def _fixed_max_operands(q, k, v, *, sm_scale, kv_valid, heads_per_cell,
                         noshift, qk_int8, pv_int8, score_bound,
-                        unnormalized) -> _FixedMaxOperands:
+                        unnormalized, width: Optional[int] = None) -> _FixedMaxOperands:
     """The JAX wrapper's preparation (``flash_attention``, :499-680) in plain
-    torch ops, run outside the kernel as XLA ran it.
+    torch ops, run outside the kernel as XLA ran it. ``width``: q, k and v
+    come out [BH, S, width] with zero columns past the head dim D (the
+    kernel instance's operands; int8 codes quantized straight into them),
+    everything else computed at D: the default ``sm_scale`` 1/sqrt(D), the
+    fold, the bounds and the group maxima.
 
     The per-group shift is the Cauchy-Schwarz bound ``max_h(max_t |q_t| *
     max_t |k_t|)`` over the group's heads (log2 domain), or ``score_bound``.
@@ -604,13 +693,15 @@ def _fixed_max_operands(q, k, v, *, sm_scale, kv_valid, heads_per_cell,
             bounds = bounds * fold
         aq, ak = _group_absmax(qh, hper), _group_absmax(kh, hper)
         scale = aq * ak * (fold / (127.0 * 127.0))
-        qh, kh = _quantize_groups(qh, aq, hper), _quantize_groups(kh, ak, hper)
+        qh, kh = _quantize_groups(qh, aq, hper, width), _quantize_groups(kh, ak, hper, width)
     else:
         scale = torch.ones_like(bounds)
     vscale = None
     if pv_int8:
         vscale = _group_absmax(vh, hper)
-        vh = _quantize_groups(vh, vscale, hper)
+        vh = _quantize_groups(vh, vscale, hper, width)
+    if width is not None:
+        qh, kh, vh = (_pad_cols(t, width) for t in (qh, kh, vh))
     # the ring merge always takes the shared bound as its shift
     shift = bounds if unnormalized else _shift_or_zero(bounds, noshift)
     return _FixedMaxOperands(qh, kh, vh, kv_len, hper, shift.contiguous(),
@@ -706,10 +797,10 @@ def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
 
 def _fixed_max_launch(ops: _FixedMaxOperands, out: torch.Tensor,
                       l_out: Optional[torch.Tensor]) -> None:
-    """The K3 kernel (``csrc/flash_fixed_max.cu``, bf16 v, any head dim of
-    ``FIXED_MAX_HEAD_DIMS``) alone, uncounted, on :func:`_fixed_max_operands`'
-    result (int8 or bf16 q/k; unpadded): out [BH, Sq, D] bf16, l_out [BH, Sq,
-    1] f32 or None (normalized)."""
+    """The K3 kernel (``csrc/flash_fixed_max.cu``, bf16 v, any width,
+    16 to 128 in steps of 16) alone, uncounted, on :func:`_fixed_max_operands`'
+    result (int8 or bf16 q/k, [BH, S, D] with D a width; rows unpadded): out
+    [BH, Sq, D] bf16, l_out [BH, Sq, 1] f32 or None (normalized)."""
     qh, kh, vh = (_aligned(t) for t in (ops.q, ops.k, ops.v))
     bh, sq, dim = qh.shape
     rc = _build.lib().aether_flash_fixed_max(
@@ -761,9 +852,11 @@ def flash_attention_fixed_max_f32(ops: _FixedMaxOperands, out: torch.Tensor,
 flash_attention_fixed_max_f32.launches = 0
 
 
-def _check_fixed_max_inputs(name: str, q, k, v, dtypes) -> None:
+def _check_fixed_max_inputs(name: str, q, k, v, dtypes) -> int:
+    """The checks of K3's and K6's CUDA path; returns the width of the head
+    dim's instance."""
     b, h, _, dim = q.shape
-    _check_head_dim(name, dim, FIXED_MAX_HEAD_DIMS)
+    width = _check_head_dim(name, dim, FIXED_MAX_TOP)
     if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes {' or '.join(map(str, dtypes))} q/k/v of "
                         f"one dtype on CUDA, got {q.dtype}/{k.dtype}/{v.dtype}")
@@ -772,6 +865,7 @@ def _check_fixed_max_inputs(name: str, q, k, v, dtypes) -> None:
         if tuple(t.shape) != (b, h, skv, dim) or t.device != q.device:
             raise ValueError(f"{label} {tuple(t.shape)} on {t.device} does not "
                              f"match ({b}, {h}, {skv}, {dim}) on {q.device}")
+    return width
 
 
 def flash_attention_fixed_max(
@@ -798,11 +892,11 @@ def flash_attention_fixed_max(
     [B, H, Sq, 1].
 
     A CPU tensor runs :func:`flash_attention_fixed_max_plain`. A CUDA tensor
-    (bf16 or f32 q/k/v, any lengths, a head dim in ``FIXED_MAX_HEAD_DIMS``)
-    launches a Hopper kernel or raises: bf16 ``csrc/flash_fixed_max.cu``,
-    counted here at head_dim 64 and on :func:`flash_attention_fixed_max_hd`
-    at the others; f32 at every head dim
-    :func:`flash_attention_fixed_max_f32`.
+    (bf16 or f32 q/k/v, any lengths, a head dim below 128) launches a Hopper
+    kernel or raises: bf16 ``csrc/flash_fixed_max.cu``, counted here at
+    head_dim 64 and on :func:`flash_attention_fixed_max_hd` at the others;
+    f32 at every head dim :func:`flash_attention_fixed_max_f32`; both on
+    :func:`_fixed_max_operands` at the width of the head dim's instance.
     """
     opts = dict(sm_scale=sm_scale, kv_valid=kv_valid,
                 heads_per_cell=heads_per_cell, noshift=noshift,
@@ -810,10 +904,10 @@ def flash_attention_fixed_max(
                 unnormalized=unnormalized)
     if not q.is_cuda:
         return flash_attention_fixed_max_plain(q, k, v, block_q=block_q, **opts)
-    _check_fixed_max_inputs("K3", q, k, v, (torch.bfloat16, torch.float32))
+    width = _check_fixed_max_inputs("K3", q, k, v, (torch.bfloat16, torch.float32))
     b, h, sq, dim = q.shape
-    ops = _fixed_max_operands(q, k, v, pv_int8=False, **opts)
-    out = torch.empty((b * h, sq, dim), dtype=q.dtype, device=q.device)
+    ops = _fixed_max_operands(q, k, v, pv_int8=False, width=width, **opts)
+    out = torch.empty((b * h, sq, width), dtype=q.dtype, device=q.device)
     l_out = (torch.empty((b * h, sq, 1), dtype=torch.float32, device=q.device)
              if unnormalized else None)
     if q.dtype == torch.float32:
@@ -823,6 +917,7 @@ def flash_attention_fixed_max(
     else:
         _fixed_max_launch(ops, out, l_out)
         _build.count_launch(flash_attention_fixed_max)
+    out = out[..., :dim]
     if unnormalized:
         return _finish_heads(out, b, h, sq), _finish_heads(l_out, b, h, sq)
     return _finish_heads(out, b, h, sq)
@@ -919,14 +1014,16 @@ def _pv8_v_layout(v8: torch.Tensor) -> torch.Tensor:
     return v8.index_select(1, idx.to(v8.device)).transpose(1, 2).contiguous()
 
 
-def _pv8_operands(q, k, v, *, sm_scale, kv_valid, block_k, heads_per_cell):
+def _pv8_operands(q, k, v, *, sm_scale, kv_valid, block_k, heads_per_cell,
+                  width: Optional[int] = None):
     """K6's prepared operands, as the wrapper hands them to the kernel:
     (q8 [BH, Sq_pad, D], k8 [BH, Skv_pad, D], v8 in ``_pv8_v_layout``,
-    the prepared operands with their scales, span)."""
+    the prepared operands with their scales, span); ``width``: D is it, the
+    codes zero past the head dim (:func:`_fixed_max_operands`)."""
     ops = _fixed_max_operands(q, k, v, sm_scale=sm_scale, kv_valid=kv_valid,
                               heads_per_cell=heads_per_cell, noshift=False,
                               qk_int8=True, pv_int8=True, score_bound=None,
-                              unnormalized=False)
+                              unnormalized=False, width=width)
     skv = k.shape[2]
     span = _pick_block(skv, block_k)
     sq_pad = -(-q.shape[2] // _FIXED_TILE) * _FIXED_TILE
@@ -936,9 +1033,9 @@ def _pv8_operands(q, k, v, *, sm_scale, kv_valid, block_k, heads_per_cell):
 
 
 def _pv8_launch(qp, kp, vt, ops: _FixedMaxOperands, span: int, out) -> None:
-    """The K6 kernel (``csrc/flash_pv8.cu``, any head dim of
-    ``FIXED_MAX_HEAD_DIMS``) alone, uncounted, on :func:`_pv8_operands`'
-    result; out [BH, Sq_pad, D] f32 or bf16."""
+    """The K6 kernel (``csrc/flash_pv8.cu``, any width, 16 to 128 in
+    steps of 16) alone, uncounted, on :func:`_pv8_operands`' result; out [BH, Sq_pad, D]
+    f32 or bf16."""
     rc = _build.lib().aether_flash_pv8(
         qp.data_ptr(), kp.data_ptr(), vt.data_ptr(), ops.scale.data_ptr(),
         ops.vscale.data_ptr(), out.data_ptr(), qp.shape[0], qp.shape[1], kp.shape[1],
@@ -975,8 +1072,9 @@ def flash_attention_pv8(
     :func:`flash_attention_pv8_plain`.
 
     A CPU tensor runs :func:`flash_attention_pv8_plain`. A CUDA tensor (f32
-    or bf16 q/k/v, a head dim in ``FIXED_MAX_HEAD_DIMS``) launches
-    ``csrc/flash_pv8.cu``, counted here at head_dim 64 and on
+    or bf16 q/k/v, a head dim below 128; :func:`_pv8_operands` at its
+    instance's width) launches ``csrc/flash_pv8.cu``, counted here at
+    head_dim 64 and on
     :func:`flash_attention_pv8_hd` at the others, moving the running max once
     per ``_pick_block(Skv, block_k)`` columns as the plain version does, or
     raises."""
@@ -984,16 +1082,16 @@ def flash_attention_pv8(
     if not q.is_cuda:
         return flash_attention_pv8_plain(q, k, v, block_q=block_q,
                                          block_k=block_k, **opts)
-    _check_fixed_max_inputs("K6", q, k, v, (torch.float32, torch.bfloat16))
+    width = _check_fixed_max_inputs("K6", q, k, v, (torch.float32, torch.bfloat16))
     b, h, sq, dim = q.shape
-    qp, kp, vt, ops, span = _pv8_operands(q, k, v, block_k=block_k, **opts)
-    out = torch.empty((b * h, qp.shape[1], dim), dtype=q.dtype, device=q.device)
+    qp, kp, vt, ops, span = _pv8_operands(q, k, v, block_k=block_k, width=width, **opts)
+    out = torch.empty((b * h, qp.shape[1], width), dtype=q.dtype, device=q.device)
     if dim != 64:
         flash_attention_pv8_hd(qp, kp, vt, ops, span, out)
     else:
         _pv8_launch(qp, kp, vt, ops, span, out)
         _build.count_launch(flash_attention_pv8)
-    return _finish_heads(out, b, h, sq)
+    return _finish_heads(out[..., :dim], b, h, sq)
 
 
 # wrapper calls that launched the Hopper kernel at head_dim 64 (a plain integer)
@@ -1032,11 +1130,14 @@ def flash_attention(
 
     A CPU tensor runs the plain versions. A CUDA tensor launches a Hopper
     kernel or raises; there is no fallback: K4 in bf16 launches
-    ``csrc/flash_online_bf16.cu`` at every head dim of ``ONLINE_HEAD_DIMS``,
-    in f32 ``csrc/flash_online.cu`` (the 3xTF32 cell) at every one of them
-    too, on :func:`_tf32_operands` (``flash_attention.launches`` counts
-    either at 64); at the other head dims the launches count on
+    ``csrc/flash_online_bf16.cu`` at every head dim up to 128, in f32
+    ``csrc/flash_online.cu`` (the 3xTF32 cell) at every one of them too, on
+    :func:`_tf32_operands` (``flash_attention.launches`` counts either at
+    64); at the other head dims the launches count on
     :func:`flash_attention_hd` (bf16) or :func:`flash_attention_f32_hd` (f32).
+    Both take :func:`_online_kernel_operands`: a head dim between two widths
+    runs the next width's instance on zero-padded q, k and v, the fold and
+    the denominator of the true head dim.
     """
     if qk_int8 and not fixed_max:
         raise ValueError("qk_int8 requires fixed_max=True (the int8 "
@@ -1076,7 +1177,7 @@ def flash_attention(
             denom=denom, block_q=block_q, heads_per_cell=heads_per_cell)
     b, h, sq, _ = q.shape
     skv = k.shape[2]
-    _check_head_dim("K4", dim, ONLINE_HEAD_DIMS)
+    width = _check_head_dim("K4", dim, ONLINE_TOP)
     if (q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype
             or v.dtype != q.dtype):
         raise TypeError(f"K4 takes f32 or bf16 q/k/v of one dtype, got "
@@ -1085,30 +1186,25 @@ def flash_attention(
         if tuple(t.shape) != (b, h, skv, dim) or t.device != q.device:
             raise ValueError(f"{name} {tuple(t.shape)} on {t.device} does not "
                              f"match ({b}, {h}, {skv}, {dim}) on {q.device}")
-    bh = b * h
+    qh, kh, vh, kv_len, fold = _online_kernel_operands(q, k, v, sm_scale, kv_valid)
+    out = torch.empty((b * h, sq, width), dtype=q.dtype, device=q.device)
     if q.dtype == torch.bfloat16:
-        # the fold happens in the kernel; TMA reads past the ends as zeros
-        k, v, kv_len = _online_kv(k, v, kv_valid)
-        out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
-        qh, kh, vh = (_aligned(t.reshape(bh, t.shape[2], dim)) for t in (q, k, v))
-        fold = _online_fold(sm_scale, dim)
+        # the fold happens in the kernel; TMA reads rows past the ends as zeros
         if dim != 64:
             flash_attention_hd(qh, kh, vh, out, kv_len, denom == "mxu", fold)
         else:
             _online_bf16_launch(qh, kh, vh, out, kv_len, denom == "mxu", fold)
             _build.count_launch(flash_attention)
-        return out.reshape(b, h, sq, dim)
-    # f32: folded q and the zeroed kv tail split for the 3xTF32 cell; TMA
-    # reads rows past the ends as zeros, so nothing is padded
-    q, k, v, kv_len = _online_operands(q, k, v, sm_scale, kv_valid)
-    split = _tf32_operands(*(x.reshape(bh, x.shape[2], dim) for x in (q, k, v)))
-    out = torch.empty((bh, sq, dim), dtype=q.dtype, device=q.device)
-    if dim != 64:
-        flash_attention_f32_hd(split, out, kv_len)
     else:
-        _online_f32_launch(split, out, kv_len)
-        _build.count_launch(flash_attention)
-    return out.reshape(b, h, sq, dim)
+        # f32: q folded as the JAX wrapper folds it, then split for the
+        # 3xTF32 cell; TMA reads rows past the ends as zeros
+        split = _tf32_operands((qh * fold).to(qh.dtype), kh, vh)
+        if dim != 64:
+            flash_attention_f32_hd(split, out, kv_len)
+        else:
+            _online_f32_launch(split, out, kv_len)
+            _build.count_launch(flash_attention)
+    return out[..., :dim].reshape(b, h, sq, dim)
 
 
 # wrapper calls that launched the Hopper kernel at head_dim 64 (a plain integer)

@@ -166,7 +166,7 @@ def _kernel_operands(q, k, v, args: _Launch):
     if dim != 64:
         raise NotImplementedError(
             f"K7-K9 take head_dim 64 on CUDA, got {dim}: other head dims are "
-            "later work (ROADMAP.md, queue 2)")
+            "later work (ROADMAP.md, Queue 2)")
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"K7-K9 take bf16 q/k/v on CUDA, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")

@@ -49,9 +49,9 @@ Phases (each prints its result; any failure raises and exits non-zero):
      the CFG shape, and K6 alone on prepared operands;
  11. one prediction request on the phase-5 pipeline (built again from its
      seeds) at ``AETHER_ATTN_FUSED=0``: the task defaults (guidance 3,
-     dynamic CFG) but 20 of the default 50 steps (``FUSED0_STEPS``, a cut
-     to fit phases 24-25 in the time), a seeded image and (41, 6, 60, 90)
-     raymap; checks shapes, finiteness, the RGB range and 42 x 20 K3
+     dynamic CFG) but 10 of the default 50 steps (``FUSED0_STEPS``, a cut
+     to fit phases 24-28 in the time), a seeded image and (41, 6, 60, 90)
+     raymap; checks shapes, finiteness, the RGB range and 42 x 10 K3
      launches with no K1/K2/K6 launch;
  12. two planning requests (image, goal, raymap; same seed) at
      ``AETHER_ATTN_PV8=1``, cut to 5 steps to fit the run's time; checks
@@ -322,6 +322,29 @@ Phase of the head-dim slice, after 13 (``head_dims_all_phase``):
      and dtype, each kernel also alone on the operands its wrapper prepares
      (the f32 kernels' split for the 3xTF32 cell); an f32 kernel's bound
      counts its products as three TF32 products each.
+Phase of the padded head dims, after 27 (``padded_dims_phase``):
+ 28. Every head dim below 128 (K4 up to 128) runs the kernels' instance of
+     the next width up (16 to 128 in steps of 16) on operands with zero
+     columns past the head dim; 128 is a new width (``fixed_cell<128>``,
+     ``flash_pv8<128>``, ``tf32x3_cell<128, kFixed>``, ``attn_prologue<128>``).
+     (c) the tiny DiT (4 heads, 2 blocks) at head_dim 24, 72 and 120, one
+     batch-1 forward on the card against the CPU at the long-video gates, at
+     the defaults (K1 + K2 hd), FUSED=0 with QK8=1 and QK8=0 (K3 hd),
+     PV8=1 (K6 hd), FIXED_MAX=0 (K4 bf16 hd), and in f32 at FUSED=0 (K3
+     f32) and FIXED_MAX=0 (K4 f32 hd), 2 launches a forward and none of any
+     other attention kernel; its RoPE tables are cut to the head dim (the
+     table builder gives head_dim + 2 columns there, which the unfused route
+     cannot take, in JAX as here; K1 reads the first head_dim columns); the
+     sp = 4 ring over a (1, 48, 15076, 24) window against one K3 hd call; (b)
+     at (1, 48, 2048, D) K1 + K2 at D 8 and 24 and K3 (int8 and bf16
+     QK^T), K4 (bf16 and f32) and K6 through ``flash_attention`` at D 8, 17,
+     24 and 127 against their plain versions; (a) at 48 heads x 15076
+     tokens and D 72 and 120, K1 and K2 (int8 and float), K3 (int8, bf16,
+     f32, f32 with int8 QK^T), K4 (bf16, f32) and K6 against their plain
+     versions (bf16 outputs at ``bf16_gates``, f32 at 1e-4; (b) the same),
+     two launches bit-identical, timed beside
+     one SDPA call of the same dtype and shape and the bound at the true head
+     dim, each instance's registers and spill from the build's ptxas report.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -357,8 +380,9 @@ PREDICTION_STEPS, PLANNING_STEPS = 50, 10  # the task default; a cut to fit the 
 # keep the run inside its time limit (PERF.md §7 named it the next to cut)
 PLANNING_PAIR_STEPS = 5
 # the prediction at AETHER_ATTN_FUSED=0 (phase 11): the task default cut to
-# fit phases 24-25 in the time (PERF.md §7 named it the first to cut)
-FUSED0_STEPS = 20
+# fit phases 24-28 in the time (PERF.md §7 named it the first to cut; 20
+# steps before phase 28)
+FUSED0_STEPS = 10
 LONG_FRAMES, STRIDE = 65, 24  # two 41-frame windows, starts 0 and 24
 # H100 SXM at 700 W (NVIDIA's data sheet): memory rate, dense peaks by type
 HBM_BYTES_PER_S = 3.35e12
@@ -3979,18 +4003,17 @@ def unfused_tiny_phase(dev):
     return launches
 
 
-def ring_hd_phase(dev):
-    """Phase 27 (e): ``ring_attention_stripes`` over the sp = 4 stripes of a
-    (1, 48, 15076, 16) window (padded to 15360) against one K3 hd call, as
-    phase 22c at 64: int8 and bf16 QK^T, 16 K3 hd launches each, max abs 1e-2
-    / mean 1e-3. Returns ({name: (launches, error, ring ms, K3 ms)}, the K3
-    hd launches of the rings)."""
+def ring_hd_phase(dev, hd=16, phase="27e"):
+    """Phase 27 (e) (and 28c at head_dim 24): ``ring_attention_stripes`` over
+    the sp = 4 stripes of a (1, 48, 15076, hd) window (padded to 15360)
+    against one K3 hd call, as phase 22c at 64: int8 and bf16 QK^T, 16 K3 hd
+    launches each, max abs 1e-2 / mean 1e-3. Returns ({name: (launches,
+    error, ring ms, K3 ms)}, the K3 hd launches of the rings)."""
     from aether_tpu_torch.ops.flash_attention import (
         flash_attention_fixed_max,
         ring_attention_stripes,
     )
 
-    hd = 16
     gen = torch.Generator(device=dev)
     gen.manual_seed(27)
     q, k, v = (torch.randn((1, HEADS, SEQ, hd), generator=gen, device=dev)
@@ -4008,12 +4031,12 @@ def ring_hd_phase(dev):
 
         ref = flash_attention_fixed_max(q, k, v, qk_int8=qk_int8)
         out = counted(lambda: torch.cat(run(), dim=2)[:, :, :SEQ],
-                      {"flash_attention_fixed_max_hd": SP_STRIPES ** 2}, f"phase 27e {name}")
+                      {"flash_attention_fixed_max_hd": SP_STRIPES ** 2}, f"phase {phase} {name}")
         total += SP_STRIPES ** 2
-        err = compare(f"phase 27e {name} against one K3 hd call", out, ref, 1e-2, 1e-3)
+        err = compare(f"phase {phase} {name} against one K3 hd call", out, ref, 1e-2, 1e-3)
         ms = cuda_time_ms(run, 3)
         k3 = cuda_time_ms(lambda: flash_attention_fixed_max(q, k, v, qk_int8=qk_int8), 3)
-        log(f"phase 27e {name}: {ms:.4f} ms for {SP_STRIPES ** 2} K3 hd steps and the merge, "
+        log(f"phase {phase} {name}: {ms:.4f} ms for {SP_STRIPES ** 2} K3 hd steps and the merge, "
             f"one K3 hd call {k3:.4f} ms: {ms / k3:.3f}x")
         ring[name] = (SP_STRIPES ** 2, err, ms, k3)
         del ref, out
@@ -4047,6 +4070,332 @@ def head_dims_all_phase(dev, gen):
     log("phase 27 seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in secs.items())
         + "; (e) " + "; ".join(f"{n} {ms:.4f} ms against K3 hd {k3:.4f} ms"
                                 for n, (_, _, ms, k3) in ring.items()))
+    return launches, kernels, secs
+
+
+# ---------------------------------------------------------------------------
+# phase 28: every head dim below 128 on the padded instances
+# ---------------------------------------------------------------------------
+
+# (a) the main path's shape at these head dims (instances 80 and 128)
+PADDED_FULL_DIMS = (72, 120)
+# (b) the small shape's sequence and head dims
+PADDED_SMALL_SEQ = 2048
+PADDED_SMALL_K1_DIMS = (8, 24)
+PADDED_SMALL_DIMS = (8, 17, 24, 127)
+# (c) the tiny DiT's head dims; the ring's
+PADDED_TINY_DIMS = (24, 72, 120)
+PADDED_RING_DIM = 24
+# (c) setting -> (environment, compute dtype, the counters one forward
+# launches, num_layers times each)
+PADDED_SETTINGS = {
+    "defaults": ({}, torch.bfloat16, ("qkv_prologue_hd", "flash_attention_prepacked_hd")),
+    "FUSED=0 QK8=1": ({"AETHER_ATTN_FUSED": "0", "AETHER_ATTN_QK8": "1"}, torch.bfloat16,
+                      ("flash_attention_fixed_max_hd",)),
+    "FUSED=0 QK8=0": ({"AETHER_ATTN_FUSED": "0", "AETHER_ATTN_QK8": "0"}, torch.bfloat16,
+                      ("flash_attention_fixed_max_hd",)),
+    "PV8=1": ({"AETHER_ATTN_PV8": "1"}, torch.bfloat16, ("flash_attention_pv8_hd",)),
+    "FIXED_MAX=0": ({"AETHER_ATTN_FIXED_MAX": "0"}, torch.bfloat16, ("flash_attention_hd",)),
+    "FUSED=0 in f32": ({"AETHER_ATTN_FUSED": "0"}, torch.float32,
+                       ("flash_attention_fixed_max_f32",)),
+    "FIXED_MAX=0 in f32": ({"AETHER_ATTN_FIXED_MAX": "0"}, torch.float32,
+                           ("flash_attention_f32_hd",)),
+}
+
+
+def ptxas_of(pattern):
+    """'<registers> registers, <stores>/<loads> bytes spilled' of the first
+    kernel instance in the build's ptxas report whose mangled name contains
+    ``pattern``."""
+    from aether_tpu_torch.ops import _build
+
+    name, found = None, {}
+    for line in _build.BUILD_LOG["ptxas"].splitlines():
+        if "Compiling entry function" in line:
+            if name is not None and pattern in name:
+                break
+            name, found = line.split("'")[1], {}
+        elif name is not None and "Used" in line and "registers" in line:
+            found["regs"] = re.search(r"Used (\d+) registers", line).group(1)
+        elif name is not None and "spill stores" in line:
+            found["spill"] = re.findall(r"(\d+) bytes spill", line)
+    if name is None or pattern not in name or "regs" not in found:
+        return f"{pattern}: not in the build report"
+    return (f"{found['regs']} registers, {'/'.join(found.get('spill', ['?', '?']))} bytes "
+            "spilled (stores/loads)")
+
+
+def padded_kernels_phase(dev, gen):
+    """Phase 28 (a): at 48 heads x 15076 tokens and each of
+    ``PADDED_FULL_DIMS``, K1 and K2 (int8 and float; K1 over 15360 rows),
+    K3 (int8, bf16, f32, f32 with int8 QK^T), K4 (bf16, f32) and K6 against
+    their plain versions (bf16 outputs at ``bf16_gates`` of the reference,
+    whose mean gate scales with it, so that a fold taken from the width
+    fails each kernel on its own; f32 at max and mean 1e-4), one launch a call
+    on the head-dim counter, two launches bit-identical; CUDA-event times
+    (K1 also from a CUDA graph), the plain version's, one SDPA call of the
+    same dtype and shape, the bound at the true head dim (so the padding's
+    cost shows), and each instance's registers and spill. Returns {(name,
+    head_dim): (max abs error, ms, plain ms, bound, SDPA ms)}."""
+    from aether_tpu_torch.bench.time_prologue import graph_ms
+    from aether_tpu_torch.ops import attn_prologue as ap
+    from aether_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    s_pad = -(-SEQ // 1024) * 1024  # 15360, as _pick_pad_and_block pads it
+    for hd in PADDED_FULL_DIMS:
+        width = fa.head_dim_width(hd)
+        d = HEADS * hd
+        sdpa = {dt: sdpa_ms(dev, gen, 1, dt, hd) for dt in (torch.bfloat16, torch.float32)}
+        # K1 and K2 on the fused projection, as the DiT's fused route
+        y = torch.randn((1, s_pad, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+        y[:, SEQ:] = 0
+        xs = (y[..., :d], y[..., d:2 * d], y[..., 2 * d:])
+        norms = [1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+                 0.1 * torch.randn(hd, generator=gen, device=dev),
+                 1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+                 0.1 * torch.randn(hd, generator=gen, device=dev)]
+        ang = torch.randn((SEQ, hd // 2), generator=gen, device=dev)
+        rope = (ang.cos().repeat_interleave(2, -1), ang.sin().repeat_interleave(2, -1))
+        half = HEADS * s_pad * hd  # at the true head dim
+        k1_in = SEQ * 3 * d * 2 + 2 * SEQ * hd * 4
+        for quantize in (True, False):
+            branch = "int8" if quantize else "float"
+            pkw = dict(num_heads=HEADS, head_dim=hd, eps=1e-6, s_valid=SEQ, quantize=quantize)
+
+            def k1():
+                return ap.qkv_prologue(*xs, *norms, *rope, **pkw)
+
+            name = f"phase 28a K1 {branch} at head_dim {hd}"
+            got = counted(k1, {"qkv_prologue_hd": 1}, name)
+            ref = ap.qkv_prologue_plain(*xs, *norms, *rope, **pkw)
+            err = (k1_int8_gates if quantize else k1_float_gates)(name, got, ref)
+            check(got[0].stride(1) == width and not got[0].as_strided(
+                (*got[0].shape[:2], width), got[0].stride())[..., hd:].any(),
+                  f"{name}: not written {width} wide with zero columns past {hd}")
+            check(all(torch.equal(a, b) for a, b in zip(got[:7], k1()[:7])),
+                  f"{name}: two launches differ")
+            ms, plain_ms = cuda_time_ms(k1, 20), cuda_time_ms(
+                lambda: ap.qkv_prologue_plain(*xs, *norms, *rope, **pkw), 2)
+            alone = graph_ms(k1)
+            bnd = bound(k1_in + (2 if quantize else 4) * half + 2 * half,
+                        {"f32": 30.0 * 2 * SEQ * d})
+            regs = ptxas_of(f"prologue_kernelILi{width}ELi{ap._CTA_ROWS[width]}"
+                            f"ELb{int(quantize)}ELb1E")
+            log(f"{name} time: kernel {ms:.4f} ms, from a CUDA graph {alone:.4f} ms "
+                f"({bnd[0] / alone:.1%} of its {bnd[0]:.4f} ms {bnd[1]} bound at {hd}), plain "
+                f"{plain_ms:.4f} ms; the <{width}> instance: {regs}")
+            results[f"K1 {branch}", hd] = (err, alone, plain_ms, bnd, None)
+
+            q, k, v, qsc, qn, ksc, kn, _ = got
+            fkw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=SEQ)
+            name = f"phase 28a K2 {branch} at head_dim {hd}"
+
+            def k2():
+                return fa.flash_attention_prepacked(q, k, v, **fkw)
+
+            out = counted(k2, {"flash_attention_prepacked_hd": 1}, name)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out_ref = fa.flash_attention_prepacked_plain(q, k, v, **fkw)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = compare(name, out, out_ref, *bf16_gates(out_ref))
+            check(torch.equal(out, k2()), f"{name}: two launches differ")
+            ms = cuda_time_ms(k2, 5)
+            kinds = ("int8", "bf16") if quantize else ("bf16", "bf16")
+            bnd = bound((2 if quantize else 4) * half + 2 * 2 * half,
+                        attention_ops(1, SEQ, kinds, hd), attention_exp2(1))
+            regs = ptxas_of(f"fixed_cell11cell_kernelILi{width}ELb{int(quantize)}ELb1E")
+            log(f"{name} time: kernel {ms:.4f} ms ({bnd[0] / ms:.1%} of its {bnd[0]:.4f} ms "
+                f"{bnd[1]} bound at {hd}), plain {plain_ms:.4f} ms, SDPA bf16 (1, 48, 15076, "
+                f"{hd}) {sdpa[torch.bfloat16]:.4f} ms: {ms / sdpa[torch.bfloat16]:.3f}x; the "
+                f"<{width}> instance: {regs}")
+            results[f"K2 {branch}", hd] = (err, ms, plain_ms, bnd, sdpa[torch.bfloat16])
+            del got, ref, out, out_ref, q, k, v
+        del y, xs
+        torch.cuda.empty_cache()
+
+        # K3, K4 and K6 through their wrappers on (1, 48, 15076, hd)
+        bf16, f32 = (torch.bfloat16, 2), (torch.float32, 4)
+        cases = (
+            ("K3 int8", bf16, "flash_attention_fixed_max_hd", ("int8", "bf16"),
+             dict(fixed_max=True, qk_int8=True), None,
+             f"fixed_cell11cell_kernelILi{width}ELb1ELb0E"),
+            ("K3 bf16", bf16, "flash_attention_fixed_max_hd", ("bf16", "bf16"),
+             dict(fixed_max=True), None, f"fixed_cell11cell_kernelILi{width}ELb0ELb0E"),
+            ("K3 f32", f32, "flash_attention_fixed_max_f32", ("tf32x3", "tf32x3"),
+             dict(fixed_max=True), (1e-4, 1e-4), f"tf32x3_cell11cell_kernelILi{width}ELb0ELi1E"),
+            ("K3 f32 int8", f32, "flash_attention_fixed_max_f32", ("int8", "tf32x3"),
+             dict(fixed_max=True, qk_int8=True), (1e-4, 1e-4),
+             f"tf32x3_cell11cell_kernelILi{width}ELb1ELi1E"),
+            ("K4 bf16", bf16, "flash_attention_hd", ("bf16", "bf16"), {}, None,
+             f"online_cell11cell_kernelILi{width}E"),
+            ("K4 f32", f32, "flash_attention_f32_hd", ("tf32x3", "tf32x3"), {}, (1e-4, 1e-4),
+             f"tf32x3_cell11cell_kernelILi{width}ELb0ELi2E"),
+            ("K6", bf16, "flash_attention_pv8_hd", ("int8", "int8"),
+             dict(fixed_max=True, qk_int8=True, pv_int8=True), None,
+             f"flash_pv8_kernelILi{width}E13__nv_bfloat16E"),
+        )
+        for name, (dtype, size), counter, kinds, opts, bars, pattern in cases:
+            shape = (1, HEADS, SEQ, hd)
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+            what = f"phase 28a {name} at head_dim {hd}"
+
+            def kernel(q=q, k=k, v=v, opts=opts):
+                return fa.flash_attention(q, k, v, **opts)
+
+            if name.startswith("K3"):
+                plain = fa.flash_attention_fixed_max_plain
+                popts = dict(qk_int8=opts.get("qk_int8", False))
+            elif name == "K6":
+                plain, popts = fa.flash_attention_pv8_plain, {}
+            else:
+                plain, popts = fa.flash_attention_plain, {}
+            out = counted(kernel, {counter: 1}, what)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            ref = plain(q, k, v, **popts)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = compare(what, out, ref, *(bars or bf16_gates(ref)))
+            check(torch.equal(out, kernel()), f"{what}: two launches differ")
+            del ref
+            ms = cuda_time_ms(kernel, 5)
+            del q, k, v, out
+            bnd = bound(4 * size * HEADS * SEQ * hd, attention_ops(1, SEQ, kinds, hd),
+                        attention_exp2(1))
+            log(f"{what} time: kernel {ms:.4f} ms ({bnd[0] / ms:.1%} of its {bnd[0]:.4f} ms "
+                f"{bnd[1]} bound at {hd}), plain {plain_ms:.4f} ms, SDPA {str(dtype)[6:]} (1, "
+                f"48, 15076, {hd}) {sdpa[dtype]:.4f} ms: {ms / sdpa[dtype]:.3f}x; the "
+                f"<{width}> instance: {ptxas_of(pattern)}")
+            results[name, hd] = (err, ms, plain_ms, bnd, sdpa[dtype])
+            torch.cuda.empty_cache()
+    return results
+
+
+def padded_small_phase(dev, gen):
+    """Phase 28 (b): at (1, 48, ``PADDED_SMALL_SEQ``, D), K1 + K2 (int8) at
+    each of ``PADDED_SMALL_K1_DIMS`` and, through ``flash_attention``, K3
+    (int8 and bf16 QK^T), K4 (bf16 and f32) and K6 at each of
+    ``PADDED_SMALL_DIMS``, against their plain versions at phase 28a's
+    gates (K1's of phase 26b), one launch a call on the head-dim counter. Returns the number of
+    cases."""
+    from aether_tpu_torch.ops import attn_prologue as ap
+    from aether_tpu_torch.ops import flash_attention as fa
+
+    n, s = 0, PADDED_SMALL_SEQ
+    for hd in PADDED_SMALL_K1_DIMS:
+        d = HEADS * hd
+        y = torch.randn((1, s, 3 * d), generator=gen, device=dev).to(torch.bfloat16)
+        xs = (y[..., :d], y[..., d:2 * d], y[..., 2 * d:])
+        norms = [1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev),
+                 0.1 * torch.randn(hd, generator=gen, device=dev)] * 2
+        ang = torch.randn((s, hd // 2), generator=gen, device=dev)
+        rope = (ang.cos().repeat_interleave(2, -1), ang.sin().repeat_interleave(2, -1))
+        pkw = dict(num_heads=HEADS, head_dim=hd, eps=1e-6, s_valid=s - 50)
+        what = f"phase 28b K1 at (1, 48, {s}, {hd})"
+        got = counted(lambda: ap.qkv_prologue(*xs, *norms, *rope, **pkw),
+                      {"qkv_prologue_hd": 1}, what)
+        k1_int8_gates(what, got, ap.qkv_prologue_plain(*xs, *norms, *rope, **pkw))
+        q, k, v, qsc, qn, ksc, kn, _ = got
+        fkw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=s - 50)
+        what = f"phase 28b K2 at (1, 48, {s}, {hd})"
+        out = counted(lambda: fa.flash_attention_prepacked(q, k, v, **fkw),
+                      {"flash_attention_prepacked_hd": 1}, what)
+        ref = fa.flash_attention_prepacked_plain(q, k, v, **fkw)
+        compare(what, out, ref, *bf16_gates(ref))
+        n += 2
+    for hd in PADDED_SMALL_DIMS:
+        for name, dtype, opts, counter, plain, bars in (
+                ("K3 int8", torch.bfloat16, dict(fixed_max=True, qk_int8=True),
+                 "flash_attention_fixed_max_hd",
+                 lambda q, k, v: fa.flash_attention_fixed_max_plain(q, k, v, qk_int8=True),
+                 None),
+                ("K3 bf16", torch.bfloat16, dict(fixed_max=True), "flash_attention_fixed_max_hd",
+                 fa.flash_attention_fixed_max_plain, None),
+                ("K4 bf16", torch.bfloat16, {}, "flash_attention_hd", fa.flash_attention_plain,
+                 None),
+                ("K4 f32", torch.float32, {}, "flash_attention_f32_hd", fa.flash_attention_plain,
+                 (1e-4, 1e-4)),
+                ("K6", torch.bfloat16, dict(fixed_max=True, qk_int8=True, pv_int8=True),
+                 "flash_attention_pv8_hd", fa.flash_attention_pv8_plain, None)):
+            q, k, v = (torch.randn((1, HEADS, s, hd), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            what = f"phase 28b {name} at (1, 48, {s}, {hd})"
+            out = counted(lambda: fa.flash_attention(q, k, v, **opts), {counter: 1}, what)
+            ref = plain(q, k, v)
+            compare(what, out, ref, *(bars or bf16_gates(ref)))
+            n += 1
+    return n
+
+
+def padded_tiny_phase(dev):
+    """Phase 28 (c): the tiny DiT (4 heads, 2 blocks) at each of
+    ``PADDED_TINY_DIMS``, one batch-1 forward on the card against the CPU (the
+    same CPU-built weights and inputs) at the long-video gates under each of
+    ``PADDED_SETTINGS``, 2 launches of each of the setting's counters and
+    none of any other attention kernel; RoPE tables cut to the head dim.
+    Then the sp = 4 ring at ``PADDED_RING_DIM``. Returns ({(counter,
+    head_dim): launches}, the ring's {name: (launches, error, ring ms, K3
+    ms)})."""
+    from aether_tpu_torch.config import DiTConfig
+    from aether_tpu_torch.models import init_dit
+    from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
+
+    launches = {}
+    host_gen = torch.Generator()
+    host_gen.manual_seed(28)
+    for hd in PADDED_TINY_DIMS:
+        dcfg = dataclasses.replace(DiTConfig.tiny(), head_dim=hd)
+        h, w = dcfg.sample_height, dcfg.sample_width
+        cos, sin = prepare_rotary_positional_embeddings(dcfg, h * 8, w * 8, 3,
+                                                        vae_scale_factor_spatial=8)
+        cos, sin = (torch.from_numpy(np.ascontiguousarray(t[:, :hd])) for t in (cos, sin))
+        hidden = torch.randn((1, 3, dcfg.in_channels, h, w), generator=host_gen)
+        prompt = torch.randn((1, dcfg.max_text_seq_length, dcfg.text_embed_dim),
+                             generator=host_gen)
+        models = {}
+        for name, (env, dtype, counters) in PADDED_SETTINGS.items():
+            if dtype not in models:
+                models[dtype] = init_dit(dcfg, dtype=dtype, seed=0)
+            model = models[dtype]
+            args = (hidden.to(dtype), prompt, torch.tensor([500]), cos, sin)
+            what = f"phase 28c tiny DiT at head_dim {hd}, {name}"
+            with attention_env(env), torch.no_grad():
+                want = model.cpu()(*args)
+                model.to(dev)
+                expect = {c: dcfg.num_layers for c in counters}
+                got = counted(lambda: model(*(a.to(dev) for a in args)), expect, what)
+            cross_device_gates(what, got.float().cpu(), want.float())
+            for c in counters:
+                launches[c, hd] = launches.get((c, hd), 0) + dcfg.num_layers
+        del models
+    ring, n = ring_hd_phase(dev, PADDED_RING_DIM, "28c")
+    launches["flash_attention_fixed_max_hd", PADDED_RING_DIM] += n
+    return launches, ring
+
+
+def padded_dims_phase(dev, gen):
+    """Phase 28: (c) ``padded_tiny_phase``, (b) ``padded_small_phase``, (a)
+    ``padded_kernels_phase``. Returns ({(counter, head_dim): launches on (c)'s
+    paths}, (a)'s results, seconds by part)."""
+    secs = {}
+    t0 = time.perf_counter()
+    with attention_env({}):
+        launches, ring = padded_tiny_phase(dev)
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n = padded_small_phase(dev, gen)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels = padded_kernels_phase(dev, gen)
+    secs["a"] = time.perf_counter() - t0
+    log("phase 28 seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in secs.items())
+        + f"; (b) {n} cases; (c) " + "; ".join(f"{name} {ms:.4f} ms against K3 hd {k3:.4f} ms"
+                                               for name, (_, _, ms, k3) in ring.items()))
     return launches, kernels, secs
 
 
@@ -4098,7 +4447,8 @@ def main() -> None:
             kernel = ptxas_kernel_name(line.split("'")[1])
         elif "registers" in line or "spill" in line:
             log(f"  ptxas {kernel}: {line.strip()}")
-    for b, hd in [(1, HEAD_DIM), (2, HEAD_DIM)] + [(1, hd) for hd in PREPACKED_HD_DIMS]:
+    for b, hd in ([(1, HEAD_DIM), (2, HEAD_DIM)]
+                  + [(1, hd) for hd in PREPACKED_HD_DIMS + PADDED_FULL_DIMS]):
         plan = _launch_plan(b * HEADS, 15360, 1024, 4, hd)
         log(f"K1 launch plan at batch {b}, head_dim {hd}: grid {plan.grid}, clusters of "
             f"{plan.cluster} CTAs x {plan.rows} rows x {plan.hper} heads, {plan.smem_bytes} "
@@ -4366,6 +4716,14 @@ def main() -> None:
         f"{plain:.4f}, SDPA {lib:.4f})"
         for (name, hd), (_, ms, plain, bnd, lib) in hd27_kernels.items()))
 
+    # ---- 28. every head dim below 128 on the padded instances ----
+    t0 = time.perf_counter()
+    hd28_launches, hd28_kernels, _ = padded_dims_phase(dev, gen)
+    log(f"phase 28: {time.perf_counter() - t0:.3f} s; (a) " + "; ".join(
+        f"{name} at head_dim {hd}: {ms:.4f} ms (bound {bnd[0]:.4f} {bnd[1]}, plain "
+        f"{plain:.4f}" + (f", SDPA {lib:.4f})" if lib is not None else ")")
+        for (name, hd), (_, ms, plain, bnd, lib) in hd28_kernels.items()))
+
     # ---- bounds and library yardsticks ----
     k4_err, k4_ms, k4_plain_ms, _ = k4[torch.float32]
     k4b_err, k4b_ms, k4b_plain_ms, k4b_alone_ms = k4[torch.bfloat16]
@@ -4508,6 +4866,24 @@ def main() -> None:
               ("flash_pv8_hd", "K6", "flash_attention_pv8_hd", "flash_pv8.cu",
                "aether_tpu/ops/flash_attention.py:259", HD_DIMS))
           for hd in dims),
+        *(entry(f"{name}{hd}", source, replaces, hd28_launches[counter, hd],
+                *hd28_kernels[kern, hd])
+          for hd in PADDED_FULL_DIMS
+          for name, kern, counter, source, replaces in (
+              ("attn_prologue_hd", "K1 int8", "qkv_prologue_hd", "attn_prologue.cu",
+               "aether_tpu/ops/attn_prologue.py:91"),
+              ("flash_prepacked_hd", "K2 int8", "flash_attention_prepacked_hd",
+               "flash_prepacked.cu", "aether_tpu/ops/flash_attention.py:812"),
+              ("flash_fixed_max_hd", "K3 int8", "flash_attention_fixed_max_hd",
+               "flash_fixed_max.cu", "aether_tpu/ops/flash_attention.py:151"),
+              ("flash_fixed_max_f32_hd", "K3 f32", "flash_attention_fixed_max_f32",
+               "flash_fixed_max_hd.cu", "aether_tpu/ops/flash_attention.py:151"),
+              ("flash_online_hd", "K4 f32", "flash_attention_f32_hd", "flash_online.cu",
+               "aether_tpu/ops/flash_attention.py:69"),
+              ("flash_online_bf16_hd", "K4 bf16", "flash_attention_hd", "flash_online_bf16.cu",
+               "aether_tpu/ops/flash_attention.py:69"),
+              ("flash_pv8_hd", "K6", "flash_attention_pv8_hd", "flash_pv8.cu",
+               "aether_tpu/ops/flash_attention.py:259"))),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ cases cover the edges it does not reach. K1/K2, int8 and float
 (``AETHER_ATTN_QK8=0``): batch > 1, head groups that straddle two batch
 elements, several token tiles with a ragged ``s_valid``, no RoPE, RoPE tables
 shorter than the sequence; K1 and K2 at every other head dim they take (16
-to 112 in steps of 16), each noshift, and head dims outside that range
-refused. K1's cluster form besides, at 64 and at 16, 48, 80 and 112: a
+to 112 in steps of 16, and head dims between them on the next width's
+instance: 2, 8, 24, 72, 120, 126), each noshift, and head dims outside that
+range refused. K1's cluster form besides, at 64 and at 16, 48, 80 and 112: a
 cluster of 8 with S_in < s_pad, clusters of 3 and 6, hper 3 and 4
 straddling batch elements, tables shorter than s_valid, no RoPE, codes
 inside [-127, 127], two launches bit-identical, one launch a call on its
@@ -40,7 +41,9 @@ switch combinations no wrapper reaches refused. The wgmma kernels (K4
 bf16, K6) besides: lengths their 128-row tiles do not divide, kv_valid inside
 a tile and on its edge, kv shorter than one ring slot, spans of 128, 256 and
 1024 with one that kv_valid empties, strided inputs, and repeats
-bit-identical. Also the launch-or-raise contract. The card's machine has no
+bit-identical. K3, K4 and K6 at head dims below their instance's width (1,
+8, 17, 24, 72, 120, 127; K4 also 128) on zero-padded operands. Also the
+launch-or-raise contract. The card's machine has no
 JAX, so run them without the JAX conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -398,11 +401,13 @@ def test_online_kernel_refuses_what_it_does_not_take(dev):
         flash_attention(q.half(), k.half(), v.half(), fixed_max=True)
     with pytest.raises(TypeError):
         flash_attention(q.half(), k.half(), v.half())
-    # K4 takes head_dim 16 to 128 in steps of 16 on CUDA
-    for hd in (24, 144):
-        wide = torch.zeros((1, 1, 64, hd), device=dev)
-        with pytest.raises(NotImplementedError, match="head_dim"):
-            flash_attention(wide, wide, wide)
+    # K4 takes every head_dim up to 128 on CUDA (24: the instance of 32 on
+    # zero-padded operands), and raises above it
+    q24, k24, v24 = _qkv(dev, (1, 1, 64, 24), (1, 1, 64, 24), torch.float32, seed=24)
+    _check_k4(flash_attention(q24, k24, v24), flash_attention_plain(q24, k24, v24))
+    wide = torch.zeros((1, 1, 64, 144), device=dev)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        flash_attention(wide, wide, wide)
 
 
 def test_flash_trainable_grads_match_plain_on_cuda(dev):
@@ -494,14 +499,17 @@ HD_CASES = [
 
 @pytest.mark.parametrize("quantize", [True, False])
 @pytest.mark.parametrize("b,s,nh,s_valid,rope_rows", HD_CASES)
-@pytest.mark.parametrize("hd", [16, 32, 48, 80, 96, 112])
+@pytest.mark.parametrize("hd", [16, 32, 48, 80, 96, 112, 2, 8, 24, 72, 120, 126])
 def test_prologue_and_flash_hd_kernels_match_plain(dev, hd, b, s, nh, s_valid, rope_rows,
                                                    quantize):
     """K1 at phase 3's gates (int8 codes within 1 on at most 1e-3 of them, or
     bf16 within one ulp on at most 1e-4; v bit-exact; the stats rtol 1e-5),
     K2 on its outputs at max 1e-2 / mean 1e-3, each with every noshift; one
     launch of each head-dim kernel a call and none of the head_dim-64 ones;
-    two launches bit-identical."""
+    two launches bit-identical. Below its width (2-126) K1 writes q, k and v
+    that wide with zero columns past the head dim (read through the
+    returned views' base), K2 reads them in place and also contiguous
+    copies (padded where their rows are not 16-byte aligned)."""
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue_hd
     from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked_hd
 
@@ -526,6 +534,15 @@ def test_prologue_and_flash_hd_kernels_match_plain(dev, hd, b, s, nh, s_valid, r
     for a, r in zip(got[3:7], ref[3:7]):
         torch.testing.assert_close(a, r, rtol=1e-5, atol=0)
     q, k, v, qsc, qn, ksc, kn, _ = got
+    width = -(-hd // 16) * 16
+    if width != hd:
+        for t in (q, k, v):  # the prologue's buffers past the head dim
+            assert t.stride(1) == width and not t.as_strided(
+                (t.shape[0], t.shape[1], width), t.stride())[..., hd:].any()
+        fkw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=s_valid or s)
+        torch.testing.assert_close(
+            flash_attention_prepacked(*(t.contiguous() for t in (q, k, v)), **fkw),
+            flash_attention_prepacked(q, k, v, **fkw), rtol=0, atol=0)
     for noshift in (False, True, None):
         fkw = dict(qsc=qsc, ksc=ksc, qn=qn, kn=kn, s_valid=s_valid or s, noshift=noshift)
         before = flash_attention_prepacked_hd.launches
@@ -562,35 +579,48 @@ def test_prologue_at_64_is_the_plain_version_bit_for_bit(dev, b, quantize):
 
 @pytest.mark.parametrize("hd", [8, 24, 128, 144])
 def test_head_dims_outside_the_range_raise_on_cuda(dev, hd):
-    """K1, K2, K3 and K6 take head_dim 16 to 112 in steps of 16 on a CUDA
-    tensor, K4 also 128; any other raises ``NotImplementedError`` naming
-    ROADMAP Queue 2, and nothing launches (the plain versions take every
-    head dim on the CPU)."""
+    """What a CUDA tensor takes at the edges of the head-dim ranges: at 8 and
+    24 (below their instance's width) K1, K2, K3, K4 and K6 run, one launch
+    each on its head-dim counter; at 128 K2 and K4 run, and K1, K3 and K6
+    called directly raise (the JAX wrapper turns the fixed max off there, so
+    no path reaches them); at 144 everything raises. Each refusal is a
+    ``NotImplementedError`` naming ROADMAP Queue 2 that launches nothing
+    (the plain versions take every head dim on the CPU)."""
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue_hd
     from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked_hd
 
     xs, norms, rope = _inputs(dev, 1, 300, 2, 300, hd=hd)
-    counts = lambda: (qkv_prologue.launches, qkv_prologue_hd.launches,  # noqa: E731
-                      flash_attention_prepacked.launches, flash_attention_prepacked_hd.launches,
-                      *(fn.launches for fn in _HD_COUNTED))
-    before = counts()
-    q, k, v = _qkv(dev, (1, 2, 100, hd), (1, 2, 100, hd), torch.bfloat16, seed=hd)
-    for fn in (flash_attention_fixed_max, flash_attention_pv8):
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            fn(q, k, v)
-    if hd != 128:
-        for dtype in (torch.bfloat16, torch.float32):
+    names = ("K1", "K1 64", "K2", "K2 64", "K3", "K3 f32", "K4", "K4 f32", "K6")
+    counts = lambda: dict(zip(names, (  # noqa: E731
+        qkv_prologue_hd.launches, qkv_prologue.launches, flash_attention_prepacked_hd.launches,
+        flash_attention_prepacked.launches, *(fn.launches for fn in _HD_COUNTED))))
+    runs = hd < 128
+
+    def expect(call, name):
+        before = counts()
+        if runs or (hd == 128 and name in ("K2", "K4", "K4 f32")):
+            call()
+            torch.cuda.synchronize()
+            want = dict(before, **{name: before[name] + 1})
+        else:
             with pytest.raises(NotImplementedError, match="Queue 2"):
-                flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        qkv_prologue(*xs, *norms, *rope, num_heads=2, head_dim=hd, eps=1e-6)
+                call()
+            want = before
+        assert counts() == want, name
+
+    q, k, v = _qkv(dev, (1, 2, 100, hd), (1, 2, 100, hd), torch.bfloat16, seed=hd)
+    expect(lambda: flash_attention_fixed_max(q, k, v), "K3")
+    expect(lambda: flash_attention_fixed_max(q.float(), k.float(), v.float()), "K3 f32")
+    expect(lambda: flash_attention_pv8(q, k, v), "K6")
+    expect(lambda: flash_attention(q, k, v), "K4")
+    expect(lambda: flash_attention(q.float(), k.float(), v.float()), "K4 f32")
+    expect(lambda: qkv_prologue(*xs, *norms, *rope, num_heads=2, head_dim=hd, eps=1e-6), "K1")
     q, k, v, qsc, qn, ksc, kn, _ = qkv_prologue_plain(
         *(x.cpu() for x in xs), *(n.cpu() for n in norms), *(r.cpu() for r in rope),
         num_heads=2, head_dim=hd, eps=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        flash_attention_prepacked(*(t.to(dev) for t in (q, k, v)), qsc=qsc.to(dev),
-                                  ksc=ksc.to(dev), qn=qn.to(dev), kn=kn.to(dev))
-    assert counts() == before
+    expect(lambda: flash_attention_prepacked(*(t.to(dev).contiguous() for t in (q, k, v)),
+                                             qsc=qsc.to(dev), ksc=ksc.to(dev), qn=qn.to(dev),
+                                             kn=kn.to(dev)), "K2")
 
 
 # K3 and K6 gates, as in chip_smoke.py: max abs 1e-2 and mean 1e-3 of bf16
@@ -763,8 +793,13 @@ def test_fixed_max_kernels_refuse_what_they_do_not_take(dev):
     for fn in (flash_attention_fixed_max, flash_attention_pv8):
         with pytest.raises(TypeError):
             fn(q.half(), k.half(), v.half())
-        # head_dim 16 to 112 in steps of 16 on CUDA
-        wide = torch.zeros((1, 1, 64, 24), device=dev, dtype=torch.bfloat16)
+        # every head_dim below 128 on CUDA (24: the instance of 32 on
+        # zero-padded operands); 128 and above raise
+        q24, k24, v24 = _qkv(dev, (1, 1, 64, 24), (1, 1, 64, 24), torch.bfloat16, seed=24)
+        plain = (flash_attention_fixed_max_plain if fn is flash_attention_fixed_max
+                 else flash_attention_pv8_plain)
+        _check_fixed(fn(q24, k24, v24), plain(q24, k24, v24))
+        wide = torch.zeros((1, 1, 64, 128), device=dev, dtype=torch.bfloat16)
         with pytest.raises(NotImplementedError, match="head_dim"):
             fn(wide, wide, wide)
     with pytest.raises(TypeError, match="K3"):
@@ -787,6 +822,8 @@ _HD_COUNTED = (flash_attention_fixed_max_hd, flash_attention_fixed_max_f32, flas
                flash_attention_f32_hd, flash_attention_pv8_hd)
 _64_COUNTED = (flash_attention, flash_attention_fixed_max, flash_attention_pv8)
 OTHER_DIMS = [16, 32, 48, 80, 96, 112]
+# head dims below their instance's width (1-127; zero-padded operands)
+PADDED_DIMS = [1, 8, 17, 24, 72, 120, 127]
 
 
 def _counts(fns):
@@ -805,7 +842,7 @@ HD_ATTN_CASES = [
 
 @pytest.mark.parametrize("qk_int8", [True, False])
 @pytest.mark.parametrize("b,h,sq,skv,kv_valid", HD_ATTN_CASES)
-@pytest.mark.parametrize("hd", OTHER_DIMS)
+@pytest.mark.parametrize("hd", OTHER_DIMS + PADDED_DIMS)
 def test_fixed_max_hd_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, qk_int8):
     """K3 (bf16 q/k/v) at the other head dims against its plain version at
     K3's gates, noshift auto; one launch of the head-dim kernel a call and
@@ -840,8 +877,31 @@ def test_fixed_max_hd_kernel_unnormalized_score_bound(dev, hd, qk_int8):
 
 
 @pytest.mark.parametrize("qk_int8", [True, False])
+@pytest.mark.parametrize("hd", PADDED_DIMS)
+def test_fixed_max_padded_kernel_unnormalized_score_bound(dev, hd, qk_int8):
+    """The ring-merge mode below the instance's width, as above, with l held
+    to the bound of its arithmetic: l sums bf16(p), and the kernel's one-SFU
+    exp2 and the plain version's exp2 may round a p on either side of a bf16
+    step, so each term may differ by one step (2**-8 of itself) and l by at
+    most 2**-8 of itself (plus f32 order noise); 99.9% of the rows within
+    1e-4 relative (at head_dim 24 the rtol-1e-4 form of the test above
+    failed on one row of 2331, at 1.2e-4, where l = 3.6e-15 rests on a few
+    terms); o as above."""
+    q, k, v = _qkv(dev, (1, 3, 777, hd), (1, 3, 2100, hd), torch.bfloat16, seed=hd)
+    kw = dict(kv_valid=2050, qk_int8=qk_int8, score_bound=60.0, unnormalized=True)
+    o, l = flash_attention_fixed_max(q, k, v, **kw)
+    ro, rl = flash_attention_fixed_max_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and l.shape == rl.shape == (1, 3, 777, 1)
+    rel = (l - rl).abs() / rl.abs()
+    assert rel.max().item() <= 2.0 ** -8 + 1e-6, rel.max().item()
+    assert (rel > 1e-4).float().mean().item() <= 1e-3, rel.max().item()
+    assert (o.float() - ro.float()).abs().max().item() <= 1e-2 * ro.float().abs().max().item()
+
+
+@pytest.mark.parametrize("qk_int8", [True, False])
 @pytest.mark.parametrize("b,h,sq,skv,kv_valid", HD_ATTN_CASES[:3])
-@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 112])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 96, 112] + PADDED_DIMS)
 def test_fixed_max_f32_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, qk_int8):
     """K3 in f32 (the 3xTF32 cell) at every head dim, 64 included: max abs
     1e-4 against the plain version (K4 f32's gate: 3xTF32 products, another
@@ -868,7 +928,7 @@ def test_fixed_max_f32_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, qk
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("denom", ["mxu", "vpu"])
 @pytest.mark.parametrize("b,h,sq,skv,kv_valid", HD_ATTN_CASES)
-@pytest.mark.parametrize("hd", [16, 32, 48, 80, 96, 112, 128])
+@pytest.mark.parametrize("hd", [16, 32, 48, 80, 96, 112, 128] + PADDED_DIMS)
 def test_online_hd_kernels_match_plain(dev, hd, b, h, sq, skv, kv_valid, denom, dtype):
     """K4 at the other head dims (128: "vpu" whatever is asked, as the JAX
     wrapper) against its plain version at K4's gates; one launch of the
@@ -904,7 +964,7 @@ def test_online_f32_at_128_keeps_pv_off_the_tensor_core_accumulator(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 112, 128])
+@pytest.mark.parametrize("hd", [16, 112, 128, 17, 120])
 def test_online_hd_kernels_extreme_negative_scores_on_strided_inputs(dev, hd, dtype):
     """Deeply negative scores behind a ragged last tile, on the DiT's
     transposed (non-contiguous) head layout: the masked columns do not take
@@ -929,7 +989,7 @@ PV8_HD_CASES = [
 
 
 @pytest.mark.parametrize("b,h,sq,skv,kv_valid,block_k,dtype", PV8_HD_CASES)
-@pytest.mark.parametrize("hd", OTHER_DIMS)
+@pytest.mark.parametrize("hd", OTHER_DIMS + PADDED_DIMS)
 def test_pv8_hd_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, block_k, dtype):
     """K6 at the other head dims against its plain version at K6's gates
     (max 1e-2, mean 1e-4); one launch of the head-dim kernel a call, none of
@@ -947,7 +1007,7 @@ def test_pv8_hd_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, block_k, 
     _check_fixed(out, ref, mean_bar=1e-4)
 
 
-@pytest.mark.parametrize("hd", [16, 112])
+@pytest.mark.parametrize("hd", [16, 112, 24, 127])
 def test_pv8_hd_kernel_negative_row_max_with_padding(dev, hd):
     """Every real score deeply negative behind padded columns: the -1e9 bias
     keeps the padding out of the running max; the result is the mean of v."""

@@ -1,4 +1,5 @@
-"""The DiT's attention route at head_dim 64, 112 and 128 against JAX (CPU).
+"""The DiT's attention route at head_dim 24, 64, 72, 112, 120 and 128 against
+JAX (CPU).
 
 The JAX ``dit_forward`` takes the fused K1 + K2 path only at an even
 head_dim below 128 (``aether_tpu/models/dit.py:819-825``); at 128 the
@@ -8,7 +9,10 @@ denominator. The port's DiT routes alike: at 128 it calls
 with one head at each head dim, the same JAX parameters on both sides
 (``dit_state_dict_from_jax``), one batch-1 3-frame forward at t = 700 at the
 default attention settings, JAX through the Pallas kernels in interpret mode
-(``attn_impl="flash_interpret"``). Tolerance 2e-3 of the output (mean
+(``attn_impl="flash_interpret"``). 24, 72 and 120 are head dims that the
+card runs on the next width's instances (32, 80 and 128: the prologue
+writing q, k and v that wide with zero columns, K2 reading them in place);
+here they take the fused route as JAX does. Tolerance 2e-3 of the output (mean
 magnitude about 0.5): f32 order-of-sum noise through 2 blocks sits near 1e-4
 at 112; the fused path at 128, where JAX runs K4, departed by 0.157.
 The loss and its gradients at head_dim 128, where K4 "vpu" enters the
@@ -67,7 +71,8 @@ def _count_calls(monkeypatch, name):
     return calls
 
 
-@pytest.mark.parametrize("hd,fused", [(64, True), (112, True), (128, False)])
+@pytest.mark.parametrize("hd,fused", [(64, True), (112, True), (128, False), (24, True),
+                                      (72, True), (120, True)])
 def test_default_route_matches_jax_at_head_dim(monkeypatch, hd, fused):
     jcfg, cfg = _configs(hd)
     params = init_dit_params(jax.random.PRNGKey(7), jcfg)

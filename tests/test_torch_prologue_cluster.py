@@ -1,5 +1,6 @@
 """K1's launch plan and its cluster decomposition, on the CPU, at every head
-dim the kernel takes (16 to 112 in steps of 16).
+dim the kernel takes (every even one below 128: its instances at the widths
+16 to 128 in steps of 16, a head dim between two running the next one up).
 
 The Hopper kernel of ``qkv_prologue`` (``csrc/attn_prologue.cu``, one
 template over the head dim) spreads one quantization cell (hper heads x
@@ -21,7 +22,15 @@ Pallas kernel in interpret mode at the tolerances of
 ``tests/test_torch_ops.py::test_prologue_plain_matches_pallas``. These cases
 check the kernel's design as written down in Python, not the CUDA code: the
 card cases of ``tests/test_torch_cuda.py`` check that. The head_dim-64 cases
-keep their names; ``*_hd`` cases take the other head dims.
+keep their names; ``*_hd`` cases take the other head dims, ``*_ragged`` the
+head dims below their instance's width: boxes of the width read from column
+h * head_dim (the next head's columns past it, masked to zero in the
+kernel's arithmetic; TMA's zeros past the last head of a tensor; at a head
+dim that is no multiple of 8 the card reads a copy whose heads lie a
+multiple of 8 columns apart, zeros between them, which the same masking
+makes no different), the
+moments divided by the true head dim, and q, k and v written at the width
+with zero columns past the head dim.
 """
 
 import functools
@@ -47,6 +56,7 @@ torch.set_num_threads(1)
 
 HD = 64
 OTHER_HDS = (16, 32, 48, 80, 96, 112)
+RAGGED_HDS = (2, 8, 24, 72, 120, 126)  # widths 16, 16, 32, 80, 128, 128
 EPS = 1e-6
 SMEM_LIMIT = 227 * 1024
 
@@ -82,9 +92,10 @@ PLAN_CASES = [
 def _check_covers_every_row_once(b, nh, s, block_q, hpc, hd):
     bh, s_pad, block, plan = _plan(b, nh, s, block_q, hpc, hd)
     assert plan.block == block and plan.head_dim == hd and plan.rows in (64, 128, 256)
+    assert plan.width == -(-hd // 16) * 16
     assert 1 <= plan.cluster <= {64: 16, 128: 8, 256: 4}[plan.rows]
     assert plan.cluster * plan.rows == block
-    assert plan.hper * plan.rows * hd * 2 < plan.smem_bytes <= SMEM_LIMIT
+    assert plan.hper * plan.rows * plan.width * 2 < plan.smem_bytes <= SMEM_LIMIT
     assert plan.grid == (s_pad // plan.rows, 3 * (bh // plan.hper))
     assert plan.grid[0] % plan.cluster == 0
     covered = np.zeros((3, bh, s_pad), np.int64)
@@ -126,6 +137,14 @@ def test_launch_plan_covers_every_row_once_hd(b, nh, s, s_valid, block_q, hpc, h
     _check_covers_every_row_once(b, nh, s, block_q, hpc, hd)
 
 
+@pytest.mark.parametrize("hd", RAGGED_HDS)
+@pytest.mark.parametrize("b,nh,s,s_valid,block_q,hpc", PLAN_CASES)
+def test_launch_plan_covers_every_row_once_ragged(b, nh, s, s_valid, block_q, hpc, hd):
+    """The same at head dims below their instance's width: the plan, rows
+    and shared memory of the width."""
+    _check_covers_every_row_once(b, nh, s, block_q, hpc, hd)
+
+
 @pytest.mark.parametrize("hd", (16, 32))
 @pytest.mark.parametrize("b,nh,s,s_valid,block_q,hpc", PLAN_CASES)
 def test_launch_plan_covers_every_row_once_128_rows(monkeypatch, b, nh, s, s_valid, block_q,
@@ -140,11 +159,14 @@ def test_launch_plan_covers_every_row_once_128_rows(monkeypatch, b, nh, s, s_val
 @pytest.mark.parametrize("hd,block,rows,cluster", [
     (16, 1024, 256, 4), (16, 512, 256, 2), (16, 384, 128, 3), (32, 768, 256, 3),
     (32, 128, 128, 1), (48, 1024, 128, 8), (80, 1024, 128, 8), (96, 384, 128, 3),
-    (112, 1024, 64, 16), (112, 384, 64, 6), (112, 128, 64, 2)])
+    (112, 1024, 64, 16), (112, 384, 64, 6), (112, 128, 64, 2),
+    (24, 1024, 256, 4), (8, 384, 128, 3), (72, 1024, 128, 8), (120, 1024, 64, 16),
+    (126, 128, 64, 2)])
 def test_launch_plan_rows_by_head_dim(hd, block, rows, cluster):
-    """The CTA rows the plan takes, as the kernel builds them: 256 at 16 and
-    32 where the tile is a multiple of 256 (else 128), 128 at 48-96, 64 at
-    112 in clusters of up to 16."""
+    """The CTA rows the plan takes, as the kernel builds them: 256 at widths
+    16 and 32 where the tile is a multiple of 256 (else 128), 128 at 48-96,
+    64 at 112 and 128 in clusters of up to 16; a head dim below its width
+    (24, 8, 72, 120, 126) takes its width's."""
     plan = _launch_plan(8, 2048 if 2048 % block == 0 else 3 * block, block, 4, hd)
     assert (plan.rows, plan.cluster) == (rows, cluster)
 
@@ -159,7 +181,7 @@ def test_launch_plan_rows_by_head_dim(hd, block, rows, cluster):
     (dict(bh=8, s_pad=1024, block=1024, hper=4, ptrs=(0, 8, 16)), "16-byte"),
     (dict(bh=8, s_pad=1536, block=1024, hper=4), "multiple"),
     (dict(bh=8, s_pad=1024, block=1024, hper=4, head_dim=128), "head_dim"),
-    (dict(bh=8, s_pad=1024, block=1024, hper=4, head_dim=24), "head_dim"),
+    (dict(bh=8, s_pad=1024, block=1024, hper=4, head_dim=25), "head_dim"),
     (dict(bh=8, s_pad=4096, block=2048, hper=4, head_dim=112), "token tiles"),
 ])
 def test_launch_plan_refuses_what_the_kernel_does_not_take(kw, match):
@@ -184,12 +206,12 @@ def test_shipped_config_passes_the_plan(b):
     assert (plan.cluster, plan.hper, plan.grid) == (8, 4, (120, 3 * 12 * b))
 
 
-def _lanes(hd):
-    """(lanes a (row, head), columns a lane), as the kernel's Split<D>:
-    16-byte chunks of 8 columns where the head dim is a power of two, else
-    eight lanes of hd / 8 columns."""
-    lanes = hd // 8 if hd & (hd - 1) == 0 else 8
-    return lanes, hd // lanes
+def _lanes(width):
+    """(lanes a (row, head), columns a lane), as the kernel's Split<D> at the
+    instance's width: 16-byte chunks of 8 columns where the width is a power
+    of two, else eight lanes of width / 8 columns."""
+    lanes = width // 8 if width & (width - 1) == 0 else 8
+    return lanes, width // lanes
 
 
 def _tree_sum(v):
@@ -206,9 +228,10 @@ def _tree_sum(v):
     return _tree_sum(v[..., :h]) + _tree_sum(v[..., h:])
 
 
-def _kernel_z(box, g, bias, cos, sin):
-    """z of one CTA's boxes [hper, rows, hd] (f32) in the kernel's
-    arithmetic: y = x - x[0] in f32; the moments in double, each lane's
+def _kernel_z(box, g, bias, cos, sin, hd):
+    """z of one CTA's boxes [hper, rows, width] (f32) of head dim ``hd`` in
+    the kernel's arithmetic: y = x - x[0] in f32, 0 at the columns past hd
+    (``g``, ``bias`` and the tables are zero there); the moments in double, each lane's
     columns in adjacent pairs (d0 + d1, d0^2 + d1^2 rounded once), the pairs
     as a tree, the lanes as a tree (the butterfly), divided by hd and rounded
     to f32; inv = rcp_rn(sqrt_rn(var + eps)); ((y - mean) * inv) * gamma +
@@ -217,9 +240,10 @@ def _kernel_z(box, g, bias, cos, sin):
     tables), or None. Also returns each row's |z|^2 as the kernel sums it:
     two f32 fma chains a lane (even and odd columns), their sum, then the
     lanes' butterfly."""
-    hd = box.shape[-1]
-    n_lanes, cols = _lanes(hd)
+    width = box.shape[-1]
+    n_lanes, cols = _lanes(width)
     y = box - box[..., :1]
+    y[..., hd:] = 0.0
     yd = y.double().unflatten(-1, (n_lanes, cols))
     d0, d1 = yd[..., 0::2], yd[..., 1::2]
     s1 = _tree_sum(_tree_sum(d0 + d1))
@@ -257,28 +281,34 @@ def _codes(z, r):
 
 def _emulate(xq, xk, xv, gq, bq, gk, bk, cos, sin, *, num_heads, s_valid, quantize, hd=HD):
     """qkv_prologue as the Hopper kernel computes it, CTA by CTA of the
-    launch plan: the CTA's boxes read from the fused [B, S_in, 3 * H * hd]
-    projection at (column (bh % H) * hd of its tensor, first row, batch bh //
-    H), zero past S_in, and nothing for a CTA whose rows all lie past
-    s_valid; z, its absmax and largest row |z|^2 over the CTA's valid rows
+    launch plan: the CTA's boxes (``plan.width`` columns) read from the
+    fused [B, S_in, 3 * H * hd] projection at (column (bh % H) * hd of its
+    tensor, first row, batch bh // H), zero past S_in and past the tensor's
+    H * hd columns, and nothing for a CTA whose rows all lie past s_valid;
+    z, its absmax and largest row |z|^2 over the CTA's valid rows
     (``_kernel_z``); the cluster's maxima over its ranks; each CTA's codes
     from its own z (``_codes``), or bf16 z * fold; v copied with rows >=
-    s_valid zeroed."""
+    s_valid and columns past hd zeroed. q, k and v come out ``plan.width``
+    wide."""
     b, s, d = xq.shape
     bh = b * num_heads
     s_pad, block = _pick_pad_and_block(s, 1024)
     plan = _launch_plan(bh, s_pad, block, _heads_per_cell(bh, 4), hd)
+    width = plan.width
     s_valid = s if s_valid is None else s_valid
-    fused = torch.nn.functional.pad(torch.cat([xq, xk, xv], -1).float(),
-                                    (0, 0, 0, s_pad - s))  # TMA's zero fill
+    # each tensor's map: zero past S_in and past its own H * hd columns
+    srcs = [torch.nn.functional.pad(x.float(), (0, width, 0, s_pad - s)) for x in (xq, xk, xv)]
+    pad_cols = (lambda t: None if t is None
+                else torch.nn.functional.pad(t.float(), (0, width - hd)))
+    gq, bq, gk, bk = (pad_cols(t) for t in (gq, bq, gk, bk))
     if cos is not None:
-        cos, sin = (torch.nn.functional.pad(t.float(), (0, 0, 0, max(0, s_pad - t.shape[0])))
+        cos, sin = (torch.nn.functional.pad(pad_cols(t), (0, 0, 0, max(0, s_pad - t.shape[0])))
                     for t in (cos, sin))
     fold = hd ** -0.5 * _LOG2E
     groups, n_tiles = bh // plan.hper, s_pad // block
     rows = torch.arange(plan.rows)
-    outs = [torch.zeros(bh, s_pad, hd, dtype=torch.int8 if quantize else xq.dtype)
-            for _ in range(2)] + [torch.zeros(bh, s_pad, hd, dtype=xv.dtype)]
+    outs = [torch.zeros(bh, s_pad, width, dtype=torch.int8 if quantize else xq.dtype)
+            for _ in range(2)] + [torch.zeros(bh, s_pad, width, dtype=xv.dtype)]
     stats = [torch.zeros(groups, n_tiles) for _ in range(4)]  # qsc, qn, ksc, kn
     for y in range(plan.grid[1]):
         tensor, g = y % 3, y // 3
@@ -287,18 +317,19 @@ def _emulate(xq, xk, xv, gq, bq, gk, bk, cos, sin, *, num_heads, s_valid, quanti
             _, _, t, _, row0, heads = _cta_job(plan, x, y)
             if row0 >= s_valid:
                 continue  # loads nothing, publishes zeros, writes zeros
-            box = torch.stack([fused[h // num_heads, row0:row0 + plan.rows,
-                                     tensor * d + (h % num_heads) * hd:][:, :hd]
-                               for h in heads])
+            col0 = [(h % num_heads) * hd for h in heads]
+            box = torch.stack([srcs[tensor][h // num_heads, row0:row0 + plan.rows,
+                                            c:c + width] for h, c in zip(heads, col0)])
             valid = (row0 + rows < s_valid)[:, None]
             if tensor == 2:
+                keep = valid & (torch.arange(width) < hd)
                 outs[2][list(heads), row0:row0 + plan.rows] = torch.where(
-                    valid, box, torch.zeros(())).to(xv.dtype)
+                    keep, box, torch.zeros(())).to(xv.dtype)
                 continue
             gam, bet = (gq, bq) if tensor == 0 else (gk, bk)
-            z, n2 = _kernel_z(box, gam.float(), bet.float(),
+            z, n2 = _kernel_z(box, gam, bet,
                               None if cos is None else cos[row0:row0 + plan.rows],
-                              None if sin is None else sin[row0:row0 + plan.rows])
+                              None if sin is None else sin[row0:row0 + plan.rows], hd)
             pub = (torch.where(valid, z.abs(), torch.zeros(())).amax(),
                    torch.where(valid[:, 0], n2, torch.zeros(())).amax())
             cells.setdefault(t, []).append((x, heads, row0, valid, z, pub))
@@ -347,10 +378,18 @@ def _args(data, rope):
     return arrays
 
 
+def _cut(got, hd):
+    """The emulation's outputs with q, k and v cut to hd columns, after
+    checking that the columns past hd are zero."""
+    for a in got[:3]:
+        assert not a[..., hd:].any()
+    return [a[..., :hd] for a in got[:3]] + list(got[3:])
+
+
 def _check_equals_plain(data, quantize, rope, s_valid, hd):
     t = [torch.from_numpy(a) if a is not None else None for a in _args(data, rope)]
     kw = dict(num_heads=NH, s_valid=s_valid, quantize=quantize)
-    got = _emulate(*t, hd=hd, **kw)
+    got = _cut(_emulate(*t, hd=hd, **kw), hd)
     ref = qkv_prologue_plain(*t, head_dim=hd, eps=EPS, **kw)
     assert got[7] == ref[7] == 384
     for i, (a, r) in enumerate(zip(got[:7], ref[:7])):
@@ -369,7 +408,7 @@ def _check_matches_pallas(data, quantize, rope, s_valid, hd):
     t = [torch.from_numpy(a) if a is not None else None for a in arrays]
     ref = jax_qkv_prologue(*j, num_heads=NH, head_dim=hd, eps=EPS, s_valid=s_valid,
                            quantize=quantize, interpret=True)
-    got = _emulate(*t, num_heads=NH, s_valid=s_valid, quantize=quantize, hd=hd)
+    got = _cut(_emulate(*t, num_heads=NH, s_valid=s_valid, quantize=quantize, hd=hd), hd)
     assert got[7] == ref[7]
     for a, r in zip(got[3:7], ref[3:7]):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-5)
@@ -422,6 +461,26 @@ def test_cluster_emulation_matches_pallas_hd(hd, quantize, rope):
 
 
 @pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("s_valid", [None, 250])
+@pytest.mark.parametrize("hd", RAGGED_HDS)
+def test_cluster_emulation_equals_plain_ragged(hd, quantize, rope, s_valid):
+    """The same at head dims below their instance's width: q, k and v at
+    the width, zero past hd, and their first hd columns the plain version's
+    bit for bit; the moments over the true hd."""
+    _check_equals_plain(_data(hd), quantize, rope, s_valid, hd)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("hd", RAGGED_HDS)
+def test_cluster_emulation_matches_pallas_ragged(hd, quantize, rope):
+    """The Pallas kernel in interpret mode at the head dim itself (its blocks
+    take the full head dim), against the padded emulation cut to it."""
+    _check_matches_pallas(_data(hd), quantize, rope, 250, hd)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("hd", (16, 32))
 def test_cluster_emulation_256_rows_equals_plain(hd, quantize):
     """CTAs of 256 rows: 2000 tokens (s_valid 1950) in two 1024-token tiles,
@@ -438,7 +497,7 @@ def test_cluster_emulation_256_rows_equals_plain(hd, quantize):
     t = [torch.from_numpy(a) for a in arrays]
     kw = dict(num_heads=4, s_valid=1950, quantize=quantize)
     assert _plan(1, 4, 2000, 1024, 4, hd)[3].rows == 256
-    got = _emulate(*t, hd=hd, **kw)
+    got = _cut(_emulate(*t, hd=hd, **kw), hd)
     ref = qkv_prologue_plain(*t, head_dim=hd, eps=EPS, **kw)
     for i, (a, r) in enumerate(zip(got[:7], ref[:7])):
         if i in (4, 6):

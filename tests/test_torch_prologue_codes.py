@@ -33,7 +33,7 @@ def _inputs(hd):
     return xq, xk, xv, scale, bias, scale, bias
 
 
-@pytest.mark.parametrize("hd", [64, 16])
+@pytest.mark.parametrize("hd", [64, 16, 8, 24, 72, 120, 126])
 def test_prologue_plain_int8_codes_bit_equal_on_half_way_points(hd):
     assert HALF * 2 == TOP  # 127 * HALF / TOP is 63.5: a half-way code
     arrays = _inputs(hd)
