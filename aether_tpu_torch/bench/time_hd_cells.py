@@ -6,6 +6,7 @@ NVIDIA GPU.
         [--rounds N]
     python aether_tpu_torch/bench/time_hd_cells.py run [CHECKOUT] [--json OUT]
         [--only f32|spread]
+    python aether_tpu_torch/bench/time_hd_cells.py digests [CHECKOUT] [--json OUT]
 
 ``unpack`` (in a git checkout) writes revision REV's ``aether_tpu_torch`` and
 ``chip_smoke.py`` into DIR with ``git archive``; make DIR a git-ignored
@@ -44,6 +45,12 @@ which f32 outputs the two checkouts share bit for bit.
   f32 ``scaled_dot_product_attention`` call at each D. ``--only f32`` runs
   these alone.
 
+``digests`` prints (and writes to ``--json``) the digests of K4 bf16 and f32
+through ``flash_attention`` at (1, 48, 15076, D) for D in ``DIGEST_DIMS`` (64,
+and 72 on the padded instance of 80) on inputs drawn with numpy from seed D
+(:func:`k4_digests`), for one checkout (default: this one): the outputs that
+``chip_smoke.py`` phase 29d holds, bit for bit, to a parent's.
+
 ``--only spread`` runs the head_dim-64 cases of K2, K4, K7 and K8 above and
 then only the cells whose parent / change ratio spreads most from call to
 call, each through the wrapper and alone: K4 bf16 at every head dim 16 to
@@ -63,6 +70,7 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -82,6 +90,44 @@ def digest(t: torch.Tensor) -> str:
     """The first 16 hex digits of the sha256 of the tensor's bytes."""
     return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
                           .tobytes()).hexdigest()[:16]
+
+
+DIGEST_DIMS = (64, 72)
+
+
+def k4_digests(fa, dev) -> dict:
+    """{name: digest} of K4 bf16 and f32 through ``fa.flash_attention`` (the
+    module of any checkout) at (1, 48, 15076, D), D in ``DIGEST_DIMS``, on q,
+    k and v drawn with numpy from seed D (the same values in both dtypes)."""
+    out = {}
+    for hd in DIGEST_DIMS:
+        rng = np.random.default_rng(hd)
+        host = [torch.from_numpy(rng.standard_normal((1, H, S, hd), dtype=np.float32))
+                for _ in range(3)]
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            q, k, v = (t.to(dev).to(dtype) for t in host)
+            out[f"K4 {tag} hd{hd}"] = digest(fa.flash_attention(q, k, v))
+            del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def digests(checkout: str, out_json) -> None:
+    sys.path.insert(0, checkout)
+    from aether_tpu_torch.ops import _build, flash_attention as fa
+
+    if not _build.__file__.startswith(checkout):
+        raise SystemExit(f"imported {_build.__file__}, not the package under {checkout}")
+    if not torch.cuda.is_available():
+        raise SystemExit("time_hd_cells.py needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    result = {"checkout": checkout, "device": smi,
+              "digests": k4_digests(fa, torch.device("cuda", 0))}
+    print(json.dumps(result), flush=True)
+    if out_json:
+        with open(out_json, "w") as f:
+            json.dump(result, f)
 
 
 def run(checkout: str, out_json, only=None) -> None:
@@ -434,9 +480,14 @@ def main(argv) -> None:
     r.add_argument("checkout", nargs="?", default=ROOT)
     r.add_argument("--json")
     r.add_argument("--only", choices=["f32", "spread"])
+    d = sub.add_parser("digests")
+    d.add_argument("checkout", nargs="?", default=ROOT)
+    d.add_argument("--json")
     args = p.parse_args(argv)
     if args.cmd == "unpack":
         unpack(args.rev, args.dir)
+    elif args.cmd == "digests":
+        digests(os.path.abspath(args.checkout), args.json)
     elif args.cmd == "ab":
         ab(args.dir, args.json, args.only, args.rounds)
     else:

@@ -227,11 +227,12 @@ __device__ __forceinline__ void wgmma_m64n128k32_ss_s8(int (&d)[64], uint64_t da
 }
 
 // Register-A wgmma of width N (the head dim of P V: 16 to 128 in steps of
-// 16), one specialization a width: wgmma_rs_s8<N> (s8, B K-major) and
-// wgmma_rs_bf16_vt<N> (bf16, B MN-major). d holds this thread's N / 2
-// accumulators, a the 4 A registers. Inline asm numbers its operands, so the
-// macros below spell out each width's list: the accumulators %0 .. %(N/2 -
-// 1), then a, the B descriptor and scale-d.
+// 16; wgmma_rs_bf16_vt also 160, 192, 224 and 256), one specialization a
+// width: wgmma_rs_s8<N> (s8, B K-major) and wgmma_rs_bf16_vt<N> (bf16, B
+// MN-major). d holds this thread's N / 2 accumulators, a the 4 A registers.
+// Inline asm numbers its operands, so the macros below spell out each
+// width's list: the accumulators %0 .. %(N/2 - 1), then a, the B descriptor
+// and scale-d.
 template <int N>
 __device__ void wgmma_rs_s8(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t db, int scale_d);
 template <int N>
@@ -253,6 +254,10 @@ __device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_
 #define HOPPER_D8x6(C) HOPPER_D8x5(C), HOPPER_D8(C, 40)
 #define HOPPER_D8x7(C) HOPPER_D8x6(C), HOPPER_D8(C, 48)
 #define HOPPER_D8x8(C) HOPPER_D8x7(C), HOPPER_D8(C, 56)
+#define HOPPER_D8x10(C) HOPPER_D8x8(C), HOPPER_D8(C, 64), HOPPER_D8(C, 72)
+#define HOPPER_D8x12(C) HOPPER_D8x10(C), HOPPER_D8(C, 80), HOPPER_D8(C, 88)
+#define HOPPER_D8x14(C) HOPPER_D8x12(C), HOPPER_D8(C, 96), HOPPER_D8(C, 104)
+#define HOPPER_D8x16(C) HOPPER_D8x14(C), HOPPER_D8(C, 112), HOPPER_D8(C, 120)
 #define HOPPER_S8x1 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define HOPPER_S8x2 HOPPER_S8x1 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define HOPPER_S8x3 HOPPER_S8x2 ", %16, %17, %18, %19, %20, %21, %22, %23"
@@ -261,6 +266,14 @@ __device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_
 #define HOPPER_S8x6 HOPPER_S8x5 ", %40, %41, %42, %43, %44, %45, %46, %47"
 #define HOPPER_S8x7 HOPPER_S8x6 ", %48, %49, %50, %51, %52, %53, %54, %55"
 #define HOPPER_S8x8 HOPPER_S8x7 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define HOPPER_S8x10 HOPPER_S8x8 ", %64, %65, %66, %67, %68, %69, %70, %71" \
+    ", %72, %73, %74, %75, %76, %77, %78, %79"
+#define HOPPER_S8x12 HOPPER_S8x10 ", %80, %81, %82, %83, %84, %85, %86, %87" \
+    ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define HOPPER_S8x14 HOPPER_S8x12 ", %96, %97, %98, %99, %100, %101, %102, %103" \
+    ", %104, %105, %106, %107, %108, %109, %110, %111"
+#define HOPPER_S8x16 HOPPER_S8x14 ", %112, %113, %114, %115, %116, %117, %118, %119" \
+    ", %120, %121, %122, %123, %124, %125, %126, %127"
 // X(N, accumulator list, its operand string, "{a}, desc", "scale-d")
 #define HOPPER_RS_WIDTHS(X)                                                 \
   X(16, HOPPER_D8x1, HOPPER_S8x1, "{%8, %9, %10, %11}, %12", "%13")        \
@@ -271,6 +284,12 @@ __device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_
   X(96, HOPPER_D8x6, HOPPER_S8x6, "{%48, %49, %50, %51}, %52", "%53")      \
   X(112, HOPPER_D8x7, HOPPER_S8x7, "{%56, %57, %58, %59}, %60", "%61")      \
   X(128, HOPPER_D8x8, HOPPER_S8x8, "{%64, %65, %66, %67}, %68", "%69")
+// the widths above 128 (P V of K4 bf16 at head dims 160 to 256)
+#define HOPPER_RS_WIDE_WIDTHS(X)                                            \
+  X(160, HOPPER_D8x10, HOPPER_S8x10, "{%80, %81, %82, %83}, %84", "%85")    \
+  X(192, HOPPER_D8x12, HOPPER_S8x12, "{%96, %97, %98, %99}, %100", "%101")  \
+  X(224, HOPPER_D8x14, HOPPER_S8x14, "{%112, %113, %114, %115}, %116", "%117") \
+  X(256, HOPPER_D8x16, HOPPER_S8x16, "{%128, %129, %130, %131}, %132", "%133")
 #define HOPPER_RS(NAME, T, C, N, INSTR, TAIL, D, S, AB, P)                   \
   template <>                                                               \
   __device__ __forceinline__ void NAME<N>(T(&d)[N / 2], const uint32_t(&a)[4], \
@@ -293,15 +312,18 @@ __device__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_
 HOPPER_RS_WIDTHS(HOPPER_RS_S8)
 HOPPER_RS_WIDTHS(HOPPER_RS_BF16_VT)
 HOPPER_RS_WIDTHS(HOPPER_RS_TF32)
+HOPPER_RS_WIDE_WIDTHS(HOPPER_RS_BF16_VT)
 
 // Shared-memory A and B of width N (16 to 128 in steps of 16), both
-// K-major: wgmma_ss_tf32<N> (one k step of 8 tf32) and wgmma_ss_s8<N> (32
-// int8). The same operand lists as above, the A and B descriptors in place
-// of a.
+// K-major: wgmma_ss_tf32<N> (one k step of 8 tf32), wgmma_ss_s8<N> (32
+// int8) and wgmma_ss_bf16<N> (16 bf16). The same operand lists as above,
+// the A and B descriptors in place of a.
 template <int N>
 __device__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
 template <int N>
 __device__ void wgmma_ss_s8(int (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
+template <int N>
+__device__ void wgmma_ss_bf16(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
 #define HOPPER_SS_WIDTHS(X)                                                 \
   X(16, HOPPER_D8x1, HOPPER_S8x1, "%8, %9", "%10")                          \
   X(32, HOPPER_D8x2, HOPPER_S8x2, "%16, %17", "%18")                        \
@@ -326,8 +348,13 @@ __device__ void wgmma_ss_s8(int (&d)[N / 2], uint64_t da, uint64_t db, int scale
 #define HOPPER_SS_S8(N, D, S, AB, P)                                        \
   HOPPER_SS(wgmma_ss_s8, int, HOPPER_R, N,                                  \
             "wgmma.mma_async.sync.aligned.m64n" #N "k32.s32.s8.s8", "", D, S, AB, P)
+#define HOPPER_SS_BF16(N, D, S, AB, P)                                      \
+  HOPPER_SS(wgmma_ss_bf16, float, HOPPER_F, N,                              \
+            "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16", ", 1, 1, 0, 0", D, S, \
+            AB, P)
 HOPPER_SS_WIDTHS(HOPPER_SS_TF32)
 HOPPER_SS_WIDTHS(HOPPER_SS_S8)
+HOPPER_SS_WIDTHS(HOPPER_SS_BF16)
 
 // ---- mbarriers ----
 

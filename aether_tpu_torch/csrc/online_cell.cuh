@@ -1,7 +1,8 @@
 // The online-softmax attention cell on wgmma with TMA, written by hand for
 // Hopper (sm_90a): one kernel template over the head dim D and compile-time
 // switches, shared by K4 in bf16 (flash_online_bf16.cu, D 16 to 128 in
-// steps of 16) and the tuning variants K7-K9 (flash_variants.cu, D 64).
+// steps of 16 and 160 to 256 in steps of 32) and the tuning variants K7-K9
+// (flash_variants.cu, D 64).
 // Non-causal, bf16 q/k/v and output:
 //   q   = bf16(q * qscale)                      (here, in shared memory)
 //   s   = q . k^T                               (f32 sums of bf16 products)
@@ -34,11 +35,11 @@
 //
 // The design (FlashAttention-3's shape): a CTA takes 64 x kWG q rows, kWG
 // consumer warpgroups of 64 rows and a producer. The producer keeps K and V
-// tiles of 128 kv rows in a ring of kStages shared-memory slots by TMA
+// tiles of kBN kv rows in a ring of kStages shared-memory slots by TMA
 // (mbarriers); rows past the tensors' ends arrive as zeros, so no wrapper
 // pads (padfix's pad keys are that zero fill and score exactly 0, as
 // zero-padded keys do), and stores past sq are dropped. S = Q K^T is D / 16
-// k steps of wgmma m64n128k16 from shared memory; the softmax runs on the
+// k steps of wgmma m64n<kBN>k16 from shared memory; the softmax runs on the
 // f32 accumulator fragment in registers; bf16(p) becomes the A operand of P
 // V (wgmma m64nDk16) in registers, V the B operand through wgmma's transpose
 // bit. A tile's P V stays in flight while the next tile's Q K^T is issued.
@@ -53,15 +54,24 @@
 //     168 that 9 warps leave a thread. So kWG is 2 there and the producer is
 //     a whole warpgroup that gives its registers to the consumers
 //     (setmaxnreg: 24 for it, 240 a consumer thread; flash_pv8.cu's plan);
+//   * kBN, the kv rows of a tile, is 128 up to D 128. Above, a consumer
+//     thread would hold D / 2 f32 of the output, 64 of S and 32 packed
+//     bf16(p): 224 registers at D 256 before addresses, of its 240; so kBN
+//     is 64 there (FlashAttention-3 narrows its kv tile at 256 too): D / 2
+//     + 32 + 16 + 4, 132 at 160 to 180 at 256. P V stays one wgmma
+//     m64nDk16 chain (N <= 256);
 //   * q and k rows are 2 D bytes rounded up to a swizzle row (32, 64 or
 //     128 bytes; TMA fills the columns past D with zeros), in 128-byte
-//     panels above 128 (D 80-128: two panels). V is MN-major in panels of
-//     the widest swizzle row whose columns divide D (64 columns at 64 and
-//     128, 32 at 32 and 96, 16 at 16, 48, 80 and 112), so no wgmma reads a
-//     panel in part;
-//   * kStages is 4 where 4 fit in the 227 KB a block may take, else 3 (D
-//     80-128: q 32 KB + 3 x (32 KB K + 20-32 KB V); 3 at D 64, its timed
-//     plan).
+//     panels above 128 (D 80-128: two panels; 160-192 three, 224-256
+//     four). V is MN-major in panels of the widest swizzle row whose
+//     columns divide D (64 columns at 64, 128, 192 and 256, 32 at 32, 96,
+//     160 and 224, 16 at 16, 48, 80 and 112), so no wgmma reads a panel in
+//     part;
+//   * kStages is as many K + V slots as fit beside q in the 227 KB a block
+//     may take, at most 4 (3 at D 64, its timed plan): 4 at 16-48, and at
+//     160 (q 48 KB + 4 x (24 KB K + 20 KB V)); 3 at 80-128 (q 32 KB + 3 x
+//     (32 KB K + 20-32 KB V)) and at 192 (q 48 KB + 3 x (24 + 24 KB)); 2 at
+//     224 and 256 (q 64 KB + 2 x (32 KB K + 28-32 KB V)).
 // Built without --use_fast_math so exp2f, expf (alpha, the padfix term) and
 // the division stay accurate.
 
@@ -81,7 +91,6 @@ namespace online_cell {
 
 using namespace hopper;
 
-constexpr int kBN = 128;                    // kv rows per tile
 constexpr float kNegInf = -0.7f * 3.40282347e38f;  // the TPU kernels' mask
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -91,7 +100,8 @@ enum Mask { kMaskAll = 0, kMaskTail = 1, kMaskPadfix = 2 };
 // The tile plan of head dim D (the note above); kQBufs q buffers (kHeads: 2)
 template <int D, int kQBufs = 1>
 struct Plan {
-  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head_dim: 16 to 128 in steps of 16");
+  static_assert(D % 16 == 0 && D >= 16 && D <= 256, "head_dim: 16 to 256 in steps of 16");
+  static constexpr int kBN = D <= 128 ? 128 : 64;   // kv rows a tile
   static constexpr int kWG = D <= 64 ? 3 : 2;       // consumer warpgroups, 64 q rows each
   static constexpr int kBM = 64 * kWG;              // q rows per CTA
   static constexpr int kConsumers = 128 * kWG;
@@ -113,10 +123,11 @@ struct Plan {
   static constexpr int kQTile = kBM * kRow * kPanels;  // bytes
   static constexpr int kKTile = kBN * kRow * kPanels;
   static constexpr int kVTile = kBN * 2 * D;
-  // 4 stages where they fit beside q, the barriers and the 1024-byte
-  // alignment, in the 227 KB a block may take; else 3; 3 at D 64 (above)
-  static constexpr int kStages =
-      D != 64 && kQBufs * kQTile + 4 * (kKTile + kVTile) + 2 * 1024 <= 232448 ? 4 : 3;
+  // as many stages as fit beside q, the barriers and the 1024-byte alignment
+  // in the 227 KB a block may take, at most 4; 3 at D 64 (above)
+  static constexpr int kFit = (232448 - 2 * 1024 - kQBufs * kQTile) / (kKTile + kVTile);
+  static constexpr int kStages = D == 64 ? 3 : kFit < 4 ? kFit : 4;
+  static_assert(kStages >= 2, "two ring stages must fit");
 };
 
 template <int D, int kQBufs>
@@ -185,7 +196,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   static_assert(D == 64 || (!kKt && !kHeads), "K^T and the heads walk: head_dim 64 only");
   constexpr int kQBufs = kHeads ? 2 : 1;
   using P = Plan<D, kQBufs>;
-  constexpr int kBM = P::kBM, kConsumers = P::kConsumers, kRow = P::kRow;
+  constexpr int kBM = P::kBM, kBN = P::kBN, kConsumers = P::kConsumers, kRow = P::kRow;
   extern __shared__ uint8_t smem_raw[];
   Smem<D, kQBufs>& sm = *reinterpret_cast<Smem<D, kQBufs>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -287,14 +298,18 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       const uint64_t vdesc =
           make_desc(sm.v[s], kBN * P::kVRow, 8 * P::kVRow, desc_swizzle(P::kVRow));
 
-      float acc[64];
+      float acc[kBN / 2];
       wgmma_fence();
 #pragma unroll
       for (int st = 0; st < P::kSteps; ++st) {
         const int panel = 32 * st / kRow, col = 32 * st % kRow;
-        wgmma_m64n128k16_ss_bf16<kKt ? 1 : 0>(
-            acc, desc_add(qdesc, panel * kBM * kRow + col),
-            desc_add(kdesc, kKt ? 2048 * st : panel * kBN * kRow + col), st > 0);
+        if constexpr (kBN == 128)
+          wgmma_m64n128k16_ss_bf16<kKt ? 1 : 0>(
+              acc, desc_add(qdesc, panel * kBM * kRow + col),
+              desc_add(kdesc, kKt ? 2048 * st : panel * kBN * kRow + col), st > 0);
+        else
+          wgmma_ss_bf16<kBN>(acc, desc_add(qdesc, panel * kBM * kRow + col),
+                             desc_add(kdesc, panel * kBN * kRow + col), st > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -306,12 +321,12 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       const int kv0 = it * kBN;
       if (kMask == kMaskAll || kv0 + kBN > prm.kv_end) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i)
+        for (int i = 0; i < kBN / 2; ++i)
           if (kv0 + 8 * (i / 4) + 2 * c + (i % 2) >= prm.kv_end) acc[i] = kNegInf;
       }
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
         mx0 = fmaxf(mx0, fmaxf(acc[4 * j], acc[4 * j + 1]));
         mx1 = fmaxf(mx1, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
       }
@@ -334,7 +349,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       // p, its bf16 rounding packed into pa, and the row sums
       float sum0 = 0.0f, sum1 = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kBN / 8; ++j) {
         float p0, p1, p2, p3;
         if (kExp2) {
           p0 = exp2_ftz(__fsub_rn(acc[4 * j], mn0));
@@ -413,8 +428,8 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 }
 
 // The q map of a [BH, sq, D] bf16 tensor in kBM-row boxes of one panel row;
-// a K map of [BH, rows, D] in 128-row boxes of one panel row; a V map of
-// [BH, rows, D] in 128-row boxes of kVCols columns; a K^T map of [BH, 64,
+// a K map of [BH, rows, D] in kBN-row boxes of one panel row; a V map of
+// [BH, rows, D] in kBN-row boxes of kVCols columns; a K^T map of [BH, 64,
 // k_row] in 64 x 64 boxes (D 64). Each returns false where
 // cuTensorMapEncodeTiled refuses it.
 template <int D>
@@ -427,13 +442,13 @@ template <int D>
 bool k_map(CUtensorMap* map, const void* k, int BH, int rows) {
   using P = Plan<D>;
   return make_map_3d(map, k, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, rows, BH, P::kRow / 2,
-                     kBN, map_swizzle(P::kRow));
+                     P::kBN, map_swizzle(P::kRow));
 }
 template <int D>
 bool v_map(CUtensorMap* map, const void* v, int BH, int rows) {
   using P = Plan<D>;
-  return make_map_3d(map, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, rows, BH, P::kVCols, kBN,
-                     map_swizzle(P::kVRow));
+  return make_map_3d(map, v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, rows, BH, P::kVCols,
+                     P::kBN, map_swizzle(P::kVRow));
 }
 inline bool kt_map(CUtensorMap* map, const void* kt, int BH, int k_row) {
   return make_map_3d(map, kt, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k_row, 64, BH, 64, 64,

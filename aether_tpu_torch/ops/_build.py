@@ -79,14 +79,14 @@ SIGNATURES = {
         _P, _P,              # vt_hi, vt_lo: f32 [B*H, D, skv rounded up to 8], kv-permuted
         _P,                  # out: f32 [B*H, sq, D]
         _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
-        _I,                  # D (16 to 128 in steps of 16)
+        _I,                  # D (16 to 128 in steps of 16, 160 to 256 in steps of 32)
         _P,                  # stream
     ],
     "aether_flash_online_bf16": [
         _P, _P, _P, _P,      # q (unfolded), k, v, out: bf16 [B*H, sq | skv, D]
         _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
         _I, _F,              # round_l (denom "mxu"), q fold sm_scale * log2e
-        _I,                  # D (16 to 128 in steps of 16)
+        _I,                  # D (16 to 128 in steps of 16, 160 to 256 in steps of 32)
         _P,                  # stream
     ],
     "aether_flash_fixed_max": [

@@ -23,14 +23,15 @@ K6) with one combined dequantization scalar per group, and the ``noshift``
 choice made on the device.
 
 K4, :func:`flash_attention` (``fixed_max=False``) replaces ``_flash_kernel``.
-In bf16 (the attention at ``AETHER_ATTN_FIXED_MAX=0``, at head_dim 128 at the
-defaults, and the bench baseline) ``csrc/flash_online_bf16.cu`` runs at every
-head dim up to 128: the ``wgmma`` + TMA online-softmax cell of
+In bf16 (the attention at ``AETHER_ATTN_FIXED_MAX=0``, at head_dim 128 and
+above at the defaults, and the bench baseline) ``csrc/flash_online_bf16.cu``
+runs at every head dim up to 256: the ``wgmma`` + TMA online-softmax cell of
 ``csrc/online_cell.cuh`` templated over the head dim, its launches counted
 here at 64 and on :func:`flash_attention_hd` at the others. In f32 (the
 forward of the training path) ``csrc/flash_online.cu`` runs at every head dim
-up to 128: the split-TF32 (3xTF32) ``wgmma`` + TMA cell of
-``csrc/tf32x3_cell.cuh``, its launches counted here at 64 and on
+up to 256: the split-TF32 (3xTF32) ``wgmma`` + TMA cell of
+``csrc/tf32x3_cell.cuh`` (above 128 its second tile plan, the head dim split
+over two warpgroups), its launches counted here at 64 and on
 :func:`flash_attention_f32_hd` at the others.
 Both keep the JAX preparation: ``sm_scale * log2e`` folded into q and rounded
 to q's dtype (by the wrapper for f32, in the kernel for bf16) and the
@@ -61,16 +62,18 @@ and 2.8e12 operations per K2 call at 48 heads x 15076 valid tokens and head_dim
 to 128, its launches counted here at 64 and on
 :func:`flash_attention_prepacked_hd` at the others.
 
-Head dims. Every kernel is built at the widths 16 to 128 in steps of 16. A head dim between two widths runs the instance of the next
-width up (:func:`head_dim_width`) on operands with zero columns up to it:
+Head dims. Every kernel is built at the widths 16 to 128 in steps of 16, K4
+also at 160 to 256 in steps of 32. A head dim between two widths runs the
+instance of the next width up (:func:`head_dim_width`) on operands with zero
+columns up to it:
 the wrappers pad q, k and v (one copy; K3 and K6 quantize straight into the
 wider codes; K2 reads ``qkv_prologue``'s outputs, which the prologue writes
 that wide, in place), the kernel's output keeps its first D columns, and
 ``sm_scale`` and every fold come from the true D. Zero columns change no
 score, no norm, no group maximum and no sum, so the result is the function
 at D. K3 and K6 take every head dim below 128 (the JAX wrapper turns the
-fixed max off at 128 and above), K2 and K4 every one up to 128; K4 above 128
-raises ``NotImplementedError`` naming ROADMAP Queue 2.
+fixed max off at 128 and above), K2 every one up to 128 and K4 every one up
+to 256; above, each raises ``NotImplementedError`` naming ROADMAP Queue 2.
 
 K2's math (log2 domain, non-causal, one fixed shift per head group):
 
@@ -124,14 +127,16 @@ def _heads_per_cell(bh: int, heads_per_cell: int) -> int:
 
 _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
 # the largest head dim K3 and K6 take on CUDA (the JAX wrapper turns the
-# fixed max off at 128 and above), and K2 and K4
-FIXED_MAX_TOP, ONLINE_TOP = 127, 128
+# fixed max off at 128 and above), K2, and K4
+FIXED_MAX_TOP, PREPACKED_TOP, ONLINE_TOP = 127, 128, 256
 
 
 def head_dim_width(head_dim: int) -> int:
-    """The width of the kernel instance that runs ``head_dim``: the head dim
-    itself at a multiple of 16, else the next one up."""
-    return -(-head_dim // 16) * 16
+    """The width of the kernel instance that runs ``head_dim``: up to 128 the
+    head dim itself at a multiple of 16, else the next one up; above 128 the
+    next multiple of 32 (160, 192, 224 or 256 for K4)."""
+    step = 16 if head_dim <= 128 else 32
+    return -(-head_dim // step) * step
 
 
 def _check_head_dim(kernel: str, head_dim: int, top: int) -> int:
@@ -287,7 +292,7 @@ def flash_attention_prepacked(
     if q.dtype not in (torch.int8, torch.bfloat16) or k.dtype != q.dtype:
         raise TypeError(f"K2 takes int8 or bf16 q/k of one dtype on CUDA, got "
                         f"{q.dtype}/{k.dtype}")
-    width = _check_head_dim("K2", d, ONLINE_TOP)
+    width = _check_head_dim("K2", d, PREPACKED_TOP)
     if v.dtype != torch.bfloat16:
         raise TypeError(f"K2 takes bf16 v, got {v.dtype}")
     for name, t in (("k", k), ("v", v)):
@@ -415,7 +420,7 @@ def _online_bf16_launch(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float
     on prepared operands: q [BH, Sq, D] (not yet folded; the kernel rounds
     bf16(q * fold)), k/v [BH, Skv, D] with rows >= kv_len zeroed, out [BH,
     Sq, D]; all bf16, contiguous and 16-byte aligned, D a width (16 to
-    128 in steps of 16)."""
+    128 in steps of 16, 160 to 256 in steps of 32)."""
     bh, sq, dim = qh.shape
     rc = _build.lib().aether_flash_online_bf16(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
@@ -502,10 +507,10 @@ def _tf32_operands(qh, kh, vh) -> _Tf32Operands:
 
 
 def _online_f32_launch(t: _Tf32Operands, out: torch.Tensor, kv_len: int) -> None:
-    """The K4 f32 kernel (``csrc/flash_online.cu``, any width, 16
-    to 128 in steps of 16) alone, uncounted, on :func:`_tf32_operands` of
-    :func:`_online_operands`' result (q folded, k/v rows >= kv_len zeroed);
-    out [BH, Sq, D] f32."""
+    """The K4 f32 kernel (``csrc/flash_online.cu``, any width, 16 to 128 in
+    steps of 16 and 160 to 256 in steps of 32) alone, uncounted, on
+    :func:`_tf32_operands` of :func:`_online_operands`' result (q folded, k/v
+    rows >= kv_len zeroed); out [BH, Sq, D] f32."""
     bh, sq, dim = t.q_hi.shape
     rc = _build.lib().aether_flash_online(
         *(x.data_ptr() for x in t), out.data_ptr(), bh, sq, t.k_hi.shape[1], kv_len, dim,
@@ -1130,14 +1135,15 @@ def flash_attention(
 
     A CPU tensor runs the plain versions. A CUDA tensor launches a Hopper
     kernel or raises; there is no fallback: K4 in bf16 launches
-    ``csrc/flash_online_bf16.cu`` at every head dim up to 128, in f32
+    ``csrc/flash_online_bf16.cu`` at every head dim up to 256, in f32
     ``csrc/flash_online.cu`` (the 3xTF32 cell) at every one of them too, on
     :func:`_tf32_operands` (``flash_attention.launches`` counts either at
     64); at the other head dims the launches count on
     :func:`flash_attention_hd` (bf16) or :func:`flash_attention_f32_hd` (f32).
     Both take :func:`_online_kernel_operands`: a head dim between two widths
     runs the next width's instance on zero-padded q, k and v, the fold and
-    the denominator of the true head dim.
+    the denominator of the true head dim. Above 256 K4 raises
+    ``NotImplementedError`` naming ROADMAP Queue 2 and launches nothing.
     """
     if qk_int8 and not fixed_max:
         raise ValueError("qk_int8 requires fixed_max=True (the int8 "

@@ -34,7 +34,8 @@ Phases (each prints its result; any failure raises and exits non-zero):
      and gradients against autograd through ``attention_reference``;
   9. the fine-tuning path: a ``Trainer`` on the AetherV1 width at 16 blocks
      (f32 state does not fit 42 on one card), remat, ``flash_train``
-     attention, three steps on the batches ``latent_batches`` yields at its
+     attention, two steps (``TRAIN_STEPS``, a cut) on the batches
+     ``latent_batches`` yields at its
      defaults (native prefetch) over phase 21's precomputed 41x480x720
      files; checks finite loss and gradient norm, 2 x 16 K4 launches a
      step, the batch shapes, moved parameters, an EMA apart from them and
@@ -49,15 +50,16 @@ Phases (each prints its result; any failure raises and exits non-zero):
      the CFG shape, and K6 alone on prepared operands;
  11. one prediction request on the phase-5 pipeline (built again from its
      seeds) at ``AETHER_ATTN_FUSED=0``: the task defaults (guidance 3,
-     dynamic CFG) but 10 of the default 50 steps (``FUSED0_STEPS``, a cut
-     to fit phases 24-28 in the time), a seeded image and (41, 6, 60, 90)
-     raymap; checks shapes, finiteness, the RGB range and 42 x 10 K3
+     dynamic CFG) but 5 of the default 50 steps (``FUSED0_STEPS``, a cut
+     to fit phases 24-29 in the time), a seeded image and (41, 6, 60, 90)
+     raymap; checks shapes, finiteness, the RGB range and 42 x 5 K3
      launches with no K1/K2/K6 launch;
  12. two planning requests (image, goal, raymap; same seed) at
      ``AETHER_ATTN_PV8=1``, cut to 5 steps to fit the run's time; checks
      42 x 5 K6 launches each and bit-identical outputs;
  12b. one prediction request at the default attention settings (K1 + K2 at
-     the CFG pair's batch 2), cut to 10 steps; checks 42 x 10
+     the CFG pair's batch 2), cut to 5 steps (``DEFAULT_PREDICTION_STEPS``);
+     checks 42 x 5
      launches of each of K1 and K2, none of K3 or K6, and K5 at its count.
 Phases of the long-video slice, between 4 and 5 and after 6:
  4b. K5 (``groupnorm_moments``) against ``groupnorm_moments_plain`` at the
@@ -345,6 +347,31 @@ Phase of the padded head dims, after 27 (``padded_dims_phase``):
      two launches bit-identical, timed beside
      one SDPA call of the same dtype and shape and the bound at the true head
      dim, each instance's registers and spill from the build's ptxas report.
+Phase of K4 above head_dim 128, after 28 (``wide_dims_phase``):
+ 29. K4 runs every head dim 129-256 on the instances 160, 192, 224 and 256
+     (a head dim between them on the next one's, zero-padded): bf16 on
+     ``online_cell<D>`` with 64-row kv tiles, f32 on ``tf32x3_cell.cuh``'s
+     ``split_kernel<D>`` (64 q rows a CTA, the head dim split over two
+     consumer warpgroups). (d) K4 bf16 and f32 at (1, 48, 15076, D), D 64
+     and 72, on numpy-seeded inputs: the outputs' digests equal commit
+     d21dc60's (the instances up to 128 keep their bits); (c) the tiny
+     trainer's two steps at head_dim 160 and 256 on the card against the CPU
+     (losses within phase 23's rtol 2e-4 / atol 2e-5, exactly 8 K4 f32 hd
+     launches each, finite loss and gradient norm, the parameters moved),
+     and the tiny DiT at 144, 192 and 224 in bf16 and f32 at the defaults
+     against the CPU at the long-video gates, 2 launches of the dtype's K4
+     hd counter and no other attention kernel's; (b) one 41x480x720
+     reconstruction request (4 steps) on the AetherV1 width regrouped as 12
+     heads x 256: exactly 168 K4 bf16 hd launches, no K1, K2, K3 or K6
+     launch, K5 at its count, finite outputs of the request's shapes, RGB in
+     [0, 1], its seconds, stage times and peak memory; (a) K4 bf16 and f32
+     at 48 heads x 15076 tokens and D 144, 160, 192, 200, 224 and 256
+     against their plain versions (bf16 at ``bf16_gates``, f32 at max 3e-6 /
+     mean 1e-7), two launches bit-identical, timed through the wrapper and
+     alone, beside the bound at the true D, the plain version's one call and
+     one SDPA call of the same shape and dtype (its flash or
+     memory-efficient backend; "none" where neither takes it), with each
+     instance's registers and spill.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -374,15 +401,20 @@ import torch
 
 SEQ, TEXT, HEADS, HEAD_DIM = 15076, 226, 48, 64
 FRAMES, HEIGHT, WIDTH, STEPS = 41, 480, 720, 4
-TRAIN_LAYERS, TRAIN_STEPS = 16, 3
+# the fine-tuning steps (phase 9): 3 cut to 2 to fit phase 29 in the run's
+# time (PERF.md §7's first cut)
+TRAIN_LAYERS, TRAIN_STEPS = 16, 2
 PREDICTION_STEPS, PLANNING_STEPS = 50, 10  # the task default; a cut to fit the time
+# the prediction at the default attention settings (phase 12b): 10 steps cut
+# to 5 to fit phase 29 in the run's time (PERF.md §7's second cut)
+DEFAULT_PREDICTION_STEPS = 5
 # the two planning requests at AETHER_ATTN_PV8=1 (phase 12): a depth cut to
 # keep the run inside its time limit (PERF.md §7 named it the next to cut)
 PLANNING_PAIR_STEPS = 5
 # the prediction at AETHER_ATTN_FUSED=0 (phase 11): the task default cut to
-# fit phases 24-28 in the time (PERF.md §7 named it the first to cut; 20
-# steps before phase 28)
-FUSED0_STEPS = 10
+# fit phases 24-29 in the time (20 steps before phase 28, 10 before phase 29;
+# the cut that phase 25's gates left for phase 29, PERF.md §7)
+FUSED0_STEPS = 5
 LONG_FRAMES, STRIDE = 65, 24  # two 41-frame windows, starts 0 and 24
 # H100 SXM at 700 W (NVIDIA's data sheet): memory rate, dense peaks by type
 HBM_BYTES_PER_S = 3.35e12
@@ -653,10 +685,10 @@ def trainable_phase(dev, gen):
 
 
 def train_phase(dev, latent_dir) -> int:
-    """Three steps of the AetherV1-width DiT at 16 blocks on the batches that
-    ``latent_batches`` yields at its defaults (native prefetch, batch 1) over
-    the precompute phase's 41x480x720 files. Returns K4's launches in the
-    run."""
+    """``TRAIN_STEPS`` steps of the AetherV1-width DiT at 16 blocks on the
+    batches that ``latent_batches`` yields at its defaults (native prefetch,
+    batch 1) over the precompute phase's 41x480x720 files. Returns K4's
+    launches in the run."""
     from aether_tpu_torch.config import DiTConfig
     from aether_tpu_torch.ops.flash_attention import flash_attention
     from aether_tpu_torch.train.data import latent_batches
@@ -1601,7 +1633,8 @@ def cfg_phases(cfg, dev):
     """One prediction request through K3 (the task defaults, cut to
     ``FUSED0_STEPS`` steps), two ``PLANNING_PAIR_STEPS``-step planning
     requests through K6, and one prediction request at the default attention
-    settings (K1 + K2 at the CFG pair's batch 2) cut to 10 steps, on the
+    settings (K1 + K2 at the CFG pair's batch 2) cut to
+    ``DEFAULT_PREDICTION_STEPS`` steps, on the
     AetherV1 pipeline. Returns the launches of K3 and K6 in their runs."""
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue
     from aether_tpu_torch.ops.flash_attention import (
@@ -1674,9 +1707,9 @@ def cfg_phases(cfg, dev):
         for n in saved:
             os.environ.pop(n, None)
         _, counts = drive("prediction request at the default attention settings",
-                          task="prediction", num_inference_steps=PLANNING_STEPS)
+                          task="prediction", num_inference_steps=DEFAULT_PREDICTION_STEPS)
         k5 = expected_k5(pipe, FRAMES, images=1)
-        n = n_layers * PLANNING_STEPS
+        n = n_layers * DEFAULT_PREDICTION_STEPS
         check(counts == [n, n, 0, 0, k5],
               f"expected {n} K1 and K2 and {k5} K5 launches, no K3 or K6, at the defaults")
     finally:
@@ -3023,7 +3056,10 @@ def wire_phase(pipe, dev, video, first, k5_per_request, long_clip, long_runs):
 # phase 25: the server over a mesh of two ranks sharing the card
 # ---------------------------------------------------------------------------
 
-SERVE_BLOCKS, SERVE_STEPS = 2, 4  # phase 25: a depth cut; the prediction's steps
+# phase 25: a depth cut; the prediction job's steps. Neither is cut further:
+# at 1 block (c)'s tp poses gate failed, at 2 steps its rgb gate (ROADMAP
+# Queue 3)
+SERVE_BLOCKS, SERVE_STEPS = 2, 4
 
 
 def serve_uploads():
@@ -3270,7 +3306,8 @@ def serve_mesh_phase(dev):
                 diffs.append(f"{field} max {d.max():.3e} mean {d.mean():.3e}"
                              + (" (bit-identical)" if not d.any() else ""))
                 check(d.mean() <= 1e-2 * top and d.max() <= 0.25 * top,
-                      f"phase 25c {mode} {field}: the mesh server and one process disagree")
+                      f"phase 25c {mode} {field}: the mesh server and one process disagree "
+                      f"(max {d.max():.3e}, mean {d.mean():.3e}, max |ref| {top:.3g})")
             log(f"phase 25c {mode} = 2 server against one process "
                 f"({numbers[mode]['one_process_s']:.3f} s there): " + ", ".join(diffs))
     finally:
@@ -3848,6 +3885,23 @@ def hd_kernels_phase(dev, gen):
     return results
 
 
+def tiny_train_run(device, cfg, tcfg, n, init):
+    """``n`` steps of a ``Trainer`` on ``device`` from the state dict
+    ``init`` over the CLI's synthetic batches, (t, eps) drawn on the CPU from
+    seed 27. Returns (the losses, the trainer)."""
+    from aether_tpu_torch.train.trainer import Trainer, synthetic_batches
+
+    gen = torch.Generator()
+    gen.manual_seed(27)
+
+    def noise(shape):
+        t = torch.randint(0, 1000, (shape[0],), generator=gen)
+        return t, torch.randn(shape, generator=gen)
+
+    trainer = Trainer(cfg, tcfg, device=device, init_params=init, noise=noise)
+    return trainer.fit(synthetic_batches(cfg, batch_size=1), steps=n), trainer
+
+
 def tiny_train_phase(dev):
     """Phase 27 (b) and the training half of (d). (b) the trainer CLI's
     documented tiny run (``TRAIN_CLI``: ``DiTConfig.tiny()``, head_dim 16,
@@ -3861,7 +3915,7 @@ def tiny_train_phase(dev):
     ({head_dim: K4 f32 hd launches}, the CLI's seconds)."""
     from aether_tpu_torch.config import DiTConfig
     from aether_tpu_torch.models import init_dit
-    from aether_tpu_torch.train.trainer import TrainConfig, Trainer, synthetic_batches
+    from aether_tpu_torch.train.trainer import TrainConfig
 
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, *TRAIN_CLI], capture_output=True, text=True,
@@ -3873,15 +3927,7 @@ def tiny_train_phase(dev):
     check(proc.returncode == 0, f"phase 27b: the trainer CLI exited {proc.returncode}")
 
     def steps_on(device, cfg, tcfg, n, init):
-        gen = torch.Generator()
-        gen.manual_seed(27)
-
-        def noise(shape):
-            t = torch.randint(0, 1000, (shape[0],), generator=gen)
-            return t, torch.randn(shape, generator=gen)
-
-        trainer = Trainer(cfg, tcfg, device=device, init_params=init, noise=noise)
-        return trainer.fit(synthetic_batches(cfg, batch_size=1), steps=n)
+        return tiny_train_run(device, cfg, tcfg, n, init)[0]
 
     launches = {}
     runs = [(16, 2, TrainConfig(learning_rate=1e-5, total_steps=2, warmup_steps=1,
@@ -4399,6 +4445,263 @@ def padded_dims_phase(dev, gen):
     return launches, kernels, secs
 
 
+# ---------------------------------------------------------------------------
+# phase 29: K4 above head_dim 128
+# ---------------------------------------------------------------------------
+
+# (a) K4 bf16 and f32 at the main path's 48 heads x 15076 tokens at these head
+# dims: the instances 160, 192, 224 and 256, and 144 and 200 on padded operands
+WIDE_DIMS = (144, 160, 192, 200, 224, 256)
+# (b) the AetherV1 width (42 blocks x 3072) regrouped as 12 heads x 256
+WIDE_HEADS, WIDE_HEAD_DIM = 12, 256
+# (c) the tiny trainer at these head dims (K4 f32), and one forward of the
+# tiny DiT in bf16 and in f32 at the defaults (K4 "vpu") at the others whose
+# instances (b) and the trainer do not run (144 runs 160's)
+WIDE_TRAIN_DIMS = (160, 256)
+WIDE_TINY_DIMS = (144, 192, 224)
+# (d) K4's outputs at (1, 48, 15076, D) for D 64 and 72 on numpy-seeded
+# inputs (time_hd_cells.py k4_digests), as commit d21dc60 gave them on the
+# card before the kernels took head dims above 128: the instances up to 128
+# keep their bits
+PARENT_K4_DIGESTS = {"K4 bf16 hd64": "2fb6f20b8a348338", "K4 f32 hd64": "db36e7f3f9c2df4c",
+                     "K4 bf16 hd72": "40b08407952a2c86", "K4 f32 hd72": "d805945c10548dda"}
+
+
+def sdpa_or_none(q, k, v, iters):
+    """The CUDA-event ms of one ``scaled_dot_product_attention`` call on (q,
+    k, v), the mean of ``iters``, through its flash or memory-efficient
+    backend (the library yardstick; the port never calls it), or None where
+    neither takes the shape (the math backend would build 48 x 15076^2
+    scores)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            return cuda_time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v), iters)
+    except RuntimeError as e:
+        reason = str(e).splitlines()[0][:120]
+        log(f"  SDPA at {tuple(q.shape)} {str(q.dtype)[6:]}: none ({reason})")
+        return None
+
+
+def wide_kernels_phase(dev, gen):
+    """Phase 29 (a): K4 bf16 (``online_cell<D>``, 64-row kv tiles) and f32
+    (``tf32x3_cell.cuh``'s ``split_kernel<D>``) at 48 heads x 15076 tokens,
+    batch 1, at each of ``WIDE_DIMS``, through ``flash_attention`` against
+    the plain version: bf16 at ``bf16_gates`` (phase 28's), f32 at
+    ``K4_F32_128_BARS`` (phase 27a's at 128: each tile's P V added on the
+    FMA units); one launch a call on the head-dim counter, two launches
+    bit-identical. CUDA-event ms of 5 calls (f32: 3) through the wrapper and
+    of the kernel alone on the operands the wrapper prepares (padded to the
+    width; f32: split), the plain version's one call, the bound at the true head
+    dim, one SDPA call at the same shape and dtype (flash or
+    memory-efficient backend, or none), the instance's registers and spill.
+    Returns {(name, head_dim): (max abs error, ms, plain ms, bound, SDPA ms
+    or None)}."""
+    from aether_tpu_torch.ops import flash_attention as fa
+
+    results = {}
+    for hd in WIDE_DIMS:
+        width = fa.head_dim_width(hd)
+        for name, dtype, size, counter, kinds, bars, pattern in (
+                ("K4 bf16", torch.bfloat16, 2, "flash_attention_hd", ("bf16", "bf16"), None,
+                 f"online_cell11cell_kernelILi{width}E"),
+                ("K4 f32", torch.float32, 4, "flash_attention_f32_hd", ("tf32x3", "tf32x3"),
+                 K4_F32_128_BARS, f"split_kernelILi{width}E")):
+            shape = (1, HEADS, SEQ, hd)
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+            what = f"phase 29a {name} at head_dim {hd}"
+
+            def kernel(q=q, k=k, v=v):
+                return fa.flash_attention(q, k, v)
+
+            out = counted(kernel, {counter: 1}, what)
+            iters = 5 if dtype == torch.bfloat16 else 3  # an f32 call runs 0.1-0.3 s
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            ref = fa.flash_attention_plain(q, k, v)
+            end.record()
+            torch.cuda.synchronize()
+            plain_ms = start.elapsed_time(end)
+            err = compare(what, out, ref, *(bars or bf16_gates(ref)))
+            del ref
+            check(torch.equal(out, kernel()), f"{what}: two launches differ")
+            ms = cuda_time_ms(kernel, iters)
+            qh, kh, vh, kv_len, fold = fa._online_kernel_operands(q, k, v, None, None)
+            buf = torch.empty((HEADS, SEQ, width), dtype=dtype, device=dev)
+            if dtype == torch.bfloat16:
+                alone_ms = cuda_time_ms(
+                    lambda: fa._online_bf16_launch(qh, kh, vh, buf, kv_len, False, fold), iters)
+            else:
+                split = fa._tf32_operands((qh * fold).to(qh.dtype), kh, vh)
+                alone_ms = cuda_time_ms(lambda: fa._online_f32_launch(split, buf, kv_len), iters)
+                del split
+            torch.cuda.synchronize()
+            check(torch.equal(buf[..., :hd].reshape(shape), out),
+                  f"{what}: the kernel alone differs from its wrapper")
+            del qh, kh, vh, buf, out
+            lib = sdpa_or_none(q, k, v, iters)
+            del q, k, v
+            bnd = bound(4 * size * HEADS * SEQ * hd, attention_ops(1, SEQ, kinds, hd),
+                        attention_exp2(1))
+            log(f"{what} (one launch a call on {counter}) time: kernel {ms:.4f} ms "
+                f"({bnd[0] / ms:.1%} of its {bnd[0]:.4f} ms "
+                f"{bnd[1]} bound at {hd}), alone {alone_ms:.4f} ms ({bnd[0] / alone_ms:.1%}; "
+                f"the wrapper's passes {ms - alone_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
+                f"{str(dtype)[6:]} (1, 48, 15076, {hd}) "
+                + (f"{lib:.4f} ms: {ms / lib:.3f}x" if lib is not None else "none")
+                + f"; the <{width}> instance: {ptxas_of(pattern)}")
+            results[name, hd] = (err, ms, plain_ms, bnd, lib)
+            torch.cuda.empty_cache()
+    return results
+
+
+def wide_request_phase(dev):
+    """Phase 29 (b): one 41x480x720 reconstruction request (4 steps) through
+    ``AetherPipeline.__call__`` on the AetherV1 width regrouped as
+    ``WIDE_HEADS`` heads x ``WIDE_HEAD_DIM`` (42 blocks x 3072, seeded random
+    bf16 weights, phase 6's clip): the DiT's unfused route at head_dim >=
+    128, exactly 42 x 4 K4 bf16 launches on the head-dim counter and no other
+    attention kernel's (K1, K2, K3, K6 none), K5 at its count, outputs of the
+    request's shapes, finite, RGB in [0, 1]. Returns (K4 bf16 hd launches,
+    the request's seconds)."""
+    from aether_tpu_torch.config import PipelineConfig
+    from aether_tpu_torch.ops.groupnorm import groupnorm_moments
+
+    cfg = PipelineConfig.aetherv1()
+    cfg = dataclasses.replace(cfg, dit=dataclasses.replace(
+        cfg.dit, num_heads=WIDE_HEADS, head_dim=WIDE_HEAD_DIM))
+    check(cfg.dit.hidden_size == HEADS * HEAD_DIM, f"hidden size {cfg.dit.hidden_size}")
+    t0 = time.perf_counter()
+    pipe = make_pipeline(cfg, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    video = np.random.default_rng(7).integers(0, 256, (FRAMES, HEIGHT, WIDTH, 3), dtype=np.uint8)
+    n = cfg.dit.num_layers * STEPS
+    k5 = expected_k5(pipe, FRAMES)
+    groupnorm_moments.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = counted(lambda: pipe(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
+                               num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42),
+                  {"flash_attention_hd": n},
+                  f"phase 29b reconstruction request at {WIDE_HEADS} heads x {WIDE_HEAD_DIM}")
+    wall = time.perf_counter() - t0
+    check(groupnorm_moments.launches == k5,
+          f"phase 29b: {groupnorm_moments.launches} K5 launches, not {k5}")
+    stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
+    log(f"phase 29b reconstruction request, AetherV1 width as {WIDE_HEADS} heads x "
+        f"{WIDE_HEAD_DIM} (pipeline built in {build_s:.3f} s): {wall:.3f} s ({stages}); "
+        f"{n} K4 bf16 hd launches, no K1/K2/K3/K6, {k5} K5; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    check_request(res, FRAMES, "phase 29b request")
+    del pipe, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n, wall
+
+
+def wide_tiny_phase(dev):
+    """Phase 29 (c): the tiny trainer (``DiTConfig.tiny()``, 2 blocks,
+    ``flash_train``: K4 f32 hd on the forward) at each of
+    ``WIDE_TRAIN_DIMS``, two steps on the card and on the CPU from one init
+    and one noise stream: losses within phase 23's rtol 2e-4 / atol 2e-5,
+    exactly 2 x 2 x 2 K4 f32 hd launches (blocks x forward and remat's
+    recompute x steps), finite loss and gradient norm, the parameters moved
+    (the first update has lr 0); then one forward of the tiny DiT at each of
+    ``WIDE_TINY_DIMS`` in bf16 and in f32 at the defaults on the card against
+    the CPU at the long-video gates, 2 launches of the dtype's K4 hd counter
+    and no other attention kernel's. Returns {(counter, head_dim):
+    launches}."""
+    from aether_tpu_torch.config import DiTConfig
+    from aether_tpu_torch.models import init_dit
+    from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
+    from aether_tpu_torch.train.trainer import TrainConfig
+
+    launches = {}
+    tcfg = TrainConfig(learning_rate=1e-5, total_steps=2, warmup_steps=1, log_every=1,
+                       attn_impl="flash_train")
+    for hd in WIDE_TRAIN_DIMS:
+        cfg = dataclasses.replace(DiTConfig.tiny(), head_dim=hd)
+        init = init_dit(cfg, dtype=torch.float32, seed=0).state_dict()
+        want, _ = tiny_train_run("cpu", cfg, tcfg, 2, init)
+        per = 2 * cfg.num_layers * 2
+        got, trainer = counted(lambda: tiny_train_run(dev, cfg, tcfg, 2, init),
+                               {"flash_attention_f32_hd": per},
+                               f"phase 29c training at head_dim {hd}")
+        err = close(f"phase 29c training losses at head_dim {hd}", got, want, LOSS_RTOL,
+                    LOSS_ATOL)
+        norm = float(trainer.state.optimizer.grad_norm)
+        moved = sum(int(not torch.equal(p.detach().cpu(), init[n]))
+                    for n, p in trainer.state.model.named_parameters())
+        n_tensors = len(list(trainer.state.model.parameters()))
+        log(f"phase 29c two tiny training steps at head_dim {hd} (K4 f32 hd, vpu): card losses "
+            + ", ".join(f"{x:.6f}" for x in got) + ", CPU " + ", ".join(f"{x:.6f}" for x in want)
+            + f" (max abs diff {err:.3e}); grad norm {norm:.6f}; {per} K4 f32 hd launches; "
+            f"parameters moved in {moved}/{n_tensors} tensors")
+        check(all(np.isfinite(got)) and np.isfinite(norm), "phase 29c: non-finite loss or "
+              "gradient norm")
+        check(moved >= 0.9 * n_tensors, f"phase 29c at head_dim {hd}: parameters did not move")
+        launches["flash_attention_f32_hd", hd] = per
+        del trainer
+    host_gen = torch.Generator()
+    host_gen.manual_seed(29)
+    for hd in WIDE_TINY_DIMS:
+        dcfg = dataclasses.replace(DiTConfig.tiny(), head_dim=hd)
+        h, w = dcfg.sample_height, dcfg.sample_width
+        cos, sin = prepare_rotary_positional_embeddings(dcfg, h * 8, w * 8, 3,
+                                                        vae_scale_factor_spatial=8)
+        hidden = torch.randn((1, 3, dcfg.in_channels, h, w), generator=host_gen)
+        prompt = torch.randn((1, dcfg.max_text_seq_length, dcfg.text_embed_dim),
+                             generator=host_gen)
+        for dtype, counter in ((torch.bfloat16, "flash_attention_hd"),
+                               (torch.float32, "flash_attention_f32_hd")):
+            model = init_dit(dcfg, dtype=dtype, seed=0)
+            args = (hidden.to(dtype), prompt, torch.tensor([500]), torch.from_numpy(cos),
+                    torch.from_numpy(sin))
+            what = f"phase 29c tiny DiT at head_dim {hd}, {str(dtype)[6:]}"
+            with attention_env({}), torch.no_grad():
+                want = model(*args)
+                model.to(dev)
+                got = counted(lambda: model(*(a.to(dev) for a in args)),
+                              {counter: dcfg.num_layers}, what)
+            cross_device_gates(what, got.float().cpu(), want.float())
+            launches[counter, hd] = dcfg.num_layers
+            del model
+    return launches
+
+
+def wide_dims_phase(dev, gen):
+    """Phase 29: (d) the instances up to 128 against the parent's digests,
+    (c) ``wide_tiny_phase``, (b) ``wide_request_phase``, (a)
+    ``wide_kernels_phase``. Returns ({(counter, head_dim): launches on the
+    paths of (b) and (c)}, (a)'s results, seconds by part)."""
+    from aether_tpu_torch.bench.time_hd_cells import k4_digests
+    from aether_tpu_torch.ops import flash_attention as fa
+
+    secs = {}
+    t0 = time.perf_counter()
+    got = k4_digests(fa, dev)
+    log("phase 29d K4 at (1, 48, 15076, D), D 64 and 72, against commit d21dc60: " + ", ".join(
+        f"{n} {d} ({'same' if d == PARENT_K4_DIGESTS[n] else 'DIFFERS'})"
+        for n, d in got.items()))
+    check(got == PARENT_K4_DIGESTS, "phase 29d: an instance up to 128 changed its bits")
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches = wide_tiny_phase(dev)
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n, _ = wide_request_phase(dev)
+    launches["flash_attention_hd", WIDE_HEAD_DIM] = n
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels = wide_kernels_phase(dev, gen)
+    secs["a"] = time.perf_counter() - t0
+    log("phase 29 seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in secs.items()))
+    return launches, kernels, secs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -4724,6 +5027,15 @@ def main() -> None:
         f"{plain:.4f}" + (f", SDPA {lib:.4f})" if lib is not None else ")")
         for (name, hd), (_, ms, plain, bnd, lib) in hd28_kernels.items()))
 
+    # ---- 29. K4 above head_dim 128 ----
+    t0 = time.perf_counter()
+    with attention_env({}):
+        hd29_launches, hd29_kernels, _ = wide_dims_phase(dev, gen)
+    log(f"phase 29: {time.perf_counter() - t0:.3f} s; (a) " + "; ".join(
+        f"{name} at head_dim {hd}: {ms:.4f} ms (bound {bnd[0]:.4f} {bnd[1]}, plain "
+        f"{plain:.4f}, SDPA " + (f"{lib:.4f})" if lib is not None else "none)")
+        for (name, hd), (_, ms, plain, bnd, lib) in hd29_kernels.items()))
+
     # ---- bounds and library yardsticks ----
     k4_err, k4_ms, k4_plain_ms, _ = k4[torch.float32]
     k4b_err, k4b_ms, k4b_plain_ms, k4b_alone_ms = k4[torch.bfloat16]
@@ -4884,6 +5196,12 @@ def main() -> None:
                "aether_tpu/ops/flash_attention.py:69"),
               ("flash_pv8_hd", "K6", "flash_attention_pv8_hd", "flash_pv8.cu",
                "aether_tpu/ops/flash_attention.py:259"))),
+        *(entry(f"{name}{hd}", source, "aether_tpu/ops/flash_attention.py:69",
+                hd29_launches[counter, hd], *hd29_kernels[kern, hd])
+          for name, kern, counter, source in (
+              ("flash_online_hd", "K4 f32", "flash_attention_f32_hd", "flash_online.cu"),
+              ("flash_online_bf16_hd", "K4 bf16", "flash_attention_hd", "flash_online_bf16.cu"))
+          for hd in WIDE_DIMS if (counter, hd) in hd29_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

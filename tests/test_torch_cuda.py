@@ -42,7 +42,12 @@ bf16, K6) besides: lengths their 128-row tiles do not divide, kv_valid inside
 a tile and on its edge, kv shorter than one ring slot, spans of 128, 256 and
 1024 with one that kv_valid empties, strided inputs, and repeats
 bit-identical. K3, K4 and K6 at head dims below their instance's width (1,
-8, 17, 24, 72, 120, 127; K4 also 128) on zero-padded operands. Also the
+8, 17, 24, 72, 120, 127; K4 also 128) on zero-padded operands. K4 above
+128 (the instances 160, 192, 224 and 256, and 144 and 200 on padded
+operands), bf16 and f32, through the same cases; at every one of the four
+widths the edges of its cells (64-row kv tiles in bf16, 16-row kv tiles and
+64-row q tiles in f32): kv_valid inside a tile, Sq not a multiple of 128,
+kv shorter than one ring slot, one valid column. Also the
 launch-or-raise contract. The card's machine has no
 JAX, so run them without the JAX conftest:
 
@@ -401,11 +406,11 @@ def test_online_kernel_refuses_what_it_does_not_take(dev):
         flash_attention(q.half(), k.half(), v.half(), fixed_max=True)
     with pytest.raises(TypeError):
         flash_attention(q.half(), k.half(), v.half())
-    # K4 takes every head_dim up to 128 on CUDA (24: the instance of 32 on
+    # K4 takes every head_dim up to 256 on CUDA (24: the instance of 32 on
     # zero-padded operands), and raises above it
     q24, k24, v24 = _qkv(dev, (1, 1, 64, 24), (1, 1, 64, 24), torch.float32, seed=24)
     _check_k4(flash_attention(q24, k24, v24), flash_attention_plain(q24, k24, v24))
-    wide = torch.zeros((1, 1, 64, 144), device=dev)
+    wide = torch.zeros((1, 1, 64, 272), device=dev)
     with pytest.raises(NotImplementedError, match="head_dim"):
         flash_attention(wide, wide, wide)
 
@@ -577,15 +582,16 @@ def test_prologue_at_64_is_the_plain_version_bit_for_bit(dev, b, quantize):
         torch.testing.assert_close(got[i], ref[i], rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("hd", [8, 24, 128, 144])
+@pytest.mark.parametrize("hd", [8, 24, 128, 144, 272])
 def test_head_dims_outside_the_range_raise_on_cuda(dev, hd):
     """What a CUDA tensor takes at the edges of the head-dim ranges: at 8 and
     24 (below their instance's width) K1, K2, K3, K4 and K6 run, one launch
     each on its head-dim counter; at 128 K2 and K4 run, and K1, K3 and K6
     called directly raise (the JAX wrapper turns the fixed max off there, so
-    no path reaches them); at 144 everything raises. Each refusal is a
-    ``NotImplementedError`` naming ROADMAP Queue 2 that launches nothing
-    (the plain versions take every head dim on the CPU)."""
+    no path reaches them); at 144 K4 and K4 f32 run (the instance of 160 on
+    padded operands) and K1, K2, K3 and K6 raise; at 272 everything raises.
+    Each refusal is a ``NotImplementedError`` naming ROADMAP Queue 2 that
+    launches nothing (the plain versions take every head dim on the CPU)."""
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue_hd
     from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked_hd
 
@@ -598,7 +604,8 @@ def test_head_dims_outside_the_range_raise_on_cuda(dev, hd):
 
     def expect(call, name):
         before = counts()
-        if runs or (hd == 128 and name in ("K2", "K4", "K4 f32")):
+        if (runs or (hd == 128 and name in ("K2", "K4", "K4 f32"))
+                or (128 < hd <= 256 and name in ("K4", "K4 f32"))):
             call()
             torch.cuda.synchronize()
             want = dict(before, **{name: before[name] + 1})
@@ -824,6 +831,8 @@ _64_COUNTED = (flash_attention, flash_attention_fixed_max, flash_attention_pv8)
 OTHER_DIMS = [16, 32, 48, 80, 96, 112]
 # head dims below their instance's width (1-127; zero-padded operands)
 PADDED_DIMS = [1, 8, 17, 24, 72, 120, 127]
+# K4 above 128: the instances 160, 192, 224 and 256, and 144 and 200 padded
+WIDE_DIMS = [144, 160, 192, 200, 224, 256]
 
 
 def _counts(fns):
@@ -928,10 +937,10 @@ def test_fixed_max_f32_kernel_matches_plain(dev, hd, b, h, sq, skv, kv_valid, qk
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("denom", ["mxu", "vpu"])
 @pytest.mark.parametrize("b,h,sq,skv,kv_valid", HD_ATTN_CASES)
-@pytest.mark.parametrize("hd", [16, 32, 48, 80, 96, 112, 128] + PADDED_DIMS)
+@pytest.mark.parametrize("hd", [16, 32, 48, 80, 96, 112, 128] + PADDED_DIMS + WIDE_DIMS)
 def test_online_hd_kernels_match_plain(dev, hd, b, h, sq, skv, kv_valid, denom, dtype):
-    """K4 at the other head dims (128: "vpu" whatever is asked, as the JAX
-    wrapper) against its plain version at K4's gates; one launch of the
+    """K4 at the other head dims (128 and above: "vpu" whatever is asked, as
+    the JAX wrapper) against its plain version at K4's gates; one launch of the
     head-dim kernel of the dtype a call, none of the head_dim-64 ones; two
     launches bit-identical."""
     q, k, v = _qkv(dev, (b, h, sq, hd), (b, h, skv, hd), dtype, seed=hd + sq + 1)
@@ -964,7 +973,7 @@ def test_online_f32_at_128_keeps_pv_off_the_tensor_core_accumulator(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 112, 128, 17, 120])
+@pytest.mark.parametrize("hd", [16, 112, 128, 17, 120, 160, 200, 256])
 def test_online_hd_kernels_extreme_negative_scores_on_strided_inputs(dev, hd, dtype):
     """Deeply negative scores behind a ragged last tile, on the DiT's
     transposed (non-contiguous) head layout: the masked columns do not take
@@ -976,6 +985,40 @@ def test_online_hd_kernels_extreme_negative_scores_on_strided_inputs(dev, hd, dt
     out = flash_attention(q, k, v)
     _check_k4(out, flash_attention_plain(q, k, v))
     _check_k4(out, attention_reference(q, k, v))
+
+
+# the edges of K4's cells above 128 (bf16: 128-row q tiles, 64-row kv tiles
+# in a ring of 4 to 2 slots; f32: 64-row q tiles, 16-row kv tiles):
+# (batch, heads, q tokens, kv tokens, kv_valid)
+K4_WIDE_CASES = [
+    (1, 2, 130, 333, 300),     # Sq not a multiple of 128; kv_valid inside a tile
+    (1, 3, 333, 2100, 1900),   # many tiles, the ring wrapping; kv_valid inside one
+    (1, 2, 333, 2100, 1024),   # kv_valid on a tile edge, the tiles past it skipped
+    (2, 3, 200, 50, None),     # kv shorter than one bf16 tile (and the ring)
+    (1, 2, 77, 10, None),      # kv shorter than one f32 tile
+    (1, 1, 64, 1000, 1),       # one valid column
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid", K4_WIDE_CASES)
+@pytest.mark.parametrize("hd", [160, 192, 224, 256])
+def test_online_wide_kernels_tiles(dev, hd, b, h, sq, skv, kv_valid, dtype):
+    """K4 at the widths above 128 ("vpu") on the edges of their tiles
+    against the plain version at K4's gates: one launch of the head-dim
+    kernel of the dtype a call, none of the head_dim-64 ones, two launches
+    bit-identical."""
+    q, k, v = _qkv(dev, (b, h, sq, hd), (b, h, skv, hd), dtype, seed=hd + sq + skv + 3)
+    counter = flash_attention_hd if dtype == torch.bfloat16 else flash_attention_f32_hd
+    before, before64 = counter.launches, _counts(_64_COUNTED)
+    out = flash_attention(q, k, v, kv_valid=kv_valid)
+    again = flash_attention(q, k, v, kv_valid=kv_valid)
+    ref = flash_attention_plain(q, k, v, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert _counts(_64_COUNTED) == before64
+    assert torch.equal(out, again)
+    _check_k4(out, ref)
 
 
 # (batch, heads, q tokens, kv tokens, kv_valid, block_k, dtype)

@@ -1,11 +1,13 @@
-"""The DiT's attention route at head_dim 24, 64, 72, 112, 120 and 128 against
-JAX (CPU).
+"""The DiT's attention route at head_dim 24, 64, 72, 112, 120, 128, 160 and 256
+against JAX (CPU).
 
 The JAX ``dit_forward`` takes the fused K1 + K2 path only at an even
-head_dim below 128 (``aether_tpu/models/dit.py:819-825``); at 128 the
+head_dim below 128 (``aether_tpu/models/dit.py:819-825``); at 128 and above the
 unfused wrapper turns the fixed max off and takes K4 with the "vpu"
-denominator. The port's DiT routes alike: at 128 it calls
-``flash_attention`` and never ``fused_joint_attention``. The tiny config
+denominator. The port's DiT routes alike: at 128 and above it calls
+``flash_attention`` and never ``fused_joint_attention`` (160 and 256: K4 on
+the card's instances above 128; also at ``AETHER_ATTN_FIXED_MAX=0``, the
+same route). The tiny config
 with one head at each head dim, the same JAX parameters on both sides
 (``dit_state_dict_from_jax``), one batch-1 3-frame forward at t = 700 at the
 default attention settings, JAX through the Pallas kernels in interpret mode
@@ -15,10 +17,10 @@ writing q, k and v that wide with zero columns, K2 reading them in place);
 here they take the fused route as JAX does. Tolerance 2e-3 of the output (mean
 magnitude about 0.5): f32 order-of-sum noise through 2 blocks sits near 1e-4
 at 112; the fused path at 128, where JAX runs K4, departed by 0.157.
-The loss and its gradients at head_dim 128, where K4 "vpu" enters the
-training forward (``flash_train``), agree with ``jax.value_and_grad`` as in
-``tests/test_torch_dit_train.py``: the loss to 1e-5 relative, each gradient
-to 1e-4 of its largest magnitude.
+The loss and its gradients at head_dim 128 and 256, where K4 "vpu" enters
+the training forward (``flash_train``), agree with ``jax.value_and_grad`` as
+in ``tests/test_torch_dit_train.py``: the loss to 1e-5 relative, each
+gradient to 1e-4 of its largest magnitude.
 """
 
 import dataclasses
@@ -72,8 +74,20 @@ def _count_calls(monkeypatch, name):
 
 
 @pytest.mark.parametrize("hd,fused", [(64, True), (112, True), (128, False), (24, True),
-                                      (72, True), (120, True)])
+                                      (72, True), (120, True), (160, False), (256, False)])
 def test_default_route_matches_jax_at_head_dim(monkeypatch, hd, fused):
+    _check_route(monkeypatch, hd, fused)
+
+
+@pytest.mark.parametrize("hd", [160, 256])
+def test_fixed_max_off_route_matches_jax_at_wide_head_dim(monkeypatch, hd):
+    """At ``AETHER_ATTN_FIXED_MAX=0`` (both packages read it) the route above
+    128 is the one of the defaults: K4 "vpu" in every block."""
+    monkeypatch.setenv("AETHER_ATTN_FIXED_MAX", "0")
+    _check_route(monkeypatch, hd, False)
+
+
+def _check_route(monkeypatch, hd, fused):
     jcfg, cfg = _configs(hd)
     params = init_dit_params(jax.random.PRNGKey(7), jcfg)
     model = _model(params, cfg)
@@ -98,8 +112,16 @@ def test_default_route_matches_jax_at_head_dim(monkeypatch, hd, fused):
 
 
 def test_loss_and_gradients_at_head_dim_128_match_jax():
-    jcfg, cfg = _configs(128)
-    params = init_dit_params(jax.random.PRNGKey(4), jcfg)
+    _check_loss_and_gradients(128, 4)
+
+
+def test_loss_and_gradients_at_head_dim_256_match_jax():
+    _check_loss_and_gradients(256, 5)
+
+
+def _check_loss_and_gradients(hd, seed):
+    jcfg, cfg = _configs(hd)
+    params = init_dit_params(jax.random.PRNGKey(seed), jcfg)
     model = _model(params, cfg)
     b, f, h, w = 2, 2, jcfg.sample_height, jcfg.sample_width
     rng = np.random.default_rng(9)
