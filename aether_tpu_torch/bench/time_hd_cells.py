@@ -47,7 +47,8 @@ which f32 outputs the two checkouts share bit for bit.
 
 ``digests`` prints (and writes to ``--json``) the digests of K4 bf16 and f32
 through ``flash_attention`` at (1, 48, 15076, D) for D in ``DIGEST_DIMS`` (64,
-and 72 on the padded instance of 80) on inputs drawn with numpy from seed D
+72 on the padded instance of 80, and the instances 160 and 256 above 128) on
+inputs drawn on the card from seed D
 (:func:`k4_digests`), for one checkout (default: this one): the outputs that
 ``chip_smoke.py`` phase 29d holds, bit for bit, to a parent's.
 
@@ -70,7 +71,6 @@ import subprocess
 import sys
 import tempfile
 
-import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -92,22 +92,24 @@ def digest(t: torch.Tensor) -> str:
                           .tobytes()).hexdigest()[:16]
 
 
-DIGEST_DIMS = (64, 72)
+DIGEST_DIMS = (64, 72, 160, 256)
 
 
 def k4_digests(fa, dev) -> dict:
     """{name: digest} of K4 bf16 and f32 through ``fa.flash_attention`` (the
     module of any checkout) at (1, 48, 15076, D), D in ``DIGEST_DIMS``, on q,
-    k and v drawn with numpy from seed D (the same values in both dtypes)."""
+    k and v drawn on the card from seed D (the same values in both dtypes;
+    drawing them with numpy on the host took most of the seconds)."""
     out = {}
     for hd in DIGEST_DIMS:
-        rng = np.random.default_rng(hd)
-        host = [torch.from_numpy(rng.standard_normal((1, H, S, hd), dtype=np.float32))
-                for _ in range(3)]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(hd)
+        drawn = [torch.randn((1, H, S, hd), generator=gen, device=dev) for _ in range(3)]
         for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            q, k, v = (t.to(dev).to(dtype) for t in host)
+            q, k, v = (t.to(dtype) for t in drawn)
             out[f"K4 {tag} hd{hd}"] = digest(fa.flash_attention(q, k, v))
             del q, k, v
+        del drawn
         torch.cuda.empty_cache()
     return out
 

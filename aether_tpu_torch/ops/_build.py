@@ -89,6 +89,21 @@ SIGNATURES = {
         _I,                  # D (16 to 128 in steps of 16, 160 to 256 in steps of 32)
         _P,                  # stream
     ],
+    "aether_flash_online_wide": [
+        _P, _P, _P, _P,      # q_hi, q_lo (folded), k_hi, k_lo: f32 [B*H, sq | skv, dp]
+        _P, _P,              # vt_hi, vt_lo: f32 [B*H, dp, skv rounded up to 8], kv-permuted
+        _P,                  # out: f32 [B*H, sq, dp]
+        _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
+        _I,                  # dp (a multiple of 64: head dims above 256, zero-padded)
+        _P,                  # stream
+    ],
+    "aether_flash_online_wide_bf16": [
+        _P, _P, _P, _P,      # q (unfolded), k, v, out: bf16 [B*H, sq | skv, dp]
+        _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
+        _F,                  # q fold sm_scale * log2e (the "vpu" denominator)
+        _I,                  # dp (a multiple of 64: head dims above 256, zero-padded)
+        _P,                  # stream
+    ],
     "aether_flash_fixed_max": [
         _P, _P, _P,          # q, k (int8 or folded bf16), v (bf16): [B*H, sq | skv, D]
         _P, _P,              # shift, scale (f32, [G])

@@ -26,12 +26,16 @@ K4, :func:`flash_attention` (``fixed_max=False``) replaces ``_flash_kernel``.
 In bf16 (the attention at ``AETHER_ATTN_FIXED_MAX=0``, at head_dim 128 and
 above at the defaults, and the bench baseline) ``csrc/flash_online_bf16.cu``
 runs at every head dim up to 256: the ``wgmma`` + TMA online-softmax cell of
-``csrc/online_cell.cuh`` templated over the head dim, its launches counted
-here at 64 and on :func:`flash_attention_hd` at the others. In f32 (the
-forward of the training path) ``csrc/flash_online.cu`` runs at every head dim
-up to 256: the split-TF32 (3xTF32) ``wgmma`` + TMA cell of
-``csrc/tf32x3_cell.cuh`` (above 128 its second tile plan, the head dim split
-over two warpgroups), its launches counted here at 64 and on
+``csrc/online_cell.cuh`` templated over the head dim; above 256
+``csrc/flash_online_wide_bf16.cu``, one kernel with the head dim read at run
+time (Q and K streamed through shared memory in 64-column panels, the output
+in blocks of 256 columns). Its launches count here at 64 and on
+:func:`flash_attention_hd` at the others. In f32 (the forward of the
+training path) ``csrc/flash_online.cu`` runs at every head dim up to 256: the
+split-TF32 (3xTF32) ``wgmma`` + TMA cell of ``csrc/tf32x3_cell.cuh`` (above
+128 its second tile plan, the head dim split over two warpgroups); above 256
+``csrc/flash_online_wide.cu``, the bf16 wide kernel's plan in 3xTF32 with
+output blocks of 128 columns. Its launches count here at 64 and on
 :func:`flash_attention_f32_hd` at the others.
 Both keep the JAX preparation: ``sm_scale * log2e`` folded into q and rounded
 to q's dtype (by the wrapper for f32, in the kernel for bf16) and the
@@ -63,7 +67,8 @@ to 128, its launches counted here at 64 and on
 :func:`flash_attention_prepacked_hd` at the others.
 
 Head dims. Every kernel is built at the widths 16 to 128 in steps of 16, K4
-also at 160 to 256 in steps of 32. A head dim between two widths runs the
+also at 160 to 256 in steps of 32, and above 256 K4's wide kernels take any
+multiple of 64 as a run-time width. A head dim between two widths runs the
 instance of the next width up (:func:`head_dim_width`) on operands with zero
 columns up to it:
 the wrappers pad q, k and v (one copy; K3 and K6 quantize straight into the
@@ -72,8 +77,9 @@ that wide, in place), the kernel's output keeps its first D columns, and
 ``sm_scale`` and every fold come from the true D. Zero columns change no
 score, no norm, no group maximum and no sum, so the result is the function
 at D. K3 and K6 take every head dim below 128 (the JAX wrapper turns the
-fixed max off at 128 and above), K2 every one up to 128 and K4 every one up
-to 256; above, each raises ``NotImplementedError`` naming ROADMAP Queue 2.
+fixed max off at 128 and above), K2 every one up to 128 (above, it raises
+``NotImplementedError``; the JAX wrapper sends those to K4) and K4 every
+head dim from 1 up, as the JAX wrapper does.
 
 K2's math (log2 domain, non-causal, one fixed shift per head group):
 
@@ -127,25 +133,29 @@ def _heads_per_cell(bh: int, heads_per_cell: int) -> int:
 
 _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
 # the largest head dim K3 and K6 take on CUDA (the JAX wrapper turns the
-# fixed max off at 128 and above), K2, and K4
-FIXED_MAX_TOP, PREPACKED_TOP, ONLINE_TOP = 127, 128, 256
+# fixed max off at 128 and above), and K2 (K4 takes every one)
+FIXED_MAX_TOP, PREPACKED_TOP = 127, 128
+# K4's head dims above this run the wide kernels (the width at run time)
+ONLINE_CELL_TOP = 256
 
 
 def head_dim_width(head_dim: int) -> int:
     """The width of the kernel instance that runs ``head_dim``: up to 128 the
     head dim itself at a multiple of 16, else the next one up; above 128 the
-    next multiple of 32 (160, 192, 224 or 256 for K4)."""
-    step = 16 if head_dim <= 128 else 32
+    next multiple of 32 (160, 192, 224 or 256 for K4); above 256 the next
+    multiple of 64 (K4's wide kernels, which read the width at run time)."""
+    step = 16 if head_dim <= 128 else 32 if head_dim <= ONLINE_CELL_TOP else 64
     return -(-head_dim // step) * step
 
 
-def _check_head_dim(kernel: str, head_dim: int, top: int) -> int:
+def _check_head_dim(kernel: str, head_dim: int, top: Optional[int] = None) -> int:
     """The width of ``head_dim``'s instance (:func:`head_dim_width`);
-    ``NotImplementedError`` naming ROADMAP Queue 2 outside 1 to ``top``."""
-    if not 1 <= head_dim <= top:
+    ``NotImplementedError`` outside 1 to ``top`` (no upper limit where
+    ``top`` is None)."""
+    if head_dim < 1 or (top is not None and head_dim > top):
         raise NotImplementedError(
-            f"{kernel} takes head_dim 1 to {top} on CUDA, got {head_dim} "
-            "(other head dims: ROADMAP.md, Queue 2)")
+            f"{kernel} takes head_dim 1 to {top} on CUDA, got {head_dim} (the JAX "
+            "wrapper sends no other head dim to it)")
     return head_dim_width(head_dim)
 
 
@@ -416,15 +426,27 @@ def _online_kernel_operands(q, k, v, sm_scale, kv_valid):
 
 
 def _online_bf16_launch(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float) -> None:
-    """The K4 bf16 kernel (``csrc/flash_online_bf16.cu``) alone, uncounted,
-    on prepared operands: q [BH, Sq, D] (not yet folded; the kernel rounds
-    bf16(q * fold)), k/v [BH, Skv, D] with rows >= kv_len zeroed, out [BH,
-    Sq, D]; all bf16, contiguous and 16-byte aligned, D a width (16 to
-    128 in steps of 16, 160 to 256 in steps of 32)."""
+    """The K4 bf16 kernel alone, uncounted, on prepared operands: q [BH, Sq,
+    D] (not yet folded; the kernel rounds bf16(q * fold)), k/v [BH, Skv, D]
+    with rows >= kv_len zeroed, out [BH, Sq, D]; all bf16, contiguous and
+    16-byte aligned, D a width: 16 to 128 in steps of 16 and 160 to 256 in
+    steps of 32 (``csrc/flash_online_bf16.cu``), or above 256 any multiple of
+    64 (``csrc/flash_online_wide_bf16.cu``, "vpu" only: ``ValueError`` on
+    ``round_l``)."""
     bh, sq, dim = qh.shape
+    stream = _build.stream_ptr(qh.device)
+    if dim > ONLINE_CELL_TOP:
+        if round_l:
+            raise ValueError("K4 above head_dim 256 takes the 'vpu' denominator only "
+                             "(the JAX wrapper forces it at head_dim >= 128)")
+        rc = _build.lib().aether_flash_online_wide_bf16(
+            qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
+            bh, sq, kh.shape[1], kv_len, fold, dim, stream)
+        _build.check(rc, "aether_flash_online_wide_bf16")
+        return
     rc = _build.lib().aether_flash_online_bf16(
         qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-        bh, sq, kh.shape[1], kv_len, int(round_l), fold, dim, _build.stream_ptr(qh.device))
+        bh, sq, kh.shape[1], kv_len, int(round_l), fold, dim, stream)
     _build.check(rc, "aether_flash_online_bf16")
 
 
@@ -507,15 +529,17 @@ def _tf32_operands(qh, kh, vh) -> _Tf32Operands:
 
 
 def _online_f32_launch(t: _Tf32Operands, out: torch.Tensor, kv_len: int) -> None:
-    """The K4 f32 kernel (``csrc/flash_online.cu``, any width, 16 to 128 in
-    steps of 16 and 160 to 256 in steps of 32) alone, uncounted, on
-    :func:`_tf32_operands` of :func:`_online_operands`' result (q folded, k/v
-    rows >= kv_len zeroed); out [BH, Sq, D] f32."""
+    """The K4 f32 kernel alone, uncounted, on :func:`_tf32_operands` of
+    :func:`_online_operands`' result (q folded, k/v rows >= kv_len zeroed);
+    out [BH, Sq, D] f32, D a width: 16 to 128 in steps of 16 and 160 to 256
+    in steps of 32 (``csrc/flash_online.cu``), or above 256 any multiple of
+    64 (``csrc/flash_online_wide.cu``)."""
     bh, sq, dim = t.q_hi.shape
-    rc = _build.lib().aether_flash_online(
+    name = "aether_flash_online_wide" if dim > ONLINE_CELL_TOP else "aether_flash_online"
+    rc = getattr(_build.lib(), name)(
         *(x.data_ptr() for x in t), out.data_ptr(), bh, sq, t.k_hi.shape[1], kv_len, dim,
         _build.stream_ptr(out.device))
-    _build.check(rc, "aether_flash_online")
+    _build.check(rc, name)
 
 
 def flash_attention_f32_hd(t: _Tf32Operands, out: torch.Tensor, kv_len: int) -> None:
@@ -1135,15 +1159,16 @@ def flash_attention(
 
     A CPU tensor runs the plain versions. A CUDA tensor launches a Hopper
     kernel or raises; there is no fallback: K4 in bf16 launches
-    ``csrc/flash_online_bf16.cu`` at every head dim up to 256, in f32
-    ``csrc/flash_online.cu`` (the 3xTF32 cell) at every one of them too, on
+    ``csrc/flash_online_bf16.cu`` at every head dim up to 256 and
+    ``csrc/flash_online_wide_bf16.cu`` above, in f32 ``csrc/flash_online.cu``
+    (the 3xTF32 cell) up to 256 and ``csrc/flash_online_wide.cu`` above, on
     :func:`_tf32_operands` (``flash_attention.launches`` counts either at
     64); at the other head dims the launches count on
     :func:`flash_attention_hd` (bf16) or :func:`flash_attention_f32_hd` (f32).
     Both take :func:`_online_kernel_operands`: a head dim between two widths
-    runs the next width's instance on zero-padded q, k and v, the fold and
-    the denominator of the true head dim. Above 256 K4 raises
-    ``NotImplementedError`` naming ROADMAP Queue 2 and launches nothing.
+    runs the next width's instance (above 256: the next multiple of 64) on
+    zero-padded q, k and v, the fold and the denominator of the true head
+    dim. Every head dim from 1 up runs, as in the JAX wrapper.
     """
     if qk_int8 and not fixed_max:
         raise ValueError("qk_int8 requires fixed_max=True (the int8 "
@@ -1183,7 +1208,7 @@ def flash_attention(
             denom=denom, block_q=block_q, heads_per_cell=heads_per_cell)
     b, h, sq, _ = q.shape
     skv = k.shape[2]
-    width = _check_head_dim("K4", dim, ONLINE_TOP)
+    width = _check_head_dim("K4", dim)
     if (q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype
             or v.dtype != q.dtype):
         raise TypeError(f"K4 takes f32 or bf16 q/k/v of one dtype, got "

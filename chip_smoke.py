@@ -50,16 +50,16 @@ Phases (each prints its result; any failure raises and exits non-zero):
      the CFG shape, and K6 alone on prepared operands;
  11. one prediction request on the phase-5 pipeline (built again from its
      seeds) at ``AETHER_ATTN_FUSED=0``: the task defaults (guidance 3,
-     dynamic CFG) but 5 of the default 50 steps (``FUSED0_STEPS``, a cut
-     to fit phases 24-29 in the time), a seeded image and (41, 6, 60, 90)
-     raymap; checks shapes, finiteness, the RGB range and 42 x 5 K3
+     dynamic CFG) but 2 of the default 50 steps (``FUSED0_STEPS``, a cut
+     to fit the run's time), a seeded image and (41, 6, 60, 90)
+     raymap; checks shapes, finiteness, the RGB range and 42 x 2 K3
      launches with no K1/K2/K6 launch;
  12. two planning requests (image, goal, raymap; same seed) at
-     ``AETHER_ATTN_PV8=1``, cut to 5 steps to fit the run's time; checks
-     42 x 5 K6 launches each and bit-identical outputs;
+     ``AETHER_ATTN_PV8=1``, cut to 2 steps to fit the run's time; checks
+     42 x 2 K6 launches each and bit-identical outputs;
  12b. one prediction request at the default attention settings (K1 + K2 at
-     the CFG pair's batch 2), cut to 5 steps (``DEFAULT_PREDICTION_STEPS``);
-     checks 42 x 5
+     the CFG pair's batch 2), cut to 2 steps (``DEFAULT_PREDICTION_STEPS``);
+     checks 42 x 2
      launches of each of K1 and K2, none of K3 or K6, and K5 at its count.
 Phases of the long-video slice, between 4 and 5 and after 6:
  4b. K5 (``groupnorm_moments``) against ``groupnorm_moments_plain`` at the
@@ -135,7 +135,8 @@ Phases of the server and benchmark slice, after 6c, on the phase-5 pipeline:
  19. the web server (``aether_tpu_torch.apps.serve``): ``JobRunner`` and a
      ``ThreadingHTTPServer`` on 127.0.0.1 through ``make_handler``; a seeded
      65x480x720 reconstruction job (41-frame windows at stride 24: two) and a
-     10-step prediction job (seeded image, ``action_raymap("forward_right")``,
+     5-step prediction job (10 before phase 30; seeded image,
+     ``action_raymap("forward_right")``,
      guidance at its default, the 4-step post-reconstruction), submitted
      with the params ``_fields_to_params`` returns and polled over HTTP until
      ``done``. The card's machine has no PIL or imageio, so the upload
@@ -352,9 +353,9 @@ Phase of K4 above head_dim 128, after 28 (``wide_dims_phase``):
      (a head dim between them on the next one's, zero-padded): bf16 on
      ``online_cell<D>`` with 64-row kv tiles, f32 on ``tf32x3_cell.cuh``'s
      ``split_kernel<D>`` (64 q rows a CTA, the head dim split over two
-     consumer warpgroups). (d) K4 bf16 and f32 at (1, 48, 15076, D), D 64
-     and 72, on numpy-seeded inputs: the outputs' digests equal commit
-     d21dc60's (the instances up to 128 keep their bits); (c) the tiny
+     consumer warpgroups). (d) K4 bf16 and f32 at (1, 48, 15076, D), D 64,
+     72, 160 and 256, on seeded inputs: the outputs' digests equal commit
+     dbe6a4d's (the instances up to 256 keep their bits); (c) the tiny
      trainer's two steps at head_dim 160 and 256 on the card against the CPU
      (losses within phase 23's rtol 2e-4 / atol 2e-5, exactly 8 K4 f32 hd
      launches each, finite loss and gradient norm, the parameters moved),
@@ -368,10 +369,32 @@ Phase of K4 above head_dim 128, after 28 (``wide_dims_phase``):
      at 48 heads x 15076 tokens and D 144, 160, 192, 200, 224 and 256
      against their plain versions (bf16 at ``bf16_gates``, f32 at max 3e-6 /
      mean 1e-7), two launches bit-identical, timed through the wrapper and
-     alone, beside the bound at the true D, the plain version's one call and
-     one SDPA call of the same shape and dtype (its flash or
-     memory-efficient backend; "none" where neither takes it), with each
-     instance's registers and spill.
+     alone (all but 200, whose timing was cut to fit phase 30), beside the
+     bound at the true D, the plain version's one call and one SDPA call of
+     the same shape and dtype (its flash or memory-efficient backend; "none"
+     where neither takes it), with each instance's registers and spill.
+Phase of K4 above head_dim 256, after 29 (``above_dims_phase``):
+ 30. K4 runs every head dim above 256 on one kernel a dtype that reads the
+     width (the head dim rounded up to a multiple of 64, zero-padded) at run
+     time: ``csrc/flash_online_wide_bf16.cu`` and ``flash_online_wide.cu``
+     (Q and K streamed through shared memory in head-dim panels, the output
+     in column blocks of 256 in bf16 and 128 in f32). (c) the tiny trainer's
+     two steps at head_dim 320 and 512 on the card against the CPU (phase
+     29c's gates, exactly 8 K4 f32 hd launches each), and the tiny DiT at
+     288 and 384 in bf16 and f32 against the CPU at the long-video gates, 2
+     launches of the dtype's K4 hd counter; (b) one 41x480x720
+     reconstruction request (4 steps) on the AetherV1 width regrouped as 6
+     heads x 512: exactly 168 K4 bf16 hd launches and no other attention
+     kernel's, K5 at its count, ``check_request``'s gates, its seconds and
+     peak memory; (d) K4 bf16 and f32 at (1, 4, 2048, 1024) against their
+     plain versions (bf16 at ``bf16_gates``, f32 at max 3e-6 / mean 1e-7);
+     (a) K4 bf16 and f32 at 48 heads x 15076 tokens and D 272, 320 and 512
+     against their plain versions at phase 29a's gates, two launches
+     bit-identical, and at 320 and 512 timed through the wrapper and alone
+     beside the bound at the true D, the plain version's one call and one
+     SDPA call (or "none"), with each kernel's registers and spill. (e), the
+     digests of the instances up to 256 against the parent's, is phase
+     29d.
 At the end, beside the bounds: K2 (int8, float, batch 2) and K3 alone (int8
 and bf16 QK^T) each within 1.25x of the SDPA call at its shape, and K6 within
 1.5x of K3 with int8 QK^T.
@@ -404,17 +427,16 @@ FRAMES, HEIGHT, WIDTH, STEPS = 41, 480, 720, 4
 # the fine-tuning steps (phase 9): 3 cut to 2 to fit phase 29 in the run's
 # time (PERF.md §7's first cut)
 TRAIN_LAYERS, TRAIN_STEPS = 16, 2
-PREDICTION_STEPS, PLANNING_STEPS = 50, 10  # the task default; a cut to fit the time
-# the prediction at the default attention settings (phase 12b): 10 steps cut
-# to 5 to fit phase 29 in the run's time (PERF.md §7's second cut)
-DEFAULT_PREDICTION_STEPS = 5
-# the two planning requests at AETHER_ATTN_PV8=1 (phase 12): a depth cut to
-# keep the run inside its time limit (PERF.md §7 named it the next to cut)
-PLANNING_PAIR_STEPS = 5
-# the prediction at AETHER_ATTN_FUSED=0 (phase 11): the task default cut to
-# fit phases 24-29 in the time (20 steps before phase 28, 10 before phase 29;
-# the cut that phase 25's gates left for phase 29, PERF.md §7)
-FUSED0_STEPS = 5
+PREDICTION_STEPS = 50  # the task default
+# the served prediction job of phase 19 (and the direct call it is held to):
+# 10 steps cut to 5 to fit phase 30 in the run's time (PERF.md §7)
+SERVED_PREDICTION_STEPS = 5
+# the prediction at the default attention settings (phase 12b), the two
+# planning requests at AETHER_ATTN_PV8=1 (phase 12) and the prediction at
+# AETHER_ATTN_FUSED=0 (phase 11): depth cuts of the task default to keep the
+# run inside its time limit (10 before phase 29, 5 before phase 30, 2 since;
+# PERF.md §7). Two steps still take the solver's second-order update.
+DEFAULT_PREDICTION_STEPS = PLANNING_PAIR_STEPS = FUSED0_STEPS = 2
 LONG_FRAMES, STRIDE = 65, 24  # two 41-frame windows, starts 0 and 24
 # H100 SXM at 700 W (NVIDIA's data sheet): memory rate, dense peaks by type
 HBM_BYTES_PER_S = 3.35e12
@@ -1202,7 +1224,8 @@ def serve_phase(pipe, dev):
     """The web server (``apps/serve.py``) over the phase-5 pipeline: a
     ``JobRunner`` and a ``ThreadingHTTPServer`` on 127.0.0.1 through
     ``make_handler``, as ``main`` builds them; a 65-frame reconstruction job
-    (two windows) and a 10-step prediction job with the post-reconstruction,
+    (two windows) and a ``SERVED_PREDICTION_STEPS``-step prediction job with
+    the post-reconstruction,
     polled over HTTP. The card's machine has no PIL or imageio: the uploads'
     decoding (``_decode_video`` / ``_decode_image``) hands
     ``_fields_to_params`` seeded arrays, and ``viz.save_video`` writes the
@@ -1274,7 +1297,7 @@ def serve_phase(pipe, dev):
         "reconstruction": dict(form, task="reconstruction", stride=str(STRIDE),
                                video={"filename": "clip.mp4", "data": b""}),
         "prediction": dict(form, task="prediction", raymap="forward_right",
-                           steps=str(PLANNING_STEPS),
+                           steps=str(SERVED_PREDICTION_STEPS),
                            image={"filename": "image.png", "data": b""}),
     }
     k5_window = expected_k5(pipe, FRAMES)
@@ -1283,7 +1306,7 @@ def serve_phase(pipe, dev):
         "reconstruction": [2 * n_layers * STEPS] * 2 + [2 * k5_window],
         # the CFG pair at batch 2 (one launch a block and step), then the
         # 4-step post-reconstruction of the generated clip
-        "prediction": [n_layers * (PLANNING_STEPS + STEPS)] * 2
+        "prediction": [n_layers * (SERVED_PREDICTION_STEPS + STEPS)] * 2
         + [expected_k5(pipe, FRAMES, images=1) + k5_window],
     }
     window = ["vae_encode", "denoise", "vae_decode"]
@@ -1373,7 +1396,7 @@ def serve_phase(pipe, dev):
                   raymap=action_raymap("forward_right", num_frames=FRAMES, height=HEIGHT,
                                        width=WIDTH),
                   height=HEIGHT, width=WIDTH, num_frames=FRAMES, fps=12,
-                  num_inference_steps=PLANNING_STEPS, guidance_scale=None,
+                  num_inference_steps=SERVED_PREDICTION_STEPS, guidance_scale=None,
                   use_dynamic_cfg=True, seed=42)
     served = received["prediction_upload_rgb.npy"]
     check(np.array_equal(served, np.clip(direct.rgb, 0, 1)),
@@ -3057,9 +3080,17 @@ def wire_phase(pipe, dev, video, first, k5_per_request, long_clip, long_runs):
 # ---------------------------------------------------------------------------
 
 # phase 25: a depth cut; the prediction job's steps. Neither is cut further:
-# at 1 block (c)'s tp poses gate failed, at 2 steps its rgb gate (ROADMAP
-# Queue 3)
+# at 1 block (c)'s tp poses gate failed, at 2 steps its rgb gate; that is the
+# random-weight job amplifying rounding, not a fault of tp (ROADMAP Queue 3,
+# aether_tpu_torch/bench/tp_departure.py)
 SERVE_BLOCKS, SERVE_STEPS = 2, 4
+# (c)'s sensitivity control: the RMS of the tp = 2 DiT's departure from one
+# process at each of the tp job's 8 DiT calls (4 CFG steps, then the 4-step
+# post-reconstruction), each call on the same inputs, as
+# aether_tpu_torch/bench/tp_departure.py measured it at 2 blocks x 4 steps
+# (NVIDIA H100 80GB HBM3, 700.00 W)
+TP_DEPARTURE_RMS = (8.664e-4, 8.642e-4, 8.838e-4, 8.779e-4, 4.778e-4, 4.755e-4, 4.899e-4,
+                    4.919e-4)
 
 
 def serve_uploads():
@@ -3204,7 +3235,11 @@ def serve_mesh_phase(dev):
     (c) both jobs served again by one process (``JobRunner``, no mesh) on
     the same weights: the exported rgb, disparity and poses within the
     long-video phase's gates (mean abs <= 1e-2 and max <= 0.25 of
-    max(1, max |one process|)); (d) each rank's K1/K2/K5 launches, the
+    max(1, max |one process|)); beside them, logged, the sensitivity
+    control: the tp job in one process again with the DiT's output at each
+    call perturbed by seeded noise of ``TP_DEPARTURE_RMS``, its exports
+    against the unperturbed ones (how far the random-weight job carries a
+    departure the size of tp's; no gate); (d) each rank's K1/K2/K5 launches, the
     follower's equal to the leader's, and the two ranks' peaks under 80 GB.
     Returns rank 0's K1/K2/K5 launches of the served jobs and the phase's
     numbers."""
@@ -3283,7 +3318,10 @@ def serve_mesh_phase(dev):
         launches = [a + b for a, b in zip(launches, results[0]["launches"])]
 
     # (c) the same jobs from one process on the same weights
+    from aether_tpu_torch.bench.tp_departure import gate, run_job
+
     restore = serve_patches()
+    exports, job_params = {}, {}
     runner = serve.JobRunner(one_pipe, os.path.join(tmp.name, "one"))
     try:
         for mode in ("dp", "tp"):
@@ -3298,6 +3336,7 @@ def serve_mesh_phase(dev):
             check(status["status"] == "done", f"phase 25c {mode} job: {status.get('error')}")
             one = exported(os.path.join(runner.output_dir, job_id), status,
                            LONG_FRAMES if mode == "dp" else FRAMES)
+            exports[mode], job_params[mode] = one, params
             numbers[mode]["one_process_s"] = time.perf_counter() - t0
             diffs = []
             for field, got, ref in zip(("rgb", "disparity", "poses"), served[mode], one):
@@ -3310,6 +3349,14 @@ def serve_mesh_phase(dev):
                       f"(max {d.max():.3e}, mean {d.mean():.3e}, max |ref| {top:.3g})")
             log(f"phase 25c {mode} = 2 server against one process "
                 f"({numbers[mode]['one_process_s']:.3f} s there): " + ", ".join(diffs))
+        t0 = time.perf_counter()
+        _, control = run_job(one_pipe, job_params["tp"], dev, perturb=TP_DEPARTURE_RMS)
+        log(f"phase 25c control ({time.perf_counter() - t0:.3f} s): the tp job in one process "
+            "with the DiT's output perturbed by the tp departure's RMS at each call, against "
+            "the unperturbed job: " + ", ".join(
+                f"{field} max {mx:.3e} mean {mean:.3e} ({'within' if ok else 'outside'} the "
+                f"gates of max |ref| {top:.3g})"
+                for field, (mx, mean, top, ok) in gate(control, exports["tp"]).items()))
     finally:
         runner.close(timeout=120)
         restore()
@@ -4450,8 +4497,11 @@ def padded_dims_phase(dev, gen):
 # ---------------------------------------------------------------------------
 
 # (a) K4 bf16 and f32 at the main path's 48 heads x 15076 tokens at these head
-# dims: the instances 160, 192, 224 and 256, and 144 and 200 on padded operands
+# dims: the instances 160, 192, 224 and 256, and 144 and 200 on padded
+# operands; all timed but 200 (PERF.md §7's third cut: 144 stays, its line
+# entry holds the tiny DiT's launches of <160>)
 WIDE_DIMS = (144, 160, 192, 200, 224, 256)
+WIDE_TIMED = (144, 160, 192, 224, 256)
 # (b) the AetherV1 width (42 blocks x 3072) regrouped as 12 heads x 256
 WIDE_HEADS, WIDE_HEAD_DIM = 12, 256
 # (c) the tiny trainer at these head dims (K4 f32), and one forward of the
@@ -4459,12 +4509,15 @@ WIDE_HEADS, WIDE_HEAD_DIM = 12, 256
 # instances (b) and the trainer do not run (144 runs 160's)
 WIDE_TRAIN_DIMS = (160, 256)
 WIDE_TINY_DIMS = (144, 192, 224)
-# (d) K4's outputs at (1, 48, 15076, D) for D 64 and 72 on numpy-seeded
-# inputs (time_hd_cells.py k4_digests), as commit d21dc60 gave them on the
-# card before the kernels took head dims above 128: the instances up to 128
+# (d) K4's outputs at (1, 48, 15076, D) for D 64, 72, 160 and 256 on seeded
+# inputs (time_hd_cells.py k4_digests), as commit dbe6a4d gave them on the
+# card before K4 took head dims above 256 (its outputs at 64 and 72 equal
+# d21dc60's, before 129-256, on numpy-drawn inputs): the instances up to 256
 # keep their bits
-PARENT_K4_DIGESTS = {"K4 bf16 hd64": "2fb6f20b8a348338", "K4 f32 hd64": "db36e7f3f9c2df4c",
-                     "K4 bf16 hd72": "40b08407952a2c86", "K4 f32 hd72": "d805945c10548dda"}
+PARENT_K4_DIGESTS = {"K4 bf16 hd64": "fa5f35e2445ac114", "K4 f32 hd64": "4c3690d8288a42e5",
+                     "K4 bf16 hd72": "f6d7d564d463e7ca", "K4 f32 hd72": "f9c863ba3d087916",
+                     "K4 bf16 hd160": "3b0dcb73ba43921d", "K4 f32 hd160": "841a6ac22b259407",
+                     "K4 bf16 hd256": "d3d23aed9d83d8eb", "K4 f32 hd256": "f6e7f54ae7280a21"}
 
 
 def sdpa_or_none(q, k, v, iters):
@@ -4485,39 +4538,37 @@ def sdpa_or_none(q, k, v, iters):
         return None
 
 
-def wide_kernels_phase(dev, gen):
-    """Phase 29 (a): K4 bf16 (``online_cell<D>``, 64-row kv tiles) and f32
-    (``tf32x3_cell.cuh``'s ``split_kernel<D>``) at 48 heads x 15076 tokens,
-    batch 1, at each of ``WIDE_DIMS``, through ``flash_attention`` against
-    the plain version: bf16 at ``bf16_gates`` (phase 28's), f32 at
-    ``K4_F32_128_BARS`` (phase 27a's at 128: each tile's P V added on the
-    FMA units); one launch a call on the head-dim counter, two launches
-    bit-identical. CUDA-event ms of 5 calls (f32: 3) through the wrapper and
-    of the kernel alone on the operands the wrapper prepares (padded to the
-    width; f32: split), the plain version's one call, the bound at the true head
-    dim, one SDPA call at the same shape and dtype (flash or
-    memory-efficient backend, or none), the instance's registers and spill.
-    Returns {(name, head_dim): (max abs error, ms, plain ms, bound, SDPA ms
-    or None)}."""
+def k4_dims_cases(dev, gen, label, dims, timed, patterns):
+    """K4 bf16 and f32 at 48 heads x 15076 tokens, batch 1, at each of
+    ``dims``, through ``flash_attention`` against the plain version: bf16 at
+    ``bf16_gates``, f32 at ``K4_F32_128_BARS`` (phase 27a's at 128: each
+    tile's P V added on the FMA units); one launch a call on the head-dim
+    counter, two launches bit-identical. At the head dims of ``timed``:
+    CUDA-event ms of 3 calls (f32: 1) through the wrapper
+    and of the kernel alone on the operands the wrapper prepares (padded to
+    the width; f32: split), the plain version's one call, the bound at the
+    true head dim, one SDPA call at the same shape and dtype (flash or
+    memory-efficient backend, or none), and the kernel's registers and spill
+    (``patterns(width)``: the ptxas name patterns of the bf16 and the f32
+    kernel). Returns {(name, head_dim): (max abs error, ms, plain ms, bound,
+    SDPA ms or None)}, ms None where untimed."""
     from aether_tpu_torch.ops import flash_attention as fa
 
     results = {}
-    for hd in WIDE_DIMS:
+    for hd in dims:
         width = fa.head_dim_width(hd)
-        for name, dtype, size, counter, kinds, bars, pattern in (
-                ("K4 bf16", torch.bfloat16, 2, "flash_attention_hd", ("bf16", "bf16"), None,
-                 f"online_cell11cell_kernelILi{width}E"),
+        for (name, dtype, size, counter, kinds, bars), pattern in zip((
+                ("K4 bf16", torch.bfloat16, 2, "flash_attention_hd", ("bf16", "bf16"), None),
                 ("K4 f32", torch.float32, 4, "flash_attention_f32_hd", ("tf32x3", "tf32x3"),
-                 K4_F32_128_BARS, f"split_kernelILi{width}E")):
+                 K4_F32_128_BARS)), patterns(width)):
             shape = (1, HEADS, SEQ, hd)
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
-            what = f"phase 29a {name} at head_dim {hd}"
+            what = f"phase {label} {name} at head_dim {hd}"
 
             def kernel(q=q, k=k, v=v):
                 return fa.flash_attention(q, k, v)
 
             out = counted(kernel, {counter: 1}, what)
-            iters = 5 if dtype == torch.bfloat16 else 3  # an f32 call runs 0.1-0.3 s
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             ref = fa.flash_attention_plain(q, k, v)
@@ -4527,6 +4578,18 @@ def wide_kernels_phase(dev, gen):
             err = compare(what, out, ref, *(bars or bf16_gates(ref)))
             del ref
             check(torch.equal(out, kernel()), f"{what}: two launches differ")
+            bnd = bound(4 * size * HEADS * SEQ * hd, attention_ops(1, SEQ, kinds, hd),
+                        attention_exp2(1))
+            if hd not in timed:
+                log(f"{what} (one launch a call on {counter}): untimed; plain {plain_ms:.4f} "
+                    f"ms; the <{width}> kernel: {ptxas_of(pattern)}")
+                results[name, hd] = (err, None, plain_ms, bnd, None)
+                del q, k, v, out
+                torch.cuda.empty_cache()
+                continue
+            # an f32 call runs 0.1-0.3 s up to 256, 0.5-1.3 s above (a
+            # depth cut of 5 bf16 and 3 f32 calls to fit the run's time)
+            iters = 3 if dtype == torch.bfloat16 else 1
             ms = cuda_time_ms(kernel, iters)
             qh, kh, vh, kv_len, fold = fa._online_kernel_operands(q, k, v, None, None)
             buf = torch.empty((HEADS, SEQ, width), dtype=dtype, device=dev)
@@ -4543,35 +4606,41 @@ def wide_kernels_phase(dev, gen):
             del qh, kh, vh, buf, out
             lib = sdpa_or_none(q, k, v, iters)
             del q, k, v
-            bnd = bound(4 * size * HEADS * SEQ * hd, attention_ops(1, SEQ, kinds, hd),
-                        attention_exp2(1))
             log(f"{what} (one launch a call on {counter}) time: kernel {ms:.4f} ms "
                 f"({bnd[0] / ms:.1%} of its {bnd[0]:.4f} ms "
                 f"{bnd[1]} bound at {hd}), alone {alone_ms:.4f} ms ({bnd[0] / alone_ms:.1%}; "
                 f"the wrapper's passes {ms - alone_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
                 f"{str(dtype)[6:]} (1, 48, 15076, {hd}) "
                 + (f"{lib:.4f} ms: {ms / lib:.3f}x" if lib is not None else "none")
-                + f"; the <{width}> instance: {ptxas_of(pattern)}")
+                + f"; the <{width}> kernel: {ptxas_of(pattern)}")
             results[name, hd] = (err, ms, plain_ms, bnd, lib)
             torch.cuda.empty_cache()
     return results
 
 
-def wide_request_phase(dev):
-    """Phase 29 (b): one 41x480x720 reconstruction request (4 steps) through
-    ``AetherPipeline.__call__`` on the AetherV1 width regrouped as
-    ``WIDE_HEADS`` heads x ``WIDE_HEAD_DIM`` (42 blocks x 3072, seeded random
-    bf16 weights, phase 6's clip): the DiT's unfused route at head_dim >=
-    128, exactly 42 x 4 K4 bf16 launches on the head-dim counter and no other
-    attention kernel's (K1, K2, K3, K6 none), K5 at its count, outputs of the
-    request's shapes, finite, RGB in [0, 1]. Returns (K4 bf16 hd launches,
-    the request's seconds)."""
+def wide_kernels_phase(dev, gen):
+    """Phase 29 (a): :func:`k4_dims_cases` at ``WIDE_DIMS`` (timed at
+    ``WIDE_TIMED``), bf16 on ``online_cell<D>`` (64-row kv tiles), f32 on
+    ``tf32x3_cell.cuh``'s ``split_kernel<D>``."""
+    return k4_dims_cases(dev, gen, "29a", WIDE_DIMS, WIDE_TIMED, lambda width: (
+        f"online_cell11cell_kernelILi{width}E", f"split_kernelILi{width}E"))
+
+
+def wide_request_phase(dev, heads=WIDE_HEADS, head_dim=WIDE_HEAD_DIM, label="29b"):
+    """Phase 29 (b), and 30 (b) at 6 x 512: one 41x480x720 reconstruction
+    request (4 steps) through ``AetherPipeline.__call__`` on the AetherV1
+    width regrouped as ``heads`` heads x ``head_dim`` (42 blocks x 3072,
+    seeded random bf16 weights, phase 6's clip): the DiT's unfused route at
+    head_dim >= 128, exactly 42 x 4 K4 bf16 launches on the head-dim counter
+    and no other attention kernel's (K1, K2, K3, K6 none), K5 at its count,
+    outputs of the request's shapes, finite, RGB in [0, 1]. Returns (K4 bf16
+    hd launches, the request's seconds)."""
     from aether_tpu_torch.config import PipelineConfig
     from aether_tpu_torch.ops.groupnorm import groupnorm_moments
 
     cfg = PipelineConfig.aetherv1()
     cfg = dataclasses.replace(cfg, dit=dataclasses.replace(
-        cfg.dit, num_heads=WIDE_HEADS, head_dim=WIDE_HEAD_DIM))
+        cfg.dit, num_heads=heads, head_dim=head_dim))
     check(cfg.dit.hidden_size == HEADS * HEAD_DIM, f"hidden size {cfg.dit.hidden_size}")
     t0 = time.perf_counter()
     pipe = make_pipeline(cfg, dev)
@@ -4586,31 +4655,32 @@ def wide_request_phase(dev):
     res = counted(lambda: pipe(task="reconstruction", video=video, height=HEIGHT, width=WIDTH,
                                num_frames=FRAMES, num_inference_steps=STEPS, fps=12, seed=42),
                   {"flash_attention_hd": n},
-                  f"phase 29b reconstruction request at {WIDE_HEADS} heads x {WIDE_HEAD_DIM}")
+                  f"phase {label} reconstruction request at {heads} heads x {head_dim}")
     wall = time.perf_counter() - t0
     check(groupnorm_moments.launches == k5,
-          f"phase 29b: {groupnorm_moments.launches} K5 launches, not {k5}")
+          f"phase {label}: {groupnorm_moments.launches} K5 launches, not {k5}")
     stages = ", ".join(f"{k} {v:.3f} s" for k, v in res.stage_seconds.items())
-    log(f"phase 29b reconstruction request, AetherV1 width as {WIDE_HEADS} heads x "
-        f"{WIDE_HEAD_DIM} (pipeline built in {build_s:.3f} s): {wall:.3f} s ({stages}); "
+    log(f"phase {label} reconstruction request, AetherV1 width as {heads} heads x "
+        f"{head_dim} (pipeline built in {build_s:.3f} s): {wall:.3f} s ({stages}); "
         f"{n} K4 bf16 hd launches, no K1/K2/K3/K6, {k5} K5; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    check_request(res, FRAMES, "phase 29b request")
+    check_request(res, FRAMES, f"phase {label} request")
     del pipe, res
     gc.collect()
     torch.cuda.empty_cache()
     return n, wall
 
 
-def wide_tiny_phase(dev):
-    """Phase 29 (c): the tiny trainer (``DiTConfig.tiny()``, 2 blocks,
-    ``flash_train``: K4 f32 hd on the forward) at each of
-    ``WIDE_TRAIN_DIMS``, two steps on the card and on the CPU from one init
+def wide_tiny_phase(dev, train_dims=WIDE_TRAIN_DIMS, tiny_dims=WIDE_TINY_DIMS, label="29c"):
+    """Phase 29 (c), and 30 (c) at its head dims: the tiny trainer
+    (``DiTConfig.tiny()``, 2 blocks, ``flash_train``: K4 f32 hd on the
+    forward) at each of ``train_dims``, two steps on the card and on the CPU
+    from one init
     and one noise stream: losses within phase 23's rtol 2e-4 / atol 2e-5,
     exactly 2 x 2 x 2 K4 f32 hd launches (blocks x forward and remat's
     recompute x steps), finite loss and gradient norm, the parameters moved
     (the first update has lr 0); then one forward of the tiny DiT at each of
-    ``WIDE_TINY_DIMS`` in bf16 and in f32 at the defaults on the card against
+    ``tiny_dims`` in bf16 and in f32 at the defaults on the card against
     the CPU at the long-video gates, 2 launches of the dtype's K4 hd counter
     and no other attention kernel's. Returns {(counter, head_dim):
     launches}."""
@@ -4622,32 +4692,33 @@ def wide_tiny_phase(dev):
     launches = {}
     tcfg = TrainConfig(learning_rate=1e-5, total_steps=2, warmup_steps=1, log_every=1,
                        attn_impl="flash_train")
-    for hd in WIDE_TRAIN_DIMS:
+    for hd in train_dims:
         cfg = dataclasses.replace(DiTConfig.tiny(), head_dim=hd)
         init = init_dit(cfg, dtype=torch.float32, seed=0).state_dict()
         want, _ = tiny_train_run("cpu", cfg, tcfg, 2, init)
         per = 2 * cfg.num_layers * 2
         got, trainer = counted(lambda: tiny_train_run(dev, cfg, tcfg, 2, init),
                                {"flash_attention_f32_hd": per},
-                               f"phase 29c training at head_dim {hd}")
-        err = close(f"phase 29c training losses at head_dim {hd}", got, want, LOSS_RTOL,
+                               f"phase {label} training at head_dim {hd}")
+        err = close(f"phase {label} training losses at head_dim {hd}", got, want, LOSS_RTOL,
                     LOSS_ATOL)
         norm = float(trainer.state.optimizer.grad_norm)
         moved = sum(int(not torch.equal(p.detach().cpu(), init[n]))
                     for n, p in trainer.state.model.named_parameters())
         n_tensors = len(list(trainer.state.model.parameters()))
-        log(f"phase 29c two tiny training steps at head_dim {hd} (K4 f32 hd, vpu): card losses "
+        log(f"phase {label} two tiny training steps at head_dim {hd} (K4 f32 hd, vpu): card losses "
             + ", ".join(f"{x:.6f}" for x in got) + ", CPU " + ", ".join(f"{x:.6f}" for x in want)
             + f" (max abs diff {err:.3e}); grad norm {norm:.6f}; {per} K4 f32 hd launches; "
             f"parameters moved in {moved}/{n_tensors} tensors")
-        check(all(np.isfinite(got)) and np.isfinite(norm), "phase 29c: non-finite loss or "
-              "gradient norm")
-        check(moved >= 0.9 * n_tensors, f"phase 29c at head_dim {hd}: parameters did not move")
+        check(all(np.isfinite(got)) and np.isfinite(norm), f"phase {label}: non-finite loss "
+              "or gradient norm")
+        check(moved >= 0.9 * n_tensors, f"phase {label} at head_dim {hd}: parameters did not "
+              "move")
         launches["flash_attention_f32_hd", hd] = per
         del trainer
     host_gen = torch.Generator()
     host_gen.manual_seed(29)
-    for hd in WIDE_TINY_DIMS:
+    for hd in tiny_dims:
         dcfg = dataclasses.replace(DiTConfig.tiny(), head_dim=hd)
         h, w = dcfg.sample_height, dcfg.sample_width
         cos, sin = prepare_rotary_positional_embeddings(dcfg, h * 8, w * 8, 3,
@@ -4660,7 +4731,7 @@ def wide_tiny_phase(dev):
             model = init_dit(dcfg, dtype=dtype, seed=0)
             args = (hidden.to(dtype), prompt, torch.tensor([500]), torch.from_numpy(cos),
                     torch.from_numpy(sin))
-            what = f"phase 29c tiny DiT at head_dim {hd}, {str(dtype)[6:]}"
+            what = f"phase {label} tiny DiT at head_dim {hd}, {str(dtype)[6:]}"
             with attention_env({}), torch.no_grad():
                 want = model(*args)
                 model.to(dev)
@@ -4683,10 +4754,11 @@ def wide_dims_phase(dev, gen):
     secs = {}
     t0 = time.perf_counter()
     got = k4_digests(fa, dev)
-    log("phase 29d K4 at (1, 48, 15076, D), D 64 and 72, against commit d21dc60: " + ", ".join(
-        f"{n} {d} ({'same' if d == PARENT_K4_DIGESTS[n] else 'DIFFERS'})"
-        for n, d in got.items()))
-    check(got == PARENT_K4_DIGESTS, "phase 29d: an instance up to 128 changed its bits")
+    log("phase 29d (and 30e) K4 at (1, 48, 15076, D), D 64, 72, 160 and 256, against "
+        "commit dbe6a4d: " + ", ".join(
+            f"{n} {d} ({'same' if d == PARENT_K4_DIGESTS[n] else 'DIFFERS'})"
+            for n, d in got.items()))
+    check(got == PARENT_K4_DIGESTS, "phase 29d: an instance up to 256 changed its bits")
     secs["d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     launches = wide_tiny_phase(dev)
@@ -4702,9 +4774,73 @@ def wide_dims_phase(dev, gen):
     return launches, kernels, secs
 
 
+# ---------------------------------------------------------------------------
+# phase 30: K4 above head_dim 256
+# ---------------------------------------------------------------------------
+
+# (a) K4 bf16 and f32 at the main path's 48 heads x 15076 tokens at these
+# head dims: 320 and 512 at their own widths, 272 on 320's (padded); timed at
+# 320 and 512 only (PERF.md §7's fourth cut)
+ABOVE_DIMS, ABOVE_TIMED = (272, 320, 512), (320, 512)
+# (b) the AetherV1 width (42 blocks x 3072) regrouped as 6 heads x 512
+ABOVE_HEADS, ABOVE_HEAD_DIM = 6, 512
+# (c) the tiny trainer at these head dims (K4 f32), and one forward of the
+# tiny DiT in bf16 and in f32 at the others (on the widths 320 and 384)
+ABOVE_TRAIN_DIMS, ABOVE_TINY_DIMS = (320, 512), (288, 384)
+# (d) one case beyond 512: B, H, S, D
+ABOVE_FAR = (1, 4, 2048, 1024)
+
+
+def above_far_phase(dev, gen):
+    """Phase 30 (d): K4 bf16 and f32 at ``ABOVE_FAR`` through
+    ``flash_attention`` against the plain version (bf16 at ``bf16_gates``,
+    f32 at ``K4_F32_128_BARS``), one launch a call on the dtype's head-dim
+    counter. Returns {counter: launches}."""
+    from aether_tpu_torch.ops import flash_attention as fa
+
+    launches = {}
+    for dtype, counter, bars in ((torch.bfloat16, "flash_attention_hd", None),
+                                 (torch.float32, "flash_attention_f32_hd", K4_F32_128_BARS)):
+        q, k, v = (torch.randn(ABOVE_FAR, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        what = f"phase 30d K4 {str(dtype)[6:]} at {ABOVE_FAR}"
+        out = counted(lambda: fa.flash_attention(q, k, v), {counter: 1}, what)
+        ref = fa.flash_attention_plain(q, k, v)
+        compare(what, out, ref, *(bars or bf16_gates(ref)))
+        launches[counter] = 1
+    return launches
+
+
+def above_dims_phase(dev, gen):
+    """Phase 30: (c) ``wide_tiny_phase`` at ``ABOVE_TRAIN_DIMS`` /
+    ``ABOVE_TINY_DIMS``, (b) ``wide_request_phase`` at 6 heads x 512, (d)
+    :func:`above_far_phase`, (a) :func:`k4_dims_cases` at ``ABOVE_DIMS``
+    (timed at ``ABOVE_TIMED``) on the wide kernels. (e), the digests of the
+    instances up to 256, is phase 29d. Returns ({(counter, head_dim):
+    launches on the paths of (b) and (c)}, (a)'s results, seconds by part)."""
+    secs = {}
+    t0 = time.perf_counter()
+    launches = wide_tiny_phase(dev, ABOVE_TRAIN_DIMS, ABOVE_TINY_DIMS, "30c")
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n, _ = wide_request_phase(dev, ABOVE_HEADS, ABOVE_HEAD_DIM, "30b")
+    launches["flash_attention_hd", ABOVE_HEAD_DIM] = n
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    above_far_phase(dev, gen)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernels = k4_dims_cases(dev, gen, "30a", ABOVE_DIMS, ABOVE_TIMED, lambda width: (
+        "wide_bf1611wide_kernel", "wide_f3211wide_kernel"))
+    secs["a"] = time.perf_counter() - t0
+    log("phase 30 seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in secs.items()))
+    return launches, kernels, secs
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
+    started = time.perf_counter()
     from aether_tpu_torch.config import PipelineConfig
     from aether_tpu_torch.models.rope import prepare_rotary_positional_embeddings
     from aether_tpu_torch.ops import _build
@@ -5034,7 +5170,16 @@ def main() -> None:
     log(f"phase 29: {time.perf_counter() - t0:.3f} s; (a) " + "; ".join(
         f"{name} at head_dim {hd}: {ms:.4f} ms (bound {bnd[0]:.4f} {bnd[1]}, plain "
         f"{plain:.4f}, SDPA " + (f"{lib:.4f})" if lib is not None else "none)")
-        for (name, hd), (_, ms, plain, bnd, lib) in hd29_kernels.items()))
+        for (name, hd), (_, ms, plain, bnd, lib) in hd29_kernels.items() if ms is not None))
+
+    # ---- 30. K4 above head_dim 256 ----
+    t0 = time.perf_counter()
+    with attention_env({}):
+        hd30_launches, hd30_kernels, _ = above_dims_phase(dev, gen)
+    log(f"phase 30: {time.perf_counter() - t0:.3f} s; (a) " + "; ".join(
+        f"{name} at head_dim {hd}: {ms:.4f} ms (bound {bnd[0]:.4f} {bnd[1]}, plain "
+        f"{plain:.4f}, SDPA " + (f"{lib:.4f})" if lib is not None else "none)")
+        for (name, hd), (_, ms, plain, bnd, lib) in hd30_kernels.items() if ms is not None))
 
     # ---- bounds and library yardsticks ----
     k4_err, k4_ms, k4_plain_ms, _ = k4[torch.float32]
@@ -5123,6 +5268,7 @@ def main() -> None:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": library_ms}
 
+    log(f"the whole run: {time.perf_counter() - started:.3f} s (the 1200-s limit)")
     print(json.dumps({"kernels": [
         entry("attn_prologue", "attn_prologue.cu", "aether_tpu/ops/attn_prologue.py:91",
               k1_launches + par_launches["K1"] + wire_launches[0] + serve_launches[0],
@@ -5202,6 +5348,13 @@ def main() -> None:
               ("flash_online_hd", "K4 f32", "flash_attention_f32_hd", "flash_online.cu"),
               ("flash_online_bf16_hd", "K4 bf16", "flash_attention_hd", "flash_online_bf16.cu"))
           for hd in WIDE_DIMS if (counter, hd) in hd29_launches),
+        *(entry(f"{name}{hd}", source, "aether_tpu/ops/flash_attention.py:69",
+                hd30_launches[counter, hd], *hd30_kernels[kern, hd])
+          for name, kern, counter, source in (
+              ("flash_online_wide", "K4 f32", "flash_attention_f32_hd", "flash_online_wide.cu"),
+              ("flash_online_wide_bf16", "K4 bf16", "flash_attention_hd",
+               "flash_online_wide_bf16.cu"))
+          for hd in ABOVE_TIMED if (counter, hd) in hd30_launches),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

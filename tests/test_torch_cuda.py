@@ -47,8 +47,11 @@ bit-identical. K3, K4 and K6 at head dims below their instance's width (1,
 operands), bf16 and f32, through the same cases; at every one of the four
 widths the edges of its cells (64-row kv tiles in bf16, 16-row kv tiles and
 64-row q tiles in f32): kv_valid inside a tile, Sq not a multiple of 128,
-kv shorter than one ring slot, one valid column. Also the
-launch-or-raise contract. The card's machine has no
+kv shorter than one ring slot, one valid column. K4 above 256 (the wide
+kernels, the width a run-time multiple of 64: 257, 272, 320, 384, 512 and
+1000), bf16 and f32, through the same edges, Sq != Skv, B*H odd, extreme
+negative scores on strided inputs, and f32 at 512 over 15076 keys at mean
+1e-7 / max 3e-6. Also the launch-or-raise contract. The card's machine has no
 JAX, so run them without the JAX conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -67,6 +70,8 @@ from aether_tpu_torch.ops.attn_prologue import (
 from aether_tpu_torch.ops import flash_variants as fv
 from aether_tpu_torch.ops.chunked_attention import flash_attention_trainable
 from aether_tpu_torch.ops.flash_attention import (
+    _online_bf16_launch,
+    _online_kernel_operands,
     attention_reference,
     flash_attention,
     flash_attention_f32_hd,
@@ -406,13 +411,16 @@ def test_online_kernel_refuses_what_it_does_not_take(dev):
         flash_attention(q.half(), k.half(), v.half(), fixed_max=True)
     with pytest.raises(TypeError):
         flash_attention(q.half(), k.half(), v.half())
-    # K4 takes every head_dim up to 256 on CUDA (24: the instance of 32 on
-    # zero-padded operands), and raises above it
-    q24, k24, v24 = _qkv(dev, (1, 1, 64, 24), (1, 1, 64, 24), torch.float32, seed=24)
-    _check_k4(flash_attention(q24, k24, v24), flash_attention_plain(q24, k24, v24))
-    wide = torch.zeros((1, 1, 64, 272), device=dev)
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        flash_attention(wide, wide, wide)
+    # K4 takes every head_dim on CUDA (24: the instance of 32 on zero-padded
+    # operands; 272: the wide kernel at the width 320), none raises
+    for hd in (24, 272):
+        q2, k2, v2 = _qkv(dev, (1, 1, 64, hd), (1, 1, 64, hd), torch.float32, seed=hd)
+        _check_k4(flash_attention(q2, k2, v2), flash_attention_plain(q2, k2, v2))
+    # the wide bf16 kernel sums unrounded p ("vpu"), as the JAX wrapper does
+    # from head_dim 128 up; asked for "mxu" alone, it refuses
+    ops = _online_kernel_operands(q2.bfloat16(), k2.bfloat16(), v2.bfloat16(), None, None)
+    with pytest.raises(ValueError, match="vpu"):
+        _online_bf16_launch(*ops[:3], torch.empty_like(ops[0]), ops[3], True, ops[4])
 
 
 def test_flash_trainable_grads_match_plain_on_cuda(dev):
@@ -589,9 +597,10 @@ def test_head_dims_outside_the_range_raise_on_cuda(dev, hd):
     each on its head-dim counter; at 128 K2 and K4 run, and K1, K3 and K6
     called directly raise (the JAX wrapper turns the fixed max off there, so
     no path reaches them); at 144 K4 and K4 f32 run (the instance of 160 on
-    padded operands) and K1, K2, K3 and K6 raise; at 272 everything raises.
-    Each refusal is a ``NotImplementedError`` naming ROADMAP Queue 2 that
-    launches nothing (the plain versions take every head dim on the CPU)."""
+    padded operands) and K1, K2, K3 and K6 raise; at 272 K4 and K4 f32 run
+    (the wide kernels at the width 320) and the others raise. Each refusal
+    is a ``NotImplementedError`` naming the head dim that launches nothing
+    (the plain versions take every head dim on the CPU)."""
     from aether_tpu_torch.ops.attn_prologue import qkv_prologue_hd
     from aether_tpu_torch.ops.flash_attention import flash_attention_prepacked_hd
 
@@ -605,12 +614,12 @@ def test_head_dims_outside_the_range_raise_on_cuda(dev, hd):
     def expect(call, name):
         before = counts()
         if (runs or (hd == 128 and name in ("K2", "K4", "K4 f32"))
-                or (128 < hd <= 256 and name in ("K4", "K4 f32"))):
+                or (hd > 128 and name in ("K4", "K4 f32"))):
             call()
             torch.cuda.synchronize()
             want = dict(before, **{name: before[name] + 1})
         else:
-            with pytest.raises(NotImplementedError, match="Queue 2"):
+            with pytest.raises(NotImplementedError, match="head_dim"):
                 call()
             want = before
         assert counts() == want, name
@@ -1019,6 +1028,60 @@ def test_online_wide_kernels_tiles(dev, hd, b, h, sq, skv, kv_valid, dtype):
     assert _counts(_64_COUNTED) == before64
     assert torch.equal(out, again)
     _check_k4(out, ref)
+
+
+# K4 above 256: the wide kernels (Q and K streamed in head-dim panels, the
+# output in column blocks of 256 in bf16 and 128 in f32) at widths of one to
+# eight column blocks, the last one whole or partial
+ABOVE_256_DIMS = [257, 272, 320, 384, 512, 1000]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid", K4_WIDE_CASES)
+@pytest.mark.parametrize("hd", ABOVE_256_DIMS)
+def test_online_above_256_kernels_tiles(dev, hd, b, h, sq, skv, kv_valid, dtype):
+    """K4's wide kernels ("vpu") on the edges of their tiles against the
+    plain version at K4's gates: one launch of the head-dim kernel of the
+    dtype a call, none of the head_dim-64 ones, two launches bit-identical."""
+    q, k, v = _qkv(dev, (b, h, sq, hd), (b, h, skv, hd), dtype, seed=hd + sq + skv + 5)
+    counter = flash_attention_hd if dtype == torch.bfloat16 else flash_attention_f32_hd
+    before, before64 = counter.launches, _counts(_64_COUNTED)
+    out = flash_attention(q, k, v, kv_valid=kv_valid, denom="mxu")
+    again = flash_attention(q, k, v, kv_valid=kv_valid)
+    ref = flash_attention_plain(q, k, v, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert _counts(_64_COUNTED) == before64
+    assert torch.equal(out, again)
+    _check_k4(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [272, 1000])
+def test_online_above_256_extreme_negative_scores_on_strided_inputs(dev, hd, dtype):
+    """The wide kernels behind a ragged last tile with deeply negative
+    scores, on the DiT's transposed head layout: the uniform average of v."""
+    shape = (1, 200, 3, hd)
+    q = torch.full(shape, 5.0, device=dev).to(dtype).transpose(1, 2)
+    k = torch.full(shape, -5.0, device=dev).to(dtype).transpose(1, 2)
+    v = _qkv(dev, shape, shape, dtype, seed=4)[2].transpose(1, 2)
+    out = flash_attention(q, k, v)
+    _check_k4(out, flash_attention_plain(q, k, v))
+    _check_k4(out, attention_reference(q, k, v))
+
+
+def test_online_f32_above_256_keeps_pv_off_the_tensor_core_accumulator(dev):
+    """K4 f32 at head_dim 512 over the main path's 15076 keys (8 heads): each
+    kv tile's P V, in two 64-column chains, is added to the output on the
+    FMA units, at the gates of 128 (mean abs <= 1e-7, max <= 3e-6)."""
+    q, k, v = _qkv(dev, (1, 8, 15076, 512), (1, 8, 15076, 512), torch.float32, seed=512)
+    before = flash_attention_f32_hd.launches
+    out = flash_attention(q, k, v)
+    ref = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention_f32_hd.launches == before + 1
+    err = (out - ref).abs()
+    assert err.mean().item() <= 1e-7 and err.max().item() <= 3e-6, (err.mean(), err.max())
 
 
 # (batch, heads, q tokens, kv tokens, kv_valid, block_k, dtype)

@@ -111,6 +111,7 @@ def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in (_PKG / "csrc").glob("*.cu"))
     assert names == ["attn_prologue.cu", "flash_fixed_max.cu",
                      "flash_fixed_max_hd.cu", "flash_online.cu", "flash_online_bf16.cu",
+                     "flash_online_wide.cu", "flash_online_wide_bf16.cu",
                      "flash_prepacked.cu", "flash_pv8.cu", "flash_variants.cu",
                      "groupnorm_moments.cu"]
     assert sorted(p.name for p in (_PKG / "csrc").glob("*.cuh")) == [
@@ -120,6 +121,8 @@ def test_kernel_sources_ship_with_the_package():
     assert set(_build.SIGNATURES) == {"aether_qkv_prologue", "aether_qkv_prologue_occupancy",
                                       "aether_flash_prepacked",
                                       "aether_flash_online", "aether_flash_online_bf16",
+                                      "aether_flash_online_wide",
+                                      "aether_flash_online_wide_bf16",
                                       "aether_flash_fixed_max", "aether_flash_fixed_max_f32",
                                       "aether_flash_pv8",
                                       "aether_flash_variants", "aether_groupnorm_moments"}
