@@ -2,10 +2,10 @@
 NVIDIA GPU.
 
     python aether_tpu_torch/bench/time_hd_cells.py unpack REV DIR
-    python aether_tpu_torch/bench/time_hd_cells.py ab DIR [--json OUT] [--only f32|spread]
-        [--rounds N]
+    python aether_tpu_torch/bench/time_hd_cells.py ab DIR [--json OUT]
+        [--only f32|spread|wide] [--rounds N]
     python aether_tpu_torch/bench/time_hd_cells.py run [CHECKOUT] [--json OUT]
-        [--only f32|spread]
+        [--only f32|spread|wide]
     python aether_tpu_torch/bench/time_hd_cells.py digests [CHECKOUT] [--json OUT]
 
 ``unpack`` (in a git checkout) writes revision REV's ``aether_tpu_torch`` and
@@ -51,6 +51,14 @@ through ``flash_attention`` at (1, 48, 15076, D) for D in ``DIGEST_DIMS`` (64,
 inputs drawn on the card from seed D
 (:func:`k4_digests`), for one checkout (default: this one): the outputs that
 ``chip_smoke.py`` phase 29d holds, bit for bit, to a parent's.
+
+``--only wide`` runs K4 bf16 and f32 above head_dim 256 (the wide kernels,
+``csrc/flash_online_wide_bf16.cu`` and ``flash_online_wide.cu``) at (1, 48,
+15076, D) for D in ``WIDE_DIMS`` (320 and 512), through the wrapper and alone
+on the operands it prepares (three means of 3 calls in bf16, of 1 in f32),
+each output held to its plain version at ``chip_smoke.py``'s gates (bf16
+``bf16_gates``, f32 ``K4_F32_128_BARS``; the run fails otherwise), beside
+one ``scaled_dot_product_attention`` call of the same shape and dtype.
 
 ``--only spread`` runs the head_dim-64 cases of K2, K4, K7 and K8 above and
 then only the cells whose parent / change ratio spreads most from call to
@@ -167,8 +175,11 @@ def run(checkout: str, out_json, only=None) -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    if only == "f32":
-        f32_cases(cs, fa, _build, dev, gen, result, times)
+    if only in ("f32", "wide"):
+        if only == "f32":
+            f32_cases(cs, fa, _build, dev, gen, result, times)
+        else:
+            wide_cases(cs, fa, dev, gen, result, times)
         if out_json:
             with open(out_json, "w") as f:
                 json.dump(result, f)
@@ -407,6 +418,55 @@ def f32_cases(cs, fa, _build, dev, gen, result, times, dims=F32_DIMS, k4=True) -
         torch.cuda.empty_cache()
 
 
+WIDE_DIMS = (320, 512)
+
+
+def wide_cases(cs, fa, dev, gen, result, times) -> None:
+    """K4 bf16 and f32 at (1, 48, 15076, D), D in ``WIDE_DIMS``: the wide
+    kernels through the wrapper and alone, against the plain version at
+    ``chip_smoke.py``'s gates, beside one SDPA call of the dtype."""
+    for hd in WIDE_DIMS:
+        for dtype, tag, iters in ((torch.bfloat16, "bf16", 3), (torch.float32, "f32", 1)):
+            name = f"K4 {tag} hd{hd}"
+            q, k, v = (torch.randn((1, H, S, hd), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            out = fa.flash_attention(q, k, v)
+            ref = fa.flash_attention_plain(q, k, v)
+            err = (out.float() - ref.float()).abs()
+            e_max, e_mean = err.max().item(), err.mean().item()
+            bars = cs.bf16_gates(ref) if dtype == torch.bfloat16 else cs.K4_F32_128_BARS
+            del ref, err
+            result["digests"][name] = digest(out)
+            result.setdefault("f32_err", {})[name] = (e_max, e_mean)
+            qh, kh, vh, kv_len, fold = fa._online_kernel_operands(q, k, v, None, None)
+            buf = torch.empty_like(qh)
+            if dtype == torch.bfloat16:
+                def launch():
+                    fa._online_bf16_launch(qh, kh, vh, buf, kv_len, False, fold)
+            else:
+                split = fa._tf32_operands((qh * fold).to(qh.dtype), kh, vh)
+
+                def launch():
+                    fa._online_f32_launch(split, buf, kv_len)
+            t_wrap = times(name, lambda: fa.flash_attention(q, k, v), iters)
+            t_alone = times(name + " alone", launch, iters)
+            torch.cuda.synchronize()
+            same = torch.equal(buf.reshape(out.shape), out)
+            del qh, kh, vh, buf
+            lib = cs.sdpa_or_none(q, k, v, iters)
+            if lib is not None:
+                result["ms"][f"SDPA {tag} hd{hd}"] = [lib]
+            print(f"{name}: wrapper {t_wrap} ms, alone {t_alone} ms; max abs err {e_max:.3e}, "
+                  f"mean {e_mean:.3e} against the plain version (gates {bars[0]:.3e} / "
+                  f"{bars[1]:.3e}); alone bit-identical: {'yes' if same else 'NO'}; SDPA "
+                  + (f"{lib:.4f} ms" if lib is not None else "none"), flush=True)
+            del q, k, v, out
+            torch.cuda.empty_cache()
+            if e_max > bars[0] or e_mean > bars[1] or not same:
+                raise SystemExit(f"{name}: max abs err {e_max:.3e} / mean {e_mean:.3e} against "
+                                 f"the plain version (gates {bars}), alone identical {same}")
+
+
 def ab(other: str, out_json, only=None, rounds: int = 1) -> None:
     """DIR, this checkout, this checkout, DIR (``rounds`` times over), each
     in its own process."""
@@ -476,12 +536,12 @@ def main(argv) -> None:
     a = sub.add_parser("ab")
     a.add_argument("dir")
     a.add_argument("--json")
-    a.add_argument("--only", choices=["f32", "spread"])
+    a.add_argument("--only", choices=["f32", "spread", "wide"])
     a.add_argument("--rounds", type=int, default=1)
     r = sub.add_parser("run")
     r.add_argument("checkout", nargs="?", default=ROOT)
     r.add_argument("--json")
-    r.add_argument("--only", choices=["f32", "spread"])
+    r.add_argument("--only", choices=["f32", "spread", "wide"])
     d = sub.add_parser("digests")
     d.add_argument("checkout", nargs="?", default=ROOT)
     d.add_argument("--json")

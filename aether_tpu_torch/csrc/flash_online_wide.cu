@@ -28,39 +28,51 @@
 // three TF32 products of 4.4e10 x D flops, 0.2645 ms x D at 495 TFLOP/s
 // (84.6 ms at 320, 135.4 at 512). tf32x3_cell.cuh's plans stop at 256:
 // Q_hi of 64 rows is 64 KB there and Q_lo a register fragment of D / 4 a
-// thread. The design here takes every D with one tile plan:
-//   * the grid is (q tiles of 128 rows, output column blocks of kC = 128,
-//     B*H); a CTA has two consumer warpgroups of 64 q rows and a producer
-//     warpgroup that hands its registers to them (setmaxnreg: 24 / 240);
-//   * S = Q K^T of a 64-row kv tile streams the head dim through shared
-//     memory: the producer brings Q_hi, Q_lo, K_hi and K_lo in panels of 32
-//     columns (128-byte rows, 128-byte swizzle) into a ring of kQKStages
-//     slots by TMA; a panel is four k8 steps of three wgmma m64n64k8 tf32,
-//     all operands from shared memory, one panel in flight while the next
-//     is waited for. The tensor cores sum kFold panels (128 columns, as many
-//     products as the cell's at 128) into fresh registers and S takes each
-//     group in on the FMA units: kept on the tensor-core accumulator over the
-//     whole head dim, S lost accuracy with D (the first form read a max error
-//     of 2.7e-6 at 512 over 15076 keys against the plain version, 1.0e-6 at
-//     320; PERF.md section 6);
+// thread. The first form of this kernel cut the output into blocks
+// of 128 columns, a CTA each; each block summed the whole S again (2.5x the
+// function's products at 320 and 512) and read Q_hi and Q_lo from L2 every
+// kv tile (~4.4 TB a call at 512): 10.5-15.0% of its bound, slower than
+// SDPA f32. The plan here computes S once a q tile:
+//   * a thread-block cluster of n CTAs takes a q tile of 128 rows (the
+//     grid's y axis, ops/flash_attention.py::_wide_plan and wide_cluster in
+//     hopper.cuh): CTA r owns a slice of the head dim, at most kC = 128
+//     columns, the dp / 64 units dealt out evenly (320: 128 + 128 + 64, 512:
+//     4 x 128, n up to 8 at 1024); a CTA has two consumer warpgroups of 64 q
+//     rows and a producer warpgroup that hands its registers to them
+//     (setmaxnreg: 24 / 240);
+//   * each CTA is tf32x3_cell.cuh's kOnline plan at 128 on its slice: Q_hi
+//     stays in shared memory (64 KB) and Q_lo in registers (64 a thread) for
+//     the whole kv loop; K_hi, K_lo and the slice's rows of V^T come in
+//     32-row kv tiles through a ring of kStages slots by TMA (128-byte
+//     swizzle); the CTA's part of S is 3 x 16 k steps of wgmma m64n32k8
+//     tf32 on the tensor core (128 columns, as many products as the cell's
+//     at 128, whose accumulation that keeps to f32 accuracy);
+//   * the parts meet through distributed shared memory (ScoreExchange in
+//     hopper.cuh, pulled: each CTA loads the other ranks' parts, four ranks'
+//     at a time) and are added in rank order on the FMA units, so every CTA
+//     holds the same S, bit for bit;
 //   * P stays in registers, split into P_hi and P_lo as the A operands of P
-//     V (tf32x3_cell.cuh's kv order of V^T: no shuffle); V^T holds only this
-//     CTA's kC rows (two 32-column kv panels of kC 128-byte rows a tile, one
-//     slot), in two chains of 64 output columns, each waited for and folded
-//     into the output in turn (tf32x3_cell.cuh's <128> plan, its second
-//     chain not carried across the next tile's S, where S's sum needs the
-//     registers);
-//   * a consumer thread holds the kC / 2 = 64 f32 of its output, 32 of S's
-//     sum and 32 of a group's, and between S and P V 32 of a chain's P V
-//     and 64 of P_hi and P_lo, whatever D is; kC is 128, not 256, because
-//     the output twice as wide would not fit in its 240 registers beside S
-//     and P;
+//     V (tf32x3_cell.cuh's kv order of V^T: no shuffle), in chains of 64
+//     output columns into fresh registers, folded into the output on the FMA
+//     units; the slice's last chain stays in flight across the next tile's
+//     part of S (the cell's <128> plan); a consumer thread holds 64 f32 of
+//     output, 64 of Q_lo, 32 of a chain, 32 of P_hi and P_lo and 16 of S;
+//   * above 8 slices (dp > 1024) clusters along y each compute S so and
+//     split the output columns between their CTAs evenly, each CTA's slice
+//     then wider than 128: it sums S in chunks of at most 128 columns (the
+//     kChunked instance), Q_hi and Q_lo loaded again for each chunk of each
+//     kv tile, the chunks added on the FMA units;
 //   * rows past the tensors' ends and V^T rows past dp arrive as zeros
-//     (TMA), stores past sq or dp are dropped, tiles wholly past kv_len are
-//     skipped and only the last is masked.
-// Each column block computes S again: the work is dp / kC times S plus P V,
-// 2.5x the function's at 512 and at 320 (three blocks, the last half used).
-// Q_hi and Q_lo are read from L2 once a kv tile, twice K's bytes.
+//     (TMA), stores past the slice or sq are dropped, tiles wholly past
+//     kv_len are skipped and only the last is masked.
+// The products are the function's, once; L2 gives each CTA K's and V's
+// slices a tile (~0.69 TB a call at 512). The exchange moves 16 KB a CTA
+// and 32-row tile through DSMEM, pulled from the n - 1 other ranks: for 32
+// KB parts bench/dsmem_probe.py reads 2.6 us a tile alone at n = 3 and 3.6
+// at n = 4 on an H100 at 700 W (PERF.md section 6), one rank's part at a
+// time (loading four ranks' at once read slower and spilled).
+// Shared memory: Q_hi 64 KB + 2 stages of 64 + the exchange 2 x 16 = 224 KB
+// of the 227 a block may take.
 // Compiled without --use_fast_math so exp2f and the division stay accurate.
 
 #include <cuda_runtime.h>
@@ -68,6 +80,7 @@
 #include <stdint.h>
 
 #include "tf32x3_cell.cuh"
+
 
 namespace {
 namespace wide_f32 {
@@ -79,77 +92,102 @@ using tf32x3_cell::pv;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBM = 128;     // q rows a CTA: two consumer warpgroups of 64
-constexpr int kBN = 64;      // kv rows a tile
+constexpr int kBN = 32;      // kv rows a tile
 constexpr int kPanel = 32;   // head-dim columns of a Q or K panel (128 bytes)
-constexpr int kC = 128;      // output columns a CTA
+constexpr int kUnit = 64;    // head-dim columns of a unit of the plan
+constexpr int kC = 128;      // head-dim columns of a chunk of S, and of the output, at most
+constexpr int kPanels = kC / kPanel, kSteps = kC / 8;
 constexpr int kPV = 64;      // output columns of one P V chain
-constexpr int kFold = 4;     // Q K^T panels the tensor cores sum before S takes them in
 constexpr int kConsumers = 256, kThreads = kConsumers + 128;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <=
                   kThreads * ((65536 / kThreads) & ~7),
               "setmaxnreg asks for more registers than the CTA starts with");
-constexpr int kQPanel = kBM * 128;      // bytes of a Q_hi or Q_lo panel
+constexpr int kQPanel = kBM * 128;      // bytes of a Q_hi panel
 constexpr int kKPanel = kBN * 128;      // of a K_hi or K_lo panel
-constexpr int kVPanel = kC * 128;       // of 32 kv columns of V^T_hi or V^T_lo
-constexpr int kVTile = kBN / 32 * kVPanel;
-constexpr int kQKStages = 3, kVStages = 1;
+constexpr int kVTile = kC * kBN * 4;    // of a tile of V^T_hi or V^T_lo (kC rows)
+constexpr int kStages = 2;
 
 struct Smem {
-  uint8_t q[kQKStages][2][kQPanel];  // Q_hi, Q_lo
-  uint8_t k[kQKStages][2][kKPanel];  // K_hi, K_lo
-  uint8_t v[kVStages][2][kVTile];    // V^T_hi, V^T_lo
-  Ring<kQKStages> qk;
-  Ring<kVStages> vr;
+  uint8_t q[kPanels][kQPanel];                   // Q_hi's chunk: 64 KB
+  uint8_t k[kStages][2][kPanels][kKPanel];       // K_hi, K_lo
+  uint8_t v[kStages][2][kVTile];                 // V^T_hi, V^T_lo
+  ScoreExchange<kConsumers / 32, kBN / 2> x;
+  Ring<1> qr;  // Q_hi: loaded once, or chunk by chunk where the slice is wider
+  Ring<kStages> ring;
 };
 // + 1024 so the tiles can start on a 1024-byte boundary
 constexpr int kSmem = sizeof(Smem) + 1024;
-static_assert(kSmem <= 232448, "the rings must fit in the 227 KB a block may take");
+static_assert(kSmem <= 232448, "the tiles must fit in the 227 KB a block may take");
 
 struct Params {
+  const float* q_lo;   // [BH, sq, dp]
   float* out;          // [BH, sq, dp]
   int sq, kv_len, dp;  // dp: the width, a multiple of 64
+  int cluster, ctas;   // CTAs a cluster, and along the grid's y axis
 };
 
+// kChunked: the slice wider than kC (dp > 8 x kC), S summed over it in chunks
+// of kC columns, Q_hi and Q_lo loaded again for every chunk of every kv tile;
+// else Q_hi stays in shared memory and Q_lo in registers for the whole kv loop
+template <bool kChunked>
 __global__ void __launch_bounds__(kThreads, 1)
-wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__ CUtensorMap qlo_map,
-            const __grid_constant__ CUtensorMap khi_map, const __grid_constant__ CUtensorMap klo_map,
-            const __grid_constant__ CUtensorMap vhi_map, const __grid_constant__ CUtensorMap vlo_map,
-            const Params prm) {
+wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__ CUtensorMap khi_map,
+            const __grid_constant__ CUtensorMap klo_map, const __grid_constant__ CUtensorMap vhi_map,
+            const __grid_constant__ CUtensorMap vlo_map, const Params prm) {
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int q0 = blockIdx.x * kBM, c0 = blockIdx.y * kC, bh = blockIdx.z;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int q0 = blockIdx.x * kBM, bh = blockIdx.z;
   const int n_tiles = (prm.kv_len + kBN - 1) / kBN;  // later tiles change nothing
-  const int panels = prm.dp / kPanel;
+  const int n = prm.cluster, rank = static_cast<int>(cluster_ctarank());
+  // this CTA's slice of S's head dim, in chunks of at most kC columns, and
+  // its output columns
+  const int units = prm.dp / kUnit;
+  const int s0 = part_start(units, n, rank) * kUnit;
+  const int s_cols = part_count(units, n, rank) * kUnit;
+  const int chunks = kChunked ? (s_cols + kC - 1) / kC : 1;
+  const int o0 = part_start(units, prm.ctas, blockIdx.y) * kUnit;
+  const int o_units = part_count(units, prm.ctas, blockIdx.y);
 
   if (threadIdx.x == 0) {
-    sm.qk.init(kConsumers);
-    sm.vr.init(kConsumers);
+    sm.qr.init(kConsumers);
+    sm.ring.init(kConsumers);
+    sm.x.init(sm.x.arrivals(n));
     mbar_init_fence();
   }
-  __syncthreads();
+  // every barrier of the cluster is initialized before any CTA arrives on one
+  cluster_arrive();
+  cluster_wait();
 
   if (threadIdx.x >= kConsumers) {
-    // ---- producer: one thread issues every TMA load; for each kv tile the
-    // Q and K panels in head-dim order, then the tile's V^T rows ----
+    // ---- producer: one thread issues every TMA load: for each kv tile and
+    // chunk, Q_hi's chunk (once, unless kChunked), K_hi's and K_lo's, and
+    // with the tile's last chunk its V^T rows ----
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kConsumers) {
       for (int t = 0, i = 0; t < n_tiles; ++t) {
-        for (int p = 0; p < panels; ++p, ++i) {
-          const int s = sm.qk.acquire(i, 2 * (kQPanel + kKPanel));
-          tma_load_3d(sm.q[s][0], &qhi_map, &sm.qk.full[s], p * kPanel, q0, bh);
-          tma_load_3d(sm.q[s][1], &qlo_map, &sm.qk.full[s], p * kPanel, q0, bh);
-          tma_load_3d(sm.k[s][0], &khi_map, &sm.qk.full[s], p * kPanel, t * kBN, bh);
-          tma_load_3d(sm.k[s][1], &klo_map, &sm.qk.full[s], p * kPanel, t * kBN, bh);
+        for (int ch = 0; ch < chunks; ++ch, ++i) {
+          const int c0 = s0 + ch * kC, panels = min(kC, s_cols - ch * kC) / kPanel;
+          const bool last = ch == chunks - 1;
+          if (kChunked || i == 0) {
+            sm.qr.acquire(i, panels * kQPanel);
+            for (int p = 0; p < panels; ++p)
+              tma_load_3d(sm.q[p], &qhi_map, &sm.qr.full[0], c0 + p * kPanel, q0, bh);
+          }
+          const int s = sm.ring.acquire(i, 2 * panels * kKPanel + (last ? 2 * kVTile : 0));
+          for (int p = 0; p < panels; ++p) {
+            tma_load_3d(sm.k[s][0][p], &khi_map, &sm.ring.full[s], c0 + p * kPanel, t * kBN, bh);
+            tma_load_3d(sm.k[s][1][p], &klo_map, &sm.ring.full[s], c0 + p * kPanel, t * kBN, bh);
+          }
+          if (last) {
+            tma_load_3d(sm.v[s][0], &vhi_map, &sm.ring.full[s], t * kBN, o0, bh);
+            tma_load_3d(sm.v[s][1], &vlo_map, &sm.ring.full[s], t * kBN, o0, bh);
+          }
         }
-        const int s = sm.vr.acquire(t, 2 * kVTile);
-        for (int h = 0; h < 2; ++h)
-          for (int j = 0; j < kBN / 32; ++j)
-            tma_load_3d(sm.v[s][h] + j * kVPanel, h ? &vlo_map : &vhi_map, &sm.vr.full[s],
-                        t * kBN + 32 * j, c0, bh);
       }
     }
+    cluster_arrive();  // no CTA leaves while another may read its shared memory
+    cluster_wait();
     return;
   }
 
@@ -159,47 +197,88 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
   const int lane = tid % 32, warp = t / 32;
   const int c = lane % 4;
   const int row = q0 + wg * 64 + warp * 16 + lane / 4;  // and row + 8
+  const uint64_t qdesc = make_desc(sm.q[0] + wg * 64 * 128, 16, 8 * 128, kSw128);
 
-  float o[kC / 2];  // output columns c0 .. c0 + kC - 1, summed on the FMA units
+  // Q_lo of a chunk as the A fragments of Q_lo K_hi^T: k step st holds
+  // columns 8 st + c and 8 st + c + 4 of rows row and row + 8 (rows past sq
+  // and steps past the chunk: zeros)
+  uint32_t qlo[kSteps][4];
+  auto load_qlo = [&](int c0, int steps) {
+    const float* q_lo = prm.q_lo + (int64_t)bh * prm.sq * prm.dp + c0;
+#pragma unroll
+    for (int st = 0; st < kSteps; ++st)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row + 8 * (e % 2), col = 8 * st + c + 4 * (e / 2);
+        qlo[st][e] = r < prm.sq && st < steps
+                         ? __float_as_uint(__ldg(q_lo + (int64_t)r * prm.dp + col))
+                         : 0u;
+      }
+  };
+  if (!kChunked) load_qlo(s0, s_cols / 8);
+
+  float o[kC / 2];  // output columns o0 .., summed on the FMA units
 #pragma unroll
   for (int i = 0; i < kC / 2; ++i) o[i] = 0.0f;
-  float ot[kPV / 2];  // one chain's P V, on the tensor core
+  // the P V chain of the tile in flight (the last of its o_units), on the
+  // tensor core, and the alpha of that tile, with which o takes it in
+  float ot[kPV / 2];
+  float fold0 = 1.0f, fold1 = 1.0f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows row, row + 8
+  // P_hi and P_lo as the A fragments of P V
   uint32_t phi[kBN / 8][4], plo[kBN / 8][4];
+  auto fold_last = [&]() {
+    if (o_units > 1)
+      fold<kC, kPV, 1>(o, ot, fold0, fold1);
+    else
+      fold<kC, kPV, 0>(o, ot, fold0, fold1);
+  };
 
   for (int it = 0, i = 0; it < n_tiles; ++it) {
-    // ---- S = Q_hi K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T, a panel at a time,
-    // kFold panels on the tensor core into acc, each group added into sv on
-    // the FMA units ----
-    float acc[kBN / 2], sv[kBN / 2];
-    for (int p = 0; p < panels; ++p, ++i) {
-      const int s = sm.qk.wait_full(i);
-      const uint64_t qhi = make_desc(sm.q[s][0] + wg * 64 * 128, 16, 8 * 128, kSw128);
-      const uint64_t qlo = make_desc(sm.q[s][1] + wg * 64 * 128, 16, 8 * 128, kSw128);
-      const uint64_t khi = make_desc(sm.k[s][0], 16, 8 * 128, kSw128);
-      const uint64_t klo = make_desc(sm.k[s][1], 16, 8 * 128, kSw128);
+    // ---- this CTA's part of S = Q_hi K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T,
+    // on the tensor core a chunk at a time, the chunks added on the FMA units
+    float sv[kBN / 2];
+    int s = 0;
+    for (int ch = 0; ch < chunks; ++ch, ++i) {
+      const int steps = min(kC, s_cols - ch * kC) / 8;
+      if (kChunked) {
+        load_qlo(s0 + ch * kC, steps);
+        sm.qr.wait_full(i);
+      } else if (i == 0) {
+        sm.qr.wait_full(0);
+      }
+      s = sm.ring.wait_full(i);
+      float acc[kBN / 2];
+      const uint64_t khi = make_desc(sm.k[s][0][0], 16, 8 * 128, kSw128);
+      const uint64_t klo = make_desc(sm.k[s][1][0], 16, 8 * 128, kSw128);
       wgmma_fence();
 #pragma unroll
-      for (int st = 0; st < kPanel / 8; ++st) {
-        const uint32_t off = 32 * st;
-        wgmma_ss_tf32<kBN>(acc, desc_add(qhi, off), desc_add(khi, off),
-                           p % kFold > 0 || st > 0);
-        wgmma_ss_tf32<kBN>(acc, desc_add(qhi, off), desc_add(klo, off), 1);
-        wgmma_ss_tf32<kBN>(acc, desc_add(qlo, off), desc_add(khi, off), 1);
+      for (int st = 0; st < kSteps; ++st) {
+        if (st < steps) {  // a chunk of 64 columns takes half the steps
+          const uint32_t qa = (st / 4) * kQPanel + 32 * (st % 4);
+          const uint32_t kb = (st / 4) * kKPanel + 32 * (st % 4);
+          wgmma_ss_tf32<kBN>(acc, desc_add(qdesc, qa), desc_add(khi, kb), st > 0);
+          wgmma_ss_tf32<kBN>(acc, desc_add(qdesc, qa), desc_add(klo, kb), 1);
+          wgmma_rs_tf32<kBN>(acc, qlo[st], desc_add(khi, kb), 1);
+        }
       }
       wgmma_commit();
-      // the panel before this one has been read
-      wgmma_wait<1>();
-      if (p > 0) sm.qk.release(i - 1);
-      if (p % kFold == kFold - 1 || p == panels - 1) {  // the group is done
-        wgmma_wait<0>();
-        fence_regs(acc);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(o);
+      fence_regs(phi);
+      fence_regs(plo);
+      fence_regs(qlo);
+      fence_regs(ot);
+      if (i > 0) sm.ring.release(i - 1);  // its P V (where it held V^T) has completed
+      if (kChunked) sm.qr.release(i);
+      if (!kChunked && it > 0) fold_last();  // the previous tile's last P V chain
 #pragma unroll
-        for (int j = 0; j < kBN / 2; ++j) sv[j] = p < kFold ? acc[j] : __fadd_rn(sv[j], acc[j]);
-      }
+      for (int j = 0; j < kBN / 2; ++j) sv[j] = ch == 0 ? acc[j] : __fadd_rn(sv[j], acc[j]);
     }
-    fence_regs(o);
-    sm.qk.release(i - 1);
+
+    // ---- S over the cluster, the same bits in every CTA ----
+    sm.x.sum(sv, it, n, rank, tid / 32, lane);
 
     // ---- the running max, masked past kv_len ----
     const int kv0 = it * kBN;
@@ -245,24 +324,40 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
     l0 = __fadd_rn(__fmul_rn(alpha0, l0), sum0);
     l1 = __fadd_rn(__fmul_rn(alpha1, l1), sum1);
 
-    // ---- P V over this CTA's kC rows of V^T, in two chains of kPV output
-    // columns into fresh registers, each folded into o in turn ----
-    const int vs = sm.vr.wait_full(it);
-    const uint64_t vhi = make_desc(sm.v[vs][0], 16, 8 * 128, kSw128);
-    const uint64_t vlo = make_desc(sm.v[vs][1], 16, 8 * 128, kSw128);
-    pv<kC, kPV, 0, kBN>(ot, phi, plo, vhi, vlo);
+    // ---- P V over this CTA's rows of V^T (the stage of the tile's last
+    // chunk), in chains of kPV output columns into fresh registers: the
+    // first of two folded into o at once, the last left in flight across the
+    // next tile's S and folded after it (with kChunked, at once) ----
+    const uint64_t vhi = make_desc(sm.v[s][0], 16, 8 * 128, kSw128);
+    const uint64_t vlo = make_desc(sm.v[s][1], 16, 8 * 128, kSw128);
+    fold0 = alpha0;
+    fold1 = alpha1;
+    if (o_units > 1) {
+      pv<kC, kPV, 0, kBN>(ot, phi, plo, vhi, vlo);
+      wgmma_wait<0>();
+      fence_regs(ot);
+      fence_regs(phi);
+      fence_regs(plo);
+      fold<kC, kPV, 0>(o, ot, alpha0, alpha1);
+      pv<kC, kPV, 1, kBN>(ot, phi, plo, vhi, vlo);
+    } else {
+      pv<kC, kPV, 0, kBN>(ot, phi, plo, vhi, vlo);
+    }
+    if (kChunked) {
+      wgmma_wait<0>();
+      fence_regs(ot);
+      fence_regs(phi);
+      fence_regs(plo);
+      fold_last();
+    }
+  }
+  if (!kChunked) {
     wgmma_wait<0>();
-    fence_regs(ot);
+    fence_regs(o);
     fence_regs(phi);
     fence_regs(plo);
-    fold<kC, kPV, 0>(o, ot, alpha0, alpha1);
-    pv<kC, kPV, 1, kBN>(ot, phi, plo, vhi, vlo);
-    wgmma_wait<0>();
     fence_regs(ot);
-    fence_regs(phi);
-    fence_regs(plo);
-    fold<kC, kPV, 1>(o, ot, alpha0, alpha1);
-    sm.vr.release(it);
+    if (n_tiles > 0) fold_last();
   }
 
   l0 = __fadd_rn(l0, __shfl_xor_sync(kFull, l0, 1));
@@ -271,11 +366,11 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
   l1 = __fadd_rn(l1, __shfl_xor_sync(kFull, l1, 2));
   const float inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
   const float inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
-  float* obase = prm.out + (int64_t)bh * prm.sq * prm.dp + c0;
+  float* obase = prm.out + (int64_t)bh * prm.sq * prm.dp + o0;
 #pragma unroll
   for (int j = 0; j < kC / 8; ++j) {
     const int col = 8 * j + 2 * c;
-    if (c0 + col < prm.dp) {
+    if (col < kUnit * o_units) {
       if (row < prm.sq)
         *reinterpret_cast<float2*>(obase + (int64_t)row * prm.dp + col) =
             make_float2(__fmul_rn(o[4 * j], inv0), __fmul_rn(o[4 * j + 1], inv0));
@@ -284,6 +379,8 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
             make_float2(__fmul_rn(o[4 * j + 2], inv1), __fmul_rn(o[4 * j + 3], inv1));
     }
   }
+  cluster_arrive();  // this CTA's reads of the others' shared memory are done
+  cluster_wait();
 }
 
 }  // namespace wide_f32
@@ -293,36 +390,55 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
 // k_hi, k_lo: [BH, skv, dp] f32, rows at or past kv_len zero; vt_hi, vt_lo:
 // [BH, dp, skv rounded up to 8] f32, v transposed, split and kv-permuted
 // (ops/flash_attention.py::_tf32_operands); all contiguous and 16-byte
-// aligned, dp a multiple of 64 (the head dim rounded up; the columns past it
-// zero), any lengths. Returns a cudaError_t.
+// aligned, dp a multiple of 64 above 256 (the head dim rounded up; the
+// columns past it zero), any lengths. cluster, groups: the wrapper's
+// _wide_plan (CTAs a cluster, clusters along y), checked against hopper.cuh's
+// wide_cluster / wide_groups. Returns a cudaError_t.
 extern "C" int aether_flash_online_wide(const void* q_hi, const void* q_lo, const void* k_hi,
                                         const void* k_lo, const void* vt_hi, const void* vt_lo,
                                         void* out, int BH, int sq, int skv, int kv_len, int dp,
-                                        void* stream) {
+                                        int cluster, int groups, void* stream) {
   using namespace wide_f32;
+  const int units = dp / kUnit, top = kC / kUnit;
   if (BH <= 0 || BH > 65535 || sq <= 0 || skv <= 0 || kv_len < 0 || kv_len > skv ||
-      dp <= 0 || dp % 64 || (dp + kC - 1) / kC > 65535)
+      dp <= 256 || dp % kUnit || cluster != wide_cluster(units, top) ||
+      groups != wide_groups(units, top) || cluster * groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const int skv8 = (skv + 7) / 8 * 8;
-  CUtensorMap qhi_map, qlo_map, khi_map, klo_map, vhi_map, vlo_map;
+  CUtensorMap qhi_map, khi_map, klo_map, vhi_map, vlo_map;
   if (!make_map_3d(&qhi_map, q_hi, f32, 4, dp, sq, BH, kPanel, kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&qlo_map, q_lo, f32, 4, dp, sq, BH, kPanel, kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_map_3d(&khi_map, k_hi, f32, 4, dp, skv, BH, kPanel, kBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_map_3d(&klo_map, k_lo, f32, 4, dp, skv, BH, kPanel, kBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&vhi_map, vt_hi, f32, 4, skv8, dp, BH, 32, kC, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&vlo_map, vt_lo, f32, 4, skv8, dp, BH, 32, kC, CU_TENSOR_MAP_SWIZZLE_128B))
+      !make_map_3d(&vhi_map, vt_hi, f32, 4, skv8, dp, BH, kBN, kC, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_3d(&vlo_map, vt_lo, f32, 4, skv8, dp, BH, kBN, kC, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   Params prm{};
+  prm.q_lo = static_cast<const float*>(q_lo);
   prm.out = static_cast<float*>(out);
   prm.sq = sq;
   prm.kv_len = kv_len;
   prm.dp = dp;
-  cudaError_t err =
-      cudaFuncSetAttribute(wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  prm.cluster = cluster;
+  prm.ctas = cluster * groups;
+  // each CTA's slice within kC columns where one cluster spans the width
+  void (*fn)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, Params) =
+      groups == 1 ? wide_kernel<false> : wide_kernel<true>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBM - 1) / kBM, (dp + kC - 1) / kC, BH);
-  wide_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      qhi_map, qlo_map, khi_map, klo_map, vhi_map, vlo_map, prm);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((sq + kBM - 1) / kBM, cluster * groups, BH);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = kSmem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, qhi_map, khi_map, klo_map, vhi_map, vlo_map, prm);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,8 +6,9 @@
 // prologue (attn_prologue.cu): shared-memory matrix descriptors, the wgmma
 // instructions they issue with their fences, the exact s32 -> f32 move and
 // the tf32 rounding their operands take, the mbarrier ring, TMA tile loads,
-// thread-block cluster barriers and distributed shared memory, and the
-// host-side tensor-map encoding.
+// thread-block cluster barriers and distributed shared memory (with K4's
+// wide kernels' score exchange and cluster plan), and the host-side
+// tensor-map encoding.
 //
 // Layouts. A tile is brought into shared memory by one TMA load of a 3-D
 // box {row bytes, rows, 1} out of a [heads, rows, row bytes] tensor, with the
@@ -488,6 +489,172 @@ __device__ __forceinline__ float cluster_load(uint32_t addr) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
   return v;
+}
+// four floats (16-byte aligned) from distributed shared memory
+__device__ __forceinline__ float4 cluster_load4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// one arrival on the mbarrier `bar` (this CTA's address of it) in CTA
+// `rank` of the cluster, releasing the thread's earlier writes to the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   cluster_map(bar, rank))
+               : "memory");
+}
+// mbar_wait that acquires what the arrivals of other CTAs released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "LAB_WAIT_CLUSTER:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT_CLUSTER;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// four floats into distributed shared memory (an address from cluster_map)
+// with st.async: their 16 bytes count towards the transaction count of the
+// mbarrier at `bar` (cluster_map of a barrier in the same CTA), as a TMA
+// load's do; the writer does not wait
+__device__ __forceinline__ void st_async4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// ---- scores summed over a cluster (K4's wide kernels) ----
+// The CTAs of a cluster split the head dim of one q tile; each holds, in the
+// f32 accumulator fragments of its consumer warps, its part of S for a kv
+// tile (kF floats a thread). sum() gives every CTA the same S, bit for bit,
+// in place of its part: S = part_0 + part_1 + ... + part_(n-1), added in rank
+// order in every CTA, through distributed shared memory (DSMEM), one barrier
+// a tile parity and warp, the parts double-buffered by tile parity. Two
+// forms, timed alone by bench/dsmem_probe.py (a pair exchanging 32 KB a CTA
+// and tile: 0.90 us pushed, 1.67 us pulled, on an H100 at 700 W; PERF.md):
+//   * push (n = 2): each thread writes its part into the other CTA's slot
+//     with st.async, whose bytes complete that CTA's barrier (lane 0 arms its
+//     own with the bytes it expects), and adds the part it received from its
+//     own shared memory;
+//   * pull (any n): each thread publishes its part in its own CTA's shared
+//     memory, lanes 0 .. n - 1 of its warp announce it on the warp barrier of
+//     CTA 0 .. n - 1 (one arrival each, released to the cluster), and once
+//     its barrier has n arrivals each thread reads its counterparts' parts
+//     (same warp, same lane) from the other CTAs.
+// Either way a CTA writes tile t + 2's part into a buffer only after every
+// CTA has sent or announced tile t + 1's, which each does after reading tile
+// t's: one barrier a tile and warp suffices. The caller keeps every CTA of
+// the cluster alive until the others' last reads and writes are done (a
+// cluster barrier before it exits).
+template <int kWarps, int kF>
+struct ScoreExchange {
+  static constexpr int kGroups = kF / 4;
+  float4 part[2][kWarps][kGroups][32];  // [tile parity][warp][4-float group][lane]
+  uint64_t ready[2][kWarps];
+
+  // the arrivals a warp barrier takes a tile: sum()'s form for n CTAs
+  static __device__ uint32_t arrivals(int n) { return n == 2 ? 1 : n; }
+  __device__ void init(uint32_t count) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mbar_init(&ready[p][w], count);
+  }
+
+  // S of kv tile `tile` in place of this thread's part in s, over the n CTAs
+  // of the cluster (this one `rank`); every thread of the warp calls it
+  __device__ __forceinline__ void sum(float (&s)[kF], int tile, int n, int rank, int warp,
+                                      int lane) {
+    if (n == 2)
+      push(s, tile, rank, warp, lane);
+    else
+      pull(s, tile, n, rank, warp, lane);
+  }
+
+  // the pair's form (barriers of 1 arrival)
+  __device__ __forceinline__ void push(float (&s)[kF], int tile, int rank, int warp, int lane) {
+    const int par = tile & 1;
+    float4* mine = &part[par][warp][0][lane];
+    if (lane == 0) mbar_expect_tx(&ready[par][warp], kGroups * 32 * 16);
+    const uint32_t dst = cluster_map(mine, rank ^ 1);
+    const uint32_t bar = cluster_map(&ready[par][warp], rank ^ 1);
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+      st_async4(dst + 512 * j, make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]),
+                bar);
+    mbar_wait(&ready[par][warp], (tile >> 1) & 1);
+    // part_0 + part_1: f32 addition commutes, so both CTAs hold the same bits
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j) {
+      const float4 t = mine[32 * j];
+      s[4 * j] = __fadd_rn(s[4 * j], t.x);
+      s[4 * j + 1] = __fadd_rn(s[4 * j + 1], t.y);
+      s[4 * j + 2] = __fadd_rn(s[4 * j + 2], t.z);
+      s[4 * j + 3] = __fadd_rn(s[4 * j + 3], t.w);
+    }
+  }
+
+  // any n (barriers of n arrivals); its own part read back from shared memory
+  __device__ __forceinline__ void pull(float (&s)[kF], int tile, int n, int rank, int warp,
+                                       int lane) {
+    const int par = tile & 1;
+    float4* mine = &part[par][warp][0][lane];
+#pragma unroll
+    for (int j = 0; j < kGroups; ++j)
+      mine[32 * j] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+    __syncwarp();
+    if (lane < n) mbar_arrive_cluster(&ready[par][warp], lane);
+    mbar_wait_cluster(&ready[par][warp], (tile >> 1) & 1);
+    for (int r = 0; r < n; ++r) {
+      float4 t[kGroups];
+      if (r == rank) {
+#pragma unroll
+        for (int j = 0; j < kGroups; ++j) t[j] = mine[32 * j];
+      } else {
+        const uint32_t base = cluster_map(mine, r);
+#pragma unroll
+        for (int j = 0; j < kGroups; ++j) t[j] = cluster_load4(base + 512 * j);
+      }
+#pragma unroll
+      for (int j = 0; j < kGroups; ++j) {
+        s[4 * j] = r == 0 ? t[j].x : __fadd_rn(s[4 * j], t[j].x);
+        s[4 * j + 1] = r == 0 ? t[j].y : __fadd_rn(s[4 * j + 1], t[j].y);
+        s[4 * j + 2] = r == 0 ? t[j].z : __fadd_rn(s[4 * j + 2], t[j].z);
+        s[4 * j + 3] = r == 0 ? t[j].w : __fadd_rn(s[4 * j + 3], t[j].w);
+      }
+    }
+  }
+};
+
+// The cluster plan of K4's wide kernels (ops/flash_attention.py::_wide_plan
+// mirrors it): a width of `units` 64-column units over CTAs of at most
+// `top` units each. n CTAs a cluster (at most kWideCluster, the portable
+// size) split the head dim of a q tile for S; `groups` clusters along the
+// grid's y axis each compute S so and split the output columns, n * groups
+// CTAs in all. Part i of `parts` takes units [start, start + count).
+constexpr int kWideCluster = 8;
+__host__ __device__ inline int wide_cluster(int units, int top) {
+  const int n = (units + top - 1) / top;
+  return n < kWideCluster ? n : kWideCluster;
+}
+__host__ __device__ inline int wide_groups(int units, int top) {
+  const int per = wide_cluster(units, top) * top;
+  return (units + per - 1) / per;
+}
+__host__ __device__ inline int part_start(int units, int parts, int i) {
+  const int base = units / parts, extra = units % parts;
+  return i * base + (i < extra ? i : extra);
+}
+__host__ __device__ inline int part_count(int units, int parts, int i) {
+  return units / parts + (i < units % parts ? 1 : 0);
 }
 
 // ---- host: tensor maps ----

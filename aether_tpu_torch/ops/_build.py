@@ -95,6 +95,7 @@ SIGNATURES = {
         _P,                  # out: f32 [B*H, sq, dp]
         _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
         _I,                  # dp (a multiple of 64: head dims above 256, zero-padded)
+        _I, _I,              # the plan (flash_attention._wide_plan): cluster, groups
         _P,                  # stream
     ],
     "aether_flash_online_wide_bf16": [
@@ -102,6 +103,7 @@ SIGNATURES = {
         _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
         _F,                  # q fold sm_scale * log2e (the "vpu" denominator)
         _I,                  # dp (a multiple of 64: head dims above 256, zero-padded)
+        _I, _I,              # the plan (flash_attention._wide_plan): cluster, groups
         _P,                  # stream
     ],
     "aether_flash_fixed_max": [

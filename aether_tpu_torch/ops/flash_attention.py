@@ -28,15 +28,19 @@ above at the defaults, and the bench baseline) ``csrc/flash_online_bf16.cu``
 runs at every head dim up to 256: the ``wgmma`` + TMA online-softmax cell of
 ``csrc/online_cell.cuh`` templated over the head dim; above 256
 ``csrc/flash_online_wide_bf16.cu``, one kernel with the head dim read at run
-time (Q and K streamed through shared memory in 64-column panels, the output
-in blocks of 256 columns). Its launches count here at 64 and on
-:func:`flash_attention_hd` at the others. In f32 (the forward of the
-training path) ``csrc/flash_online.cu`` runs at every head dim up to 256: the
-split-TF32 (3xTF32) ``wgmma`` + TMA cell of ``csrc/tf32x3_cell.cuh`` (above
-128 its second tile plan, the head dim split over two warpgroups); above 256
-``csrc/flash_online_wide.cu``, the bf16 wide kernel's plan in 3xTF32 with
-output blocks of 128 columns. Its launches count here at 64 and on
-:func:`flash_attention_f32_hd` at the others.
+time: a thread-block cluster a q tile of 128 rows splits the head dim in
+slices of at most 256 columns (:func:`_wide_plan`), each CTA sums its slice's
+part of S (its slice of q resident in shared memory), the cluster adds the
+parts through distributed shared memory so that every CTA holds the same S,
+and each CTA runs the softmax and P V over its slice's output columns. Its
+launches count here at 64 and on :func:`flash_attention_hd` at the others.
+In f32 (the forward of the training path) ``csrc/flash_online.cu`` runs at
+every head dim up to 256: the split-TF32 (3xTF32) ``wgmma`` + TMA cell of
+``csrc/tf32x3_cell.cuh`` (above 128 its second tile plan, the head dim split
+over two warpgroups); above 256 ``csrc/flash_online_wide.cu``, the same
+cluster plan in 3xTF32 with slices of at most 128 columns, each CTA on the
+cell's 128-column plan (q_hi resident, q_lo in registers). Its launches count
+here at 64 and on :func:`flash_attention_f32_hd` at the others.
 Both keep the JAX preparation: ``sm_scale * log2e`` folded into q and rounded
 to q's dtype (by the wrapper for f32, in the kernel for bf16) and the
 ``kv_valid`` tail zeroed; neither pads tokens (TMA reads rows past the ends
@@ -137,6 +141,47 @@ _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
 FIXED_MAX_TOP, PREPACKED_TOP = 127, 128
 # K4's head dims above this run the wide kernels (the width at run time)
 ONLINE_CELL_TOP = 256
+
+
+class WidePlan(NamedTuple):
+    """The launch plan of K4's wide kernels at one width (:func:`_wide_plan`)."""
+
+    cluster: int            # CTAs of a thread-block cluster, which split S's head dim
+    groups: int             # clusters along the grid's y axis (each computes S)
+    score_cols: tuple       # head-dim columns of S summed by each rank of a cluster
+    out_cols: tuple         # output columns of each CTA along y (cluster * groups)
+
+
+# the wide kernels' largest slice of the head dim a CTA (kC in
+# csrc/flash_online_wide_bf16.cu / flash_online_wide.cu) and largest cluster
+# (hopper.cuh's kWideCluster, the portable size)
+_WIDE_SLICE = {torch.bfloat16: 256, torch.float32: 128}
+_WIDE_CLUSTER = 8
+
+
+def _split_units(units: int, parts: int) -> tuple:
+    """``units`` 64-column units dealt out over ``parts`` in order, the first
+    ``units % parts`` one more (hopper.cuh's part_count), in columns."""
+    return tuple(64 * (units // parts + (i < units % parts)) for i in range(parts))
+
+
+def _wide_plan(dp: int, dtype: torch.dtype) -> WidePlan:
+    """The cluster plan of K4's wide kernels at width ``dp`` (a multiple of 64
+    above 256) for q of ``dtype``, as ``csrc/hopper.cuh``'s wide_cluster and
+    wide_groups compute it (the C entries refuse another): a cluster of
+    ceil(dp / slice) CTAs, at most 8, splits the head dim of a q tile for S,
+    slices of at most 256 columns in bf16 and 128 in f32 in 64-column units,
+    uneven where dp / 64 does not divide (320: bf16 192 + 128, f32 128 + 128 +
+    64); above 8 slices ``groups`` clusters along y each compute S so and
+    share the output columns evenly, at most one slice each."""
+    if dp <= ONLINE_CELL_TOP or dp % 64:
+        raise ValueError(f"the wide kernels take a multiple of 64 above "
+                         f"{ONLINE_CELL_TOP}, not {dp}")
+    units, top = dp // 64, _WIDE_SLICE[dtype] // 64
+    cluster = min(_WIDE_CLUSTER, -(-units // top))
+    groups = -(-units // (cluster * top))
+    return WidePlan(cluster, groups, _split_units(units, cluster),
+                    _split_units(units, cluster * groups))
 
 
 def head_dim_width(head_dim: int) -> int:
@@ -431,17 +476,18 @@ def _online_bf16_launch(qh, kh, vh, out, kv_len: int, round_l: bool, fold: float
     with rows >= kv_len zeroed, out [BH, Sq, D]; all bf16, contiguous and
     16-byte aligned, D a width: 16 to 128 in steps of 16 and 160 to 256 in
     steps of 32 (``csrc/flash_online_bf16.cu``), or above 256 any multiple of
-    64 (``csrc/flash_online_wide_bf16.cu``, "vpu" only: ``ValueError`` on
-    ``round_l``)."""
+    64 (``csrc/flash_online_wide_bf16.cu`` on :func:`_wide_plan`'s clusters,
+    "vpu" only: ``ValueError`` on ``round_l``)."""
     bh, sq, dim = qh.shape
     stream = _build.stream_ptr(qh.device)
     if dim > ONLINE_CELL_TOP:
         if round_l:
             raise ValueError("K4 above head_dim 256 takes the 'vpu' denominator only "
                              "(the JAX wrapper forces it at head_dim >= 128)")
+        plan = _wide_plan(dim, torch.bfloat16)
         rc = _build.lib().aether_flash_online_wide_bf16(
             qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), out.data_ptr(),
-            bh, sq, kh.shape[1], kv_len, fold, dim, stream)
+            bh, sq, kh.shape[1], kv_len, fold, dim, plan.cluster, plan.groups, stream)
         _build.check(rc, "aether_flash_online_wide_bf16")
         return
     rc = _build.lib().aether_flash_online_bf16(
@@ -533,12 +579,14 @@ def _online_f32_launch(t: _Tf32Operands, out: torch.Tensor, kv_len: int) -> None
     :func:`_online_operands`' result (q folded, k/v rows >= kv_len zeroed);
     out [BH, Sq, D] f32, D a width: 16 to 128 in steps of 16 and 160 to 256
     in steps of 32 (``csrc/flash_online.cu``), or above 256 any multiple of
-    64 (``csrc/flash_online_wide.cu``)."""
+    64 (``csrc/flash_online_wide.cu`` on :func:`_wide_plan`'s clusters)."""
     bh, sq, dim = t.q_hi.shape
-    name = "aether_flash_online_wide" if dim > ONLINE_CELL_TOP else "aether_flash_online"
-    rc = getattr(_build.lib(), name)(
-        *(x.data_ptr() for x in t), out.data_ptr(), bh, sq, t.k_hi.shape[1], kv_len, dim,
-        _build.stream_ptr(out.device))
+    args = [*(x.data_ptr() for x in t), out.data_ptr(), bh, sq, t.k_hi.shape[1], kv_len, dim]
+    name = "aether_flash_online"
+    if dim > ONLINE_CELL_TOP:
+        name = "aether_flash_online_wide"
+        args += _wide_plan(dim, torch.float32)[:2]
+    rc = getattr(_build.lib(), name)(*args, _build.stream_ptr(out.device))
     _build.check(rc, name)
 
 

@@ -377,8 +377,11 @@ Phase of K4 above head_dim 256, after 29 (``above_dims_phase``):
  30. K4 runs every head dim above 256 on one kernel a dtype that reads the
      width (the head dim rounded up to a multiple of 64, zero-padded) at run
      time: ``csrc/flash_online_wide_bf16.cu`` and ``flash_online_wide.cu``
-     (Q and K streamed through shared memory in head-dim panels, the output
-     in column blocks of 256 in bf16 and 128 in f32). (c) the tiny trainer's
+     (a thread-block cluster a q tile splits the head dim in slices of at
+     most 256 columns in bf16 and 128 in f32, sums S once through
+     distributed shared memory, and each CTA stores its slice's output
+     columns; 30a logs the cluster size beside the registers). (c) the tiny
+     trainer's
      two steps at head_dim 320 and 512 on the card against the CPU (phase
      29c's gates, exactly 8 K4 f32 hd launches each), and the tiny DiT at
      288 and 384 in bf16 and f32 against the CPU at the long-video gates, 2
@@ -4538,7 +4541,7 @@ def sdpa_or_none(q, k, v, iters):
         return None
 
 
-def k4_dims_cases(dev, gen, label, dims, timed, patterns):
+def k4_dims_cases(dev, gen, label, dims, timed, patterns, plan=None):
     """K4 bf16 and f32 at 48 heads x 15076 tokens, batch 1, at each of
     ``dims``, through ``flash_attention`` against the plain version: bf16 at
     ``bf16_gates``, f32 at ``K4_F32_128_BARS`` (phase 27a's at 128: each
@@ -4550,8 +4553,10 @@ def k4_dims_cases(dev, gen, label, dims, timed, patterns):
     true head dim, one SDPA call at the same shape and dtype (flash or
     memory-efficient backend, or none), and the kernel's registers and spill
     (``patterns(width)``: the ptxas name patterns of the bf16 and the f32
-    kernel). Returns {(name, head_dim): (max abs error, ms, plain ms, bound,
-    SDPA ms or None)}, ms None where untimed."""
+    kernel), beside ``plan(width, dtype)`` where given (the launch plan's
+    note, such as the wide kernels' cluster size). Returns {(name,
+    head_dim): (max abs error, ms, plain ms, bound, SDPA ms or None)}, ms
+    None where untimed."""
     from aether_tpu_torch.ops import flash_attention as fa
 
     results = {}
@@ -4580,9 +4585,10 @@ def k4_dims_cases(dev, gen, label, dims, timed, patterns):
             check(torch.equal(out, kernel()), f"{what}: two launches differ")
             bnd = bound(4 * size * HEADS * SEQ * hd, attention_ops(1, SEQ, kinds, hd),
                         attention_exp2(1))
+            regs = ptxas_of(pattern) + (f", {plan(width, dtype)}" if plan else "")
             if hd not in timed:
                 log(f"{what} (one launch a call on {counter}): untimed; plain {plain_ms:.4f} "
-                    f"ms; the <{width}> kernel: {ptxas_of(pattern)}")
+                    f"ms; the <{width}> kernel: {regs}")
                 results[name, hd] = (err, None, plain_ms, bnd, None)
                 del q, k, v, out
                 torch.cuda.empty_cache()
@@ -4612,7 +4618,7 @@ def k4_dims_cases(dev, gen, label, dims, timed, patterns):
                 f"the wrapper's passes {ms - alone_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
                 f"{str(dtype)[6:]} (1, 48, 15076, {hd}) "
                 + (f"{lib:.4f} ms: {ms / lib:.3f}x" if lib is not None else "none")
-                + f"; the <{width}> kernel: {ptxas_of(pattern)}")
+                + f"; the <{width}> kernel: {regs}")
             results[name, hd] = (err, ms, plain_ms, bnd, lib)
             torch.cuda.empty_cache()
     return results
@@ -4818,6 +4824,8 @@ def above_dims_phase(dev, gen):
     (timed at ``ABOVE_TIMED``) on the wide kernels. (e), the digests of the
     instances up to 256, is phase 29d. Returns ({(counter, head_dim):
     launches on the paths of (b) and (c)}, (a)'s results, seconds by part)."""
+    from aether_tpu_torch.ops import flash_attention as fa
+
     secs = {}
     t0 = time.perf_counter()
     launches = wide_tiny_phase(dev, ABOVE_TRAIN_DIMS, ABOVE_TINY_DIMS, "30c")
@@ -4830,8 +4838,10 @@ def above_dims_phase(dev, gen):
     above_far_phase(dev, gen)
     secs["d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    kernels = k4_dims_cases(dev, gen, "30a", ABOVE_DIMS, ABOVE_TIMED, lambda width: (
-        "wide_bf1611wide_kernel", "wide_f3211wide_kernel"))
+    kernels = k4_dims_cases(
+        dev, gen, "30a", ABOVE_DIMS, ABOVE_TIMED,
+        lambda width: ("wide_bf1611wide_kernelILb0E", "wide_f3211wide_kernelILb0E"),
+        lambda width, dtype: "cluster {} x {} along y".format(*fa._wide_plan(width, dtype)[:2]))
     secs["a"] = time.perf_counter() - t0
     log("phase 30 seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in secs.items()))
     return launches, kernels, secs

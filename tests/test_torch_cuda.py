@@ -51,7 +51,9 @@ kv shorter than one ring slot, one valid column. K4 above 256 (the wide
 kernels, the width a run-time multiple of 64: 257, 272, 320, 384, 512 and
 1000), bf16 and f32, through the same edges, Sq != Skv, B*H odd, extreme
 negative scores on strided inputs, and f32 at 512 over 15076 keys at mean
-1e-7 / max 3e-6. Also the launch-or-raise contract. The card's machine has no
+1e-7 / max 3e-6; the edges of their thread-block clusters (uneven slices at
+257 and 320, bf16 2304 and f32 1088 beyond one cluster, on strided inputs)
+and every slice holding the same scores bit for bit. Also the launch-or-raise contract. The card's machine has no
 JAX, so run them without the JAX conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -72,6 +74,7 @@ from aether_tpu_torch.ops.chunked_attention import flash_attention_trainable
 from aether_tpu_torch.ops.flash_attention import (
     _online_bf16_launch,
     _online_kernel_operands,
+    _wide_plan,
     attention_reference,
     flash_attention,
     flash_attention_f32_hd,
@@ -86,6 +89,7 @@ from aether_tpu_torch.ops.flash_attention import (
     flash_attention_pv8,
     flash_attention_pv8_hd,
     flash_attention_pv8_plain,
+    head_dim_width,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1030,9 +1034,9 @@ def test_online_wide_kernels_tiles(dev, hd, b, h, sq, skv, kv_valid, dtype):
     _check_k4(out, ref)
 
 
-# K4 above 256: the wide kernels (Q and K streamed in head-dim panels, the
-# output in column blocks of 256 in bf16 and 128 in f32) at widths of one to
-# eight column blocks, the last one whole or partial
+# K4 above 256: the wide kernels (a thread-block cluster a q tile splitting
+# the head dim in slices of at most 256 columns in bf16 and 128 in f32) at
+# clusters of two to eight CTAs, even and uneven slices
 ABOVE_256_DIMS = [257, 272, 320, 384, 512, 1000]
 
 
@@ -1068,6 +1072,58 @@ def test_online_above_256_extreme_negative_scores_on_strided_inputs(dev, hd, dty
     out = flash_attention(q, k, v)
     _check_k4(out, flash_attention_plain(q, k, v))
     _check_k4(out, attention_reference(q, k, v))
+
+
+# K4 above 256 across the edges of its clusters (``_wide_plan``): uneven
+# slices (257: bf16 192 + 128, f32 128 + 128 + 64 on the width 320; 320) and
+# widths beyond one cluster (bf16 2304: 2 clusters of 8 along y, f32 1088: 2
+# of 8), on strided inputs (the DiT's [B, S, H, D] layout), B*H odd
+WIDE_EDGE_DIMS = [(257, torch.bfloat16), (257, torch.float32), (320, torch.bfloat16),
+                  (320, torch.float32), (2304, torch.bfloat16), (1088, torch.float32)]
+# (batch, heads, q tokens, kv tokens, kv_valid)
+WIDE_EDGE_CASES = [
+    (1, 3, 200, 333, 300),     # Sq not a multiple of 128, kv_valid inside a tile
+    (1, 1, 130, 2100, 1900),   # many tiles, the double-buffered exchange wrapping
+    (1, 3, 77, 10, None),      # kv shorter than one tile
+]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid", WIDE_EDGE_CASES)
+@pytest.mark.parametrize("hd,dtype", WIDE_EDGE_DIMS)
+def test_online_above_256_cluster_edges(dev, hd, dtype, b, h, sq, skv, kv_valid):
+    """K4's wide kernels at uneven slices and beyond one cluster, on strided
+    inputs, against the plain version at K4's gates: one launch of the
+    dtype's head-dim kernel a call, two launches bit-identical."""
+    q, k, v = _qkv(dev, (b, sq, h, hd), (b, skv, h, hd), dtype, seed=hd + sq + skv + 7)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    counter = flash_attention_hd if dtype == torch.bfloat16 else flash_attention_f32_hd
+    before = counter.launches
+    out = flash_attention(q, k, v, kv_valid=kv_valid)
+    again = flash_attention(q, k, v, kv_valid=kv_valid)
+    ref = flash_attention_plain(q, k, v, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    assert torch.equal(out, again)
+    _check_k4(out, ref)
+
+
+@pytest.mark.parametrize("hd,dtype", WIDE_EDGE_DIMS[2:] + [(512, torch.float32)])
+def test_online_above_256_slices_hold_the_same_scores(dev, hd, dtype):
+    """Every CTA of a cluster (and every cluster along y) holds the same S,
+    bit for bit: with v's columns of each output slice a copy of the first
+    slice's, each slice's output columns equal the first slice's, though
+    other CTAs computed them from their own copy of S and p."""
+    width = head_dim_width(hd)
+    plan = _wide_plan(width, dtype)
+    q, k, v = _qkv(dev, (1, 3, 333, width), (1, 3, 1000, width), dtype, seed=hd)
+    starts = [sum(plan.out_cols[:i]) for i in range(len(plan.out_cols))]
+    for c0, cols in zip(starts[1:], plan.out_cols[1:]):
+        v[..., c0:c0 + cols] = v[..., :cols]
+    out = flash_attention(q, k, v, kv_valid=900)
+    torch.cuda.synchronize()
+    for c0, cols in zip(starts[1:], plan.out_cols[1:]):
+        assert torch.equal(out[..., c0:c0 + cols], out[..., :cols]), (c0, cols)
+    _check_k4(out, flash_attention_plain(q, k, v, kv_valid=900))
 
 
 def test_online_f32_above_256_keeps_pv_off_the_tensor_core_accumulator(dev):
