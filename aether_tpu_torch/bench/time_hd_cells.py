@@ -3,9 +3,9 @@ NVIDIA GPU.
 
     python aether_tpu_torch/bench/time_hd_cells.py unpack REV DIR
     python aether_tpu_torch/bench/time_hd_cells.py ab DIR [--json OUT]
-        [--only f32|spread|wide] [--rounds N]
+        [--only f32|spread|wide|split] [--rounds N]
     python aether_tpu_torch/bench/time_hd_cells.py run [CHECKOUT] [--json OUT]
-        [--only f32|spread|wide]
+        [--only f32|spread|wide|split]
     python aether_tpu_torch/bench/time_hd_cells.py digests [CHECKOUT] [--json OUT]
 
 ``unpack`` (in a git checkout) writes revision REV's ``aether_tpu_torch`` and
@@ -59,6 +59,14 @@ on the operands it prepares (three means of 3 calls in bf16, of 1 in f32),
 each output held to its plain version at ``chip_smoke.py``'s gates (bf16
 ``bf16_gates``, f32 ``K4_F32_128_BARS``; the run fails otherwise), beside
 one ``scaled_dot_product_attention`` call of the same shape and dtype.
+
+``--only split`` runs the same cases at D in ``SPLIT_DIMS`` (144, 160, 192,
+200, 224 and 256: K4 f32 above 128 up to 256, on ``csrc/flash_online_wide.cu``'s
+CTA pairs since they replaced ``split_kernel``; 144 and 200 on the padded
+widths 160 and 224), the f32 means over 2 calls, and K4 bf16
+(``online_cell<D>``) beside it, whose outputs ``ab`` shows bit-identical
+across the checkouts where bf16 did not move: ``ab _checkout/parent --only
+split`` is K4 f32 at 129-256, the parent against the change in one call.
 
 ``--only spread`` runs the head_dim-64 cases of K2, K4, K7 and K8 above and
 then only the cells whose parent / change ratio spreads most from call to
@@ -175,11 +183,13 @@ def run(checkout: str, out_json, only=None) -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
-    if only in ("f32", "wide"):
+    if only in ("f32", "wide", "split"):
         if only == "f32":
             f32_cases(cs, fa, _build, dev, gen, result, times)
-        else:
+        elif only == "wide":
             wide_cases(cs, fa, dev, gen, result, times)
+        else:
+            wide_cases(cs, fa, dev, gen, result, times, SPLIT_DIMS, f32_iters=2)
         if out_json:
             with open(out_json, "w") as f:
                 json.dump(result, f)
@@ -419,14 +429,16 @@ def f32_cases(cs, fa, _build, dev, gen, result, times, dims=F32_DIMS, k4=True) -
 
 
 WIDE_DIMS = (320, 512)
+SPLIT_DIMS = (144, 160, 192, 200, 224, 256)
 
 
-def wide_cases(cs, fa, dev, gen, result, times) -> None:
-    """K4 bf16 and f32 at (1, 48, 15076, D), D in ``WIDE_DIMS``: the wide
-    kernels through the wrapper and alone, against the plain version at
-    ``chip_smoke.py``'s gates, beside one SDPA call of the dtype."""
-    for hd in WIDE_DIMS:
-        for dtype, tag, iters in ((torch.bfloat16, "bf16", 3), (torch.float32, "f32", 1)):
+def wide_cases(cs, fa, dev, gen, result, times, dims=WIDE_DIMS, f32_iters=1) -> None:
+    """K4 bf16 and f32 at (1, 48, 15076, D), D in ``dims``: the kernels
+    through the wrapper and alone (means of 3 bf16 and ``f32_iters`` f32
+    calls), against the plain version at ``chip_smoke.py``'s gates, beside
+    one SDPA call of the dtype."""
+    for hd in dims:
+        for dtype, tag, iters in ((torch.bfloat16, "bf16", 3), (torch.float32, "f32", f32_iters)):
             name = f"K4 {tag} hd{hd}"
             q, k, v = (torch.randn((1, H, S, hd), generator=gen, device=dev).to(dtype)
                        for _ in range(3))
@@ -451,7 +463,7 @@ def wide_cases(cs, fa, dev, gen, result, times) -> None:
             t_wrap = times(name, lambda: fa.flash_attention(q, k, v), iters)
             t_alone = times(name + " alone", launch, iters)
             torch.cuda.synchronize()
-            same = torch.equal(buf.reshape(out.shape), out)
+            same = torch.equal(buf[..., :hd].reshape(out.shape), out)
             del qh, kh, vh, buf
             lib = cs.sdpa_or_none(q, k, v, iters)
             if lib is not None:
@@ -536,12 +548,12 @@ def main(argv) -> None:
     a = sub.add_parser("ab")
     a.add_argument("dir")
     a.add_argument("--json")
-    a.add_argument("--only", choices=["f32", "spread", "wide"])
+    a.add_argument("--only", choices=["f32", "spread", "wide", "split"])
     a.add_argument("--rounds", type=int, default=1)
     r = sub.add_parser("run")
     r.add_argument("checkout", nargs="?", default=ROOT)
     r.add_argument("--json")
-    r.add_argument("--only", choices=["f32", "spread", "wide"])
+    r.add_argument("--only", choices=["f32", "spread", "wide", "split"])
     d = sub.add_parser("digests")
     d.add_argument("checkout", nargs="?", default=ROOT)
     d.add_argument("--json")

@@ -1,13 +1,14 @@
-// K4 in f32 above head_dim 256: online-softmax flash attention on the
+// K4 in f32 above head_dim 128: online-softmax flash attention on the
 // tensor cores as split TF32 (3xTF32) wgmma with TMA, written by hand for
-// Hopper (sm_90a), one kernel for every head dim, the width dp (the head dim
-// rounded up to a multiple of 64 by the wrapper, zero columns past it) a
-// run-time argument. flash_online.cu (tf32x3_cell.cuh) runs the head dims
-// up to 256; flash_online_wide_bf16.cu is the bf16 form of this kernel.
+// Hopper (sm_90a), one kernel for every width dp (the head dim rounded up by
+// the wrapper to a multiple of 32 up to 256 and of 64 above, zero columns
+// past it) read at run time. flash_online.cu (tf32x3_cell.cuh) runs the head
+// dims up to 128; flash_online_wide_bf16.cu is the bf16 form of this kernel
+// above 256.
 //
 // Replaces aether_tpu/ops/flash_attention.py::_flash_kernel (:69, the
 // Pallas TPU kernel launched by flash_attention(fixed_max=False)) for f32
-// q/k/v at head_dim > 256 (the JAX wrapper's "vpu" route, :538-548, no upper
+// q/k/v at head_dim > 128 (the JAX wrapper's "vpu" route, :538-548, no upper
 // limit): the training forward (flash_train) and the f32 DiT at such head
 // dims. Non-causal, in the log2 domain, q pre-scaled by sm_scale * log2(e)
 // in the wrapper, as tf32x3_cell.cuh's kOnline:
@@ -26,37 +27,49 @@
 //
 // What bounds it on an H100: at (1, 48 heads, 15076 tokens, D) one call is
 // three TF32 products of 4.4e10 x D flops, 0.2645 ms x D at 495 TFLOP/s
-// (84.6 ms at 320, 135.4 at 512). tf32x3_cell.cuh's plans stop at 256:
-// Q_hi of 64 rows is 64 KB there and Q_lo a register fragment of D / 4 a
-// thread. The first form of this kernel cut the output into blocks
-// of 128 columns, a CTA each; each block summed the whole S again (2.5x the
-// function's products at 320 and 512) and read Q_hi and Q_lo from L2 every
-// kv tile (~4.4 TB a call at 512): 10.5-15.0% of its bound, slower than
-// SDPA f32. The plan here computes S once a q tile:
+// (42.3 ms at 160, 67.7 at 256, 84.6 at 320, 135.4 at 512). The cell's plan
+// stops at 128: Q_hi of 128 rows is 64 KB there and Q_lo a register fragment
+// of D / 2 a thread, the output D / 2 more. So a q tile's head dim is split
+// and S computed once:
 //   * a thread-block cluster of n CTAs takes a q tile of 128 rows (the
 //     grid's y axis, ops/flash_attention.py::_wide_plan and wide_cluster in
 //     hopper.cuh): CTA r owns a slice of the head dim, at most kC = 128
-//     columns, the dp / 64 units dealt out evenly (320: 128 + 128 + 64, 512:
-//     4 x 128, n up to 8 at 1024); a CTA has two consumer warpgroups of 64 q
-//     rows and a producer warpgroup that hands its registers to them
-//     (setmaxnreg: 24 / 240);
+//     columns, the units of the width dealt out evenly, 32 columns a unit up
+//     to 256 (a pair: 160 96 + 64, 192 96 + 96, 224 128 + 96, 256 128 +
+//     128) and 64 above (320: 128 + 128 + 64, 512: 4 x 128, n up to 8 at
+//     1024); a CTA has two consumer warpgroups of 64 q rows and a producer
+//     warpgroup that hands its registers to them (setmaxnreg: 24 / 240);
 //   * each CTA is tf32x3_cell.cuh's kOnline plan at 128 on its slice: Q_hi
-//     stays in shared memory (64 KB) and Q_lo in registers (64 a thread) for
-//     the whole kv loop; K_hi, K_lo and the slice's rows of V^T come in
-//     32-row kv tiles through a ring of kStages slots by TMA (128-byte
-//     swizzle); the CTA's part of S is 3 x 16 k steps of wgmma m64n32k8
-//     tf32 on the tensor core (128 columns, as many products as the cell's
-//     at 128, whose accumulation that keeps to f32 accuracy);
+//     stays in shared memory (up to 64 KB) and Q_lo in registers (up to 64
+//     a thread) for the whole kv loop; K_hi and K_lo of the slice, and the
+//     slice's rows of V^T, come in 32-row kv tiles by TMA (128-byte
+//     swizzle) through rings of kStages slots; the CTA's part of S is 3 x
+//     (slice / 8) k steps of wgmma m64n32k8 tf32 on the tensor core (at most
+//     128 columns, as many products as the cell's at 128, whose
+//     accumulation that keeps to f32 accuracy);
+//   * the rings (kPair; each form the faster on its widths on the card,
+//     PERF.md section 6): a pair keeps K and V in rings of their own, a K
+//     slot free as soon as its S has completed, a tile before the V slot of
+//     the same tile, whose P V is still in flight, so the next K loads start
+//     early; wider clusters keep a tile's K and V in one slot. Either loads
+//     only its slice's V^T rows, in 32-row boxes (kChunked: one box of 128
+//     rows, as the boxes' loop spilled its producer's 24 registers);
 //   * the parts meet through distributed shared memory (ScoreExchange in
-//     hopper.cuh, pulled: each CTA loads the other ranks' parts, four ranks'
-//     at a time) and are added in rank order on the FMA units, so every CTA
-//     holds the same S, bit for bit;
+//     hopper.cuh: a pair pushes its part into the other CTA with st.async,
+//     more CTAs pull the other ranks' parts) and are added in rank order on
+//     the FMA units, so every CTA holds the same S, bit for bit;
 //   * P stays in registers, split into P_hi and P_lo as the A operands of P
-//     V (tf32x3_cell.cuh's kv order of V^T: no shuffle), in chains of 64
-//     output columns into fresh registers, folded into the output on the FMA
-//     units; the slice's last chain stays in flight across the next tile's
-//     part of S (the cell's <128> plan); a consumer thread holds 64 f32 of
-//     output, 64 of Q_lo, 32 of a chain, 32 of P_hi and P_lo and 16 of S;
+//     V (tf32x3_cell.cuh's kv order of V^T: no shuffle), in chains into fresh
+//     registers folded into the output on the FMA units: 64 output columns
+//     one chain, 96 a chain of 32 and one of 64, 128 two of 64; the last
+//     chain (64 columns) stays in flight across the next tile's part of S,
+//     and the two warpgroups, on rows of their own, run each other's
+//     products under their softmax (the cell's <128> plan); a consumer
+//     thread holds 64 f32 of output, 64 of Q_lo, 32 of a chain, 32 of P_hi
+//     and P_lo and 16 of S. Two orders that meant to hide the exchange read
+//     far slower on the card and are not used: the warpgroups taking turns
+//     to issue S (named barriers), and the last chain issued behind the next
+//     tile's S so that it runs under the exchange;
 //   * above 8 slices (dp > 1024) clusters along y each compute S so and
 //     split the output columns between their CTAs evenly, each CTA's slice
 //     then wider than 128: it sums S in chunks of at most 128 columns (the
@@ -65,14 +78,15 @@
 //   * rows past the tensors' ends and V^T rows past dp arrive as zeros
 //     (TMA), stores past the slice or sq are dropped, tiles wholly past
 //     kv_len are skipped and only the last is masked.
-// The products are the function's, once; L2 gives each CTA K's and V's
-// slices a tile (~0.69 TB a call at 512). The exchange moves 16 KB a CTA
-// and 32-row tile through DSMEM, pulled from the n - 1 other ranks: for 32
-// KB parts bench/dsmem_probe.py reads 2.6 us a tile alone at n = 3 and 3.6
-// at n = 4 on an H100 at 700 W (PERF.md section 6), one rank's part at a
-// time (loading four ranks' at once read slower and spilled).
-// Shared memory: Q_hi 64 KB + 2 stages of 64 + the exchange 2 x 16 = 224 KB
-// of the 227 a block may take.
+// The products are the function's, once; L2 gives each CTA its slice of K
+// and V a tile: a pair reads K and V once for 128 q rows (~0.35 TB a call
+// at 256, half of a 64-row CTA's). The exchange moves 16 KB a CTA and
+// 32-row tile through DSMEM: a pair's push, 0.90 us an exchange alone in
+// bench/dsmem_probe.py on an H100 at 700 W (PERF.md section 6), runs beside
+// the other warpgroup's products; above two CTAs, pulled from the n - 1
+// other ranks one at a time (2.6 us a tile alone at n = 3, 3.6 at n = 4).
+// Shared memory: Q_hi 64 KB + K 2 x 32 + V 2 x 32 + the exchange 2 x 16 =
+// 224 KB of the 227 a block may take.
 // Compiled without --use_fast_math so exp2f and the division stay accurate.
 
 #include <cuda_runtime.h>
@@ -93,11 +107,10 @@ using tf32x3_cell::pv;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBM = 128;     // q rows a CTA: two consumer warpgroups of 64
 constexpr int kBN = 32;      // kv rows a tile
-constexpr int kPanel = 32;   // head-dim columns of a Q or K panel (128 bytes)
-constexpr int kUnit = 64;    // head-dim columns of a unit of the plan
+constexpr int kPanel = 32;   // head-dim columns of a Q or K panel, rows of a V^T box (128 bytes)
 constexpr int kC = 128;      // head-dim columns of a chunk of S, and of the output, at most
 constexpr int kPanels = kC / kPanel, kSteps = kC / 8;
-constexpr int kPV = 64;      // output columns of one P V chain
+constexpr int kPV = 64;      // output columns of the P V chain left in flight
 constexpr int kConsumers = 256, kThreads = kConsumers + 128;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <=
@@ -105,16 +118,26 @@ static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <=
               "setmaxnreg asks for more registers than the CTA starts with");
 constexpr int kQPanel = kBM * 128;      // bytes of a Q_hi panel
 constexpr int kKPanel = kBN * 128;      // of a K_hi or K_lo panel
+constexpr int kVBox = kPanel * kBN * 4; // of a box of 32 V^T rows
 constexpr int kVTile = kC * kBN * 4;    // of a tile of V^T_hi or V^T_lo (kC rows)
-constexpr int kStages = 2;
+constexpr int kStages = 2;              // ring slots
+constexpr int kPairTop = 256;           // the widest plan of a pair (kPair)
+
+// head-dim columns of a unit of the plan: 32 for a pair (dp <= kPairTop),
+// else 64 (ops/flash_attention.py::_wide_plan)
+__host__ __device__ constexpr int slice_unit(bool pair) { return pair ? 32 : 64; }
 
 struct Smem {
   uint8_t q[kPanels][kQPanel];                   // Q_hi's chunk: 64 KB
   uint8_t k[kStages][2][kPanels][kKPanel];       // K_hi, K_lo
   uint8_t v[kStages][2][kVTile];                 // V^T_hi, V^T_lo
   ScoreExchange<kConsumers / 32, kBN / 2> x;
-  Ring<1> qr;  // Q_hi: loaded once, or chunk by chunk where the slice is wider
-  Ring<kStages> ring;
+  Ring<1> qr;        // Q_hi: loaded once, or chunk by chunk where the slice is wider
+  // a chunk's K_hi and K_lo and, unless kPair, the tile's V^T rows with its
+  // last chunk: free once the next chunk's S (and so its P V) has completed;
+  // with kPair only K, free once its own S has completed
+  Ring<kStages> kr;
+  Ring<kStages> vr;  // kPair: a tile's V^T rows, free once its P V has completed
 };
 // + 1024 so the tiles can start on a 1024-byte boundary
 constexpr int kSmem = sizeof(Smem) + 1024;
@@ -123,14 +146,18 @@ static_assert(kSmem <= 232448, "the tiles must fit in the 227 KB a block may tak
 struct Params {
   const float* q_lo;   // [BH, sq, dp]
   float* out;          // [BH, sq, dp]
-  int sq, kv_len, dp;  // dp: the width, a multiple of 64
+  int sq, kv_len, dp;  // dp: the width, a multiple of the unit
   int cluster, ctas;   // CTAs a cluster, and along the grid's y axis
 };
 
 // kChunked: the slice wider than kC (dp > 8 x kC), S summed over it in chunks
 // of kC columns, Q_hi and Q_lo loaded again for every chunk of every kv tile;
-// else Q_hi stays in shared memory and Q_lo in registers for the whole kv loop
-template <bool kChunked>
+// else Q_hi stays in shared memory and Q_lo in registers for the whole kv loop.
+// kPair: a pair of CTAs at 160-256, slices in 32-column units (64, 96 or
+// 128 columns), K and V in rings of their own; else slices in 64-column
+// units (64 or 128), a tile's K and V in one ring slot (each ring form the
+// faster on its widths on the card, PERF.md section 6)
+template <bool kChunked, bool kPair>
 __global__ void __launch_bounds__(kThreads, 1)
 wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__ CUtensorMap khi_map,
             const __grid_constant__ CUtensorMap klo_map, const __grid_constant__ CUtensorMap vhi_map,
@@ -141,17 +168,20 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
   const int n_tiles = (prm.kv_len + kBN - 1) / kBN;  // later tiles change nothing
   const int n = prm.cluster, rank = static_cast<int>(cluster_ctarank());
   // this CTA's slice of S's head dim, in chunks of at most kC columns, and
-  // its output columns
-  const int units = prm.dp / kUnit;
-  const int s0 = part_start(units, n, rank) * kUnit;
-  const int s_cols = part_count(units, n, rank) * kUnit;
+  // its output columns (64, 96 or 128)
+  static_assert(!(kChunked && kPair), "a pair's slices fit in kC columns");
+  constexpr int unit = slice_unit(kPair);
+  const int units = prm.dp / unit;
+  const int s0 = part_start(units, n, rank) * unit;
+  const int s_cols = part_count(units, n, rank) * unit;
   const int chunks = kChunked ? (s_cols + kC - 1) / kC : 1;
-  const int o0 = part_start(units, prm.ctas, blockIdx.y) * kUnit;
-  const int o_units = part_count(units, prm.ctas, blockIdx.y);
+  const int o0 = part_start(units, prm.ctas, blockIdx.y) * unit;
+  const int o_cols = part_count(units, prm.ctas, blockIdx.y) * unit;
 
   if (threadIdx.x == 0) {
     sm.qr.init(kConsumers);
-    sm.ring.init(kConsumers);
+    sm.kr.init(kConsumers);
+    sm.vr.init(kConsumers);
     sm.x.init(sm.x.arrivals(n));
     mbar_init_fence();
   }
@@ -161,28 +191,43 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
 
   if (threadIdx.x >= kConsumers) {
     // ---- producer: one thread issues every TMA load: for each kv tile and
-    // chunk, Q_hi's chunk (once, unless kChunked), K_hi's and K_lo's, and
-    // with the tile's last chunk its V^T rows ----
+    // chunk, Q_hi's chunk (once, unless kChunked), K_hi's and K_lo's, then
+    // the tile's V^T rows of the output slice ----
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kConsumers) {
+      const int boxes = o_cols / kPanel;
       for (int t = 0, i = 0; t < n_tiles; ++t) {
+        int s = 0;
         for (int ch = 0; ch < chunks; ++ch, ++i) {
           const int c0 = s0 + ch * kC, panels = min(kC, s_cols - ch * kC) / kPanel;
-          const bool last = ch == chunks - 1;
           if (kChunked || i == 0) {
             sm.qr.acquire(i, panels * kQPanel);
             for (int p = 0; p < panels; ++p)
               tma_load_3d(sm.q[p], &qhi_map, &sm.qr.full[0], c0 + p * kPanel, q0, bh);
           }
-          const int s = sm.ring.acquire(i, 2 * panels * kKPanel + (last ? 2 * kVTile : 0));
+          // one ring (not kPair): V^T with the tile's last chunk (kChunked:
+          // one box of kC rows, which keeps the producer's 24 registers
+          // from spilling)
+          const bool v_here = !kPair && ch == chunks - 1;
+          const int v_bytes = kChunked ? 2 * kVTile : 2 * boxes * kVBox;
+          s = sm.kr.acquire(i, 2 * panels * kKPanel + (v_here ? v_bytes : 0));
           for (int p = 0; p < panels; ++p) {
-            tma_load_3d(sm.k[s][0][p], &khi_map, &sm.ring.full[s], c0 + p * kPanel, t * kBN, bh);
-            tma_load_3d(sm.k[s][1][p], &klo_map, &sm.ring.full[s], c0 + p * kPanel, t * kBN, bh);
+            tma_load_3d(sm.k[s][0][p], &khi_map, &sm.kr.full[s], c0 + p * kPanel, t * kBN, bh);
+            tma_load_3d(sm.k[s][1][p], &klo_map, &sm.kr.full[s], c0 + p * kPanel, t * kBN, bh);
           }
-          if (last) {
-            tma_load_3d(sm.v[s][0], &vhi_map, &sm.ring.full[s], t * kBN, o0, bh);
-            tma_load_3d(sm.v[s][1], &vlo_map, &sm.ring.full[s], t * kBN, o0, bh);
+          if (kChunked && v_here) {
+            tma_load_3d(sm.v[s][0], &vhi_map, &sm.kr.full[s], t * kBN, o0, bh);
+            tma_load_3d(sm.v[s][1], &vlo_map, &sm.kr.full[s], t * kBN, o0, bh);
           }
+        }
+        if (kChunked) continue;
+        // the tile's V^T rows of the output slice, in 32-row boxes: in the V
+        // ring (kPair) or in the slot of its last chunk
+        if (kPair) s = sm.vr.acquire(t, 2 * boxes * kVBox);
+        uint64_t* bar = kPair ? &sm.vr.full[s] : &sm.kr.full[s];
+        for (int b = 0; b < boxes; ++b) {
+          tma_load_3d(sm.v[s][0] + b * kVBox, &vhi_map, bar, t * kBN, o0 + b * kPanel, bh);
+          tma_load_3d(sm.v[s][1] + b * kVBox, &vlo_map, bar, t * kBN, o0 + b * kPanel, bh);
         }
       }
     }
@@ -220,16 +265,19 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
   float o[kC / 2];  // output columns o0 .., summed on the FMA units
 #pragma unroll
   for (int i = 0; i < kC / 2; ++i) o[i] = 0.0f;
-  // the P V chain of the tile in flight (the last of its o_units), on the
-  // tensor core, and the alpha of that tile, with which o takes it in
+  // the last P V chain of the tile in flight (kPV columns, the slice's
+  // last), on the tensor core, and the alpha of that tile, with which o
+  // takes it in
   float ot[kPV / 2];
   float fold0 = 1.0f, fold1 = 1.0f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows row, row + 8
   // P_hi and P_lo as the A fragments of P V
   uint32_t phi[kBN / 8][4], plo[kBN / 8][4];
   auto fold_last = [&]() {
-    if (o_units > 1)
-      fold<kC, kPV, 1>(o, ot, fold0, fold1);
+    if (o_cols == 128)
+      fold<kC, kPV, 64>(o, ot, fold0, fold1);
+    else if (kPair && o_cols == 96)
+      fold<kC, kPV, 32>(o, ot, fold0, fold1);
     else
       fold<kC, kPV, 0>(o, ot, fold0, fold1);
   };
@@ -238,7 +286,7 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
     // ---- this CTA's part of S = Q_hi K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T,
     // on the tensor core a chunk at a time, the chunks added on the FMA units
     float sv[kBN / 2];
-    int s = 0;
+    int s = 0;  // the slot of the tile's last chunk
     for (int ch = 0; ch < chunks; ++ch, ++i) {
       const int steps = min(kC, s_cols - ch * kC) / 8;
       if (kChunked) {
@@ -247,14 +295,14 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
       } else if (i == 0) {
         sm.qr.wait_full(0);
       }
-      s = sm.ring.wait_full(i);
+      s = sm.kr.wait_full(i);
       float acc[kBN / 2];
       const uint64_t khi = make_desc(sm.k[s][0][0], 16, 8 * 128, kSw128);
       const uint64_t klo = make_desc(sm.k[s][1][0], 16, 8 * 128, kSw128);
       wgmma_fence();
 #pragma unroll
       for (int st = 0; st < kSteps; ++st) {
-        if (st < steps) {  // a chunk of 64 columns takes half the steps
+        if (st < steps) {  // a chunk of 64 or 96 columns takes fewer steps
           const uint32_t qa = (st / 4) * kQPanel + 32 * (st % 4);
           const uint32_t kb = (st / 4) * kKPanel + 32 * (st % 4);
           wgmma_ss_tf32<kBN>(acc, desc_add(qdesc, qa), desc_add(khi, kb), st > 0);
@@ -270,9 +318,15 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
       fence_regs(plo);
       fence_regs(qlo);
       fence_regs(ot);
-      if (i > 0) sm.ring.release(i - 1);  // its P V (where it held V^T) has completed
+      if (kPair)
+        sm.kr.release(i);  // its S has completed
+      else if (i > 0)
+        sm.kr.release(i - 1);  // its S and, where it held V^T, its P V have completed
       if (kChunked) sm.qr.release(i);
-      if (!kChunked && it > 0) fold_last();  // the previous tile's last P V chain
+      if (!kChunked && it > 0) {  // the previous tile's last P V chain has completed
+        if (kPair) sm.vr.release(it - 1);
+        fold_last();
+      }
 #pragma unroll
       for (int j = 0; j < kBN / 2; ++j) sv[j] = ch == 0 ? acc[j] : __fadd_rn(sv[j], acc[j]);
     }
@@ -324,22 +378,32 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
     l0 = __fadd_rn(__fmul_rn(alpha0, l0), sum0);
     l1 = __fadd_rn(__fmul_rn(alpha1, l1), sum1);
 
-    // ---- P V over this CTA's rows of V^T (the stage of the tile's last
-    // chunk), in chains of kPV output columns into fresh registers: the
-    // first of two folded into o at once, the last left in flight across the
-    // next tile's S and folded after it (with kChunked, at once) ----
+    // ---- P V over this CTA's rows of V^T, in chains into fresh registers:
+    // a first chain (64 columns of 128, 32 of 96) folded into o at once, the
+    // last (kPV columns) left in flight across the next tile's S and folded
+    // after it (with kChunked, at once) ----
+    if (kPair) s = sm.vr.wait_full(it);
     const uint64_t vhi = make_desc(sm.v[s][0], 16, 8 * 128, kSw128);
     const uint64_t vlo = make_desc(sm.v[s][1], 16, 8 * 128, kSw128);
     fold0 = alpha0;
     fold1 = alpha1;
-    if (o_units > 1) {
+    if (o_cols == 128) {
       pv<kC, kPV, 0, kBN>(ot, phi, plo, vhi, vlo);
       wgmma_wait<0>();
       fence_regs(ot);
       fence_regs(phi);
       fence_regs(plo);
       fold<kC, kPV, 0>(o, ot, alpha0, alpha1);
-      pv<kC, kPV, 1, kBN>(ot, phi, plo, vhi, vlo);
+      pv<kC, kPV, 64, kBN>(ot, phi, plo, vhi, vlo);
+    } else if (kPair && o_cols == 96) {
+      float oh[16];
+      pv<kC, 32, 0, kBN>(oh, phi, plo, vhi, vlo);
+      wgmma_wait<0>();
+      fence_regs(oh);
+      fence_regs(phi);
+      fence_regs(plo);
+      fold<kC, 32, 0>(o, oh, alpha0, alpha1);
+      pv<kC, kPV, 32, kBN>(ot, phi, plo, vhi, vlo);
     } else {
       pv<kC, kPV, 0, kBN>(ot, phi, plo, vhi, vlo);
     }
@@ -370,7 +434,7 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
 #pragma unroll
   for (int j = 0; j < kC / 8; ++j) {
     const int col = 8 * j + 2 * c;
-    if (col < kUnit * o_units) {
+    if (col < o_cols) {
       if (row < prm.sq)
         *reinterpret_cast<float2*>(obase + (int64_t)row * prm.dp + col) =
             make_float2(__fmul_rn(o[4 * j], inv0), __fmul_rn(o[4 * j + 1], inv0));
@@ -390,28 +454,33 @@ wide_kernel(const __grid_constant__ CUtensorMap qhi_map, const __grid_constant__
 // k_hi, k_lo: [BH, skv, dp] f32, rows at or past kv_len zero; vt_hi, vt_lo:
 // [BH, dp, skv rounded up to 8] f32, v transposed, split and kv-permuted
 // (ops/flash_attention.py::_tf32_operands); all contiguous and 16-byte
-// aligned, dp a multiple of 64 above 256 (the head dim rounded up; the
-// columns past it zero), any lengths. cluster, groups: the wrapper's
-// _wide_plan (CTAs a cluster, clusters along y), checked against hopper.cuh's
-// wide_cluster / wide_groups. Returns a cudaError_t.
+// aligned, dp a multiple of 32 above 128 up to 256 and of 64 above (the head
+// dim rounded up; the columns past it zero), any lengths. cluster, groups:
+// the wrapper's _wide_plan (CTAs a cluster, clusters along y), checked
+// against hopper.cuh's wide_cluster / wide_groups over slice_unit columns a
+// unit. Returns a cudaError_t.
 extern "C" int aether_flash_online_wide(const void* q_hi, const void* q_lo, const void* k_hi,
                                         const void* k_lo, const void* vt_hi, const void* vt_lo,
                                         void* out, int BH, int sq, int skv, int kv_len, int dp,
                                         int cluster, int groups, void* stream) {
   using namespace wide_f32;
-  const int units = dp / kUnit, top = kC / kUnit;
+  const bool pair = dp <= kPairTop;
+  const int unit = slice_unit(pair), units = dp / unit, top = kC / unit;
   if (BH <= 0 || BH > 65535 || sq <= 0 || skv <= 0 || kv_len < 0 || kv_len > skv ||
-      dp <= 256 || dp % kUnit || cluster != wide_cluster(units, top) ||
+      dp <= kC || dp % unit || cluster != wide_cluster(units, top) ||
       groups != wide_groups(units, top) || cluster * groups > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const int skv8 = (skv + 7) / 8 * 8;
+  const uint32_t v_rows = groups == 1 ? kPanel : kC;  // of a V^T box: kChunked takes kC
   CUtensorMap qhi_map, khi_map, klo_map, vhi_map, vlo_map;
   if (!make_map_3d(&qhi_map, q_hi, f32, 4, dp, sq, BH, kPanel, kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_map_3d(&khi_map, k_hi, f32, 4, dp, skv, BH, kPanel, kBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !make_map_3d(&klo_map, k_lo, f32, 4, dp, skv, BH, kPanel, kBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&vhi_map, vt_hi, f32, 4, skv8, dp, BH, kBN, kC, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&vlo_map, vt_lo, f32, 4, skv8, dp, BH, kBN, kC, CU_TENSOR_MAP_SWIZZLE_128B))
+      !make_map_3d(&vhi_map, vt_hi, f32, 4, skv8, dp, BH, kBN, v_rows,
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_map_3d(&vlo_map, vt_lo, f32, 4, skv8, dp, BH, kBN, v_rows,
+                   CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   Params prm{};
   prm.q_lo = static_cast<const float*>(q_lo);
@@ -423,7 +492,8 @@ extern "C" int aether_flash_online_wide(const void* q_hi, const void* q_lo, cons
   prm.ctas = cluster * groups;
   // each CTA's slice within kC columns where one cluster spans the width
   void (*fn)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, Params) =
-      groups == 1 ? wide_kernel<false> : wide_kernel<true>;
+      pair ? wide_kernel<false, true>
+           : groups == 1 ? wide_kernel<false, false> : wide_kernel<true, false>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};

@@ -635,11 +635,12 @@ struct ScoreExchange {
 };
 
 // The cluster plan of K4's wide kernels (ops/flash_attention.py::_wide_plan
-// mirrors it): a width of `units` 64-column units over CTAs of at most
-// `top` units each. n CTAs a cluster (at most kWideCluster, the portable
-// size) split the head dim of a q tile for S; `groups` clusters along the
-// grid's y axis each compute S so and split the output columns, n * groups
-// CTAs in all. Part i of `parts` takes units [start, start + count).
+// mirrors it): a width of `units` units (64 columns, or 32 for K4 f32 at
+// 160-256) over CTAs of at most `top` units each. n CTAs a cluster (at most
+// kWideCluster, the portable size) split the head dim of a q tile for S;
+// `groups` clusters along the grid's y axis each compute S so and split the
+// output columns, n * groups CTAs in all. Part i of `parts` takes units
+// [start, start + count).
 constexpr int kWideCluster = 8;
 __host__ __device__ inline int wide_cluster(int units, int top) {
   const int n = (units + top - 1) / top;

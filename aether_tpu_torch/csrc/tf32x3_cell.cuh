@@ -2,9 +2,9 @@
 // with TMA, written by hand for Hopper (sm_90a): one kernel template over
 // the head dim D (16 to 128 in steps of 16), the q/k type and a mode, shared
 // by K4 in f32 (flash_online.cu) and K3 in f32 (flash_fixed_max_hd.cu, 16
-// to 128); and above 128 a second kernel of the same arithmetic on another
-// tile plan (split_kernel, the end of this note), K4 in f32 at 160 to 256
-// in steps of 32.
+// to 128). Above 128 K4 in f32 runs flash_online_wide.cu, a cluster of CTAs
+// a q tile, each this cell's <128> plan on a slice of the head dim (pv and
+// fold below are shared with it).
 //
 // Replaces two Pallas TPU kernels of aether_tpu/ops/flash_attention.py for
 // f32 v, non-causal, in the log2 domain, head group g = bh / hper:
@@ -91,38 +91,6 @@
 //   * tiles wholly past kv_len are skipped (they change nothing) and only
 //     the tile that crosses it is masked.
 //
-// Above D 128 the plan runs out of room (the bytes and registers of each
-// width, before addresses; 227 KB a block, 240 registers a consumer):
-//   * shared memory: Q_hi of 128 rows is 80 / 96 / 112 / 128 KB at D 160 /
-//     192 / 224 / 256, and a stage of K_hi, K_lo, V^T_hi and V^T_lo 16 kBN D
-//     bytes (80 KB at 160 with kBN 32): two stages need 240 KB at 160, 256
-//     at 256 with kBN 16 and Q_hi;
-//   * registers: Q_lo D / 2, the output D / 2 and a tile's P V D / 2 (D / 4
-//     in halves), 80 + 80 + 40 = 200 at 160 and 128 + 128 + 64 = 320 at
-//     256, before S, P_hi and P_lo (3 kBN / 2).
-// So split_kernel takes 64 q rows a CTA, and both consumer warpgroups work
-// on them, each over half the head dim, kHalf = D / 2 columns (SplitPlan):
-//   * S: warpgroup w computes its part, the 3 kHalf / 8 k steps of columns
-//     w kHalf .. + kHalf - 1 (Q_hi from shared memory, Q_lo of its columns
-//     in registers, kHalf / 4 a thread), into an m64n16 accumulator. The
-//     two parts meet in shared memory (64 x kBN f32 each, double-buffered
-//     by tile parity so one barrier a tile suffices): each thread holds the
-//     same (row, column) elements in both warpgroups, so each adds the
-//     other's element to its own, S = S_0 + S_1 (f32 addition commutes:
-//     both hold the same S bit for bit, and both run the same softmax);
-//   * P V: warpgroup w multiplies P by its kHalf rows of V^T into fresh
-//     registers and adds them into its kHalf output columns on the FMA
-//     units, as above (at 256 in two chains of 64, kHalves);
-//   * kBN 16 kv rows a tile (V^T rows of 64 bytes, 64-byte swizzle), Q_hi
-//     resident (64 x 4 D bytes: 40-64 KB), and as many stages as fit: 4 at
-//     160 (40 + 4 x 40 KB + 16 KB of S parts), 3 at 192 (48 + 3 x 48 + 16),
-//     2 at 224 and 256 (56 + 2 x 56 + 16, 64 + 2 x 64 + 16);
-//   * registers a consumer thread: Q_lo, the output and P V D / 4 each (P
-//     V D / 8 at 256), S and p 8 each, P_hi and P_lo 16: 152 at 160, 200 at
-//     224, 192 at 256.
-// Each CTA reads every K and V tile for 64 q rows, not 128, so the L2
-// traffic a call is twice the first plan's for the same D; a cluster
-// sharing the tiles (TMA multicast) is the way to halve it.
 // Compiled without --use_fast_math so exp2f and the division stay accurate.
 
 #pragma once
@@ -203,9 +171,9 @@ struct Params {
 };
 
 // d = P_hi V_hi + P_hi V_lo + P_lo V_hi over the kBN / 8 k steps of one
-// tile, output columns kH N .. kH N + N - 1 (V^T rows, 128 bytes each in a
+// tile, output columns kCol .. kCol + N - 1 (V^T rows, 128 bytes each in a
 // panel of D rows), issued into fresh registers and committed, not waited for
-template <int D, int N, int kH, int kBN>
+template <int D, int N, int kCol, int kBN>
 __device__ __forceinline__ void pv(float (&d)[N / 2], const uint32_t (&phi)[kBN / 8][4],
                                    const uint32_t (&plo)[kBN / 8][4], uint64_t vhi,
                                    uint64_t vlo) {
@@ -213,7 +181,7 @@ __device__ __forceinline__ void pv(float (&d)[N / 2], const uint32_t (&phi)[kBN 
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBN / 8; ++kk) {
-    const uint32_t off = (kk / 4) * D * 128 + kH * N * 128 + 32 * (kk % 4);
+    const uint32_t off = (kk / 4) * D * 128 + kCol * 128 + 32 * (kk % 4);
     wgmma_rs_tf32<N>(d, phi[kk], desc_add(vhi, off), kk > 0);
     wgmma_rs_tf32<N>(d, phi[kk], desc_add(vlo, off), 1);
     wgmma_rs_tf32<N>(d, plo[kk], desc_add(vhi, off), 1);
@@ -221,13 +189,13 @@ __device__ __forceinline__ void pv(float (&d)[N / 2], const uint32_t (&phi)[kBN 
   wgmma_commit();
 }
 
-// o = alpha o + ot on output columns kH N .. kH N + N - 1, alpha0 for rows
+// o = alpha o + ot on output columns kCol .. kCol + N - 1, alpha0 for rows
 // row (elements 0, 1 of each group of 4), alpha1 for rows row + 8: one
 // tile's P V taken in on the FMA units
-template <int D, int N, int kH>
+template <int D, int N, int kCol>
 __device__ __forceinline__ void fold(float (&o)[D / 2], const float (&ot)[N / 2], float alpha0,
                                      float alpha1) {
-  constexpr int o0 = kH * N / 2;
+  constexpr int o0 = kCol / 2;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     o[o0 + 4 * j] = __fmaf_rn(o[o0 + 4 * j], alpha0, ot[4 * j]);
@@ -247,7 +215,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   using P = Plan<D, kQK8>;
   using Acc = std::conditional_t<kQK8, int, float>;  // S: s32 or f32 sums
   constexpr int kBM = P::kBM, kBN = P::kBN, kRow = P::kRow, kPV = P::kPV;
-  constexpr int kLast = P::kHalves - 1;  // the half that stays in flight
+  constexpr int kLast = (P::kHalves - 1) * kPV;  // the first column of the half in flight
   extern __shared__ uint8_t smem_raw[];
   Smem<D, kQK8>& sm = *reinterpret_cast<Smem<D, kQK8>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -427,7 +395,7 @@ cell_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     const uint64_t vlo = make_desc(sm.v[s][1], 16, 8 * 128, kSw128);
     fold0 = alpha0;
     fold1 = alpha1;
-    if constexpr (kLast == 1) {
+    if constexpr (kLast > 0) {
       pv<D, kPV, 0, kBN>(ot, phi, plo, vhi, vlo);
       wgmma_wait<0>();
       fence_regs(ot);
@@ -499,305 +467,6 @@ int launch(const void* q_hi, const void* k_hi, const void* k_lo, const void* vt_
   // + 1024 so the tiles can start on a 1024-byte boundary
   constexpr int kSmem = sizeof(Smem<D, kQK8>) + 1024;
   auto kernel = cell_kernel<D, kQK8, kMode>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((prm.sq + P::kBM - 1) / P::kBM, BH);
-  kernel<<<grid, P::kThreads, kSmem, stream>>>(qmap, khi_map, klo_map, vhi_map, vlo_map, prm);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---- above D 128: split_kernel, the head dim split over the warpgroups ----
-
-// The plan of head dim D above 128 (the note above), K4 only (kOnline, f32
-// q/k)
-template <int D>
-struct SplitPlan {
-  static_assert(D % 32 == 0 && D > 128 && D <= 256, "head_dim: 160 to 256 in steps of 32");
-  static constexpr int kBN = 16;       // kv rows a tile
-  static constexpr int kBM = 64;       // q rows a CTA, in both warpgroups
-  static constexpr int kHalf = D / 2;  // head-dim columns of a warpgroup
-  static constexpr int kConsumers = 256;
-  static constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
-  static constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-  static_assert(128 * kProducerRegs + kConsumers * kConsumerRegs <=
-                    kThreads * ((65536 / kThreads) & ~7),
-                "setmaxnreg asks for more registers than the CTA starts with");
-  // a tile's P V in one chain of the warpgroup's kHalf columns, or at 256 in
-  // two of 64 (kHalf / 8 registers, not kHalf / 4)
-  static constexpr int kHalves = D == 256 ? 2 : 1;
-  static constexpr int kPV = kHalf / kHalves;
-  // q and k (K-major): D / 32 panels of 128-byte rows, k steps of 8 floats
-  static constexpr int kRow = 128;
-  static constexpr int kPanels = D / 32;
-  static constexpr int kSteps = kHalf / 8;  // k steps of one warpgroup's part of S
-  static constexpr int kQTile = kBM * kRow * kPanels;  // bytes of Q_hi
-  static constexpr int kKTile = kBN * kRow * kPanels;  // of K_hi or K_lo
-  // V^T (K-major, kv contiguous): D rows of kBN floats, 64 bytes a row
-  static constexpr int kVRow = kBN * 4;
-  static constexpr int kVTile = D * kVRow;  // of V^T_hi or V^T_lo
-  static constexpr int kStage = 2 * kKTile + 2 * kVTile;
-  static constexpr int kParts = 2 * 2 * kBM * kBN * 4;  // S parts: [parity][warpgroup]
-  // as many stages as fit beside Q_hi, the parts of S, the barriers and the
-  // 1024-byte alignment in the 227 KB a block may take, at most 4
-  static constexpr int kFit = (232448 - 2048 - kQTile - kParts) / kStage;
-  static constexpr int kStages = kFit < 4 ? kFit : 4;
-  static_assert(kStages >= 2, "two ring stages must fit");
-};
-
-template <int D>
-struct SplitSmem {
-  using P = SplitPlan<D>;
-  uint8_t q[P::kQTile];
-  uint8_t k[P::kStages][2][P::kKTile];  // K_hi, K_lo
-  uint8_t v[P::kStages][2][P::kVTile];  // V^T_hi, V^T_lo
-  // each warpgroup's part of S, [tile parity][warpgroup][element][thread]
-  float parts[2][2][P::kBN / 2][128];
-  Ring<P::kStages> ring;
-  uint64_t q_full;
-};
-
-// d = P_hi V_hi + P_hi V_lo + P_lo V_hi over the kBN / 8 k steps of one
-// tile, N output columns from the V^T rows at which the descriptors start
-// (rows of kBN = 16 floats, k step kk 32 bytes into the row), issued into
-// fresh registers and committed, not waited for
-template <int N, int kBN>
-__device__ __forceinline__ void pv_rows(float (&d)[N / 2], const uint32_t (&phi)[kBN / 8][4],
-                                        const uint32_t (&plo)[kBN / 8][4], uint64_t vhi,
-                                        uint64_t vlo) {
-  static_assert(kBN == 16, "V^T rows of one 64-byte swizzle row");
-  fence_regs(d);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kBN / 8; ++kk) {
-    wgmma_rs_tf32<N>(d, phi[kk], desc_add(vhi, 32 * kk), kk > 0);
-    wgmma_rs_tf32<N>(d, phi[kk], desc_add(vlo, 32 * kk), 1);
-    wgmma_rs_tf32<N>(d, plo[kk], desc_add(vhi, 32 * kk), 1);
-  }
-  wgmma_commit();
-}
-
-template <int D>
-__global__ void __launch_bounds__(SplitPlan<D>::kThreads, 1)
-split_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap khi_map,
-             const __grid_constant__ CUtensorMap klo_map,
-             const __grid_constant__ CUtensorMap vhi_map,
-             const __grid_constant__ CUtensorMap vlo_map, const Params prm) {
-  using P = SplitPlan<D>;
-  constexpr int kBM = P::kBM, kBN = P::kBN, kRow = P::kRow, kHalf = P::kHalf, kPV = P::kPV;
-  constexpr int kLast = P::kHalves - 1;  // the chain that stays in flight
-  extern __shared__ uint8_t smem_raw[];
-  SplitSmem<D>& sm = *reinterpret_cast<SplitSmem<D>*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int q0 = blockIdx.x * kBM, bh = blockIdx.y;
-  const int n_tiles = (prm.kv_len + kBN - 1) / kBN;  // later tiles change nothing
-
-  if (threadIdx.x == 0) {
-    sm.ring.init(P::kConsumers);
-    mbar_init(&sm.q_full, 1);
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= P::kConsumers) {
-    // ---- producer: one thread issues every TMA load ----
-    setmaxnreg_dec<P::kProducerRegs>();
-    if (threadIdx.x == P::kConsumers) {
-      mbar_expect_tx(&sm.q_full, P::kQTile);
-      for (int p = 0; p < P::kPanels; ++p)
-        tma_load_3d(sm.q + p * kBM * kRow, &qmap, &sm.q_full, p * 32, q0, bh);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = sm.ring.acquire(t, P::kStage);
-        for (int h = 0; h < 2; ++h)
-          for (int p = 0; p < P::kPanels; ++p)
-            tma_load_3d(sm.k[s][h] + p * kBN * kRow, h ? &klo_map : &khi_map, &sm.ring.full[s],
-                        p * 32, t * kBN, bh);
-        for (int h = 0; h < 2; ++h)
-          tma_load_3d(sm.v[s][h], h ? &vlo_map : &vhi_map, &sm.ring.full[s], t * kBN, 0, bh);
-      }
-    }
-    return;
-  }
-
-  // ---- consumers: both warpgroups on q rows q0 .. q0 + 63; warpgroup wg
-  // on head-dim columns wg kHalf .. + kHalf - 1 ----
-  setmaxnreg_inc<P::kConsumerRegs>();
-  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
-  const int lane = tid % 32, warp = t / 32;
-  const int c = lane % 4;
-  const int row = q0 + warp * 16 + lane / 4;  // and row + 8
-  const int st0 = wg * P::kSteps;              // the warpgroup's first k step of Q K^T
-
-  // Q_lo of the warpgroup's columns as the A fragments of Q_lo K_hi^T: k
-  // step st holds columns 8 (st0 + st) + c and + 4 of rows row and row + 8
-  // (rows past sq: zeros)
-  uint32_t qlo[P::kSteps][4];
-  {
-    const float* q_lo = prm.q_lo + (int64_t)bh * prm.sq * D;
-#pragma unroll
-    for (int st = 0; st < P::kSteps; ++st)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row + 8 * (e % 2), col = 8 * (st0 + st) + c + 4 * (e / 2);
-        qlo[st][e] = r < prm.sq ? __float_as_uint(__ldg(q_lo + (int64_t)r * D + col)) : 0u;
-      }
-  }
-  const uint64_t qdesc = make_desc(sm.q, 16, 8 * kRow, kSw128);  // panel 0
-  mbar_wait(&sm.q_full, 0);
-
-  float o[kHalf / 2];  // the warpgroup's output columns, summed on the FMA units
-#pragma unroll
-  for (int i = 0; i < kHalf / 2; ++i) o[i] = 0.0f;
-  // the P V of the tile in flight (its last chain) and the alpha of that
-  // tile, with which o takes it in: o = alpha o + ot
-  float ot[kPV / 2];
-  float fold0 = 1.0f, fold1 = 1.0f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows row, row + 8
-  uint32_t phi[kBN / 8][4], plo[kBN / 8][4];
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int s = sm.ring.wait_full(it);
-    const int kv0 = it * kBN;
-
-    // ---- this warpgroup's part of S: k step st0 + st at byte 32 (st0 + st)
-    // of the row, in panel (st0 + st) / 4 ----
-    float acc[kBN / 2];
-    const uint64_t khi = make_desc(sm.k[s][0], 16, 8 * kRow, kSw128);
-    const uint64_t klo = make_desc(sm.k[s][1], 16, 8 * kRow, kSw128);
-    wgmma_fence();
-#pragma unroll
-    for (int st = 0; st < P::kSteps; ++st) {
-      const int g = st0 + st, panel = g / 4, col = 32 * (g % 4);
-      const uint32_t qa = panel * kBM * kRow + col, kb = panel * kBN * kRow + col;
-      wgmma_ss_tf32<kBN>(acc, desc_add(qdesc, qa), desc_add(khi, kb), st > 0);
-      wgmma_ss_tf32<kBN>(acc, desc_add(qdesc, qa), desc_add(klo, kb), 1);
-      wgmma_rs_tf32<kBN>(acc, qlo[st], desc_add(khi, kb), 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(o);
-    fence_regs(phi);
-    fence_regs(plo);
-    fence_regs(qlo);
-    if (it > 0) sm.ring.release(it - 1);  // its P V has completed
-    fence_regs(ot);
-    if (it > 0) fold<kHalf, kPV, kLast>(o, ot, fold0, fold1);
-
-    // ---- S = S_0 + S_1: the parts meet in shared memory ----
-#pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) sm.parts[it & 1][wg][i][t] = acc[i];
-    named_sync(1, P::kConsumers);
-    float sv[kBN / 2];
-#pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) sv[i] = __fadd_rn(acc[i], sm.parts[it & 1][1 - wg][i][t]);
-
-    // ---- the running max, masked past kv_len ----
-    if (kv0 + kBN > prm.kv_len) {
-#pragma unroll
-      for (int i = 0; i < kBN / 2; ++i)
-        if (kv0 + 8 * (i / 4) + 2 * c + (i % 2) >= prm.kv_len) sv[i] = kNegInf;
-    }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(sv[4 * j], sv[4 * j + 1]));
-      mx1 = fmaxf(mx1, fmaxf(sv[4 * j + 2], sv[4 * j + 3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
-    const float sub0 = fmaxf(m0, mx0), sub1 = fmaxf(m1, mx1);
-    const float alpha0 = exp2f(__fsub_rn(m0, sub0));  // 0 on the first tile
-    const float alpha1 = exp2f(__fsub_rn(m1, sub1));
-    m0 = sub0;
-    m1 = sub1;
-
-    // ---- p, its row sums, and P_hi / P_lo as the A fragments of k step j
-    // in V^T's kv order (the first kernel's) ----
-    float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[e] = exp2f(__fsub_rn(sv[4 * j + e], e < 2 ? sub0 : sub1));
-      sum0 = __fadd_rn(__fadd_rn(sum0, p[0]), p[1]);
-      sum1 = __fadd_rn(__fadd_rn(sum1, p[2]), p[3]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = p[e == 1 ? 2 : e == 2 ? 1 : e];
-        const float hi = tf32_rna(x);
-        phi[j][e] = __float_as_uint(hi);
-        plo[j][e] = __float_as_uint(tf32_rna(__fsub_rn(x, hi)));
-      }
-    }
-    l0 = __fadd_rn(__fmul_rn(alpha0, l0), sum0);
-    l1 = __fadd_rn(__fmul_rn(alpha1, l1), sum1);
-
-    // ---- P V over the warpgroup's kHalf rows of V^T: into fresh registers,
-    // which o takes in with this tile's alpha: the first chain (kHalves 2)
-    // at once, the last at the next fold ----
-    const uint64_t vhi = make_desc(sm.v[s][0] + wg * kHalf * P::kVRow, 16, 8 * P::kVRow, kSw64);
-    const uint64_t vlo = make_desc(sm.v[s][1] + wg * kHalf * P::kVRow, 16, 8 * P::kVRow, kSw64);
-    fold0 = alpha0;
-    fold1 = alpha1;
-    if constexpr (kLast == 1) {
-      pv_rows<kPV, kBN>(ot, phi, plo, vhi, vlo);
-      wgmma_wait<0>();
-      fence_regs(ot);
-      fence_regs(phi);
-      fence_regs(plo);
-      fold<kHalf, kPV, 0>(o, ot, alpha0, alpha1);
-    }
-    pv_rows<kPV, kBN>(ot, phi, plo, desc_add(vhi, kLast * kPV * P::kVRow),
-                      desc_add(vlo, kLast * kPV * P::kVRow));
-  }
-  wgmma_wait<0>();
-  fence_regs(o);
-  fence_regs(phi);
-  fence_regs(plo);
-  fence_regs(ot);
-  if (n_tiles > 0) fold<kHalf, kPV, kLast>(o, ot, fold0, fold1);
-
-  l0 = __fadd_rn(l0, __shfl_xor_sync(kFull, l0, 1));
-  l0 = __fadd_rn(l0, __shfl_xor_sync(kFull, l0, 2));
-  l1 = __fadd_rn(l1, __shfl_xor_sync(kFull, l1, 1));
-  l1 = __fadd_rn(l1, __shfl_xor_sync(kFull, l1, 2));
-  const float inv0 = l0 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l0);
-  const float inv1 = l1 <= 0.0f ? 1.0f : __fdiv_rn(1.0f, l1);
-  float* obase = prm.out + (int64_t)bh * prm.sq * D + wg * kHalf;
-#pragma unroll
-  for (int j = 0; j < kHalf / 8; ++j) {
-    const int col = 8 * j + 2 * c;
-    if (row < prm.sq)
-      *reinterpret_cast<float2*>(obase + (int64_t)row * D + col) =
-          make_float2(__fmul_rn(o[4 * j], inv0), __fmul_rn(o[4 * j + 1], inv0));
-    if (row + 8 < prm.sq)
-      *reinterpret_cast<float2*>(obase + (int64_t)(row + 8) * D + col) =
-          make_float2(__fmul_rn(o[4 * j + 2], inv1), __fmul_rn(o[4 * j + 3], inv1));
-  }
-}
-
-// One launch of split_kernel<D> on launch<>'s operands (f32 q/k; grid (q
-// tiles of 64 rows, BH)). Returns a cudaError_t: cudaErrorInvalidValue
-// where cuTensorMapEncodeTiled refuses a map.
-template <int D>
-int launch_split(const void* q_hi, const void* k_hi, const void* k_lo, const void* vt_hi,
-                 const void* vt_lo, int BH, int skv, Params prm, cudaStream_t stream) {
-  using P = SplitPlan<D>;
-  const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  const int skv8 = (skv + 7) / 8 * 8;
-  CUtensorMap qmap, khi_map, klo_map, vhi_map, vlo_map;
-  if (!make_map_3d(&qmap, q_hi, f32, 4, D, prm.sq, BH, 32, P::kBM, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&khi_map, k_hi, f32, 4, D, skv, BH, 32, P::kBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&klo_map, k_lo, f32, 4, D, skv, BH, 32, P::kBN, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map_3d(&vhi_map, vt_hi, f32, 4, skv8, D, BH, P::kBN, D, CU_TENSOR_MAP_SWIZZLE_64B) ||
-      !make_map_3d(&vlo_map, vt_lo, f32, 4, skv8, D, BH, P::kBN, D, CU_TENSOR_MAP_SWIZZLE_64B))
-    return static_cast<int>(cudaErrorInvalidValue);
-  // + 1024 so the tiles can start on a 1024-byte boundary
-  constexpr int kSmem = sizeof(SplitSmem<D>) + 1024;
-  auto kernel = split_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -79,7 +79,7 @@ SIGNATURES = {
         _P, _P,              # vt_hi, vt_lo: f32 [B*H, D, skv rounded up to 8], kv-permuted
         _P,                  # out: f32 [B*H, sq, D]
         _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
-        _I,                  # D (16 to 128 in steps of 16, 160 to 256 in steps of 32)
+        _I,                  # D (16 to 128 in steps of 16)
         _P,                  # stream
     ],
     "aether_flash_online_bf16": [
@@ -94,7 +94,7 @@ SIGNATURES = {
         _P, _P,              # vt_hi, vt_lo: f32 [B*H, dp, skv rounded up to 8], kv-permuted
         _P,                  # out: f32 [B*H, sq, dp]
         _I, _I, _I, _I,      # BH, sq, skv (any lengths), kv_len
-        _I,                  # dp (a multiple of 64: head dims above 256, zero-padded)
+        _I,                  # dp (160 to 256 in steps of 32, then multiples of 64; zero-padded)
         _I, _I,              # the plan (flash_attention._wide_plan): cluster, groups
         _P,                  # stream
     ],

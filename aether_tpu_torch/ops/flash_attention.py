@@ -35,12 +35,13 @@ parts through distributed shared memory so that every CTA holds the same S,
 and each CTA runs the softmax and P V over its slice's output columns. Its
 launches count here at 64 and on :func:`flash_attention_hd` at the others.
 In f32 (the forward of the training path) ``csrc/flash_online.cu`` runs at
-every head dim up to 256: the split-TF32 (3xTF32) ``wgmma`` + TMA cell of
-``csrc/tf32x3_cell.cuh`` (above 128 its second tile plan, the head dim split
-over two warpgroups); above 256 ``csrc/flash_online_wide.cu``, the same
+every head dim up to 128: the split-TF32 (3xTF32) ``wgmma`` + TMA cell of
+``csrc/tf32x3_cell.cuh``; above 128 ``csrc/flash_online_wide.cu``, the same
 cluster plan in 3xTF32 with slices of at most 128 columns, each CTA on the
-cell's 128-column plan (q_hi resident, q_lo in registers). Its launches count
-here at 64 and on :func:`flash_attention_f32_hd` at the others.
+cell's 128-column plan (q_hi resident, q_lo in registers): from 160 to 256 a
+pair of CTAs on slices in units of 32 columns, above 256 in units of 64. Its
+launches count here at 64 and on :func:`flash_attention_f32_hd` at the
+others.
 Both keep the JAX preparation: ``sm_scale * log2e`` folded into q and rounded
 to q's dtype (by the wrapper for f32, in the kernel for bf16) and the
 ``kv_valid`` tail zeroed; neither pads tokens (TMA reads rows past the ends
@@ -139,8 +140,10 @@ _NOSHIFT_CODES = {False: 0, True: 1, None: 2}  # K2's C argument
 # the largest head dim K3 and K6 take on CUDA (the JAX wrapper turns the
 # fixed max off at 128 and above), and K2 (K4 takes every one)
 FIXED_MAX_TOP, PREPACKED_TOP = 127, 128
-# K4's head dims above this run the wide kernels (the width at run time)
+# K4's head dims above these run the wide kernels (the width at run time):
+# bf16 above online_cell's 256, f32 above tf32x3_cell's 128
 ONLINE_CELL_TOP = 256
+_WIDE_FROM = {torch.bfloat16: ONLINE_CELL_TOP, torch.float32: 128}
 
 
 class WidePlan(NamedTuple):
@@ -159,29 +162,35 @@ _WIDE_SLICE = {torch.bfloat16: 256, torch.float32: 128}
 _WIDE_CLUSTER = 8
 
 
-def _split_units(units: int, parts: int) -> tuple:
-    """``units`` 64-column units dealt out over ``parts`` in order, the first
-    ``units % parts`` one more (hopper.cuh's part_count), in columns."""
-    return tuple(64 * (units // parts + (i < units % parts)) for i in range(parts))
+def _split_units(units: int, parts: int, unit: int) -> tuple:
+    """``units`` units of ``unit`` columns dealt out over ``parts`` in order,
+    the first ``units % parts`` one more (hopper.cuh's part_count), in
+    columns."""
+    return tuple(unit * (units // parts + (i < units % parts)) for i in range(parts))
 
 
 def _wide_plan(dp: int, dtype: torch.dtype) -> WidePlan:
-    """The cluster plan of K4's wide kernels at width ``dp`` (a multiple of 64
-    above 256) for q of ``dtype``, as ``csrc/hopper.cuh``'s wide_cluster and
-    wide_groups compute it (the C entries refuse another): a cluster of
-    ceil(dp / slice) CTAs, at most 8, splits the head dim of a q tile for S,
-    slices of at most 256 columns in bf16 and 128 in f32 in 64-column units,
-    uneven where dp / 64 does not divide (320: bf16 192 + 128, f32 128 + 128 +
-    64); above 8 slices ``groups`` clusters along y each compute S so and
-    share the output columns evenly, at most one slice each."""
-    if dp <= ONLINE_CELL_TOP or dp % 64:
-        raise ValueError(f"the wide kernels take a multiple of 64 above "
-                         f"{ONLINE_CELL_TOP}, not {dp}")
-    units, top = dp // 64, _WIDE_SLICE[dtype] // 64
+    """The cluster plan of K4's wide kernels at width ``dp`` for q of
+    ``dtype``, as ``csrc/hopper.cuh``'s wide_cluster and wide_groups compute
+    it over ``slice_unit`` columns a unit (the C entries refuse another): a
+    cluster of ceil(dp / slice) CTAs, at most 8, splits the head dim of a q
+    tile for S, slices of at most 256 columns in bf16 and 128 in f32, dealt
+    out evenly in units of 64 columns (dp a multiple of 64 above 256), or in
+    f32 from 160 to 256 (a multiple of 32) in units of 32: a pair, 160 96 +
+    64, 192 96 + 96, 224 128 + 96, 256 128 + 128; uneven where the units do
+    not divide (320: bf16 192 + 128, f32 128 + 128 + 64); above 8 slices
+    ``groups`` clusters along y each compute S so and share the output
+    columns evenly, at most one slice each."""
+    low = _WIDE_FROM[dtype]
+    unit = 32 if dp <= ONLINE_CELL_TOP else 64
+    if dp <= low or dp % unit:
+        raise ValueError(f"the wide kernels in {str(dtype)[6:]} take a multiple of 32 "
+                         f"up to 256 or of 64 above, above {low}, not {dp}")
+    units, top = dp // unit, _WIDE_SLICE[dtype] // unit
     cluster = min(_WIDE_CLUSTER, -(-units // top))
     groups = -(-units // (cluster * top))
-    return WidePlan(cluster, groups, _split_units(units, cluster),
-                    _split_units(units, cluster * groups))
+    return WidePlan(cluster, groups, _split_units(units, cluster, unit),
+                    _split_units(units, cluster * groups, unit))
 
 
 def head_dim_width(head_dim: int) -> int:
@@ -577,13 +586,14 @@ def _tf32_operands(qh, kh, vh) -> _Tf32Operands:
 def _online_f32_launch(t: _Tf32Operands, out: torch.Tensor, kv_len: int) -> None:
     """The K4 f32 kernel alone, uncounted, on :func:`_tf32_operands` of
     :func:`_online_operands`' result (q folded, k/v rows >= kv_len zeroed);
-    out [BH, Sq, D] f32, D a width: 16 to 128 in steps of 16 and 160 to 256
-    in steps of 32 (``csrc/flash_online.cu``), or above 256 any multiple of
-    64 (``csrc/flash_online_wide.cu`` on :func:`_wide_plan`'s clusters)."""
+    out [BH, Sq, D] f32, D a width: 16 to 128 in steps of 16
+    (``csrc/flash_online.cu``), or above 128 160 to 256 in steps of 32 and
+    any multiple of 64 above (``csrc/flash_online_wide.cu`` on
+    :func:`_wide_plan`'s clusters)."""
     bh, sq, dim = t.q_hi.shape
     args = [*(x.data_ptr() for x in t), out.data_ptr(), bh, sq, t.k_hi.shape[1], kv_len, dim]
     name = "aether_flash_online"
-    if dim > ONLINE_CELL_TOP:
+    if dim > _WIDE_FROM[torch.float32]:
         name = "aether_flash_online_wide"
         args += _wide_plan(dim, torch.float32)[:2]
     rc = getattr(_build.lib(), name)(*args, _build.stream_ptr(out.device))

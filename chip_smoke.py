@@ -351,11 +351,13 @@ Phase of the padded head dims, after 27 (``padded_dims_phase``):
 Phase of K4 above head_dim 128, after 28 (``wide_dims_phase``):
  29. K4 runs every head dim 129-256 on the instances 160, 192, 224 and 256
      (a head dim between them on the next one's, zero-padded): bf16 on
-     ``online_cell<D>`` with 64-row kv tiles, f32 on ``tf32x3_cell.cuh``'s
-     ``split_kernel<D>`` (64 q rows a CTA, the head dim split over two
-     consumer warpgroups). (d) K4 bf16 and f32 at (1, 48, 15076, D), D 64,
-     72, 160 and 256, on seeded inputs: the outputs' digests equal commit
-     dbe6a4d's (the instances up to 256 keep their bits); (c) the tiny
+     ``online_cell<D>`` with 64-row kv tiles, f32 on
+     ``csrc/flash_online_wide.cu`` (a pair of CTAs a 128-row q tile, the head
+     dim split in 32-column units, 32-row kv tiles through K and V rings of
+     2 slots each; 29a logs the plan beside the registers). (d) K4 bf16 and
+     f32 at (1, 48, 15076, D), D 64, 72, 160 and 256, on seeded inputs: the
+     outputs' digests equal their pins (commit dbe6a4d's; f32 at 160 and 256
+     the CTA pair's): the instances keep their bits; (c) the tiny
      trainer's two steps at head_dim 160 and 256 on the card against the CPU
      (losses within phase 23's rtol 2e-4 / atol 2e-5, exactly 8 K4 f32 hd
      launches each, finite loss and gradient norm, the parameters moved),
@@ -4515,12 +4517,15 @@ WIDE_TINY_DIMS = (144, 192, 224)
 # (d) K4's outputs at (1, 48, 15076, D) for D 64, 72, 160 and 256 on seeded
 # inputs (time_hd_cells.py k4_digests), as commit dbe6a4d gave them on the
 # card before K4 took head dims above 256 (its outputs at 64 and 72 equal
-# d21dc60's, before 129-256, on numpy-drawn inputs): the instances up to 256
-# keep their bits
+# d21dc60's, before 129-256, on numpy-drawn inputs), but f32 at 160 and 256:
+# the outputs of flash_online_wide.cu's CTA pair, which replaced
+# split_kernel's summation order (held to the plain version at
+# K4_F32_128_BARS on these inputs, the same in two card runs): the
+# instances up to 256 keep their bits
 PARENT_K4_DIGESTS = {"K4 bf16 hd64": "fa5f35e2445ac114", "K4 f32 hd64": "4c3690d8288a42e5",
                      "K4 bf16 hd72": "f6d7d564d463e7ca", "K4 f32 hd72": "f9c863ba3d087916",
-                     "K4 bf16 hd160": "3b0dcb73ba43921d", "K4 f32 hd160": "841a6ac22b259407",
-                     "K4 bf16 hd256": "d3d23aed9d83d8eb", "K4 f32 hd256": "f6e7f54ae7280a21"}
+                     "K4 bf16 hd160": "3b0dcb73ba43921d", "K4 f32 hd160": "2a2ef38a5377561f",
+                     "K4 bf16 hd256": "d3d23aed9d83d8eb", "K4 f32 hd256": "7a6fab4405274968"}
 
 
 def sdpa_or_none(q, k, v, iters):
@@ -4624,12 +4629,31 @@ def k4_dims_cases(dev, gen, label, dims, timed, patterns, plan=None):
     return results
 
 
+def wide_plan_note(width, dtype):
+    """Phase 29a's and 30a's launch plan of K4 at ``width``: bf16 up to 256
+    on ``online_cell<D>``; f32 above 128 and bf16 above 256 the wide
+    kernels' cluster (``_wide_plan``), with f32's kv tile and ring slots."""
+    from aether_tpu_torch.ops import flash_attention as fa
+
+    if dtype == torch.bfloat16 and width <= fa.ONLINE_CELL_TOP:
+        return "one CTA a 128-row q tile, 64-row kv tiles"
+    plan = fa._wide_plan(width, dtype)
+    note = (f"cluster {plan.cluster} x {plan.groups} along y, slices "
+            + " + ".join(str(c) for c in plan.score_cols))
+    if dtype == torch.float32:
+        note += (", 32-row kv tiles, "
+                 + ("K and V rings of 2 slots each" if width <= fa.ONLINE_CELL_TOP
+                    else "one ring of 2 slots"))
+    return note
+
+
 def wide_kernels_phase(dev, gen):
     """Phase 29 (a): :func:`k4_dims_cases` at ``WIDE_DIMS`` (timed at
     ``WIDE_TIMED``), bf16 on ``online_cell<D>`` (64-row kv tiles), f32 on
-    ``tf32x3_cell.cuh``'s ``split_kernel<D>``."""
+    ``flash_online_wide.cu``'s CTA pairs."""
     return k4_dims_cases(dev, gen, "29a", WIDE_DIMS, WIDE_TIMED, lambda width: (
-        f"online_cell11cell_kernelILi{width}E", f"split_kernelILi{width}E"))
+        f"online_cell11cell_kernelILi{width}E", "wide_f3211wide_kernelILb0ELb1E"),
+        wide_plan_note)
 
 
 def wide_request_phase(dev, heads=WIDE_HEADS, head_dim=WIDE_HEAD_DIM, label="29b"):
@@ -4761,7 +4785,7 @@ def wide_dims_phase(dev, gen):
     t0 = time.perf_counter()
     got = k4_digests(fa, dev)
     log("phase 29d (and 30e) K4 at (1, 48, 15076, D), D 64, 72, 160 and 256, against "
-        "commit dbe6a4d: " + ", ".join(
+        "the pins: " + ", ".join(
             f"{n} {d} ({'same' if d == PARENT_K4_DIGESTS[n] else 'DIFFERS'})"
             for n, d in got.items()))
     check(got == PARENT_K4_DIGESTS, "phase 29d: an instance up to 256 changed its bits")
@@ -4824,8 +4848,6 @@ def above_dims_phase(dev, gen):
     (timed at ``ABOVE_TIMED``) on the wide kernels. (e), the digests of the
     instances up to 256, is phase 29d. Returns ({(counter, head_dim):
     launches on the paths of (b) and (c)}, (a)'s results, seconds by part)."""
-    from aether_tpu_torch.ops import flash_attention as fa
-
     secs = {}
     t0 = time.perf_counter()
     launches = wide_tiny_phase(dev, ABOVE_TRAIN_DIMS, ABOVE_TINY_DIMS, "30c")
@@ -4840,8 +4862,8 @@ def above_dims_phase(dev, gen):
     t0 = time.perf_counter()
     kernels = k4_dims_cases(
         dev, gen, "30a", ABOVE_DIMS, ABOVE_TIMED,
-        lambda width: ("wide_bf1611wide_kernelILb0E", "wide_f3211wide_kernelILb0E"),
-        lambda width, dtype: "cluster {} x {} along y".format(*fa._wide_plan(width, dtype)[:2]))
+        lambda width: ("wide_bf1611wide_kernelILb0E", "wide_f3211wide_kernelILb0ELb0E"),
+        wide_plan_note)
     secs["a"] = time.perf_counter() - t0
     log("phase 30 seconds: " + ", ".join(f"({k}) {v:.3f}" for k, v in secs.items()))
     return launches, kernels, secs
@@ -5355,7 +5377,7 @@ def main() -> None:
         *(entry(f"{name}{hd}", source, "aether_tpu/ops/flash_attention.py:69",
                 hd29_launches[counter, hd], *hd29_kernels[kern, hd])
           for name, kern, counter, source in (
-              ("flash_online_hd", "K4 f32", "flash_attention_f32_hd", "flash_online.cu"),
+              ("flash_online_wide", "K4 f32", "flash_attention_f32_hd", "flash_online_wide.cu"),
               ("flash_online_bf16_hd", "K4 bf16", "flash_attention_hd", "flash_online_bf16.cu"))
           for hd in WIDE_DIMS if (counter, hd) in hd29_launches),
         *(entry(f"{name}{hd}", source, "aether_tpu/ops/flash_attention.py:69",

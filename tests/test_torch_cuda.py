@@ -45,9 +45,13 @@ bit-identical. K3, K4 and K6 at head dims below their instance's width (1,
 8, 17, 24, 72, 120, 127; K4 also 128) on zero-padded operands. K4 above
 128 (the instances 160, 192, 224 and 256, and 144 and 200 on padded
 operands), bf16 and f32, through the same cases; at every one of the four
-widths the edges of its cells (64-row kv tiles in bf16, 16-row kv tiles and
-64-row q tiles in f32): kv_valid inside a tile, Sq not a multiple of 128,
-kv shorter than one ring slot, one valid column. K4 above 256 (the wide
+widths the edges of its cells (64-row kv tiles in bf16; in f32 a pair of
+CTAs a 128-row q tile, 32-row kv tiles): kv_valid inside a tile, Sq not a
+multiple of 128, kv shorter than one ring slot, one valid column; in f32 at
+every head dim 129-256 besides the edges of the pair (a q tile or one
+warpgroup's rows partly or wholly empty, kv_valid inside a tile and on its
+edge, kv shorter than a ring slot, B*H odd) on strided inputs, and both
+CTAs holding the same scores bit for bit. K4 above 256 (the wide
 kernels, the width a run-time multiple of 64: 257, 272, 320, 384, 512 and
 1000), bf16 and f32, through the same edges, Sq != Skv, B*H odd, extreme
 negative scores on strided inputs, and f32 at 512 over 15076 keys at mean
@@ -1001,7 +1005,8 @@ def test_online_hd_kernels_extreme_negative_scores_on_strided_inputs(dev, hd, dt
 
 
 # the edges of K4's cells above 128 (bf16: 128-row q tiles, 64-row kv tiles
-# in a ring of 4 to 2 slots; f32: 64-row q tiles, 16-row kv tiles):
+# in a ring of 4 to 2 slots; f32: a pair of CTAs a 128-row q tile, 32-row kv
+# tiles):
 # (batch, heads, q tokens, kv tokens, kv_valid)
 K4_WIDE_CASES = [
     (1, 2, 130, 333, 300),     # Sq not a multiple of 128; kv_valid inside a tile
@@ -1032,6 +1037,59 @@ def test_online_wide_kernels_tiles(dev, hd, b, h, sq, skv, kv_valid, dtype):
     assert _counts(_64_COUNTED) == before64
     assert torch.equal(out, again)
     _check_k4(out, ref)
+
+
+# K4 f32 at 129-256: a pair of CTAs a 128-row q tile splits the head dim
+# in 32-column units (``_wide_plan``: 160 96 + 64, 192 96 + 96, 224 128 + 96,
+# 256 128 + 128), 32-row kv tiles through K and V rings of 2 slots each;
+# strided inputs (the DiT's [B, S, H, D] layout):
+# (batch, heads, q tokens, kv tokens, kv_valid)
+PAIR_CASES = [
+    (1, 3, 130, 333, 300),     # the last q tile 2 rows (its second warpgroup empty),
+                               # kv_valid inside a tile; B*H odd
+    (1, 1, 200, 2100, 1024),   # the last q tile's second warpgroup 8 rows;
+                               # kv_valid on a tile edge, the tiles past it skipped
+    (1, 3, 77, 10, None),      # kv shorter than one tile and ring slot
+    (1, 5, 257, 700, 650),     # three q tiles, the last one row; both rings wrapping
+]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,kv_valid", PAIR_CASES)
+@pytest.mark.parametrize("hd", WIDE_DIMS)
+def test_online_f32_pair_edges(dev, hd, b, h, sq, skv, kv_valid):
+    """K4 f32 at 129-256 on the edges of its CTA pair, on strided inputs,
+    against the plain version at K4's gates: one launch of the f32 head-dim
+    kernel a call, none of the head_dim-64 ones, two launches bit-identical."""
+    q, k, v = _qkv(dev, (b, sq, h, hd), (b, skv, h, hd), torch.float32,
+                   seed=hd + sq + skv + 11)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    before, before64 = flash_attention_f32_hd.launches, _counts(_64_COUNTED)
+    out = flash_attention(q, k, v, kv_valid=kv_valid)
+    again = flash_attention(q, k, v, kv_valid=kv_valid)
+    ref = flash_attention_plain(q, k, v, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert flash_attention_f32_hd.launches == before + 2
+    assert _counts(_64_COUNTED) == before64
+    assert torch.equal(out, again)
+    _check_k4(out, ref)
+
+
+@pytest.mark.parametrize("hd", [160, 192, 224, 256])
+def test_online_f32_pair_holds_the_same_scores(dev, hd):
+    """Both CTAs of a pair hold the same S, bit for bit: with v's columns of
+    the second CTA's output slice a copy of the first slice's first columns,
+    those output columns are equal, though each CTA computed them from its
+    own copy of S and p (and at 160 and 224 through P V chains of other
+    widths)."""
+    plan = _wide_plan(hd, torch.float32)
+    c0, cols = plan.out_cols
+    q, k, v = _qkv(dev, (1, 3, 333, hd), (1, 3, 1000, hd), torch.float32, seed=hd + 13)
+    v[..., c0:c0 + cols] = v[..., :cols]
+    out = flash_attention(q, k, v, kv_valid=900)
+    torch.cuda.synchronize()
+    assert plan.cluster == 2 and plan.groups == 1
+    assert torch.equal(out[..., c0:c0 + cols], out[..., :cols])
+    _check_k4(out, flash_attention_plain(q, k, v, kv_valid=900))
 
 
 # K4 above 256: the wide kernels (a thread-block cluster a q tile splitting

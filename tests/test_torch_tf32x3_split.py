@@ -1,27 +1,31 @@
-"""The split plan of K4 in f32 above head_dim 128, on the CPU.
+"""K4 in f32 at head_dim 129-256, its CTA pair's summation order, on the CPU.
 
-Above 128 ``csrc/tf32x3_cell.cuh``'s ``split_kernel`` runs K4 in f32 (the
-widths 160, 192, 224 and 256) on another tile plan than the cell below 128:
-64 q rows a CTA, both consumer warpgroups on them, each over half the head
-dim. A CUDA kernel cannot run here, so this file emulates its summation
+From 129 to 256 ``csrc/flash_online_wide.cu`` runs K4 in f32 (the widths
+160, 192, 224 and 256) on a pair of CTAs a 128-row q tile, in the place of
+``tf32x3_cell.cuh``'s ``split_kernel`` (64 q rows a CTA, 16-row kv tiles).
+A CUDA kernel cannot run here, so this file emulates the pair's summation
 order in plain torch on the operands the wrapper hands it
 (``_online_kernel_operands``: zero-padded to the width, the fold of the true
-D; then ``_tf32_operands``):
-- S in two parts: warpgroup w sums the three TF32 products (Q_hi K_hi^T +
-  Q_hi K_lo^T + Q_lo K_hi^T) over its half of the head-dim columns, and the
-  parts meet as S = S_0 + S_1 in f32;
-- kv tiles of 16 columns: the running max, p = exp2(s - m), its split into
+D; then ``_tf32_operands``), as ``test_torch_tf32x3_wide.py``'s emulation of
+the kernel does:
+- S in two parts by ``_wide_plan``'s 32-column units (160: 96 + 64, 192: 96
+  + 96, 224: 128 + 96, 256: 128 + 128): each CTA sums the three TF32
+  products (Q_hi K_hi^T + Q_hi K_lo^T + Q_lo K_hi^T) over the 32-column
+  panels of its slice in order, and the parts meet in rank order, S = S_0
+  + S_1 in f32;
+- kv tiles of 32 columns: the running max, p = exp2(s - m), its split into
   P_hi and P_lo, the row sums of unrounded p ("vpu");
-- each tile's P V in fresh registers (three TF32 products against the
-  kv-permuted V^T of the tile), added into the output on the FMA units, o =
-  alpha o + P V: the output columns are independent, so the warpgroups'
-  halves (and the two 64-column chains at 256) are one product here.
+- each tile's P V per output slice (the CTA's rows of V^T; three TF32
+  products against the kv-permuted V^T of the tile) in fresh registers,
+  added into the output on the FMA units, o = alpha o + P V: the output
+  columns are independent, so a slice's chains (64 + 64, 32 + 64, 64) are
+  one product here.
 It is held against the JAX ``flash_attention`` in interpret mode at
 ``tests/test_torch_tf32x3.py``'s f32 tolerance, max abs 2e-5, at head_dim
-136 (on the instance of 160), 160, 200 (on 224) and 256, with ``kv_valid``
-inside a tile, Sq != Skv and B*H odd; on the same inputs a one-pass TF32
-emulation (the hi parts alone) misses it. The CUDA kernel is held against
-the plain version on the card (``chip_smoke.py`` phase 29,
+136 (on the width 160), 160, 200 (on 224) and 256, with ``kv_valid`` inside
+a tile, Sq != Skv and B*H odd; on the same inputs a one-pass TF32 emulation
+(the hi parts alone) misses it. The CUDA kernel is held against the plain
+version on the card (``chip_smoke.py`` phase 29,
 ``tests/test_torch_cuda.py``).
 """
 
@@ -31,51 +35,21 @@ import torch
 
 from aether_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from aether_tpu_torch.ops import flash_attention as fa
-from test_torch_tf32x3 import TOL, _inputs, _max_err, _pv, _tiles
+from test_torch_tf32x3 import TOL, _inputs, _max_err
+from test_torch_tf32x3_wide import KV_TILE, emulate_wide
 
 torch.set_num_threads(1)
 
-KV_TILE = 16  # tf32x3_cell.cuh: SplitPlan<D>::kBN
-
-
-def _split_scores(t, half: int, one_pass: bool) -> torch.Tensor:
-    """S = S_0 + S_1, [BH, Sq, Skv] f32: part w the three TF32 products over
-    head-dim columns w half .. + half - 1 (tf32-exact operands: each product
-    exact in f32, the sums f32)."""
-    parts = []
-    for w in range(2):
-        cols = slice(w * half, (w + 1) * half)
-        kt_hi = t.k_hi[..., cols].transpose(1, 2)
-        s = torch.matmul(t.q_hi[..., cols], kt_hi)
-        if not one_pass:
-            s = (s + torch.matmul(t.q_hi[..., cols], t.k_lo[..., cols].transpose(1, 2))
-                 + torch.matmul(t.q_lo[..., cols], kt_hi))
-        parts.append(s)
-    return parts[0] + parts[1]
-
 
 def emulate_split(q, k, v, kv_valid=None, one_pass=False) -> torch.Tensor:
-    """K4 f32 above 128 as ``split_kernel`` computes it, q [B, H, Sq, D] and
-    k/v [B, H, Skv, D] f32 -> [B, H, Sq, D]."""
-    b, h, sq, dim = q.shape
-    qh, kh, vh, kv_len, fold = fa._online_kernel_operands(q, k, v, None, kv_valid)
-    width = qh.shape[-1]
-    assert width in (160, 192, 224, 256)
-    t = fa._tf32_operands((qh * fold).to(qh.dtype), kh, vh)
-    s_all = _split_scores(t, width // 2, one_pass)
-    m = torch.full((b * h, sq, 1), float("-inf"))
-    l = torch.zeros((b * h, sq, 1))
-    acc = torch.zeros((b * h, sq, width))
-    for c0, s, masked in _tiles(s_all, kv_len, KV_TILE):
-        s = s.masked_fill(masked, -0.7 * torch.finfo(torch.float32).max)
-        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp2(m - m_next)
-        m = m_next
-        p = torch.exp2(s - m_next)
-        l = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc = alpha * acc + _pv(p, t, c0, KV_TILE, one_pass)
-    out = acc * torch.where(l <= 0, torch.ones_like(l), 1.0 / l)
-    return out[..., :dim].reshape(b, h, sq, dim)
+    """K4 f32 at 129-256 as the CTA pair computes it (``emulate_wide`` on
+    the pair's plan), q [B, H, Sq, D] and k/v [B, H, Skv, D] f32 -> [B, H,
+    Sq, D]."""
+    width = fa.head_dim_width(q.shape[-1])
+    assert width in (160, 192, 224, 256) and KV_TILE == 32
+    plan = fa._wide_plan(width, torch.float32)
+    assert plan.cluster == 2 and plan.groups == 1 and min(plan.score_cols) >= 64
+    return emulate_wide(q, k, v, kv_valid, one_pass)
 
 
 # head_dim, (B, H, Sq), (B, H, Skv), kv_valid

@@ -1,10 +1,11 @@
-"""The arithmetic of K4's wide f32 kernel (head_dim above 256), on the CPU.
+"""The arithmetic of K4's wide f32 kernel (head_dim above 128), on the CPU.
 
-Above 256 ``csrc/flash_online_wide.cu`` runs K4 in f32 with the width at
-run time: q, k and v zero-padded to the next multiple of 64 and split into
-their 3xTF32 operands by the wrapper (``_online_kernel_operands``, then
-``_tf32_operands``). A thread-block cluster of CTAs splits the head dim of
-each q tile (``_wide_plan``). A CUDA kernel cannot run here, so this file
+Above 128 ``csrc/flash_online_wide.cu`` runs K4 in f32 with the width at
+run time: q, k and v zero-padded to the next multiple of 32 up to 256 (of 64
+above) and split into their 3xTF32 operands by the wrapper
+(``_online_kernel_operands``, then ``_tf32_operands``). A thread-block
+cluster of CTAs splits the head dim of each q tile (``_wide_plan``: a pair
+in 32-column units up to 256). A CUDA kernel cannot run here, so this file
 emulates its summation order in plain torch on those operands:
 - each rank's part of S of a kv tile over its slice of the head dim: panels
   of 32 columns in order, each the three TF32 products Q_hi K_hi^T + Q_hi
@@ -21,8 +22,9 @@ It is held against the JAX ``flash_attention`` in interpret mode at
 ``tests/test_torch_tf32x3.py``'s f32 tolerance, max abs 2e-5, at head_dim
 257, 320, 384 and 512, with ``kv_valid`` inside a tile, Sq != Skv and B*H
 odd; on the same inputs a one-pass TF32 emulation (the hi parts alone)
-misses it. ``_wide_plan`` itself (cluster size, slices, clusters along y)
-is pinned for both dtypes. The CUDA kernel is held against the plain
+misses it (``test_torch_tf32x3_split.py`` holds it so at 129-256).
+``_wide_plan`` itself (cluster size, slices, clusters along y) is pinned for
+both dtypes. The CUDA kernel is held against the plain
 version on the card (``chip_smoke.py`` phase 30, ``tests/test_torch_cuda.py``).
 """
 
@@ -70,12 +72,12 @@ def _cluster_scores(t, plan, one_pass: bool) -> torch.Tensor:
 
 
 def emulate_wide(q, k, v, kv_valid=None, one_pass=False) -> torch.Tensor:
-    """K4 f32 above 256 as ``flash_online_wide.cu`` computes it, q [B, H, Sq,
+    """K4 f32 above 128 as ``flash_online_wide.cu`` computes it, q [B, H, Sq,
     D] and k/v [B, H, Skv, D] f32 -> [B, H, Sq, D]."""
     b, h, sq, dim = q.shape
     qh, kh, vh, kv_len, fold = fa._online_kernel_operands(q, k, v, None, kv_valid)
     width = qh.shape[-1]
-    assert width > 256 and width % 64 == 0
+    assert width > 128 and width % (32 if width <= 256 else 64) == 0
     t = fa._tf32_operands((qh * fold).to(qh.dtype), kh, vh)
     plan = fa._wide_plan(width, torch.float32)
     s_all = _cluster_scores(t, plan, one_pass)
@@ -122,8 +124,13 @@ def test_emulated_wide_kernel_matches_pallas_interpret(hd, q_bhs, kv_bhs, kv_val
 
 
 # width: (cluster, clusters along y, S's columns by rank, output columns by CTA)
-# in bf16 (slices of at most 256) and f32 (at most 128)
+# in bf16 (slices of at most 256) and f32 (at most 128; a pair in 32-column
+# units from 160 to 256)
 _PLANS = {
+    (160, torch.float32): (2, 1, (96, 64), (96, 64)),
+    (192, torch.float32): (2, 1, (96, 96), (96, 96)),
+    (224, torch.float32): (2, 1, (128, 96), (128, 96)),
+    (256, torch.float32): (2, 1, (128, 128), (128, 128)),
     (320, torch.bfloat16): (2, 1, (192, 128), (192, 128)),
     (384, torch.bfloat16): (2, 1, (192, 192), (192, 192)),
     (512, torch.bfloat16): (2, 1, (256, 256), (256, 256)),
@@ -147,20 +154,23 @@ _PLANS = {
 def test_wide_plan(dp, dtype):
     """The wide kernels' cluster plan: at most 8 CTAs a cluster split S's head
     dim in slices of at most 256 (bf16) / 128 (f32) columns, evenly in
-    64-column units, first slices the wider; above 8 slices, clusters along
-    y each compute S and share the output columns, at most one slice each."""
+    64-column units (f32 at 160-256: a pair in 32-column units), first slices
+    the wider; above 8 slices, clusters along y each compute S and share the
+    output columns, at most one slice each."""
     plan = fa._wide_plan(dp, dtype)
     assert plan == _PLANS[dp, dtype]
     top = 256 if dtype == torch.bfloat16 else 128
+    unit = 32 if dp <= 256 else 64
     assert sum(plan.score_cols) == dp == sum(plan.out_cols)
     assert len(plan.score_cols) == plan.cluster <= 8
     assert len(plan.out_cols) == plan.cluster * plan.groups
     assert max(plan.out_cols) <= top and min(plan.out_cols) >= 64
+    assert all(c % unit == 0 for c in plan.score_cols + plan.out_cols)
     assert (plan.groups == 1) == (max(plan.score_cols) <= top)
     assert plan.score_cols == tuple(sorted(plan.score_cols, reverse=True))
 
 
-@pytest.mark.parametrize("dp", [64, 256, 300])
+@pytest.mark.parametrize("dp", [64, 128, 300])
 def test_wide_plan_refuses_other_widths(dp):
     with pytest.raises(ValueError):
         fa._wide_plan(dp, torch.float32)
